@@ -1,0 +1,311 @@
+"""Device columnar batches on torch tensors.
+
+Counterpart of ``spark_rapids_tpu/columnar/batch.py``. The layout is the
+same, so the two packages' batches can be compared plane by plane:
+
+- A column is a data plane (or, for strings, a dict of planes) plus an
+  optional bool validity plane (True = valid). ``validity=None`` means
+  every row below ``num_rows`` is valid.
+- Planes are padded to a power-of-two row capacity; rows at or past
+  ``num_rows`` hold defined garbage that kernels mask out.
+- Strings are dictionary-encoded when the vocabulary is small (int32 codes
+  + int32 vocab offsets + uint8 vocab bytes), else flat offsets + bytes.
+- ``row_mask`` is a selection vector: a filter marks rows dead instead of
+  gathering the survivors, and the surviving count stays on the device as
+  a ``LazyRowCount`` until the host needs it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from spark_rapids_tpu_torch import types as T
+
+#: capacity floor (the JAX package's session default of
+#: spark.rapids.tpu.batchCapacityMinRows)
+MIN_CAPACITY = 1024
+
+
+def round_capacity(n: int, minimum: Optional[int] = None) -> int:
+    """Round a row count up to its capacity bucket: the next power of two
+    at or above max(n, 1, minimum) (the JAX package's default ladder)."""
+    if minimum is None:
+        minimum = MIN_CAPACITY
+    n = max(int(n), 1, int(minimum))
+    return 1 << (n - 1).bit_length()
+
+
+class LazyRowCount:
+    """A row count held as a 0-d device tensor until a host consumer needs
+    the int; reading it costs one device-to-host sync."""
+
+    __slots__ = ("_dev", "_val")
+
+    def __init__(self, dev: torch.Tensor):
+        self._dev = dev
+        self._val: Optional[int] = None
+
+    def materialize(self) -> int:
+        if self._val is None:
+            self._val = int(self._dev.item())
+        return self._val
+
+    def __int__(self):
+        return self.materialize()
+
+    __index__ = __int__
+
+    def __repr__(self):
+        return (f"LazyRowCount({self._val})" if self._val is not None
+                else "LazyRowCount(<device>)")
+
+
+def rows_tensor(n) -> Union[int, torch.Tensor]:
+    """num_rows without a sync: the device scalar of a lazy count, or the
+    host int."""
+    if isinstance(n, LazyRowCount):
+        return n._dev if n._val is None else n._val
+    return n
+
+
+@dataclasses.dataclass
+class ColumnVector:
+    """One device-resident column (see the module docstring for planes)."""
+
+    dtype: T.DataType
+    data: Union[torch.Tensor, Dict[str, torch.Tensor]]
+    validity: Optional[torch.Tensor] = None
+    #: dict columns only: vocab entries are known distinct
+    dict_unique: bool = True
+    #: optional host-side (min, max) int bounds from cache-time column
+    #: stats; radix packing uses them instead of a device range probe
+    bounds: Optional[Tuple[int, int]] = None
+
+    @property
+    def capacity(self) -> int:
+        if isinstance(self.data, dict):
+            if "codes" in self.data:
+                return int(self.data["codes"].shape[0])
+            return int(self.data["offsets"].shape[0]) - 1
+        return int(self.data.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        if isinstance(self.data, dict):
+            return next(iter(self.data.values())).device
+        return self.data.device
+
+    @property
+    def is_string(self) -> bool:
+        return isinstance(self.dtype, T.StringType)
+
+    @property
+    def is_dict(self) -> bool:
+        return isinstance(self.data, dict) and "codes" in self.data
+
+    @property
+    def dict_size(self) -> int:
+        return int(self.data["dict_offsets"].shape[0]) - 1
+
+    def validity_or_default(self, num_rows) -> torch.Tensor:
+        if self.validity is not None:
+            return self.validity
+        pos = torch.arange(self.capacity, device=self.device)
+        return pos < rows_tensor(num_rows)
+
+    def device_memory_size(self) -> int:
+        planes = list(self.data.values()) if isinstance(self.data, dict) \
+            else [self.data]
+        if self.validity is not None:
+            planes.append(self.validity)
+        return sum(p.numel() * p.element_size() for p in planes)
+
+
+@dataclasses.dataclass
+class ColumnarBatch:
+    """Equal-capacity columns, the row count, and an optional selection
+    mask (bool[capacity], True = live). Dead rows are nonexistent."""
+
+    columns: List[ColumnVector]
+    num_rows: Union[int, LazyRowCount]
+    row_mask: Optional[torch.Tensor] = None
+
+    @property
+    def capacity(self) -> int:
+        if not self.columns:
+            return round_capacity(int(self.num_rows))
+        return self.columns[0].capacity
+
+    @property
+    def device(self) -> torch.device:
+        return self.columns[0].device
+
+    def live_mask(self) -> torch.Tensor:
+        if self.row_mask is not None:
+            return self.row_mask
+        pos = torch.arange(self.capacity, device=self.device)
+        return pos < rows_tensor(self.num_rows)
+
+    def device_memory_size(self) -> int:
+        return sum(c.device_memory_size() for c in self.columns)
+
+
+# ---------------------------------------------------------------------------
+# Arrow in and out
+# ---------------------------------------------------------------------------
+
+def _pad_to(arr: np.ndarray, capacity: int, fill=0) -> np.ndarray:
+    if arr.shape[0] == capacity:
+        return arr
+    out = np.full((capacity,) + arr.shape[1:], fill, dtype=arr.dtype)
+    out[: arr.shape[0]] = arr
+    return out
+
+
+def _upload(arr: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+
+def _fixed_width_view(arr, np_dtype) -> np.ndarray:
+    buf = arr.buffers()[1]
+    view = np.frombuffer(buf, dtype=np_dtype, count=arr.offset + len(arr))
+    return view[arr.offset:]
+
+
+def _string_planes(arr) -> Tuple[np.ndarray, np.ndarray]:
+    """(int64 offsets rebased to 0, uint8 bytes) of a string array."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    arr = pc.fill_null(arr, "")
+    if not pa.types.is_large_string(arr.type):
+        arr = arr.cast(pa.large_string())
+    off = np.frombuffer(arr.buffers()[1], dtype=np.int64)
+    off = off[arr.offset: arr.offset + len(arr) + 1]
+    base = int(off[0])
+    nbytes = int(off[-1]) - base
+    raw = np.frombuffer(arr.buffers()[2] or b"", dtype=np.uint8)
+    return off - base, raw[base: base + nbytes]
+
+
+def column_from_arrow(arr, dtype: T.DataType, capacity: int,
+                      device) -> ColumnVector:
+    """Build a device ColumnVector from one pyarrow Array."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    n = len(arr)
+    valid_np = None if arr.null_count == 0 \
+        else np.asarray(arr.is_valid()).astype(np.bool_)
+    if isinstance(dtype, T.StringType):
+        denc = arr if pa.types.is_dictionary(arr.type) \
+            else arr.dictionary_encode()
+        vocab = denc.dictionary
+        if len(vocab) <= max(64, n // 2):
+            codes = denc.indices
+            if codes.null_count:
+                codes = pc.fill_null(codes, 0)
+            voff, vbytes = _string_planes(vocab)
+            data = {
+                "codes": _upload(_pad_to(np.asarray(codes).astype(np.int32),
+                                         capacity), device),
+                "dict_offsets": _upload(voff.astype(np.int32), device),
+                "dict_bytes": _upload(vbytes if len(vbytes)
+                                      else np.zeros(1, np.uint8), device),
+            }
+        else:
+            if pa.types.is_dictionary(arr.type):
+                arr = arr.dictionary_decode()
+            off, raw = _string_planes(arr)
+            off_padded = np.full(capacity + 1, off[-1], dtype=np.int32)
+            off_padded[: n + 1] = off
+            byte_cap = round_capacity(max(len(raw), 1), minimum=8)
+            data = {"offsets": _upload(off_padded, device),
+                    "bytes": _upload(_pad_to(raw, byte_cap), device)}
+    elif isinstance(dtype, T.BooleanType):
+        np_arr = np.asarray(pc.fill_null(arr, False), dtype=np.bool_)
+        data = _upload(_pad_to(np_arr, capacity), device)
+    else:
+        if arr.null_count:
+            arr = pc.fill_null(arr, 0)
+        np_arr = _fixed_width_view(arr, dtype.np_dtype)
+        data = _upload(_pad_to(np_arr, capacity), device)
+    validity = None if valid_np is None \
+        else _upload(_pad_to(valid_np, capacity, fill=False), device)
+    return ColumnVector(dtype, data, validity)
+
+
+def from_arrow(table, device="cpu") -> ColumnarBatch:
+    """pyarrow Table -> device ColumnarBatch (one upload per plane)."""
+    table = table.combine_chunks()
+    n = table.num_rows
+    cap = round_capacity(n)
+    cols = []
+    for i, field in enumerate(table.schema):
+        dtype = T.from_arrow(field.type)
+        chunked = table.column(i)
+        arr = chunked.chunk(0) if chunked.num_chunks \
+            else chunked.combine_chunks()
+        cols.append(column_from_arrow(arr, dtype, cap, torch.device(device)))
+    return ColumnarBatch(cols, n)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def _vocab(offsets: np.ndarray, raw: np.ndarray):
+    import pyarrow as pa
+    return pa.array([bytes(raw[offsets[i]: offsets[i + 1]]).decode(
+        "utf-8", "replace") for i in range(len(offsets) - 1)], pa.string())
+
+
+def to_arrow(batch: ColumnarBatch, names: Optional[Sequence[str]] = None):
+    """Device ColumnarBatch -> pyarrow Table. A selection mask compacts on
+    the host here; callers compact large sparse batches on the device
+    first (session.collect)."""
+    import pyarrow as pa
+    n = int(batch.num_rows)
+    sel = None
+    if batch.row_mask is not None:
+        sel = np.flatnonzero(_host(batch.row_mask))
+        n = len(sel)
+
+    def rows(a: np.ndarray) -> np.ndarray:
+        return a[sel] if sel is not None else a[:n]
+
+    arrays, fields = [], []
+    for i, col in enumerate(batch.columns):
+        name = names[i] if names else f"c{i}"
+        at = T.to_arrow(col.dtype)
+        valid = None if col.validity is None else rows(_host(col.validity))
+        mask = None if valid is None else ~valid
+        if col.is_dict:
+            codes = rows(_host(col.data["codes"])).astype(np.int32)
+            vocab = _vocab(_host(col.data["dict_offsets"]),
+                           _host(col.data["dict_bytes"]))
+            if len(vocab) == 0:
+                codes = np.zeros_like(codes)
+                vocab = pa.array([""], pa.string())
+                mask = np.ones(len(codes), np.bool_)
+            arr = pa.DictionaryArray.from_arrays(
+                pa.array(codes, pa.int32(), mask=mask), vocab
+            ).dictionary_decode()
+        elif col.is_string:
+            off = _host(col.data["offsets"])
+            raw = _host(col.data["bytes"])
+            idx = sel if sel is not None else np.arange(n)
+            vals = [None if (valid is not None and not valid[j]) else
+                    bytes(raw[off[i]: off[i + 1]]).decode("utf-8", "replace")
+                    for j, i in enumerate(idx)]
+            arr = pa.array(vals, pa.string())
+        elif isinstance(col.dtype, T.DateType):
+            arr = pa.array(rows(_host(col.data)).astype("datetime64[D]"),
+                           type=at, mask=mask)
+        else:
+            arr = pa.array(rows(_host(col.data)), type=at, mask=mask)
+        arrays.append(arr)
+        fields.append(pa.field(name, at))
+    return pa.Table.from_arrays(arrays, schema=pa.schema(fields))

@@ -1,0 +1,88 @@
+"""Typed config registry.
+
+Counterpart of ``spark_rapids_tpu/config.py`` holding the keys this engine
+reads. Key names and defaults are the JAX package's, so one conf dict
+drives both sessions.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional
+
+_REGISTRY: "Dict[str, ConfEntry]" = {}
+
+
+@dataclasses.dataclass(frozen=True)
+class ConfEntry:
+    key: str
+    default: Any
+    doc: str
+    conv: Callable[[str], Any]
+
+
+def _bool_conv(s: str) -> bool:
+    return str(s).strip().lower() in ("1", "true", "yes", "on")
+
+
+def _register(key, default, doc, conv) -> ConfEntry:
+    if key in _REGISTRY:
+        raise ValueError(f"duplicate conf key {key}")
+    e = ConfEntry(key, default, doc, conv)
+    _REGISTRY[key] = e
+    return e
+
+
+TARGET_BATCH_SIZE = _register(
+    "spark.rapids.sql.batchSizeBytes", 1 << 30,
+    "Target columnar batch size in bytes; CoalesceBatchesExec concatenates "
+    "batches up to this size.", int)
+
+MAX_READER_BATCH_SIZE_ROWS = _register(
+    "spark.rapids.sql.reader.batchSizeRows", 1 << 20,
+    "Soft cap on rows per batch produced by scans.", int)
+
+SHUFFLE_PARTITIONING = _register(
+    "spark.rapids.shuffle.partitioning", "compact",
+    "Device repartition strategy for hash exchanges. Only 'compact' is "
+    "implemented: one stable counting sort per input batch makes each "
+    "target partition contiguous and a single fetch of the offsets vector "
+    "sizes the outputs.", str)
+
+PALLAS_ENABLED = _register(
+    "spark.rapids.sql.pallas.enabled", True,
+    "Take the sorted segmented-sum route (the segsum kernel) for eligible "
+    "group-by sums; the scatter route runs otherwise. The two routes are "
+    "different algorithms; this key never swaps a kernel for its plain "
+    "version.", _bool_conv)
+
+ANSI_ENABLED = _register(
+    "spark.sql.ansi.enabled", False,
+    "ANSI mode: division by zero and overflowing casts raise instead of "
+    "returning null.", _bool_conv)
+
+
+def keys():
+    return list(_REGISTRY)
+
+
+class RapidsConf:
+    """A snapshot of config values: defaults, then explicit overrides."""
+
+    def __init__(self, overrides: Optional[dict] = None):
+        self._values: Dict[str, Any] = {k: e.default
+                                        for k, e in _REGISTRY.items()}
+        for k, v in (overrides or {}).items():
+            self.set(k, v)
+
+    def get(self, entry_or_key) -> Any:
+        key = entry_or_key.key if isinstance(entry_or_key, ConfEntry) \
+            else entry_or_key
+        return self._values.get(key)
+
+    def set(self, entry_or_key, value) -> "RapidsConf":
+        key = entry_or_key.key if isinstance(entry_or_key, ConfEntry) \
+            else entry_or_key
+        if key in _REGISTRY and isinstance(value, str):
+            value = _REGISTRY[key].conv(value)
+        self._values[key] = value
+        return self

@@ -1,0 +1,1 @@
+"""exec layer of spark_rapids_tpu_torch (see the package docstring)."""

@@ -1,0 +1,540 @@
+"""Expression trees evaluated on torch tensors.
+
+Counterpart of ``spark_rapids_tpu/expr/core.py`` for the expressions this
+engine carries: column references, literals, aliases, ``+ - * / %``,
+comparisons, ``And``/``Or``/``Not``, ``IsNull``/``IsNotNull`` and numeric
+casts. Null semantics follow Spark SQL, as in the JAX package: arithmetic
+and comparisons propagate nulls, AND/OR are Kleene, division or remainder
+by zero is null (or an error in ANSI mode).
+
+``eval(ctx)`` runs eagerly over a batch's planes; a column whose validity
+is None is valid on every live row.
+"""
+from __future__ import annotations
+
+import datetime
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar.batch import ColumnVector, rows_tensor
+
+
+class SparkException(Exception):
+    """An ANSI-mode runtime error (division by zero, cast overflow)."""
+
+
+class EvalCtx:
+    """Input columns of one batch, its live mask, and the ANSI error
+    planes collected while evaluating."""
+
+    def __init__(self, columns: Sequence[ColumnVector], num_rows,
+                 capacity: int, device, ansi: bool = False,
+                 live: Optional[torch.Tensor] = None):
+        self.columns = list(columns)
+        self.num_rows = num_rows
+        self.capacity = capacity
+        self.device = torch.device(device)
+        self.ansi = ansi
+        self.live = live
+        self.errors: List[Tuple[str, torch.Tensor]] = []
+
+    @property
+    def row_mask(self) -> torch.Tensor:
+        if self.live is not None:
+            return self.live
+        pos = torch.arange(self.capacity, device=self.device)
+        return pos < rows_tensor(self.num_rows)
+
+    def add_error(self, code: str, mask: torch.Tensor) -> None:
+        self.errors.append((code, mask & self.row_mask))
+
+
+def raise_errors(errors: Sequence[Tuple[str, torch.Tensor]]) -> None:
+    """Raise the first ANSI error any live row hit (one sync per plane)."""
+    for code, mask in errors:
+        if bool(mask.any().item()):
+            raise SparkException(f"[{code}] ANSI mode error")
+
+
+class Expression:
+    children: List["Expression"] = []
+
+    def data_type(self) -> T.DataType:
+        raise NotImplementedError
+
+    def eval(self, ctx: EvalCtx) -> ColumnVector:
+        raise NotImplementedError(f"{type(self).__name__} on the device")
+
+    def static_range(self):
+        """Optional (lo, hi) int bounds derivable from the expression alone
+        (``x % 1000``); lets radix packing skip its range probe."""
+        return None
+
+    def _params(self) -> str:
+        return ""
+
+    def fingerprint(self) -> str:
+        kids = ",".join(c.fingerprint() for c in self.children)
+        return f"{type(self).__name__}({self._params()};{kids})"
+
+    def with_children(self, children: List["Expression"]) -> "Expression":
+        return self
+
+    def transform(self, fn) -> "Expression":
+        new = self.with_children([c.transform(fn) for c in self.children])
+        return fn(new)
+
+    def __repr__(self):
+        return self.fingerprint()
+
+    def __add__(self, o): return Add(self, _wrap(o))
+    def __radd__(self, o): return Add(_wrap(o), self)
+    def __sub__(self, o): return Subtract(self, _wrap(o))
+    def __rsub__(self, o): return Subtract(_wrap(o), self)
+    def __mul__(self, o): return Multiply(self, _wrap(o))
+    def __rmul__(self, o): return Multiply(_wrap(o), self)
+    def __truediv__(self, o): return Divide(self, _wrap(o))
+    def __mod__(self, o): return Remainder(self, _wrap(o))
+    def __eq__(self, o): return EqualTo(self, _wrap(o))  # type: ignore[override]
+    def __ne__(self, o): return Not(EqualTo(self, _wrap(o)))  # type: ignore[override]
+    def __lt__(self, o): return LessThan(self, _wrap(o))
+    def __le__(self, o): return LessThanOrEqual(self, _wrap(o))
+    def __gt__(self, o): return GreaterThan(self, _wrap(o))
+    def __ge__(self, o): return GreaterThanOrEqual(self, _wrap(o))
+    def __and__(self, o): return And(self, _wrap(o))
+    def __or__(self, o): return Or(self, _wrap(o))
+    def __invert__(self): return Not(self)
+
+    def __hash__(self):
+        return hash(self.fingerprint())
+
+    def is_null(self): return IsNull(self)
+    def is_not_null(self): return IsNotNull(self)
+    def alias(self, name): return Alias(self, name)
+    def cast(self, dtype): return Cast(self, dtype)
+
+
+def _wrap(v) -> Expression:
+    return v if isinstance(v, Expression) else Literal.infer(v)
+
+
+def col(name: str) -> "Col":
+    return Col(name)
+
+
+def lit(v) -> "Literal":
+    return Literal.infer(v)
+
+
+def _valid_of(c: ColumnVector, ctx: EvalCtx) -> torch.Tensor:
+    # validity None means valid wherever the row is live
+    return c.validity if c.validity is not None else ctx.row_mask
+
+
+# ---------------------------------------------------------------------------
+# Leaves
+# ---------------------------------------------------------------------------
+
+class Col(Expression):
+    """Unresolved column name; binding rewrites it to a BoundRef."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.children = []
+
+    def data_type(self):
+        raise RuntimeError(f"unresolved column {self.name!r}")
+
+    def _params(self):
+        return self.name
+
+
+class BoundRef(Expression):
+    def __init__(self, index: int, dtype: T.DataType, name: str = ""):
+        self.index = index
+        self.dtype = dtype
+        self.name = name
+        self.children = []
+
+    def data_type(self):
+        return self.dtype
+
+    def _params(self):
+        return f"{self.index}:{self.dtype!r}"
+
+    def eval(self, ctx):
+        return ctx.columns[self.index]
+
+
+class Literal(Expression):
+    def __init__(self, value, dtype: T.DataType):
+        self.value = value
+        self.dtype = dtype
+        self.children = []
+
+    @staticmethod
+    def infer(v) -> "Literal":
+        if isinstance(v, bool):
+            return Literal(v, T.BOOLEAN)
+        if isinstance(v, int):
+            return Literal(v, T.INT32 if -(2 ** 31) <= v < 2 ** 31
+                           else T.INT64)
+        if isinstance(v, float):
+            return Literal(v, T.FLOAT64)
+        if isinstance(v, str):
+            return Literal(v, T.STRING)
+        if isinstance(v, datetime.date):
+            return Literal(v, T.DATE)
+        raise TypeError(f"cannot infer literal type for {v!r}")
+
+    def data_type(self):
+        return self.dtype
+
+    def static_range(self):
+        if self.dtype.is_integral:
+            return (int(self.value), int(self.value))
+        return None
+
+    def _params(self):
+        return f"{self.value!r}:{self.dtype!r}"
+
+    def _scalar(self):
+        if isinstance(self.dtype, T.DateType) \
+                and isinstance(self.value, datetime.date):
+            return (self.value - datetime.date(1970, 1, 1)).days
+        return self.value
+
+    def eval(self, ctx):
+        if isinstance(self.dtype, T.StringType):
+            raise NotImplementedError(
+                "string literal outside a dict-string comparison")
+        data = torch.full((ctx.capacity,), self._scalar(),
+                          dtype=self.dtype.torch_dtype, device=ctx.device)
+        return ColumnVector(self.dtype, data,
+                            torch.ones(ctx.capacity, dtype=torch.bool,
+                                       device=ctx.device))
+
+
+class Alias(Expression):
+    def __init__(self, child: Expression, name: str):
+        self.children = [child]
+        self.name = name
+
+    def data_type(self):
+        return self.children[0].data_type()
+
+    def static_range(self):
+        return self.children[0].static_range()
+
+    def _params(self):
+        return self.name
+
+    def with_children(self, children):
+        return Alias(children[0], self.name)
+
+    def eval(self, ctx):
+        return self.children[0].eval(ctx)
+
+
+# ---------------------------------------------------------------------------
+# Arithmetic
+# ---------------------------------------------------------------------------
+
+def _promote(l: ColumnVector, r: ColumnVector, out: T.DataType):
+    return (l.data.to(out.torch_dtype), r.data.to(out.torch_dtype))
+
+
+class BinaryExpression(Expression):
+    def __init__(self, left: Expression, right: Expression):
+        self.children = [left, right]
+
+    @property
+    def left(self):
+        return self.children[0]
+
+    @property
+    def right(self):
+        return self.children[1]
+
+    def with_children(self, children):
+        return type(self)(children[0], children[1])
+
+
+class BinaryArithmetic(BinaryExpression):
+    @staticmethod
+    def op(a, b):
+        raise NotImplementedError
+
+    def data_type(self):
+        return T.common_type(self.left.data_type(), self.right.data_type())
+
+    def eval(self, ctx):
+        l = self.left.eval(ctx)
+        r = self.right.eval(ctx)
+        out = self.data_type()
+        ld, rd = _promote(l, r, out)
+        return ColumnVector(out, type(self).op(ld, rd),
+                            _valid_of(l, ctx) & _valid_of(r, ctx))
+
+
+class Add(BinaryArithmetic):
+    op = staticmethod(lambda a, b: a + b)
+
+
+class Subtract(BinaryArithmetic):
+    op = staticmethod(lambda a, b: a - b)
+
+
+class Multiply(BinaryArithmetic):
+    op = staticmethod(lambda a, b: a * b)
+
+
+class Divide(BinaryExpression):
+    """Spark ``/``: double result; division by zero is null (ANSI: error)."""
+
+    def data_type(self):
+        return T.FLOAT64
+
+    def eval(self, ctx):
+        l = self.left.eval(ctx)
+        r = self.right.eval(ctx)
+        ld = l.data.to(torch.float64)
+        rd = r.data.to(torch.float64)
+        zero = rd == 0.0
+        valid = _valid_of(l, ctx) & _valid_of(r, ctx)
+        if ctx.ansi:
+            ctx.add_error("DIVIDE_BY_ZERO", zero & valid)
+        data = ld / torch.where(zero, 1.0, rd)
+        return ColumnVector(T.FLOAT64, torch.where(zero, 0.0, data),
+                            valid & ~zero)
+
+
+def _java_int_div(a, b):
+    """Truncated (toward-zero) integer division, Java semantics."""
+    return torch.div(a, b, rounding_mode="trunc")
+
+
+class Remainder(BinaryExpression):
+    """Spark ``%``: the sign follows the dividend; a zero divisor is null."""
+
+    def data_type(self):
+        return T.common_type(self.left.data_type(), self.right.data_type())
+
+    def static_range(self):
+        r = self.right.static_range()
+        if r is None or not self.data_type().is_integral:
+            return None
+        m = max(abs(r[0]), abs(r[1]))
+        if m == 0:
+            return None
+        lr = self.left.static_range()
+        lo = 0 if (lr is not None and lr[0] >= 0) else -(m - 1)
+        return (lo, m - 1)
+
+    def eval(self, ctx):
+        l = self.left.eval(ctx)
+        r = self.right.eval(ctx)
+        out = self.data_type()
+        ld, rd = _promote(l, r, out)
+        valid = _valid_of(l, ctx) & _valid_of(r, ctx)
+        if out.is_integral:
+            zero = rd == 0
+            if ctx.ansi:
+                ctx.add_error("DIVIDE_BY_ZERO", zero & valid)
+            safe = torch.where(zero, torch.ones_like(rd), rd)
+            rem = ld - _java_int_div(ld, safe) * safe
+            return ColumnVector(out, torch.where(zero, torch.zeros_like(rem),
+                                                 rem), valid & ~zero)
+        return ColumnVector(out, torch.where(rd == 0, float("nan"),
+                                             torch.fmod(ld, rd)), valid)
+
+
+# ---------------------------------------------------------------------------
+# Comparisons and boolean logic
+# ---------------------------------------------------------------------------
+
+def _dict_literal_codes(c: ColumnVector, value: str) -> int:
+    """Vocab code of a string literal in a dict column, -1 if absent."""
+    off = c.data["dict_offsets"].cpu().tolist()
+    raw = bytes(c.data["dict_bytes"].cpu().numpy())
+    target = value.encode("utf-8")
+    for k in range(len(off) - 1):
+        if raw[off[k]: off[k + 1]] == target:
+            return k
+    return -1
+
+
+class BinaryComparison(BinaryExpression):
+    @staticmethod
+    def op(a, b):
+        raise NotImplementedError
+
+    def data_type(self):
+        return T.BOOLEAN
+
+    def eval(self, ctx):
+        l = self.left.eval(ctx)
+        if isinstance(l.dtype, T.StringType):
+            if type(self) is not EqualTo or not l.is_dict \
+                    or not isinstance(self.right, Literal):
+                raise NotImplementedError(
+                    "string comparison other than dict column = literal")
+            code = _dict_literal_codes(l, self.right.value)
+            return ColumnVector(T.BOOLEAN, l.data["codes"] == code,
+                                _valid_of(l, ctx))
+        r = self.right.eval(ctx)
+        out = T.common_type(l.dtype, r.dtype)
+        ld, rd = _promote(l, r, out)
+        return ColumnVector(T.BOOLEAN, type(self).op(ld, rd),
+                            _valid_of(l, ctx) & _valid_of(r, ctx))
+
+
+class EqualTo(BinaryComparison):
+    op = staticmethod(lambda a, b: a == b)
+
+
+class LessThan(BinaryComparison):
+    op = staticmethod(lambda a, b: a < b)
+
+
+class LessThanOrEqual(BinaryComparison):
+    op = staticmethod(lambda a, b: a <= b)
+
+
+class GreaterThan(BinaryComparison):
+    op = staticmethod(lambda a, b: a > b)
+
+
+class GreaterThanOrEqual(BinaryComparison):
+    op = staticmethod(lambda a, b: a >= b)
+
+
+class And(BinaryExpression):
+    def data_type(self):
+        return T.BOOLEAN
+
+    def eval(self, ctx):
+        l = self.left.eval(ctx)
+        r = self.right.eval(ctx)
+        lv, rv = _valid_of(l, ctx), _valid_of(r, ctx)
+        ld, rd = l.data.to(torch.bool), r.data.to(torch.bool)
+        valid = (lv & rv) | (lv & ~ld) | (rv & ~rd)
+        return ColumnVector(T.BOOLEAN, ld & rd & lv & rv, valid)
+
+
+class Or(BinaryExpression):
+    def data_type(self):
+        return T.BOOLEAN
+
+    def eval(self, ctx):
+        l = self.left.eval(ctx)
+        r = self.right.eval(ctx)
+        lv, rv = _valid_of(l, ctx), _valid_of(r, ctx)
+        ld = l.data.to(torch.bool) & lv
+        rd = r.data.to(torch.bool) & rv
+        return ColumnVector(T.BOOLEAN, ld | rd, (lv & rv) | ld | rd)
+
+
+class Not(Expression):
+    def __init__(self, child):
+        self.children = [child]
+
+    def data_type(self):
+        return T.BOOLEAN
+
+    def with_children(self, children):
+        return Not(children[0])
+
+    def eval(self, ctx):
+        c = self.children[0].eval(ctx)
+        return ColumnVector(T.BOOLEAN, ~c.data.to(torch.bool),
+                            _valid_of(c, ctx))
+
+
+class IsNull(Expression):
+    def __init__(self, child):
+        self.children = [child]
+
+    def data_type(self):
+        return T.BOOLEAN
+
+    def with_children(self, children):
+        return IsNull(children[0])
+
+    def eval(self, ctx):
+        c = self.children[0].eval(ctx)
+        return ColumnVector(T.BOOLEAN, ~_valid_of(c, ctx),
+                            torch.ones(ctx.capacity, dtype=torch.bool,
+                                       device=ctx.device))
+
+
+class IsNotNull(Expression):
+    def __init__(self, child):
+        self.children = [child]
+
+    def data_type(self):
+        return T.BOOLEAN
+
+    def with_children(self, children):
+        return IsNotNull(children[0])
+
+    def eval(self, ctx):
+        c = self.children[0].eval(ctx)
+        return ColumnVector(T.BOOLEAN, _valid_of(c, ctx).clone(),
+                            torch.ones(ctx.capacity, dtype=torch.bool,
+                                       device=ctx.device))
+
+
+_INT_BOUNDS = {
+    torch.int8: (-(2 ** 7), 2 ** 7 - 1),
+    torch.int16: (-(2 ** 15), 2 ** 15 - 1),
+    torch.int32: (-(2 ** 31), 2 ** 31 - 1),
+    torch.int64: (-(2 ** 63), 2 ** 63 - 1),
+}
+
+
+class Cast(Expression):
+    """Numeric, bool and date casts (Spark non-ANSI semantics: float to
+    int truncates and saturates, NaN becomes 0; integer narrowing wraps)."""
+
+    def __init__(self, child: Expression, to: T.DataType):
+        self.children = [child]
+        self.to = to
+
+    def data_type(self):
+        return self.to
+
+    def _params(self):
+        return repr(self.to)
+
+    def with_children(self, children):
+        return Cast(children[0], self.to)
+
+    def eval(self, ctx):
+        c = self.children[0].eval(ctx)
+        src, dst = c.dtype, self.to
+        if src == dst:
+            return c
+        if isinstance(src, T.StringType) or isinstance(dst, T.StringType):
+            raise NotImplementedError("string casts on the device")
+        valid = _valid_of(c, ctx)
+        if isinstance(dst, T.BooleanType):
+            return ColumnVector(dst, c.data != 0, valid)
+        if isinstance(src, T.BooleanType) \
+                or isinstance(dst, (T.Float32Type, T.Float64Type)):
+            return ColumnVector(dst, c.data.to(dst.torch_dtype), valid)
+        lo, hi = _INT_BOUNDS[dst.torch_dtype]
+        if isinstance(src, (T.Float32Type, T.Float64Type)):
+            v = c.data.to(torch.float64)
+            if ctx.ansi:
+                ctx.add_error("CAST_OVERFLOW",
+                              (torch.isnan(v) | (v < lo) | (v > hi)) & valid)
+            clamped = torch.where(torch.isnan(v), 0.0, v).clamp(lo, hi)
+            return ColumnVector(dst, torch.trunc(clamped).to(dst.torch_dtype),
+                                valid)
+        data = c.data.to(torch.int64)
+        if ctx.ansi:
+            ctx.add_error("CAST_OVERFLOW", ((data < lo) | (data > hi)) & valid)
+        return ColumnVector(dst, data.to(dst.torch_dtype), valid)

@@ -1,0 +1,107 @@
+"""Build and load the hand-written CUDA kernels of ``csrc/``.
+
+Each ``csrc/<name>.cu`` compiles on its own with ``nvcc`` for ``sm_90a``
+into a shared library with a plain C interface, loaded with ``ctypes``.
+The build runs at first use (or all at once, in parallel, through
+``build_all``) and writes into ``build/torch_kernels/<name>-<hash>/`` at
+the root of the checkout, keyed by a hash of the source and the flags, so
+an unchanged source is never rebuilt. The directory is listed in
+``.gitignore``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict, List
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where "
+                       "the CUDA toolkit is installed")
+
+
+def _paths(name: str):
+    src = os.path.join(CSRC, f"{name}.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
+                                ).hexdigest()[:16]
+    out_dir = os.path.join(BUILD_ROOT, f"{name}-{digest}")
+    return src, out_dir, os.path.join(out_dir, f"lib{name}.so")
+
+
+def _start(name: str):
+    """Start nvcc for one source unless its library exists; returns the
+    running process (or None) and the paths."""
+    src, out_dir, lib = _paths(name)
+    if os.path.exists(lib):
+        return None, out_dir, lib
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    proc = subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, out_dir, lib
+
+
+def _finish(name: str, proc, out_dir: str, lib: str) -> None:
+    if proc is None:
+        return
+    log, _ = proc.communicate()
+    with open(os.path.join(out_dir, "nvcc.log"), "w") as f:
+        f.write(log)
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    os.replace(tmp, lib)
+
+
+def build_all(names: List[str]) -> Dict[str, str]:
+    """Build every named source, one nvcc process each, all started
+    together. Returns {name: nvcc log} for the sources built now."""
+    with _lock:
+        started = [(n, *_start(n)) for n in names]
+        logs = {}
+        for name, proc, out_dir, lib in started:
+            _finish(name, proc, out_dir, lib)
+            if proc is not None:
+                with open(os.path.join(out_dir, "nvcc.log")) as f:
+                    logs[name] = f.read()
+        return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _libs.get(name)
+    if lib is None:
+        build_all([name])
+        with _lock:
+            lib = _libs.get(name)
+            if lib is None:
+                lib = ctypes.CDLL(_paths(name)[2])
+                _libs[name] = lib
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on the cudaError_t a launch function returned."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")

@@ -1,0 +1,374 @@
+"""Hashing, gathers, compaction and concatenation on torch tensors.
+
+Counterpart of ``spark_rapids_tpu/ops/kernels.py`` (murmur3 family,
+``spark_hash_column``, ``partition_hash_batch``, ``gather_*``,
+``mask_filter_batch``, ``compact_batch``, ``concat_batches``).
+
+Hash planes are int32 tensors holding the uint32 bit pattern. Only the
+int32 hash has a kernel (``ops/murmur3_kernel.py``); the int64 and byte
+hashes are plain tensor code, as they are plain XLA in the JAX package.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar.batch import (
+    ColumnVector, ColumnarBatch, LazyRowCount, round_capacity,
+)
+from spark_rapids_tpu_torch.ops import murmur3_kernel as MK
+
+SPARK_MURMUR3_SEED = 42
+
+Seed = Union[int, torch.Tensor]
+
+
+def murmur3_int32(values: torch.Tensor, seed: Seed) -> torch.Tensor:
+    """Spark hashInt of an int32 plane (the murmur3 kernel on the card)."""
+    return MK.murmur3_int32(values.to(torch.int32), seed)
+
+
+def _seed64(seed: Seed, n: int, device) -> torch.Tensor:
+    if isinstance(seed, torch.Tensor):
+        return MK.to_u32(seed)
+    return torch.full((n,), int(seed) & 0xFFFFFFFF, dtype=torch.int64,
+                      device=device)
+
+
+def murmur3_int64(values: torch.Tensor, seed: Seed) -> torch.Tensor:
+    """Spark hashLong: low word then high word, fmix with len = 8."""
+    v = values.to(torch.int64)
+    low = v & 0xFFFFFFFF
+    high = (v >> 32) & 0xFFFFFFFF
+    h1 = _seed64(seed, v.shape[0], v.device)
+    h1 = MK.mix_h1(h1, MK.mix_k1(low))
+    h1 = MK.mix_h1(h1, MK.mix_k1(high))
+    return MK.from_u32(MK.fmix(h1, 8))
+
+
+def murmur3_bytes(starts: torch.Tensor, lens: torch.Tensor,
+                  raw: torch.Tensor, seed: Seed) -> torch.Tensor:
+    """Spark hashUnsafeBytes of byte slices raw[starts[i]:starts[i]+lens[i]]:
+    4-byte little-endian words for the aligned prefix, then each trailing
+    byte as a sign-extended int."""
+    n = starts.shape[0]
+    device = starts.device
+    starts = starts.to(torch.int64)
+    lens = lens.to(torch.int64)
+    rawi = raw.to(torch.int64)
+    last = max(int(raw.shape[0]) - 1, 0)
+
+    def byte_at(pos):
+        return rawi[torch.clamp(pos, 0, last)]
+
+    h1 = _seed64(seed, n, device)
+    max_len = int(lens.max().item()) if n else 0
+    for i in range(max_len // 4):
+        pos = starts + 4 * i
+        k1 = (byte_at(pos) | (byte_at(pos + 1) << 8)
+              | (byte_at(pos + 2) << 16) | (byte_at(pos + 3) << 24))
+        mixed = MK.mix_h1(h1, MK.mix_k1(k1))
+        h1 = torch.where((i + 1) * 4 <= lens, mixed, h1)
+    aligned = lens - lens % 4
+    for j in range(3):
+        b = byte_at(starts + aligned + j)
+        b = torch.where(b >= 128, b - 256, b) & 0xFFFFFFFF
+        mixed = MK.mix_h1(h1, MK.mix_k1(b))
+        h1 = torch.where(aligned + j < lens, mixed, h1)
+    return MK.from_u32(MK.fmix(h1, lens & 0xFFFFFFFF))
+
+
+def _vocab_hash(col: ColumnVector, seed: Seed) -> torch.Tensor:
+    off = col.data["dict_offsets"]
+    return murmur3_bytes(off[:-1], off[1:] - off[:-1],
+                         col.data["dict_bytes"], seed)
+
+
+def spark_hash_column(col: ColumnVector, num_rows, seed: Seed,
+                      live: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Spark Murmur3Hash of one column; null fields pass the running seed
+    through unchanged."""
+    d = col.dtype
+    if col.is_dict:
+        codes = col.data["codes"].to(torch.int64)
+        if not isinstance(seed, torch.Tensor):
+            h = _vocab_hash(col, seed)[codes.clamp(0, max(col.dict_size - 1,
+                                                           0))]
+        else:
+            off = col.data["dict_offsets"].to(torch.int64)
+            c = codes.clamp(0, max(col.dict_size - 1, 0))
+            h = murmur3_bytes(off[c], off[c + 1] - off[c],
+                              col.data["dict_bytes"], seed)
+    elif isinstance(d, T.StringType):
+        off = col.data["offsets"]
+        h = murmur3_bytes(off[:-1], off[1:] - off[:-1], col.data["bytes"],
+                          seed)
+    elif isinstance(d, (T.BooleanType, T.Int8Type, T.Int16Type, T.Int32Type,
+                        T.DateType)):
+        h = murmur3_int32(col.data.to(torch.int32), seed)
+    elif isinstance(d, T.Float32Type):
+        v = torch.where(col.data == 0.0, torch.zeros_like(col.data),
+                        col.data)  # -0.0 -> +0.0
+        h = murmur3_int32(v.view(torch.int32), seed)
+    elif isinstance(d, T.Float64Type):
+        v = torch.where(col.data == 0.0, torch.zeros_like(col.data),
+                        col.data)
+        h = murmur3_int64(v.view(torch.int64), seed)
+    else:
+        h = murmur3_int64(col.data.to(torch.int64), seed)
+    if live is not None:
+        valid = live if col.validity is None else (col.validity & live)
+    else:
+        valid = col.validity_or_default(num_rows)
+    if isinstance(seed, torch.Tensor):
+        seed_plane = seed
+    else:
+        seed_plane = MK.from_u32(torch.full_like(h, int(seed) & 0xFFFFFFFF,
+                                                 dtype=torch.int64))
+    return torch.where(valid, h, seed_plane)
+
+
+def partition_hash_batch(cols: Sequence[ColumnVector], num_rows,
+                         seed: int = SPARK_MURMUR3_SEED,
+                         live: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Exchange partitioning hash: Spark murmur3 chained over the columns,
+    except that a dict-string column in a non-leading position mixes its
+    vocab hash as an int32 (the JAX package's partition_hash_batch rule)."""
+    h: Seed = seed
+    for c in cols:
+        if c.is_dict and isinstance(h, torch.Tensor):
+            vh = _vocab_hash(c, SPARK_MURMUR3_SEED)
+            codes = c.data["codes"].to(torch.int64).clamp(
+                0, max(c.dict_size - 1, 0))
+            lifted = ColumnVector(T.INT32, vh[codes], c.validity)
+            h = spark_hash_column(lifted, num_rows, h, live=live)
+        else:
+            h = spark_hash_column(c, num_rows, h, live=live)
+    if not isinstance(h, torch.Tensor):
+        h = MK.from_u32(torch.full((cols[0].capacity,), h & 0xFFFFFFFF,
+                                   dtype=torch.int64,
+                                   device=cols[0].device))
+    return h
+
+
+# ---------------------------------------------------------------------------
+# Gathers, filter, compaction, concatenation
+# ---------------------------------------------------------------------------
+
+def gather_column(col: ColumnVector, indices: torch.Tensor, src_rows,
+                  src_live: Optional[torch.Tensor] = None) -> ColumnVector:
+    """Row gather; index -1 emits null. Dead source rows gather as null."""
+    oob = indices < 0
+    safe = indices.clamp(0, col.capacity - 1).to(torch.int64)
+    if src_live is not None:
+        src_valid = src_live if col.validity is None \
+            else (col.validity & src_live)
+    else:
+        src_valid = col.validity_or_default(src_rows)
+    valid = src_valid[safe] & ~oob
+    if col.is_string and not col.is_dict:
+        # flat strings gather as identity-coded dictionary columns
+        col = ColumnVector(col.dtype, {
+            "codes": torch.arange(col.capacity, dtype=torch.int32,
+                                  device=col.device),
+            "dict_offsets": col.data["offsets"],
+            "dict_bytes": col.data["bytes"]}, col.validity, dict_unique=False)
+    if col.is_dict:
+        data = {"codes": col.data["codes"][safe],
+                "dict_offsets": col.data["dict_offsets"],
+                "dict_bytes": col.data["dict_bytes"]}
+        return ColumnVector(col.dtype, data, valid,
+                            dict_unique=col.dict_unique, bounds=col.bounds)
+    return ColumnVector(col.dtype, col.data[safe], valid, bounds=col.bounds)
+
+
+def gather_batch(batch: ColumnarBatch, indices: torch.Tensor,
+                 out_rows) -> ColumnarBatch:
+    live = batch.live_mask() if batch.row_mask is not None else None
+    return ColumnarBatch([gather_column(c, indices, batch.num_rows,
+                                        src_live=live)
+                          for c in batch.columns], out_rows)
+
+
+def mask_filter_batch(batch: ColumnarBatch,
+                      pred_mask: torch.Tensor) -> ColumnarBatch:
+    """Filter without a gather or a sync: survivors are marked in the
+    selection mask and the count stays on the device."""
+    live = batch.live_mask() & pred_mask
+    return ColumnarBatch(batch.columns,
+                         LazyRowCount(live.sum(dtype=torch.int32)), live)
+
+
+def _compact_indices(mask: torch.Tensor, out_cap: int) -> torch.Tensor:
+    """int32[out_cap]: positions of the set rows of mask in order, -1 pad."""
+    pos = torch.nonzero(mask).flatten().to(torch.int32)[:out_cap]
+    out = torch.full((out_cap,), -1, dtype=torch.int32, device=mask.device)
+    out[: pos.shape[0]] = pos
+    return out
+
+
+def compact_batch(batch: ColumnarBatch) -> ColumnarBatch:
+    """Gather live rows to the front and drop the selection mask; shrink
+    the capacity to the row count's bucket. Costs one count sync."""
+    n = int(batch.num_rows)
+    out_cap = round_capacity(n)
+    if batch.row_mask is None:
+        if out_cap >= batch.capacity:
+            return ColumnarBatch(batch.columns, n)
+        idx = torch.arange(out_cap, dtype=torch.int32, device=batch.device)
+        idx = torch.where(idx < n, idx, -1)
+    else:
+        idx = _compact_indices(batch.row_mask, out_cap)
+    return ColumnarBatch(gather_batch(batch, idx, n).columns, n)
+
+
+def _union_bounds(cols: List[ColumnVector]):
+    bs = [c.bounds for c in cols]
+    if any(b is None for b in bs):
+        return None
+    return (min(b[0] for b in bs), max(b[1] for b in bs))
+
+
+def unify_vocabs(cols: List[ColumnVector]):
+    """Union the vocabularies of dict-string columns on the host: equal
+    strings map to one code. Returns (offsets int32, bytes uint8, remaps)."""
+    union: dict = {}
+    remaps = []
+    for c in cols:
+        off = c.data["dict_offsets"].cpu().numpy()
+        by = c.data["dict_bytes"].cpu().numpy()
+        remap = np.zeros(len(off) - 1, np.int32)
+        for k in range(len(off) - 1):
+            remap[k] = union.setdefault(bytes(by[off[k]: off[k + 1]]),
+                                        len(union))
+        remaps.append(remap)
+    uoff = np.zeros(len(union) + 1, np.int32)
+    uoff[1:] = np.cumsum([len(s) for s in union])
+    ub = b"".join(union)
+    ubytes = np.frombuffer(ub, np.uint8).copy() if ub else np.zeros(1, np.uint8)
+    return uoff, ubytes, remaps
+
+
+def flatten_dict_column(col: ColumnVector, n: int) -> ColumnVector:
+    """The first n rows of a dict-string column as flat offsets + bytes
+    (null rows become empty strings); costs one sync for the byte count."""
+    voff = col.data["dict_offsets"].to(torch.int64)
+    vlens = voff[1:] - voff[:-1]
+    codes = col.data["codes"][:n].to(torch.int64).clamp(
+        0, max(col.dict_size - 1, 0))
+    lens = vlens[codes] if col.dict_size else torch.zeros_like(codes)
+    if col.validity is not None:
+        lens = torch.where(col.validity[:n], lens, 0)
+    offsets = torch.cat([torch.zeros(1, dtype=torch.int64,
+                                     device=codes.device), lens.cumsum(0)])
+    nbytes = int(offsets[-1].item())
+    b = torch.arange(nbytes, device=codes.device)
+    row = torch.searchsorted(offsets, b, right=True) - 1
+    src = voff[codes[row]] + (b - offsets[row]) if nbytes else b
+    raw = col.data["dict_bytes"][src] if nbytes \
+        else torch.zeros(0, dtype=torch.uint8, device=codes.device)
+    return ColumnVector(col.dtype, {"offsets": offsets.to(torch.int32),
+                                    "bytes": raw}, col.validity)
+
+
+def _concat_flat_strings(cols, rows, cap, validity) -> ColumnVector:
+    offs, raws, base = [], [], 0
+    for c, r in zip(cols, rows):
+        off = c.data["offsets"][: r + 1].to(torch.int64)
+        lo, hi = int(off[0]), int(off[-1])
+        offs.append(off[1:] - lo + base)
+        raws.append(c.data["bytes"][lo:hi])
+        base += hi - lo
+    device = cols[0].device
+    offsets = torch.cat([torch.zeros(1, dtype=torch.int64, device=device)]
+                        + offs)
+    offsets = torch.cat([offsets, offsets[-1:].expand(cap + 1 -
+                                                      offsets.shape[0])])
+    raw = torch.cat(raws)
+    byte_cap = round_capacity(max(base, 1), minimum=8)
+    raw = torch.cat([raw, torch.zeros(byte_cap - base, dtype=torch.uint8,
+                                      device=device)])
+    return ColumnVector(cols[0].dtype, {"offsets": offsets.to(torch.int32),
+                                        "bytes": raw}, validity)
+
+
+def _concat_columns(cols: List[ColumnVector], rows: List[int],
+                    cap: int) -> ColumnVector:
+    """Row-prefix concat of columns, padded to cap."""
+    dtype = cols[0].dtype
+    device = cols[0].device
+    total = sum(rows)
+    pad = cap - total
+
+    def cat(planes, fill_dtype):
+        parts = list(planes)
+        if pad > 0:
+            parts.append(torch.zeros(pad, dtype=fill_dtype, device=device))
+        return torch.cat(parts)
+
+    validity = None
+    if any(c.validity is not None for c in cols):
+        validity = cat([c.validity_or_default(r)[:r]
+                        for c, r in zip(cols, rows)], torch.bool)
+    bounds = _union_bounds(cols)
+    if any(c.is_string and not c.is_dict for c in cols):
+        flat = [flatten_dict_column(c, r) if c.is_dict else c
+                for c, r in zip(cols, rows)]
+        return _concat_flat_strings(flat, rows, cap, validity)
+    if cols[0].is_dict:
+        shared = all(c.data["dict_offsets"] is cols[0].data["dict_offsets"]
+                     and c.data["dict_bytes"] is cols[0].data["dict_bytes"]
+                     for c in cols[1:])
+        if shared:
+            doff, dby = cols[0].data["dict_offsets"], cols[0].data["dict_bytes"]
+            parts = [c.data["codes"][:r] for c, r in zip(cols, rows)]
+        else:
+            uoff, ubytes, remaps = unify_vocabs(cols)
+            doff = torch.from_numpy(uoff).to(device)
+            dby = torch.from_numpy(ubytes).to(device)
+            parts = [torch.from_numpy(rm).to(device)[
+                c.data["codes"][:r].to(torch.int64).clamp(0, max(len(rm) - 1,
+                                                                 0))]
+                for c, r, rm in zip(cols, rows, remaps)]
+        # a unified vocabulary holds each string once
+        unique = all(c.dict_unique for c in cols) if shared else True
+        return ColumnVector(dtype, {"codes": cat(parts, torch.int32),
+                                    "dict_offsets": doff, "dict_bytes": dby},
+                            validity, dict_unique=unique)
+    data = cat([c.data[:r] for c, r in zip(cols, rows)], cols[0].data.dtype)
+    return ColumnVector(dtype, data, validity, bounds=bounds)
+
+
+def concat_batches(batches: List[ColumnarBatch]) -> ColumnarBatch:
+    """Concatenate batches. Masked inputs stack their full planes and
+    masks (no gather); unmasked inputs concatenate their live prefixes."""
+    nonempty = [b for b in batches if int(b.num_rows) > 0]
+    if not nonempty:
+        return batches[0]
+    if len(nonempty) == 1:
+        return nonempty[0]
+    total = sum(int(b.num_rows) for b in nonempty)
+    if any(b.row_mask is not None for b in nonempty):
+        mask = torch.cat([b.live_mask() for b in nonempty])
+        caps = [b.capacity for b in nonempty]
+        cols = []
+        for ci in range(len(nonempty[0].columns)):
+            parts = [b.columns[ci] for b in nonempty]
+            c = _concat_columns(
+                [ColumnVector(p.dtype, p.data, p.validity_or_default(p.capacity)
+                              if p.validity is not None else
+                              torch.ones(p.capacity, dtype=torch.bool,
+                                         device=p.device),
+                              p.dict_unique, p.bounds) for p in parts],
+                caps, sum(caps))
+            cols.append(c)
+        return ColumnarBatch(cols, total, mask)
+    rows = [int(b.num_rows) for b in nonempty]
+    cap = round_capacity(total)
+    return ColumnarBatch([_concat_columns([b.columns[ci] for b in nonempty],
+                                          rows, cap)
+                          for ci in range(len(nonempty[0].columns))], total)
