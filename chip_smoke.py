@@ -9,30 +9,56 @@ Phases, one JSON line each:
 1. build: nvcc builds every kernel of csrc/ for sm_90a, in parallel, into
    build/torch_kernels/ (listed in .gitignore); prints the build seconds
    and each kernel's register use.
-2. kernels: each kernel against its plain PyTorch version on the card at
-   the main path's shapes (murmur3 on int32[2^25] with edge values; segsum
+2. setup: bench.py's lineitem (30M rows, seed 42, ~TPC-H SF5), its
+   pyarrow answers, and the same table written as a Parquet file in a
+   temporary directory with bench.py's writer settings (row groups of
+   2^20 rows, so 29 of them; dictionary only for l_shipdate, l_quantity,
+   l_returnflag and l_linestatus; snappy; data page v1).
+3. kernels: each kernel against its plain PyTorch version on the card at
+   the main paths' shapes (murmur3 on int32[2^25] with edge values; segsum
    on the q72shfl chunk: N = 2^23 sorted ids over ~100,000 groups, 10 bf16
-   lane planes, outcap = 2^18, some dead rows at id outcap). Equality must
-   be exact. Times are medians of CUDA-event timed launches.
-3. path: bench.py's lineitem (30M rows, seed 42, ~TPC-H SF5) cached on the
-   card with TorchSession, then four queries (q6, q1, q72shfl, and
-   repartition(8, l_shipdate) + group-by), each checked against pyarrow
-   on the host with bench.py's tolerances; q72shfl's 100,000 groups are
-   also checked one by one. The kernels' launch counts are set to 0 before
-   the path and read after; every kernel must have run, and q72shfl must
-   have taken the chunked segsum route.
+   lane planes, outcap = 2^18, some dead rows at id outcap; bitslice on
+   random fields of 1-32 bits, and on l_shipdate's 12-bit dictionary codes
+   of the file's first 2^20-row row group). Equality must be exact. `ms`
+   is the median of CUDA-event timed calls, the host's launch overhead
+   included; `kernel_ms` is the kernel's own device time per call, from
+   torch.profiler.
+4. path: the lineitem cached on the card with TorchSession, then four
+   queries (q6, q1, q72shfl, and repartition(8, l_shipdate) + group-by),
+   each checked against pyarrow on the host with bench.py's tolerances;
+   q72shfl's 100,000 groups are also checked one by one. The kernels'
+   launch counts are set to 0 before the path and read after; murmur3 and
+   segsum must have run, and q72shfl must have taken the chunked segsum
+   route.
+5. parquet: read_parquet over the file, decoded on the card (the default)
+   or on the host, then pq_q6 (q6 over its four columns, 2 x 29 bitslice
+   launches per run), pq_q6_host (decode on the host, no bitslice
+   launch), pq_q1_mixed (q1 over its six columns; the two string columns
+   fall back to host decode) and pq_repart_agg (murmur3, bitslice, then
+   the chunked segsum route), each run cold then warm and checked against
+   the same pyarrow answers, group by group where there are groups. The
+   launch counts are set to 0 before this path and read after; all three
+   kernels must have run.
+6. decode: every column of all 29 row groups decoded on the card equals
+   pyarrow's decode of the row group exactly (compared on the card), and
+   so does a matrix of generated files (mixed kinds with sparse and all
+   nulls, delta, RLE booleans, date and timestamp) of 2^20 rows each.
 
 It then prints the kernel table ({"kernels": [...]}), the card's name and
 power limit, and as its last line {"ok": true, "device": {...}}. Any
 failure exits non-zero without that line; so does a machine without CUDA.
+CHIP_SMOKE_PROFILE=1 adds a torch.profiler pass over each query of both
+paths (CHIP_SMOKE_TRACE_DIR=dir also writes their Chrome traces).
 """
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -41,7 +67,15 @@ import numpy as np
 ROWS = 30_000_000
 LO, HI = 8766, 9131
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-KERNEL_NAMES = ("murmur3", "segsum")
+KERNEL_NAMES = ("murmur3", "segsum", "bitslice")
+#: bench.py decode_pass's writer settings (bench.py:516-519)
+PARQUET_WRITE = dict(row_group_size=1 << 20,
+                     use_dictionary=["l_shipdate", "l_quantity",
+                                     "l_returnflag", "l_linestatus"],
+                     compression="snappy", data_page_version="1.0")
+Q6_COLS = ["l_shipdate", "l_discount", "l_quantity", "l_extendedprice"]
+Q1_COLS = ["l_shipdate", "l_returnflag", "l_linestatus", "l_quantity",
+           "l_extendedprice", "l_discount"]
 
 
 def emit(obj) -> None:
@@ -75,6 +109,31 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def kernel_device_ms(fn, match: str, reps: int = 20) -> float:
+    """Device time per call of the CUDA kernels whose name contains
+    ``match``, summed by torch.profiler over ``reps`` calls of fn: the
+    kernel alone, without the host's launch overhead, which the event
+    times of time_ms include when the kernel is shorter than it. The
+    50 MB L2 cache is overwritten before each call, so inputs that fit in
+    it are read from device memory, as a first call would read them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0))
+                   for e in prof.key_averages() if match in e.key)
+    if not total_us:
+        raise AssertionError(f"the profiler saw no kernel named *{match}*")
+    return total_us / reps / 1e3
+
+
 # ---------------------------------------------------------------------------
 # phase 1: build
 # ---------------------------------------------------------------------------
@@ -95,7 +154,7 @@ def phase_build():
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def phase_kernels():
+def phase_kernels(pq_path: str):
     import torch
     from spark_rapids_tpu_torch.ops import murmur3_kernel as MK
     from spark_rapids_tpu_torch.ops import segsum as S
@@ -129,13 +188,15 @@ def phase_kernels():
         raise AssertionError(f"murmur3 kernel differs from its plain "
                              f"version (max abs err {err})")
     ms = time_ms(lambda: MK.murmur3_int32(x, 42))
+    kernel_ms = kernel_device_ms(lambda: MK.murmur3_int32(x, 42), "murmur3")
     plain_ms = time_ms(lambda: MK.murmur3_int32_plain(x, 42), reps=5)
     nbytes = n * 4 + n * 4
     rows.append({"name": "murmur3_int32", "route": "cuda",
                  "source": "spark_rapids_tpu_torch/csrc/murmur3.cu",
                  "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:97",
                  "shape": f"int32[{n}], scalar seed",
-                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                 "max_abs_err": err, "ms": ms, "kernel_ms": kernel_ms,
+                 "plain_ms": plain_ms,
                  "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                  "bound_by": "bytes", "library_ms": None})
 
@@ -161,6 +222,7 @@ def phase_kernels():
     g64 = gid[:live].to(torch.int64)
     p32 = pay[:, :live].t().to(torch.float32).contiguous()
     ms = time_ms(lambda: S.segsum(gid, pay, outcap))
+    kernel_ms = kernel_device_ms(lambda: S.segsum(gid, pay, outcap), "segsum")
     plain_ms = time_ms(lambda: S.segsum_plain(gid, pay, outcap), reps=10)
     lib_ms = time_ms(lambda: torch.zeros(outcap, P, device=dev).index_add_(
         0, g64, p32), reps=10)
@@ -170,11 +232,75 @@ def phase_kernels():
                  "replaces": "spark_rapids_tpu/ops/pallas_segsum.py:90",
                  "shape": f"gid int32[{N}], payload bf16[{P},{N}], "
                           f"outcap {outcap}",
-                 "max_abs_err": seg_err, "ms": ms, "plain_ms": plain_ms,
+                 "max_abs_err": seg_err, "ms": ms, "kernel_ms": kernel_ms,
+                 "plain_ms": plain_ms,
                  "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                  "bound_by": "bytes", "library_ms": lib_ms})
+    rows.append(bitslice_row(pq_path, rng, dev))
     emit({"phase": "kernels", "results": rows})
     return rows
+
+
+def bitslice_row(pq_path: str, rng, dev):
+    """B3 bitslice against its plain version: random words with fields of
+    1-32 bits, offsets on word starts (sh == 0), in the last word and past
+    the plane (the clamp), on a ragged view too; then pq_q6's real shape,
+    l_shipdate's dictionary codes of one 2^20-row row group, which is
+    also the shape timed."""
+    import pyarrow.parquet as pq
+    import torch
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.io import encoded as ENC
+    from spark_rapids_tpu_torch.ops import bitslice as BS
+    from spark_rapids_tpu_torch.ops import decode as D
+    nw, n = 1 << 16, 1 << 20
+    words = rng.integers(0, 2 ** 32, nw, dtype=np.uint64).astype(np.uint32)
+    bitoff = rng.integers(0, nw * 32 + 4096, n).astype(np.int64)
+    bitoff[:4096] = np.arange(4096) * 32
+    bitoff[4096:4128] = (nw - 1) * 32 + np.arange(32)
+    width = rng.integers(1, 33, n)
+    width[:1024] = 32
+    mask = ((np.int64(1) << width) - 1).astype(np.uint32)
+    w = torch.from_numpy(words.view(np.int32)).to(dev)
+    b = torch.from_numpy(bitoff).to(dev)
+    m = torch.from_numpy(mask.view(np.int32)).to(dev)
+
+    def max_diff(x, y):
+        return int(((x.to(torch.int64) & 0xFFFFFFFF)
+                    - (y.to(torch.int64) & 0xFFFFFFFF)).abs().max())
+    err = max(max_diff(BS.bitslice(w, b, m), BS.bitslice_plain(w, b, m)),
+              max_diff(BS.bitslice(w, b[3:-5], m[3:-5]),
+                       BS.bitslice_plain(w, b[3:-5], m[3:-5])))
+    md = pq.ParquetFile(pq_path).metadata
+    fields = [T.StructField("l_shipdate", T.INT32)]
+    hb = next(ENC.read_encoded_batches(pq_path, md, [0], fields, 1 << 20))
+    ec = ENC.upload(hb, {}, dev).columns[0]
+    if ec.kind != "dict":
+        raise AssertionError(f"l_shipdate is {ec.kind}, not dict codes")
+    rw, rb, rm, _ = D.run_bits(ec.planes, "", dict(ec.meta)["vcap"])
+    err = max(err, max_diff(BS.bitslice(rw, rb, rm),
+                            BS.bitslice_plain(rw, rb, rm)))
+    torch.cuda.synchronize()
+    if err:
+        raise AssertionError(f"bitslice kernel differs from its plain "
+                             f"version (max abs err {err})")
+    bits = int(ec.planes["width"][0])
+    # the words the fields lie in; the pool's power-of-two tail is not read
+    words_read = min(rw.numel(), int(rb.max()) // 32 + 2)
+    ms = time_ms(lambda: BS.bitslice(rw, rb, rm))
+    kernel_ms = kernel_device_ms(lambda: BS.bitslice(rw, rb, rm), "bitslice")
+    plain_ms = time_ms(lambda: BS.bitslice_plain(rw, rb, rm), reps=10)
+    nbytes = rb.numel() * (8 + 4 + 4) + words_read * 4
+    return {"name": "bitslice", "route": "cuda",
+            "source": "spark_rapids_tpu_torch/csrc/bitslice.cu",
+            "replaces": "spark_rapids_tpu/ops/pallas_decode.py:64",
+            "shape": f"words int32[{rw.numel()}] ({words_read} read), "
+                     f"{rb.numel()} fields of {bits} bits (l_shipdate "
+                     f"codes, one row group)",
+            "max_abs_err": err, "ms": ms, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": None}
 
 
 # ---------------------------------------------------------------------------
@@ -340,23 +466,48 @@ class RouteSpy:
         return {k: v for k, v in out.items() if v}
 
 
-def phase_path(rows: int):
-    import torch
-    from spark_rapids_tpu_torch import TorchSession
-    from spark_rapids_tpu_torch.ops import murmur3_kernel as MK
-    from spark_rapids_tpu_torch.ops import segsum as S
+def phase_setup(rows: int, tmp_dir: str):
+    """The lineitem, its pyarrow answers, and the Parquet file of it."""
+    import pyarrow.parquet as pq
     t0 = time.perf_counter()
     table = make_lineitem(rows)
     gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     want = host_reference(table)
     host_s = time.perf_counter() - t0
-    emit({"phase": "path.setup", "rows": rows, "generate_s": gen_s,
-          "host_reference_s": host_s})
+    path = os.path.join(tmp_dir, "lineitem.parquet")
+    t0 = time.perf_counter()
+    pq.write_table(table, path, **PARQUET_WRITE)
+    write_s = time.perf_counter() - t0
+    groups = pq.ParquetFile(path).metadata.num_row_groups
+    emit({"phase": "setup", "rows": rows, "generate_s": gen_s,
+          "host_reference_s": host_s, "parquet_write_s": write_s,
+          "parquet_bytes": os.path.getsize(path), "row_groups": groups})
+    if groups != 29:
+        raise AssertionError(f"{groups} row groups, expected 29")
+    return table, want, path
 
-    spy = RouteSpy()
-    MK.launches = 0
-    S.launches = 0
+
+def reset_launches() -> None:
+    from spark_rapids_tpu_torch.ops import bitslice as BS
+    from spark_rapids_tpu_torch.ops import murmur3_kernel as MK
+    from spark_rapids_tpu_torch.ops import segsum as S
+    MK.launches = S.launches = BS.launches = 0
+
+
+def read_launches():
+    from spark_rapids_tpu_torch.ops import bitslice as BS
+    from spark_rapids_tpu_torch.ops import murmur3_kernel as MK
+    from spark_rapids_tpu_torch.ops import segsum as S
+    return {"murmur3_int32": MK.launches, "segsum": S.launches,
+            "bitslice": BS.launches}
+
+
+def phase_path(table, want, spy):
+    import torch
+    from spark_rapids_tpu_torch import TorchSession
+    rows = table.num_rows
+    reset_launches()
     session = TorchSession()
     t0 = time.perf_counter()
     cached = session.create_dataframe(table).cache()
@@ -367,8 +518,9 @@ def phase_path(rows: int):
         raise AssertionError(f"cached count {n} != {rows}")
     per_query = {}
     ok = True
+    spy.take()
     for name, fn in port_queries(cached).items():
-        before = (MK.launches, S.launches)
+        before = read_launches()
         t0 = time.perf_counter()
         got = fn()
         cold = time.perf_counter() - t0
@@ -379,25 +531,297 @@ def phase_path(rows: int):
             warm.append(time.perf_counter() - t0)
         good = validate(name, got, want[name])
         ok &= good
-        launches = {"murmur3_int32": (MK.launches - before[0]) // 3,
-                    "segsum": (S.launches - before[1]) // 3}
+        launches = {k: (v - before[k]) // 3
+                    for k, v in read_launches().items()}
         per_query[name] = {"correct": good, "cold_s": cold,
                            "warm_s": min(warm), "launches": launches,
                            "routes": {k: v // 3 for k, v in
                                       spy.take().items()}}
         emit({"phase": "path.query", "query": name, **per_query[name]})
-    counts = {"murmur3_int32": MK.launches, "segsum": S.launches}
+    counts = read_launches()
     emit({"phase": "path", "cache_s": cache_s, "launches": counts,
           "correct": ok})
     if os.environ.get("CHIP_SMOKE_PROFILE") == "1":
         profile_queries(port_queries(cached))
     if not ok:
         raise AssertionError("a path query disagrees with pyarrow")
-    if min(counts.values()) <= 0:
+    if min(counts["murmur3_int32"], counts["segsum"]) <= 0:
         raise AssertionError(f"a kernel did not run on the path: {counts}")
     if not per_query["q72shfl"]["routes"].get("_chunked_segsum_agg"):
         raise AssertionError("q72shfl did not reach the chunked segsum route")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the Parquet path
+# ---------------------------------------------------------------------------
+
+DECODE_OFF = {"spark.rapids.sql.decode.device.enabled": "false"}
+FLAG_COLUMNS = {"l_returnflag", "l_linestatus"}
+
+
+def parquet_queries(dev_session, host_session, path):
+    """name -> (session, run, reference answer) over the Parquet file."""
+    def query(session, cols, ref):
+        return session, port_queries(session.read_parquet(
+            path, columns=cols))[ref], ref
+    return {
+        "pq_q6": query(dev_session, Q6_COLS, "q6"),
+        "pq_q6_host": query(host_session, Q6_COLS, "q6"),
+        "pq_q1_mixed": query(dev_session, Q1_COLS, "q1"),
+        "pq_repart_agg": query(dev_session, ["l_shipdate", "l_quantity"],
+                               "repart_agg"),
+    }
+
+
+def scan_report(session):
+    """The scan operators' counters of the session's last query."""
+    out = {}
+    for e in session.last_exec.walk():
+        if hasattr(e, "metrics"):
+            out[type(e).__name__] = dict(e.metrics)
+        if hasattr(e, "fallback_columns"):
+            out["fallback_columns"] = sorted(e.fallback_columns)
+    return out
+
+
+def phase_parquet(path, want, spy):
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch import TorchSession
+    groups = pq.ParquetFile(path).metadata.num_row_groups
+    queries = parquet_queries(TorchSession(), TorchSession(DECODE_OFF),
+                              path)
+    reset_launches()
+    spy.take()
+    problems = []
+    for name, (session, fn, ref) in queries.items():
+        runs = []
+        for _ in range(2):  # cold, then warm
+            before = read_launches()
+            t0 = time.perf_counter()
+            got = fn()
+            secs = time.perf_counter() - t0
+            runs.append((secs, validate(ref, got, want[ref]),
+                         {k: v - before[k]
+                          for k, v in read_launches().items()}))
+        scan = scan_report(session)
+        routes = {k: v // 2 for k, v in spy.take().items()}
+        good = all(r[1] for r in runs)
+        if not good:
+            problems.append(f"{name} disagrees with pyarrow")
+        bits = [r[2]["bitslice"] for r in runs]
+        if name == "pq_q6" and bits != [2 * groups] * 2:
+            problems.append(f"pq_q6 launched bitslice {bits} times per run, "
+                            f"expected {2 * groups}")
+        if name == "pq_q6_host" and any(bits):
+            problems.append(f"pq_q6_host launched bitslice {bits} times")
+        if name == "pq_q1_mixed" \
+                and set(scan.get("fallback_columns", ())) != FLAG_COLUMNS:
+            problems.append(f"pq_q1_mixed fell back on "
+                            f"{scan.get('fallback_columns')}")
+        if name == "pq_repart_agg" and not routes.get("_chunked_segsum_agg"):
+            problems.append("pq_repart_agg missed the chunked segsum route")
+        emit({"phase": "parquet.query", "query": name, "correct": good,
+              "cold_s": runs[0][0], "warm_s": runs[1][0],
+              "launches_per_run": runs[1][2], "routes": routes,
+              "scan": scan})
+    counts = read_launches()
+    emit({"phase": "parquet", "row_groups": groups, "launches": counts,
+          "correct": not problems, "problems": problems})
+    host_split(path, Q6_COLS)
+    if os.environ.get("CHIP_SMOKE_PROFILE") == "1":
+        profile_queries({k: v[1] for k, v in queries.items()})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"a kernel did not run on the Parquet path: "
+                             f"{counts}")
+    return counts
+
+
+def host_split(path, cols) -> None:
+    """Where the device-decode scan's host time goes: one pass of the
+    encoded reader over ``cols`` (no upload), with page decompression
+    timed apart from the rest (thrift headers, run parsing, plane
+    assembly in Python)."""
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.io import encoded as ENC
+    spent = {"decompress_s": 0.0, "pages": 0}
+
+    class TimedCodec:
+        def __init__(self, codec):
+            self.codec = codec
+
+        def decompress(self, *a, **k):
+            t0 = time.perf_counter()
+            out = self.codec.decompress(*a, **k)
+            spent["decompress_s"] += time.perf_counter() - t0
+            spent["pages"] += 1
+            return out
+
+    md = pq.ParquetFile(path).metadata
+    schema = pq.read_schema(path)
+    fields = [T.StructField(c, T.from_arrow(schema.field(c).type))
+              for c in cols]
+    orig = ENC._codec
+    ENC._codec = lambda name: (lambda c: c and TimedCodec(c))(orig(name))
+    try:
+        t0 = time.perf_counter()
+        nbytes = sum(hb.encoded_bytes for hb in ENC.read_encoded_batches(
+            path, md, list(range(md.num_row_groups)), fields, 1 << 20))
+        total = time.perf_counter() - t0
+    finally:
+        ENC._codec = orig
+    emit({"phase": "parquet.host", "columns": cols, "total_s": total,
+          **spent, "rest_s": total - spent["decompress_s"],
+          "encoded_bytes": nbytes})
+
+
+# ---------------------------------------------------------------------------
+# phase 6: device decode against pyarrow, exactly
+# ---------------------------------------------------------------------------
+
+def same_column(cv, ref, n: int) -> bool:
+    """Equal planes over the whole capacity (values, the 0 fill of null
+    rows, the zero tail) and equal validity; compared on the card, floats
+    by their bits."""
+    import torch
+    a, b = cv.data, ref.data
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.is_floating_point:
+        bits = {torch.float32: torch.int32, torch.float64: torch.int64}
+        a, b = a.view(bits[a.dtype]), b.view(bits[b.dtype])
+    return bool(torch.equal(a, b)) and bool(torch.equal(
+        cv.validity_or_default(n), ref.validity_or_default(n)))
+
+
+def decode_file(path, dev, fallback_ok=frozenset()):
+    """Decode every row group of a file on the card; returns (batches,
+    mismatching (batch, column) pairs, {fallback column: reason})."""
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.batch import column_from_arrow
+    from spark_rapids_tpu_torch.io import encoded as ENC
+    from spark_rapids_tpu_torch.ops import decode as D
+    pf = pq.ParquetFile(path)
+    md = pf.metadata
+    fields = [T.StructField(f.name, T.from_arrow(f.type))
+              for f in pf.schema_arrow]
+    batches, bad, fell_back = 0, [], {}
+    groups = list(range(md.num_row_groups))
+    for hb in ENC.read_encoded_batches(path, md, groups, fields, 1 << 20):
+        fell_back.update(hb.fallback)
+        tbl = pf.read_row_groups(hb.groups).combine_chunks()
+
+        def host(i):
+            c = tbl.column(i)
+            arr = c.chunk(0) if c.num_chunks else c.combine_chunks()
+            return column_from_arrow(arr, fields[i].dtype, hb.cap, dev)
+        fb = {i: host(i) for i, c in enumerate(hb.columns) if c is None}
+        cb = D.decode_batch(ENC.upload(hb, fb, dev))
+        for i, c in enumerate(hb.columns):
+            if c is not None and not same_column(cb.columns[i], host(i),
+                                                 hb.num_rows):
+                bad.append((batches, fields[i].name))
+        batches += 1
+    if set(fell_back) != set(fallback_ok):
+        bad.append(("fallback", fell_back))
+    return batches, bad, fell_back
+
+
+def matrix_column(rng, n, kind):
+    """tests/test_device_decode.py's column generator."""
+    import pyarrow as pa
+    if kind == "i32_dict":
+        return pa.array(rng.choice([3, 7, 11, 42, -5], n).astype(np.int32))
+    if kind == "i64_plain":
+        return pa.array(rng.integers(-2 ** 40, 2 ** 40, n).astype(np.int64))
+    if kind == "f64":
+        return pa.array(rng.normal(size=n))
+    if kind == "f32":
+        return pa.array(rng.normal(size=n).astype(np.float32))
+    if kind == "bool":
+        return pa.array(rng.random(n) < 0.5)
+    if kind == "i32_wide":
+        return pa.array(rng.integers(-2 ** 30, 2 ** 30, n).astype(np.int32))
+    if kind == "i64_delta":
+        return pa.array(np.cumsum(rng.integers(0, 50, n)).astype(np.int64))
+    raise AssertionError(kind)
+
+
+def with_nulls(rng, arr, density):
+    import pyarrow as pa
+    if density == "none":
+        return arr
+    frac = {"sparse": 0.1, "all": 1.0}[density]
+    mask = rng.random(len(arr)) < frac if frac < 1.0 \
+        else np.ones(len(arr), bool)
+    return pa.array(arr.to_numpy(zero_copy_only=False), type=arr.type,
+                    mask=mask)
+
+
+def matrix_files(n: int):
+    """(name, table, writer settings) of the decode matrix."""
+    import pyarrow as pa
+    rng = np.random.default_rng(7)
+    kinds = ("i32_dict", "i64_plain", "f64", "f32", "bool", "i32_wide")
+    out = []
+    for nulls in ("sparse", "all"):
+        out.append((f"mixed_{nulls}", pa.table(
+            {k: with_nulls(rng, matrix_column(rng, n, k), nulls)
+             for k in kinds}),
+            dict(compression="snappy", row_group_size=n // 4,
+                 use_dictionary=["i32_dict"], data_page_size=1 << 16,
+                 data_page_version="1.0")))
+    for nulls in ("none", "sparse"):
+        out.append((f"delta_{nulls}", pa.table(
+            {"d": with_nulls(rng, matrix_column(rng, n, "i64_delta"),
+                             nulls)}),
+            dict(use_dictionary=False,
+                 column_encoding={"d": "DELTA_BINARY_PACKED"},
+                 row_group_size=n // 4, data_page_size=1 << 14,
+                 data_page_version="1.0")))
+    runs = np.repeat(rng.random(n // 256) < 0.5, 128)
+    out.append(("bool_rle", pa.table({"b": np.concatenate(
+        [runs, rng.random(n - len(runs)) < 0.5])}),
+        dict(use_dictionary=False, column_encoding={"b": "RLE"},
+             data_page_version="1.0")))
+    out.append(("date_timestamp", pa.table({
+        "d": pa.array(rng.integers(8000, 12000, n).astype(np.int32),
+                      pa.date32()),
+        "ts": pa.array(rng.integers(0, 2 ** 48, n).astype(np.int64),
+                       pa.timestamp("us"))}),
+        # a dictionary of 2^20 distinct timestamps overflows, and pyarrow
+        # then switches the chunk to PLAIN part way (a per-column
+        # fallback): write the high-entropy column PLAIN outright
+        dict(use_dictionary=["d"], data_page_version="1.0")))
+    return out
+
+
+def phase_decode(path, tmp_dir, dev):
+    import pyarrow.parquet as pq
+    t0 = time.perf_counter()
+    batches, bad, fell_back = decode_file(path, dev, FLAG_COLUMNS)
+    emit({"phase": "decode.file", "batches": batches, "mismatches": bad,
+          "fallback_columns": sorted(fell_back),
+          "seconds": time.perf_counter() - t0})
+    if bad or batches != 29:
+        raise AssertionError(f"device decode of the lineitem file differs "
+                             f"from pyarrow: {batches} batches, {bad}")
+    n = 1 << 20
+    for name, table, kw in matrix_files(n):
+        t0 = time.perf_counter()
+        mpath = os.path.join(tmp_dir, f"{name}.parquet")
+        pq.write_table(table, mpath, **kw)
+        batches, bad, _ = decode_file(mpath, dev)
+        emit({"phase": "decode.matrix", "file": name, "rows": n,
+              "batches": batches, "mismatches": bad,
+              "seconds": time.perf_counter() - t0})
+        if bad or batches != 1:
+            raise AssertionError(f"device decode of {name} differs from "
+                                 f"pyarrow: {batches} batches, {bad}")
 
 
 def profile_queries(queries) -> None:
@@ -449,18 +873,34 @@ def main() -> int:
     print(card, flush=True)
     t_all = time.perf_counter()
     phases = {}
-    t0 = time.perf_counter()
-    phase_build()
-    phases["build_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    rows = phase_kernels()
-    phases["kernels_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    counts = phase_path(ROWS)
-    phases["path_s"] = time.perf_counter() - t0
+    tmp_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        t0 = time.perf_counter()
+        phase_build()
+        phases["build_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        table, want, path = phase_setup(ROWS, tmp_dir)
+        phases["setup_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rows = phase_kernels(path)
+        phases["kernels_s"] = time.perf_counter() - t0
+        spy = RouteSpy()
+        t0 = time.perf_counter()
+        cached = phase_path(table, want, spy)
+        phases["path_s"] = time.perf_counter() - t0
+        del table
+        t0 = time.perf_counter()
+        parquet = phase_parquet(path, want, spy)
+        phases["parquet_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        phase_decode(path, tmp_dir, torch.device("cuda"))
+        phases["decode_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
     for r in rows:
-        r["launches"] = counts["murmur3_int32" if r["name"] == "murmur3_int32"
-                               else "segsum"]
+        by_path = {"cached": cached[r["name"]], "parquet": parquet[r["name"]]}
+        r["launches"] = sum(by_path.values())
+        r["launches_by_path"] = by_path
     phases["total_s"] = time.perf_counter() - t_all
     emit({"phase": "done", **phases})
     emit({"kernels": rows})

@@ -34,8 +34,26 @@ def round_capacity(n: int, minimum: Optional[int] = None) -> int:
     at or above max(n, 1, minimum) (the JAX package's default ladder)."""
     if minimum is None:
         minimum = MIN_CAPACITY
+    return bucket_rows(n, minimum)
+
+
+def bucket_rows(n: int, minimum: int) -> int:
+    """The power-of-two ladder: the next power of two at or above
+    max(n, 1, minimum). (The JAX package also aligns buckets to TPU
+    tiles; a power of two past one tile is aligned already, so the
+    default ladders agree.)"""
     n = max(int(n), 1, int(minimum))
     return 1 << (n - 1).bit_length()
+
+
+def bucket_pool_bytes(nbytes: int, slack: int = 8) -> int:
+    """Capacity of a raw byte pool (the encoded Parquet bit pools of
+    io/encoded.py): the ladder with a floor of 32 over nbytes plus
+    ``slack`` guard bytes, so a 32-bit word pair read at the last bit
+    offset stays in bounds, in whole u32 words, so the pool views as an
+    int32 word plane without a copy."""
+    cap = bucket_rows(int(nbytes) + int(slack), 32)
+    return ((cap + 3) // 4) * 4
 
 
 class LazyRowCount:
@@ -228,6 +246,8 @@ def column_from_arrow(arr, dtype: T.DataType, capacity: int,
         np_arr = np.asarray(pc.fill_null(arr, False), dtype=np.bool_)
         data = _upload(_pad_to(np_arr, capacity), device)
     else:
+        if isinstance(dtype, T.TimestampType):
+            arr = arr.cast(pa.timestamp("us"))
         if arr.null_count:
             arr = pc.fill_null(arr, 0)
         np_arr = _fixed_width_view(arr, dtype.np_dtype)
@@ -303,6 +323,9 @@ def to_arrow(batch: ColumnarBatch, names: Optional[Sequence[str]] = None):
             arr = pa.array(vals, pa.string())
         elif isinstance(col.dtype, T.DateType):
             arr = pa.array(rows(_host(col.data)).astype("datetime64[D]"),
+                           type=at, mask=mask)
+        elif isinstance(col.dtype, T.TimestampType):
+            arr = pa.array(rows(_host(col.data)).astype("datetime64[us]"),
                            type=at, mask=mask)
         else:
             arr = pa.array(rows(_host(col.data)), type=at, mask=mask)

@@ -55,6 +55,37 @@ PALLAS_ENABLED = _register(
     "different algorithms; this key never swaps a kernel for its plain "
     "version.", _bool_conv)
 
+MULTIFILE_READER_TYPE = _register(
+    "spark.rapids.sql.format.parquet.reader.type", "AUTO",
+    "PERFILE, COALESCING, MULTITHREADED, or AUTO. The host-decode Parquet "
+    "scan reads row groups one by one under PERFILE; the others prefetch "
+    "on a bounded thread pool, and COALESCING and AUTO also concatenate "
+    "row groups on the host up to the reader batch size.", str)
+
+MULTIFILE_READER_THREADS = _register(
+    "spark.rapids.sql.multiThreadedRead.numThreads", 8,
+    "Host threads (and lookahead) of the host-decode Parquet scan.", int)
+
+DEVICE_DECODE_ENABLED = _register(
+    "spark.rapids.sql.decode.device.enabled", True,
+    "Decode Parquet column chunks on the device: the scan uploads the "
+    "still-encoded dictionary/RLE/bit-packed/delta planes and expands "
+    "them on the card (io/encoded.py, ops/decode.py, the bitslice "
+    "kernel). Columns outside the supported matrix fall back per column "
+    "to pyarrow on the host. Off = the host-decode scan.", _bool_conv)
+
+DEVICE_DECODE_DELTA = _register(
+    "spark.rapids.sql.decode.device.delta.enabled", True,
+    "Allow DELTA_BINARY_PACKED columns on the device-decode path; off "
+    "falls such columns back to host decode.", _bool_conv)
+
+DEVICE_DECODE_MAX_BITS = _register(
+    "spark.rapids.sql.decode.device.maxBits", 32,
+    "Widest dictionary/delta bit width decoded on the device (the "
+    "bitslice kernel extracts from 32-bit word pairs); wider columns fall "
+    "back per column to host decode. Values above 32 are capped at 32.",
+    int)
+
 ANSI_ENABLED = _register(
     "spark.sql.ansi.enabled", False,
     "ANSI mode: division by zero and overflowing casts raise instead of "

@@ -1,7 +1,10 @@
 """Physical operators: per-partition iterators of device batches.
 
 Counterpart of ``spark_rapids_tpu/exec/tpu_nodes.py`` for this engine's
-operators: ``InMemoryScanExec``, ``CachedScanExec``, ``ProjectExec``,
+operators: ``InMemoryScanExec``, the Parquet scans (``ParquetScanExec``,
+which decodes on the host, and the device-decode pair
+``EncodedParquetSourceExec`` + ``DeviceDecodeScanExec``),
+``CachedScanExec``, ``ProjectExec``,
 ``FilterExec``, ``CoalesceBatchesExec``, ``CollectExchangeExec``,
 ``ShuffleExchangeExec`` (compact in-process mode) and ``HashAggregateExec``
 with ``_AggKernels``.
@@ -24,7 +27,9 @@ The hash aggregate picks a route per batch, in the JAX package's order:
 from __future__ import annotations
 
 import threading
-from typing import Iterator, List, Optional
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -32,11 +37,15 @@ import torch
 from spark_rapids_tpu_torch import config as C
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import (
-    ColumnVector, ColumnarBatch, LazyRowCount, from_arrow, round_capacity,
+    ColumnVector, ColumnarBatch, LazyRowCount, column_from_arrow, from_arrow,
+    round_capacity,
 )
 from spark_rapids_tpu_torch.expr.core import (
     Alias, BoundRef, EvalCtx, Expression, raise_errors,
 )
+from spark_rapids_tpu_torch.io import encoded as ENC
+from spark_rapids_tpu_torch.io.parquet_pruning import prune_row_groups
+from spark_rapids_tpu_torch.ops import decode as D
 from spark_rapids_tpu_torch.ops import groupby as G
 from spark_rapids_tpu_torch.ops import kernels as K
 from spark_rapids_tpu_torch.ops import radix as R
@@ -57,6 +66,12 @@ class TorchExec:
 
     def execute_partition(self, pidx: int) -> Iterator[ColumnarBatch]:
         raise NotImplementedError
+
+    def walk(self) -> Iterator["TorchExec"]:
+        """This operator and every operator below it, depth first."""
+        yield self
+        for c in self.children:
+            yield from c.walk()
 
     def _ctx(self, batch: ColumnarBatch, live=None) -> EvalCtx:
         return EvalCtx(batch.columns, batch.num_rows, batch.capacity,
@@ -90,6 +105,216 @@ class InMemoryScanExec(TorchExec):
             take = min(max_rows, n - off)
             yield from_arrow(table.slice(start + off, take), self.device)
             off += max(take, 1)
+
+
+# ---------------------------------------------------------------------------
+# Parquet scans
+# ---------------------------------------------------------------------------
+
+def _prefetched(items, load_fn, n_threads: int):
+    """load_fn(item) for each item, in order, with at most n_threads
+    loads running ahead of the consumer, so host decode overlaps the
+    upload and the device work without buffering a whole file."""
+    if n_threads <= 1 or len(items) <= 1:
+        for it in items:
+            yield load_fn(it)
+        return
+    with ThreadPoolExecutor(max_workers=n_threads) as pool:
+        pending = [pool.submit(load_fn, it) for it in items[:n_threads]]
+        nxt = len(pending)
+        while pending:
+            fut = pending.pop(0)
+            if nxt < len(items):
+                pending.append(pool.submit(load_fn, items[nxt]))
+                nxt += 1
+            yield fut.result()
+
+
+def _host_coalesced(tables, target_rows: int):
+    """Concatenate host tables until the target row count is reached, so
+    one upload carries many small row groups (the COALESCING reader)."""
+    import pyarrow as pa
+    pending, rows = [], 0
+    for t in tables:
+        pending.append(t)
+        rows += t.num_rows
+        if rows >= target_rows:
+            yield pa.concat_tables(pending) if len(pending) > 1 else pending[0]
+            pending, rows = [], 0
+    if pending:
+        yield pa.concat_tables(pending) if len(pending) > 1 else pending[0]
+
+
+class _ParquetExec(TorchExec):
+    """One partition per file; row groups are pruned by the pushed
+    filters against the footer statistics. ``metrics`` holds plain
+    counters (the JAX package's metric names) for tests and the smoke."""
+
+    def __init__(self, plan, children, conf, device):
+        super().__init__(plan, children, conf, device)
+        # a snapshot: a later pushdown over a plan sharing this scan must
+        # not change the filters under a converted exec
+        self._pushed = list(plan.pushed_filters)
+        self._metrics_lock = threading.Lock()  # prefetch workers add too
+        self.metrics: Dict[str, float] = {
+            "numRowGroups": 0, "numRowGroupsPruned": 0, "readBytes": 0,
+            "decodeTime": 0.0, "numOutputRows": 0, "numOutputBatches": 0}
+
+    @property
+    def num_partitions(self):
+        return max(1, len(self.plan.paths))
+
+    def _groups(self, metadata):
+        groups, total = prune_row_groups(metadata, self._pushed)
+        self.metrics["numRowGroups"] += total
+        self.metrics["numRowGroupsPruned"] += total - len(groups)
+        for g in groups:
+            self.metrics["readBytes"] += metadata.row_group(g).total_byte_size
+        return groups, total
+
+    def _emitted(self, rows: int) -> None:
+        self.metrics["numOutputRows"] += rows
+        self.metrics["numOutputBatches"] += 1
+
+
+class ParquetScanExec(_ParquetExec):
+    """The host-decode scan: pyarrow reads and decodes each kept row
+    group, then one upload per batch. Reader strategies
+    (spark.rapids.sql.format.parquet.reader.type): PERFILE loads row
+    groups one by one; MULTITHREADED prefetches them on a bounded pool;
+    COALESCING and AUTO also concatenate them on the host up to the
+    reader batch size."""
+
+    def execute_partition(self, pidx):
+        import pyarrow.parquet as pq
+        path = self.plan.paths[pidx]
+        names = self.plan.schema.names
+        mode = str(self.conf.get(C.MULTIFILE_READER_TYPE)).upper()
+        threads = 1 if mode == "PERFILE" \
+            else int(self.conf.get(C.MULTIFILE_READER_THREADS))
+        groups, total = self._groups(pq.ParquetFile(path).metadata)
+        if not groups:
+            if total:
+                return  # every row group refuted
+            groups = [-1]  # a file without row groups: read it whole
+
+        def load(g):
+            # one ParquetFile per load: parquet-cpp readers are not
+            # thread-safe, and loads run on the prefetch workers
+            t0 = time.perf_counter()
+            f = pq.ParquetFile(path)
+            tbl = f.read(columns=names) if g < 0 \
+                else f.read_row_group(g, columns=names)
+            with self._metrics_lock:
+                self.metrics["decodeTime"] += time.perf_counter() - t0
+            return tbl
+
+        batch_rows = self.conf.get(C.MAX_READER_BATCH_SIZE_ROWS)
+        tables = _prefetched(groups, load, threads)
+        if mode in ("COALESCING", "AUTO"):
+            tables = _host_coalesced(tables, batch_rows)
+        for tbl in tables:
+            off = 0
+            while off < tbl.num_rows or (tbl.num_rows == 0 and off == 0):
+                chunk = tbl.slice(off, batch_rows)
+                self._emitted(chunk.num_rows)
+                yield from_arrow(chunk, self.device)
+                off += max(chunk.num_rows, 1)
+
+
+class EncodedParquetSourceExec(_ParquetExec):
+    """The leaf of the device-decode scan: instead of decoding through
+    pyarrow it extracts the still-encoded column chunks (io/encoded.py)
+    and uploads those planes as EncodedBatches. Columns outside the
+    supported matrix are host-decoded here, per column, and ride in the
+    batch as ready columns; their reasons gather in
+    ``fallback_columns`` (a footer probe at plan time, then what the
+    pages showed)."""
+
+    def __init__(self, plan, children, conf, device):
+        super().__init__(plan, children, conf, device)
+        self.metrics.update({"encodedBytes": 0, "decodedBytes": 0,
+                             "numDecodeFallbackColumns": 0,
+                             "copyToDeviceTime": 0.0})
+        self.fallback_columns: Dict[str, str] = ENC.probe_support(
+            plan.paths[0], plan.schema.fields)
+
+    def execute_partition(self, pidx):
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+        path = self.plan.paths[pidx]
+        fields = list(self.plan.schema.fields)
+        pf = pq.ParquetFile(path)
+        groups, total = self._groups(pf.metadata)
+        if not groups:
+            if total:
+                return  # every row group refuted: nothing read or uploaded
+            # a file without row groups: host read, every column decoded
+            b = from_arrow(pf.read(columns=[f.name for f in fields]),
+                           self.device)
+            self._emitted(int(b.num_rows))
+            yield ENC.EncodedBatch(
+                [ENC.EncodedColumn("decoded", c.dtype, {}, cv=c,
+                                   bounds=c.bounds) for c in b.columns],
+                int(b.num_rows), b.capacity)
+            return
+        m = self.metrics
+        hbs = ENC.read_encoded_batches(
+            path, pf.metadata, groups, fields,
+            self.conf.get(C.MAX_READER_BATCH_SIZE_ROWS),
+            min(32, int(self.conf.get(C.DEVICE_DECODE_MAX_BITS))),
+            bool(self.conf.get(C.DEVICE_DECODE_DELTA)))
+        while True:
+            t0 = time.perf_counter()
+            hb = next(hbs, None)
+            m["decodeTime"] += time.perf_counter() - t0
+            if hb is None:
+                return
+            self.fallback_columns.update(hb.fallback)
+            fb_idx = [i for i, c in enumerate(hb.columns) if c is None]
+            tbl = None
+            if fb_idx:
+                m["numDecodeFallbackColumns"] += len(fb_idx)
+                t0 = time.perf_counter()
+                parts = [pf.read_row_group(g, columns=[fields[i].name
+                                                       for i in fb_idx])
+                         for g in hb.groups]
+                tbl = (pa.concat_tables(parts) if len(parts) > 1
+                       else parts[0]).combine_chunks()
+                m["decodeTime"] += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            decoded = {}
+            for j, i in enumerate(fb_idx):
+                arr = tbl.column(j)
+                arr = arr.chunk(0) if arr.num_chunks else arr.combine_chunks()
+                decoded[i] = column_from_arrow(arr, fields[i].dtype, hb.cap,
+                                               self.device)
+            eb = ENC.upload(hb, decoded, self.device)
+            m["copyToDeviceTime"] += time.perf_counter() - t0
+            m["encodedBytes"] += hb.encoded_bytes
+            m["decodedBytes"] += eb.decoded_size()
+            self._emitted(hb.num_rows)
+            yield eb
+
+
+class DeviceDecodeScanExec(TorchExec):
+    """Expands the child's EncodedBatches into ColumnarBatches on the
+    device (ops/decode.py, with the bitslice kernel), one batch at a
+    time. The row count stays the host int the source knew, so no
+    device read is needed for it."""
+
+    def __init__(self, plan, children, conf, device):
+        super().__init__(plan, children, conf, device)
+        self.metrics: Dict[str, float] = {"opTime": 0.0,
+                                          "numOutputBatches": 0}
+
+    def execute_partition(self, pidx):
+        for eb in self.children[0].execute_partition(pidx):
+            t0 = time.perf_counter()
+            out = D.decode_batch(eb)
+            self.metrics["opTime"] += time.perf_counter() - t0
+            self.metrics["numOutputBatches"] += 1
+            yield out
 
 
 class CachedScanExec(TorchExec):

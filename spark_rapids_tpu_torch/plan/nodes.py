@@ -1,12 +1,13 @@
 """Logical plan nodes with schema inference and name binding.
 
 Counterpart of ``spark_rapids_tpu/plan/nodes.py`` for the nodes this
-engine runs: ``InMemorySource``, ``CachedRelation`` (the ``df.cache()``
-marker), ``Project``, ``Filter``, ``Aggregate`` and ``Repartition``.
+engine runs: ``InMemorySource``, ``ParquetScan``, ``CachedRelation`` (the
+``df.cache()`` marker), ``Project``, ``Filter``, ``Aggregate`` and
+``Repartition``.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional, Sequence
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.expr.aggregates import NamedAgg
@@ -58,6 +59,37 @@ class InMemorySource(PlanNode):
     def schema(self):
         return T.Schema(tuple(T.StructField(f.name, T.from_arrow(f.type))
                               for f in self.table.schema))
+
+
+class ParquetScan(PlanNode):
+    """Parquet files, one partition per file. The schema is read from the
+    first file's footer (cut to ``columns``, in their order). Filter
+    pushdown (plan/overrides.py) fills ``pushed_filters``, which prune
+    row groups by footer statistics; the filter itself stays in the
+    plan."""
+
+    def __init__(self, paths: Sequence[str],
+                 columns: Optional[List[str]] = None):
+        self.paths = list(paths)
+        self.columns = list(columns) if columns else None
+        self.pushed_filters: List[Expression] = []
+        self._schema: Optional[T.Schema] = None
+        self.children = []
+
+    @property
+    def schema(self):
+        if self._schema is None:
+            import pyarrow.parquet as pq
+            arrow = pq.read_schema(self.paths[0])
+            names = self.columns or arrow.names
+            missing = [c for c in names if c not in arrow.names]
+            if missing:
+                raise KeyError(f"columns {missing} not in {self.paths[0]!r}")
+            # only the read columns need a type the engine carries
+            self._schema = T.Schema(tuple(
+                T.StructField(n, T.from_arrow(arrow.field(n).type))
+                for n in names))
+        return self._schema
 
 
 class CachedRelation(PlanNode):

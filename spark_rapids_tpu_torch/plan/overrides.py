@@ -1,20 +1,41 @@
 """Plan conversion: logical plan nodes -> physical operators.
 
 Counterpart of ``spark_rapids_tpu/plan/overrides.py`` ``convert_plan``
-for this engine's nodes. Everything runs on one device: there is no
-tagging and no CPU fallback yet, so a node without a conversion raises
+for this engine's nodes, with the Parquet filter pushdown that runs
+before it. Everything runs on one device: there is no tagging and no CPU
+fallback yet, so a node without a conversion raises
 ``NotImplementedError`` with its name.
 """
 from __future__ import annotations
 
+from functools import reduce
+from typing import Dict, List, Optional
+
+from spark_rapids_tpu_torch import config as C
 from spark_rapids_tpu_torch.exec import nodes as X
+from spark_rapids_tpu_torch.expr import core as E
+from spark_rapids_tpu_torch.io.parquet_pruning import split_conjuncts
 from spark_rapids_tpu_torch.plan import nodes as P
 
 
 def convert_plan(plan: P.PlanNode, conf, device) -> X.TorchExec:
-    children = [convert_plan(c, conf, device) for c in plan.children]
+    push_down_scan_filters(plan)
+    return _convert(plan, conf, device)
+
+
+def _convert(plan: P.PlanNode, conf, device) -> X.TorchExec:
+    children = [_convert(c, conf, device) for c in plan.children]
     if isinstance(plan, P.InMemorySource):
         return X.InMemoryScanExec(plan, children, conf, device)
+    if isinstance(plan, P.ParquetScan):
+        if conf.get(C.DEVICE_DECODE_ENABLED):
+            # the source coalesces row groups itself up to the reader
+            # batch size, and encoded batches are not concatenable
+            return X.DeviceDecodeScanExec(
+                plan, [X.EncodedParquetSourceExec(plan, [], conf, device)],
+                conf, device)
+        return X.CoalesceBatchesExec(
+            plan, [X.ParquetScanExec(plan, [], conf, device)], conf, device)
     if isinstance(plan, P.CachedRelation):
         return X.CachedScanExec(plan, children, conf, device)
     if isinstance(plan, P.Project):
@@ -45,3 +66,95 @@ def _convert_aggregate(plan, child, conf, device):
             conf, device)
     return X.HashAggregateExec(plan, [child], conf, device,
                                pre_filter=pre_filter)
+
+
+# ---------------------------------------------------------------------------
+# Parquet filter pushdown
+# ---------------------------------------------------------------------------
+
+def _as_pushed(e: E.Expression) -> Optional[E.Expression]:
+    """Copy a conjunct into the shape row-group pruning reads
+    (comparisons, IsNull/IsNotNull, And/Or over column refs and
+    literals); None when it is not pushable."""
+    if isinstance(e, E.BoundRef):
+        return E.BoundRef(e.index, e.data_type(), e.name)
+    if isinstance(e, E.Literal):
+        return e
+    if isinstance(e, E.Not):
+        # only null-test negations have a sound pruning rewrite (negating
+        # an interval comparison is unsound under three-valued logic)
+        c = e.children[0]
+        if isinstance(c, E.IsNull):
+            return _as_pushed(E.IsNotNull(c.children[0]))
+        if isinstance(c, E.IsNotNull):
+            return _as_pushed(E.IsNull(c.children[0]))
+        return None
+    if isinstance(e, (E.And, E.Or, E.EqualTo, E.LessThan, E.LessThanOrEqual,
+                      E.GreaterThan, E.GreaterThanOrEqual, E.IsNull,
+                      E.IsNotNull)):
+        kids = [_as_pushed(c) for c in e.children]
+        if any(k is None for k in kids):
+            return None
+        return e.with_children(kids)
+    return None
+
+
+def _rename_refs(e: E.Expression,
+                 nmap: Dict[str, str]) -> Optional[E.Expression]:
+    """Rewrite column refs through a projection's output -> input name
+    map; None when a ref does not map (a computed column)."""
+    if isinstance(e, E.BoundRef):
+        t = nmap.get(e.name)
+        if t is None:
+            return None
+        return E.BoundRef(e.index, e.data_type(), t)
+    if not e.children:
+        return e
+    kids = [_rename_refs(c, nmap) for c in e.children]
+    if any(k is None for k in kids):
+        return None
+    return e.with_children(kids)
+
+
+def push_down_scan_filters(plan: P.PlanNode) -> None:
+    """Fill ParquetScan.pushed_filters from the Filter nodes above each
+    scan, renamed through the projections between them. A scan reached
+    from several branches gets the OR of the branches' conjunctions, and
+    a branch that reaches it with no predicate turns pruning off.
+    Idempotent: the lists are reassigned, not extended."""
+    arrivals: Dict[int, List[List[E.Expression]]] = {}
+    scans: Dict[int, P.ParquetScan] = {}
+
+    def walk(node: P.PlanNode, conjs: List[E.Expression]) -> None:
+        if isinstance(node, P.Filter):
+            add = [p for p in map(_as_pushed, split_conjuncts(node.condition))
+                   if p is not None]
+            walk(node.children[0], conjs + add)
+            return
+        if isinstance(node, P.Project):
+            nmap: Dict[str, str] = {}
+            for name, ex in zip(node.names, node.exprs):
+                inner = ex.children[0] if isinstance(ex, E.Alias) else ex
+                if isinstance(inner, E.BoundRef):
+                    nmap[name] = inner.name
+            renamed = [r for r in (_rename_refs(c, nmap) for c in conjs)
+                       if r is not None]
+            walk(node.children[0], renamed)
+            return
+        if isinstance(node, P.ParquetScan):
+            arrivals.setdefault(id(node), []).append(conjs)
+            scans[id(node)] = node
+            return
+        for c in node.children:
+            walk(c, [])
+
+    walk(plan, [])
+    for sid, paths in arrivals.items():
+        scan = scans[sid]
+        if any(not p for p in paths):
+            scan.pushed_filters = []
+        elif len(paths) == 1:
+            scan.pushed_filters = list(paths[0])
+        else:
+            scan.pushed_filters = [reduce(E.Or, [reduce(E.And, p)
+                                                 for p in paths])]

@@ -1,12 +1,14 @@
 """The session: entry point of the PyTorch engine.
 
 Counterpart of ``spark_rapids_tpu/sql/session.py`` ``TpuSession``
-(``create_dataframe``, ``collect``, and the device-side compaction of
-sparse results before the download).
+(``create_dataframe``, ``read_parquet``, ``collect``, and the device-side
+compaction of sparse results before the download).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import glob
+import os
+from typing import Dict, List, Optional
 
 import pyarrow as pa
 import torch
@@ -32,6 +34,8 @@ class TorchSession:
                                "is available; pass device='cpu' to run on "
                                "the CPU")
         self.conf = C.RapidsConf(conf)
+        #: the root operator of the last collect, for reading its counters
+        self.last_exec = None
 
     def create_dataframe(self, data, num_partitions: int = 1) -> DataFrame:
         if isinstance(data, dict):
@@ -40,8 +44,33 @@ class TorchSession:
             raise TypeError(type(data))
         return DataFrame(P.InMemorySource(data, num_partitions), self)
 
+    def read_parquet(self, *paths, columns=None) -> DataFrame:
+        """Parquet files, flat directories of them (``*.parquet``, names
+        starting with ``_`` skipped) or glob patterns; one partition per
+        file. Decoded on the device unless
+        spark.rapids.sql.decode.device.enabled is false."""
+        files: List[str] = []
+        for p in paths:
+            if os.path.isdir(p):
+                if any("=" in d.name for d in os.scandir(p) if d.is_dir()):
+                    raise NotImplementedError(
+                        f"hive partition discovery (k=v directories under "
+                        f"{p!r}) is not ported yet")
+                files.extend(sorted(
+                    f for f in glob.glob(os.path.join(p, "*.parquet"))
+                    if os.path.isfile(f)
+                    and not os.path.basename(f).startswith("_")))
+            elif any(ch in p for ch in "*?["):
+                files.extend(sorted(glob.glob(p)))
+            else:
+                files.append(p)
+        if not files:
+            raise FileNotFoundError(f"no input files matched {list(paths)!r}")
+        return DataFrame(P.ParquetScan(files, columns), self)
+
     def collect(self, plan: P.PlanNode) -> pa.Table:
         root = convert_plan(plan, self.conf, self.device)
+        self.last_exec = root
         names = plan.schema.names
         tables = []
         for p in range(root.num_partitions):

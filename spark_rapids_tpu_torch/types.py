@@ -2,9 +2,10 @@
 
 Counterpart of ``spark_rapids_tpu/types.py``, cut to the types this engine
 carries on the card: bool, int8/16/32/64, float32/64, date (int32 days
-since the epoch) and UTF-8 strings (offsets + bytes, or dictionary codes +
-vocabulary). The class names, singletons and ``common_type`` widening rules
-are the same as the JAX package's, so plans and results line up.
+since the epoch), timestamp (int64 microseconds since the epoch, UTC)
+and UTF-8 strings (offsets + bytes, or dictionary codes + vocabulary).
+The class names, singletons and ``common_type`` widening rules are the
+same as the JAX package's, so plans and results line up.
 """
 from __future__ import annotations
 
@@ -86,6 +87,12 @@ class DateType(DataType):
     torch_dtype = torch.int32
 
 
+class TimestampType(DataType):
+    """Microseconds since the epoch, UTC, int64 (Spark TimestampType)."""
+    np_dtype = np.dtype(np.int64)
+    torch_dtype = torch.int64
+
+
 class StringType(DataType):
     """UTF-8 strings: int32 offsets + uint8 bytes, or dictionary-encoded
     as int32 codes into a small vocabulary (the default upload layout)."""
@@ -99,6 +106,7 @@ INT64 = Int64Type()
 FLOAT32 = Float32Type()
 FLOAT64 = Float64Type()
 DATE = DateType()
+TIMESTAMP = TimestampType()
 STRING = StringType()
 
 
@@ -163,6 +171,8 @@ def from_arrow(at) -> DataType:
         return STRING
     if pa.types.is_date32(at):
         return DATE
+    if pa.types.is_timestamp(at):
+        return TIMESTAMP
     raise NotImplementedError(f"arrow type {at} is not supported yet")
 
 
@@ -172,4 +182,5 @@ def to_arrow(dtype: DataType):
         BOOLEAN: pa.bool_(), INT8: pa.int8(), INT16: pa.int16(),
         INT32: pa.int32(), INT64: pa.int64(), FLOAT32: pa.float32(),
         FLOAT64: pa.float64(), STRING: pa.string(), DATE: pa.date32(),
+        TIMESTAMP: pa.timestamp("us"),
     }[dtype]

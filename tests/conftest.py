@@ -28,6 +28,10 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "slow: full NDS-scale runs excluded from tier-1 (-m 'not slow')")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card; skips itself where none is present "
+        "(run them with -m cuda on a machine with the card)")
 
 
 @pytest.fixture(autouse=True)

@@ -223,6 +223,7 @@ def test_digit_helpers_match_jax(scale_of):
     np.testing.assert_array_equal(pv.numpy(), code.astype(np.float64))
 
 
+@pytest.mark.cuda
 def test_kernels_match_plain_versions_on_card():
     # decided inside the test: collection must not depend on the machine
     if not torch.cuda.is_available():
