@@ -43,12 +43,33 @@ Phases, one JSON line each:
    pyarrow's decode of the row group exactly (compared on the card), and
    so does a matrix of generated files (mixed kinds with sparse and all
    nulls, delta, RLE booleans, date and timestamp) of 2^20 rows each.
+7. strings: lineitem_text (30M rows: l_orderkey, l_returnflag,
+   l_linestatus, l_quantity and l_comment, 10-43 characters per row cut
+   from a 16 MB pool of TPC-H grammar words in random order, nearly all
+   distinct, so a flat column of about 0.8 GB in a 2^30-byte plane)
+   cached on the card, then str_case_agg
+   (contains(upper(l_comment)) filter, group by the flags, count and
+   sum(length(lower(l_comment))): the tiny-bucket route), str_group_flat
+   (group by substring(upper(l_comment), 1, 9): the sort route) and
+   str_prefix_rows (startswith(lower(l_comment)) and l_quantity < 3, then
+   l_orderkey, concat of the flags, substring(upper(l_comment), 1, 12)),
+   each cold then twice warm, checked against pyarrow's ASCII string
+   functions (str_group_flat group by group, str_prefix_rows row by row).
+   The launch counts are set to 0 before this path and read after; the
+   case-map kernel must have run. The kernels phase also holds the
+   case-map kernel against its plain version on the l_comment plane.
 
-It then prints the kernel table ({"kernels": [...]}), the card's name and
-power limit, and as its last line {"ok": true, "device": {...}}. Any
-failure exits non-zero without that line; so does a machine without CUDA.
-CHIP_SMOKE_PROFILE=1 adds a torch.profiler pass over each query of both
-paths (CHIP_SMOKE_TRACE_DIR=dir also writes their Chrome traces).
+It then prints the kernel table ({"kernels": [...]}, with each kernel's
+launches per path), the card's name and power limit, and as its last line
+{"ok": true, "device": {...}}. Any failure exits non-zero without that
+line; so does a machine without CUDA, and so does a run that imported the
+JAX package. The lineitem generators and the string query shapes are the
+ones of tests/torch_port_helpers.py, which the CPU tests run too.
+CHIP_SMOKE_PROFILE=1 adds a torch.profiler pass over each query of the
+three paths, with each port kernel's launches, device time and bounds at
+the shapes the query gave it, and ranks the kernels by device time above
+bound over those runs (CHIP_SMOKE_TRACE_DIR=dir also writes the queries'
+Chrome traces).
 """
 from __future__ import annotations
 
@@ -67,7 +88,7 @@ import numpy as np
 ROWS = 30_000_000
 LO, HI = 8766, 9131
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-KERNEL_NAMES = ("murmur3", "segsum", "bitslice")
+KERNEL_NAMES = ("murmur3", "segsum", "bitslice", "case_map")
 #: bench.py decode_pass's writer settings (bench.py:516-519)
 PARQUET_WRITE = dict(row_group_size=1 << 20,
                      use_dictionary=["l_shipdate", "l_quantity",
@@ -90,6 +111,25 @@ def nvidia_smi() -> str:
             timeout=30).stdout.strip()
     except (OSError, subprocess.SubprocessError) as e:
         return f"nvidia-smi unavailable: {e}"
+
+
+def helpers():
+    """tests/torch_port_helpers.py: the lineitem generators and the string
+    query shapes, shared with the CPU tests (numpy and pyarrow at
+    import)."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.append(tests)
+    import torch_port_helpers
+    return torch_port_helpers
+
+
+def port_api():
+    from types import SimpleNamespace
+
+    from spark_rapids_tpu_torch.expr.core import col, lit
+    from spark_rapids_tpu_torch.sql import functions as F
+    return SimpleNamespace(col=col, lit=lit, F=F)
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -154,7 +194,7 @@ def phase_build():
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def phase_kernels(pq_path: str):
+def phase_kernels(pq_path: str, comment_plane):
     import torch
     from spark_rapids_tpu_torch.ops import murmur3_kernel as MK
     from spark_rapids_tpu_torch.ops import segsum as S
@@ -237,8 +277,62 @@ def phase_kernels(pq_path: str):
                  "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                  "bound_by": "bytes", "library_ms": lib_ms})
     rows.append(bitslice_row(pq_path, rng, dev))
+    rows.append(case_map_row(comment_plane, rng, dev))
     emit({"phase": "kernels", "results": rows})
     return rows
+
+
+def comment_plane(text):
+    """l_comment's byte plane on the card, as the cache uploads it."""
+    import torch
+    from spark_rapids_tpu_torch.columnar.batch import (
+        _string_planes, round_capacity,
+    )
+    _, raw = _string_planes(text["l_comment"].combine_chunks())
+    plane = torch.zeros(round_capacity(len(raw), minimum=8),
+                        dtype=torch.uint8, device="cuda")
+    plane[:len(raw)] = torch.from_numpy(raw).cuda()
+    return plane
+
+
+def case_map_row(plane, rng, dev):
+    """B4 case map against its plain version, both directions, exactly:
+    on the l_comment byte plane (padding included), on 2^30 random bytes
+    0-255, on lengths 0, 1, 15, 17 and 4095, and on a view at an odd
+    offset (the kernel's byte path). The l_comment plane is the shape
+    timed."""
+    import torch
+    from spark_rapids_tpu_torch.ops import case_map as CM
+    noise = torch.from_numpy(rng.integers(0, 256, 1 << 30, dtype=np.uint8)
+                             ).to(dev)
+    inputs = [plane, noise, noise[3:3 + (1 << 20) + 5]]
+    inputs += [noise[:k] for k in (0, 1, 15, 17, 4095)]
+    bad, err = [], 0
+    for i, x in enumerate(inputs):
+        for upper in (True, False):
+            got, want = CM.case_map(x, upper), CM.case_map_plain(x, upper)
+            if x.numel():
+                err = max(err, int((got.to(torch.int16) - want.to(
+                    torch.int16)).abs().max()))
+            if not torch.equal(got, want):
+                bad.append((i, x.numel(), upper))
+    del noise, inputs, got, want
+    if bad:
+        raise AssertionError(f"case_map kernel differs from its plain "
+                             f"version on (input, bytes, upper) {bad}")
+    n = plane.numel()
+    ms = time_ms(lambda: CM.case_map(plane, True))
+    kernel_ms = kernel_device_ms(lambda: CM.case_map(plane, True),
+                                 "case_map")
+    plain_ms = time_ms(lambda: CM.case_map_plain(plane, True), reps=5)
+    return {"name": "case_map", "route": "cuda",
+            "source": "spark_rapids_tpu_torch/csrc/case_map.cu",
+            "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:151",
+            "shape": f"uint8[{n}] (l_comment's plane, 30M rows), upper",
+            "max_abs_err": err, "ms": ms, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": 2 * n / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": None}
 
 
 def bitslice_row(pq_path: str, rng, dev):
@@ -306,24 +400,6 @@ def bitslice_row(pq_path: str, rng, dev):
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
-
-def make_lineitem(rows: int):
-    """bench.py make_tables' lineitem, same generator and seed."""
-    import pyarrow as pa
-    orders = max(rows // 10, 1000)
-    rng = np.random.default_rng(42)
-    flags = np.array(["A", "N", "R"])[rng.integers(0, 3, rows)]
-    status = np.array(["F", "O"])[rng.integers(0, 2, rows)]
-    return pa.table({
-        "l_orderkey": rng.integers(0, orders, rows).astype(np.int64),
-        "l_returnflag": flags,
-        "l_linestatus": status,
-        "l_quantity": rng.integers(1, 51, rows).astype(np.float64),
-        "l_extendedprice": np.round(rng.uniform(900.0, 105000.0, rows), 2),
-        "l_discount": np.round(rng.uniform(0.0, 0.10, rows), 2),
-        "l_shipdate": rng.integers(8400, 10600, rows).astype(np.int32),
-    })
-
 
 def _close(a, b, tol=1e-6):
     return abs(a - b) <= tol * max(1.0, abs(a), abs(b))
@@ -443,7 +519,7 @@ class RouteSpy:
     """Counts entries into the aggregate's routes while the path runs."""
 
     METHODS = ("_global_update", "_bucket_update", "_segsum_or_fallback",
-               "_chunked_segsum_agg", "_scatter_agg")
+               "_chunked_segsum_agg", "_scatter_agg", "_sort_agg")
 
     def __init__(self):
         from spark_rapids_tpu_torch.exec import nodes as X
@@ -470,7 +546,7 @@ def phase_setup(rows: int, tmp_dir: str):
     """The lineitem, its pyarrow answers, and the Parquet file of it."""
     import pyarrow.parquet as pq
     t0 = time.perf_counter()
-    table = make_lineitem(rows)
+    table = helpers().make_lineitem(rows)
     gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     want = host_reference(table)
@@ -490,20 +566,22 @@ def phase_setup(rows: int, tmp_dir: str):
 
 def reset_launches() -> None:
     from spark_rapids_tpu_torch.ops import bitslice as BS
+    from spark_rapids_tpu_torch.ops import case_map as CM
     from spark_rapids_tpu_torch.ops import murmur3_kernel as MK
     from spark_rapids_tpu_torch.ops import segsum as S
-    MK.launches = S.launches = BS.launches = 0
+    MK.launches = S.launches = BS.launches = CM.launches = 0
 
 
 def read_launches():
     from spark_rapids_tpu_torch.ops import bitslice as BS
+    from spark_rapids_tpu_torch.ops import case_map as CM
     from spark_rapids_tpu_torch.ops import murmur3_kernel as MK
     from spark_rapids_tpu_torch.ops import segsum as S
     return {"murmur3_int32": MK.launches, "segsum": S.launches,
-            "bitslice": BS.launches}
+            "bitslice": BS.launches, "case_map": CM.launches}
 
 
-def phase_path(table, want, spy):
+def phase_path(table, want, spy, prof=None):
     import torch
     from spark_rapids_tpu_torch import TorchSession
     rows = table.num_rows
@@ -541,8 +619,8 @@ def phase_path(table, want, spy):
     counts = read_launches()
     emit({"phase": "path", "cache_s": cache_s, "launches": counts,
           "correct": ok})
-    if os.environ.get("CHIP_SMOKE_PROFILE") == "1":
-        profile_queries(port_queries(cached))
+    if prof:
+        prof.run("cached", port_queries(cached))
     if not ok:
         raise AssertionError("a path query disagrees with pyarrow")
     if min(counts["murmur3_int32"], counts["segsum"]) <= 0:
@@ -585,7 +663,7 @@ def scan_report(session):
     return out
 
 
-def phase_parquet(path, want, spy):
+def phase_parquet(path, want, spy, prof=None):
     import pyarrow.parquet as pq
     from spark_rapids_tpu_torch import TorchSession
     groups = pq.ParquetFile(path).metadata.num_row_groups
@@ -629,11 +707,11 @@ def phase_parquet(path, want, spy):
     emit({"phase": "parquet", "row_groups": groups, "launches": counts,
           "correct": not problems, "problems": problems})
     host_split(path, Q6_COLS)
-    if os.environ.get("CHIP_SMOKE_PROFILE") == "1":
-        profile_queries({k: v[1] for k, v in queries.items()})
+    if prof:
+        prof.run("parquet", {k: v[1] for k, v in queries.items()})
     if problems:
         raise AssertionError("; ".join(problems))
-    if min(counts.values()) <= 0:
+    if min(counts[k] for k in ("murmur3_int32", "segsum", "bitslice")) <= 0:
         raise AssertionError(f"a kernel did not run on the Parquet path: "
                              f"{counts}")
     return counts
@@ -824,44 +902,298 @@ def phase_decode(path, tmp_dir, dev):
                                  f"pyarrow: {batches} batches, {bad}")
 
 
-def profile_queries(queries) -> None:
-    """One warm run of each query under torch.profiler: the device time
-    summed over CUDA kernels beside the host wall time, and the kernels
-    taking the most device time (set CHIP_SMOKE_PROFILE=1; set
-    CHIP_SMOKE_TRACE_DIR to also write each query's Chrome trace there)."""
+# ---------------------------------------------------------------------------
+# phase 7: string expressions over a flat column
+# ---------------------------------------------------------------------------
+
+def strings_reference(t):
+    """pyarrow's answers with its ASCII string functions, which are what
+    the port's device path computes."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    c = t["l_comment"]
+    up, low = pc.ascii_upper(c), pc.ascii_lower(c)
+    f = t.append_column("n_chars", pc.utf8_length(low)).filter(
+        pc.match_substring(up, helpers().CASE_WORD))
+    g = f.group_by(["l_returnflag", "l_linestatus"]).aggregate(
+        [("n_chars", "count"), ("n_chars", "sum")])
+    case_agg = {(a, b): (n, s) for a, b, n, s in zip(
+        *[g[k].to_pylist() for k in ("l_returnflag", "l_linestatus",
+                                     "n_chars_count", "n_chars_sum")])}
+    heads = t.select(["l_quantity"]).append_column(
+        "head", pc.utf8_slice_codeunits(up, 0, 9))
+    g = heads.group_by(["head"]).aggregate([("l_quantity", "count"),
+                                            ("l_quantity", "sum")])
+    group_flat = g.select(["head", "l_quantity_count", "l_quantity_sum"]) \
+        .rename_columns(["head", "n", "q"]).cast(pa.schema([
+            ("head", pa.string()), ("n", pa.int64()), ("q", pa.float64())])) \
+        .sort_by("head")
+    m = pc.and_(pc.starts_with(low, helpers().PREFIX_WORD),
+                pc.less(t["l_quantity"], 3.0))
+    r = t.filter(m)
+    flags = pc.binary_join_element_wise(r["l_returnflag"],
+                                        r["l_linestatus"], "|")
+    rows = r.select(["l_orderkey"]).append_column("flags", flags) \
+        .append_column("head", pc.utf8_slice_codeunits(
+            pc.ascii_upper(r["l_comment"]), 0, 12))
+    return {"str_case_agg": case_agg, "str_group_flat": group_flat,
+            "str_prefix_rows": _sorted_rows(rows)}
+
+
+def _sorted_rows(t):
+    import pyarrow as pa
+    t = t.rename_columns(["l_orderkey", "flags", "head"]).cast(pa.schema([
+        ("l_orderkey", pa.int64()), ("flags", pa.string()),
+        ("head", pa.string())]))
+    return t.sort_by([("l_orderkey", "ascending"), ("flags", "ascending"),
+                      ("head", "ascending")])
+
+
+def string_queries(cached):
+    """The three string shapes of tests/torch_port_helpers.py over the
+    cached lineitem_text; str_case_agg's groups come back as a dict."""
+    H, api = helpers(), port_api()
+
+    def str_case_agg():
+        d = H.str_case_agg(api, cached).to_pydict()
+        return {(a, b): (n, c) for a, b, n, c in zip(
+            d["l_returnflag"], d["l_linestatus"], d["n"], d["chars"])}
+
+    return {"str_case_agg": str_case_agg,
+            "str_group_flat": lambda: H.str_group_flat(api, cached).collect(),
+            "str_prefix_rows": lambda: H.str_prefix_rows(api, cached)
+            .collect()}
+
+
+def validate_strings(name, got, want) -> bool:
+    """Sorts the port's tables (outside the timed runs) and compares."""
+    if name == "str_case_agg":
+        return got == want
+    if name == "str_prefix_rows":
+        got = _sorted_rows(got)
+    if name == "str_group_flat":
+        got = got.sort_by("head")
+        if got.num_rows != want.num_rows:
+            return False
+        q_got = got["q"].to_numpy()
+        q_want = want["q"].to_numpy()
+        return (got["head"].equals(want["head"])
+                and got["n"].equals(want["n"].cast(got["n"].type))
+                and bool(np.all(np.abs(q_got - q_want)
+                                <= 1e-6 * np.maximum(1.0, np.abs(q_want)))))
+    return got.num_rows == want.num_rows and all(
+        got[k].equals(want[k].cast(got[k].type)) for k in got.column_names)
+
+
+def phase_strings(text, spy, prof=None):
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    out_dir = os.environ.get("CHIP_SMOKE_TRACE_DIR")
-    if out_dir:
-        os.makedirs(out_dir, exist_ok=True)
+    from spark_rapids_tpu_torch import TorchSession
+    t0 = time.perf_counter()
+    want = strings_reference(text)
+    host_s = time.perf_counter() - t0
+    reset_launches()
+    spy.take()
+    session = TorchSession()
+    t0 = time.perf_counter()
+    cached = session.create_dataframe(text).cache()
+    n = cached.count()
+    torch.cuda.synchronize()
+    cache_s = time.perf_counter() - t0
+    comment = cached.plan.materialized[0][0].columns[-1]
+    if n != text.num_rows or "offsets" not in comment.data:
+        raise AssertionError(f"lineitem_text cached {n} rows; l_comment "
+                             f"planes {sorted(comment.data)}")
+    emit({"phase": "strings.setup", "rows": n, "host_reference_s": host_s,
+          "cache_s": cache_s,
+          "comment_bytes": int(comment.data["offsets"][-1]),
+          "comment_plane": comment.data["bytes"].numel()})
+    problems = []
+    queries = string_queries(cached)
     for name, fn in queries.items():
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        before = read_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = fn()
+        cold = time.perf_counter() - t0
+        warm = []
+        for _ in range(2):
             t0 = time.perf_counter()
             fn()
+            warm.append(time.perf_counter() - t0)
+        good = validate_strings(name, got, want[name])
+        if not good:
+            problems.append(f"{name} disagrees with pyarrow")
+        launches = {k: (v - before[k]) // 3
+                    for k, v in read_launches().items()}
+        emit({"phase": "strings.query", "query": name, "correct": good,
+              "cold_s": cold, "warm_s": min(warm), "launches": launches,
+              "routes": {k: v // 3 for k, v in spy.take().items()},
+              "result_rows": (len(got) if isinstance(got, dict)
+                              else got.num_rows),
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+    counts = read_launches()
+    emit({"phase": "strings", "launches": counts, "correct": not problems,
+          "problems": problems})
+    if prof:
+        prof.run("strings", queries)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    if counts["case_map"] <= 0:
+        raise AssertionError(f"the case-map kernel did not run on the "
+                             f"strings path: {counts}")
+    return counts
+
+
+#: launch-counter name -> (wrapper module, wrapper function, a substring
+#: of the CUDA kernel's name as the profiler reports it)
+KERNEL_WRAPPERS = {
+    "murmur3_int32": ("murmur3_kernel", "murmur3_int32", "murmur3"),
+    "segsum": ("segsum", "segsum", "segsum"),
+    "bitslice": ("bitslice", "bitslice", "bitslice"),
+    "case_map": ("case_map", "case_map", "case_map"),
+}
+
+
+def launch_bytes(name, *a):
+    """The bytes one launch must move, from the operands it was given:
+    each input read once, each output written once. For bitslice, the
+    words its fields lie in, from the offsets' maximum: a 0-d tensor on
+    the card, read after the profiled run."""
+    if name == "murmur3_int32":
+        values, seed = a
+        return values.numel() * (12 if hasattr(seed, "numel") else 8)
+    if name == "segsum":
+        gid, payload, outcap = a
+        return gid.numel() * 4 + payload.numel() * 2 \
+            + outcap * payload.shape[0] * 4
+    if name == "bitslice":
+        words, bitoff, _ = a
+        if not bitoff.numel():
+            return 0
+        return bitoff.numel() * 16 + 4 * (bitoff.max() // 32 + 2).clamp(
+            max=words.numel())
+    raw, _ = a
+    return 2 * raw.numel()
+
+
+class KernelProfile:
+    """CHIP_SMOKE_PROFILE=1: one warm run of each query of every path under
+    torch.profiler, after the path's checks. Per query: the device time
+    summed over CUDA kernels beside the host wall time, the kernels taking
+    the most device time, and per port kernel its launches in that run,
+    their device time and the sum of their bounds at the shapes the query
+    gave them. ``rank`` sums the last over all profiled queries: device
+    time above bound at the shapes the paths really launch (set
+    CHIP_SMOKE_TRACE_DIR to also write each query's Chrome trace)."""
+
+    def __init__(self):
+        self.totals = {k: {"launches": 0, "profiled_calls": 0,
+                           "device_ms": 0.0, "bound_ms": 0.0}
+                       for k in KERNEL_WRAPPERS}
+        self.out_dir = os.environ.get("CHIP_SMOKE_TRACE_DIR")
+        if self.out_dir:
+            os.makedirs(self.out_dir, exist_ok=True)
+
+    @staticmethod
+    def _record_launches(sizes):
+        """Wraps the kernel wrappers (every caller reaches them through
+        their module) so each launch appends its bytes to sizes[name];
+        returns the function that puts the originals back."""
+        import importlib
+        restore = []
+        for name, (mod_name, fn_name, _) in KERNEL_WRAPPERS.items():
+            mod = importlib.import_module(
+                f"spark_rapids_tpu_torch.ops.{mod_name}")
+            orig = getattr(mod, fn_name)
+
+            def spy(*a, _mod=mod, _orig=orig, _name=name):
+                before = _mod.launches
+                out = _orig(*a)
+                if _mod.launches != before:
+                    sizes[_name].append(launch_bytes(_name, *a))
+                return out
+            setattr(mod, fn_name, spy)
+            restore.append((mod, fn_name, orig))
+
+        def undo():
+            for mod, fn_name, orig in restore:
+                setattr(mod, fn_name, orig)
+        return undo
+
+    def run(self, path, queries) -> None:
+        import torch
+        from torch.profiler import ProfilerActivity, profile, schedule
+        for name, fn in queries.items():
+            fn()
             torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        if out_dir:
-            prof.export_chrome_trace(os.path.join(out_dir,
-                                                  f"trace_{name}.json"))
-        rows = []
-        for e in prof.key_averages():
-            if "CUDA" not in str(getattr(e, "device_type", "")):
-                continue  # host-side ops would count their kernels twice
-            dev = getattr(e, "self_device_time_total",
-                          getattr(e, "self_cuda_time_total", 0)) / 1e3
-            if dev > 0:
-                rows.append((dev, e.key, e.count))
-        rows.sort(reverse=True)
-        device_ms = sum(r[0] for r in rows)
-        emit({"phase": "path.profile", "query": name, "wall_ms": wall_ms,
-              "device_ms": device_ms,
-              "device_idle_share": (max(0.0, 1 - device_ms / wall_ms)
-                                    if device_ms else None),
-              "top": [{"kernel": k[:80], "ms": d, "calls": c}
-                      for d, k, c in rows[:8]]})
+            sizes = {k: [] for k in KERNEL_WRAPPERS}
+            events = []
+
+            def ready(p, _name=name):
+                events.extend(p.key_averages())
+                if self.out_dir:
+                    p.export_chrome_trace(os.path.join(
+                        self.out_dir, f"trace_{_name}.json"))
+            # a traced warm-up run that is dropped: the first kernels after
+            # the tracer starts can go unrecorded
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1),
+                         on_trace_ready=ready) as prof:
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+                undo = self._record_launches(sizes)
+                try:
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    wall_ms = (time.perf_counter() - t0) * 1e3
+                finally:
+                    undo()
+                prof.step()
+            rows = []
+            for e in events:
+                if "CUDA" not in str(getattr(e, "device_type", "")) \
+                        or e.key.startswith("ProfilerStep"):
+                    # host-side ops, and the step's own annotation on the
+                    # card, would count their kernels twice
+                    continue
+                dev = getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0)) / 1e3
+                if dev > 0:
+                    rows.append((dev, e.key, e.count))
+            rows.sort(reverse=True)
+            device_ms = sum(r[0] for r in rows)
+            kernels = {}
+            for k, (_, _, match) in KERNEL_WRAPPERS.items():
+                if not sizes[k]:
+                    continue
+                got = {"launches": len(sizes[k]),
+                       "profiled_calls": sum(r[2] for r in rows
+                                             if match in r[1]),
+                       "device_ms": sum(r[0] for r in rows if match in r[1]),
+                       "bound_ms": sum(float(b) for b in sizes[k])
+                       / HBM_BYTES_PER_S * 1e3}
+                kernels[k] = got
+                for f, v in got.items():
+                    self.totals[k][f] += v
+            emit({"phase": "profile", "path": path, "query": name,
+                  "wall_ms": wall_ms, "device_ms": device_ms,
+                  "device_idle_share": (max(0.0, 1 - device_ms / wall_ms)
+                                        if device_ms else None),
+                  "kernels": kernels,
+                  "top": [{"kernel": k[:80], "ms": d, "calls": c}
+                          for d, k, c in rows[:8]]})
+
+    def rank(self) -> None:
+        """The kernels by device time above bound over one profiled run of
+        every query, largest first."""
+        out = sorted(({"name": k, **v,
+                       "above_bound_ms": v["device_ms"] - v["bound_ms"]}
+                      for k, v in self.totals.items()),
+                     key=lambda r: -r["above_bound_ms"])
+        emit({"phase": "profile.rank", "kernels": out})
 
 
 def main() -> int:
@@ -880,27 +1212,40 @@ def main() -> int:
         phases["build_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         table, want, path = phase_setup(ROWS, tmp_dir)
+        text = helpers().lineitem_text(table)
         phases["setup_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        rows = phase_kernels(path)
+        rows = phase_kernels(path, comment_plane(text))
         phases["kernels_s"] = time.perf_counter() - t0
         spy = RouteSpy()
+        prof = KernelProfile() \
+            if os.environ.get("CHIP_SMOKE_PROFILE") == "1" else None
         t0 = time.perf_counter()
-        cached = phase_path(table, want, spy)
+        cached = phase_path(table, want, spy, prof)
         phases["path_s"] = time.perf_counter() - t0
         del table
         t0 = time.perf_counter()
-        parquet = phase_parquet(path, want, spy)
+        parquet = phase_parquet(path, want, spy, prof)
         phases["parquet_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         phase_decode(path, tmp_dir, torch.device("cuda"))
         phases["decode_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        strings = phase_strings(text, spy, prof)
+        phases["strings_s"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp_dir, ignore_errors=True)
     for r in rows:
-        by_path = {"cached": cached[r["name"]], "parquet": parquet[r["name"]]}
+        by_path = {"cached": cached[r["name"]], "parquet": parquet[r["name"]],
+                   "strings": strings[r["name"]]}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
+    if prof:
+        prof.rank()
+    jax_loaded = sorted(m for m in sys.modules if m.split(".")[0] in
+                        ("jax", "jaxlib", "spark_rapids_tpu"))
+    if jax_loaded:
+        raise AssertionError(f"the run imported {jax_loaded}")
     phases["total_s"] = time.perf_counter() - t_all
     emit({"phase": "done", **phases})
     emit({"kernels": rows})

@@ -276,59 +276,79 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-def _vocab(offsets: np.ndarray, raw: np.ndarray):
+def _string_rows_arrow(col: ColumnVector, idx: torch.Tensor,
+                       valid: Optional[np.ndarray]):
+    """The selected rows of a string column as an Arrow string array. The
+    rows' bytes are gathered on the device, so only they are downloaded
+    (a flat plane, or the vocabulary behind a gathered flat column, may
+    hold a gigabyte), and the array is built from buffers, without a
+    Python string per row."""
     import pyarrow as pa
-    return pa.array([bytes(raw[offsets[i]: offsets[i + 1]]).decode(
-        "utf-8", "replace") for i in range(len(offsets) - 1)], pa.string())
+    from spark_rapids_tpu_torch.ops.kernels import expand_ranges
+    n = idx.shape[0]
+    if col.is_dict:
+        off = col.data["dict_offsets"].to(torch.int64)
+        raw = col.data["dict_bytes"]
+        if col.dict_size == 0:
+            valid = np.zeros(n, np.bool_)
+            starts = torch.zeros(n, dtype=torch.int64, device=idx.device)
+            lens = starts
+        else:
+            codes = col.data["codes"][idx].to(torch.int64).clamp(
+                0, col.dict_size - 1)
+            starts = off[codes]
+            lens = off[codes + 1] - starts
+    else:
+        off = col.data["offsets"].to(torch.int64)
+        raw = col.data["bytes"]
+        starts = off[idx]
+        lens = off[idx + 1] - starts
+    if valid is not None:
+        lens = torch.where(torch.from_numpy(valid).to(lens.device), lens, 0)
+    row, within, total = expand_ranges(lens)
+    data = raw[starts[row.to(torch.int64)] + within] if total \
+        else torch.zeros(0, dtype=torch.uint8, device=raw.device)
+    new_off = torch.cat([torch.zeros(1, dtype=torch.int64,
+                                     device=lens.device), lens.cumsum(0)])
+    bitmap = None if valid is None \
+        else pa.py_buffer(np.packbits(valid, bitorder="little"))
+    arr = pa.LargeStringArray.from_buffers(
+        n, pa.py_buffer(_host(new_off)), pa.py_buffer(_host(data)), bitmap)
+    return arr.cast(pa.string())
 
 
 def to_arrow(batch: ColumnarBatch, names: Optional[Sequence[str]] = None):
-    """Device ColumnarBatch -> pyarrow Table. A selection mask compacts on
-    the host here; callers compact large sparse batches on the device
-    first (session.collect)."""
+    """Device ColumnarBatch -> pyarrow Table. The live rows are selected on
+    the device and only they are downloaded; callers compact large sparse
+    batches on the device first (session.collect)."""
     import pyarrow as pa
     n = int(batch.num_rows)
     sel = None
     if batch.row_mask is not None:
-        sel = np.flatnonzero(_host(batch.row_mask))
-        n = len(sel)
+        sel = torch.nonzero(batch.row_mask).flatten()
+        n = int(sel.shape[0])
 
-    def rows(a: np.ndarray) -> np.ndarray:
-        return a[sel] if sel is not None else a[:n]
+    def rows(t: torch.Tensor) -> torch.Tensor:
+        return t[sel] if sel is not None else t[:n]
 
     arrays, fields = [], []
     for i, col in enumerate(batch.columns):
         name = names[i] if names else f"c{i}"
         at = T.to_arrow(col.dtype)
-        valid = None if col.validity is None else rows(_host(col.validity))
+        valid = None if col.validity is None else _host(rows(col.validity))
         mask = None if valid is None else ~valid
-        if col.is_dict:
-            codes = rows(_host(col.data["codes"])).astype(np.int32)
-            vocab = _vocab(_host(col.data["dict_offsets"]),
-                           _host(col.data["dict_bytes"]))
-            if len(vocab) == 0:
-                codes = np.zeros_like(codes)
-                vocab = pa.array([""], pa.string())
-                mask = np.ones(len(codes), np.bool_)
-            arr = pa.DictionaryArray.from_arrays(
-                pa.array(codes, pa.int32(), mask=mask), vocab
-            ).dictionary_decode()
-        elif col.is_string:
-            off = _host(col.data["offsets"])
-            raw = _host(col.data["bytes"])
-            idx = sel if sel is not None else np.arange(n)
-            vals = [None if (valid is not None and not valid[j]) else
-                    bytes(raw[off[i]: off[i + 1]]).decode("utf-8", "replace")
-                    for j, i in enumerate(idx)]
-            arr = pa.array(vals, pa.string())
+        if col.is_string:
+            idx = sel if sel is not None \
+                else torch.arange(n, device=col.device)
+            arr = _string_rows_arrow(col, idx, valid)
         elif isinstance(col.dtype, T.DateType):
-            arr = pa.array(rows(_host(col.data)).astype("datetime64[D]"),
+            arr = pa.array(_host(rows(col.data)).astype("datetime64[D]"),
                            type=at, mask=mask)
         elif isinstance(col.dtype, T.TimestampType):
-            arr = pa.array(rows(_host(col.data)).astype("datetime64[us]"),
+            arr = pa.array(_host(rows(col.data)).astype("datetime64[us]"),
                            type=at, mask=mask)
         else:
-            arr = pa.array(rows(_host(col.data)), type=at, mask=mask)
+            arr = pa.array(_host(rows(col.data)), type=at, mask=mask)
         arrays.append(arr)
         fields.append(pa.field(name, at))
     return pa.Table.from_arrays(arrays, schema=pa.schema(fields))

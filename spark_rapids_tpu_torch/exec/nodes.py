@@ -14,15 +14,20 @@ JAX package's stage fusion and compile caches have no counterpart here.
 
 The hash aggregate picks a route per batch, in the JAX package's order:
 
-1. tiny-bucket: dict-string and bool keys with at most 4096 key
-   combinations (``ops/groupby.bucket_agg``);
-2. packed radix: integer, date, bool and dict keys packed into one int64
-   plane (``ops/radix``). With 11-24 packed bits and 1-2 float sums plus
-   counts it takes the segsum kernel (``ops/segsum``), per CHUNK_ROWS
-   slice for large batches; otherwise, or when a group outgrows the
-   kernel's exact range or a NaN/Inf appears, the scatter-bucket
-   reductions;
-3. the general sort route, which is not ported yet and raises.
+1. tiny-bucket: dict-string keys whose vocabulary holds each string
+   once, and bool keys, with at most 4096 key combinations
+   (``ops/groupby.bucket_agg``);
+2. packed radix: integer, date, bool and such dict keys packed into one
+   int64 plane (``ops/radix``). With 11-24 packed bits and 1-2 float sums
+   plus counts it takes the segsum kernel (``ops/segsum``), per
+   CHUNK_ROWS slice for large batches; otherwise, or when a group
+   outgrows the kernel's exact range or a NaN/Inf appears, the
+   scatter-bucket reductions. Packed keys wider than 23 bits (the JAX
+   package's packed sort route) are not ported yet and raise;
+3. the sort route for every other key (flat strings, dictionaries that
+   may repeat a string, floats): stable sorts on 64-bit keys, then
+   segmented reductions (``ops/groupby.group_segments``). Partial states
+   merge by the packed route when their keys pack, else by this one.
 """
 from __future__ import annotations
 
@@ -651,14 +656,9 @@ class _AggKernels:
                     batch, live, errs = self._filtered(batch, ctx_of)
                     key_cols, input_cols, ierrs = self._inputs(batch, live,
                                                                ctx_of)
-                    specs = []
-                    for ai, a in enumerate(self.aggs):
-                        for (_, sdt), (op, idx) in zip(a.fn.state_schema(),
-                                                       a.fn.update_ops()):
-                            specs.append((op, input_cols[ai][idx]
-                                          if idx >= 0 else None, sdt))
-                    out = self._packed_agg(live, key_cols, specs, spec,
-                                           ranges)
+                    out = self._packed_agg(live, key_cols,
+                                           self._update_specs(input_cols),
+                                           spec, ranges)
                     _attach_key_bounds(out, spec, rh)
                     return out, errs + ierrs
         batch, live, errs = self._filtered(batch, ctx_of)
@@ -667,11 +667,21 @@ class _AggKernels:
             return self._global_update(batch, live, input_cols), errs + ierrs
         sizes = self._bucket_sizes(key_cols)
         if sizes is None:
-            raise NotImplementedError(
-                "the sort-based group route (ops/groupby.group_segments) "
-                "is not ported yet")
+            return self._sort_agg(live, key_cols,
+                                  self._update_specs(input_cols),
+                                  batch.num_rows), errs + ierrs
         return self._bucket_update(batch, live, key_cols, input_cols,
                                    sizes), errs + ierrs
+
+    def _update_specs(self, input_cols):
+        """(reduction, input column or None, state type) per state."""
+        specs = []
+        for ai, a in enumerate(self.aggs):
+            for (_, sdt), (op, idx) in zip(a.fn.state_schema(),
+                                           a.fn.update_ops()):
+                specs.append((op, input_cols[ai][idx] if idx >= 0 else None,
+                              sdt))
+        return specs
 
     def merge(self, batch: ColumnarBatch) -> ColumnarBatch:
         """Fold partial states that share keys."""
@@ -691,11 +701,11 @@ class _AggKernels:
                 cols.append(_resize_plane(ov, oval, sdt, round_capacity(1)))
             return ColumnarBatch(cols, 1)
         key_cols = list(batch.columns[:nkeys])
-        spec, ranges, rh = _probe_pack_spec(key_cols, live)
-        if not self._packed_ok or spec is None:
-            raise NotImplementedError(
-                "merging partial states by the sort-based group route "
-                "(ops/groupby.group_segments) is not ported yet")
+        spec = None
+        if self._packed_ok:
+            spec, ranges, rh = _probe_pack_spec(key_cols, live)
+        if spec is None:
+            return self._sort_agg(live, key_cols, states, batch.num_rows)
         out = self._packed_agg(live, key_cols, states, spec, ranges)
         _attach_key_bounds(out, spec, rh)
         return out
@@ -725,6 +735,34 @@ class _AggKernels:
                 out_cols.append(_resize_plane(ov, oval, sdt,
                                               round_capacity(1)))
         return ColumnarBatch(out_cols, 1)
+
+    # -- sort route ----------------------------------------------------------
+
+    def _sort_agg(self, live, key_cols, state_specs, num_rows
+                  ) -> ColumnarBatch:
+        """Group by sorting (``ops/groupby.group_segments``): the groups
+        come out packed to the front of the input's capacity, their count
+        kept on the device."""
+        cap = live.shape[0]
+        perm, seg_ids, boundary = G.group_segments(key_cols, num_rows,
+                                                   live=live)
+        out_cols = G.gather_group_keys(key_cols, perm, boundary, num_rows,
+                                       live=live)
+        for op, src, sdt in state_specs:
+            if src is None:
+                vals, valid = _zeros(cap, sdt, live.device), live
+            else:
+                if src.is_string and op not in ("count", "count_all"):
+                    raise NotImplementedError(
+                        "string aggregate state on the device")
+                vals = _zeros(cap, sdt, live.device) if src.is_string \
+                    else src.data.to(sdt.torch_dtype)
+                valid = live if src.validity is None else (src.validity & live)
+            ov, oval = G.segmented_agg(op, vals[perm], valid[perm], seg_ids,
+                                       cap)
+            out_cols.append(ColumnVector(sdt, ov.to(sdt.torch_dtype), oval))
+        return ColumnarBatch(out_cols,
+                             LazyRowCount(boundary.sum(dtype=torch.int32)))
 
     # -- tiny-bucket route -------------------------------------------------
 

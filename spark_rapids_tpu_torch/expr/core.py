@@ -1,11 +1,13 @@
 """Expression trees evaluated on torch tensors.
 
 Counterpart of ``spark_rapids_tpu/expr/core.py`` for the expressions this
-engine carries: column references, literals, aliases, ``+ - * / %``,
-comparisons, ``And``/``Or``/``Not``, ``IsNull``/``IsNotNull`` and numeric
-casts. Null semantics follow Spark SQL, as in the JAX package: arithmetic
-and comparisons propagate nulls, AND/OR are Kleene, division or remainder
-by zero is null (or an error in ANSI mode).
+engine carries: column references, literals (strings and nulls included),
+aliases, ``+ - * / %``, comparisons (strings: equality only, as on the JAX
+package's device), ``And``/``Or``/``Not``, ``IsNull``/``IsNotNull`` and
+numeric casts. The string functions are in ``expr/strings.py``. Null
+semantics follow Spark SQL, as in the JAX package: arithmetic and
+comparisons propagate nulls, AND/OR are Kleene, division or remainder by
+zero is null (or an error in ANSI mode).
 
 ``eval(ctx)`` runs eagerly over a batch's planes; a column whose validity
 is None is valid on every live row.
@@ -18,7 +20,9 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from spark_rapids_tpu_torch import types as T
-from spark_rapids_tpu_torch.columnar.batch import ColumnVector, rows_tensor
+from spark_rapids_tpu_torch.columnar.batch import (
+    ColumnVector, round_capacity, rows_tensor,
+)
 
 
 class SparkException(Exception):
@@ -115,6 +119,11 @@ class Expression:
     def alias(self, name): return Alias(self, name)
     def cast(self, dtype): return Cast(self, dtype)
 
+    def substr(self, pos, length):
+        """pyspark Column.substr (1-based)."""
+        from spark_rapids_tpu_torch.expr.strings import Substring
+        return Substring(self, pos, length)
+
 
 def _wrap(v) -> Expression:
     return v if isinstance(v, Expression) else Literal.infer(v)
@@ -207,9 +216,33 @@ class Literal(Expression):
         return self.value
 
     def eval(self, ctx):
+        cap = ctx.capacity
+        if self.value is None:
+            if isinstance(self.dtype, T.StringType):
+                data = {"offsets": torch.zeros(cap + 1, dtype=torch.int32,
+                                               device=ctx.device),
+                        "bytes": torch.zeros(8, dtype=torch.uint8,
+                                             device=ctx.device)}
+            else:
+                data = torch.zeros(cap, dtype=self.dtype.torch_dtype,
+                                   device=ctx.device)
+            return ColumnVector(self.dtype, data, torch.zeros(
+                cap, dtype=torch.bool, device=ctx.device))
         if isinstance(self.dtype, T.StringType):
-            raise NotImplementedError(
-                "string literal outside a dict-string comparison")
+            # the value repeated on every row, as flat planes
+            bs = self.value.encode("utf-8")
+            n = cap * len(bs)
+            raw = torch.zeros(round_capacity(max(n, 1)), dtype=torch.uint8,
+                              device=ctx.device)
+            if bs:
+                raw[:n] = torch.tensor(list(bs), dtype=torch.uint8,
+                                       device=ctx.device).repeat(cap)
+            offsets = torch.arange(cap + 1, dtype=torch.int32,
+                                   device=ctx.device) * len(bs)
+            return ColumnVector(self.dtype, {"offsets": offsets,
+                                             "bytes": raw},
+                                torch.ones(cap, dtype=torch.bool,
+                                           device=ctx.device))
         data = torch.full((ctx.capacity,), self._scalar(),
                           dtype=self.dtype.torch_dtype, device=ctx.device)
         return ColumnVector(self.dtype, data,
@@ -355,15 +388,67 @@ class Remainder(BinaryExpression):
 # Comparisons and boolean logic
 # ---------------------------------------------------------------------------
 
-def _dict_literal_codes(c: ColumnVector, value: str) -> int:
-    """Vocab code of a string literal in a dict column, -1 if absent."""
-    off = c.data["dict_offsets"].cpu().tolist()
-    raw = bytes(c.data["dict_bytes"].cpu().numpy())
+def window_eq(raw: torch.Tensor, base: torch.Tensor, pat: bytes
+              ) -> torch.Tensor:
+    """bool per row: raw[base + k] == pat[k] for every k (positions
+    clamped into the plane; callers check that the window fits)."""
+    base = base.to(torch.int64)
+    eq = torch.ones(base.shape[0], dtype=torch.bool, device=base.device)
+    if raw.shape[0] == 0:
+        return eq if not pat else torch.zeros_like(eq)
+    last = raw.shape[0] - 1
+    for k, b in enumerate(pat):
+        eq &= raw[torch.clamp(base + k, 0, last)] == b
+    return eq
+
+
+def _equals_bytes(off: torch.Tensor, raw: torch.Tensor, value: bytes
+                  ) -> torch.Tensor:
+    """bool per row of a flat (offsets, bytes) pair: the row is ``value``."""
+    return ((off[1:] - off[:-1]) == len(value)) & window_eq(raw, off[:-1],
+                                                            value)
+
+
+def _string_eq_literal(c: ColumnVector, value: str) -> torch.Tensor:
+    """Row equality of a string column with a literal; a dictionary
+    column compares its vocabulary once and maps back by code."""
     target = value.encode("utf-8")
-    for k in range(len(off) - 1):
-        if raw[off[k]: off[k + 1]] == target:
-            return k
-    return -1
+    if c.is_dict:
+        veq = _equals_bytes(c.data["dict_offsets"], c.data["dict_bytes"],
+                            target)
+        if not veq.shape[0]:
+            return torch.zeros(c.capacity, dtype=torch.bool, device=c.device)
+        return veq[c.data["codes"].to(torch.int64).clamp(
+            0, veq.shape[0] - 1)]
+    return _equals_bytes(c.data["offsets"], c.data["bytes"], target)
+
+
+def _string_eq(l: ColumnVector, r: ColumnVector) -> torch.Tensor:
+    """Exact per-row string equality: equal lengths and equal bytes,
+    compared byte by byte up to the longest string of equal length (one
+    host read for it). Dictionary pairs sharing one vocabulary that holds
+    each string once compare codes."""
+    from spark_rapids_tpu_torch.ops.kernels import flatten_dict_column
+    if l.is_dict and r.is_dict and l.dict_unique and r.dict_unique \
+            and l.data["dict_offsets"] is r.data["dict_offsets"] \
+            and l.data["dict_bytes"] is r.data["dict_bytes"]:
+        return l.data["codes"] == r.data["codes"]
+    if l.is_dict:
+        l = flatten_dict_column(l, l.capacity)
+    if r.is_dict:
+        r = flatten_dict_column(r, r.capacity)
+    lo = l.data["offsets"].to(torch.int64)
+    ro = r.data["offsets"].to(torch.int64)
+    lb, rb = l.data["bytes"], r.data["bytes"]
+    ll = lo[1:] - lo[:-1]
+    eq = ll == (ro[1:] - ro[:-1])
+    maxlen = int(torch.where(eq, ll, 0).max().item()) if eq.numel() else 0
+    for p in range(maxlen):
+        active = p < ll
+        lv = lb[torch.clamp(lo[:-1] + p, 0, max(lb.shape[0] - 1, 0))]
+        rv = rb[torch.clamp(ro[:-1] + p, 0, max(rb.shape[0] - 1, 0))]
+        eq &= ~active | (lv == rv)
+    return eq
 
 
 class BinaryComparison(BinaryExpression):
@@ -375,19 +460,31 @@ class BinaryComparison(BinaryExpression):
         return T.BOOLEAN
 
     def eval(self, ctx):
+        if isinstance(self.left.data_type(), T.StringType):
+            return self._string_compare(ctx)
         l = self.left.eval(ctx)
-        if isinstance(l.dtype, T.StringType):
-            if type(self) is not EqualTo or not l.is_dict \
-                    or not isinstance(self.right, Literal):
-                raise NotImplementedError(
-                    "string comparison other than dict column = literal")
-            code = _dict_literal_codes(l, self.right.value)
-            return ColumnVector(T.BOOLEAN, l.data["codes"] == code,
-                                _valid_of(l, ctx))
         r = self.right.eval(ctx)
         out = T.common_type(l.dtype, r.dtype)
         ld, rd = _promote(l, r, out)
         return ColumnVector(T.BOOLEAN, type(self).op(ld, rd),
+                            _valid_of(l, ctx) & _valid_of(r, ctx))
+
+
+    def _string_compare(self, ctx):
+        if type(self) is not EqualTo:
+            raise NotImplementedError("string ordering comparison on the "
+                                      "device")
+        left, right = self.left, self.right
+        if isinstance(left, Literal) and not isinstance(right, Literal):
+            left, right = right, left
+        l = left.eval(ctx)
+        if isinstance(right, Literal) and right.value is not None:
+            # no per-row copy of the literal
+            return ColumnVector(T.BOOLEAN,
+                                _string_eq_literal(l, right.value),
+                                _valid_of(l, ctx))
+        r = right.eval(ctx)
+        return ColumnVector(T.BOOLEAN, _string_eq(l, r),
                             _valid_of(l, ctx) & _valid_of(r, ctx))
 
 

@@ -1,15 +1,20 @@
-"""Ungrouped and tiny-bucket aggregation.
+"""Ungrouped, tiny-bucket and sort-based aggregation.
 
-Counterpart of ``spark_rapids_tpu/ops/groupby.py`` ``global_agg`` (the q6
-route) and ``bucket_agg`` (the tiny-bucket route q1 takes: dict-string and
-bool keys). The sort-based group route (``group_segments`` /
-``segmented_agg``) is not ported yet.
+Counterpart of ``spark_rapids_tpu/ops/groupby.py``: ``global_agg`` (the q6
+route), ``bucket_agg`` (the tiny-bucket route q1 takes: dict-string and
+bool keys), and the sort route for keys that do not pack (flat strings,
+dictionary keys whose vocabulary may repeat a string, floats):
+``group_segments``, ``num_groups``, ``segmented_agg`` and
+``gather_group_keys``.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
+
+from spark_rapids_tpu_torch.columnar.batch import ColumnVector, rows_tensor
+from spark_rapids_tpu_torch.ops import kernels as K
 
 _FLOATS = (torch.float32, torch.float64)
 
@@ -115,3 +120,101 @@ def bucket_agg(op: str, values: torch.Tensor, valid: torch.Tensor,
         masked = torch.where(valid, values, torch.full_like(values, init))
         return scatter_red(masked, init), nvalid > 0
     raise ValueError(f"unknown bucket op {op}")
+
+
+# ---------------------------------------------------------------------------
+# The sort route
+# ---------------------------------------------------------------------------
+
+def group_segments(key_cols: List[ColumnVector], num_rows, live=None):
+    """Sort rows by the group keys. Returns (perm, seg_ids, boundary) over
+    the full capacity: the sorting permutation, a dense group id per sorted
+    position (rows past the live ones get capacity - 1; callers mask
+    them), and a flag on the first sorted row of each group."""
+    norm = [K.normalize_key(c, num_rows, live=live) for c in key_cols]
+    perm = K.lexsort_indices([(k, n, True, True) for k, n in norm],
+                             num_rows, live=live)
+    cap = perm.shape[0]
+    device = perm.device
+    in_range = (torch.arange(cap, device=device)
+                < rows_tensor(num_rows)) if live is None else live[perm]
+    first = torch.zeros(cap, dtype=torch.bool, device=device)
+    first[:1] = True
+    boundary = first
+    for k, nulls in norm:
+        ks, ns = k[perm], nulls[perm]
+        boundary = boundary | torch.cat([first[:1], (ks[1:] != ks[:-1])
+                                         | (ns[1:] != ns[:-1])])
+    boundary = boundary & in_range
+    seg_ids = torch.cumsum(boundary.to(torch.int32), 0,
+                           dtype=torch.int32) - 1
+    seg_ids = torch.where(in_range, seg_ids, cap - 1)
+    return perm, seg_ids, boundary
+
+
+def num_groups(boundary: torch.Tensor) -> int:
+    """The group count of group_segments' boundary (one host read)."""
+    return int(boundary.sum(dtype=torch.int64).item())
+
+
+def segmented_agg(op: str, values: torch.Tensor, valid: torch.Tensor,
+                  seg_ids: torch.Tensor, seg_cap: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One segmented reduction over values and valid in SORTED order.
+    Returns (values[seg_cap], validity[seg_cap]). SQL null semantics:
+    sum/min/max ignore nulls and are null for an all-null group; count
+    counts the non-null rows. Float sums add in ``index_add_``'s order,
+    which on the card is not the JAX package's order."""
+    device = values.device
+    idx = seg_ids.to(torch.int64)
+
+    def seg_sum(v):
+        return torch.zeros(seg_cap, dtype=v.dtype,
+                           device=device).index_add_(0, idx, v)
+
+    nvalid = seg_sum(valid.to(torch.int64))
+    ones = torch.ones(seg_cap, dtype=torch.bool, device=device)
+    if op == "count":
+        return nvalid, ones
+    if op == "count_all":
+        return seg_sum(torch.ones_like(idx)), ones
+    if op == "sum":
+        return seg_sum(torch.where(valid, values,
+                                   torch.zeros_like(values))), nvalid > 0
+    if op in ("min", "max"):
+        reduce = "amin" if op == "min" else "amax"
+
+        def seg_red(v, init, how=reduce):
+            out = torch.full((seg_cap,), init, dtype=v.dtype, device=device)
+            return out.scatter_reduce_(0, idx, v, reduce=how,
+                                       include_self=True)
+
+        if values.dtype in _FLOATS:
+            clean, nanf, nonnanf = _float_minmax_prep(op, values, valid)
+            out = seg_red(clean, _init(op, values.dtype))
+            any_nan = seg_red(nanf.to(torch.int32), 0, "amax") > 0
+            any_nonnan = seg_red(nonnanf.to(torch.int32), 0, "amax") > 0
+            return _float_minmax_patch(op, out, any_nan, any_nonnan), \
+                nvalid > 0
+        if values.dtype == torch.bool:
+            init = int(_init(op, values.dtype))
+            v = torch.where(valid, values.to(torch.int32), init)
+            return seg_red(v, init).to(torch.bool), nvalid > 0
+        init = _init(op, values.dtype)
+        masked = torch.where(valid, values, torch.full_like(values, init))
+        return seg_red(masked, init), nvalid > 0
+    raise ValueError(f"unknown segmented op {op}")
+
+
+def gather_group_keys(key_cols: List[ColumnVector], perm: torch.Tensor,
+                      boundary: torch.Tensor, num_rows,
+                      live=None) -> List[ColumnVector]:
+    """The first sorted row of each group as its key row, packed to the
+    front of the full capacity (rows past the group count are null).
+    ``live`` is the source batch's selection mask. A flat string key
+    comes out as codes into its own planes (``flat_string_as_dict``)."""
+    first = K._compact_indices(boundary, boundary.shape[0])
+    src = torch.where(first >= 0, perm[first.clamp(min=0).to(torch.int64)],
+                      -1)
+    return [K.gather_column(c, src, num_rows, src_live=live)
+            for c in key_cols]

@@ -1,8 +1,11 @@
-"""Hashing, gathers, compaction and concatenation on torch tensors.
+"""Hashing, sort keys, gathers, compaction and concatenation on torch
+tensors.
 
 Counterpart of ``spark_rapids_tpu/ops/kernels.py`` (murmur3 family,
-``spark_hash_column``, ``partition_hash_batch``, ``gather_*``,
-``mask_filter_batch``, ``compact_batch``, ``concat_batches``).
+``spark_hash_column``, ``partition_hash_batch``, ``normalize_key``,
+``lexsort_indices``, ``gather_*``, ``flat_string_as_dict``,
+``mask_filter_batch``, ``compact_batch``, ``concat_batches``,
+``expand_ranges``).
 
 Hash planes are int32 tensors holding the uint32 bit pattern. Only the
 int32 hash has a kernel (``ops/murmur3_kernel.py``); the int64 and byte
@@ -17,9 +20,10 @@ import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import (
-    ColumnVector, ColumnarBatch, LazyRowCount, round_capacity,
+    ColumnVector, ColumnarBatch, LazyRowCount, round_capacity, rows_tensor,
 )
 from spark_rapids_tpu_torch.ops import murmur3_kernel as MK
+from spark_rapids_tpu_torch.ops import radix as R
 
 SPARK_MURMUR3_SEED = 42
 
@@ -58,11 +62,12 @@ def murmur3_bytes(starts: torch.Tensor, lens: torch.Tensor,
     device = starts.device
     starts = starts.to(torch.int64)
     lens = lens.to(torch.int64)
-    rawi = raw.to(torch.int64)
     last = max(int(raw.shape[0]) - 1, 0)
 
     def byte_at(pos):
-        return rawi[torch.clamp(pos, 0, last)]
+        # gather the bytes first: a widened copy of a whole byte plane
+        # would cost 8 bytes per byte
+        return raw[torch.clamp(pos, 0, last)].to(torch.int64)
 
     h1 = _seed64(seed, n, device)
     max_len = int(lens.max().item()) if n else 0
@@ -156,6 +161,101 @@ def partition_hash_batch(cols: Sequence[ColumnVector], num_rows,
 
 
 # ---------------------------------------------------------------------------
+# Sort keys (the sort route of the aggregate)
+# ---------------------------------------------------------------------------
+
+_MIN64 = -(1 << 63)
+_M32 = 0xFFFFFFFF
+
+
+def _string_key(off: torch.Tensor, raw: torch.Tensor) -> torch.Tensor:
+    """The JAX package's 64-bit string key, (murmur3(bytes, 0x12345671) << 32)
+    | murmur3(bytes, 0x89ABCDE3), as an int64 bit pattern with the sign bit
+    flipped, so that signed order is the key's unsigned order."""
+    starts, lens = off[:-1], off[1:] - off[:-1]
+    h1 = murmur3_bytes(starts, lens, raw, 0x12345671).to(torch.int64) & _M32
+    h2 = murmur3_bytes(starts, lens, raw, 0x89ABCDE3).to(torch.int64) & _M32
+    return ((h1 << 32) | h2) ^ _MIN64
+
+
+def normalize_key(col: ColumnVector, num_rows,
+                  live: Optional[torch.Tensor] = None):
+    """Returns (int64 key, null flags). Equal values get equal keys, and for
+    fixed-width types signed key order is value order (floats: NaN above
+    +inf, all NaNs equal, -0.0 == 0.0). Strings and dictionary vocabularies
+    get the JAX package's 64-bit double hash of their bytes: equality-
+    faithful up to hash collisions, not order-faithful. Null and dead rows
+    get key 0."""
+    d = col.dtype
+    if live is not None:
+        valid = live if col.validity is None else (col.validity & live)
+    else:
+        valid = col.validity_or_default(num_rows)
+    if col.is_dict:
+        if col.dict_size:
+            vkey = _string_key(col.data["dict_offsets"].to(torch.int64),
+                               col.data["dict_bytes"])
+            key = vkey[col.data["codes"].to(torch.int64).clamp(
+                0, col.dict_size - 1)]
+        else:
+            key = torch.zeros(col.capacity, dtype=torch.int64,
+                              device=col.device)
+    elif isinstance(d, T.StringType):
+        key = _string_key(col.data["offsets"].to(torch.int64),
+                          col.data["bytes"])
+    elif isinstance(d, T.Float64Type):
+        key = R._f64_order_i64(col.data)
+    elif isinstance(d, T.Float32Type):
+        key = R._f32_order_i32(col.data.to(torch.float32)).to(torch.int64)
+    else:
+        key = col.data.to(torch.int64)
+    return torch.where(valid, key, 0), ~valid
+
+
+def lexsort_indices(keys, num_rows, live: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Stable lexicographic argsort. keys = [(int64 key, null flags,
+    ascending, nulls_first)]; dead rows (``live`` False, or at or past
+    ``num_rows``) sort to the very end. torch has no lexsort, so this is
+    one stable sort per operand, the last operand first. Returns an int64
+    permutation of the full capacity."""
+    cap = keys[0][0].shape[0]
+    device = keys[0][0].device
+    in_range = live if live is not None else \
+        torch.arange(cap, device=device) < rows_tensor(num_rows)
+    operands = [(~in_range).to(torch.uint8)]
+    for key, nulls, asc, nulls_first in keys:
+        rank = nulls if not nulls_first else ~nulls
+        operands.append(rank.to(torch.uint8))
+        operands.append(key if asc else ~key)
+    perm = torch.arange(cap, dtype=torch.int64, device=device)
+    for op in reversed(operands):
+        perm = perm[torch.sort(op[perm], stable=True).indices]
+    return perm
+
+
+def expand_ranges(lens: torch.Tensor):
+    """For per-row lengths (>= 0): the row and the position within the
+    row of every element of the concatenated ranges, as int32 planes, and
+    their count (one host read). The byte-level loops of the string
+    expressions and of ``to_arrow`` run over these."""
+    n = lens.shape[0]
+    lens = lens.to(torch.int32)
+    total = int(lens.sum(dtype=torch.int64).item()) if n else 0
+    device = lens.device
+    if total == 0:
+        empty = torch.zeros(0, dtype=torch.int32, device=device)
+        return empty, empty, 0
+    row = torch.repeat_interleave(
+        torch.arange(n, dtype=torch.int32, device=device), lens,
+        output_size=total)
+    starts = torch.cumsum(lens, 0, dtype=torch.int32) - lens
+    within = torch.arange(total, dtype=torch.int32, device=device) \
+        - starts[row]
+    return row, within, total
+
+
+# ---------------------------------------------------------------------------
 # Gathers, filter, compaction, concatenation
 # ---------------------------------------------------------------------------
 
@@ -171,12 +271,9 @@ def gather_column(col: ColumnVector, indices: torch.Tensor, src_rows,
         src_valid = col.validity_or_default(src_rows)
     valid = src_valid[safe] & ~oob
     if col.is_string and not col.is_dict:
-        # flat strings gather as identity-coded dictionary columns
-        col = ColumnVector(col.dtype, {
-            "codes": torch.arange(col.capacity, dtype=torch.int32,
-                                  device=col.device),
-            "dict_offsets": col.data["offsets"],
-            "dict_bytes": col.data["bytes"]}, col.validity, dict_unique=False)
+        # a byte-plane gather could not repeat rows within the plane's
+        # capacity: flat strings gather as codes into their own planes
+        col = flat_string_as_dict(col)
     if col.is_dict:
         data = {"codes": col.data["codes"][safe],
                 "dict_offsets": col.data["dict_offsets"],
@@ -184,6 +281,20 @@ def gather_column(col: ColumnVector, indices: torch.Tensor, src_rows,
         return ColumnVector(col.dtype, data, valid,
                             dict_unique=col.dict_unique, bounds=col.bounds)
     return ColumnVector(col.dtype, col.data[safe], valid, bounds=col.bounds)
+
+
+def flat_string_as_dict(col: ColumnVector) -> ColumnVector:
+    """A flat offsets + bytes string column viewed as a dictionary column
+    with identity codes, without a copy: the vocabulary is the source
+    planes. ``dict_unique`` is False, since source rows may repeat
+    values."""
+    if col.is_dict or not col.is_string:
+        return col
+    return ColumnVector(col.dtype, {
+        "codes": torch.arange(col.capacity, dtype=torch.int32,
+                              device=col.device),
+        "dict_offsets": col.data["offsets"],
+        "dict_bytes": col.data["bytes"]}, col.validity, dict_unique=False)
 
 
 def gather_batch(batch: ColumnarBatch, indices: torch.Tensor,
@@ -315,14 +426,19 @@ def _concat_columns(cols: List[ColumnVector], rows: List[int],
         validity = cat([c.validity_or_default(r)[:r]
                         for c, r in zip(cols, rows)], torch.bool)
     bounds = _union_bounds(cols)
-    if any(c.is_string and not c.is_dict for c in cols):
+    shared = all(c.is_dict for c in cols) and all(
+        c.data["dict_offsets"] is cols[0].data["dict_offsets"]
+        and c.data["dict_bytes"] is cols[0].data["dict_bytes"]
+        for c in cols[1:])
+    if cols[0].is_string and not shared and not all(
+            c.is_dict and c.dict_unique for c in cols):
+        # a flat column, or a vocabulary that may repeat a string (often a
+        # whole source plane behind identity codes): concatenate the rows'
+        # bytes rather than union the vocabularies on the host
         flat = [flatten_dict_column(c, r) if c.is_dict else c
                 for c, r in zip(cols, rows)]
         return _concat_flat_strings(flat, rows, cap, validity)
     if cols[0].is_dict:
-        shared = all(c.data["dict_offsets"] is cols[0].data["dict_offsets"]
-                     and c.data["dict_bytes"] is cols[0].data["dict_bytes"]
-                     for c in cols[1:])
         if shared:
             doff, dby = cols[0].data["dict_offsets"], cols[0].data["dict_bytes"]
             parts = [c.data["codes"][:r] for c, r in zip(cols, rows)]

@@ -54,7 +54,11 @@ _INT_KINDS = (T.Int8Type, T.Int16Type, T.Int32Type, T.Int64Type, T.DateType)
 
 def packable_dtype(c: ColumnVector) -> Optional[str]:
     if c.is_dict:
-        return KIND_DICT
+        # codes stand for values only when the vocabulary holds each string
+        # once: a vocabulary that may repeat one (upper() of a dictionary,
+        # a gathered flat column) goes to the sort route, which keys on
+        # the string's bytes
+        return KIND_DICT if c.dict_unique else None
     if isinstance(c.dtype, T.BooleanType):
         return KIND_BOOL
     if isinstance(c.dtype, _INT_KINDS):
@@ -325,6 +329,14 @@ def _f64_order_i64(v: torch.Tensor) -> torch.Tensor:
     return u ^ _MIN64
 
 
+def _f32_order_i32(v: torch.Tensor) -> torch.Tensor:
+    """f32 -> order-preserving int32 (NaN above +inf, -0.0 == 0.0)."""
+    x = torch.where(torch.isnan(v), float("nan"), v)
+    x = torch.where(x == 0.0, torch.zeros_like(x), x)
+    bits = x.view(torch.int32)
+    return torch.where(bits < 0, ~bits ^ -(1 << 31), bits)
+
+
 def _i64_order_f64(o: torch.Tensor) -> torch.Tensor:
     u = o ^ _MIN64
     raw = torch.where(u < 0, u ^ _MIN64, ~u)
@@ -338,10 +350,6 @@ def bucket_minmax_f64(op, lay: BucketLayout, vals, valid) -> torch.Tensor:
 
 def bucket_minmax_f32(op, lay: BucketLayout, vals, valid) -> torch.Tensor:
     min32 = -(1 << 31)
-    v = vals.to(torch.float32)
-    x = torch.where(torch.isnan(v), float("nan"), v)
-    x = torch.where(x == 0.0, torch.zeros_like(x), x)
-    bits = x.view(torch.int32)
-    o = torch.where(bits < 0, ~bits ^ min32, bits)
+    o = _f32_order_i32(vals.to(torch.float32))
     w = bucket_minmax_int(op, lay, o, valid)
     return torch.where(w < 0, ~(w ^ min32), w).view(torch.float32)

@@ -2,9 +2,17 @@
 
 Counterpart of ``spark_rapids_tpu/plan/overrides.py`` ``convert_plan``
 for this engine's nodes, with the Parquet filter pushdown that runs
-before it. Everything runs on one device: there is no tagging and no CPU
-fallback yet, so a node without a conversion raises
-``NotImplementedError`` with its name.
+before it. Convertible: in-memory, Parquet and cached scans, projections
+and filters over the expressions of ``expr/core.py`` and the string
+functions of ``expr/strings.py`` (length, upper/lower with the case-map
+kernel, substring, concat, startswith/endswith/contains, transpilable
+LIKE, string equality), hash repartition, and the hash aggregate with
+its tiny-bucket, packed, segsum and sort routes (string and float keys
+group by sorting). Everything runs on one device: there is no tagging
+and no CPU fallback yet, so a node without a conversion raises
+``NotImplementedError`` with its name, and so does an expression the
+device cannot run (a LIKE pattern that needs the NFA, a string ordering
+comparison).
 """
 from __future__ import annotations
 

@@ -241,9 +241,11 @@ def test_with_column_count_and_ansi_divide(lineitem):
 def test_routes_not_ported_yet_raise_with_their_name(lineitem):
     P = torch_api()
     df = P.session().create_dataframe(lineitem.slice(0, 1000))
-    with pytest.raises(NotImplementedError, match="sort-based group route"):
-        df.group_by(P.col("l_discount")).agg(P.F.count("l_quantity")) \
-            .collect()
+    # keys that pack into more than 23 bits: the packed sort route
+    with pytest.raises(NotImplementedError, match="packed sort route"):
+        df.select((P.col("l_orderkey") * P.lit(100_000)).alias("k"),
+                  P.col("l_quantity")) \
+            .group_by(P.col("k")).agg(P.F.count("l_quantity")).collect()
     with pytest.raises(NotImplementedError, match="RoundRobinExchangeExec"):
         df.repartition(4).collect()
 

@@ -1,8 +1,11 @@
 """Shared helpers of the PyTorch port's parity tests (tests/test_torch_*.py).
 
-The lineitem generator and the four query shapes of the port's first slice
-are written once against a package namespace, so the same program runs
-through ``spark_rapids_tpu`` (the reference) and ``spark_rapids_tpu_torch``.
+The lineitem generators and the query shapes of the port's slices (four
+of the first, three string shapes of the third) are written once against a
+package namespace, so the same program runs through ``spark_rapids_tpu``
+(the reference) and ``spark_rapids_tpu_torch``; ``chip_smoke.py`` runs the
+same generators and string shapes on the card. At import this module
+needs numpy and pyarrow only.
 ``from_jax_batch`` rebuilds a JAX package batch as a torch batch, so single
 operations can be compared on identical inputs.
 """
@@ -31,6 +34,80 @@ def make_lineitem(rows: int, seed: int = 42) -> pa.Table:
         "l_discount": np.round(rng.uniform(0.0, 0.10, rows), 2),
         "l_shipdate": rng.integers(8400, 10600, rows).astype(np.int32),
     })
+
+
+#: the TPC-H text grammar's word lists (specification clause 4.2.2.10):
+#: nouns, verbs, adjectives, adverbs, prepositions and auxiliaries; the
+#: entries of lowercase letters, phrases split into their words
+TPCH_WORDS = (
+    "foxes ideas theodolites pinto beans instructions dependencies excuses "
+    "platelets asymptotes courts dolphins multipliers sauternes warthogs "
+    "frets dinos attainments somas patterns forges braids hockey players "
+    "frays warhorses dugouts notornis epitaphs pearls tithes waters orbits "
+    "gifts sheaves depths sentiments decoys realms pains grouches escapades "
+    "sleep wake are cajole haggle nag use boost affix detect integrate "
+    "maintain nod was lose sublate solve thrash promise engage hinder print "
+    "breach eat grow impress mold poach serve run dazzle snooze doze unwind "
+    "kindle play hang believe doubt furious sly careful blithe quick fluffy "
+    "slow quiet ruthless thin close dogged daring brave stealthy permanent "
+    "enticing idle busy regular final ironic even bold silent furiously "
+    "carefully blithely quickly fluffily slowly quietly ruthlessly thinly "
+    "closely doggedly daringly bravely stealthily permanently enticingly "
+    "idly busily regularly finally ironically evenly boldly silently about "
+    "above according to across after against along alongside of among "
+    "around at atop before behind beneath beside besides between beyond by "
+    "despite during except for from in place of inside instead of into "
+    "near of on outside over past since through throughout to toward under "
+    "until up upon without with within do may might shall will would can "
+    "could should ought to must will have to shall have to could have to "
+    "should have to must have to need to try to").split()
+
+
+def text_pool(nbytes: int, rng) -> np.ndarray:
+    """A text pool of ``nbytes``: uint8 bytes of grammar words drawn
+    uniformly at random, in random order, separated by single spaces (no
+    sentence structure and no punctuation, unlike dbgen's pool)."""
+    words = [w.encode() for w in TPCH_WORDS]
+    lens = np.array([len(w) + 1 for w in words])
+    nwords = int(nbytes // lens.mean()) + 64
+    ids = rng.integers(0, len(words), nwords)
+    blob = np.frombuffer(b"".join(w + b" " for w in words), np.uint8)
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    sel_lens = lens[ids]
+    off = np.concatenate([[0], np.cumsum(sel_lens)[:-1]])
+    src = np.repeat(starts[ids] - off, sel_lens) + np.arange(sel_lens.sum())
+    return blob[src][:nbytes]
+
+
+def make_comments(rows: int, rng, lo: int = 10, hi: int = 43,
+                  pool_bytes: int = 1 << 24):
+    """A comment column: per row a substring of a 16 MB pool of TPC-H
+    grammar words (``text_pool``) of a length drawn from [lo, hi], at an
+    offset drawn uniformly, built from numpy planes (no Python string per
+    row) and wrapped as an Arrow large_string array."""
+    pool = text_pool(pool_bytes, rng)
+    lens = rng.integers(lo, hi + 1, rows)
+    starts = rng.integers(0, len(pool) - hi, rows)
+    win = np.lib.stride_tricks.sliding_window_view(pool, hi)[starts]
+    data = win[np.arange(hi)[None, :] < lens[:, None]]
+    offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    return pa.LargeStringArray.from_buffers(rows, pa.py_buffer(offsets),
+                                            pa.py_buffer(data))
+
+
+def lineitem_text(lineitem: pa.Table, seed: int = 43) -> pa.Table:
+    """A lineitem's l_orderkey, l_returnflag, l_linestatus and l_quantity,
+    plus l_comment: 10-43 characters of TPC-H grammar words per row,
+    nearly all distinct, so it uploads as a flat column."""
+    return lineitem.select(["l_orderkey", "l_returnflag", "l_linestatus",
+                            "l_quantity"]).append_column(
+        "l_comment", make_comments(lineitem.num_rows,
+                                   np.random.default_rng(seed)))
+
+
+def make_lineitem_text(rows: int, seed: int = 42) -> pa.Table:
+    """``lineitem_text`` of ``make_lineitem(rows, seed)``."""
+    return lineitem_text(make_lineitem(rows, seed), seed + 1)
 
 
 def jax_api() -> SimpleNamespace:
@@ -89,6 +166,43 @@ def repart_agg(api, df, value="l_quantity", n=8):
             .repartition(n, col("l_shipdate"))
             .group_by(col("l_shipdate"))
             .agg(F.sum(value).alias("s"), F.count(value).alias("c")))
+
+
+#: str_case_agg's pattern and str_prefix_rows' prefix
+CASE_WORD, PREFIX_WORD = "FURIOUS", "a"
+
+
+def str_case_agg(api, df, word=CASE_WORD):
+    """Filter on a case-mapped comment, group by the two flags, and sum a
+    lower-cased comment's length: the case map runs twice, the aggregate
+    takes the tiny-bucket route."""
+    col, F = api.col, api.F
+    return (df.filter(F.contains(F.upper(col("l_comment")), word))
+            .group_by("l_returnflag", "l_linestatus")
+            .agg(F.count().alias("n"),
+                 F.sum(F.length(F.lower(col("l_comment")))).alias("chars")))
+
+
+def str_group_flat(api, df):
+    """Group by a flat string key: the sort route."""
+    col, F = api.col, api.F
+    return (df.select(F.substring(F.upper(col("l_comment")), 1, 9)
+                      .alias("head"), col("l_quantity"))
+            .group_by("head")
+            .agg(F.count().alias("n"), F.sum(col("l_quantity")).alias("q")))
+
+
+def str_prefix_rows(api, df, word=PREFIX_WORD):
+    """A row query: prefix filter, concat of the short flag columns, and a
+    substring of the upper-cased comment."""
+    col, lit, F = api.col, api.lit, api.F
+    return (df.filter(F.startswith(F.lower(col("l_comment")), word)
+                      & (col("l_quantity") < lit(3.0)))
+            .select(col("l_orderkey"),
+                    F.concat(col("l_returnflag"), lit("|"),
+                             col("l_linestatus")).alias("flags"),
+                    F.substring(F.upper(col("l_comment")), 1, 12)
+                    .alias("head")))
 
 
 def from_jax_batch(batch):
