@@ -58,15 +58,31 @@ Phases, one JSON line each:
    The launch counts are set to 0 before this path and read after; the
    case-map kernel must have run. The kernels phase also holds the
    case-map kernel against its plain version on the l_comment plane.
+8. joins (run after the cached path, on the same lineitem and on
+   bench.py's orders, 3M rows drawn after it from the same rng stream):
+   lineitem and orders cached with 1 partition and again with 8, then
+   q3join (bench.py's), q3join_shuffled (the same over the 8-partition
+   caches with broadcastRowThreshold=0), q3_orderdate (grouped by
+   l_orderkey and o_orderdate: the packed sort route), q3_revenue_by_date
+   (the same join per order date: the chunked segsum route), q4_semi_anti
+   (semi and anti joins against a 20M-row build with repeated keys, split
+   three ways), q13_left (customers left join orders, then the
+   distribution of order counts), flag_dim (a join on the two string flag
+   columns with a 6-row dimension: the general pairs path), sort_rows
+   (all 30M rows of three columns ordered by a range exchange and eight
+   sorts) and limit_rows, each cold then twice warm and checked against
+   pyarrow. Each query prints its operators and the probe path each join
+   took; the operators and routes the queries are built to take are
+   asserted, and the segsum kernel must have run.
 
 It then prints the kernel table ({"kernels": [...]}, with each kernel's
-launches per path), the card's name and power limit, and as its last line
+launches per path: cached, parquet, strings, joins), the card's name and power limit, and as its last line
 {"ok": true, "device": {...}}. Any failure exits non-zero without that
 line; so does a machine without CUDA, and so does a run that imported the
 JAX package. The lineitem generators and the string query shapes are the
 ones of tests/torch_port_helpers.py, which the CPU tests run too.
 CHIP_SMOKE_PROFILE=1 adds a torch.profiler pass over each query of the
-three paths, with each port kernel's launches, device time and bounds at
+four paths, with each port kernel's launches, device time and bounds at
 the shapes the query gave it, and ranks the kernels by device time above
 bound over those runs (CHIP_SMOKE_TRACE_DIR=dir also writes the queries'
 Chrome traces).
@@ -519,7 +535,8 @@ class RouteSpy:
     """Counts entries into the aggregate's routes while the path runs."""
 
     METHODS = ("_global_update", "_bucket_update", "_segsum_or_fallback",
-               "_chunked_segsum_agg", "_scatter_agg", "_sort_agg")
+               "_chunked_segsum_agg", "_scatter_agg", "_sort_agg",
+               "_packed_sort_agg")
 
     def __init__(self):
         from spark_rapids_tpu_torch.exec import nodes as X
@@ -543,10 +560,11 @@ class RouteSpy:
 
 
 def phase_setup(rows: int, tmp_dir: str):
-    """The lineitem, its pyarrow answers, and the Parquet file of it."""
+    """The lineitem and orders, the lineitem's pyarrow answers, and the
+    Parquet file of it."""
     import pyarrow.parquet as pq
     t0 = time.perf_counter()
-    table = helpers().make_lineitem(rows)
+    table, orders = helpers().make_tables(rows)
     gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     want = host_reference(table)
@@ -561,7 +579,7 @@ def phase_setup(rows: int, tmp_dir: str):
           "parquet_bytes": os.path.getsize(path), "row_groups": groups})
     if groups != 29:
         raise AssertionError(f"{groups} row groups, expected 29")
-    return table, want, path
+    return table, orders, want, path
 
 
 def reset_launches() -> None:
@@ -1044,6 +1062,267 @@ def phase_strings(text, spy, prof=None):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 8: joins, sort, TopN and limit
+# ---------------------------------------------------------------------------
+
+SORT_KEYS = [("l_extendedprice", "descending"), ("l_orderkey", "ascending"),
+             ("l_shipdate", "ascending")]
+
+
+def joins_reference(t, orders):
+    """pyarrow's answers to the join and sort shapes (bench.py's q3join
+    baseline, extended to the other shapes)."""
+    import pyarrow.compute as pc
+    li = t.select(["l_orderkey", "l_shipdate", "l_extendedprice",
+                   "l_discount"])
+    li = li.filter(pc.greater(li["l_shipdate"], 9100))
+    od = orders.filter(pc.less(orders["o_orderdate"], 9500))
+    j = li.join(od, keys="l_orderkey", right_keys="o_orderkey",
+                join_type="inner")
+    j = j.append_column("rev", pc.multiply(
+        j["l_extendedprice"], pc.subtract(1.0, j["l_discount"])))
+    g = j.group_by(["l_orderkey", "o_orderdate"]).aggregate([("rev", "sum")])
+    top = g.take(pc.select_k_unstable(g, 10, [("rev_sum", "descending"),
+                                              ("l_orderkey", "ascending")]))
+    q3 = dict(zip(zip(top["l_orderkey"].to_pylist(),
+                      top["o_orderdate"].to_pylist()),
+                  top["rev_sum"].to_pylist()))
+    g = j.group_by(["o_orderdate"]).aggregate([("rev", "sum"),
+                                               ("rev", "count")])
+    by_date = {d: (r, n) for d, r, n in zip(
+        *[g[k].to_pylist() for k in ("o_orderdate", "rev_sum",
+                                     "rev_count")])}
+    o = orders.filter(pc.and_(pc.greater_equal(orders["o_orderdate"], 9000),
+                              pc.less(orders["o_orderdate"], 9400)))
+    shipped = pc.unique(t.filter(pc.greater(t["l_shipdate"], 9100))[
+        "l_orderkey"])
+    m = pc.is_in(o["o_orderkey"], value_set=shipped)
+    q4 = {how: (part.num_rows, pc.sum(part["o_custkey"]).as_py())
+          for how, part in (("left_semi", o.filter(m)),
+                            ("left_anti", o.filter(pc.invert(m))))}
+    early = orders.filter(pc.less(orders["o_orderdate"], 8500))
+    per = np.bincount(early["o_custkey"].to_numpy(),
+                      minlength=max(orders.num_rows // 10, 10))
+    c_count, custdist = np.unique(per, return_counts=True)
+    g = t.group_by(["l_returnflag", "l_linestatus"]).aggregate(
+        [("l_extendedprice", "sum"), ("l_extendedprice", "count")])
+    flag = {helpers().FLAG_LABELS[(a, b)]: (p, n) for a, b, p, n in zip(
+        *[g[k].to_pylist() for k in ("l_returnflag", "l_linestatus",
+                                     "l_extendedprice_sum",
+                                     "l_extendedprice_count")])}
+    cols = [k for k, _ in SORT_KEYS]
+    ordered = t.select(cols).take(pc.sort_indices(t, SORT_KEYS))
+    return {"q3join": {k: v for (k, _), v in q3.items()},
+            "q3join_shuffled": {k: v for (k, _), v in q3.items()},
+            "q3_orderdate": q3, "q3_revenue_by_date": by_date,
+            "q4_semi_anti": q4,
+            "q13_left": dict(zip(c_count.tolist(), custdist.tolist())),
+            "flag_dim": flag, "sort_rows": ordered.combine_chunks()}
+
+
+def joins_queries(h1, h8):
+    """name -> (session, run): the join and sort shapes of
+    tests/torch_port_helpers.py over the 1-partition caches (h1) and the
+    8-partition ones (h8), each run returning what validate_joins reads."""
+    H, api = helpers(), port_api()
+
+    def top(df, keys):
+        d = df.to_pydict()
+        return {tuple(d[k][i] for k in keys) if len(keys) > 1
+                else d[keys[0]][i]: d["rev"][i] for i in range(len(d["rev"]))}
+
+    def by_date():
+        d = H.q3_revenue_by_date(api, h1.li, h1.od).to_pydict()
+        return {k: (r, n) for k, r, n in zip(d["o_orderdate"], d["rev"],
+                                             d["n"])}
+
+    def q4():
+        out = {}
+        for how in ("left_semi", "left_anti"):
+            d = H.q4_semi_anti(api, h1.li, h1.od, how).to_pydict()
+            out[how] = (d["n"][0], d["cs"][0])
+        return out
+
+    def q13():
+        d = H.q13_left(api, h1.cust, h1.od).to_pydict()
+        return dict(zip(d["c_count"], d["custdist"]))
+
+    def flag():
+        d = H.flag_dim(api, h1.li, h1.dim).to_pydict()
+        return {k: (p, n) for k, p, n in zip(d["d_label"], d["price"],
+                                             d["n"])}
+
+    return {
+        "q3join": (h1.s, lambda: top(H.q3join(api, h1.li, h1.od),
+                                     ["l_orderkey"])),
+        "q3join_shuffled": (h8.s, lambda: top(H.q3join(api, h8.li, h8.od),
+                                              ["l_orderkey"])),
+        "q3_orderdate": (h1.s, lambda: top(H.q3_orderdate(api, h1.li, h1.od),
+                                           ["l_orderkey", "o_orderdate"])),
+        "q3_revenue_by_date": (h1.s, by_date),
+        "q4_semi_anti": (h1.s, q4),
+        "q13_left": (h1.s, q13),
+        "flag_dim": (h1.s, flag),
+        "sort_rows": (h8.s, lambda: H.sort_rows(api, h8.li).collect()),
+        "limit_rows": (h8.s, lambda: H.limit_rows(api, h8.li).collect()),
+    }
+
+
+def validate_joins(name, got, want) -> bool:
+    if name == "limit_rows":
+        q = got["l_quantity"].to_numpy()
+        return got.num_rows == 1000 and bool((q < 2.0).all())
+    if name == "sort_rows":
+        got = got.combine_chunks()
+        return got.num_rows == want.num_rows and all(
+            got[k].equals(want[k]) for k in want.column_names)
+    if name in ("q4_semi_anti", "q13_left"):
+        return got == want
+    if set(got) != set(want):
+        return False
+    if name == "q3_revenue_by_date":
+        return all(_close(got[k][0], want[k][0], 1e-9)
+                   and got[k][1] == want[k][1] for k in want)
+    if name == "flag_dim":
+        return all(_close(got[k][0], want[k][0])
+                   and got[k][1] == want[k][1] for k in want)
+    return all(_close(got[k], want[k], 1e-9) for k in want)
+
+
+class JoinSpy:
+    """Counts the probe path each join took: the unique-key mask-through
+    probe (dense_unique), the direct-address pairs (dense_pairs), the
+    general sort-merge pairs (general), and build splits (split)."""
+
+    def __init__(self):
+        from spark_rapids_tpu_torch.exec import nodes as X
+        from spark_rapids_tpu_torch.ops import join as J
+        self.targets = {"dense_unique": (X._HashJoinBase, "_probe_masked"),
+                        "dense_pairs": (J, "_dense_int_pairs"),
+                        "general": (J, "_merge_rank_ranges"),
+                        "split": (X._HashJoinBase, "_split_build")}
+        self.counts = {k: 0 for k in self.targets}
+        for k, (owner, name) in self.targets.items():
+            setattr(owner, name, self._wrap(k, getattr(owner, name)))
+
+    def _wrap(self, key, orig):
+        def spy(*a, **k):
+            self.counts[key] += 1
+            return orig(*a, **k)
+        return spy
+
+    def take(self):
+        out, self.counts = self.counts, {k: 0 for k in self.targets}
+        return {k: v for k, v in out.items() if v}
+
+
+def _exec_names(session):
+    names = []
+    for e in session.last_exec.walk():
+        if type(e).__name__ not in names:
+            names.append(type(e).__name__)
+    return names
+
+
+#: what each join query must have run: (operators, aggregate routes,
+#: join paths), each a set that must be present
+JOIN_EXPECT = {
+    "q3join": ({"BroadcastHashJoinExec", "TopNExec"}, set(),
+               {"dense_unique"}),
+    "q3join_shuffled": ({"ShuffledHashJoinExec", "ShuffleExchangeExec",
+                         "TopNExec"}, set(), {"dense_unique"}),
+    "q3_orderdate": ({"BroadcastHashJoinExec", "TopNExec"},
+                     {"_packed_sort_agg"}, {"dense_unique"}),
+    "q3_revenue_by_date": ({"BroadcastHashJoinExec"},
+                           {"_chunked_segsum_agg"}, {"dense_unique"}),
+    "q4_semi_anti": ({"BroadcastHashJoinExec"}, set(),
+                     {"split", "dense_pairs"}),
+    "q13_left": ({"BroadcastHashJoinExec"}, set(), {"dense_pairs"}),
+    "flag_dim": ({"BroadcastHashJoinExec"}, set(), {"general"}),
+    "sort_rows": ({"RangeExchangeExec", "SortExec"}, set(), set()),
+    "limit_rows": ({"LimitExec", "CollectExchangeExec"}, set(), set()),
+}
+
+
+def phase_joins(table, orders, spy, prof=None):
+    import torch
+    from types import SimpleNamespace
+
+    from spark_rapids_tpu_torch import TorchSession
+    H = helpers()
+    t0 = time.perf_counter()
+    want = joins_reference(table, orders)
+    host_s = time.perf_counter() - t0
+    jspy = JoinSpy()
+    reset_launches()
+    spy.take()
+    t0 = time.perf_counter()
+    s1 = TorchSession()
+    h1 = SimpleNamespace(s=s1, li=s1.create_dataframe(table).cache(),
+                         od=s1.create_dataframe(orders).cache(),
+                         cust=s1.create_dataframe(
+                             H.make_customers(orders)).cache(),
+                         dim=s1.create_dataframe(H.make_flag_dim()))
+    s8 = TorchSession({"spark.rapids.sql.join.broadcastRowThreshold": 0})
+    h8 = SimpleNamespace(s=s8, li=s8.create_dataframe(
+        table, num_partitions=8).cache(), od=s8.create_dataframe(
+        orders, num_partitions=8).cache())
+    counts = [df.count() for df in (h1.li, h1.od, h1.cust, h8.li, h8.od)]
+    torch.cuda.synchronize()
+    cache_s = time.perf_counter() - t0
+    if counts != [table.num_rows, orders.num_rows,
+                  max(orders.num_rows // 10, 10), table.num_rows,
+                  orders.num_rows]:
+        raise AssertionError(f"cached counts {counts}")
+    emit({"phase": "joins.setup", "lineitem_rows": table.num_rows,
+          "orders_rows": orders.num_rows, "host_reference_s": host_s,
+          "cache_s": cache_s})
+    problems = []
+    queries = joins_queries(h1, h8)
+    for name, (session, fn) in queries.items():
+        before = read_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = fn()
+        cold = time.perf_counter() - t0
+        warm = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            fn()
+            warm.append(time.perf_counter() - t0)
+        good = validate_joins(name, got, want.get(name))
+        routes = {k: v // 3 for k, v in spy.take().items()}
+        paths = {k: v // 3 for k, v in jspy.take().items()}
+        execs = _exec_names(session)
+        e_ops, e_routes, e_paths = JOIN_EXPECT[name]
+        if not good:
+            problems.append(f"{name} disagrees with pyarrow")
+        if not (e_ops <= set(execs) and e_routes <= set(routes)
+                and e_paths <= set(paths)):
+            problems.append(f"{name} ran {execs}, routes {routes}, join "
+                            f"paths {paths}; expected {JOIN_EXPECT[name]}")
+        emit({"phase": "joins.query", "query": name, "correct": good,
+              "cold_s": cold, "warm_s": min(warm),
+              "launches": {k: (v - before[k]) // 3
+                           for k, v in read_launches().items()},
+              "routes": routes, "join_paths": paths, "execs": execs,
+              "result_rows": (got.num_rows if hasattr(got, "num_rows")
+                              else len(got)),
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+    counts = read_launches()
+    emit({"phase": "joins", "launches": counts, "correct": not problems,
+          "problems": problems})
+    if prof:
+        prof.run("joins", {k: v[1] for k, v in queries.items()})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    if counts["segsum"] <= 0:
+        raise AssertionError(f"the segsum kernel did not run on the joins "
+                             f"path: {counts}")
+    return counts
+
+
 #: launch-counter name -> (wrapper module, wrapper function, a substring
 #: of the CUDA kernel's name as the profiler reports it)
 KERNEL_WRAPPERS = {
@@ -1211,7 +1490,7 @@ def main() -> int:
         phase_build()
         phases["build_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        table, want, path = phase_setup(ROWS, tmp_dir)
+        table, orders, want, path = phase_setup(ROWS, tmp_dir)
         text = helpers().lineitem_text(table)
         phases["setup_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -1223,7 +1502,10 @@ def main() -> int:
         t0 = time.perf_counter()
         cached = phase_path(table, want, spy, prof)
         phases["path_s"] = time.perf_counter() - t0
-        del table
+        t0 = time.perf_counter()
+        joins = phase_joins(table, orders, spy, prof)
+        phases["joins_s"] = time.perf_counter() - t0
+        del table, orders
         t0 = time.perf_counter()
         parquet = phase_parquet(path, want, spy, prof)
         phases["parquet_s"] = time.perf_counter() - t0
@@ -1237,7 +1519,7 @@ def main() -> int:
         shutil.rmtree(tmp_dir, ignore_errors=True)
     for r in rows:
         by_path = {"cached": cached[r["name"]], "parquet": parquet[r["name"]],
-                   "strings": strings[r["name"]]}
+                   "strings": strings[r["name"]], "joins": joins[r["name"]]}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
     if prof:

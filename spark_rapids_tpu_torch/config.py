@@ -86,6 +86,27 @@ DEVICE_DECODE_MAX_BITS = _register(
     "back per column to host decode. Values above 32 are capped at 32.",
     int)
 
+BROADCAST_JOIN_ROW_THRESHOLD = _register(
+    "spark.rapids.sql.join.broadcastRowThreshold", 1 << 22,
+    "Estimated build-side row count at or below which joins broadcast "
+    "the build side instead of hash-exchanging both sides.", int)
+
+JOIN_SUBPARTITION_ROWS = _register(
+    "spark.rapids.sql.join.subPartitionRows", 8 << 20,
+    "Build sides larger than this many rows split by key hash into "
+    "buckets joined pairwise (inner, left, semi and anti joins).", int)
+
+SORT_OOC_BYTES = _register(
+    "spark.rapids.sql.sort.outOfCoreBytes", 2 << 30,
+    "Sorts over inputs larger than this run out of core: the device "
+    "computes only the key permutation while the rows stage through host "
+    "memory (pyarrow) and come back in reader-sized slices.", int)
+
+RANGE_PARTITION_SAMPLE = _register(
+    "spark.rapids.sql.rangePartitioning.sampleSizePerPartition", 1024,
+    "Rows sampled per output partition and input batch to compute the "
+    "bounds of a range exchange.", int)
+
 ANSI_ENABLED = _register(
     "spark.sql.ansi.enabled", False,
     "ANSI mode: division by zero and overflowing casts raise instead of "

@@ -5,9 +5,11 @@ operators: ``InMemoryScanExec``, the Parquet scans (``ParquetScanExec``,
 which decodes on the host, and the device-decode pair
 ``EncodedParquetSourceExec`` + ``DeviceDecodeScanExec``),
 ``CachedScanExec``, ``ProjectExec``,
-``FilterExec``, ``CoalesceBatchesExec``, ``CollectExchangeExec``,
-``ShuffleExchangeExec`` (compact in-process mode) and ``HashAggregateExec``
-with ``_AggKernels``.
+``FilterExec``, ``CoalesceBatchesExec``, ``CollectExchangeExec``, the
+compact in-process exchanges (``ShuffleExchangeExec``,
+``RoundRobinExchangeExec``, ``RangeExchangeExec``), ``HashAggregateExec``
+with ``_AggKernels``, ``LimitExec``, ``TopNExec``, ``SortExec``, and the
+hash joins (``BroadcastHashJoinExec``, ``ShuffledHashJoinExec``).
 
 PyTorch runs eagerly, so each operator is plain tensor code per batch; the
 JAX package's stage fusion and compile caches have no counterpart here.
@@ -22,8 +24,9 @@ The hash aggregate picks a route per batch, in the JAX package's order:
    plus counts it takes the segsum kernel (``ops/segsum``), per
    CHUNK_ROWS slice for large batches; otherwise, or when a group
    outgrows the kernel's exact range or a NaN/Inf appears, the
-   scatter-bucket reductions. Packed keys wider than 23 bits (the JAX
-   package's packed sort route) are not ported yet and raise;
+   scatter-bucket reductions. Packed keys wider than 23 bits take the
+   packed sort route: a stable sort of the packed plane and segmented
+   reductions by cumsum differences (``ops/radix.group_layout``);
 3. the sort route for every other key (flat strings, dictionaries that
    may repeat a string, floats): stable sorts on 64-bit keys, then
    segmented reductions (``ops/groupby.group_segments``). Partial states
@@ -43,19 +46,21 @@ from spark_rapids_tpu_torch import config as C
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import (
     ColumnVector, ColumnarBatch, LazyRowCount, column_from_arrow, from_arrow,
-    round_capacity,
+    round_capacity, to_arrow,
 )
 from spark_rapids_tpu_torch.expr.core import (
-    Alias, BoundRef, EvalCtx, Expression, raise_errors,
+    Alias, BoundRef, Cast, EvalCtx, Expression, raise_errors,
 )
 from spark_rapids_tpu_torch.io import encoded as ENC
 from spark_rapids_tpu_torch.io.parquet_pruning import prune_row_groups
 from spark_rapids_tpu_torch.ops import decode as D
 from spark_rapids_tpu_torch.ops import groupby as G
+from spark_rapids_tpu_torch.ops import join as J
 from spark_rapids_tpu_torch.ops import kernels as K
 from spark_rapids_tpu_torch.ops import radix as R
 from spark_rapids_tpu_torch.ops import repartition as RP
 from spark_rapids_tpu_torch.ops import segsum as S
+from spark_rapids_tpu_torch.plan import nodes as P
 
 
 class TorchExec:
@@ -450,16 +455,15 @@ class CollectExchangeExec(TorchExec):
             yield from child.execute_partition(p)
 
 
-class ShuffleExchangeExec(TorchExec):
-    """Hash exchange in the compact in-process mode: per input batch,
-    murmur3 of the keys (the murmur3 kernel), pmod n_out, one stable
-    counting sort, one fetch of the offsets vector, then contiguous
-    right-sized sub-batches per target partition."""
+class _ExchangeExec(TorchExec):
+    """An in-process exchange in the compact mode: per input batch, a
+    target partition per row (``_pids``), one stable counting sort, one
+    fetch of the offsets vector, then contiguous right-sized sub-batches
+    per target partition. The whole child is partitioned once, on the
+    first read of any output partition."""
 
-    def __init__(self, plan, children, conf, device,
-                 keys: List[Expression], n_out: int):
+    def __init__(self, plan, children, conf, device, n_out: int):
         super().__init__(plan, children, conf, device)
-        self.keys = keys
         self.n_out = n_out
         self._lock = threading.Lock()
         self._out: Optional[List[List[ColumnarBatch]]] = None
@@ -468,12 +472,11 @@ class ShuffleExchangeExec(TorchExec):
     def num_partitions(self):
         return self.n_out
 
-    def _partition(self, batch: ColumnarBatch, out) -> None:
-        live = batch.live_mask()
-        ctx = self._ctx(batch, live)
-        key_cols = [e.eval(ctx) for e in self.keys]
-        h = K.partition_hash_batch(key_cols, batch.num_rows, live=live)
-        pid = torch.remainder(h, self.n_out)
+    def _pids(self, batch: ColumnarBatch) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _emit_compact(self, batch: ColumnarBatch, pid: torch.Tensor,
+                      out) -> None:
         sorted_b, off = RP.counting_sort_by_pid(batch, pid, self.n_out)
         offsets = off.cpu().numpy()  # the one sync per input batch
         for p, sub in enumerate(RP.compact_slices(sorted_b, offsets,
@@ -484,6 +487,12 @@ class ShuffleExchangeExec(TorchExec):
                 oc.bounds = ic.bounds
             out[p].append(sub)
 
+    def _repartition(self, batches: Iterator[ColumnarBatch]):
+        out: List[List[ColumnarBatch]] = [[] for _ in range(self.n_out)]
+        for batch in batches:
+            self._emit_compact(batch, self._pids(batch), out)
+        return out
+
     def _materialize(self):
         with self._lock:
             if self._out is None:
@@ -492,19 +501,100 @@ class ShuffleExchangeExec(TorchExec):
                     raise NotImplementedError(
                         f"spark.rapids.shuffle.partitioning={mode!r}")
                 child = self.children[0]
-                out: List[List[ColumnarBatch]] = [[] for _ in
-                                                  range(self.n_out)]
-                for p in range(child.num_partitions):
-                    for batch in child.execute_partition(p):
-                        if self.n_out == 1:
-                            out[0].append(batch)
-                        else:
-                            self._partition(batch, out)
-                self._out = out
+                batches = (b for p in range(child.num_partitions)
+                           for b in child.execute_partition(p))
+                self._out = [list(batches)] if self.n_out == 1 \
+                    else self._repartition(batches)
         return self._out
 
     def execute_partition(self, pidx):
         yield from self._materialize()[pidx]
+
+
+class ShuffleExchangeExec(_ExchangeExec):
+    """Hash exchange: murmur3 of the keys (the murmur3 kernel for int32
+    planes), pmod n_out."""
+
+    def __init__(self, plan, children, conf, device,
+                 keys: List[Expression], n_out: int):
+        super().__init__(plan, children, conf, device, n_out)
+        self.keys = keys
+
+    def _pids(self, batch):
+        live = batch.live_mask()
+        ctx = self._ctx(batch, live)
+        key_cols = [e.eval(ctx) for e in self.keys]
+        h = K.partition_hash_batch(key_cols, batch.num_rows, live=live)
+        return torch.remainder(h, self.n_out)
+
+
+class RoundRobinExchangeExec(_ExchangeExec):
+    """``repartition(n)`` without keys: the k-th live row of a batch goes
+    to partition k mod n (counting from 1, as the JAX package does)."""
+
+    def _pids(self, batch):
+        live = batch.live_mask()
+        return torch.remainder(torch.cumsum(live.to(torch.int32), 0),
+                               self.n_out)
+
+
+class RangeExchangeExec(_ExchangeExec):
+    """Range exchange by sort keys: per order a null-rank plane and a key
+    plane (``normalize_key``, complemented when descending); a host sample
+    of each batch's rows gives n_out - 1 bounds, and each row goes to the
+    partition after every bound it orders after, so partition p's rows
+    order before partition p + 1's and a per-partition sort orders the
+    whole."""
+
+    def __init__(self, plan, children, conf, device, orders, n_out: int):
+        super().__init__(plan, children, conf, device, n_out)
+        self.orders = orders
+
+    def _planes(self, batch):
+        live = batch.live_mask()
+        ctx = self._ctx(batch, live)
+        planes = []
+        for o in self.orders:
+            k, nulls = K.normalize_key(o.expr.eval(ctx), batch.num_rows,
+                                       live=live)
+            first = o.resolved_nulls_first()
+            planes.append(torch.where(nulls, 0 if first else 1,
+                                      1 if first else 0).to(torch.int64))
+            planes.append(k if o.ascending else ~k)
+        return planes, live
+
+    def _repartition(self, batches):
+        budget = int(self.conf.get(C.RANGE_PARTITION_SAMPLE)) * self.n_out
+        per_batch, samples = [], []
+        for batch in batches:
+            planes, live = self._planes(batch)
+            per_batch.append((batch, planes))
+            idx = torch.nonzero(live).flatten()
+            if idx.numel() > budget:
+                # a ceil stride spans the whole batch: a prefix would bias
+                # the bounds on input that is already ordered
+                idx = idx[::-(-idx.numel() // budget)][:budget]
+            host = torch.stack([p[idx] for p in planes], 1).cpu().tolist()
+            samples.extend(map(tuple, host))
+        out: List[List[ColumnarBatch]] = [[] for _ in range(self.n_out)]
+        if not samples:
+            return out
+        samples.sort()
+        bounds = [samples[len(samples) * (i + 1) // self.n_out]
+                  for i in range(self.n_out - 1)]
+        for batch, planes in per_batch:
+            pid = torch.zeros(batch.capacity, dtype=torch.int64,
+                              device=self.device)
+            for b in bounds:
+                after = torch.zeros(batch.capacity, dtype=torch.bool,
+                                    device=self.device)
+                eq = torch.ones_like(after)
+                for v, plane in zip(b, planes):
+                    after = after | (eq & (plane > v))
+                    eq = eq & (plane == v)
+                pid += after
+            self._emit_compact(batch, pid, out)
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -839,12 +929,62 @@ class _AggKernels:
     # -- packed radix route ------------------------------------------------
 
     def _packed_agg(self, live, key_cols, state_specs, spec, ranges):
-        if spec.total_bits > R.BUCKET_BITS:
-            raise NotImplementedError(
-                "the packed sort route (ops/radix.group_layout) for keys "
-                f"wider than {R.BUCKET_BITS} bits is not ported yet")
-        return self._bucket_scatter_agg(live, key_cols, state_specs, spec,
-                                        ranges)
+        """Packed keys of at most BUCKET_BITS bits scatter into the dense
+        bucket space; wider ones take the packed sort route."""
+        if spec.total_bits <= R.BUCKET_BITS:
+            return self._bucket_scatter_agg(live, key_cols, state_specs,
+                                            spec, ranges)
+        return self._packed_sort_agg(live, key_cols, state_specs, spec,
+                                     ranges)
+
+    def _packed_sort_agg(self, live, key_cols, state_specs, spec, ranges):
+        """Sort the packed keys (``ops/radix.group_layout``) and reduce by
+        cumsum differences; the groups come out packed to the front, their
+        count on the device."""
+        lay = R.group_layout(R.pack_keys(spec, key_cols, ranges, live), live)
+        group_packed = lay.sorted_packed[lay.starts.clamp(0, lay.cap - 1)]
+        pad_ok = lay.starts >= 0
+        out_cols: List[ColumnVector] = []
+        for c in R.unpack_keys(spec, group_packed, ranges, key_cols):
+            v = c.validity & pad_ok if c.validity is not None else pad_ok
+            out_cols.append(ColumnVector(c.dtype, c.data, v,
+                                         dict_unique=c.dict_unique))
+        for op, src, sdt in state_specs:
+            ov, oval = self._packed_op(op, src, sdt, live, lay)
+            out_cols.append(ColumnVector(sdt, ov.to(sdt.torch_dtype), oval))
+        return ColumnarBatch(out_cols, LazyRowCount(lay.n_groups))
+
+    def _packed_op(self, op, src, sdt, live, lay):
+        cap = lay.cap
+        device = live.device
+        if src is not None:
+            if src.is_string and op not in ("count", "count_all"):
+                raise NotImplementedError(
+                    "string aggregate state on the device")
+            valid = (live if src.validity is None
+                     else (src.validity & live))[lay.perm]
+            vals = _zeros(cap, sdt, device) if src.is_string \
+                else src.data[lay.perm]
+        else:
+            valid = live[lay.perm]
+            vals = _zeros(cap, sdt, device)
+        ones = torch.ones(cap, dtype=torch.bool, device=device)
+        if op == "count":
+            return R.seg_count(valid, lay), ones
+        if op == "count_all":
+            return R.seg_count_all(lay), ones
+        some = R.seg_count(valid, lay) > 0
+        if op == "sum":
+            if isinstance(sdt, (T.Float64Type, T.Float32Type)):
+                return R.seg_sum_f64(vals, valid, lay), some
+            return R.seg_sum_int(vals, valid, lay), some
+        if op in ("min", "max"):
+            if vals.dtype == torch.float64:
+                return R.seg_minmax_f64(op, vals, valid, lay), some
+            if vals.dtype == torch.float32:
+                return R.seg_minmax_f32(op, vals, valid, lay), some
+            return R.seg_minmax_int(op, vals, valid, lay), some
+        raise ValueError(f"unknown packed op {op}")
 
     def _segsum_ops_ok(self, state_specs) -> bool:
         n_sums = 0
@@ -1154,3 +1294,570 @@ class HashAggregateExec(TorchExec):
                 first if is_count else torch.zeros(cap, dtype=torch.bool,
                                                    device=self.device)))
         return ColumnarBatch(cols, 1)
+
+
+# ---------------------------------------------------------------------------
+# Limit, TopN, sort
+# ---------------------------------------------------------------------------
+
+class LimitExec(TorchExec):
+    """The first n rows of each partition, in order (masked batches are
+    compacted first)."""
+
+    def execute_partition(self, pidx):
+        remaining = self.plan.n
+        for batch in self.children[0].execute_partition(pidx):
+            if remaining <= 0:
+                break
+            if batch.row_mask is not None:
+                batch = K.compact_batch(batch)
+            n = int(batch.num_rows)
+            if n <= remaining:
+                remaining -= n
+                yield batch
+            else:
+                yield K.slice_batch(batch, 0, remaining)
+                remaining = 0
+
+
+def _order_keys(kc: ColumnVector, o, num_rows, live=None, n_chunks=None):
+    """(int64 key, nulls, ascending, nulls first) for one sort order: one
+    entry for fixed-width types, one per 8-byte chunk for strings (exact
+    byte order, ``string_chunk_keys``)."""
+    if kc.is_string:
+        if n_chunks is None:
+            n_chunks = K.string_chunk_count(kc)
+        return [(k, nulls, o.ascending, o.resolved_nulls_first())
+                for k, nulls in K.string_chunk_keys(kc, num_rows, n_chunks,
+                                                    live=live)]
+    k, nulls = K.normalize_key(kc, num_rows, live=live)
+    return [(k, nulls, o.ascending, o.resolved_nulls_first())]
+
+
+def _sort_perm_for(orders, batch: ColumnarBatch, ctx: EvalCtx):
+    live = batch.live_mask()
+    keys = []
+    for o in orders:
+        keys.extend(_order_keys(o.expr.eval(ctx), o, batch.num_rows,
+                                live=live))
+    return K.lexsort_indices(keys, batch.num_rows, live=live)
+
+
+_MIN32 = -(1 << 31)
+_MAX32 = (1 << 31) - 1
+
+
+def _topn_image(kc: ColumnVector, order, live) -> Optional[torch.Tensor]:
+    """A monotone int32 image of a sort key in which rows that belong
+    earlier in the output are larger (so ``torch.topk`` selects them).
+    64-bit keys pass through float32, so ties may collapse: the image only
+    sets a candidate threshold, and the final sort is exact. None for
+    strings."""
+    d = kc.dtype
+    if kc.is_string:
+        return None
+    if isinstance(d, (T.Float32Type, T.Float64Type)):
+        x = kc.data.to(torch.float32)
+        x = torch.where(torch.isnan(x), float("nan"), x)
+        x = torch.where(x == 0.0, torch.zeros_like(x), x)
+        bits = x.view(torch.int32)
+        img = torch.where(bits < 0, ~bits ^ _MIN32, bits)
+    elif isinstance(d, (T.Int64Type, T.TimestampType)):
+        bits = kc.data.to(torch.float32).view(torch.int32)
+        img = torch.where(bits < 0, ~bits ^ _MIN32, bits)
+    else:
+        img = kc.data.to(torch.int32)
+    if order.ascending:
+        img = ~img  # a monotone reversal without INT_MIN overflow
+    if kc.validity is not None:
+        img = torch.where(kc.validity, img,
+                          _MAX32 if order.resolved_nulls_first() else _MIN32)
+    return torch.where(live, img, _MIN32)
+
+
+class TopNExec(TorchExec):
+    """ORDER BY + LIMIT n without sorting the whole input: ``torch.topk``
+    over a monotone int32 image of the first sort key gives a threshold,
+    and only the candidate rows at or above it get the exact sort. One
+    host read (the candidate count); ties and collapsed images widen the
+    candidate set, and one wider than max(4n, 4096) falls back to the
+    exact full sort, as string keys do."""
+
+    def __init__(self, plan, children, conf, device, orders, n: int):
+        super().__init__(plan, children, conf, device)
+        self.orders = orders
+        self.n = n
+        self._imageable = all(not isinstance(o.expr.data_type(),
+                                             T.StringType) for o in orders)
+
+    def execute_partition(self, pidx):
+        batches = list(self.children[0].execute_partition(pidx))
+        if not batches:
+            return
+        batch = K.concat_batches(batches) if len(batches) > 1 else batches[0]
+        n = self.n
+        bound = max(4 * n, 4096)
+        if self._imageable and batch.capacity > bound:
+            live = batch.live_mask()
+            kc = self.orders[0].expr.eval(self._ctx(batch, live))
+            img = _topn_image(kc, self.orders[0], live)
+            thr = torch.topk(img, min(n, batch.capacity)).values[-1]
+            cand = live & (img >= thr)
+            cnt = int(cand.sum(dtype=torch.int64).item())
+            if cnt <= bound:
+                small = K.gather_batch(
+                    batch, K._compact_indices(cand, round_capacity(bound)),
+                    cnt)
+                perm = _sort_perm_for(self.orders, small, self._ctx(small))
+                m = min(cnt, n)
+                idx = torch.arange(round_capacity(n), device=self.device)
+                sel = torch.where(idx < m, perm[:idx.shape[0]], -1)
+                yield ColumnarBatch(K.gather_batch(small, sel, cnt).columns,
+                                    m)
+                return
+        # the exact full sort: string keys, small inputs, or a wide tie set
+        if batch.row_mask is not None:
+            batch = K.compact_batch(batch)
+        total = int(batch.num_rows)
+        perm = _sort_perm_for(self.orders, batch, self._ctx(batch))
+        out = K.gather_batch(batch, perm, batch.num_rows)
+        yield K.slice_batch(out, 0, min(n, total))
+
+
+class SortExec(TorchExec):
+    """Whole-partition sort: normalized keys, one stable lexsort, one
+    gather. Inputs above spark.rapids.sql.sort.outOfCoreBytes sort out of
+    core (``_out_of_core``)."""
+
+    def execute_partition(self, pidx):
+        batches = list(self.children[0].execute_partition(pidx))
+        if not batches:
+            return
+        total = sum(b.device_memory_size() for b in batches)
+        if total > self.conf.get(C.SORT_OOC_BYTES):
+            yield from self._out_of_core(batches)
+            return
+        batch = K.concat_batches(batches) if len(batches) > 1 else batches[0]
+        if batch.row_mask is not None:
+            batch = K.compact_batch(batch)
+        perm = _sort_perm_for(self.plan.orders, batch, self._ctx(batch))
+        yield K.gather_batch(batch, perm, batch.num_rows)
+
+    def _out_of_core(self, batches):
+        """Only the key planes stay on the device: each batch's keys are
+        computed and its rows staged to the host (pyarrow); one lexsort of
+        the concatenated keys gives the permutation, pyarrow assembles the
+        sorted rows, and they come back in reader-sized slices."""
+        import pyarrow as pa
+        orders = self.plan.orders
+        names = self.plan.schema.names
+        compacted, key_cols = [], []
+        for b in batches:
+            if b.row_mask is not None:
+                b = K.compact_batch(b)
+            if int(b.num_rows) == 0:
+                continue
+            compacted.append(b)
+            ctx = self._ctx(b)
+            key_cols.append([o.expr.eval(ctx) for o in orders])
+        if not compacted:
+            return
+        # a string key's chunk count is the widest over the batches, so
+        # the key planes of every batch line up
+        widths = [max(K.string_chunk_count(kc[i]) for kc in key_cols)
+                  if isinstance(o.expr.data_type(), T.StringType) else 1
+                  for i, o in enumerate(orders)]
+        per_batch, tables = [], []
+        for b, kcs in zip(compacted, key_cols):
+            n = int(b.num_rows)
+            planes = []
+            for o, kc, w in zip(orders, kcs, widths):
+                for k, nulls, _, _ in _order_keys(kc, o, n, n_chunks=w):
+                    planes.append((k[:n], nulls[:n]))
+            per_batch.append(planes)
+            tables.append(to_arrow(b, names))  # stages the rows off the card
+        keys, pi = [], 0
+        for o, w in zip(orders, widths):
+            for _ in range(w):
+                keys.append((torch.cat([p[pi][0] for p in per_batch]),
+                             torch.cat([p[pi][1] for p in per_batch]),
+                             o.ascending, o.resolved_nulls_first()))
+                pi += 1
+        n = int(keys[0][0].shape[0])
+        perm = K.lexsort_indices(keys, n)[:n].cpu().numpy()
+        table = pa.concat_tables(tables) if len(tables) > 1 else tables[0]
+        ordered = table.take(perm)
+        step = self.conf.get(C.MAX_READER_BATCH_SIZE_ROWS)
+        for off in range(0, n, step):
+            yield from_arrow(ordered.slice(off, min(step, n - off)),
+                             self.device)
+
+
+# ---------------------------------------------------------------------------
+# Hash joins
+# ---------------------------------------------------------------------------
+
+def _null_column(dtype: T.DataType, cap: int, device) -> ColumnVector:
+    """An all-null column of ``dtype`` at capacity ``cap``."""
+    no = torch.zeros(cap, dtype=torch.bool, device=device)
+    if isinstance(dtype, T.StringType):
+        return ColumnVector(dtype, {
+            "offsets": torch.zeros(cap + 1, dtype=torch.int32, device=device),
+            "bytes": torch.zeros(8, dtype=torch.uint8, device=device)}, no)
+    return ColumnVector(dtype, _zeros(cap, dtype, device), no)
+
+
+def _empty_batch(schema: T.Schema, device, cap: int = 0) -> ColumnarBatch:
+    cap = cap or round_capacity(0)
+    return ColumnarBatch([_null_column(f.dtype, cap, device)
+                          for f in schema.fields], 0)
+
+
+def _pair_batch(left: ColumnarBatch, right: ColumnarBatch, li, ri, n
+                ) -> ColumnarBatch:
+    """Both sides gathered at the pairs (index -1 gathers null). Masked
+    sides join uncompacted, so a gather reads validity through the live
+    mask, never ``arange < num_rows``."""
+    llive = left.live_mask() if left.row_mask is not None else None
+    rlive = right.live_mask() if right.row_mask is not None else None
+    cols = [K.gather_column(c, li, left.num_rows, src_live=llive)
+            for c in left.columns]
+    cols += [K.gather_column(c, ri, right.num_rows, src_live=rlive)
+             for c in right.columns]
+    return ColumnarBatch(cols, n)
+
+
+def _concat_idx(a, na: int, b, nb: int, cap: int) -> torch.Tensor:
+    """a[:na] then b[:nb], -1 padded to cap."""
+    r = torch.arange(cap, dtype=torch.int64, device=a.device)
+    av = a[r.clamp(0, a.shape[0] - 1)]
+    bv = b[(r - na).clamp(0, b.shape[0] - 1)]
+    return torch.where(r < na, av, torch.where(r < na + nb, bv, -1))
+
+
+class _HashJoinBase(TorchExec):
+    """The probe loop of the hash joins; the build side is the right
+    child. Inner, left, semi and anti joins with a unique dense build key
+    emit the probe planes untouched under a new live mask (no pairs);
+    otherwise pairs come from ``ops/join.join_pairs``. A build side above
+    spark.rapids.sql.join.subPartitionRows splits with the probe by key
+    hash (seed 107) into buckets joined pairwise."""
+
+    def __init__(self, plan, children, conf, device, part_keys=None):
+        super().__init__(plan, children, conf, device)
+        #: common-type (left keys, right keys) for hashing; the planner
+        #: sets them on the shuffled path, they are derived elsewhere
+        self.part_keys = part_keys
+        self._split_lock = threading.Lock()
+        self._split_cache = None
+        #: caching the split pays only when partitions share one build
+        self._cache_build_split = False
+
+    def _sub_parts(self, build_rows: int) -> int:
+        thr = self.conf.get(C.JOIN_SUBPARTITION_ROWS)
+        if build_rows <= thr:
+            return 1
+        return min(-(-build_rows // thr), 64)
+
+    def _dense_table_for(self, build, build_keys):
+        """The direct-address table of a build batch, prepared once (one
+        four-scalar read) and kept on the plan node and, for a reused
+        broadcast, in its entry in the cached relation's store."""
+        cached = getattr(self.plan, "_dense_table_cache", None)
+        if cached is not None and cached[0] is build:
+            return cached[1]
+        entry = getattr(self.plan, "_bcast_entry", None)
+        if entry is None or entry["build"] is not build:
+            entry = {"dense": {}}
+        tkey = tuple(type(e.data_type()).__name__
+                     for e in self.plan.left_keys)
+        if tkey not in entry["dense"]:
+            entry["dense"][tkey] = J.prepare_dense_build(
+                build_keys, build.num_rows,
+                [e.data_type() for e in self.plan.left_keys]) \
+                if int(build.num_rows) > 0 else None
+        self.plan._dense_table_cache = (build, entry["dense"][tkey])
+        return entry["dense"][tkey]
+
+    def _hash_keys(self, side: int):
+        if self.part_keys is None:
+            # murmur3 is width-sensitive: both sides hash the common type
+            lks, rks = [], []
+            for lk, rk in zip(self.plan.left_keys, self.plan.right_keys):
+                ct = T.common_type(lk.data_type(), rk.data_type())
+                lks.append(lk if lk.data_type() == ct else Cast(lk, ct))
+                rks.append(rk if rk.data_type() == ct else Cast(rk, ct))
+            self.part_keys = (lks, rks)
+        return self.part_keys[side]
+
+    def _eval(self, exprs, batch):
+        ctx = self._ctx(batch)
+        cols = [e.eval(ctx) for e in exprs]
+        raise_errors(ctx.errors)
+        return cols
+
+    def _split_build(self, build, k):
+        """The build side in k key-hash buckets, each compacted, with its
+        key columns; cached when partitions share one build."""
+        def compute():
+            return [(bpc, self._eval(self.plan.right_keys, bpc))
+                    for bpc in map(K.compact_batch, self._bucket_split(
+                        build, self._hash_keys(1), k))]
+        if not self._cache_build_split:
+            return compute()
+        with self._split_lock:
+            if self._split_cache is None or self._split_cache[0] is not build:
+                self._split_cache = (build, compute())
+            return self._split_cache[1]
+
+    def _bucket_split(self, batch, keys, k, seed=107):
+        """k masked views of a batch, one per hash bucket of its keys
+        (shared planes, different live masks)."""
+        live = batch.live_mask()
+        key_cols = self._eval(keys, batch)
+        h = K.partition_hash_batch(key_cols, batch.num_rows, seed=seed,
+                                   live=live)
+        b = torch.remainder(h, k)
+        out = []
+        for i in range(k):
+            m = live & (b == i)
+            out.append(ColumnarBatch(batch.columns,
+                                     LazyRowCount(m.sum(dtype=torch.int32)),
+                                     m))
+        return out
+
+    def _probe_stream(self, probe_iter, build, build_keys,
+                      track_build_matches: bool):
+        """The joined batches of a probe stream; for right and full joins,
+        then the build rows no probe row matched."""
+        how = self.plan.how
+        matched_build = torch.zeros(build.capacity, dtype=torch.bool,
+                                    device=self.device) \
+            if track_build_matches else None
+        if how in ("inner", "left", "left_semi", "left_anti"):
+            table = self._dense_table_for(build, build_keys)
+            if table is not None and table.max_dup <= 1:
+                for probe in probe_iter:
+                    yield self._probe_masked(probe, build, table)
+                return
+        # right and full joins track a build-wide matched mask, which
+        # bucket-local indices would break: they stay single-pass
+        k = self._sub_parts(int(build.num_rows)) \
+            if how in ("inner", "left", "left_semi", "left_anti") else 1
+        build_parts = self._split_build(build, k) if k > 1 else None
+        for probe in probe_iter:
+            if build_parts is not None:
+                probe_parts = self._bucket_split(probe, self._hash_keys(0), k)
+                for pp, (bpc, bkeys) in zip(probe_parts, build_parts):
+                    _, out = self._probe_one(K.compact_batch(pp), bpc, bkeys,
+                                             None)
+                    yield out
+                continue
+            matched_build, out = self._probe_one(probe, build, build_keys,
+                                                 matched_build)
+            yield out
+        if track_build_matches:
+            un_idx, n_un = J.unmatched_indices(matched_build,
+                                               build.live_mask())
+            if n_un:
+                dummy = _empty_batch(self.plan.children[0].schema,
+                                     self.device, 8)
+                yield _pair_batch(dummy, build, torch.full_like(un_idx, -1),
+                                  un_idx, n_un)
+
+    def _probe_masked(self, probe, build, table) -> ColumnarBatch:
+        """The unique-key join without pairs: a batch sharing the probe's
+        planes, the build columns gathered at the probe rows, and a live
+        mask (inner, semi, anti) or null-extended build columns (left). A
+        join condition narrows the match, which is exact since each probe
+        row has at most one candidate."""
+        how = self.plan.how
+        plan = self.plan
+        # build key columns equal to the probe's keys are not gathered
+        key_map = {}
+        for ki, rk in enumerate(plan.right_keys):
+            if isinstance(rk, BoundRef) and rk.index < len(build.columns):
+                c = build.columns[rk.index]
+                if plan.left_keys[ki].data_type() == c.dtype \
+                        and not c.is_string:
+                    key_map[rk.index] = ki
+        plive = probe.live_mask()
+        ctx = self._ctx(probe, plive)
+        probe_keys = [e.eval(ctx) for e in plan.left_keys]
+        raise_errors(ctx.errors)
+        pk0 = probe_keys[0]
+        p_in = plive if pk0.validity is None else (plive & pk0.validity)
+        bidx = J.dense_lookup_planes(table.slot_idx, table.bmin,
+                                     pk0.data.to(torch.int64), p_in)
+        matched = bidx >= 0
+        blive = build.live_mask() if build.row_mask is not None else None
+        bcols = []
+        for ci, c in enumerate(build.columns):
+            ki = key_map.get(ci)
+            if ki is not None:
+                pk = probe_keys[ki]
+                v = (pk.validity & matched) if pk.validity is not None \
+                    else matched
+                bcols.append(ColumnVector(c.dtype, pk.data, v))
+            else:
+                bcols.append(K.gather_column(c, bidx, build.num_rows,
+                                             src_live=blive))
+        if plan.condition is not None:
+            cctx = EvalCtx(list(probe.columns) + bcols, probe.num_rows,
+                           probe.capacity, self.device,
+                           self.conf.get(C.ANSI_ENABLED), live=plive)
+            pred = plan.condition.eval(cctx)
+            raise_errors(cctx.errors)
+            ok = pred.data.to(torch.bool)
+            if pred.validity is not None:
+                ok = ok & pred.validity
+            matched = matched & ok
+        if how == "left_semi":
+            return K.mask_filter_batch(probe, matched)
+        if how == "left_anti":
+            return K.mask_filter_batch(probe, ~matched)
+        if how == "inner":
+            live = plive & matched
+            return ColumnarBatch(list(probe.columns) + bcols,
+                                 LazyRowCount(live.sum(dtype=torch.int32)),
+                                 live)
+        ob = [ColumnVector(c.dtype, c.data,
+                           (c.validity & matched) if c.validity is not None
+                           else matched, dict_unique=c.dict_unique)
+              for c in bcols]
+        return ColumnarBatch(list(probe.columns) + ob, probe.num_rows,
+                             probe.row_mask)
+
+    def _probe_one(self, probe, build, build_keys, matched_build):
+        how = self.plan.how
+        probe_keys = self._eval(self.plan.left_keys, probe)
+        live = probe.live_mask() if probe.row_mask is not None else None
+        pi, bi, nmatch = J.join_pairs(build_keys, build.num_rows, probe_keys,
+                                      probe.num_rows, probe_live=live)
+        pi, bi, nmatch = self._apply_condition(probe, build, pi, bi, nmatch)
+        if how in ("left_semi", "left_anti"):
+            mask = J.probe_matched_mask(pi, probe.capacity)
+            return matched_build, K.mask_filter_batch(
+                probe, ~mask if how == "left_anti" else mask)
+        if how in ("left", "full"):
+            mask = J.probe_matched_mask(pi, probe.capacity)
+            un_idx, n_un = J.unmatched_indices(mask, probe.live_mask())
+            if n_un:
+                tot = nmatch + n_un
+                cap = round_capacity(max(tot, 1))
+                pi = _concat_idx(pi, nmatch, un_idx, n_un, cap)
+                bi = _concat_idx(bi, nmatch, torch.full_like(un_idx, -1),
+                                 n_un, cap)
+                nmatch = tot
+        if matched_build is not None:
+            matched_build = matched_build | J.probe_matched_mask(
+                bi, build.capacity)
+        return matched_build, _pair_batch(probe, build, pi, bi, nmatch)
+
+    def _apply_condition(self, probe, build, pi, bi, nmatch):
+        if self.plan.condition is None or nmatch == 0:
+            return pi, bi, nmatch
+        pairs = _pair_batch(probe, build, pi, bi, nmatch)
+        [pred] = self._eval([self.plan.condition], pairs)
+        keep = pred.data.to(torch.bool) & pred.validity_or_default(nmatch)
+        keep = keep & (torch.arange(pi.shape[0], device=self.device) < nmatch)
+        idx, cnt = K.filter_indices(keep, pi.shape[0])
+        sel = idx.clamp(0, pi.shape[0] - 1)
+        return (torch.where(idx >= 0, pi[sel], -1),
+                torch.where(idx >= 0, bi[sel], -1), cnt)
+
+
+class BroadcastHashJoinExec(_HashJoinBase):
+    """The build side (the right child) materialized once and shared by
+    every probe partition. Right and full joins are planned over a
+    collected probe side, so they see one probe partition. A build side
+    that reads one cached relation through filters, projections and
+    limits is kept on that relation (``_bcast_reuse``) and reused by later
+    queries while the relation's materialization stays the same."""
+
+    def __init__(self, plan, children, conf, device):
+        super().__init__(plan, children, conf, device)
+        self._build_lock = threading.Lock()
+        self._build: Optional[ColumnarBatch] = None
+        self._build_keys = None
+        self._cache_build_split = True
+
+    def _reuse_anchor(self):
+        """(cached relation, structural key) of a build side that reads
+        exactly one cached relation through filters, projections and
+        limits only, else (None, None)."""
+        rels = []
+
+        def walk(n):
+            if isinstance(n, P.CachedRelation):
+                rels.append(n)
+                return "cached"
+            parts = tuple(walk(c) for c in n.children)
+            if isinstance(n, P.Filter):
+                return ("filter", n.condition.fingerprint(), parts)
+            if isinstance(n, P.Project):
+                return ("project", tuple(e.fingerprint() for e in n.exprs),
+                        parts)
+            if isinstance(n, P.Limit):
+                return ("limit", n.n, parts)
+            rels.append(None)  # any other node: no reuse
+            return ("other",)
+
+        fp = walk(self.plan.children[1])
+        if len(rels) != 1 or rels[0] is None:
+            return None, None
+        return rels[0], (fp, tuple(e.fingerprint()
+                                   for e in self.plan.right_keys))
+
+    def _build_side(self) -> ColumnarBatch:
+        with self._build_lock:
+            if self._build is not None:
+                return self._build
+            anchor, skey = self._reuse_anchor()
+            store = getattr(anchor, "_bcast_reuse", None) \
+                if anchor is not None else None
+            entry = store.get(skey) if store is not None else None
+            if entry is not None and entry["mat"] is not anchor.materialized:
+                del store[skey]  # a re-cache: stop pinning the old batches
+                entry = None
+            if entry is None:
+                right = self.children[1]
+                batches = [b for p in range(right.num_partitions)
+                           for b in right.execute_partition(p)]
+                build = K.compact_batch(K.concat_batches(batches)) \
+                    if batches else _empty_batch(self.plan.children[1].schema,
+                                                 self.device)
+                entry = {"build": build,
+                         "keys": self._eval(self.plan.right_keys, build),
+                         "dense": {}, "mat": None}
+                if anchor is not None and anchor.materialized is not None:
+                    entry["mat"] = anchor.materialized
+                    if store is None:
+                        store = anchor._bcast_reuse = {}
+                    if len(store) >= 8:
+                        store.pop(next(iter(store)))
+                    store[skey] = entry
+            self.plan._bcast_entry = entry
+            self._build, self._build_keys = entry["build"], entry["keys"]
+            return self._build
+
+    def execute_partition(self, pidx):
+        build = self._build_side()
+        yield from self._probe_stream(
+            self.children[0].execute_partition(pidx), build,
+            self._build_keys, self.plan.how in ("right", "full"))
+
+
+class ShuffledHashJoinExec(_HashJoinBase):
+    """Both sides hash-exchanged on the join keys; each partition builds
+    from its slice of the right side and probes with its slice of the
+    left. Right and full joins work per partition: equal keys co-locate."""
+
+    def execute_partition(self, pidx):
+        batches = list(self.children[1].execute_partition(pidx))
+        build = K.compact_batch(K.concat_batches(batches)) if batches \
+            else _empty_batch(self.plan.children[1].schema, self.device)
+        build_keys = self._eval(self.plan.right_keys, build)
+        yield from self._probe_stream(
+            self.children[0].execute_partition(pidx), build, build_keys,
+            self.plan.how in ("right", "full"))

@@ -3,8 +3,9 @@
 Counterpart of ``spark_rapids_tpu/expr/core.py`` for the expressions this
 engine carries: column references, literals (strings and nulls included),
 aliases, ``+ - * / %``, comparisons (strings: equality only, as on the JAX
-package's device), ``And``/``Or``/``Not``, ``IsNull``/``IsNotNull`` and
-numeric casts. The string functions are in ``expr/strings.py``. Null
+package's device), ``And``/``Or``/``Not``, ``IsNull``/``IsNotNull``, ``Coalesce``,
+numeric casts, and the sort-order sugar (``asc``/``desc`` and their
+null-ordering forms). The string functions are in ``expr/strings.py``. Null
 semantics follow Spark SQL, as in the JAX package: arithmetic and
 comparisons propagate nulls, AND/OR are Kleene, division or remainder by
 zero is null (or an error in ANSI mode).
@@ -123,6 +124,18 @@ class Expression:
         """pyspark Column.substr (1-based)."""
         from spark_rapids_tpu_torch.expr.strings import Substring
         return Substring(self, pos, length)
+
+    # sort-order sugar (Spark's Column.asc/desc family)
+    def _order(self, ascending, nulls_first=None):
+        from spark_rapids_tpu_torch.plan.nodes import SortOrder
+        return SortOrder(self, ascending, nulls_first)
+
+    def asc(self): return self._order(True)
+    def desc(self): return self._order(False)
+    def asc_nulls_first(self): return self._order(True, True)
+    def asc_nulls_last(self): return self._order(True, False)
+    def desc_nulls_first(self): return self._order(False, True)
+    def desc_nulls_last(self): return self._order(False, False)
 
 
 def _wrap(v) -> Expression:
@@ -582,6 +595,42 @@ class IsNotNull(Expression):
         return ColumnVector(T.BOOLEAN, _valid_of(c, ctx).clone(),
                             torch.ones(ctx.capacity, dtype=torch.bool,
                                        device=ctx.device))
+
+
+class Coalesce(Expression):
+    """The first non-null child per row, in the children's common type."""
+
+    def __init__(self, *exprs):
+        self.children = list(exprs)
+
+    def data_type(self):
+        dt = self.children[0].data_type()
+        for c in self.children[1:]:
+            dt = T.common_type(dt, c.data_type())
+        return dt
+
+    def with_children(self, children):
+        return Coalesce(*children)
+
+    def eval(self, ctx):
+        out = self.data_type()
+        acc = self.children[0].eval(ctx)
+        acc_valid = _valid_of(acc, ctx)
+        if not isinstance(out, T.StringType) and acc.dtype != out:
+            acc = ColumnVector(out, acc.data.to(out.torch_dtype), acc_valid)
+        for c in self.children[1:]:
+            nxt = c.eval(ctx)
+            nxt_valid = _valid_of(nxt, ctx)
+            if isinstance(out, T.StringType):
+                from spark_rapids_tpu_torch.expr.strings import select_strings
+                acc = select_strings(acc_valid, acc, nxt,
+                                     acc_valid | nxt_valid)
+            else:
+                acc = ColumnVector(out, torch.where(
+                    acc_valid, acc.data, nxt.data.to(out.torch_dtype)),
+                    acc_valid | nxt_valid)
+            acc_valid = acc.validity
+        return acc
 
 
 _INT_BOUNDS = {

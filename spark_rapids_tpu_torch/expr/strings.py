@@ -126,6 +126,23 @@ def _offsets_of(lens: torch.Tensor) -> torch.Tensor:
         torch.int32)
 
 
+def select_strings(pick_a: torch.Tensor, a: ColumnVector, b: ColumnVector,
+                   validity: torch.Tensor) -> ColumnVector:
+    """Per row, a's string where pick_a holds, else b's, as a flat column
+    (the string arm of ``Coalesce``): the two byte planes side by side,
+    each row's slice gathered from the one it picks."""
+    fa, fb = _flatten(a), _flatten(b)
+    ra, rb = fa.data["bytes"], fb.data["bytes"]
+    lens = torch.where(pick_a, _lens(fa), _lens(fb))
+    starts = torch.where(pick_a, _starts(fa).to(torch.int64),
+                         _starts(fb).to(torch.int64) + ra.shape[0])
+    lens = torch.where(validity, lens, 0)
+    return ColumnVector(T.STRING, {
+        "offsets": _offsets_of(lens),
+        "bytes": _gather_ranges(torch.cat([ra, rb]), starts, lens)},
+        validity)
+
+
 class StringLength(Expression):
     """length(): the number of UTF-8 characters (not bytes), like Spark."""
 

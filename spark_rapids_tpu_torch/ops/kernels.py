@@ -3,9 +3,12 @@ tensors.
 
 Counterpart of ``spark_rapids_tpu/ops/kernels.py`` (murmur3 family,
 ``spark_hash_column``, ``partition_hash_batch``, ``normalize_key``,
-``lexsort_indices``, ``gather_*``, ``flat_string_as_dict``,
-``mask_filter_batch``, ``compact_batch``, ``concat_batches``,
-``expand_ranges``).
+``string_chunk_count``, ``string_chunk_keys``, ``lexsort_indices``,
+``gather_*``, ``flat_string_as_dict``, ``filter_indices``,
+``mask_filter_batch``, ``compact_batch``, ``slice_batch``,
+``concat_batches``, and ``expand_ranges`` in two forms: per-row lengths,
+and the JAX package's join form over [lo, hi) ranges,
+``expand_candidate_ranges``).
 
 Hash planes are int32 tensors holding the uint32 bit pattern. Only the
 int32 hash has a kernel (``ops/murmur3_kernel.py``); the int64 and byte
@@ -212,6 +215,53 @@ def normalize_key(col: ColumnVector, num_rows,
     return torch.where(valid, key, 0), ~valid
 
 
+def string_chunk_count(col: ColumnVector) -> int:
+    """8-byte chunks covering the longest string of the column (or of its
+    vocabulary), rounded up to a power of two; one host read."""
+    off = col.data["dict_offsets"] if col.is_dict else col.data["offsets"]
+    if off.shape[0] < 2:
+        return 1
+    mx = int((off[1:] - off[:-1]).max().item())
+    return round_capacity(max(1, -(-mx // 8)), minimum=1)
+
+
+def string_chunk_keys(col: ColumnVector, num_rows, n_chunks: int,
+                      live: Optional[torch.Tensor] = None):
+    """Exact string order as ``n_chunks`` (int64 key, null flags) pairs,
+    most significant first: chunk j holds bytes [8j, 8j + 8) of the UTF-8
+    string big-endian, zero padded, with the sign bit flipped, so signed
+    lexicographic order over the chunks is byte order (Spark's binary
+    string order; an embedded NUL ties with the end of the string). A
+    dictionary column builds the chunks over its vocabulary and gathers
+    them by code."""
+    if live is not None:
+        valid = live if col.validity is None else (col.validity & live)
+    else:
+        valid = col.validity_or_default(num_rows)
+    nulls = ~valid
+    if col.is_dict:
+        off, raw = col.data["dict_offsets"], col.data["dict_bytes"]
+    else:
+        off, raw = col.data["offsets"], col.data["bytes"]
+    starts = off[:-1].to(torch.int64)
+    ends = off[1:].to(torch.int64)
+    last = max(int(raw.shape[0]) - 1, 0)
+    lane = torch.arange(8, dtype=torch.int64, device=raw.device)
+    shifts = 8 * (7 - lane)
+    codes = col.data["codes"].to(torch.int64).clamp(
+        0, max(starts.shape[0] - 1, 0)) if col.is_dict else None
+    out = []
+    for j in range(n_chunks):
+        pos = starts[:, None] + 8 * j + lane[None, :]
+        b = torch.where(pos < ends[:, None],
+                        raw[pos.clamp(0, last)].to(torch.int64), 0)
+        key = (b << shifts[None, :]).sum(dim=1) ^ _MIN64
+        if codes is not None:
+            key = key[codes]
+        out.append((key, nulls))
+    return out
+
+
 def lexsort_indices(keys, num_rows, live: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
     """Stable lexicographic argsort. keys = [(int64 key, null flags,
@@ -253,6 +303,25 @@ def expand_ranges(lens: torch.Tensor):
     within = torch.arange(total, dtype=torch.int32, device=device) \
         - starts[row]
     return row, within, total
+
+
+def expand_candidate_ranges(lo: torch.Tensor, hi: torch.Tensor,
+                            total: int):
+    """The JAX package's ``expand_ranges(lo, hi, total)``: per-row
+    candidate ranges [lo, hi) become flat (row, position) pairs, row-major,
+    in int64 planes of capacity round_capacity(total); entries at or past
+    ``total`` (a host int, the sum of hi - lo) are -1."""
+    out_cap = round_capacity(max(total, 1))
+    device = lo.device
+    counts = (hi - lo).to(torch.int64)
+    offsets = torch.cat([torch.zeros(1, dtype=torch.int64, device=device),
+                         torch.cumsum(counts, 0)])
+    r = torch.arange(out_cap, dtype=torch.int64, device=device)
+    row = torch.searchsorted(offsets, r, right=True) - 1
+    row = row.clamp(0, max(lo.shape[0] - 1, 0))
+    pos = lo.to(torch.int64)[row] + (r - offsets[row])
+    in_range = r < total
+    return torch.where(in_range, row, -1), torch.where(in_range, pos, -1)
 
 
 # ---------------------------------------------------------------------------
@@ -322,6 +391,17 @@ def _compact_indices(mask: torch.Tensor, out_cap: int) -> torch.Tensor:
     return out
 
 
+def filter_indices(mask: torch.Tensor, num_rows) -> tuple:
+    """(int64 positions of the set rows of mask below num_rows, in order,
+    -1 padded to round_capacity(count); count). One host read."""
+    cap = mask.shape[0]
+    if int(num_rows) < cap:
+        mask = mask & (torch.arange(cap, device=mask.device) < int(num_rows))
+    count = int(mask.sum(dtype=torch.int64).item())
+    out_cap = round_capacity(max(count, 1))
+    return _compact_indices(mask, out_cap).to(torch.int64), count
+
+
 def compact_batch(batch: ColumnarBatch) -> ColumnarBatch:
     """Gather live rows to the front and drop the selection mask; shrink
     the capacity to the row count's bucket. Costs one count sync."""
@@ -335,6 +415,16 @@ def compact_batch(batch: ColumnarBatch) -> ColumnarBatch:
     else:
         idx = _compact_indices(batch.row_mask, out_cap)
     return ColumnarBatch(gather_batch(batch, idx, n).columns, n)
+
+
+def slice_batch(batch: ColumnarBatch, start: int, length: int
+                ) -> ColumnarBatch:
+    """Rows [start, start + length) of an unmasked batch, at the capacity
+    of length's bucket."""
+    out_cap = round_capacity(max(length, 1))
+    idx = torch.arange(out_cap, dtype=torch.int64, device=batch.device)
+    idx = torch.where(idx < length, idx + start, -1)
+    return gather_batch(batch, idx, length)
 
 
 def _union_bounds(cols: List[ColumnVector]):

@@ -2,12 +2,15 @@
 
 Counterpart of ``spark_rapids_tpu/ops/radix.py`` (``PackSpec``,
 ``probe_ranges``, ``plan_packing``, ``pack_keys``, ``unpack_keys``,
-``_exponent_scale`` and ``bucket_layout`` with the ``bucket_*``
-reductions). All group keys pack into one int64 plane: per key,
-``code = value - min + 1`` in ``bits`` bits, slot 0 meaning NULL. When the
-packed key has at most BUCKET_BITS bits, every reduction is a scatter into
-the dense bucket space, and float sums are exact integer digit scatters,
-so the result matches the JAX package bit for bit.
+``_exponent_scale``, ``bucket_layout`` with the ``bucket_*`` reductions,
+and ``group_layout`` with the ``seg_*`` reductions). All group keys pack
+into one int64 plane: per key, ``code = value - min + 1`` in ``bits``
+bits, slot 0 meaning NULL. When the packed key has at most BUCKET_BITS
+bits, every reduction is a scatter into the dense bucket space; wider
+keys sort (``group_layout``) and reduce by differences of inclusive
+cumsums at the groups' first and last rows. Float sums are exact integer
+digit scatters or limb cumsums either way, so the result matches the JAX
+package bit for bit.
 
 Where the JAX package picks a digit width with ``lax.cond`` on the
 deepest bucket, this module reads that count on the host once per
@@ -175,6 +178,165 @@ def _exponent_scale(m: torch.Tensor) -> torch.Tensor:
         x = torch.where(c2, x * up, x)
         scale = torch.where(c2, scale * up, scale)
     return scale
+
+
+# ---------------------------------------------------------------------------
+# The sorted segment layout (packed keys wider than BUCKET_BITS)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class GroupLayout:
+    """What the segmented reductions need. Positions are in sorted row
+    order; group g is output slot g in [0, n_groups); slots past it are
+    padding (starts and ends -1)."""
+    perm: torch.Tensor           # int64[cap] stable sort permutation
+    sorted_packed: torch.Tensor  # int64[cap]
+    boundary: torch.Tensor       # bool[cap] first sorted row of each group
+    gid: torch.Tensor            # int32[cap] dense group id per sorted row
+    safe_gid: torch.Tensor       # gid with dead rows routed to slot cap
+    starts: torch.Tensor         # int64[cap] first sorted row of group g
+    ends: torch.Tensor           # int64[cap] last sorted row of group g
+    n_live: torch.Tensor         # 0-d int64
+    n_groups: torch.Tensor       # 0-d int32
+    cap: int
+
+
+def group_layout(packed: torch.Tensor, live: torch.Tensor) -> GroupLayout:
+    """Sort the packed keys (dead rows carry the sentinel and sort last)
+    and number the groups; no host read."""
+    cap = packed.shape[0]
+    device = packed.device
+    n_live = live.sum(dtype=torch.int64)
+    sp, perm = torch.sort(packed, stable=True)
+    pos = torch.arange(cap, dtype=torch.int64, device=device)
+    in_range = pos < n_live
+    boundary = torch.cat([torch.ones(1, dtype=torch.bool, device=device),
+                          sp[1:] != sp[:-1]]) & in_range
+    gid = torch.cumsum(boundary.to(torch.int32), 0, dtype=torch.int32) - 1
+    n_groups = boundary.sum(dtype=torch.int32)
+    safe_gid = torch.where(in_range, gid, cap)
+    starts = torch.full((cap + 1,), -1, dtype=torch.int64, device=device)
+    starts.scatter_(0, torch.where(boundary, gid.to(torch.int64), cap), pos)
+    starts = starts[:cap]
+    nxt = torch.cat([starts[1:], torch.full((1,), -1, dtype=torch.int64,
+                                            device=device)])
+    ends = torch.where(nxt >= 0, nxt - 1, n_live - 1)
+    ends = torch.where(starts >= 0, ends, -1)
+    return GroupLayout(perm, sp, boundary, gid, safe_gid, starts, ends,
+                       n_live, n_groups, cap)
+
+
+def _seg_diff(csum: torch.Tensor, x0: torch.Tensor,
+              lay: GroupLayout) -> torch.Tensor:
+    """Per-group total from an inclusive cumsum over the sorted rows:
+    csum[end] - csum[start] + x[start]."""
+    s = lay.starts.clamp(0, lay.cap - 1)
+    e = lay.ends.clamp(0, lay.cap - 1)
+    return csum[e] - csum[s] + x0[s]
+
+
+def seg_count(valid_sorted: torch.Tensor, lay: GroupLayout) -> torch.Tensor:
+    v = valid_sorted.to(torch.int32)
+    return _seg_diff(torch.cumsum(v, 0, dtype=torch.int32), v,
+                     lay).to(torch.int64)
+
+
+def seg_count_all(lay: GroupLayout) -> torch.Tensor:
+    return lay.ends - lay.starts + 1
+
+
+def seg_sum_int(vals_sorted, valid_sorted, lay: GroupLayout) -> torch.Tensor:
+    """Exact mod-2^64 segmented integer sum (wraps as Java does)."""
+    v = torch.where(valid_sorted, vals_sorted.to(torch.int64), 0)
+    return _seg_diff(torch.cumsum(v, 0), v, lay)
+
+
+def seg_sum_f64(vals_sorted, valid_sorted, lay: GroupLayout) -> torch.Tensor:
+    """Segmented float sum from two exact int64 limb cumsums below the
+    batch's largest exponent (error within one ulp of the largest |value|);
+    NaN and +-Inf follow Spark, counted per group the same way."""
+    v = vals_sorted.to(torch.float64)
+    nan = torch.isnan(v) & valid_sorted
+    pinf = (v == float("inf")) & valid_sorted
+    ninf = (v == float("-inf")) & valid_sorted
+    finite = valid_sorted & ~nan & ~pinf & ~ninf
+    clean = torch.where(finite, v, 0.0)
+    scale = _exponent_scale(clean.abs().max())  # |clean| * scale < 2^37
+    scaled = clean * scale
+    hi = torch.floor(scaled)
+    lo = torch.round((scaled - hi) * float(2.0 ** 36))
+    hi64, lo64 = hi.to(torch.int64), lo.to(torch.int64)
+    shi = _seg_diff(torch.cumsum(hi64, 0), hi64, lay)
+    slo = _seg_diff(torch.cumsum(lo64, 0), lo64, lay)
+    total = (shi.to(torch.float64)
+             + slo.to(torch.float64) * float(2.0 ** -36)) / scale
+    # special counts: (nan << 31 | pinf) in one int64 cumsum, ninf apart
+    spec = (nan.to(torch.int64) << 31) | pinf.to(torch.int64)
+    sspec = _seg_diff(torch.cumsum(spec, 0), spec, lay)
+    n_nan = sspec >> 31
+    n_pinf = sspec & ((1 << 31) - 1)
+    ni = ninf.to(torch.int32)
+    n_ninf = _seg_diff(torch.cumsum(ni, 0, dtype=torch.int32), ni, lay)
+    out = torch.where(n_pinf > 0, float("inf"), total)
+    out = torch.where(n_ninf > 0, float("-inf"), out)
+    return torch.where((n_nan > 0) | ((n_pinf > 0) & (n_ninf > 0)),
+                       float("nan"), out)
+
+
+def _scatter_red(op: str, vals: torch.Tensor, gid: torch.Tensor,
+                 cap: int) -> torch.Tensor:
+    """Per-group min or max into cap slots (slot cap takes dead rows);
+    an empty group holds the dtype's identity."""
+    info = torch.iinfo(vals.dtype)
+    init = info.max if op == "min" else info.min
+    out = torch.full((cap + 1,), init, dtype=vals.dtype, device=vals.device)
+    out.scatter_reduce_(0, gid.to(torch.int64), vals,
+                        reduce="amin" if op == "min" else "amax",
+                        include_self=True)
+    return out[:cap]
+
+
+def seg_minmax_int(op: str, vals_sorted, valid_sorted,
+                   lay: GroupLayout) -> torch.Tensor:
+    """Segmented min/max of an integer plane (bool as int32)."""
+    v = vals_sorted.to(torch.int32) if vals_sorted.dtype == torch.bool \
+        else vals_sorted
+    info = torch.iinfo(v.dtype)
+    init = info.max if op == "min" else info.min
+    out = _scatter_red(op, torch.where(valid_sorted, v, init), lay.safe_gid,
+                       lay.cap)
+    return out.to(vals_sorted.dtype)
+
+
+def seg_minmax_f64(op: str, vals_sorted, valid_sorted,
+                   lay: GroupLayout) -> torch.Tensor:
+    """Through the order-preserving int64 image (NaN above +inf)."""
+    o = _f64_order_i64(vals_sorted.to(torch.float64))
+    return _i64_order_f64(seg_minmax_int(op, o, valid_sorted, lay))
+
+
+def seg_minmax_f32(op: str, vals_sorted, valid_sorted,
+                   lay: GroupLayout) -> torch.Tensor:
+    min32 = -(1 << 31)
+    w = seg_minmax_int(op, _f32_order_i32(vals_sorted.to(torch.float32)),
+                       valid_sorted, lay)
+    return torch.where(w < 0, ~(w ^ min32), w).view(torch.float32)
+
+
+def seg_first_last(op: str, vals_sorted, valid_sorted, lay: GroupLayout):
+    """(value, has one) of the first or last valid row per group: the
+    stable sort keeps the rows' order within a group."""
+    cap = lay.cap
+    pos = torch.arange(cap, dtype=torch.int64, device=vals_sorted.device)
+    if op == "first":
+        sel = _scatter_red("min", torch.where(valid_sorted, pos, cap),
+                           lay.safe_gid, cap)
+        has = sel < cap
+    else:
+        sel = _scatter_red("max", torch.where(valid_sorted, pos, -1),
+                           lay.safe_gid, cap)
+        has = sel >= 0
+    return vals_sorted[sel.clamp(0, cap - 1)], has
 
 
 # ---------------------------------------------------------------------------

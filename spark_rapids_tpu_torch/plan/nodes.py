@@ -2,11 +2,12 @@
 
 Counterpart of ``spark_rapids_tpu/plan/nodes.py`` for the nodes this
 engine runs: ``InMemorySource``, ``ParquetScan``, ``CachedRelation`` (the
-``df.cache()`` marker), ``Project``, ``Filter``, ``Aggregate`` and
-``Repartition``.
+``df.cache()`` marker), ``Project``, ``Filter``, ``Aggregate``,
+``Repartition``, ``Sort`` (with ``SortOrder``), ``Limit`` and ``Join``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional, Sequence
 
 from spark_rapids_tpu_torch import types as T
@@ -20,6 +21,33 @@ class PlanNode:
     @property
     def schema(self) -> T.Schema:
         raise NotImplementedError
+
+    def estimated_rows(self) -> Optional[int]:
+        """Best-effort row count for physical planning (the join strategy
+        reads it); None = unknown."""
+        if isinstance(self, InMemorySource):
+            return self.table.num_rows
+        if isinstance(self, ParquetScan):
+            if getattr(self, "_est_rows", None) is None:
+                import pyarrow.parquet as pq
+                try:
+                    self._est_rows = sum(pq.ParquetFile(p).metadata.num_rows
+                                         for p in self.paths)
+                except OSError:  # the statistics are advisory
+                    self._est_rows = -1
+            return None if self._est_rows < 0 else self._est_rows
+        if isinstance(self, Filter):
+            c = self.children[0].estimated_rows()
+            return None if c is None else max(c // 2, 1)
+        if isinstance(self, Limit):
+            c = self.children[0].estimated_rows()
+            return self.n if c is None else min(self.n, c)
+        if isinstance(self, Aggregate):
+            # a grouped aggregate's cardinality depends on the data
+            return 1 if not self.group_exprs else None
+        if self.children:
+            return self.children[0].estimated_rows()
+        return None
 
 
 def bind_expr(e: Expression, schema: T.Schema) -> Expression:
@@ -148,7 +176,8 @@ class Aggregate(PlanNode):
 
 
 class Repartition(PlanNode):
-    """``df.repartition(n, *cols)``: hash-partition by keys into n_out."""
+    """``df.repartition(n, *cols)``: hash-partition by keys into n_out, or
+    round-robin when no keys are given."""
 
     def __init__(self, n_out: int, keys: List[Expression], child: PlanNode):
         self.children = [child]
@@ -158,3 +187,77 @@ class Repartition(PlanNode):
     @property
     def schema(self):
         return self.children[0].schema
+
+
+@dataclasses.dataclass
+class SortOrder:
+    expr: Expression
+    ascending: bool = True
+    nulls_first: Optional[bool] = None  # Spark's default: nulls first iff asc
+
+    def resolved_nulls_first(self) -> bool:
+        return self.ascending if self.nulls_first is None else self.nulls_first
+
+
+class Sort(PlanNode):
+    def __init__(self, orders: List[SortOrder], child: PlanNode,
+                 global_sort: bool = True):
+        self.children = [child]
+        self.orders = [SortOrder(bind_expr(o.expr, child.schema), o.ascending,
+                                 o.nulls_first) for o in orders]
+        self.global_sort = global_sort
+
+    @property
+    def schema(self):
+        return self.children[0].schema
+
+
+class Limit(PlanNode):
+    def __init__(self, n: int, child: PlanNode):
+        self.children = [child]
+        self.n = n
+
+    @property
+    def schema(self):
+        return self.children[0].schema
+
+
+def _nullable(fields):
+    return [T.StructField(f.name, f.dtype, True) for f in fields]
+
+
+class Join(PlanNode):
+    """Equi-join with an optional extra condition, which binds against the
+    left schema followed by the right one; the planner picks the physical
+    strategy."""
+
+    KINDS = ("inner", "left", "right", "full", "left_semi", "left_anti",
+             "cross")
+
+    def __init__(self, left: PlanNode, right: PlanNode,
+                 left_keys: List[Expression], right_keys: List[Expression],
+                 how: str = "inner", condition: Optional[Expression] = None):
+        if how not in self.KINDS:
+            raise ValueError(f"join type {how!r} is not one of {self.KINDS}")
+        self.children = [left, right]
+        self.left_keys = [bind_expr(e, left.schema) for e in left_keys]
+        self.right_keys = [bind_expr(e, right.schema) for e in right_keys]
+        self.how = how
+        self.condition = (bind_expr(condition, self._concat_schema())
+                          if condition is not None else None)
+
+    def _concat_schema(self) -> T.Schema:
+        return T.Schema(tuple(self.children[0].schema.fields)
+                        + tuple(self.children[1].schema.fields))
+
+    @property
+    def schema(self):
+        lf = list(self.children[0].schema.fields)
+        rf = list(self.children[1].schema.fields)
+        if self.how in ("left_semi", "left_anti"):
+            return self.children[0].schema
+        if self.how in ("right", "full"):
+            lf = _nullable(lf)
+        if self.how in ("left", "full"):
+            rf = _nullable(rf)
+        return T.Schema(tuple(lf + rf))

@@ -6,13 +6,16 @@ before it. Convertible: in-memory, Parquet and cached scans, projections
 and filters over the expressions of ``expr/core.py`` and the string
 functions of ``expr/strings.py`` (length, upper/lower with the case-map
 kernel, substring, concat, startswith/endswith/contains, transpilable
-LIKE, string equality), hash repartition, and the hash aggregate with
-its tiny-bucket, packed, segsum and sort routes (string and float keys
-group by sorting). Everything runs on one device: there is no tagging
-and no CPU fallback yet, so a node without a conversion raises
-``NotImplementedError`` with its name, and so does an expression the
-device cannot run (a LIKE pattern that needs the NFA, a string ordering
-comparison).
+LIKE, string equality), hash and round-robin repartition, the hash
+aggregate with its tiny-bucket, packed (scatter, segsum, sort) and sort
+routes (string and float keys group by sorting), sort (a range exchange
+first over several partitions), limit and TopN, and equi-joins of every
+type, broadcast or shuffled as the JAX package plans them with adaptive
+execution off. Everything runs on one device: there is no tagging and no
+CPU fallback yet, so a node without a conversion raises
+``NotImplementedError`` naming the JAX package's operator (cross and
+non-equi joins), and so does an expression the device cannot run (a
+LIKE pattern that needs the NFA, a string ordering comparison).
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from functools import reduce
 from typing import Dict, List, Optional
 
 from spark_rapids_tpu_torch import config as C
+from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.exec import nodes as X
 from spark_rapids_tpu_torch.expr import core as E
 from spark_rapids_tpu_torch.io.parquet_pruning import split_conjuncts
@@ -52,12 +56,97 @@ def _convert(plan: P.PlanNode, conf, device) -> X.TorchExec:
         return X.FilterExec(plan, children, conf, device)
     if isinstance(plan, P.Repartition):
         if not plan.keys:
-            raise NotImplementedError("RoundRobinExchangeExec")
+            return X.RoundRobinExchangeExec(plan, children, conf, device,
+                                            plan.n_out)
         return X.ShuffleExchangeExec(plan, children, conf, device, plan.keys,
                                      plan.n_out)
     if isinstance(plan, P.Aggregate):
         return _convert_aggregate(plan, children[0], conf, device)
+    if isinstance(plan, P.Limit):
+        return _convert_limit(plan, children[0], conf, device)
+    if isinstance(plan, P.Sort):
+        return _convert_sort(plan, children[0], conf, device)
+    if isinstance(plan, P.Join):
+        return _convert_join(plan, children, conf, device)
     raise NotImplementedError(type(plan).__name__)
+
+
+#: ORDER BY + LIMIT n takes TopN up to this n
+_TOPN_LIMIT = 100_000
+
+
+def _convert_limit(plan, child, conf, device):
+    if isinstance(child, X.SortExec) and plan.n <= _TOPN_LIMIT:
+        # a global limit makes the sort's global order moot: TopN per
+        # partition, then once more over the collected candidates
+        inner = child.children[0]
+        if isinstance(inner, (X.RangeExchangeExec, X.CollectExchangeExec)):
+            inner = inner.children[0]
+        orders = child.plan.orders
+        local = X.TopNExec(plan, [inner], conf, device, orders, plan.n)
+        if inner.num_partitions > 1:
+            return X.TopNExec(
+                plan, [X.CollectExchangeExec(plan, [local], conf, device)],
+                conf, device, orders, plan.n)
+        return local
+    local = X.LimitExec(plan, [child], conf, device)
+    if child.num_partitions > 1:
+        return X.LimitExec(
+            plan, [X.CollectExchangeExec(plan, [local], conf, device)],
+            conf, device)
+    return local
+
+
+def _convert_sort(plan, child, conf, device):
+    if child.num_partitions > 1 and plan.global_sort:
+        # a range exchange + per-partition sorts order the whole; string
+        # keys normalize to a hash, which is not their order: they collect
+        if any(isinstance(o.expr.data_type(), T.StringType)
+               for o in plan.orders):
+            child = X.CollectExchangeExec(plan, [child], conf, device)
+        else:
+            child = X.RangeExchangeExec(plan, [child], conf, device,
+                                        plan.orders, child.num_partitions)
+    return X.SortExec(plan, [child], conf, device)
+
+
+def _common_keys(plan):
+    """The join keys cast to their common type on each side: murmur3 is
+    width-sensitive, so both sides must hash the same type."""
+    lks, rks = [], []
+    for lk, rk in zip(plan.left_keys, plan.right_keys):
+        ct = T.common_type(lk.data_type(), rk.data_type())
+        lks.append(lk if lk.data_type() == ct else E.Cast(lk, ct))
+        rks.append(rk if rk.data_type() == ct else E.Cast(rk, ct))
+    return lks, rks
+
+
+def _convert_join(plan, children, conf, device):
+    """The JAX package's join planning with adaptive execution off: a
+    build side (the right) estimated at most
+    spark.rapids.sql.join.broadcastRowThreshold rows broadcasts; a larger
+    one under a multi-partition probe hash-exchanges both sides."""
+    left, right = children
+    if plan.how == "cross":
+        raise NotImplementedError("CartesianProductExec (cross join) is not "
+                                  "ported yet")
+    if not plan.left_keys:
+        raise NotImplementedError("BroadcastNestedLoopJoinExec (non-equi "
+                                  "join) is not ported yet")
+    est = plan.children[1].estimated_rows()
+    small = est is not None and est <= conf.get(
+        C.BROADCAST_JOIN_ROW_THRESHOLD)
+    multi = left.num_partitions > 1
+    if multi and not small:
+        lks, rks = _common_keys(plan)
+        n_out = left.num_partitions
+        left = X.ShuffleExchangeExec(plan, [left], conf, device, lks, n_out)
+        right = X.ShuffleExchangeExec(plan, [right], conf, device, rks, n_out)
+        return X.ShuffledHashJoinExec(plan, [left, right], conf, device,
+                                      part_keys=(lks, rks))
+    if plan.how in ("right", "full") and multi:
+        left = X.CollectExchangeExec(plan, [left], conf, device)
+    return X.BroadcastHashJoinExec(plan, [left, right], conf, device)
 
 
 def _convert_aggregate(plan, child, conf, device):

@@ -1,7 +1,8 @@
 """DataFrame API over the plan nodes (counterpart of
 ``spark_rapids_tpu/sql/dataframe.py``): ``select``, ``with_column``,
-``filter``, ``group_by(...).agg(...)``, ``agg``, ``repartition``,
-``cache``, ``count``, ``collect`` and ``to_pydict``."""
+``filter``, ``group_by(...).agg(...)``, ``agg``, ``order_by`` (``orderBy``,
+``sort``), ``limit``, ``join``, ``repartition``, ``cache``, ``count``,
+``collect`` and ``to_pydict``."""
 from __future__ import annotations
 
 from typing import List
@@ -17,6 +18,12 @@ def _e(x) -> E.Expression:
     if isinstance(x, E.Expression):
         return x
     return E.col(x) if isinstance(x, str) else E.lit(x)
+
+
+_JOIN_ALIASES = {"leftsemi": "left_semi", "semi": "left_semi",
+                 "leftanti": "left_anti", "anti": "left_anti",
+                 "outer": "full", "fullouter": "full", "left_outer": "left",
+                 "right_outer": "right"}
 
 
 class DataFrame:
@@ -46,9 +53,69 @@ class DataFrame:
     def agg(self, *aggs) -> "DataFrame":
         return GroupedData([], self).agg(*aggs)
 
+    def order_by(self, *orders) -> "DataFrame":
+        os = [o if isinstance(o, P.SortOrder) else P.SortOrder(_e(o))
+              for o in orders]
+        return DataFrame(P.Sort(os, self.plan), self.session)
+
+    orderBy = sort = order_by
+
+    def limit(self, n: int) -> "DataFrame":
+        return DataFrame(P.Limit(n, self.plan), self.session)
+
     def repartition(self, n: int, *cols) -> "DataFrame":
+        """Hash-partition by ``cols`` into n partitions; round-robin when
+        no columns are given (Spark's repartition)."""
         return DataFrame(P.Repartition(n, [_e(c) for c in cols], self.plan),
                          self.session)
+
+    def join(self, other: "DataFrame", on=None, how: str = "inner"
+             ) -> "DataFrame":
+        """Equi-join on column names (one output key column, PySpark's
+        rule) or on (left, right) expression pairs; ``on`` an expression
+        is a non-equi join and ``None`` a cross join."""
+        how = _JOIN_ALIASES.get(how, how)
+        if how == "cross" or on is None:
+            return DataFrame(P.Join(self.plan, other.plan, [], [], "cross"),
+                             self.session)
+        if isinstance(on, E.Expression):
+            return DataFrame(P.Join(self.plan, other.plan, [], [], how,
+                                    condition=on), self.session)
+        if isinstance(on, str):
+            on = [on]
+        dedupe = None
+        if isinstance(on, (list, tuple)) and on and isinstance(on[0], str):
+            lk = [E.col(k) for k in on]
+            rk = [E.col(k) for k in on]
+            dedupe = {k.lower() for k in on}
+        elif isinstance(on, (list, tuple)):
+            lk, rk = (list(x) for x in zip(*on))
+        else:
+            raise TypeError("join on= must be column name(s) or (left, "
+                            "right) pairs")
+        joined = DataFrame(P.Join(self.plan, other.plan, lk, rk, how),
+                           self.session)
+        if dedupe and how not in ("left_semi", "left_anti"):
+            joined = joined._dedupe_keys(len(self.plan.schema), dedupe, how)
+        return joined
+
+    def _dedupe_keys(self, nleft: int, keys, how: str) -> "DataFrame":
+        """One column per key name: the right side's copy goes; for right
+        and full joins the kept column takes whichever side is not null."""
+        fields = self.plan.schema.fields
+        rnames = [f.name.lower() for f in fields[nleft:]]
+        out = []
+        for i, f in enumerate(fields):
+            if f.name.lower() not in keys:
+                out.append(E.BoundRef(i, f.dtype, f.name).alias(f.name))
+            elif i < nleft:
+                ref = E.BoundRef(i, f.dtype, f.name)
+                if how in ("right", "full"):
+                    ri = nleft + rnames.index(f.name.lower())
+                    ref = E.Coalesce(ref, E.BoundRef(ri, fields[ri].dtype,
+                                                     f.name))
+                out.append(ref.alias(f.name))
+        return DataFrame(P.Project(out, self.plan), self.session)
 
     def cache(self) -> "DataFrame":
         """Keep this DataFrame's result resident on the device; later

@@ -114,6 +114,7 @@ STRING = StringType()
 class StructField:
     name: str
     dtype: DataType
+    nullable: bool = True
 
 
 @dataclasses.dataclass(frozen=True)

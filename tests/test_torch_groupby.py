@@ -1,10 +1,12 @@
-"""The port's sort route of the aggregate and the string slice as a whole,
-against the JAX package, on the CPU.
+"""The port's sort routes of the aggregate and the string slice as a
+whole, against the JAX package, on the CPU.
 
 Keys that do not pack (flat strings, dictionaries whose vocabulary may
 repeat a string, floats) group by sorting 64-bit keys; the results must
-equal the JAX package's group by group. Float sums are held to a relative
-1e-12 (summation order), everything else exactly.
+equal the JAX package's group by group. Float sums there are held to a
+relative 1e-12 (summation order), everything else exactly. Packed keys
+wider than 23 bits take the packed sort route, whose limb sums are exact:
+its results must equal the JAX package's bit for bit.
 """
 from __future__ import annotations
 
@@ -42,6 +44,8 @@ def _spy(monkeypatch, cls, name):
 
 
 def _both(build, table, approx=1e-12, conf=None):
+    """The port's result, checked against the JAX package's (floats to a
+    relative ``approx``; None = exactly)."""
     out = []
     for api in (torch_api(), jax_api()):
         out.append(build(api, api.session(conf).create_dataframe(table))
@@ -188,12 +192,95 @@ def test_normalize_key_strings_match_jax_hash():
     np.testing.assert_array_equal(pkey.numpy()[valid], want[valid])
 
 
-def test_packed_keys_wider_than_23_bits_still_raise():
-    P = torch_api()
-    df = P.session().create_dataframe(_keys_table())
-    with pytest.raises(NotImplementedError, match="packed sort route"):
-        df.select((P.col("x") * P.lit(1_000_000)).alias("w"), P.col("v")) \
-            .group_by("w").agg(P.F.sum(P.col("v"))).collect()
+def test_packed_keys_wider_than_23_bits_still_raise(monkeypatch):
+    # they raised until the packed sort route was ported; now they take it
+    packed = _spy(monkeypatch, X._AggKernels, "_packed_sort_agg")
+
+    def build(api, df):
+        return df.select((api.col("x") * api.lit(1_000_000)).alias("w"),
+                         api.col("v")) \
+            .group_by("w").agg(api.F.sum(api.col("v")).alias("sv"))
+    _both(build, _keys_table(), approx=None)
+    assert packed
+
+
+# ---------------------------------------------------------------------------
+# the packed sort route: packed keys wider than 23 bits
+# ---------------------------------------------------------------------------
+
+def _wide_table(n=4000, seed=8):
+    rng = np.random.default_rng(seed)
+    v = rng.normal(0, 1e3, n)
+    v[rng.random(n) < 0.01] = np.nan
+    v[rng.random(n) < 0.005] = np.inf
+    return pa.table({
+        "ok": pa.array(rng.integers(0, 3_000_000, n).astype(np.int64)),
+        "od": pa.array(rng.integers(8400, 10600, n).astype(np.int32),
+                       mask=rng.random(n) < 0.05),
+        "g": pa.array(rng.integers(0, 40, n).astype(np.int64)),
+        "x": pa.array(rng.integers(-2 ** 40, 2 ** 40, n).astype(np.int64),
+                      mask=rng.random(n) < 0.05),
+        "v": pa.array(v, mask=rng.random(n) < 0.05),
+        "f": pa.array(rng.normal(0, 1, n).astype(np.float32)),
+        "b": pa.array(rng.random(n) < 0.5),
+    })
+
+
+def _packed_aggs(api):
+    col, F = api.col, api.F
+    return [F.count().alias("n"), F.count(col("v")).alias("cv"),
+            F.sum(col("x")).alias("sx"), F.sum(col("v")).alias("sv"),
+            F.min(col("x")).alias("mnx"), F.max(col("v")).alias("mxv"),
+            F.min(col("f")).alias("mnf"), F.max(col("od")).alias("mxd"),
+            F.avg(col("v")).alias("av")]
+
+
+#: group keys whose packed width passes 23 bits (22 + 12, 22 + 6, 22 +
+#: 12 + 2)
+WIDE_KEYS = {"orderkey_date": ["ok", "od"], "orderkey_small": ["ok", "g"],
+             "three_keys": ["ok", "od", "b"]}
+
+
+@pytest.mark.parametrize("batch_rows", [None, 1500],
+                         ids=["one_batch", "merged_partials"])
+@pytest.mark.parametrize("keys", list(WIDE_KEYS.values()),
+                         ids=list(WIDE_KEYS))
+def test_packed_sort_route_matches_jax(keys, batch_rows, monkeypatch):
+    packed = _spy(monkeypatch, X._AggKernels, "_packed_sort_agg")
+    conf = None if batch_rows is None else \
+        {"spark.rapids.sql.reader.batchSizeRows": batch_rows}
+    # limb sums are exact: every column equal, floats included
+    _both(lambda api, df: df.group_by(*keys).agg(*_packed_aggs(api)),
+          _wide_table(), approx=None, conf=conf)
+    assert packed
+
+
+def test_group_layout_and_seg_sums_match_jax():
+    import jax.numpy as jnp
+    from spark_rapids_tpu.ops import radix as JR
+    from spark_rapids_tpu_torch.ops import radix as R
+    rng = np.random.default_rng(12)
+    cap, n = 4096, 3500
+    packed = rng.integers(0, 1 << 30, cap).astype(np.int64) % 997
+    live = np.arange(cap) < n
+    packed[~live] = 1 << 62
+    vals = rng.normal(0, 1e6, cap)
+    vals[::97] = np.nan
+    valid = rng.random(cap) < 0.9
+    jl = JR.group_layout(jnp.asarray(packed), jnp.asarray(live))
+    pl = R.group_layout(torch.from_numpy(packed), torch.from_numpy(live))
+    for f in ("perm", "sorted_packed", "boundary", "gid", "starts", "ends"):
+        np.testing.assert_array_equal(getattr(pl, f).numpy(),
+                                      np.asarray(getattr(jl, f)))
+    assert int(pl.n_groups) == int(jl.n_groups)
+    perm = np.asarray(jl.perm)
+    js = JR.seg_sum_f64(jnp.asarray(vals[perm]),
+                        jnp.asarray(valid[perm] & live[perm]), jl)
+    ps = R.seg_sum_f64(torch.from_numpy(vals[perm]),
+                       torch.from_numpy(valid[perm] & live[perm]), pl)
+    g = int(pl.n_groups)
+    np.testing.assert_array_equal(ps.numpy()[:g].view(np.int64),
+                                  np.asarray(js)[:g].view(np.int64))
 
 
 # ---------------------------------------------------------------------------

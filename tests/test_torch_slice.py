@@ -241,13 +241,26 @@ def test_with_column_count_and_ansi_divide(lineitem):
 def test_routes_not_ported_yet_raise_with_their_name(lineitem):
     P = torch_api()
     df = P.session().create_dataframe(lineitem.slice(0, 1000))
-    # keys that pack into more than 23 bits: the packed sort route
-    with pytest.raises(NotImplementedError, match="packed sort route"):
-        df.select((P.col("l_orderkey") * P.lit(100_000)).alias("k"),
-                  P.col("l_quantity")) \
-            .group_by(P.col("k")).agg(P.F.count("l_quantity")).collect()
-    with pytest.raises(NotImplementedError, match="RoundRobinExchangeExec"):
-        df.repartition(4).collect()
+    with pytest.raises(NotImplementedError, match="CartesianProductExec"):
+        df.join(df, how="cross").collect()
+    masked = P.session({"spark.rapids.shuffle.partitioning": "masked"})
+    with pytest.raises(NotImplementedError, match="masked"):
+        masked.create_dataframe(lineitem.slice(0, 1000)) \
+            .repartition(4, P.col("l_shipdate")).collect()
+    # two routes that raised before they were ported, the packed sort
+    # route (keys packing into more than 23 bits) and the round-robin
+    # exchange, now match the JAX package
+    J = jax_api()
+    got = []
+    for api in (P, J):
+        d = api.session().create_dataframe(lineitem.slice(0, 1000))
+        got.append((
+            d.select((api.col("l_orderkey") * api.lit(100_000)).alias("k"),
+                     api.col("l_quantity"))
+            .group_by(api.col("k")).agg(api.F.count("l_quantity")).collect(),
+            d.repartition(4).collect()))
+    assert_tables_equal(got[0][0], got[1][0], ignore_order=True)
+    assert_tables_equal(got[0][1], got[1][1])
 
 
 def test_conf_keys_and_defaults_match_jax():

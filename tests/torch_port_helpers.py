@@ -1,10 +1,12 @@
 """Shared helpers of the PyTorch port's parity tests (tests/test_torch_*.py).
 
-The lineitem generators and the query shapes of the port's slices (four
-of the first, three string shapes of the third) are written once against a
-package namespace, so the same program runs through ``spark_rapids_tpu``
-(the reference) and ``spark_rapids_tpu_torch``; ``chip_smoke.py`` runs the
-same generators and string shapes on the card. At import this module
+The table generators (bench.py's lineitem and orders, the customers, the
+flag dimension, lineitem_text) and the query shapes of the port's slices
+(four of the first, three string shapes of the third, the join and sort
+shapes of the fourth) are written once against a package namespace, so
+the same program runs through ``spark_rapids_tpu`` (the reference) and
+``spark_rapids_tpu_torch``; ``chip_smoke.py`` runs the same generators,
+string shapes and join and sort shapes on the card. At import this module
 needs numpy and pyarrow only.
 ``from_jax_batch`` rebuilds a JAX package batch as a torch batch, so single
 operations can be compared on identical inputs.
@@ -19,10 +21,8 @@ import pyarrow as pa
 LO, HI = 8766, 9131  # [1994-01-01, 1995-01-01) in days since epoch
 
 
-def make_lineitem(rows: int, seed: int = 42) -> pa.Table:
-    """bench.py's lineitem columns at `rows` rows, from a numpy seed."""
+def _draw_lineitem(rng, rows: int) -> pa.Table:
     orders = max(rows // 10, 1000)
-    rng = np.random.default_rng(seed)
     flags = np.array(["A", "N", "R"])[rng.integers(0, 3, rows)]
     status = np.array(["F", "O"])[rng.integers(0, 2, rows)]
     return pa.table({
@@ -34,6 +34,44 @@ def make_lineitem(rows: int, seed: int = 42) -> pa.Table:
         "l_discount": np.round(rng.uniform(0.0, 0.10, rows), 2),
         "l_shipdate": rng.integers(8400, 10600, rows).astype(np.int32),
     })
+
+
+def make_lineitem(rows: int, seed: int = 42) -> pa.Table:
+    """bench.py's lineitem columns at `rows` rows, from a numpy seed."""
+    return _draw_lineitem(np.random.default_rng(seed), rows)
+
+
+def make_tables(rows: int, seed: int = 42):
+    """bench.py's make_tables: ``make_lineitem(rows, seed)``, then orders
+    (rows // 10 of them, at least 1000) from the same rng stream."""
+    rng = np.random.default_rng(seed)
+    lineitem = _draw_lineitem(rng, rows)
+    n = max(rows // 10, 1000)
+    orders = pa.table({
+        "o_orderkey": np.arange(n, dtype=np.int64),
+        "o_orderdate": rng.integers(8400, 10600, n).astype(np.int32),
+        "o_custkey": rng.integers(0, max(n // 10, 10), n).astype(np.int64),
+    })
+    return lineitem, orders
+
+
+def make_customers(orders: pa.Table) -> pa.Table:
+    """One row per customer key the orders draw from (0 .. n/10 - 1)."""
+    n = max(orders.num_rows // 10, 10)
+    return pa.table({"c_custkey": np.arange(n, dtype=np.int64)})
+
+
+#: the flag dimension: a label per (l_returnflag, l_linestatus) pair
+FLAG_LABELS = {("A", "F"): "accepted/filled", ("A", "O"): "accepted/open",
+               ("N", "F"): "none/filled", ("N", "O"): "none/open",
+               ("R", "F"): "returned/filled", ("R", "O"): "returned/open"}
+
+
+def make_flag_dim() -> pa.Table:
+    keys = sorted(FLAG_LABELS)
+    return pa.table({"d_returnflag": [k[0] for k in keys],
+                     "d_linestatus": [k[1] for k in keys],
+                     "d_label": [FLAG_LABELS[k] for k in keys]})
 
 
 #: the TPC-H text grammar's word lists (specification clause 4.2.2.10):
@@ -203,6 +241,96 @@ def str_prefix_rows(api, df, word=PREFIX_WORD):
                              col("l_linestatus")).alias("flags"),
                     F.substring(F.upper(col("l_comment")), 1, 12)
                     .alias("head")))
+
+
+# ---------------------------------------------------------------------------
+# the join and sort shapes
+# ---------------------------------------------------------------------------
+
+def _q3_joined(api, li, od):
+    col, lit = api.col, api.lit
+    j = li.filter(col("l_shipdate") > lit(9100)).join(
+        od.filter(col("o_orderdate") < lit(9500)),
+        on=[(col("l_orderkey"), col("o_orderkey"))], how="inner")
+    return j, (col("l_extendedprice")
+               * (lit(1.0) - col("l_discount"))).alias("rev")
+
+
+def q3join(api, li, od):
+    """bench.py's q3join: lineitem x orders, revenue per order, top 10."""
+    col, F = api.col, api.F
+    j, rev = _q3_joined(api, li, od)
+    g = (j.select(col("l_orderkey"), rev)
+         .group_by(col("l_orderkey")).agg(F.sum("rev").alias("rev")))
+    return g.order_by(col("rev").desc(), col("l_orderkey").asc()).limit(10)
+
+
+def q3_orderdate(api, li, od):
+    """q3join grouped by (l_orderkey, o_orderdate), TPC-H Q3's keys less
+    o_shippriority: 22 + 12 packed bits, the packed sort route."""
+    col, F = api.col, api.F
+    j, rev = _q3_joined(api, li, od)
+    g = (j.select(col("l_orderkey"), col("o_orderdate"), rev)
+         .group_by(col("l_orderkey"), col("o_orderdate"))
+         .agg(F.sum("rev").alias("rev")))
+    return g.order_by(col("rev").desc(), col("l_orderkey").asc()).limit(10)
+
+
+def q3_revenue_by_date(api, li, od):
+    """The q3join join, revenue and line count per order date: a 12-bit
+    key, the (chunked) segsum route."""
+    col, F = api.col, api.F
+    j, rev = _q3_joined(api, li, od)
+    return (j.select(col("o_orderdate"), rev).group_by(col("o_orderdate"))
+            .agg(F.sum("rev").alias("rev"), F.count().alias("n")))
+
+
+def q4_semi_anti(api, li, od, how="left_semi"):
+    """TPC-H Q4's EXISTS shape: orders of a date window with (or without)
+    a line shipped after day 9100; their count and custkey sum."""
+    col, lit, F = api.col, api.lit, api.F
+    o = od.filter((col("o_orderdate") >= lit(9000))
+                  & (col("o_orderdate") < lit(9400)))
+    return (o.join(li.filter(col("l_shipdate") > lit(9100)),
+                   on=[(col("o_orderkey"), col("l_orderkey"))], how=how)
+            .agg(F.count().alias("n"), F.sum(col("o_custkey")).alias("cs")))
+
+
+def q13_left(api, cust, od):
+    """TPC-H Q13's shape: customers left join their early orders, orders
+    per customer, then customers per order count."""
+    col, lit, F = api.col, api.lit, api.F
+    per = (cust.join(od.filter(col("o_orderdate") < lit(8500)),
+                     on=[(col("c_custkey"), col("o_custkey"))], how="left")
+           .group_by(col("c_custkey"))
+           .agg(F.count(col("o_orderkey")).alias("c_count")))
+    return per.group_by(col("c_count")).agg(F.count().alias("custdist"))
+
+
+def flag_dim(api, li, dim):
+    """Lineitem joined to the flag dimension on its two string keys, then
+    price sum and line count per label."""
+    col, F = api.col, api.F
+    return (li.join(dim, on=[(col("l_returnflag"), col("d_returnflag")),
+                             (col("l_linestatus"), col("d_linestatus"))])
+            .group_by(col("d_label"))
+            .agg(F.sum(col("l_extendedprice")).alias("price"),
+                 F.count().alias("n")))
+
+
+def sort_rows(api, li):
+    """Three lineitem columns by price descending, then order key and
+    ship date ascending."""
+    col = api.col
+    return (li.select(col("l_extendedprice"), col("l_orderkey"),
+                      col("l_shipdate"))
+            .order_by(col("l_extendedprice").desc(), col("l_orderkey").asc(),
+                      col("l_shipdate").asc()))
+
+
+def limit_rows(api, li, n=1000):
+    col, lit = api.col, api.lit
+    return li.filter(col("l_quantity") < lit(2.0)).limit(n)
 
 
 def from_jax_batch(batch):
