@@ -68,21 +68,37 @@ Phases, one JSON line each:
    (semi and anti joins against a 20M-row build with repeated keys, split
    three ways), q13_left (customers left join orders, then the
    distribution of order counts), flag_dim (a join on the two string flag
-   columns with a 6-row dimension: the general pairs path), sort_rows
-   (all 30M rows of three columns ordered by a range exchange and eight
-   sorts) and limit_rows, each cold then twice warm and checked against
-   pyarrow. Each query prints its operators and the probe path each join
+   columns with a 6-row dimension: the general pairs path), band_join
+   (lineitem against 20 price bands on lo <= price < hi, no equi key: the
+   nested-loop join), flag_cross (the flag dimension cross joined with a
+   few lineitem rows: the cartesian product), sort_rows (all 30M rows of
+   three columns ordered by a range exchange and eight sorts) and
+   limit_rows, each cold then twice warm and checked against pyarrow or
+   numpy. Each query prints its operators and the probe path each join
    took; the operators and routes the queries are built to take are
    asserted, and the segsum kernel must have run.
+9. window (on the joins phase's caches, and bench.py's first 10M rows
+   cached in 1 partition): q67win (bench.py's), win_rank_family (the rank
+   family over the flag pairs), win_running (running, bounded and
+   lead/lag/first/last/nth frames over 3M order-key partitions: the
+   general route), win_shuffled (the 8-partition cache: hash exchange with
+   murmur3, packed window, chunked segsum aggregate), win_global_top (a
+   window without partition keys: the collect exchange) and dedupe_orders
+   (drop_duplicates), each cold then twice warm and checked against numpy
+   (sorts, boundary flags and running maxima). Each query prints its
+   operators and window route; the routes the JAX package takes on the
+   same caches are asserted, and murmur3 and segsum must have run in
+   win_shuffled.
 
 It then prints the kernel table ({"kernels": [...]}, with each kernel's
-launches per path: cached, parquet, strings, joins), the card's name and power limit, and as its last line
+launches per path: cached, parquet, strings, joins, window), the card's name and power limit, and as its last line
 {"ok": true, "device": {...}}. Any failure exits non-zero without that
 line; so does a machine without CUDA, and so does a run that imported the
-JAX package. The lineitem generators and the string query shapes are the
-ones of tests/torch_port_helpers.py, which the CPU tests run too.
+JAX package. The lineitem generators and the string, join and window
+query shapes are the ones of tests/torch_port_helpers.py, which the CPU
+tests run too.
 CHIP_SMOKE_PROFILE=1 adds a torch.profiler pass over each query of the
-four paths, with each port kernel's launches, device time and bounds at
+five query paths, with each port kernel's launches, device time and bounds at
 the shapes the query gave it, and ranks the kernels by device time above
 bound over those runs (CHIP_SMOKE_TRACE_DIR=dir also writes the queries'
 Chrome traces).
@@ -144,8 +160,9 @@ def port_api():
     from types import SimpleNamespace
 
     from spark_rapids_tpu_torch.expr.core import col, lit
+    from spark_rapids_tpu_torch.expr.window import Window
     from spark_rapids_tpu_torch.sql import functions as F
-    return SimpleNamespace(col=col, lit=lit, F=F)
+    return SimpleNamespace(col=col, lit=lit, F=F, Window=Window)
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -532,18 +549,21 @@ def validate(name, got, want) -> bool:
 
 
 class RouteSpy:
-    """Counts entries into the aggregate's routes while the path runs."""
+    """Counts entries into an operator's routes while a path runs: by
+    default the aggregate's (``_AggKernels``), or the given methods of
+    ``cls``."""
 
     METHODS = ("_global_update", "_bucket_update", "_segsum_or_fallback",
                "_chunked_segsum_agg", "_scatter_agg", "_sort_agg",
                "_packed_sort_agg")
 
-    def __init__(self):
+    def __init__(self, cls=None, methods=None):
         from spark_rapids_tpu_torch.exec import nodes as X
-        self.cls = X._AggKernels
-        self.counts = {m: 0 for m in self.METHODS}
-        self.orig = {m: getattr(self.cls, m) for m in self.METHODS}
-        for m in self.METHODS:
+        self.cls = cls or X._AggKernels
+        self.methods = methods or self.METHODS
+        self.counts = {m: 0 for m in self.methods}
+        self.orig = {m: getattr(self.cls, m) for m in self.methods}
+        for m in self.methods:
             setattr(self.cls, m, self._wrap(m))
 
     def _wrap(self, m):
@@ -555,8 +575,12 @@ class RouteSpy:
         return spy
 
     def take(self):
-        out, self.counts = self.counts, {m: 0 for m in self.METHODS}
+        out, self.counts = self.counts, {m: 0 for m in self.methods}
         return {k: v for k, v in out.items() if v}
+
+    def restore(self):
+        for m, orig in self.orig.items():
+            setattr(self.cls, m, orig)
 
 
 def phase_setup(rows: int, tmp_dir: str):
@@ -1113,7 +1137,19 @@ def joins_reference(t, orders):
                                      "l_extendedprice_count")])}
     cols = [k for k, _ in SORT_KEYS]
     ordered = t.select(cols).take(pc.sort_indices(t, SORT_KEYS))
-    return {"q3join": {k: v for (k, _), v in q3.items()},
+    bands = helpers().make_bands()
+    price = t["l_extendedprice"].to_numpy()
+    qty = t["l_quantity"].to_numpy()
+    lo, hi = bands["lo"].to_numpy(), bands["hi"].to_numpy()
+    b = np.searchsorted(lo, price, side="right") - 1
+    inside = (b >= 0) & (price < hi[b.clip(0)])
+    n_band = np.bincount(b[inside], minlength=len(lo))
+    q_band = np.bincount(b[inside], weights=qty[inside], minlength=len(lo))
+    few = int(((qty < 2.0) & (t["l_shipdate"].to_numpy() < 8500)).sum())
+    return {"band_join": {k: (int(n_band[k]), float(q_band[k]))
+                          for k in range(len(lo)) if n_band[k]},
+            "flag_cross": {v: few for v in helpers().FLAG_LABELS.values()},
+            "q3join": {k: v for (k, _), v in q3.items()},
             "q3join_shuffled": {k: v for (k, _), v in q3.items()},
             "q3_orderdate": q3, "q3_revenue_by_date": by_date,
             "q4_semi_anti": q4,
@@ -1153,6 +1189,14 @@ def joins_queries(h1, h8):
         return {k: (p, n) for k, p, n in zip(d["d_label"], d["price"],
                                              d["n"])}
 
+    def band():
+        d = H.band_join(api, h1.li, h1.bands).to_pydict()
+        return {k: (n, q) for k, n, q in zip(d["band"], d["n"], d["q"])}
+
+    def cross():
+        d = H.flag_cross(api, h1.li, h1.dim).to_pydict()
+        return dict(zip(d["d_label"], d["n"]))
+
     return {
         "q3join": (h1.s, lambda: top(H.q3join(api, h1.li, h1.od),
                                      ["l_orderkey"])),
@@ -1164,6 +1208,8 @@ def joins_queries(h1, h8):
         "q4_semi_anti": (h1.s, q4),
         "q13_left": (h1.s, q13),
         "flag_dim": (h1.s, flag),
+        "band_join": (h1.s, band),
+        "flag_cross": (h1.s, cross),
         "sort_rows": (h8.s, lambda: H.sort_rows(api, h8.li).collect()),
         "limit_rows": (h8.s, lambda: H.limit_rows(api, h8.li).collect()),
     }
@@ -1177,13 +1223,16 @@ def validate_joins(name, got, want) -> bool:
         got = got.combine_chunks()
         return got.num_rows == want.num_rows and all(
             got[k].equals(want[k]) for k in want.column_names)
-    if name in ("q4_semi_anti", "q13_left"):
+    if name in ("q4_semi_anti", "q13_left", "flag_cross"):
         return got == want
     if set(got) != set(want):
         return False
     if name == "q3_revenue_by_date":
         return all(_close(got[k][0], want[k][0], 1e-9)
                    and got[k][1] == want[k][1] for k in want)
+    if name == "band_join":
+        return all(got[k][0] == want[k][0] and _close(got[k][1], want[k][1])
+                   for k in want)
     if name == "flag_dim":
         return all(_close(got[k][0], want[k][0])
                    and got[k][1] == want[k][1] for k in want)
@@ -1240,6 +1289,8 @@ JOIN_EXPECT = {
                      {"split", "dense_pairs"}),
     "q13_left": ({"BroadcastHashJoinExec"}, set(), {"dense_pairs"}),
     "flag_dim": ({"BroadcastHashJoinExec"}, set(), {"general"}),
+    "band_join": ({"BroadcastNestedLoopJoinExec"}, set(), set()),
+    "flag_cross": ({"CartesianProductExec"}, set(), set()),
     "sort_rows": ({"RangeExchangeExec", "SortExec"}, set(), set()),
     "limit_rows": ({"LimitExec", "CollectExchangeExec"}, set(), set()),
 }
@@ -1263,7 +1314,8 @@ def phase_joins(table, orders, spy, prof=None):
                          od=s1.create_dataframe(orders).cache(),
                          cust=s1.create_dataframe(
                              H.make_customers(orders)).cache(),
-                         dim=s1.create_dataframe(H.make_flag_dim()))
+                         dim=s1.create_dataframe(H.make_flag_dim()),
+                         bands=s1.create_dataframe(H.make_bands()))
     s8 = TorchSession({"spark.rapids.sql.join.broadcastRowThreshold": 0})
     h8 = SimpleNamespace(s=s8, li=s8.create_dataframe(
         table, num_partitions=8).cache(), od=s8.create_dataframe(
@@ -1320,6 +1372,300 @@ def phase_joins(table, orders, spy, prof=None):
     if counts["segsum"] <= 0:
         raise AssertionError(f"the segsum kernel did not run on the joins "
                              f"path: {counts}")
+    return counts, h1, h8
+
+
+# ---------------------------------------------------------------------------
+# phase 9: window functions
+# ---------------------------------------------------------------------------
+
+WIN_ROWS = 10_000_000  # bench.py's WIN_ROWS: q67win runs on this slice
+
+
+def _runs(*sorted_keys):
+    """Boundary flags of sorted key planes, and each row's run start and
+    run end (inclusive): np.maximum.accumulate over flagged positions."""
+    n = sorted_keys[0].shape[0]
+    b = np.zeros(n, bool)
+    b[0] = True
+    for k in sorted_keys:
+        b[1:] |= k[1:] != k[:-1]
+    idx = np.arange(n)
+    start = np.maximum.accumulate(np.where(b, idx, 0))
+    nxt = np.where(b, idx, n)
+    end = np.empty(n, np.int64)
+    end[:-1] = np.minimum.accumulate(nxt[::-1])[::-1][1:] - 1
+    end[-1] = n - 1
+    return b, start, end
+
+
+def _key_order(*fields, stable=False):
+    """The row order of a lexicographic sort by non-negative integer
+    fields, most significant first: one argsort of the fields packed into
+    an int64 (np.lexsort takes about three times as long)."""
+    key = np.zeros(fields[0].shape[0], np.int64)
+    bits = 0
+    for f in fields:
+        b = max(1, int(f.max()).bit_length())
+        bits += b
+        if f.min() < 0 or bits > 63:
+            raise AssertionError("sort fields do not pack")
+        key = (key << b) | f
+    return np.argsort(key, kind="stable" if stable else "quicksort")
+
+
+def _seg_sum(x, start, upto):
+    """Sum of x over [start[i], upto[i]] by one cumsum."""
+    cs = np.cumsum(x)
+    return cs[upto] - cs[start] + x[start]
+
+
+def window_reference(t):
+    """numpy answers to the window shapes: sorts, boundary flags and
+    running maxima (no pandas)."""
+    import pyarrow.compute as pc
+    ok = t["l_orderkey"].to_numpy()
+    ship = t["l_shipdate"].to_numpy().astype(np.int64)
+    price = t["l_extendedprice"].to_numpy()
+    qty = t["l_quantity"].to_numpy()
+    disc = t["l_discount"].to_numpy()
+    codes, names = [], []
+    for c in ("l_returnflag", "l_linestatus"):
+        enc = pc.dictionary_encode(t[c]).combine_chunks()
+        codes.append(enc.indices.to_numpy().astype(np.int64))
+        names.append(enc.dictionary.to_pylist())
+    g = codes[0] * len(names[1]) + codes[1]
+
+    def label(k):
+        return (names[0][k // len(names[1])], names[1][k % len(names[1])])
+    out = {}
+    # q67win: the largest rank per flag pair is 1 + the rows before the
+    # pair's last ship date, over the first WIN_ROWS rows
+    gw, sw = g[:WIN_ROWS], ship[:WIN_ROWS]
+    out["q67win"] = {}
+    for k in np.unique(gw):
+        d = sw[gw == k]
+        out["q67win"][label(k)] = int((d < d.max()).sum()) + 1
+    # win_rank_family: flags, ship date descending, order key (the
+    # summaries do not depend on the order of tied rows)
+    o = _key_order(g, ship.max() - ship, ok)
+    gs, ss, ks = g[o], ship[o], ok[o]
+    segb, seg_start, seg_end = _runs(gs)
+    peerb, peer_start, peer_end = _runs(gs, ss, ks)
+    idx = np.arange(len(o))
+    size = seg_end - seg_start + 1
+    rk = peer_start - seg_start + 1
+    cp = np.cumsum(peerb)
+    drk = cp - cp[seg_start] + 1
+    pos = idx - seg_start
+    base, rem = size // 100, size % 100
+    cut = (base + 1) * rem
+    nt = np.where(pos < cut, pos // np.maximum(base + 1, 1),
+                  rem + (pos - cut) // np.maximum(base, 1)) + 1
+    pr = np.where(size > 1, (rk - 1) / np.maximum(size - 1, 1), 0.0)
+    cd = (peer_end - seg_start + 1) / size
+    firsts = np.flatnonzero(segb)
+    out["win_rank_family"] = {
+        label(gs[f]): v for f, v in zip(firsts, zip(
+            np.maximum.reduceat(pos + 1, firsts).tolist(),
+            np.maximum.reduceat(rk, firsts).tolist(),
+            np.maximum.reduceat(drk, firsts).tolist(),
+            np.maximum.reduceat(nt, firsts).tolist(),
+            np.add.reduceat(rk, firsts).tolist(),
+            np.add.reduceat(pr, firsts).tolist(),
+            np.maximum.reduceat(cd, firsts).tolist()))}
+    del o, gs, ss, ks, segb, peerb, cp, drk, pos, nt, pr, cd
+    # win_running: order key partitions ordered by price (two decimals,
+    # so whole cents order it); tied rows keep the input's order, as the
+    # port's stable sort does
+    o = _key_order(ok, np.rint(price * 100).astype(np.int64), stable=True)
+    ks, ps, qs, ds, hs = ok[o], price[o], qty[o], disc[o], ship[o]
+    _, seg_start, seg_end = _runs(ks)
+    _, _, peer_end = _runs(ks, ps)
+    n = len(o)
+    idx = np.arange(n)
+    rcnt = peer_end - seg_start + 1
+    lo, hi = np.maximum(idx - 2, seg_start), np.minimum(idx + 2, seg_end)
+    has_lg = idx - 1 >= seg_start
+    has_nv = seg_start + 1 <= peer_end
+    nxt = np.minimum(idx + 1, n - 1)
+    out["win_running"] = {
+        "rsum": float(_seg_sum(qs, seg_start, peer_end).sum()),
+        "ravg": float((_seg_sum(ds, seg_start, peer_end) / rcnt).sum()),
+        "rcnt": int(rcnt.sum()),
+        "rmin": float(ps[seg_start].sum()),
+        "rmax": float(ps[peer_end].sum()),
+        "bsum": float(_seg_sum(qs, lo, hi).sum()),
+        "ld": float(np.where(idx + 1 <= seg_end, ds[nxt], 0.0).sum()),
+        "lg": float(qs[np.maximum(idx - 1, 0)][has_lg].sum()),
+        "fv": int(hs[seg_start].sum()), "lv": int(hs[peer_end].sum()),
+        "nv": int(hs[np.minimum(seg_start + 1, n - 1)][has_nv].sum()),
+        "n_lg": int(has_lg.sum()), "n_nv": int(has_nv.sum())}
+    del o, ks, ps, qs, ds, hs, lo, hi
+    # win_shuffled: ship dates ordered by order key
+    o = _key_order(ship, ok)
+    ss = ship[o]
+    segb, seg_start, _ = _runs(ss)
+    _, _, peer_end = _runs(ss, ok[o])
+    run = _seg_sum(qty[o], seg_start, peer_end)
+    firsts = np.flatnonzero(segb)
+    out["win_shuffled"] = dict(zip(ss[firsts].tolist(), zip(
+        np.add.reduceat(run, firsts).tolist(),
+        np.diff(np.append(firsts, len(o))).tolist())))
+    del o, ss, run
+    # win_global_top: rank over price descending, order key, q < 2
+    keep = np.flatnonzero(qty < 2.0)
+    o = keep[np.lexsort((ok[keep], -price[keep]))]
+    _, peer_start, _ = _runs(price[o], ok[o])
+    top = o[peer_start + 1 <= 100]
+    out["win_global_top"] = sorted(zip(
+        ok[top].tolist(), price[top].tolist(), ship[top].tolist(),
+        (peer_start[:len(top)] + 1).tolist()))
+    out["dedupe_orders"] = int(np.unique(ok).shape[0])
+    return out
+
+
+def window_queries(h1, h8, w1):
+    """name -> (session, run) over the joins phase's caches (h1: one
+    partition, h8: eight) and the q67win slice's (w1)."""
+    H, api = helpers(), port_api()
+
+    def by_flags(df, cols):
+        d = df.to_pydict()
+        return {(a, b): tuple(d[c][i] for c in cols) if len(cols) > 1
+                else d[cols[0]][i]
+                for i, (a, b) in enumerate(zip(d["l_returnflag"],
+                                               d["l_linestatus"]))}
+
+    def running():
+        d = H.win_running(api, h1.li).to_pydict()
+        return {k: v[0] for k, v in d.items()}
+
+    def shuffled():
+        d = H.win_shuffled(api, h8.li).to_pydict()
+        return dict(zip(d["l_shipdate"], zip(d["s"], d["n"])))
+
+    def top():
+        d = H.win_global_top(api, h8.li).to_pydict()
+        return sorted(zip(d["l_orderkey"], d["l_extendedprice"],
+                          d["l_shipdate"], d["rk"]))
+
+    return {
+        "q67win": (w1.s, lambda: by_flags(H.q67win(api, w1.li), ["mx"])),
+        "win_rank_family": (h1.s, lambda: by_flags(
+            H.win_rank_family(api, h1.li),
+            ["max_rn", "max_rk", "max_drk", "max_nt", "sum_rk", "sum_pr",
+             "max_cd"])),
+        "win_running": (h1.s, running),
+        "win_shuffled": (h8.s, shuffled),
+        "win_global_top": (h8.s, top),
+        "dedupe_orders": (h1.s, lambda: H.dedupe_orders(api, h1.li).count()),
+    }
+
+
+def validate_window(name, got, want) -> bool:
+    if name in ("q67win", "win_global_top", "dedupe_orders"):
+        return got == want
+    if set(got) != set(want):
+        return False
+    if name == "win_rank_family":
+        # integers exact, the percent_rank sum to 1e-9, cume_dist's max
+        # (a count over a count) exact
+        return all(got[k][:5] == want[k][:5]
+                   and _close(got[k][5], want[k][5], 1e-9)
+                   and got[k][6] == want[k][6] for k in want)
+    if name == "win_running":
+        return all(got[k] == want[k] if isinstance(want[k], int)
+                   else _close(got[k], want[k], 1e-9) for k in want)
+    return all(got[k][1] == want[k][1] and _close(got[k][0], want[k][0])
+               for k in want)  # win_shuffled
+
+
+#: what each window query must have run: operators, the window route
+WINDOW_EXPECT = {
+    "q67win": ({"WindowExec"}, "packed"),
+    "win_rank_family": ({"WindowExec"}, "packed"),
+    "win_running": ({"WindowExec"}, "general"),
+    "win_shuffled": ({"WindowExec", "ShuffleExchangeExec"}, "packed"),
+    "win_global_top": ({"WindowExec", "CollectExchangeExec"}, "general"),
+    "dedupe_orders": ({"WindowExec"}, "packed"),
+}
+
+
+def _window_child(session) -> str:
+    for e in session.last_exec.walk():
+        if type(e).__name__ == "WindowExec":
+            return type(e.children[0]).__name__
+    return ""
+
+
+def phase_window(table, h1, h8, spy, prof=None):
+    import torch
+    from types import SimpleNamespace
+
+    from spark_rapids_tpu_torch import TorchSession
+    from spark_rapids_tpu_torch.exec import nodes as X
+    t0 = time.perf_counter()
+    want = window_reference(table)
+    host_s = time.perf_counter() - t0
+    wspy = RouteSpy(X.WindowExec, ("_packed", "_general"))
+    reset_launches()
+    spy.take()
+    t0 = time.perf_counter()
+    sw = TorchSession()
+    w1 = SimpleNamespace(s=sw, li=sw.create_dataframe(
+        table.slice(0, WIN_ROWS)).cache())
+    n = w1.li.count()
+    torch.cuda.synchronize()
+    cache_s = time.perf_counter() - t0
+    if n != min(WIN_ROWS, table.num_rows):
+        raise AssertionError(f"window slice cached {n} rows")
+    emit({"phase": "window.setup", "rows": table.num_rows,
+          "q67win_rows": n, "host_reference_s": host_s, "cache_s": cache_s})
+    problems = []
+    queries = window_queries(h1, h8, w1)
+    for name, (session, fn) in queries.items():
+        before = read_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = fn()
+        cold = time.perf_counter() - t0
+        warm = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            fn()
+            warm.append(time.perf_counter() - t0)
+        good = validate_window(name, got, want[name])
+        routes = {k[1:]: v // 3 for k, v in wspy.take().items()}
+        execs = _exec_names(session)
+        e_ops, e_route = WINDOW_EXPECT[name]
+        if not good:
+            problems.append(f"{name} disagrees with numpy")
+        if not e_ops <= set(execs) or set(routes) != {e_route}:
+            problems.append(f"{name} ran {execs}, window routes {routes}; "
+                            f"expected {WINDOW_EXPECT[name]}")
+        below = _window_child(session)
+        if name == "win_shuffled" and below != "ShuffleExchangeExec":
+            problems.append(f"win_shuffled ran {below} below WindowExec")
+        launches = {k: (v - before[k]) // 3
+                    for k, v in read_launches().items()}
+        if name == "win_shuffled" and min(launches["murmur3_int32"],
+                                          launches["segsum"]) <= 0:
+            problems.append(f"win_shuffled launched {launches}")
+        emit({"phase": "window.query", "query": name, "correct": good,
+              "cold_s": cold, "warm_s": min(warm), "launches": launches,
+              "window_route": routes, "agg_routes": {
+                  k: v // 3 for k, v in spy.take().items()},
+              "execs": execs, "below_window": below,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+    counts = read_launches()
+    emit({"phase": "window", "launches": counts, "correct": not problems,
+          "problems": problems})
+    if prof:
+        prof.run("window", {k: v[1] for k, v in queries.items()})
+    wspy.restore()
+    if problems:
+        raise AssertionError("; ".join(problems))
     return counts
 
 
@@ -1503,9 +1849,12 @@ def main() -> int:
         cached = phase_path(table, want, spy, prof)
         phases["path_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        joins = phase_joins(table, orders, spy, prof)
+        joins, h1, h8 = phase_joins(table, orders, spy, prof)
         phases["joins_s"] = time.perf_counter() - t0
-        del table, orders
+        t0 = time.perf_counter()
+        window = phase_window(table, h1, h8, spy, prof)
+        phases["window_s"] = time.perf_counter() - t0
+        del table, orders, h1, h8
         t0 = time.perf_counter()
         parquet = phase_parquet(path, want, spy, prof)
         phases["parquet_s"] = time.perf_counter() - t0
@@ -1519,7 +1868,8 @@ def main() -> int:
         shutil.rmtree(tmp_dir, ignore_errors=True)
     for r in rows:
         by_path = {"cached": cached[r["name"]], "parquet": parquet[r["name"]],
-                   "strings": strings[r["name"]], "joins": joins[r["name"]]}
+                   "strings": strings[r["name"]], "joins": joins[r["name"]],
+                   "window": window[r["name"]]}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
     if prof:

@@ -8,8 +8,10 @@ which decodes on the host, and the device-decode pair
 ``FilterExec``, ``CoalesceBatchesExec``, ``CollectExchangeExec``, the
 compact in-process exchanges (``ShuffleExchangeExec``,
 ``RoundRobinExchangeExec``, ``RangeExchangeExec``), ``HashAggregateExec``
-with ``_AggKernels``, ``LimitExec``, ``TopNExec``, ``SortExec``, and the
-hash joins (``BroadcastHashJoinExec``, ``ShuffledHashJoinExec``).
+with ``_AggKernels``, ``LimitExec``, ``TopNExec``, ``SortExec``,
+``WindowExec``, the hash joins (``BroadcastHashJoinExec``,
+``ShuffledHashJoinExec``), and the nested-loop and cartesian joins
+(``BroadcastNestedLoopJoinExec``, ``CartesianProductExec``).
 
 PyTorch runs eagerly, so each operator is plain tensor code per batch; the
 JAX package's stage fusion and compile caches have no counterpart here.
@@ -48,6 +50,8 @@ from spark_rapids_tpu_torch.columnar.batch import (
     ColumnVector, ColumnarBatch, LazyRowCount, column_from_arrow, from_arrow,
     round_capacity, to_arrow,
 )
+from spark_rapids_tpu_torch.expr import aggregates as A
+from spark_rapids_tpu_torch.expr import window as WE
 from spark_rapids_tpu_torch.expr.core import (
     Alias, BoundRef, Cast, EvalCtx, Expression, raise_errors,
 )
@@ -60,6 +64,7 @@ from spark_rapids_tpu_torch.ops import kernels as K
 from spark_rapids_tpu_torch.ops import radix as R
 from spark_rapids_tpu_torch.ops import repartition as RP
 from spark_rapids_tpu_torch.ops import segsum as S
+from spark_rapids_tpu_torch.ops import window as W
 from spark_rapids_tpu_torch.plan import nodes as P
 
 
@@ -1493,6 +1498,244 @@ class SortExec(TorchExec):
                              self.device)
 
 
+
+# ---------------------------------------------------------------------------
+# Window
+# ---------------------------------------------------------------------------
+
+def _boundaries(sorted_plane: torch.Tensor) -> torch.Tensor:
+    """True where a sorted plane starts a new run (row 0 always)."""
+    return torch.cat([torch.ones(1, dtype=torch.bool,
+                                 device=sorted_plane.device),
+                      sorted_plane[1:] != sorted_plane[:-1]])
+
+
+class _WindowLayout:
+    """The sorted-space planes every window function reads: segment and
+    peer bounds (ends clamped to the live rows), segment ids, the
+    boundary flags, row positions and the live mask."""
+
+    def __init__(self, segb, peerb, num_rows: int):
+        cap = segb.shape[0]
+        self.seg_start, seg_end, self.peer_start, peer_end = \
+            W.segment_layout(segb, peerb)
+        self.seg_end = seg_end.clamp(max=max(num_rows - 1, 0))
+        self.peer_end = torch.minimum(peer_end, self.seg_end)
+        self.seg_id = torch.cumsum(segb.to(torch.int32), 0)
+        self.segb, self.peerb = segb, peerb
+        self.idx = torch.arange(cap, dtype=torch.int64, device=segb.device)
+        self.live = self.idx < num_rows
+
+
+class WindowExec(TorchExec):
+    """Window evaluation: one sort by the (partition, order) keys, then
+    every window function of the node as segmented scans
+    (``ops/window.py``). Two routes, as in the JAX package:
+
+    - packed: when every key packs into one int64 plane
+      (``_probe_pack_spec``) and every order key is an integer, date or
+      bool, one stable sort of the order-faithful packed plane; window
+      values are computed in sorted space and scattered back, so the
+      output keeps the input's row order, and data columns are gathered
+      only when a function reads them;
+    - general: ``lexsort_indices`` over the normalized keys; the whole
+      batch is gathered into sorted order, and the output stays in it.
+    """
+
+    def execute_partition(self, pidx):
+        batches = list(self.children[0].execute_partition(pidx))
+        if not batches:
+            return
+        batch = K.concat_batches(batches) if len(batches) > 1 else batches[0]
+        if batch.row_mask is not None:
+            batch = K.compact_batch(batch)
+        spec = self.plan.window_exprs[0].spec  # one spec per node
+        nparts = len(spec.partition_exprs)
+        key_exprs = list(spec.partition_exprs) + [o.expr
+                                                  for o in spec.order_specs]
+        if key_exprs:
+            ctx = self._ctx(batch)
+            kcols = [e.eval(ctx) for e in key_exprs]
+            raise_errors(ctx.errors)
+            pk, ranges, _ = _probe_pack_spec(kcols, batch.live_mask(),
+                                             key_exprs)
+            # dictionary codes are not value-ordered: they pack only as
+            # partition keys
+            if pk is not None and all(k in (R.KIND_INT, R.KIND_BOOL)
+                                      for k in pk.kinds[nparts:]):
+                yield self._packed(batch, kcols, pk, ranges)
+                return
+        yield self._general(batch)
+
+    def _packed(self, batch, kcols, pk, ranges) -> ColumnarBatch:
+        spec = self.plan.window_exprs[0].spec
+        nparts = len(spec.partition_exprs)
+        flags = [(True, True)] * nparts + [
+            (o.ascending, o.resolved_nulls_first()) for o in spec.order_specs]
+        nr = int(batch.num_rows)
+        live = batch.live_mask()
+        packed = R.pack_keys_sort(pk, kcols, ranges, live, flags)
+        sp, perm = torch.sort(packed, stable=True)
+        lay = _WindowLayout(_boundaries(sp >> sum(pk.bits[nparts:])),
+                            _boundaries(sp), nr)
+        sctx = EvalCtx([], nr, batch.capacity, self.device)
+        sctx.columns = K.LazyGatheredCols(batch.columns, perm, nr)
+        # one inverse permutation takes every result back to the input's
+        # row order
+        inv = torch.empty_like(perm)
+        inv[perm] = lay.idx
+        out_cols = list(batch.columns)
+        for w in self.plan.window_exprs:
+            out = K.gather_column(_eval_window_fn(w, sctx, lay), inv, nr)
+            out_cols.append(ColumnVector(out.dtype, out.data,
+                                         out.validity & live,
+                                         dict_unique=out.dict_unique))
+        return ColumnarBatch(out_cols, nr)
+
+    def _general(self, batch) -> ColumnarBatch:
+        spec = self.plan.window_exprs[0].spec
+        nr = int(batch.num_rows)
+        ctx = self._ctx(batch)
+        pnorm = [K.normalize_key(e.eval(ctx), nr)
+                 for e in spec.partition_exprs]
+        onorm = [K.normalize_key(o.expr.eval(ctx), nr)
+                 for o in spec.order_specs]
+        raise_errors(ctx.errors)
+        sort_keys = [(k, nl, True, True) for k, nl in pnorm]
+        sort_keys += [(k, nl, o.ascending, o.resolved_nulls_first())
+                      for (k, nl), o in zip(onorm, spec.order_specs)]
+        if sort_keys:
+            perm = K.lexsort_indices(sort_keys, nr)
+            sorted_cols = K.gather_batch(batch, perm, nr).columns
+        else:
+            sorted_cols = list(batch.columns)
+        segb = torch.zeros(batch.capacity, dtype=torch.bool,
+                           device=self.device)
+        segb[0] = True
+        for k, nl in pnorm:
+            segb = segb | _boundaries(k[perm]) | _boundaries(nl[perm])
+        peerb = segb
+        for k, nl in onorm:
+            peerb = peerb | _boundaries(k[perm]) | _boundaries(nl[perm])
+        lay = _WindowLayout(segb, peerb, nr)
+        sctx = EvalCtx(sorted_cols, nr, batch.capacity, self.device)
+        out_cols = list(sorted_cols)
+        for w in self.plan.window_exprs:
+            out_cols.append(_eval_window_fn(w, sctx, lay))
+        return ColumnarBatch(out_cols, nr)
+
+
+def _frame_end(frame, lay: _WindowLayout) -> torch.Tensor:
+    """The last row of each row's frame when the frame starts at the
+    partition's start."""
+    if frame.lower is None and frame.upper is None:
+        return lay.seg_end
+    if frame.upper != 0:
+        return lay.seg_end
+    return lay.peer_end if frame.kind == "range" else lay.idx
+
+
+def _eval_window_fn(w, sctx: EvalCtx, lay: _WindowLayout) -> ColumnVector:
+    """One window function over sorted rows."""
+    fn = w.fn
+    rt = fn.result_type()
+    live = lay.live
+    if isinstance(fn, WE.RowNumber):
+        return ColumnVector(rt, W.row_number(lay.seg_start), live)
+    if isinstance(fn, WE.Rank):
+        return ColumnVector(rt, W.rank(lay.seg_start, lay.peer_start), live)
+    if isinstance(fn, WE.DenseRank):
+        return ColumnVector(rt, W.dense_rank(lay.segb, lay.peerb,
+                                             lay.seg_start), live)
+    if isinstance(fn, WE.NTile):
+        return ColumnVector(rt, W.ntile(fn.n, lay.seg_start, lay.seg_end),
+                            live)
+    if isinstance(fn, WE.LeadLag):
+        src = fn.children[0].eval(sctx)
+        off = fn.offset if fn.is_lead else -fn.offset
+        svalid = src.validity if src.validity is not None else live
+        vals, valid = W.lead_lag(src.data, svalid, lay.seg_id, off)
+        if fn.default is not None:
+            in_seg = (lay.idx + off >= lay.seg_start) \
+                & (lay.idx + off <= lay.seg_end)
+            vals = torch.where(in_seg, vals, torch.full_like(vals,
+                                                             fn.default))
+            valid = valid | ~in_seg
+        return ColumnVector(src.dtype, vals, valid & live)
+    if isinstance(fn, WE.PercentRank):
+        n_seg = (lay.seg_end - lay.seg_start + 1).to(torch.float64)
+        rk = W.rank(lay.seg_start, lay.peer_start).to(torch.float64)
+        v = torch.where(n_seg > 1, (rk - 1.0) / torch.clamp(n_seg - 1.0,
+                                                            min=1.0), 0.0)
+        return ColumnVector(rt, v, live)
+    if isinstance(fn, WE.CumeDist):
+        n_seg = (lay.seg_end - lay.seg_start + 1).to(torch.float64)
+        v = (lay.peer_end - lay.seg_start + 1).to(torch.float64) / n_seg
+        return ColumnVector(rt, v, live)
+    if isinstance(fn, (WE.NthValue, WE.FirstValue, WE.LastValue)):
+        src = fn.children[0].eval(sctx)
+        svalid = src.validity if src.validity is not None else live
+        frame_end = _frame_end(w.spec.resolved_frame(), lay)
+        if isinstance(fn, WE.LastValue):
+            pos, ok = frame_end, live
+        elif isinstance(fn, WE.FirstValue):
+            pos, ok = lay.seg_start, live
+        else:
+            pos = lay.seg_start + (fn.n - 1)
+            ok = live & (pos <= frame_end)
+        cap = lay.idx.shape[0]
+        return K.gather_column(src, torch.where(ok, pos.clamp(0, cap - 1), -1),
+                               cap, src_live=svalid)
+    if isinstance(fn, WE.WindowAgg):
+        return _eval_window_agg(fn, w.spec.resolved_frame(), sctx, lay)
+    raise NotImplementedError(type(fn).__name__)
+
+
+def _eval_window_agg(fn, frame, sctx: EvalCtx,
+                     lay: _WindowLayout) -> ColumnVector:
+    """sum, count, count(*), avg, min or max over the frame: running
+    (from the partition's start) or unbounded frames by one segmented
+    cumsum or scan, other ROWS frames by prefix differences."""
+    agg = fn.fn
+    rt = agg.result_type()
+    live = lay.live
+    if agg.children:
+        src = agg.children[0].eval(sctx)
+        vals = src.data
+        svalid = (src.validity if src.validity is not None else live) & live
+    else:  # count(*)
+        vals = torch.ones_like(lay.idx)
+        svalid = live
+    unbounded = frame.lower is None and frame.upper is None
+    bounded_rows = frame.kind == "rows" and not unbounded and not (
+        frame.lower is None and frame.upper == 0)
+    fe = _frame_end(frame, lay)
+
+    def sum_count(v, valid):
+        if bounded_rows:
+            return W.bounded_sum_count(v, valid, lay.seg_start, lay.seg_end,
+                                       frame.lower, frame.upper)
+        return W.running_sum_count(v, valid, lay.seg_start, fe)
+
+    if isinstance(agg, (A.Min, A.Max)):
+        v, c = W.running_minmax("min" if isinstance(agg, A.Min) else "max",
+                                vals, svalid, lay.seg_start, fe)
+        return ColumnVector(rt, v.to(rt.torch_dtype), (c > 0) & live)
+    if isinstance(agg, A.CountAll):
+        cnt, _ = sum_count(torch.ones_like(lay.idx), live)
+        return ColumnVector(T.INT64, cnt, live)
+    if isinstance(agg, A.Average):
+        s, c = sum_count(vals.to(torch.float64), svalid)
+        return ColumnVector(rt, s / torch.clamp(c, min=1), (c > 0) & live)
+    if not vals.is_floating_point():
+        vals = vals.to(torch.int64)
+    s, c = sum_count(vals, svalid)
+    if isinstance(agg, A.Count):
+        return ColumnVector(T.INT64, c, live)
+    if isinstance(agg, A.Sum):
+        return ColumnVector(rt, s.to(rt.torch_dtype), (c > 0) & live)
+    raise NotImplementedError(type(agg).__name__)
+
 # ---------------------------------------------------------------------------
 # Hash joins
 # ---------------------------------------------------------------------------
@@ -1861,3 +2104,144 @@ class ShuffledHashJoinExec(_HashJoinBase):
         yield from self._probe_stream(
             self.children[0].execute_partition(pidx), build, build_keys,
             self.plan.how in ("right", "full"))
+
+
+# ---------------------------------------------------------------------------
+# Nested-loop and cartesian joins
+# ---------------------------------------------------------------------------
+
+class _WholeBuildJoin(TorchExec):
+    """A join whose build side (the right child) is every partition of it
+    concatenated and compacted, once, under a lock, and shared by every
+    probe partition."""
+
+    def __init__(self, plan, children, conf, device):
+        super().__init__(plan, children, conf, device)
+        self._build_lock = threading.Lock()
+        self._build: Optional[ColumnarBatch] = None
+
+    def _build_side(self) -> ColumnarBatch:
+        with self._build_lock:
+            if self._build is None:
+                right = self.children[1]
+                batches = [b for p in range(right.num_partitions)
+                           for b in right.execute_partition(p)]
+                self._build = K.compact_batch(K.concat_batches(batches)) \
+                    if batches else _empty_batch(self.plan.children[1].schema,
+                                                 self.device)
+        return self._build
+
+
+def _masked(cols, live) -> ColumnarBatch:
+    return ColumnarBatch(cols, LazyRowCount(live.sum(dtype=torch.int32)), live)
+
+
+class BroadcastNestedLoopJoinExec(_WholeBuildJoin):
+    """Non-equi joins: each left batch meets the build side one tile of
+    build rows at a time, ``tile_rows = max(1, min(build capacity,
+    MAX_PAIRS // left capacity))``. The condition runs over the tile's
+    pair batch, which inner and outer joins emit as a masked batch; the
+    matched flags of both sides accumulate, and then left and full joins
+    emit the unmatched left rows with null right columns, semi and anti
+    joins the left rows by their flag, and right and full joins, after
+    the last left batch, the unmatched build rows (the planner gives them
+    a single left partition). With one build row per tile the left
+    columns are the pair batch's as they are, without a gather."""
+
+    MAX_PAIRS = 1 << 20
+
+    def execute_partition(self, pidx):
+        how = self.plan.how
+        build = self._build_side()
+        n_build = int(build.num_rows)
+        bcap = max(build.capacity, 1)
+        bmatched = torch.zeros(bcap, dtype=torch.bool, device=self.device)
+        for left in self.children[0].execute_partition(pidx):
+            lcap = max(left.capacity, 1)
+            tile = max(1, min(bcap, self.MAX_PAIRS // lcap))
+            llive = left.live_mask()
+            lmatched = torch.zeros(lcap, dtype=torch.bool, device=self.device)
+            for t0 in range(0, n_build, tile):
+                cols, match = self._tile(left, llive, build, n_build, t0,
+                                         tile)
+                # pair p is (left row p // tile, build row t0 + p % tile)
+                grid = match.view(lcap, tile)
+                lmatched |= grid.any(1)
+                end = min(t0 + tile, bcap)
+                bmatched[t0:end] |= grid.any(0)[:end - t0]
+                if how in ("inner", "left", "right", "full"):
+                    yield _masked(cols, match)
+            if how in ("left", "full"):
+                nulls = [_null_column(f.dtype, lcap, self.device)
+                         for f in self.plan.children[1].schema.fields]
+                yield _masked(list(left.columns) + nulls, llive & ~lmatched)
+            elif how == "left_semi":
+                yield _masked(list(left.columns), llive & lmatched)
+            elif how == "left_anti":
+                yield _masked(list(left.columns), llive & ~lmatched)
+        if how in ("right", "full") and n_build > 0:
+            nulls = [_null_column(f.dtype, bcap, self.device)
+                     for f in self.plan.children[0].schema.fields]
+            yield _masked(nulls + list(build.columns),
+                          build.live_mask() & ~bmatched)
+
+    def _tile(self, left, llive, build, n_build: int, t0: int, tile: int):
+        """The pair batch of a left batch and build rows [t0, t0 + tile),
+        and the pairs the condition keeps."""
+        lcap = left.capacity
+        if tile == 1:
+            lcols = list(left.columns)
+            live_pair = llive
+            bidx = torch.full((lcap,), t0, dtype=torch.int64,
+                              device=self.device)
+        else:
+            p = torch.arange(lcap * tile, dtype=torch.int64,
+                             device=self.device)
+            lidx = p // tile
+            lcols = [K.gather_column(c, lidx, left.num_rows, src_live=llive)
+                     for c in left.columns]
+            bidx = t0 + p % tile
+            live_pair = llive[lidx] & (bidx < n_build)
+        bsafe = bidx.clamp(max=build.capacity - 1)
+        cols = lcols + [K.gather_column(c, bsafe, build.num_rows)
+                        for c in build.columns]
+        cond = self.plan.condition
+        if cond is None:
+            return cols, live_pair
+        ctx = EvalCtx(cols, LazyRowCount(live_pair.sum(dtype=torch.int32)),
+                      live_pair.shape[0], self.device,
+                      self.conf.get(C.ANSI_ENABLED), live=live_pair)
+        pred = cond.eval(ctx)
+        raise_errors(ctx.errors)
+        match = live_pair & pred.data.to(torch.bool)
+        if pred.validity is not None:
+            match = match & pred.validity
+        return cols, match
+
+
+class CartesianProductExec(_WholeBuildJoin):
+    """Cross joins: per left batch (compacted), the pairs r // nb and
+    r % nb over round_capacity(n) rows (``_pair_batch``), with the
+    optional condition as a filter on the selection mask."""
+
+    def execute_partition(self, pidx):
+        build = self._build_side()
+        nb = int(build.num_rows)
+        for probe in self.children[0].execute_partition(pidx):
+            if probe.row_mask is not None:
+                probe = K.compact_batch(probe)
+            n = int(probe.num_rows) * nb
+            if n == 0:
+                continue
+            r = torch.arange(round_capacity(n), dtype=torch.int64,
+                             device=self.device)
+            out = _pair_batch(probe, build, torch.where(r < n, r // nb, -1),
+                              torch.where(r < n, r % nb, -1), n)
+            if self.plan.condition is not None:
+                ctx = self._ctx(out)
+                pred = self.plan.condition.eval(ctx)
+                raise_errors(ctx.errors)
+                out = K.mask_filter_batch(
+                    out, pred.data.to(torch.bool)
+                    & pred.validity_or_default(n))
+            yield out

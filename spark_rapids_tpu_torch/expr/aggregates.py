@@ -1,6 +1,7 @@
 """Aggregate function descriptors: sum, count, avg, min, max.
 
-Counterpart of ``spark_rapids_tpu/expr/aggregates.py``. Each function
+Counterpart of ``spark_rapids_tpu/expr/aggregates.py``; ``over(spec)``
+makes a window aggregate (``expr/window.py``). Each function
 declares its partial state columns (``state_schema``), the reduction that
 builds each state from input rows (``update_ops``), the reduction that
 merges partial states (``merge_ops``), and the final projection
@@ -47,6 +48,11 @@ class AggFunction:
 
     def alias(self, name: str) -> "NamedAgg":
         return NamedAgg(self, name)
+
+    def over(self, spec):
+        """agg OVER a window spec (pyspark's ``F.sum(c).over(w)``)."""
+        from spark_rapids_tpu_torch.expr.window import over
+        return over(self, spec)
 
     def __repr__(self):
         return self.fingerprint()

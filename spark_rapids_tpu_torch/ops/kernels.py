@@ -4,7 +4,7 @@ tensors.
 Counterpart of ``spark_rapids_tpu/ops/kernels.py`` (murmur3 family,
 ``spark_hash_column``, ``partition_hash_batch``, ``normalize_key``,
 ``string_chunk_count``, ``string_chunk_keys``, ``lexsort_indices``,
-``gather_*``, ``flat_string_as_dict``, ``filter_indices``,
+``gather_*``, ``LazyGatheredCols``, ``flat_string_as_dict``, ``filter_indices``,
 ``mask_filter_batch``, ``compact_batch``, ``slice_batch``,
 ``concat_batches``, and ``expand_ranges`` in two forms: per-row lengths,
 and the JAX package's join form over [lo, hi) ranges,
@@ -364,6 +364,31 @@ def flat_string_as_dict(col: ColumnVector) -> ColumnVector:
                               device=col.device),
         "dict_offsets": col.data["offsets"],
         "dict_bytes": col.data["bytes"]}, col.validity, dict_unique=False)
+
+
+class LazyGatheredCols:
+    """A column list that gathers each source column by a shared index
+    plane on its first access, and keeps the result: window functions
+    evaluate over sorted row order, where most columns are never read."""
+
+    def __init__(self, cols, indices, num_rows):
+        self._cols = cols
+        self._idx = indices
+        self._rows = num_rows
+        self._cache = {}
+
+    def __len__(self):
+        return len(self._cols)
+
+    def __getitem__(self, i):
+        out = self._cache.get(i)
+        if out is None:
+            out = gather_column(self._cols[i], self._idx, self._rows)
+            self._cache[i] = out
+        return out
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self._cols)))
 
 
 def gather_batch(batch: ColumnarBatch, indices: torch.Tensor,

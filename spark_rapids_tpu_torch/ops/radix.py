@@ -1,7 +1,8 @@
 """Range-compressed packed keys and the scatter-bucket reductions.
 
 Counterpart of ``spark_rapids_tpu/ops/radix.py`` (``PackSpec``,
-``probe_ranges``, ``plan_packing``, ``pack_keys``, ``unpack_keys``,
+``probe_ranges``, ``plan_packing``, ``pack_keys``, the order-faithful
+``pack_keys_sort`` of the window's packed route, ``unpack_keys``,
 ``_exponent_scale``, ``bucket_layout`` with the ``bucket_*`` reductions,
 and ``group_layout`` with the ``seg_*`` reductions). All group keys pack
 into one int64 plane: per key, ``code = value - min + 1`` in ``bits``
@@ -132,6 +133,39 @@ def pack_keys(spec: PackSpec, key_cols: Sequence[ColumnVector],
         if c.validity is not None:
             code = torch.where(c.validity, code, 0)
         packed = (packed << b) | code.clamp(0, (1 << b) - 1)
+    return torch.where(live, packed, _SENTINEL)
+
+
+def pack_keys_sort(spec: PackSpec, key_cols: Sequence[ColumnVector],
+                   mins: torch.Tensor, live: torch.Tensor,
+                   flags: Sequence[Tuple[bool, bool]]) -> torch.Tensor:
+    """The order-faithful ``pack_keys``: per key, (ascending, nulls_first)
+    sets the field's encoding, so an ascending sort of the plane is the
+    requested lexicographic order. Dictionary codes are not value-ordered,
+    so callers put dictionary keys only in grouping positions, with
+    (True, True), where any consistent order will do."""
+    packed = torch.zeros(live.shape[0], dtype=torch.int64, device=live.device)
+    for i, (c, kind, b, (asc, nf)) in enumerate(
+            zip(key_cols, spec.kinds, spec.bits, flags)):
+        if kind == KIND_DICT:
+            v = c.data["codes"].to(torch.int64)
+            lo, hi = 0, max(int(c.dict_size) - 1, 0)
+        elif kind == KIND_BOOL:
+            v = c.data.to(torch.int64)
+            lo, hi = 0, 1
+        else:
+            v = c.data.to(torch.int64)
+            lo, hi = mins[2 * i], mins[2 * i + 1]
+        span_max = (1 << b) - 2
+        code = ((v - lo) if asc else (hi - v)).clamp(0, span_max)
+        if nf:
+            code = code + 1
+            null_code = 0
+        else:
+            null_code = span_max + 1
+        if c.validity is not None:
+            code = torch.where(c.validity, code, null_code)
+        packed = (packed << b) | code
     return torch.where(live, packed, _SENTINEL)
 
 

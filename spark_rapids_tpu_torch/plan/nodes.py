@@ -3,7 +3,8 @@
 Counterpart of ``spark_rapids_tpu/plan/nodes.py`` for the nodes this
 engine runs: ``InMemorySource``, ``ParquetScan``, ``CachedRelation`` (the
 ``df.cache()`` marker), ``Project``, ``Filter``, ``Aggregate``,
-``Repartition``, ``Sort`` (with ``SortOrder``), ``Limit`` and ``Join``.
+``Repartition``, ``Sort`` (with ``SortOrder``), ``Limit``, ``Join`` and
+``WindowNode``.
 """
 from __future__ import annotations
 
@@ -50,9 +51,10 @@ class PlanNode:
         return None
 
 
-def bind_expr(e: Expression, schema: T.Schema) -> Expression:
-    """Resolve Col names to BoundRefs against a child schema: an exact
-    match first, then a case-insensitive one (Spark's default)."""
+def make_binder(schema: T.Schema):
+    """The node function of ``bind_expr``: a Col becomes a BoundRef, an
+    exact name match first, then a case-insensitive one (Spark's
+    default)."""
     def binder(node):
         if isinstance(node, Col):
             for i, f in enumerate(schema.fields):
@@ -64,7 +66,12 @@ def bind_expr(e: Expression, schema: T.Schema) -> Expression:
             raise KeyError(f"column {node.name!r} not found in "
                            f"{schema.names}")
         return node
-    return e.transform(binder)
+    return binder
+
+
+def bind_expr(e: Expression, schema: T.Schema) -> Expression:
+    """Resolve Col names to BoundRefs against a child schema."""
+    return e.transform(make_binder(schema))
 
 
 def expr_name(e: Expression, idx: int) -> str:
@@ -210,6 +217,41 @@ class Sort(PlanNode):
     @property
     def schema(self):
         return self.children[0].schema
+
+
+class WindowNode(PlanNode):
+    """Appends one column per window expression to the child's schema.
+    The expressions of one node share one spec (``DataFrame.select``
+    makes a node per spec and chains them)."""
+
+    def __init__(self, window_exprs, names: List[str], child: PlanNode):
+        from spark_rapids_tpu_torch.expr.window import WindowExpr, WindowSpec
+        self.children = [child]
+        self.names = names
+        binder = make_binder(child.schema)
+        bound = []
+        for w in window_exprs:
+            spec = w.spec
+            if w.fn.needs_order and not spec.order_specs:
+                # Spark raises AnalysisException: over an arbitrary order
+                # the result would be meaningless
+                raise ValueError(
+                    f"{type(w.fn).__name__} requires the window to be "
+                    f"ordered (add ORDER BY to the window spec)")
+            bspec = WindowSpec(
+                [bind_expr(e, child.schema) for e in spec.partition_exprs],
+                [SortOrder(bind_expr(o.expr, child.schema), o.ascending,
+                           o.nulls_first) for o in spec.order_specs],
+                spec.frame)
+            bound.append(WindowExpr(w.fn.transform(binder), bspec))
+        self.window_exprs = bound
+
+    @property
+    def schema(self):
+        fields = list(self.children[0].schema.fields)
+        for w, n in zip(self.window_exprs, self.names):
+            fields.append(T.StructField(n, w.fn.result_type()))
+        return T.Schema(tuple(fields))
 
 
 class Limit(PlanNode):

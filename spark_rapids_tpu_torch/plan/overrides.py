@@ -9,13 +9,17 @@ kernel, substring, concat, startswith/endswith/contains, transpilable
 LIKE, string equality), hash and round-robin repartition, the hash
 aggregate with its tiny-bucket, packed (scatter, segsum, sort) and sort
 routes (string and float keys group by sorting), sort (a range exchange
-first over several partitions), limit and TopN, and equi-joins of every
-type, broadcast or shuffled as the JAX package plans them with adaptive
-execution off. Everything runs on one device: there is no tagging and no
-CPU fallback yet, so a node without a conversion raises
-``NotImplementedError`` naming the JAX package's operator (cross and
-non-equi joins), and so does an expression the device cannot run (a
-LIKE pattern that needs the NFA, a string ordering comparison).
+first over several partitions), limit and TopN, window functions (a hash
+exchange on the partition keys, or a collect when there are none, below
+``WindowExec``), equi-joins of every type, broadcast or shuffled as the
+JAX package plans them with adaptive execution off, non-equi joins
+(``BroadcastNestedLoopJoinExec``) and cross joins
+(``CartesianProductExec``). Everything runs on one device: there is no
+tagging and no CPU fallback yet, so what the JAX package would run on the
+CPU raises ``NotImplementedError`` with its reason (a window ORDER BY on
+strings, string window operands, bounded-rows min/max, ...), and so does
+an expression the device cannot run (a LIKE pattern that needs the NFA, a
+string ordering comparison).
 """
 from __future__ import annotations
 
@@ -68,7 +72,58 @@ def _convert(plan: P.PlanNode, conf, device) -> X.TorchExec:
         return _convert_sort(plan, children[0], conf, device)
     if isinstance(plan, P.Join):
         return _convert_join(plan, children, conf, device)
+    if isinstance(plan, P.WindowNode):
+        return _convert_window(plan, children[0], conf, device)
     raise NotImplementedError(type(plan).__name__)
+
+
+def _window_fallbacks(plan) -> List[str]:
+    """What the JAX package's ``_tag_window`` sends to the CPU, with its
+    reasons."""
+    from spark_rapids_tpu_torch.expr import aggregates as A
+    from spark_rapids_tpu_torch.expr import window as WE
+    reasons = []
+    for w in plan.window_exprs:
+        spec, fn = w.spec, w.fn
+        if any(isinstance(o.expr.data_type(), T.StringType)
+               for o in spec.order_specs):
+            reasons.append("window ORDER BY on strings needs host sort")
+        if any(isinstance(c.data_type(), T.StringType) for c in fn.children):
+            reasons.append("string-typed window operands run on CPU (device "
+                           "window kernels are fixed-width planes)")
+        frame = spec.resolved_frame()
+        if isinstance(fn, (WE.NthValue, WE.FirstValue, WE.LastValue)) and (
+                frame.lower is not None or frame.upper not in (0, None)):
+            reasons.append(f"{type(fn).__name__} supports only "
+                           f"unbounded-preceding frames ending at the "
+                           f"current row or partition end")
+        if isinstance(fn, WE.WindowAgg):
+            if not isinstance(fn.fn, (A.Sum, A.Count, A.CountAll, A.Min,
+                                      A.Max, A.Average)):
+                reasons.append(f"{type(fn.fn).__name__} not supported in "
+                               f"window frames on device")
+            bounded_rows = frame.kind == "rows" and not (
+                frame.lower is None and frame.upper in (0, None))
+            if bounded_rows and isinstance(fn.fn, (A.Min, A.Max)):
+                reasons.append("bounded-rows min/max window not yet on "
+                               "device (needs a sliding-extrema kernel)")
+    return reasons
+
+
+def _convert_window(plan, child, conf, device):
+    reasons = _window_fallbacks(plan)
+    if reasons:
+        raise NotImplementedError("WindowExec: " + "; ".join(reasons))
+    if child.num_partitions > 1:
+        # equal partition keys must meet in one partition
+        spec = plan.window_exprs[0].spec
+        if spec.partition_exprs:
+            child = X.ShuffleExchangeExec(plan, [child], conf, device,
+                                          spec.partition_exprs,
+                                          child.num_partitions)
+        else:
+            child = X.CollectExchangeExec(plan, [child], conf, device)
+    return X.WindowExec(plan, [child], conf, device)
 
 
 #: ORDER BY + LIMIT n takes TopN up to this n
@@ -122,17 +177,22 @@ def _common_keys(plan):
 
 
 def _convert_join(plan, children, conf, device):
-    """The JAX package's join planning with adaptive execution off: a
-    build side (the right) estimated at most
+    """The JAX package's join planning with adaptive execution off: cross
+    joins take the cartesian product, joins without equi keys the nested
+    loop; otherwise a build side (the right) estimated at most
     spark.rapids.sql.join.broadcastRowThreshold rows broadcasts; a larger
     one under a multi-partition probe hash-exchanges both sides."""
     left, right = children
     if plan.how == "cross":
-        raise NotImplementedError("CartesianProductExec (cross join) is not "
-                                  "ported yet")
+        return X.CartesianProductExec(plan, [left, right], conf, device)
     if not plan.left_keys:
-        raise NotImplementedError("BroadcastNestedLoopJoinExec (non-equi "
-                                  "join) is not ported yet")
+        # a non-equi join: the nested loop over the whole build side;
+        # right and full joins emit the unmatched build rows once, after
+        # a single left partition
+        if plan.how in ("right", "full") and left.num_partitions > 1:
+            left = X.CollectExchangeExec(plan, [left], conf, device)
+        return X.BroadcastNestedLoopJoinExec(plan, [left, right], conf,
+                                             device)
     est = plan.children[1].estimated_rows()
     small = est is not None and est <= conf.get(
         C.BROADCAST_JOIN_ROW_THRESHOLD)

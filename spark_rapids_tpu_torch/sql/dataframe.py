@@ -1,13 +1,16 @@
 """DataFrame API over the plan nodes (counterpart of
-``spark_rapids_tpu/sql/dataframe.py``): ``select``, ``with_column``,
-``filter``, ``group_by(...).agg(...)``, ``agg``, ``order_by`` (``orderBy``,
-``sort``), ``limit``, ``join``, ``repartition``, ``cache``, ``count``,
-``collect`` and ``to_pydict``."""
+``spark_rapids_tpu/sql/dataframe.py``): ``select`` (which hoists window
+expressions into ``WindowNode``s), ``with_column``, ``filter``,
+``group_by(...).agg(...)``, ``agg``, ``order_by`` (``orderBy``, ``sort``),
+``limit``, ``join``, ``repartition``, ``cache``, ``distinct``,
+``drop_duplicates`` (``dropDuplicates``), ``count``, ``collect`` and
+``to_pydict``."""
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 from spark_rapids_tpu_torch.expr import core as E
+from spark_rapids_tpu_torch.expr import window as WE
 from spark_rapids_tpu_torch.expr.aggregates import (
     AggFunction, CountAll, NamedAgg,
 )
@@ -35,9 +38,39 @@ class DataFrame:
     def columns(self) -> List[str]:
         return self.plan.schema.names
 
+    def _extract_windows(self, exprs):
+        """Hoist the window expressions of a projection into WindowNodes
+        below it, one per spec (Catalyst's ExtractWindowExpressions). A
+        bare window expression is named after its function."""
+        found = []
+
+        def repl(node):
+            if isinstance(node, WE.WindowExpr):
+                name = f"__w{len(found)}"
+                found.append((node, name))
+                return E.col(name)
+            return node
+
+        new_exprs = []
+        for e in exprs:
+            if isinstance(e, WE.WindowExpr):
+                new_exprs.append(E.Alias(repl(e), type(e.fn).__name__.lower()))
+            else:
+                new_exprs.append(e.transform(repl))
+        if not found:
+            return exprs, self.plan
+        plan = self.plan
+        groups = {}
+        for w, name in found:
+            groups.setdefault(w.spec.fingerprint(), []).append((w, name))
+        for items in groups.values():
+            plan = P.WindowNode([w for w, _ in items], [n for _, n in items],
+                                plan)
+        return new_exprs, plan
+
     def select(self, *exprs) -> "DataFrame":
-        return DataFrame(P.Project([_e(x) for x in exprs], self.plan),
-                         self.session)
+        es, plan = self._extract_windows([_e(x) for x in exprs])
+        return DataFrame(P.Project(es, plan), self.session)
 
     def with_column(self, name: str, expr) -> "DataFrame":
         keep = [E.col(n) for n in self.plan.schema.names
@@ -128,6 +161,28 @@ class DataFrame:
 
     def to_pydict(self):
         return self.collect().to_pydict()
+
+    def distinct(self) -> "DataFrame":
+        keys = [E.col(n) for n in self.plan.schema.names]
+        return DataFrame(P.Aggregate(keys, [], self.plan), self.session)
+
+    def drop_duplicates(self, subset: Optional[List[str]] = None
+                        ) -> "DataFrame":
+        """One whole input row per distinct ``subset`` key (all columns
+        when no subset is given): a row_number over the key, ordered by a
+        constant, keeps an arbitrary row of each."""
+        if not subset:
+            return self.distinct()
+        from spark_rapids_tpu_torch.sql import functions as F
+        names = self.plan.schema.names
+        spec = WE.Window.partition_by(*[E.col(c) for c in subset]) \
+            .order_by(E.lit(1))
+        marked = self.select(*[E.col(n) for n in names],
+                             F.row_number().over(spec).alias("__rn"))
+        return (marked.filter(E.col("__rn") == E.lit(1))
+                .select(*[E.col(n) for n in names]))
+
+    dropDuplicates = drop_duplicates
 
     def count(self) -> int:
         plan = P.Aggregate([], [NamedAgg(CountAll(), "count")], self.plan)

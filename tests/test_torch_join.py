@@ -7,7 +7,9 @@ Three levels, each on the same seeded inputs through both packages:
 - every join type through the DataFrame front door on the broadcast, the
   shuffled (threshold 0, 4 partitions) and the sub-partitioned
   strategies, with a join condition, the ``on="k"`` key dedupe, and the
-  unique-key mask-through probe;
+  unique-key mask-through probe; cross joins with and without a
+  condition, and non-equi joins of every type over one, several and
+  single-row build tiles;
 - bench.py's q3join whole, and the operators both packages plan.
 
 Everything compares exactly: join results hold no float arithmetic, and
@@ -335,18 +337,79 @@ def test_unique_build_keys_probe_through_the_mask(how, monkeypatch):
 
 @pytest.mark.parametrize("kind", ["cross", "non_equi"])
 def test_unported_joins_raise_naming_the_jax_exec(kind):
-    P = torch_api()
+    """The joins without equi keys now plan the JAX package's operator of
+    the same name, and agree with it."""
+    out = []
+    for api in (torch_api(), jax_api()):
+        left, right = _sides()
+        s = api.session(ADAPTIVE_OFF)
+        dl = s.create_dataframe(left)
+        dr = s.create_dataframe(right).select(api.col("k").alias("rk"))
+        if kind == "cross":
+            df, name = dl.join(dr, how="cross"), "CartesianProductExec"
+        else:
+            df, name = dl.join(dr, on=api.col("k") < api.col("rk")), \
+                "BroadcastNestedLoopJoinExec"
+        out.append((df.collect(), s))
+    (got, ps), (want, _) = out
+    assert name in {type(n).__name__ for n in ps.last_exec.walk()}
+    assert_tables_equal(got, want, ignore_order=True)
+
+
+def _without_keys(api, how, parts, cond=True):
+    """A join of ``_sides()`` with no equi key: a condition over both
+    sides' columns (nulls in k included), or none."""
     left, right = _sides()
-    s = P.session()
-    dl = s.create_dataframe(left)
-    dr = s.create_dataframe(right).select(P.col("k").alias("rk"))
-    if kind == "cross":
-        df, name = dl.join(dr, how="cross"), "CartesianProductExec"
-    else:
-        df, name = dl.join(dr, on=P.col("k") < P.col("rk")), \
-            "BroadcastNestedLoopJoinExec"
-    with pytest.raises(NotImplementedError, match=name):
-        df.collect()
+    col = api.col
+    s = api.session(ADAPTIVE_OFF)
+    dl = s.create_dataframe(left, num_partitions=parts)
+    dr = s.create_dataframe(right).select(col("k").alias("rk"), col("t"),
+                                          col("rv"))
+    on = (col("k") < col("rk")) & (col("lv") > col("rv") + api.lit(40))
+    if how == "cross" and not cond:
+        return s, dl.join(dr, how="cross")
+    if how == "cross":  # the DataFrame API has no cross join condition
+        from spark_rapids_tpu.plan import nodes as JP
+        from spark_rapids_tpu_torch.plan import nodes as TP
+        nodes = TP if isinstance(dl.plan, TP.PlanNode) else JP
+        return s, type(dl)(nodes.Join(dl.plan, dr.plan, [], [], "cross",
+                                      on), s)
+    return s, dl.join(dr, on=on, how=how)
+
+
+#: BroadcastNestedLoopJoinExec.MAX_PAIRS -> build rows per tile against
+#: the 1024-row left capacity: the default (the whole build), 100 rows,
+#: and one row, where the left columns join without a gather
+TILES = {"whole_build": None, "tile_100": 1024 * 100, "tile_1": 1024}
+
+
+@pytest.mark.parametrize("tile", list(TILES))
+@pytest.mark.parametrize("how", HOWS)
+def test_non_equi_joins_match_jax(how, tile, monkeypatch):
+    if TILES[tile] is not None:
+        monkeypatch.setattr(X.BroadcastNestedLoopJoinExec, "MAX_PAIRS",
+                            TILES[tile])
+    # right and full joins collect a multi-partition left side first
+    parts = 4 if how in ("right", "full") else 1
+    ps, pdf = _without_keys(torch_api(), how, parts)
+    got = pdf.collect()
+    want = _jax_result(("non_equi", how),
+                       lambda: _without_keys(jax_api(), how, parts)[1])
+    assert_tables_equal(got, want, ignore_order=True)
+    names = {type(n).__name__ for n in ps.last_exec.walk()}
+    assert "BroadcastNestedLoopJoinExec" in names
+    assert ("CollectExchangeExec" in names) == (parts > 1)
+
+
+@pytest.mark.parametrize("cond", [False, True], ids=["plain", "condition"])
+def test_cross_joins_match_jax(cond):
+    ps, pdf = _without_keys(torch_api(), "cross", 4, cond)
+    got = pdf.collect()
+    want = _without_keys(jax_api(), "cross", 4, cond)[1].collect()
+    assert_tables_equal(got, want, ignore_order=True)
+    assert got.num_rows == (700 * 300 if not cond else want.num_rows) > 0
+    assert "CartesianProductExec" in {type(n).__name__
+                                      for n in ps.last_exec.walk()}
 
 
 # ---------------------------------------------------------------------------

@@ -241,15 +241,18 @@ def test_with_column_count_and_ansi_divide(lineitem):
 def test_routes_not_ported_yet_raise_with_their_name(lineitem):
     P = torch_api()
     df = P.session().create_dataframe(lineitem.slice(0, 1000))
-    with pytest.raises(NotImplementedError, match="CartesianProductExec"):
-        df.join(df, how="cross").collect()
+    # a window the JAX package would run on the CPU
+    w = P.Window.partition_by(P.col("l_linestatus")) \
+        .order_by(P.col("l_returnflag"))
+    with pytest.raises(NotImplementedError, match="WindowExec"):
+        df.select(P.F.rank().over(w)).collect()
     masked = P.session({"spark.rapids.shuffle.partitioning": "masked"})
     with pytest.raises(NotImplementedError, match="masked"):
         masked.create_dataframe(lineitem.slice(0, 1000)) \
             .repartition(4, P.col("l_shipdate")).collect()
-    # two routes that raised before they were ported, the packed sort
-    # route (keys packing into more than 23 bits) and the round-robin
-    # exchange, now match the JAX package
+    # routes that raised before they were ported, the packed sort route
+    # (keys packing into more than 23 bits), the round-robin exchange and
+    # the cross join, now match the JAX package
     J = jax_api()
     got = []
     for api in (P, J):
@@ -258,9 +261,11 @@ def test_routes_not_ported_yet_raise_with_their_name(lineitem):
             d.select((api.col("l_orderkey") * api.lit(100_000)).alias("k"),
                      api.col("l_quantity"))
             .group_by(api.col("k")).agg(api.F.count("l_quantity")).collect(),
-            d.repartition(4).collect()))
+            d.repartition(4).collect(),
+            d.limit(30).join(d.limit(20), how="cross").collect()))
     assert_tables_equal(got[0][0], got[1][0], ignore_order=True)
     assert_tables_equal(got[0][1], got[1][1])
+    assert_tables_equal(got[0][2], got[1][2], ignore_order=True)
 
 
 def test_conf_keys_and_defaults_match_jax():

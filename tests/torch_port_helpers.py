@@ -1,12 +1,14 @@
 """Shared helpers of the PyTorch port's parity tests (tests/test_torch_*.py).
 
 The table generators (bench.py's lineitem and orders, the customers, the
-flag dimension, lineitem_text) and the query shapes of the port's slices
-(four of the first, three string shapes of the third, the join and sort
-shapes of the fourth) are written once against a package namespace, so
-the same program runs through ``spark_rapids_tpu`` (the reference) and
-``spark_rapids_tpu_torch``; ``chip_smoke.py`` runs the same generators,
-string shapes and join and sort shapes on the card. At import this module
+flag dimension, the price bands, lineitem_text) and the query shapes of
+the port's slices (four of the first, three string shapes of the third,
+the join and sort shapes of the fourth, the window shapes and the
+nested-loop and cross joins of the fifth) are written once against a
+package namespace, so the same program runs through ``spark_rapids_tpu``
+(the reference) and ``spark_rapids_tpu_torch``; ``chip_smoke.py`` runs the
+same generators, string shapes, join and sort shapes and window shapes on
+the card. At import this module
 needs numpy and pyarrow only.
 ``from_jax_batch`` rebuilds a JAX package batch as a torch batch, so single
 operations can be compared on identical inputs.
@@ -148,19 +150,33 @@ def make_lineitem_text(rows: int, seed: int = 42) -> pa.Table:
     return lineitem_text(make_lineitem(rows, seed), seed + 1)
 
 
+#: the price bands: BAND_COUNT half-open [lo, hi) ranges over
+#: l_extendedprice's [900, 105000)
+BAND_COUNT, BAND_LO, BAND_HI = 20, 900.0, 105000.0
+
+
+def make_bands() -> pa.Table:
+    width = (BAND_HI - BAND_LO) / BAND_COUNT
+    lo = BAND_LO + width * np.arange(BAND_COUNT)
+    return pa.table({"band": np.arange(BAND_COUNT, dtype=np.int32),
+                     "lo": lo, "hi": lo + width})
+
+
 def jax_api() -> SimpleNamespace:
     from spark_rapids_tpu.expr.core import col, lit
+    from spark_rapids_tpu.expr.window import Window
     from spark_rapids_tpu.sql import functions as F
     from spark_rapids_tpu.sql.session import TpuSession
-    return SimpleNamespace(col=col, lit=lit, F=F,
+    return SimpleNamespace(col=col, lit=lit, F=F, Window=Window,
                            session=lambda conf=None: TpuSession(conf))
 
 
 def torch_api() -> SimpleNamespace:
     from spark_rapids_tpu_torch import TorchSession
     from spark_rapids_tpu_torch.expr.core import col, lit
+    from spark_rapids_tpu_torch.expr.window import Window
     from spark_rapids_tpu_torch.sql import functions as F
-    return SimpleNamespace(col=col, lit=lit, F=F,
+    return SimpleNamespace(col=col, lit=lit, F=F, Window=Window,
                            session=lambda conf=None: TorchSession(
                                conf, device="cpu"))
 
@@ -331,6 +347,123 @@ def sort_rows(api, li):
 def limit_rows(api, li, n=1000):
     col, lit = api.col, api.lit
     return li.filter(col("l_quantity") < lit(2.0)).limit(n)
+
+
+def band_join(api, li, bands):
+    """Lineitem joined to the price bands on lo <= price < hi, with no
+    equi key (the nested-loop join), then lines and quantity per band."""
+    col, F = api.col, api.F
+    on = (col("l_extendedprice") >= col("lo")) \
+        & (col("l_extendedprice") < col("hi"))
+    return (li.join(bands, on=on).group_by(col("band"))
+            .agg(F.count().alias("n"), F.sum(col("l_quantity")).alias("q")))
+
+
+def flag_cross(api, li, dim):
+    """The flag dimension cross joined with a few lineitem rows, then
+    pairs per label."""
+    col, lit, F = api.col, api.lit, api.F
+    few = li.filter((col("l_quantity") < lit(2.0))
+                    & (col("l_shipdate") < lit(8500)))
+    return (dim.join(few, how="cross").group_by(col("d_label"))
+            .agg(F.count().alias("n")))
+
+
+# ---------------------------------------------------------------------------
+# the window shapes
+# ---------------------------------------------------------------------------
+
+FLAGS = ("l_returnflag", "l_linestatus")
+
+
+def q67win(api, df):
+    """bench.py's q67win: rank by ship date within each flag pair, then
+    the largest rank per pair."""
+    col, F = api.col, api.F
+    w = api.Window.partition_by(col("l_returnflag"), col("l_linestatus")) \
+        .order_by(col("l_shipdate"))
+    return (df.select(col("l_returnflag"), col("l_linestatus"),
+                      F.rank().over(w).alias("rk"))
+            .group_by(col("l_returnflag"), col("l_linestatus"))
+            .agg(F.max("rk").alias("mx")))
+
+
+def win_rank_family(api, df):
+    """The rank family over the flag pairs, ordered by ship date
+    descending and order key, summarized per pair."""
+    col, F = api.col, api.F
+    w = api.Window.partition_by(*[col(c) for c in FLAGS]).order_by(
+        col("l_shipdate").desc(), col("l_orderkey").asc())
+    ranked = df.select(
+        *[col(c) for c in FLAGS], F.row_number().over(w).alias("rn"),
+        F.rank().over(w).alias("rk"), F.dense_rank().over(w).alias("drk"),
+        F.ntile(100).over(w).alias("nt"),
+        F.percent_rank().over(w).alias("pr"),
+        F.cume_dist().over(w).alias("cd"))
+    return ranked.group_by(*FLAGS).agg(
+        F.max("rn").alias("max_rn"), F.max("rk").alias("max_rk"),
+        F.max("drk").alias("max_drk"), F.max("nt").alias("max_nt"),
+        F.sum("rk").alias("sum_rk"), F.sum("pr").alias("sum_pr"),
+        F.max("cd").alias("max_cd"))
+
+
+#: win_running's window columns, in order
+RUNNING_COLS = ("rsum", "ravg", "rcnt", "rmin", "rmax", "bsum", "ld", "lg",
+                "fv", "lv", "nv")
+
+
+def win_running(api, df):
+    """Running frames per order (partition by order key, ordered by
+    price): sums, an average, counts, min/max, a bounded ROWS sum,
+    lead/lag and first/last/nth values; then their sums and the non-null
+    counts of the nullable ones."""
+    col, F = api.col, api.F
+    w = api.Window.partition_by(col("l_orderkey")) \
+        .order_by(col("l_extendedprice"))
+    out = df.select(
+        F.sum(col("l_quantity")).over(w).alias("rsum"),
+        F.avg(col("l_discount")).over(w).alias("ravg"),
+        F.count().over(w).alias("rcnt"),
+        F.min(col("l_extendedprice")).over(w).alias("rmin"),
+        F.max(col("l_extendedprice")).over(w).alias("rmax"),
+        F.sum(col("l_quantity")).over(w.rows_between(-2, 2)).alias("bsum"),
+        F.lead(col("l_discount"), 1, 0.0).over(w).alias("ld"),
+        F.lag(col("l_quantity")).over(w).alias("lg"),
+        F.first_value(col("l_shipdate")).over(w).alias("fv"),
+        F.last_value(col("l_shipdate")).over(w).alias("lv"),
+        F.nth_value(col("l_shipdate"), 2).over(w).alias("nv"))
+    return out.agg(*[F.sum(c).alias(c) for c in RUNNING_COLS],
+                   F.count("lg").alias("n_lg"), F.count("nv").alias("n_nv"))
+
+
+def win_shuffled(api, df):
+    """A running quantity sum per ship date in order-key order over a
+    multi-partition input (the hash exchange), then per ship date."""
+    col, F = api.col, api.F
+    w = api.Window.partition_by(col("l_shipdate")) \
+        .order_by(col("l_orderkey"))
+    return (df.select(col("l_shipdate"), F.row_number().over(w).alias("rn"),
+                      F.sum(col("l_quantity")).over(w).alias("run"))
+            .group_by(col("l_shipdate"))
+            .agg(F.sum("run").alias("s"), F.count().alias("n")))
+
+
+def win_global_top(api, df, n=100):
+    """rank() over the whole input (no partition: the collect exchange)
+    by price descending and order key, the first n ranks kept."""
+    col, lit, F = api.col, api.lit, api.F
+    w = api.Window.order_by(col("l_extendedprice").desc(),
+                            col("l_orderkey").asc())
+    return (df.filter(col("l_quantity") < lit(2.0))
+            .select(col("l_orderkey"), col("l_extendedprice"),
+                    col("l_shipdate"), F.rank().over(w).alias("rk"))
+            .filter(col("rk") <= lit(n)))
+
+
+def dedupe_orders(api, df):
+    """One whole line per order key (``drop_duplicates``: a row_number
+    over the key ordered by a constant, then a filter)."""
+    return df.drop_duplicates(["l_orderkey"])
 
 
 def from_jax_batch(batch):
