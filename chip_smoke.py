@@ -159,10 +159,12 @@ def helpers():
 def port_api():
     from types import SimpleNamespace
 
-    from spark_rapids_tpu_torch.expr.core import col, lit
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.expr import core as E
     from spark_rapids_tpu_torch.expr.window import Window
     from spark_rapids_tpu_torch.sql import functions as F
-    return SimpleNamespace(col=col, lit=lit, F=F, Window=Window)
+    return SimpleNamespace(col=E.col, lit=E.lit, F=F, E=E, T=T,
+                           Window=Window)
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -1669,6 +1671,280 @@ def phase_window(table, h1, h8, spy, prof=None):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 10: CASE/IN and the other expressions, and the new aggregates
+# ---------------------------------------------------------------------------
+
+def exprs_reference(t):
+    """numpy answers to the expression and aggregate shapes: bincounts,
+    two sorts of packed keys (group, value, row index), and the row
+    query's columns."""
+    import pyarrow.compute as pc
+    okey = t["l_orderkey"].to_numpy()
+    ship = t["l_shipdate"].to_numpy().astype(np.int64)
+    price = t["l_extendedprice"].to_numpy()
+    qty = t["l_quantity"].to_numpy()
+    disc = t["l_discount"].to_numpy()
+    n = okey.shape[0]
+    idx = np.arange(n, dtype=np.int64)
+    codes, names = [], []
+    for c in ("l_returnflag", "l_linestatus"):
+        enc = pc.dictionary_encode(t[c]).combine_chunks()
+        codes.append(enc.indices.to_numpy().astype(np.int64))
+        names.append(enc.dictionary.to_pylist())
+    rf, ls = codes
+    out = {}
+
+    lo = int(ship.min())
+    day = ship - lo
+    rev = price * (1.0 - disc)
+    ar = (rf == names[0].index("A")) | (rf == names[0].index("R"))
+    cnt = np.bincount(day)
+    promo = np.bincount(day, weights=np.where(ar, rev, 0.0))
+    tot = np.bincount(day, weights=rev)
+    out["q14_case"] = {int(d) + lo: (promo[d], tot[d], int(cnt[d]))
+                       for d in np.nonzero(cnt)[0]}
+
+    def moments(g, x, ngroups, ddof):
+        c = np.bincount(g, minlength=ngroups)
+        mean = np.bincount(g, weights=x, minlength=ngroups) / np.maximum(c, 1)
+        dev = x - mean[g]
+        m2 = np.bincount(g, weights=dev * dev, minlength=ngroups)
+        return c, m2 / np.maximum(c - ddof, 1)
+
+    keep = ship <= 10471
+    g = (rf * len(names[1]) + ls)[keep]
+    ng = len(names[0]) * len(names[1])
+    c, var_q = moments(g, qty[keep], ng, 1)
+    _, vp_p = moments(g, price[keep], ng, 0)
+    avg = np.bincount(g, weights=disc[keep], minlength=ng) / np.maximum(c, 1)
+    first = np.full(ng, -1)
+    last = np.full(ng, -1)
+    pos = np.arange(g.shape[0])
+    first[g[::-1]] = pos[::-1]  # the last write, the smallest position
+    last[g] = pos
+    ship_k, disc_k = ship[keep], disc[keep]
+    out["q1_stats"] = {
+        (names[0][k // len(names[1])], names[1][k % len(names[1])]): (
+            np.sqrt(var_q[k]), vp_p[k], int(ship_k[first[k]]),
+            disc_k[last[k]], avg[k], int(c[k]))
+        for k in range(ng) if c[k]}
+
+    k = okey % 100_000
+    c, var_p = moments(k, price, 100_000, 1)
+    _, var_d = moments(k, disc, 100_000, 1)
+    first = np.full(100_000, -1)
+    first[k[::-1]] = idx[::-1]
+    out["stats_by_order"] = {
+        int(j): (np.sqrt(var_p[j]) if c[j] > 1 else None,
+                 var_d[j] if c[j] > 1 else None, qty[first[j]])
+        for j in np.nonzero(c)[0]}
+
+    def sorted_by_day(cents, bits):
+        # (day, value, row index) packed and sorted: values ascending
+        # within a day, ties in row order
+        key = np.sort((day << (bits + 25)) | (cents << 25) | idx)
+        return key, key >> 25, key & ((1 << 25) - 1)
+
+    def interpolate(vals_sorted, starts, m, p):
+        rank = p * np.maximum(m - 1, 0).astype(np.float64)
+        r_lo = np.floor(rank).astype(np.int64)
+        r_hi = np.ceil(rank).astype(np.int64)
+        frac = rank - r_lo
+        v_lo = vals_sorted[starts + r_lo]
+        v_hi = vals_sorted[starts + r_hi]
+        return v_lo + (v_hi - v_lo) * frac
+
+    m = cnt[cnt > 0]
+    days = np.nonzero(cnt)[0]
+    starts = np.concatenate([[0], np.cumsum(m)[:-1]])
+    pkey, pdv, prow = sorted_by_day(np.rint(price * 100).astype(np.int64), 24)
+    p50 = interpolate(price[prow], starts, m, 0.5)
+    # max_by: the first row of the day's last run of equal prices
+    top_row = prow[np.searchsorted(pkey >> 25, pdv[starts + m - 1])]
+    dkey, _, drow = sorted_by_day(np.rint(disc * 100).astype(np.int64), 4)
+    p90 = interpolate(disc[drow], starts, m, 0.9)
+    out["pctl_shuffled"] = {
+        int(d) + lo: (p50[i], p90[i], int(okey[top_row[i]]),
+                      int(okey[drow[starts[i]]]))
+        for i, d in enumerate(days)}
+
+    sel = np.nonzero(ship < 8500)[0]
+    # the 8-partition cache splits the rows into contiguous slices, the
+    # first n % 8 one row longer
+    bounds = np.cumsum([n // 8 + (i < n % 8) for i in range(8)])
+    pid = np.searchsorted(bounds, sel, side="right")
+    first_of_pid = np.searchsorted(pid, np.arange(8))
+    rank = np.arange(sel.shape[0]) - first_of_pid[pid]
+    q, v = qty[sel], price[sel] * 1e14
+    status = np.array(["returned", names[1][0], names[1][1], "none"],
+                      dtype=object)
+    code = np.where(rf[sel] == names[0].index("R"), 0,
+                    np.where(rf[sel] == names[0].index("A"),
+                             1 + ls[sel], 3))
+    offs = price[sel] * disc[sel]
+    out["cleanse_rows"] = {
+        "l_orderkey": okey[sel], "status": status[code].tolist(),
+        "ok7": okey[sel] // 7, "nq": (q, q == 1.0),
+        "nvl_q": np.where(q == 1.0, 0.0, q),
+        "hi": np.maximum(offs, q * 100.0), "lo": np.minimum(offs, q * 100.0),
+        "ts": ship[sel] * 86_400_000_000, "ts_s": ship[sel] * 86_400,
+        "sat": np.where(v >= 2.0 ** 63, (1 << 63) - 1, np.trunc(
+            np.where(v >= 2.0 ** 63, 0.0, v)).astype(np.int64)),
+        "ns": (q != 1.0) & (q == 50.0), "pid": pid,
+        "mid": (pid.astype(np.int64) << 33) + rank}
+    return out
+
+
+def exprs_queries(h1, h8):
+    """name -> (session, run) over the joins phase's caches; each run
+    collects a pyarrow table."""
+    H, api = helpers(), port_api()
+    return {
+        "q14_case": (h1.s, lambda: H.q14_case(api, h1.li).collect()),
+        "q1_stats": (h1.s, lambda: H.q1_stats(api, h1.li).collect()),
+        "stats_by_order": (h1.s,
+                           lambda: H.stats_by_order(api, h1.li).collect()),
+        "pctl_shuffled": (h8.s, lambda: H.pctl_shuffled(api, h8.li).collect()),
+        "cleanse_rows": (h8.s, lambda: H.cleanse_rows(api, h8.li).collect()),
+    }
+
+
+#: per aggregate query: its key columns and the columns validate_exprs reads
+EXPRS_COLUMNS = {
+    "q14_case": ("l_shipdate", ["promo", "rev", "n"]),
+    "q1_stats": (("l_returnflag", "l_linestatus"),
+                 ["sd_q", "vp_p", "first_ship", "last_disc", "avg_abs", "n"]),
+    "stats_by_order": ("k", ["sd_p", "var_d", "first_q"]),
+    "pctl_shuffled": ("l_shipdate", ["p50", "p90", "top", "cheap"]),
+}
+
+
+def _by_key(table, key, cols):
+    d = table.to_pydict()
+    keys = list(zip(*[d[k] for k in key])) if isinstance(key, tuple) \
+        else d[key]
+    return {k: tuple(d[c][i] for c in cols) for i, k in enumerate(keys)}
+
+
+def _same_floats(got, want, tol):
+    return all(g is None and w is None or (g is not None and w is not None
+                                           and _close(g, w, tol))
+               for g, w in zip(got, want))
+
+
+def validate_exprs(name, got, want) -> bool:
+    if name == "cleanse_rows":
+        import pyarrow as pa
+        if got.num_rows != want["l_orderkey"].shape[0]:
+            return False
+        for c in got.column_names:
+            col = got[c].combine_chunks()
+            if c == "status":
+                ok = col.to_pylist() == want[c]
+            elif c == "nq":
+                vals, null = want[c]
+                ok = (np.array_equal(col.is_null().to_numpy(
+                    zero_copy_only=False), null) and np.array_equal(
+                    col.fill_null(0.0).to_numpy()[~null], vals[~null]))
+            else:
+                if pa.types.is_timestamp(col.type):
+                    col = col.cast(pa.int64())
+                ok = col.null_count == 0 and np.array_equal(
+                    col.to_numpy(zero_copy_only=False), want[c])
+            if not ok:
+                return False
+        return True
+    got = _by_key(got, *EXPRS_COLUMNS[name])
+    if set(got) != set(want):
+        return False
+    if name == "q14_case":
+        return all(_same_floats(got[k][:2], want[k][:2], 1e-9)
+                   and got[k][2] == want[k][2] for k in want)
+    if name == "q1_stats":
+        return all(_same_floats(got[k][:2], want[k][:2], 1e-9)
+                   and got[k][2:4] == want[k][2:4]
+                   and _close(got[k][4], want[k][4], 1e-9)
+                   and got[k][5] == want[k][5] for k in want)
+    if name == "stats_by_order":
+        return all(_same_floats(got[k][:2], want[k][:2], 1e-9)
+                   and got[k][2] == want[k][2] for k in want)
+    return all(got[k] == want[k] for k in want)  # pctl_shuffled, exactly
+
+
+#: what each query must have run: operators, and the aggregate routes per
+#: run (exactly)
+EXPRS_EXPECT = {
+    "q14_case": ({"HashAggregateExec", "CachedScanExec"},
+                 {"_chunked_segsum_agg": 1, "_segsum_or_fallback": 4,
+                  "_scatter_agg": 1}),
+    "q1_stats": ({"HashAggregateExec"}, {"_bucket_update": 1}),
+    "stats_by_order": ({"HashAggregateExec"}, {"_scatter_agg": 1}),
+    "pctl_shuffled": ({"HashAggregateExec", "ShuffleExchangeExec"},
+                      {"_sort_agg": 8}),
+    "cleanse_rows": ({"ProjectExec", "FilterExec"}, {}),
+}
+#: kernel launches per run: B2 in q14_case's four chunks, B1 once per
+#: cached partition batch into pctl_shuffled's exchange, nothing elsewhere
+EXPRS_LAUNCHES = {"q14_case": {"segsum": 4}, "pctl_shuffled":
+                  {"murmur3_int32": 8}}
+
+
+def phase_exprs(table, h1, h8, spy, prof=None):
+    import torch
+    t0 = time.perf_counter()
+    want = exprs_reference(table)
+    host_s = time.perf_counter() - t0
+    emit({"phase": "exprs.setup", "rows": table.num_rows,
+          "host_reference_s": host_s})
+    reset_launches()
+    spy.take()
+    problems = []
+    queries = exprs_queries(h1, h8)
+    for name, (session, fn) in queries.items():
+        before = read_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = fn()
+        cold = time.perf_counter() - t0
+        warm = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            fn()
+            warm.append(time.perf_counter() - t0)
+        good = validate_exprs(name, got, want[name])
+        counts = spy.take()
+        routes = {k: v // 3 for k, v in counts.items()}
+        execs = _exec_names(session)
+        launches = {k: (v - before[k]) // 3
+                    for k, v in read_launches().items()}
+        e_ops, e_routes = EXPRS_EXPECT[name]
+        e_launch = {k: EXPRS_LAUNCHES.get(name, {}).get(k, 0)
+                    for k in launches}
+        if not good:
+            problems.append(f"{name} disagrees with numpy")
+        if not e_ops <= set(execs) or routes != e_routes \
+                or any(v % 3 for v in counts.values()):
+            problems.append(f"{name} ran {execs}, routes {routes}; "
+                            f"expected {EXPRS_EXPECT[name]}")
+        if launches != e_launch:
+            problems.append(f"{name} launched {launches}, expected "
+                            f"{e_launch}")
+        emit({"phase": "exprs.query", "query": name, "correct": good,
+              "cold_s": cold, "warm_s": min(warm), "launches": launches,
+              "routes": routes, "execs": execs,
+              "result_rows": got.num_rows,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+    counts = read_launches()
+    emit({"phase": "exprs", "launches": counts, "correct": not problems,
+          "problems": problems})
+    if prof:
+        prof.run("exprs", {k: v[1] for k, v in queries.items()})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return counts
+
+
 #: launch-counter name -> (wrapper module, wrapper function, a substring
 #: of the CUDA kernel's name as the profiler reports it)
 KERNEL_WRAPPERS = {
@@ -1854,6 +2130,9 @@ def main() -> int:
         t0 = time.perf_counter()
         window = phase_window(table, h1, h8, spy, prof)
         phases["window_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        exprs = phase_exprs(table, h1, h8, spy, prof)
+        phases["exprs_s"] = time.perf_counter() - t0
         del table, orders, h1, h8
         t0 = time.perf_counter()
         parquet = phase_parquet(path, want, spy, prof)
@@ -1869,7 +2148,7 @@ def main() -> int:
     for r in rows:
         by_path = {"cached": cached[r["name"]], "parquet": parquet[r["name"]],
                    "strings": strings[r["name"]], "joins": joins[r["name"]],
-                   "window": window[r["name"]]}
+                   "window": window[r["name"]], "exprs": exprs[r["name"]]}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
     if prof:

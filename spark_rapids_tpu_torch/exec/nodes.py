@@ -33,6 +33,11 @@ The hash aggregate picks a route per batch, in the JAX package's order:
    may repeat a string, floats): stable sorts on 64-bit keys, then
    segmented reductions (``ops/groupby.group_segments``). Partial states
    merge by the packed route when their keys pack, else by this one.
+
+A segmented aggregate (percentile, min_by/max_by) has no mergeable state:
+it takes the sort route over the partition's batches concatenated (or the
+global route without keys), and computes its result from the
+group-sorted rows.
 """
 from __future__ import annotations
 
@@ -53,7 +58,7 @@ from spark_rapids_tpu_torch.columnar.batch import (
 from spark_rapids_tpu_torch.expr import aggregates as A
 from spark_rapids_tpu_torch.expr import window as WE
 from spark_rapids_tpu_torch.expr.core import (
-    Alias, BoundRef, Cast, EvalCtx, Expression, raise_errors,
+    Alias, BoundRef, Cast, EvalCtx, Expression, needs_row_base, raise_errors,
 )
 from spark_rapids_tpu_torch.io import encoded as ENC
 from spark_rapids_tpu_torch.io.parquet_pruning import prune_row_groups
@@ -88,10 +93,11 @@ class TorchExec:
         for c in self.children:
             yield from c.walk()
 
-    def _ctx(self, batch: ColumnarBatch, live=None) -> EvalCtx:
+    def _ctx(self, batch: ColumnarBatch, live=None, **part) -> EvalCtx:
         return EvalCtx(batch.columns, batch.num_rows, batch.capacity,
                        self.device, self.conf.get(C.ANSI_ENABLED),
-                       live=batch.live_mask() if live is None else live)
+                       live=batch.live_mask() if live is None else live,
+                       **part)
 
 
 def _split_rows(total: int, parts: int):
@@ -401,15 +407,22 @@ class ProjectExec(TorchExec):
         return idx
 
     def execute_partition(self, pidx):
+        """Evaluates the expressions per batch with the partition context:
+        the partition's index, and the live rows of its earlier batches
+        (counted only when an expression reads them)."""
         trivial = self._trivial_indices()
+        count_rows = any(needs_row_base(e) for e in self.plan.exprs)
+        row_base = 0
         for batch in self.children[0].execute_partition(pidx):
             if trivial is not None:
                 yield ColumnarBatch([batch.columns[i] for i in trivial],
                                     batch.num_rows, batch.row_mask)
                 continue
-            ctx = self._ctx(batch)
+            ctx = self._ctx(batch, partition_id=pidx, row_base=row_base)
             cols = [e.eval(ctx) for e in self.plan.exprs]
             raise_errors(ctx.errors)
+            if count_rows:
+                row_base = row_base + ctx.row_mask.sum(dtype=torch.int64)
             for e, o in zip(self.plan.exprs, cols):
                 inner = e.children[0] if isinstance(e, Alias) else e
                 if isinstance(inner, BoundRef):
@@ -666,6 +679,20 @@ def _resize_plane(vals, valid, dtype: T.DataType, cap: int) -> ColumnVector:
     return ColumnVector(dtype, vals.to(dtype.torch_dtype), valid)
 
 
+def _resize_col(c: ColumnVector, cap: int) -> ColumnVector:
+    if c.capacity == cap:
+        return c
+    idx = torch.arange(cap, device=c.device)
+    return K.gather_column(c, torch.where(idx < c.capacity, idx, -1),
+                           c.capacity)
+
+
+#: what the JAX package tags to the CPU at plan time, should it get here
+_STRING_STATE = ("string aggregate state on the device (min, max, first "
+                 "and last over strings run on the CPU in the JAX package; "
+                 "ROADMAP A3)")
+
+
 def _rows_slice(c: Optional[ColumnVector], off: int, n: int):
     if c is None:
         return None
@@ -685,7 +712,8 @@ class _AggKernels:
 
     _BUCKET_LIMIT = 4096
     _MATMUL_LIMIT = 64
-    _SIMPLE_OPS = frozenset({"sum", "count", "count_all", "min", "max"})
+    _SIMPLE_OPS = frozenset({"sum", "sumsq", "count", "count_all", "min",
+                             "max", "first", "last"})
     #: segsum route gate: packed key bits in [11, 24]
     _SEG_MIN_BITS = 11
     _SEG_MAX_BITS = 24
@@ -706,12 +734,18 @@ class _AggKernels:
                     T.DateType, T.BooleanType, T.StringType)):
                 return False
         for a in self.aggs:
+            if isinstance(a.fn, A.SegmentedAgg):
+                return False
             for (_, sdt), (op, _) in zip(a.fn.state_schema(),
                                          a.fn.update_ops()):
                 if op not in self._SIMPLE_OPS or isinstance(sdt,
                                                             T.StringType):
                     return False
         return True
+
+    @property
+    def has_custom(self) -> bool:
+        return any(isinstance(a.fn, A.SegmentedAgg) for a in self.aggs)
 
     # -- entry points ------------------------------------------------------
 
@@ -760,7 +794,8 @@ class _AggKernels:
         key_cols, input_cols, ierrs = self._inputs(batch, live, ctx_of)
         if not key_cols:
             return self._global_update(batch, live, input_cols), errs + ierrs
-        sizes = self._bucket_sizes(key_cols)
+        # segmented aggregates need the group-sorted rows: the sort route
+        sizes = None if self.has_custom else self._bucket_sizes(key_cols)
         if sizes is None:
             return self._sort_agg(live, key_cols,
                                   self._update_specs(input_cols),
@@ -769,9 +804,15 @@ class _AggKernels:
                                    sizes), errs + ierrs
 
     def _update_specs(self, input_cols):
-        """(reduction, input column or None, state type) per state."""
+        """(reduction, input column or None, state type) per state; a
+        segmented aggregate's is ("custom", (function, its inputs),
+        result type)."""
         specs = []
         for ai, a in enumerate(self.aggs):
+            if isinstance(a.fn, A.SegmentedAgg):
+                specs.append(("custom", (a.fn, input_cols[ai]),
+                              a.fn.result_type()))
+                continue
             for (_, sdt), (op, idx) in zip(a.fn.state_schema(),
                                            a.fn.update_ops()):
                 specs.append((op, input_cols[ai][idx] if idx >= 0 else None,
@@ -811,14 +852,22 @@ class _AggKernels:
         cap = batch.capacity
         out_cols = []
         for ai, a in enumerate(self.aggs):
+            if isinstance(a.fn, A.SegmentedAgg):
+                # one group over every row
+                res = a.fn.segmented_eval(
+                    input_cols[ai],
+                    torch.arange(cap, device=live.device),
+                    torch.zeros(cap, dtype=torch.int32, device=live.device),
+                    1, live, batch.num_rows)
+                out_cols.append(_resize_col(res, round_capacity(1)))
+                continue
             for (_, sdt), (op, idx) in zip(a.fn.state_schema(),
                                            a.fn.update_ops()):
                 if idx >= 0:
                     src = input_cols[ai][idx]
                     if src.is_string:
                         if op not in ("count", "count_all"):
-                            raise NotImplementedError(
-                                "string aggregate state on the device")
+                            raise NotImplementedError(_STRING_STATE)
                         vals = _zeros(cap, sdt, live.device)
                     else:
                         vals = src.data.to(sdt.torch_dtype)
@@ -844,12 +893,16 @@ class _AggKernels:
         out_cols = G.gather_group_keys(key_cols, perm, boundary, num_rows,
                                        live=live)
         for op, src, sdt in state_specs:
+            if op == "custom":
+                fn, inputs = src
+                out_cols.append(fn.segmented_eval(inputs, perm, seg_ids, cap,
+                                                  live, num_rows))
+                continue
             if src is None:
                 vals, valid = _zeros(cap, sdt, live.device), live
             else:
                 if src.is_string and op not in ("count", "count_all"):
-                    raise NotImplementedError(
-                        "string aggregate state on the device")
+                    raise NotImplementedError(_STRING_STATE)
                 vals = _zeros(cap, sdt, live.device) if src.is_string \
                     else src.data.to(sdt.torch_dtype)
                 valid = live if src.validity is None else (src.validity & live)
@@ -917,8 +970,7 @@ class _AggKernels:
                 if idx >= 0:
                     src = input_cols[ai][idx]
                     if src.is_string and op not in ("count", "count_all"):
-                        raise NotImplementedError(
-                            "string aggregate state on the device")
+                        raise NotImplementedError(_STRING_STATE)
                     vals = _zeros(batch.capacity, sdt, device) \
                         if src.is_string else src.data.to(sdt.torch_dtype)
                     valid = live if src.validity is None \
@@ -964,8 +1016,7 @@ class _AggKernels:
         device = live.device
         if src is not None:
             if src.is_string and op not in ("count", "count_all"):
-                raise NotImplementedError(
-                    "string aggregate state on the device")
+                raise NotImplementedError(_STRING_STATE)
             valid = (live if src.validity is None
                      else (src.validity & live))[lay.perm]
             vals = _zeros(cap, sdt, device) if src.is_string \
@@ -979,16 +1030,21 @@ class _AggKernels:
         if op == "count_all":
             return R.seg_count_all(lay), ones
         some = R.seg_count(valid, lay) > 0
-        if op == "sum":
+        if op in ("sum", "sumsq"):
+            # the square in the input's own type, as the JAX package does
+            v = vals * vals if op == "sumsq" else vals
             if isinstance(sdt, (T.Float64Type, T.Float32Type)):
-                return R.seg_sum_f64(vals, valid, lay), some
-            return R.seg_sum_int(vals, valid, lay), some
+                return R.seg_sum_f64(v, valid, lay), some
+            return R.seg_sum_int(v, valid, lay), some
         if op in ("min", "max"):
             if vals.dtype == torch.float64:
                 return R.seg_minmax_f64(op, vals, valid, lay), some
             if vals.dtype == torch.float32:
                 return R.seg_minmax_f32(op, vals, valid, lay), some
             return R.seg_minmax_int(op, vals, valid, lay), some
+        if op in ("first", "last"):
+            v, has = R.seg_first_last(op, vals, valid, lay)
+            return v, has & some
         raise ValueError(f"unknown packed op {op}")
 
     def _segsum_ops_ok(self, state_specs) -> bool:
@@ -1191,8 +1247,7 @@ class _AggKernels:
         for op, src, sdt in state_specs:
             if src is not None:
                 if src.is_string and op not in ("count", "count_all"):
-                    raise NotImplementedError(
-                        "string aggregate state on the device")
+                    raise NotImplementedError(_STRING_STATE)
                 valid = live if src.validity is None else (src.validity & live)
                 vals = _zeros(cap, sdt, live.device) if src.is_string \
                     else src.data
@@ -1214,10 +1269,15 @@ class _AggKernels:
         if op == "count_all":
             return lay.counts.to(torch.int64), ones
         some = nvalid() > 0
-        if op == "sum":
+        if op in ("sum", "sumsq"):
+            # the square in the input's own type, as the JAX package does
+            v = vals * vals if op == "sumsq" else vals
             if isinstance(sdt, (T.Float64Type, T.Float32Type)):
-                return R.bucket_sum_f64(lay, vals, valid), some
-            return R.bucket_sum_int(lay, vals, valid), some
+                return R.bucket_sum_f64(lay, v, valid), some
+            return R.bucket_sum_int(lay, v, valid), some
+        if op in ("first", "last"):
+            v, has = R.bucket_first_last(op, lay, vals, valid)
+            return v, has & some
         if op in ("min", "max"):
             if vals.dtype == torch.float64:
                 return R.bucket_minmax_f64(op, lay, vals, valid), some
@@ -1251,7 +1311,14 @@ class HashAggregateExec(TorchExec):
     def execute_partition(self, pidx):
         nkeys = len(self.plan.group_exprs)
         partials = []
-        for batch in self.children[0].execute_partition(pidx):
+        batches = self.children[0].execute_partition(pidx)
+        if self.kern.has_custom:
+            # a segmented aggregate's result cannot merge: one update pass
+            # over the partition's rows, concatenated
+            batches = list(batches)
+            if len(batches) > 1:
+                batches = [K.concat_batches(batches)]
+        for batch in batches:
             out, errs = self.kern.update(batch, self._ctx)
             raise_errors(errs)
             partials.append(ColumnarBatch(out.columns, 1) if nkeys == 0
@@ -1280,7 +1347,7 @@ class HashAggregateExec(TorchExec):
             res = a.fn.evaluate(state.columns[ci: ci + n_state])
             ci += n_state
             rt = a.fn.result_type()
-            if res.data.dtype != rt.torch_dtype:
+            if not res.is_string and res.data.dtype != rt.torch_dtype:
                 res = ColumnVector(rt, res.data.to(rt.torch_dtype),
                                    res.validity)
             out_cols.append(res)

@@ -1,11 +1,17 @@
-"""Aggregate function descriptors: sum, count, avg, min, max.
+"""Aggregate function descriptors: sum, count, avg, min, max, first,
+last, the variance and standard deviation family, and the segmented
+aggregates min_by, max_by, percentile and approx_percentile.
 
 Counterpart of ``spark_rapids_tpu/expr/aggregates.py``; ``over(spec)``
 makes a window aggregate (``expr/window.py``). Each function
 declares its partial state columns (``state_schema``), the reduction that
 builds each state from input rows (``update_ops``), the reduction that
 merges partial states (``merge_ops``), and the final projection
-(``evaluate``).
+(``evaluate``). A ``SegmentedAgg`` has no mergeable state: it runs once
+over a whole partition's rows in group-sorted order
+(``segmented_eval``), and the planner exchanges raw rows by group key
+before it. ``collect_list``/``collect_set`` wait for the nested types
+(ROADMAP A3).
 """
 from __future__ import annotations
 
@@ -15,7 +21,7 @@ import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnVector
-from spark_rapids_tpu_torch.expr.core import Expression
+from spark_rapids_tpu_torch.expr.core import Expression, SparkException
 
 
 class AggFunction:
@@ -175,3 +181,249 @@ class Average(AggFunction):
         cnt = c.data.to(torch.float64)
         val = s.data.to(torch.float64) / torch.where(cnt == 0, 1.0, cnt)
         return ColumnVector(T.FLOAT64, val, c.data > 0)
+
+
+class First(AggFunction):
+    """first(expr): the first non-null value in group-sorted order (the
+    stable sort keeps the input's row order within a group)."""
+
+    op = "first"
+
+    def result_type(self):
+        return self.children[0].data_type()
+
+    def state_schema(self):
+        return [("val", self.result_type())]
+
+    def update_ops(self):
+        return [(self.op, 0)]
+
+    def merge_ops(self):
+        return [self.op]
+
+
+class Last(First):
+    op = "last"
+
+
+class _MomentAgg(AggFunction):
+    """Variance and standard deviation from (n, sum, sumsq) states: m2 =
+    sumsq - sum^2 / n, clamped at 0, over n - ddof."""
+
+    ddof = 1  # 1: sample, 0: population
+
+    def result_type(self):
+        return T.FLOAT64
+
+    def state_schema(self):
+        return [("n", T.INT64), ("sum", T.FLOAT64), ("sumsq", T.FLOAT64)]
+
+    def update_ops(self):
+        return [("count", 0), ("sum", 0), ("sumsq", 0)]
+
+    def merge_ops(self):
+        return ["sum", "sum", "sum"]
+
+    def _moments(self, state_cols):
+        n = state_cols[0].data.to(torch.float64)
+        s = state_cols[1].data.to(torch.float64)
+        ss = state_cols[2].data.to(torch.float64)
+        denom = n - self.ddof
+        m2 = (ss - (s * s) / torch.where(n == 0, 1.0, n)).clamp(min=0.0)
+        return n, denom, m2 / torch.where(denom <= 0, 1.0, denom)
+
+    def _valid(self, n, denom):
+        # a sample statistic of one row is null (Spark 3.1+)
+        return (n > 0) & (denom > 0) if self.ddof else n > 0
+
+    def evaluate(self, state_cols):
+        n, denom, var = self._moments(state_cols)
+        return ColumnVector(T.FLOAT64, var, self._valid(n, denom))
+
+
+def _two_square(c):
+    """c * c as an unevaluated sum p + e, exactly (Veltkamp's split)."""
+    p = c * c
+    t = c * 134217729.0  # 2**27 + 1
+    hi = t - (t - c)
+    lo = c - hi
+    return p, ((hi * hi - p) + 2.0 * hi * lo) + lo * lo
+
+
+def _sqrt_rn(x):
+    """The square root rounded to nearest. torch's vectorized CPU sqrt can
+    be an ulp off (CUDA's is exact): of the root and its two neighbours,
+    keep the one whose exact square lies nearest x."""
+    best = torch.sqrt(x)
+    p, e = _two_square(best)
+    err = ((p - x) + e).abs()
+    for toward in (float("-inf"), float("inf")):
+        c = torch.nextafter(best, torch.full_like(best, toward))
+        p, e = _two_square(c)
+        ce = ((p - x) + e).abs()
+        closer = ce < err
+        best = torch.where(closer, c, best)
+        err = torch.where(closer, ce, err)
+    return best
+
+
+class VarianceSamp(_MomentAgg):
+    ddof = 1
+
+
+class VariancePop(_MomentAgg):
+    ddof = 0
+
+
+class StddevSamp(_MomentAgg):
+    ddof = 1
+
+    def evaluate(self, state_cols):
+        n, denom, var = self._moments(state_cols)
+        return ColumnVector(T.FLOAT64, _sqrt_rn(var), self._valid(n, denom))
+
+
+class StddevPop(StddevSamp):
+    ddof = 0
+
+
+# ---------------------------------------------------------------------------
+# Segmented aggregates: no fixed-width mergeable state. They run in
+# complete mode only, over a partition's rows in group-sorted order.
+# ---------------------------------------------------------------------------
+
+class SegmentedAgg(AggFunction):
+    no_partial = True
+
+    def state_schema(self):
+        return [("result", self.result_type())]
+
+    def update_ops(self):
+        return [("custom", 0)]
+
+    def merge_ops(self):
+        raise NotImplementedError(
+            f"{type(self).__name__} has no mergeable partial state")
+
+    def segmented_eval(self, inputs, perm, seg_ids, seg_cap: int, live,
+                       num_rows) -> ColumnVector:
+        """The result per group: ``inputs`` are the evaluated children in
+        row order, ``perm`` the group-sorting permutation, ``seg_ids`` the
+        group of each sorted position, ``live`` the rows that count."""
+        raise NotImplementedError
+
+
+def _valid_under(col: ColumnVector, live):
+    return live if col.validity is None else (col.validity & live)
+
+
+def _seg_reduce(vals, seg_ids, seg_cap: int, init, how: str):
+    out = torch.full((seg_cap,), init, dtype=vals.dtype, device=vals.device)
+    return out.scatter_reduce_(0, seg_ids.to(torch.int64), vals, reduce=how,
+                               include_self=True)
+
+
+_INT64_MAX = (1 << 63) - 1
+
+
+class _MinMaxBy(SegmentedAgg):
+    """min_by/max_by(value, ordering): the value at the extreme ordering.
+    Rows whose ordering is null are ignored; ties go to the earliest row
+    in group-sorted order."""
+
+    is_min = True
+
+    def result_type(self):
+        return self.children[0].data_type()
+
+    def segmented_eval(self, inputs, perm, seg_ids, seg_cap, live, num_rows):
+        from spark_rapids_tpu_torch.ops import kernels as K
+        val, ordc = inputs
+        if ordc.is_string:
+            raise NotImplementedError(
+                f"{type(self).__name__} ordered by a string column (a CPU "
+                f"fallback in the JAX package; ROADMAP A3)")
+        cap = perm.shape[0]
+        ok = _valid_under(ordc, live)
+        # the sign-flipped int64 image orders like the JAX package's
+        # unsigned key; ~ reverses it, and INT64_MAX is the sentinel
+        okey, _ = K.normalize_key(ordc, num_rows, live=live)
+        if not self.is_min:
+            okey = ~okey
+        key_s = torch.where(ok, okey, _INT64_MAX)[perm]
+        gmin = _seg_reduce(key_s, seg_ids, seg_cap, _INT64_MAX, "amin")
+        idx = seg_ids.to(torch.int64)
+        hit = ok[perm] & (key_s == gmin[idx.clamp(max=seg_cap - 1)])
+        pos = torch.where(hit, torch.arange(cap, device=perm.device), cap)
+        sel = _seg_reduce(pos, seg_ids, seg_cap, cap, "amin")
+        src = torch.where(sel < cap, perm[sel.clamp(0, cap - 1)], -1)
+        return K.gather_column(val, src, cap)
+
+
+class MinBy(_MinMaxBy):
+    is_min = True
+
+
+class MaxBy(_MinMaxBy):
+    is_min = False
+
+
+class Percentile(SegmentedAgg):
+    """percentile(col, p): the exact percentile with linear interpolation
+    between the closest ranks."""
+
+    def __init__(self, child, percentage: float):
+        super().__init__(child)
+        self.percentage = float(percentage)
+        if not 0.0 <= self.percentage <= 1.0:
+            raise SparkException(
+                f"percentage must be in [0, 1], got {percentage}")
+
+    def fingerprint(self):
+        return f"{type(self).__name__}({self.percentage};" + \
+            ",".join(c.fingerprint() for c in self.children) + ")"
+
+    def transform(self, fn):
+        return type(self)(self.children[0].transform(fn), self.percentage)
+
+    def result_type(self):
+        return T.FLOAT64
+
+    def segmented_eval(self, inputs, perm, seg_ids, seg_cap, live, num_rows):
+        from spark_rapids_tpu_torch.ops import radix as R
+        src = inputs[0]
+        cap = perm.shape[0]
+        device = perm.device
+        keep = _valid_under(src, live)[perm]
+        v = src.data.to(torch.float64)[perm]
+        # kept rows to the front, group-major, values ascending. The JAX
+        # package's sort treats -0.0 and 0.0 as equal and every NaN as
+        # one value above +inf: the order of the floats' int64 image, with
+        # stable sorts keeping ties in row order
+        idx2 = torch.sort(R._f64_order_i64(v), stable=True).indices
+        major = ((~keep).to(torch.int64) << 32) | seg_ids.to(torch.int64)
+        idx2 = idx2[torch.sort(major[idx2], stable=True).indices]
+        v2 = v[idx2]
+        m = torch.zeros(seg_cap, dtype=torch.int64, device=device).index_add_(
+            0, seg_ids.to(torch.int64), keep.to(torch.int64))
+        starts = torch.cumsum(m, 0) - m
+        rank = self.percentage * (m - 1).clamp(min=0).to(torch.float64)
+        lo = torch.floor(rank).to(torch.int64)
+        hi = torch.ceil(rank).to(torch.int64)
+        frac = rank - lo.to(torch.float64)
+        vlo = v2[(starts + lo).clamp(0, cap - 1)]
+        vhi = v2[(starts + hi).clamp(0, cap - 1)]
+        return ColumnVector(T.FLOAT64, vlo + (vhi - vlo) * frac, m > 0)
+
+
+class ApproxPercentile(Percentile):
+    """approx_percentile(col, p[, accuracy]): answered exactly, as in the
+    JAX package, which satisfies any accuracy."""
+
+    def __init__(self, child, percentage: float, accuracy: int = 10000):
+        super().__init__(child, percentage)
+        self.accuracy = accuracy
+
+    def transform(self, fn):
+        return ApproxPercentile(self.children[0].transform(fn),
+                                self.percentage, self.accuracy)

@@ -1,14 +1,19 @@
 """Expression trees evaluated on torch tensors.
 
-Counterpart of ``spark_rapids_tpu/expr/core.py`` for the expressions this
-engine carries: column references, literals (strings and nulls included),
-aliases, ``+ - * / %``, comparisons (strings: equality only, as on the JAX
-package's device), ``And``/``Or``/``Not``, ``IsNull``/``IsNotNull``, ``Coalesce``,
-numeric casts, and the sort-order sugar (``asc``/``desc`` and their
-null-ordering forms). The string functions are in ``expr/strings.py``. Null
-semantics follow Spark SQL, as in the JAX package: arithmetic and
-comparisons propagate nulls, AND/OR are Kleene, division or remainder by
-zero is null (or an error in ANSI mode).
+Counterpart of ``spark_rapids_tpu/expr/core.py``: column references,
+literals (strings and nulls included), aliases, the partition context
+(``SparkPartitionID``, ``MonotonicallyIncreasingID``), ``NullOf``,
+``+ - * / %``, ``IntegralDivide``, ``UnaryMinus``, ``Abs``, comparisons
+(strings: equality only, as on the JAX package's device), ``EqualNullSafe``,
+``And``/``Or``/``Not``, ``IsNull``/``IsNotNull``/``IsNaN``, ``In``, ``If``
+and ``CaseWhen``, the optimizer's markers (``KnownNotNull``,
+``KnownFloatingPointNormalized``, ``NormalizeNaNAndZero``,
+``AtLeastNNonNulls``), ``Coalesce``, the numeric, date and timestamp casts,
+and the sort-order sugar (``asc``/``desc`` and their null-ordering forms).
+The string functions are in ``expr/strings.py``, ``Greatest``/``Least`` in
+``expr/math.py``. Null semantics follow Spark SQL, as in the JAX package:
+arithmetic and comparisons propagate nulls, AND/OR are Kleene, division or
+remainder by zero is null (or an error in ANSI mode).
 
 ``eval(ctx)`` runs eagerly over a batch's planes; a column whose validity
 is None is valid on every live row.
@@ -31,18 +36,24 @@ class SparkException(Exception):
 
 
 class EvalCtx:
-    """Input columns of one batch, its live mask, and the ANSI error
-    planes collected while evaluating."""
+    """Input columns of one batch, its live mask, the ANSI error planes
+    collected while evaluating, and the partition context a projection
+    threads (``partition_id``, and ``row_base``: the live rows of the
+    partition's earlier batches); other operators leave ``partition_id``
+    None."""
 
     def __init__(self, columns: Sequence[ColumnVector], num_rows,
                  capacity: int, device, ansi: bool = False,
-                 live: Optional[torch.Tensor] = None):
+                 live: Optional[torch.Tensor] = None,
+                 partition_id: Optional[int] = None, row_base=0):
         self.columns = list(columns)
         self.num_rows = num_rows
         self.capacity = capacity
         self.device = torch.device(device)
         self.ansi = ansi
         self.live = live
+        self.partition_id = partition_id
+        self.row_base = row_base
         self.errors: List[Tuple[str, torch.Tensor]] = []
 
     @property
@@ -102,6 +113,7 @@ class Expression:
     def __rmul__(self, o): return Multiply(_wrap(o), self)
     def __truediv__(self, o): return Divide(self, _wrap(o))
     def __mod__(self, o): return Remainder(self, _wrap(o))
+    def __neg__(self): return UnaryMinus(self)
     def __eq__(self, o): return EqualTo(self, _wrap(o))  # type: ignore[override]
     def __ne__(self, o): return Not(EqualTo(self, _wrap(o)))  # type: ignore[override]
     def __lt__(self, o): return LessThan(self, _wrap(o))
@@ -119,6 +131,12 @@ class Expression:
     def is_not_null(self): return IsNotNull(self)
     def alias(self, name): return Alias(self, name)
     def cast(self, dtype): return Cast(self, dtype)
+
+    def isin(self, *vals):
+        # the port has no NullType: a null in the list is a null of the
+        # tested column's type
+        return In(self, [NullOf(self) if v is None else _wrap(v)
+                         for v in vals])
 
     def substr(self, pos, length):
         """pyspark Column.substr (1-based)."""
@@ -263,6 +281,71 @@ class Literal(Expression):
                                        device=ctx.device))
 
 
+def _partition_ctx(ctx: EvalCtx, name: str) -> int:
+    if ctx.partition_id is None:
+        # the JAX package tags these to the CPU outside a projection
+        raise NotImplementedError(
+            f"{name} outside a projection (a CPU fallback in the JAX "
+            f"package; ROADMAP A3)")
+    return ctx.partition_id
+
+
+class SparkPartitionID(Expression):
+    """spark_partition_id(): the index of the partition being projected."""
+
+    def __init__(self):
+        self.children = []
+
+    def data_type(self):
+        return T.INT32
+
+    def eval(self, ctx):
+        pid = _partition_ctx(ctx, "spark_partition_id()")
+        return ColumnVector(T.INT32, torch.full(
+            (ctx.capacity,), pid, dtype=torch.int32, device=ctx.device), None)
+
+
+class MonotonicallyIncreasingID(Expression):
+    """monotonically_increasing_id(): (partition_id << 33) + the row's
+    index among the partition's live rows (Spark's layout); dead rows get
+    values that are masked downstream."""
+
+    def __init__(self):
+        self.children = []
+
+    def data_type(self):
+        return T.INT64
+
+    def eval(self, ctx):
+        pid = _partition_ctx(ctx, "monotonically_increasing_id()")
+        idx = torch.cumsum(ctx.row_mask.to(torch.int64), 0) - 1
+        return ColumnVector(T.INT64, idx + ctx.row_base + (pid << 33), None)
+
+
+def needs_row_base(e: Expression) -> bool:
+    """Does e read the running live-row count a projection threads?"""
+    return isinstance(e, MonotonicallyIncreasingID) \
+        or any(needs_row_base(c) for c in e.children)
+
+
+class NullOf(Expression):
+    """An all-null column of its child's type (after binding), for
+    rewrites such as nullif that need a typed null before names resolve;
+    the child is not evaluated."""
+
+    def __init__(self, child: Expression):
+        self.children = [child]
+
+    def data_type(self):
+        return self.children[0].data_type()
+
+    def with_children(self, children):
+        return NullOf(children[0])
+
+    def eval(self, ctx):
+        return Literal(None, self.data_type()).eval(ctx)
+
+
 class Alias(Expression):
     def __init__(self, child: Expression, name: str):
         self.children = [child]
@@ -357,9 +440,35 @@ class Divide(BinaryExpression):
                             valid & ~zero)
 
 
+class IntegralDivide(BinaryExpression):
+    """Spark ``div``: long division truncated toward zero; division by
+    zero is null (ANSI: error)."""
+
+    def data_type(self):
+        return T.INT64
+
+    def eval(self, ctx):
+        l = self.left.eval(ctx)
+        r = self.right.eval(ctx)
+        ld = _to_int(l.data, torch.int64)
+        rd = _to_int(r.data, torch.int64)
+        zero = rd == 0
+        valid = _valid_of(l, ctx) & _valid_of(r, ctx)
+        if ctx.ansi:
+            ctx.add_error("DIVIDE_BY_ZERO", zero & valid)
+        q = _java_int_div(ld, torch.where(zero, torch.ones_like(rd), rd))
+        return ColumnVector(T.INT64, torch.where(zero, torch.zeros_like(q), q),
+                            valid & ~zero)
+
+
 def _java_int_div(a, b):
-    """Truncated (toward-zero) integer division, Java semantics."""
-    return torch.div(a, b, rounding_mode="trunc")
+    """Truncated (toward-zero) integer division, Java semantics; b is
+    never 0. MIN_VALUE / -1 wraps to MIN_VALUE, as in Java and XLA (the
+    CPU's divide instruction traps on it, so -1 divides by negation)."""
+    neg1 = b == -1
+    q = torch.div(a, torch.where(neg1, torch.ones_like(b), b),
+                  rounding_mode="trunc")
+    return torch.where(neg1, -a, q)
 
 
 class Remainder(BinaryExpression):
@@ -395,6 +504,41 @@ class Remainder(BinaryExpression):
                                                  rem), valid & ~zero)
         return ColumnVector(out, torch.where(rd == 0, float("nan"),
                                              torch.fmod(ld, rd)), valid)
+
+
+class UnaryMinus(Expression):
+    """Negation; integers wrap (non-ANSI Spark, as the JAX package)."""
+
+    def __init__(self, child):
+        self.children = [child]
+
+    def data_type(self):
+        return self.children[0].data_type()
+
+    def with_children(self, children):
+        return UnaryMinus(children[0])
+
+    def eval(self, ctx):
+        c = self.children[0].eval(ctx)
+        return ColumnVector(c.dtype, -c.data, _valid_of(c, ctx))
+
+
+class Abs(Expression):
+    """abs(); an integer MIN_VALUE stays MIN_VALUE, as in the JAX
+    package."""
+
+    def __init__(self, child):
+        self.children = [child]
+
+    def data_type(self):
+        return self.children[0].data_type()
+
+    def with_children(self, children):
+        return Abs(children[0])
+
+    def eval(self, ctx):
+        c = self.children[0].eval(ctx)
+        return ColumnVector(c.dtype, torch.abs(c.data), _valid_of(c, ctx))
 
 
 # ---------------------------------------------------------------------------
@@ -521,6 +665,23 @@ class GreaterThanOrEqual(BinaryComparison):
     op = staticmethod(lambda a, b: a >= b)
 
 
+class EqualNullSafe(BinaryComparison):
+    """``<=>``: null <=> null is true, and the result is never null."""
+
+    def eval(self, ctx):
+        l = self.left.eval(ctx)
+        r = self.right.eval(ctx)
+        if isinstance(l.dtype, T.StringType):
+            cmp = _string_eq(l, r)
+        else:
+            ld, rd = _promote(l, r, T.common_type(l.dtype, r.dtype))
+            cmp = ld == rd
+        lv, rv = _valid_of(l, ctx), _valid_of(r, ctx)
+        return ColumnVector(T.BOOLEAN, torch.where(lv & rv, cmp, ~lv & ~rv),
+                            torch.ones(ctx.capacity, dtype=torch.bool,
+                                       device=ctx.device))
+
+
 class And(BinaryExpression):
     def data_type(self):
         return T.BOOLEAN
@@ -597,6 +758,199 @@ class IsNotNull(Expression):
                                        device=ctx.device))
 
 
+class IsNaN(Expression):
+    def __init__(self, child):
+        self.children = [child]
+
+    def data_type(self):
+        return T.BOOLEAN
+
+    def with_children(self, children):
+        return IsNaN(children[0])
+
+    def eval(self, ctx):
+        c = self.children[0].eval(ctx)
+        return ColumnVector(T.BOOLEAN, torch.isnan(c.data), _valid_of(c, ctx))
+
+
+class _RawCol(Expression):
+    """An already evaluated column as an expression."""
+
+    def __init__(self, col: ColumnVector):
+        self.col = col
+        self.children = []
+
+    def data_type(self):
+        return self.col.dtype
+
+    def eval(self, ctx):
+        return self.col
+
+
+class In(Expression):
+    """``x IN (v1, ...)``, folded as ``x = v1 OR x = v2 ...`` over the
+    evaluated column, so nulls come out Kleene: no match and a null in the
+    list (or a null x) is null."""
+
+    def __init__(self, child, values: List[Expression]):
+        self.children = [child] + list(values)
+
+    def data_type(self):
+        return T.BOOLEAN
+
+    def with_children(self, children):
+        return In(children[0], children[1:])
+
+    def eval(self, ctx):
+        c = self.children[0].eval(ctx)
+        acc = None
+        for v in self.children[1:]:
+            if isinstance(v, NullOf):
+                # x = NULL is null on every row
+                eq = ColumnVector(T.BOOLEAN, torch.zeros(
+                    ctx.capacity, dtype=torch.bool, device=ctx.device),
+                    torch.zeros(ctx.capacity, dtype=torch.bool,
+                                device=ctx.device))
+            else:
+                eq = EqualTo(_RawCol(c), v).eval(ctx)
+            acc = eq if acc is None else Or(_RawCol(acc), _RawCol(eq)).eval(ctx)
+        return acc
+
+
+class If(Expression):
+    """``if(p, a, b)``: a where p is true, b where it is false or null; the
+    result takes the branches' common type."""
+
+    def __init__(self, pred, then, otherwise):
+        self.children = [pred, then, otherwise]
+
+    def data_type(self):
+        return T.common_type(self.children[1].data_type(),
+                             self.children[2].data_type())
+
+    def with_children(self, children):
+        return If(children[0], children[1], children[2])
+
+    def eval(self, ctx):
+        p = self.children[0].eval(ctx)
+        t = self.children[1].eval(ctx)
+        f = self.children[2].eval(ctx)
+        out = self.data_type()
+        take_then = p.data.to(torch.bool) & _valid_of(p, ctx)
+        valid = torch.where(take_then, _valid_of(t, ctx), _valid_of(f, ctx))
+        if isinstance(out, T.StringType):
+            from spark_rapids_tpu_torch.expr.strings import select_strings
+            return select_strings(take_then, t, f, valid)
+        td, fd = _promote(t, f, out)
+        return ColumnVector(out, torch.where(take_then, td, fd), valid)
+
+
+class CaseWhen(Expression):
+    """``CASE WHEN p1 THEN v1 ... ELSE e END``, folded as nested ``If``s.
+    Without an ELSE the result is null of the first branch's type (the
+    port has no NullType)."""
+
+    def __init__(self, branches: List[Tuple[Expression, Expression]],
+                 otherwise: Optional[Expression] = None):
+        self.branches = list(branches)
+        self.otherwise_expr = otherwise if otherwise is not None \
+            else NullOf(self.branches[0][1])
+        self.children = [e for b in self.branches for e in b] \
+            + [self.otherwise_expr]
+
+    def _fold(self) -> Expression:
+        out = self.otherwise_expr
+        for p, v in reversed(self.branches):
+            out = If(p, v, out)
+        return out
+
+    def data_type(self):
+        return self._fold().data_type()
+
+    def with_children(self, children):
+        nb = len(self.branches)
+        return CaseWhen([(children[2 * i], children[2 * i + 1])
+                         for i in range(nb)], children[-1])
+
+    def eval(self, ctx):
+        return self._fold().eval(ctx)
+
+
+class KnownNotNull(Expression):
+    """Catalyst's marker that the child was proven non-null: a
+    pass-through."""
+
+    def __init__(self, child):
+        self.children = [child]
+
+    def data_type(self):
+        return self.children[0].data_type()
+
+    def with_children(self, children):
+        return type(self)(children[0])
+
+    def eval(self, ctx):
+        return self.children[0].eval(ctx)
+
+
+class KnownFloatingPointNormalized(KnownNotNull):
+    """Pass-through marker: the child's NaN and -0.0 are already
+    canonical."""
+
+
+class NormalizeNaNAndZero(Expression):
+    """Canonical floats for grouping and join keys: -0.0 becomes 0.0 and
+    every NaN the canonical NaN."""
+
+    def __init__(self, child):
+        self.children = [child]
+
+    def data_type(self):
+        return self.children[0].data_type()
+
+    def with_children(self, children):
+        return NormalizeNaNAndZero(children[0])
+
+    def eval(self, ctx):
+        c = self.children[0].eval(ctx)
+        v = c.data
+        if v.dtype in (torch.float32, torch.float64):
+            v = torch.where(v == 0, torch.zeros_like(v), v)
+            v = torch.where(torch.isnan(v), float("nan"), v)
+        return ColumnVector(c.dtype, v, _valid_of(c, ctx))
+
+
+class AtLeastNNonNulls(Expression):
+    """Catalyst's dropna predicate: at least n children are non-null (and,
+    for floats, not NaN, which Spark counts as missing here); never
+    null."""
+
+    def __init__(self, n: int, *children):
+        self.n = int(n)
+        self.children = list(children)
+
+    def _params(self):
+        return str(self.n)
+
+    def data_type(self):
+        return T.BOOLEAN
+
+    def with_children(self, children):
+        return AtLeastNNonNulls(self.n, *children)
+
+    def eval(self, ctx):
+        cnt = torch.zeros(ctx.capacity, dtype=torch.int32, device=ctx.device)
+        for c in self.children:
+            cc = c.eval(ctx)
+            ok = _valid_of(cc, ctx)
+            if isinstance(cc.dtype, (T.Float32Type, T.Float64Type)):
+                ok = ok & ~torch.isnan(cc.data)
+            cnt = cnt + ok.to(torch.int32)
+        return ColumnVector(T.BOOLEAN, cnt >= self.n,
+                            torch.ones(ctx.capacity, dtype=torch.bool,
+                                       device=ctx.device))
+
+
 class Coalesce(Expression):
     """The first non-null child per row, in the children's common type."""
 
@@ -641,9 +995,28 @@ _INT_BOUNDS = {
 }
 
 
+def _to_int(data: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """data as an integer plane; floats convert as XLA does (and Spark's
+    cast): truncated, saturated at the type's bounds, NaN to 0."""
+    if data.dtype not in (torch.float32, torch.float64):
+        return data.to(dtype)
+    lo, hi = _INT_BOUNDS[dtype]
+    v = data.to(torch.float64)
+    clamped = torch.where(torch.isnan(v), 0.0, v).clamp(lo, hi)
+    out = torch.trunc(clamped).to(dtype)
+    if dtype == torch.int64:
+        # 2**63 - 1 rounds to 2.0**63 as a double, which the CPU converts
+        # to MIN_VALUE: saturate on the integer result
+        out = torch.where(clamped >= 2.0 ** 63, hi, out)
+    return out
+
+
 class Cast(Expression):
-    """Numeric, bool and date casts (Spark non-ANSI semantics: float to
-    int truncates and saturates, NaN becomes 0; integer narrowing wraps)."""
+    """Numeric, bool, date and timestamp casts (Spark non-ANSI semantics:
+    float to int truncates and saturates, NaN becomes 0; integer narrowing
+    wraps; timestamp to date and to integers floors to days and seconds;
+    date and integers to timestamp scale to microseconds, wrapping in
+    int64). The arms run in the JAX package's order."""
 
     def __init__(self, child: Expression, to: T.DataType):
         self.children = [child]
@@ -664,23 +1037,37 @@ class Cast(Expression):
         if src == dst:
             return c
         if isinstance(src, T.StringType) or isinstance(dst, T.StringType):
-            raise NotImplementedError("string casts on the device")
+            raise NotImplementedError("string casts on the device (ROADMAP "
+                                      "A9)")
         valid = _valid_of(c, ctx)
+        if isinstance(src, T.BooleanType):
+            return ColumnVector(dst, c.data.to(dst.torch_dtype), valid)
         if isinstance(dst, T.BooleanType):
             return ColumnVector(dst, c.data != 0, valid)
-        if isinstance(src, T.BooleanType) \
-                or isinstance(dst, (T.Float32Type, T.Float64Type)):
+        if isinstance(dst, (T.Float32Type, T.Float64Type)):
             return ColumnVector(dst, c.data.to(dst.torch_dtype), valid)
-        lo, hi = _INT_BOUNDS[dst.torch_dtype]
-        if isinstance(src, (T.Float32Type, T.Float64Type)):
+        if isinstance(src, (T.Float32Type, T.Float64Type)) and dst.is_integral:
+            lo, hi = _INT_BOUNDS[dst.torch_dtype]
             v = c.data.to(torch.float64)
             if ctx.ansi:
                 ctx.add_error("CAST_OVERFLOW",
                               (torch.isnan(v) | (v < lo) | (v > hi)) & valid)
-            clamped = torch.where(torch.isnan(v), 0.0, v).clamp(lo, hi)
-            return ColumnVector(dst, torch.trunc(clamped).to(dst.torch_dtype),
-                                valid)
-        data = c.data.to(torch.int64)
-        if ctx.ansi:
+            return ColumnVector(dst, _to_int(v, dst.torch_dtype), valid)
+        # integral, date or timestamp to integral, date or timestamp
+        data = _to_int(c.data, torch.int64)
+        if isinstance(src, T.TimestampType) and isinstance(dst, T.DateType):
+            days = torch.div(data, _MICROS_PER_DAY, rounding_mode="floor")
+            return ColumnVector(dst, days.to(torch.int32), valid)
+        if isinstance(src, T.DateType) and isinstance(dst, T.TimestampType):
+            return ColumnVector(dst, data * _MICROS_PER_DAY, valid)
+        if isinstance(src, T.TimestampType) and dst.is_integral:
+            data = torch.div(data, 1_000_000, rounding_mode="floor")
+        if isinstance(dst, T.TimestampType) and src.is_integral:
+            return ColumnVector(dst, data * 1_000_000, valid)
+        if ctx.ansi and dst.is_integral:
+            lo, hi = _INT_BOUNDS[dst.torch_dtype]
             ctx.add_error("CAST_OVERFLOW", ((data < lo) | (data > hi)) & valid)
         return ColumnVector(dst, data.to(dst.torch_dtype), valid)
+
+
+_MICROS_PER_DAY = 86_400_000_000

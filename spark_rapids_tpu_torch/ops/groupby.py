@@ -2,7 +2,8 @@
 
 Counterpart of ``spark_rapids_tpu/ops/groupby.py``: ``global_agg`` (the q6
 route), ``bucket_agg`` (the tiny-bucket route q1 takes: dict-string and
-bool keys), and the sort route for keys that do not pack (flat strings,
+bool keys), each with the reductions sum, sumsq (the sum of squares of
+the moments), count, min, max, first and last, and the sort route for keys that do not pack (flat strings,
 dictionary keys whose vocabulary may repeat a string, floats):
 ``group_segments``, ``num_groups``, ``segmented_agg`` and
 ``gather_group_keys``.
@@ -53,9 +54,10 @@ def global_agg(op: str, values: torch.Tensor, valid: torch.Tensor
     ones = torch.ones(1, dtype=torch.bool, device=values.device)
     if op in ("count", "count_all"):
         return nvalid.reshape(1), ones
-    if op == "sum":
-        return torch.where(valid, values,
-                           torch.zeros_like(values)).sum().reshape(1), some
+    if op in ("sum", "sumsq"):
+        v = values * values if op == "sumsq" else values
+        return torch.where(valid, v, torch.zeros_like(v)).sum().reshape(1), \
+            some
     if op in ("min", "max"):
         red = torch.amin if op == "min" else torch.amax
         if values.dtype in _FLOATS:
@@ -67,6 +69,15 @@ def global_agg(op: str, values: torch.Tensor, valid: torch.Tensor
         masked = torch.where(valid, values,
                              torch.full_like(values, _init(op, values.dtype)))
         return red(masked).reshape(1), some
+    if op in ("first", "last"):
+        n = values.shape[0]
+        pos = torch.arange(n, device=values.device)
+        if op == "first":
+            sel = torch.where(valid, pos, n).min()
+        else:
+            sel = torch.where(valid, pos, -1).max()
+        has = (sel >= 0) & (sel < n)
+        return values[sel.clamp(0, n - 1)].reshape(1), (has & some).reshape(1)
     raise ValueError(f"unknown global op {op}")
 
 
@@ -91,8 +102,9 @@ def bucket_agg(op: str, values: torch.Tensor, valid: torch.Tensor,
 
     if op in ("count", "count_all"):
         return count(), torch.ones(B, dtype=torch.bool, device=device)
-    if op == "sum":
-        v = torch.where(valid, values, torch.zeros_like(values))
+    if op in ("sum", "sumsq"):
+        v = values * values if op == "sumsq" else values
+        v = torch.where(valid, v, torch.zeros_like(v))
         if matmul_ok:
             out = torch.stack([torch.where(bucket == b, v,
                                            torch.zeros_like(v)).sum()
@@ -119,6 +131,24 @@ def bucket_agg(op: str, values: torch.Tensor, valid: torch.Tensor,
         init = _init(op, values.dtype)
         masked = torch.where(valid, values, torch.full_like(values, init))
         return scatter_red(masked, init), nvalid > 0
+    if op in ("first", "last"):
+        # the first or last valid row position per bucket; for tiny B one
+        # masked reduction per bucket (a scatter of ascending positions
+        # into a few slots serializes on its atomics)
+        n = values.shape[0]
+        none = n if op == "first" else -1
+        p = torch.where(valid, torch.arange(n, device=device), none)
+        if matmul_ok:
+            red = torch.amin if op == "first" else torch.amax
+            sel = torch.stack([red(torch.where(bucket == b, p, none))
+                               for b in range(B)])
+        else:
+            out = torch.full((B + 1,), none, dtype=torch.int64, device=device)
+            sel = out.scatter_reduce_(
+                0, safe, p, reduce="amin" if op == "first" else "amax",
+                include_self=True)[:B]
+        has = (sel >= 0) & (sel < n)
+        return values[sel.clamp(0, n - 1)], has & (count() > 0)
     raise ValueError(f"unknown bucket op {op}")
 
 
@@ -178,9 +208,9 @@ def segmented_agg(op: str, values: torch.Tensor, valid: torch.Tensor,
         return nvalid, ones
     if op == "count_all":
         return seg_sum(torch.ones_like(idx)), ones
-    if op == "sum":
-        return seg_sum(torch.where(valid, values,
-                                   torch.zeros_like(values))), nvalid > 0
+    if op in ("sum", "sumsq"):
+        v = values * values if op == "sumsq" else values
+        return seg_sum(torch.where(valid, v, torch.zeros_like(v))), nvalid > 0
     if op in ("min", "max"):
         reduce = "amin" if op == "min" else "amax"
 
@@ -203,6 +233,21 @@ def segmented_agg(op: str, values: torch.Tensor, valid: torch.Tensor,
         init = _init(op, values.dtype)
         masked = torch.where(valid, values, torch.full_like(values, init))
         return seg_red(masked, init), nvalid > 0
+    if op in ("first", "last"):
+        # the first or last valid sorted position per group
+        n = values.shape[0]
+        pos = torch.arange(n, device=device)
+        if op == "first":
+            out = torch.full((seg_cap,), n, dtype=torch.int64, device=device)
+            sel = out.scatter_reduce_(0, idx, torch.where(valid, pos, n),
+                                      reduce="amin", include_self=True)
+        else:
+            out = torch.full((seg_cap,), -1, dtype=torch.int64,
+                             device=device)
+            sel = out.scatter_reduce_(0, idx, torch.where(valid, pos, -1),
+                                      reduce="amax", include_self=True)
+        has = (sel >= 0) & (sel < n)
+        return values[sel.clamp(0, n - 1)], has & (nvalid > 0)
     raise ValueError(f"unknown segmented op {op}")
 
 

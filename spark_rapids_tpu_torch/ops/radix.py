@@ -516,6 +516,23 @@ def bucket_minmax_int(op, lay: BucketLayout, vals, valid) -> torch.Tensor:
     return _segment_reduce(op, v, _safe_bucket(lay, valid), lay.nb, init)
 
 
+def bucket_first_last(op, lay: BucketLayout, vals, valid):
+    """(value, has one) of the first or last valid row per bucket, in row
+    order."""
+    n = vals.shape[0]
+    pos = torch.arange(n, dtype=torch.int32, device=vals.device)
+    sb = _safe_bucket(lay, valid)
+    if op == "first":
+        sel = _segment_reduce("min", torch.where(valid, pos, n), sb, lay.nb,
+                              n)
+        has = sel < n
+    else:
+        sel = _segment_reduce("max", torch.where(valid, pos, -1), sb, lay.nb,
+                              -1)
+        has = sel >= 0
+    return vals[sel.clamp(0, n - 1).to(torch.int64)], has
+
+
 def _f64_order_i64(v: torch.Tensor) -> torch.Tensor:
     """f64 -> order-preserving int64 (NaN above +inf, -0.0 == 0.0)."""
     x = torch.where(torch.isnan(v), float("nan"), v)

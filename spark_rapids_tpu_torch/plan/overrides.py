@@ -8,7 +8,8 @@ functions of ``expr/strings.py`` (length, upper/lower with the case-map
 kernel, substring, concat, startswith/endswith/contains, transpilable
 LIKE, string equality), hash and round-robin repartition, the hash
 aggregate with its tiny-bucket, packed (scatter, segsum, sort) and sort
-routes (string and float keys group by sorting), sort (a range exchange
+routes (string and float keys group by sorting; segmented aggregates such
+as percentile take a hash exchange of raw rows by key first), sort (a range exchange
 first over several partitions), limit and TopN, window functions (a hash
 exchange on the partition keys, or a collect when there are none, below
 ``WindowExec``), equi-joins of every type, broadcast or shuffled as the
@@ -17,7 +18,8 @@ JAX package plans them with adaptive execution off, non-equi joins
 (``CartesianProductExec``). Everything runs on one device: there is no
 tagging and no CPU fallback yet, so what the JAX package would run on the
 CPU raises ``NotImplementedError`` with its reason (a window ORDER BY on
-strings, string window operands, bounded-rows min/max, ...), and so does
+strings, string window operands, bounded-rows min/max, min/max/first/last
+over strings, min_by/max_by ordered by strings, ...), and so does
 an expression the device cannot run (a LIKE pattern that needs the NFA, a
 string ordering comparison).
 """
@@ -209,13 +211,47 @@ def _convert_join(plan, children, conf, device):
     return X.BroadcastHashJoinExec(plan, [left, right], conf, device)
 
 
+def _agg_fallbacks(plan) -> List[str]:
+    """What the JAX package's aggregate rules send to the CPU
+    (``_no_string_input``, ``_minmax_by_check``), with its reasons."""
+    from spark_rapids_tpu_torch.expr import aggregates as A
+    reasons = []
+    for a in plan.aggs:
+        fn = a.fn
+        if isinstance(fn, (A.Min, A.Max, A.First, A.Last)) and any(
+                isinstance(c.data_type(), T.StringType) for c in fn.children):
+            reasons.append(f"{type(fn).__name__} over strings not supported "
+                           f"on device")
+        if isinstance(fn, A._MinMaxBy) \
+                and isinstance(fn.children[1].data_type(), T.StringType):
+            reasons.append(f"{type(fn).__name__} ordered by a string column "
+                           f"runs on CPU")
+    return reasons
+
+
 def _convert_aggregate(plan, child, conf, device):
+    reasons = _agg_fallbacks(plan)
+    if reasons:
+        raise NotImplementedError("HashAggregateExec: " + "; ".join(reasons)
+                                  + " (a CPU fallback in the JAX package; "
+                                  "ROADMAP A3)")
     pre_filter = None
     if isinstance(child, X.FilterExec):
         # the filter folds into the aggregate's update as a live mask
         pre_filter = child.plan.condition
         child = child.children[0]
-    if child.num_partitions > 1:
+    if child.num_partitions > 1 and any(
+            getattr(a.fn, "no_partial", False) for a in plan.aggs):
+        # segmented aggregates have no mergeable state: raw rows meet by
+        # group key (a hash exchange, or a collect without keys), then
+        # each partition aggregates completely
+        if plan.group_exprs:
+            child = X.ShuffleExchangeExec(plan, [child], conf, device,
+                                          plan.group_exprs,
+                                          child.num_partitions)
+        else:
+            child = X.CollectExchangeExec(plan, [child], conf, device)
+    elif child.num_partitions > 1:
         # one device holds every partition: collect them and aggregate
         # once, completely (the JAX package's single-device plan)
         child = X.CoalesceBatchesExec(

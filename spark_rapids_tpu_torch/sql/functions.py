@@ -1,6 +1,12 @@
 """Functions of the DataFrame API (counterpart of
 ``spark_rapids_tpu/sql/functions.py``): the aggregates ``sum``, ``count``,
-``avg``, ``min`` and ``max``, and the string functions ``length``,
+``avg``, ``min``, ``max``, ``first``, ``last``, ``stddev`` (``stddev_samp``),
+``stddev_pop``, ``variance`` (``var_samp``), ``var_pop``, ``min_by``,
+``max_by``, ``percentile`` and ``approx_percentile``
+(``percentile_approx``); the scalar functions ``when``/``otherwise``,
+``coalesce``, ``nvl``, ``nullif``, ``isnull``, ``isnan``, ``abs``,
+``greatest``, ``least``, ``spark_partition_id`` and
+``monotonically_increasing_id``; the string functions ``length``,
 ``upper``, ``lower``, ``substring``, ``concat``, ``startswith``,
 ``endswith``, ``contains`` and ``like``, and the window functions
 ``row_number``, ``rank``, ``dense_rank``, ``ntile``, ``percent_rank``,
@@ -9,6 +15,8 @@
 from __future__ import annotations
 
 from spark_rapids_tpu_torch.expr import aggregates as A
+from spark_rapids_tpu_torch.expr import core as E
+from spark_rapids_tpu_torch.expr import math as MA
 from spark_rapids_tpu_torch.expr import strings as S
 from spark_rapids_tpu_torch.expr import window as W
 from spark_rapids_tpu_torch.expr.core import Expression, col, lit
@@ -39,6 +47,141 @@ def min(c):  # noqa: A001
 
 def max(c):  # noqa: A001
     return A.Max(_e(c))
+
+
+def first(c):
+    return A.First(_e(c))
+
+
+def last(c):
+    return A.Last(_e(c))
+
+
+def collect_list(c):
+    raise NotImplementedError("collect_list returns an ArrayType, and the "
+                              "port has no nested types yet (ROADMAP A3)")
+
+
+def collect_set(c):
+    raise NotImplementedError("collect_set returns an ArrayType, and the "
+                              "port has no nested types yet (ROADMAP A3)")
+
+
+def min_by(c, ord_c):
+    return A.MinBy(_e(c), _e(ord_c))
+
+
+def max_by(c, ord_c):
+    return A.MaxBy(_e(c), _e(ord_c))
+
+
+def percentile(c, p: float):
+    return A.Percentile(_e(c), p)
+
+
+def approx_percentile(c, p: float, accuracy: int = 10000):
+    return A.ApproxPercentile(_e(c), p, accuracy)
+
+
+percentile_approx = approx_percentile
+
+
+def stddev(c):
+    return A.StddevSamp(_e(c))
+
+
+stddev_samp = stddev
+
+
+def stddev_pop(c):
+    return A.StddevPop(_e(c))
+
+
+def variance(c):
+    return A.VarianceSamp(_e(c))
+
+
+var_samp = variance
+
+
+def var_pop(c):
+    return A.VariancePop(_e(c))
+
+
+# scalar ---------------------------------------------------------------------
+def spark_partition_id():
+    return E.SparkPartitionID()
+
+
+def monotonically_increasing_id():
+    return E.MonotonicallyIncreasingID()
+
+
+def coalesce(*cs):
+    return E.Coalesce(*[_e(c) for c in cs])
+
+
+def nvl(c, default):
+    return coalesce(c, default)
+
+
+def nullif(a, b):
+    ea, eb = _e(a), _e(b)
+    return E.If(E.EqualTo(ea, eb), E.NullOf(ea), ea)
+
+
+def when(cond, value):
+    return _WhenBuilder([(cond, _e(value))])
+
+
+class _WhenBuilder(Expression):
+    """``when(...).when(...)`` chains; ``otherwise`` closes the CASE, and a
+    chain used as it is has no ELSE."""
+
+    def __init__(self, branches):
+        self._branches = branches
+        self.children = []
+
+    def when(self, cond, value):
+        return _WhenBuilder(self._branches + [(cond, _e(value))])
+
+    def otherwise(self, value):
+        return E.CaseWhen(self._branches, _e(value))
+
+    def _as_case(self):
+        return E.CaseWhen(self._branches)
+
+    def data_type(self):
+        return self._as_case().data_type()
+
+    def transform(self, fn):
+        return self._as_case().transform(fn)
+
+    def eval(self, ctx):
+        return self._as_case().eval(ctx)
+
+    def fingerprint(self):
+        return self._as_case().fingerprint()
+
+
+def isnull(c):
+    return E.IsNull(_e(c))
+
+
+def isnan(c):
+    return E.IsNaN(_e(c))
+
+
+def abs(c):  # noqa: A001
+    return E.Abs(_e(c))
+
+
+def greatest(*cs):
+    return MA.Greatest(*[_e(c) for c in cs])
+
+
+def least(*cs):
+    return MA.Least(*[_e(c) for c in cs])
 
 
 # strings --------------------------------------------------------------------

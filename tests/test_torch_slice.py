@@ -317,3 +317,55 @@ def test_expressions_match_jax():
     from spark_rapids_tpu_torch import types as PT
     J.T, P.T = JT, PT
     assert_tables_equal(query(P).collect(), query(J).collect())
+
+
+_US_PER_DAY = 86_400_000_000
+
+
+def _temporal_casts(api):
+    c, T = api.col, api.T
+    return [c("ts").cast(T.DATE).alias("ts_date"),
+            c("ts").cast(T.INT64).alias("ts_long"),
+            c("ts").cast(T.INT32).alias("ts_int"),
+            c("d").cast(T.TIMESTAMP).alias("date_ts"),
+            c("i").cast(T.TIMESTAMP).alias("int_ts"),
+            c("l").cast(T.TIMESTAMP).alias("long_ts")]
+
+
+def _saturating_casts(api):
+    c, T = api.col, api.T
+    return [c(src).cast(dst).alias(f"{src}_{name}")
+            for src in ("f64", "f32")
+            for name, dst in (("long", T.INT64), ("int", T.INT32),
+                              ("short", T.INT16))]
+
+
+@pytest.mark.parametrize("casts", [_temporal_casts, _saturating_casts],
+                         ids=["timestamp_date_units", "float_to_int_saturates"])
+def test_casts_match_jax(casts):
+    # the unit-converting arms of timestamps and dates, and float-to-long
+    # saturating at 2**63 - 1, compared exactly (timestamps as their int64
+    # microseconds: some are outside Python's datetime range)
+    t = pa.table({
+        "ts": pa.array([0, -1, 3 * _US_PER_DAY + 5, -(_US_PER_DAY + 1), None,
+                        1_700_000_000_123_456], pa.timestamp("us")),
+        "d": pa.array([0, -1, 5, 19675, None, -3000], pa.date32()),
+        "i": pa.array([0, -1, 5, 100_000, None, 2 ** 31 - 1], pa.int32()),
+        "l": pa.array([0, -1, 5, 2 ** 40, None, -2 ** 62], pa.int64()),
+        "f64": [np.inf, 9.3e18, 2.0 ** 63, 1e300, -np.inf, np.nan],
+        "f32": pa.array([np.inf, 9.3e18, 2.0 ** 63, 1e30, -np.inf, np.nan],
+                        pa.float32()),
+    })
+
+    def query(api):
+        out = api.session().create_dataframe(t).select(*casts(api)).collect()
+        return pa.table({n: out[n].cast(pa.int64())
+                         if pa.types.is_timestamp(out[n].type) else out[n]
+                         for n in out.column_names})
+    got, want = query(torch_api()), query(jax_api())
+    assert_tables_equal(got, want)
+    if casts is _saturating_casts:
+        assert got["f64_long"].to_pylist()[:4] == [2 ** 63 - 1] * 4
+    else:
+        assert got["ts_date"].cast(pa.int32()).to_pylist() == \
+            [0, -1, 3, -2, None, 19675]

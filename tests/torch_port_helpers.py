@@ -4,11 +4,12 @@ The table generators (bench.py's lineitem and orders, the customers, the
 flag dimension, the price bands, lineitem_text) and the query shapes of
 the port's slices (four of the first, three string shapes of the third,
 the join and sort shapes of the fourth, the window shapes and the
-nested-loop and cross joins of the fifth) are written once against a
+nested-loop and cross joins of the fifth, the expression and aggregate
+shapes of the sixth) are written once against a
 package namespace, so the same program runs through ``spark_rapids_tpu``
 (the reference) and ``spark_rapids_tpu_torch``; ``chip_smoke.py`` runs the
-same generators, string shapes, join and sort shapes and window shapes on
-the card. At import this module
+same generators and the string, join and sort, window, and expression
+and aggregate shapes on the card. At import this module
 needs numpy and pyarrow only.
 ``from_jax_batch`` rebuilds a JAX package batch as a torch batch, so single
 operations can be compared on identical inputs.
@@ -163,20 +164,24 @@ def make_bands() -> pa.Table:
 
 
 def jax_api() -> SimpleNamespace:
-    from spark_rapids_tpu.expr.core import col, lit
+    from spark_rapids_tpu import types as T
+    from spark_rapids_tpu.expr import core as E
     from spark_rapids_tpu.expr.window import Window
     from spark_rapids_tpu.sql import functions as F
     from spark_rapids_tpu.sql.session import TpuSession
-    return SimpleNamespace(col=col, lit=lit, F=F, Window=Window,
+    return SimpleNamespace(col=E.col, lit=E.lit, F=F, E=E, T=T,
+                           Window=Window,
                            session=lambda conf=None: TpuSession(conf))
 
 
 def torch_api() -> SimpleNamespace:
     from spark_rapids_tpu_torch import TorchSession
-    from spark_rapids_tpu_torch.expr.core import col, lit
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.expr import core as E
     from spark_rapids_tpu_torch.expr.window import Window
     from spark_rapids_tpu_torch.sql import functions as F
-    return SimpleNamespace(col=col, lit=lit, F=F, Window=Window,
+    return SimpleNamespace(col=E.col, lit=E.lit, F=F, E=E, T=T,
+                           Window=Window,
                            session=lambda conf=None: TorchSession(
                                conf, device="cpu"))
 
@@ -464,6 +469,94 @@ def dedupe_orders(api, df):
     """One whole line per order key (``drop_duplicates``: a row_number
     over the key ordered by a constant, then a filter)."""
     return df.drop_duplicates(["l_orderkey"])
+
+
+# ---------------------------------------------------------------------------
+# the expression and aggregate shapes
+# ---------------------------------------------------------------------------
+
+def q14_case(api, df):
+    """TPC-H Q14's CASE-in-SUM by ship date: the promotion revenue (flags
+    A and R stand in for the PROMO part types), all revenue and the line
+    count; a 12-bit key, the (chunked) segsum route."""
+    col, lit, F = api.col, api.lit, api.F
+    rev = col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+    promo = F.when(col("l_returnflag").isin("A", "R"), rev) \
+        .otherwise(lit(0.0))
+    return df.group_by(col("l_shipdate")).agg(
+        F.sum(promo).alias("promo"), F.sum(rev).alias("rev"),
+        F.count().alias("n"))
+
+
+def q1_stats(api, df):
+    """q1's filter and flag keys with the moments, first/last and an
+    average of abs(-x): the tiny-bucket route."""
+    col, lit, F = api.col, api.lit, api.F
+    return (df.filter(col("l_shipdate") <= lit(10471))
+            .group_by("l_returnflag", "l_linestatus")
+            .agg(F.stddev(col("l_quantity")).alias("sd_q"),
+                 F.var_pop(col("l_extendedprice")).alias("vp_p"),
+                 F.first(col("l_shipdate")).alias("first_ship"),
+                 F.last(col("l_discount")).alias("last_disc"),
+                 F.avg(F.abs(-col("l_discount"))).alias("avg_abs"),
+                 F.count().alias("n")))
+
+
+def stats_by_order(api, df):
+    """Moments and first per order-key bucket: a 17-bit packed key, which
+    the sums of squares keep off the segsum route."""
+    col, lit, F = api.col, api.lit, api.F
+    return (df.select((col("l_orderkey") % lit(100_000)).alias("k"),
+                      col("l_extendedprice"), col("l_discount"),
+                      col("l_quantity"))
+            .group_by(col("k"))
+            .agg(F.stddev(col("l_extendedprice")).alias("sd_p"),
+                 F.variance(col("l_discount")).alias("var_d"),
+                 F.first(col("l_quantity")).alias("first_q")))
+
+
+def pctl_shuffled(api, df):
+    """Percentiles and min_by/max_by per ship date: segmented aggregates,
+    so a multi-partition input is hash-exchanged by key as raw rows."""
+    col, F = api.col, api.F
+    return df.group_by(col("l_shipdate")).agg(
+        F.percentile(col("l_extendedprice"), 0.5).alias("p50"),
+        F.approx_percentile(col("l_discount"), 0.9).alias("p90"),
+        F.max_by(col("l_orderkey"), col("l_extendedprice")).alias("top"),
+        F.min_by(col("l_orderkey"), col("l_discount")).alias("cheap"))
+
+
+#: cleanse_rows' output columns, in order
+CLEANSE_COLS = ("l_orderkey", "status", "ok7", "nq", "nvl_q", "hi", "lo",
+                "ts", "ts_s", "sat", "ns", "pid", "mid")
+
+
+def cleanse_rows(api, df, ship_before=8500):
+    """A row query over early lines: a three-branch string CASE on the
+    flags, integral division, nullif/nvl, greatest/least, the date and
+    timestamp casts, a saturating float-to-long cast, <=> on a nullable
+    column, and the partition id and monotonically increasing id."""
+    col, lit, F, E, T = api.col, api.lit, api.F, api.E, api.T
+    nq = F.nullif(col("l_quantity"), lit(1.0))
+    status = (F.when(col("l_returnflag") == lit("R"), lit("returned"))
+              .when(col("l_returnflag") == lit("A"), col("l_linestatus"))
+              .otherwise(lit("none")))
+    price_off = col("l_extendedprice") * col("l_discount")
+    ts = col("l_shipdate").cast(T.DATE).cast(T.TIMESTAMP)
+    return (df.filter(col("l_shipdate") < lit(ship_before))
+            .select(col("l_orderkey"), status.alias("status"),
+                    E.IntegralDivide(col("l_orderkey"), lit(7)).alias("ok7"),
+                    nq.alias("nq"), F.nvl(nq, lit(0.0)).alias("nvl_q"),
+                    F.greatest(price_off, col("l_quantity") * lit(100.0))
+                    .alias("hi"),
+                    F.least(price_off, col("l_quantity") * lit(100.0))
+                    .alias("lo"),
+                    ts.alias("ts"), ts.cast(T.INT64).alias("ts_s"),
+                    (col("l_extendedprice") * lit(1e14)).cast(T.INT64)
+                    .alias("sat"),
+                    E.EqualNullSafe(nq, lit(50.0)).alias("ns"),
+                    F.spark_partition_id().alias("pid"),
+                    F.monotonically_increasing_id().alias("mid")))
 
 
 def from_jax_batch(batch):
