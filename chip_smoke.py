@@ -89,19 +89,47 @@ Phases, one JSON line each:
    operators and window route; the routes the JAX package takes on the
    same caches are asserted, and murmur3 and segsum must have run in
    win_shuffled.
+10. exprs (after the window phase, on the joins phase's caches): q14_case
+   (Q14's CASE inside SUM by ship date: the chunked segsum route),
+   q1_stats (moments, first/last, abs: the tiny-bucket route),
+   stats_by_order (moments per 17-bit order-key bucket: the scatter
+   route), pctl_shuffled (percentiles and min_by/max_by over the
+   8-partition cache: a hash exchange of raw rows) and cleanse_rows (a
+   row query of CASE, integral division, nullif/nvl, greatest/least, the
+   date and timestamp casts and the partition ids), each cold then twice
+   warm and checked against numpy, with each run's aggregate routes and
+   launch counts asserted exactly.
+11. sets (after the exprs phase, on the joins phase's caches): q1_rollup
+   (q1's filter under ROLLUP of the flags: one batch per grouping set),
+   rollup_shipdate (ROLLUP of ship year and week over the numeric
+   columns: one stacked batch of 3 x capacity, the chunked segsum
+   route), cube_flags (CUBE of the flags with the grouping() markers),
+   union_repart (the 8-partition cache's early lines with the quantity
+   cast to int UNION ALL the 1-partition cache's late lines, widened,
+   hash-repartitioned by ship date: murmur3 on every union batch, then
+   the chunked segsum route), orders_setops (INTERSECT and EXCEPT over
+   the 8-partition orders), range_agg (session.range of 2^28 ids over 8
+   partitions, summed per id % 100003), pivot_flags (PIVOT of the return
+   flag with the values inferred), describe_li (describe of three
+   numeric columns and a correlation) and sample_li (a 1% sample by
+   rand), each cold then twice warm and checked against numpy (range_agg
+   against its closed form, sample_li against numpy's splitmix64
+   stream), with each run's aggregate routes, Expand form and launch
+   counts asserted exactly.
 
 It then prints the kernel table ({"kernels": [...]}, with each kernel's
-launches per path: cached, parquet, strings, joins, window), the card's name and power limit, and as its last line
-{"ok": true, "device": {...}}. Any failure exits non-zero without that
-line; so does a machine without CUDA, and so does a run that imported the
-JAX package. The lineitem generators and the string, join and window
-query shapes are the ones of tests/torch_port_helpers.py, which the CPU
-tests run too.
+launches per path in "launches_by_path": cached, parquet, strings, joins,
+window, exprs, sets), the card's name and power limit, and as its last
+line {"ok": true, "device": {...}}. Any failure exits non-zero without
+that line; so does a machine without CUDA, and so does a run that
+imported the JAX package. The lineitem generators and the string, join,
+window, expression and set query shapes are the ones of
+tests/torch_port_helpers.py, which the CPU tests run too.
 CHIP_SMOKE_PROFILE=1 adds a torch.profiler pass over each query of the
-five query paths, with each port kernel's launches, device time and bounds at
-the shapes the query gave it, and ranks the kernels by device time above
-bound over those runs (CHIP_SMOKE_TRACE_DIR=dir also writes the queries'
-Chrome traces).
+seven query paths, with each port kernel's launches, device time and
+bounds at the shapes the query gave it, and ranks the kernels by device
+time above bound over those runs (CHIP_SMOKE_TRACE_DIR=dir also writes
+the queries' Chrome traces).
 """
 from __future__ import annotations
 
@@ -1945,6 +1973,285 @@ def phase_exprs(table, h1, h8, spy, prof=None):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 11: unions, grouping sets, ranges and the DataFrame surface
+# ---------------------------------------------------------------------------
+
+def _codes(col):
+    """pyarrow dictionary codes (int64) and the vocabulary of a column."""
+    import pyarrow.compute as pc
+    enc = pc.dictionary_encode(col).combine_chunks()
+    return enc.indices.to_numpy().astype(np.int64), enc.dictionary.to_pylist()
+
+
+def sets_reference(t, orders):
+    """numpy answers to the set shapes: bincounts per grouping set, the
+    set operations by masks over the unique order keys, range_agg's closed
+    form, the summary statistics, and the splitmix64 stream."""
+    H = helpers()
+    ship = t["l_shipdate"].to_numpy().astype(np.int64)
+    price = t["l_extendedprice"].to_numpy()
+    qty = t["l_quantity"].to_numpy()
+    disc = t["l_discount"].to_numpy()
+    rf, rfv = _codes(t["l_returnflag"])
+    ls, lsv = _codes(t["l_linestatus"])
+    out = {}
+
+    def per_set(keep, rows, cols, n_ls=len(lsv)):
+        """{(rf or None, ls or None): sums of cols and the count} over the
+        (rf, ls), (rf), (ls) and () sets named in rows."""
+        g = (rf * n_ls + ls)[keep]
+        ng = len(rfv) * n_ls
+        sums = [np.bincount(g, weights=c[keep], minlength=ng) for c in cols]
+        cnt = np.bincount(g, minlength=ng)
+        res = {}
+        for k in range(ng):
+            a, b = k // n_ls, k % n_ls
+            for key, pick in (("rl", (rfv[a], lsv[b])), ("r", (rfv[a], None)),
+                              ("l", (None, lsv[b])), ("", (None, None))):
+                if key not in rows:
+                    continue
+                acc = res.setdefault(pick, [0.0] * len(cols) + [0])
+                for j, s in enumerate(sums):
+                    acc[j] += s[k]
+                acc[-1] += int(cnt[k])
+        return {k: v for k, v in res.items() if v[-1]}
+
+    keep = ship <= 10471
+    q1 = per_set(keep, ("rl", "r", ""), [qty, price, disc])
+    gid = {(True, True): 0, (True, False): 1, (False, False): 3}
+    out["q1_rollup"] = {
+        (a, b, gid[(a is not None, b is not None)]):
+            (v[0], v[1], v[2] / v[3], v[3]) for (a, b), v in q1.items()}
+    cube = per_set(np.ones(ship.shape[0], bool), ("rl", "r", "l", ""), [qty])
+    out["cube_flags"] = {(a, b, int(a is None), int(b is None)): (v[0], v[1])
+                         for (a, b), v in cube.items()}
+    piv = per_set(np.ones(ship.shape[0], bool), ("rl",), [price])
+    out["pivot_flags"] = {
+        b: tuple(x for a in sorted(rfv) for x in (
+            piv[(a, b)][0] if (a, b) in piv else None,
+            piv[(a, b)][1] if (a, b) in piv else None))
+        for b in lsv}
+
+    year, week = ship // 365, ship // 7
+    rev = price * (1.0 - disc)
+    y0, w0 = int(year.min()), int(week.min())
+    ny, nw = int(year.max()) - y0 + 1, int(week.max()) - w0 + 1
+    yw = (year - y0) * nw + (week - w0)
+    s_yw = np.bincount(yw, weights=rev, minlength=ny * nw)
+    c_yw = np.bincount(yw, minlength=ny * nw)
+    roll = {}
+    for k in np.nonzero(c_yw)[0]:
+        y, w = int(k // nw) + y0, int(k % nw) + w0
+        for key in ((y, w), (y, None), (None, None)):
+            acc = roll.setdefault(key, [0.0, 0])
+            acc[0] += s_yw[k]
+            acc[1] += int(c_yw[k])
+    out["rollup_shipdate"] = {k: tuple(v) for k, v in roll.items()}
+
+    lo = int(ship.min())
+    cnt = np.bincount(ship - lo)
+    qsum = np.bincount(ship - lo, weights=qty)
+    out["union_repart"] = {int(d) + lo: (float(qsum[d]), int(cnt[d]))
+                           for d in np.nonzero(cnt)[0]}
+
+    ok = orders["o_orderkey"].to_numpy()
+    ck = orders["o_custkey"].to_numpy()
+    early = orders["o_orderdate"].to_numpy() < 9500
+    third = ck % 3 == 0
+    out["orders_setops"] = [
+        (op, int(m.sum()), int(ok[m].sum()), int(ck[m].sum()))
+        for op, m in (("intersect", early & third),
+                      ("except", early & ~third))]
+
+    k, sums, counts = H.range_agg_answer()
+    out["range_agg"] = {int(a): (int(b), int(c))
+                        for a, b, c in zip(k, sums, counts)}
+
+    stats = {}
+    for c in H.DESCRIBE_COLS:
+        x = t[c].to_numpy()
+        stats[c] = (x.shape[0], x.mean(), x.std(ddof=1), x.min(), x.max())
+    out["describe_li"] = (stats, float(np.corrcoef(qty, price)[0, 1]))
+
+    keep = H.splitmix_rand(ship.shape[0], 11) < 0.01
+    out["sample_li"] = (int(keep.sum()),
+                        int(t["l_orderkey"].to_numpy()[keep].sum()))
+    return out
+
+
+def sets_queries(h1, h8):
+    """name -> (session, run) over the joins phase's caches; each run
+    returns what validate_sets reads."""
+    H, api = helpers(), port_api()
+
+    def rows(df, keys, cols):
+        d = df.collect().to_pydict()
+        return {tuple(d[k][i] for k in keys): tuple(d[c][i] for c in cols)
+                for i in range(len(d[keys[0]]))}
+
+    def describe():
+        table, corr = H.describe_li(api, h1.li)
+        return table.to_pydict(), corr
+
+    return {
+        "q1_rollup": (h1.s, lambda: rows(
+            H.q1_rollup(api, h1.li), ("l_returnflag", "l_linestatus", "gid"),
+            ("sum_qty", "sum_price", "avg_disc", "n"))),
+        "rollup_shipdate": (h1.s, lambda: rows(
+            H.rollup_shipdate(api, h1.li), ("ship_year", "ship_week"),
+            ("rev", "n"))),
+        "cube_flags": (h1.s, lambda: rows(
+            H.cube_flags(api, h1.li),
+            ("l_returnflag", "l_linestatus", "g_rf", "g_ls"),
+            ("sum_qty", "n"))),
+        "union_repart": (h8.s, lambda: {
+            k[0]: v for k, v in rows(H.union_repart(api, h8.li, h1.li),
+                                     ("l_shipdate",),
+                                     ("sum_qty", "n")).items()}),
+        "orders_setops": (h8.s, lambda: [
+            tuple(r.values()) for r in
+            H.orders_setops(api, h8.od).collect().to_pylist()]),
+        "range_agg": (h8.s, lambda: {
+            k[0]: v for k, v in rows(H.range_agg(api, h8.s), ("k",),
+                                     ("s", "n")).items()}),
+        "pivot_flags": (h1.s, lambda: {
+            k[0]: v for k, v in rows(
+                H.pivot_flags(api, h1.li), ("l_linestatus",),
+                ("A_price", "A_n", "N_price", "N_n", "R_price",
+                 "R_n")).items()}),
+        "describe_li": (h1.s, describe),
+        "sample_li": (h1.s, lambda: tuple(
+            H.sample_li(api, h1.li).collect().to_pylist()[0].values())),
+    }
+
+
+def _floats_close(got, want, tol=1e-6):
+    return all((g is None) == (w is None)
+               and (g is None or _close(g, w, tol))
+               for g, w in zip(got, want))
+
+
+def validate_sets(name, got, want) -> bool:
+    if name in ("orders_setops", "range_agg", "union_repart", "sample_li"):
+        # integer sums, and union_repart's sums of whole quantities,
+        # are exact
+        return got == want
+    if name == "describe_li":
+        table, corr = got
+        stats, want_corr = want
+        if table["summary"] != ["count", "mean", "stddev", "min", "max"]:
+            return False
+        for c, (n, mean, sd, lo, hi) in stats.items():
+            cells = table[c]
+            if int(cells[0]) != n or float(cells[3]) != lo \
+                    or float(cells[4]) != hi:
+                return False
+            if not (_close(float(cells[1]), mean, 1e-9)
+                    and _close(float(cells[2]), sd, 1e-9)):
+                return False
+        return _close(corr, want_corr, 1e-9)
+    if set(got) != set(want):
+        return False
+    if name == "pivot_flags":
+        return all(_floats_close(got[k][0::2], want[k][0::2])
+                   and got[k][1::2] == want[k][1::2] for k in want)
+    # the grouping-set shapes: float sums to 1e-6, counts exactly
+    return all(_floats_close(got[k][:-1], want[k][:-1])
+               and got[k][-1] == want[k][-1] for k in want)
+
+
+#: what each set query must have run: operators, the aggregate routes per
+#: run (exactly), and the form of its Expand (stacked or not)
+SETS_EXPECT = {
+    "q1_rollup": ({"ExpandExec", "FilterExec"},
+                  {"_scatter_agg": 1, "_sort_agg": 3}, False),
+    "rollup_shipdate": ({"ExpandExec"},
+                        {"_chunked_segsum_agg": 1, "_segsum_or_fallback": 12,
+                         "_scatter_agg": 9}, True),
+    "cube_flags": ({"ExpandExec"}, {"_scatter_agg": 1, "_sort_agg": 4},
+                   False),
+    "union_repart": ({"UnionExec", "ShuffleExchangeExec"},
+                     {"_chunked_segsum_agg": 1, "_segsum_or_fallback": 4,
+                      "_scatter_agg": 1}, None),
+    "orders_setops": ({"UnionExec", "BroadcastHashJoinExec"},
+                      {"_packed_sort_agg": 2, "_global_update": 2}, None),
+    "range_agg": ({"RangeExec"}, {"_scatter_agg": 4}, None),
+    "pivot_flags": ({"HashAggregateExec"}, {"_bucket_update": 2}, None),
+    "describe_li": ({"HashAggregateExec"}, {"_global_update": 2}, None),
+    "sample_li": ({"FilterExec"}, {"_global_update": 1}, None),
+}
+#: kernel launches per run: B2 in rollup_shipdate's twelve chunks and
+#: union_repart's four, B1 once per union batch into union_repart's
+#: exchange
+SETS_LAUNCHES = {"rollup_shipdate": {"segsum": 12},
+                 "union_repart": {"segsum": 4, "murmur3_int32": 9}}
+
+
+def _expand_forms(session):
+    return [e.stacked for e in session.last_exec.walk()
+            if type(e).__name__ == "ExpandExec"]
+
+
+def phase_sets(table, orders, h1, h8, spy, prof=None):
+    import torch
+    t0 = time.perf_counter()
+    want = sets_reference(table, orders)
+    host_s = time.perf_counter() - t0
+    emit({"phase": "sets.setup", "rows": table.num_rows,
+          "orders_rows": orders.num_rows, "host_reference_s": host_s})
+    reset_launches()
+    spy.take()
+    problems = []
+    queries = sets_queries(h1, h8)
+    for name, (session, fn) in queries.items():
+        before = read_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = fn()
+        cold = time.perf_counter() - t0
+        forms = _expand_forms(session)
+        warm = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            fn()
+            warm.append(time.perf_counter() - t0)
+        good = validate_sets(name, got, want[name])
+        counts = spy.take()
+        routes = {k: v // 3 for k, v in counts.items()}
+        execs = _exec_names(session)
+        launches = {k: (v - before[k]) // 3
+                    for k, v in read_launches().items()}
+        e_ops, e_routes, e_stacked = SETS_EXPECT[name]
+        e_launch = {k: SETS_LAUNCHES.get(name, {}).get(k, 0)
+                    for k in launches}
+        if not good:
+            problems.append(f"{name} disagrees with numpy")
+        if not e_ops <= set(execs) or routes != e_routes \
+                or any(v % 3 for v in counts.values()) \
+                or forms != ([] if e_stacked is None else [e_stacked]):
+            problems.append(f"{name} ran {execs}, routes {routes}, stacked "
+                            f"expands {forms}; expected {SETS_EXPECT[name]}")
+        if launches != e_launch:
+            problems.append(f"{name} launched {launches}, expected "
+                            f"{e_launch}")
+        emit({"phase": "sets.query", "query": name, "correct": good,
+              "cold_s": cold, "warm_s": min(warm), "launches": launches,
+              "routes": routes, "execs": execs, "stacked_expand": forms,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+    counts = read_launches()
+    emit({"phase": "sets", "launches": counts, "correct": not problems,
+          "problems": problems})
+    if prof:
+        prof.run("sets", {k: v[1] for k, v in queries.items()})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    if min(counts["murmur3_int32"], counts["segsum"]) <= 0:
+        raise AssertionError(f"a kernel did not run on the sets path: "
+                             f"{counts}")
+    return counts
+
+
 #: launch-counter name -> (wrapper module, wrapper function, a substring
 #: of the CUDA kernel's name as the profiler reports it)
 KERNEL_WRAPPERS = {
@@ -2133,6 +2440,9 @@ def main() -> int:
         t0 = time.perf_counter()
         exprs = phase_exprs(table, h1, h8, spy, prof)
         phases["exprs_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sets = phase_sets(table, orders, h1, h8, spy, prof)
+        phases["sets_s"] = time.perf_counter() - t0
         del table, orders, h1, h8
         t0 = time.perf_counter()
         parquet = phase_parquet(path, want, spy, prof)
@@ -2148,7 +2458,8 @@ def main() -> int:
     for r in rows:
         by_path = {"cached": cached[r["name"]], "parquet": parquet[r["name"]],
                    "strings": strings[r["name"]], "joins": joins[r["name"]],
-                   "window": window[r["name"]], "exprs": exprs[r["name"]]}
+                   "window": window[r["name"]], "exprs": exprs[r["name"]],
+                   "sets": sets[r["name"]]}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
     if prof:

@@ -5,7 +5,8 @@ operators: ``InMemoryScanExec``, the Parquet scans (``ParquetScanExec``,
 which decodes on the host, and the device-decode pair
 ``EncodedParquetSourceExec`` + ``DeviceDecodeScanExec``),
 ``CachedScanExec``, ``ProjectExec``,
-``FilterExec``, ``CoalesceBatchesExec``, ``CollectExchangeExec``, the
+``FilterExec``, ``CoalesceBatchesExec``, ``RangeExec``, ``UnionExec``,
+``ExpandExec``, ``CollectExchangeExec``, the
 compact in-process exchanges (``ShuffleExchangeExec``,
 ``RoundRobinExchangeExec``, ``RangeExchangeExec``), ``HashAggregateExec``
 with ``_AggKernels``, ``LimitExec``, ``TopNExec``, ``SortExec``,
@@ -41,6 +42,7 @@ group-sorted rows.
 """
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -58,7 +60,8 @@ from spark_rapids_tpu_torch.columnar.batch import (
 from spark_rapids_tpu_torch.expr import aggregates as A
 from spark_rapids_tpu_torch.expr import window as WE
 from spark_rapids_tpu_torch.expr.core import (
-    Alias, BoundRef, Cast, EvalCtx, Expression, needs_row_base, raise_errors,
+    Alias, BoundRef, Cast, EvalCtx, Expression, needs_partition_context,
+    needs_row_base, raise_errors,
 )
 from spark_rapids_tpu_torch.io import encoded as ENC
 from spark_rapids_tpu_torch.io.parquet_pruning import prune_row_groups
@@ -394,6 +397,20 @@ def _attach_column_stats(batch: ColumnarBatch) -> None:
             batch.columns[i].bounds = (lo, hi)
 
 
+def _without_bounds(c: ColumnVector) -> ColumnVector:
+    return dataclasses.replace(c, bounds=None) if c.bounds is not None else c
+
+
+def _run_projection(exprs, batch: ColumnarBatch, device) -> ColumnarBatch:
+    """The expressions over a batch, without ANSI checks or partition
+    context, and with no column bounds carried (the JAX package's
+    ``compiled.run_projection``)."""
+    ctx = EvalCtx(batch.columns, batch.num_rows, batch.capacity, device,
+                  live=batch.live_mask())
+    return ColumnarBatch([_without_bounds(e.eval(ctx)) for e in exprs],
+                         batch.num_rows, batch.row_mask)
+
+
 class ProjectExec(TorchExec):
     def _trivial_indices(self):
         """Pure column selection costs no work: planes are re-listed."""
@@ -431,13 +448,24 @@ class ProjectExec(TorchExec):
 
 
 class FilterExec(TorchExec):
-    """Marks failing rows dead in the selection mask; no gather, no sync."""
+    """Marks failing rows dead in the selection mask; no gather, no sync.
+    A condition that reads the partition context (``rand``, the partition
+    ids) gets a projection's: the planner collects such a filter's input
+    into one partition first, as the JAX package's CPU placement of it
+    does."""
 
     def execute_partition(self, pidx):
+        cond = self.plan.condition
+        part = needs_partition_context(cond)
+        count_rows = needs_row_base(cond)
+        row_base = 0
         for batch in self.children[0].execute_partition(pidx):
-            ctx = self._ctx(batch)
-            pred = self.plan.condition.eval(ctx)
+            ctx = self._ctx(batch, partition_id=pidx, row_base=row_base) \
+                if part else self._ctx(batch)
+            pred = cond.eval(ctx)
             raise_errors(ctx.errors)
+            if count_rows:
+                row_base = row_base + ctx.row_mask.sum(dtype=torch.int64)
             valid = pred.validity if pred.validity is not None \
                 else ctx.row_mask
             yield K.mask_filter_batch(batch, pred.data.to(torch.bool) & valid)
@@ -458,6 +486,110 @@ class CoalesceBatchesExec(TorchExec):
                 pending, pending_bytes = [], 0
         if pending:
             yield K.concat_batches(pending)
+
+
+class RangeExec(TorchExec):
+    """``session.range``: the ids split into contiguous per-partition
+    slices, in batches of spark.rapids.sql.reader.batchSizeRows rows made
+    on the device; an empty partition yields one empty batch. Values wrap
+    in int64."""
+
+    @property
+    def num_partitions(self):
+        return self.plan.num_partitions
+
+    def execute_partition(self, pidx):
+        p = self.plan
+        start_i, n = _split_rows(p.num_rows(), self.num_partitions)[pidx]
+        max_rows = self.conf.get(C.MAX_READER_BATCH_SIZE_ROWS)
+        off = 0
+        while True:
+            take = min(max_rows, n - off)
+            cap = round_capacity(max(take, 1))
+            pos = torch.arange(cap, dtype=torch.int64, device=self.device)
+            base = _wrap64(p.start + (start_i + off) * p.step)
+            vals = base + pos * _wrap64(p.step)
+            yield ColumnarBatch([ColumnVector(T.INT64, vals, pos < take)],
+                                take)
+            off += take
+            if off >= n:
+                return
+
+
+def _wrap64(v: int) -> int:
+    v &= (1 << 64) - 1
+    return v - (1 << 64) if v >= 1 << 63 else v
+
+
+class UnionExec(TorchExec):
+    """UNION ALL: the children's partition spaces concatenated; a child
+    whose column types differ from the union's goes through a projection
+    of casts."""
+
+    @property
+    def num_partitions(self):
+        return sum(c.num_partitions for c in self.children)
+
+    def _cast_exprs(self, child_schema):
+        out = []
+        for i, (f_out, f_in) in enumerate(zip(self.plan.schema.fields,
+                                              child_schema.fields)):
+            ref = BoundRef(i, f_in.dtype, f_in.name)
+            out.append(ref if f_in.dtype == f_out.dtype
+                       else Cast(ref, f_out.dtype))
+        return out
+
+    def execute_partition(self, pidx):
+        for child, cplan in zip(self.children, self.plan.children):
+            if pidx < child.num_partitions:
+                exprs = self._cast_exprs(cplan.schema)
+                needs_cast = any(isinstance(e, Cast) for e in exprs)
+                for batch in child.execute_partition(pidx):
+                    yield _run_projection(exprs, batch, self.device) \
+                        if needs_cast else batch
+                return
+            pidx -= child.num_partitions
+        raise IndexError(pidx)
+
+
+class ExpandExec(TorchExec):
+    """Every projection of each input batch, in one of the JAX package's
+    two forms: ``stacked`` (its fused stage, chosen by the planner's
+    mirror of the fusion gate) evaluates all projections into one batch
+    of n_proj x capacity with the live mask tiled; otherwise one batch
+    per projection. The form decides what the aggregate above sees: its
+    route (batch capacity against the chunk gates) and the per-batch
+    scaling of float sums. No column bounds pass through."""
+
+    def __init__(self, plan, children, conf, device, stacked: bool = False):
+        super().__init__(plan, children, conf, device)
+        self.stacked = stacked
+
+    def _proj_exprs(self):
+        out_types = self.plan.schema.types
+        return [[e if e.data_type() == dt else Cast(e, dt)
+                 for e, dt in zip(proj, out_types)]
+                for proj in self.plan.projections]
+
+    def execute_partition(self, pidx):
+        projs = self._proj_exprs()
+        for batch in self.children[0].execute_partition(pidx):
+            outs = [_run_projection(exprs, batch, self.device)
+                    for exprs in projs]
+            if not self.stacked:
+                yield from outs
+                continue
+            live = batch.live_mask()
+            cols = []
+            for ci in range(len(self.plan.schema)):
+                parts = [o.columns[ci] for o in outs]
+                cols.append(ColumnVector(
+                    parts[0].dtype, torch.cat([c.data for c in parts]),
+                    torch.cat([c.validity if c.validity is not None
+                               else live for c in parts])))
+            mask = live.repeat(len(projs))
+            yield ColumnarBatch(cols, LazyRowCount(mask.sum(
+                dtype=torch.int32)), mask)
 
 
 class CollectExchangeExec(TorchExec):

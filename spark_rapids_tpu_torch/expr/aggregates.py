@@ -1,6 +1,7 @@
 """Aggregate function descriptors: sum, count, avg, min, max, first,
-last, the variance and standard deviation family, and the segmented
-aggregates min_by, max_by, percentile and approx_percentile.
+last, the variance and standard deviation family, the segmented
+aggregates min_by, max_by, percentile and approx_percentile, and the
+grouping markers.
 
 Counterpart of ``spark_rapids_tpu/expr/aggregates.py``; ``over(spec)``
 makes a window aggregate (``expr/window.py``). Each function
@@ -10,8 +11,9 @@ merges partial states (``merge_ops``), and the final projection
 (``evaluate``). A ``SegmentedAgg`` has no mergeable state: it runs once
 over a whole partition's rows in group-sorted order
 (``segmented_eval``), and the planner exchanges raw rows by group key
-before it. ``collect_list``/``collect_set`` wait for the nested types
-(ROADMAP A3).
+before it. The grouping markers (``grouping``, ``grouping_id``) are
+resolved by the ROLLUP/CUBE lowering and never aggregate.
+``collect_list``/``collect_set`` wait for the nested types (ROADMAP A3).
 """
 from __future__ import annotations
 
@@ -427,3 +429,31 @@ class ApproxPercentile(Percentile):
     def transform(self, fn):
         return ApproxPercentile(self.children[0].transform(fn),
                                 self.percentage, self.accuracy)
+
+
+class GroupingMarker(AggFunction):
+    """grouping(col) / grouping_id(): pseudo-aggregates valid only under
+    ROLLUP, CUBE or GROUPING SETS. ``GroupedData.agg`` resolves them to
+    bit reads of the Expand's ``__grouping_id`` key, so they never reach
+    the aggregation kernels."""
+
+    def state_schema(self):
+        raise SparkException(
+            "grouping()/grouping_id() is only valid with "
+            "ROLLUP/CUBE/GROUPING SETS")
+
+
+class Grouping(GroupingMarker):
+    """grouping(col): 1 when the key is aggregated away in this output
+    row, else 0 (Spark's ByteType)."""
+
+    def result_type(self):
+        return T.INT8
+
+
+class GroupingID(GroupingMarker):
+    """grouping_id(): the bitmask over the group-by keys (Spark's
+    LongType)."""
+
+    def result_type(self):
+        return T.INT64

@@ -293,6 +293,10 @@ def _partition_ctx(ctx: EvalCtx, name: str) -> int:
 class SparkPartitionID(Expression):
     """spark_partition_id(): the index of the partition being projected."""
 
+    #: evaluates only with a projection's partition context
+    #: (``needs_partition_context``)
+    reads_partition = True
+
     def __init__(self):
         self.children = []
 
@@ -310,6 +314,10 @@ class MonotonicallyIncreasingID(Expression):
     index among the partition's live rows (Spark's layout); dead rows get
     values that are masked downstream."""
 
+    reads_partition = True
+    #: reads the partition's earlier live rows (``needs_row_base``)
+    reads_row_base = True
+
     def __init__(self):
         self.children = []
 
@@ -323,9 +331,17 @@ class MonotonicallyIncreasingID(Expression):
 
 
 def needs_row_base(e: Expression) -> bool:
-    """Does e read the running live-row count a projection threads?"""
-    return isinstance(e, MonotonicallyIncreasingID) \
+    """Does e read the running live-row count a projection threads
+    (monotonically_increasing_id, rand)?"""
+    return getattr(e, "reads_row_base", False) \
         or any(needs_row_base(c) for c in e.children)
+
+
+def needs_partition_context(e: Expression) -> bool:
+    """Does e read the partition context (spark_partition_id,
+    monotonically_increasing_id, rand)?"""
+    return getattr(e, "reads_partition", False) \
+        or any(needs_partition_context(c) for c in e.children)
 
 
 class NullOf(Expression):

@@ -1,10 +1,10 @@
 """Logical plan nodes with schema inference and name binding.
 
 Counterpart of ``spark_rapids_tpu/plan/nodes.py`` for the nodes this
-engine runs: ``InMemorySource``, ``ParquetScan``, ``CachedRelation`` (the
+engine runs: ``InMemorySource``, ``ParquetScan``, ``Range``, ``CachedRelation`` (the
 ``df.cache()`` marker), ``Project``, ``Filter``, ``Aggregate``,
-``Repartition``, ``Sort`` (with ``SortOrder``), ``Limit``, ``Join`` and
-``WindowNode``.
+``Repartition``, ``Sort`` (with ``SortOrder``), ``Limit``, ``Join``,
+``WindowNode``, ``Union`` and ``Expand``.
 """
 from __future__ import annotations
 
@@ -37,6 +37,11 @@ class PlanNode:
                 except OSError:  # the statistics are advisory
                     self._est_rows = -1
             return None if self._est_rows < 0 else self._est_rows
+        if isinstance(self, Range):
+            return self.num_rows()
+        if isinstance(self, Union):
+            parts = [c.estimated_rows() for c in self.children]
+            return None if any(p is None for p in parts) else sum(parts)
         if isinstance(self, Filter):
             c = self.children[0].estimated_rows()
             return None if c is None else max(c // 2, 1)
@@ -125,6 +130,27 @@ class ParquetScan(PlanNode):
                 T.StructField(n, T.from_arrow(arrow.field(n).type))
                 for n in names))
         return self._schema
+
+
+class Range(PlanNode):
+    """``session.range(start, end, step)``: one int64 column ``id``."""
+
+    def __init__(self, start: int, end: int, step: int = 1,
+                 num_partitions: int = 1):
+        if step == 0:
+            raise ValueError("range step must not be 0")
+        self.start = int(start)
+        self.end = int(end)
+        self.step = int(step)
+        self.num_partitions = max(1, num_partitions)
+        self.children = []
+
+    def num_rows(self) -> int:
+        return max(0, -(-(self.end - self.start) // self.step))
+
+    @property
+    def schema(self):
+        return T.Schema((T.StructField("id", T.INT64),))
 
 
 class CachedRelation(PlanNode):
@@ -303,3 +329,46 @@ class Join(PlanNode):
         if self.how in ("left", "full"):
             rf = _nullable(rf)
         return T.Schema(tuple(lf + rf))
+
+
+class Union(PlanNode):
+    """UNION ALL by position: each column widens to the children's common
+    type; the names are the first child's."""
+
+    def __init__(self, children: List[PlanNode]):
+        if not children:
+            raise ValueError("a union needs at least one child")
+        arity = len(children[0].schema)
+        for c in children[1:]:
+            if len(c.schema) != arity:
+                raise ValueError(f"UNION arity mismatch: {arity} vs "
+                                 f"{len(c.schema)} columns")
+        self.children = list(children)
+
+    @property
+    def schema(self):
+        schemas = [c.schema for c in self.children]
+        fields = []
+        for i, f in enumerate(schemas[0].fields):
+            dt = f.dtype
+            for s in schemas[1:]:
+                dt = T.common_type(dt, s.fields[i].dtype)
+            fields.append(T.StructField(f.name, dt))
+        return T.Schema(tuple(fields))
+
+
+class Expand(PlanNode):
+    """Several projections of each input row (the ROLLUP/CUBE/GROUPING
+    SETS lowering); the output types are the first projection's."""
+
+    def __init__(self, projections: List[List[Expression]],
+                 names: List[str], child: PlanNode):
+        self.children = [child]
+        self.projections = [[bind_expr(e, child.schema) for e in p]
+                            for p in projections]
+        self.names = list(names)
+
+    @property
+    def schema(self):
+        return T.Schema(tuple(T.StructField(n, e.data_type()) for n, e in
+                              zip(self.names, self.projections[0])))

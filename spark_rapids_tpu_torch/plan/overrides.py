@@ -2,8 +2,12 @@
 
 Counterpart of ``spark_rapids_tpu/plan/overrides.py`` ``convert_plan``
 for this engine's nodes, with the Parquet filter pushdown that runs
-before it. Convertible: in-memory, Parquet and cached scans, projections
-and filters over the expressions of ``expr/core.py`` and the string
+before it. Convertible: in-memory, Parquet and cached scans, ranges,
+unions, expands (stacked or one projection per batch, as the JAX
+package's stage fusion would run them: ``mark_expand_forms``), projections
+and filters over the expressions of ``expr/core.py`` (a filter that
+reads the partition context, such as ``sample``'s ``rand``, over its input
+collected into one partition), ``expr/math.py`` and the string
 functions of ``expr/strings.py`` (length, upper/lower with the case-map
 kernel, substring, concat, startswith/endswith/contains, transpilable
 LIKE, string equality), hash and round-robin repartition, the hash
@@ -38,7 +42,9 @@ from spark_rapids_tpu_torch.plan import nodes as P
 
 def convert_plan(plan: P.PlanNode, conf, device) -> X.TorchExec:
     push_down_scan_filters(plan)
-    return _convert(plan, conf, device)
+    root = _convert(plan, conf, device)
+    mark_expand_forms(root)
+    return root
 
 
 def _convert(plan: P.PlanNode, conf, device) -> X.TorchExec:
@@ -58,8 +64,21 @@ def _convert(plan: P.PlanNode, conf, device) -> X.TorchExec:
         return X.CachedScanExec(plan, children, conf, device)
     if isinstance(plan, P.Project):
         return X.ProjectExec(plan, children, conf, device)
+    if isinstance(plan, P.Range):
+        return X.RangeExec(plan, [], conf, device)
     if isinstance(plan, P.Filter):
-        return X.FilterExec(plan, children, conf, device)
+        child = children[0]
+        if E.needs_partition_context(plan.condition) \
+                and child.num_partitions > 1:
+            # the JAX package runs such a filter on the CPU, over its
+            # input collected into one partition: partition 0, rows
+            # counted from the first
+            child = X.CollectExchangeExec(plan, [child], conf, device)
+        return X.FilterExec(plan, [child], conf, device)
+    if isinstance(plan, P.Union):
+        return X.UnionExec(plan, children, conf, device)
+    if isinstance(plan, P.Expand):
+        return X.ExpandExec(plan, children, conf, device)
     if isinstance(plan, P.Repartition):
         if not plan.keys:
             return X.RoundRobinExchangeExec(plan, children, conf, device,
@@ -236,7 +255,8 @@ def _convert_aggregate(plan, child, conf, device):
                                   + " (a CPU fallback in the JAX package; "
                                   "ROADMAP A3)")
     pre_filter = None
-    if isinstance(child, X.FilterExec):
+    if isinstance(child, X.FilterExec) \
+            and not E.needs_partition_context(child.plan.condition):
         # the filter folds into the aggregate's update as a live mask
         pre_filter = child.plan.condition
         child = child.children[0]
@@ -351,3 +371,85 @@ def push_down_scan_filters(plan: P.PlanNode) -> None:
         else:
             scan.pushed_filters = [reduce(E.Or, [reduce(E.And, p)
                                                  for p in paths])]
+
+
+# ---------------------------------------------------------------------------
+# The form of an Expand: the JAX package's stage-fusion gate
+# ---------------------------------------------------------------------------
+
+#: an Expand stacks at most this many projections into one batch
+_EXPAND_STACK_MAX = 8
+
+
+def _fusable(node) -> bool:
+    """A member of a fusable chain in the JAX package
+    (``exec/stage_fusion._fusable``): project, filter, limit, device
+    decode, and an Expand of at most eight projections with a fixed-width
+    output."""
+    if isinstance(node, (X.ProjectExec, X.FilterExec, X.LimitExec,
+                         X.DeviceDecodeScanExec)):
+        return len(node.children) == 1
+    if isinstance(node, X.ExpandExec):
+        return (len(node.plan.projections) <= _EXPAND_STACK_MAX
+                and not any(isinstance(dt, T.StringType)
+                            for dt in node.plan.schema.types))
+    return False
+
+
+def _dispatching(node) -> bool:
+    """Would the member cost the JAX package a dispatch unfused?"""
+    if isinstance(node, X.ProjectExec):
+        return node._trivial_indices() is None
+    return isinstance(node, (X.FilterExec, X.ExpandExec,
+                             X.DeviceDecodeScanExec))
+
+
+def _has_carry(node) -> bool:
+    """A projection threading the partition context keeps a carry, which
+    bars its chain from an aggregate's update."""
+    return isinstance(node, X.ProjectExec) and any(
+        E.needs_partition_context(e) for e in node.plan.exprs)
+
+
+def _chain(node):
+    """The maximal fusable chain from node down, and the operator below
+    it."""
+    chain = []
+    while _fusable(node):
+        chain.append(node)
+        node = node.children[0]
+    return chain, node
+
+
+def mark_expand_forms(node) -> None:
+    """Stack each Expand that the JAX package's stage fusion (on, its
+    default) would run fused (``exec/stage_fusion._rewrite``): a chain
+    under an aggregate without segmented aggregates whose keys do not
+    take the packed route is absorbed into its update; elsewhere a chain
+    with two or more dispatching members becomes one fused stage. Every
+    other Expand runs one projection per batch. This engine fuses
+    nothing, so it has no fusion switch: with
+    spark.rapids.sql.stageFusion.enabled=false the JAX package runs every
+    Expand per projection and the two can take different routes."""
+    if isinstance(node, X.HashAggregateExec) and not node.kern.has_custom \
+            and not node.kern._packed_ok:
+        chain, below = _chain(node.children[0])
+        if chain and not any(_has_carry(m) for m in chain) \
+                and any(_dispatching(m) for m in chain):
+            _stack(chain)
+            mark_expand_forms(below)
+            return
+    if _fusable(node):
+        chain, below = _chain(node)
+        if sum(1 for m in chain if _dispatching(m)) >= 2:
+            _stack(chain)
+            mark_expand_forms(below)
+            return
+    for c in node.children:
+        mark_expand_forms(c)
+
+
+def _stack(chain) -> None:
+    for m in chain:
+        if isinstance(m, X.ExpandExec):
+            m.stacked = True

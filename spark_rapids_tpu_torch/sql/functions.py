@@ -3,9 +3,11 @@
 ``avg``, ``min``, ``max``, ``first``, ``last``, ``stddev`` (``stddev_samp``),
 ``stddev_pop``, ``variance`` (``var_samp``), ``var_pop``, ``min_by``,
 ``max_by``, ``percentile`` and ``approx_percentile``
-(``percentile_approx``); the scalar functions ``when``/``otherwise``,
+(``percentile_approx``), and the grouping markers ``grouping`` and
+``grouping_id``; the scalar functions ``when``/``otherwise``,
 ``coalesce``, ``nvl``, ``nullif``, ``isnull``, ``isnan``, ``abs``,
-``greatest``, ``least``, ``spark_partition_id`` and
+``greatest``, ``least``, ``bitwise_not``, ``shiftleft``, ``shiftright``,
+``shiftrightunsigned``, ``rand``, ``spark_partition_id`` and
 ``monotonically_increasing_id``; the string functions ``length``,
 ``upper``, ``lower``, ``substring``, ``concat``, ``startswith``,
 ``endswith``, ``contains`` and ``like``, and the window functions
@@ -17,6 +19,7 @@ from __future__ import annotations
 from spark_rapids_tpu_torch.expr import aggregates as A
 from spark_rapids_tpu_torch.expr import core as E
 from spark_rapids_tpu_torch.expr import math as MA
+from spark_rapids_tpu_torch.expr import misc as MI
 from spark_rapids_tpu_torch.expr import strings as S
 from spark_rapids_tpu_torch.expr import window as W
 from spark_rapids_tpu_torch.expr.core import Expression, col, lit
@@ -29,6 +32,16 @@ def _e(c) -> Expression:
 
 def sum(c):  # noqa: A001
     return A.Sum(_e(c))
+
+
+def grouping(c):
+    """1 when the key is aggregated away in a ROLLUP/CUBE output row."""
+    return A.Grouping(_e(c))
+
+
+def grouping_id():
+    """The grouping-set bitmask over the group-by keys."""
+    return A.GroupingID()
 
 
 def count(c="*"):
@@ -109,6 +122,26 @@ def var_pop(c):
 
 
 # scalar ---------------------------------------------------------------------
+def bitwise_not(c):
+    return MA.BitwiseNot(_e(c))
+
+
+def shiftleft(c, n):
+    return MA.ShiftLeft(_e(c), _e(n))
+
+
+def shiftright(c, n):
+    return MA.ShiftRight(_e(c), _e(n))
+
+
+def shiftrightunsigned(c, n):
+    return MA.ShiftRightUnsigned(_e(c), _e(n))
+
+
+def rand(seed: int = 0):
+    return MI.Rand(seed)
+
+
 def spark_partition_id():
     return E.SparkPartitionID()
 

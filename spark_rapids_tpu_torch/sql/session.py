@@ -1,7 +1,7 @@
 """The session: entry point of the PyTorch engine.
 
 Counterpart of ``spark_rapids_tpu/sql/session.py`` ``TpuSession``
-(``create_dataframe``, ``read_parquet``, ``collect``, and the device-side
+(``create_dataframe``, ``range``, ``read_parquet``, ``collect``, and the device-side
 compaction of sparse results before the download).
 """
 from __future__ import annotations
@@ -43,6 +43,15 @@ class TorchSession:
         if not isinstance(data, pa.Table):
             raise TypeError(type(data))
         return DataFrame(P.InMemorySource(data, num_partitions), self)
+
+    def range(self, start: int, end: Optional[int] = None, step: int = 1,
+              num_partitions: int = 1) -> DataFrame:
+        """spark.range: one int64 column ``id`` from start (inclusive) to
+        end (exclusive) by step; range(n) counts from 0. The values are
+        made on the device."""
+        if end is None:
+            start, end = 0, start
+        return DataFrame(P.Range(start, end, step, num_partitions), self)
 
     def read_parquet(self, *paths, columns=None) -> DataFrame:
         """Parquet files, flat directories of them (``*.parquet``, names

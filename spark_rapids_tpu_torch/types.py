@@ -34,6 +34,10 @@ class DataType:
         return hash(type(self))
 
     @property
+    def is_numeric(self) -> bool:
+        return isinstance(self, (IntegralType, FractionalType))
+
+    @property
     def is_integral(self) -> bool:
         return isinstance(self, IntegralType)
 

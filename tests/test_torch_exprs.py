@@ -1,4 +1,5 @@
-"""The port's expressions of ``expr/core.py`` and ``expr/math.py`` against
+"""The port's expressions of ``expr/core.py``, ``expr/math.py`` (greatest,
+least, the bitwise and shift family) and ``expr/misc.py`` (rand) against
 the JAX package.
 
 Each test builds a small seeded table, runs the same projection through
@@ -13,6 +14,7 @@ import pyarrow as pa
 import pytest
 
 from asserts import assert_tables_equal
+import torch_port_helpers as H
 from torch_port_helpers import jax_api, torch_api
 
 I32, I64 = np.iinfo(np.int32), np.iinfo(np.int64)
@@ -233,10 +235,28 @@ def test_partition_ids_count_live_rows_across_batches(table):
 
 
 def test_partition_context_outside_a_projection_raises(table):
+    # an aggregate has no partition context; a filter gets one (below)
     P = torch_api()
     df = P.session().create_dataframe(table)
     with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        df.filter(P.F.monotonically_increasing_id() < P.lit(5)).collect()
+        df.agg(P.F.sum(P.F.monotonically_increasing_id())).collect()
+
+
+def test_partition_context_in_a_filter_matches_jax(table):
+    # the JAX package runs such a filter on the CPU over its input
+    # collected into one partition; the port collects, then filters with
+    # partition 0's context, on the device
+    conf = {"spark.rapids.sql.reader.batchSizeRows": 256}
+
+    def build(api, df):
+        c, lit, F = api.col, api.lit, api.F
+        return df.filter(c("big") > lit(0)).filter(
+            (F.monotonically_increasing_id() % lit(7) == lit(3))
+            & (F.spark_partition_id() == lit(0))
+            & (F.rand(5) < lit(0.8))).select(c("big"))
+    got, want = _both(table, build, conf=conf, parts=3)
+    assert_tables_equal(got, want)
+    assert 0 < got.num_rows < N // 7
 
 
 @pytest.mark.parametrize("kind", ["int_div_zero", "cast_overflow"])
@@ -269,3 +289,99 @@ def test_cast_errors_name_their_roadmap_item(table):
     df = P.session().create_dataframe(table)
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         df.select(P.col("a").cast(P.T.STRING)).collect()
+
+
+# ---------------------------------------------------------------------------
+# the bitwise and shift family, and rand
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def bits_table():
+    rng = np.random.default_rng(62)
+    n = 700
+    i32 = rng.integers(I32.min, I32.max, n, dtype=np.int64).astype(np.int32)
+    i32[:4] = [I32.min, I32.max, -1, 0]
+    i64 = rng.integers(I64.min, I64.max, n, dtype=np.int64)
+    i64[:4] = [I64.min, I64.max, -1, 0]
+    # distances -1, 0, width - 1, width, width + 3 and beyond, both signs
+    d32 = np.resize([-1, 0, 31, 32, 35, 5, -33, 64], n).astype(np.int32)
+    d64 = np.resize([-1, 0, 63, 64, 67, 9, -65, 128], n).astype(np.int32)
+    # an int64 distance past int32 wraps when cast to the value's type
+    dl = np.resize([-1, 0, 31, 32, 35, (1 << 32) + 3, -(1 << 40)], n)
+    row = np.arange(n)
+    null = row % 11 == 5
+    return pa.table({
+        "i": pa.array(i32, mask=null), "j": rng.integers(
+            I32.min, I32.max, n, dtype=np.int64).astype(np.int32),
+        "l": pa.array(i64, mask=row % 11 == 8),
+        "m": rng.integers(I64.min, I64.max, n, dtype=np.int64),
+        "d32": pa.array(d32, mask=row % 11 == 6), "d64": d64,
+        "dl": dl.astype(np.int64)})
+
+
+def _bitwise(api):
+    c, lit, F, MA = api.col, api.lit, api.F, api.MA
+    return [MA.BitwiseAnd(c("i"), c("j")).alias("and_i"),
+            MA.BitwiseOr(c("i"), c("l")).alias("or_il"),
+            MA.BitwiseXor(c("l"), c("m")).alias("xor_l"),
+            MA.BitwiseAnd(c("l"), lit(0xFF)).alias("and_lit"),
+            F.bitwise_not(c("i")).alias("not_i"),
+            F.bitwise_not(c("l")).alias("not_l")]
+
+
+def _shifts(api):
+    c, lit, F = api.col, api.lit, api.F
+    out = []
+    for name, fn in (("shl", F.shiftleft), ("shr", F.shiftright),
+                     ("shru", F.shiftrightunsigned)):
+        out += [fn(c("i"), c("d32")).alias(f"{name}_i"),
+                fn(c("l"), c("d64")).alias(f"{name}_l"),
+                fn(c("i"), c("dl")).alias(f"{name}_i_long"),
+                fn(c("m"), c("dl")).alias(f"{name}_m_long"),
+                fn(c("i"), lit(-1)).alias(f"{name}_i_m1"),
+                fn(c("l"), lit(64)).alias(f"{name}_l_64")]
+    return out
+
+
+@pytest.mark.parametrize("cache", [False, True], ids=["arrow", "cached"])
+@pytest.mark.parametrize("case", ["bitwise", "shifts"])
+def test_bitwise_and_shifts_match_jax_exactly(case, cache, bits_table):
+    build = {"bitwise": _bitwise, "shifts": _shifts}[case]
+    out = []
+    for api in (torch_api(), jax_api()):
+        from importlib import import_module
+        api.MA = import_module(api.F.__name__.replace(
+            "sql.functions", "expr.math"))
+        df = api.session().create_dataframe(bits_table)
+        if cache:
+            df = df.cache()
+        out.append(df.select(*build(api)).collect())
+    got, want = out
+    assert_tables_equal(got, want)
+    if case == "shifts":
+        d = got.to_pydict()
+        # Java: MIN_VALUE >>> 31 is 1, -1 >>> -1 is 1, x << 32 is x
+        assert d["shru_i_m1"][0] == 1 and d["shru_i_m1"][2] == 1
+        assert d["shl_l_64"][1] == I64.max and d["shr_l_64"][0] == I64.min
+        assert d["shl_i"][5] is None and d["shl_i"][6] is None
+
+
+@pytest.mark.parametrize("parts", [1, 3])
+def test_rand_in_a_projection_matches_jax(parts, table):
+    # per partition, rand counts its live rows across 256-row batches
+    conf = {"spark.rapids.sql.reader.batchSizeRows": 256}
+
+    def build(api, df):
+        c, lit, F = api.col, api.lit, api.F
+        return df.filter(c("b") != lit(0)).select(
+            c("big"), F.rand(11).alias("r"), F.rand(-3).alias("r_neg"),
+            (F.rand() * lit(10.0)).alias("r10"),
+            F.spark_partition_id().alias("pid"))
+    got, want = _both(table, build, conf=conf, parts=parts)
+    assert_tables_equal(got, want)
+    for name in ("r", "r_neg", "r10"):
+        assert np.array_equal(_bits(got, name), _bits(want, name))
+    r = np.asarray(got["r"].to_numpy())
+    assert ((r >= 0) & (r < 1)).all()
+    if parts == 1:
+        assert np.array_equal(r, H.splitmix_rand(got.num_rows, 11))

@@ -2,15 +2,13 @@
 
 The table generators (bench.py's lineitem and orders, the customers, the
 flag dimension, the price bands, lineitem_text) and the query shapes of
-the port's slices (four of the first, three string shapes of the third,
-the join and sort shapes of the fourth, the window shapes and the
-nested-loop and cross joins of the fifth, the expression and aggregate
-shapes of the sixth) are written once against a
-package namespace, so the same program runs through ``spark_rapids_tpu``
-(the reference) and ``spark_rapids_tpu_torch``; ``chip_smoke.py`` runs the
-same generators and the string, join and sort, window, and expression
-and aggregate shapes on the card. At import this module
-needs numpy and pyarrow only.
+the port's slices (bench.py's shapes, the strings, joins and sorts,
+windows, expressions and aggregates, and sets and grouping sets) are
+written once against a package namespace, so the same program runs
+through ``spark_rapids_tpu`` (the reference) and
+``spark_rapids_tpu_torch``; ``chip_smoke.py`` runs the same generators
+and the string, join and sort, window, expression and aggregate, and set
+shapes on the card. At import this module needs numpy and pyarrow only.
 ``from_jax_batch`` rebuilds a JAX package batch as a torch batch, so single
 operations can be compared on identical inputs.
 """
@@ -584,3 +582,145 @@ def from_jax_batch(batch):
                                  dict_unique=c.dict_unique, bounds=c.bounds))
     mask = None if batch.row_mask is None else t(batch.row_mask)
     return ColumnarBatch(cols, int(batch.num_rows), mask)
+
+
+# ---------------------------------------------------------------------------
+# the set and grouping-set shapes
+# ---------------------------------------------------------------------------
+
+def q1_rollup(api, df):
+    """q1's filter and flag keys under ROLLUP: sums, an average, the line
+    count and grouping_id(); string keys, so the Expand yields one batch
+    per grouping set."""
+    col, lit, F = api.col, api.lit, api.F
+    return (df.filter(col("l_shipdate") <= lit(10471))
+            .rollup("l_returnflag", "l_linestatus")
+            .agg(F.sum(col("l_quantity")).alias("sum_qty"),
+                 F.sum(col("l_extendedprice")).alias("sum_price"),
+                 F.avg(col("l_discount")).alias("avg_disc"),
+                 F.count().alias("n"), F.grouping_id().alias("gid")))
+
+
+def rollup_shipdate(api, df):
+    """Revenue and line counts under ROLLUP(ship year, ship week) over the
+    numeric columns: a fixed-width Expand below computed keys, which the
+    JAX package fuses into one stacked batch of 3 x capacity. The packed
+    key (year, week, grouping id) takes 18 bits over bench.py's dates, so
+    twelve 2^23-row chunks of a 30M-row input pass the chunked segsum
+    gate (12 x 2^18 <= 2^23); with the ship date itself (20 bits) they
+    would not."""
+    col, lit, F, E = api.col, api.lit, api.F, api.E
+    return (df.select(col("l_shipdate"), col("l_extendedprice"),
+                      col("l_discount"))
+            .rollup(E.IntegralDivide(col("l_shipdate"), lit(365))
+                    .alias("ship_year"),
+                    E.IntegralDivide(col("l_shipdate"), lit(7))
+                    .alias("ship_week"))
+            .agg(F.sum(col("l_extendedprice") * (lit(1.0)
+                                                 - col("l_discount")))
+                 .alias("rev"), F.count().alias("n")))
+
+
+def cube_flags(api, df):
+    """CUBE(l_returnflag, l_linestatus): four grouping sets with the
+    grouping() markers."""
+    col, F = api.col, api.F
+    return (df.select("l_returnflag", "l_linestatus", "l_quantity")
+            .cube("l_returnflag", "l_linestatus")
+            .agg(F.sum(col("l_quantity")).alias("sum_qty"),
+                 F.count().alias("n"),
+                 F.grouping(col("l_returnflag")).alias("g_rf"),
+                 F.grouping(col("l_linestatus")).alias("g_ls")))
+
+
+def union_repart(api, many, one, split=9500, n=8):
+    """Early lines of a many-partition frame with l_quantity cast to int,
+    UNION ALL the late lines of a one-partition frame (the union widens
+    the int back to double), hash-repartitioned by ship date, then
+    per ship date."""
+    col, lit, F, T = api.col, api.lit, api.F, api.T
+    early = (many.filter(col("l_shipdate") < lit(split))
+             .select(col("l_shipdate"),
+                     col("l_quantity").cast(T.INT32).alias("l_quantity")))
+    late = (one.filter(col("l_shipdate") >= lit(split))
+            .select(col("l_shipdate"), col("l_quantity")))
+    return (early.union(late).repartition(n, col("l_shipdate"))
+            .group_by(col("l_shipdate"))
+            .agg(F.sum(col("l_quantity")).alias("sum_qty"),
+                 F.count().alias("n")))
+
+
+def orders_setops(api, od, split=9500):
+    """(early orders) INTERSECT and EXCEPT (orders of every third
+    customer) over (o_orderkey, o_custkey): one row per operation with
+    its row count and key sums."""
+    col, lit, F = api.col, api.lit, api.F
+    keys = (col("o_orderkey"), col("o_custkey"))
+    early = od.filter(col("o_orderdate") < lit(split)).select(*keys)
+    third = od.filter((col("o_custkey") % lit(3)) == lit(0)).select(*keys)
+
+    def summary(df, op):
+        return df.agg(F.count().alias("n"),
+                      F.sum(col("o_orderkey")).alias("sum_ok"),
+                      F.sum(col("o_custkey")).alias("sum_ck")).select(
+            lit(op).alias("op"), col("n"), col("sum_ok"), col("sum_ck"))
+    return summary(early.intersect(third), "intersect").union(
+        summary(early.subtract(third), "except"))
+
+
+def range_agg(api, session, n=1 << 28, parts=8, m=100_003):
+    """session.range(0, n) over parts partitions, grouped by id % m: the
+    sum and count of the ids per key."""
+    col, lit, F = api.col, api.lit, api.F
+    return (session.range(0, n, 1, num_partitions=parts)
+            .group_by((col("id") % lit(m)).alias("k"))
+            .agg(F.sum(col("id")).alias("s"), F.count().alias("n")))
+
+
+def range_agg_answer(n=1 << 28, m=100_003):
+    """range_agg's closed form per key k < m: count = ceil((n - k) / m),
+    sum = count * k + m * count * (count - 1) / 2."""
+    k = np.arange(min(m, n), dtype=np.int64)
+    cnt = (n - k + m - 1) // m
+    return k, cnt * k + m * cnt * (cnt - 1) // 2, cnt
+
+
+def pivot_flags(api, df):
+    """Per line status, PIVOT on the return flag with the values inferred
+    (an eager distinct): the price sum and the line count per flag."""
+    col, F = api.col, api.F
+    return (df.group_by("l_linestatus").pivot("l_returnflag")
+            .agg(F.sum(col("l_extendedprice")).alias("price"),
+                 F.count().alias("n")))
+
+
+DESCRIBE_COLS = ("l_quantity", "l_extendedprice", "l_discount")
+
+
+def describe_li(api, df):
+    """describe() over three numeric columns and corr(quantity, price):
+    (the summary table, the correlation)."""
+    return (df.describe(*DESCRIBE_COLS).collect(),
+            df.corr("l_quantity", "l_extendedprice"))
+
+
+def sample_li(api, df, fraction=0.01, seed=11):
+    """A 1% Bernoulli sample (rand(seed) < fraction): its row count and
+    order-key sum."""
+    col, F = api.col, api.F
+    return df.sample(fraction, seed=seed).agg(
+        F.count().alias("n"), F.sum(col("l_orderkey")).alias("s"))
+
+
+def splitmix_rand(n: int, seed: int, partition: int = 0) -> np.ndarray:
+    """numpy's rand(seed) stream over n rows of one partition: splitmix64
+    of position + (partition << 40) + seed, top 53 bits over 2^53."""
+    M = np.uint64
+    x = np.arange(n, dtype=np.uint64) + M((partition << 40) + seed
+                                          & (2 ** 64 - 1))
+    with np.errstate(over="ignore"):
+        x = x + M(0x9E3779B97F4A7C15)
+        x = (x ^ (x >> M(30))) * M(0xBF58476D1CE4E5B9)
+        x = (x ^ (x >> M(27))) * M(0x94D049BB133111EB)
+    x = x ^ (x >> M(31))
+    return (x >> M(11)).astype(np.float64) / float(1 << 53)
