@@ -63,10 +63,13 @@ def _lib():
 
 def segsum(gid: torch.Tensor, payload: torch.Tensor,
            outcap: int) -> torch.Tensor:
-    """gid int32[N] sorted ascending, N a multiple of 8; payload bf16[P, N],
-    one plane per lane, 1 <= P <= 256 (the JAX kernel takes the transpose,
-    [N, P]). On the card both must start on a 16-byte boundary. Returns
-    f32[outcap, P] per-id sums; ids outside [0, outcap) are dropped."""
+    """gid int32[N], N a multiple of 8; payload bf16[P, N], one plane per
+    lane, 1 <= P <= 256 (the JAX kernel takes the transpose, [N, P]). On
+    the card both must start on a 16-byte boundary, and the ids must be
+    sorted ascending: the kernel writes a run of equal ids that lies
+    inside one block with a plain store, so an id found in two places
+    would keep only one of its sums. Returns f32[outcap, P] per-id sums;
+    ids outside [0, outcap) are dropped."""
     if gid.dtype != torch.int32 or gid.dim() != 1:
         raise TypeError(f"segsum gid must be int32[N], got "
                         f"{gid.dtype}{list(gid.shape)}")

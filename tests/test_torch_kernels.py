@@ -161,16 +161,53 @@ def _segsum_inputs(P, n=4096, outcap=2048, dead=100, seed=2):
     return gid, pay
 
 
-@pytest.mark.parametrize("P", [8, 16])
-def test_segsum_plain_matches_pallas_kernel(P):
-    gid, pay = _segsum_inputs(P)
-    want = np.asarray(JPS.segsum_window(jnp.asarray(gid),
-                                        jnp.asarray(pay, jnp.bfloat16), 2048))
+def _segsum_run_inputs(shape, P, n=4096, seed=4):
+    """4096 rows in runs that meet the tiles (1024 rows in the JAX kernel)
+    in every way: one group over all of them; every row its own group; and
+    runs that cross a tile edge, end on a tile's last row, start on the
+    next tile's first row and cover a tile from edge to edge, then dead
+    rows at id outcap. 8-bit digits, lane 0 the live count."""
+    rng = np.random.default_rng(seed)
+    if shape == "one_group":
+        gid, outcap = np.zeros(n, np.int32), 2048
+    elif shape == "unique":
+        gid, outcap = np.arange(n, dtype=np.int32), 6144
+    else:
+        lengths = [1000, 48, 1000, 1, 2031]
+        gid = np.repeat(np.arange(len(lengths), dtype=np.int32), lengths)
+        outcap = 2048
+        gid = np.concatenate([gid, np.full(n - len(gid), outcap, np.int32)])
+    pay = rng.integers(-128, 129, (n, P)).astype(np.float32)
+    pay[:, 0] = 1.0
+    return gid, pay, outcap
+
+
+_SEGSUM_CASES = [("random", 8), ("random", 16)] + [
+    (shape, P) for shape in ("one_group", "unique", "crossing")
+    for P in (1, 9, 11, 40)]
+
+
+@pytest.mark.parametrize(
+    "shape,P", _SEGSUM_CASES,
+    ids=[str(P) if shape == "random" else f"{shape}-{P}"
+         for shape, P in _SEGSUM_CASES])
+def test_segsum_plain_matches_pallas_kernel(shape, P):
+    if shape == "random":
+        (gid, pay), outcap = _segsum_inputs(P), 2048
+    else:
+        gid, pay, outcap = _segsum_run_inputs(shape, P)
+    # the JAX kernel takes P a multiple of 8: zero lanes pad it, and only
+    # the real lanes are compared
+    padded = np.concatenate([pay, np.zeros((len(gid), -P % 8), np.float32)],
+                            axis=1)
+    want = np.asarray(JPS.segsum_window(
+        jnp.asarray(gid), jnp.asarray(padded, jnp.bfloat16), outcap))
+    assert not want[:, P:].any()
     # the port takes the lanes as planes: the transpose of the JAX layout
     got = S.segsum(torch.from_numpy(gid),
                    torch.from_numpy(pay.T.copy()).to(torch.bfloat16),
-                   2048).numpy()
-    np.testing.assert_array_equal(got, want)
+                   outcap).numpy()
+    np.testing.assert_array_equal(got, want[:, :P])
 
 
 def test_segsum_wrapper_checks_inputs():
@@ -223,6 +260,49 @@ def test_digit_helpers_match_jax(scale_of):
     np.testing.assert_array_equal(pv.numpy(), code.astype(np.float64))
 
 
+def _segsum_edge_cases():
+    """(label, gid, payload planes, outcap) at the CUDA kernel's edges. A
+    block of the kernel stages a tile of segs x 64 rows (segs =
+    min(32, 256 // P), fewer where the tile would not fit in shared
+    memory: 2,048 rows at P <= 8, 1,472-1,792 at P = 9-11, 64 at
+    P = 256) and one thread walks each 64-row segment
+    of a lane, so the cases run from part of one tile to thousands of
+    tiles, and their runs end on every 8-row edge (runs of 8), on and next
+    to the segment and tile edges (runs of 63-65, 1,471-1,473,
+    1,599-1,601, 1,791-1,793, 2,047-2,049 and random lengths), cover
+    tiles from edge to edge and span many of them (runs of 2^16 and one
+    run over all rows), or are one row each. Negative ids lead and dead
+    rows at id outcap trail in one family. Digits are 8-bit where no run
+    passes 2^16 rows and -1/0/1 beyond, so every sum is an integer below
+    2^24 and the kernel must equal index_add_ exactly."""
+    rng = np.random.default_rng(12)
+    lanes = (1, 4, 5, 9, 11, 40, 256)
+    cases = []
+    for n in (8, 2048, 2056, 6152, (1 << 17) + 8, (1 << 22) + 8):
+        rows = np.arange(n, dtype=np.int64)
+        mixed = np.repeat(np.arange(n), rng.choice(
+            [1, 2, 7, 8, 9, 64, 100, 1600, 2047, 2048, 2049, 5000], n))[:n]
+        families = {"one run": np.zeros(n), "runs of 8": rows // 8,
+                    "random runs": mixed,
+                    "negative and dead": rows // 5 - 50}
+        for length in (1, 3, 9, 63, 64, 65, 1471, 1472, 1473, 1599, 1600,
+                       1601, 1791, 1792, 1793, 2047, 2048, 2049, 1 << 16):
+            families[f"runs of {length}"] = rows // length
+        for i, (name, gid) in enumerate(families.items()):
+            P = lanes[(i + n) % len(lanes)]
+            while P * n > 1 << 26:
+                P //= 2
+            gid = gid.astype(np.int32)
+            outcap = 1 << max(11, int(gid.max()).bit_length())
+            if name == "negative and dead":
+                gid[-100:] = outcap
+            long_run = np.unique(gid, return_counts=True)[1].max() > 1 << 16
+            lo, hi = (-1, 2) if long_run else (-128, 129)
+            planes = rng.integers(lo, hi, (P, n)).astype(np.float32)
+            cases.append((f"{name}, n={n}, P={P}", gid, planes, outcap))
+    return cases
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_card():
     # decided inside the test: collection must not depend on the machine
@@ -235,6 +315,14 @@ def test_kernels_match_plain_versions_on_card():
     g = torch.from_numpy(gid).to(dev)
     p = torch.from_numpy(pay.T.copy()).to(dev).to(torch.bfloat16)
     assert torch.equal(S.segsum(g, p, 2048), S.segsum_plain(g, p, 2048))
+    bad = []
+    for label, gid, planes, outcap in _segsum_edge_cases():
+        g = torch.from_numpy(gid).to(dev)
+        p = torch.from_numpy(planes).to(dev).to(torch.bfloat16)
+        if not torch.equal(S.segsum(g, p, outcap),
+                           S.segsum_plain(g, p, outcap)):
+            bad.append(label)
+    assert not bad, bad
     # the kernel takes no ragged length and no base off a 16-byte boundary
     with pytest.raises(ValueError):
         S.segsum(g[:-3], p[:, :-3], 2048)
