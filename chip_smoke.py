@@ -118,10 +118,25 @@ Phases, one JSON line each:
    against its closed form, sample_li against numpy's splitmix64
    stream), with each run's aggregate routes, Expand form and launch
    counts asserted exactly.
+12. fallback (after the strings phase): one operator on the CPU, the
+   rest on the card. fb_strmax over the strings phase's cached
+   lineitem_text (a filter to quantity 1 and upper(l_comment) on the
+   card, B4; min/max of it and a count per flag pair on the CPU) and
+   fb_moving_min over the joins phase's cached lineitem (repart_agg's
+   daily sums on the card, B1 and B2; their 7-row moving minimum on the
+   CPU; the ratio to it on the card), each cold then twice warm and
+   checked against pyarrow or numpy. Each prints its placement report's
+   CPU node, the fallback's download, CPU and upload ms and rows in and
+   out, and its routes and launches; the one CPU node and its reason, the
+   launches and the output batches on cuda are asserted.
 
+Every query path runs in test mode (spark.rapids.sql.test.enabled): an
+operator that planning tags off the card fails the query, except the one
+node each fallback query names in spark.rapids.sql.test.allowedNonTpu.
 It then prints the kernel table ({"kernels": [...]}, with each kernel's
 launches per path in "launches_by_path": cached, parquet, strings, joins,
-window, exprs, sets), the card's name and power limit, and as its last
+window, exprs, sets, fallback), the card's name and power limit, and as
+its last
 line {"ok": true, "device": {...}}. Any failure exits non-zero without
 that line; so does a machine without CUDA, and so does a run that
 imported the JAX package. The lineitem generators and the string, join,
@@ -132,7 +147,7 @@ segsum shapes, through the checkout's kernel and a build of each other
 segsum source (the same C interface), each held exactly against the plain
 version and timed by the profiler in turns (other, this, this, other).
 CHIP_SMOKE_PROFILE=1 adds a torch.profiler pass over each query of the
-seven query paths, with each port kernel's launches, device time and
+eight query paths, with each port kernel's launches, device time and
 bounds at the shapes the query gave it, and ranks the kernels by device
 time above bound over those runs (CHIP_SMOKE_TRACE_DIR=dir also writes
 the queries' Chrome traces).
@@ -188,6 +203,16 @@ def helpers():
         sys.path.append(tests)
     import torch_port_helpers
     return torch_port_helpers
+
+
+def device_session(conf=None, allowed: str = ""):
+    """A session on the card in test mode: an operator tagged off the
+    device fails the query, unless ``allowed`` (comma-separated plan node
+    names) names it. Every query path runs in one."""
+    from spark_rapids_tpu_torch import TorchSession
+    return TorchSession({**(conf or {}),
+                         "spark.rapids.sql.test.enabled": "true",
+                         "spark.rapids.sql.test.allowedNonTpu": allowed})
 
 
 def port_api():
@@ -826,10 +851,9 @@ def read_launches():
 
 def phase_path(table, want, spy, prof=None):
     import torch
-    from spark_rapids_tpu_torch import TorchSession
     rows = table.num_rows
     reset_launches()
-    session = TorchSession()
+    session = device_session()
     t0 = time.perf_counter()
     cached = session.create_dataframe(table).cache()
     n = cached.count()
@@ -908,9 +932,8 @@ def scan_report(session):
 
 def phase_parquet(path, want, spy, prof=None):
     import pyarrow.parquet as pq
-    from spark_rapids_tpu_torch import TorchSession
     groups = pq.ParquetFile(path).metadata.num_row_groups
-    queries = parquet_queries(TorchSession(), TorchSession(DECODE_OFF),
+    queries = parquet_queries(device_session(), device_session(DECODE_OFF),
                               path)
     reset_launches()
     spy.take()
@@ -1230,13 +1253,12 @@ def validate_strings(name, got, want) -> bool:
 
 def phase_strings(text, spy, prof=None):
     import torch
-    from spark_rapids_tpu_torch import TorchSession
     t0 = time.perf_counter()
     want = strings_reference(text)
     host_s = time.perf_counter() - t0
     reset_launches()
     spy.take()
-    session = TorchSession()
+    session = device_session()
     t0 = time.perf_counter()
     cached = session.create_dataframe(text).cache()
     n = cached.count()
@@ -1284,7 +1306,7 @@ def phase_strings(text, spy, prof=None):
     if counts["case_map"] <= 0:
         raise AssertionError(f"the case-map kernel did not run on the "
                              f"strings path: {counts}")
-    return counts
+    return counts, cached.plan
 
 
 # ---------------------------------------------------------------------------
@@ -1501,7 +1523,6 @@ def phase_joins(table, orders, spy, prof=None):
     import torch
     from types import SimpleNamespace
 
-    from spark_rapids_tpu_torch import TorchSession
     H = helpers()
     t0 = time.perf_counter()
     want = joins_reference(table, orders)
@@ -1510,14 +1531,14 @@ def phase_joins(table, orders, spy, prof=None):
     reset_launches()
     spy.take()
     t0 = time.perf_counter()
-    s1 = TorchSession()
+    s1 = device_session()
     h1 = SimpleNamespace(s=s1, li=s1.create_dataframe(table).cache(),
                          od=s1.create_dataframe(orders).cache(),
                          cust=s1.create_dataframe(
                              H.make_customers(orders)).cache(),
                          dim=s1.create_dataframe(H.make_flag_dim()),
                          bands=s1.create_dataframe(H.make_bands()))
-    s8 = TorchSession({"spark.rapids.sql.join.broadcastRowThreshold": 0})
+    s8 = device_session({"spark.rapids.sql.join.broadcastRowThreshold": 0})
     h8 = SimpleNamespace(s=s8, li=s8.create_dataframe(
         table, num_partitions=8).cache(), od=s8.create_dataframe(
         orders, num_partitions=8).cache())
@@ -1804,7 +1825,6 @@ def phase_window(table, h1, h8, spy, prof=None):
     import torch
     from types import SimpleNamespace
 
-    from spark_rapids_tpu_torch import TorchSession
     from spark_rapids_tpu_torch.exec import nodes as X
     t0 = time.perf_counter()
     want = window_reference(table)
@@ -1813,7 +1833,7 @@ def phase_window(table, h1, h8, spy, prof=None):
     reset_launches()
     spy.take()
     t0 = time.perf_counter()
-    sw = TorchSession()
+    sw = device_session()
     w1 = SimpleNamespace(s=sw, li=sw.create_dataframe(
         table.slice(0, WIN_ROWS)).cache())
     n = w1.li.count()
@@ -2423,6 +2443,129 @@ def phase_sets(table, orders, h1, h8, spy, prof=None):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 12: one operator on the CPU, the rest of the query on the card
+# ---------------------------------------------------------------------------
+
+#: the reason each fallback query's one CPU node must give
+FALLBACK_REASONS = {"fb_strmax": "Min over strings not supported on device",
+                    "fb_moving_min": "bounded-rows min/max window"}
+#: kernel launches per run on the device side of the fallback: B4 over the
+#: cached comment plane below the CPU aggregate; B1 under the hash
+#: exchange and B2 in the chunked segsum route below the CPU window
+FALLBACK_LAUNCHES = {"fb_strmax": {"case_map": 1},
+                     "fb_moving_min": {"murmur3_int32": 1, "segsum": 4}}
+
+
+def fallback_reference(text, table):
+    """Host answers to the fallback queries: fb_strmax by pyarrow (the
+    comments are ASCII, so ascii_upper is upper), fb_moving_min by numpy
+    (daily sums by bincount, then the minimum of each 7-day window of the
+    days that have lines)."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    t = text.filter(pc.less_equal(text["l_quantity"], 1.0))
+    g = pa.table({"f": t["l_returnflag"], "s": t["l_linestatus"],
+                  "c": pc.ascii_upper(t["l_comment"])}).group_by(
+        ["f", "s"]).aggregate([("c", "min"), ("c", "max"), ("c", "count")])
+    strmax = {(f, st): (mn, mx, n) for f, st, mn, mx, n in zip(
+        *(g[c].to_pylist() for c in ("f", "s", "c_min", "c_max",
+                                     "c_count")))}
+    day = table["l_shipdate"].to_numpy().astype(np.int64)
+    lo = int(day.min())
+    sums = np.bincount(day - lo, weights=table["l_quantity"].to_numpy())
+    days = np.nonzero(np.bincount(day - lo))[0]
+    s = sums[days]
+    min7 = np.array([s[max(0, i - 6):i + 1].min() for i in range(len(s))])
+    moving = {int(d) + lo: (v, m, v / m) for d, v, m in zip(days, s, min7)}
+    return {"fb_strmax": strmax, "fb_moving_min": moving}
+
+
+def validate_fallback(name, got, want) -> bool:
+    d = got.to_pydict()
+    if name == "fb_strmax":
+        return {(f, s): (mn, mx, n) for f, s, mn, mx, n in zip(
+            d["l_returnflag"], d["l_linestatus"], d["min_c"], d["max_c"],
+            d["n"])} == want
+    return len(d["l_shipdate"]) == len(want) and all(
+        k in want and all(_close(a, b, 1e-12) for a, b in zip(row, want[k]))
+        for k, row in zip(d["l_shipdate"], zip(d["s"], d["min7"],
+                                                d["ratio"])))
+
+
+def phase_fallback(li_plan, text_plan, want, spy, prof=None):
+    """fb_strmax over the strings path's cached lineitem_text and
+    fb_moving_min over the joins path's cached lineitem, each in a session
+    whose test mode allows exactly its one CPU node."""
+    import torch
+    from spark_rapids_tpu_torch.exec.nodes import CpuFallbackExec
+    from spark_rapids_tpu_torch.sql.dataframe import DataFrame
+    H = helpers()
+    api = port_api()
+    queries = {}
+    for name, plan in (("fb_strmax", text_plan), ("fb_moving_min", li_plan)):
+        session = device_session(allowed=H.FALLBACK_NODES[name])
+        queries[name] = (session, getattr(H, name)(
+            api, DataFrame(plan, session)).collect)
+    reset_launches()
+    spy.take()
+    problems = []
+    for name, (session, fn) in queries.items():
+        before = read_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = fn()
+        cold = time.perf_counter() - t0
+        warm = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            fn()
+            warm.append(time.perf_counter() - t0)
+        good = validate_fallback(name, got, want[name])
+        routes = {k: v // 3 for k, v in spy.take().items()}
+        launches = {k: (v - before[k]) // 3
+                    for k, v in read_launches().items()}
+        e_launch = {k: FALLBACK_LAUNCHES[name].get(k, 0) for k in launches}
+        report = session.last_meta.explain()
+        cpu_lines = [ln.strip() for ln in report.splitlines()
+                     if ln.lstrip().startswith("!")]
+        [fb] = [e for e in session.last_exec.walk()
+                if isinstance(e, CpuFallbackExec)]
+        host_ms = sum(fb.metrics[k] for k in ("download_ms", "cpu_ms",
+                                              "upload_ms"))
+        if not good:
+            problems.append(f"{name} disagrees with the host answer")
+        if len(cpu_lines) != 1 or type(fb.plan).__name__ \
+                != H.FALLBACK_NODES[name] \
+                or FALLBACK_REASONS[name] not in report:
+            problems.append(f"{name} placed {cpu_lines} on the CPU: "
+                            f"{report}")
+        if not fb.metrics["output_device"].startswith("cuda"):
+            problems.append(f"{name} uploaded to "
+                            f"{fb.metrics['output_device']}")
+        if launches != e_launch:
+            problems.append(f"{name} launched {launches}, expected "
+                            f"{e_launch}")
+        if name == "fb_moving_min" and "_chunked_segsum_agg" not in routes:
+            problems.append(f"fb_moving_min took routes {routes}")
+        emit({"phase": "fallback.query", "query": name, "correct": good,
+              "cold_s": cold, "warm_s": min(warm), "cpu_nodes": cpu_lines,
+              "fallback": dict(fb.metrics),
+              # the metrics are the last run's: its share of that run
+              "host_share": host_ms / 1e3 / warm[-1],
+              "launches": launches, "routes": routes,
+              "execs": _exec_names(session), "result_rows": got.num_rows,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+    counts = read_launches()
+    emit({"phase": "fallback", "launches": counts, "correct": not problems,
+          "problems": problems})
+    if prof:
+        prof.run("fallback", {k: v[1] for k, v in queries.items()})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return counts
+
+
 #: launch-counter name -> (wrapper module, wrapper function, a substring
 #: of the CUDA kernel's name as the profiler reports it)
 KERNEL_WRAPPERS = {
@@ -2655,6 +2798,10 @@ def main(argv) -> int:
         t0 = time.perf_counter()
         sets = phase_sets(table, orders, h1, h8, spy, prof)
         phases["sets_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fb_want = fallback_reference(text, table)
+        phases["fallback_reference_s"] = time.perf_counter() - t0
+        li_plan = h1.li.plan  # the cached lineitem, for the fallback phase
         del table, orders, h1, h8
         t0 = time.perf_counter()
         parquet = phase_parquet(path, want, spy, prof)
@@ -2663,15 +2810,18 @@ def main(argv) -> int:
         phase_decode(path, tmp_dir, torch.device("cuda"))
         phases["decode_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        strings = phase_strings(text, spy, prof)
+        strings, text_plan = phase_strings(text, spy, prof)
         phases["strings_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fallback = phase_fallback(li_plan, text_plan, fb_want, spy, prof)
+        phases["fallback_s"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp_dir, ignore_errors=True)
     for r in rows:
         by_path = {"cached": cached[r["name"]], "parquet": parquet[r["name"]],
                    "strings": strings[r["name"]], "joins": joins[r["name"]],
                    "window": window[r["name"]], "exprs": exprs[r["name"]],
-                   "sets": sets[r["name"]]}
+                   "sets": sets[r["name"]], "fallback": fallback[r["name"]]}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
     if prof:

@@ -257,8 +257,10 @@ def column_from_arrow(arr, dtype: T.DataType, capacity: int,
     return ColumnVector(dtype, data, validity)
 
 
-def from_arrow(table, device="cpu") -> ColumnarBatch:
-    """pyarrow Table -> device ColumnarBatch (one upload per plane)."""
+def from_arrow(table, device) -> ColumnarBatch:
+    """pyarrow Table -> ColumnarBatch on ``device`` (one upload per
+    plane). The device has no default: an upload that forgot it would
+    quietly land on the host."""
     table = table.combine_chunks()
     n = table.num_rows
     cap = round_capacity(n)

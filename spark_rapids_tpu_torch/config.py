@@ -112,6 +112,51 @@ ANSI_ENABLED = _register(
     "ANSI mode: division by zero and overflowing casts raise instead of "
     "returning null.", _bool_conv)
 
+# Plan tagging and the CPU fallback: the JAX package's keys, with their
+# names and defaults. Per-operator keys are derived from names and need no
+# registration: spark.rapids.sql.exec.<plan node> and
+# spark.rapids.sql.expression.<rule name> (``RapidsConf.is_op_enabled``).
+
+SQL_ENABLED = _register(
+    "spark.rapids.sql.enabled", True,
+    "Enable device acceleration of SQL plans; false runs every operator "
+    "on the CPU backend (reference RapidsConf.scala:801).", _bool_conv)
+
+SQL_MODE = _register(
+    "spark.rapids.sql.mode", "executeOnTPU",
+    "executeOnTPU runs supported operators on the device; explainOnly "
+    "plans, tags and reports what would run on the device, and answers "
+    "with the CPU backend (reference RapidsConf.scala:807).", str)
+
+SQL_EXPLAIN = _register(
+    "spark.rapids.sql.explain", "NOT_ON_TPU",
+    "What to log about plan placement: NONE, NOT_ON_TPU (every fallback "
+    "with its reason), ALL (reference RapidsConf.scala:2107).", str)
+
+IMPROVED_FLOAT_OPS = _register(
+    "spark.rapids.sql.improvedFloatOps.enabled", True,
+    "Allow float aggregation orderings that may differ from CPU Spark in "
+    "ULP-level ways (reference incompat float handling); false sends "
+    "float sums, averages and moments to the CPU.", _bool_conv)
+
+TEST_MODE = _register(
+    "spark.rapids.sql.test.enabled", False,
+    "Assert that everything that should be on the device is on it: a "
+    "fallback to the CPU raises at plan time (reference "
+    "GpuTransitionOverrides assertIsOnTheGpu).", _bool_conv)
+
+ALLOW_NON_TPU = _register(
+    "spark.rapids.sql.test.allowedNonTpu", "",
+    "Comma-separated plan node names allowed to fall back in test mode.",
+    str)
+
+INCOMPAT_ENABLED = _register(
+    "spark.rapids.sql.incompatibleOps.enabled", True,
+    "Enable operators whose results can differ from CPU Spark in "
+    "documented corner cases (reference incompatOps); false sends joins "
+    "on string keys (compared by a 64-bit hash on the device) to the "
+    "CPU.", _bool_conv)
+
 
 def keys():
     return list(_REGISTRY)
@@ -138,3 +183,11 @@ class RapidsConf:
             value = _REGISTRY[key].conv(value)
         self._values[key] = value
         return self
+
+    def is_op_enabled(self, op_key: str) -> bool:
+        """A derived per-operator key (spark.rapids.sql.exec.Sort,
+        spark.rapids.sql.expression.Substring): unset is enabled."""
+        v = self._values.get(op_key)
+        if v is None:
+            return True
+        return _bool_conv(v) if isinstance(v, str) else bool(v)

@@ -11,8 +11,10 @@ compact in-process exchanges (``ShuffleExchangeExec``,
 ``RoundRobinExchangeExec``, ``RangeExchangeExec``), ``HashAggregateExec``
 with ``_AggKernels``, ``LimitExec``, ``TopNExec``, ``SortExec``,
 ``WindowExec``, the hash joins (``BroadcastHashJoinExec``,
-``ShuffledHashJoinExec``), and the nested-loop and cartesian joins
-(``BroadcastNestedLoopJoinExec``, ``CartesianProductExec``).
+``ShuffledHashJoinExec``), the nested-loop and cartesian joins
+(``BroadcastNestedLoopJoinExec``, ``CartesianProductExec``), and
+``CpuFallbackExec``, which runs one plan node that planning tagged off
+the device on the CPU backend (``exec/cpu_backend.py``).
 
 PyTorch runs eagerly, so each operator is plain tensor code per batch; the
 JAX package's stage fusion and compile caches have no counterpart here.
@@ -57,6 +59,7 @@ from spark_rapids_tpu_torch.columnar.batch import (
     ColumnVector, ColumnarBatch, LazyRowCount, column_from_arrow, from_arrow,
     round_capacity, to_arrow,
 )
+from spark_rapids_tpu_torch.exec import cpu_backend as CPU
 from spark_rapids_tpu_torch.expr import aggregates as A
 from spark_rapids_tpu_torch.expr import window as WE
 from spark_rapids_tpu_torch.expr.core import (
@@ -819,10 +822,9 @@ def _resize_col(c: ColumnVector, cap: int) -> ColumnVector:
                            c.capacity)
 
 
-#: what the JAX package tags to the CPU at plan time, should it get here
-_STRING_STATE = ("string aggregate state on the device (min, max, first "
-                 "and last over strings run on the CPU in the JAX package; "
-                 "ROADMAP A3)")
+#: planning tags min, max, first and last over strings to the CPU, as the
+#: JAX package does: no device route carries string state
+_STRING_STATE = "string aggregate state on the device"
 
 
 def _rows_slice(c: Optional[ColumnVector], off: int, n: int):
@@ -2444,3 +2446,96 @@ class CartesianProductExec(_WholeBuildJoin):
                     out, pred.data.to(torch.bool)
                     & pred.validity_or_default(n))
             yield out
+
+
+# ---------------------------------------------------------------------------
+# CPU fallback
+# ---------------------------------------------------------------------------
+
+def host_table(batch: ColumnarBatch, names) -> "pa.Table":
+    """A device batch's live rows as a host table; a large sparse batch
+    is compacted on the device first (a bucket-route output can be a
+    few-percent occupied 2^18-slot batch)."""
+    if batch.row_mask is not None and batch.capacity > 16384:
+        batch = K.compact_batch(batch)
+    return to_arrow(batch, names)
+
+
+def empty_table(schema: T.Schema) -> "pa.Table":
+    import pyarrow as pa
+    fields = [pa.field(f.name, T.to_arrow(f.dtype)) for f in schema.fields]
+    return pa.Table.from_arrays([pa.array([], f.type) for f in fields],
+                                schema=pa.schema(fields))
+
+
+class CpuFallbackExec(TorchExec):
+    """One plan node that planning tagged off the device, run by the CPU
+    backend (the JAX package's ``CpuFallbackExec``). Three steps, each
+    timed: ``download_ms`` brings the children's partitions to host
+    tables (an adjacent fallback hands over its host result without a
+    round trip through the card), ``cpu_ms`` converts them, runs
+    ``cpu_backend.apply_node`` and converts the result back, and
+    ``upload_ms`` puts the result as one partition on the session's
+    device. The device operators below and above stay on the device; a
+    filter below stays a device filter. ``metrics`` also counts the rows
+    in and out and names the device the output landed on."""
+
+    def __init__(self, plan, children, conf, device):
+        super().__init__(plan, children, conf, device)
+        self.metrics = {"download_ms": 0.0, "cpu_ms": 0.0, "upload_ms": 0.0,
+                        "rows_in": 0, "rows_out": 0, "output_device": None}
+
+    @property
+    def num_partitions(self):
+        return 1
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _download(self, child: TorchExec):
+        """The child's rows as one host table."""
+        import pyarrow as pa
+        names = child.plan.schema.names
+        tables = []
+        for p in range(child.num_partitions):
+            for batch in child.execute_partition(p):
+                self._sync()  # the child's device work is not a download
+                t0 = time.perf_counter()
+                tables.append(host_table(batch, names))
+                self.metrics["download_ms"] += \
+                    (time.perf_counter() - t0) * 1e3
+        table = pa.concat_tables(tables) if tables \
+            else empty_table(child.plan.schema)
+        self.metrics["rows_in"] += table.num_rows
+        return table
+
+    def cpu_result(self):
+        child_cols = []
+        for c in self.children:
+            if isinstance(c, CpuFallbackExec):
+                child_cols.append(c.cpu_result())
+                continue
+            table = self._download(c)
+            t0 = time.perf_counter()
+            child_cols.append(CPU.table_to_cols(table))
+            self.metrics["cpu_ms"] += (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        out = CPU.apply_node(self.plan, child_cols,
+                             self.conf.get(C.ANSI_ENABLED))
+        self.metrics["cpu_ms"] += (time.perf_counter() - t0) * 1e3
+        return out
+
+    def execute_partition(self, pidx):
+        cols = self.cpu_result()
+        t0 = time.perf_counter()
+        table = CPU.cols_to_table(cols, self.plan.schema.names)
+        self.metrics["cpu_ms"] += (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        batch = from_arrow(table, self.device)
+        self._sync()
+        self.metrics["upload_ms"] += (time.perf_counter() - t0) * 1e3
+        self.metrics["rows_out"] += table.num_rows
+        self.metrics["output_device"] = str(
+            batch.columns[0].device if batch.columns else self.device)
+        yield batch

@@ -13,17 +13,21 @@ over a whole partition's rows in group-sorted order
 (``segmented_eval``), and the planner exchanges raw rows by group key
 before it. The grouping markers (``grouping``, ``grouping_id``) are
 resolved by the ROLLUP/CUBE lowering and never aggregate.
-``collect_list``/``collect_set`` wait for the nested types (ROADMAP A3).
+On the CPU backend a function is named by ``pandas_spec`` (the JAX
+package's pandas reduction), and a segmented one computes per group id
+(``eval_cpu_groups``).
+``collect_list``/``collect_set`` wait for the nested types (ROADMAP A3b).
 """
 from __future__ import annotations
 
 from typing import List, Tuple
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnVector
-from spark_rapids_tpu_torch.expr.core import Expression, SparkException
+from spark_rapids_tpu_torch.expr.core import CpuCol, Expression, SparkException
 
 
 class AggFunction:
@@ -79,6 +83,8 @@ class Sum(AggFunction):
     """Spark sum: integral inputs sum to long, floats to double; null when
     every input is null."""
 
+    pandas_spec = "sum"
+
     def result_type(self):
         return T.INT64 if self.children[0].data_type().is_integral \
             else T.FLOAT64
@@ -94,6 +100,8 @@ class Sum(AggFunction):
 
 
 class Count(AggFunction):
+    pandas_spec = "count"
+
     def result_type(self):
         return T.INT64
 
@@ -112,6 +120,8 @@ class Count(AggFunction):
 
 class CountAll(AggFunction):
     """count(*)."""
+
+    pandas_spec = "size"
 
     def __init__(self):
         super().__init__()
@@ -136,6 +146,8 @@ class CountAll(AggFunction):
 
 
 class Min(AggFunction):
+    pandas_spec = "min"
+
     def result_type(self):
         return self.children[0].data_type()
 
@@ -150,6 +162,8 @@ class Min(AggFunction):
 
 
 class Max(AggFunction):
+    pandas_spec = "max"
+
     def result_type(self):
         return self.children[0].data_type()
 
@@ -165,6 +179,8 @@ class Max(AggFunction):
 
 class Average(AggFunction):
     """avg: states (sum: double, count: long); result double."""
+
+    pandas_spec = "mean"
 
     def result_type(self):
         return T.FLOAT64
@@ -190,6 +206,7 @@ class First(AggFunction):
     stable sort keeps the input's row order within a group)."""
 
     op = "first"
+    pandas_spec = "first"
 
     def result_type(self):
         return self.children[0].data_type()
@@ -206,6 +223,7 @@ class First(AggFunction):
 
 class Last(First):
     op = "last"
+    pandas_spec = "last"
 
 
 class _MomentAgg(AggFunction):
@@ -271,14 +289,17 @@ def _sqrt_rn(x):
 
 class VarianceSamp(_MomentAgg):
     ddof = 1
+    pandas_spec = "var"
 
 
 class VariancePop(_MomentAgg):
     ddof = 0
+    pandas_spec = ("var", 0)
 
 
 class StddevSamp(_MomentAgg):
     ddof = 1
+    pandas_spec = "std"
 
     def evaluate(self, state_cols):
         n, denom, var = self._moments(state_cols)
@@ -287,6 +308,7 @@ class StddevSamp(_MomentAgg):
 
 class StddevPop(StddevSamp):
     ddof = 0
+    pandas_spec = ("std", 0)
 
 
 # ---------------------------------------------------------------------------
@@ -342,9 +364,10 @@ class _MinMaxBy(SegmentedAgg):
         from spark_rapids_tpu_torch.ops import kernels as K
         val, ordc = inputs
         if ordc.is_string:
+            # planning tags it to the CPU (eval_cpu_groups)
             raise NotImplementedError(
-                f"{type(self).__name__} ordered by a string column (a CPU "
-                f"fallback in the JAX package; ROADMAP A3)")
+                f"{type(self).__name__} ordered by a string column on the "
+                f"device")
         cap = perm.shape[0]
         ok = _valid_under(ordc, live)
         # the sign-flipped int64 image orders like the JAX package's
@@ -360,6 +383,28 @@ class _MinMaxBy(SegmentedAgg):
         sel = _seg_reduce(pos, seg_ids, seg_cap, cap, "amin")
         src = torch.where(sel < cap, perm[sel.clamp(0, cap - 1)], -1)
         return K.gather_column(val, src, cap)
+
+    def eval_cpu_groups(self, inputs, gid, n_groups):
+        from spark_rapids_tpu_torch.exec.cpu_backend import norm_key_np
+        val, ordc = inputs
+        okey, onull = norm_key_np(ordc)
+        if not self.is_min:
+            okey = ~okey
+        best = {}
+        for i, g in enumerate(gid):
+            if onull[i]:
+                continue
+            if g not in best or okey[i] < okey[best[g]]:
+                best[g] = i
+        rt = self.result_type()
+        vals = np.empty(n_groups, object) if isinstance(rt, T.StringType) \
+            else np.zeros(n_groups, rt.np_dtype)
+        ok = np.zeros(n_groups, np.bool_)
+        for g, i in best.items():
+            if val.valid[i]:
+                vals[g] = val.values[i]
+                ok[g] = True
+        return CpuCol(rt, vals, ok)
 
 
 class MinBy(_MinMaxBy):
@@ -417,6 +462,23 @@ class Percentile(SegmentedAgg):
         vhi = v2[(starts + hi).clamp(0, cap - 1)]
         return ColumnVector(T.FLOAT64, vlo + (vhi - vlo) * frac, m > 0)
 
+    def eval_cpu_groups(self, inputs, gid, n_groups):
+        buckets = [[] for _ in range(n_groups)]
+        for g, v, ok in zip(gid, inputs[0].values, inputs[0].valid):
+            if ok:
+                buckets[g].append(float(v))
+        vals = np.zeros(n_groups, np.float64)
+        okm = np.zeros(n_groups, np.bool_)
+        for g, b in enumerate(buckets):
+            if not b:
+                continue
+            b.sort()
+            rank = self.percentage * (len(b) - 1)
+            lo, hi = int(np.floor(rank)), int(np.ceil(rank))
+            vals[g] = b[lo] + (b[hi] - b[lo]) * (rank - lo)
+            okm[g] = True
+        return CpuCol(T.FLOAT64, vals, okm)
+
 
 class ApproxPercentile(Percentile):
     """approx_percentile(col, p[, accuracy]): answered exactly, as in the
@@ -434,13 +496,8 @@ class ApproxPercentile(Percentile):
 class GroupingMarker(AggFunction):
     """grouping(col) / grouping_id(): pseudo-aggregates valid only under
     ROLLUP, CUBE or GROUPING SETS. ``GroupedData.agg`` resolves them to
-    bit reads of the Expand's ``__grouping_id`` key, so they never reach
-    the aggregation kernels."""
-
-    def state_schema(self):
-        raise SparkException(
-            "grouping()/grouping_id() is only valid with "
-            "ROLLUP/CUBE/GROUPING SETS")
+    bit reads of the Expand's ``__grouping_id`` key, and an ``Aggregate``
+    node refuses one elsewhere, so they never aggregate."""
 
 
 class Grouping(GroupingMarker):

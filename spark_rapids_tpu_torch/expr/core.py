@@ -16,13 +16,19 @@ arithmetic and comparisons propagate nulls, AND/OR are Kleene, division or
 remainder by zero is null (or an error in ANSI mode).
 
 ``eval(ctx)`` runs eagerly over a batch's planes; a column whose validity
-is None is valid on every live row.
+is None is valid on every live row. ``eval_cpu(cols, ansi)`` is the CPU
+backend's path (``exec/cpu_backend.py``): numpy values and a validity
+plane per column (``CpuCol``), the JAX package's ``eval_cpu`` arithmetic,
+so an operator that falls back to the CPU answers as the JAX package's
+fallback does.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
@@ -33,6 +39,19 @@ from spark_rapids_tpu_torch.columnar.batch import (
 
 class SparkException(Exception):
     """An ANSI-mode runtime error (division by zero, cast overflow)."""
+
+
+@dataclasses.dataclass
+class CpuCol:
+    """The CPU backend's column: numpy values and a bool validity plane
+    (True = valid). Strings are object arrays of python str."""
+    dtype: T.DataType
+    values: np.ndarray
+    valid: np.ndarray
+
+
+def _rows(cols: Sequence[CpuCol]) -> int:
+    return len(cols[0].values) if cols else 0
 
 
 class EvalCtx:
@@ -82,6 +101,9 @@ class Expression:
 
     def eval(self, ctx: EvalCtx) -> ColumnVector:
         raise NotImplementedError(f"{type(self).__name__} on the device")
+
+    def eval_cpu(self, cols: Sequence[CpuCol], ansi: bool = False) -> CpuCol:
+        raise NotImplementedError(f"{type(self).__name__} on the CPU")
 
     def static_range(self):
         """Optional (lo, hi) int bounds derivable from the expression alone
@@ -207,6 +229,9 @@ class BoundRef(Expression):
     def eval(self, ctx):
         return ctx.columns[self.index]
 
+    def eval_cpu(self, cols, ansi=False):
+        return cols[self.index]
+
 
 class Literal(Expression):
     def __init__(self, value, dtype: T.DataType):
@@ -280,6 +305,19 @@ class Literal(Expression):
                             torch.ones(ctx.capacity, dtype=torch.bool,
                                        device=ctx.device))
 
+    def eval_cpu(self, cols, ansi=False):
+        n = _rows(cols)
+        is_str = isinstance(self.dtype, T.StringType)
+        if self.value is None:
+            vals = np.zeros(n, object if is_str else self.dtype.np_dtype)
+            return CpuCol(self.dtype, vals, np.zeros(n, np.bool_))
+        if is_str:
+            return CpuCol(self.dtype, np.array([self.value] * n, object),
+                          np.ones(n, np.bool_))
+        return CpuCol(self.dtype, np.full(n, self._scalar(),
+                                          self.dtype.np_dtype),
+                      np.ones(n, np.bool_))
+
 
 def _partition_ctx(ctx: EvalCtx, name: str) -> int:
     if ctx.partition_id is None:
@@ -308,6 +346,11 @@ class SparkPartitionID(Expression):
         return ColumnVector(T.INT32, torch.full(
             (ctx.capacity,), pid, dtype=torch.int32, device=ctx.device), None)
 
+    def eval_cpu(self, cols, ansi=False):
+        # the CPU backend runs over its input collected into partition 0
+        n = _rows(cols)
+        return CpuCol(T.INT32, np.zeros(n, np.int32), np.ones(n, np.bool_))
+
 
 class MonotonicallyIncreasingID(Expression):
     """monotonically_increasing_id(): (partition_id << 33) + the row's
@@ -328,6 +371,12 @@ class MonotonicallyIncreasingID(Expression):
         pid = _partition_ctx(ctx, "monotonically_increasing_id()")
         idx = torch.cumsum(ctx.row_mask.to(torch.int64), 0) - 1
         return ColumnVector(T.INT64, idx + ctx.row_base + (pid << 33), None)
+
+    def eval_cpu(self, cols, ansi=False):
+        # partition 0 of the collected input: the ids count from 0
+        n = _rows(cols)
+        return CpuCol(T.INT64, np.arange(n, dtype=np.int64),
+                      np.ones(n, np.bool_))
 
 
 def needs_row_base(e: Expression) -> bool:
@@ -361,6 +410,9 @@ class NullOf(Expression):
     def eval(self, ctx):
         return Literal(None, self.data_type()).eval(ctx)
 
+    def eval_cpu(self, cols, ansi=False):
+        return Literal(None, self.data_type()).eval_cpu(cols, ansi)
+
 
 class Alias(Expression):
     def __init__(self, child: Expression, name: str):
@@ -382,6 +434,9 @@ class Alias(Expression):
     def eval(self, ctx):
         return self.children[0].eval(ctx)
 
+    def eval_cpu(self, cols, ansi=False):
+        return self.children[0].eval_cpu(cols, ansi)
+
 
 # ---------------------------------------------------------------------------
 # Arithmetic
@@ -389,6 +444,11 @@ class Alias(Expression):
 
 def _promote(l: ColumnVector, r: ColumnVector, out: T.DataType):
     return (l.data.to(out.torch_dtype), r.data.to(out.torch_dtype))
+
+
+def _promote_cpu(l: CpuCol, r: CpuCol, out: T.DataType):
+    return (l.values.astype(out.np_dtype, copy=False),
+            r.values.astype(out.np_dtype, copy=False))
 
 
 class BinaryExpression(Expression):
@@ -423,6 +483,16 @@ class BinaryArithmetic(BinaryExpression):
         return ColumnVector(out, type(self).op(ld, rd),
                             _valid_of(l, ctx) & _valid_of(r, ctx))
 
+    def eval_cpu(self, cols, ansi=False):
+        l = self.left.eval_cpu(cols, ansi)
+        r = self.right.eval_cpu(cols, ansi)
+        out = self.data_type()
+        ld, rd = _promote_cpu(l, r, out)
+        with np.errstate(all="ignore"):
+            data = type(self).op(ld, rd)
+        return CpuCol(out, data.astype(out.np_dtype, copy=False),
+                      l.valid & r.valid)
+
 
 class Add(BinaryArithmetic):
     op = staticmethod(lambda a, b: a + b)
@@ -455,6 +525,19 @@ class Divide(BinaryExpression):
         return ColumnVector(T.FLOAT64, torch.where(zero, 0.0, data),
                             valid & ~zero)
 
+    def eval_cpu(self, cols, ansi=False):
+        l = self.left.eval_cpu(cols, ansi)
+        r = self.right.eval_cpu(cols, ansi)
+        ld = l.values.astype(np.float64)
+        rd = r.values.astype(np.float64)
+        zero = rd == 0.0
+        valid = l.valid & r.valid
+        if ansi and bool((zero & valid).any()):
+            raise SparkException("[DIVIDE_BY_ZERO] Division by zero")
+        with np.errstate(all="ignore"):
+            data = np.where(zero, 0.0, ld / np.where(zero, 1.0, rd))
+        return CpuCol(T.FLOAT64, data, valid & ~zero)
+
 
 class IntegralDivide(BinaryExpression):
     """Spark ``div``: long division truncated toward zero; division by
@@ -475,6 +558,23 @@ class IntegralDivide(BinaryExpression):
         q = _java_int_div(ld, torch.where(zero, torch.ones_like(rd), rd))
         return ColumnVector(T.INT64, torch.where(zero, torch.zeros_like(q), q),
                             valid & ~zero)
+
+    def eval_cpu(self, cols, ansi=False):
+        l = self.left.eval_cpu(cols, ansi)
+        r = self.right.eval_cpu(cols, ansi)
+        ld = l.values.astype(np.int64)
+        rd = r.values.astype(np.int64)
+        zero = rd == 0
+        valid = l.valid & r.valid
+        if ansi and bool((zero & valid).any()):
+            raise SparkException("[DIVIDE_BY_ZERO] Division by zero")
+        safe = np.where(zero, 1, rd)
+        with np.errstate(all="ignore"):
+            q = ld // safe
+            rem = ld - q * safe
+            # numpy floors; Java truncates toward zero
+            q = np.where((rem != 0) & ((ld < 0) != (safe < 0)), q + 1, q)
+        return CpuCol(T.INT64, np.where(zero, 0, q), valid & ~zero)
 
 
 def _java_int_div(a, b):
@@ -521,6 +621,21 @@ class Remainder(BinaryExpression):
         return ColumnVector(out, torch.where(rd == 0, float("nan"),
                                              torch.fmod(ld, rd)), valid)
 
+    def eval_cpu(self, cols, ansi=False):
+        l = self.left.eval_cpu(cols, ansi)
+        r = self.right.eval_cpu(cols, ansi)
+        out = self.data_type()
+        ld, rd = _promote_cpu(l, r, out)
+        valid = l.valid & r.valid
+        with np.errstate(all="ignore"):
+            if out.is_integral:
+                zero = rd == 0
+                if ansi and bool((zero & valid).any()):
+                    raise SparkException("[DIVIDE_BY_ZERO] Division by zero")
+                rem = np.fmod(ld, np.where(zero, 1, rd))
+                return CpuCol(out, np.where(zero, 0, rem), valid & ~zero)
+            return CpuCol(out, np.fmod(ld, rd), valid)
+
 
 class UnaryMinus(Expression):
     """Negation; integers wrap (non-ANSI Spark, as the JAX package)."""
@@ -537,6 +652,11 @@ class UnaryMinus(Expression):
     def eval(self, ctx):
         c = self.children[0].eval(ctx)
         return ColumnVector(c.dtype, -c.data, _valid_of(c, ctx))
+
+    def eval_cpu(self, cols, ansi=False):
+        c = self.children[0].eval_cpu(cols, ansi)
+        with np.errstate(all="ignore"):
+            return CpuCol(c.dtype, -c.values, c.valid)
 
 
 class Abs(Expression):
@@ -555,6 +675,11 @@ class Abs(Expression):
     def eval(self, ctx):
         c = self.children[0].eval(ctx)
         return ColumnVector(c.dtype, torch.abs(c.data), _valid_of(c, ctx))
+
+    def eval_cpu(self, cols, ansi=False):
+        c = self.children[0].eval_cpu(cols, ansi)
+        with np.errstate(all="ignore"):
+            return CpuCol(c.dtype, np.abs(c.values), c.valid)
 
 
 # ---------------------------------------------------------------------------
@@ -642,9 +767,25 @@ class BinaryComparison(BinaryExpression):
         return ColumnVector(T.BOOLEAN, type(self).op(ld, rd),
                             _valid_of(l, ctx) & _valid_of(r, ctx))
 
+    def _compare_cpu(self, l: CpuCol, r: CpuCol):
+        if isinstance(l.dtype, T.StringType):
+            # a null row holds None, which python cannot order against a
+            # str: compare "" there (the row's result is null anyway)
+            lv = np.where(l.valid, l.values, "")
+            rv = np.where(r.valid, r.values, "")
+            return type(self).op(lv, rv).astype(np.bool_)
+        ld, rd = _promote_cpu(l, r, T.common_type(l.dtype, r.dtype))
+        with np.errstate(all="ignore"):
+            return type(self).op(ld, rd)
+
+    def eval_cpu(self, cols, ansi=False):
+        l = self.left.eval_cpu(cols, ansi)
+        r = self.right.eval_cpu(cols, ansi)
+        return CpuCol(T.BOOLEAN, self._compare_cpu(l, r), l.valid & r.valid)
 
     def _string_compare(self, ctx):
         if type(self) is not EqualTo:
+            # planning tags string ordering comparisons to the CPU
             raise NotImplementedError("string ordering comparison on the "
                                       "device")
         left, right = self.left, self.right
@@ -697,6 +838,13 @@ class EqualNullSafe(BinaryComparison):
                             torch.ones(ctx.capacity, dtype=torch.bool,
                                        device=ctx.device))
 
+    def eval_cpu(self, cols, ansi=False):
+        l = self.left.eval_cpu(cols, ansi)
+        r = self.right.eval_cpu(cols, ansi)
+        cmp = self._compare_cpu(l, r)
+        val = np.where(l.valid & r.valid, cmp, ~l.valid & ~r.valid)
+        return CpuCol(T.BOOLEAN, val, np.ones(len(val), np.bool_))
+
 
 class And(BinaryExpression):
     def data_type(self):
@@ -710,6 +858,14 @@ class And(BinaryExpression):
         valid = (lv & rv) | (lv & ~ld) | (rv & ~rd)
         return ColumnVector(T.BOOLEAN, ld & rd & lv & rv, valid)
 
+    def eval_cpu(self, cols, ansi=False):
+        l = self.left.eval_cpu(cols, ansi)
+        r = self.right.eval_cpu(cols, ansi)
+        ld = l.values.astype(np.bool_)
+        rd = r.values.astype(np.bool_)
+        valid = (l.valid & r.valid) | (l.valid & ~ld) | (r.valid & ~rd)
+        return CpuCol(T.BOOLEAN, ld & rd & l.valid & r.valid, valid)
+
 
 class Or(BinaryExpression):
     def data_type(self):
@@ -722,6 +878,13 @@ class Or(BinaryExpression):
         ld = l.data.to(torch.bool) & lv
         rd = r.data.to(torch.bool) & rv
         return ColumnVector(T.BOOLEAN, ld | rd, (lv & rv) | ld | rd)
+
+    def eval_cpu(self, cols, ansi=False):
+        l = self.left.eval_cpu(cols, ansi)
+        r = self.right.eval_cpu(cols, ansi)
+        ld = l.values.astype(np.bool_) & l.valid
+        rd = r.values.astype(np.bool_) & r.valid
+        return CpuCol(T.BOOLEAN, ld | rd, (l.valid & r.valid) | ld | rd)
 
 
 class Not(Expression):
@@ -738,6 +901,10 @@ class Not(Expression):
         c = self.children[0].eval(ctx)
         return ColumnVector(T.BOOLEAN, ~c.data.to(torch.bool),
                             _valid_of(c, ctx))
+
+    def eval_cpu(self, cols, ansi=False):
+        c = self.children[0].eval_cpu(cols, ansi)
+        return CpuCol(T.BOOLEAN, ~c.values.astype(np.bool_), c.valid)
 
 
 class IsNull(Expression):
@@ -756,6 +923,10 @@ class IsNull(Expression):
                             torch.ones(ctx.capacity, dtype=torch.bool,
                                        device=ctx.device))
 
+    def eval_cpu(self, cols, ansi=False):
+        c = self.children[0].eval_cpu(cols, ansi)
+        return CpuCol(T.BOOLEAN, ~c.valid, np.ones(len(c.valid), np.bool_))
+
 
 class IsNotNull(Expression):
     def __init__(self, child):
@@ -773,6 +944,11 @@ class IsNotNull(Expression):
                             torch.ones(ctx.capacity, dtype=torch.bool,
                                        device=ctx.device))
 
+    def eval_cpu(self, cols, ansi=False):
+        c = self.children[0].eval_cpu(cols, ansi)
+        return CpuCol(T.BOOLEAN, c.valid.copy(), np.ones(len(c.valid),
+                                                         np.bool_))
+
 
 class IsNaN(Expression):
     def __init__(self, child):
@@ -788,6 +964,11 @@ class IsNaN(Expression):
         c = self.children[0].eval(ctx)
         return ColumnVector(T.BOOLEAN, torch.isnan(c.data), _valid_of(c, ctx))
 
+    def eval_cpu(self, cols, ansi=False):
+        c = self.children[0].eval_cpu(cols, ansi)
+        return CpuCol(T.BOOLEAN, np.isnan(c.values.astype(np.float64)),
+                      c.valid)
+
 
 class _RawCol(Expression):
     """An already evaluated column as an expression."""
@@ -800,6 +981,20 @@ class _RawCol(Expression):
         return self.col.dtype
 
     def eval(self, ctx):
+        return self.col
+
+
+class _RawCpu(Expression):
+    """An already evaluated CPU column as an expression."""
+
+    def __init__(self, col: CpuCol):
+        self.col = col
+        self.children = []
+
+    def data_type(self):
+        return self.col.dtype
+
+    def eval_cpu(self, cols, ansi=False):
         return self.col
 
 
@@ -832,6 +1027,15 @@ class In(Expression):
             acc = eq if acc is None else Or(_RawCol(acc), _RawCol(eq)).eval(ctx)
         return acc
 
+    def eval_cpu(self, cols, ansi=False):
+        c = self.children[0].eval_cpu(cols, ansi)
+        acc = None
+        for v in self.children[1:]:
+            eq = EqualTo(_RawCpu(c), v).eval_cpu(cols, ansi)
+            acc = eq if acc is None \
+                else Or(_RawCpu(acc), _RawCpu(eq)).eval_cpu(cols, ansi)
+        return acc
+
 
 class If(Expression):
     """``if(p, a, b)``: a where p is true, b where it is false or null; the
@@ -859,6 +1063,19 @@ class If(Expression):
             return select_strings(take_then, t, f, valid)
         td, fd = _promote(t, f, out)
         return ColumnVector(out, torch.where(take_then, td, fd), valid)
+
+    def eval_cpu(self, cols, ansi=False):
+        p = self.children[0].eval_cpu(cols, ansi)
+        t = self.children[1].eval_cpu(cols, ansi)
+        f = self.children[2].eval_cpu(cols, ansi)
+        out = self.data_type()
+        take_then = p.values.astype(np.bool_) & p.valid
+        if isinstance(out, T.StringType):
+            vals = np.where(take_then, t.values, f.values)
+        else:
+            td, fd = _promote_cpu(t, f, out)
+            vals = np.where(take_then, td, fd)
+        return CpuCol(out, vals, np.where(take_then, t.valid, f.valid))
 
 
 class CaseWhen(Expression):
@@ -891,6 +1108,9 @@ class CaseWhen(Expression):
     def eval(self, ctx):
         return self._fold().eval(ctx)
 
+    def eval_cpu(self, cols, ansi=False):
+        return self._fold().eval_cpu(cols, ansi)
+
 
 class KnownNotNull(Expression):
     """Catalyst's marker that the child was proven non-null: a
@@ -907,6 +1127,9 @@ class KnownNotNull(Expression):
 
     def eval(self, ctx):
         return self.children[0].eval(ctx)
+
+    def eval_cpu(self, cols, ansi=False):
+        return self.children[0].eval_cpu(cols, ansi)
 
 
 class KnownFloatingPointNormalized(KnownNotNull):
@@ -934,6 +1157,14 @@ class NormalizeNaNAndZero(Expression):
             v = torch.where(v == 0, torch.zeros_like(v), v)
             v = torch.where(torch.isnan(v), float("nan"), v)
         return ColumnVector(c.dtype, v, _valid_of(c, ctx))
+
+    def eval_cpu(self, cols, ansi=False):
+        c = self.children[0].eval_cpu(cols, ansi)
+        v = c.values
+        with np.errstate(all="ignore"):
+            v = np.where(v == 0, np.zeros((), v.dtype), v)
+            v = np.where(np.isnan(v), np.nan, v)
+        return CpuCol(c.dtype, v, c.valid)
 
 
 class AtLeastNNonNulls(Expression):
@@ -965,6 +1196,17 @@ class AtLeastNNonNulls(Expression):
         return ColumnVector(T.BOOLEAN, cnt >= self.n,
                             torch.ones(ctx.capacity, dtype=torch.bool,
                                        device=ctx.device))
+
+    def eval_cpu(self, cols, ansi=False):
+        cnt = np.zeros(_rows(cols), np.int32)
+        for c in self.children:
+            cc = c.eval_cpu(cols, ansi)
+            ok = cc.valid
+            if isinstance(cc.dtype, (T.Float32Type, T.Float64Type)):
+                with np.errstate(all="ignore"):
+                    ok = ok & ~np.isnan(cc.values)
+            cnt = cnt + ok.astype(np.int32)
+        return CpuCol(T.BOOLEAN, cnt >= self.n, np.ones(len(cnt), np.bool_))
 
 
 class Coalesce(Expression):
@@ -1002,6 +1244,20 @@ class Coalesce(Expression):
             acc_valid = acc.validity
         return acc
 
+    def eval_cpu(self, cols, ansi=False):
+        out = self.data_type()
+
+        def values(c):
+            return c.values if isinstance(out, T.StringType) \
+                else c.values.astype(out.np_dtype)
+        acc = self.children[0].eval_cpu(cols, ansi)
+        vals, valid = values(acc), acc.valid.copy()
+        for c in self.children[1:]:
+            nxt = c.eval_cpu(cols, ansi)
+            vals = np.where(valid, vals, values(nxt))
+            valid = valid | nxt.valid
+        return CpuCol(out, vals, valid)
+
 
 _INT_BOUNDS = {
     torch.int8: (-(2 ** 7), 2 ** 7 - 1),
@@ -1032,7 +1288,9 @@ class Cast(Expression):
     float to int truncates and saturates, NaN becomes 0; integer narrowing
     wraps; timestamp to date and to integers floors to days and seconds;
     date and integers to timestamp scale to microseconds, wrapping in
-    int64). The arms run in the JAX package's order."""
+    int64). The arms run in the JAX package's order. Casts to and from
+    strings run on the CPU (``eval_cpu``; planning tags them there until
+    the device arms land, ROADMAP A9)."""
 
     def __init__(self, child: Expression, to: T.DataType):
         self.children = [child]
@@ -1084,6 +1342,53 @@ class Cast(Expression):
             lo, hi = _INT_BOUNDS[dst.torch_dtype]
             ctx.add_error("CAST_OVERFLOW", ((data < lo) | (data > hi)) & valid)
         return ColumnVector(dst, data.to(dst.torch_dtype), valid)
+
+    def eval_cpu(self, cols, ansi=False):
+        c = self.children[0].eval_cpu(cols, ansi)
+        src, dst = c.dtype, self.to
+        valid = c.valid
+        if src == dst:
+            return c
+        if isinstance(dst, T.StringType) or isinstance(src, T.StringType):
+            from spark_rapids_tpu_torch.expr.strings import cast_string_cpu
+            return cast_string_cpu(c, dst, ansi)
+        with np.errstate(all="ignore"):
+            if isinstance(src, T.BooleanType):
+                return CpuCol(dst, c.values.astype(dst.np_dtype), valid)
+            if isinstance(dst, T.BooleanType):
+                return CpuCol(dst, c.values != 0, valid)
+            if isinstance(dst, (T.Float32Type, T.Float64Type)):
+                return CpuCol(dst, c.values.astype(np.float64)
+                              .astype(dst.np_dtype), valid)
+            if isinstance(src, (T.Float32Type, T.Float64Type)) \
+                    and dst.is_integral:
+                info = np.iinfo(dst.np_dtype)
+                v = c.values.astype(np.float64)
+                if ansi and bool(((np.isnan(v) | (v < info.min)
+                                   | (v > info.max)) & valid).any()):
+                    raise SparkException("[CAST_OVERFLOW]")
+                clamped = np.clip(np.where(np.isnan(v), 0.0, v), info.min,
+                                  info.max)
+                return CpuCol(dst, np.trunc(clamped).astype(dst.np_dtype),
+                              valid)
+            data = c.values.astype(np.int64)
+            if isinstance(src, T.TimestampType) \
+                    and isinstance(dst, T.DateType):
+                return CpuCol(dst, np.floor_divide(
+                    data, _MICROS_PER_DAY).astype(np.int32), valid)
+            if isinstance(src, T.DateType) \
+                    and isinstance(dst, T.TimestampType):
+                return CpuCol(dst, data * _MICROS_PER_DAY, valid)
+            if isinstance(src, T.TimestampType) and dst.is_integral:
+                data = np.floor_divide(data, 1_000_000)
+            if isinstance(dst, T.TimestampType) and src.is_integral:
+                return CpuCol(dst, data * 1_000_000, valid)
+            if ansi and dst.is_integral:
+                info = np.iinfo(dst.np_dtype)
+                if bool((((data < info.min) | (data > info.max))
+                         & valid).any()):
+                    raise SparkException("[CAST_OVERFLOW]")
+            return CpuCol(dst, data.astype(dst.np_dtype), valid)
 
 
 _MICROS_PER_DAY = 86_400_000_000

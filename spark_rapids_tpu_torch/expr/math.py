@@ -2,15 +2,17 @@
 ``Greatest`` and ``Least``, and the bitwise and shift family
 (``BitwiseAnd``/``Or``/``Xor``, ``BitwiseNot``, ``ShiftLeft``,
 ``ShiftRight``, ``ShiftRightUnsigned``) so far; the rest of the module is
-ROADMAP A9.
+ROADMAP A9. Each class also evaluates on the CPU backend (``eval_cpu``,
+the JAX package's numpy arithmetic).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnVector
-from spark_rapids_tpu_torch.expr.core import Expression, _valid_of
+from spark_rapids_tpu_torch.expr.core import CpuCol, Expression, _valid_of
 
 
 class Greatest(Expression):
@@ -49,6 +51,22 @@ class Greatest(Expression):
             acc_valid = acc_valid | cv
         return ColumnVector(out, acc, acc_valid)
 
+    def eval_cpu(self, cols, ansi=False):
+        out = self.data_type()
+        acc = acc_valid = None
+        with np.errstate(all="ignore"):
+            for child in self.children:
+                c = child.eval_cpu(cols, ansi)
+                v = c.values.astype(out.np_dtype)
+                if acc is None:
+                    acc, acc_valid = v.copy(), c.valid.copy()
+                    continue
+                better = v > acc if self.largest else v < acc
+                pick_new = c.valid & (~acc_valid | better)
+                acc = np.where(pick_new, v, acc)
+                acc_valid = acc_valid | c.valid
+        return CpuCol(out, acc, acc_valid)
+
 
 class Least(Greatest):
     """least(...): the smallest non-null value per row."""
@@ -83,6 +101,15 @@ class _Bitwise(Expression):
         return ColumnVector(dt, out, _valid_of(left, ctx)
                             & _valid_of(right, ctx))
 
+    def eval_cpu(self, cols, ansi=False):
+        left = self.children[0].eval_cpu(cols, ansi)
+        right = self.children[1].eval_cpu(cols, ansi)
+        dt = self.data_type()
+        out = {"and": np.bitwise_and, "or": np.bitwise_or,
+               "xor": np.bitwise_xor}[self.op](
+            left.values.astype(dt.np_dtype), right.values.astype(dt.np_dtype))
+        return CpuCol(dt, out, left.valid & right.valid)
+
 
 class BitwiseAnd(_Bitwise):
     op = "and"
@@ -110,6 +137,10 @@ class BitwiseNot(Expression):
         c = self.children[0].eval(ctx)
         return ColumnVector(c.dtype, torch.bitwise_not(c.data),
                             _valid_of(c, ctx))
+
+    def eval_cpu(self, cols, ansi=False):
+        c = self.children[0].eval_cpu(cols, ansi)
+        return CpuCol(c.dtype, ~c.values, c.valid)
 
 
 class _Shift(Expression):
@@ -152,6 +183,22 @@ class _Shift(Expression):
         n = self.children[1].eval(ctx)
         return ColumnVector(v.dtype, self._shift(v.data, n.data),
                             _valid_of(v, ctx) & _valid_of(n, ctx))
+
+    def eval_cpu(self, cols, ansi=False):
+        v = self.children[0].eval_cpu(cols, ansi)
+        n = self.children[1].eval_cpu(cols, ansi)
+        vals = v.values
+        width = vals.dtype.itemsize * 8
+        k = n.values.astype(vals.dtype) % width
+        if self.left:
+            out = vals << k
+        elif self.arithmetic:
+            out = vals >> k
+        else:
+            # logical: through the unsigned view
+            udt = np.dtype(f"uint{width}")
+            out = (vals.astype(udt) >> k.astype(udt)).astype(vals.dtype)
+        return CpuCol(v.dtype, out, v.valid & n.valid)
 
 
 class ShiftLeft(_Shift):

@@ -4,11 +4,12 @@ module is ROADMAP A9.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnVector
-from spark_rapids_tpu_torch.expr.core import Expression, _partition_ctx
+from spark_rapids_tpu_torch.expr.core import CpuCol, Expression, _partition_ctx
 
 _M64 = (1 << 64) - 1
 
@@ -39,7 +40,9 @@ class Rand(Expression):
     40) + seed``, whose top 53 bits scale into [0, 1). The position counts
     the partition's live rows, so it needs the partition context that a
     projection (or a filter over one partition) threads. The stream is the
-    JAX package's, not Spark's XORShiftRandom."""
+    JAX package's, not Spark's XORShiftRandom; the CPU backend
+    (``eval_cpu``) draws the same one over its input collected into
+    partition 0."""
 
     reads_partition = True
     reads_row_base = True
@@ -64,3 +67,15 @@ class Rand(Expression):
         top = _shr(splitmix64(x), 11)
         return ColumnVector(T.FLOAT64,
                             top.to(torch.float64) / float(1 << 53), None)
+
+    def eval_cpu(self, cols, ansi=False):
+        n = len(cols[0].values) if cols else 0
+        m = np.uint64
+        x = np.arange(n, dtype=np.uint64) + m(self.seed & _M64)
+        with np.errstate(over="ignore"):
+            x = x + m(0x9E3779B97F4A7C15)
+            x = (x ^ (x >> m(30))) * m(0xBF58476D1CE4E5B9)
+            x = (x ^ (x >> m(27))) * m(0x94D049BB133111EB)
+        x = x ^ (x >> m(31))
+        return CpuCol(T.FLOAT64, (x >> m(11)).astype(np.float64)
+                      / np.float64(1 << 53), np.ones(n, np.bool_))

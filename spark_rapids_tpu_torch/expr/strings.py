@@ -12,17 +12,26 @@ does; Spark maps all of Unicode (the JAX package documents the
 difference). Positions, lengths and substrings count UTF-8 characters, not
 bytes. Per-byte work stays in uint8/bool/int32 planes: a string plane may
 hold 2^30 bytes.
+
+Every class also evaluates on the CPU backend (``eval_cpu``, the JAX
+package's python string arithmetic: there upper/lower map all of Unicode,
+as in the JAX package), and so do the casts to and from strings
+(``cast_string_cpu``) and the LIKE patterns the device cannot run yet.
 """
 from __future__ import annotations
 
+import datetime
+import re
 from typing import List
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnVector, round_capacity
 from spark_rapids_tpu_torch.expr.core import (
-    EqualTo, EvalCtx, Expression, Literal, _valid_of, window_eq,
+    CpuCol, EqualTo, EvalCtx, Expression, Literal, SparkException, _valid_of,
+    window_eq,
 )
 from spark_rapids_tpu_torch.ops import case_map as CM
 from spark_rapids_tpu_torch.ops import kernels as K
@@ -163,6 +172,12 @@ class StringLength(Expression):
 
         return _lift_unary(ctx, c, compute)
 
+    def eval_cpu(self, cols, ansi=False):
+        c = self.children[0].eval_cpu(cols, ansi)
+        return CpuCol(T.INT32, np.array([len(v) if isinstance(v, str) else 0
+                                         for v in c.values], np.int32),
+                      c.valid)
+
 
 class _CaseMap(Expression):
     """ASCII upper/lower over the byte plane by the case-map kernel: only
@@ -190,6 +205,12 @@ class _CaseMap(Expression):
                 "bytes": CM.case_map(flat.data["bytes"], self.upper)}, None)
 
         return _lift_unary(ctx, c, compute)
+
+    def eval_cpu(self, cols, ansi=False):
+        c = self.children[0].eval_cpu(cols, ansi)
+        f = str.upper if self.upper else str.lower
+        return CpuCol(T.STRING, _object_array(
+            [f(v) if isinstance(v, str) else v for v in c.values]), c.valid)
 
 
 class Upper(_CaseMap):
@@ -257,6 +278,22 @@ class Substring(Expression):
             "offsets": _offsets_of(out_lens),
             "bytes": _gather_ranges(raw, byte_start, out_lens)}, None)
 
+    def eval_cpu(self, cols, ansi=False):
+        c = self.children[0].eval_cpu(cols, ansi)
+        out = []
+        for v in c.values:
+            if not isinstance(v, str):
+                out.append(v)
+                continue
+            if self.pos > 0:
+                start = self.pos - 1
+            elif self.pos == 0:
+                start = 0
+            else:
+                start = max(len(v) + self.pos, 0)
+            out.append(v[start: start + max(self.length, 0)])
+        return CpuCol(T.STRING, _object_array(out), c.valid)
+
 
 class ConcatStrings(Expression):
     """concat(s1, s2, ...): null if any input is null (Spark concat)."""
@@ -294,6 +331,15 @@ class ConcatStrings(Expression):
             acc = acc + pl
         return ColumnVector(T.STRING, {"offsets": new_off, "bytes": out},
                             valid)
+
+    def eval_cpu(self, cols, ansi=False):
+        parts = [c.eval_cpu(cols, ansi) for c in self.children]
+        valid = parts[0].valid.copy()
+        for p in parts[1:]:
+            valid = valid & p.valid
+        out = ["".join(str(p.values[i]) for p in parts) if ok else None
+               for i, ok in enumerate(valid)]
+        return CpuCol(T.STRING, _object_array(out), valid)
 
 
 class _LiteralMatch(Expression):
@@ -351,6 +397,14 @@ class _LiteralMatch(Expression):
             hit_row[row[inside]] = True
         return ColumnVector(T.BOOLEAN, fits & hit_row, None)
 
+    def eval_cpu(self, cols, ansi=False):
+        c = self.children[0].eval_cpu(cols, ansi)
+        f = {"starts": str.startswith, "ends": str.endswith,
+             "contains": str.__contains__}[self.mode]
+        return CpuCol(T.BOOLEAN, np.array(
+            [bool(f(v, self.pattern)) if isinstance(v, str) else False
+             for v in c.values], np.bool_), c.valid)
+
 
 class StartsWith(_LiteralMatch):
     mode = "starts"
@@ -369,7 +423,8 @@ class Like(Expression):
     both, or contains run as those expressions; a pattern of only ``%``
     matches every non-null string. Other patterns (``_`` wildcards, more
     than one inner run) need the JAX package's device NFA
-    (``expr/regex.py``), which is not ported yet, and raise."""
+    (``expr/regex.py``), which is not ported yet: planning tags them to
+    the CPU (``needs_nfa``), where ``eval_cpu`` matches with ``re``."""
 
     def __init__(self, child, pattern: str, escape: str = "\\"):
         self.children = [child]
@@ -433,18 +488,45 @@ class Like(Expression):
             return Contains(child, runs[1])
         return None
 
+    def needs_nfa(self) -> bool:
+        """Would the device need the NFA for this pattern?"""
+        return self._transpile() is None \
+            and self.pattern.replace("%", "") != ""
+
     def eval(self, ctx):
         t = self._transpile()
         if t is not None:
             return t.eval(ctx)
-        if self.pattern.replace("%", "") == "":
-            c = self.children[0].eval(ctx)
-            return ColumnVector(T.BOOLEAN, torch.ones(
-                ctx.capacity, dtype=torch.bool, device=ctx.device),
-                _valid_of(c, ctx))
-        raise NotImplementedError(
-            f"LIKE pattern {self.pattern!r} needs the device NFA of "
-            f"expr/regex.py, which is not ported yet")
+        if self.needs_nfa():
+            raise NotImplementedError(
+                f"LIKE pattern {self.pattern!r} needs the device NFA of "
+                f"expr/regex.py, which is not ported yet")
+        c = self.children[0].eval(ctx)
+        return ColumnVector(T.BOOLEAN, torch.ones(
+            ctx.capacity, dtype=torch.bool, device=ctx.device),
+            _valid_of(c, ctx))
+
+    def eval_cpu(self, cols, ansi=False):
+        c = self.children[0].eval_cpu(cols, ansi)
+        prog = re.compile(_like_to_regex(self.pattern, self.escape),
+                          re.DOTALL)
+        return CpuCol(T.BOOLEAN, np.array(
+            [bool(prog.fullmatch(v)) if isinstance(v, str) else False
+             for v in c.values], np.bool_), c.valid)
+
+
+def _like_to_regex(pattern: str, esc: str) -> str:
+    out = []
+    i = 0
+    while i < len(pattern):
+        ch = pattern[i]
+        if ch == esc and i + 1 < len(pattern):
+            out.append(re.escape(pattern[i + 1]))
+            i += 2
+            continue
+        out.append({"%": ".*", "_": "."}.get(ch, re.escape(ch)))
+        i += 1
+    return "".join(out)
 
 
 class _StringEquals(Expression):
@@ -464,6 +546,12 @@ class _StringEquals(Expression):
     def eval(self, ctx):
         return EqualTo(self.children[0],
                        Literal(self.value, T.STRING)).eval(ctx)
+
+    def eval_cpu(self, cols, ansi=False):
+        c = self.children[0].eval_cpu(cols, ansi)
+        return CpuCol(T.BOOLEAN, np.array(
+            [v == self.value if isinstance(v, str) else False
+             for v in c.values], np.bool_), c.valid)
 
 
 class _AndExpr(Expression):
@@ -492,3 +580,144 @@ class _AndExpr(Expression):
             res = res & (_lens(src) >= self.min_len)
         return ColumnVector(T.BOOLEAN, res,
                             _valid_of(a, ctx) & _valid_of(b, ctx))
+
+    def eval_cpu(self, cols, ansi=False):
+        a = self.children[0].eval_cpu(cols, ansi)
+        b = self.children[1].eval_cpu(cols, ansi)
+        res = a.values & b.values
+        if self.min_len:
+            src = self.children[0].children[0].eval_cpu(cols, ansi)
+            lens = np.array([len(v) if isinstance(v, str) else 0
+                             for v in src.values])
+            res = res & (lens >= self.min_len)
+        return CpuCol(T.BOOLEAN, res, a.valid & b.valid)
+
+
+def _object_array(items) -> np.ndarray:
+    out = np.empty(len(items), object)
+    out[:] = items
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Casts involving strings, on the CPU (the JAX package's cast_string_cpu)
+# ---------------------------------------------------------------------------
+
+_JAVA_WS = "".join(chr(c) for c in range(33))
+
+
+def _java_trim(s: str) -> str:
+    """Java String/UTF8String trim: strip chars <= 0x20 on both ends."""
+    return s.strip(_JAVA_WS)
+
+
+def _parse_dt_py(s, with_time: bool):
+    """Spark's stringToDate/stringToTimestamp subset of the JAX package's
+    device kernel: yyyy[-m[-d]] and yyyy-m-d[ |T]H:M:S[.ffffff], UTC."""
+    if not isinstance(s, str):
+        return None
+    t = _java_trim(s)
+    date_re = r"(\d{1,7})(?:-(\d{1,2})(?:-(\d{1,2}))?)?"
+    time_re = r"(?:[ T](\d{1,2}):(\d{1,2}):(\d{1,2})(?:\.(\d+))?)?"
+    m = re.fullmatch(date_re + (time_re if with_time else ""), t)
+    if m is None:
+        return None
+    g = m.groups()
+    try:
+        date = datetime.date(int(g[0]), int(g[1] or 1), int(g[2] or 1))
+    except ValueError:
+        return None
+    days = (date - datetime.date(1970, 1, 1)).days
+    if not with_time:
+        return days
+    us = 0
+    if g[3] is not None:
+        hh, mi, ss = int(g[3]), int(g[4]), int(g[5])
+        if hh > 23 or mi > 59 or ss > 59:
+            return None
+        frac = (g[6] or "")[:6].ljust(6, "0") if g[6] else "0"
+        us = hh * 3_600_000_000 + mi * 60_000_000 + ss * 1_000_000 \
+            + int(frac)
+    return days * 86_400_000_000 + us
+
+
+def _spark_float_str(v: float) -> str:
+    """Java Double.toString-ish rendering (Spark's cast double -> string)."""
+    if v != v:
+        return "NaN"
+    if v == float("inf"):
+        return "Infinity"
+    if v == float("-inf"):
+        return "-Infinity"
+    if v == int(v) and abs(v) < 1e16:
+        return f"{int(v)}.0"
+    return repr(v)
+
+
+def _render(v, src: T.DataType) -> str:
+    if isinstance(src, T.BooleanType):
+        return "true" if v else "false"
+    if isinstance(src, (T.Float32Type, T.Float64Type)):
+        return _spark_float_str(float(v))
+    if isinstance(src, T.DateType):
+        return str(datetime.date(1970, 1, 1)
+                   + datetime.timedelta(days=int(v)))
+    if isinstance(src, T.TimestampType):
+        iso = (datetime.datetime(1970, 1, 1) + datetime.timedelta(
+            microseconds=int(v))).isoformat(sep=" ")
+        # Spark trims trailing zeros of the fraction
+        return iso.rstrip("0").rstrip(".") if "." in iso else iso
+    return str(int(v))
+
+
+#: Spark castToDouble: UTF8String.trim + Java Double.parseDouble, with
+#: case-sensitive Infinity/NaN, no underscores and no bare 'inf' (python's
+#: float() is more lenient)
+_NUM_RE = re.compile(r"[+-]?((\d+(\.\d*)?|\.\d+)([eE][+-]?\d+)?|Infinity|NaN)")
+_TRUE = ("true", "t", "yes", "y", "1")
+_FALSE = ("false", "f", "no", "n", "0")
+
+
+def _parse(s, dst: T.DataType):
+    """The value of string s cast to dst, or None where it does not
+    parse."""
+    if not isinstance(s, str):
+        return None
+    if dst.is_integral:
+        try:
+            return int(s.strip())
+        except ValueError:
+            return None
+    if isinstance(dst, (T.Float32Type, T.Float64Type)):
+        t = _java_trim(s)
+        return float(t.replace("Infinity", "inf")) \
+            if _NUM_RE.fullmatch(t) else None
+    if isinstance(dst, T.BooleanType):
+        t = s.strip().lower()
+        return True if t in _TRUE else (False if t in _FALSE else None)
+    return _parse_dt_py(s, with_time=isinstance(dst, T.TimestampType))
+
+
+def cast_string_cpu(c: CpuCol, dst: T.DataType, ansi: bool) -> CpuCol:
+    """Casts to and from strings on the CPU, with the JAX package's CPU
+    semantics: a string that does not parse is null (ANSI: an error)."""
+    if isinstance(dst, T.StringType):
+        return CpuCol(T.STRING, _object_array(
+            [_render(v, c.dtype) if ok else None
+             for v, ok in zip(c.values, c.valid)]), c.valid.copy())
+    valid = c.valid.copy()
+    vals = np.zeros(len(c.values), np.bool_ if isinstance(
+        dst, T.BooleanType) else (np.float64 if isinstance(
+            dst, (T.Float32Type, T.Float64Type)) else np.int64))
+    for i, s in enumerate(c.values):
+        if not valid[i]:
+            continue
+        v = _parse(s, dst)
+        if v is None:
+            if ansi:
+                raise SparkException(f"[CAST_INVALID_INPUT] '{s}' to "
+                                     f"{dst!r}")
+            valid[i] = False
+        else:
+            vals[i] = v
+    return CpuCol(dst, vals.astype(dst.np_dtype), valid)

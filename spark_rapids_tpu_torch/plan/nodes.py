@@ -4,7 +4,9 @@ Counterpart of ``spark_rapids_tpu/plan/nodes.py`` for the nodes this
 engine runs: ``InMemorySource``, ``ParquetScan``, ``Range``, ``CachedRelation`` (the
 ``df.cache()`` marker), ``Project``, ``Filter``, ``Aggregate``,
 ``Repartition``, ``Sort`` (with ``SortOrder``), ``Limit``, ``Join``,
-``WindowNode``, ``Union`` and ``Expand``.
+``WindowNode``, ``Union`` and ``Expand``. ``describe()`` is a node's line
+in the placement report (``plan/overrides.py`` ``explain``), in the JAX
+package's words.
 """
 from __future__ import annotations
 
@@ -12,8 +14,10 @@ import dataclasses
 from typing import List, Optional, Sequence
 
 from spark_rapids_tpu_torch import types as T
-from spark_rapids_tpu_torch.expr.aggregates import NamedAgg
-from spark_rapids_tpu_torch.expr.core import Alias, BoundRef, Col, Expression
+from spark_rapids_tpu_torch.expr.aggregates import GroupingMarker, NamedAgg
+from spark_rapids_tpu_torch.expr.core import (
+    Alias, BoundRef, Col, Expression, SparkException,
+)
 
 
 class PlanNode:
@@ -22,6 +26,9 @@ class PlanNode:
     @property
     def schema(self) -> T.Schema:
         raise NotImplementedError
+
+    def describe(self) -> str:
+        return type(self).__name__
 
     def estimated_rows(self) -> Optional[int]:
         """Best-effort row count for physical planning (the join strategy
@@ -100,6 +107,10 @@ class InMemorySource(PlanNode):
         return T.Schema(tuple(T.StructField(f.name, T.from_arrow(f.type))
                               for f in self.table.schema))
 
+    def describe(self):
+        return (f"InMemorySource[{self.table.num_rows} rows, "
+                f"{self.num_partitions} parts]")
+
 
 class ParquetScan(PlanNode):
     """Parquet files, one partition per file. The schema is read from the
@@ -131,6 +142,9 @@ class ParquetScan(PlanNode):
                 for n in names))
         return self._schema
 
+    def describe(self):
+        return f"ParquetScan[{len(self.paths)} files]"
+
 
 class Range(PlanNode):
     """``session.range(start, end, step)``: one int64 column ``id``."""
@@ -152,6 +166,9 @@ class Range(PlanNode):
     def schema(self):
         return T.Schema((T.StructField("id", T.INT64),))
 
+    def describe(self):
+        return f"Range[{self.start},{self.end},{self.step}]"
+
 
 class CachedRelation(PlanNode):
     """``df.cache()``: the child's result is materialized once on the card
@@ -165,6 +182,10 @@ class CachedRelation(PlanNode):
     def schema(self):
         return self.children[0].schema
 
+    def describe(self):
+        state = "hot" if self.materialized is not None else "cold"
+        return f"CachedRelation[{state}]"
+
 
 class Project(PlanNode):
     def __init__(self, exprs: List[Expression], child: PlanNode):
@@ -177,6 +198,9 @@ class Project(PlanNode):
         return T.Schema(tuple(T.StructField(n, e.data_type())
                               for n, e in zip(self.names, self.exprs)))
 
+    def describe(self):
+        return f"Project[{', '.join(self.names)}]"
+
 
 class Filter(PlanNode):
     def __init__(self, condition: Expression, child: PlanNode):
@@ -186,6 +210,9 @@ class Filter(PlanNode):
     @property
     def schema(self):
         return self.children[0].schema
+
+    def describe(self):
+        return f"Filter[{self.condition!r}]"
 
 
 class Aggregate(PlanNode):
@@ -198,6 +225,9 @@ class Aggregate(PlanNode):
         self.group_names = [expr_name(e, i) for i, e in enumerate(group_exprs)]
         self.aggs = [a.transform(lambda n: bind_expr(n, child.schema))
                      for a in aggs]
+        if any(isinstance(a.fn, GroupingMarker) for a in self.aggs):
+            raise SparkException("grouping()/grouping_id() is only valid "
+                                 "with ROLLUP/CUBE/GROUPING SETS")
 
     @property
     def schema(self):
@@ -206,6 +236,10 @@ class Aggregate(PlanNode):
         fields += [T.StructField(a.name, a.fn.result_type())
                    for a in self.aggs]
         return T.Schema(tuple(fields))
+
+    def describe(self):
+        return (f"Aggregate[keys=[{', '.join(self.group_names)}], "
+                f"aggs=[{', '.join(a.name for a in self.aggs)}]]")
 
 
 class Repartition(PlanNode):
@@ -220,6 +254,10 @@ class Repartition(PlanNode):
     @property
     def schema(self):
         return self.children[0].schema
+
+    def describe(self):
+        how = f"hash{self.keys!r}" if self.keys else "roundrobin"
+        return f"Repartition[{how}, n={self.n_out}]"
 
 
 @dataclasses.dataclass
@@ -243,6 +281,11 @@ class Sort(PlanNode):
     @property
     def schema(self):
         return self.children[0].schema
+
+    def describe(self):
+        parts = [f"{o.expr!r} {'ASC' if o.ascending else 'DESC'}"
+                 for o in self.orders]
+        return f"Sort[{', '.join(parts)}]"
 
 
 class WindowNode(PlanNode):
@@ -279,6 +322,9 @@ class WindowNode(PlanNode):
             fields.append(T.StructField(n, w.fn.result_type()))
         return T.Schema(tuple(fields))
 
+    def describe(self):
+        return f"Window[{', '.join(self.names)}]"
+
 
 class Limit(PlanNode):
     def __init__(self, n: int, child: PlanNode):
@@ -288,6 +334,9 @@ class Limit(PlanNode):
     @property
     def schema(self):
         return self.children[0].schema
+
+    def describe(self):
+        return f"Limit[{self.n}]"
 
 
 def _nullable(fields):
@@ -330,6 +379,11 @@ class Join(PlanNode):
             rf = _nullable(rf)
         return T.Schema(tuple(lf + rf))
 
+    def describe(self):
+        keys = ", ".join(f"{l!r}={r!r}"
+                         for l, r in zip(self.left_keys, self.right_keys))
+        return f"Join[{self.how}, {keys}]"
+
 
 class Union(PlanNode):
     """UNION ALL by position: each column widens to the children's common
@@ -356,6 +410,9 @@ class Union(PlanNode):
             fields.append(T.StructField(f.name, dt))
         return T.Schema(tuple(fields))
 
+    def describe(self):
+        return f"Union[{len(self.children)}]"
+
 
 class Expand(PlanNode):
     """Several projections of each input row (the ROLLUP/CUBE/GROUPING
@@ -372,3 +429,6 @@ class Expand(PlanNode):
     def schema(self):
         return T.Schema(tuple(T.StructField(n, e.data_type()) for n, e in
                               zip(self.names, self.projections[0])))
+
+    def describe(self):
+        return f"Expand[{len(self.projections)} projections]"

@@ -1,54 +1,496 @@
-"""Plan conversion: logical plan nodes -> physical operators.
+"""Plan tagging and conversion: logical plan nodes -> physical operators.
 
-Counterpart of ``spark_rapids_tpu/plan/overrides.py`` ``convert_plan``
-for this engine's nodes, with the Parquet filter pushdown that runs
-before it. Convertible: in-memory, Parquet and cached scans, ranges,
+Counterpart of ``spark_rapids_tpu/plan/overrides.py``. Every plan node is
+wrapped in a ``SparkPlanMeta`` and tagged with the reasons it cannot run
+on the device, by the JAX package's rules: type signatures of each
+expression and aggregate (``EXPR_RULES``, ``AGG_RULES``, under the JAX
+package's rule names, so the per-operator keys
+spark.rapids.sql.expression.<rule name> and spark.rapids.sql.exec.<plan
+node> match), the float and incompatible-op switches, the partition
+context outside a projection (``PROJECT_ONLY_EXPRS``) and the window
+rules (``_tag_window``). Conversion is bottom-up: a node without reasons
+becomes its device operator, a node with reasons a ``CpuFallbackExec``
+over the CPU backend, so one operator runs on the host and the rest of
+the plan stays on the card. ``explain`` prints the placement report in
+the JAX package's layout (``*`` on the device, ``!`` on the CPU with an
+``@`` line per reason), and spark.rapids.sql.test.enabled turns any
+fallback not allowed by spark.rapids.sql.test.allowedNonTpu into an
+error (``_assert_on_tpu``). The tags decide at plan time and nothing else
+does: no device operator falls back when it fails.
+
+The device operators: in-memory, Parquet and cached scans, ranges,
 unions, expands (stacked or one projection per batch, as the JAX
 package's stage fusion would run them: ``mark_expand_forms``), projections
-and filters over the expressions of ``expr/core.py`` (a filter that
-reads the partition context, such as ``sample``'s ``rand``, over its input
-collected into one partition), ``expr/math.py`` and the string
-functions of ``expr/strings.py`` (length, upper/lower with the case-map
-kernel, substring, concat, startswith/endswith/contains, transpilable
-LIKE, string equality), hash and round-robin repartition, the hash
-aggregate with its tiny-bucket, packed (scatter, segsum, sort) and sort
-routes (string and float keys group by sorting; segmented aggregates such
-as percentile take a hash exchange of raw rows by key first), sort (a range exchange
-first over several partitions), limit and TopN, window functions (a hash
-exchange on the partition keys, or a collect when there are none, below
-``WindowExec``), equi-joins of every type, broadcast or shuffled as the
-JAX package plans them with adaptive execution off, non-equi joins
-(``BroadcastNestedLoopJoinExec``) and cross joins
-(``CartesianProductExec``). Everything runs on one device: there is no
-tagging and no CPU fallback yet, so what the JAX package would run on the
-CPU raises ``NotImplementedError`` with its reason (a window ORDER BY on
-strings, string window operands, bounded-rows min/max, min/max/first/last
-over strings, min_by/max_by ordered by strings, ...), and so does
-an expression the device cannot run (a LIKE pattern that needs the NFA, a
-string ordering comparison).
+and filters (a filter that reads the partition context, such as
+``sample``'s ``rand``, over its input collected into one partition), hash
+and round-robin repartition, the hash aggregate with its tiny-bucket,
+packed (scatter, segsum, sort) and sort routes (segmented aggregates such
+as percentile take a hash exchange of raw rows by key first), sort (a
+range exchange first over several partitions), limit and TopN, window
+functions (a hash exchange on the partition keys, or a collect when there
+are none, below ``WindowExec``), equi-joins of every type, broadcast or
+shuffled as the JAX package plans them with adaptive execution off,
+non-equi joins (``BroadcastNestedLoopJoinExec``) and cross joins
+(``CartesianProductExec``).
 """
 from __future__ import annotations
 
+import dataclasses
 from functools import reduce
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Type
 
 from spark_rapids_tpu_torch import config as C
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.exec import nodes as X
+from spark_rapids_tpu_torch.expr import aggregates as A
 from spark_rapids_tpu_torch.expr import core as E
+from spark_rapids_tpu_torch.expr import math as MA
+from spark_rapids_tpu_torch.expr import misc as MX
+from spark_rapids_tpu_torch.expr import strings as S
 from spark_rapids_tpu_torch.io.parquet_pruning import split_conjuncts
 from spark_rapids_tpu_torch.plan import nodes as P
+from spark_rapids_tpu_torch.types import Sigs, TypeSig
+
+PORT_TAG_DIFFERENCES = """Where the port's tags differ from the JAX package's.
+
+Tags only the port has; their device arms wait for ROADMAP A9, and their
+reasons name it:
+- a LIKE pattern that needs the NFA (``_like_check``) runs on the CPU;
+- a cast to or from a string (``_cast_check``) runs on the CPU.
+
+A tag of the JAX package the port drops: a filter that reads the
+partition context (``sample``'s ``rand``, ``spark_partition_id()``) stays
+on the device, over its input collected into one partition, and keeps the
+rows the JAX package's CPU filter keeps (``PROJECT_ONLY_EXPRS``). The
+partition context in an aggregate, a join, a sort or a window goes to the
+CPU, as in the JAX package.
+"""
 
 
-def convert_plan(plan: P.PlanNode, conf, device) -> X.TorchExec:
+# ---------------------------------------------------------------------------
+# Expression rules (the JAX package's registrations, for the port's
+# classes)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ExprRule:
+    name: str
+    input_sig: TypeSig
+    result_sig: TypeSig
+    doc: str = ""
+    extra: Optional[Callable] = None
+
+
+EXPR_RULES: Dict[Type, ExprRule] = {}
+
+
+def expr_rule(cls: Type, input_sig: TypeSig = Sigs.COMMON,
+              result_sig: TypeSig = Sigs.COMMON, doc: str = "",
+              extra=None):
+    EXPR_RULES[cls] = ExprRule(cls.__name__, input_sig, result_sig, doc,
+                               extra)
+
+
+_NUM = Sigs.NUMERIC + TypeSig(["NULL"])
+_NUMDT = _NUM + TypeSig(["DATE", "TIMESTAMP", "BOOLEAN"])
+#: column references, aliases and null tests pass nested columns through
+_NESTED_OK = Sigs.COMMON.nested()
+
+expr_rule(E.BoundRef, _NESTED_OK, _NESTED_OK, "column reference")
+expr_rule(E.Literal, Sigs.COMMON, Sigs.COMMON, "literal value")
+expr_rule(E.Alias, _NESTED_OK, _NESTED_OK, "named expression")
+expr_rule(E.NullOf, Sigs.COMMON, Sigs.COMMON, "typed null")
+expr_rule(E.SparkPartitionID, Sigs.COMMON, Sigs.COMMON,
+          "spark_partition_id()")
+expr_rule(E.MonotonicallyIncreasingID, Sigs.COMMON, Sigs.COMMON,
+          "monotonically_increasing_id()")
+expr_rule(E.Add, _NUM, _NUM, "addition")
+expr_rule(E.Subtract, _NUM, _NUM, "subtraction")
+expr_rule(E.Multiply, _NUM, _NUM, "multiplication")
+expr_rule(E.Divide, _NUM, _NUM, "division (double result)")
+expr_rule(E.IntegralDivide, _NUM, _NUM, "integral division")
+expr_rule(E.Remainder, _NUM, _NUM, "modulo")
+expr_rule(E.UnaryMinus, _NUM, _NUM, "negation")
+expr_rule(E.Abs, _NUM, _NUM, "absolute value")
+
+
+def _no_string_order(e) -> Optional[str]:
+    if any(isinstance(c.data_type(), T.StringType) for c in e.children):
+        return "string ordering comparison not supported on device"
+    return None
+
+
+expr_rule(E.EqualTo, Sigs.COMMON, Sigs.COMMON, "equality")
+expr_rule(E.EqualNullSafe, Sigs.COMMON, Sigs.COMMON, "null-safe equality")
+expr_rule(E.LessThan, _NUMDT, _NUMDT, "less than", extra=_no_string_order)
+expr_rule(E.LessThanOrEqual, _NUMDT, _NUMDT, "<=", extra=_no_string_order)
+expr_rule(E.GreaterThan, _NUMDT, _NUMDT, ">", extra=_no_string_order)
+expr_rule(E.GreaterThanOrEqual, _NUMDT, _NUMDT, ">=",
+          extra=_no_string_order)
+expr_rule(E.And, Sigs.COMMON, Sigs.COMMON, "logical AND (Kleene)")
+expr_rule(E.Or, Sigs.COMMON, Sigs.COMMON, "logical OR (Kleene)")
+expr_rule(E.Not, Sigs.COMMON, Sigs.COMMON, "logical NOT")
+expr_rule(E.IsNull, _NESTED_OK, Sigs.COMMON, "null test")
+expr_rule(E.IsNotNull, _NESTED_OK, Sigs.COMMON, "not-null test")
+expr_rule(E.IsNaN, _NUM, _NUM, "NaN test")
+expr_rule(E.In, Sigs.COMMON, Sigs.COMMON, "IN literal list")
+expr_rule(E.If, Sigs.COMMON, Sigs.COMMON, "conditional")
+expr_rule(E.CaseWhen, Sigs.COMMON, Sigs.COMMON, "CASE WHEN")
+expr_rule(E.Coalesce, Sigs.COMMON, Sigs.COMMON, "coalesce")
+for _cls in (E.KnownNotNull, E.KnownFloatingPointNormalized,
+             E.NormalizeNaNAndZero, E.AtLeastNNonNulls):
+    expr_rule(_cls, Sigs.COMMON, Sigs.COMMON, _cls.__name__)
+
+
+def _cast_check(e) -> Optional[str]:
+    """Every fixed-width cast of the port runs on the device; the string
+    arms wait for ROADMAP A9 (the JAX package runs most of them on its
+    device)."""
+    src, dst = e.children[0].data_type(), e.to
+    if src != dst and (isinstance(src, T.StringType)
+                       or isinstance(dst, T.StringType)):
+        return (f"cast {src!r} -> {dst!r} runs on the CPU until the port's "
+                f"device string casts land (ROADMAP A9)")
+    return None
+
+
+expr_rule(E.Cast, Sigs.COMMON, Sigs.COMMON, "cast", extra=_cast_check)
+
+expr_rule(S.StringLength, Sigs.COMMON, Sigs.COMMON, "character length")
+expr_rule(S.Upper, Sigs.COMMON, Sigs.COMMON, "uppercase (ASCII)")
+expr_rule(S.Lower, Sigs.COMMON, Sigs.COMMON, "lowercase (ASCII)")
+expr_rule(S.Substring, Sigs.COMMON, Sigs.COMMON, "substring")
+expr_rule(S.ConcatStrings, Sigs.COMMON, Sigs.COMMON, "string concat")
+expr_rule(S.StartsWith, Sigs.COMMON, Sigs.COMMON, "prefix match")
+expr_rule(S.EndsWith, Sigs.COMMON, Sigs.COMMON, "suffix match")
+expr_rule(S.Contains, Sigs.COMMON, Sigs.COMMON, "substring match")
+
+
+def _like_check(e) -> Optional[str]:
+    if e.needs_nfa():
+        return (f"LIKE pattern {e.pattern!r} needs the device NFA "
+                f"(expr/regex.py), which the port runs on the CPU until "
+                f"ROADMAP A9")
+    return None
+
+
+expr_rule(S.Like, Sigs.COMMON, Sigs.COMMON, "SQL LIKE", extra=_like_check)
+expr_rule(S._StringEquals, Sigs.COMMON, Sigs.COMMON, "string equality")
+expr_rule(S._AndExpr, Sigs.COMMON, Sigs.COMMON, "internal AND")
+
+expr_rule(MX.Rand, Sigs.COMMON, Sigs.COMMON,
+          "rand([seed]) — splitmix64 stream (distribution-equivalent to "
+          "Spark's XORShift, stream differs; documented)")
+for _cls in (MA.Greatest, MA.Least):
+    expr_rule(_cls, _NUM, _NUM, _cls.__name__.lower())
+for _cls in (MA.BitwiseAnd, MA.BitwiseOr, MA.BitwiseXor, MA.BitwiseNot,
+             MA.ShiftLeft, MA.ShiftRight, MA.ShiftRightUnsigned):
+    expr_rule(_cls, _NUM, _NUM, _cls.__name__.lower())
+
+
+AGG_RULES: Dict[Type, ExprRule] = {}
+
+
+def agg_rule(cls, input_sig=_NUMDT, doc="", extra=None):
+    AGG_RULES[cls] = ExprRule(cls.__name__, input_sig, Sigs.COMMON, doc,
+                              extra)
+
+
+def _no_string_input(fn) -> Optional[str]:
+    if any(isinstance(c.data_type(), T.StringType) for c in fn.children):
+        return f"{type(fn).__name__} over strings not supported on device"
+    return None
+
+
+def _minmax_by_check(what: str):
+    def check(fn) -> Optional[str]:
+        # the device's ordering key for strings is an equality hash, not
+        # order-faithful
+        if isinstance(fn.children[1].data_type(), T.StringType):
+            return f"{what} ordered by a string column runs on CPU"
+        return None
+    return check
+
+
+agg_rule(A.Sum, _NUM, "sum")
+agg_rule(A.Count, Sigs.COMMON, "count non-null")
+agg_rule(A.CountAll, Sigs.COMMON, "count(*)")
+agg_rule(A.Min, _NUMDT, "min", extra=_no_string_input)
+agg_rule(A.Max, _NUMDT, "max", extra=_no_string_input)
+agg_rule(A.Average, _NUM, "avg")
+agg_rule(A.First, _NUMDT, "first", extra=_no_string_input)
+agg_rule(A.Last, _NUMDT, "last", extra=_no_string_input)
+agg_rule(A.StddevSamp, _NUM, "stddev_samp")
+agg_rule(A.StddevPop, _NUM, "stddev_pop")
+agg_rule(A.VarianceSamp, _NUM, "var_samp")
+agg_rule(A.VariancePop, _NUM, "var_pop")
+agg_rule(A.MinBy, Sigs.COMMON, "min_by", extra=_minmax_by_check("min_by"))
+agg_rule(A.MaxBy, Sigs.COMMON, "max_by", extra=_minmax_by_check("max_by"))
+agg_rule(A.Percentile, _NUM, "percentile (exact)")
+agg_rule(A.ApproxPercentile, _NUM,
+         "approx_percentile (computed exactly on this engine)")
+
+
+# ---------------------------------------------------------------------------
+# Expression tagging
+# ---------------------------------------------------------------------------
+
+#: expressions that read the partition context only a projection threads
+#: (and, in the port, a filter over one partition)
+PROJECT_ONLY_EXPRS = (E.SparkPartitionID, E.MonotonicallyIncreasingID,
+                      MX.Rand)
+_PARTITION_CONTEXT_NODES = ("Project", "Filter")
+
+
+def tag_expression(e: E.Expression, conf, reasons: List[str],
+                   where: str) -> None:
+    rule = EXPR_RULES.get(type(e))
+    if rule is None:
+        reasons.append(f"{where}: expression {type(e).__name__} is not "
+                       f"supported on GPU")
+        return
+    if where not in _PARTITION_CONTEXT_NODES \
+            and isinstance(e, PROJECT_ONLY_EXPRS):
+        reasons.append(
+            f"{where}: {rule.name} only evaluates in projection context "
+            f"(partition id / row base are threaded by ProjectExec)")
+    key = f"spark.rapids.sql.expression.{rule.name}"
+    if not conf.is_op_enabled(key):
+        reasons.append(f"{where}: expression {rule.name} disabled by {key}")
+    r = rule.result_sig.reason_not_supported(e.data_type())
+    if r:
+        reasons.append(f"{where}: {rule.name} output {r}")
+    for ch in e.children:
+        r = rule.input_sig.reason_not_supported(ch.data_type())
+        if r:
+            reasons.append(f"{where}: {rule.name} input {r}")
+    if rule.extra is not None:
+        r = rule.extra(e)
+        if r:
+            reasons.append(f"{where}: {r}")
+    for ch in e.children:
+        tag_expression(ch, conf, reasons, where)
+
+
+_FLOAT_ORDER_AGGS = (A.Sum, A.Average, A.VarianceSamp, A.VariancePop,
+                     A.StddevSamp, A.StddevPop)
+
+
+def tag_agg(fn: A.AggFunction, conf, reasons: List[str], where: str) -> None:
+    rule = AGG_RULES.get(type(fn))
+    if rule is None:
+        reasons.append(f"{where}: aggregate {type(fn).__name__} is not "
+                       f"supported on GPU")
+        return
+    if not conf.get(C.IMPROVED_FLOAT_OPS) \
+            and isinstance(fn, _FLOAT_ORDER_AGGS):
+        for ch in fn.children:
+            if isinstance(ch.data_type(), (T.Float32Type, T.Float64Type)):
+                reasons.append(
+                    f"{where}: float {rule.name} accumulates in a "
+                    f"different order than CPU Spark (ULP-level diffs) — "
+                    f"disabled by spark.rapids.sql.improvedFloatOps."
+                    f"enabled=false")
+    if rule.extra is not None:
+        r = rule.extra(fn)
+        if r:
+            reasons.append(f"{where}: {r}")
+    for ch in fn.children:
+        tag_expression(ch, conf, reasons, where)
+        r = rule.input_sig.reason_not_supported(ch.data_type())
+        if r:
+            reasons.append(f"{where}: {rule.name} input {r}")
+
+
+# ---------------------------------------------------------------------------
+# Plan metas
+# ---------------------------------------------------------------------------
+
+class SparkPlanMeta:
+    """A plan node with its tagging and conversion (reference RapidsMeta /
+    SparkPlanMeta)."""
+
+    def __init__(self, plan: P.PlanNode, conf):
+        self.plan = plan
+        self.conf = conf
+        self.children = [SparkPlanMeta(c, conf) for c in plan.children]
+        self.reasons: List[str] = []
+
+    # -- tagging -------------------------------------------------------------
+    def tag_for_tpu(self) -> None:
+        for c in self.children:
+            c.tag_for_tpu()
+        name = type(self.plan).__name__
+        key = f"spark.rapids.sql.exec.{name}"
+        if not self.conf.is_op_enabled(key):
+            self.reasons.append(f"{name} disabled by {key}")
+        if not self.conf.get(C.SQL_ENABLED):
+            self.reasons.append("spark.rapids.sql.enabled is false")
+        self._tag_schema()
+        self._tag_node()
+
+    def _tag_schema(self) -> None:
+        for f in self.plan.schema.fields:
+            r = Sigs.COMMON.reason_not_supported(f.dtype)
+            if r:
+                self.reasons.append(f"output column {f.name}: {r}")
+
+    def _tag_node(self) -> None:
+        p = self.plan
+        name = type(p).__name__
+        conf, reasons = self.conf, self.reasons
+        if isinstance(p, P.Project):
+            for e in p.exprs:
+                tag_expression(e, conf, reasons, name)
+        elif isinstance(p, P.Filter):
+            tag_expression(p.condition, conf, reasons, name)
+        elif isinstance(p, P.Aggregate):
+            for e in p.group_exprs:
+                tag_expression(e, conf, reasons, name)
+            for a in p.aggs:
+                tag_agg(a.fn, conf, reasons, name)
+        elif isinstance(p, P.Sort):
+            # string ORDER BY runs on the device by exact chunk keys
+            for o in p.orders:
+                tag_expression(o.expr, conf, reasons, name)
+        elif isinstance(p, P.Join):
+            for e in p.left_keys + p.right_keys:
+                tag_expression(e, conf, reasons, name)
+                if isinstance(e.data_type(), T.StringType) \
+                        and not conf.get(C.INCOMPAT_ENABLED):
+                    reasons.append(
+                        f"{name}: string join keys compare by 64-bit "
+                        f"double-hash on device (collision odds ~2^-64) — "
+                        f"disabled by spark.rapids.sql.incompatibleOps."
+                        f"enabled=false")
+            if p.condition is not None:
+                tag_expression(p.condition, conf, reasons, name)
+        elif isinstance(p, P.Repartition):
+            for e in p.keys:
+                tag_expression(e, conf, reasons, name)
+        elif isinstance(p, P.Expand):
+            for proj in p.projections:
+                for e in proj:
+                    tag_expression(e, conf, reasons, name)
+        elif isinstance(p, P.WindowNode):
+            self._tag_window(p, name)
+
+    def _tag_window(self, p, name) -> None:
+        from spark_rapids_tpu_torch.expr import window as WE
+        conf, reasons = self.conf, self.reasons
+        for w in p.window_exprs:
+            spec = w.spec
+            for e in spec.partition_exprs:
+                tag_expression(e, conf, reasons, name)
+            for o in spec.order_specs:
+                tag_expression(o.expr, conf, reasons, name)
+                if isinstance(o.expr.data_type(), T.StringType):
+                    reasons.append(
+                        f"{name}: window ORDER BY on strings needs host sort")
+            for c in w.fn.children:
+                tag_expression(c, conf, reasons, name)
+                if isinstance(c.data_type(), T.StringType):
+                    reasons.append(
+                        f"{name}: string-typed window operands run on CPU "
+                        f"(device window kernels are fixed-width planes)")
+            fn = w.fn
+            frame = spec.resolved_frame()
+            if isinstance(fn, (WE.NthValue, WE.FirstValue, WE.LastValue)) \
+                    and (frame.lower is not None
+                         or frame.upper not in (0, None)):
+                reasons.append(
+                    f"{name}: {type(fn).__name__} supports only "
+                    f"unbounded-preceding frames ending at the current "
+                    f"row or partition end")
+            if isinstance(fn, (WE.RowNumber, WE.Rank, WE.DenseRank, WE.NTile,
+                               WE.LeadLag, WE.PercentRank, WE.CumeDist,
+                               WE.NthValue, WE.FirstValue, WE.LastValue)):
+                continue  # an order is required at plan build
+            if not isinstance(fn, WE.WindowAgg):
+                reasons.append(f"{name}: window function "
+                               f"{type(fn).__name__} not supported")
+                continue
+            if not isinstance(fn.fn, (A.Sum, A.Count, A.CountAll, A.Min,
+                                      A.Max, A.Average)):
+                reasons.append(f"{name}: {type(fn.fn).__name__} not "
+                               f"supported in window frames on device")
+            bounded_rows = frame.kind == "rows" and not (
+                frame.lower is None and frame.upper in (0, None))
+            if bounded_rows and isinstance(fn.fn, (A.Min, A.Max)):
+                reasons.append(f"{name}: bounded-rows min/max window not "
+                               f"yet on device (needs a sliding-extrema "
+                               f"kernel)")
+
+    @property
+    def can_run_on_tpu(self) -> bool:
+        return not self.reasons
+
+    # -- conversion ----------------------------------------------------------
+    def convert(self, device) -> X.TorchExec:
+        children = [c.convert(device) for c in self.children]
+        if self.reasons:
+            return X.CpuFallbackExec(self.plan, children, self.conf, device)
+        return _convert_node(self.plan, children, self.conf, device)
+
+    # -- explain -------------------------------------------------------------
+    def explain(self, indent: int = 0, all_ops: bool = False) -> str:
+        """The placement report: ``* node`` on the device (``[GPU]`` when
+        only fallbacks are listed), ``! node`` on the CPU with an ``@``
+        line per reason."""
+        pad = "  " * indent
+        if all_ops or not self.can_run_on_tpu:
+            mark = "*" if self.can_run_on_tpu else "!"
+            lines = [f"{pad}{mark} {self.plan.describe()}"]
+            lines += [f"{pad}    @ cannot run on GPU because: {r}"
+                      for r in self.reasons]
+        else:
+            lines = [f"{pad}* {self.plan.describe()} [GPU]"]
+        lines += [c.explain(indent + 1, all_ops) for c in self.children]
+        return "\n".join(lines)
+
+    def walk(self):
+        yield self
+        for c in self.children:
+            yield from c.walk()
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+def wrap_and_tag(plan: P.PlanNode, conf) -> SparkPlanMeta:
     push_down_scan_filters(plan)
-    root = _convert(plan, conf, device)
+    meta = SparkPlanMeta(plan, conf)
+    meta.tag_for_tpu()
+    return meta
+
+
+def convert_plan(plan: P.PlanNode, conf, device):
+    """(root operator, tagged meta). In test mode a fallback that
+    spark.rapids.sql.test.allowedNonTpu does not name raises."""
+    meta = wrap_and_tag(plan, conf)
+    if conf.get(C.TEST_MODE):
+        allowed = {s.strip() for s in str(conf.get(C.ALLOW_NON_TPU)
+                                          or "").split(",") if s.strip()}
+        _assert_on_tpu(meta, allowed)
+    root = meta.convert(device)
     mark_expand_forms(root)
-    return root
+    return root, meta
 
 
-def _convert(plan: P.PlanNode, conf, device) -> X.TorchExec:
-    children = [_convert(c, conf, device) for c in plan.children]
+def _assert_on_tpu(meta: SparkPlanMeta, allowed: set) -> None:
+    for m in meta.walk():
+        name = type(m.plan).__name__
+        if not m.can_run_on_tpu and name not in allowed:
+            raise AssertionError(
+                f"{name} fell back to CPU in test mode: {m.reasons}")
+
+
+def explain_plan(plan: P.PlanNode, conf, all_ops: bool = False) -> str:
+    return wrap_and_tag(plan, conf).explain(all_ops=all_ops)
+
+
+def _convert_node(plan: P.PlanNode, children, conf, device) -> X.TorchExec:
     if isinstance(plan, P.InMemorySource):
         return X.InMemoryScanExec(plan, children, conf, device)
     if isinstance(plan, P.ParquetScan):
@@ -98,43 +540,7 @@ def _convert(plan: P.PlanNode, conf, device) -> X.TorchExec:
     raise NotImplementedError(type(plan).__name__)
 
 
-def _window_fallbacks(plan) -> List[str]:
-    """What the JAX package's ``_tag_window`` sends to the CPU, with its
-    reasons."""
-    from spark_rapids_tpu_torch.expr import aggregates as A
-    from spark_rapids_tpu_torch.expr import window as WE
-    reasons = []
-    for w in plan.window_exprs:
-        spec, fn = w.spec, w.fn
-        if any(isinstance(o.expr.data_type(), T.StringType)
-               for o in spec.order_specs):
-            reasons.append("window ORDER BY on strings needs host sort")
-        if any(isinstance(c.data_type(), T.StringType) for c in fn.children):
-            reasons.append("string-typed window operands run on CPU (device "
-                           "window kernels are fixed-width planes)")
-        frame = spec.resolved_frame()
-        if isinstance(fn, (WE.NthValue, WE.FirstValue, WE.LastValue)) and (
-                frame.lower is not None or frame.upper not in (0, None)):
-            reasons.append(f"{type(fn).__name__} supports only "
-                           f"unbounded-preceding frames ending at the "
-                           f"current row or partition end")
-        if isinstance(fn, WE.WindowAgg):
-            if not isinstance(fn.fn, (A.Sum, A.Count, A.CountAll, A.Min,
-                                      A.Max, A.Average)):
-                reasons.append(f"{type(fn.fn).__name__} not supported in "
-                               f"window frames on device")
-            bounded_rows = frame.kind == "rows" and not (
-                frame.lower is None and frame.upper in (0, None))
-            if bounded_rows and isinstance(fn.fn, (A.Min, A.Max)):
-                reasons.append("bounded-rows min/max window not yet on "
-                               "device (needs a sliding-extrema kernel)")
-    return reasons
-
-
 def _convert_window(plan, child, conf, device):
-    reasons = _window_fallbacks(plan)
-    if reasons:
-        raise NotImplementedError("WindowExec: " + "; ".join(reasons))
     if child.num_partitions > 1:
         # equal partition keys must meet in one partition
         spec = plan.window_exprs[0].spec
@@ -230,30 +636,7 @@ def _convert_join(plan, children, conf, device):
     return X.BroadcastHashJoinExec(plan, [left, right], conf, device)
 
 
-def _agg_fallbacks(plan) -> List[str]:
-    """What the JAX package's aggregate rules send to the CPU
-    (``_no_string_input``, ``_minmax_by_check``), with its reasons."""
-    from spark_rapids_tpu_torch.expr import aggregates as A
-    reasons = []
-    for a in plan.aggs:
-        fn = a.fn
-        if isinstance(fn, (A.Min, A.Max, A.First, A.Last)) and any(
-                isinstance(c.data_type(), T.StringType) for c in fn.children):
-            reasons.append(f"{type(fn).__name__} over strings not supported "
-                           f"on device")
-        if isinstance(fn, A._MinMaxBy) \
-                and isinstance(fn.children[1].data_type(), T.StringType):
-            reasons.append(f"{type(fn).__name__} ordered by a string column "
-                           f"runs on CPU")
-    return reasons
-
-
 def _convert_aggregate(plan, child, conf, device):
-    reasons = _agg_fallbacks(plan)
-    if reasons:
-        raise NotImplementedError("HashAggregateExec: " + "; ".join(reasons)
-                                  + " (a CPU fallback in the JAX package; "
-                                  "ROADMAP A3)")
     pre_filter = None
     if isinstance(child, X.FilterExec) \
             and not E.needs_partition_context(child.plan.condition):

@@ -7,12 +7,13 @@ Expand lowering), ``agg``, ``order_by`` (``orderBy``, ``sort``), ``limit``,
 ``join``, ``union`` (``unionAll``), ``intersect``, ``subtract``,
 ``repartition``, ``cache``, ``distinct``, ``drop_duplicates``
 (``dropDuplicates``), ``dropna``, ``fillna``, ``sample``,
-``random_split``, the actions ``count``, ``collect``, ``to_pydict``,
-``to_pandas``, ``show``, ``head``, ``take`` and ``first``, the schema
-accessors, and the statistics ``describe``, ``corr``, ``cov``,
-``crosstab`` and ``approx_quantile``. Not here yet: ``explain`` and
-``collect_cpu`` (tagging and the CPU backend, ROADMAP A3), ``write``
-(A10) and ``to_device_batches``."""
+``random_split``, the actions ``count``, ``collect``, ``collect_cpu``,
+``to_pydict``, ``to_pandas``, ``show``, ``head``, ``take`` and
+``first``, the schema accessors, ``explain`` (the placement report), and
+the statistics ``describe``, ``corr``, ``cov``, ``crosstab`` and
+``approx_quantile``. Not here yet: ``explain``'s ``stages`` and
+``analyze`` modes (they wait for the fusion and metrics modules, ROADMAP
+item 11), ``write`` (A10) and ``to_device_batches``."""
 from __future__ import annotations
 
 import copy
@@ -257,6 +258,26 @@ class DataFrame:
         """Run the query; returns a pyarrow Table."""
         return self.session.collect(self.plan)
 
+    def collect_cpu(self):
+        """Run the whole query on the CPU backend."""
+        from spark_rapids_tpu_torch import config as C
+        from spark_rapids_tpu_torch.exec.cpu_backend import execute_cpu
+        return execute_cpu(self.plan, self.session.conf.get(C.ANSI_ENABLED))
+
+    def explain(self, mode: str = "placement") -> str:
+        """Print and return the placement report: every operator, ``*``
+        where it runs on the device and ``!`` where it falls back to the
+        CPU, with an ``@ cannot run on GPU because:`` line per reason."""
+        if mode != "placement":
+            raise NotImplementedError(
+                f"explain mode {mode!r}: only 'placement' is ported (the "
+                f"'stages' and 'analyze' modes wait for the fusion and "
+                f"metrics modules, ROADMAP item 11)")
+        from spark_rapids_tpu_torch.plan.overrides import explain_plan
+        s = explain_plan(self.plan, self.session.conf, all_ops=True)
+        print(s)
+        return s
+
     def to_pydict(self):
         return self.collect().to_pydict()
 
@@ -437,9 +458,9 @@ class DataFrame:
     def describe(self, *cols) -> "DataFrame":
         """count/mean/stddev/min/max rows over the named columns (by
         default every numeric and string column), rendered as strings.
-        Strings get count/min/max only; min/max over strings is a CPU
-        fallback of the JAX package, so here it raises at plan time
-        naming ROADMAP A3."""
+        Strings get count/min/max only; min/max over strings is tagged to
+        the CPU, as in the JAX package, so such a describe aggregates on
+        the host."""
         from spark_rapids_tpu_torch.sql import functions as F
         fields = {f.name: f for f in self.plan.schema.fields}
         names = list(cols) or [f.name for f in self.plan.schema.fields

@@ -72,12 +72,12 @@ def last(c):
 
 def collect_list(c):
     raise NotImplementedError("collect_list returns an ArrayType, and the "
-                              "port has no nested types yet (ROADMAP A3)")
+                              "port has no nested types yet (ROADMAP A3b)")
 
 
 def collect_set(c):
     raise NotImplementedError("collect_set returns an ArrayType, and the "
-                              "port has no nested types yet (ROADMAP A3)")
+                              "port has no nested types yet (ROADMAP A3b)")
 
 
 def min_by(c, ord_c):

@@ -1,12 +1,18 @@
 """The session: entry point of the PyTorch engine.
 
 Counterpart of ``spark_rapids_tpu/sql/session.py`` ``TpuSession``
-(``create_dataframe``, ``range``, ``read_parquet``, ``collect``, and the device-side
-compaction of sparse results before the download).
+(``create_dataframe``, ``range``, ``read_parquet``, ``collect``, and the
+device-side compaction of sparse results before the download).
+``collect`` tags the plan and converts it (``plan/overrides.py``): what
+is tagged off the device runs one operator at a time on the CPU backend.
+spark.rapids.sql.explain=NOT_ON_TPU|ALL logs the placement report, and
+spark.rapids.sql.mode=explainOnly tags, logs and answers with the CPU
+backend alone.
 """
 from __future__ import annotations
 
 import glob
+import logging
 import os
 from typing import Dict, List, Optional
 
@@ -14,12 +20,13 @@ import pyarrow as pa
 import torch
 
 from spark_rapids_tpu_torch import config as C
-from spark_rapids_tpu_torch import types as T
-from spark_rapids_tpu_torch.columnar import batch as B
-from spark_rapids_tpu_torch.ops import kernels as K
+from spark_rapids_tpu_torch.exec.cpu_backend import execute_cpu
+from spark_rapids_tpu_torch.exec.nodes import empty_table, host_table
 from spark_rapids_tpu_torch.plan import nodes as P
-from spark_rapids_tpu_torch.plan.overrides import convert_plan
+from spark_rapids_tpu_torch.plan.overrides import convert_plan, wrap_and_tag
 from spark_rapids_tpu_torch.sql.dataframe import DataFrame
+
+_LOG = logging.getLogger("spark_rapids_tpu_torch")
 
 
 class TorchSession:
@@ -34,8 +41,10 @@ class TorchSession:
                                "is available; pass device='cpu' to run on "
                                "the CPU")
         self.conf = C.RapidsConf(conf)
-        #: the root operator of the last collect, for reading its counters
+        #: the root operator of the last collect, for reading its counters,
+        #: and its tagged plan (``SparkPlanMeta``: placement and reasons)
         self.last_exec = None
+        self.last_meta = None
 
     def create_dataframe(self, data, num_partitions: int = 1) -> DataFrame:
         if isinstance(data, dict):
@@ -78,21 +87,20 @@ class TorchSession:
         return DataFrame(P.ParquetScan(files, columns), self)
 
     def collect(self, plan: P.PlanNode) -> pa.Table:
-        root = convert_plan(plan, self.conf, self.device)
-        self.last_exec = root
+        if self.conf.get(C.SQL_MODE).lower() == "explainonly":
+            self.last_exec = None
+            self.last_meta = wrap_and_tag(plan, self.conf)
+            _LOG.info("\n%s", self.last_meta.explain(all_ops=True))
+            return execute_cpu(plan, self.conf.get(C.ANSI_ENABLED))
+        root, meta = convert_plan(plan, self.conf, self.device)
+        self.last_exec, self.last_meta = root, meta
+        explain_mode = self.conf.get(C.SQL_EXPLAIN).upper()
+        if explain_mode == "ALL" or (explain_mode == "NOT_ON_TPU"
+                                     and not all(m.can_run_on_tpu
+                                                 for m in meta.walk())):
+            _LOG.info("\n%s", meta.explain(all_ops=explain_mode == "ALL"))
         names = plan.schema.names
-        tables = []
-        for p in range(root.num_partitions):
-            for b in root.execute_partition(p):
-                # compact sparse masked results on the device before the
-                # download (a bucket-route output can be a few-percent
-                # occupied 2^18-slot batch)
-                if b.row_mask is not None and b.capacity > 16384:
-                    b = K.compact_batch(b)
-                tables.append(B.to_arrow(b, names))
-        if not tables:
-            fields = [pa.field(f.name, T.to_arrow(f.dtype))
-                      for f in plan.schema.fields]
-            return pa.Table.from_arrays([pa.array([], f.type) for f in fields],
-                                        schema=pa.schema(fields))
-        return pa.concat_tables(tables)
+        tables = [host_table(b, names) for p in range(root.num_partitions)
+                  for b in root.execute_partition(p)]
+        return pa.concat_tables(tables) if tables \
+            else empty_table(plan.schema)

@@ -5,7 +5,8 @@ carries on the card: bool, int8/16/32/64, float32/64, date (int32 days
 since the epoch), timestamp (int64 microseconds since the epoch, UTC)
 and UTF-8 strings (offsets + bytes, or dictionary codes + vocabulary).
 The class names, singletons and ``common_type`` widening rules are the
-same as the JAX package's, so plans and results line up.
+same as the JAX package's, so plans and results line up, and so are the
+type signatures that plan tagging checks (``TypeSig``, ``Sigs``).
 """
 from __future__ import annotations
 
@@ -189,3 +190,63 @@ def to_arrow(dtype: DataType):
         FLOAT64: pa.float64(), STRING: pa.string(), DATE: pa.date32(),
         TIMESTAMP: pa.timestamp("us"),
     }[dtype]
+
+
+# ---------------------------------------------------------------------------
+# TypeSig: set algebra over supported types (the JAX package's
+# ``types.TypeSig``, after the reference's TypeChecks.scala). The tags of
+# the types the port does not carry yet ("NULL", "DECIMAL64", the nested
+# ones) stay in the signatures, so those types can be added without
+# rewriting them; no port type maps to them yet, and the element types of
+# nested columns are checked once the port has them.
+# ---------------------------------------------------------------------------
+
+_BASE_ORDER = [
+    "NULL", "BOOLEAN", "INT8", "INT16", "INT32", "INT64", "FLOAT32",
+    "FLOAT64", "DECIMAL64", "STRING", "DATE", "TIMESTAMP", "ARRAY",
+    "STRUCT", "MAP",
+]
+
+_TAGS = {BooleanType: "BOOLEAN", Int8Type: "INT8", Int16Type: "INT16",
+         Int32Type: "INT32", Int64Type: "INT64", Float32Type: "FLOAT32",
+         Float64Type: "FLOAT64", StringType: "STRING", DateType: "DATE",
+         TimestampType: "TIMESTAMP"}
+
+
+def _tag_of(dtype: DataType) -> str:
+    try:
+        return _TAGS[type(dtype)]
+    except KeyError:
+        raise TypeError(f"unknown dtype {dtype!r}") from None
+
+
+class TypeSig:
+    """An immutable set of type tags."""
+
+    def __init__(self, tags=()):
+        self.tags = frozenset(tags)
+
+    def __add__(self, other: "TypeSig") -> "TypeSig":
+        return TypeSig(self.tags | other.tags)
+
+    def nested(self) -> "TypeSig":
+        """The same set, allowed inside arrays, structs and maps too."""
+        return TypeSig(self.tags | {"ARRAY", "STRUCT", "MAP"})
+
+    def reason_not_supported(self, dtype: DataType) -> Optional[str]:
+        if _tag_of(dtype) in self.tags:
+            return None
+        return f"{dtype!r} is not supported"
+
+    def __repr__(self):
+        ordered = [t for t in _BASE_ORDER if t in self.tags]
+        return "TypeSig(" + "+".join(ordered) + ")"
+
+
+class Sigs:
+    """The named combinations of the JAX package (and TypeChecks.scala)."""
+    INTEGRAL = TypeSig(["INT8", "INT16", "INT32", "INT64"])
+    FP = TypeSig(["FLOAT32", "FLOAT64"])
+    NUMERIC = INTEGRAL + FP + TypeSig(["DECIMAL64"])
+    COMMON = NUMERIC + TypeSig(["BOOLEAN", "STRING", "DATE", "TIMESTAMP",
+                                "NULL"])

@@ -51,7 +51,7 @@ TABLES = {
 @pytest.mark.parametrize("name", sorted(TABLES))
 def test_arrow_round_trip_matches_jax(name):
     t = TABLES[name]()
-    port = B.to_arrow(B.from_arrow(t), t.schema.names)
+    port = B.to_arrow(B.from_arrow(t, "cpu"), t.schema.names)
     assert port.equals(t), (port.schema, t.schema)
     ref = JB.to_arrow(JB.from_arrow(t), t.schema.names)
     assert port.to_pylist() == ref.to_pylist()
@@ -59,7 +59,7 @@ def test_arrow_round_trip_matches_jax(name):
 
 def test_dictionary_typed_input_uploads_as_dict_codes():
     t = pa.table({"s": pa.array(["x", "y", None, "x"]).dictionary_encode()})
-    b = B.from_arrow(t)
+    b = B.from_arrow(t, "cpu")
     assert b.columns[0].is_dict and b.columns[0].dict_size == 2
     assert B.to_arrow(b, ["s"]).column(0).to_pylist() == ["x", "y", None, "x"]
 
@@ -69,7 +69,7 @@ def test_from_jax_batch_rebuilds_the_same_planes(name):
     t = TABLES[name]()
     jb = JB.from_arrow(t)
     rebuilt = from_jax_batch(jb)
-    direct = B.from_arrow(t)
+    direct = B.from_arrow(t, "cpu")
     assert rebuilt.capacity == direct.capacity == jb.capacity
     for rc, dc in zip(rebuilt.columns, direct.columns):
         assert rc.dtype == dc.dtype and rc.is_dict == dc.is_dict
@@ -102,7 +102,7 @@ def test_lazy_row_count_reads_once():
 def test_concat_unifies_vocabularies():
     a = pa.table({"s": ["x", "y", None], "v": [1, 2, 3]})
     b = pa.table({"s": ["z", "x", "y", "z"], "v": [4, 5, 6, 7]})
-    out = K.concat_batches([B.from_arrow(a), B.from_arrow(b)])
+    out = K.concat_batches([B.from_arrow(a, "cpu"), B.from_arrow(b, "cpu")])
     assert out.columns[0].dict_size == 3
     assert B.to_arrow(out, ["s", "v"]).equals(pa.concat_tables([a, b]))
 
@@ -112,7 +112,7 @@ def test_masked_filter_concat_and_compact():
     parts, want = [], []
     for lo in (0, 1200):
         piece = t.slice(lo, 1300 if lo == 0 else 1300)
-        b = B.from_arrow(piece)
+        b = B.from_arrow(piece, "cpu")
         keep = torch.from_numpy(np.arange(b.capacity) % 3 == 0)
         parts.append(K.mask_filter_batch(b, keep))
         idx = [i for i in range(piece.num_rows) if i % 3 == 0]

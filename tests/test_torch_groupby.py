@@ -306,8 +306,8 @@ def text_tables():
 
 def test_l_comment_is_flat_and_dict_variant_is_not(text_tables):
     from spark_rapids_tpu_torch.columnar.batch import from_arrow
-    flat = from_arrow(text_tables["flat"]).columns[-1]
-    dct = from_arrow(text_tables["dict"]).columns[-1]
+    flat = from_arrow(text_tables["flat"], "cpu").columns[-1]
+    dct = from_arrow(text_tables["dict"], "cpu").columns[-1]
     assert "offsets" in flat.data and dct.is_dict
     lens = pc.utf8_length(text_tables["flat"]["l_comment"])
     assert pc.min(lens).as_py() >= 10 and pc.max(lens).as_py() <= 43

@@ -214,7 +214,7 @@ def test_exchange_partitions_rows_like_jax(lineitem):
     P = torch_api()
     df = P.session().create_dataframe(t).repartition(
         4, P.col("l_shipdate"), P.col("l_orderkey"))
-    root = convert_plan(df.plan, df.session.conf, "cpu")
+    root, _ = convert_plan(df.plan, df.session.conf, "cpu")
     got = [[r for b in root.execute_partition(p)
             for r in to_arrow(b, t.schema.names).to_pylist()]
            for p in range(4)]
@@ -240,12 +240,17 @@ def test_with_column_count_and_ansi_divide(lineitem):
 
 def test_routes_not_ported_yet_raise_with_their_name(lineitem):
     P = torch_api()
-    df = P.session().create_dataframe(lineitem.slice(0, 1000))
-    # a window the JAX package would run on the CPU
-    w = P.Window.partition_by(P.col("l_linestatus")) \
-        .order_by(P.col("l_returnflag"))
-    with pytest.raises(NotImplementedError, match="WindowExec"):
-        df.select(P.F.rank().over(w)).collect()
+    J = jax_api()
+    # a window the JAX package runs on the CPU runs there in the port too
+    ranked = []
+    for api in (P, J):
+        w = api.Window.partition_by(api.col("l_linestatus")) \
+            .order_by(api.col("l_returnflag"))
+        ranked.append(api.session().create_dataframe(lineitem.slice(0, 1000))
+                      .select(api.col("l_orderkey"),
+                              api.F.rank().over(w).alias("rk")).collect())
+    assert_tables_equal(*ranked, ignore_order=True)
+    # the masked partitioning mode is ROADMAP A5
     masked = P.session({"spark.rapids.shuffle.partitioning": "masked"})
     with pytest.raises(NotImplementedError, match="masked"):
         masked.create_dataframe(lineitem.slice(0, 1000)) \
@@ -253,7 +258,6 @@ def test_routes_not_ported_yet_raise_with_their_name(lineitem):
     # routes that raised before they were ported, the packed sort route
     # (keys packing into more than 23 bits), the round-robin exchange and
     # the cross join, now match the JAX package
-    J = jax_api()
     got = []
     for api in (P, J):
         d = api.session().create_dataframe(lineitem.slice(0, 1000))

@@ -45,7 +45,6 @@ from spark_rapids_tpu.exec import fuse as JF
 from spark_rapids_tpu.ops import window as JW
 
 from spark_rapids_tpu_torch.exec import nodes as X
-from spark_rapids_tpu_torch.expr import aggregates as A
 from spark_rapids_tpu_torch.ops import window as W
 
 SUM_TOL = 1e-12
@@ -446,23 +445,16 @@ def test_drop_duplicates_keeps_one_row_per_key():
 
 
 # ---------------------------------------------------------------------------
-# what the JAX package runs on the CPU raises here
+# what the JAX package runs on the CPU runs there in the port too
 # ---------------------------------------------------------------------------
-
-class _OtherAgg(A.AggFunction):
-    """An aggregate the device window frames do not carry."""
-
-    def result_type(self):
-        return self.children[0].data_type()
-
 
 FALLBACKS = {
     "string_order": lambda P, w: P.F.rank().over(w.order_by(P.col("s"))),
     "string_operand": lambda P, w: P.F.lag(P.col("s")).over(
-        w.order_by(P.col("o"))),
+        w.order_by(P.col("o"), P.col("s"))),
     "bounded_min": lambda P, w: P.F.min(P.col("x")).over(
         w.order_by(P.col("o")).rows_between(-1, 1)),
-    "other_aggregate": lambda P, w: _OtherAgg(P.col("x")).over(
+    "other_aggregate": lambda P, w: P.F.variance(P.col("x")).over(
         w.order_by(P.col("o"))),
     "nth_value_frame": lambda P, w: P.F.nth_value(P.col("x"), 2).over(
         w.order_by(P.col("o")).rows_between(-1, 0)),
@@ -470,20 +462,27 @@ FALLBACKS = {
 REASONS = {"string_order": "ORDER BY on strings",
            "string_operand": "string-typed window operands",
            "bounded_min": "bounded-rows min/max",
-           "other_aggregate": "_OtherAgg not supported",
+           "other_aggregate": "VarianceSamp not supported",
            "nth_value_frame": "NthValue supports only"}
 
 
 @pytest.mark.parametrize("case", list(FALLBACKS))
 def test_cpu_fallbacks_raise_with_the_jax_reason(case):
-    P = torch_api()
     t = _table(n=200).append_column(
         "s", pa.array([f"s{k % 7}" for k in range(200)]))
-    w = P.Window.partition_by(P.col("p"))
-    df = P.session().create_dataframe(t).select(
-        P.col("p"), FALLBACKS[case](P, w).alias("v"))
-    with pytest.raises(NotImplementedError, match=REASONS[case]):
-        df.collect()
+    out = []
+    for api in (torch_api(), jax_api()):
+        s = api.session()
+        w = api.Window.partition_by(api.col("p"))
+        out.append(s.create_dataframe(t).select(
+            api.col("p"), api.col("o"), api.col("x"),
+            FALLBACKS[case](api, w).alias("v")).collect())
+        if not out[1:]:
+            assert [type(e.plan).__name__ for e in s.last_exec.walk()
+                    if type(e).__name__ == "CpuFallbackExec"] \
+                == ["WindowNode"]
+            assert REASONS[case] in s.last_meta.explain()
+    assert_tables_equal(out[0], out[1], ignore_order=True)
 
 
 def test_ordered_function_without_order_by_is_an_error():

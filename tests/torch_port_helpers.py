@@ -225,6 +225,37 @@ def repart_agg(api, df, value="l_quantity", n=8):
             .agg(F.sum(value).alias("s"), F.count(value).alias("c")))
 
 
+#: the fallback phase's queries, and the plan node each leaves on the CPU
+FALLBACK_NODES = {"fb_strmax": "Aggregate", "fb_moving_min": "WindowNode"}
+
+
+def fb_strmax(api, df):
+    """Per flag pair, the least and greatest upper-cased comment of the
+    lines of quantity 1 and their count: the filter and upper() run on
+    the device, the aggregate on the CPU (min/max over strings is tagged
+    off the device)."""
+    col, lit, F = api.col, api.lit, api.F
+    return (df.filter(col("l_quantity") <= lit(1.0))
+            .select(col("l_returnflag"), col("l_linestatus"),
+                    F.upper(col("l_comment")).alias("c"))
+            .group_by("l_returnflag", "l_linestatus")
+            .agg(F.min(col("c")).alias("min_c"),
+                 F.max(col("c")).alias("max_c"), F.count().alias("n")))
+
+
+def fb_moving_min(api, df):
+    """repart_agg's daily quantity sums on the device, their 7-row moving
+    minimum by ship date on the CPU (a bounded-rows min is tagged off the
+    device), then each day's ratio to it on the device again."""
+    col, F = api.col, api.F
+    w = api.Window.order_by(col("l_shipdate")).rows_between(-6, 0)
+    return (repart_agg(api, df)
+            .select(col("l_shipdate"), col("s"),
+                    F.min(col("s")).over(w).alias("min7"))
+            .select(col("l_shipdate"), col("s"), col("min7"),
+                    (col("s") / col("min7")).alias("ratio")))
+
+
 #: str_case_agg's pattern and str_prefix_rows' prefix
 CASE_WORD, PREFIX_WORD = "FURIOUS", "a"
 
