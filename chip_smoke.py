@@ -79,12 +79,14 @@ Phases, one JSON line each:
    numpy. Each query prints its operators and the probe path each join
    took; the operators and routes the queries are built to take are
    asserted, and the segsum kernel must have run.
-9. window (on the joins phase's caches, and bench.py's first 10M rows
-   cached in 1 partition): q67win (bench.py's), win_rank_family (the rank
-   family over the flag pairs), win_running (running, bounded and
-   lead/lag/first/last/nth frames over 3M order-key partitions: the
-   general route), win_shuffled (the 8-partition cache: hash exchange with
-   murmur3, packed window, chunked segsum aggregate), win_global_top (a
+9. window (on bench.py's first 10M rows, its q67win slice, cached with 1
+   and with 8 partitions; every query ran over the 30M-row caches until
+   the aggtypes phase joined the run): q67win (bench.py's),
+   win_rank_family (the rank family over the flag pairs), win_running
+   (running, bounded and lead/lag/first/last/nth frames over nearly 3M
+   order-key partitions: the general route), win_shuffled (the
+   8-partition cache: hash exchange with murmur3, packed window, segsum
+   aggregate), win_global_top (a
    window without partition keys: the collect exchange) and dedupe_orders
    (drop_duplicates), each cold then twice warm and checked against numpy
    (sorts, boundary flags and running maxima). Each query prints its
@@ -111,7 +113,8 @@ Phases, one JSON line each:
    hash-repartitioned by ship date: murmur3 on every union batch, then
    the chunked segsum route), orders_setops (INTERSECT and EXCEPT over
    the 8-partition orders), range_agg (session.range of 2^28 ids over 8
-   partitions, summed per id % 100003), pivot_flags (PIVOT of the return
+   partitions, summed per id % 100003: partial per partition -> collect
+   -> final, the JAX package's plan above 64M rows), pivot_flags (PIVOT of the return
    flag with the values inferred), describe_li (describe of three
    numeric columns and a correlation) and sample_li (a 1% sample by
    rand), each cold then twice warm and checked against numpy (range_agg
@@ -129,25 +132,38 @@ Phases, one JSON line each:
    CPU node, the fallback's download, CPU and upload ms and rows in and
    out, and its routes and launches; the one CPU node and its reason, the
    launches and the output batches on cuda are asserted.
-
+13. aggtypes (after the sets phase, on the joins phase's lineitem caches
+   and the decimal lineitem, l_quantity, l_extendedprice and l_discount
+   as decimal(15,2), cached with 1 and 8 partitions): q72shfl_x3
+   (q72shfl over the cached lineitem three times, UNION ALL: estimated at
+   90M rows, so partial per partition -> collect -> final, the partials
+   on the chunked segsum route), q1_dec and q6_dec (decimal sums exact,
+   averages and FLOAT64 products to 1e-6), disc_groups (grouped by the
+   decimal l_discount over 8 partitions) and order_lines (per order,
+   collect_list of the ship dates and collect_set of the return flags
+   over 8 partitions: a hash exchange of raw rows with murmur3, 3M array
+   rows), each cold then twice warm and checked against numpy group by
+   group, with each aggregate's mode, the exchanges, the routes and the
+   launches (B2 x 12 in q72shfl_x3, B1 x 8 in order_lines) asserted
+   exactly.
 Every query path runs in test mode (spark.rapids.sql.test.enabled): an
 operator that planning tags off the card fails the query, except the one
 node each fallback query names in spark.rapids.sql.test.allowedNonTpu.
 It then prints the kernel table ({"kernels": [...]}, with each kernel's
 launches per path in "launches_by_path": cached, parquet, strings, joins,
-window, exprs, sets, fallback), the card's name and power limit, and as
-its last
-line {"ok": true, "device": {...}}. Any failure exits non-zero without
-that line; so does a machine without CUDA, and so does a run that
-imported the JAX package. The lineitem generators and the string, join,
-window, expression and set query shapes are the ones of
+window, exprs, sets, aggtypes, fallback), the card's name and power
+limit, and as its last line {"ok": true, "device": {...}}. Any failure
+exits non-zero without that line; so does a machine without CUDA, and so
+does a run that imported the JAX package. The lineitem generators and
+the string, join, window, expression, set and aggregate-type query shapes
+are the ones of
 tests/torch_port_helpers.py, which the CPU tests run too.
 `python3 chip_smoke.py --segsum-against OTHER.cu [...]` runs only the
 segsum shapes, through the checkout's kernel and a build of each other
 segsum source (the same C interface), each held exactly against the plain
 version and timed by the profiler in turns (other, this, this, other).
 CHIP_SMOKE_PROFILE=1 adds a torch.profiler pass over each query of the
-eight query paths, with each port kernel's launches, device time and
+nine query paths, with each port kernel's launches, device time and
 bounds at the shapes the query gave it, and ranks the kernels by device
 time above bound over those runs (CHIP_SMOKE_TRACE_DIR=dir also writes
 the queries' Chrome traces).
@@ -1747,9 +1763,9 @@ def window_reference(t):
     return out
 
 
-def window_queries(h1, h8, w1):
-    """name -> (session, run) over the joins phase's caches (h1: one
-    partition, h8: eight) and the q67win slice's (w1)."""
+def window_queries(w1, w8):
+    """name -> (session, run) over bench.py's WIN_ROWS slice cached with
+    one partition (w1) and with eight (w8)."""
     H, api = helpers(), port_api()
 
     def by_flags(df, cols):
@@ -1760,28 +1776,28 @@ def window_queries(h1, h8, w1):
                                                d["l_linestatus"]))}
 
     def running():
-        d = H.win_running(api, h1.li).to_pydict()
+        d = H.win_running(api, w1.li).to_pydict()
         return {k: v[0] for k, v in d.items()}
 
     def shuffled():
-        d = H.win_shuffled(api, h8.li).to_pydict()
+        d = H.win_shuffled(api, w8.li).to_pydict()
         return dict(zip(d["l_shipdate"], zip(d["s"], d["n"])))
 
     def top():
-        d = H.win_global_top(api, h8.li).to_pydict()
+        d = H.win_global_top(api, w8.li).to_pydict()
         return sorted(zip(d["l_orderkey"], d["l_extendedprice"],
                           d["l_shipdate"], d["rk"]))
 
     return {
         "q67win": (w1.s, lambda: by_flags(H.q67win(api, w1.li), ["mx"])),
-        "win_rank_family": (h1.s, lambda: by_flags(
-            H.win_rank_family(api, h1.li),
+        "win_rank_family": (w1.s, lambda: by_flags(
+            H.win_rank_family(api, w1.li),
             ["max_rn", "max_rk", "max_drk", "max_nt", "sum_rk", "sum_pr",
              "max_cd"])),
-        "win_running": (h1.s, running),
-        "win_shuffled": (h8.s, shuffled),
-        "win_global_top": (h8.s, top),
-        "dedupe_orders": (h1.s, lambda: H.dedupe_orders(api, h1.li).count()),
+        "win_running": (w1.s, running),
+        "win_shuffled": (w8.s, shuffled),
+        "win_global_top": (w8.s, top),
+        "dedupe_orders": (w1.s, lambda: H.dedupe_orders(api, w1.li).count()),
     }
 
 
@@ -1821,30 +1837,35 @@ def _window_child(session) -> str:
     return ""
 
 
-def phase_window(table, h1, h8, spy, prof=None):
+def phase_window(table, spy, prof=None):
+    """The window queries over bench.py's first WIN_ROWS rows (q67win's
+    slice; since the aggtypes phase joined the run, every window query
+    runs on it, to keep the script's time)."""
     import torch
     from types import SimpleNamespace
 
     from spark_rapids_tpu_torch.exec import nodes as X
     t0 = time.perf_counter()
+    table = table.slice(0, WIN_ROWS)
     want = window_reference(table)
     host_s = time.perf_counter() - t0
     wspy = RouteSpy(X.WindowExec, ("_packed", "_general"))
     reset_launches()
     spy.take()
     t0 = time.perf_counter()
-    sw = device_session()
-    w1 = SimpleNamespace(s=sw, li=sw.create_dataframe(
-        table.slice(0, WIN_ROWS)).cache())
-    n = w1.li.count()
+    s1, s8 = device_session(), device_session()
+    w1 = SimpleNamespace(s=s1, li=s1.create_dataframe(table).cache())
+    w8 = SimpleNamespace(s=s8, li=s8.create_dataframe(
+        table, num_partitions=8).cache())
+    counts = [w1.li.count(), w8.li.count()]
     torch.cuda.synchronize()
     cache_s = time.perf_counter() - t0
-    if n != min(WIN_ROWS, table.num_rows):
-        raise AssertionError(f"window slice cached {n} rows")
+    if counts != [table.num_rows] * 2:
+        raise AssertionError(f"window slice cached {counts} rows")
     emit({"phase": "window.setup", "rows": table.num_rows,
-          "q67win_rows": n, "host_reference_s": host_s, "cache_s": cache_s})
+          "host_reference_s": host_s, "cache_s": cache_s})
     problems = []
-    queries = window_queries(h1, h8, w1)
+    queries = window_queries(w1, w8)
     for name, (session, fn) in queries.items():
         before = read_launches()
         torch.cuda.reset_peak_memory_stats()
@@ -2367,7 +2388,10 @@ SETS_EXPECT = {
                       "_scatter_agg": 1}, None),
     "orders_setops": ({"UnionExec", "BroadcastHashJoinExec"},
                       {"_packed_sort_agg": 2, "_global_update": 2}, None),
-    "range_agg": ({"RangeExec"}, {"_scatter_agg": 4}, None),
+    # the JAX package's plan for 2^28 estimated rows: partial per range
+    # batch (32 a partition), a merge per partition, collect, final
+    "range_agg": ({"RangeExec", "CollectExchangeExec"}, {"_scatter_agg": 265},
+                  None),
     "pivot_flags": ({"HashAggregateExec"}, {"_bucket_update": 2}, None),
     "describe_li": ({"HashAggregateExec"}, {"_global_update": 2}, None),
     "sample_li": ({"FilterExec"}, {"_global_update": 1}, None),
@@ -2440,6 +2464,257 @@ def phase_sets(table, orders, h1, h8, spy, prof=None):
     if min(counts["murmur3_int32"], counts["segsum"]) <= 0:
         raise AssertionError(f"a kernel did not run on the sets path: "
                              f"{counts}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the aggregate types (partial -> collect -> final, DECIMAL64,
+# arrays from collect_list/collect_set)
+# ---------------------------------------------------------------------------
+
+def aggtypes_reference(t, want):
+    """numpy answers to the aggregate-type shapes, from the float lineitem:
+    decimal sums as integer cents (exact: every partial sum stays below
+    2^53), FLOAT64 results as floats, and per order the ship dates in
+    input order (a stable argsort by key) and the set of return flags as
+    a bit mask."""
+    H = helpers()
+    cents = {c: np.round(t[c].to_numpy() * 100).astype(np.int64)
+             for c in H.DEC_COLS}
+    price = t["l_extendedprice"].to_numpy()
+    disc = t["l_discount"].to_numpy()
+    ship = t["l_shipdate"].to_numpy()
+    rf, rfv = _codes(t["l_returnflag"])
+    ls, lsv = _codes(t["l_linestatus"])
+    out = {"q72shfl_x3": {k: (3 * s, 3 * c)
+                          for k, (s, c) in want["q72shfl_groups"].items()}}
+    keep = (ship >= LO) & (ship < HI) & (cents["l_discount"] >= 5) \
+        & (cents["l_discount"] <= 7) & (cents["l_quantity"] < 2400)
+    out["q6_dec"] = float(np.sum(price[keep] * disc[keep]))
+    keep = ship <= 10471
+    ng = len(rfv) * len(lsv)
+    g = (rf * len(lsv) + ls)[keep]
+
+    def per_group(x):
+        return np.bincount(g, weights=x[keep], minlength=ng)
+    n = np.bincount(g, minlength=ng)
+    sq, sp, sd = (per_group(cents[c].astype(np.float64)) for c in H.DEC_COLS)
+    sdp = per_group(price * (1.0 - disc))
+    order = np.argsort(g.astype(np.uint8), kind="stable")  # a radix sort
+    starts = np.searchsorted(g[order], np.arange(ng))
+    present = n > 0
+    mind = np.minimum.reduceat(cents["l_discount"][keep][order],
+                               starts[present])
+    maxp = np.maximum.reduceat(cents["l_extendedprice"][keep][order],
+                               starts[present])
+    out["q1_dec"] = {
+        (rfv[k // len(lsv)], lsv[k % len(lsv)]): (
+            int(sq[k]), int(sp[k]), float(sdp[k]), sq[k] / n[k] / 100,
+            sd[k] / n[k] / 100, int(n[k]), int(lo), int(hi))
+        for k, lo, hi in zip(np.nonzero(present)[0], mind, maxp)}
+    dk = cents["l_discount"]
+    n = np.bincount(dk)
+    sq = np.bincount(dk, weights=cents["l_quantity"].astype(np.float64))
+    sp = np.bincount(dk, weights=price)
+    out["disc_groups"] = {int(d): (int(n[d]), int(sq[d]), sp[d] / n[d])
+                          for d in np.nonzero(n)[0]}
+    key = t["l_orderkey"].to_numpy()
+    if key.min() < 0 or key.max() >= 1 << 32:
+        raise AssertionError("order keys outside [0, 2^32)")
+    # a stable argsort by key as two stable radix passes of 16 bits
+    lo = np.argsort((key & 0xFFFF).astype(np.uint16), kind="stable")
+    order = lo[np.argsort((key[lo] >> 16).astype(np.uint16), kind="stable")]
+    counts = np.bincount(key)
+    keys = np.nonzero(counts)[0]
+    counts = counts[keys]
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    mask = np.bitwise_or.reduceat(
+        (np.int64(1) << rf[order].astype(np.int64)), starts)
+    out["order_lines"] = (keys, counts, ship[order], mask, rfv)
+    return out
+
+
+def aggtypes_queries(h1, h8, d1, d8):
+    """name -> (session, run) over the lineitem caches and the decimal
+    lineitem's; each run returns what validate_aggtypes reads."""
+    H, api = helpers(), port_api()
+
+    def rows(df, keys, cols):
+        d = df.collect().to_pydict()
+        return {tuple(d[k][i] for k in keys): tuple(d[c][i] for c in cols)
+                for i in range(len(d[keys[0]]))}
+
+    def cents(v):
+        return None if v is None else int(v.scaleb(2))
+
+    def q1_dec():
+        return {k: (cents(v[0]), cents(v[1]), v[2], v[3], v[4], v[5],
+                    cents(v[6]), cents(v[7]))
+                for k, v in rows(H.q1_dec(api, d1.li),
+                                 ("l_returnflag", "l_linestatus"),
+                                 ("sq", "sp", "sdp", "mq", "md", "cnt",
+                                  "mind", "maxp")).items()}
+
+    def disc_groups():
+        return {cents(k[0]): (v[0], cents(v[1]), v[2])
+                for k, v in rows(H.disc_groups(api, d8.li), ("l_discount",),
+                                 ("n", "sq", "mp")).items()}
+
+    def order_lines():
+        import pyarrow.compute as pc
+        t = H.order_lines(api, h8.li).collect().sort_by("l_orderkey")
+        ships = t["ships"].combine_chunks()
+        flags = t["flags"].combine_chunks()
+        enc = pc.dictionary_encode(flags.flatten())
+        return (t["l_orderkey"].to_numpy(),
+                pc.list_value_length(ships).to_numpy(),
+                ships.flatten().to_numpy(),
+                pc.list_value_length(flags).to_numpy(),
+                flags.offsets.to_numpy(),
+                enc.indices.to_numpy(), enc.dictionary.to_pylist())
+
+    return {
+        "q72shfl_x3": (h1.s, lambda: {
+            k[0]: v for k, v in rows(H.q72shfl_x3(api, h1.li), ("k",),
+                                     ("s", "c")).items()}),
+        "q1_dec": (d1.s, q1_dec),
+        "q6_dec": (d1.s, lambda: H.q6_dec(api, d1.li).collect()[
+            "revenue"][0].as_py()),
+        "disc_groups": (d8.s, disc_groups),
+        "order_lines": (h8.s, order_lines),
+    }
+
+
+def validate_aggtypes(name, got, want):
+    """(correct, how the check compared)."""
+    if name == "q72shfl_x3":
+        return set(got) == set(want) and all(
+            _close(got[k][0], want[k][0]) and got[k][1] == want[k][1]
+            for k in want), "every group: sum to 1e-6, count exact"
+    if name == "q6_dec":
+        return _close(got, want), "FLOAT64 revenue to 1e-6"
+    if name == "q1_dec":
+        return set(got) == set(want) and all(
+            got[k][:2] == want[k][:2] and got[k][5:] == want[k][5:]
+            and all(_close(a, b) for a, b in zip(got[k][2:5], want[k][2:5]))
+            for k in want), ("decimal sums, count, min and max exact; the "
+                             "FLOAT64 product sum and averages to 1e-6")
+    if name == "disc_groups":
+        return set(got) == set(want) and all(
+            got[k][:2] == want[k][:2] and _close(got[k][2], want[k][2])
+            for k in want), ("count and decimal sum exact, the average to "
+                             "1e-6")
+    keys, counts, ships, mask, rfv = want
+    g_keys, g_counts, g_ships, f_lens, f_off, f_idx, f_dict = got
+    code = np.array([rfv.index(v) for v in f_dict], np.int64)
+    bits = np.int64(1) << code[f_idx]
+    g_mask = np.bitwise_or.reduceat(bits, f_off[:-1]) if len(bits) \
+        else np.zeros(0, np.int64)
+    popcount = sum((mask >> b) & 1 for b in range(len(rfv)))
+    ok = (np.array_equal(g_keys, keys) and np.array_equal(g_counts, counts)
+          and np.array_equal(g_ships, ships)
+          and np.array_equal(g_mask, mask)
+          and np.array_equal(f_lens, popcount))
+    return bool(ok), ("collect_list in input order (the JAX package's "
+                      "order: a stable argsort by key), element for "
+                      "element; collect_set as sets with no duplicate")
+
+
+#: what each aggregate-type query must have run: operators, the modes of
+#: its aggregates from the root down, and its aggregate routes per run
+#: (exactly: disc_groups' coalesce makes two batches of the eight
+#: partitions, so two updates and a merge)
+AGGTYPES_EXPECT = {
+    "q72shfl_x3": ({"UnionExec", "CollectExchangeExec"}, ["final", "partial"],
+                   {"_chunked_segsum_agg": 3, "_segsum_or_fallback": 12,
+                    "_scatter_agg": 4}),
+    "q1_dec": ({"CachedScanExec"}, ["complete"], {"_bucket_update": 1}),
+    "q6_dec": ({"CachedScanExec"}, ["complete"], {"_global_update": 1}),
+    "disc_groups": ({"CollectExchangeExec", "CoalesceBatchesExec"},
+                    ["complete"], {"_scatter_agg": 3}),
+    "order_lines": ({"ShuffleExchangeExec"}, ["complete"], {"_sort_agg": 8}),
+}
+#: kernel launches per run: B2 in q72shfl_x3's twelve chunks (four a
+#: partial), B1 once per input batch into order_lines' exchange
+AGGTYPES_LAUNCHES = {"q72shfl_x3": {"segsum": 12},
+                     "order_lines": {"murmur3_int32": 8}}
+
+
+def _agg_modes(session):
+    return [e.mode for e in session.last_exec.walk()
+            if type(e).__name__ == "HashAggregateExec"]
+
+
+def phase_aggtypes(table, want, h1, h8, spy, prof=None):
+    """The aggregate types over the joins phase's lineitem caches and the
+    decimal lineitem cached with 1 and 8 partitions."""
+    import torch
+    from types import SimpleNamespace
+    H = helpers()
+    t0 = time.perf_counter()
+    ref = aggtypes_reference(table, want)
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dec = H.lineitem_dec(table)
+    s1, s8 = device_session(), device_session()
+    d1 = SimpleNamespace(s=s1, li=s1.create_dataframe(dec).cache())
+    d8 = SimpleNamespace(s=s8, li=s8.create_dataframe(
+        dec, num_partitions=8).cache())
+    counts = [d1.li.count(), d8.li.count()]
+    torch.cuda.synchronize()
+    cache_s = time.perf_counter() - t0
+    del dec
+    emit({"phase": "aggtypes.setup", "rows": table.num_rows,
+          "host_reference_s": host_s, "cache_s": cache_s})
+    if counts != [table.num_rows] * 2:
+        raise AssertionError(f"cached counts {counts}")
+    reset_launches()
+    spy.take()
+    problems = []
+    queries = aggtypes_queries(h1, h8, d1, d8)
+    for name, (session, fn) in queries.items():
+        before = read_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = fn()
+        cold = time.perf_counter() - t0
+        modes = _agg_modes(session)
+        warm = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            fn()
+            warm.append(time.perf_counter() - t0)
+        good, how = validate_aggtypes(name, got, ref[name])
+        counts = spy.take()
+        routes = {k: v // 3 for k, v in counts.items()}
+        execs = _exec_names(session)
+        launches = {k: (v - before[k]) // 3
+                    for k, v in read_launches().items()}
+        e_ops, e_modes, e_routes = AGGTYPES_EXPECT[name]
+        e_launch = {k: AGGTYPES_LAUNCHES.get(name, {}).get(k, 0)
+                    for k in launches}
+        if not good:
+            problems.append(f"{name} disagrees with numpy ({how})")
+        if not e_ops <= set(execs) or modes != e_modes \
+                or routes != e_routes or any(v % 3 for v in counts.values()):
+            problems.append(f"{name} ran {execs} with aggregate modes "
+                            f"{modes}, routes {routes}; expected "
+                            f"{AGGTYPES_EXPECT[name]}")
+        if launches != e_launch:
+            problems.append(f"{name} launched {launches}, expected "
+                            f"{e_launch}")
+        emit({"phase": "aggtypes.query", "query": name, "correct": good,
+              "check": how, "cold_s": cold, "warm_s": min(warm),
+              "launches": launches, "routes": routes, "execs": execs,
+              "agg_modes": modes,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+    counts = read_launches()
+    emit({"phase": "aggtypes", "launches": counts, "correct": not problems,
+          "problems": problems})
+    if prof:
+        prof.run("aggtypes", {k: v[1] for k, v in queries.items()})
+    if problems:
+        raise AssertionError("; ".join(problems))
     return counts
 
 
@@ -2790,7 +3065,7 @@ def main(argv) -> int:
         joins, h1, h8 = phase_joins(table, orders, spy, prof)
         phases["joins_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        window = phase_window(table, h1, h8, spy, prof)
+        window = phase_window(table, spy, prof)
         phases["window_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         exprs = phase_exprs(table, h1, h8, spy, prof)
@@ -2798,6 +3073,9 @@ def main(argv) -> int:
         t0 = time.perf_counter()
         sets = phase_sets(table, orders, h1, h8, spy, prof)
         phases["sets_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        aggtypes = phase_aggtypes(table, want, h1, h8, spy, prof)
+        phases["aggtypes_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         fb_want = fallback_reference(text, table)
         phases["fallback_reference_s"] = time.perf_counter() - t0
@@ -2821,7 +3099,8 @@ def main(argv) -> int:
         by_path = {"cached": cached[r["name"]], "parquet": parquet[r["name"]],
                    "strings": strings[r["name"]], "joins": joins[r["name"]],
                    "window": window[r["name"]], "exprs": exprs[r["name"]],
-                   "sets": sets[r["name"]], "fallback": fallback[r["name"]]}
+                   "sets": sets[r["name"]], "aggtypes": aggtypes[r["name"]],
+                   "fallback": fallback[r["name"]]}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
     if prof:

@@ -10,6 +10,10 @@ same, so the two packages' batches can be compared plane by plane:
   ``num_rows`` hold defined garbage that kernels mask out.
 - Strings are dictionary-encoded when the vocabulary is small (int32 codes
   + int32 vocab offsets + uint8 vocab bytes), else flat offsets + bytes.
+- Decimals are their unscaled int64 values (DECIMAL64, precision <= 18).
+- An array column is int32 offsets (capacity + 1) plus a child
+  ``ColumnVector`` holding the elements back to back; a null row owns an
+  empty slice.
 - ``row_mask`` is a selection vector: a filter marks rows dead instead of
   gathering the survivors, and the surviving count stays on the device as
   a ``LazyRowCount`` until the host needs it.
@@ -125,6 +129,10 @@ class ColumnVector:
         return isinstance(self.data, dict) and "codes" in self.data
 
     @property
+    def is_nested(self) -> bool:
+        return isinstance(self.dtype, T.ArrayType)
+
+    @property
     def dict_size(self) -> int:
         return int(self.data["dict_offsets"].shape[0]) - 1
 
@@ -139,7 +147,8 @@ class ColumnVector:
             else [self.data]
         if self.validity is not None:
             planes.append(self.validity)
-        return sum(p.numel() * p.element_size() for p in planes)
+        return sum(p.device_memory_size() if isinstance(p, ColumnVector)
+                   else p.numel() * p.element_size() for p in planes)
 
 
 @dataclasses.dataclass
@@ -150,6 +159,9 @@ class ColumnarBatch:
     columns: List[ColumnVector]
     num_rows: Union[int, LazyRowCount]
     row_mask: Optional[torch.Tensor] = None
+    #: the concatenation of several batches (a coalesce's output): a
+    #: final aggregate merges it even as a single input batch
+    coalesced: bool = False
 
     @property
     def capacity(self) -> int:
@@ -217,7 +229,12 @@ def column_from_arrow(arr, dtype: T.DataType, capacity: int,
     n = len(arr)
     valid_np = None if arr.null_count == 0 \
         else np.asarray(arr.is_valid()).astype(np.bool_)
-    if isinstance(dtype, T.StringType):
+    if isinstance(dtype, T.ArrayType):
+        return _array_from_arrow(arr, dtype, capacity, device, valid_np)
+    if isinstance(dtype, T.DecimalType):
+        data = _upload(_pad_to(decimal_unscaled(arr, dtype, valid_np),
+                               capacity), device)
+    elif isinstance(dtype, T.StringType):
         denc = arr if pa.types.is_dictionary(arr.type) \
             else arr.dictionary_encode()
         vocab = denc.dictionary
@@ -255,6 +272,57 @@ def column_from_arrow(arr, dtype: T.DataType, capacity: int,
     validity = None if valid_np is None \
         else _upload(_pad_to(valid_np, capacity, fill=False), device)
     return ColumnVector(dtype, data, validity)
+
+
+def decimal_unscaled(arr, dtype: T.DecimalType,
+                       valid_np: Optional[np.ndarray]) -> np.ndarray:
+    """The unscaled values of a decimal128 array at ``dtype``'s scale, as
+    int64, read from the buffer's low words. A valid value whose high word
+    is not its low word's sign extension does not fit in 64 bits: it
+    raises, as the JAX package's int64 conversion does."""
+    import pyarrow as pa
+    at = pa.decimal128(dtype.precision, dtype.scale)
+    if arr.type != at:
+        arr = arr.cast(at)
+    words = np.frombuffer(arr.buffers()[1], dtype=np.int64,
+                          count=2 * (arr.offset + len(arr)))
+    words = words[2 * arr.offset:]
+    low, high = words[0::2], words[1::2]
+    bad = high != (low >> 63)
+    if valid_np is not None:
+        bad &= valid_np
+        low = np.where(valid_np, low, 0)
+    if bad.any():
+        i = int(np.argmax(bad))
+        raise OverflowError(f"decimal value at row {i} does not fit in "
+                            f"64 bits ({dtype!r})")
+    return np.ascontiguousarray(low)
+
+
+def _array_from_arrow(arr, dtype: T.ArrayType, capacity: int, device,
+                      valid_np: Optional[np.ndarray]) -> ColumnVector:
+    """An Arrow list array as offsets + a child column, from buffers: a
+    null row's slice is dropped (``flatten`` skips it), so it owns an
+    empty one."""
+    import pyarrow as pa
+    if pa.types.is_large_list(arr.type):
+        arr = arr.cast(pa.list_(arr.type.value_type))
+    off = np.asarray(arr.offsets, dtype=np.int64)
+    lens = np.diff(off)
+    if valid_np is not None:
+        lens = np.where(valid_np, lens, 0)
+    n = len(arr)
+    offsets = np.zeros(capacity + 1, np.int64)
+    offsets[1: n + 1] = np.cumsum(lens)
+    offsets[n + 1:] = offsets[n]
+    values = arr.flatten()
+    child = column_from_arrow(values, dtype.element,
+                              round_capacity(max(len(values), 1)), device)
+    validity = None if valid_np is None \
+        else _upload(_pad_to(valid_np, capacity, fill=False), device)
+    return ColumnVector(dtype, {"offsets": _upload(offsets.astype(np.int32),
+                                                   device),
+                                "child": child}, validity)
 
 
 def from_arrow(table, device) -> ColumnarBatch:
@@ -319,38 +387,86 @@ def _string_rows_arrow(col: ColumnVector, idx: torch.Tensor,
     return arr.cast(pa.string())
 
 
+def decimal_arrow(vals: np.ndarray, dtype: T.DecimalType,
+                        valid: Optional[np.ndarray]):
+    """int64 unscaled values as an Arrow decimal128 array, built from
+    buffers: each value's high word is its sign extension."""
+    import pyarrow as pa
+    vals = np.ascontiguousarray(vals, dtype=np.int64)
+    words = np.empty(2 * vals.shape[0], np.int64)
+    words[0::2] = vals
+    words[1::2] = vals >> 63
+    bitmap = None if valid is None \
+        else pa.py_buffer(np.packbits(valid, bitorder="little"))
+    return pa.Array.from_buffers(T.to_arrow(dtype), vals.shape[0],
+                                 [bitmap, pa.py_buffer(words)])
+
+
+def _array_rows_arrow(col: ColumnVector, idx: torch.Tensor,
+                      valid: Optional[np.ndarray]):
+    """The selected rows of an array column as an Arrow list array: the
+    rows' elements are gathered on the device (``expand_ranges``), the
+    child converts recursively, and the offsets are rebuilt."""
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.ops.kernels import expand_ranges
+    off = col.data["offsets"].to(torch.int64)
+    starts = off[idx]
+    lens = off[idx + 1] - starts
+    if valid is not None:
+        lens = torch.where(torch.from_numpy(valid).to(lens.device), lens, 0)
+    row, within, total = expand_ranges(lens)
+    child = col.data["child"]
+    eidx = starts[row.to(torch.int64)] + within if total \
+        else torch.zeros(0, dtype=torch.int64, device=off.device)
+    cvalid = None if child.validity is None \
+        else _host(child.validity[eidx])
+    child_arr = _column_rows_arrow(child, eidx, cvalid)
+    new_off = torch.cat([torch.zeros(1, dtype=torch.int64,
+                                     device=lens.device), lens.cumsum(0)])
+    bitmap = None if valid is None \
+        else pa.py_buffer(np.packbits(valid, bitorder="little"))
+    return pa.Array.from_buffers(
+        T.to_arrow(col.dtype), idx.shape[0],
+        [bitmap, pa.py_buffer(_host(new_off).astype(np.int32))],
+        children=[child_arr])
+
+
+def _column_rows_arrow(col: ColumnVector, idx: torch.Tensor,
+                       valid: Optional[np.ndarray]):
+    """The rows ``idx`` of one column as an Arrow array; ``valid`` is the
+    rows' validity on the host, or None when every row is valid."""
+    import pyarrow as pa
+    if col.is_string:
+        return _string_rows_arrow(col, idx, valid)
+    if col.is_nested:
+        return _array_rows_arrow(col, idx, valid)
+    vals = _host(col.data[idx])
+    if isinstance(col.dtype, T.DecimalType):
+        return decimal_arrow(vals, col.dtype, valid)
+    mask = None if valid is None else ~valid
+    if isinstance(col.dtype, T.DateType):
+        vals = vals.astype("datetime64[D]")
+    elif isinstance(col.dtype, T.TimestampType):
+        vals = vals.astype("datetime64[us]")
+    return pa.array(vals, type=T.to_arrow(col.dtype), mask=mask)
+
+
 def to_arrow(batch: ColumnarBatch, names: Optional[Sequence[str]] = None):
     """Device ColumnarBatch -> pyarrow Table. The live rows are selected on
     the device and only they are downloaded; callers compact large sparse
     batches on the device first (session.collect)."""
     import pyarrow as pa
     n = int(batch.num_rows)
-    sel = None
     if batch.row_mask is not None:
-        sel = torch.nonzero(batch.row_mask).flatten()
-        n = int(sel.shape[0])
-
-    def rows(t: torch.Tensor) -> torch.Tensor:
-        return t[sel] if sel is not None else t[:n]
-
+        idx = torch.nonzero(batch.row_mask).flatten()
+        n = int(idx.shape[0])
+    else:
+        idx = torch.arange(n, device=batch.device) if batch.columns \
+            else None
     arrays, fields = [], []
     for i, col in enumerate(batch.columns):
         name = names[i] if names else f"c{i}"
-        at = T.to_arrow(col.dtype)
-        valid = None if col.validity is None else _host(rows(col.validity))
-        mask = None if valid is None else ~valid
-        if col.is_string:
-            idx = sel if sel is not None \
-                else torch.arange(n, device=col.device)
-            arr = _string_rows_arrow(col, idx, valid)
-        elif isinstance(col.dtype, T.DateType):
-            arr = pa.array(_host(rows(col.data)).astype("datetime64[D]"),
-                           type=at, mask=mask)
-        elif isinstance(col.dtype, T.TimestampType):
-            arr = pa.array(_host(rows(col.data)).astype("datetime64[us]"),
-                           type=at, mask=mask)
-        else:
-            arr = pa.array(_host(rows(col.data)), type=at, mask=mask)
-        arrays.append(arr)
-        fields.append(pa.field(name, at))
+        valid = None if col.validity is None else _host(col.validity[idx])
+        arrays.append(_column_rows_arrow(col, idx, valid))
+        fields.append(pa.field(name, T.to_arrow(col.dtype)))
     return pa.Table.from_arrays(arrays, schema=pa.schema(fields))

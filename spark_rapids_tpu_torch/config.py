@@ -158,6 +158,21 @@ INCOMPAT_ENABLED = _register(
     "CPU.", _bool_conv)
 
 
+SKIP_AGG_PASS_RATIO = _register(
+    "spark.rapids.sql.agg.skipAggPassReductionRatio", 1.0,
+    "Skip later agg passes when a pass reduces rows by less than this "
+    "ratio (reference skipAggPassReductionRatio): a partial aggregate "
+    "whose first batch keeps more than ratio x its rows as groups yields "
+    "each batch's partial states unmerged, for the final aggregate to "
+    "merge.", float)
+
+AGG_FORCE_SINGLE_PASS = _register(
+    "spark.rapids.sql.agg.forceSinglePassPartialSort", False,
+    "Internal testing knob (reference forceSinglePassPartialSortAgg): "
+    "concatenate a partition's input batches and run a keyed partial or "
+    "complete aggregate as one update pass instead of an update per batch "
+    "and a merge.", _bool_conv)
+
 def keys():
     return list(_REGISTRY)
 

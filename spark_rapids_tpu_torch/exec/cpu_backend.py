@@ -1,8 +1,9 @@
 """The CPU backend: a numpy/pandas interpreter of the plan algebra.
 
 Counterpart of ``spark_rapids_tpu/exec/cpu_backend.py``, adapted to this
-engine's types and plan nodes (no decimals, nested types, ``Generate``,
-text or shuffle-file scans yet). It runs an operator that planning tags
+engine's types and plan nodes (decimals as unscaled int64 values, arrays
+as object arrays of python lists; no structs, maps, ``Generate``, text or
+shuffle-file scans yet). It runs an operator that planning tags
 off the device (``exec/nodes.CpuFallbackExec``, ``apply_node``) and a
 whole plan in ``spark.rapids.sql.mode=explainOnly`` or
 ``DataFrame.collect_cpu`` (``execute_cpu``). Its arithmetic is the JAX
@@ -26,6 +27,7 @@ import pandas as pd
 import pyarrow as pa
 
 from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar.batch import decimal_arrow, decimal_unscaled
 from spark_rapids_tpu_torch.expr import aggregates as A
 from spark_rapids_tpu_torch.expr import window as WE
 from spark_rapids_tpu_torch.expr.core import CpuCol
@@ -43,9 +45,11 @@ def table_to_cols(table: pa.Table) -> List[CpuCol]:
         arr = table.column(i).combine_chunks()
         valid = np.ones(len(arr), np.bool_) if arr.null_count == 0 \
             else np.asarray(arr.is_valid())
-        if isinstance(dtype, T.StringType):
+        if _is_object(dtype):
             vals = np.empty(len(arr), object)
             vals[:] = arr.to_pylist()
+        elif isinstance(dtype, T.DecimalType):
+            vals = decimal_unscaled(arr, dtype, valid)
         elif isinstance(dtype, T.TimestampType):
             vals = np.asarray(arr.cast(pa.timestamp("us")).fill_null(0)) \
                 .astype("datetime64[us]").astype(np.int64)
@@ -67,6 +71,11 @@ def cols_to_table(cols: List[CpuCol], names: List[str]) -> pa.Table:
             vals = [v if (ok and isinstance(v, str)) else None
                     for v, ok in zip(c.values, c.valid)]
             arr = pa.array(vals, type=at)
+        elif isinstance(c.dtype, T.ArrayType):
+            arr = pa.array([v if ok else None
+                            for v, ok in zip(c.values, c.valid)], type=at)
+        elif isinstance(c.dtype, T.DecimalType):
+            arr = decimal_arrow(c.values, c.dtype, c.valid)
         elif isinstance(c.dtype, T.TimestampType):
             arr = pa.array(c.values.astype("datetime64[us]"), type=at,
                            mask=~c.valid)
@@ -81,13 +90,18 @@ def cols_to_table(cols: List[CpuCol], names: List[str]) -> pa.Table:
     return pa.Table.from_arrays(arrays, schema=pa.schema(fields))
 
 
+def _is_object(dtype: T.DataType) -> bool:
+    """Strings and arrays hold python objects on the CPU."""
+    return isinstance(dtype, (T.StringType, T.ArrayType))
+
+
 def _gather_cols(cols: List[CpuCol], idx: np.ndarray) -> List[CpuCol]:
     """Row gather; an index of -1 gives a null."""
     out = []
     oob = idx < 0
     safe = np.where(oob, 0, idx)
     for c in cols:
-        is_str = isinstance(c.dtype, T.StringType)
+        is_str = _is_object(c.dtype)
         if len(c.values) == 0:
             out.append(CpuCol(c.dtype, np.zeros(len(idx), object if is_str
                                                 else c.dtype.np_dtype),
@@ -208,7 +222,7 @@ def apply_node(plan: P.PlanNode, children: List[List[CpuCol]],
 
 
 def _cast_vals(c: CpuCol, dt: T.DataType):
-    if isinstance(dt, T.StringType):
+    if _is_object(dt):
         return c.values
     return c.values.astype(dt.np_dtype)
 
@@ -488,6 +502,9 @@ def _agg_by_gid(a: A.NamedAgg, inp, gid: np.ndarray, n_groups: int
         filled = res.fillna(0).to_numpy(dtype=np.int64)
     else:
         filled = res.fillna(0).to_numpy(dtype=np.float64)
+    if spec == "mean" and isinstance(inp.dtype, T.DecimalType):
+        # a decimal's state is unscaled: the mean must be a value
+        filled = filled / 10.0 ** inp.dtype.scale
     return CpuCol(rt, filled.astype(rt.np_dtype), ~na)
 
 
@@ -556,6 +573,11 @@ def _global_agg(plan: P.Aggregate, agg_inputs, n: int) -> List[CpuCol]:
             out.append(_agg_by_gid(a, inp, gid, 1))
             continue
         rt = a.fn.result_type()
+        if isinstance(rt, T.ArrayType):  # collect_* of no rows is []
+            vals = np.empty(1, object)
+            vals[0] = []
+            out.append(CpuCol(rt, vals, np.ones(1, np.bool_)))
+            continue
         if getattr(a.fn, "pandas_spec", None) in ("size", "count"):
             out.append(CpuCol(T.INT64, np.zeros(1, np.int64),
                               np.ones(1, np.bool_)))

@@ -9,7 +9,7 @@ which decodes on the host, and the device-decode pair
 ``ExpandExec``, ``CollectExchangeExec``, the
 compact in-process exchanges (``ShuffleExchangeExec``,
 ``RoundRobinExchangeExec``, ``RangeExchangeExec``), ``HashAggregateExec``
-with ``_AggKernels``, ``LimitExec``, ``TopNExec``, ``SortExec``,
+(partial, final or complete) with ``_AggKernels``, ``LimitExec``, ``TopNExec``, ``SortExec``,
 ``WindowExec``, the hash joins (``BroadcastHashJoinExec``,
 ``ShuffledHashJoinExec``), the nested-loop and cartesian joins
 (``BroadcastNestedLoopJoinExec``, ``CartesianProductExec``), and
@@ -35,7 +35,7 @@ The hash aggregate picks a route per batch, in the JAX package's order:
 3. the sort route for every other key (flat strings, dictionaries that
    may repeat a string, floats): stable sorts on 64-bit keys, then
    segmented reductions (``ops/groupby.group_segments``). Partial states
-   merge by the packed route when their keys pack, else by this one.
+   merge in the same order: tiny-bucket, packed, then this route.
 
 A segmented aggregate (percentile, min_by/max_by) has no mergeable state:
 it takes the sort route over the partition's batches concatenated (or the
@@ -98,6 +98,17 @@ class TorchExec:
         yield self
         for c in self.children:
             yield from c.walk()
+
+    def name(self) -> str:
+        mode = getattr(self, "mode", None)
+        return type(self).__name__ + (f"({mode})" if mode else "")
+
+    def tree_string(self, indent: int = 0) -> str:
+        """The operator tree, one ``name <- plan node`` line each, in the
+        JAX package's layout (an aggregate names its mode)."""
+        lines = [f"{'  ' * indent}{self.name()} <- {self.plan.describe()}"]
+        lines += [c.tree_string(indent + 1) for c in self.children]
+        return "\n".join(lines)
 
     def _ctx(self, batch: ColumnarBatch, live=None, **part) -> EvalCtx:
         return EvalCtx(batch.columns, batch.num_rows, batch.capacity,
@@ -376,7 +387,8 @@ class CachedScanExec(TorchExec):
         yield from self._materialize()[pidx]
 
 
-_STAT_TYPES = (T.Int8Type, T.Int16Type, T.Int32Type, T.Int64Type, T.DateType)
+_STAT_TYPES = (T.Int8Type, T.Int16Type, T.Int32Type, T.Int64Type, T.DateType,
+               T.DecimalType)
 
 
 def _attach_column_stats(batch: ColumnarBatch) -> None:
@@ -485,10 +497,19 @@ class CoalesceBatchesExec(TorchExec):
             pending.append(batch)
             pending_bytes += batch.device_memory_size()
             if pending_bytes >= target:
-                yield K.concat_batches(pending)
+                yield _coalesced(pending)
                 pending, pending_bytes = [], 0
         if pending:
-            yield K.concat_batches(pending)
+            yield _coalesced(pending)
+
+
+def _coalesced(batches: List[ColumnarBatch]) -> ColumnarBatch:
+    """The batches concatenated; a concatenation of several is flagged, so
+    a final aggregate merges it even though it arrives as one batch."""
+    out = K.concat_batches(batches)
+    if len(batches) > 1:
+        out = dataclasses.replace(out, coalesced=True)
+    return out
 
 
 class RangeExec(TorchExec):
@@ -865,7 +886,7 @@ class _AggKernels:
         for e in self.group_exprs:
             if not isinstance(e.data_type(), (
                     T.Int8Type, T.Int16Type, T.Int32Type, T.Int64Type,
-                    T.DateType, T.BooleanType, T.StringType)):
+                    T.DateType, T.BooleanType, T.DecimalType, T.StringType)):
                 return False
         for a in self.aggs:
             if isinstance(a.fn, A.SegmentedAgg):
@@ -930,11 +951,11 @@ class _AggKernels:
             return self._global_update(batch, live, input_cols), errs + ierrs
         # segmented aggregates need the group-sorted rows: the sort route
         sizes = None if self.has_custom else self._bucket_sizes(key_cols)
+        specs = self._update_specs(input_cols)
         if sizes is None:
-            return self._sort_agg(live, key_cols,
-                                  self._update_specs(input_cols),
+            return self._sort_agg(live, key_cols, specs,
                                   batch.num_rows), errs + ierrs
-        return self._bucket_update(batch, live, key_cols, input_cols,
+        return self._bucket_update(live, key_cols, specs,
                                    sizes), errs + ierrs
 
     def _update_specs(self, input_cols):
@@ -973,6 +994,14 @@ class _AggKernels:
         key_cols = list(batch.columns[:nkeys])
         spec = None
         if self._packed_ok:
+            sizes = self._bucket_sizes(key_cols)
+            if sizes is not None:
+                # the update's route order: tiny-bucket keys merge by
+                # plain float adds too. The packed scatter route sums
+                # floats in fixed point scaled to the batch's largest
+                # |value|, so one outlier partial would quantize every
+                # other group's sum (ROADMAP C, "known")
+                return self._bucket_update(live, key_cols, states, sizes)
             spec, ranges, rh = _probe_pack_spec(key_cols, live)
         if spec is None:
             return self._sort_agg(live, key_cols, states, batch.num_rows)
@@ -1064,10 +1093,11 @@ class _AggKernels:
                 return None
         return sizes
 
-    def _bucket_update(self, batch, live, key_cols, input_cols, sizes):
+    def _bucket_update(self, live, key_cols, state_specs, sizes):
         device = live.device
+        cap = live.shape[0]
         B = int(np.prod(sizes))
-        bucket = torch.zeros(batch.capacity, dtype=torch.int32, device=device)
+        bucket = torch.zeros(cap, dtype=torch.int32, device=device)
         for c, s in zip(key_cols, sizes):
             code = (c.data["codes"] if c.is_dict else c.data).to(torch.int32)
             if c.validity is not None:
@@ -1098,21 +1128,17 @@ class _AggKernels:
             else:
                 out_cols.append(ColumnVector(c.dtype, code.to(c.data.dtype),
                                              kvalid))
-        for ai, a in enumerate(self.aggs):
-            for (_, sdt), (op, idx) in zip(a.fn.state_schema(),
-                                           a.fn.update_ops()):
-                if idx >= 0:
-                    src = input_cols[ai][idx]
-                    if src.is_string and op not in ("count", "count_all"):
-                        raise NotImplementedError(_STRING_STATE)
-                    vals = _zeros(batch.capacity, sdt, device) \
-                        if src.is_string else src.data.to(sdt.torch_dtype)
-                    valid = live if src.validity is None \
-                        else (src.validity & live)
-                else:
-                    vals, valid = _zeros(batch.capacity, sdt, device), live
-                ov, oval = G.bucket_agg(op, vals, valid, bucket, B, matmul_ok)
-                out_cols.append(ColumnVector(sdt, ov, oval))
+        for op, src, sdt in state_specs:
+            if src is not None:
+                if src.is_string and op not in ("count", "count_all"):
+                    raise NotImplementedError(_STRING_STATE)
+                vals = _zeros(cap, sdt, device) if src.is_string \
+                    else src.data.to(sdt.torch_dtype)
+                valid = live if src.validity is None else (src.validity & live)
+            else:
+                vals, valid = _zeros(cap, sdt, device), live
+            ov, oval = G.bucket_agg(op, vals, valid, bucket, B, matmul_ok)
+            out_cols.append(ColumnVector(sdt, ov, oval))
         return ColumnarBatch(out_cols,
                              LazyRowCount(occupancy.sum(dtype=torch.int32)),
                              occupancy)
@@ -1425,16 +1451,31 @@ class _AggKernels:
 
 
 class HashAggregateExec(TorchExec):
-    """Complete-mode hash aggregate: update each input batch, merge the
-    partial states, evaluate. An upstream filter may be absorbed as
-    ``pre_filter`` so it only narrows the live mask."""
+    """The hash aggregate in one of the JAX package's three modes:
 
-    def __init__(self, plan, children, conf, device, pre_filter=None):
+    - ``partial``: update each input batch into (keys, states) batches,
+      merge them within the partition, and yield the states;
+    - ``final``: merge the state batches of the partials below an
+      exchange, then evaluate;
+    - ``complete``: update, merge and evaluate in one operator.
+
+    An upstream filter may be absorbed as ``pre_filter`` (partial and
+    complete modes: it narrows the live mask of the update). With
+    spark.rapids.sql.agg.skipAggPassReductionRatio below 1, a keyed
+    partial whose first batch kept more than that share of its rows as
+    groups yields each batch's states unmerged, for the final to merge.
+    """
+
+    def __init__(self, plan, children, conf, device, mode: str = "complete",
+                 pre_filter=None):
         super().__init__(plan, children, conf, device)
+        self.mode = mode
         self.kern = _AggKernels(plan.group_exprs, plan.aggs, pre_filter,
                                 bool(conf.get(C.PALLAS_ENABLED)))
 
-    def _state_fields(self):
+    def state_fields(self):
+        """The schema of the state batches a partial yields: the keys,
+        then each aggregate's states as ``<name>__<state>``."""
         fields = [T.StructField(n, e.data_type()) for n, e in
                   zip(self.plan.group_names, self.plan.group_exprs)]
         for a in self.plan.aggs:
@@ -1444,33 +1485,54 @@ class HashAggregateExec(TorchExec):
 
     def execute_partition(self, pidx):
         nkeys = len(self.plan.group_exprs)
-        partials = []
         batches = self.children[0].execute_partition(pidx)
-        if self.kern.has_custom:
-            # a segmented aggregate's result cannot merge: one update pass
-            # over the partition's rows, concatenated
-            batches = list(batches)
-            if len(batches) > 1:
-                batches = [K.concat_batches(batches)]
-        for batch in batches:
-            out, errs = self.kern.update(batch, self._ctx)
-            raise_errors(errs)
-            partials.append(ColumnarBatch(out.columns, 1) if nkeys == 0
-                            else out)
+        skip_merge = False
+        if self.mode == "final":
+            partials = list(batches)
+        else:
+            if self.kern.has_custom or (
+                    nkeys and self.conf.get(C.AGG_FORCE_SINGLE_PASS)):
+                # one update pass over the partition's rows, concatenated:
+                # a segmented aggregate's result cannot merge (and the
+                # testing knob asks for it)
+                batches = list(batches)
+                if len(batches) > 1:
+                    batches = [K.concat_batches(batches)]
+            ratio = float(self.conf.get(C.SKIP_AGG_PASS_RATIO))
+            partials = []
+            for bi, batch in enumerate(batches):
+                out, errs = self.kern.update(batch, self._ctx)
+                raise_errors(errs)
+                partials.append(ColumnarBatch(out.columns, 1) if nkeys == 0
+                                else out)
+                if bi == 0 and ratio < 1.0 and nkeys \
+                        and self.mode == "partial":
+                    # sampled on the first batch only: each count is a sync
+                    skip_merge = int(out.num_rows) > ratio * max(
+                        int(batch.num_rows), 1)
         if not partials:
             if nkeys:
                 return
             partials = [self._empty_state_batch()]
-        merged = partials[0]
-        if len(partials) > 1:
-            batch = K.concat_batches(partials)
-            if nkeys or int(batch.num_rows) > 1:
-                merged = self.kern.merge(batch)
-            else:
-                merged = batch
-            if nkeys == 0:
-                merged = ColumnarBatch(merged.columns, 1)
-        yield self._evaluate(merged)
+        if skip_merge and len(partials) > 1:
+            for p in partials:
+                yield K.compact_batch(p)
+            return
+        merged = self._merge(partials)
+        yield merged if self.mode == "partial" else self._evaluate(merged)
+
+    def _merge(self, partials: List[ColumnarBatch]) -> ColumnarBatch:
+        """Fold the partition's state batches into one. A single batch
+        already has unique keys, unless a coalesce concatenated it from
+        several (``coalesced``): that one still merges."""
+        if len(partials) == 1 and not partials[0].coalesced:
+            return partials[0]
+        batch = K.concat_batches(partials)
+        nkeys = len(self.plan.group_exprs)
+        if nkeys == 0 and int(batch.num_rows) <= 1:
+            return batch
+        out = self.kern.merge(batch)
+        return ColumnarBatch(out.columns, 1) if nkeys == 0 else out
 
     def _evaluate(self, state: ColumnarBatch) -> ColumnarBatch:
         nkeys = len(self.plan.group_exprs)
@@ -1481,7 +1543,8 @@ class HashAggregateExec(TorchExec):
             res = a.fn.evaluate(state.columns[ci: ci + n_state])
             ci += n_state
             rt = a.fn.result_type()
-            if not res.is_string and res.data.dtype != rt.torch_dtype:
+            if not (res.is_string or res.is_nested) \
+                    and res.data.dtype != rt.torch_dtype:
                 res = ColumnVector(rt, res.data.to(rt.torch_dtype),
                                    res.validity)
             out_cols.append(res)
@@ -1493,7 +1556,7 @@ class HashAggregateExec(TorchExec):
         cap = round_capacity(1)
         first = torch.arange(cap, device=self.device) < 1
         cols = []
-        for f in self._state_fields():
+        for f in self.state_fields():
             is_count = f.name.endswith("__count")
             cols.append(ColumnVector(
                 f.dtype, _zeros(cap, f.dtype, self.device),
@@ -1568,7 +1631,7 @@ def _topn_image(kc: ColumnVector, order, live) -> Optional[torch.Tensor]:
         x = torch.where(x == 0.0, torch.zeros_like(x), x)
         bits = x.view(torch.int32)
         img = torch.where(bits < 0, ~bits ^ _MIN32, bits)
-    elif isinstance(d, (T.Int64Type, T.TimestampType)):
+    elif isinstance(d, (T.Int64Type, T.TimestampType, T.DecimalType)):
         bits = kc.data.to(torch.float32).view(torch.int32)
         img = torch.where(bits < 0, ~bits ^ _MIN32, bits)
     else:

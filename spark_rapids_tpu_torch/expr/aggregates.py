@@ -1,7 +1,7 @@
 """Aggregate function descriptors: sum, count, avg, min, max, first,
 last, the variance and standard deviation family, the segmented
-aggregates min_by, max_by, percentile and approx_percentile, and the
-grouping markers.
+aggregates min_by, max_by, percentile, approx_percentile, collect_list
+and collect_set, and the grouping markers.
 
 Counterpart of ``spark_rapids_tpu/expr/aggregates.py``; ``over(spec)``
 makes a window aggregate (``expr/window.py``). Each function
@@ -16,10 +16,12 @@ resolved by the ROLLUP/CUBE lowering and never aggregate.
 On the CPU backend a function is named by ``pandas_spec`` (the JAX
 package's pandas reduction), and a segmented one computes per group id
 (``eval_cpu_groups``).
-``collect_list``/``collect_set`` wait for the nested types (ROADMAP A3b).
+``collect_list``/``collect_set`` are segmented too and give array
+columns.
 """
 from __future__ import annotations
 
+import decimal
 from typing import List, Tuple
 
 import numpy as np
@@ -80,14 +82,19 @@ class NamedAgg:
 
 
 class Sum(AggFunction):
-    """Spark sum: integral inputs sum to long, floats to double; null when
-    every input is null."""
+    """Spark sum: integral inputs sum to long, floats to double, a
+    decimal(p, s) to decimal(min(p + 10, 18), s); null when every input is
+    null."""
 
     pandas_spec = "sum"
 
     def result_type(self):
-        return T.INT64 if self.children[0].data_type().is_integral \
-            else T.FLOAT64
+        dt = self.children[0].data_type()
+        if dt.is_integral:
+            return T.INT64
+        if isinstance(dt, T.DecimalType):
+            return T.DecimalType(min(dt.precision + 10, 18), dt.scale)
+        return T.FLOAT64
 
     def state_schema(self):
         return [("sum", self.result_type())]
@@ -178,7 +185,9 @@ class Max(AggFunction):
 
 
 class Average(AggFunction):
-    """avg: states (sum: double, count: long); result double."""
+    """avg: states (sum: double, count: long); result double. A decimal
+    sums its unscaled values as doubles and divides by 10^scale at the
+    end, as the JAX package does."""
 
     pandas_spec = "mean"
 
@@ -198,6 +207,9 @@ class Average(AggFunction):
         s, c = state_cols
         cnt = c.data.to(torch.float64)
         val = s.data.to(torch.float64) / torch.where(cnt == 0, 1.0, cnt)
+        dt = self.children[0].data_type()
+        if isinstance(dt, T.DecimalType):
+            val = val / (10.0 ** dt.scale)
         return ColumnVector(T.FLOAT64, val, c.data > 0)
 
 
@@ -443,6 +455,9 @@ class Percentile(SegmentedAgg):
         device = perm.device
         keep = _valid_under(src, live)[perm]
         v = src.data.to(torch.float64)[perm]
+        cdt = self.children[0].data_type()
+        if isinstance(cdt, T.DecimalType):
+            v = v / (10.0 ** cdt.scale)  # the unscaled values' value
         # kept rows to the front, group-major, values ascending. The JAX
         # package's sort treats -0.0 and 0.0 as equal and every NaN as
         # one value above +inf: the order of the floats' int64 image, with
@@ -463,10 +478,13 @@ class Percentile(SegmentedAgg):
         return ColumnVector(T.FLOAT64, vlo + (vhi - vlo) * frac, m > 0)
 
     def eval_cpu_groups(self, inputs, gid, n_groups):
+        cdt = self.children[0].data_type()
+        descale = 10.0 ** cdt.scale if isinstance(cdt, T.DecimalType) \
+            else 1.0
         buckets = [[] for _ in range(n_groups)]
         for g, v, ok in zip(gid, inputs[0].values, inputs[0].valid):
             if ok:
-                buckets[g].append(float(v))
+                buckets[g].append(float(v) / descale)
         vals = np.zeros(n_groups, np.float64)
         okm = np.zeros(n_groups, np.bool_)
         for g, b in enumerate(buckets):
@@ -491,6 +509,118 @@ class ApproxPercentile(Percentile):
     def transform(self, fn):
         return ApproxPercentile(self.children[0].transform(fn),
                                 self.percentage, self.accuracy)
+
+
+def _cpu_leaf_converter(dt: T.DataType):
+    """An element of the CPU backend as Arrow's list builder takes it: a
+    decimal's unscaled int64 becomes a python Decimal."""
+    if isinstance(dt, T.DecimalType):
+        scale = dt.scale
+        return lambda v: decimal.Decimal(int(v)).scaleb(-scale)
+    return lambda v: v.item() if isinstance(v, np.generic) else v
+
+
+def _pack_valid_front(src: ColumnVector, perm: torch.Tensor,
+                      keep_sorted: torch.Tensor, cap: int) -> ColumnVector:
+    """The kept rows of the group-sorted order, gathered stably to the
+    front of a column of the same capacity: an array's child."""
+    from spark_rapids_tpu_torch.ops import kernels as K
+    dest = torch.cumsum(keep_sorted.to(torch.int64), 0) - 1
+    src_idx = torch.full((cap,), -1, dtype=torch.int64, device=perm.device)
+    src_idx[dest[keep_sorted]] = perm[keep_sorted]
+    return K.gather_column(src, src_idx, cap)
+
+
+def _array_of(dtype, child: ColumnVector, keep_sorted, seg_ids,
+              seg_cap: int) -> ColumnVector:
+    """The array column of seg_cap groups whose elements are the kept
+    sorted rows, group by group: offsets from the per-group counts."""
+    counts = torch.zeros(seg_cap, dtype=torch.int64,
+                         device=seg_ids.device).index_add_(
+        0, seg_ids.to(torch.int64), keep_sorted.to(torch.int64))
+    offsets = torch.cat([torch.zeros(1, dtype=torch.int64,
+                                     device=counts.device), counts.cumsum(0)])
+    return ColumnVector(dtype, {"offsets": offsets.to(torch.int32),
+                                "child": child}, None)
+
+
+class CollectList(SegmentedAgg):
+    """collect_list: a group's non-null values in the stable input order
+    (the order after any exchange); an empty group gives []."""
+
+    def result_type(self):
+        return T.ArrayType(self.children[0].data_type(), contains_null=False)
+
+    def segmented_eval(self, inputs, perm, seg_ids, seg_cap, live, num_rows):
+        src = inputs[0]
+        keep = _valid_under(src, live)[perm]
+        child = _pack_valid_front(src, perm, keep, perm.shape[0])
+        return _array_of(self.result_type(), child, keep, seg_ids, seg_cap)
+
+    def eval_cpu_groups(self, inputs, gid, n_groups):
+        src = inputs[0]
+        conv = _cpu_leaf_converter(self.children[0].data_type())
+        out = [[] for _ in range(n_groups)]
+        for g, v, ok in zip(gid, src.values, src.valid):
+            if ok and v is not None:
+                out[g].append(conv(v))
+        vals = np.empty(n_groups, object)
+        vals[:] = out
+        return CpuCol(self.result_type(), vals, np.ones(n_groups, np.bool_))
+
+
+class CollectSet(SegmentedAgg):
+    """collect_set: a group's distinct non-null values, ordered by their
+    normalized key on the device (value order for numbers, the 64-bit
+    string hash for strings, the code for a dictionary whose vocabulary
+    holds each string once) and by value on the CPU, as in the JAX
+    package; Spark leaves the order open. NaN is one member. A unique
+    vocabulary deduplicates exactly by code; other strings by the 64-bit
+    hash (collision odds ~2^-64 a pair), which planning gates behind
+    spark.rapids.sql.incompatibleOps.enabled."""
+
+    def result_type(self):
+        return T.ArrayType(self.children[0].data_type(), contains_null=False)
+
+    def segmented_eval(self, inputs, perm, seg_ids, seg_cap, live, num_rows):
+        from spark_rapids_tpu_torch.ops import kernels as K
+        src = inputs[0]
+        keep = _valid_under(src, live)[perm]
+        if src.is_dict and src.dict_unique:
+            vkey = src.data["codes"].to(torch.int64)
+        else:
+            vkey, _ = K.normalize_key(src, num_rows, live=live)
+        vkey_s = vkey[perm]
+        # within each group, kept rows first in value order: duplicates
+        # become adjacent runs (three stable sorts, the last key first)
+        idx2 = torch.sort(vkey_s, stable=True).indices
+        idx2 = idx2[torch.sort((~keep)[idx2].to(torch.uint8),
+                               stable=True).indices]
+        idx2 = idx2[torch.sort(seg_ids[idx2], stable=True).indices]
+        seg2, vk2, keep2 = seg_ids[idx2], vkey_s[idx2], keep[idx2]
+        first = torch.cat([torch.ones(1, dtype=torch.bool,
+                                      device=perm.device),
+                           (seg2[1:] != seg2[:-1]) | (vk2[1:] != vk2[:-1])])
+        keep2 = keep2 & first
+        child = _pack_valid_front(src, perm[idx2], keep2, perm.shape[0])
+        return _array_of(self.result_type(), child, keep2, seg2, seg_cap)
+
+    def eval_cpu_groups(self, inputs, gid, n_groups):
+        src = inputs[0]
+        conv = _cpu_leaf_converter(self.children[0].data_type())
+        seen = [dict() for _ in range(n_groups)]
+        for g, v, ok in zip(gid, src.values, src.valid):
+            if ok and v is not None:
+                v = conv(v)
+                # NaN is one member; keying by the value would keep each
+                key = "__nan__" if isinstance(v, float) and v != v else v
+                seen[g].setdefault(key, v)
+
+        def skey(x):
+            return (2, 0) if isinstance(x, float) and x != x else (1, x)
+        vals = np.empty(n_groups, object)
+        vals[:] = [sorted(d.values(), key=skey) for d in seen]
+        return CpuCol(self.result_type(), vals, np.ones(n_groups, np.bool_))
 
 
 class GroupingMarker(AggFunction):

@@ -8,8 +8,10 @@ literals (strings and nulls included), aliases, the partition context
 ``And``/``Or``/``Not``, ``IsNull``/``IsNotNull``/``IsNaN``, ``In``, ``If``
 and ``CaseWhen``, the optimizer's markers (``KnownNotNull``,
 ``KnownFloatingPointNormalized``, ``NormalizeNaNAndZero``,
-``AtLeastNNonNulls``), ``Coalesce``, the numeric, date and timestamp casts,
-and the sort-order sugar (``asc``/``desc`` and their null-ordering forms).
+``AtLeastNNonNulls``), ``Coalesce``, the numeric, decimal, date and
+timestamp casts, and the sort-order sugar (``asc``/``desc`` and their
+null-ordering forms). Decimals (DECIMAL64) compute on their unscaled
+int64 values with the JAX package's rescaling rules (``_promote``).
 The string functions are in ``expr/strings.py``, ``Greatest``/``Least`` in
 ``expr/math.py``. Null semantics follow Spark SQL, as in the JAX package:
 arithmetic and comparisons propagate nulls, AND/OR are Kleene, division or
@@ -26,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import decimal
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -250,6 +253,11 @@ class Literal(Expression):
             return Literal(v, T.FLOAT64)
         if isinstance(v, str):
             return Literal(v, T.STRING)
+        if isinstance(v, decimal.Decimal):
+            _, digits, exp = v.as_tuple()
+            scale = max(0, -exp)
+            return Literal(v, T.DecimalType(max(len(digits), scale + 1),
+                                            scale))
         if isinstance(v, datetime.date):
             return Literal(v, T.DATE)
         raise TypeError(f"cannot infer literal type for {v!r}")
@@ -269,6 +277,10 @@ class Literal(Expression):
         if isinstance(self.dtype, T.DateType) \
                 and isinstance(self.value, datetime.date):
             return (self.value - datetime.date(1970, 1, 1)).days
+        if isinstance(self.dtype, T.DecimalType):
+            # the unscaled value at the type's scale
+            return int(decimal.Decimal(self.value).scaleb(
+                self.dtype.scale).to_integral_value())
         return self.value
 
     def eval(self, ctx):
@@ -442,13 +454,39 @@ class Alias(Expression):
 # Arithmetic
 # ---------------------------------------------------------------------------
 
+def _dec_shift(src: T.DataType, out: T.DecimalType) -> int:
+    """The power of ten that brings src's unscaled values to out's scale
+    (an integer is a decimal of scale 0)."""
+    src_scale = src.scale if isinstance(src, T.DecimalType) else 0
+    return out.scale - src_scale
+
+
 def _promote(l: ColumnVector, r: ColumnVector, out: T.DataType):
-    return (l.data.to(out.torch_dtype), r.data.to(out.torch_dtype))
+    """Both operands in the type ``out``: a decimal result rescales the
+    unscaled int64 values; a decimal meeting a float becomes its value."""
+    def conv(c):
+        if isinstance(out, T.DecimalType):
+            sh = _dec_shift(c.dtype, out)
+            d = c.data.to(torch.int64)
+            return d * (10 ** sh) if sh else d
+        d = c.data.to(out.torch_dtype)
+        if isinstance(c.dtype, T.DecimalType):
+            d = d / (10.0 ** c.dtype.scale)
+        return d
+    return conv(l), conv(r)
 
 
 def _promote_cpu(l: CpuCol, r: CpuCol, out: T.DataType):
-    return (l.values.astype(out.np_dtype, copy=False),
-            r.values.astype(out.np_dtype, copy=False))
+    def conv(c):
+        if isinstance(out, T.DecimalType):
+            sh = _dec_shift(c.dtype, out)
+            d = c.values.astype(np.int64)
+            return d * (10 ** sh) if sh else d
+        d = c.values.astype(out.np_dtype, copy=False)
+        if isinstance(c.dtype, T.DecimalType):
+            d = d / np.float64(10.0 ** c.dtype.scale)
+        return d
+    return conv(l), conv(r)
 
 
 class BinaryExpression(Expression):
@@ -503,11 +541,59 @@ class Subtract(BinaryArithmetic):
 
 
 class Multiply(BinaryArithmetic):
+    """``*``. Two decimals multiply their unscaled values (precision p1 +
+    p2 + 1, scale s1 + s2); past 18 digits the product is FLOAT64, and so
+    is a decimal times an integer whose digits could pass 18 (the JAX
+    package's rules)."""
+
     op = staticmethod(lambda a, b: a * b)
+
+    def data_type(self):
+        lt, rt = self.left.data_type(), self.right.data_type()
+        if not (isinstance(lt, T.DecimalType)
+                or isinstance(rt, T.DecimalType)):
+            return T.common_type(lt, rt)
+        if isinstance(lt, T.DecimalType) and isinstance(rt, T.DecimalType):
+            if lt.scale + rt.scale > 18 \
+                    or lt.precision + rt.precision + 1 > 18:
+                return T.FLOAT64
+            return T.DecimalType(lt.precision + rt.precision + 1,
+                                 lt.scale + rt.scale)
+        dec = lt if isinstance(lt, T.DecimalType) else rt
+        other = rt if dec is lt else lt
+        if other.is_integral:
+            int_prec = {1: 3, 2: 5, 4: 10, 8: 19}.get(
+                other.np_dtype.itemsize, 19)
+            if dec.precision + int_prec > 18:
+                return T.FLOAT64
+            return T.DecimalType(18, dec.scale)
+        return T.FLOAT64
+
+    def eval(self, ctx):
+        out = self.data_type()
+        if not isinstance(out, T.DecimalType):
+            return super().eval(ctx)
+        # the scales add: the unscaled values multiply directly
+        l = self.left.eval(ctx)
+        r = self.right.eval(ctx)
+        return ColumnVector(out, l.data.to(torch.int64)
+                            * r.data.to(torch.int64),
+                            _valid_of(l, ctx) & _valid_of(r, ctx))
+
+    def eval_cpu(self, cols, ansi=False):
+        out = self.data_type()
+        if not isinstance(out, T.DecimalType):
+            return super().eval_cpu(cols, ansi)
+        l = self.left.eval_cpu(cols, ansi)
+        r = self.right.eval_cpu(cols, ansi)
+        with np.errstate(all="ignore"):
+            data = l.values.astype(np.int64) * r.values.astype(np.int64)
+        return CpuCol(out, data, l.valid & r.valid)
 
 
 class Divide(BinaryExpression):
-    """Spark ``/``: double result; division by zero is null (ANSI: error)."""
+    """Spark ``/``: double result (a decimal divides as its value);
+    division by zero is null (ANSI: error)."""
 
     def data_type(self):
         return T.FLOAT64
@@ -517,6 +603,10 @@ class Divide(BinaryExpression):
         r = self.right.eval(ctx)
         ld = l.data.to(torch.float64)
         rd = r.data.to(torch.float64)
+        if isinstance(l.dtype, T.DecimalType):
+            ld = ld / (10.0 ** l.dtype.scale)
+        if isinstance(r.dtype, T.DecimalType):
+            rd = rd / (10.0 ** r.dtype.scale)
         zero = rd == 0.0
         valid = _valid_of(l, ctx) & _valid_of(r, ctx)
         if ctx.ansi:
@@ -530,6 +620,10 @@ class Divide(BinaryExpression):
         r = self.right.eval_cpu(cols, ansi)
         ld = l.values.astype(np.float64)
         rd = r.values.astype(np.float64)
+        if isinstance(l.dtype, T.DecimalType):
+            ld = ld / (10.0 ** l.dtype.scale)
+        if isinstance(r.dtype, T.DecimalType):
+            rd = rd / (10.0 ** r.dtype.scale)
         zero = rd == 0.0
         valid = l.valid & r.valid
         if ansi and bool((zero & valid).any()):
@@ -610,7 +704,8 @@ class Remainder(BinaryExpression):
         out = self.data_type()
         ld, rd = _promote(l, r, out)
         valid = _valid_of(l, ctx) & _valid_of(r, ctx)
-        if out.is_integral:
+        if out.is_integral or isinstance(out, T.DecimalType):
+            # decimals rescale to unscaled int64 lanes: integer arithmetic
             zero = rd == 0
             if ctx.ansi:
                 ctx.add_error("DIVIDE_BY_ZERO", zero & valid)
@@ -628,7 +723,7 @@ class Remainder(BinaryExpression):
         ld, rd = _promote_cpu(l, r, out)
         valid = l.valid & r.valid
         with np.errstate(all="ignore"):
-            if out.is_integral:
+            if out.is_integral or isinstance(out, T.DecimalType):
                 zero = rd == 0
                 if ansi and bool((zero & valid).any()):
                     raise SparkException("[DIVIDE_BY_ZERO] Division by zero")
@@ -1284,11 +1379,13 @@ def _to_int(data: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 class Cast(Expression):
-    """Numeric, bool, date and timestamp casts (Spark non-ANSI semantics:
-    float to int truncates and saturates, NaN becomes 0; integer narrowing
-    wraps; timestamp to date and to integers floors to days and seconds;
-    date and integers to timestamp scale to microseconds, wrapping in
-    int64). The arms run in the JAX package's order. Casts to and from
+    """Numeric, bool, decimal, date and timestamp casts (Spark non-ANSI
+    semantics: float to int truncates and saturates, NaN becomes 0;
+    integer narrowing wraps; a decimal scale-down rounds HALF_UP, a value
+    past the target precision is null; decimal to integer truncates;
+    timestamp to date and to integers floors to days and seconds; date and
+    integers to timestamp scale to microseconds, wrapping in int64). The
+    arms run in the JAX package's order. Casts to and from
     strings run on the CPU (``eval_cpu``; planning tags them there until
     the device arms land, ROADMAP A9)."""
 
@@ -1319,7 +1416,19 @@ class Cast(Expression):
         if isinstance(dst, T.BooleanType):
             return ColumnVector(dst, c.data != 0, valid)
         if isinstance(dst, (T.Float32Type, T.Float64Type)):
+            if isinstance(src, T.DecimalType):
+                # the JAX package's steps: the unscaled value in dst's
+                # type, divided in double
+                data = c.data.to(dst.torch_dtype).to(torch.float64) \
+                    / (10.0 ** src.scale)
+                return ColumnVector(dst, data.to(dst.torch_dtype), valid)
             return ColumnVector(dst, c.data.to(dst.torch_dtype), valid)
+        if isinstance(dst, T.DecimalType):
+            return self._to_decimal(c, dst, ctx, valid)
+        if isinstance(src, T.DecimalType) and dst.is_integral:
+            q = _java_int_div(c.data, torch.full_like(c.data,
+                                                      10 ** src.scale))
+            return ColumnVector(dst, q.to(dst.torch_dtype), valid)
         if isinstance(src, (T.Float32Type, T.Float64Type)) and dst.is_integral:
             lo, hi = _INT_BOUNDS[dst.torch_dtype]
             v = c.data.to(torch.float64)
@@ -1343,6 +1452,35 @@ class Cast(Expression):
             ctx.add_error("CAST_OVERFLOW", ((data < lo) | (data > hi)) & valid)
         return ColumnVector(dst, data.to(dst.torch_dtype), valid)
 
+    @staticmethod
+    def _to_decimal(c, dst, ctx, valid):
+        """To a decimal: rescale (a scale-down rounds HALF_UP), scale an
+        integer up, or round a float's scaled value half to even (XLA's
+        round, like ``torch.round``); a value past the precision is null
+        (ANSI: an error), and so is a NaN, as in Spark (the JAX package
+        gives 0 there)."""
+        src = c.dtype
+        bound = 10 ** min(dst.precision, 18)
+        if isinstance(src, (T.Float32Type, T.Float64Type)):
+            # range-checked before the conversion, whose result for NaN
+            # and out-of-range values differs between devices
+            scaled = torch.round(c.data.to(torch.float64)
+                                 * (10.0 ** dst.scale))
+            overflow = ~(scaled.abs() < bound)
+            data = torch.where(overflow, 0.0, scaled).to(torch.int64)
+        else:
+            if isinstance(src, T.DecimalType):
+                shift = dst.scale - src.scale
+                data = c.data * (10 ** shift) if shift >= 0 \
+                    else _round_half_up_div(c.data, 10 ** (-shift))
+            else:
+                data = c.data.to(torch.int64) * (10 ** dst.scale)
+            overflow = (data <= -bound) | (data >= bound)
+        if ctx.ansi:
+            ctx.add_error("CAST_OVERFLOW", overflow & valid)
+        return ColumnVector(dst, torch.where(overflow, 0, data),
+                            valid & ~overflow)
+
     def eval_cpu(self, cols, ansi=False):
         c = self.children[0].eval_cpu(cols, ansi)
         src, dst = c.dtype, self.to
@@ -1358,8 +1496,34 @@ class Cast(Expression):
             if isinstance(dst, T.BooleanType):
                 return CpuCol(dst, c.values != 0, valid)
             if isinstance(dst, (T.Float32Type, T.Float64Type)):
-                return CpuCol(dst, c.values.astype(np.float64)
-                              .astype(dst.np_dtype), valid)
+                vals = c.values.astype(np.float64)
+                if isinstance(src, T.DecimalType):
+                    vals = vals / (10.0 ** src.scale)
+                return CpuCol(dst, vals.astype(dst.np_dtype), valid)
+            if isinstance(dst, T.DecimalType):
+                if isinstance(src, T.DecimalType):
+                    shift = dst.scale - src.scale
+                    vals = c.values * (10 ** shift) if shift >= 0 \
+                        else _round_half_up_div_np(c.values, 10 ** (-shift))
+                elif src.is_integral:
+                    vals = c.values.astype(np.int64) * (10 ** dst.scale)
+                else:
+                    scaled = np.round(c.values.astype(np.float64)
+                                      * (10.0 ** dst.scale))
+                    big = ~(np.abs(scaled) < 10 ** min(dst.precision, 18))
+                    vals = np.where(big, 0.0, scaled).astype(np.int64)
+                bound = 10 ** min(dst.precision, 18)
+                overflow = (vals <= -bound) | (vals >= bound)
+                if not (isinstance(src, T.DecimalType) or src.is_integral):
+                    overflow = overflow | big
+                if ansi and bool((overflow & valid).any()):
+                    raise SparkException("[CAST_OVERFLOW]")
+                return CpuCol(dst, np.where(overflow, 0, vals),
+                              valid & ~overflow)
+            if isinstance(src, T.DecimalType) and dst.is_integral:
+                q = (np.abs(c.values) // (10 ** src.scale)) \
+                    * np.sign(c.values)
+                return CpuCol(dst, q.astype(dst.np_dtype), valid)
             if isinstance(src, (T.Float32Type, T.Float64Type)) \
                     and dst.is_integral:
                 info = np.iinfo(dst.np_dtype)
@@ -1392,3 +1556,14 @@ class Cast(Expression):
 
 
 _MICROS_PER_DAY = 86_400_000_000
+
+
+def _round_half_up_div(v: torch.Tensor, d: int) -> torch.Tensor:
+    """A decimal scale-down by d, rounding HALF_UP (away from zero at .5),
+    Spark's decimal rounding."""
+    return torch.sign(v) * torch.div(v.abs() + d // 2, d,
+                                      rounding_mode="floor")
+
+
+def _round_half_up_div_np(v: np.ndarray, d: int) -> np.ndarray:
+    return np.sign(v) * ((np.abs(v) + d // 2) // d)

@@ -21,6 +21,7 @@ as in the JAX package), and so do the casts to and from strings
 from __future__ import annotations
 
 import datetime
+import decimal
 import re
 from typing import List
 
@@ -667,6 +668,8 @@ def _render(v, src: T.DataType) -> str:
             microseconds=int(v))).isoformat(sep=" ")
         # Spark trims trailing zeros of the fraction
         return iso.rstrip("0").rstrip(".") if "." in iso else iso
+    if isinstance(src, T.DecimalType):
+        return str(decimal.Decimal(int(v)).scaleb(-src.scale))
     return str(int(v))
 
 
@@ -705,6 +708,9 @@ def cast_string_cpu(c: CpuCol, dst: T.DataType, ansi: bool) -> CpuCol:
         return CpuCol(T.STRING, _object_array(
             [_render(v, c.dtype) if ok else None
              for v, ok in zip(c.values, c.valid)]), c.valid.copy())
+    if isinstance(dst, T.DecimalType):
+        # the JAX package has no string -> decimal cast on either side
+        raise NotImplementedError(f"cast string -> {dst!r}")
     valid = c.valid.copy()
     vals = np.zeros(len(c.values), np.bool_ if isinstance(
         dst, T.BooleanType) else (np.float64 if isinstance(

@@ -339,6 +339,8 @@ def gather_column(col: ColumnVector, indices: torch.Tensor, src_rows,
     else:
         src_valid = col.validity_or_default(src_rows)
     valid = src_valid[safe] & ~oob
+    if col.is_nested:
+        return _gather_list_like(col, safe, valid)
     if col.is_string and not col.is_dict:
         # a byte-plane gather could not repeat rows within the plane's
         # capacity: flat strings gather as codes into their own planes
@@ -350,6 +352,31 @@ def gather_column(col: ColumnVector, indices: torch.Tensor, src_rows,
         return ColumnVector(col.dtype, data, valid,
                             dict_unique=col.dict_unique, bounds=col.bounds)
     return ColumnVector(col.dtype, col.data[safe], valid, bounds=col.bounds)
+
+
+def _gather_list_like(col: ColumnVector, safe: torch.Tensor,
+                      valid: torch.Tensor) -> ColumnVector:
+    """Gather an array column: offsets rebuilt from the gathered rows'
+    lengths (a null row gets an empty slice), then each output element
+    mapped back to its source element and the child gathered. The
+    child's capacity is kept: permuting gathers (sort, filter compaction,
+    limit) never grow the element count, as in the JAX package."""
+    off = col.data["offsets"].to(torch.int64)
+    out_cap = safe.shape[0]
+    lens = torch.where(valid, (off[1:] - off[:-1])[safe], 0)
+    new_off = torch.cat([torch.zeros(1, dtype=torch.int64,
+                                     device=off.device), lens.cumsum(0)])
+    child = col.data["child"]
+    child_cap = child.capacity
+    e = torch.arange(child_cap, dtype=torch.int64, device=off.device)
+    orow = (torch.searchsorted(new_off, e, right=True) - 1).clamp(
+        0, out_cap - 1)
+    src_e = off[safe[orow]] + (e - new_off[orow])
+    child_idx = torch.where(e < new_off[-1], src_e.clamp(0, child_cap - 1),
+                            -1)
+    return ColumnVector(col.dtype, {
+        "offsets": new_off.to(torch.int32),
+        "child": gather_column(child, child_idx, child_cap)}, valid)
 
 
 def flat_string_as_dict(col: ColumnVector) -> ColumnVector:
@@ -522,6 +549,25 @@ def _concat_flat_strings(cols, rows, cap, validity) -> ColumnVector:
                                         "bytes": raw}, validity)
 
 
+def _concat_arrays(cols, rows, cap, validity) -> ColumnVector:
+    """Row-prefix concat of array columns: one host read of each part's
+    element count sizes the child, whose planes concatenate
+    recursively."""
+    device = cols[0].device
+    elem = [int(c.data["offsets"][r].item()) for c, r in zip(cols, rows)]
+    parts, base = [torch.zeros(1, dtype=torch.int64, device=device)], 0
+    for c, r, el in zip(cols, rows, elem):
+        parts.append(c.data["offsets"][1: r + 1].to(torch.int64) + base)
+        base += el
+    offsets = torch.cat(parts)
+    offsets = torch.cat([offsets, offsets[-1:].expand(cap + 1 -
+                                                      offsets.shape[0])])
+    child = _concat_columns([c.data["child"] for c in cols], elem,
+                            round_capacity(max(base, 1)))
+    return ColumnVector(cols[0].dtype, {"offsets": offsets.to(torch.int32),
+                                        "child": child}, validity)
+
+
 def _concat_columns(cols: List[ColumnVector], rows: List[int],
                     cap: int) -> ColumnVector:
     """Row-prefix concat of columns, padded to cap."""
@@ -540,6 +586,8 @@ def _concat_columns(cols: List[ColumnVector], rows: List[int],
     if any(c.validity is not None for c in cols):
         validity = cat([c.validity_or_default(r)[:r]
                         for c, r in zip(cols, rows)], torch.bool)
+    if cols[0].is_nested:
+        return _concat_arrays(cols, rows, cap, validity)
     bounds = _union_bounds(cols)
     shared = all(c.is_dict for c in cols) and all(
         c.data["dict_offsets"] is cols[0].data["dict_offsets"]

@@ -53,7 +53,9 @@ class PackSpec:
         return sum(self.bits)
 
 
-_INT_KINDS = (T.Int8Type, T.Int16Type, T.Int32Type, T.Int64Type, T.DateType)
+#: a decimal packs as its unscaled int64 value
+_INT_KINDS = (T.Int8Type, T.Int16Type, T.Int32Type, T.Int64Type, T.DateType,
+              T.DecimalType)
 
 
 def packable_dtype(c: ColumnVector) -> Optional[str]:

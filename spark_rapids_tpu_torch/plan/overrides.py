@@ -25,7 +25,9 @@ and filters (a filter that reads the partition context, such as
 ``sample``'s ``rand``, over its input collected into one partition), hash
 and round-robin repartition, the hash aggregate with its tiny-bucket,
 packed (scatter, segsum, sort) and sort routes (segmented aggregates such
-as percentile take a hash exchange of raw rows by key first), sort (a
+as percentile take a hash exchange of raw rows by key first; others over
+several partitions collect and aggregate once, or run partial -> collect
+-> final when the input's estimate is above 64M rows or unknown), sort (a
 range exchange first over several partitions), limit and TopN, window
 functions (a hash exchange on the partition keys, or a collect when there
 are none, below ``WindowExec``), equi-joins of every type, broadcast or
@@ -56,7 +58,9 @@ PORT_TAG_DIFFERENCES = """Where the port's tags differ from the JAX package's.
 Tags only the port has; their device arms wait for ROADMAP A9, and their
 reasons name it:
 - a LIKE pattern that needs the NFA (``_like_check``) runs on the CPU;
-- a cast to or from a string (``_cast_check``) runs on the CPU.
+- a cast to or from a string (``_cast_check``) runs on the CPU. A cast
+  between a decimal and a string runs on the CPU in both packages; only
+  the reason differs (the JAX package's says the device lacks it).
 
 A tag of the JAX package the port drops: a filter that reads the
 partition context (``sample``'s ``rand``, ``spark_partition_id()``) stays
@@ -202,8 +206,19 @@ def _no_string_input(fn) -> Optional[str]:
     return None
 
 
+def _primitive_input_only(what: str):
+    def check(fn) -> Optional[str]:
+        if any(isinstance(c.data_type(), T.ArrayType) for c in fn.children):
+            return f"{what} over nested inputs runs on CPU"
+        return None
+    return check
+
+
 def _minmax_by_check(what: str):
     def check(fn) -> Optional[str]:
+        r = _primitive_input_only(what)(fn)
+        if r:
+            return r
         # the device's ordering key for strings is an equality hash, not
         # order-faithful
         if isinstance(fn.children[1].data_type(), T.StringType):
@@ -226,6 +241,10 @@ agg_rule(A.VarianceSamp, _NUM, "var_samp")
 agg_rule(A.VariancePop, _NUM, "var_pop")
 agg_rule(A.MinBy, Sigs.COMMON, "min_by", extra=_minmax_by_check("min_by"))
 agg_rule(A.MaxBy, Sigs.COMMON, "max_by", extra=_minmax_by_check("max_by"))
+agg_rule(A.CollectList, Sigs.COMMON, "collect_list",
+         extra=_primitive_input_only("collect_list"))
+agg_rule(A.CollectSet, Sigs.COMMON, "collect_set",
+         extra=_primitive_input_only("collect_set"))
 agg_rule(A.Percentile, _NUM, "percentile (exact)")
 agg_rule(A.ApproxPercentile, _NUM,
          "approx_percentile (computed exactly on this engine)")
@@ -291,6 +310,13 @@ def tag_agg(fn: A.AggFunction, conf, reasons: List[str], where: str) -> None:
                     f"different order than CPU Spark (ULP-level diffs) — "
                     f"disabled by spark.rapids.sql.improvedFloatOps."
                     f"enabled=false")
+    if isinstance(fn, A.CollectSet) and not conf.get(C.INCOMPAT_ENABLED):
+        for ch in fn.children:
+            if isinstance(ch.data_type(), T.StringType):
+                reasons.append(
+                    f"{where}: collect_set over strings dedups by 64-bit "
+                    f"double-hash on device — disabled by spark.rapids."
+                    f"sql.incompatibleOps.enabled=false")
     if rule.extra is not None:
         r = rule.extra(fn)
         if r:
@@ -329,9 +355,18 @@ class SparkPlanMeta:
         self._tag_schema()
         self._tag_node()
 
+    #: nodes whose output may hold array columns (the JAX package's list,
+    #: for the port's nodes)
+    NESTED_SCHEMA_NODES = (P.Project, P.Filter, P.InMemorySource,
+                           P.ParquetScan, P.Limit, P.Union, P.Sort,
+                           P.CachedRelation, P.Aggregate)
+
     def _tag_schema(self) -> None:
+        sig = Sigs.COMMON.nested() \
+            if isinstance(self.plan, self.NESTED_SCHEMA_NODES) \
+            else Sigs.COMMON
         for f in self.plan.schema.fields:
-            r = Sigs.COMMON.reason_not_supported(f.dtype)
+            r = sig.reason_not_supported(f.dtype)
             if r:
                 self.reasons.append(f"output column {f.name}: {r}")
 
@@ -636,15 +671,29 @@ def _convert_join(plan, children, conf, device):
     return X.BroadcastHashJoinExec(plan, [left, right], conf, device)
 
 
+#: the JAX package's single-device threshold
+#: (``spark_rapids_tpu/plan/overrides.py:1080-1092``): a multi-partition
+#: input estimated at most this many rows is collected and aggregated once;
+#: a larger or unknown one runs partial -> collect -> final
+COLLECT_COMPLETE_MAX_ROWS = 64_000_000
+
+
 def _convert_aggregate(plan, child, conf, device):
+    """The JAX package's single-device aggregate plan. The port holds one
+    device per session, so the JAX package's multi-device branch
+    (partial -> hash exchange -> final, ROADMAP A12) and its measured
+    collapse from the observation history (``_measured_collapse``, A11)
+    have no counterpart here."""
     pre_filter = None
     if isinstance(child, X.FilterExec) \
             and not E.needs_partition_context(child.plan.condition):
         # the filter folds into the aggregate's update as a live mask
         pre_filter = child.plan.condition
         child = child.children[0]
-    if child.num_partitions > 1 and any(
-            getattr(a.fn, "no_partial", False) for a in plan.aggs):
+    if child.num_partitions == 1:
+        return X.HashAggregateExec(plan, [child], conf, device,
+                                   pre_filter=pre_filter)
+    if any(getattr(a.fn, "no_partial", False) for a in plan.aggs):
         # segmented aggregates have no mergeable state: raw rows meet by
         # group key (a hash exchange, or a collect without keys), then
         # each partition aggregates completely
@@ -654,14 +703,22 @@ def _convert_aggregate(plan, child, conf, device):
                                           child.num_partitions)
         else:
             child = X.CollectExchangeExec(plan, [child], conf, device)
-    elif child.num_partitions > 1:
-        # one device holds every partition: collect them and aggregate
-        # once, completely (the JAX package's single-device plan)
+        return X.HashAggregateExec(plan, [child], conf, device,
+                                   pre_filter=pre_filter)
+    est = plan.children[0].estimated_rows()
+    if est is not None and est <= COLLECT_COMPLETE_MAX_ROWS:
+        # every partition lives on the one device and the raw input fits:
+        # collect it and aggregate once, completely
         child = X.CoalesceBatchesExec(
             plan, [X.CollectExchangeExec(plan, [child], conf, device)],
             conf, device)
-    return X.HashAggregateExec(plan, [child], conf, device,
-                               pre_filter=pre_filter)
+        return X.HashAggregateExec(plan, [child], conf, device,
+                                   pre_filter=pre_filter)
+    partial = X.HashAggregateExec(plan, [child], conf, device,
+                                  mode="partial", pre_filter=pre_filter)
+    return X.HashAggregateExec(
+        plan, [X.CollectExchangeExec(plan, [partial], conf, device)], conf,
+        device, mode="final")
 
 
 # ---------------------------------------------------------------------------

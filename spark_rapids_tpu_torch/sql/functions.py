@@ -3,7 +3,8 @@
 ``avg``, ``min``, ``max``, ``first``, ``last``, ``stddev`` (``stddev_samp``),
 ``stddev_pop``, ``variance`` (``var_samp``), ``var_pop``, ``min_by``,
 ``max_by``, ``percentile`` and ``approx_percentile``
-(``percentile_approx``), and the grouping markers ``grouping`` and
+(``percentile_approx``), ``collect_list`` and ``collect_set`` (array
+results), and the grouping markers ``grouping`` and
 ``grouping_id``; the scalar functions ``when``/``otherwise``,
 ``coalesce``, ``nvl``, ``nullif``, ``isnull``, ``isnan``, ``abs``,
 ``greatest``, ``least``, ``bitwise_not``, ``shiftleft``, ``shiftright``,
@@ -71,13 +72,11 @@ def last(c):
 
 
 def collect_list(c):
-    raise NotImplementedError("collect_list returns an ArrayType, and the "
-                              "port has no nested types yet (ROADMAP A3b)")
+    return A.CollectList(_e(c))
 
 
 def collect_set(c):
-    raise NotImplementedError("collect_set returns an ArrayType, and the "
-                              "port has no nested types yet (ROADMAP A3b)")
+    return A.CollectSet(_e(c))
 
 
 def min_by(c, ord_c):

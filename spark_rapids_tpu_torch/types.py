@@ -2,8 +2,10 @@
 
 Counterpart of ``spark_rapids_tpu/types.py``, cut to the types this engine
 carries on the card: bool, int8/16/32/64, float32/64, date (int32 days
-since the epoch), timestamp (int64 microseconds since the epoch, UTC)
-and UTF-8 strings (offsets + bytes, or dictionary codes + vocabulary).
+since the epoch), timestamp (int64 microseconds since the epoch, UTC),
+DECIMAL64 (unscaled int64 values, precision at most 18), UTF-8 strings
+(offsets + bytes, or dictionary codes + vocabulary) and arrays of those
+(int32 offsets + a child column). Structs and maps wait for ROADMAP A9.
 The class names, singletons and ``common_type`` widening rules are the
 same as the JAX package's, so plans and results line up, and so are the
 type signatures that plan tagging checks (``TypeSig``, ``Sigs``).
@@ -36,7 +38,7 @@ class DataType:
 
     @property
     def is_numeric(self) -> bool:
-        return isinstance(self, (IntegralType, FractionalType))
+        return isinstance(self, (IntegralType, FractionalType, DecimalType))
 
     @property
     def is_integral(self) -> bool:
@@ -98,9 +100,40 @@ class TimestampType(DataType):
     torch_dtype = torch.int64
 
 
+@dataclasses.dataclass(frozen=True, eq=True)
+class DecimalType(DataType):
+    """A decimal as its unscaled value in an int64 plane (DECIMAL64):
+    precision at most MAX_INT64_PRECISION digits. Arithmetic rescales
+    explicitly in the expressions, as in the JAX package."""
+    precision: int = 10
+    scale: int = 0
+
+    np_dtype = np.dtype(np.int64)
+    torch_dtype = torch.int64
+    MAX_INT64_PRECISION = 18
+
+    def __repr__(self) -> str:
+        return f"decimal({self.precision},{self.scale})"
+
+
 class StringType(DataType):
     """UTF-8 strings: int32 offsets + uint8 bytes, or dictionary-encoded
     as int32 codes into a small vocabulary (the default upload layout)."""
+
+
+@dataclasses.dataclass(frozen=True, eq=True)
+class ArrayType(DataType):
+    """An array column: int32 offsets (capacity + 1) and a child column
+    holding every row's elements back to back."""
+    element: DataType = dataclasses.field(default_factory=Int32Type)
+    contains_null: bool = True
+
+    def __repr__(self) -> str:
+        return f"array<{self.element!r}>"
+
+
+#: the nested types that wait for ROADMAP A9 (``complex.py``)
+_A9_NESTED = "struct and map columns wait for ROADMAP A9 (complex.py)"
 
 
 BOOLEAN = BooleanType()
@@ -143,9 +176,23 @@ _NUMERIC_ORDER = [INT8, INT16, INT32, INT64, FLOAT32, FLOAT64]
 
 def common_type(a: DataType, b: DataType) -> DataType:
     """Numeric widening for binary expressions (the same rules as the JAX
-    package's ``types.common_type`` for the types carried here)."""
+    package's ``types.common_type`` for the types carried here). Two
+    decimals meet at the larger scale and integer digits, capped at 18
+    digits; a decimal and an integer take the decimal; a decimal and a
+    float take FLOAT64."""
     if a == b:
         return a
+    if isinstance(a, DecimalType) and isinstance(b, DecimalType):
+        scale = max(a.scale, b.scale)
+        precision = min(max(a.precision - a.scale, b.precision - b.scale)
+                        + scale, DecimalType.MAX_INT64_PRECISION)
+        return DecimalType(precision, scale)
+    if isinstance(a, DecimalType) and b.is_integral:
+        return a
+    if isinstance(b, DecimalType) and a.is_integral:
+        return b
+    if isinstance(a, DecimalType) or isinstance(b, DecimalType):
+        return FLOAT64
     if a in _NUMERIC_ORDER and b in _NUMERIC_ORDER:
         return _NUMERIC_ORDER[max(_NUMERIC_ORDER.index(a),
                                   _NUMERIC_ORDER.index(b))]
@@ -179,11 +226,25 @@ def from_arrow(at) -> DataType:
         return DATE
     if pa.types.is_timestamp(at):
         return TIMESTAMP
+    if pa.types.is_decimal(at):
+        if at.precision > DecimalType.MAX_INT64_PRECISION:
+            raise NotImplementedError(
+                f"{at}: decimals carry at most "
+                f"{DecimalType.MAX_INT64_PRECISION} digits (DECIMAL64)")
+        return DecimalType(at.precision, at.scale)
+    if pa.types.is_list(at) or pa.types.is_large_list(at):
+        return ArrayType(from_arrow(at.value_type))
+    if pa.types.is_struct(at) or pa.types.is_map(at):
+        raise NotImplementedError(f"arrow type {at}: {_A9_NESTED}")
     raise NotImplementedError(f"arrow type {at} is not supported yet")
 
 
 def to_arrow(dtype: DataType):
     import pyarrow as pa
+    if isinstance(dtype, DecimalType):
+        return pa.decimal128(dtype.precision, dtype.scale)
+    if isinstance(dtype, ArrayType):
+        return pa.list_(to_arrow(dtype.element))
     return {
         BOOLEAN: pa.bool_(), INT8: pa.int8(), INT16: pa.int16(),
         INT32: pa.int32(), INT64: pa.int64(), FLOAT32: pa.float32(),
@@ -195,10 +256,8 @@ def to_arrow(dtype: DataType):
 # ---------------------------------------------------------------------------
 # TypeSig: set algebra over supported types (the JAX package's
 # ``types.TypeSig``, after the reference's TypeChecks.scala). The tags of
-# the types the port does not carry yet ("NULL", "DECIMAL64", the nested
-# ones) stay in the signatures, so those types can be added without
-# rewriting them; no port type maps to them yet, and the element types of
-# nested columns are checked once the port has them.
+# the types the port does not carry yet ("NULL", "STRUCT", "MAP") stay in
+# the signatures, so those types can be added without rewriting them.
 # ---------------------------------------------------------------------------
 
 _BASE_ORDER = [
@@ -209,8 +268,9 @@ _BASE_ORDER = [
 
 _TAGS = {BooleanType: "BOOLEAN", Int8Type: "INT8", Int16Type: "INT16",
          Int32Type: "INT32", Int64Type: "INT64", Float32Type: "FLOAT32",
-         Float64Type: "FLOAT64", StringType: "STRING", DateType: "DATE",
-         TimestampType: "TIMESTAMP"}
+         Float64Type: "FLOAT64", DecimalType: "DECIMAL64",
+         StringType: "STRING", DateType: "DATE", TimestampType: "TIMESTAMP",
+         ArrayType: "ARRAY"}
 
 
 def _tag_of(dtype: DataType) -> str:
@@ -221,20 +281,32 @@ def _tag_of(dtype: DataType) -> str:
 
 
 class TypeSig:
-    """An immutable set of type tags."""
+    """An immutable set of type tags, and the set allowed inside an array
+    (``nested_sig``; none unless ``nested()`` made the signature)."""
 
-    def __init__(self, tags=()):
+    def __init__(self, tags=(), nested: Optional["TypeSig"] = None):
         self.tags = frozenset(tags)
+        self.nested_sig = nested
 
     def __add__(self, other: "TypeSig") -> "TypeSig":
-        return TypeSig(self.tags | other.tags)
+        nested = self.nested_sig or other.nested_sig
+        if self.nested_sig and other.nested_sig:
+            nested = self.nested_sig + other.nested_sig
+        return TypeSig(self.tags | other.tags, nested)
 
     def nested(self) -> "TypeSig":
         """The same set, allowed inside arrays, structs and maps too."""
-        return TypeSig(self.tags | {"ARRAY", "STRUCT", "MAP"})
+        return TypeSig(self.tags | {"ARRAY", "STRUCT", "MAP"}, nested=self)
+
+    def supports(self, dtype: DataType) -> bool:
+        if _tag_of(dtype) not in self.tags:
+            return False
+        if isinstance(dtype, ArrayType):
+            return (self.nested_sig or TypeSig()).supports(dtype.element)
+        return True
 
     def reason_not_supported(self, dtype: DataType) -> Optional[str]:
-        if _tag_of(dtype) in self.tags:
+        if self.supports(dtype):
             return None
         return f"{dtype!r} is not supported"
 

@@ -3,7 +3,8 @@
 The table generators (bench.py's lineitem and orders, the customers, the
 flag dimension, the price bands, lineitem_text) and the query shapes of
 the port's slices (bench.py's shapes, the strings, joins and sorts,
-windows, expressions and aggregates, and sets and grouping sets) are
+windows, expressions and aggregates, sets and grouping sets, and the
+aggregate types: decimals and collected arrays) are
 written once against a package namespace, so the same program runs
 through ``spark_rapids_tpu`` (the reference) and
 ``spark_rapids_tpu_torch``; ``chip_smoke.py`` runs the same generators
@@ -755,3 +756,102 @@ def splitmix_rand(n: int, seed: int, partition: int = 0) -> np.ndarray:
         x = (x ^ (x >> M(27))) * M(0x94D049BB133111EB)
     x = x ^ (x >> M(31))
     return (x >> M(11)).astype(np.float64) / float(1 << 53)
+
+
+# ---------------------------------------------------------------------------
+# The aggregate types: partial -> collect -> final, decimals, arrays
+# ---------------------------------------------------------------------------
+
+#: the lineitem's money and quantity columns, as TPC-H declares them
+DEC_COLS = ("l_quantity", "l_extendedprice", "l_discount")
+DEC_TYPE = (15, 2)
+
+
+def decimal_array(unscaled: np.ndarray, precision: int, scale: int,
+                  mask=None) -> pa.Array:
+    """int64 unscaled values as an Arrow decimal128 array, from buffers
+    (each high word the low word's sign extension)."""
+    vals = np.ascontiguousarray(unscaled, dtype=np.int64)
+    words = np.empty(2 * len(vals), np.int64)
+    words[0::2] = vals
+    words[1::2] = vals >> 63
+    bitmap = None if mask is None else pa.py_buffer(
+        np.packbits(~np.asarray(mask, np.bool_), bitorder="little"))
+    return pa.Array.from_buffers(pa.decimal128(precision, scale), len(vals),
+                                 [bitmap, pa.py_buffer(words)])
+
+
+def lineitem_dec(lineitem: pa.Table) -> pa.Table:
+    """The lineitem with DEC_COLS as decimal(15, 2): the values already
+    have two decimals (``_draw_lineitem``), so the conversion is exact."""
+    cols = {}
+    for name in lineitem.column_names:
+        c = lineitem[name]
+        if name in DEC_COLS:
+            x = np.concatenate([ch.to_numpy() for ch in c.chunks])
+            c = decimal_array(np.round(x * 100).astype(np.int64), *DEC_TYPE)
+        cols[name] = c
+    return pa.table(cols)
+
+
+def _dec(v: str):
+    import decimal
+    return decimal.Decimal(v)
+
+
+def q6_dec(api, df):
+    """q6 over lineitem_dec, with decimal literals: the revenue product of
+    two decimal(15, 2) passes 18 digits, so it is FLOAT64."""
+    col, lit, F = api.col, api.lit, api.F
+    cond = ((col("l_shipdate") >= lit(LO)) & (col("l_shipdate") < lit(HI))
+            & (col("l_discount") >= lit(_dec("0.05")))
+            & (col("l_discount") <= lit(_dec("0.07")))
+            & (col("l_quantity") < lit(_dec("24"))))
+    return df.filter(cond).agg(
+        F.sum(col("l_extendedprice") * col("l_discount")).alias("revenue"))
+
+
+def q1_dec(api, df):
+    """q1 over lineitem_dec: decimal sums (exact), averages (FLOAT64), the
+    discounted price as a FLOAT64 product, and the decimal minimum."""
+    col, lit, F = api.col, api.lit, api.F
+    return (df.filter(col("l_shipdate") <= lit(10471))
+            .group_by("l_returnflag", "l_linestatus")
+            .agg(F.sum(col("l_quantity")).alias("sq"),
+                 F.sum(col("l_extendedprice")).alias("sp"),
+                 F.sum(col("l_extendedprice")
+                       * (lit(1) - col("l_discount"))).alias("sdp"),
+                 F.avg(col("l_quantity")).alias("mq"),
+                 F.avg(col("l_discount")).alias("md"),
+                 F.count(col("l_quantity")).alias("cnt"),
+                 F.min(col("l_discount")).alias("mind"),
+                 F.max(col("l_extendedprice")).alias("maxp")))
+
+
+def disc_groups(api, df):
+    """A group-by on the decimal key l_discount: the line count, the
+    decimal quantity sum and the average price per discount."""
+    col, F = api.col, api.F
+    return df.group_by("l_discount").agg(
+        F.count().alias("n"), F.sum(col("l_quantity")).alias("sq"),
+        F.avg(col("l_extendedprice")).alias("mp"))
+
+
+def order_lines(api, df):
+    """Per order (the key as an int: order keys are below 2^31), the ship
+    dates of its lines in input order and the distinct return flags:
+    collect_* has no partial state, so several partitions exchange raw
+    rows by the key first."""
+    col, F = api.col, api.F
+    return df.group_by(col("l_orderkey").cast(api.T.INT32).alias(
+        "l_orderkey")).agg(F.collect_list(col("l_shipdate")).alias("ships"),
+                           F.collect_set(col("l_returnflag")).alias("flags"))
+
+
+def q72shfl_x3(api, df):
+    """q72shfl's grouping over the lineitem three times (UNION ALL): the
+    estimate, three times the lineitem's, passes the single-device limit
+    of 64M rows at bench.py's 30M, so the aggregate runs partial per
+    partition -> collect -> final."""
+    return q72shfl(api, df.union(df).union(df))
+
