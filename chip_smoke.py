@@ -93,7 +93,7 @@ Phases, one JSON line each:
    operators and window route; the routes the JAX package takes on the
    same caches are asserted, and murmur3 and segsum must have run in
    win_shuffled.
-10. exprs (after the window phase, on the joins phase's caches): q14_case
+10. exprs (after the sql phase, on the joins phase's caches): q14_case
    (Q14's CASE inside SUM by ship date: the chunked segsum route),
    q1_stats (moments, first/last, abs: the tiny-bucket route),
    stats_by_order (moments per 17-bit order-key bucket: the scatter
@@ -123,8 +123,9 @@ Phases, one JSON line each:
    counts asserted exactly.
 12. fallback (after the strings phase): one operator on the CPU, the
    rest on the card. fb_strmax over the strings phase's cached
-   lineitem_text (a filter to quantity 1 and upper(l_comment) on the
-   card, B4; min/max of it and a count per flag pair on the CPU) and
+   lineitem_text (a filter to quantity 1 on the card; upper(l_comment),
+   folded into the aggregate by column pruning, its min/max and a count
+   per flag pair on the CPU) and
    fb_moving_min over the joins phase's cached lineitem (repart_agg's
    daily sums on the card, B1 and B2; their 7-row moving minimum on the
    CPU; the ratio to it on the card), each cold then twice warm and
@@ -146,12 +147,29 @@ Phases, one JSON line each:
    group, with each aggregate's mode, the exchanges, the routes and the
    launches (B2 x 12 in q72shfl_x3, B1 x 8 in order_lines) asserted
    exactly.
+14. sql (after the window phase, on the joins phase's lineitem and
+   orders caches and the window phase's 10M-row slice, registered as temp
+   views, and on the Parquet file with orders written beside it):
+   sql_q6, sql_q1, sql_q72shfl, sql_q3join and sql_q67win (the DataFrame
+   queries of those names as SQL strings), sql_in_exists (IN (SELECT ...)
+   and NOT EXISTS, lowered to left semi and anti joins, over the
+   8-partition caches: shuffled, B1), sql_scalar_sub (an uncorrelated
+   scalar subquery, run while the query is parsed), sql_rollup_cte (WITH,
+   GROUP BY ROLLUP of the flags, UNION ALL), sql_math (round, floor, sqrt
+   and pmod summed per return flag), and catalyst_q6 and catalyst_q3
+   (tests/golden_plans/q6_filter_agg.json and q3_join_agg_topn.json made
+   to read bench.py's columns, through plan/catalyst.py: B3 decodes the
+   scans), each held to the earlier paths' answers or to numpy's. Each
+   prints its parse time (session.sql or ingest_catalyst), cold and warm
+   times, peak memory, operators, routes and launches, and whether they
+   equal those of the DataFrame query of the same name (run once before
+   it), with the DataFrame query's beside them where they do not.
 Every query path runs in test mode (spark.rapids.sql.test.enabled): an
 operator that planning tags off the card fails the query, except the one
 node each fallback query names in spark.rapids.sql.test.allowedNonTpu.
 It then prints the kernel table ({"kernels": [...]}, with each kernel's
 launches per path in "launches_by_path": cached, parquet, strings, joins,
-window, exprs, sets, aggtypes, fallback), the card's name and power
+window, sql, exprs, sets, aggtypes, fallback), the card's name and power
 limit, and as its last line {"ok": true, "device": {...}}. Any failure
 exits non-zero without that line; so does a machine without CUDA, and so
 does a run that imported the JAX package. The lineitem generators and
@@ -163,13 +181,14 @@ segsum shapes, through the checkout's kernel and a build of each other
 segsum source (the same C interface), each held exactly against the plain
 version and timed by the profiler in turns (other, this, this, other).
 CHIP_SMOKE_PROFILE=1 adds a torch.profiler pass over each query of the
-nine query paths, with each port kernel's launches, device time and
+ten query paths, with each port kernel's launches, device time and
 bounds at the shapes the query gave it, and ranks the kernels by device
 time above bound over those runs (CHIP_SMOKE_TRACE_DIR=dir also writes
 the queries' Chrome traces).
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import shutil
@@ -1610,7 +1629,7 @@ def phase_joins(table, orders, spy, prof=None):
     if counts["segsum"] <= 0:
         raise AssertionError(f"the segsum kernel did not run on the joins "
                              f"path: {counts}")
-    return counts, h1, h8
+    return counts, h1, h8, want
 
 
 # ---------------------------------------------------------------------------
@@ -1908,6 +1927,427 @@ def phase_window(table, spy, prof=None):
     wspy.restore()
     if problems:
         raise AssertionError("; ".join(problems))
+    return counts, w1, want
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the SQL front door and Catalyst plans
+# ---------------------------------------------------------------------------
+
+SQL_Q6 = ("SELECT SUM(l_extendedprice * l_discount) AS revenue "
+          "FROM lineitem WHERE l_shipdate >= {lo} AND l_shipdate < {hi} "
+          "AND l_discount >= 0.05 AND l_discount <= 0.07 "
+          "AND l_quantity < 24.0")
+SQL_Q1 = ("SELECT l_returnflag, l_linestatus, SUM(l_quantity) AS sq, "
+          "SUM(l_extendedprice) AS sp, AVG(l_quantity) AS mq, "
+          "AVG(l_discount) AS md, COUNT(l_quantity) AS cnt, "
+          "MIN(l_discount) AS mind, MAX(l_shipdate) AS maxs FROM lineitem "
+          "WHERE l_shipdate <= 10471 GROUP BY l_returnflag, l_linestatus")
+SQL_Q72SHFL = ("SELECT COUNT(k) AS n, SUM(s) AS ts, SUM(c) AS tc FROM ("
+               "SELECT k, SUM(l_quantity) AS s, COUNT(l_quantity) AS c "
+               "FROM (SELECT l_orderkey % 100000 AS k, l_quantity "
+               "FROM lineitem) p GROUP BY k) g")
+SQL_Q3JOIN = ("SELECT l_orderkey, SUM(l_extendedprice * (1.0 - l_discount)) "
+              "AS rev FROM lineitem JOIN orders ON l_orderkey = o_orderkey "
+              "WHERE l_shipdate > 9100 AND o_orderdate < 9500 "
+              "GROUP BY l_orderkey ORDER BY rev DESC, l_orderkey ASC "
+              "LIMIT 10")
+SQL_Q67WIN = ("SELECT l_returnflag, l_linestatus, MAX(rk) AS mx FROM ("
+              "SELECT l_returnflag, l_linestatus, rank() OVER (PARTITION BY "
+              "l_returnflag, l_linestatus ORDER BY l_shipdate) AS rk "
+              "FROM lineitem) r GROUP BY l_returnflag, l_linestatus")
+SQL_IN = ("SELECT COUNT(*) AS n, SUM(o_custkey) AS cs FROM orders "
+          "WHERE o_orderdate >= 9000 AND o_orderdate < 9400 AND o_orderkey "
+          "IN (SELECT l_orderkey FROM lineitem WHERE l_shipdate > 9100)")
+SQL_NOT_EXISTS = ("SELECT COUNT(*) AS n, SUM(o_custkey) AS cs FROM orders "
+                  "WHERE o_orderdate >= 9000 AND o_orderdate < 9400 AND NOT "
+                  "EXISTS (SELECT * FROM lineitem WHERE l_orderkey = "
+                  "o_orderkey AND l_shipdate > 9100)")
+SQL_SCALAR_SUB = ("SELECT COUNT(*) AS n, SUM(l_extendedprice) AS s "
+                  "FROM lineitem WHERE l_extendedprice > "
+                  "(SELECT AVG(l_extendedprice) FROM lineitem)")
+SQL_ROLLUP_CTE = (
+    "WITH recent AS (SELECT l_returnflag, l_linestatus, l_quantity, "
+    "l_extendedprice FROM lineitem WHERE l_shipdate > 10000) "
+    "SELECT l_returnflag, l_linestatus, SUM(l_quantity) AS q, "
+    "COUNT(*) AS n FROM recent GROUP BY ROLLUP(l_returnflag, l_linestatus) "
+    "UNION ALL SELECT l_returnflag, l_linestatus, SUM(l_quantity) AS q, "
+    "COUNT(*) AS n FROM recent WHERE l_extendedprice > 100000.0 "
+    "GROUP BY l_returnflag, l_linestatus")
+SQL_MATH = ("SELECT l_returnflag, SUM(round(l_extendedprice * l_discount, "
+            "2)) AS r, SUM(floor(l_quantity / 7.0)) AS f, "
+            "SUM(sqrt(l_extendedprice)) AS s, SUM(pmod(l_orderkey, 97)) AS p, "
+            "COUNT(*) AS n FROM lineitem GROUP BY l_returnflag")
+#: the Catalyst templates: golden file, column renames to bench.py's,
+#: literal values replaced, the columns each scan reads (a Spark plan's
+#: scan outputs only the columns its query reads)
+CATALYST = {
+    "catalyst_q6": ("q6_filter_agg", {}, {"100": str(LO)},
+                    {"l_shipdate", "l_quantity", "l_extendedprice",
+                     "l_discount"}),
+    "catalyst_q3": ("q3_join_agg_topn", {"o_prio": "o_custkey"},
+                    {"50": "9100", "150": "9500"},
+                    {"l_orderkey", "l_extendedprice", "l_shipdate",
+                     "o_orderkey", "o_orderdate"}),
+}
+
+
+def catalyst_plan(name, data_dir) -> str:
+    """A golden Catalyst plan of tests/golden_plans/ made to read bench.py's
+    lineitem and orders under data_dir: columns renamed, literals moved to
+    bench.py's days, each scan's output cut to the columns it reads."""
+    golden, renames, literals, keep = CATALYST[name]
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "golden_plans", golden + ".json")
+    with open(path) as f:
+        doc = json.loads(f.read().replace("$DATA", data_dir))
+
+    def fix(v):
+        if isinstance(v, list):
+            return [fix(x) for x in v]
+        if not isinstance(v, dict):
+            return v
+        v = {k: fix(x) for k, x in v.items()}
+        cls = str(v.get("class", ""))
+        if cls.endswith(".AttributeReference"):
+            v["name"] = renames.get(v["name"], v["name"])
+        if cls.endswith(".Literal") and v.get("value") in literals:
+            v["value"] = literals[v["value"]]
+        if cls.endswith(".FileSourceScanExec"):
+            v["output"] = [a for a in v["output"] if a[0]["name"] in keep]
+        return v
+    return json.dumps(fix(doc))
+
+
+def _flags_first(row):
+    """A rollup row's sort key: the flags (a null after every flag), then
+    the values."""
+    return tuple("~" if v is None else v for v in row[:2]) + tuple(row[2:])
+
+
+def sql_reference(t, orders, want, jwant, wwant):
+    """The answers each SQL query and Catalyst plan is held to: the cached
+    path's, the joins path's and the window path's for the shapes they
+    share, numpy's for the four new ones and the two Catalyst plans."""
+    import pyarrow.compute as pc
+    ok = t["l_orderkey"].to_numpy()
+    qty = t["l_quantity"].to_numpy()
+    price = t["l_extendedprice"].to_numpy()
+    disc = t["l_discount"].to_numpy()
+    ship = t["l_shipdate"].to_numpy()
+    rf = pc.dictionary_encode(t["l_returnflag"]).combine_chunks()
+    ls = pc.dictionary_encode(t["l_linestatus"]).combine_chunks()
+    rfc, rfn = rf.indices.to_numpy(), rf.dictionary.to_pylist()
+    lsc, lsn = ls.indices.to_numpy(), ls.dictionary.to_pylist()
+    out = {"sql_q6": want["q6"], "sql_q1": want["q1"],
+           "sql_q72shfl": want["q72shfl"], "sql_q3join": jwant["q3join"],
+           "sql_q67win": wwant["q67win"], "sql_in_exists": jwant[
+               "q4_semi_anti"]}
+    avg = price.mean()
+    above = price > avg
+    out["sql_scalar_sub"] = (int(above.sum()), float(price[above].sum()))
+
+    def groups(mask, keys):
+        """(rf, ls) keyed (count, quantity sum) of the masked rows, over
+        keys 0 (both flags), 1 (rf only) or 2 (neither)."""
+        g = rfc[mask].astype(np.int64) * len(lsn) + lsc[mask]
+        n = np.bincount(g, minlength=len(rfn) * len(lsn))
+        q = np.bincount(g, weights=qty[mask], minlength=len(n))
+        rows = []
+        for j in np.nonzero(n)[0]:
+            rows.append(((rfn[j // len(lsn)], lsn[j % len(lsn)]),
+                         float(q[j]), int(n[j])))
+        if keys == 0:
+            return rows
+        agg = {}
+        for (a, b), qq, nn in rows:
+            k = (a, None) if keys == 1 else (None, None)
+            s = agg.setdefault(k, [0.0, 0])
+            s[0] += qq
+            s[1] += nn
+        return [(k, v[0], v[1]) for k, v in agg.items()]
+    recent = ship > 10000
+    rows = (groups(recent, 0) + groups(recent, 1) + groups(recent, 2)
+            + groups(recent & (price > 100000.0), 0))
+    out["sql_rollup_cte"] = sorted(((a, b, q, n) for (a, b), q, n in rows),
+                                   key=_flags_first)
+    x = price * disc * 100.0
+    r = np.sign(x) * np.floor(np.abs(x) + 0.5) * (10.0 ** -2)
+    m = {}
+    for j, name in enumerate(rfn):
+        sel = rfc == j
+        m[name] = (float(r[sel].sum()),
+                   int(np.floor(qty[sel] / 7.0).astype(np.int64).sum()),
+                   float(np.sqrt(price[sel]).sum()),
+                   int((ok[sel] % 97).sum()), int(sel.sum()))
+    out["sql_math"] = m
+    sel = (ship >= LO) & (qty < 24.0)
+    out["catalyst_q6"] = float((price[sel] * disc[sel]).sum())
+    od_ok = orders["o_orderdate"].to_numpy() < 9500
+    keep = (ship > 9100) & od_ok[ok]
+    rev = np.bincount(ok[keep], weights=price[keep],
+                      minlength=orders.num_rows)
+    hit = np.nonzero(np.bincount(ok[keep], minlength=orders.num_rows))[0]
+    top = hit[np.lexsort((hit, -rev[hit]))[:10]]
+    out["catalyst_q3"] = {int(k): float(rev[k]) for k in top}
+    return out
+
+
+def validate_sql(name, got, want) -> bool:
+    if name in ("sql_q6", "sql_q1", "sql_q72shfl"):
+        return validate(name[4:], got, want)
+    if name in ("sql_q3join", "catalyst_q3"):
+        return set(got) == set(want) and all(
+            _close(got[k], want[k], 1e-9) for k in want)
+    if name == "sql_q67win":
+        return validate_window("q67win", got, want)
+    if name == "sql_in_exists":
+        return got == want
+    if name == "sql_scalar_sub":
+        return got[0] == want[0] and _close(got[1], want[1], 1e-9)
+    if name == "sql_rollup_cte":
+        return len(got) == len(want) and all(
+            g[:2] == w[:2] and g[3] == w[3] and _close(g[2], w[2])
+            for g, w in zip(got, want))
+    if name == "sql_math":
+        return set(got) == set(want) and all(
+            _close(got[k][0], want[k][0], 1e-9) and got[k][1] == want[k][1]
+            and _close(got[k][2], want[k][2], 1e-9)
+            and got[k][3:] == want[k][3:] for k in want)
+    return _close(got, want, 1e-9)  # catalyst_q6
+
+
+def sql_queries(s1, s8, sw, sp, data_dir):
+    """name -> (session, SQL text or Catalyst plan, the DataFrame query of
+    the same name, the reading of a result): s1 holds the joins path's
+    1-partition caches as the views lineitem and orders, s8 its
+    8-partition ones (joins shuffle there), sw the window path's slice as
+    lineitem, sp reads the Parquet files."""
+    from spark_rapids_tpu_torch.plan.catalyst import ingest_catalyst
+    H, api = helpers(), port_api()
+    col, lit, F = api.col, api.lit, api.F
+    li, od, wli = s1.table("lineitem"), s1.table("orders"), sw.table(
+        "lineitem")
+    li8, od8 = s8.table("lineitem"), s8.table("orders")
+
+    def one(df):
+        return list(df.to_pydict().values())[0][0]
+
+    def q1_read(df):
+        d = df.to_pydict()
+        return {(a, b): (sq, sp_, mq, md, c) for a, b, sq, sp_, mq, md, c in
+                zip(d["l_returnflag"], d["l_linestatus"], d["sq"], d["sp"],
+                    d["mq"], d["md"], d["cnt"])}
+
+    def q72_read(df):
+        d = df.to_pydict()
+        return (int(d["n"][0]), round(float(d["ts"][0]), 2), int(d["tc"][0]))
+
+    def top_read(key, value):
+        def read(df):
+            d = df.to_pydict()
+            return dict(zip(d[key], d[value]))
+        return read
+
+    def win_read(df):
+        d = df.to_pydict()
+        return dict(zip(zip(d["l_returnflag"], d["l_linestatus"]), d["mx"]))
+
+    def q4_read(dfs):
+        out = {}
+        for how, df in zip(("left_semi", "left_anti"), dfs):
+            d = df.to_pydict()
+            out[how] = (d["n"][0], d["cs"][0])
+        return out
+
+    def scalar_read(df):
+        d = df.to_pydict()
+        return (int(d["n"][0]), float(d["s"][0]))
+
+    def rollup_read(df):
+        d = df.to_pydict()
+        return sorted(zip(d["l_returnflag"], d["l_linestatus"], d["q"],
+                          d["n"]), key=_flags_first)
+
+    def math_read(df):
+        d = df.to_pydict()
+        return {k: (r, f, s_, p, n) for k, r, f, s_, p, n in zip(
+            d["l_returnflag"], d["r"], d["f"], d["s"], d["p"], d["n"])}
+
+    def scalar_df():
+        avg = one(li.agg(F.avg(col("l_extendedprice"))))
+        return li.filter(col("l_extendedprice") > lit(avg)).agg(
+            F.count().alias("n"), F.sum(col("l_extendedprice")).alias("s"))
+
+    def rollup_df():
+        recent = li.filter(col("l_shipdate") > lit(10000)).select(
+            col("l_returnflag"), col("l_linestatus"), col("l_quantity"),
+            col("l_extendedprice"))
+        aggs = (F.sum(col("l_quantity")).alias("q"), F.count().alias("n"))
+        return recent.rollup("l_returnflag", "l_linestatus").agg(*aggs) \
+            .union(recent.filter(col("l_extendedprice") > lit(100000.0))
+                   .group_by("l_returnflag", "l_linestatus").agg(*aggs))
+
+    def math_df():
+        return li.group_by("l_returnflag").agg(
+            F.sum(F.round(col("l_extendedprice") * col("l_discount"), 2))
+            .alias("r"),
+            F.sum(F.floor(col("l_quantity") / lit(7.0))).alias("f"),
+            F.sum(F.sqrt(col("l_extendedprice"))).alias("s"),
+            F.sum(F.pmod(col("l_orderkey"), lit(97))).alias("p"),
+            F.count().alias("n"))
+
+    def pq_scan(name, cols):
+        return sp.read_parquet(os.path.join(data_dir, name), columns=cols)
+
+    def q3_catalyst_df():
+        lip = pq_scan("lineitem.parquet", ["l_orderkey", "l_extendedprice",
+                                           "l_shipdate"])
+        odp = pq_scan("orders.parquet", ["o_orderkey", "o_orderdate"])
+        j = lip.filter(col("l_shipdate") > lit(9100)).join(
+            odp.filter(col("o_orderdate") < lit(9500)),
+            on=[(col("l_orderkey"), col("o_orderkey"))])
+        return j.group_by(col("l_orderkey")).agg(
+            F.sum(col("l_extendedprice")).alias("rev")).order_by(
+            col("rev").desc(), col("l_orderkey").asc()).limit(10)
+
+    def q6_catalyst_df():
+        return pq_scan("lineitem.parquet", Q6_COLS).filter(
+            (col("l_shipdate") >= lit(LO)) & (col("l_quantity") < lit(24.0))
+        ).agg(F.sum(col("l_extendedprice") * col("l_discount"))
+              .alias("revenue"))
+
+    def catalyst(name):
+        text = catalyst_plan(name, data_dir)
+        return lambda session: ingest_catalyst(text, session)
+
+    def sql(*texts):
+        if len(texts) == 1:
+            return lambda session: session.sql(texts[0])
+        return lambda session: [session.sql(t) for t in texts]
+
+    q72_df = H.q72shfl(api, li).agg(F.count(col("k")).alias("n"),
+                                    F.sum(col("s")).alias("ts"),
+                                    F.sum(col("c")).alias("tc"))
+    return {
+        "sql_q6": (s1, sql(SQL_Q6.format(lo=LO, hi=HI)),
+                   lambda: H.q6(api, li), one),
+        "sql_q1": (s1, sql(SQL_Q1), lambda: H.q1(api, li), q1_read),
+        "sql_q72shfl": (s1, sql(SQL_Q72SHFL), lambda: q72_df, q72_read),
+        "sql_q3join": (s1, sql(SQL_Q3JOIN), lambda: H.q3join(api, li, od),
+                       top_read("l_orderkey", "rev")),
+        "sql_q67win": (sw, sql(SQL_Q67WIN), lambda: H.q67win(api, wli),
+                       win_read),
+        "sql_in_exists": (s8, sql(SQL_IN, SQL_NOT_EXISTS), lambda: [
+            H.q4_semi_anti(api, li8, od8, how)
+            for how in ("left_semi", "left_anti")], q4_read),
+        "sql_scalar_sub": (s1, sql(SQL_SCALAR_SUB), scalar_df, scalar_read),
+        "sql_rollup_cte": (s1, sql(SQL_ROLLUP_CTE), rollup_df, rollup_read),
+        "sql_math": (s1, sql(SQL_MATH), math_df, math_read),
+        "catalyst_q6": (sp, catalyst("catalyst_q6"), q6_catalyst_df, one),
+        "catalyst_q3": (sp, catalyst("catalyst_q3"), q3_catalyst_df,
+                        top_read("l_orderkey", "rev")),
+    }
+
+
+def _plan_reading(session, spy, before):
+    """(operators in walk order, routes, launches) of the session's last
+    run since ``before`` (launch counts)."""
+    return ([type(e).__name__ for e in session.last_exec.walk()],
+            spy.take(), {k: v - before[k]
+                         for k, v in read_launches().items()})
+
+
+def _plan_difference(sql, df):
+    """How a SQL query's reading differs from its DataFrame query's: the
+    operators one has more of than the other, and whether the routes and
+    the launches differ."""
+    from collections import Counter
+    a, b = Counter(sql[0]), Counter(df[0])
+    return {"sql_only_execs": dict(a - b), "dataframe_only_execs": dict(b - a),
+            "routes_differ": sql[1] != df[1],
+            "launches_differ": sql[2] != df[2]}
+
+
+def _collect_all(dfs):
+    return [df.collect() for df in dfs] if isinstance(dfs, list) \
+        else dfs.collect()
+
+
+def phase_sql(table, orders, want, jwant, wwant, h1, h8, w1, tmp_dir, spy,
+              prof=None):
+    """session.sql over the joins path's caches and the window path's
+    slice registered as temp views, and two Catalyst plans over the
+    Parquet files in tmp_dir; each query's operators, routes and launches
+    held beside those of the DataFrame query of the same name."""
+    import pyarrow.parquet as pq
+    import torch
+    t0 = time.perf_counter()
+    sub = sql_reference(table, orders, want, jwant, wwant)
+    pq.write_table(orders, os.path.join(tmp_dir, "orders.parquet"),
+                   row_group_size=1 << 20, use_dictionary=["o_orderdate"],
+                   compression="snappy", data_page_version="1.0")
+    host_s = time.perf_counter() - t0
+    for h in (h1, h8):
+        h.s.create_or_replace_temp_view("lineitem", h.li)
+        h.s.createOrReplaceTempView("orders", h.od)
+    w1.s.create_or_replace_temp_view("lineitem", w1.li)
+    sp = device_session()
+    queries = sql_queries(h1.s, h8.s, w1.s, sp, tmp_dir)
+    emit({"phase": "sql.setup", "host_reference_s": host_s})
+    reset_launches()
+    spy.take()
+    problems = []
+    for name, (session, parse, df_query, read) in queries.items():
+        # the DataFrame query of the same name, once, for its plan
+        before = read_launches()
+        _collect_all(df_query())
+        df_plan = _plan_reading(session, spy, before)
+        before = read_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        dfs = parse(session)  # a scalar subquery runs here, on the card
+        torch.cuda.synchronize()
+        parse_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        got = read(_collect_all(dfs))
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        plan = _plan_reading(session, spy, before)
+        warm = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            _collect_all(dfs)
+            warm.append((time.perf_counter() - t0) * 1e3)
+        spy.take()
+        good = validate_sql(name, got, sub[name])
+        if not good:
+            problems.append(f"{name} disagrees with its answer")
+        same = plan == df_plan
+        line = {"phase": "sql.query", "query": name, "correct": good,
+                "parse_ms": parse_ms, "cold_ms": cold_ms,
+                "warm_ms": min(warm),
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "routes": plan[1], "launches": plan[2], "execs": plan[0],
+                "same_plan_as_dataframe": same}
+        if not same:
+            line["dataframe"] = {"execs": df_plan[0], "routes": df_plan[1],
+                                 "launches": df_plan[2]}
+            line["differs_in"] = _plan_difference(plan, df_plan)
+        emit(line)
+    counts = read_launches()
+    emit({"phase": "sql", "launches": counts, "correct": not problems,
+          "problems": problems})
+    if prof:
+        prof.run("sql", {k: (lambda v=v: _collect_all(v[1](v[0])))
+                         for k, v in queries.items()})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    # B2 in the SQL aggregates, B3 under the Catalyst plans' scans; the
+    # path's one shuffle hashes int64 order keys, which B1 (int32 planes)
+    # does not take, in either package
+    if min(counts[k] for k in ("segsum", "bitslice")) <= 0:
+        raise AssertionError(f"a kernel did not run on the SQL path: "
+                             f"{counts}")
     return counts
 
 
@@ -2725,10 +3165,11 @@ def phase_aggtypes(table, want, h1, h8, spy, prof=None):
 #: the reason each fallback query's one CPU node must give
 FALLBACK_REASONS = {"fb_strmax": "Min over strings not supported on device",
                     "fb_moving_min": "bounded-rows min/max window"}
-#: kernel launches per run on the device side of the fallback: B4 over the
-#: cached comment plane below the CPU aggregate; B1 under the hash
-#: exchange and B2 in the chunked segsum route below the CPU window
-FALLBACK_LAUNCHES = {"fb_strmax": {"case_map": 1},
+#: kernel launches per run on the device side of the fallback: none in
+#: fb_strmax (its projection, upper(l_comment), folds into the CPU
+#: aggregate, as column pruning does in the JAX package); B1 under the
+#: hash exchange and B2 in the chunked segsum route below the CPU window
+FALLBACK_LAUNCHES = {"fb_strmax": {},
                      "fb_moving_min": {"murmur3_int32": 1, "segsum": 4}}
 
 
@@ -3062,11 +3503,20 @@ def main(argv) -> int:
         cached = phase_path(table, want, spy, prof)
         phases["path_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        joins, h1, h8 = phase_joins(table, orders, spy, prof)
+        joins, h1, h8, jwant = phase_joins(table, orders, spy, prof)
         phases["joins_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        window = phase_window(table, spy, prof)
+        window, w1, wwant = phase_window(table, spy, prof)
         phases["window_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sql = phase_sql(table, orders, want, jwant, wwant, h1, h8, w1,
+                        tmp_dir, spy, prof)
+        phases["sql_s"] = time.perf_counter() - t0
+        # a temp view and its session refer to each other: collect the
+        # cycles, so the window slice's cache does not count in the next
+        # phases' peak memory
+        del w1, jwant, wwant
+        gc.collect()
         t0 = time.perf_counter()
         exprs = phase_exprs(table, h1, h8, spy, prof)
         phases["exprs_s"] = time.perf_counter() - t0
@@ -3081,6 +3531,7 @@ def main(argv) -> int:
         phases["fallback_reference_s"] = time.perf_counter() - t0
         li_plan = h1.li.plan  # the cached lineitem, for the fallback phase
         del table, orders, h1, h8
+        gc.collect()
         t0 = time.perf_counter()
         parquet = phase_parquet(path, want, spy, prof)
         phases["parquet_s"] = time.perf_counter() - t0
@@ -3098,7 +3549,8 @@ def main(argv) -> int:
     for r in rows:
         by_path = {"cached": cached[r["name"]], "parquet": parquet[r["name"]],
                    "strings": strings[r["name"]], "joins": joins[r["name"]],
-                   "window": window[r["name"]], "exprs": exprs[r["name"]],
+                   "window": window[r["name"]], "sql": sql[r["name"]],
+                   "exprs": exprs[r["name"]],
                    "sets": sets[r["name"]], "aggtypes": aggtypes[r["name"]],
                    "fallback": fallback[r["name"]]}
         r["launches"] = sum(by_path.values())

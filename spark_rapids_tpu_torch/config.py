@@ -158,6 +158,13 @@ INCOMPAT_ENABLED = _register(
     "CPU.", _bool_conv)
 
 
+OPTIMIZER_ENABLED = _register(
+    "spark.rapids.sql.optimizer.enabled", False,
+    "Cost-based reversion of device subtrees whose estimated device cost "
+    "(incl. transfer + dispatch) exceeds the CPU cost "
+    "(reference CostBasedOptimizer.scala, off by default; "
+    "plan/cost.py).", _bool_conv)
+
 SKIP_AGG_PASS_RATIO = _register(
     "spark.rapids.sql.agg.skipAggPassReductionRatio", 1.0,
     "Skip later agg passes when a pass reduces rows by less than this "

@@ -358,9 +358,10 @@ class DeviceDecodeScanExec(TorchExec):
 class CachedScanExec(TorchExec):
     """Materializes the child once into device-resident batches (one per
     partition) stored on the CachedRelation node; later scans stream
-    straight from device memory."""
+    straight from device memory. The lock is reentrant: a cached
+    relation over another one materializes the inner one under it."""
 
-    _lock = threading.Lock()
+    _lock = threading.RLock()
 
     @property
     def num_partitions(self):
@@ -920,33 +921,41 @@ class _AggKernels:
             errs.extend(pctx.errors)
         return batch, live, errs
 
-    def _inputs(self, batch, live, ctx_of):
-        """Evaluate the keys and every aggregate's inputs."""
+    def _inputs(self, batch, live, ctx_of, keys=None):
+        """Evaluate the keys, unless ``keys`` holds them (the key columns
+        over the same live rows, and their error planes), and every
+        aggregate's inputs."""
         ctx = ctx_of(batch, live)
-        key_cols = [e.eval(ctx) for e in self.group_exprs]
+        key_cols, key_errs = keys if keys is not None else (
+            [e.eval(ctx) for e in self.group_exprs], [])
         input_cols = [[e.eval(ctx) for e in a.fn.children] for a in self.aggs]
-        return key_cols, input_cols, ctx.errors
+        return key_cols, input_cols, key_errs + ctx.errors
 
     def update(self, batch: ColumnarBatch, ctx_of):
         """The update phase: tiny-bucket, packed radix, or global.
         Returns (state batch, ANSI error planes)."""
+        keys = None
         if self._packed_ok:
-            key_cols = [e.eval(ctx_of(batch, batch.live_mask()))
-                        for e in self.group_exprs]
+            kctx = ctx_of(batch, batch.live_mask())
+            key_cols = [e.eval(kctx) for e in self.group_exprs]
+            # without an absorbed filter these are the keys of the update
+            # too: a key computed in the aggregate is evaluated once
+            if self.pre_filter is None:
+                keys = (key_cols, kctx.errors)
             if self._bucket_sizes(key_cols) is None:
                 spec, ranges, rh = _probe_pack_spec(
                     key_cols, batch.live_mask(), self.group_exprs)
                 if spec is not None:
                     batch, live, errs = self._filtered(batch, ctx_of)
                     key_cols, input_cols, ierrs = self._inputs(batch, live,
-                                                               ctx_of)
+                                                               ctx_of, keys)
                     out = self._packed_agg(live, key_cols,
                                            self._update_specs(input_cols),
                                            spec, ranges)
                     _attach_key_bounds(out, spec, rh)
                     return out, errs + ierrs
         batch, live, errs = self._filtered(batch, ctx_of)
-        key_cols, input_cols, ierrs = self._inputs(batch, live, ctx_of)
+        key_cols, input_cols, ierrs = self._inputs(batch, live, ctx_of, keys)
         if not key_cols:
             return self._global_update(batch, live, input_cols), errs + ierrs
         # segmented aggregates need the group-sorted rows: the sort route

@@ -51,6 +51,7 @@ from spark_rapids_tpu_torch.expr import misc as MX
 from spark_rapids_tpu_torch.expr import strings as S
 from spark_rapids_tpu_torch.io.parquet_pruning import split_conjuncts
 from spark_rapids_tpu_torch.plan import nodes as P
+from spark_rapids_tpu_torch.plan.cost import apply_cost_optimizer
 from spark_rapids_tpu_torch.types import Sigs, TypeSig
 
 PORT_TAG_DIFFERENCES = """Where the port's tags differ from the JAX package's.
@@ -185,8 +186,21 @@ expr_rule(S._AndExpr, Sigs.COMMON, Sigs.COMMON, "internal AND")
 expr_rule(MX.Rand, Sigs.COMMON, Sigs.COMMON,
           "rand([seed]) — splitmix64 stream (distribution-equivalent to "
           "Spark's XORShift, stream differs; documented)")
-for _cls in (MA.Greatest, MA.Least):
+for _cls in (MA.Sqrt, MA.Exp, MA.Log, MA.Log10, MA.Log2, MA.Sin, MA.Cos,
+             MA.Tan, MA.Asin, MA.Acos, MA.Atan, MA.Sinh, MA.Cosh, MA.Tanh,
+             MA.Ceil, MA.Floor, MA.Pow, MA.Round, MA.Signum, MA.Atan2,
+             MA.Greatest, MA.Least, MA.Cbrt, MA.Cot, MA.Sec, MA.Csc,
+             MA.ToDegrees, MA.ToRadians, MA.Expm1, MA.Log1p, MA.Rint,
+             MA.Hypot, MA.NaNvl):
     expr_rule(_cls, _NUM, _NUM, _cls.__name__.lower())
+expr_rule(MA.Factorial, _NUM, _NUM, "factorial (null outside [0, 20])")
+expr_rule(MA.BitwiseCount, _NUM, _NUM, "bit_count")
+expr_rule(MA.BitwiseGet, _NUM, _NUM, "getbit")
+expr_rule(MA.BRound, _NUM, _NUM, "bround (HALF_EVEN)")
+expr_rule(MA.Logarithm, Sigs.COMMON, Sigs.COMMON, "log(base, expr)")
+expr_rule(MA.WidthBucket, Sigs.COMMON, Sigs.COMMON, "width_bucket")
+for _cls in (MA.Acosh, MA.Asinh, MA.Atanh, MA.Pmod, MA.UnaryPositive):
+    expr_rule(_cls, Sigs.COMMON, Sigs.COMMON, _cls.__name__.lower())
 for _cls in (MA.BitwiseAnd, MA.BitwiseOr, MA.BitwiseXor, MA.BitwiseNot,
              MA.ShiftLeft, MA.ShiftRight, MA.ShiftRightUnsigned):
     expr_rule(_cls, _NUM, _NUM, _cls.__name__.lower())
@@ -501,9 +515,15 @@ def wrap_and_tag(plan: P.PlanNode, conf) -> SparkPlanMeta:
 
 
 def convert_plan(plan: P.PlanNode, conf, device):
-    """(root operator, tagged meta). In test mode a fallback that
+    """(root operator, tagged meta), as the JAX package converts: column
+    pruning (``plan/prune.py``) before tagging, the static cost pass
+    (``plan/cost.py``) after it. In test mode a fallback that
     spark.rapids.sql.test.allowedNonTpu does not name raises."""
+    # prune imports this module's PROJECT_ONLY_EXPRS
+    from spark_rapids_tpu_torch.plan.prune import prune_plan
+    plan = prune_plan(plan)
     meta = wrap_and_tag(plan, conf)
+    apply_cost_optimizer(meta, conf)
     if conf.get(C.TEST_MODE):
         allowed = {s.strip() for s in str(conf.get(C.ALLOW_NON_TPU)
                                           or "").split(",") if s.strip()}
@@ -522,7 +542,11 @@ def _assert_on_tpu(meta: SparkPlanMeta, allowed: set) -> None:
 
 
 def explain_plan(plan: P.PlanNode, conf, all_ops: bool = False) -> str:
-    return wrap_and_tag(plan, conf).explain(all_ops=all_ops)
+    """The placement report, with the cost pass's reversions; like the
+    JAX package's, it does not prune."""
+    meta = wrap_and_tag(plan, conf)
+    apply_cost_optimizer(meta, conf)
+    return meta.explain(all_ops=all_ops)
 
 
 def _convert_node(plan: P.PlanNode, children, conf, device) -> X.TorchExec:

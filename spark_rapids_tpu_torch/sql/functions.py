@@ -1,15 +1,20 @@
 """Functions of the DataFrame API (counterpart of
 ``spark_rapids_tpu/sql/functions.py``): the aggregates ``sum``, ``count``,
-``avg``, ``min``, ``max``, ``first``, ``last``, ``stddev`` (``stddev_samp``),
-``stddev_pop``, ``variance`` (``var_samp``), ``var_pop``, ``min_by``,
-``max_by``, ``percentile`` and ``approx_percentile``
-(``percentile_approx``), ``collect_list`` and ``collect_set`` (array
-results), and the grouping markers ``grouping`` and
-``grouping_id``; the scalar functions ``when``/``otherwise``,
+``avg`` (``mean``), ``min``, ``max``, ``first``, ``last``, ``stddev``
+(``stddev_samp``), ``stddev_pop``, ``variance`` (``var_samp``),
+``var_pop``, ``min_by``, ``max_by``, ``percentile`` and
+``approx_percentile`` (``percentile_approx``), ``collect_list`` and
+``collect_set`` (array results), and the grouping markers ``grouping``
+and ``grouping_id``; the scalar functions ``when``/``otherwise``,
 ``coalesce``, ``nvl``, ``nullif``, ``isnull``, ``isnan``, ``abs``,
 ``greatest``, ``least``, ``bitwise_not``, ``shiftleft``, ``shiftright``,
 ``shiftrightunsigned``, ``rand``, ``spark_partition_id`` and
-``monotonically_increasing_id``; the string functions ``length``,
+``monotonically_increasing_id``; the math functions of ``expr/math.py``
+(``sqrt``, ``exp``, ``log`` and its family, the trigonometric and
+hyperbolic functions, ``ceil``, ``floor``, ``round``, ``bround``,
+``rint``, ``signum``, ``pow``, ``atan2``, ``hypot``, ``pmod``,
+``factorial``, ``width_bucket``, ``nanvl``, ``positive``, ``bit_count``,
+``getbit``); the string functions ``length``,
 ``upper``, ``lower``, ``substring``, ``concat``, ``startswith``,
 ``endswith``, ``contains`` and ``like``, and the window functions
 ``row_number``, ``rank``, ``dense_rank``, ``ntile``, ``percent_rank``,
@@ -24,6 +29,39 @@ from spark_rapids_tpu_torch.expr import misc as MI
 from spark_rapids_tpu_torch.expr import strings as S
 from spark_rapids_tpu_torch.expr import window as W
 from spark_rapids_tpu_torch.expr.core import Expression, col, lit
+
+
+#: the JAX package's functions this module does not have yet (ROADMAP A9;
+#: hash and xxhash64 come with A5). The SQL front door and the plan
+#: ingestion raise naming A9 where a query calls one of them, rather than
+#: calling it an unknown function.
+NOT_PORTED = (
+    "add_months", "aggregate", "array", "array_contains", "array_distinct",
+    "array_except", "array_intersect", "array_join", "array_max", "array_min",
+    "array_position", "array_remove", "array_repeat", "array_union",
+    "arrays_overlap", "arrays_zip", "ascii", "base64", "bin", "bit_length",
+    "char", "chr_", "concat_ws", "conv", "crc32", "date_add", "date_format",
+    "date_from_unix_date", "date_sub", "date_trunc", "datediff", "dayofmonth",
+    "dayofweek", "dayofyear", "element_at", "elt", "exists", "explode",
+    "explode_outer", "filter", "find_in_set", "flatten", "forall",
+    "format_number", "format_string", "from_json", "from_unixtime",
+    "from_utc_timestamp", "get_json_object", "hash", "hex", "hive_hash",
+    "hour", "initcap", "instr", "json_tuple", "last_day", "left",
+    "levenshtein", "locate", "lpad", "ltrim", "luhn_check", "make_date",
+    "map_concat", "map_entries", "map_filter", "map_from_arrays", "map_keys",
+    "map_values", "md5", "minute", "month", "months_between", "next_day",
+    "octet_length", "parse_url", "posexplode", "posexplode_outer", "quarter",
+    "raise_error", "reduce", "regexp_extract", "regexp_extract_all",
+    "regexp_replace", "repeat", "reverse", "right", "rlike", "rpad", "rtrim",
+    "second", "sequence", "sha1", "sha2", "size", "slice", "sort_array",
+    "soundex", "stack", "str_to_map", "substring_index", "timestamp_micros",
+    "timestamp_millis", "timestamp_seconds", "to_date", "to_json",
+    "to_utc_timestamp", "transform", "transform_keys", "transform_values",
+    "translate", "trim", "trunc", "unbase64", "unhex", "unix_date",
+    "unix_micros", "unix_millis", "unix_seconds", "unix_timestamp",
+    "url_decode", "url_encode", "weekday", "weekofyear", "xxhash64", "year",
+    "zip_with",
+)
 
 
 def _e(c) -> Expression:
@@ -53,6 +91,9 @@ def count(c="*"):
 
 def avg(c):
     return A.Average(_e(c))
+
+
+mean = avg
 
 
 def min(c):  # noqa: A001
@@ -214,6 +255,93 @@ def greatest(*cs):
 
 def least(*cs):
     return MA.Least(*[_e(c) for c in cs])
+
+
+# math -----------------------------------------------------------------------
+def sqrt(c):
+    return MA.Sqrt(_e(c))
+
+
+def exp(c):
+    return MA.Exp(_e(c))
+
+
+def log(arg1, arg2=None):
+    """log(col) is the natural log; log(base, col) is Logarithm."""
+    if arg2 is None:
+        return MA.Log(_e(arg1))
+    return MA.Logarithm(_e(arg1), _e(arg2))
+
+
+def _math1(cls):
+    def f(c):
+        return cls(_e(c))
+    f.__name__ = cls.__name__.lower()
+    return f
+
+
+log10 = _math1(MA.Log10)
+log2 = _math1(MA.Log2)
+sin = _math1(MA.Sin)
+cos = _math1(MA.Cos)
+tan = _math1(MA.Tan)
+ceil = _math1(MA.Ceil)
+floor = _math1(MA.Floor)
+signum = _math1(MA.Signum)
+acosh = _math1(MA.Acosh)
+asinh = _math1(MA.Asinh)
+atanh = _math1(MA.Atanh)
+cbrt = _math1(MA.Cbrt)
+cot = _math1(MA.Cot)
+sec = _math1(MA.Sec)
+csc = _math1(MA.Csc)
+degrees = _math1(MA.ToDegrees)
+radians = _math1(MA.ToRadians)
+expm1 = _math1(MA.Expm1)
+log1p = _math1(MA.Log1p)
+rint = _math1(MA.Rint)
+factorial = _math1(MA.Factorial)
+bit_count = _math1(MA.BitwiseCount)
+positive = _math1(MA.UnaryPositive)
+
+
+def pow(a, b):  # noqa: A001
+    return MA.Pow(_e(a), _e(b))
+
+
+def atan2(a, b):
+    return MA.Atan2(_e(a), _e(b))
+
+
+def hypot(a, b):
+    return MA.Hypot(_e(a), _e(b))
+
+
+def nanvl(a, b):
+    return MA.NaNvl(_e(a), _e(b))
+
+
+def pmod(a, b):
+    return MA.Pmod(_e(a), _e(b))
+
+
+def getbit(c, pos):
+    return MA.BitwiseGet(_e(c), _e(pos))
+
+
+bit_get = getbit
+
+
+def round(c, scale=0):  # noqa: A001
+    return MA.Round(_e(c), scale)
+
+
+def bround(c, scale=0):
+    return MA.BRound(_e(c), scale)
+
+
+def width_bucket(v, lo, hi, nb):
+    return MA.WidthBucket(_e(v), _e(lo), _e(hi), _e(nb))
 
 
 # strings --------------------------------------------------------------------

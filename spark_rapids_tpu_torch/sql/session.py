@@ -1,8 +1,9 @@
 """The session: entry point of the PyTorch engine.
 
 Counterpart of ``spark_rapids_tpu/sql/session.py`` ``TpuSession``
-(``create_dataframe``, ``range``, ``read_parquet``, ``collect``, and the
-device-side compaction of sparse results before the download).
+(``create_dataframe``, ``range``, ``read_parquet``, the SQL front door:
+``create_or_replace_temp_view``, ``table`` and ``sql``, ``collect``, and
+the device-side compaction of sparse results before the download).
 ``collect`` tags the plan and converts it (``plan/overrides.py``): what
 is tagged off the device runs one operator at a time on the CPU backend.
 spark.rapids.sql.explain=NOT_ON_TPU|ALL logs the placement report, and
@@ -22,6 +23,7 @@ import torch
 from spark_rapids_tpu_torch import config as C
 from spark_rapids_tpu_torch.exec.cpu_backend import execute_cpu
 from spark_rapids_tpu_torch.exec.nodes import empty_table, host_table
+from spark_rapids_tpu_torch.expr.core import SparkException
 from spark_rapids_tpu_torch.plan import nodes as P
 from spark_rapids_tpu_torch.plan.overrides import convert_plan, wrap_and_tag
 from spark_rapids_tpu_torch.sql.dataframe import DataFrame
@@ -45,6 +47,27 @@ class TorchSession:
         #: and its tagged plan (``SparkPlanMeta``: placement and reasons)
         self.last_exec = None
         self.last_meta = None
+        self._views: Dict[str, DataFrame] = {}
+
+    # -- the SQL front door ------------------------------------------------
+    def create_or_replace_temp_view(self, name: str, df: DataFrame) -> None:
+        """Register a DataFrame for ``sql`` FROM resolution (names are
+        case-insensitive)."""
+        self._views[name.lower()] = df
+
+    createOrReplaceTempView = create_or_replace_temp_view
+
+    def table(self, name: str) -> DataFrame:
+        if name.lower() not in self._views:
+            raise SparkException(f"table or view not found: {name}")
+        return self._views[name.lower()]
+
+    def sql(self, query: str) -> DataFrame:
+        """A SQL string over the registered temp views (the grammar of
+        ``sql/parser.py``). An uncorrelated scalar subquery runs here, on
+        this session's device."""
+        from spark_rapids_tpu_torch.sql.parser import parse_sql
+        return parse_sql(query, self)
 
     def create_dataframe(self, data, num_partitions: int = 1) -> DataFrame:
         if isinstance(data, dict):

@@ -101,13 +101,16 @@ def test_segsum_route_queries_match_jax_exactly(query, value, sessions,
     assert seg and not fell_back
 
 
-@pytest.mark.parametrize("query,want", [(q72shfl, 9), (repart_agg, 11)],
+@pytest.mark.parametrize("query,want", [(q72shfl, 10), (repart_agg, 11)],
                          ids=["q72shfl", "repart_agg"])
 def test_segsum_payload_holds_only_real_lanes(query, want, sessions,
                                               monkeypatch):
-    # 1 live count + 2 key digits (13- and 12-bit keys) + 6 float digits;
-    # after the exchange the value plane carries validity, which adds a
-    # count lane and a some-valid lane
+    # 1 live count + the key digits + 6 float digits. q72shfl's projection
+    # folds into the aggregate (plan/prune.py, as in the JAX package), so
+    # its key l_orderkey % 100000 packs by its static range, 18 bits: 3
+    # digits. repart_agg's 12-bit key takes 2; after the exchange the
+    # value plane carries validity, which adds a count lane and a
+    # some-valid lane
     lanes = []
     orig = S.segsum
 

@@ -232,9 +232,10 @@ FALLBACK_NODES = {"fb_strmax": "Aggregate", "fb_moving_min": "WindowNode"}
 
 def fb_strmax(api, df):
     """Per flag pair, the least and greatest upper-cased comment of the
-    lines of quantity 1 and their count: the filter and upper() run on
-    the device, the aggregate on the CPU (min/max over strings is tagged
-    off the device)."""
+    lines of quantity 1 and their count: the filter runs on the device,
+    the aggregate on the CPU (min/max over strings is tagged off the
+    device), with upper() in it: column pruning folds the projection into
+    the aggregate, in both packages."""
     col, lit, F = api.col, api.lit, api.F
     return (df.filter(col("l_quantity") <= lit(1.0))
             .select(col("l_returnflag"), col("l_linestatus"),
