@@ -76,9 +76,33 @@ Phases, one JSON line each:
    few lineitem rows: the cartesian product), sort_rows (all 30M rows of
    three columns ordered by a range exchange and eight sorts) and
    limit_rows, each cold then twice warm and checked against pyarrow or
-   numpy. Each query prints its operators and the probe path each join
+   numpy. The 8-partition session sets both broadcastRowThreshold and
+   spark.rapids.sql.adaptive.broadcastThresholdBytes to 0, so
+   q3join_shuffled stays shuffled at run time too. Each query prints its
+   operators and the probe path each join
    took; the operators and routes the queries are built to take are
    asserted, and the segsum kernel must have run.
+8b. adaptive (right after the joins phase, on its caches, in sessions at
+   the port's defaults): aqe_demote (q3join over the 8-partition caches
+   with broadcastRowThreshold=0: planned shuffled, the filtered orders
+   measure under 64 MB through their exchange and the join becomes a
+   broadcast; warm runs reuse the build from the orders cache),
+   aqe_stays_shuffled (orders join lineitem on the order key, the
+   30M-row build: it stays shuffled and each side is partitioned once),
+   aqe_row_probe (lineitem join a per-day count of orders on the ship
+   date: a build of unknown size, 2,200 rows after the row probe,
+   broadcast), aqe_skew (the 1-partition lineitem repartitioned 8 ways by
+   a key 60% of the lines share, then grouped: the hot partition splits,
+   and the decision equals skew_threshold of the per-partition counts
+   from numpy's Spark murmur3), hash_exprs (hash(l_orderkey, l_quantity
+   as int, l_shipdate) and xxhash64(l_orderkey, l_quantity,
+   l_extendedprice) over all 30M rows, row by row against numpy's Spark
+   hashes; B1 twice a run with per-row seeds; bench.py's lineitem has no
+   l_linenumber, so the int cast of l_quantity is the second int
+   column), and compact_repart / masked_repart (repart_agg with
+   spark.rapids.shuffle.partitioning compact, then masked: the same
+   answer and B1 launches). Each cold then twice warm, with its
+   operators, decisions, exchanges, routes and launches.
 9. window (on bench.py's first 10M rows, its q67win slice, cached with 1
    and with 8 partitions; every query ran over the 30M-row caches until
    the aggtypes phase joined the run): q67win (bench.py's),
@@ -169,7 +193,8 @@ operator that planning tags off the card fails the query, except the one
 node each fallback query names in spark.rapids.sql.test.allowedNonTpu.
 It then prints the kernel table ({"kernels": [...]}, with each kernel's
 launches per path in "launches_by_path": cached, parquet, strings, joins,
-window, sql, exprs, sets, aggtypes, fallback), the card's name and power
+adaptive, window, sql, exprs, sets, aggtypes, fallback), the card's name
+and power
 limit, and as its last line {"ok": true, "device": {...}}. Any failure
 exits non-zero without that line; so does a machine without CUDA, and so
 does a run that imported the JAX package. The lineitem generators and
@@ -1573,7 +1598,11 @@ def phase_joins(table, orders, spy, prof=None):
                              H.make_customers(orders)).cache(),
                          dim=s1.create_dataframe(H.make_flag_dim()),
                          bands=s1.create_dataframe(H.make_bands()))
-    s8 = device_session({"spark.rapids.sql.join.broadcastRowThreshold": 0})
+    # both thresholds 0: planned shuffled, and not demoted to a broadcast
+    # at run time (the adaptive phase demotes the same join)
+    s8 = device_session({"spark.rapids.sql.join.broadcastRowThreshold": 0,
+                         "spark.rapids.sql.adaptive.broadcastThresholdBytes":
+                         0})
     h8 = SimpleNamespace(s=s8, li=s8.create_dataframe(
         table, num_partitions=8).cache(), od=s8.create_dataframe(
         orders, num_partitions=8).cache())
@@ -1630,6 +1659,371 @@ def phase_joins(table, orders, spy, prof=None):
         raise AssertionError(f"the segsum kernel did not run on the joins "
                              f"path: {counts}")
     return counts, h1, h8, want
+
+
+# ---------------------------------------------------------------------------
+# phase 8b: adaptive execution, the masked exchange and the hash functions
+# ---------------------------------------------------------------------------
+
+_U32, _U64 = np.uint32, np.uint64
+
+
+def _rotl32(x, r):
+    return (x << _U32(r)) | (x >> _U32(32 - r))
+
+
+def _mm_k1(k):
+    return _rotl32(k * _U32(0xCC9E2D51), 15) * _U32(0x1B873593)
+
+
+def _mm_h1(h, k):
+    return _rotl32(h ^ k, 13) * _U32(5) + _U32(0xE6546B64)
+
+
+def _mm_fmix(h, n):
+    h = h ^ _U32(n)
+    h = (h ^ (h >> _U32(16))) * _U32(0x85EBCA6B)
+    h = (h ^ (h >> _U32(13))) * _U32(0xC2B2AE35)
+    return h ^ (h >> _U32(16))
+
+
+def np_murmur3_int(v, seed):
+    """Spark's Murmur3 hashInt of int32 values (uint32 arithmetic)."""
+    return _mm_fmix(_mm_h1(seed, _mm_k1(v.astype(np.int32).view(_U32))), 4)
+
+
+def np_murmur3_long(v, seed):
+    """Spark's Murmur3 hashLong of int64 values: low word, high word."""
+    u = v.astype(np.int64).view(_U64)
+    low = (u & _U64(0xFFFFFFFF)).astype(_U32)
+    high = (u >> _U64(32)).astype(_U32)
+    return _mm_fmix(_mm_h1(_mm_h1(seed, _mm_k1(low)), _mm_k1(high)), 8)
+
+
+_XX = [_U64(p) for p in (0x9E3779B185EBCA87, 0xC2B2AE3D27D4EB4F,
+                         0x165667B19E3779F9, 0x85EBCA77C2B2AE63,
+                         0x27D4EB2F165667C5)]
+
+
+def _rotl64(x, r):
+    return (x << _U64(r)) | (x >> _U64(64 - r))
+
+
+def np_xxhash64_long(bits, seed):
+    """Spark's XXH64 hashLong of 64-bit patterns (uint64 arithmetic)."""
+    p1, p2, p3, p4, p5 = _XX
+    h = seed + p5 + _U64(8)
+    h = h ^ (_rotl64(bits * p2, 31) * p1)
+    h = _rotl64(h, 27) * p1 + p4
+    h = (h ^ (h >> _U64(33))) * p2
+    h = (h ^ (h >> _U64(29))) * p3
+    return h ^ (h >> _U64(32))
+
+
+def _double_bits(x):
+    return np.where(x == 0.0, 0.0, x).astype(np.float64).view(_U64)
+
+
+#: the adaptive phase's skewed key: 60% of the lines share key 0
+SKEW_QTY = 30.0
+
+
+def adaptive_reference(t, orders):
+    """numpy's answers to the adaptive phase's queries."""
+    ok = t["l_orderkey"].to_numpy()
+    qty = t["l_quantity"].to_numpy()
+    price = t["l_extendedprice"].to_numpy()
+    ship = t["l_shipdate"].to_numpy()
+    odate = orders["o_orderdate"].to_numpy()
+    per_day = np.bincount(odate - 8400, minlength=2200)
+    key = np.where(qty <= SKEW_QTY, 0, ok).astype(np.int64)
+    pid = np.mod(np_murmur3_long(key, _U32(42)).view(np.int32), 8)
+    seed = np_murmur3_long(ok, _U32(42))
+    seed = np_murmur3_int(qty.astype(np.int32), seed)
+    h = np_murmur3_int(ship, seed).view(np.int32)
+    x = np_xxhash64_long(ok.astype(np.int64).view(_U64), _U64(42))
+    x = np_xxhash64_long(_double_bits(qty), x)
+    x = np_xxhash64_long(_double_bits(price), x).view(np.int64)
+    counts = np.bincount(key, minlength=orders.num_rows)
+    sums = np.bincount(key, weights=price, minlength=orders.num_rows)
+    present = np.flatnonzero(counts)
+    return {"demote_build_rows": int((odate < 9500).sum()),
+            "stays_shuffled": (t.num_rows, float(price.sum())),
+            "row_probe": (t.num_rows, int(per_day[ship - 8400].sum())),
+            "row_probe_build_rows": int((per_day > 0).sum()),
+            "skew_totals": np.bincount(pid, minlength=8).tolist(),
+            "skew": (present, counts[present], sums[present]),
+            "hash": h, "xxhash64": x}
+
+
+def adaptive_queries(h1, h8):
+    """name -> (session, run): the adaptive phase's queries over the joins
+    phase's caches, bound to sessions at the port's defaults (test mode),
+    each run returning (result, the session's last_aqe())."""
+    from spark_rapids_tpu_torch.sql.dataframe import DataFrame
+
+    H, api = helpers(), port_api()
+    col, lit, F, T = api.col, api.lit, api.F, api.T
+    s = device_session()
+    demote = device_session({"spark.rapids.sql.join.broadcastRowThreshold":
+                             0})
+    masked = device_session({"spark.rapids.shuffle.partitioning": "masked"})
+
+    def on(session, df):
+        return DataFrame(df.plan, session)
+
+    def run(session, query):
+        return lambda: (query(), session.last_aqe())
+
+    def top(df):
+        d = df.to_pydict()
+        return dict(zip(d["l_orderkey"], d["rev"]))
+
+    def pair(df):
+        d = df.to_pydict()
+        return tuple(d[k][0] for k in d)
+
+    def stays():
+        li = on(s, h8.li).select(col("l_orderkey"), col("l_extendedprice"))
+        return on(s, h8.od).join(
+            li, on=[(col("o_orderkey"), col("l_orderkey"))]).agg(
+            F.count().alias("n"), F.sum(col("l_extendedprice")).alias("p"))
+
+    def row_probe():
+        days = on(s, h8.od).group_by(col("o_orderdate")).agg(
+            F.count().alias("n_orders"))
+        return on(s, h8.li).join(
+            days, on=[(col("l_shipdate"), col("o_orderdate"))]).agg(
+            F.count().alias("n"), F.sum(col("n_orders")).alias("s"))
+
+    def skew():
+        key = F.when(col("l_quantity") <= lit(SKEW_QTY), lit(0)).otherwise(
+            col("l_orderkey")).alias("k")
+        t = on(s, h1.li).select(key, col("l_extendedprice")).repartition(
+            8, col("k")).group_by(col("k")).agg(
+            F.count().alias("n"), F.sum(col("l_extendedprice")).alias("p")) \
+            .collect()
+        order = np.argsort(t["k"].to_numpy())
+        return tuple(t[c].to_numpy()[order] for c in ("k", "n", "p"))
+
+    def hashes():
+        t = on(s, h1.li).select(
+            F.hash(col("l_orderkey"), col("l_quantity").cast(T.INT32),
+                   col("l_shipdate")).alias("h"),
+            F.xxhash64(col("l_orderkey"), col("l_quantity"),
+                       col("l_extendedprice")).alias("x")).collect()
+        return t["h"].to_numpy(), t["x"].to_numpy()
+
+    def repart(session):
+        d = H.repart_agg(api, on(session, h1.li)).to_pydict()
+        return {k: (v, c) for k, v, c in zip(d["l_shipdate"], d["s"],
+                                             d["c"])}
+
+    return {
+        "aqe_demote": (demote, run(demote, lambda: top(H.q3join(
+            api, on(demote, h8.li), on(demote, h8.od))))),
+        "aqe_stays_shuffled": (s, run(s, lambda: pair(stays()))),
+        "aqe_row_probe": (s, run(s, lambda: pair(row_probe()))),
+        "aqe_skew": (s, run(s, skew)),
+        "hash_exprs": (s, run(s, hashes)),
+        "compact_repart": (s, run(s, lambda: repart(s))),
+        "masked_repart": (masked, run(masked, lambda: repart(masked))),
+    }
+
+
+class SeedSpy:
+    """Counts the murmur3 kernel's calls by seed form (a per-row plane or
+    a scalar)."""
+
+    def __init__(self):
+        from spark_rapids_tpu_torch.ops import murmur3_kernel as MK
+        self.mk, self.orig = MK, MK.murmur3_int32
+        self.counts = {"per_row": 0, "scalar": 0}
+
+        def spy(values, seed):
+            import torch
+            form = "per_row" if isinstance(seed, torch.Tensor) else "scalar"
+            self.counts[form] += 1
+            return self.orig(values, seed)
+        MK.murmur3_int32 = spy
+
+    def take(self):
+        out, self.counts = self.counts, {"per_row": 0, "scalar": 0}
+        return out
+
+    def restore(self):
+        self.mk.murmur3_int32 = self.orig
+
+
+def _exchange_runs(session):
+    """(exchange class, its output partitions, partitioning dispatches,
+    host fetches, merged tiny sub-batches) of every exchange the last
+    run partitioned."""
+    return [(type(e).__name__, e.n_out, e.partition_dispatches,
+             e.partition_fetches, e.coalesced_batches)
+            for e in session.last_exec.walk()
+            if hasattr(e, "partition_dispatches") and e._out is not None]
+
+
+def validate_adaptive(name, got, want, aqe, warm_aqe, conf) -> list:
+    """The problems of one adaptive query's answer and decisions."""
+    from spark_rapids_tpu_torch.exec import adaptive as AQ
+    kinds = [d["kind"] for d in (aqe or {}).get("decisions", [])]
+    warm_kinds = [d["kind"] for d in (warm_aqe or {}).get("decisions", [])]
+    out = []
+    if name == "aqe_demote":
+        if set(got) != set(want["q3join"]) or not all(
+                _close(got[k], want["q3join"][k], 1e-9) for k in got):
+            out.append("answer")
+        (d,) = aqe["decisions"] if kinds == ["broadcast_conversion"] \
+            else [None]
+        if d is None or not (d["build_bytes"] <= d["threshold_bytes"]
+                             == 64 << 20) or d["n_out"] != 8 \
+                or d["build_rows"] != want["demote_build_rows"]:
+            out.append(f"decisions {aqe}")
+        if warm_kinds != ["broadcast_conversion", "build_reuse"]:
+            out.append(f"warm decisions {warm_aqe}")
+    elif name in ("aqe_stays_shuffled", "aqe_row_probe"):
+        key = "stays_shuffled" if name == "aqe_stays_shuffled" \
+            else "row_probe"
+        n, v = want[key]
+        if got[0] != n or not _close(got[1], v, 1e-9):
+            out.append(f"answer {got} != {want[key]}")
+        expect = [] if name == "aqe_stays_shuffled" \
+            else [{"kind": "broadcast_conversion", "source": "row_probe",
+                   "build_rows": want["row_probe_build_rows"],
+                   "threshold_rows": 1 << 22, "dispatches_saved": 2}]
+        for doc in (aqe, warm_aqe):
+            if (doc or {}).get("decisions", []) != expect:
+                out.append(f"decisions {doc}")
+    elif name == "aqe_skew":
+        k, n, p = want["skew"]
+        if not (np.array_equal(got[0], k) and np.array_equal(got[1], n)
+                and np.allclose(got[2], p, rtol=1e-9, atol=0)):
+            out.append("answer")
+        totals = want["skew_totals"]
+        threshold, median = AQ.skew_threshold(conf, totals)
+        hot = int(np.argmax(totals))
+        rows = totals[hot]
+        step = max(median, -(-rows // 8))
+        expect = [{"kind": "skew_split", "partition": hot, "rows": rows,
+                   "median": median, "threshold_rows": threshold,
+                   "splits": -(-rows // step)}]
+        for doc in (aqe, warm_aqe):
+            if (doc or {}).get("decisions") != expect:
+                out.append(f"decisions {doc}, expected {expect}")
+    elif name == "hash_exprs":
+        if not (np.array_equal(got[0], want["hash"])
+                and np.array_equal(got[1], want["xxhash64"])):
+            out.append("hashes differ from numpy's")
+    elif name == "masked_repart":
+        if got != want["compact_repart"]:
+            out.append("masked answer differs from the compact one")
+    elif name == "compact_repart":
+        if not validate("repart_agg", got, want["repart_agg"]):
+            out.append("answer")
+    if name not in ("aqe_demote", "aqe_stays_shuffled", "aqe_row_probe",
+                    "aqe_skew") and (aqe or warm_aqe):
+        out.append(f"unexpected decisions {aqe}")
+    return [f"{name}: {p}" for p in out]
+
+
+#: what each adaptive query must have run: operators that must be present
+ADAPTIVE_EXPECT = {
+    "aqe_demote": {"AdaptiveShuffledHashJoinExec", "BroadcastHashJoinExec",
+                   "_MaterializedExec", "TopNExec"},
+    "aqe_stays_shuffled": {"AdaptiveShuffledHashJoinExec",
+                           "ShuffledHashJoinExec", "ShuffleExchangeExec"},
+    "aqe_row_probe": {"AdaptiveJoinExec", "BroadcastHashJoinExec",
+                      "_MaterializedExec"},
+    "aqe_skew": {"ShuffleExchangeExec", "HashAggregateExec"},
+    "hash_exprs": {"ProjectExec"},
+    "compact_repart": {"ShuffleExchangeExec"},
+    "masked_repart": {"ShuffleExchangeExec"},
+}
+
+
+def phase_adaptive(table, orders, want, jwant, h1, h8, spy, prof=None):
+    """The join and exchange layer at the port's defaults over the joins
+    phase's caches: a shuffled join demoted to broadcast, one that stays
+    shuffled, the row probe, the skew split, the hash functions and the
+    masked exchange; each query cold and twice warm, checked against
+    numpy or the earlier path's answers, with its operators, decisions,
+    exchanges, routes and launches."""
+    import torch
+    t0 = time.perf_counter()
+    answers = want
+    want = adaptive_reference(table, orders)
+    want["q3join"] = jwant["q3join"]
+    want["repart_agg"] = answers["repart_agg"]
+    host_s = time.perf_counter() - t0
+    queries = adaptive_queries(h1, h8)
+    emit({"phase": "adaptive.setup", "host_reference_s": host_s})
+    seeds = SeedSpy()
+    reset_launches()
+    spy.take()
+    problems = []
+    launches_by_query = {}
+    try:
+        for name, (session, fn) in queries.items():
+            before = read_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            got, aqe = fn()
+            cold = time.perf_counter() - t0
+            warm, warm_aqe = [], None
+            for _ in range(2):
+                t0 = time.perf_counter()
+                _, warm_aqe = fn()
+                warm.append(time.perf_counter() - t0)
+            if name == "compact_repart":
+                want["compact_repart"] = got
+            launches = {k: (v - before[k]) // 3
+                        for k, v in read_launches().items()}
+            launches_by_query[name] = launches
+            seed_forms = {k: v // 3 for k, v in seeds.take().items()}
+            execs = _exec_names(session)
+            bad = validate_adaptive(name, got, want, aqe, warm_aqe,
+                                    session.conf)
+            if not ADAPTIVE_EXPECT[name] <= set(execs):
+                bad.append(f"{name} ran {execs}, expected "
+                           f"{sorted(ADAPTIVE_EXPECT[name])}")
+            exchanges = _exchange_runs(session)
+            if name == "aqe_stays_shuffled" and exchanges != [
+                    ("ShuffleExchangeExec", 8, 8, 8, 0)] * 2:
+                # each side partitioned once: the measured build exchange
+                # is the one the shuffled join reads
+                bad.append(f"{name} exchanges {exchanges}")
+            if name == "hash_exprs" and seed_forms != {"per_row": 2,
+                                                       "scalar": 0}:
+                bad.append(f"{name} murmur3 seeds {seed_forms}")
+            problems += bad
+            emit({"phase": "adaptive.query", "query": name,
+                  "correct": not bad, "cold_s": cold, "warm_s": min(warm),
+                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+                  "decisions": aqe, "warm_decisions": warm_aqe,
+                  "exchanges": exchanges, "execs": execs,
+                  "routes": {k: v // 3 for k, v in spy.take().items()},
+                  "launches": launches, "murmur3_seeds": seed_forms})
+    finally:
+        seeds.restore()
+    hx = launches_by_query["hash_exprs"]["murmur3_int32"]
+    if hx != 2:
+        problems.append(f"hash_exprs launched B1 {hx} times a run, not 2 "
+                        f"(the quantity and the ship date, per-row seeds)")
+    if launches_by_query["masked_repart"]["murmur3_int32"] \
+            != launches_by_query["compact_repart"]["murmur3_int32"] or \
+            launches_by_query["masked_repart"]["murmur3_int32"] <= 0:
+        problems.append(f"masked and compact B1 launches differ: "
+                        f"{launches_by_query}")
+    counts = read_launches()
+    emit({"phase": "adaptive", "launches": counts, "correct": not problems,
+          "problems": problems})
+    if prof:
+        prof.run("adaptive", {k: v[1] for k, v in queries.items()})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -3506,6 +3900,10 @@ def main(argv) -> int:
         joins, h1, h8, jwant = phase_joins(table, orders, spy, prof)
         phases["joins_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
+        adaptive = phase_adaptive(table, orders, want, jwant, h1, h8, spy,
+                                  prof)
+        phases["adaptive_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         window, w1, wwant = phase_window(table, spy, prof)
         phases["window_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -3549,6 +3947,7 @@ def main(argv) -> int:
     for r in rows:
         by_path = {"cached": cached[r["name"]], "parquet": parquet[r["name"]],
                    "strings": strings[r["name"]], "joins": joins[r["name"]],
+                   "adaptive": adaptive[r["name"]],
                    "window": window[r["name"]], "sql": sql[r["name"]],
                    "exprs": exprs[r["name"]],
                    "sets": sets[r["name"]], "aggtypes": aggtypes[r["name"]],

@@ -43,10 +43,54 @@ MAX_READER_BATCH_SIZE_ROWS = _register(
 
 SHUFFLE_PARTITIONING = _register(
     "spark.rapids.shuffle.partitioning", "compact",
-    "Device repartition strategy for hash exchanges. Only 'compact' is "
-    "implemented: one stable counting sort per input batch makes each "
-    "target partition contiguous and a single fetch of the offsets vector "
-    "sizes the outputs.", str)
+    "Device repartition strategy for hash/round-robin/range exchanges. "
+    "'compact': one stable counting sort per input batch makes each "
+    "target partition contiguous, a single fetch of the n_out+1 offsets "
+    "vector sizes the outputs, and downstream operators see right-sized "
+    "sub-batches. 'masked': n_out full-capacity sub-batches per input "
+    "batch that share the planes, each with its own selection mask and a "
+    "row count left on the device. Any other value fails the exchange "
+    "with a ValueError.", str)
+
+SHUFFLE_COALESCE_TINY_ROWS = _register(
+    "spark.rapids.shuffle.coalesceTinyRows", 1024,
+    "Post-shuffle tiny-partition coalescing: after a compact exchange, "
+    "adjacent sub-batches carrying fewer than this many rows each merge "
+    "into one batch (bounded by 4x this target) before downstream "
+    "operators see them. The decision reads the host-int row counts the "
+    "offsets fetch already gave. 0 disables coalescing.", int)
+
+ADAPTIVE_ENABLED = _register(
+    "spark.rapids.sql.adaptive.enabled", True,
+    "Adaptive query execution: pick the join strategy at run time from "
+    "the measured build side, convert a shuffled hash join to broadcast "
+    "when the materialized build side lands under the byte threshold, "
+    "split skewed post-shuffle partitions, and reuse materialized "
+    "broadcast builds across queries. Master switch for every "
+    "spark.rapids.sql.adaptive.* feature below.", _bool_conv)
+
+ADAPTIVE_BROADCAST_BYTES = _register(
+    "spark.rapids.sql.adaptive.broadcastThresholdBytes", 64 << 20,
+    "Runtime shuffle-hash -> broadcast conversion threshold: the build "
+    "side of a shuffled hash join materializes its exchange first, and "
+    "when its measured device bytes land at or under this many bytes the "
+    "probe-side exchange never runs: the join replans as a broadcast hash "
+    "join over the raw probe partitions. <= 0 disables the conversion.",
+    int)
+
+ADAPTIVE_SKEW_FACTOR = _register(
+    "spark.rapids.sql.adaptive.skewFactor", 4.0,
+    "Skewed-partition split: a post-shuffle partition whose row count "
+    "exceeds this factor times the median partition is cut into "
+    "in-order slices of about the median's rows (at most 8 a batch). "
+    "<= 0 disables splitting.", float)
+
+ADAPTIVE_BUILD_REUSE = _register(
+    "spark.rapids.sql.adaptive.buildReuse.enabled", True,
+    "Cache materialized broadcast build sides across queries, keyed by "
+    "build-plan digest and table registration epoch, so a repeated join "
+    "skips the build. Entries invalidate when any temp view is "
+    "re-registered and are capped at 8.", _bool_conv)
 
 PALLAS_ENABLED = _register(
     "spark.rapids.sql.pallas.enabled", True,

@@ -7,11 +7,14 @@ which decodes on the host, and the device-decode pair
 ``CachedScanExec``, ``ProjectExec``,
 ``FilterExec``, ``CoalesceBatchesExec``, ``RangeExec``, ``UnionExec``,
 ``ExpandExec``, ``CollectExchangeExec``, the
-compact in-process exchanges (``ShuffleExchangeExec``,
-``RoundRobinExchangeExec``, ``RangeExchangeExec``), ``HashAggregateExec``
+in-process exchanges (``ShuffleExchangeExec``, ``RoundRobinExchangeExec``,
+``RangeExchangeExec``: compact or masked, with tiny coalescing and the
+skew split on read), ``HashAggregateExec``
 (partial, final or complete) with ``_AggKernels``, ``LimitExec``, ``TopNExec``, ``SortExec``,
 ``WindowExec``, the hash joins (``BroadcastHashJoinExec``,
-``ShuffledHashJoinExec``), the nested-loop and cartesian joins
+``ShuffledHashJoinExec``, and ``AdaptiveJoinExec`` with
+``_MaterializedExec``, which pick between them at run time; the other
+adaptive join is ``exec/adaptive.py``'s), the nested-loop and cartesian joins
 (``BroadcastNestedLoopJoinExec``, ``CartesianProductExec``), and
 ``CpuFallbackExec``, which runs one plan node that planning tagged off
 the device on the CPU backend (``exec/cpu_backend.py``).
@@ -94,10 +97,21 @@ class TorchExec:
         raise NotImplementedError
 
     def walk(self) -> Iterator["TorchExec"]:
-        """This operator and every operator below it, depth first."""
-        yield self
-        for c in self.children:
-            yield from c.walk()
+        """This operator and every operator below it, depth first; an
+        adaptive node is followed into the operator it chose at run time
+        and then into its own children, each operator visited once."""
+        seen = set()
+
+        def visit(n):
+            if id(n) in seen:
+                return
+            seen.add(id(n))
+            yield n
+            chosen = getattr(n, "_chosen", None)
+            for c in ([chosen] if chosen is not None else []) + n.children:
+                yield from visit(c)
+
+        yield from visit(self)
 
     def name(self) -> str:
         mode = getattr(self, "mode", None)
@@ -105,9 +119,13 @@ class TorchExec:
 
     def tree_string(self, indent: int = 0) -> str:
         """The operator tree, one ``name <- plan node`` line each, in the
-        JAX package's layout (an aggregate names its mode)."""
+        JAX package's layout (an aggregate names its mode); an adaptive
+        node shows the operator it chose, once it has chosen."""
         lines = [f"{'  ' * indent}{self.name()} <- {self.plan.describe()}"]
-        lines += [c.tree_string(indent + 1) for c in self.children]
+        chosen = getattr(self, "_chosen", None)
+        lines += [c.tree_string(indent + 1)
+                  for c in ([chosen] if chosen is not None
+                            else self.children)]
         return "\n".join(lines)
 
     def _ctx(self, batch: ColumnarBatch, live=None, **part) -> EvalCtx:
@@ -630,18 +648,45 @@ class CollectExchangeExec(TorchExec):
             yield from child.execute_partition(p)
 
 
+def partitioning_mode(conf) -> str:
+    """spark.rapids.shuffle.partitioning: 'compact' (the default) or
+    'masked'; anything else raises, as the JAX package's exchange does."""
+    v = str(conf.get(C.SHUFFLE_PARTITIONING)).strip().lower()
+    if v not in ("compact", "masked"):
+        raise ValueError(
+            "spark.rapids.shuffle.partitioning must be 'compact' or "
+            f"'masked', got {v!r}")
+    return v
+
+
 class _ExchangeExec(TorchExec):
-    """An in-process exchange in the compact mode: per input batch, a
-    target partition per row (``_pids``), one stable counting sort, one
-    fetch of the offsets vector, then contiguous right-sized sub-batches
-    per target partition. The whole child is partitioned once, on the
-    first read of any output partition."""
+    """An in-process exchange. Per input batch a target partition per row
+    (``_pids``), then, in the compact mode (the default), one stable
+    counting sort, one fetch of the offsets vector and contiguous
+    right-sized sub-batches per target partition; in the masked mode,
+    n_out full-capacity sub-batches that share the batch's planes, each
+    with its own live mask and its row count left on the device. The
+    whole child is partitioned once, on the first read of any output
+    partition, which counts its partitioning dispatches and host fetches
+    (``partition_dispatches``, ``partition_fetches``; the adaptive join
+    reads them as the work a conversion saves).
+
+    Reading a partition coalesces adjacent tiny sub-batches
+    (spark.rapids.shuffle.coalesceTinyRows), then splits a partition
+    whose rows exceed spark.rapids.sql.adaptive.skewFactor x the median
+    into in-order slices, both from host-int row counts only."""
 
     def __init__(self, plan, children, conf, device, n_out: int):
         super().__init__(plan, children, conf, device)
         self.n_out = n_out
         self._lock = threading.Lock()
         self._out: Optional[List[List[ColumnarBatch]]] = None
+        self._masked = False
+        self._skew_decision = None
+        self.partition_dispatches = 0
+        self.partition_fetches = 0
+        #: sub-batches merged by tiny coalescing
+        self.coalesced_batches = 0
 
     @property
     def num_partitions(self):
@@ -650,10 +695,18 @@ class _ExchangeExec(TorchExec):
     def _pids(self, batch: ColumnarBatch) -> torch.Tensor:
         raise NotImplementedError
 
+    def _emit(self, batch: ColumnarBatch, pid: torch.Tensor, out) -> None:
+        if self._masked:
+            self._emit_masked(batch, pid, out)
+        else:
+            self._emit_compact(batch, pid, out)
+
     def _emit_compact(self, batch: ColumnarBatch, pid: torch.Tensor,
                       out) -> None:
         sorted_b, off = RP.counting_sort_by_pid(batch, pid, self.n_out)
+        self.partition_dispatches += 1
         offsets = off.cpu().numpy()  # the one sync per input batch
+        self.partition_fetches += 1
         for p, sub in enumerate(RP.compact_slices(sorted_b, offsets,
                                                   self.n_out)):
             if sub is None:
@@ -662,19 +715,25 @@ class _ExchangeExec(TorchExec):
                 oc.bounds = ic.bounds
             out[p].append(sub)
 
+    def _emit_masked(self, batch: ColumnarBatch, pid: torch.Tensor,
+                     out) -> None:
+        """n_out sub-batches sharing the planes; each costs a partition
+        mask and a count that syncs when read."""
+        self.partition_dispatches += self.n_out
+        self.partition_fetches += self.n_out
+        for p, sub in enumerate(RP.masked_slices(batch, pid, self.n_out)):
+            out[p].append(sub)
+
     def _repartition(self, batches: Iterator[ColumnarBatch]):
         out: List[List[ColumnarBatch]] = [[] for _ in range(self.n_out)]
         for batch in batches:
-            self._emit_compact(batch, self._pids(batch), out)
+            self._emit(batch, self._pids(batch), out)
         return out
 
     def _materialize(self):
         with self._lock:
             if self._out is None:
-                mode = str(self.conf.get(C.SHUFFLE_PARTITIONING)).lower()
-                if mode != "compact":
-                    raise NotImplementedError(
-                        f"spark.rapids.shuffle.partitioning={mode!r}")
+                self._masked = partitioning_mode(self.conf) == "masked"
                 child = self.children[0]
                 batches = (b for p in range(child.num_partitions)
                            for b in child.execute_partition(p))
@@ -683,7 +742,115 @@ class _ExchangeExec(TorchExec):
         return self._out
 
     def execute_partition(self, pidx):
-        yield from self._materialize()[pidx]
+        out = self._materialize()
+        # coalesce first, then split: a split slice must never merge back
+        # into the partition it came from
+        yield from self._split_skewed(self._coalesce_tiny(out[pidx]), pidx)
+
+    @staticmethod
+    def _item_rows(b: ColumnarBatch) -> Optional[int]:
+        """The host-int row count of an output batch, or None when
+        counting would sync."""
+        if b.row_mask is None and isinstance(b.num_rows, int):
+            return b.num_rows
+        return None
+
+    def _skew_plan(self):
+        """(threshold_rows, target_rows, totals), decided once per
+        exchange from the materialized output's host-int counts, or None
+        when no partition qualifies. A partition with a count that would
+        sync stays out of the median and never splits."""
+        from spark_rapids_tpu_torch.exec import adaptive as AQ
+        with self._lock:
+            if self._skew_decision is None:
+                totals: List[Optional[int]] = []
+                for part in self._out or []:
+                    n: Optional[int] = 0
+                    for b in part:
+                        r = self._item_rows(b)
+                        if r is None:
+                            n = None
+                            break
+                        n += r
+                    totals.append(n)
+                t = AQ.skew_threshold(self.conf, totals)
+                self._skew_decision = False if t is None \
+                    else (t[0], t[1], totals)
+        return self._skew_decision or None
+
+    def _split_skewed(self, batches, pidx):
+        """A partition above skewFactor x the median splits each batch of
+        more than twice the median rows into in-order slices of
+        max(median, ceil(rows / 8)) rows, each keeping its column bounds:
+        every result is unchanged, one hot key range just stops running
+        as a single giant batch."""
+        from spark_rapids_tpu_torch.exec import adaptive as AQ
+        if self.n_out <= 1 or not AQ.enabled(self.conf) \
+                or float(self.conf.get(C.ADAPTIVE_SKEW_FACTOR)) <= 0:
+            return batches
+        sp = self._skew_plan()
+        if sp is None:
+            return batches
+        threshold, target, totals = sp
+        total = totals[pidx] if pidx < len(totals) else None
+        if total is None or total <= threshold:
+            return batches
+        return self._split_stream(batches, pidx, total, threshold, target)
+
+    def _split_stream(self, batches, pidx, total, threshold, target):
+        from spark_rapids_tpu_torch.exec import adaptive as AQ
+        nsplits = 0
+        for b in batches:
+            n = self._item_rows(b)
+            if n is None or n <= 2 * target:
+                yield b
+                continue
+            step = max(target, -(-n // 8))
+            for start in range(0, n, step):
+                sub = RP.slice_rows(b, start, min(step, n - start))
+                for ic, oc in zip(b.columns, sub.columns):
+                    oc.bounds = ic.bounds
+                sub.coalesced = b.coalesced
+                nsplits += 1
+                yield sub
+        if nsplits:
+            AQ.record(AQ.SKEW_SPLIT, partition=pidx, rows=int(total),
+                      median=int(target), threshold_rows=int(threshold),
+                      splits=nsplits)
+
+    def _coalesce_tiny(self, batches):
+        """Adjacent sub-batches of fewer than coalesceTinyRows rows merge,
+        up to 4x that many rows a merged batch, flagged ``coalesced`` so a
+        final aggregate merges it. Only host-int counts decide: masked
+        batches pass untouched."""
+        tiny = int(self.conf.get(C.SHUFFLE_COALESCE_TINY_ROWS))
+        if tiny <= 0 or self.n_out <= 1:
+            yield from batches
+            return
+        budget = tiny * 4
+        run: List[ColumnarBatch] = []
+        run_rows = 0
+        for b in batches:
+            n = self._item_rows(b)
+            small = n is not None and 0 < n < tiny
+            if small and run_rows + n <= budget:
+                run.append(b)
+                run_rows += n
+                continue
+            yield from self._flush_run(run)
+            if small:
+                run, run_rows = [b], n
+            else:
+                run, run_rows = [], 0
+                yield b
+        yield from self._flush_run(run)
+
+    def _flush_run(self, run):
+        if len(run) > 1:
+            self.coalesced_batches += len(run)
+            yield _coalesced(run)
+        elif run:
+            yield run[0]
 
 
 class ShuffleExchangeExec(_ExchangeExec):
@@ -768,7 +935,7 @@ class RangeExchangeExec(_ExchangeExec):
                     after = after | (eq & (plane > v))
                     eq = eq & (plane == v)
                 pid += after
-            self._emit_compact(batch, pid, out)
+            self._emit(batch, pid, out)
         return out
 
 
@@ -2288,8 +2455,10 @@ class BroadcastHashJoinExec(_HashJoinBase):
     every probe partition. Right and full joins are planned over a
     collected probe side, so they see one probe partition. A build side
     that reads one cached relation through filters, projections and
-    limits is kept on that relation (``_bcast_reuse``) and reused by later
-    queries while the relation's materialization stays the same."""
+    limits is kept on that relation (``_bcast_reuse``) and in the
+    digest-keyed cross-query cache (``exec/adaptive.py``), and reused by
+    later queries while the relation's materialization stays the same;
+    each reuse by another plan records a ``build_reuse`` decision."""
 
     def __init__(self, plan, children, conf, device):
         super().__init__(plan, children, conf, device)
@@ -2325,37 +2494,71 @@ class BroadcastHashJoinExec(_HashJoinBase):
         return rels[0], (fp, tuple(e.fingerprint()
                                    for e in self.plan.right_keys))
 
+    def _reuse_build(self, entry) -> ColumnarBatch:
+        self.plan._bcast_entry = entry
+        self._build, self._build_keys = entry["build"], entry["keys"]
+        return self._build
+
     def _build_side(self) -> ColumnarBatch:
+        from spark_rapids_tpu_torch.exec import adaptive as AQ
         with self._build_lock:
             if self._build is not None:
                 return self._build
             anchor, skey = self._reuse_anchor()
-            store = getattr(anchor, "_bcast_reuse", None) \
-                if anchor is not None else None
-            entry = store.get(skey) if store is not None else None
-            if entry is not None and entry["mat"] is not anchor.materialized:
-                del store[skey]  # a re-cache: stop pinning the old batches
-                entry = None
-            if entry is None:
-                right = self.children[1]
-                batches = [b for p in range(right.num_partitions)
-                           for b in right.execute_partition(p)]
-                build = K.compact_batch(K.concat_batches(batches)) \
-                    if batches else _empty_batch(self.plan.children[1].schema,
-                                                 self.device)
-                entry = {"build": build,
-                         "keys": self._eval(self.plan.right_keys, build),
-                         "dense": {}, "mat": None}
-                if anchor is not None and anchor.materialized is not None:
-                    entry["mat"] = anchor.materialized
-                    if store is None:
-                        store = anchor._bcast_reuse = {}
-                    if len(store) >= 8:
-                        store.pop(next(iter(store)))
-                    store[skey] = entry
-            self.plan._bcast_entry = entry
-            self._build, self._build_keys = entry["build"], entry["keys"]
-            return self._build
+            entry = getattr(self.plan, "_bcast_entry", None)
+            if anchor is not None and entry is not None \
+                    and entry["mat"] is not None \
+                    and entry["mat"] is anchor.materialized:
+                # this plan ran before: its own build, no decision
+                return self._reuse_build(entry)
+            entry = None
+            if anchor is not None:
+                store = getattr(anchor, "_bcast_reuse", None) or {}
+                entry = store.get(skey)
+                if entry is not None \
+                        and entry["mat"] is not anchor.materialized:
+                    del store[skey]  # a re-cache: stop pinning old batches
+                    entry = None
+                source = "anchor"
+                if entry is None:
+                    # the second chance: the digest-keyed cross-query
+                    # cache, for another plan tree reading the same cached
+                    # relation through the same build shape; a hit
+                    # re-warms the relation's store
+                    entry = AQ.build_cache_get(
+                        self.conf, self.plan.children[1], skey, anchor)
+                    source = "digest"
+                    if entry is not None:
+                        if len(store) >= 8:
+                            store.pop(next(iter(store)))
+                        store[skey] = entry
+                        anchor._bcast_reuse = store
+                if entry is not None:
+                    if AQ.enabled(self.conf):
+                        AQ.record(AQ.BUILD_REUSE, source=source,
+                                  dispatches_saved=int(
+                                      entry.get("build_batches", 0)) or 1)
+                    return self._reuse_build(entry)
+            right = self.children[1]
+            batches = [b for p in range(right.num_partitions)
+                       for b in right.execute_partition(p)]
+            build = K.compact_batch(K.concat_batches(batches)) \
+                if batches else _empty_batch(self.plan.children[1].schema,
+                                             self.device)
+            entry = {"build": build,
+                     "keys": self._eval(self.plan.right_keys, build),
+                     "dense": {}, "mat": None, "build_batches": len(batches)}
+            if anchor is not None and anchor.materialized is not None:
+                entry["mat"] = anchor.materialized
+                store = getattr(anchor, "_bcast_reuse", None)
+                if store is None:
+                    store = anchor._bcast_reuse = {}
+                if len(store) >= 8:
+                    store.pop(next(iter(store)))
+                store[skey] = entry
+                AQ.build_cache_put(self.conf, self.plan.children[1], skey,
+                                   anchor, entry)
+            return self._reuse_build(entry)
 
     def execute_partition(self, pidx):
         build = self._build_side()
@@ -2377,6 +2580,80 @@ class ShuffledHashJoinExec(_HashJoinBase):
         yield from self._probe_stream(
             self.children[0].execute_partition(pidx), build, build_keys,
             self.plan.how in ("right", "full"))
+
+
+class AdaptiveJoinExec(TorchExec):
+    """The join strategy picked at run time where the planner cannot
+    estimate the build side: the build side streams until its rows pass
+    spark.rapids.sql.join.broadcastRowThreshold. Under it the streamed
+    batches feed a broadcast hash join; over it they are dropped and both
+    sides hash-exchange, the build side running again through its
+    exchange (holding the whole of a side too big to broadcast would cost
+    more device memory than running it twice)."""
+
+    def __init__(self, plan, children, conf, device, part_keys):
+        super().__init__(plan, children, conf, device)
+        self.part_keys = part_keys
+        self._lock = threading.Lock()
+        self._chosen: Optional[TorchExec] = None
+
+    def _choose(self) -> TorchExec:
+        from spark_rapids_tpu_torch.exec import adaptive as AQ
+        with self._lock:
+            if self._chosen is not None:
+                return self._chosen
+            left, right = self.children
+            threshold = self.conf.get(C.BROADCAST_JOIN_ROW_THRESHOLD)
+            batches, rows, overflow = [], 0, False
+            for p in range(right.num_partitions):
+                for b in right.execute_partition(p):
+                    batches.append(b)
+                    rows += int(b.num_rows)
+                    if rows > threshold:
+                        overflow = True
+                        break
+                if overflow:
+                    break
+            if not overflow:
+                src = _MaterializedExec(self.plan.children[1], batches,
+                                        self.conf, self.device)
+                self._chosen = BroadcastHashJoinExec(
+                    self.plan, [left, src], self.conf, self.device)
+                AQ.record(AQ.BROADCAST_CONVERSION, source="row_probe",
+                          build_rows=rows, threshold_rows=threshold,
+                          # both sides' exchanges never run
+                          dispatches_saved=2 * max(len(batches), 1))
+            else:
+                del batches
+                lkeys, rkeys = self.part_keys
+                n_out = left.num_partitions
+                lex = ShuffleExchangeExec(self.plan, [left], self.conf,
+                                          self.device, lkeys, n_out)
+                rex = ShuffleExchangeExec(self.plan, [right], self.conf,
+                                          self.device, rkeys, n_out)
+                self._chosen = ShuffledHashJoinExec(
+                    self.plan, [lex, rex], self.conf, self.device,
+                    part_keys=self.part_keys)
+            return self._chosen
+
+    def execute_partition(self, pidx):
+        yield from self._choose().execute_partition(pidx)
+
+
+class _MaterializedExec(TorchExec):
+    """Batches already on the device, as one partition (the adaptive
+    joins' materialized build side)."""
+
+    def __init__(self, plan, batches, conf, device):
+        super().__init__(plan, [], conf, device)
+        self._batches = list(batches)
+
+    @property
+    def num_partitions(self):
+        return 1
+
+    def execute_partition(self, pidx):
+        yield from self._batches
 
 
 # ---------------------------------------------------------------------------

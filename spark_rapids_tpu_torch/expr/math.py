@@ -5,8 +5,8 @@ hyperbolic functions, ``Signum``, ``Cbrt``, ``Cot``/``Sec``/``Csc``,
 ``ToDegrees``/``ToRadians``, ``Expm1``, ``Log1p``, ``Rint``), ``Ceil``,
 ``Floor``, ``Round``, ``BRound``, ``Pow``, ``Atan2``, ``Hypot``,
 ``Logarithm``, ``Factorial``, ``Pmod``, ``UnaryPositive``,
-``WidthBucket``, ``NaNvl``, ``BitwiseCount`` and ``BitwiseGet``: all but
-``Murmur3Hash``, which comes with ROADMAP A5. The device code follows the
+``WidthBucket``, ``NaNvl``, ``BitwiseCount``, ``BitwiseGet`` and
+``Murmur3Hash`` (``hash``). The device code follows the
 JAX package's XLA arithmetic step for step (so rounding and halfway cases
 agree bit for bit); each class also evaluates on the CPU backend
 (``eval_cpu``, the JAX package's numpy arithmetic).
@@ -219,6 +219,41 @@ class ShiftRight(_Shift):
 class ShiftRightUnsigned(_Shift):
     left = False
     arithmetic = False
+
+
+class Murmur3Hash(Expression):
+    """hash(...): Spark's Murmur3 (seed 42) over any number of columns,
+    chained per row (``ops/kernels.spark_murmur3_batch``); an int32-family
+    column hashes through the murmur3 kernel on the card, with the
+    running per-row seed after the first column."""
+
+    def __init__(self, *children):
+        self.children = list(children)
+
+    def data_type(self):
+        return T.INT32
+
+    def with_children(self, children):
+        return Murmur3Hash(*children)
+
+    def eval(self, ctx):
+        from spark_rapids_tpu_torch.ops import kernels as K
+        cols = [c.eval(ctx) for c in self.children]
+        h = K.spark_murmur3_batch(cols, ctx.num_rows, live=ctx.row_mask)
+        return ColumnVector(T.INT32, h, None)
+
+    def eval_cpu(self, cols, ansi=False):
+        # the CPU backend's columns as a batch on the CPU: the same code,
+        # on the kernel's plain version
+        from spark_rapids_tpu_torch.expr.misc import cpu_batch
+        from spark_rapids_tpu_torch.ops import kernels as K
+        ins = [c.eval_cpu(cols, ansi) for c in self.children]
+        n = len(ins[0].values)
+        if n == 0:
+            return CpuCol(T.INT32, np.zeros(0, np.int32), np.ones(0, bool))
+        batch = cpu_batch(ins)
+        h = K.spark_murmur3_batch(batch.columns, n)
+        return CpuCol(T.INT32, h[:n].numpy().copy(), np.ones(n, np.bool_))
 
 
 # ---------------------------------------------------------------------------

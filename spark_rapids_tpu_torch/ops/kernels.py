@@ -2,7 +2,8 @@
 tensors.
 
 Counterpart of ``spark_rapids_tpu/ops/kernels.py`` (murmur3 family,
-``spark_hash_column``, ``partition_hash_batch``, ``normalize_key``,
+``spark_hash_column``, ``spark_murmur3_batch``, ``partition_hash_batch``,
+the xxhash64 pair ``xxhash64_int32``/``xxhash64_int64``, ``normalize_key``,
 ``string_chunk_count``, ``string_chunk_keys``, ``lexsort_indices``,
 ``gather_*``, ``LazyGatheredCols``, ``flat_string_as_dict``, ``filter_indices``,
 ``mask_filter_batch``, ``compact_batch``, ``slice_batch``,
@@ -13,6 +14,9 @@ and the JAX package's join form over [lo, hi) ranges,
 Hash planes are int32 tensors holding the uint32 bit pattern. Only the
 int32 hash has a kernel (``ops/murmur3_kernel.py``); the int64 and byte
 hashes are plain tensor code, as they are plain XLA in the JAX package.
+xxhash64 works on int64 planes holding the uint64 bit pattern: products
+and sums wrap alike in both, and right shifts are made logical by hand
+(the CPU build of torch has no uint64 shifts).
 """
 from __future__ import annotations
 
@@ -139,6 +143,24 @@ def spark_hash_column(col: ColumnVector, num_rows, seed: Seed,
     return torch.where(valid, h, seed_plane)
 
 
+def spark_murmur3_batch(cols: Sequence[ColumnVector], num_rows,
+                        seed: int = SPARK_MURMUR3_SEED,
+                        live: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Spark's Murmur3Hash(cols, 42), chained per row: each column's hash
+    seeds the next. The seed stays a scalar until the first column makes
+    it a plane, so a leading dictionary column hashes its vocabulary once;
+    an int32-family column after it takes the murmur3 kernel with the
+    running per-row seed."""
+    h: Seed = seed
+    for c in cols:
+        h = spark_hash_column(c, num_rows, h, live=live)
+    if not isinstance(h, torch.Tensor):
+        h = MK.from_u32(torch.full((cols[0].capacity,), h & 0xFFFFFFFF,
+                                   dtype=torch.int64,
+                                   device=cols[0].device))
+    return h
+
+
 def partition_hash_batch(cols: Sequence[ColumnVector], num_rows,
                          seed: int = SPARK_MURMUR3_SEED,
                          live: Optional[torch.Tensor] = None
@@ -161,6 +183,66 @@ def partition_hash_batch(cols: Sequence[ColumnVector], num_rows,
                                    dtype=torch.int64,
                                    device=cols[0].device))
     return h
+
+
+# ---------------------------------------------------------------------------
+# xxhash64 (Spark's XxHash64Function for fixed-width values)
+# ---------------------------------------------------------------------------
+
+_M64 = (1 << 64) - 1
+
+
+def signed64(v: int) -> int:
+    """A 64-bit pattern as the int64 that holds it."""
+    v &= _M64
+    return v - (1 << 64) if v >= 1 << 63 else v
+
+
+def shr64(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Logical right shift of an int64 plane by 0 < k < 64."""
+    return (x >> k) & ((1 << (64 - k)) - 1)
+
+
+def _rotl64(x: torch.Tensor, r: int) -> torch.Tensor:
+    return (x << r) | shr64(x, 64 - r)
+
+
+_XXP1 = signed64(0x9E3779B185EBCA87)
+_XXP2 = signed64(0xC2B2AE3D27D4EB4F)
+_XXP3 = signed64(0x165667B19E3779F9)
+_XXP4 = signed64(0x85EBCA77C2B2AE63)
+_XXP5 = signed64(0x27D4EB2F165667C5)
+
+
+def _xx_avalanche(h: torch.Tensor) -> torch.Tensor:
+    h = (h ^ shr64(h, 33)) * _XXP2
+    h = (h ^ shr64(h, 29)) * _XXP3
+    return h ^ shr64(h, 32)
+
+
+def _xx_seed(seed: Seed, add: int, like: torch.Tensor) -> torch.Tensor:
+    if isinstance(seed, torch.Tensor):
+        return seed.to(torch.int64) + signed64(_XXP5 + add)
+    return torch.full_like(like, signed64(int(seed) + _XXP5 + add),
+                           dtype=torch.int64)
+
+
+def xxhash64_int64(values: torch.Tensor, seed: Seed = 42) -> torch.Tensor:
+    """XXH64.hashLong of an int64 plane; seed is a scalar or a per-row
+    int64 plane (Spark chains column hashes through the seed)."""
+    v = values.to(torch.int64)
+    h = _xx_seed(seed, 8, v)
+    h = h ^ (_rotl64(v * _XXP2, 31) * _XXP1)
+    return _xx_avalanche(_rotl64(h, 27) * _XXP1 + _XXP4)
+
+
+def xxhash64_int32(values: torch.Tensor, seed: Seed = 42) -> torch.Tensor:
+    """XXH64.hashInt (Spark's hash of fixed types of at most 4 bytes): the
+    value's uint32 pattern."""
+    v = values.to(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    h = _xx_seed(seed, 4, v)
+    h = h ^ (v * _XXP1)
+    return _xx_avalanche(_rotl64(h, 23) * _XXP2 + _XXP3)
 
 
 # ---------------------------------------------------------------------------

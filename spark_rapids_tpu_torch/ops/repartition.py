@@ -1,10 +1,12 @@
 """Counting-sort repartition: the compact exchange tail.
 
 Counterpart of ``spark_rapids_tpu/ops/repartition.py`` (``partition_counts``,
-``counting_sort_by_pid``, ``compact_slices``). A stable sort by target
-partition makes each partition's rows contiguous in input order; the
-n_out+1 offsets vector is the only thing the host fetches, and each
-partition becomes a right-sized sub-batch sliced from the sorted planes.
+``counting_sort_by_pid``, ``compact_slices``, ``slice_rows``). A stable
+sort by target partition makes each partition's rows contiguous in input
+order; the n_out+1 offsets vector is the only thing the host fetches, and
+each partition becomes a right-sized sub-batch sliced from the sorted
+planes. ``masked_slices`` is the masked mode's tail: n_out sub-batches
+sharing the input's planes under their own live masks.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import numpy as np
 import torch
 
 from spark_rapids_tpu_torch.columnar.batch import (
-    ColumnVector, ColumnarBatch, round_capacity,
+    ColumnVector, ColumnarBatch, LazyRowCount, round_capacity,
 )
 from spark_rapids_tpu_torch.ops import kernels as K
 
@@ -77,4 +79,27 @@ def compact_slices(sorted_batch: ColumnarBatch, offsets: np.ndarray,
         cap = round_capacity(n)
         out.append(ColumnarBatch([_slice_column(c, start, n, cap)
                                   for c in sorted_batch.columns], n))
+    return out
+
+
+def slice_rows(batch: ColumnarBatch, start: int, length: int
+               ) -> ColumnarBatch:
+    """Rows [start, start + length) of an unmasked batch with a host-int
+    count, as a sub-batch at round_capacity(length), the capacity bucket
+    the compact exchange's own slices use (the skew split's primitive)."""
+    sub = K.slice_batch(batch, int(start), int(length))
+    return ColumnarBatch(sub.columns, int(length))
+
+
+def masked_slices(batch: ColumnarBatch, pid: torch.Tensor,
+                  n_out: int) -> List[ColumnarBatch]:
+    """The masked mode: per target partition a sub-batch sharing the
+    batch's planes, live where the batch is live and pid is that
+    partition, its count left on the device."""
+    live = batch.live_mask()
+    out = []
+    for p in range(n_out):
+        m = live & (pid == p)
+        out.append(ColumnarBatch(batch.columns,
+                                 LazyRowCount(m.sum(dtype=torch.int32)), m))
     return out

@@ -30,8 +30,8 @@ several partitions collect and aggregate once, or run partial -> collect
 -> final when the input's estimate is above 64M rows or unknown), sort (a
 range exchange first over several partitions), limit and TopN, window
 functions (a hash exchange on the partition keys, or a collect when there
-are none, below ``WindowExec``), equi-joins of every type, broadcast or
-shuffled as the JAX package plans them with adaptive execution off,
+are none, below ``WindowExec``), equi-joins of every type, broadcast,
+shuffled or adaptive (``exec/adaptive.py``) as the JAX package plans them,
 non-equi joins (``BroadcastNestedLoopJoinExec``) and cross joins
 (``CartesianProductExec``).
 """
@@ -43,6 +43,7 @@ from typing import Callable, Dict, List, Optional, Type
 
 from spark_rapids_tpu_torch import config as C
 from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.exec import adaptive as AQ
 from spark_rapids_tpu_torch.exec import nodes as X
 from spark_rapids_tpu_torch.expr import aggregates as A
 from spark_rapids_tpu_torch.expr import core as E
@@ -183,6 +184,12 @@ expr_rule(S.Like, Sigs.COMMON, Sigs.COMMON, "SQL LIKE", extra=_like_check)
 expr_rule(S._StringEquals, Sigs.COMMON, Sigs.COMMON, "string equality")
 expr_rule(S._AndExpr, Sigs.COMMON, Sigs.COMMON, "internal AND")
 
+expr_rule(MA.Murmur3Hash, Sigs.COMMON, Sigs.COMMON,
+          "Spark murmur3 hash (seed 42), bit-parity with CPU Spark")
+expr_rule(MX.XxHash64, Sigs.COMMON, Sigs.COMMON,
+          "xxhash64 (Spark-compatible, seed 42)",
+          extra=lambda e: None if e.supported_on_tpu()
+          else "xxhash64 over string/nested columns runs on CPU")
 expr_rule(MX.Rand, Sigs.COMMON, Sigs.COMMON,
           "rand([seed]) — splitmix64 stream (distribution-equivalent to "
           "Spark's XORShift, stream differs; documented)")
@@ -663,11 +670,16 @@ def _common_keys(plan):
 
 
 def _convert_join(plan, children, conf, device):
-    """The JAX package's join planning with adaptive execution off: cross
-    joins take the cartesian product, joins without equi keys the nested
-    loop; otherwise a build side (the right) estimated at most
-    spark.rapids.sql.join.broadcastRowThreshold rows broadcasts; a larger
-    one under a multi-partition probe hash-exchanges both sides."""
+    """The JAX package's join planning: cross joins take the cartesian
+    product, joins without equi keys the nested loop; otherwise a build
+    side (the right) estimated at most
+    spark.rapids.sql.join.broadcastRowThreshold rows broadcasts. Under a
+    multi-partition probe and adaptive execution (the default), a build
+    side of unknown size becomes ``AdaptiveJoinExec`` (a row probe at run
+    time) and a larger one ``AdaptiveShuffledHashJoinExec`` (the build
+    side's exchange measured first); right and full joins never go
+    adaptive. Without adaptive execution a larger build hash-exchanges
+    both sides."""
     left, right = children
     if plan.how == "cross":
         return X.CartesianProductExec(plan, [left, right], conf, device)
@@ -683,8 +695,16 @@ def _convert_join(plan, children, conf, device):
     small = est is not None and est <= conf.get(
         C.BROADCAST_JOIN_ROW_THRESHOLD)
     multi = left.num_partitions > 1
+    adaptive = bool(conf.get(C.ADAPTIVE_ENABLED))
+    if multi and est is None and adaptive \
+            and plan.how not in ("right", "full"):
+        return X.AdaptiveJoinExec(plan, [left, right], conf, device,
+                                  part_keys=_common_keys(plan))
     if multi and not small:
         lks, rks = _common_keys(plan)
+        if adaptive and conf.get(C.ADAPTIVE_BROADCAST_BYTES) > 0:
+            return AQ.AdaptiveShuffledHashJoinExec(
+                plan, [left, right], conf, device, part_keys=(lks, rks))
         n_out = left.num_partitions
         left = X.ShuffleExchangeExec(plan, [left], conf, device, lks, n_out)
         right = X.ShuffleExchangeExec(plan, [right], conf, device, rks, n_out)

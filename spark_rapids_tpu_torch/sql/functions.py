@@ -8,8 +8,8 @@
 and ``grouping_id``; the scalar functions ``when``/``otherwise``,
 ``coalesce``, ``nvl``, ``nullif``, ``isnull``, ``isnan``, ``abs``,
 ``greatest``, ``least``, ``bitwise_not``, ``shiftleft``, ``shiftright``,
-``shiftrightunsigned``, ``rand``, ``spark_partition_id`` and
-``monotonically_increasing_id``; the math functions of ``expr/math.py``
+``shiftrightunsigned``, ``rand``, ``spark_partition_id``,
+``monotonically_increasing_id``, ``hash`` and ``xxhash64``; the math functions of ``expr/math.py``
 (``sqrt``, ``exp``, ``log`` and its family, the trigonometric and
 hyperbolic functions, ``ceil``, ``floor``, ``round``, ``bround``,
 ``rint``, ``signum``, ``pow``, ``atan2``, ``hypot``, ``pmod``,
@@ -31,8 +31,8 @@ from spark_rapids_tpu_torch.expr import window as W
 from spark_rapids_tpu_torch.expr.core import Expression, col, lit
 
 
-#: the JAX package's functions this module does not have yet (ROADMAP A9;
-#: hash and xxhash64 come with A5). The SQL front door and the plan
+#: the JAX package's functions this module does not have yet (ROADMAP A9).
+#: The SQL front door and the plan
 #: ingestion raise naming A9 where a query calls one of them, rather than
 #: calling it an unknown function.
 NOT_PORTED = (
@@ -45,7 +45,7 @@ NOT_PORTED = (
     "dayofweek", "dayofyear", "element_at", "elt", "exists", "explode",
     "explode_outer", "filter", "find_in_set", "flatten", "forall",
     "format_number", "format_string", "from_json", "from_unixtime",
-    "from_utc_timestamp", "get_json_object", "hash", "hex", "hive_hash",
+    "from_utc_timestamp", "get_json_object", "hex", "hive_hash",
     "hour", "initcap", "instr", "json_tuple", "last_day", "left",
     "levenshtein", "locate", "lpad", "ltrim", "luhn_check", "make_date",
     "map_concat", "map_entries", "map_filter", "map_from_arrays", "map_keys",
@@ -59,7 +59,7 @@ NOT_PORTED = (
     "to_utc_timestamp", "transform", "transform_keys", "transform_values",
     "translate", "trim", "trunc", "unbase64", "unhex", "unix_date",
     "unix_micros", "unix_millis", "unix_seconds", "unix_timestamp",
-    "url_decode", "url_encode", "weekday", "weekofyear", "xxhash64", "year",
+    "url_decode", "url_encode", "weekday", "weekofyear", "year",
     "zip_with",
 )
 
@@ -184,6 +184,16 @@ def rand(seed: int = 0):
 
 def spark_partition_id():
     return E.SparkPartitionID()
+
+
+def hash(*cs):  # noqa: A001
+    """Spark's murmur3 hash (seed 42) of the columns, an int."""
+    return MA.Murmur3Hash(*[_e(c) for c in cs])
+
+
+def xxhash64(*cs):
+    """Spark's xxhash64 (seed 42) of the columns, a long."""
+    return MI.XxHash64([_e(c) for c in cs])
 
 
 def monotonically_increasing_id():

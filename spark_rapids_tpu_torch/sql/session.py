@@ -2,8 +2,9 @@
 
 Counterpart of ``spark_rapids_tpu/sql/session.py`` ``TpuSession``
 (``create_dataframe``, ``range``, ``read_parquet``, the SQL front door:
-``create_or_replace_temp_view``, ``table`` and ``sql``, ``collect``, and
-the device-side compaction of sparse results before the download).
+``create_or_replace_temp_view``, ``table`` and ``sql``, ``collect``,
+``last_aqe`` and ``explain_aqe``, and the device-side compaction of sparse
+results before the download).
 ``collect`` tags the plan and converts it (``plan/overrides.py``): what
 is tagged off the device runs one operator at a time on the CPU backend.
 spark.rapids.sql.explain=NOT_ON_TPU|ALL logs the placement report, and
@@ -15,12 +16,14 @@ from __future__ import annotations
 import glob
 import logging
 import os
+import threading
 from typing import Dict, List, Optional
 
 import pyarrow as pa
 import torch
 
 from spark_rapids_tpu_torch import config as C
+from spark_rapids_tpu_torch.exec import adaptive as AQ
 from spark_rapids_tpu_torch.exec.cpu_backend import execute_cpu
 from spark_rapids_tpu_torch.exec.nodes import empty_table, host_table
 from spark_rapids_tpu_torch.expr.core import SparkException
@@ -29,6 +32,10 @@ from spark_rapids_tpu_torch.plan.overrides import convert_plan, wrap_and_tag
 from spark_rapids_tpu_torch.sql.dataframe import DataFrame
 
 _LOG = logging.getLogger("spark_rapids_tpu_torch")
+
+#: per-thread collect nesting depth: only a top-level action (depth 0 at
+#: entry) opens and closes the adaptive decision list
+_COLLECT_DEPTH = threading.local()
 
 
 class TorchSession:
@@ -48,12 +55,15 @@ class TorchSession:
         self.last_exec = None
         self.last_meta = None
         self._views: Dict[str, DataFrame] = {}
+        self._last_aqe: Optional[dict] = None
 
     # -- the SQL front door ------------------------------------------------
     def create_or_replace_temp_view(self, name: str, df: DataFrame) -> None:
         """Register a DataFrame for ``sql`` FROM resolution (names are
-        case-insensitive)."""
+        case-insensitive). Registering advances the table epoch, which
+        empties the cross-query broadcast build cache."""
         self._views[name.lower()] = df
+        AQ.bump_table_version()
 
     createOrReplaceTempView = create_or_replace_temp_view
 
@@ -110,6 +120,29 @@ class TorchSession:
         return DataFrame(P.ParquetScan(files, columns), self)
 
     def collect(self, plan: P.PlanNode) -> pa.Table:
+        depth = getattr(_COLLECT_DEPTH, "d", 0)
+        _COLLECT_DEPTH.d = depth + 1
+        if depth == 0:
+            AQ.on_query_start(self.conf)
+        try:
+            return self._collect(plan)
+        finally:
+            _COLLECT_DEPTH.d = depth
+            if depth == 0:
+                self._last_aqe = AQ.finish_query()
+
+    def last_aqe(self) -> Optional[dict]:
+        """The adaptive decisions of the last top-level action: the
+        decision list (``decisions``), per-kind ``counts`` and the total
+        ``dispatches_saved``; None when it made no decision."""
+        return self._last_aqe
+
+    def explain_aqe(self) -> List[str]:
+        """The last action's adaptive decisions as report lines
+        (``render_text``): a header, then one line a decision."""
+        return AQ.render_text(self._last_aqe)
+
+    def _collect(self, plan: P.PlanNode) -> pa.Table:
         if self.conf.get(C.SQL_MODE).lower() == "explainonly":
             self.last_exec = None
             self.last_meta = wrap_and_tag(plan, self.conf)

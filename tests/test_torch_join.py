@@ -10,7 +10,10 @@ Three levels, each on the same seeded inputs through both packages:
   unique-key mask-through probe; cross joins with and without a
   condition, and non-equi joins of every type over one, several and
   single-row build tiles;
-- bench.py's q3join whole, and the operators both packages plan.
+- bench.py's q3join whole, and the operators both packages plan, with
+  adaptive execution off and at its default (on): broadcast, converted
+  from shuffled to broadcast at run time, and kept shuffled, with the
+  adaptive decisions held to the JAX package's.
 
 Everything compares exactly: join results hold no float arithmetic, and
 q3join's revenue sums take the exact packed-radix routes in both.
@@ -24,7 +27,8 @@ import torch
 
 from asserts import assert_tables_equal
 from torch_port_helpers import (
-    from_jax_batch, jax_api, make_tables, q3join, torch_api,
+    aqe_decisions, chosen_execs, from_jax_batch, jax_api, make_tables, q3join,
+    torch_api,
 )
 
 from spark_rapids_tpu.columnar.batch import from_arrow as jax_from_arrow
@@ -436,3 +440,52 @@ def test_q3join_matches_jax(parts, monkeypatch):
     assert "TopNExec" in planned
     assert ("ShuffledHashJoinExec" if parts > 1
             else "BroadcastHashJoinExec") in planned
+
+
+#: q3join with adaptive execution at its default (on): (partitions, conf,
+#: the join the adaptive plan runs)
+ADAPTIVE_Q3 = {
+    "broadcast": (1, {}, "BroadcastHashJoinExec"),
+    "converted": (4, SHUFFLED, "BroadcastHashJoinExec"),
+    "shuffled": (4, dict(SHUFFLED, **{
+        "spark.rapids.sql.adaptive.broadcastThresholdBytes": 0}),
+        "ShuffledHashJoinExec"),
+}
+ADAPTIVE_PLANNED = PLANNED | {"AdaptiveShuffledHashJoinExec",
+                              "AdaptiveJoinExec", "_MaterializedExec",
+                              "ShuffleExchangeExec"}
+
+
+def _chosen_names(root) -> set:
+    return {type(n).__name__ for n in chosen_execs(root)}
+
+
+@pytest.mark.parametrize("case", list(ADAPTIVE_Q3))
+def test_q3join_adaptive_matches_jax(case, monkeypatch):
+    import jax
+    from spark_rapids_tpu.exec import adaptive as JAQ
+    from spark_rapids_tpu_torch.exec import adaptive as AQ
+    real = jax.devices  # the JAX package's one-device aggregate plan
+    monkeypatch.setattr(jax, "devices", lambda *a, **k: real(*a, **k)[:1])
+    AQ.reset_for_tests()
+    JAQ.reset_for_tests()
+    parts, conf, join = ADAPTIVE_Q3[case]
+    li, od = make_tables(20_000)
+    out = []
+    for api in (torch_api(), jax_api()):
+        s = api.session(conf)
+        dl = s.create_dataframe(li, num_partitions=parts).cache()
+        do = s.create_dataframe(od, num_partitions=parts).cache()
+        out.append((q3join(api, dl, do).collect(), s))
+    (got, ps), (want, js) = out
+    assert_tables_equal(got, want)
+    assert got.num_rows == 10
+    planned = _chosen_names(ps.last_exec) & ADAPTIVE_PLANNED
+    assert planned == _chosen_names(js._last_exec) & ADAPTIVE_PLANNED
+    assert join in planned and "TopNExec" in planned
+    assert aqe_decisions(ps.last_aqe()) == aqe_decisions(js.last_aqe())
+    if case == "converted":
+        assert [d["kind"] for d in ps.last_aqe()["decisions"]] == [
+            "broadcast_conversion"]
+    AQ.reset_for_tests()
+    JAQ.reset_for_tests()

@@ -253,11 +253,15 @@ def test_routes_not_ported_yet_raise_with_their_name(lineitem):
                       .select(api.col("l_orderkey"),
                               api.F.rank().over(w).alias("rk")).collect())
     assert_tables_equal(*ranked, ignore_order=True)
-    # the masked partitioning mode is ROADMAP A5
-    masked = P.session({"spark.rapids.shuffle.partitioning": "masked"})
-    with pytest.raises(NotImplementedError, match="masked"):
-        masked.create_dataframe(lineitem.slice(0, 1000)) \
-            .repartition(4, P.col("l_shipdate")).collect()
+    # the masked partitioning mode (ported with ROADMAP A5) runs, and
+    # answers as the compact mode and the JAX package's masked mode do
+    parted = []
+    for api, mode in ((P, "masked"), (P, "compact"), (J, "masked")):
+        parted.append(api.session({"spark.rapids.shuffle.partitioning": mode})
+                      .create_dataframe(lineitem.slice(0, 1000))
+                      .repartition(4, api.col("l_shipdate")).collect())
+    assert_tables_equal(parted[0], parted[1])
+    assert_tables_equal(parted[0], parted[2])
     # routes that raised before they were ported, the packed sort route
     # (keys packing into more than 23 bits), the round-robin exchange and
     # the cross join, now match the JAX package

@@ -6,7 +6,9 @@ results are compared row by row, in order, exactly: sorts and TopN define
 the order (ties keep the input order in both), a limit keeps its
 partitions' order, and a repartition's collect concatenates its
 partitions, so equal order means equal partitioning. String sort keys
-compare by exact byte order (8-byte chunks) in both packages.
+compare by exact byte order (8-byte chunks) in both packages. Most cases
+run with adaptive execution off in both packages; the exchanges also run
+at its default (on), where tiny post-shuffle sub-batches coalesce.
 """
 from __future__ import annotations
 
@@ -69,12 +71,14 @@ def _table(n=ROWS, seed=21):
     })
 
 
-def _both(build, table=None, conf=None, parts=1):
-    """(port result, port session, JAX session, JAX DataFrame)."""
+def _both(build, table=None, conf=None, parts=1, adaptive=False):
+    """(port result, port session, JAX session, JAX DataFrame); adaptive
+    execution off unless ``adaptive``."""
     table = _table() if table is None else table
     out = []
     for api in (torch_api(), jax_api()):
-        s = api.session(dict(ADAPTIVE_OFF, **(conf or {})))
+        s = api.session(dict({} if adaptive else ADAPTIVE_OFF,
+                             **(conf or {})))
         df = build(api, s.create_dataframe(table, num_partitions=parts))
         out.append((df.collect(), s, df))
     (got, ps, _), (want, js, jdf) = out
@@ -225,6 +229,30 @@ def test_round_robin_repartition_matches_jax(parts):
     sizes = [sum(int(b.num_rows) for b in root.execute_partition(p))
              for p in range(4)]
     assert sum(sizes) == got.num_rows and max(sizes) - min(sizes) <= parts
+
+
+#: the exchanges at adaptive execution's default (on): tiny coalescing
+#: merges their small post-shuffle sub-batches in both packages
+ADAPTIVE_EXCHANGES = {
+    "range_sort": (lambda api, df: df.select(
+        api.col("f"), api.col("i"), api.col("k")).order_by(
+        api.col("k").desc(), api.col("i").asc()), 4,
+        {"SortExec", "RangeExchangeExec"}),
+    "round_robin": (lambda api, df: df.filter(
+        api.col("k") > api.lit(5)).repartition(6), 3,
+        {"RoundRobinExchangeExec"}),
+    "topn": (lambda api, df: df.order_by(api.col("f").desc(),
+                                         api.col("i").asc()).limit(50), 4,
+             {"TopNExec"}),
+}
+
+
+@pytest.mark.parametrize("case", list(ADAPTIVE_EXCHANGES))
+def test_exchanges_at_adaptive_defaults_match_jax(case):
+    build, parts, planned = ADAPTIVE_EXCHANGES[case]
+    conf = {"spark.rapids.sql.rangePartitioning.sampleSizePerPartition": 64}
+    _, ps, js, jdf = _both(build, conf=conf, parts=parts, adaptive=True)
+    assert planned <= _planned(ps, js, jdf)
 
 
 # ---------------------------------------------------------------------------

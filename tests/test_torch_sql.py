@@ -222,7 +222,7 @@ def test_not_ported_is_the_difference_of_the_functions_modules():
 
 
 @pytest.mark.parametrize("query", [
-    "SELECT year(k) AS y FROM t", "SELECT k FROM t WHERE hash(k) > 0"])
+    "SELECT year(k) AS y FROM t", "SELECT k FROM t WHERE crc32(name) > 0"])
 def test_jax_only_function_raises_naming_a9(query, sessions):
     port, ref = sessions["main"]
     assert ref.sql(query).collect().num_rows > 0

@@ -162,6 +162,38 @@ def make_bands() -> pa.Table:
                      "lo": lo, "hi": lo + width})
 
 
+#: the host-int fields of an adaptive decision both packages must agree on
+AQE_FIELDS = ("kind", "build_rows", "n_out", "partition", "rows", "median",
+              "threshold_rows", "splits", "source")
+
+
+def aqe_decisions(doc) -> list:
+    """An ``last_aqe()`` doc's decisions, cut to their host-int fields."""
+    return [{k: d[k] for k in AQE_FIELDS if k in d}
+            for d in (doc or {}).get("decisions", [])]
+
+
+def chosen_execs(root) -> list:
+    """Every exec under root, either package's, following an adaptive
+    node into the operator it chose and then into its children, each
+    once (tests/test_adaptive.py's walk)."""
+    out, seen = [], set()
+
+    def walk(n):
+        if id(n) in seen:
+            return
+        seen.add(id(n))
+        out.append(n)
+        chosen = getattr(n, "_chosen", None)
+        if chosen is not None:
+            walk(chosen)
+        for c in getattr(n, "children", []):
+            walk(c)
+
+    walk(root)
+    return out
+
+
 def jax_api() -> SimpleNamespace:
     from spark_rapids_tpu import types as T
     from spark_rapids_tpu.expr import core as E
