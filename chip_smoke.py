@@ -188,25 +188,46 @@ Phases, one JSON line each:
    times, peak memory, operators, routes and launches, and whether they
    equal those of the DataFrame query of the same name (run once before
    it), with the DataFrame query's beside them where they do not.
+15. datetime (after the aggtypes phase): lineitem_dt, the lineitem with
+   l_shipdate as DATE, l_commit_ts as TIMESTAMP (the ship day plus a
+   seeded time of day), l_shipdate_str ('yyyy-MM-dd' strings), cached
+   with 1 and 8 partitions (it prints where each zone's TZif file was
+   found; a zone that cannot be found fails the run): dt_year_month
+   (revenue per year and month), dt_q6_add_months (Q6 with
+   add_months(date '1994-01-01', 12)), dt_daily_repart (the 8-partition
+   cache repartitioned by cast(l_commit_ts as date), revenue per day with
+   its dayofweek: B1 x 8, B2 x 4), dt_ts_parts (lines per hour, dayofweek
+   and quarter: B2 x 4; then a row query of the other timestamp and date
+   functions over the 1.2M lines with l_quantity < 3), dt_tz_session (a
+   session in America/New_York: counts per local year, month and hour
+   and per local day, and from_utc_timestamp/to_utc_timestamp summed per
+   local hour, against offsets from Python's zoneinfo reading the same
+   TZif files), dt_cast_strings (string -> date over the dictionary and
+   over rendered flat strings, the order key's decimal round trip, the
+   years parsed as doubles, and lines per rendered hour), dt_format_fb
+   (date_format over the l_quantity = 1 lines: the one CPU node) and
+   sql_dt (dt_year_month's grouping as SQL with quarter and a
+   cast('1995-01-01' as date) filter), each cold then twice warm and
+   checked against numpy and python's calendar, with routes, CPU nodes
+   and launches asserted exactly.
 Every query path runs in test mode (spark.rapids.sql.test.enabled): an
 operator that planning tags off the card fails the query, except the one
 node each fallback query names in spark.rapids.sql.test.allowedNonTpu.
 It then prints the kernel table ({"kernels": [...]}, with each kernel's
 launches per path in "launches_by_path": cached, parquet, strings, joins,
-adaptive, window, sql, exprs, sets, aggtypes, fallback), the card's name
-and power
-limit, and as its last line {"ok": true, "device": {...}}. Any failure
-exits non-zero without that line; so does a machine without CUDA, and so
-does a run that imported the JAX package. The lineitem generators and
-the string, join, window, expression, set and aggregate-type query shapes
-are the ones of
+adaptive, window, sql, exprs, sets, aggtypes, datetime, fallback), the
+card's name and power limit, and as its last line {"ok": true,
+"device": {...}}. Any failure exits non-zero without that line; so does a
+machine without CUDA, and so does a run that imported the JAX package.
+The lineitem generators and the string, join, window, expression, set,
+aggregate-type and datetime query shapes are the ones of
 tests/torch_port_helpers.py, which the CPU tests run too.
 `python3 chip_smoke.py --segsum-against OTHER.cu [...]` runs only the
 segsum shapes, through the checkout's kernel and a build of each other
 segsum source (the same C interface), each held exactly against the plain
 version and timed by the profiler in turns (other, this, this, other).
 CHIP_SMOKE_PROFILE=1 adds a torch.profiler pass over each query of the
-ten query paths, with each port kernel's launches, device time and
+query paths, with each port kernel's launches, device time and
 bounds at the shapes the query gave it, and ranks the kernels by device
 time above bound over those runs (CHIP_SMOKE_TRACE_DIR=dir also writes
 the queries' Chrome traces).
@@ -3676,6 +3697,403 @@ def phase_fallback(li_plan, text_plan, want, spy, prof=None):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the datetime functions, a session timezone and the string casts
+# ---------------------------------------------------------------------------
+
+def _zone_offsets_us(zone, first_hour, n_hours, wall=False):
+    """The zone's UTC offset (us) in each of n_hours hours from
+    first_hour (hours since the epoch), by Python's zoneinfo (read from
+    the TZif file the port's tzdb serves): at the hour's start instant,
+    or with ``wall`` for the hour read as the zone's wall clock (fold=0,
+    the earlier offset). Every zone changes its offset on whole hours of
+    both clocks in these years, so one lookup serves the hour."""
+    import datetime as dtm
+    from zoneinfo import ZoneInfo
+    from spark_rapids_tpu_torch.expr import tzdb
+    with open(tzdb.source(zone), "rb") as f:
+        z = ZoneInfo.from_file(f, key=zone)
+    epoch = dtm.datetime(1970, 1, 1)
+    out = np.empty(n_hours, np.int64)
+    for k in range(n_hours):
+        t = epoch + dtm.timedelta(hours=int(first_hour) + k)
+        if wall:
+            off = t.replace(tzinfo=z, fold=0).utcoffset()
+        else:
+            off = t.replace(tzinfo=dtm.timezone.utc).astimezone(z) \
+                .utcoffset()
+        out[k] = off // dtm.timedelta(microseconds=1)
+    return out
+
+
+def _exact_sums(key, vals, n):
+    """Exact int64 sums of vals per key (two float bincounts of 31-bit
+    halves; every partial sum stays below 2^53)."""
+    lo = (vals & 0x7FFFFFFF).astype(np.float64)
+    hi = (vals >> 31).astype(np.float64)
+    s_lo = np.bincount(key, weights=lo, minlength=n)
+    s_hi = np.bincount(key, weights=hi, minlength=n)
+    return [int(h) * (1 << 31) + int(v) for h, v in zip(s_hi, s_lo)]
+
+
+def datetime_reference(t):
+    """numpy answers to the datetime shapes over lineitem_dt, with the
+    calendar from numpy's datetime64 and python's datetime (not the
+    engine's civil arithmetic), and the zones' offsets from Python's
+    zoneinfo (not the engine's TZif parser)."""
+    import datetime as dtm
+    H = helpers()
+    day_us = H.DAY_US
+    days = t["l_shipdate"].cast("int32").to_numpy().astype(np.int64)
+    us = t["l_commit_ts"].cast("int64").to_numpy()
+    price = t["l_extendedprice"].to_numpy()
+    disc = t["l_discount"].to_numpy()
+    qty = t["l_quantity"].to_numpy()
+    rev = price * (1.0 - disc)
+    out = {}
+
+    # python's calendar per day, from the day before the first ship day
+    # (a local day in a zone west of UTC) to the last, looked up by day
+    d0 = int(days.min())
+    span = int(days.max()) - d0 + 1
+    base = d0 - 1
+    cal = [dtm.date(1970, 1, 1) + dtm.timedelta(days=base + k)
+           for k in range(span + 1)]
+    year_of = np.array([c.year for c in cal])
+    month_of = np.array([c.month for c in cal])
+    dow = np.array([c.isoweekday() % 7 + 1 for c in cal])
+    iso_week = np.array([c.isocalendar()[1] for c in cal])
+    next_mon = np.array([base + k + 7 - c.weekday() for k, c in
+                         enumerate(cal)])
+
+    def ym_of(d):
+        return year_of[d - base], month_of[d - base]
+
+    y, m = ym_of(days)
+    y0 = int(y.min())
+    key = (y - y0) * 12 + (m - 1)
+    nk = int(key.max()) + 1
+    n = np.bincount(key, minlength=nk)
+    s = np.bincount(key, weights=rev, minlength=nk)
+    out["dt_year_month"] = {(int(k // 12 + y0), int(k % 12 + 1)):
+                            (s[k], int(n[k])) for k in np.nonzero(n)[0]}
+    out["sql_dt"] = {(yy, mm, (mm - 1) // 3 + 1): v for (yy, mm), v in
+                     out["dt_year_month"].items() if yy >= 1995}
+    lo, hi = (dtm.date(1994, 1, 1) - dtm.date(1970, 1, 1)).days, \
+        (dtm.date(1995, 1, 1) - dtm.date(1970, 1, 1)).days
+    keep = (days >= lo) & (days < hi) & (disc >= 0.05) & (disc <= 0.07) \
+        & (qty < 24.0)
+    out["dt_q6_add_months"] = float(np.sum(price[keep] * disc[keep]))
+    cday = np.floor_divide(us, day_us)
+    n = np.bincount(cday - d0, minlength=span)
+    s = np.bincount(cday - d0, weights=rev, minlength=span)
+    out["dt_daily_repart"] = {d0 + k: (int(dow[d0 + k - base]), s[k],
+                                       int(n[k]))
+                              for k in np.nonzero(n)[0]}
+    hour = np.floor_divide(us, 3_600_000_000) % 24
+    _, cm = ym_of(cday)
+    gkey = (hour * 8 + dow[cday - base]) * 5 + (cm - 1) // 3 + 1
+    n = np.bincount(gkey)
+    s = np.bincount(gkey, weights=qty)
+    groups = {(int(k // 40), int(k // 5 % 8), int(k % 5)): (int(n[k]), s[k])
+              for k in np.nonzero(n)[0]}
+    rows = np.nonzero(qty < H.DT_ROWS_QTY)[0]
+    rd, ru = days[rows], us[rows]
+    ry, rm = ym_of(rd)
+    rmon = rd.astype("datetime64[D]").astype("datetime64[M]")
+    first = rmon.astype("datetime64[D]").astype(np.int64)
+    last = (rmon + 1).astype("datetime64[D]").astype(np.int64) - 1
+    # months_between(ts, 1995-01-01): whole months, and a 31-day
+    # fraction unless the day of month is the 1st (not a month's last)
+    ed = (rd - first + 1).astype(np.float64)
+    months = ((ry - 1995) * 12 + rm - 1).astype(np.float64)
+    tod = (ru - np.floor_divide(ru, day_us) * day_us).astype(np.float64)
+    frac = np.where(ed == 1.0, 0.0,
+                    (ed * 86400 + tod / 1e6 - 86400.0) / (31.0 * 86400))
+    out["dt_ts_rows"] = {
+        "l_orderkey": t["l_orderkey"].to_numpy()[rows],
+        "th": ru - ru % 3_600_000_000, "ut": np.floor_divide(ru, 10 ** 6),
+        "w": iso_week[np.floor_divide(ru, day_us) - base], "ld": last,
+        "dd": rd - hi, "mb": np.round((months + frac) * 1e8) / 1e8,
+        "nd": next_mon[rd - base],
+        "md": first, "da": rd + 30, "ds": rd - 30}
+    out["dt_ts_parts"] = (groups, out.pop("dt_ts_rows"))
+    # the session zone: offsets per UTC hour
+    h0 = int(np.floor_divide(us.min(), 3_600_000_000))
+    hidx = np.floor_divide(us, 3_600_000_000) - h0
+    nh = int(hidx.max()) + 1
+    local = us + _zone_offsets_us(H.DT_SESSION_ZONE, h0, nh)[hidx]
+    lday = np.floor_divide(local, day_us)
+    lhour = np.floor_divide(local, 3_600_000_000) % 24
+    ly, lm = ym_of(lday)
+    ly0 = int(ly.min())
+    tkey = ((ly - ly0) * 12 + lm - 1) * 24 + lhour
+    n = np.bincount(tkey)
+    tz_hours = {(int(k // 288 + ly0), int(k // 24 % 12 + 1),
+                 int(k % 24)): int(n[k]) for k in np.nonzero(n)[0]}
+    l0 = int(lday.min())
+    n = np.bincount(lday - l0)
+    tz_days = {l0 + int(k): int(n[k]) for k in np.nonzero(n)[0]}
+    from_s = np.floor_divide(
+        us + _zone_offsets_us(H.DT_FROM_ZONE, h0, nh)[hidx], 10 ** 6)
+    to_s = np.floor_divide(
+        us - _zone_offsets_us(H.DT_TO_ZONE, h0, nh, wall=True)[hidx],
+        10 ** 6)
+    sf, st = _exact_sums(lhour, from_s, 24), _exact_sums(lhour, to_s, 24)
+    out["dt_tz_session"] = (tz_hours, tz_days,
+                            {h: (sf[h], st[h]) for h in range(24)})
+    okey = t["l_orderkey"].to_numpy()
+    n_rows = len(days)
+    years = y  # every ship-date string starts with its year
+    uh = np.floor_divide(us, 3_600_000_000)
+    u0 = int(uh.min())
+    n = np.bincount(uh - u0)
+    labels = np.datetime_as_string(
+        (np.nonzero(n)[0] + u0).astype("datetime64[h]"))
+    hours = {str(lab).replace("T", " "): int(c) for lab, c in
+             zip(labels, n[np.nonzero(n)[0]])}
+    out["dt_cast_strings"] = ((n_rows, n_rows, len(okey),
+                               float(np.sum(years))), hours)
+    fb = days[qty == 1.0].astype("datetime64[D]").astype("datetime64[M]")
+    mon, cnt = np.unique(fb, return_counts=True)
+    out["dt_format_fb"] = {str(k): int(c) for k, c in zip(mon, cnt)}
+    return out
+
+
+def datetime_queries(c1, c8, ny, fb, sql_s):
+    """name -> (session, run) over lineitem_dt: c1/c8 its 1- and
+    8-partition caches (c.s, c.li), ny the 1-partition cache in a session
+    in DT_SESSION_ZONE, fb in a session whose test mode allows the one CPU
+    node, sql_s a session with the cache as the temp view lineitem_dt.
+    Each run returns what validate_datetime reads."""
+    H, api = helpers(), port_api()
+
+    def rows(df, nkeys):
+        d = df.collect().to_pydict()
+        names = list(d)
+        return {tuple(d[k][i] for k in names[:nkeys]):
+                tuple(d[c][i] for c in names[nkeys:])
+                for i in range(len(d[names[0]]))}
+
+    def as_int(t):
+        import pyarrow as pa
+        out = {}
+        for name in t.column_names:
+            c = t[name]
+            if pa.types.is_date32(c.type):
+                c = c.cast(pa.int32())
+            elif pa.types.is_timestamp(c.type):
+                c = c.cast(pa.int64())
+            out[name] = c.to_numpy()
+        return out
+
+    def epoch_day(v):
+        import datetime as dtm
+        return (v - dtm.date(1970, 1, 1)).days
+
+    def daily():
+        return {epoch_day(k[0]): v for k, v in
+                rows(H.dt_daily_repart(api, c8.li), 1).items()}
+
+    def ts_parts():
+        return (rows(H.dt_ts_groups(api, c1.li), 3),
+                as_int(H.dt_ts_rows(api, c1.li).collect()))
+
+    def tz_session():
+        days = {epoch_day(k[0]): v[0] for k, v in
+                rows(H.dt_tz_days(api, ny.li), 1).items()}
+        return ({k: v[0] for k, v in rows(H.dt_tz_hours(api, ny.li),
+                                          3).items()}, days,
+                {k[0]: v for k, v in rows(H.dt_tz_shifts(api, ny.li),
+                                          1).items()})
+
+    def cast_strings():
+        [checks] = rows(H.dt_cast_checks(api, c1.li), 0).values()
+        return checks, {k[0]: v[0] for k, v in
+                        rows(H.dt_ts_string_hours(api, c1.li), 1).items()}
+
+    return {
+        "dt_year_month": (c1.s, lambda: rows(H.dt_year_month(api, c1.li),
+                                             2)),
+        "dt_q6_add_months": (c1.s, lambda: H.dt_q6_add_months(
+            api, c1.li).collect()["revenue"][0].as_py()),
+        "dt_daily_repart": (c8.s, daily),
+        "dt_ts_parts": (c1.s, ts_parts),
+        "dt_tz_session": (ny.s, tz_session),
+        "dt_cast_strings": (c1.s, cast_strings),
+        "dt_format_fb": (fb.s, lambda: {k[0]: v[0] for k, v in rows(
+            H.dt_format_fb(api, fb.li), 1).items()}),
+        "sql_dt": (sql_s, lambda: rows(sql_s.sql(H.SQL_DT), 3)),
+    }
+
+
+def validate_datetime(name, got, want):
+    """(correct, how the check compared)."""
+    def groups(g, w, tol_cols=()):
+        return set(g) == set(w) and all(
+            all((_close(a, b) if i in tol_cols else a == b)
+                for i, (a, b) in enumerate(zip(g[k], w[k]))) for k in w)
+    if name in ("dt_year_month", "sql_dt"):
+        return groups(got, want, (0,)), ("every group: revenue to 1e-6, "
+                                         "lines exact")
+    if name == "dt_q6_add_months":
+        return _close(got, want), "revenue to 1e-6"
+    if name == "dt_daily_repart":
+        return groups(got, want, (1,)), ("every day: its day of the week "
+                                         "and lines exact, revenue to 1e-6")
+    if name == "dt_ts_parts":
+        g_groups, g_rows = got
+        w_groups, w_rows = want
+        same_rows = set(g_rows) == set(w_rows) and all(
+            np.array_equal(g_rows[k], w_rows[k]) for k in w_rows
+            if k != "mb") and np.allclose(g_rows["mb"], w_rows["mb"],
+                                          rtol=0, atol=1e-12)
+        return groups(g_groups, w_groups, (1,)) and same_rows, (
+            "every (hour, day of week, quarter): lines exact, quantity to "
+            "1e-6; the row query row by row, exactly, months_between to "
+            "1e-12")
+    if name == "dt_tz_session":
+        return got[0] == want[0] and got[1] == want[1] \
+            and got[2] == want[2], ("local year/month/hour and local-day "
+                                    "counts, and the shifted epoch-second "
+                                    "sums per local hour, exactly")
+    if name == "dt_cast_strings":
+        return got[0] == want[0] and got[1] == want[1], (
+            "parsed and round-tripped counts, the year sum and the lines "
+            "per rendered hour, exactly")
+    return got == want, "lines per month exactly"
+
+
+#: what each datetime query must have run per run: operators that must be
+#: present, its aggregate routes, and the plan nodes on the CPU (worked
+#: out on a CPU rehearsal; the route gates follow the capacities of the
+#: 30M-row caches: 2^25 rows in one batch, 4 chunks of 2^23)
+DATETIME_EXPECT = {
+    "dt_year_month": ({"CachedScanExec", "HashAggregateExec"},
+                      {"_scatter_agg": 1}, []),
+    "dt_q6_add_months": ({"CachedScanExec"}, {"_global_update": 1}, []),
+    "dt_daily_repart": ({"ShuffleExchangeExec", "CollectExchangeExec"},
+                        {"_chunked_segsum_agg": 1, "_segsum_or_fallback": 4,
+                         "_scatter_agg": 1}, []),
+    "dt_ts_parts": ({"FilterExec", "ProjectExec"},
+                    {"_chunked_segsum_agg": 1, "_segsum_or_fallback": 4,
+                     "_scatter_agg": 1}, []),
+    "dt_tz_session": ({"HashAggregateExec"}, {"_scatter_agg": 3}, []),
+    "dt_cast_strings": ({"HashAggregateExec"},
+                        {"_global_update": 1, "_sort_agg": 1}, []),
+    "dt_format_fb": ({"CpuFallbackExec", "FilterExec"}, {},
+                     [helpers().DT_FALLBACK_NODE]),
+    "sql_dt": ({"HashAggregateExec"},
+               {"_chunked_segsum_agg": 1, "_segsum_or_fallback": 4,
+                "_scatter_agg": 5}, []),
+}
+#: kernel launches per run: B1 once per input batch into dt_daily_repart's
+#: exchange (its DATE key is an int32 plane); B2 in the four chunks of
+#: dt_daily_repart (~13,600 lines a day), of dt_ts_parts' grouping (672
+#: groups of ~45,000 lines) and of sql_dt, whose month groups pass
+#: MAX_GROUP_ROWS in every chunk, so the scatter route redoes each chunk
+DATETIME_LAUNCHES = {"dt_daily_repart": {"murmur3_int32": 8, "segsum": 4},
+                     "dt_ts_parts": {"segsum": 4},
+                     "sql_dt": {"segsum": 4}}
+
+
+def phase_datetime(table, spy, prof=None):
+    """The datetime shapes over lineitem_dt (from the 30M-row lineitem),
+    cached on the card with 1 and 8 partitions, in sessions in test mode:
+    UTC, DT_SESSION_ZONE, and one that allows dt_format_fb's CPU node."""
+    import torch
+    from types import SimpleNamespace
+    from spark_rapids_tpu_torch.exec.nodes import CpuFallbackExec
+    from spark_rapids_tpu_torch.expr import tzdb
+    from spark_rapids_tpu_torch.sql.dataframe import DataFrame
+    H = helpers()
+    zones = {z: tzdb.source(z) for z in (H.DT_SESSION_ZONE, H.DT_FROM_ZONE,
+                                         H.DT_TO_ZONE)}
+    emit({"phase": "datetime.zones", "sources": zones,
+          "new_york_file": os.path.isfile(
+              "/usr/share/zoneinfo/America/New_York")})
+    t0 = time.perf_counter()
+    dt = H.lineitem_dt(table)
+    make_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = datetime_reference(dt)
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s1, s8 = device_session(), device_session()
+    c1 = SimpleNamespace(s=s1, li=s1.create_dataframe(dt).cache())
+    c8 = SimpleNamespace(s=s8, li=s8.create_dataframe(
+        dt, num_partitions=8).cache())
+    counts = [c1.li.count(), c8.li.count()]
+    torch.cuda.synchronize()
+    cache_s = time.perf_counter() - t0
+    rows = dt.num_rows
+    del dt
+    ny_s = device_session({"spark.sql.session.timeZone": H.DT_SESSION_ZONE})
+    ny = SimpleNamespace(s=ny_s, li=DataFrame(c1.li.plan, ny_s))
+    fb_s = device_session(allowed=H.DT_FALLBACK_NODE)
+    fb = SimpleNamespace(s=fb_s, li=DataFrame(c1.li.plan, fb_s))
+    sql_s = device_session()
+    sql_s.create_or_replace_temp_view("lineitem_dt",
+                                      DataFrame(c1.li.plan, sql_s))
+    emit({"phase": "datetime.setup", "rows": rows, "make_s": make_s,
+          "host_reference_s": host_s, "cache_s": cache_s,
+          "cache_gb": torch.cuda.memory_allocated() / 2 ** 30})
+    if counts != [rows] * 2:
+        raise AssertionError(f"cached counts {counts}")
+    reset_launches()
+    spy.take()
+    problems = []
+    queries = datetime_queries(c1, c8, ny, fb, sql_s)
+    for name, (session, fn) in queries.items():
+        before = read_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = fn()
+        cold = time.perf_counter() - t0
+        warm = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            fn()
+            warm.append(time.perf_counter() - t0)
+        good, how = validate_datetime(name, got, ref[name])
+        counts = spy.take()
+        routes = {k: v // 3 for k, v in counts.items()}
+        execs = _exec_names(session)
+        launches = {k: (v - before[k]) // 3
+                    for k, v in read_launches().items()}
+        cpu_nodes = [type(m.plan).__name__ for m in session.last_meta.walk()
+                     if not m.can_run_on_tpu]
+        fallback = [dict(e.metrics) for e in session.last_exec.walk()
+                    if isinstance(e, CpuFallbackExec)]
+        e_ops, e_routes, e_cpu = DATETIME_EXPECT[name]
+        e_launch = {k: DATETIME_LAUNCHES.get(name, {}).get(k, 0)
+                    for k in launches}
+        if not good:
+            problems.append(f"{name} disagrees with numpy ({how})")
+        if not e_ops <= set(execs) or routes != e_routes \
+                or any(v % 3 for v in counts.values()) or cpu_nodes != e_cpu:
+            problems.append(f"{name} ran {execs} with routes {routes} and "
+                            f"CPU nodes {cpu_nodes}; expected "
+                            f"{DATETIME_EXPECT[name]}")
+        if launches != e_launch:
+            problems.append(f"{name} launched {launches}, expected "
+                            f"{e_launch}")
+        emit({"phase": "datetime.query", "query": name, "correct": good,
+              "check": how, "cold_s": cold, "warm_s": min(warm),
+              "warm_ms": min(warm) * 1e3, "launches": launches,
+              "routes": routes, "execs": execs, "cpu_nodes": cpu_nodes,
+              "fallback": fallback,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+    counts = read_launches()
+    emit({"phase": "datetime", "launches": counts, "correct": not problems,
+          "problems": problems})
+    if prof:
+        prof.run("datetime", {k: v[1] for k, v in queries.items()})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return counts
+
+
 #: launch-counter name -> (wrapper module, wrapper function, a substring
 #: of the CUDA kernel's name as the profiler reports it)
 KERNEL_WRAPPERS = {
@@ -3925,6 +4343,10 @@ def main(argv) -> int:
         aggtypes = phase_aggtypes(table, want, h1, h8, spy, prof)
         phases["aggtypes_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
+        dtime = phase_datetime(table, spy, prof)
+        phases["datetime_s"] = time.perf_counter() - t0
+        gc.collect()
+        t0 = time.perf_counter()
         fb_want = fallback_reference(text, table)
         phases["fallback_reference_s"] = time.perf_counter() - t0
         li_plan = h1.li.plan  # the cached lineitem, for the fallback phase
@@ -3951,6 +4373,7 @@ def main(argv) -> int:
                    "window": window[r["name"]], "sql": sql[r["name"]],
                    "exprs": exprs[r["name"]],
                    "sets": sets[r["name"]], "aggtypes": aggtypes[r["name"]],
+                   "datetime": dtime[r["name"]],
                    "fallback": fallback[r["name"]]}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path

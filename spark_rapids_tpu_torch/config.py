@@ -156,6 +156,15 @@ ANSI_ENABLED = _register(
     "ANSI mode: division by zero and overflowing casts raise instead of "
     "returning null.", _bool_conv)
 
+SESSION_TIMEZONE = _register(
+    "spark.sql.session.timeZone", "UTC",
+    "Session timezone. This engine evaluates timestamps in UTC only: any "
+    "other value makes timezone-sensitive expressions raise at planning "
+    "instead of silently returning UTC answers (reference: GpuOverrides "
+    "tags non-UTC ops as unsupported). A zone of the IANA database is "
+    "not refused: plan/overrides.localize_plan shifts the plan's "
+    "timestamps through the zone's transition table first.", str)
+
 # Plan tagging and the CPU fallback: the JAX package's keys, with their
 # names and defaults. Per-operator keys are derived from names and need no
 # registration: spark.rapids.sql.exec.<plan node> and

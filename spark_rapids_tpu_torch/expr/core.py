@@ -8,9 +8,9 @@ literals (strings and nulls included), aliases, the partition context
 ``And``/``Or``/``Not``, ``IsNull``/``IsNotNull``/``IsNaN``, ``In``, ``If``
 and ``CaseWhen``, the optimizer's markers (``KnownNotNull``,
 ``KnownFloatingPointNormalized``, ``NormalizeNaNAndZero``,
-``AtLeastNNonNulls``), ``Coalesce``, the numeric, decimal, date and
-timestamp casts, and the sort-order sugar (``asc``/``desc`` and their
-null-ordering forms). Decimals (DECIMAL64) compute on their unscaled
+``AtLeastNNonNulls``), ``Coalesce``, the numeric, decimal, date,
+timestamp and string casts, and the sort-order sugar (``asc``/``desc``
+and their null-ordering forms). Decimals (DECIMAL64) compute on their unscaled
 int64 values with the JAX package's rescaling rules (``_promote``).
 The string functions are in ``expr/strings.py``, ``Greatest``/``Least`` in
 ``expr/math.py``. Null semantics follow Spark SQL, as in the JAX package:
@@ -1385,9 +1385,9 @@ class Cast(Expression):
     past the target precision is null; decimal to integer truncates;
     timestamp to date and to integers floors to days and seconds; date and
     integers to timestamp scale to microseconds, wrapping in int64). The
-    arms run in the JAX package's order. Casts to and from
-    strings run on the CPU (``eval_cpu``; planning tags them there until
-    the device arms land, ROADMAP A9)."""
+    arms run in the JAX package's order. Casts to and from strings run in
+    ``expr/strings.cast_string_device`` (the CPU backend's in
+    ``cast_string_cpu``)."""
 
     def __init__(self, child: Expression, to: T.DataType):
         self.children = [child]
@@ -1408,8 +1408,8 @@ class Cast(Expression):
         if src == dst:
             return c
         if isinstance(src, T.StringType) or isinstance(dst, T.StringType):
-            raise NotImplementedError("string casts on the device (ROADMAP "
-                                      "A9)")
+            from spark_rapids_tpu_torch.expr.strings import cast_string_device
+            return cast_string_device(c, dst, ctx)
         valid = _valid_of(c, ctx)
         if isinstance(src, T.BooleanType):
             return ColumnVector(dst, c.data.to(dst.torch_dtype), valid)

@@ -17,9 +17,12 @@ Every class also evaluates on the CPU backend (``eval_cpu``, the JAX
 package's python string arithmetic: there upper/lower map all of Unicode,
 as in the JAX package), and so do the casts to and from strings
 (``cast_string_cpu``) and the LIKE patterns the device cannot run yet.
+The device casts to and from strings are ``cast_string_device``, over
+the byte walks of ``expr/cast_kernels.py``.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import decimal
 import re
@@ -727,3 +730,63 @@ def cast_string_cpu(c: CpuCol, dst: T.DataType, ansi: bool) -> CpuCol:
         else:
             vals[i] = v
     return CpuCol(dst, vals.astype(dst.np_dtype), valid)
+
+
+def _parse_string(c: ColumnVector, valid: torch.Tensor, parse, ctx: EvalCtx):
+    """(values, validity) of a string -> fixed-width cast. A dictionary
+    column parses its vocabulary once and gathers by code; a row that does
+    not parse is null (ANSI: a CAST_INVALID_INPUT error)."""
+    if c.is_dict:
+        if not c.dict_size:
+            return (torch.zeros(c.capacity, dtype=torch.int64,
+                                device=valid.device), torch.zeros_like(valid))
+        vv, vok = parse(_flat_view(c))
+        codes = c.data["codes"].to(torch.int64).clamp(0, c.dict_size - 1)
+        vals, ok = vv[codes], vok[codes]
+    else:
+        vals, ok = parse(c)
+    if ctx.ansi:
+        ctx.add_error("CAST_INVALID_INPUT", valid & ~ok)
+    return vals, valid & ok
+
+
+def cast_string_device(c: ColumnVector, dst: T.DataType,
+                       ctx: EvalCtx) -> ColumnVector:
+    """Casts to and from strings on the device (the JAX package's
+    ``cast_string_tpu``): boolean, integer, date and timestamp to string;
+    string to integer, float, date and timestamp (``expr/cast_kernels.py``).
+    The planner tags the others to the CPU (``_cast_check``)."""
+    from spark_rapids_tpu_torch.expr import cast_kernels as CK
+    from spark_rapids_tpu_torch.expr.core import If, _RawCol
+    valid = _valid_of(c, ctx)
+    src = c.dtype
+    if isinstance(dst, T.StringType):
+        if isinstance(src, T.BooleanType):
+            # a null stays null (the JAX package's device gives "false",
+            # its If's else branch; Spark and both CPU backends give null)
+            out = If(_RawCol(ColumnVector(T.BOOLEAN, c.data, valid)),
+                     Literal("true", T.STRING),
+                     Literal("false", T.STRING)).eval(ctx)
+            return dataclasses.replace(out, validity=valid)
+        if isinstance(src, T.DateType):
+            return CK.render_date(c.data, valid)
+        if isinstance(src, T.TimestampType):
+            return CK.render_timestamp(c.data.to(torch.int64), valid)
+        if src.is_integral:
+            return CK.render_int64(c.data.to(torch.int64), valid)
+        raise NotImplementedError(f"cast {src!r} -> string on the device")
+    if isinstance(src, T.StringType):
+        if dst.is_integral:
+            parse = CK.parse_int64
+        elif isinstance(dst, (T.Float32Type, T.Float64Type)):
+            parse = CK.parse_f64
+        elif isinstance(dst, T.DateType):
+            parse = CK.parse_date
+        elif isinstance(dst, T.TimestampType):
+            parse = CK.parse_timestamp
+        else:
+            raise NotImplementedError(f"cast string -> {dst!r} on the "
+                                      f"device")
+        vals, out_valid = _parse_string(c, valid, parse, ctx)
+        return ColumnVector(dst, vals.to(dst.torch_dtype), out_valid)
+    raise NotImplementedError(f"cast {src!r} -> {dst!r}")

@@ -37,6 +37,7 @@ non-equi joins (``BroadcastNestedLoopJoinExec``) and cross joins
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from functools import reduce
 from typing import Callable, Dict, List, Optional, Type
@@ -47,9 +48,12 @@ from spark_rapids_tpu_torch.exec import adaptive as AQ
 from spark_rapids_tpu_torch.exec import nodes as X
 from spark_rapids_tpu_torch.expr import aggregates as A
 from spark_rapids_tpu_torch.expr import core as E
+from spark_rapids_tpu_torch.expr import cpu_functions as CF
+from spark_rapids_tpu_torch.expr import datetime as DT
 from spark_rapids_tpu_torch.expr import math as MA
 from spark_rapids_tpu_torch.expr import misc as MX
 from spark_rapids_tpu_torch.expr import strings as S
+from spark_rapids_tpu_torch.expr import tzdb
 from spark_rapids_tpu_torch.io.parquet_pruning import split_conjuncts
 from spark_rapids_tpu_torch.plan import nodes as P
 from spark_rapids_tpu_torch.plan.cost import apply_cost_optimizer
@@ -57,12 +61,9 @@ from spark_rapids_tpu_torch.types import Sigs, TypeSig
 
 PORT_TAG_DIFFERENCES = """Where the port's tags differ from the JAX package's.
 
-Tags only the port has; their device arms wait for ROADMAP A9, and their
-reasons name it:
-- a LIKE pattern that needs the NFA (``_like_check``) runs on the CPU;
-- a cast to or from a string (``_cast_check``) runs on the CPU. A cast
-  between a decimal and a string runs on the CPU in both packages; only
-  the reason differs (the JAX package's says the device lacks it).
+A tag only the port has; its device arm waits for ROADMAP A9, and its
+reason names it: a LIKE pattern that needs the NFA (``_like_check``) runs
+on the CPU.
 
 A tag of the JAX package the port drops: a filter that reads the
 partition context (``sample``'s ``rand``, ``spark_partition_id()``) stays
@@ -148,16 +149,33 @@ for _cls in (E.KnownNotNull, E.KnownFloatingPointNormalized,
     expr_rule(_cls, Sigs.COMMON, Sigs.COMMON, _cls.__name__)
 
 
+# Cast: only the device-implemented matrix (reference GpuCast type matrix)
+_CASTABLE_FIXED = (T.BooleanType, T.Int8Type, T.Int16Type, T.Int32Type,
+                   T.Int64Type, T.Float32Type, T.Float64Type, T.DateType,
+                   T.TimestampType, T.DecimalType)
+
+
 def _cast_check(e) -> Optional[str]:
-    """Every fixed-width cast of the port runs on the device; the string
-    arms wait for ROADMAP A9 (the JAX package runs most of them on its
-    device)."""
-    src, dst = e.children[0].data_type(), e.to
-    if src != dst and (isinstance(src, T.StringType)
-                       or isinstance(dst, T.StringType)):
-        return (f"cast {src!r} -> {dst!r} runs on the CPU until the port's "
-                f"device string casts land (ROADMAP A9)")
-    return None
+    """The JAX package's rule: every fixed-width cast, boolean, integer,
+    date and timestamp to string, and string to integer, float, date and
+    timestamp run on the device (``expr/strings.cast_string_device``)."""
+    src = e.children[0].data_type()
+    dst = e.to
+    if isinstance(src, T.StringType) and isinstance(dst, T.StringType):
+        return None
+    if isinstance(src, _CASTABLE_FIXED) and isinstance(dst, _CASTABLE_FIXED):
+        return None
+    if isinstance(dst, T.StringType):
+        if isinstance(src, (T.BooleanType, T.DateType, T.TimestampType)) \
+                or src.is_integral:
+            return None
+        return f"cast {src!r} -> string not supported on device"
+    if isinstance(src, T.StringType):
+        if dst.is_integral or isinstance(dst, (T.Float32Type, T.Float64Type,
+                                               T.DateType, T.TimestampType)):
+            return None
+        return f"cast string -> {dst!r} not supported on device"
+    return f"cast {src!r} -> {dst!r} not supported on device"
 
 
 expr_rule(E.Cast, Sigs.COMMON, Sigs.COMMON, "cast", extra=_cast_check)
@@ -211,6 +229,44 @@ for _cls in (MA.Acosh, MA.Asinh, MA.Atanh, MA.Pmod, MA.UnaryPositive):
 for _cls in (MA.BitwiseAnd, MA.BitwiseOr, MA.BitwiseXor, MA.BitwiseNot,
              MA.ShiftLeft, MA.ShiftRight, MA.ShiftRightUnsigned):
     expr_rule(_cls, _NUM, _NUM, _cls.__name__.lower())
+
+# datetime
+for _cls in (DT.Year, DT.Month, DT.DayOfMonth, DT.Hour, DT.Minute, DT.Second,
+             DT.DayOfWeek, DT.DateAdd, DT.DateSub, DT.DateDiff, DT.LastDay,
+             DT.Quarter, DT.DayOfYear, DT.WeekOfYear, DT.AddMonths,
+             DT.UnixTimestampFromTs, DT.TimestampSeconds):
+    expr_rule(_cls, _NUMDT, _NUMDT, _cls.__name__.lower())
+
+
+def _trunc_check(e):
+    if not e.supported_on_tpu():
+        return f"trunc format {e.fmt!r} not supported on device"
+    return None
+
+
+expr_rule(DT.TruncDate, _NUMDT, _NUMDT, "trunc(date, fmt)", extra=_trunc_check)
+expr_rule(DT.FromUtcTimestamp, Sigs.COMMON, Sigs.COMMON,
+          "from_utc_timestamp (IANA transition table on device)",
+          extra=lambda e: None if e.supported_on_tpu()
+          else f"unknown timezone {e.zone!r}")
+expr_rule(DT.ToUtcTimestamp, Sigs.COMMON, Sigs.COMMON,
+          "to_utc_timestamp (IANA transition table on device)",
+          extra=lambda e: None if e.supported_on_tpu()
+          else f"unknown timezone {e.zone!r}")
+expr_rule(DT.MakeDate, Sigs.COMMON, Sigs.COMMON, "make_date")
+expr_rule(DT.NextDay, Sigs.COMMON, Sigs.COMMON, "next_day")
+expr_rule(DT.MonthsBetween, Sigs.COMMON, Sigs.COMMON, "months_between")
+for _cls in (DT.UnixDate, DT.DateFromUnixDate, DT.UnixMicros,
+             DT.UnixMillis, DT.UnixSeconds, DT.TimestampMillis,
+             DT.TimestampMicros, DT.WeekDay, DT.TruncTimestamp):
+    expr_rule(_cls, Sigs.COMMON, Sigs.COMMON, _cls.__name__.lower())
+
+# CPU-only row functions: registered so tagging gives a clear reason and
+# the enclosing operator falls back
+for _cls in CF.ALL_CPU_FUNCTIONS:
+    expr_rule(_cls, Sigs.COMMON, Sigs.COMMON,
+              f"{_cls.name} (CPU; no device kernel yet)",
+              extra=lambda e: f"{e.name} runs on CPU (no device kernel yet)")
 
 
 AGG_RULES: Dict[Type, ExprRule] = {}
@@ -282,8 +338,162 @@ PROJECT_ONLY_EXPRS = (E.SparkPartitionID, E.MonotonicallyIncreasingID,
 _PARTITION_CONTEXT_NODES = ("Project", "Filter")
 
 
+_UTC_NAMES = ("UTC", "Etc/UTC", "GMT", "Etc/GMT", "Z", "+00:00")
+
+#: expressions whose result depends on the session timezone when an input
+#: (or the output) is a TIMESTAMP; DATE inputs are timezone-free
+_TZ_SENSITIVE = (
+    DT.Year, DT.Month, DT.DayOfMonth, DT.Hour, DT.Minute, DT.Second,
+    DT.DayOfWeek, DT.LastDay, DT.Quarter, DT.DayOfYear, DT.WeekOfYear,
+    DT.AddMonths, DT.TruncDate, DT.UnixTimestampFromTs,
+    CF.DateFormat, CF.ToDateFmt, CF.FromUnixtime,
+)
+
+
+def _check_session_timezone(e: E.Expression, conf, where: str) -> None:
+    """A non-UTC session timezone must never silently give UTC answers
+    (reference GpuOverrides nonUTC tagging). A zone of the IANA database
+    was localized already (``localize_plan``); an unknown zone is refused
+    on a timezone-sensitive expression, with the JAX package's message:
+    the CPU backend evaluates in UTC too, so there is nothing to fall back
+    to."""
+    tz = conf.get(C.SESSION_TIMEZONE)
+    if tz in _UTC_NAMES or tzdb.is_valid_zone(tz):
+        return
+    if not isinstance(e, _TZ_SENSITIVE):
+        return
+    types = [e.data_type()] + [c.data_type() for c in e.children]
+    always = isinstance(e, (DT.Hour, DT.Minute, DT.Second,
+                            CF.FromUnixtime, CF.ToDateFmt))
+    if always or any(isinstance(t, T.TimestampType) for t in types):
+        raise E.SparkException(
+            f"{where}: {type(e).__name__} with spark.sql.session.timeZone="
+            f"{tz!r} is not supported (this engine evaluates timestamps in "
+            f"UTC only); set the session timezone to UTC")
+
+
+def _localize_node_fn(tz: str):
+    """The per-node rewrite of timezone localization, for ONE bottom-up
+    ``transform`` over an expression tree (applying the whole-tree rewrite
+    at every node would wrap localized children again and shift
+    timestamps twice). Field extraction and formatting of a timestamp
+    read it through ``FromUtcTimestamp``; ``from_unixtime`` shifts its
+    seconds through the timestamp domain; a cast of a timestamp to a date
+    or a string reads the local time, and a cast of a date or a string to
+    a timestamp is wrapped in ``ToUtcTimestamp``."""
+    def is_ts(x):
+        return isinstance(x.data_type(), T.TimestampType)
+
+    def f(node):
+        if isinstance(node, _TZ_SENSITIVE) and not isinstance(
+                node, DT.UnixTimestampFromTs):
+            if any(is_ts(c) for c in node.children):
+                return node.with_children(
+                    [DT.FromUtcTimestamp(c, tz) if is_ts(c) else c
+                     for c in node.children])
+            if isinstance(node, CF.FromUnixtime):
+                sec = node.children[0]
+                shifted = DT.UnixTimestampFromTs(
+                    DT.FromUtcTimestamp(DT.TimestampSeconds(sec), tz))
+                return node.with_children([shifted] + node.children[1:])
+            return node
+        if isinstance(node, E.Cast):
+            src, dst = node.children[0].data_type(), node.to
+            if isinstance(src, T.TimestampType) and isinstance(
+                    dst, (T.DateType, T.StringType)):
+                return node.with_children(
+                    [DT.FromUtcTimestamp(node.children[0], tz)])
+            if isinstance(dst, T.TimestampType) and isinstance(
+                    src, (T.DateType, T.StringType)):
+                return DT.ToUtcTimestamp(node, tz)
+        return node
+
+    return f
+
+
+def localize_expr(e: E.Expression, tz: str) -> E.Expression:
+    """An expression rewritten for a session in zone ``tz``: its TIMESTAMP
+    operands shifted through the zone's transition table where the session
+    zone matters (field extraction, formatting and parsing, date <->
+    timestamp casts), so every datetime expression stays a plain UTC
+    computation (reference: the GpuTimeZoneDB rewrite inside each datetime
+    kernel; here one plan-level rule)."""
+    return e.transform(_localize_node_fn(tz))
+
+
+def localize_plan(plan: P.PlanNode, conf) -> P.PlanNode:
+    """The plan with every expression localized (``localize_expr``) when
+    the session timezone is a zone of the IANA database other than UTC;
+    the plan itself otherwise. The JAX package rewrites the DataFrame's
+    plan in place, so its second collect of one DataFrame shifts every
+    timestamp again; here the nodes with expressions are copied and the
+    DataFrame's plan stays as it was. A cached relation is the one node
+    kept: it is returned as it is once it holds its batches, and before
+    that its input is localized from the original (kept aside), so it
+    materializes in the zone of the session that runs it first."""
+    tz = conf.get(C.SESSION_TIMEZONE)
+    if tz in _UTC_NAMES or not tzdb.is_valid_zone(tz):
+        return plan  # tagging refuses an unknown zone
+    node_f = _localize_node_fn(tz)
+
+    def fix(e):
+        return e.transform(node_f)
+
+    def fix_orders(orders):
+        return [dataclasses.replace(o, expr=fix(o.expr)) for o in orders]
+
+    done: Dict[int, P.PlanNode] = {}
+
+    def walk(n: P.PlanNode) -> P.PlanNode:
+        if id(n) in done:
+            return done[id(n)]
+        if isinstance(n, P.CachedRelation):
+            if n.materialized is None:
+                if not hasattr(n, "unlocalized_children"):
+                    n.unlocalized_children = list(n.children)
+                n.children = [walk(c) for c in n.unlocalized_children]
+            done[id(n)] = n
+            return n
+        q = copy.copy(n)
+        q.children = [walk(c) for c in n.children]
+        if isinstance(n, P.Project):
+            q.exprs = [fix(e) for e in n.exprs]
+        elif isinstance(n, P.Filter):
+            q.condition = fix(n.condition)
+        elif isinstance(n, P.Aggregate):
+            q.group_exprs = [fix(e) for e in n.group_exprs]
+            # transform() visits every node once bottom-up: pass the NODE
+            # function (the tree-level fix would wrap twice)
+            q.aggs = [a.transform(node_f) for a in n.aggs]
+        elif isinstance(n, P.Expand):
+            q.projections = [[fix(e) for e in row] for row in n.projections]
+        elif isinstance(n, P.Join):
+            q.left_keys = [fix(e) for e in n.left_keys]
+            q.right_keys = [fix(e) for e in n.right_keys]
+            if n.condition is not None:
+                q.condition = fix(n.condition)
+        elif isinstance(n, P.Sort):
+            q.orders = fix_orders(n.orders)
+        elif isinstance(n, P.WindowNode):
+            from spark_rapids_tpu_torch.expr.window import (
+                WindowExpr, WindowSpec,
+            )
+            q.window_exprs = [
+                WindowExpr(fix(w.fn), WindowSpec(
+                    [fix(e) for e in w.spec.partition_exprs],
+                    fix_orders(w.spec.order_specs), w.spec.frame))
+                for w in n.window_exprs]
+        # the JAX package's walk also rewrites a Generate's generator;
+        # Generate is not ported (ROADMAP A9, complex.py)
+        done[id(n)] = q
+        return q
+
+    return walk(plan)
+
+
 def tag_expression(e: E.Expression, conf, reasons: List[str],
                    where: str) -> None:
+    _check_session_timezone(e, conf, where)
     rule = EXPR_RULES.get(type(e))
     if rule is None:
         reasons.append(f"{where}: expression {type(e).__name__} is not "
@@ -522,12 +732,14 @@ def wrap_and_tag(plan: P.PlanNode, conf) -> SparkPlanMeta:
 
 
 def convert_plan(plan: P.PlanNode, conf, device):
-    """(root operator, tagged meta), as the JAX package converts: column
+    """(root operator, tagged meta), as the JAX package converts: the
+    session timezone's localization (``localize_plan``), then column
     pruning (``plan/prune.py``) before tagging, the static cost pass
     (``plan/cost.py``) after it. In test mode a fallback that
     spark.rapids.sql.test.allowedNonTpu does not name raises."""
     # prune imports this module's PROJECT_ONLY_EXPRS
     from spark_rapids_tpu_torch.plan.prune import prune_plan
+    plan = localize_plan(plan, conf)
     plan = prune_plan(plan)
     meta = wrap_and_tag(plan, conf)
     apply_cost_optimizer(meta, conf)
@@ -550,7 +762,8 @@ def _assert_on_tpu(meta: SparkPlanMeta, allowed: set) -> None:
 
 def explain_plan(plan: P.PlanNode, conf, all_ops: bool = False) -> str:
     """The placement report, with the cost pass's reversions; like the
-    JAX package's, it does not prune."""
+    JAX package's, it neither localizes nor prunes (a zone of the IANA
+    database tags as UTC does, so the report is the same)."""
     meta = wrap_and_tag(plan, conf)
     apply_cost_optimizer(meta, conf)
     return meta.explain(all_ops=all_ops)

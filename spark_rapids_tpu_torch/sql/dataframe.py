@@ -259,10 +259,14 @@ class DataFrame:
         return self.session.collect(self.plan)
 
     def collect_cpu(self):
-        """Run the whole query on the CPU backend."""
+        """Run the whole query on the CPU backend (localized to the
+        session timezone, as the device plan is)."""
         from spark_rapids_tpu_torch import config as C
         from spark_rapids_tpu_torch.exec.cpu_backend import execute_cpu
-        return execute_cpu(self.plan, self.session.conf.get(C.ANSI_ENABLED))
+        from spark_rapids_tpu_torch.plan.overrides import localize_plan
+        conf = self.session.conf
+        return execute_cpu(localize_plan(self.plan, conf),
+                           conf.get(C.ANSI_ENABLED))
 
     def explain(self, mode: str = "placement") -> str:
         """Print and return the placement report: every operator, ``*``

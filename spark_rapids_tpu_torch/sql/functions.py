@@ -16,7 +16,16 @@ hyperbolic functions, ``ceil``, ``floor``, ``round``, ``bround``,
 ``factorial``, ``width_bucket``, ``nanvl``, ``positive``, ``bit_count``,
 ``getbit``); the string functions ``length``,
 ``upper``, ``lower``, ``substring``, ``concat``, ``startswith``,
-``endswith``, ``contains`` and ``like``, and the window functions
+``endswith``, ``contains`` and ``like``; the datetime functions of
+``expr/datetime.py`` (``year`` ... ``second``, ``dayofweek``,
+``weekday``, ``quarter``, ``dayofyear``, ``weekofyear``, ``date_add``,
+``date_sub``, ``datediff``, ``add_months``, ``last_day``, ``next_day``,
+``months_between``, ``trunc``, ``date_trunc``, ``make_date``,
+``unix_timestamp``, ``timestamp_seconds``/``_millis``/``_micros``,
+``unix_date``/``_seconds``/``_millis``/``_micros``,
+``date_from_unix_date``, ``from_utc_timestamp``, ``to_utc_timestamp``)
+and of ``expr/cpu_functions.py`` (``date_format``, ``to_date``,
+``from_unixtime``, on the CPU); and the window functions
 ``row_number``, ``rank``, ``dense_rank``, ``ntile``, ``percent_rank``,
 ``cume_dist``, ``nth_value``, ``first_value``, ``last_value``, ``lead`` and
 ``lag`` (``expr/window.py``; an aggregate's ``over`` makes the others)."""
@@ -24,6 +33,8 @@ from __future__ import annotations
 
 from spark_rapids_tpu_torch.expr import aggregates as A
 from spark_rapids_tpu_torch.expr import core as E
+from spark_rapids_tpu_torch.expr import cpu_functions as CF
+from spark_rapids_tpu_torch.expr import datetime as DT
 from spark_rapids_tpu_torch.expr import math as MA
 from spark_rapids_tpu_torch.expr import misc as MI
 from spark_rapids_tpu_torch.expr import strings as S
@@ -36,31 +47,23 @@ from spark_rapids_tpu_torch.expr.core import Expression, col, lit
 #: ingestion raise naming A9 where a query calls one of them, rather than
 #: calling it an unknown function.
 NOT_PORTED = (
-    "add_months", "aggregate", "array", "array_contains", "array_distinct",
-    "array_except", "array_intersect", "array_join", "array_max", "array_min",
+    "aggregate", "array", "array_contains", "array_distinct", "array_except",
+    "array_intersect", "array_join", "array_max", "array_min",
     "array_position", "array_remove", "array_repeat", "array_union",
     "arrays_overlap", "arrays_zip", "ascii", "base64", "bin", "bit_length",
-    "char", "chr_", "concat_ws", "conv", "crc32", "date_add", "date_format",
-    "date_from_unix_date", "date_sub", "date_trunc", "datediff", "dayofmonth",
-    "dayofweek", "dayofyear", "element_at", "elt", "exists", "explode",
-    "explode_outer", "filter", "find_in_set", "flatten", "forall",
-    "format_number", "format_string", "from_json", "from_unixtime",
-    "from_utc_timestamp", "get_json_object", "hex", "hive_hash",
-    "hour", "initcap", "instr", "json_tuple", "last_day", "left",
-    "levenshtein", "locate", "lpad", "ltrim", "luhn_check", "make_date",
-    "map_concat", "map_entries", "map_filter", "map_from_arrays", "map_keys",
-    "map_values", "md5", "minute", "month", "months_between", "next_day",
-    "octet_length", "parse_url", "posexplode", "posexplode_outer", "quarter",
+    "char", "chr_", "concat_ws", "conv", "crc32", "element_at", "elt",
+    "exists", "explode", "explode_outer", "filter", "find_in_set", "flatten",
+    "forall", "format_number", "format_string", "from_json", "get_json_object",
+    "hex", "hive_hash", "initcap", "instr", "json_tuple", "left",
+    "levenshtein", "locate", "lpad", "ltrim", "luhn_check", "map_concat",
+    "map_entries", "map_filter", "map_from_arrays", "map_keys", "map_values",
+    "md5", "octet_length", "parse_url", "posexplode", "posexplode_outer",
     "raise_error", "reduce", "regexp_extract", "regexp_extract_all",
     "regexp_replace", "repeat", "reverse", "right", "rlike", "rpad", "rtrim",
-    "second", "sequence", "sha1", "sha2", "size", "slice", "sort_array",
-    "soundex", "stack", "str_to_map", "substring_index", "timestamp_micros",
-    "timestamp_millis", "timestamp_seconds", "to_date", "to_json",
-    "to_utc_timestamp", "transform", "transform_keys", "transform_values",
-    "translate", "trim", "trunc", "unbase64", "unhex", "unix_date",
-    "unix_micros", "unix_millis", "unix_seconds", "unix_timestamp",
-    "url_decode", "url_encode", "weekday", "weekofyear", "year",
-    "zip_with",
+    "sequence", "sha1", "sha2", "size", "slice", "sort_array", "soundex",
+    "stack", "str_to_map", "substring_index", "to_json", "transform",
+    "transform_keys", "transform_values", "translate", "trim", "unbase64",
+    "unhex", "url_decode", "url_encode", "zip_with",
 )
 
 
@@ -389,6 +392,137 @@ def contains(c, s):
 
 def like(c, pattern):
     return S.Like(_e(c), pattern)
+
+
+# datetime -------------------------------------------------------------------
+def year(c):
+    return DT.Year(_e(c))
+
+
+def month(c):
+    return DT.Month(_e(c))
+
+
+def dayofmonth(c):
+    return DT.DayOfMonth(_e(c))
+
+
+def hour(c):
+    return DT.Hour(_e(c))
+
+
+def minute(c):
+    return DT.Minute(_e(c))
+
+
+def second(c):
+    return DT.Second(_e(c))
+
+
+def dayofweek(c):
+    return DT.DayOfWeek(_e(c))
+
+
+def weekday(c):
+    return DT.WeekDay(_e(c))
+
+
+def date_add(c, n):
+    return DT.DateAdd(_e(c), _e(n))
+
+
+def date_sub(c, n):
+    return DT.DateSub(_e(c), _e(n))
+
+
+def datediff(end, start):
+    return DT.DateDiff(_e(end), _e(start))
+
+
+def last_day(c):
+    return DT.LastDay(_e(c))
+
+
+def quarter(c):
+    return DT.Quarter(_e(c))
+
+
+def dayofyear(c):
+    return DT.DayOfYear(_e(c))
+
+
+def weekofyear(c):
+    return DT.WeekOfYear(_e(c))
+
+
+def add_months(c, n):
+    return DT.AddMonths(_e(c), _e(n))
+
+
+def trunc(c, fmt: str):
+    return DT.TruncDate(_e(c), fmt)
+
+
+def date_trunc(fmt, c):
+    return DT.TruncTimestamp(_e(c), fmt)
+
+
+def unix_timestamp(c):
+    return DT.UnixTimestampFromTs(_e(c))
+
+
+def timestamp_seconds(c):
+    return DT.TimestampSeconds(_e(c))
+
+
+def date_format(c, fmt):
+    return CF.DateFormat(_e(c), params=(fmt,))
+
+
+def to_date(c, fmt="yyyy-MM-dd"):
+    return CF.ToDateFmt(_e(c), params=(fmt,))
+
+
+def from_unixtime(c, fmt="yyyy-MM-dd HH:mm:ss"):
+    return CF.FromUnixtime(_e(c), params=(fmt,))
+
+
+def from_utc_timestamp(ts, tz):
+    z = tz.value if isinstance(tz, E.Literal) else tz
+    return DT.FromUtcTimestamp(_e(ts), z)
+
+
+def to_utc_timestamp(ts, tz):
+    z = tz.value if isinstance(tz, E.Literal) else tz
+    return DT.ToUtcTimestamp(_e(ts), z)
+
+
+def make_date(y, m, d):
+    return DT.MakeDate(_e(y), _e(m), _e(d))
+
+
+def next_day(c, day):
+    return DT.NextDay(_e(c), day)
+
+
+def months_between(end, start, roundOff=True):  # noqa: N803 - Spark's name
+    return DT.MonthsBetween(_e(end), _e(start), roundOff)
+
+
+def _dt1(name):
+    def f(c):
+        return getattr(DT, name)(_e(c))
+    f.__name__ = name.lower()
+    return f
+
+
+unix_date = _dt1("UnixDate")
+date_from_unix_date = _dt1("DateFromUnixDate")
+unix_micros = _dt1("UnixMicros")
+unix_millis = _dt1("UnixMillis")
+unix_seconds = _dt1("UnixSeconds")
+timestamp_millis = _dt1("TimestampMillis")
+timestamp_micros = _dt1("TimestampMicros")
 
 
 # window ---------------------------------------------------------------------

@@ -28,7 +28,9 @@ from spark_rapids_tpu_torch.exec.cpu_backend import execute_cpu
 from spark_rapids_tpu_torch.exec.nodes import empty_table, host_table
 from spark_rapids_tpu_torch.expr.core import SparkException
 from spark_rapids_tpu_torch.plan import nodes as P
-from spark_rapids_tpu_torch.plan.overrides import convert_plan, wrap_and_tag
+from spark_rapids_tpu_torch.plan.overrides import (
+    convert_plan, localize_plan, wrap_and_tag,
+)
 from spark_rapids_tpu_torch.sql.dataframe import DataFrame
 
 _LOG = logging.getLogger("spark_rapids_tpu_torch")
@@ -147,7 +149,8 @@ class TorchSession:
             self.last_exec = None
             self.last_meta = wrap_and_tag(plan, self.conf)
             _LOG.info("\n%s", self.last_meta.explain(all_ops=True))
-            return execute_cpu(plan, self.conf.get(C.ANSI_ENABLED))
+            return execute_cpu(localize_plan(plan, self.conf),
+                               self.conf.get(C.ANSI_ENABLED))
         root, meta = convert_plan(plan, self.conf, self.device)
         self.last_exec, self.last_meta = root, meta
         explain_mode = self.conf.get(C.SQL_EXPLAIN).upper()

@@ -214,9 +214,19 @@ TEXT_DOC = {"version": 1, "plan": {"node": "text_scan", "format": "csv",
 
 CALL_A9_DOC = {"version": 1, "plan": {
     "node": "project",
-    "exprs": [{"expr": "call", "fn": "year",
+    "exprs": [{"expr": "call", "fn": "initcap",
                "args": [{"expr": "col", "name": "d"}]}],
-    "child": {"node": "in_memory", "rows": {"d": [1, 2]}}}}
+    "child": {"node": "in_memory", "rows": {"d": ["ab cd", "ef"]}}}}
+
+#: a datetime call the port has since the datetime slice
+CALL_YEAR_DOC = {"version": 1, "plan": {
+    "node": "project",
+    "exprs": [{"expr": "call", "fn": "year",
+               "args": [{"expr": "col", "name": "d"}]},
+              {"expr": "call", "fn": "add_months",
+               "args": [{"expr": "col", "name": "d"},
+                        {"expr": "lit", "value": 13}]}],
+    "child": {"node": "in_memory", "rows": {"d": [1, 2, -800, 20000]}}}}
 
 
 @pytest.mark.parametrize("case,doc,item", [
@@ -231,6 +241,12 @@ def test_contract_raises_at_ingest_naming_the_roadmap(case, doc, item, env):
         # the JAX package answers it
         rows = jax_ingest(doc, ref).collect().to_pylist()
         assert sorted(r["col"] for r in rows) == [1, 1, 2, 2, 3]
+
+
+def test_contract_datetime_call_equals_jax(env):
+    _, port, ref = env
+    assert_tables_equal(ingest(CALL_YEAR_DOC, port).collect(),
+                        jax_ingest(CALL_YEAR_DOC, ref).collect())
 
 
 def test_contract_version_gate(env):

@@ -5,9 +5,10 @@ against the JAX package, on the CPU.
   package's collect and the port's CPU session gives equal tables; both
   tag the same plan node with the same reasons, and the ``!`` and ``@``
   lines of the two placement reports are equal once TPU reads GPU.
-- The port-only tags (a LIKE pattern that needs the NFA, casts to and
-  from strings): the port's CPU answer equals the JAX package's device
-  answer, and the reason names ROADMAP A9.
+- The port-only tag (a LIKE pattern that needs the NFA): the port's CPU
+  answer equals the JAX package's device answer, and the reason names
+  ROADMAP A9. Casts to and from strings run on the device in both
+  packages, with equal answers.
 - ``collect_cpu`` over the smoke's query shapes at a few thousand rows.
 - Test mode, ``explainOnly``, the fallback phase's two queries, and the
   device a fallback uploads to.
@@ -213,6 +214,10 @@ def test_shared_tags_fall_back_like_jax(case, table):
 PORT_ONLY = {
     "like_underscore": lambda a: a.F.like(a.col("s"), "_a%"),
     "like_inner_wildcard": lambda a: a.F.like(a.col("s"), "%an_"),
+}
+
+#: casts to and from strings: on the device in both packages
+DEVICE_CASTS = {
     "cast_int_to_string": lambda a: a.col("i").cast(a.T.STRING),
     "cast_string_to_int": lambda a: a.col("ns").cast(a.T.INT32),
     "cast_bool_to_string": lambda a: (a.col("o") > a.lit(20))
@@ -220,18 +225,31 @@ PORT_ONLY = {
 }
 
 
-@pytest.mark.parametrize("case", list(PORT_ONLY))
-def test_port_only_tags_equal_the_jax_device_answer(case, table):
-    t = table.append_column("ns", pa.array(
+def _with_number_strings(table):
+    return table.append_column("ns", pa.array(
         [None if j % 11 == 0 else (f" {j - 200} " if j % 3 else f"x{j}")
          for j in range(table.num_rows)]))
+
+
+@pytest.mark.parametrize("case", list(PORT_ONLY))
+def test_port_only_tags_equal_the_jax_device_answer(case, table):
     (got, meta), (want, jmeta) = _run_both(
         lambda a, df: df.select(a.col("k"), PORT_ONLY[case](a).alias("v")),
-        t)
+        _with_number_strings(table))
     assert_tables_equal(got, want)
     assert not _cpu_nodes(jmeta)  # the JAX package answers on its device
     [(node, reasons)] = _cpu_nodes(meta)
     assert node == "Project" and all("ROADMAP A9" in r for r in reasons)
+
+
+@pytest.mark.parametrize("case", list(DEVICE_CASTS))
+def test_string_casts_run_on_the_device_like_jax(case, table):
+    (got, meta), (want, jmeta) = _run_both(
+        lambda a, df: df.select(a.col("k"),
+                                DEVICE_CASTS[case](a).alias("v")),
+        _with_number_strings(table))
+    assert_tables_equal(got, want)
+    assert not _cpu_nodes(jmeta) and not _cpu_nodes(meta)
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,8 @@ the answers are compared; each of its error cases raises the same
 exception with the same message in both. Then: replacing a temp view,
 the list of the JAX package's functions the port lacks (``functions.
 NOT_PORTED``, held equal to the difference of the two modules' public
-functions), and a call of one of them raising naming ROADMAP A9.
+functions), a call of one of them raising naming ROADMAP A9, and the
+datetime functions reaching the port.
 
 Tolerances: keys, counts and strings exact; float results relative 1e-12
 (the JAX package plans a multi-partition aggregate over the tests' eight
@@ -222,7 +223,8 @@ def test_not_ported_is_the_difference_of_the_functions_modules():
 
 
 @pytest.mark.parametrize("query", [
-    "SELECT year(k) AS y FROM t", "SELECT k FROM t WHERE crc32(name) > 0"])
+    "SELECT initcap(name) AS y FROM t",
+    "SELECT k FROM t WHERE crc32(name) > 0"])
 def test_jax_only_function_raises_naming_a9(query, sessions):
     port, ref = sessions["main"]
     assert ref.sql(query).collect().num_rows > 0
@@ -231,3 +233,16 @@ def test_jax_only_function_raises_naming_a9(query, sessions):
     # a name neither package has keeps the JAX package's message
     with pytest.raises(SparkException, match="unknown function 'nosuchfn'"):
         port.sql("SELECT nosuchfn(k) FROM t")
+
+
+@pytest.mark.parametrize("query", [
+    "SELECT year(k) AS y FROM t",
+    "SELECT k, quarter(k) AS q, date_add(k, 40) AS d, "
+    "weekofyear(k) AS w FROM t WHERE dayofmonth(k) > 2",
+    "SELECT year(CAST('1995-03-15' AS date)) AS y, "
+    "month(CAST('1995-03-15' AS date)) AS m FROM d"])
+def test_datetime_names_reach_the_port_like_jax(query, sessions):
+    """The datetime functions left NOT_PORTED: session.sql resolves them
+    through sql/functions.py, as in the JAX package."""
+    port, ref = sessions["main"]
+    assert_tables_equal(port.sql(query).collect(), ref.sql(query).collect())

@@ -3,13 +3,12 @@
 The table generators (bench.py's lineitem and orders, the customers, the
 flag dimension, the price bands, lineitem_text) and the query shapes of
 the port's slices (bench.py's shapes, the strings, joins and sorts,
-windows, expressions and aggregates, sets and grouping sets, and the
-aggregate types: decimals and collected arrays) are
-written once against a package namespace, so the same program runs
-through ``spark_rapids_tpu`` (the reference) and
+windows, expressions and aggregates, sets and grouping sets, the
+aggregate types: decimals and collected arrays, and the datetime shapes
+over ``lineitem_dt``) are written once against a package namespace, so
+the same program runs through ``spark_rapids_tpu`` (the reference) and
 ``spark_rapids_tpu_torch``; ``chip_smoke.py`` runs the same generators
-and the string, join and sort, window, expression and aggregate, and set
-shapes on the card. At import this module needs numpy and pyarrow only.
+and shapes on the card. At import this module needs numpy and pyarrow only.
 ``from_jax_batch`` rebuilds a JAX package batch as a torch batch, so single
 operations can be compared on identical inputs.
 """
@@ -888,3 +887,203 @@ def q72shfl_x3(api, df):
     partition -> collect -> final."""
     return q72shfl(api, df.union(df).union(df))
 
+
+
+# ---------------------------------------------------------------------------
+# The datetime slice: the lineitem with DATE, TIMESTAMP and date-string
+# columns, and the smoke's datetime query shapes
+# ---------------------------------------------------------------------------
+
+DAY_US = 86_400_000_000
+#: the rng stream of l_commit_ts's time of day
+DT_SEED = 47
+#: the session zone of dt_tz_session, and the zones of its shifts
+DT_SESSION_ZONE = "America/New_York"
+DT_FROM_ZONE, DT_TO_ZONE = "Asia/Kolkata", "Australia/Sydney"
+
+
+def lineitem_dt(lineitem: pa.Table, seed: int = DT_SEED) -> pa.Table:
+    """The datetime phase's lineitem: l_shipdate as DATE (the same days),
+    l_commit_ts as TIMESTAMP (the ship day plus a time of day from a
+    seeded stream), l_shipdate_str (flat 'yyyy-MM-dd' strings, numpy's
+    datetime_as_string of each distinct day, taken per row), and the
+    order key, price, discount, quantity and flags."""
+    import pyarrow.compute as pc
+    days = np.concatenate([c.to_numpy() for c in
+                           lineitem["l_shipdate"].chunks]).astype(np.int64)
+    tod = np.random.default_rng(seed).integers(0, DAY_US, len(days))
+    # the distinct days and each row's index among them, without a sort
+    d0 = int(days.min())
+    uniq = np.nonzero(np.bincount(days - d0))[0]
+    slot = np.zeros(int(days.max()) - d0 + 1, np.int32)
+    slot[uniq] = np.arange(len(uniq), dtype=np.int32)
+    inv = slot[days - d0]
+    text = pa.array(np.datetime_as_string(
+        (uniq + d0).astype("datetime64[D]")))
+    return pa.table({
+        "l_orderkey": lineitem["l_orderkey"],
+        "l_shipdate": pa.array(days.astype(np.int32), pa.date32()),
+        "l_commit_ts": pa.array(days * DAY_US + tod, pa.timestamp("us")),
+        "l_shipdate_str": pc.take(text, pa.array(inv)),
+        "l_extendedprice": lineitem["l_extendedprice"],
+        "l_discount": lineitem["l_discount"],
+        "l_quantity": lineitem["l_quantity"],
+        "l_returnflag": lineitem["l_returnflag"],
+        "l_linestatus": lineitem["l_linestatus"],
+    })
+
+
+def _revenue(api):
+    col, lit = api.col, api.lit
+    return col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+
+
+def dt_year_month(api, df):
+    """Revenue and lines per year and month of the ship date (the
+    extract(year ...) grouping of TPC-H Q7/Q8/Q9)."""
+    col, F = api.col, api.F
+    return df.group_by(F.year(col("l_shipdate")).alias("y"),
+                       F.month(col("l_shipdate")).alias("m")).agg(
+        F.sum(_revenue(api)).alias("revenue"), F.count().alias("n"))
+
+
+def dt_q6_add_months(api, df):
+    """Q6 with its year as date '1994-01-01' <= l_shipdate <
+    add_months(date '1994-01-01', 12), as Spark rewrites date + interval
+    '1' year."""
+    import datetime
+    col, lit, F = api.col, api.lit, api.F
+    start = lit(datetime.date(1994, 1, 1))
+    cond = ((col("l_shipdate") >= start)
+            & (col("l_shipdate") < F.add_months(start, 12))
+            & (col("l_discount") >= lit(0.05))
+            & (col("l_discount") <= lit(0.07))
+            & (col("l_quantity") < lit(24.0)))
+    return df.filter(cond).agg(
+        F.sum(col("l_extendedprice") * col("l_discount")).alias("revenue"))
+
+
+def dt_daily_repart(api, df, n=8):
+    """repart_agg's shape over the commit day: hash-repartitioned by
+    cast(l_commit_ts as date), revenue and lines per day, with its day of
+    the week."""
+    col, F = api.col, api.F
+    return (df.select(col("l_commit_ts").cast(api.T.DATE).alias("d"),
+                      _revenue(api).alias("rev"))
+            .repartition(n, col("d"))
+            .group_by(col("d"))
+            .agg(F.sum("rev").alias("s"), F.count("rev").alias("c"))
+            .select(col("d"), F.dayofweek(col("d")).alias("dow"),
+                    col("s"), col("c")))
+
+
+def dt_ts_groups(api, df):
+    """Lines and quantity per hour, day of the week and quarter of the
+    commit timestamp."""
+    col, F = api.col, api.F
+    ts = col("l_commit_ts")
+    return df.group_by(F.hour(ts).alias("h"), F.dayofweek(ts).alias("dow"),
+                       F.quarter(ts).alias("q")).agg(
+        F.count().alias("n"), F.sum(col("l_quantity")).alias("sq"))
+
+
+#: dt_ts_rows' filter keeps l_quantity < this (~4% of the lines)
+DT_ROWS_QTY = 3.0
+
+
+def dt_ts_rows(api, df):
+    """A row query over the lines with l_quantity < 3: the remaining
+    timestamp and date functions."""
+    import datetime
+    col, lit, F = api.col, api.lit, api.F
+    ts, d = col("l_commit_ts"), col("l_shipdate")
+    return df.filter(col("l_quantity") < lit(DT_ROWS_QTY)).select(
+        col("l_orderkey"), F.date_trunc("hour", ts).alias("th"),
+        F.unix_timestamp(ts).alias("ut"), F.weekofyear(ts).alias("w"),
+        F.last_day(d).alias("ld"),
+        F.datediff(d, lit(datetime.date(1995, 1, 1))).alias("dd"),
+        F.months_between(ts, lit(datetime.date(1995, 1, 1))).alias("mb"),
+        F.next_day(d, "MON").alias("nd"),
+        F.make_date(F.year(d), F.month(d), lit(1)).alias("md"),
+        F.date_add(d, 30).alias("da"), F.date_sub(d, 30).alias("ds"))
+
+
+def dt_tz_hours(api, df):
+    """In a session zone: lines per local year, month and hour."""
+    col, F = api.col, api.F
+    ts = col("l_commit_ts")
+    return df.group_by(F.year(ts).alias("y"), F.month(ts).alias("m"),
+                       F.hour(ts).alias("h")).agg(F.count().alias("n"))
+
+
+def dt_tz_days(api, df):
+    """In a session zone: lines per local day (cast(ts as date))."""
+    col, F = api.col, api.F
+    return df.group_by(col("l_commit_ts").cast(api.T.DATE).alias("d")).agg(
+        F.count().alias("n"))
+
+
+def dt_tz_shifts(api, df):
+    """In a session zone, per local hour: the epoch seconds of the commit
+    time read in DT_FROM_ZONE (from_utc_timestamp) and of it read as
+    DT_TO_ZONE's wall clock (to_utc_timestamp), summed."""
+    col, F = api.col, api.F
+    ts = col("l_commit_ts")
+    return df.group_by(F.hour(ts).alias("h")).agg(
+        F.sum(F.unix_seconds(F.from_utc_timestamp(ts, DT_FROM_ZONE)))
+        .alias("sf"),
+        F.sum(F.unix_seconds(F.to_utc_timestamp(ts, DT_TO_ZONE)))
+        .alias("st"))
+
+
+def dt_cast_checks(api, df):
+    """The string casts, counted: ship-date strings parsed (the dictionary
+    arm) and rendered then parsed (the flat arm) against l_shipdate, the
+    order key's decimal round trip, and the ship years parsed as
+    doubles, summed."""
+    col, lit, F, T = api.col, api.lit, api.F, api.T
+    d = col("l_shipdate")
+    one = lit(1)
+
+    def hits(cond):
+        return F.sum(F.when(cond, one).otherwise(lit(0)))
+    return df.agg(
+        hits(col("l_shipdate_str").cast(T.DATE) == d).alias("str_date"),
+        hits(d.cast(T.STRING).cast(T.DATE) == d).alias("rendered_date"),
+        hits(col("l_orderkey").cast(T.STRING).cast(T.INT64)
+             == col("l_orderkey")).alias("orderkey"),
+        F.sum(F.substring(col("l_shipdate_str"), 1, 4).cast(T.FLOAT64))
+        .alias("years"))
+
+
+def dt_ts_string_hours(api, df):
+    """Lines per hour of the commit time rendered as a string (its first
+    13 characters, 'yyyy-MM-dd HH')."""
+    col, F = api.col, api.F
+    return df.group_by(F.substring(col("l_commit_ts").cast(api.T.STRING),
+                                   1, 13).alias("hour")).agg(
+        F.count().alias("n"))
+
+
+def dt_format_fb(api, df):
+    """date_format(l_shipdate, 'yyyy-MM') over the l_quantity = 1 lines,
+    counted per month: date_format has no device implementation in either
+    package, so one operator runs on the CPU."""
+    col, lit, F = api.col, api.lit, api.F
+    return df.filter(col("l_quantity") == lit(1.0)).group_by(
+        F.date_format(col("l_shipdate"), "yyyy-MM").alias("ym")).agg(
+        F.count().alias("n"))
+
+
+#: dt_format_fb's CPU node
+DT_FALLBACK_NODE = "Aggregate"
+
+#: sql_dt: dt_year_month's grouping as SQL, with the quarter and a
+#: cast('1995-01-01' as date) filter (the SQL grammar of both packages
+#: groups by columns, so the date parts come from a WITH)
+SQL_DT = ("WITH parts AS (SELECT year(l_shipdate) AS y, "
+          "month(l_shipdate) AS m, quarter(l_shipdate) AS q, "
+          "l_extendedprice * (1.0 - l_discount) AS rev FROM lineitem_dt "
+          "WHERE l_shipdate >= CAST('1995-01-01' AS date)) "
+          "SELECT y, m, q, SUM(rev) AS revenue, COUNT(*) AS n FROM parts "
+          "GROUP BY y, m, q")
