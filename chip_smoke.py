@@ -210,17 +210,34 @@ Phases, one JSON line each:
    cast('1995-01-01' as date) filter), each cold then twice warm and
    checked against numpy and python's calendar, with routes, CPU nodes
    and launches asserted exactly.
+16. regex (right after the strings phase, on its cached lineitem_text):
+   rx_rlike_flags (rlike(l_comment, 'b(l|r)[a-z]+ly') per flag pair:
+   count and octet_length sum), rx_like_nfa (lines per outcome of LIKE
+   '_u%' and '%ar_', the device NFA, and '%ly', an endswith),
+   rx_extract_groups (lines per regexp_extract(l_comment, '([a-z]+)ly ',
+   1): the sort route), rx_replace (the characters of regexp_replace(
+   l_comment, '[aeiou]+', '*') per flag pair, then the replaced comments
+   of the l_quantity < 3 lines), rx_breadth_rows (trim ... chr, crc32
+   and hive_hash over those ~1.2M lines; B4 in upper(trim(...))),
+   rx_cpu_rows_fb (the CPU row functions over the l_quantity = 1 lines
+   whose order key is a multiple of 60: one CPU Project), rx_q13_fb
+   (Q13's NOT LIKE '%quick%sleep%' over the l_quantity = 1 lines: a CPU
+   Filter, as in the JAX package) and sql_regex (the LIKE and RLIKE
+   filters and the extraction as SQL, with initcap and trim), each cold
+   then twice warm and checked against pyarrow's RE2 and ASCII kernels,
+   zlib, a numpy Hive hash, hashlib, base64 and Python's re, with routes,
+   CPU nodes and launches asserted exactly.
 Every query path runs in test mode (spark.rapids.sql.test.enabled): an
 operator that planning tags off the card fails the query, except the one
 node each fallback query names in spark.rapids.sql.test.allowedNonTpu.
 It then prints the kernel table ({"kernels": [...]}, with each kernel's
 launches per path in "launches_by_path": cached, parquet, strings, joins,
-adaptive, window, sql, exprs, sets, aggtypes, datetime, fallback), the
-card's name and power limit, and as its last line {"ok": true,
+adaptive, window, sql, exprs, sets, aggtypes, datetime, regex, fallback),
+the card's name and power limit, and as its last line {"ok": true,
 "device": {...}}. Any failure exits non-zero without that line; so does a
 machine without CUDA, and so does a run that imported the JAX package.
 The lineitem generators and the string, join, window, expression, set,
-aggregate-type and datetime query shapes are the ones of
+aggregate-type, datetime and regex query shapes are the ones of
 tests/torch_port_helpers.py, which the CPU tests run too.
 `python3 chip_smoke.py --segsum-against OTHER.cu [...]` runs only the
 segsum shapes, through the checkout's kernel and a build of each other
@@ -4094,6 +4111,395 @@ def phase_datetime(table, spy, prof=None):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the string and regex layer over lineitem_text
+# ---------------------------------------------------------------------------
+
+def _np_hive_strings(offsets, data):
+    """Java String.hashCode of each row's UTF-8 bytes taken as signed, the
+    low 32 bits in int64: one numpy step per byte position."""
+    starts, lens = offsets[:-1], np.diff(offsets)
+    h = np.zeros(len(lens), np.int64)
+    last = max(len(data) - 1, 0)
+    for i in range(int(lens.max()) if len(lens) else 0):
+        b = data[np.minimum(starts + i, last)].view(np.int8).astype(np.int64)
+        h = np.where(lens > i, (h * 31 + b) & 0xFFFFFFFF, h)
+    return h
+
+
+def _string_planes(strings):
+    """(int64 offsets, uint8 bytes) of a pyarrow string column."""
+    import pyarrow as pa
+    arr = pa.chunked_array(strings).combine_chunks().cast(pa.large_string())
+    offsets = np.frombuffer(arr.buffers()[1], np.int64)[
+        arr.offset: arr.offset + len(arr) + 1]
+    data = arr.buffers()[2]
+    return offsets, np.frombuffer(data, np.uint8) if data is not None \
+        else np.zeros(0, np.uint8)
+
+
+def np_hive_hash(comment, quantity):
+    """hive_hash(comment string, quantity double) as Hive computes it: h =
+    31 * h + column hash, wrapping like a Java int."""
+    hs = _np_hive_strings(*_string_planes(comment))
+    bits = np.where(quantity == 0.0, 0.0, quantity).view(np.uint64)
+    hq = ((bits ^ (bits >> np.uint64(32))) & np.uint64(0xFFFFFFFF)).astype(
+        np.int64)
+    h = (hs * 31 + hq) & 0xFFFFFFFF
+    return np.where(h >= 1 << 31, h - (1 << 32), h)
+
+
+def _soundex(s):
+    """Spark's soundex: the first letter, then the codes of the following
+    consonants, equal neighbours once, vowels separate them and h/w do
+    not, padded with 0 to 4; a string not starting with a letter is
+    returned as it is."""
+    codes = {}
+    for digit, letters in (("1", "BFPV"), ("2", "CGJKQSXZ"), ("3", "DT"),
+                           ("4", "L"), ("5", "MN"), ("6", "R")):
+        codes.update(dict.fromkeys(letters, digit))
+    if not s or not s[0].isalpha():
+        return s
+    u = s.upper()
+    out, prev = u[0], codes.get(u[0], "")
+    for ch in u[1:]:
+        code = codes.get(ch, "")
+        if code and code != prev:
+            out += code
+            if len(out) == 4:
+                break
+        if ch not in "HW":
+            prev = code
+    return out.ljust(4, "0")
+
+
+def _edit_distance(a, b):
+    row = list(range(len(b) + 1))
+    for i, ca in enumerate(a, 1):
+        prev, row[0] = row[0], i
+        for j, cb in enumerate(b, 1):
+            prev, row[j] = row[j], min(row[j] + 1, row[j - 1] + 1,
+                                       prev + (ca != cb))
+    return row[-1]
+
+
+def _flag_groups(t, aggs):
+    g = t.group_by(["l_returnflag", "l_linestatus"]).aggregate(aggs)
+    names = [f"{c}_{op}" for c, op in aggs]
+    return {(a, b): tuple(v) for a, b, *v in zip(
+        g["l_returnflag"].to_pylist(), g["l_linestatus"].to_pylist(),
+        *[g[n].to_pylist() for n in names])}
+
+
+def _threaded(fn, arr, parts=8):
+    """fn over slices of a (chunked) array in threads, concatenated:
+    pyarrow's kernels release the GIL, so the slices run in parallel."""
+    import pyarrow as pa
+    from concurrent.futures import ThreadPoolExecutor
+    n = len(arr)
+    step = -(-n // parts) or 1
+    with ThreadPoolExecutor(parts) as pool:
+        outs = list(pool.map(lambda i: fn(arr.slice(i, step)),
+                             range(0, n, step)))
+    return pa.chunked_array([c for o in outs for c in (
+        o.chunks if isinstance(o, pa.ChunkedArray) else [o])])
+
+
+def regex_reference(text):
+    """Host answers to the regex phase: pyarrow's RE2 kernels over all
+    30M comments (independent of both packages), pyarrow's ASCII string
+    functions, zlib and a numpy Hive hash over the ~1.2M lines of few
+    items, and hashlib, base64 and Python's re over the row functions' and
+    Q13's lines."""
+    import base64
+    import hashlib
+    import re
+    import zlib
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    H = helpers()
+    c = text["l_comment"]
+    out = {}
+    rlike = _threaded(lambda a: pc.match_substring_regex(a, H.RX_RLIKE), c)
+    f = text.filter(rlike)
+    f = f.append_column("b", pc.binary_length(f["l_comment"]))
+    out["rx_rlike_flags"] = _flag_groups(f, [("b", "count"), ("b", "sum")])
+    likes = pa.table({k: _threaded(lambda a, p=p: pc.match_like(a, p), c)
+                      for k, p in (("u", H.RX_LIKE_NFA[0]),
+                                   ("ar", H.RX_LIKE_NFA[1]),
+                                   ("ly", H.RX_LIKE_PLAIN))})
+    g = likes.group_by(["u", "ar", "ly"]).aggregate([("u", "count")])
+    out["rx_like_nfa"] = {(a, b, d): n for a, b, d, n in zip(
+        *[g[k].to_pylist() for k in ("u", "ar", "ly", "u_count")])}
+    pattern, group = H.RX_EXTRACT
+    named = pattern.replace("(", "(?P<w>", 1)
+
+    def extract(a):
+        return pc.struct_field(pc.extract_regex(a, named), [0])
+    word = _threaded(extract, c).fill_null("")
+    g = pa.table({"w": word}).group_by(["w"]).aggregate([("w", "count")])
+    out["rx_extract_groups"] = dict(zip(g["w"].to_pylist(),
+                                        g["w_count"].to_pylist()))
+    # sql_regex: the words of the lines both filters keep, capitalized
+    both = pc.and_(likes["u"], rlike)
+    g = pa.table({"w": pc.utf8_capitalize(word.filter(both)),
+                  "q": text["l_quantity"].filter(both)}).group_by(
+        ["w"]).aggregate([("q", "count"), ("q", "sum")])
+    out["sql_regex"] = {w: (n, q) for w, n, q in zip(
+        g["w"].to_pylist(), g["q_count"].to_pylist(),
+        g["q_sum"].to_pylist())}
+    del word, likes, rlike
+    pat, rep = H.RX_REPLACE
+    replaced = _threaded(lambda a: pc.replace_substring_regex(a, pat, rep),
+                         c)
+    t = text.select(["l_returnflag", "l_linestatus"]).append_column(
+        "len", pc.utf8_length(replaced))
+    sums = _flag_groups(t, [("len", "sum"), ("len", "count")])
+    few = pc.less(text["l_quantity"], H.RX_ROWS_QTY)
+    rows = pa.table({"l_orderkey": text["l_orderkey"].filter(few),
+                     "r": replaced.filter(few)})
+    out["rx_replace"] = (sums, rows.sort_by([("l_orderkey", "ascending"),
+                                             ("r", "ascending")]))
+    del replaced
+    r = text.filter(few)
+    rc = r["l_comment"].cast(pa.string())
+    padded = pc.binary_join_element_wise("  ", rc, " ", "")
+    trim = pc.utf8_trim(padded, " ")
+    lens = pc.binary_length(rc).to_numpy().astype(np.int32)
+    offsets, data = _string_planes(rc)
+    qty = r["l_quantity"].to_numpy()
+    instr = pc.add(pc.find_substring(rc, "ly"), 1).to_numpy()
+    out["rx_breadth_rows"] = _breadth_sorted(pa.table({
+        "l_orderkey": r["l_orderkey"], "trim": trim,
+        "ltrim": pc.utf8_ltrim(padded, " "),
+        "rtrim": pc.utf8_rtrim(padded, " "),
+        # the comments are lowercase ASCII words: initcap is title case
+        "initcap": pc.utf8_title(rc),
+        # the comments are ASCII: a first code point is a first byte
+        "ascii": np.where(lens > 0, data[np.minimum(
+            offsets[:-1], max(len(data) - 1, 0))], 0).astype(np.int32),
+        "instr": instr.astype(np.int32), "locate": instr.astype(np.int32),
+        "rep": pc.binary_repeat(pc.utf8_slice_codeunits(rc, 0, 4), 3),
+        "octets": lens, "bits": lens * 8,
+        "left5": pc.utf8_slice_codeunits(rc, 0, 5),
+        "right5": pc.utf8_slice_codeunits(rc, -5),
+        "chr": np.array([chr(64 + q) for q in range(51)])[
+            qty.astype(np.int64)],
+        "upper_trim": pc.ascii_upper(trim),
+        "crc": np.array([zlib.crc32(s.encode()) for s in rc.to_pylist()],
+                        np.int64),
+        "hive": np_hive_hash(rc, qty).astype(np.int32)}))
+    cpu = text.filter(pa.array(
+        (text["l_quantity"].to_numpy() == 1.0)
+        & (text["l_orderkey"].to_numpy() % H.RX_CPU_MOD == 0)))
+    words = re.compile(r"([a-z]+)ly")
+    table = str.maketrans({"a": "A", "e": "E", "i": "I", "o": None,
+                           "u": None})
+    rows = []
+    for k, flag, s in zip(cpu["l_orderkey"].to_pylist(),
+                          cpu["l_returnflag"].to_pylist(),
+                          cpu["l_comment"].to_pylist()):
+        b = s.encode()
+        rows.append((k, hashlib.md5(b).hexdigest(),
+                     hashlib.sha256(b).hexdigest(),
+                     s[:50] if len(s) >= 50 else ("*" * 50)[:50 - len(s)] + s,
+                     s.translate(table), " ".join(s.split(" ")[:2]),
+                     flag + "|" + s, _soundex(s),
+                     _edit_distance(s, "quickly"),
+                     base64.b64encode(b).decode(), b.hex().upper(),
+                     words.findall(s)))
+    out["rx_cpu_rows_fb"] = sorted(rows)
+    q1 = text.filter(pc.equal(text["l_quantity"], 1.0))
+    q13 = re.compile(".*quick.*sleep.*", re.DOTALL)
+    keep = pa.array([not q13.fullmatch(s)
+                     for s in q1["l_comment"].to_pylist()])
+    out["rx_q13_fb"] = {k: v[0] for k, v in _flag_groups(
+        q1.filter(keep), [("l_orderkey", "count")]).items()}
+    return out
+
+
+def _breadth_sorted(t):
+    """rx_breadth_rows' table with the port's column types, in a total
+    order (a comment decides its other columns)."""
+    import pyarrow as pa
+    H = helpers()
+    types = {"l_orderkey": pa.int64(), "ascii": pa.int32(),
+             "instr": pa.int32(), "locate": pa.int32(), "octets": pa.int32(),
+             "bits": pa.int32(), "crc": pa.int64(), "hive": pa.int32()}
+    cols = ("l_orderkey",) + H.RX_BREADTH_COLS
+    t = t.select(list(cols)).cast(pa.schema(
+        [(k, types.get(k, pa.string())) for k in cols]))
+    return t.sort_by([("l_orderkey", "ascending"), ("crc", "ascending"),
+                      ("trim", "ascending")])
+
+
+def regex_queries(dev, cpu_rows, q13, sql_s):
+    """name -> (session, run) over the cached lineitem_text: dev its plan
+    in a test-mode session, cpu_rows and q13 in sessions that allow their
+    one CPU node, sql_s a session with it as the temp view lineitem_text.
+    Each run returns what validate_regex reads."""
+    H, api = helpers(), port_api()
+
+    def rows(df, nkeys):
+        d = df.collect().to_pydict()
+        names = list(d)
+        return {tuple(d[k][i] for k in names[:nkeys]):
+                tuple(d[c][i] for c in names[nkeys:])
+                for i in range(len(d[names[0]]))}
+
+    def replace():
+        sums = rows(H.rx_replace_sums(api, dev.li), 2)
+        return sums, H.rx_replace_rows(api, dev.li).collect()
+
+    return {
+        "rx_rlike_flags": (dev.s, lambda: rows(
+            H.rx_rlike_flags(api, dev.li), 2)),
+        "rx_like_nfa": (dev.s, lambda: {k: v[0] for k, v in rows(
+            H.rx_like_nfa(api, dev.li), 3).items()}),
+        "rx_extract_groups": (dev.s, lambda: {k[0]: v[0] for k, v in rows(
+            H.rx_extract_groups(api, dev.li), 1).items()}),
+        "rx_replace": (dev.s, replace),
+        "rx_breadth_rows": (dev.s, lambda: H.rx_breadth_rows(
+            api, dev.li).collect()),
+        "rx_cpu_rows_fb": (cpu_rows.s, lambda: H.rx_cpu_rows_fb(
+            api, cpu_rows.li).collect()),
+        "rx_q13_fb": (q13.s, lambda: {k: v[0] for k, v in rows(
+            H.rx_q13_fb(api, q13.li), 2).items()}),
+        "sql_regex": (sql_s, lambda: {k[0]: v for k, v in rows(
+            sql_s.sql(H.SQL_REGEX), 1).items()}),
+    }
+
+
+def validate_regex(name, got, want):
+    """(correct, how the check compared)."""
+    H = helpers()
+    if name == "rx_replace":
+        g_sums, g_rows = got
+        w_sums, w_rows = want
+        g_rows = g_rows.sort_by([("l_orderkey", "ascending"),
+                                 ("r", "ascending")])
+        same = g_rows.num_rows == w_rows.num_rows and all(
+            g_rows[k].equals(w_rows[k].cast(g_rows[k].type))
+            for k in ("l_orderkey", "r"))
+        return g_sums == w_sums and same, (
+            "characters and lines per flag pair, then the replaced "
+            "comments of the few-item lines row by row, exactly")
+    if name == "rx_breadth_rows":
+        got = _breadth_sorted(got)
+        return got.num_rows == want.num_rows and all(
+            got[k].equals(want[k]) for k in got.column_names), (
+            "every column of every line, exactly")
+    if name == "rx_cpu_rows_fb":
+        d = got.to_pydict()
+        rows = sorted(zip(d["l_orderkey"], *[d[k] for k in H.RX_CPU_COLS]))
+        return rows == want, "every column of every line, exactly"
+    if name == "sql_regex":
+        return set(got) == set(want) and all(
+            got[k][0] == want[k][0] and _close(got[k][1], want[k][1])
+            for k in want), ("every word: lines exact, quantity to 1e-6")
+    return got == want, "every group exactly"
+
+
+#: each regex query's aggregate routes per run and its plan nodes on the
+#: CPU (worked out on a CPU rehearsal at reduced rows: the flag and
+#: boolean keys take the tiny-bucket route, the extracted words the sort
+#: route; the size gates do not move them at 30M rows)
+REGEX_EXPECT = {
+    "rx_rlike_flags": ({"_bucket_update": 1}, []),
+    "rx_like_nfa": ({"_bucket_update": 1}, []),
+    "rx_extract_groups": ({"_sort_agg": 1}, []),
+    "rx_replace": ({"_bucket_update": 1}, []),
+    "rx_breadth_rows": ({}, []),
+    "rx_cpu_rows_fb": ({}, ["Project"]),
+    "rx_q13_fb": ({"_bucket_update": 1}, ["Filter"]),
+    "sql_regex": ({"_sort_agg": 1}, []),
+}
+#: kernel launches per run: the case map of upper(trim(...))
+REGEX_LAUNCHES = {"rx_breadth_rows": {"case_map": 1}}
+
+
+def phase_regex(text, text_plan, spy, prof=None):
+    """The regex and string-breadth shapes over the strings path's cached
+    lineitem_text, in test-mode sessions: one for the device queries, one
+    each allowing rx_cpu_rows_fb's and rx_q13_fb's CPU node, and one with
+    the cache as a temp view for sql_regex."""
+    import torch
+    from types import SimpleNamespace
+    from spark_rapids_tpu_torch.exec.nodes import CpuFallbackExec
+    from spark_rapids_tpu_torch.sql.dataframe import DataFrame
+    H = helpers()
+    t0 = time.perf_counter()
+    ref = regex_reference(text)
+    host_s = time.perf_counter() - t0
+
+    def bound(session):
+        return SimpleNamespace(s=session, li=DataFrame(text_plan, session))
+    dev = bound(device_session())
+    cpu_rows = bound(device_session(
+        allowed=H.RX_FALLBACK_NODES["rx_cpu_rows_fb"]))
+    q13 = bound(device_session(allowed=H.RX_FALLBACK_NODES["rx_q13_fb"]))
+    sql_s = device_session()
+    sql_s.create_or_replace_temp_view("lineitem_text",
+                                      DataFrame(text_plan, sql_s))
+    emit({"phase": "regex.setup", "host_reference_s": host_s,
+          "rows": text.num_rows})
+    reset_launches()
+    spy.take()
+    problems = []
+    queries = regex_queries(dev, cpu_rows, q13, sql_s)
+    for name, (session, fn) in queries.items():
+        before = read_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = fn()
+        cold = time.perf_counter() - t0
+        warm = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            fn()
+            warm.append(time.perf_counter() - t0)
+        good, how = validate_regex(name, got, ref[name])
+        counts = spy.take()
+        routes = {k: v // 3 for k, v in counts.items()}
+        execs = _exec_names(session)
+        launches = {k: (v - before[k]) // 3
+                    for k, v in read_launches().items()}
+        cpu_nodes = [type(m.plan).__name__ for m in session.last_meta.walk()
+                     if not m.can_run_on_tpu]
+        fallback = [dict(e.metrics) for e in session.last_exec.walk()
+                    if isinstance(e, CpuFallbackExec)]
+        e_routes, e_cpu = REGEX_EXPECT[name]
+        e_launch = {k: REGEX_LAUNCHES.get(name, {}).get(k, 0)
+                    for k in launches}
+        if not good:
+            problems.append(f"{name} disagrees with the host answer ({how})")
+        if routes != e_routes or any(v % 3 for v in counts.values()) \
+                or cpu_nodes != e_cpu:
+            problems.append(f"{name} ran {execs} with routes {routes} and "
+                            f"CPU nodes {cpu_nodes}; expected "
+                            f"{REGEX_EXPECT[name]}")
+        if launches != e_launch:
+            problems.append(f"{name} launched {launches}, expected "
+                            f"{e_launch}")
+        emit({"phase": "regex.query", "query": name, "correct": good,
+              "check": how, "cold_s": cold, "warm_s": min(warm),
+              "warm_ms": min(warm) * 1e3, "launches": launches,
+              "routes": routes, "execs": execs, "cpu_nodes": cpu_nodes,
+              "fallback": fallback,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+    counts = read_launches()
+    emit({"phase": "regex", "launches": counts, "correct": not problems,
+          "problems": problems})
+    if prof:
+        prof.run("regex", {k: v[1] for k, v in queries.items()})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    if counts["case_map"] <= 0:
+        raise AssertionError(f"the case-map kernel did not run on the "
+                             f"regex path: {counts}")
+    return counts
+
+
 #: launch-counter name -> (wrapper module, wrapper function, a substring
 #: of the CUDA kernel's name as the profiler reports it)
 KERNEL_WRAPPERS = {
@@ -4362,6 +4768,9 @@ def main(argv) -> int:
         strings, text_plan = phase_strings(text, spy, prof)
         phases["strings_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
+        regex = phase_regex(text, text_plan, spy, prof)
+        phases["regex_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         fallback = phase_fallback(li_plan, text_plan, fb_want, spy, prof)
         phases["fallback_s"] = time.perf_counter() - t0
     finally:
@@ -4374,6 +4783,7 @@ def main(argv) -> int:
                    "exprs": exprs[r["name"]],
                    "sets": sets[r["name"]], "aggtypes": aggtypes[r["name"]],
                    "datetime": dtime[r["name"]],
+                   "regex": regex[r["name"]],
                    "fallback": fallback[r["name"]]}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path

@@ -1,15 +1,26 @@
 """Miscellaneous expressions (counterpart of
-``spark_rapids_tpu/expr/misc.py``): ``Rand`` and ``XxHash64`` so far; the
-rest of the module is ROADMAP A9.
+``spark_rapids_tpu/expr/misc.py``; reference parity: GpuRandomExpressions,
+GpuParseUrl (JNI ParseURI), RaiseError, HashFunctions' hive hash, jni
+Hash): ``Rand``, ``XxHash64``, ``HiveHash`` and ``Crc32`` on the device;
+``ParseUrl`` and ``RaiseError`` as CPU row functions
+(``MISC_CPU_FUNCTIONS``). ``Sequence`` waits for the array operations
+(ROADMAP A9c).
 """
 from __future__ import annotations
+
+from typing import List
+from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnVector
-from spark_rapids_tpu_torch.expr.core import CpuCol, Expression, _partition_ctx
+from spark_rapids_tpu_torch.expr.core import (
+    CpuCol, EvalCtx, Expression, SparkException, _partition_ctx, _valid_of,
+)
+from spark_rapids_tpu_torch.expr.cpu_functions import CpuRowFunction
+from spark_rapids_tpu_torch.expr.strings import _lift_unary
 from spark_rapids_tpu_torch.ops.kernels import shr64 as _shr
 from spark_rapids_tpu_torch.ops.kernels import signed64 as _signed64
 
@@ -206,3 +217,236 @@ def xxhash64_bytes(data: bytes, seed: int) -> int:
     h = (h ^ (h >> 33)) * p2 & m
     h = (h ^ (h >> 29)) * p3 & m
     return _signed64(h ^ (h >> 32))
+
+
+class ParseUrl(CpuRowFunction):
+    """parse_url(url, part[, key]) (host tier; reference JNI ParseURI)."""
+
+    name = "parse_url"
+    result = T.STRING
+    PARTS = ("HOST", "PATH", "QUERY", "REF", "PROTOCOL", "FILE",
+             "AUTHORITY", "USERINFO")
+
+    def __init__(self, *children, params=()):
+        super().__init__(*children, params=params)
+        part = (params[0] or "").upper()
+        if part not in self.PARTS:
+            raise SparkException(f"parse_url: unknown part {params[0]!r}")
+        self.part = part
+        self.key = params[1] if len(params) > 1 else None
+
+    def row_fn(self, url):
+        try:
+            u = urlparse(url)
+        except ValueError:
+            return None
+        if self.part == "HOST":
+            return u.hostname
+        if self.part == "PATH":
+            return u.path or None if u.scheme else None
+        if self.part == "QUERY":
+            if self.key is not None:
+                v = parse_qs(u.query).get(self.key)
+                return v[0] if v else None
+            return u.query or None
+        if self.part == "REF":
+            return u.fragment or None
+        if self.part == "PROTOCOL":
+            return u.scheme or None
+        if self.part == "FILE":
+            return (u.path + ("?" + u.query if u.query else "")) or None
+        if self.part == "AUTHORITY":
+            return u.netloc or None
+        if u.username is None:  # USERINFO
+            return None
+        return u.username + (":" + u.password if u.password else "")
+
+
+class RaiseError(CpuRowFunction):
+    """raise_error(msg): fails the query when evaluated on any live row.
+    Its column is a STRING column here (the JAX package's is NullType,
+    which the port does not carry yet, ROADMAP A9d); it never holds a
+    value."""
+
+    name = "raise_error"
+    result = T.STRING
+
+    def row_fn(self, msg):
+        raise SparkException(str(msg))
+
+
+MISC_CPU_FUNCTIONS = [ParseUrl, RaiseError]
+
+
+def _to_int32(h: torch.Tensor) -> torch.Tensor:
+    """The low 32 bits of an int64 plane as the int32 that holds them."""
+    h = h & 0xFFFFFFFF
+    return torch.where(h >= 1 << 31, h - (1 << 32), h).to(torch.int32)
+
+
+class HiveHash(Expression):
+    """hive hash over columns (reference jni.Hash hiveHash): each column's
+    Hive hashCode chained as h = 31 * h + column hash, wrapping like a
+    Java int; a null field hashes to 0. Strings hash their UTF-8 bytes
+    (Java String.hashCode over signed bytes) in one walk over the longest
+    row, a dictionary column over its vocabulary. The arithmetic runs in
+    int64 masked to 32 bits."""
+
+    def __init__(self, children: List[Expression]):
+        self.children = list(children)
+
+    def data_type(self):
+        return T.INT32
+
+    def with_children(self, children):
+        return HiveHash(children)
+
+    def eval(self, ctx: EvalCtx) -> ColumnVector:
+        h = torch.zeros(ctx.capacity, dtype=torch.int64, device=ctx.device)
+        for c in self.children:
+            col = c.eval(ctx)
+            ch = torch.where(_valid_of(col, ctx), _hive_hash_col(col), 0)
+            h = (h * 31 + ch) & 0xFFFFFFFF
+        return ColumnVector(T.INT32, _to_int32(h), None)
+
+    def eval_cpu(self, cols, ansi=False):
+        n = len(cols[0].values) if cols else 0
+        h = np.zeros(n, np.int32)
+        for c in self.children:
+            cc = c.eval_cpu(cols, ansi)
+            ch = np.where(cc.valid, hive_hash_col_np(cc), 0).astype(np.int32)
+            with np.errstate(over="ignore"):
+                h = (h.astype(np.int64) * 31 + ch).astype(np.int32)
+        return CpuCol(T.INT32, h, np.ones(n, np.bool_))
+
+
+def _hive_hash_col(col: ColumnVector) -> torch.Tensor:
+    """int64 plane of each row's Hive hash (its low 32 bits)."""
+    d = col.dtype
+    if isinstance(d, T.StringType):
+        if col.is_dict:
+            voc = hive_string_hash(col.data["dict_offsets"],
+                                   col.data["dict_bytes"])
+            if not voc.shape[0]:
+                return torch.zeros(col.capacity, dtype=torch.int64,
+                                   device=voc.device)
+            return voc[col.data["codes"].to(torch.int64).clamp(
+                0, voc.shape[0] - 1)]
+        return hive_string_hash(col.data["offsets"], col.data["bytes"])
+    if isinstance(d, (T.BooleanType, T.Int8Type, T.Int16Type, T.Int32Type,
+                      T.DateType)):
+        return col.data.to(torch.int64)
+    if isinstance(d, T.Float32Type):
+        v = torch.where(col.data == 0.0, torch.zeros_like(col.data),
+                        col.data)
+        return v.view(torch.int32).to(torch.int64)
+    if isinstance(d, T.Float64Type):
+        v = torch.where(col.data == 0.0, torch.zeros_like(col.data),
+                        col.data)
+        bits = v.view(torch.int64)
+    else:  # int64, timestamp, decimal
+        bits = col.data.to(torch.int64)
+    return (bits ^ _shr(bits, 32)) & 0xFFFFFFFF
+
+
+def hive_string_hash(offsets: torch.Tensor, raw: torch.Tensor
+                     ) -> torch.Tensor:
+    """Java String.hashCode over each row's bytes taken as signed: h = 31 *
+    h + b, in int64 masked to 32 bits; one step per byte position up to
+    the longest row (one host read)."""
+    o = offsets.to(torch.int64)
+    starts, lens = o[:-1], o[1:] - o[:-1]
+    h = torch.zeros(lens.shape[0], dtype=torch.int64, device=raw.device)
+    nb = raw.shape[0]
+    maxlen = int(lens.max().item()) if lens.shape[0] and nb else 0
+    for i in range(maxlen):
+        b = raw[(starts + i).clamp_(0, nb - 1)].to(torch.int8).to(
+            torch.int64)
+        h = torch.where(lens > i, (h * 31 + b) & 0xFFFFFFFF, h)
+    return h
+
+
+def hive_hash_col_np(c: CpuCol) -> np.ndarray:
+    """The JAX package's numpy Hive hash of one CPU column (int32)."""
+    d = c.dtype
+    with np.errstate(over="ignore"):
+        if isinstance(d, T.StringType):
+            out = np.zeros(len(c.values), np.int32)
+            for i, v in enumerate(c.values):
+                if isinstance(v, str):
+                    h = 0
+                    for b in v.encode("utf-8"):
+                        h = (h * 31 + (b if b < 128 else b - 256)) \
+                            & 0xFFFFFFFF
+                    out[i] = np.uint32(h).astype(np.int32)
+            return out
+        if isinstance(d, (T.BooleanType, T.Int8Type, T.Int16Type,
+                          T.Int32Type, T.DateType)):
+            return c.values.astype(np.int32)
+        if isinstance(d, T.Float32Type):
+            v = np.where(c.values == 0.0, 0.0, c.values).astype(np.float32)
+            return v.view(np.int32)
+        if isinstance(d, T.Float64Type):
+            v = np.where(c.values == 0.0, 0.0, c.values).astype(np.float64)
+            bits = v.view(np.uint64)
+        else:
+            bits = c.values.astype(np.int64).view(np.uint64)
+        return ((bits ^ (bits >> np.uint64(32))) & np.uint64(0xFFFFFFFF)) \
+            .astype(np.uint32).astype(np.int32)
+
+
+def _crc32_table() -> np.ndarray:
+    t = np.zeros(256, np.int64)
+    for i in range(256):
+        c = i
+        for _ in range(8):
+            c = 0xEDB88320 ^ (c >> 1) if c & 1 else c >> 1
+        t[i] = c
+    return t
+
+
+_CRC32_TABLE = _crc32_table()
+
+
+class Crc32(Expression):
+    """crc32(string) -> bigint: the table-driven CRC-32 of each row's
+    UTF-8 bytes, one step per byte position up to the longest row (one
+    host read), in int64 with 32-bit masks; a dictionary column runs over
+    its vocabulary."""
+
+    def __init__(self, child):
+        self.children = [child]
+
+    def data_type(self):
+        return T.INT64
+
+    def with_children(self, children):
+        return Crc32(children[0])
+
+    def eval(self, ctx):
+        c = self.children[0].eval(ctx)
+
+        def compute(flat, cap):
+            o = flat.data["offsets"][: cap + 1].to(torch.int64)
+            raw = flat.data["bytes"]
+            starts, lens = o[:-1], o[1:] - o[:-1]
+            nb = raw.shape[0]
+            table = torch.as_tensor(_CRC32_TABLE, device=raw.device)
+            crc = torch.full((cap,), 0xFFFFFFFF, dtype=torch.int64,
+                             device=raw.device)
+            maxlen = int(lens.max().item()) if cap and nb else 0
+            for i in range(maxlen):
+                b = raw[(starts + i).clamp_(0, nb - 1)].to(torch.int64)
+                nxt = table[(crc ^ b) & 0xFF] ^ (crc >> 8)
+                crc = torch.where(lens > i, nxt, crc)
+            return ColumnVector(T.INT64, crc ^ 0xFFFFFFFF, None)
+
+        out = _lift_unary(ctx, c, compute)
+        return ColumnVector(T.INT64, out.data, _valid_of(c, ctx))
+
+    def eval_cpu(self, cols, ansi=False):
+        import zlib
+        c = self.children[0].eval_cpu(cols, ansi)
+        return CpuCol(T.INT64, np.array(
+            [zlib.crc32(v.encode() if isinstance(v, str) else (v or b""))
+             for v in c.values], np.int64), c.valid)

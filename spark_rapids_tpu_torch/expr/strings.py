@@ -426,9 +426,10 @@ class Like(Expression):
     """SQL LIKE. Patterns that reduce to equality, startswith, endswith,
     both, or contains run as those expressions; a pattern of only ``%``
     matches every non-null string. Other patterns (``_`` wildcards, more
-    than one inner run) need the JAX package's device NFA
-    (``expr/regex.py``), which is not ported yet: planning tags them to
-    the CPU (``needs_nfa``), where ``eval_cpu`` matches with ``re``."""
+    than one inner run) run as the full-match device NFA of
+    ``expr/regex.py`` when they compile to one (at most 31 positions);
+    planning tags the rest to the CPU (``supported_on_tpu``), where
+    ``eval_cpu`` matches with ``re``."""
 
     def __init__(self, child, pattern: str, escape: str = "\\"):
         self.children = [child]
@@ -492,23 +493,55 @@ class Like(Expression):
             return Contains(child, runs[1])
         return None
 
-    def needs_nfa(self) -> bool:
-        """Would the device need the NFA for this pattern?"""
-        return self._transpile() is None \
-            and self.pattern.replace("%", "") != ""
+    def _nfa(self):
+        """The pattern as a full-match NFA, or None where it does not
+        compile to one. LIKE wildcards match newlines too (the CPU arm
+        matches with re.DOTALL), so they translate to ``(.|\\n)``, not a
+        bare ``.``."""
+        from spark_rapids_tpu_torch.expr import regex as RX
+        if not hasattr(self, "_nfa_cache"):
+            out = []
+            i = 0
+            p, esc = self.pattern, self.escape
+            while i < len(p):
+                ch = p[i]
+                if ch == esc and i + 1 < len(p):
+                    ch = p[i + 1]
+                    i += 2
+                elif ch in "%_":
+                    out.append("(.|\n)*" if ch == "%" else "(.|\n)")
+                    i += 1
+                    continue
+                else:
+                    i += 1
+                out.append("\\" + ch if ch in ".^$*+?()[]{}|\\/-" else ch)
+            try:
+                self._nfa_cache = RX.compile_pattern("".join(out),
+                                                     mode="match")
+            except RX.RegexUnsupported:
+                self._nfa_cache = None
+        return self._nfa_cache
+
+    def supported_on_tpu(self):
+        return (self._transpile() is not None
+                or self.pattern.replace("%", "") == ""
+                or self._nfa() is not None)
 
     def eval(self, ctx):
         t = self._transpile()
         if t is not None:
             return t.eval(ctx)
-        if self.needs_nfa():
-            raise NotImplementedError(
-                f"LIKE pattern {self.pattern!r} needs the device NFA of "
-                f"expr/regex.py, which is not ported yet")
         c = self.children[0].eval(ctx)
-        return ColumnVector(T.BOOLEAN, torch.ones(
-            ctx.capacity, dtype=torch.bool, device=ctx.device),
-            _valid_of(c, ctx))
+        if self.pattern.replace("%", "") == "":
+            return ColumnVector(T.BOOLEAN, torch.ones(
+                ctx.capacity, dtype=torch.bool, device=ctx.device),
+                _valid_of(c, ctx))
+        nfa = self._nfa()
+        if nfa is None:
+            raise NotImplementedError(
+                f"LIKE pattern {self.pattern!r} on the device")
+        return _lift_unary(ctx, c, lambda flat, cap: ColumnVector(
+            T.BOOLEAN, _nfa_rows(nfa, flat), None))
 
     def eval_cpu(self, cols, ansi=False):
         c = self.children[0].eval_cpu(cols, ansi)
@@ -531,6 +564,232 @@ def _like_to_regex(pattern: str, esc: str) -> str:
         out.append({"%": ".*", "_": "."}.get(ch, re.escape(ch)))
         i += 1
     return "".join(out)
+
+
+def _nfa_rows(nfa, flat: ColumnVector) -> torch.Tensor:
+    from spark_rapids_tpu_torch.expr import regex as RX
+    return RX.nfa_eval(nfa, flat.data["offsets"], flat.data["bytes"])
+
+
+class RLike(Expression):
+    """Spark RLIKE: Java regex, match anywhere. Patterns inside the device
+    subset run as the bit-parallel NFA of ``expr/regex.py`` over the byte
+    planes; planning tags the others to the CPU, where ``eval_cpu``
+    searches with ``re`` (the reference's RegexParser transpile-or-reject
+    contract)."""
+
+    def __init__(self, child, pattern: str):
+        self.children = [child]
+        self.pattern = pattern
+        self._nfa = None
+        self._nfa_err = None
+
+    def data_type(self):
+        return T.BOOLEAN
+
+    def _params(self):
+        return repr(self.pattern)
+
+    def with_children(self, children):
+        return RLike(children[0], self.pattern)
+
+    def _compiled(self):
+        from spark_rapids_tpu_torch.expr import regex as RX
+        if self._nfa is None and self._nfa_err is None:
+            try:
+                self._nfa = RX.compile_pattern(self.pattern, mode="find")
+            except RX.RegexUnsupported as e:
+                self._nfa_err = str(e)
+        return self._nfa
+
+    def supported_on_tpu(self):
+        return self._compiled() is not None
+
+    def eval(self, ctx):
+        nfa = self._compiled()
+        if nfa is None:
+            raise NotImplementedError(
+                f"regex {self.pattern!r} on device: {self._nfa_err}")
+        c = self.children[0].eval(ctx)
+        return _lift_unary(ctx, c, lambda flat, cap: ColumnVector(
+            T.BOOLEAN, _nfa_rows(nfa, flat), None))
+
+    def eval_cpu(self, cols, ansi=False):
+        c = self.children[0].eval_cpu(cols, ansi)
+        prog = re.compile(self.pattern)
+        return CpuCol(T.BOOLEAN, np.array(
+            [bool(prog.search(v)) if isinstance(v, str) else False
+             for v in c.values], np.bool_), c.valid)
+
+
+class _RegexCpuBase(Expression):
+    """regexp_extract / regexp_replace: string results, from the tagged
+    device NFA (``_tagged``) where the pattern compiles to it; the planner
+    sends the others to the CPU, ``_nfa_err`` saying why."""
+
+    _tagged = None
+    _nfa_err = None
+
+    def data_type(self):
+        return T.STRING
+
+    def supported_on_tpu(self):
+        return self._tagged is not None
+
+    def eval(self, ctx):
+        if self._tagged is None:
+            raise NotImplementedError(
+                f"{type(self).__name__} {self.pattern!r} on device: "
+                f"{self._nfa_err}")
+        c = self.children[0].eval(ctx)
+        return _lift_unary(ctx, c, self._compute)
+
+
+class RegexpExtract(_RegexCpuBase):
+    """regexp_extract: one capture group. Alternation-free patterns of at
+    most ``MAX_TAG_STATES`` positions run on the device
+    (``regex.compile_extract`` and ``nfa_extract``); a row that does not
+    match, and a group that does not take part, give ""."""
+
+    def __init__(self, child, pattern: str, group: int = 1):
+        from spark_rapids_tpu_torch.expr.regex import (
+            RegexUnsupported, compile_extract)
+        self.children = [child]
+        self.pattern = pattern
+        self.group = group
+        try:
+            self._tagged = compile_extract(pattern, group)
+        except RegexUnsupported as e:
+            self._nfa_err = str(e)
+
+    def _params(self):
+        return f"{self.pattern!r},{self.group}"
+
+    def with_children(self, children):
+        return RegexpExtract(children[0], self.pattern, self.group)
+
+    def _compute(self, flat, cap):
+        from spark_rapids_tpu_torch.expr.regex import nfa_extract
+        o = flat.data["offsets"][: cap + 1]
+        raw = flat.data["bytes"]
+        has, g0, g1 = nfa_extract(self._tagged, o, raw)
+        lens = torch.where(has, g1 - g0, 0)
+        src = o[:-1].to(torch.int64) + g0.to(torch.int64)
+        return ColumnVector(T.STRING, {
+            "offsets": _offsets_of(lens),
+            "bytes": _gather_ranges(raw, src, lens)}, None)
+
+    def eval_cpu(self, cols, ansi=False):
+        c = self.children[0].eval_cpu(cols, ansi)
+        prog = re.compile(self.pattern)
+        if self.group > prog.groups or self.group < 0:
+            raise ValueError(
+                f"regexp_extract group {self.group} out of range for "
+                f"{self.pattern!r} ({prog.groups} groups)")
+        out = []
+        for v in c.values:
+            if not isinstance(v, str):
+                out.append(None)
+                continue
+            m = prog.search(v)
+            # Spark: "" for no match AND for a non-participating group
+            out.append((m.group(self.group) or "") if m else "")
+        return CpuCol(T.STRING, _object_array(out), c.valid)
+
+
+#: bytes of the plane ``RegexpReplace`` scatters at a time
+_SPLICE_CHUNK = 1 << 26
+
+
+class RegexpReplace(_RegexCpuBase):
+    """regexp_replace: replace all. Patterns of the tagged-NFA subset that
+    cannot match the empty string, with a literal replacement of at most
+    ``_MAX_DEVICE_REPL`` bytes (no ``$n`` backrefs), run on the device:
+    one span scan (``regex.nfa_match_spans``), then a splice of the byte
+    plane. Every byte's output position is an exclusive prefix sum of
+    (kept byte + replacement length at each match start), in int32, so
+    the splice needs no row-of-byte plane; the scatters run over slices of
+    the plane (``_SPLICE_CHUNK`` bytes) so their index planes stay small.
+    Everything else runs on the CPU."""
+
+    _MAX_DEVICE_REPL = 8
+
+    def __init__(self, child, pattern: str, replacement: str):
+        self.children = [child]
+        self.pattern = pattern
+        self.replacement = replacement
+        if re.search(r"\$\d", replacement):
+            self._nfa_err = "backref in replacement"
+        elif len(replacement.encode()) > self._MAX_DEVICE_REPL:
+            self._nfa_err = "replacement too long for device splice"
+        else:
+            from spark_rapids_tpu_torch.expr.regex import (
+                RegexUnsupported, compile_replace)
+            try:
+                self._tagged = compile_replace(pattern)
+            except RegexUnsupported as e:
+                self._nfa_err = str(e)
+
+    def _params(self):
+        return f"{self.pattern!r},{self.replacement!r}"
+
+    def with_children(self, children):
+        return RegexpReplace(children[0], self.pattern, self.replacement)
+
+    def _compute(self, flat, cap):
+        from spark_rapids_tpu_torch.expr.regex import nfa_match_spans
+        rep = list(self.replacement.encode())
+        R = len(rep)
+        o = flat.data["offsets"][: cap + 1].to(torch.int64)
+        raw = flat.data["bytes"]
+        nb = raw.shape[0]
+        dev = raw.device
+        flags, slen = nfa_match_spans(self._tagged, o, raw)
+        # in-match bytes: +1 at each span's start, -1 past its end. Spans
+        # never overlap nor cross a row's end, so no two end at one byte
+        # (plain stores mark them) and the running sum is 0 or 1
+        ends = torch.zeros(nb + 1, dtype=torch.int8, device=dev)
+        for lo in range(0, nb, _SPLICE_CHUNK):
+            at = torch.nonzero(flags[lo:lo + _SPLICE_CHUNK]).flatten() + lo
+            ends[at + slen[at]] = 1
+        del slen
+        inm = torch.cumsum(flags.to(torch.int8) - ends[:nb], 0,
+                           dtype=torch.int8)
+        del ends
+        keep = inm == 0
+        del inm
+        keep[int(o[cap].item()):] = False
+        # output position of every byte: kept bytes and replacements so far
+        step = keep.to(torch.int32)
+        if R:
+            step.add_(flags, alpha=R)
+        pos = torch.zeros(nb + 1, dtype=torch.int32, device=dev)
+        torch.cumsum(step, 0, dtype=torch.int32, out=pos[1:])
+        del step
+        new_off = pos[o] - pos[o[0]]
+        base = pos[o[0]].to(torch.int64)
+        out = torch.zeros(max(nb * max(1, R), 8), dtype=torch.uint8,
+                          device=dev)
+        for lo in range(0, nb, _SPLICE_CHUNK):
+            hi = min(lo + _SPLICE_CHUNK, nb)
+            at = torch.nonzero(keep[lo:hi]).flatten() + lo
+            out[pos[at].to(torch.int64) - base] = raw[at]
+            if R:
+                at = torch.nonzero(flags[lo:hi]).flatten() + lo
+                dst = pos[at].to(torch.int64) - base
+                for j, byte in enumerate(rep):
+                    out[dst + j] = byte
+        return ColumnVector(T.STRING, {"offsets": new_off.to(torch.int32),
+                                       "bytes": out}, None)
+
+    def eval_cpu(self, cols, ansi=False):
+        c = self.children[0].eval_cpu(cols, ansi)
+        prog = re.compile(self.pattern)
+        # Java $1 -> python \1 backrefs
+        repl = re.sub(r"\$(\d)", r"\\\1", self.replacement)
+        return CpuCol(T.STRING, _object_array(
+            [prog.sub(repl, v) if isinstance(v, str) else v
+             for v in c.values]), c.valid)
 
 
 class _StringEquals(Expression):
@@ -601,6 +860,421 @@ def _object_array(items) -> np.ndarray:
     out = np.empty(len(items), object)
     out[:] = items
     return out
+
+
+# ---------------------------------------------------------------------------
+# String function breadth (reference stringFunctions.scala): every unary
+# op rides the vocabulary lift, so a dictionary column pays O(vocabulary)
+# byte work. A per-byte plane is at most int32 (a plane may hold 2^30
+# bytes), each is freed once used, and none maps a byte to its row: the
+# ops search prefix counts per row or reduce only the bytes that matter.
+# ---------------------------------------------------------------------------
+
+def _slice_rows(raw: torch.Tensor, new_start: torch.Tensor,
+                lens: torch.Tensor) -> dict:
+    """A string column taking lens[i] bytes from new_start[i]."""
+    return {"offsets": _offsets_of(lens),
+            "bytes": _gather_ranges(raw, new_start.to(torch.int64), lens)}
+
+
+class _TrimBase(Expression):
+    """trim/ltrim/rtrim of ASCII spaces (Spark's default trims ' '). Each
+    row's first and last non-space byte come from one int32 prefix count
+    of non-space bytes over the plane, searched per row (the JAX package
+    takes a min and a max over every byte of each row)."""
+
+    lead = True
+    tail = True
+
+    def __init__(self, child):
+        self.children = [child]
+
+    def data_type(self):
+        return T.STRING
+
+    def with_children(self, children):
+        return type(self)(children[0])
+
+    def eval(self, ctx):
+        c = self.children[0].eval(ctx)
+        return _lift_unary(ctx, c, self._compute)
+
+    def _compute(self, flat, cap):
+        o = flat.data["offsets"][: cap + 1].to(torch.int64)
+        raw = flat.data["bytes"]
+        # cnt[i]: non-space bytes before byte i
+        cnt = torch.zeros(raw.shape[0] + 1, dtype=torch.int32,
+                          device=raw.device)
+        torch.cumsum(raw != 32, 0, dtype=torch.int32, out=cnt[1:])
+        at_start, at_end = cnt[o[:-1]], cnt[o[1:]]
+        has = at_end > at_start
+        start, end = o[:-1], o[1:]
+        if self.lead:
+            # the first non-space byte p has cnt[p + 1] == at_start + 1
+            first = torch.searchsorted(cnt, at_start + 1) - 1
+            start = torch.where(has, first, end)
+        if self.tail:
+            # the last non-space byte p has cnt[p + 1] == at_end
+            last = torch.searchsorted(cnt, at_end) - 1
+            end = torch.where(has, last + 1, start)
+        del cnt
+        end = torch.maximum(end, start)
+        return ColumnVector(T.STRING, _slice_rows(raw, start, end - start),
+                            None)
+
+    def eval_cpu(self, cols, ansi=False):
+        c = self.children[0].eval_cpu(cols, ansi)
+
+        def f(v):
+            if self.lead and self.tail:
+                return v.strip(" ")
+            return v.lstrip(" ") if self.lead else v.rstrip(" ")
+
+        return CpuCol(T.STRING, _object_array(
+            [f(v) if isinstance(v, str) else v for v in c.values]), c.valid)
+
+
+class Trim(_TrimBase):
+    lead = tail = True
+
+
+class LTrim(_TrimBase):
+    lead, tail = True, False
+
+
+class RTrim(_TrimBase):
+    lead, tail = False, True
+
+
+class InitCap(Expression):
+    """initcap: upper case after a space or at a row's start, lower case
+    elsewhere, ASCII letters only on the device (the JAX package's device
+    rule; the reference documents the same non-ASCII difference). The CPU
+    arm maps all of Unicode, as the JAX package's CPU backend does."""
+
+    def __init__(self, child):
+        self.children = [child]
+
+    def data_type(self):
+        return T.STRING
+
+    def with_children(self, children):
+        return InitCap(children[0])
+
+    def eval(self, ctx):
+        c = self.children[0].eval(ctx)
+
+        def compute(flat, cap):
+            o = flat.data["offsets"][: cap + 1]
+            raw = flat.data["bytes"]
+            nb = raw.shape[0]
+            after_sep = torch.roll(raw, 1) == 32
+            # the first byte of every row follows a separator
+            at = o[:-1].to(torch.int64)
+            after_sep[at[at < nb]] = True
+            lower = torch.where((raw >= 65) & (raw <= 90), raw + 32, raw)
+            out = torch.where(after_sep & (raw >= 97) & (raw <= 122),
+                              raw - 32, torch.where(after_sep, raw, lower))
+            return ColumnVector(T.STRING, {"offsets": flat.data["offsets"],
+                                           "bytes": out}, None)
+
+        return _lift_unary(ctx, c, compute)
+
+    def eval_cpu(self, cols, ansi=False):
+        c = self.children[0].eval_cpu(cols, ansi)
+
+        def f(v):
+            return " ".join(w[:1].upper() + w[1:].lower()
+                            for w in v.split(" "))
+
+        return CpuCol(T.STRING, _object_array(
+            [f(v) if isinstance(v, str) else v for v in c.values]), c.valid)
+
+
+class Ascii(Expression):
+    """ascii(s): the code point of the first character (0 for ""). The
+    device decodes the first UTF-8 character, as Spark and both CPU
+    backends do (the JAX package's device returns its first byte)."""
+
+    def __init__(self, child):
+        self.children = [child]
+
+    def data_type(self):
+        return T.INT32
+
+    def with_children(self, children):
+        return Ascii(children[0])
+
+    def eval(self, ctx):
+        c = self.children[0].eval(ctx)
+
+        def compute(flat, cap):
+            o = flat.data["offsets"][: cap + 1].to(torch.int64)
+            raw = flat.data["bytes"]
+            nb = raw.shape[0]
+            lens = o[1:] - o[:-1]
+            if nb == 0:
+                return ColumnVector(T.INT32, torch.zeros(
+                    cap, dtype=torch.int32, device=raw.device), None)
+
+            def at(k):
+                return raw[(o[:-1] + k).clamp(0, nb - 1)].to(torch.int32)
+
+            b0 = at(0)
+            cont = [at(k) & 0x3F for k in (1, 2, 3)]
+            two = ((b0 & 0x1F) << 6) | cont[0]
+            three = ((b0 & 0x0F) << 12) | (cont[0] << 6) | cont[1]
+            four = ((b0 & 0x07) << 18) | (cont[0] << 12) | (cont[1] << 6) \
+                | cont[2]
+            code = torch.where(b0 < 0xC0, b0, torch.where(
+                b0 < 0xE0, two, torch.where(b0 < 0xF0, three, four)))
+            return ColumnVector(T.INT32, torch.where(lens > 0, code, 0),
+                                None)
+
+        return _lift_unary(ctx, c, compute)
+
+    def eval_cpu(self, cols, ansi=False):
+        c = self.children[0].eval_cpu(cols, ansi)
+        return CpuCol(T.INT32, np.array(
+            [ord(v[0]) if isinstance(v, str) and v else 0
+             for v in c.values], np.int32), c.valid)
+
+
+class InStr(Expression):
+    """instr(str, substr literal): the 1-based character position of the
+    first occurrence, 0 where there is none (``locate`` too). The pattern
+    is compared byte by byte over the plane; only the hits' positions are
+    reduced into their rows."""
+
+    def __init__(self, child, substr: str):
+        self.children = [child]
+        self.substr = substr
+
+    def _params(self):
+        return repr(self.substr)
+
+    def data_type(self):
+        return T.INT32
+
+    def with_children(self, children):
+        return InStr(children[0], self.substr)
+
+    def eval(self, ctx):
+        c = self.children[0].eval(ctx)
+        pat = self.substr.encode("utf-8")
+        m = len(pat)
+
+        def compute(flat, cap):
+            o = flat.data["offsets"][: cap + 1]
+            raw = flat.data["bytes"]
+            nb = raw.shape[0]
+            dev = raw.device
+            if m == 0:
+                return ColumnVector(T.INT32, torch.ones(
+                    cap, dtype=torch.int32, device=dev), None)
+            first_hit = torch.full((cap,), nb, dtype=torch.int64,
+                                   device=dev)
+            width = nb - m + 1
+            if width > 0:
+                hit = raw[:width] == pat[0]
+                for k in range(1, m):
+                    hit &= raw[k:k + width] == pat[k]
+                pos = torch.nonzero(hit).flatten().to(o.dtype)
+                del hit
+                row = (torch.searchsorted(o, pos, right=True,
+                                          out_int32=True) - 1).clamp_(
+                    0, cap - 1).to(torch.int64)
+                fits = (pos + m) <= o[row + 1]
+                first_hit.scatter_reduce_(0, row[fits],
+                                          pos[fits].to(torch.int64), "amin",
+                                          include_self=True)
+            found = first_hit < nb
+            # the hit's byte position -> its 1-based character index
+            csum = torch.empty(nb + 1, dtype=torch.int32, device=dev)
+            csum[0] = 0
+            torch.cumsum(~_continuation(raw), 0, dtype=torch.int32,
+                         out=csum[1:])
+            char_idx = csum[first_hit.clamp(0, nb)] \
+                - csum[o[:-1].to(torch.int64)] + 1
+            return ColumnVector(T.INT32, torch.where(found, char_idx, 0)
+                                .to(torch.int32), None)
+
+        return _lift_unary(ctx, c, compute)
+
+    def eval_cpu(self, cols, ansi=False):
+        c = self.children[0].eval_cpu(cols, ansi)
+        return CpuCol(T.INT32, np.array(
+            [v.find(self.substr) + 1 if isinstance(v, str) else 0
+             for v in c.values], np.int32), c.valid)
+
+
+class StringRepeat(Expression):
+    """repeat(str, n literal)."""
+
+    def __init__(self, child, n: int):
+        self.children = [child]
+        self.n = max(int(n), 0)
+
+    def _params(self):
+        return str(self.n)
+
+    def data_type(self):
+        return T.STRING
+
+    def with_children(self, children):
+        return StringRepeat(children[0], self.n)
+
+    def eval(self, ctx):
+        c = self.children[0].eval(ctx)
+
+        def compute(flat, cap):
+            o = flat.data["offsets"][: cap + 1].to(torch.int64)
+            raw = flat.data["bytes"]
+            lens = (o[1:] - o[:-1]).to(torch.int32)
+            out_lens = lens * self.n
+            row, within, total = K.expand_ranges(out_lens)
+            out = torch.zeros(round_capacity(max(total, 1), minimum=8),
+                              dtype=torch.uint8, device=raw.device)
+            if total:
+                r = row.to(torch.int64)
+                src = o[r] + torch.remainder(within, lens[r].clamp(min=1))
+                out[:total] = raw[src]
+            return ColumnVector(T.STRING, {"offsets": _offsets_of(out_lens),
+                                           "bytes": out}, None)
+
+        return _lift_unary(ctx, c, compute)
+
+    def eval_cpu(self, cols, ansi=False):
+        c = self.children[0].eval_cpu(cols, ansi)
+        return CpuCol(T.STRING, _object_array(
+            [v * self.n if isinstance(v, str) else v for v in c.values]),
+            c.valid)
+
+
+class OctetLength(Expression):
+    """octet_length(): the UTF-8 byte count."""
+
+    def __init__(self, child):
+        self.children = [child]
+
+    def data_type(self):
+        return T.INT32
+
+    def with_children(self, children):
+        return type(self)(children[0])
+
+    def eval(self, ctx):
+        c = self.children[0].eval(ctx)
+
+        def compute(flat, cap):
+            o = flat.data["offsets"]
+            return ColumnVector(T.INT32, (o[1: cap + 1] - o[:cap]).to(
+                torch.int32), None)
+
+        return _lift_unary(ctx, c, compute)
+
+    def eval_cpu(self, cols, ansi=False):
+        c = self.children[0].eval_cpu(cols, ansi)
+        return CpuCol(T.INT32, np.array(
+            [len(v.encode()) if isinstance(v, str) else 0
+             for v in c.values], np.int32), c.valid)
+
+
+class BitLength(OctetLength):
+    """bit_length(): 8 * octet_length."""
+
+    def eval(self, ctx):
+        base = super().eval(ctx)
+        return ColumnVector(T.INT32, base.data * 8, base.validity)
+
+    def eval_cpu(self, cols, ansi=False):
+        base = super().eval_cpu(cols, ansi)
+        return CpuCol(T.INT32, base.values * 8, base.valid)
+
+
+class Left(Substring):
+    """left(s, n) = substring(s, 1, n); n < 0 gives ''."""
+
+    def __init__(self, child, n: int):
+        super().__init__(child, 1, max(int(n), 0))
+
+    def with_children(self, children):
+        return Left(children[0], self.length)
+
+
+class Right(Expression):
+    """right(s, n): the last n characters ('' for n <= 0)."""
+
+    def __init__(self, child, n: int):
+        self.children = [child]
+        self.n = int(n)
+
+    def _params(self):
+        return str(self.n)
+
+    def with_children(self, children):
+        return Right(children[0], self.n)
+
+    def data_type(self):
+        return T.STRING
+
+    def eval(self, ctx):
+        inner = Substring(self.children[0], 1, 0) if self.n <= 0 \
+            else Substring(self.children[0], -self.n, self.n)
+        return inner.eval(ctx)
+
+    def eval_cpu(self, cols, ansi=False):
+        c = self.children[0].eval_cpu(cols, ansi)
+        n = self.n
+        return CpuCol(T.STRING, _object_array(
+            [v[-n:] if isinstance(v, str) and n > 0 else
+             ("" if isinstance(v, str) else None) for v in c.values]),
+            c.valid)
+
+
+class Chr(Expression):
+    """chr(n): the character of code n % 256 (Spark: a negative n gives
+    '', chr(0) and chr(256) give '\\x00'); codes 128..255 are two UTF-8
+    bytes."""
+
+    def __init__(self, child):
+        self.children = [child]
+
+    def data_type(self):
+        return T.STRING
+
+    def with_children(self, children):
+        return Chr(children[0])
+
+    def eval(self, ctx):
+        c = self.children[0].eval(ctx)
+        v = c.data.to(torch.int64)
+        code = torch.where(v < 0, 0, torch.remainder(v, 256))
+        two = code >= 128
+        lens = torch.where(c.validity_or_default(ctx.num_rows) & (v >= 0),
+                           torch.where(two, 2, 1), 0).to(torch.int32)
+        row, within, total = K.expand_ranges(lens)
+        out = torch.zeros(round_capacity(max(total, 1), minimum=8),
+                          dtype=torch.uint8, device=v.device)
+        if total:
+            cd = code[row.to(torch.int64)]
+            byte1 = torch.where(cd < 128, cd, 0xC0 | (cd >> 6))
+            byte2 = 0x80 | (cd & 0x3F)
+            out[:total] = torch.where(within == 1, byte2, byte1).to(
+                torch.uint8)
+        return ColumnVector(T.STRING, {"offsets": _offsets_of(lens),
+                                       "bytes": out}, _valid_of(c, ctx))
+
+    def eval_cpu(self, cols, ansi=False):
+        c = self.children[0].eval_cpu(cols, ansi)
+        out = []
+        for v, ok in zip(c.values, c.valid):
+            if not ok:
+                out.append(None)
+                continue
+            n = int(v)
+            out.append("" if n < 0 else chr(n % 256))
+        return CpuCol(T.STRING, _object_array(out), c.valid)
 
 
 # ---------------------------------------------------------------------------

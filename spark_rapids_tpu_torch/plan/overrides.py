@@ -61,10 +61,6 @@ from spark_rapids_tpu_torch.types import Sigs, TypeSig
 
 PORT_TAG_DIFFERENCES = """Where the port's tags differ from the JAX package's.
 
-A tag only the port has; its device arm waits for ROADMAP A9, and its
-reason names it: a LIKE pattern that needs the NFA (``_like_check``) runs
-on the CPU.
-
 A tag of the JAX package the port drops: a filter that reads the
 partition context (``sample``'s ``rand``, ``spark_partition_id()``) stays
 on the device, over its input collected into one partition, and keeps the
@@ -191,16 +187,57 @@ expr_rule(S.Contains, Sigs.COMMON, Sigs.COMMON, "substring match")
 
 
 def _like_check(e) -> Optional[str]:
-    if e.needs_nfa():
-        return (f"LIKE pattern {e.pattern!r} needs the device NFA "
-                f"(expr/regex.py), which the port runs on the CPU until "
-                f"ROADMAP A9")
+    if not e.supported_on_tpu():
+        return (f"LIKE pattern {e.pattern!r} does not transpile to device "
+                f"kernels (reference RegexParser reject strategy)")
     return None
 
 
 expr_rule(S.Like, Sigs.COMMON, Sigs.COMMON, "SQL LIKE", extra=_like_check)
 expr_rule(S._StringEquals, Sigs.COMMON, Sigs.COMMON, "string equality")
 expr_rule(S._AndExpr, Sigs.COMMON, Sigs.COMMON, "internal AND")
+
+def _rlike_check(e):
+    if not e.supported_on_tpu():
+        return (f"regex {e.pattern!r} outside the device NFA subset: "
+                f"{e._nfa_err} (reference RegexParser reject strategy)")
+    return None
+
+
+expr_rule(S.RLike, Sigs.COMMON, Sigs.COMMON,
+          "Java regex match (bit-parallel device NFA)", extra=_rlike_check)
+
+
+def _extract_check(e):
+    if not e.supported_on_tpu():
+        return (f"regexp_extract pattern {e.pattern!r} outside the tagged "
+                f"device NFA subset: {e._nfa_err} (reference RegexParser "
+                f"reject strategy)")
+    return None
+
+
+expr_rule(S.RegexpExtract, Sigs.COMMON, Sigs.COMMON,
+          "regex capture extract (tagged device NFA; rejects fall back)",
+          extra=_extract_check)
+
+
+def _replace_check(e):
+    if not e.supported_on_tpu():
+        return (f"regexp_replace pattern {e.pattern!r} outside the device "
+                f"replace subset: {e._nfa_err} (reference RegexParser "
+                f"reject strategy)")
+    return None
+
+
+expr_rule(S.RegexpReplace, Sigs.COMMON, Sigs.COMMON,
+          "regex replace-all (tagged device NFA span scan + byte "
+          "splice; backrefs and rejects fall back)",
+          extra=_replace_check)
+for _cls in (S.Trim, S.LTrim, S.RTrim, S.InitCap, S.Ascii, S.InStr,
+             S.StringRepeat, S.OctetLength, S.BitLength, S.Left, S.Right,
+             S.Chr):
+    expr_rule(_cls, Sigs.COMMON, Sigs.COMMON, _cls.__name__.lower())
+
 
 expr_rule(MA.Murmur3Hash, Sigs.COMMON, Sigs.COMMON,
           "Spark murmur3 hash (seed 42), bit-parity with CPU Spark")
@@ -261,12 +298,38 @@ for _cls in (DT.UnixDate, DT.DateFromUnixDate, DT.UnixMicros,
              DT.TimestampMicros, DT.WeekDay, DT.TruncTimestamp):
     expr_rule(_cls, Sigs.COMMON, Sigs.COMMON, _cls.__name__.lower())
 
+expr_rule(MX.HiveHash, Sigs.COMMON, Sigs.COMMON, "hive hash")
+expr_rule(MX.Crc32, Sigs.COMMON, Sigs.COMMON, "crc32")
+for _mcls in MX.MISC_CPU_FUNCTIONS:
+    expr_rule(_mcls, Sigs.COMMON, _NESTED_OK,
+              f"{_mcls.name} (CPU tier)",
+              extra=lambda e: f"{e.name} runs on CPU (no device kernel yet)")
+
 # CPU-only row functions: registered so tagging gives a clear reason and
 # the enclosing operator falls back
 for _cls in CF.ALL_CPU_FUNCTIONS:
     expr_rule(_cls, Sigs.COMMON, Sigs.COMMON,
               f"{_cls.name} (CPU; no device kernel yet)",
               extra=lambda e: f"{e.name} runs on CPU (no device kernel yet)")
+
+
+def _cpu_tier(doc):
+    return lambda e: doc
+
+
+for _cls, _doc in ((CF.FindInSet, "find_in_set"),
+                   (CF.Levenshtein, "levenshtein"),
+                   (CF.Base64Encode, "base64"), (CF.UnBase64, "unbase64"),
+                   (CF.FormatString, "format_string"), (CF.Elt, "elt"),
+                   (CF.Soundex, "soundex"), (CF.Sha1, "sha1"),
+                   (CF.HexStr, "hex"), (CF.Unhex, "unhex"), (CF.Bin, "bin"),
+                   (CF.Conv, "conv"), (CF.UrlEncode, "url_encode"),
+                   (CF.UrlDecode, "url_decode"),
+                   (CF.Luhncheck, "luhn_check")):
+    expr_rule(_cls, Sigs.COMMON, Sigs.COMMON, _doc,
+              extra=_cpu_tier(f"{_doc} runs on CPU"))
+expr_rule(CF.RegexpExtractAll, _NESTED_OK, _NESTED_OK, "regexp_extract_all",
+          extra=_cpu_tier("regexp_extract_all runs on CPU"))
 
 
 AGG_RULES: Dict[Type, ExprRule] = {}

@@ -16,7 +16,18 @@ hyperbolic functions, ``ceil``, ``floor``, ``round``, ``bround``,
 ``factorial``, ``width_bucket``, ``nanvl``, ``positive``, ``bit_count``,
 ``getbit``); the string functions ``length``,
 ``upper``, ``lower``, ``substring``, ``concat``, ``startswith``,
-``endswith``, ``contains`` and ``like``; the datetime functions of
+``endswith``, ``contains``, ``like``, ``rlike``, ``regexp_extract``,
+``regexp_replace``, ``trim``/``ltrim``/``rtrim``, ``initcap``,
+``ascii``, ``instr``/``locate``, ``repeat``, ``octet_length``,
+``bit_length``, ``left``, ``right``, ``chr_`` (``char``), ``crc32`` and
+``hive_hash`` on the device, and on the CPU the row functions of
+``expr/cpu_functions.py`` (``reverse``, ``concat_ws``, ``lpad``/``rpad``,
+``translate``, ``substring_index``, ``md5``, ``sha1``, ``sha2``,
+``format_number``, ``find_in_set``, ``levenshtein``,
+``base64``/``unbase64``, ``format_string``, ``elt``, ``soundex``,
+``hex``/``unhex``, ``bin``, ``conv``, ``url_encode``/``url_decode``,
+``regexp_extract_all``, ``luhn_check``) and ``parse_url`` and
+``raise_error``; the datetime functions of
 ``expr/datetime.py`` (``year`` ... ``second``, ``dayofweek``,
 ``weekday``, ``quarter``, ``dayofyear``, ``weekofyear``, ``date_add``,
 ``date_sub``, ``datediff``, ``add_months``, ``last_day``, ``next_day``,
@@ -42,28 +53,21 @@ from spark_rapids_tpu_torch.expr import window as W
 from spark_rapids_tpu_torch.expr.core import Expression, col, lit
 
 
-#: the JAX package's functions this module does not have yet (ROADMAP A9).
-#: The SQL front door and the plan
-#: ingestion raise naming A9 where a query calls one of them, rather than
-#: calling it an unknown function.
+#: the JAX package's functions this module does not have yet: the nested
+#: types, generators, lambdas and JSON (ROADMAP A9c and A9d). The SQL
+#: front door and the plan ingestion raise naming A9 where a query calls
+#: one of them, rather than calling it an unknown function.
 NOT_PORTED = (
     "aggregate", "array", "array_contains", "array_distinct", "array_except",
     "array_intersect", "array_join", "array_max", "array_min",
     "array_position", "array_remove", "array_repeat", "array_union",
-    "arrays_overlap", "arrays_zip", "ascii", "base64", "bin", "bit_length",
-    "char", "chr_", "concat_ws", "conv", "crc32", "element_at", "elt",
-    "exists", "explode", "explode_outer", "filter", "find_in_set", "flatten",
-    "forall", "format_number", "format_string", "from_json", "get_json_object",
-    "hex", "hive_hash", "initcap", "instr", "json_tuple", "left",
-    "levenshtein", "locate", "lpad", "ltrim", "luhn_check", "map_concat",
-    "map_entries", "map_filter", "map_from_arrays", "map_keys", "map_values",
-    "md5", "octet_length", "parse_url", "posexplode", "posexplode_outer",
-    "raise_error", "reduce", "regexp_extract", "regexp_extract_all",
-    "regexp_replace", "repeat", "reverse", "right", "rlike", "rpad", "rtrim",
-    "sequence", "sha1", "sha2", "size", "slice", "sort_array", "soundex",
-    "stack", "str_to_map", "substring_index", "to_json", "transform",
-    "transform_keys", "transform_values", "translate", "trim", "unbase64",
-    "unhex", "url_decode", "url_encode", "zip_with",
+    "arrays_overlap", "arrays_zip", "element_at", "exists", "explode",
+    "explode_outer", "filter", "flatten", "forall", "from_json",
+    "get_json_object", "json_tuple", "map_concat", "map_entries",
+    "map_filter", "map_from_arrays", "map_keys", "map_values", "posexplode",
+    "posexplode_outer", "reduce", "sequence", "size", "slice", "sort_array",
+    "stack", "str_to_map", "to_json", "transform", "transform_keys",
+    "transform_values", "zip_with",
 )
 
 
@@ -392,6 +396,191 @@ def contains(c, s):
 
 def like(c, pattern):
     return S.Like(_e(c), pattern)
+
+
+def rlike(c, pattern: str):
+    return S.RLike(_e(c), pattern)
+
+
+def regexp_extract(c, pattern: str, group: int = 1):
+    return S.RegexpExtract(_e(c), pattern, group)
+
+
+def regexp_replace(c, pattern: str, replacement: str):
+    return S.RegexpReplace(_e(c), pattern, replacement)
+
+
+def regexp_extract_all(c, pattern, idx=1):
+    return CF.RegexpExtractAll(_e(c), params=(pattern, idx))
+
+
+def trim(c):
+    return S.Trim(_e(c))
+
+
+def ltrim(c):
+    return S.LTrim(_e(c))
+
+
+def rtrim(c):
+    return S.RTrim(_e(c))
+
+
+def initcap(c):
+    return S.InitCap(_e(c))
+
+
+def ascii(c):  # noqa: A001
+    return S.Ascii(_e(c))
+
+
+def instr(c, substr: str):
+    return S.InStr(_e(c), substr)
+
+
+def locate(substr: str, c):
+    return S.InStr(_e(c), substr)
+
+
+def repeat(c, n: int):
+    return S.StringRepeat(_e(c), n)
+
+
+def octet_length(c):
+    return S.OctetLength(_e(c))
+
+
+def bit_length(c):
+    return S.BitLength(_e(c))
+
+
+def left(c, n):
+    return S.Left(_e(c), n.value if isinstance(n, E.Literal) else n)
+
+
+def right(c, n):
+    return S.Right(_e(c), n.value if isinstance(n, E.Literal) else n)
+
+
+def chr_(c):
+    return S.Chr(_e(c))
+
+
+char = chr_
+
+
+def crc32(c):
+    return MI.Crc32(_e(c))
+
+
+def hive_hash(*cs):
+    return MI.HiveHash([_e(c) for c in cs])
+
+
+def parse_url(c, part: str, key: str = None):
+    params = (part,) if key is None else (part, key)
+    return MI.ParseUrl(_e(c), params=params)
+
+
+def raise_error(c):
+    return MI.RaiseError(_e(c))
+
+
+# string row functions on the CPU (expr/cpu_functions.py) -------------------
+def reverse(c):
+    return CF.Reverse(_e(c))
+
+
+def concat_ws(sep, *cs):
+    return CF.ConcatWs(*[_e(c) for c in cs], params=(sep,))
+
+
+def lpad(c, ln, pad=" "):
+    return CF.LPad(_e(c), params=(ln, pad))
+
+
+def rpad(c, ln, pad=" "):
+    return CF.RPad(_e(c), params=(ln, pad))
+
+
+def translate(c, src, dst):
+    return CF.Translate(_e(c), params=(src, dst))
+
+
+def substring_index(c, delim, count):
+    return CF.SubstringIndex(_e(c), params=(delim, count))
+
+
+def md5(c):
+    return CF.Md5(_e(c))
+
+
+def sha2(c, bits=256):
+    return CF.Sha2(_e(c), params=(bits,))
+
+
+def sha1(c):
+    return CF.Sha1(_e(c))
+
+
+def format_number(c, d):
+    return CF.FormatNumber(_e(c), params=(d,))
+
+
+def find_in_set(s, csv):
+    return CF.FindInSet(_e(s), _e(csv))
+
+
+def levenshtein(a, b):
+    return CF.Levenshtein(_e(a), _e(b))
+
+
+def base64(c):
+    return CF.Base64Encode(_e(c))
+
+
+def unbase64(c):
+    return CF.UnBase64(_e(c))
+
+
+def format_string(fmt, *cols):
+    return CF.FormatString(*[_e(c) for c in cols], params=(fmt,))
+
+
+def elt(n, *cols):
+    return CF.Elt(_e(n), *[_e(c) for c in cols])
+
+
+def soundex(c):
+    return CF.Soundex(_e(c))
+
+
+def hex(c):  # noqa: A001 - Spark name
+    return CF.HexStr(_e(c))
+
+
+def unhex(c):
+    return CF.Unhex(_e(c))
+
+
+def bin(c):  # noqa: A001 - Spark name
+    return CF.Bin(_e(c))
+
+
+def conv(c, from_base, to_base):
+    return CF.Conv(_e(c), params=(int(from_base), int(to_base)))
+
+
+def url_encode(c):
+    return CF.UrlEncode(_e(c))
+
+
+def url_decode(c):
+    return CF.UrlDecode(_e(c))
+
+
+def luhn_check(c):
+    return CF.Luhncheck(_e(c))
 
 
 # datetime -------------------------------------------------------------------

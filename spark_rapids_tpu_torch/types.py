@@ -133,7 +133,7 @@ class ArrayType(DataType):
 
 
 #: the nested types that wait for ROADMAP A9 (``complex.py``)
-_A9_NESTED = "struct and map columns wait for ROADMAP A9 (complex.py)"
+_A9_NESTED = "struct and map columns wait for ROADMAP A9c (complex.py)"
 
 
 BOOLEAN = BooleanType()

@@ -223,8 +223,13 @@ def test_not_ported_is_the_difference_of_the_functions_modules():
 
 
 @pytest.mark.parametrize("query", [
-    "SELECT initcap(name) AS y FROM t",
-    "SELECT k FROM t WHERE crc32(name) > 0"])
+    # the ids are those of the cases' first names, initcap and crc32,
+    # which the string slice ported (test_ported_string_functions_equal_jax)
+    pytest.param("SELECT sequence(k, 4) AS y FROM t",
+                 id="SELECT initcap(name) AS y FROM t"),
+    pytest.param("SELECT k FROM t WHERE "
+                 "get_json_object(name, '$.a') IS NULL",
+                 id="SELECT k FROM t WHERE crc32(name) > 0")])
 def test_jax_only_function_raises_naming_a9(query, sessions):
     port, ref = sessions["main"]
     assert ref.sql(query).collect().num_rows > 0
@@ -233,6 +238,16 @@ def test_jax_only_function_raises_naming_a9(query, sessions):
     # a name neither package has keeps the JAX package's message
     with pytest.raises(SparkException, match="unknown function 'nosuchfn'"):
         port.sql("SELECT nosuchfn(k) FROM t")
+
+
+@pytest.mark.parametrize("query", [
+    "SELECT initcap(name) AS y FROM t",
+    "SELECT k FROM t WHERE crc32(name) > 0"])
+def test_ported_string_functions_equal_jax(query, sessions):
+    port, ref = sessions["main"]
+    got, want = port.sql(query).collect(), ref.sql(query).collect()
+    assert got.num_rows > 0
+    assert_tables_equal(got, want)
 
 
 @pytest.mark.parametrize("query", [

@@ -228,17 +228,29 @@ def test_like_transpiled_forms_match_jax(kind):
 
 @pytest.mark.parametrize("pattern", ["a_c", "%a%b%"])
 def test_like_nfa_pattern_raises_naming_regex(pattern):
-    # the port runs NFA patterns on the CPU until the device NFA of
-    # expr/regex.py is ported (ROADMAP A9), with the JAX package's answer
+    # 'a_c' runs on the device NFA of expr/regex.py; '%a%b%' needs more
+    # than 31 NFA positions, so both packages run it on the CPU, with the
+    # JAX package's reason
     got = _run("flat", lambda api: [api.F.like(api.col("s"), pattern)
                                     .alias("m")])
     assert any(got["m"].to_pylist())
-    P = torch_api()
-    s = P.session()
-    s.create_dataframe(_strings_table("flat")).select(
-        P.F.like(P.col("s"), pattern)).collect()
-    assert "expr/regex.py" in s.last_meta.explain() \
-        and "ROADMAP A9" in s.last_meta.explain()
+    from spark_rapids_tpu.plan import overrides as JO
+    from spark_rapids_tpu_torch.plan import overrides as PO
+    reports = []
+    for api, overrides in ((torch_api(), PO), (jax_api(), JO)):
+        s = api.session()
+        df = s.create_dataframe(_strings_table("flat")).select(
+            api.F.like(api.col("s"), pattern))
+        reports.append(overrides.wrap_and_tag(df.plan, s.conf).explain())
+    on_cpu = [ln.strip() for ln in reports[0].splitlines()
+              if ln.lstrip().startswith(("!", "@"))]
+    assert on_cpu == [ln.strip().replace("TPU", "GPU")
+                      for ln in reports[1].splitlines()
+                      if ln.lstrip().startswith(("!", "@"))]
+    assert bool(on_cpu) == (pattern == "%a%b%")
+    assert "ROADMAP" not in reports[0]
+    if on_cpu:
+        assert "does not transpile to device kernels" in reports[0]
 
 
 @pytest.mark.parametrize("kind", KINDS)

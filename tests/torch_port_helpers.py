@@ -1087,3 +1087,153 @@ SQL_DT = ("WITH parts AS (SELECT year(l_shipdate) AS y, "
           "WHERE l_shipdate >= CAST('1995-01-01' AS date)) "
           "SELECT y, m, q, SUM(rev) AS revenue, COUNT(*) AS n FROM parts "
           "GROUP BY y, m, q")
+
+
+# ---------------------------------------------------------------------------
+# the regex and string-breadth shapes over lineitem_text: patterns every
+# one of which the JAX package compiles to its device NFA, but RX_Q13's
+# ---------------------------------------------------------------------------
+
+RX_RLIKE = "b(l|r)[a-z]+ly"
+#: LIKE patterns of the NFA arm, and one that transpiles to endswith
+RX_LIKE_NFA, RX_LIKE_PLAIN = ("_u%", "%ar_"), "%ly"
+RX_EXTRACT = ("([a-z]+)ly ", 1)
+RX_REPLACE = ("[aeiou]+", "*")
+#: TPC-H Q13's two-run LIKE: more than 31 NFA positions, so a CPU filter
+RX_Q13 = "%quick%sleep%"
+#: the row queries' lines: l_quantity below this
+RX_ROWS_QTY = 3.0
+#: rx_cpu_rows_fb's lines: l_quantity = 1 and l_orderkey % RX_CPU_MOD == 0
+#: (~10,000 of bench.py's 30M lines: its eleven Python row functions cost
+#: ~100 us a line on the CPU backend)
+RX_CPU_MOD = 60
+#: the plan node each fallback query of the regex shapes leaves on the CPU
+RX_FALLBACK_NODES = {"rx_cpu_rows_fb": "Project", "rx_q13_fb": "Filter"}
+
+
+def rx_rlike_flags(api, df):
+    """Lines whose comment matches RX_RLIKE, per flag pair: their count
+    and their comments' bytes."""
+    col, F = api.col, api.F
+    return (df.filter(F.rlike(col("l_comment"), RX_RLIKE))
+            .group_by("l_returnflag", "l_linestatus")
+            .agg(F.count().alias("n"),
+                 F.sum(F.octet_length(col("l_comment"))).alias("bytes")))
+
+
+def rx_like_nfa(api, df):
+    """Lines per outcome of the two NFA LIKE patterns and the transpiled
+    one."""
+    col, F = api.col, api.F
+    c = col("l_comment")
+    return (df.select(F.like(c, RX_LIKE_NFA[0]).alias("u"),
+                      F.like(c, RX_LIKE_NFA[1]).alias("ar"),
+                      F.like(c, RX_LIKE_PLAIN).alias("ly"))
+            .group_by("u", "ar", "ly").agg(F.count().alias("n")))
+
+
+def rx_extract_groups(api, df):
+    """Lines per word before the first 'ly ' (regexp_extract: "" where a
+    comment has none): a flat string key, the sort route."""
+    col, F = api.col, api.F
+    return (df.select(F.regexp_extract(col("l_comment"), *RX_EXTRACT)
+                      .alias("w"))
+            .group_by("w").agg(F.count().alias("n")))
+
+
+def rx_replace_sums(api, df):
+    """Per flag pair, the characters of the comments with every vowel run
+    replaced."""
+    col, F = api.col, api.F
+    return (df.select(col("l_returnflag"), col("l_linestatus"),
+                      F.length(F.regexp_replace(col("l_comment"),
+                                                *RX_REPLACE)).alias("len"))
+            .group_by("l_returnflag", "l_linestatus")
+            .agg(F.sum(col("len")).alias("chars"), F.count().alias("n")))
+
+
+def rx_replace_rows(api, df):
+    """The same replacement row by row over the lines of few items."""
+    col, lit, F = api.col, api.lit, api.F
+    return (df.filter(col("l_quantity") < lit(RX_ROWS_QTY))
+            .select(col("l_orderkey"),
+                    F.regexp_replace(col("l_comment"), *RX_REPLACE)
+                    .alias("r")))
+
+
+#: rx_breadth_rows' output columns, after l_orderkey
+RX_BREADTH_COLS = ("trim", "ltrim", "rtrim", "initcap", "ascii", "instr",
+                   "locate", "rep", "octets", "bits", "left5", "right5",
+                   "chr", "upper_trim", "crc", "hive")
+
+
+def rx_breadth_rows(api, df):
+    """trim ... chr, crc32 and hive_hash over the lines of few items; the
+    case-map kernel runs in upper(trim(...))."""
+    col, lit, F = api.col, api.lit, api.F
+    c = col("l_comment")
+    padded = F.concat(lit("  "), c, lit(" "))
+    return (df.filter(col("l_quantity") < lit(RX_ROWS_QTY))
+            .select(col("l_orderkey"), F.trim(padded).alias("trim"),
+                    F.ltrim(padded).alias("ltrim"),
+                    F.rtrim(padded).alias("rtrim"),
+                    F.initcap(c).alias("initcap"), F.ascii(c).alias("ascii"),
+                    F.instr(c, "ly").alias("instr"),
+                    F.locate("ly", c).alias("locate"),
+                    F.repeat(F.left(c, 4), 3).alias("rep"),
+                    F.octet_length(c).alias("octets"),
+                    F.bit_length(c).alias("bits"),
+                    F.left(c, 5).alias("left5"), F.right(c, 5).alias("right5"),
+                    F.chr_(col("l_quantity").cast(api.T.INT32) + lit(64))
+                    .alias("chr"),
+                    F.upper(F.trim(padded)).alias("upper_trim"),
+                    F.crc32(c).alias("crc"),
+                    F.hive_hash(c, col("l_quantity")).alias("hive")))
+
+
+#: rx_cpu_rows_fb's output columns, after l_orderkey
+RX_CPU_COLS = ("md5", "sha2", "lpad", "translate", "subidx", "concat_ws",
+               "soundex", "lev", "b64", "hex", "ly_words")
+
+
+def rx_cpu_rows_fb(api, df):
+    """The CPU row functions over a few lines: the filter on the device,
+    one Project on the CPU."""
+    col, lit, F = api.col, api.lit, api.F
+    c = col("l_comment")
+    return (df.filter((col("l_quantity") == lit(1.0))
+                      & (col("l_orderkey") % lit(RX_CPU_MOD) == lit(0)))
+            .select(col("l_orderkey"), F.md5(c).alias("md5"),
+                    F.sha2(c, 256).alias("sha2"),
+                    F.lpad(c, 50, "*").alias("lpad"),
+                    F.translate(c, "aeiou", "AEI").alias("translate"),
+                    F.substring_index(c, " ", 2).alias("subidx"),
+                    F.concat_ws("|", col("l_returnflag"), c)
+                    .alias("concat_ws"),
+                    F.soundex(c).alias("soundex"),
+                    F.levenshtein(c, lit("quickly")).alias("lev"),
+                    F.base64(c).alias("b64"), F.hex(c).alias("hex"),
+                    F.regexp_extract_all(c, "([a-z]+)ly", 1)
+                    .alias("ly_words")))
+
+
+def rx_q13_fb(api, df):
+    """Q13's NOT LIKE over the l_quantity = 1 lines, counted per flag
+    pair: the l_quantity filter on the device, the LIKE filter on the
+    CPU."""
+    col, lit, F = api.col, api.lit, api.F
+    return (df.filter(col("l_quantity") == lit(1.0))
+            .filter(~F.like(col("l_comment"), RX_Q13))
+            .group_by("l_returnflag", "l_linestatus")
+            .agg(F.count().alias("n")))
+
+
+#: sql_regex: the LIKE and RLIKE filters and the extraction as SQL, with
+#: trim and initcap on the extracted word (the SQL grammar groups by
+#: columns, so the word comes from a WITH)
+SQL_REGEX = ("WITH r AS (SELECT initcap(trim(regexp_extract(l_comment, "
+             "'([a-z]+)ly ', 1))) AS w, l_quantity FROM lineitem_text "
+             "WHERE l_comment LIKE '_u%' AND "
+             "rlike(l_comment, 'b(l|r)[a-z]+ly')) "
+             "SELECT w, COUNT(*) AS n, SUM(l_quantity) AS q FROM r "
+             "GROUP BY w")
