@@ -227,17 +227,42 @@ Phases, one JSON line each:
    then twice warm and checked against pyarrow's RE2 and ASCII kernels,
    zlib, a numpy Hive hash, hashlib, base64 and Python's re, with routes,
    CPU nodes and launches asserted exactly.
+17. nested (after the datetime phase, on the joins phase's lineitem and
+   orders): orders_nested, one row per order (3M: o_orderkey,
+   o_custkey, o_info a struct of the order date and customer, the
+   order's lines as three aligned arrays l_qty, l_price and l_ship, 30M
+   elements each, l_price null for every 97th order, and o_flag_qty, a
+   map from each flag pair to its summed quantity), built on the host
+   and cached with 1 and 8 partitions: nx_explode_daily (the prices
+   exploded beside o_info.orderdate over the 8-partition cache, hash-
+   repartitioned by the date and summed per day: B1 x 8, then the chunked
+   segsum route, B2 x 4), nx_posexplode_outer (grouped by position, a
+   null row per null or empty array), nx_array_rows (size, element_at,
+   [], array_contains, array_min/max, sort_array, slice, array_distinct,
+   array_position, array_remove, arrays_overlap and the set operations
+   over ~30,000 orders, row by row), nx_struct_map (the struct's fields
+   and the map's keys, values, lookups and size row by row, then the map
+   exploded per flag pair), nx_stack (stack(2, ...) over the cached
+   lineitem: the Expand per projection, the sort route), nx_cpu_
+   collections_fb (the host-tier functions and map_entries over ~10,000
+   orders: one CPU Project), nx_sibling_fb (an explode carrying another
+   array: the CPU Generate), sql_nested (the daily explode as SQL over a
+   temp view) and ingest_generate (a plan document's Parquet scan and
+   generate: the CPU Generate, B3 and B2), each cold then twice warm and
+   checked against numpy on the lineitem itself and Python rows, with
+   routes, CPU nodes, Expand forms and launches asserted exactly.
 Every query path runs in test mode (spark.rapids.sql.test.enabled): an
 operator that planning tags off the card fails the query, except the one
 node each fallback query names in spark.rapids.sql.test.allowedNonTpu.
 It then prints the kernel table ({"kernels": [...]}, with each kernel's
 launches per path in "launches_by_path": cached, parquet, strings, joins,
-adaptive, window, sql, exprs, sets, aggtypes, datetime, regex, fallback),
+adaptive, window, sql, exprs, sets, aggtypes, datetime, nested, regex,
+fallback),
 the card's name and power limit, and as its last line {"ok": true,
 "device": {...}}. Any failure exits non-zero without that line; so does a
 machine without CUDA, and so does a run that imported the JAX package.
 The lineitem generators and the string, join, window, expression, set,
-aggregate-type, datetime and regex query shapes are the ones of
+aggregate-type, datetime, regex and nested query shapes are the ones of
 tests/torch_port_helpers.py, which the CPU tests run too.
 `python3 chip_smoke.py --segsum-against OTHER.cu [...]` runs only the
 segsum shapes, through the checkout's kernel and a build of each other
@@ -4500,6 +4525,346 @@ def phase_regex(text, text_plan, spy, prof=None):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the nested types over orders_nested
+# ---------------------------------------------------------------------------
+
+def _dedup(vals):
+    out = []
+    for v in vals:
+        if v not in out:
+            out.append(v)
+    return out
+
+
+def nested_reference(table, orders, nested):
+    """numpy and Python answers to the nested shapes, from the lineitem
+    and orders themselves (the explode of orders_nested's arrays is the
+    lineitem sorted stably by order key) and, for the row queries, from
+    pyarrow's Python rows of the filtered orders."""
+    import pyarrow.compute as pc
+    H = helpers()
+    out = {}
+    key = table["l_orderkey"].to_numpy()
+    n = orders.num_rows
+    odate = orders["o_orderdate"].to_numpy()
+    price = table["l_extendedprice"].to_numpy()
+    qty = table["l_quantity"].to_numpy()
+    priced = key % H.NX_NULL_PRICE_MOD != 0
+    d = odate[key[priced]]
+    days = np.bincount(d, minlength=odate.max() + 1)
+    sums = np.bincount(d, weights=price[priced], minlength=odate.max() + 1)
+    daily = {int(k): (float(sums[k]), int(days[k]))
+             for k in np.flatnonzero(days)}
+    out["nx_explode_daily"] = out["sql_nested"] = daily
+    # positions: the rank of each line within its order, in lineitem order
+    order = np.argsort(key, kind="stable")
+    counts = np.bincount(key, minlength=n)
+    start = np.cumsum(counts) - counts
+    pos = np.empty(len(key), np.int64)
+    pos[order] = np.arange(len(key)) - start[key[order]]
+    pp = pos[priced]
+    pc_n = np.bincount(pp)
+    pc_s = np.bincount(pp, weights=price[priced])
+    okey = np.arange(n)
+    null_rows = int(((okey % H.NX_NULL_PRICE_MOD == 0) | (counts == 0)).sum())
+    posx = {int(p): (int(pc_n[p]), int(pc_n[p]), float(pc_s[p]))
+            for p in np.flatnonzero(pc_n)}
+    posx[None] = (null_rows, 0, None)
+    out["nx_posexplode_outer"] = posx
+    rows = nested.filter(pc.equal(pc.subtract(
+        nested["o_orderkey"], pc.multiply(pc.divide(
+            nested["o_orderkey"], H.NX_ROWS_MOD), H.NX_ROWS_MOD)),
+        H.NX_ROWS_REM)).to_pylist()
+    small = list(H.NX_SET)
+    arr = {}
+    for r in rows:
+        q, p, s = r["l_qty"], r["l_price"], r["l_ship"]
+        arr[r["o_orderkey"]] = (
+            len(q), q[0] if q else None, q[-1] if q else None,
+            q[39] if len(q) >= 40 else None, q[0] if q else None,
+            25.0 in q, min(p) if p else None, max(p) if p else None,
+            max(s) if s else None, sorted(q), sorted(q, reverse=True),
+            q[1:4], _dedup(q), (q.index(10.0) + 1) if 10.0 in q else 0,
+            [x for x in q if x != 1.0], any(x in small for x in q),
+            _dedup(q + small), _dedup([x for x in q if x in small]),
+            _dedup([x for x in q if x not in small]))
+    out["nx_array_rows"] = arr
+    struct_rows = {}
+    for r in rows:
+        m = r["o_flag_qty"]
+        get = dict(m)
+        struct_rows[r["o_orderkey"]] = (
+            r["o_info"]["orderdate"], r["o_info"]["custkey"],
+            [k for k, _ in m], [v for _, v in m], get.get("NO"),
+            get.get("RF"), len(m))
+    flag = table["l_returnflag"]
+    code = (pc.equal(flag, "N").to_numpy().astype(np.int64) * 2
+            + pc.equal(flag, "R").to_numpy().astype(np.int64) * 4
+            + pc.equal(table["l_linestatus"], "O").to_numpy()
+            .astype(np.int64))
+    present = np.bincount(key * 6 + code, minlength=6 * n).reshape(n, 6) > 0
+    per_pair = np.bincount(code, weights=qty, minlength=6)
+    out["nx_struct_map"] = (struct_rows, {
+        H.FLAG_PAIRS[c]: (float(per_pair[c]), int(present[:, c].sum()))
+        for c in range(6)})
+    out["nx_stack"] = {"qty": (float(qty.sum()), len(qty)),
+                       "price": (float(price.sum()), len(price))}
+    cpu_rows = {}
+    for r in nested.filter(pc.and_(pc.equal(pc.subtract(
+            nested["o_orderkey"], pc.multiply(pc.divide(
+                nested["o_orderkey"], H.NX_CPU_MOD), H.NX_CPU_MOD)), 0),
+            pc.greater(pc.list_value_length(nested["l_qty"]), 0))
+            ).to_pylist():
+        q, s, m = r["l_qty"], r["l_ship"], r["o_flag_qty"]
+        keys = [k for k, _ in m]
+        seq = list(range(1, len(q) + 1))
+        cpu_rows[r["o_orderkey"]] = (
+            [{"0": a, "1": b} for a, b in zip(q, s)], ",".join(keys),
+            [r["o_custkey"]] * 2, seq, list(zip(seq, q)),
+            list(m) + [("ZZ", 0.5)], [(k, None) for k in keys],
+            [{"key": k, "value": v} for k, v in m])
+    out["nx_cpu_collections_fb"] = cpu_rows
+    sib = {}
+    for r in rows:
+        if r["l_price"] is None or not r["l_price"]:
+            continue
+        s, c = sib.get(len(r["l_qty"]), (0.0, 0))
+        sib[len(r["l_qty"])] = (s + sum(r["l_price"]), c + len(r["l_price"]))
+    out["nx_sibling_fb"] = sib
+    ing = {}
+    for r in rows:
+        if r["l_price"]:
+            dd = (r["o_info"]["orderdate"] - _EPOCH).days
+            s, c = ing.get(dd, (0.0, 0))
+            ing[dd] = (s + sum(r["l_price"]), c + len(r["l_price"]))
+    out["ingest_generate"] = ing
+    return out
+
+
+def _epoch():
+    import datetime as dtm
+    return dtm.date(1970, 1, 1)
+
+
+_EPOCH = _epoch()
+
+
+def nested_queries(n1, n8, li, fb_project, fb_generate, sql_s, doc):
+    """name -> (session, run) over orders_nested: n1/n8 its 1- and
+    8-partition caches (n.s, n.od), li the cached lineitem (li.s, li.li),
+    fb_project and fb_generate the 1-partition cache in sessions whose
+    test mode allows that one CPU node, sql_s a session with
+    nx_view(orders_nested) as the temp view orders_nested, doc
+    ingest_generate's plan document. Each run returns what
+    validate_nested reads."""
+    from spark_rapids_tpu_torch.plan.ingest import ingest
+    H, api = helpers(), port_api()
+
+    def groups(df, nkeys):
+        d = df.collect().to_pydict()
+        names = list(d)
+        return {(d[names[0]][i] if nkeys == 1
+                 else tuple(d[k][i] for k in names[:nkeys])):
+                tuple(d[c][i] for c in names[nkeys:])
+                for i in range(len(d[names[0]]))}
+
+    def days(g):
+        return {(k - _EPOCH).days: v for k, v in g.items()}
+
+    def by_order(df):
+        return groups(df, 1)
+
+    return {
+        "nx_explode_daily": (n8.s, lambda: days(groups(
+            H.nx_explode_daily(api, n8.od), 1))),
+        "nx_posexplode_outer": (n1.s, lambda: groups(
+            H.nx_posexplode_outer(api, n1.od), 1)),
+        "nx_array_rows": (n1.s, lambda: by_order(
+            H.nx_array_rows(api, n1.od))),
+        "nx_struct_map": (n1.s, lambda: (
+            by_order(H.nx_struct_rows(api, n1.od)),
+            groups(H.nx_map_groups(api, n1.od), 1))),
+        "nx_stack": (li.s, lambda: groups(H.nx_stack(api, li.li), 1)),
+        "nx_cpu_collections_fb": (fb_project.s, lambda: by_order(
+            H.nx_cpu_collections_fb(api, fb_project.od))),
+        "nx_sibling_fb": (fb_generate.s, lambda: groups(
+            H.nx_sibling_fb(api, fb_generate.od), 1)),
+        "sql_nested": (sql_s, lambda: days(groups(
+            sql_s.sql(H.SQL_NESTED), 1))),
+        "ingest_generate": (doc[0], lambda: days(groups(
+            ingest(doc[1], doc[0]), 1))),
+    }
+
+
+def validate_nested(name, got, want):
+    """(correct, how the check compared)."""
+    def close_groups(g, w, tol_cols):
+        return set(g) == set(w) and all(
+            all((a is None and b is None) if a is None or b is None
+                else (_close(a, b, 1e-9) if i in tol_cols else a == b)
+                for i, (a, b) in enumerate(zip(g[k], w[k]))) for k in w)
+    if name in ("nx_explode_daily", "sql_nested", "ingest_generate",
+                "nx_sibling_fb"):
+        return close_groups(got, want, (0,)), (
+            "every group: the count exact, the sum to 1e-9")
+    if name == "nx_posexplode_outer":
+        return close_groups(got, want, (2,)), (
+            "every position and the null one: rows and non-null prices "
+            "exact, the sum to 1e-9")
+    if name == "nx_stack":
+        return close_groups(got, want, (0,)), (
+            "both labels: the count exact, the sum to 1e-9")
+    if name == "nx_struct_map":
+        return got[0] == want[0] and close_groups(got[1], want[1], (0,)), (
+            "the struct and map rows exactly; per flag pair the entries "
+            "exact and the quantity to 1e-9")
+    return got == want, "row by row, exactly"
+
+
+_CHUNKED = {"_chunked_segsum_agg": 1, "_segsum_or_fallback": 4,
+            "_scatter_agg": 1}
+#: what each nested query must have run per run: operators that must be
+#: present, its aggregate routes, the plan nodes on the CPU and the
+#: Expand forms (the CPU nodes and nx_stack's Expand per projection are
+#: the JAX package's on a CPU rehearsal; the routes follow the capacities
+#: of the full-size caches: the 30M exploded prices collected into one
+#: batch take the chunked segsum route, as dt_daily_repart's lines do)
+NESTED_EXPECT = {
+    "nx_explode_daily": ({"GenerateExec", "ShuffleExchangeExec",
+                          "CollectExchangeExec"}, _CHUNKED, [], []),
+    "nx_posexplode_outer": ({"GenerateExec", "HashAggregateExec"},
+                            {"_scatter_agg": 1}, [], []),
+    "nx_array_rows": ({"FilterExec", "ProjectExec"}, {}, [], []),
+    "nx_struct_map": ({"GenerateExec", "HashAggregateExec"},
+                      {"_bucket_update": 1}, [], []),
+    "nx_stack": ({"ExpandExec", "HashAggregateExec"}, {"_sort_agg": 3}, [],
+                 [False]),
+    "nx_cpu_collections_fb": ({"CpuFallbackExec", "FilterExec"}, {},
+                              ["Project"], []),
+    "nx_sibling_fb": ({"CpuFallbackExec", "HashAggregateExec"},
+                      {"_scatter_agg": 1}, ["Generate"], []),
+    "sql_nested": ({"GenerateExec", "HashAggregateExec"}, _CHUNKED, [], []),
+    "ingest_generate": ({"CpuFallbackExec", "DeviceDecodeScanExec"},
+                        {"_segsum_or_fallback": 1}, ["Generate"], []),
+}
+#: kernel launches per run: B1 once per exploded partition batch into
+#: nx_explode_daily's exchange (its DATE key is an int32 plane); B2 in the
+#: four 2^23-row chunks of the collected 30M prices (nx_explode_daily,
+#: sql_nested) and once over ingest_generate's 300k; B3 on the one row
+#: group of ingest_generate's Parquet file (o_orderdate's codes)
+NESTED_LAUNCHES = {"nx_explode_daily": {"murmur3_int32": 8, "segsum": 4},
+                   "sql_nested": {"segsum": 4},
+                   "ingest_generate": {"segsum": 1, "bitslice": 1}}
+
+
+def phase_nested(table, orders, h1, tmp_dir, spy, prof=None):
+    """The nested shapes over orders_nested (one row per order of the
+    joins phase's orders, its lines inside), cached with 1 and 8
+    partitions, and nx_stack over the joins phase's cached lineitem, in
+    sessions in test mode."""
+    import pyarrow.parquet as pq
+    import torch
+    from types import SimpleNamespace
+    from spark_rapids_tpu_torch.exec.nodes import CpuFallbackExec
+    from spark_rapids_tpu_torch.sql.dataframe import DataFrame
+    H = helpers()
+    api = port_api()
+    t0 = time.perf_counter()
+    nested = H.make_orders_nested(table, orders)
+    flat_path = os.path.join(tmp_dir, "orders_nested_flat.parquet")
+    pq.write_table(H.orders_nested_flat(nested), flat_path)
+    make_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = nested_reference(table, orders, nested)
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s1, s8 = device_session(), device_session()
+    n1 = SimpleNamespace(s=s1, od=s1.create_dataframe(nested).cache())
+    n8 = SimpleNamespace(s=s8, od=s8.create_dataframe(
+        nested, num_partitions=8).cache())
+    counts = [n1.od.count(), n8.od.count()]
+    torch.cuda.synchronize()
+    cache_s = time.perf_counter() - t0
+    rows, elements = nested.num_rows, table.num_rows
+    del nested
+
+    def rebound(node):
+        s = device_session(allowed=node)
+        return SimpleNamespace(s=s, od=DataFrame(n1.od.plan, s))
+    fb_project = rebound(H.NX_FALLBACK_NODES["nx_cpu_collections_fb"])
+    fb_generate = rebound(H.NX_FALLBACK_NODES["nx_sibling_fb"])
+    sql_s = device_session()
+    sql_s.create_or_replace_temp_view(
+        "orders_nested", H.nx_view(api, DataFrame(n1.od.plan, sql_s)))
+    ing_s = device_session(allowed=H.NX_FALLBACK_NODES["ingest_generate"])
+    li = SimpleNamespace(s=h1.s, li=h1.li)
+    emit({"phase": "nested.setup", "rows": rows, "elements": elements,
+          "make_s": make_s, "host_reference_s": host_s, "cache_s": cache_s,
+          "cache_gb": torch.cuda.memory_allocated() / 2 ** 30})
+    if counts != [rows] * 2:
+        raise AssertionError(f"cached counts {counts}")
+    reset_launches()
+    spy.take()
+    problems = []
+    queries = nested_queries(n1, n8, li, fb_project, fb_generate, sql_s,
+                             (ing_s, H.nx_generate_doc(flat_path)))
+    for name, (session, fn) in queries.items():
+        before = read_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = fn()
+        cold = time.perf_counter() - t0
+        warm = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            fn()
+            warm.append(time.perf_counter() - t0)
+        good, how = validate_nested(name, got, ref[name])
+        counts = spy.take()
+        routes = {k: v // 3 for k, v in counts.items()}
+        execs = _exec_names(session)
+        launches = {k: (v - before[k]) // 3
+                    for k, v in read_launches().items()}
+        cpu_nodes = [type(m.plan).__name__ for m in session.last_meta.walk()
+                     if not m.can_run_on_tpu]
+        forms = [e.stacked for e in session.last_exec.walk()
+                 if type(e).__name__ == "ExpandExec"]
+        fallback = [dict(e.metrics) for e in session.last_exec.walk()
+                    if isinstance(e, CpuFallbackExec)]
+        if not good:
+            problems.append(f"{name} disagrees with numpy ({how})")
+        e_ops, e_routes, e_cpu, e_forms = NESTED_EXPECT[name]
+        e_launch = {k: NESTED_LAUNCHES.get(name, {}).get(k, 0)
+                    for k in launches}
+        if not e_ops <= set(execs) or routes != e_routes \
+                or any(v % 3 for v in counts.values()) \
+                or cpu_nodes != e_cpu or forms != e_forms:
+            problems.append(f"{name} ran {execs} with routes {routes}, "
+                            f"CPU nodes {cpu_nodes} and Expand forms "
+                            f"{forms}; expected {NESTED_EXPECT[name]}")
+        if launches != e_launch:
+            problems.append(f"{name} launched {launches}, expected "
+                            f"{e_launch}")
+        emit({"phase": "nested.query", "query": name, "correct": good,
+              "check": how, "cold_s": cold, "warm_s": min(warm),
+              "warm_ms": min(warm) * 1e3, "launches": launches,
+              "routes": routes, "execs": execs, "cpu_nodes": cpu_nodes,
+              "expand_stacked": forms, "fallback": fallback,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+    counts = read_launches()
+    emit({"phase": "nested", "launches": counts, "correct": not problems,
+          "problems": problems})
+    if prof:
+        prof.run("nested", {k: v[1] for k, v in queries.items()})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    if counts["murmur3_int32"] <= 0 or counts["segsum"] <= 0:
+        raise AssertionError(f"murmur3 and segsum must run on the nested "
+                             f"path: {counts}")
+    return counts
+
+
 #: launch-counter name -> (wrapper module, wrapper function, a substring
 #: of the CUDA kernel's name as the profiler reports it)
 KERNEL_WRAPPERS = {
@@ -4751,6 +5116,9 @@ def main(argv) -> int:
         t0 = time.perf_counter()
         dtime = phase_datetime(table, spy, prof)
         phases["datetime_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nested = phase_nested(table, orders, h1, tmp_dir, spy, prof)
+        phases["nested_s"] = time.perf_counter() - t0
         gc.collect()
         t0 = time.perf_counter()
         fb_want = fallback_reference(text, table)
@@ -4783,6 +5151,7 @@ def main(argv) -> int:
                    "exprs": exprs[r["name"]],
                    "sets": sets[r["name"]], "aggtypes": aggtypes[r["name"]],
                    "datetime": dtime[r["name"]],
+                   "nested": nested[r["name"]],
                    "regex": regex[r["name"]],
                    "fallback": fallback[r["name"]]}
         r["launches"] = sum(by_path.values())

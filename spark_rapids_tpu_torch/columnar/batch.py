@@ -13,7 +13,10 @@ same, so the two packages' batches can be compared plane by plane:
 - Decimals are their unscaled int64 values (DECIMAL64, precision <= 18).
 - An array column is int32 offsets (capacity + 1) plus a child
   ``ColumnVector`` holding the elements back to back; a null row owns an
-  empty slice.
+  empty slice. A map column is the same offsets plus ``keys`` and
+  ``values`` child columns of one element capacity. A struct column is
+  ``{"children": [...]}``, one child per field at the row capacity, plus
+  the struct's own validity (a null struct row may have valid children).
 - ``row_mask`` is a selection vector: a filter marks rows dead instead of
   gathering the survivors, and the surviving count stays on the device as
   a ``LazyRowCount`` until the host needs it.
@@ -111,12 +114,16 @@ class ColumnVector:
         if isinstance(self.data, dict):
             if "codes" in self.data:
                 return int(self.data["codes"].shape[0])
+            if "children" in self.data:  # struct: its first child's
+                return self.data["children"][0].capacity
             return int(self.data["offsets"].shape[0]) - 1
         return int(self.data.shape[0])
 
     @property
     def device(self) -> torch.device:
         if isinstance(self.data, dict):
+            if "children" in self.data:
+                return self.data["children"][0].device
             return next(iter(self.data.values())).device
         return self.data.device
 
@@ -130,7 +137,8 @@ class ColumnVector:
 
     @property
     def is_nested(self) -> bool:
-        return isinstance(self.dtype, T.ArrayType)
+        return isinstance(self.dtype, (T.ArrayType, T.StructType,
+                                       T.MapType))
 
     @property
     def dict_size(self) -> int:
@@ -143,8 +151,8 @@ class ColumnVector:
         return pos < rows_tensor(num_rows)
 
     def device_memory_size(self) -> int:
-        planes = list(self.data.values()) if isinstance(self.data, dict) \
-            else [self.data]
+        planes = list(self.data.get("children", self.data.values())) \
+            if isinstance(self.data, dict) else [self.data]
         if self.validity is not None:
             planes.append(self.validity)
         return sum(p.device_memory_size() if isinstance(p, ColumnVector)
@@ -229,8 +237,16 @@ def column_from_arrow(arr, dtype: T.DataType, capacity: int,
     n = len(arr)
     valid_np = None if arr.null_count == 0 \
         else np.asarray(arr.is_valid()).astype(np.bool_)
-    if isinstance(dtype, T.ArrayType):
-        return _array_from_arrow(arr, dtype, capacity, device, valid_np)
+    if isinstance(dtype, (T.ArrayType, T.MapType)):
+        return _list_like_from_arrow(arr, dtype, capacity, device, valid_np)
+    if isinstance(dtype, T.StructType):
+        if not dtype.fields:
+            raise TypeError("empty struct columns are not supported")
+        kids = [column_from_arrow(arr.field(i), f.dtype, capacity, device)
+                for i, f in enumerate(dtype.fields)]
+        validity = None if valid_np is None \
+            else _upload(_pad_to(valid_np, capacity, fill=False), device)
+        return ColumnVector(dtype, {"children": kids}, validity)
     if isinstance(dtype, T.DecimalType):
         data = _upload(_pad_to(decimal_unscaled(arr, dtype, valid_np),
                                capacity), device)
@@ -299,30 +315,45 @@ def decimal_unscaled(arr, dtype: T.DecimalType,
     return np.ascontiguousarray(low)
 
 
-def _array_from_arrow(arr, dtype: T.ArrayType, capacity: int, device,
-                      valid_np: Optional[np.ndarray]) -> ColumnVector:
-    """An Arrow list array as offsets + a child column, from buffers: a
-    null row's slice is dropped (``flatten`` skips it), so it owns an
-    empty one."""
+def _list_like_from_arrow(arr, dtype, capacity: int, device,
+                          valid_np: Optional[np.ndarray]) -> ColumnVector:
+    """An Arrow list or map array as offsets + child columns, from
+    buffers. Arrow lets a null row own a non-empty slice; here it owns an
+    empty one, so the child planes hold only the valid rows' elements."""
     import pyarrow as pa
-    if pa.types.is_large_list(arr.type):
+    if isinstance(dtype, T.ArrayType) and pa.types.is_large_list(arr.type):
         arr = arr.cast(pa.list_(arr.type.value_type))
     off = np.asarray(arr.offsets, dtype=np.int64)
     lens = np.diff(off)
-    if valid_np is not None:
-        lens = np.where(valid_np, lens, 0)
     n = len(arr)
+    if valid_np is not None and (lens[~valid_np] != 0).any():
+        lens = np.where(valid_np, lens, 0)
+        keep = np.repeat(valid_np, np.diff(off))
+        elems = pa.array(np.arange(off[0], off[-1])[keep])
+    else:
+        elems = None
     offsets = np.zeros(capacity + 1, np.int64)
     offsets[1: n + 1] = np.cumsum(lens)
     offsets[n + 1:] = offsets[n]
-    values = arr.flatten()
-    child = column_from_arrow(values, dtype.element,
-                              round_capacity(max(len(values), 1)), device)
+    total = int(offsets[n])
+    child_cap = round_capacity(max(total, 1))
+
+    def child(values, dt):
+        # the rows' elements: the plane between the first and the last
+        # offset, or the valid rows' elements where a null row owns some
+        values = values.slice(int(off[0]), int(off[-1] - off[0])) \
+            if elems is None else values.take(elems)
+        return column_from_arrow(values, dt, child_cap, device)
+
+    data = {"offsets": _upload(offsets.astype(np.int32), device)}
+    if isinstance(dtype, T.MapType):
+        data["keys"] = child(arr.keys, dtype.key)
+        data["values"] = child(arr.items, dtype.value)
+    else:
+        data["child"] = child(arr.values, dtype.element)
     validity = None if valid_np is None \
         else _upload(_pad_to(valid_np, capacity, fill=False), device)
-    return ColumnVector(dtype, {"offsets": _upload(offsets.astype(np.int32),
-                                                   device),
-                                "child": child}, validity)
+    return ColumnVector(dtype, data, validity)
 
 
 def from_arrow(table, device) -> ColumnarBatch:
@@ -402,11 +433,17 @@ def decimal_arrow(vals: np.ndarray, dtype: T.DecimalType,
                                  [bitmap, pa.py_buffer(words)])
 
 
-def _array_rows_arrow(col: ColumnVector, idx: torch.Tensor,
-                      valid: Optional[np.ndarray]):
-    """The selected rows of an array column as an Arrow list array: the
-    rows' elements are gathered on the device (``expand_ranges``), the
-    child converts recursively, and the offsets are rebuilt."""
+def _child_rows_arrow(child: ColumnVector, idx: torch.Tensor):
+    valid = None if child.validity is None else _host(child.validity[idx])
+    return _column_rows_arrow(child, idx, valid)
+
+
+def _list_rows_arrow(col: ColumnVector, idx: torch.Tensor,
+                     valid: Optional[np.ndarray]):
+    """The selected rows of an array or map column as an Arrow list or
+    map array: the rows' elements are gathered on the device
+    (``expand_ranges``), the children convert recursively, and the
+    offsets are rebuilt."""
     import pyarrow as pa
     from spark_rapids_tpu_torch.ops.kernels import expand_ranges
     off = col.data["offsets"].to(torch.int64)
@@ -415,20 +452,29 @@ def _array_rows_arrow(col: ColumnVector, idx: torch.Tensor,
     if valid is not None:
         lens = torch.where(torch.from_numpy(valid).to(lens.device), lens, 0)
     row, within, total = expand_ranges(lens)
-    child = col.data["child"]
     eidx = starts[row.to(torch.int64)] + within if total \
         else torch.zeros(0, dtype=torch.int64, device=off.device)
-    cvalid = None if child.validity is None \
-        else _host(child.validity[eidx])
-    child_arr = _column_rows_arrow(child, eidx, cvalid)
     new_off = torch.cat([torch.zeros(1, dtype=torch.int64,
                                      device=lens.device), lens.cumsum(0)])
-    bitmap = None if valid is None \
-        else pa.py_buffer(np.packbits(valid, bitorder="little"))
-    return pa.Array.from_buffers(
-        T.to_arrow(col.dtype), idx.shape[0],
-        [bitmap, pa.py_buffer(_host(new_off).astype(np.int32))],
-        children=[child_arr])
+    offsets = pa.array(_host(new_off).astype(np.int32))
+    mask = None if valid is None else pa.array(~valid)
+    if isinstance(col.dtype, T.MapType):
+        return pa.MapArray.from_arrays(
+            offsets, _child_rows_arrow(col.data["keys"], eidx),
+            _child_rows_arrow(col.data["values"], eidx),
+            type=T.to_arrow(col.dtype), mask=mask)
+    return pa.ListArray.from_arrays(
+        offsets, _child_rows_arrow(col.data["child"], eidx),
+        type=T.to_arrow(col.dtype), mask=mask)
+
+
+def _struct_rows_arrow(col: ColumnVector, idx: torch.Tensor,
+                       valid: Optional[np.ndarray]):
+    import pyarrow as pa
+    kids = [_child_rows_arrow(ch, idx) for ch in col.data["children"]]
+    return pa.StructArray.from_arrays(
+        kids, fields=list(T.to_arrow(col.dtype)),
+        mask=None if valid is None else pa.array(~valid))
 
 
 def _column_rows_arrow(col: ColumnVector, idx: torch.Tensor,
@@ -438,8 +484,10 @@ def _column_rows_arrow(col: ColumnVector, idx: torch.Tensor,
     import pyarrow as pa
     if col.is_string:
         return _string_rows_arrow(col, idx, valid)
+    if isinstance(col.dtype, T.StructType):
+        return _struct_rows_arrow(col, idx, valid)
     if col.is_nested:
-        return _array_rows_arrow(col, idx, valid)
+        return _list_rows_arrow(col, idx, valid)
     vals = _host(col.data[idx])
     if isinstance(col.dtype, T.DecimalType):
         return decimal_arrow(vals, col.dtype, valid)

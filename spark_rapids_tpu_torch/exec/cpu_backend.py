@@ -1,8 +1,9 @@
 """The CPU backend: a numpy/pandas interpreter of the plan algebra.
 
 Counterpart of ``spark_rapids_tpu/exec/cpu_backend.py``, adapted to this
-engine's types and plan nodes (decimals as unscaled int64 values, arrays
-as object arrays of python lists; no structs, maps, ``Generate``, text or
+engine's types and plan nodes (decimals as unscaled int64 values; nested
+rows in the JAX package's Python form: an array row is a list, a struct
+row a dict, a map row a list of (key, value) pairs; no text or
 shuffle-file scans yet). It runs an operator that planning tags
 off the device (``exec/nodes.CpuFallbackExec``, ``apply_node``) and a
 whole plan in ``spark.rapids.sql.mode=explainOnly`` or
@@ -30,6 +31,7 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import decimal_arrow, decimal_unscaled
 from spark_rapids_tpu_torch.expr import aggregates as A
 from spark_rapids_tpu_torch.expr import window as WE
+from spark_rapids_tpu_torch.expr.complex import _leaf_cpu_col
 from spark_rapids_tpu_torch.expr.core import CpuCol
 from spark_rapids_tpu_torch.plan import nodes as P
 
@@ -71,7 +73,7 @@ def cols_to_table(cols: List[CpuCol], names: List[str]) -> pa.Table:
             vals = [v if (ok and isinstance(v, str)) else None
                     for v, ok in zip(c.values, c.valid)]
             arr = pa.array(vals, type=at)
-        elif isinstance(c.dtype, T.ArrayType):
+        elif isinstance(c.dtype, (T.ArrayType, T.StructType, T.MapType)):
             arr = pa.array([v if ok else None
                             for v, ok in zip(c.values, c.valid)], type=at)
         elif isinstance(c.dtype, T.DecimalType):
@@ -91,8 +93,9 @@ def cols_to_table(cols: List[CpuCol], names: List[str]) -> pa.Table:
 
 
 def _is_object(dtype: T.DataType) -> bool:
-    """Strings and arrays hold python objects on the CPU."""
-    return isinstance(dtype, (T.StringType, T.ArrayType))
+    """Strings and nested types hold python objects on the CPU."""
+    return isinstance(dtype, (T.StringType, T.ArrayType, T.StructType,
+                              T.MapType))
 
 
 def _gather_cols(cols: List[CpuCol], idx: np.ndarray) -> List[CpuCol]:
@@ -138,8 +141,38 @@ def norm_key_np(c: CpuCol, shared_dict: Optional[dict] = None
         neg = (bits >> np.uint64(63)) != 0
         key = np.where(neg, ~bits, bits | np.uint64(1 << 63))
         return np.where(nulls, np.uint64(0), key), nulls
+    if isinstance(c.dtype, (T.ArrayType, T.StructType)):
+        # Spark's nested order: lexicographic, a null element first, NaN
+        # greatest; rows rank by a recursive tuple encoding
+        keys = [(_encode_sortable(v, c.dtype) if ok else ())
+                for v, ok in zip(c.values, c.valid)]
+        ranks = np.zeros(len(keys), np.uint64)
+        for pos, idx in enumerate(sorted(range(len(keys)),
+                                         key=lambda i: keys[i])):
+            ranks[idx] = pos
+        return np.where(nulls, np.uint64(0), ranks), nulls
+    if isinstance(c.dtype, T.MapType):
+        from spark_rapids_tpu_torch.expr.core import SparkException
+        raise SparkException("map type cannot be used in ORDER BY or "
+                             "grouping keys")
     key = c.values.astype(np.int64).view(np.uint64) ^ np.uint64(1 << 63)
     return np.where(nulls, np.uint64(0), key), nulls
+
+
+def _encode_sortable(v, dt: T.DataType):
+    """A tuple whose Python order is Spark's order of the nested value (a
+    null element first, NaN greatest, -0.0 equal to 0.0)."""
+    if isinstance(dt, T.ArrayType):
+        return tuple((0,) if x is None
+                     else (1, _encode_sortable(x, dt.element)) for x in v)
+    if isinstance(dt, T.StructType):
+        return tuple((0,) if v.get(f.name) is None
+                     else (1, _encode_sortable(v[f.name], f.dtype))
+                     for f in dt.fields)
+    if isinstance(dt, (T.Float32Type, T.Float64Type)):
+        fv = float(v)
+        return (2, 0.0) if fv != fv else (1, 0.0 + fv)
+    return (1, v)
 
 
 def _shared_string_dict(*cols: CpuCol) -> dict:
@@ -208,6 +241,8 @@ def apply_node(plan: P.PlanNode, children: List[List[CpuCol]],
         return _exec_window(plan, children[0], ansi)
     if isinstance(plan, P.Join):
         return _exec_join(plan, children[0], children[1], ansi)
+    if isinstance(plan, P.Generate):
+        return _exec_generate(plan, children[0], ansi)
     if isinstance(plan, P.Expand):
         child = children[0]
         parts = [[e.eval_cpu(child, ansi) for e in proj]
@@ -225,6 +260,41 @@ def _cast_vals(c: CpuCol, dt: T.DataType):
     if _is_object(dt):
         return c.values
     return c.values.astype(dt.np_dtype)
+
+
+def _exec_generate(plan: P.Generate, child: List[CpuCol], ansi: bool
+                   ) -> List[CpuCol]:
+    gen = plan.generator
+    src = gen.children[0].eval_cpu(child, ansi)
+    is_map = isinstance(gen.children[0].data_type(), T.MapType)
+    parent_idx: List[int] = []
+    pos_vals: List = []
+    gen_vals: List[list] = [[] for _ in plan.gen_fields]
+    g_off = 1 if gen.position else 0
+    for i, (v, ok) in enumerate(zip(src.values, src.valid)):
+        items = v if (ok and v is not None) else None
+        if not items:
+            if gen.outer:
+                parent_idx.append(i)
+                pos_vals.append(None)
+                for g in gen_vals:
+                    g.append(None)
+            continue
+        for j, el in enumerate(items):
+            parent_idx.append(i)
+            pos_vals.append(j)
+            if is_map:
+                gen_vals[g_off].append(el[0])
+                gen_vals[g_off + 1].append(el[1])
+            else:
+                gen_vals[g_off].append(el)
+    if gen.position:
+        gen_vals[0] = pos_vals
+    out = _gather_cols([child[i] for i in plan.required],
+                       np.asarray(parent_idx, np.int64))
+    for (_, dt), vals in zip(plan.gen_fields, gen_vals):
+        out.append(_leaf_cpu_col(dt, vals, [v is not None for v in vals]))
+    return out
 
 
 def _exec_union(plan: P.Union, parts: List[List[CpuCol]]) -> List[CpuCol]:

@@ -6,7 +6,7 @@ which decodes on the host, and the device-decode pair
 ``EncodedParquetSourceExec`` + ``DeviceDecodeScanExec``),
 ``CachedScanExec``, ``ProjectExec``,
 ``FilterExec``, ``CoalesceBatchesExec``, ``RangeExec``, ``UnionExec``,
-``ExpandExec``, ``CollectExchangeExec``, the
+``ExpandExec``, ``GenerateExec``, ``CollectExchangeExec``, the
 in-process exchanges (``ShuffleExchangeExec``, ``RoundRobinExchangeExec``,
 ``RangeExchangeExec``: compact or masked, with tiny coalescing and the
 skew split on read), ``HashAggregateExec``
@@ -633,6 +633,78 @@ class ExpandExec(TorchExec):
             mask = live.repeat(len(projs))
             yield ColumnarBatch(cols, LazyRowCount(mask.sum(
                 dtype=torch.int32)), mask)
+
+
+class GenerateExec(TorchExec):
+    """explode / posexplode over array and map columns, plain and outer.
+
+    The output stays at the capacity of the child planes: the generated
+    columns are those planes themselves, the parent columns gather through
+    the element -> row map (``searchsorted`` of each element in the
+    offsets), and liveness is a mask (elements of dead or null rows are
+    masked, not compacted). The outer forms place each element and one
+    null row per empty or null input in input order, by one scatter of
+    source rows and elements into child capacity + row capacity slots
+    (the slot past them is the overflow slot of the rest)."""
+
+    def execute_partition(self, pidx):
+        for batch in self.children[0].execute_partition(pidx):
+            yield self._generate(batch)
+
+    def _generate(self, batch: ColumnarBatch) -> ColumnarBatch:
+        gen = self.plan.generator
+        live = batch.live_mask()
+        ctx = EvalCtx(batch.columns, batch.num_rows, batch.capacity,
+                      self.device, live=live)
+        arr = gen.children[0].eval(ctx)
+        cap = batch.capacity
+        off = arr.data["offsets"][: cap + 1].to(torch.int64)
+        kids = [arr.data[nm] for nm in K.element_planes(arr)]
+        child_cap = kids[0].capacity
+        dev = off.device
+        e = torch.arange(child_cap, dtype=torch.int64, device=dev)
+        seg = (torch.searchsorted(off, e, right=True) - 1).clamp(0, cap - 1)
+        arr_valid = arr.validity if arr.validity is not None \
+            else torch.ones(cap, dtype=torch.bool, device=dev)
+        elem_live = (e < off[cap]) & live[seg] & arr_valid[seg]
+        req = [batch.columns[i] for i in self.plan.required]
+        if not gen.outer:
+            parent = [K.gather_column(c, seg, batch.num_rows, src_live=live)
+                      for c in req]
+            gen_cols = []
+            if gen.position:
+                gen_cols.append(ColumnVector(
+                    T.INT32, (e - off[seg]).to(torch.int32), None))
+            gen_cols.extend(kids)
+            return ColumnarBatch(parent + gen_cols, LazyRowCount(
+                elem_live.sum(dtype=torch.int32)), elem_live)
+        out_cap = round_capacity(child_cap + cap)
+        lens = off[1:] - off[:-1]
+        empty = live & (~arr_valid | (lens == 0))
+        ei = empty.to(torch.int64)
+        cume = torch.cumsum(ei, 0) - ei
+        dest_e = torch.where(elem_live, e + cume[seg], out_cap)
+        src_row = torch.full((out_cap + 1,), -1, dtype=torch.int64,
+                             device=dev)
+        src_elem = src_row.clone()
+        src_row.scatter_(0, dest_e, seg)
+        src_elem.scatter_(0, dest_e, e)
+        rows = torch.arange(cap, dtype=torch.int64, device=dev)
+        src_row.scatter_(0, torch.where(empty, off[:cap] + cume, out_cap),
+                         rows)
+        src_row, src_elem = src_row[:out_cap], src_elem[:out_cap]
+        live_out = src_row >= 0
+        parent = [K.gather_column(c, src_row, batch.num_rows, src_live=live)
+                  for c in req]
+        gen_cols = []
+        if gen.position:
+            pos = src_elem - off[src_row.clamp(0, cap - 1)]
+            gen_cols.append(ColumnVector(T.INT32, pos.to(torch.int32),
+                                         src_elem >= 0))
+        gen_cols.extend(K.gather_column(k, src_elem, child_cap)
+                        for k in kids)
+        return ColumnarBatch(parent + gen_cols, LazyRowCount(
+            live_out.sum(dtype=torch.int32)), live_out)
 
 
 class CollectExchangeExec(TorchExec):

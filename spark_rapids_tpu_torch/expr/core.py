@@ -168,6 +168,21 @@ class Expression:
         from spark_rapids_tpu_torch.expr.strings import Substring
         return Substring(self, pos, length)
 
+    # complex-type sugar (Spark's Column.getItem/getField)
+    def get_item(self, key):
+        from spark_rapids_tpu_torch.expr import complex as CX
+        if isinstance(key, str):
+            return CX.GetMapValue(self, _wrap(key))
+        return CX.GetArrayItem(self, _wrap(key))
+
+    getItem = get_item
+
+    def get_field(self, name: str):
+        from spark_rapids_tpu_torch.expr import complex as CX
+        return CX.GetStructField(self, name)
+
+    getField = get_field
+
     # sort-order sugar (Spark's Column.asc/desc family)
     def _order(self, ascending, nulls_first=None):
         from spark_rapids_tpu_torch.plan.nodes import SortOrder

@@ -2,9 +2,8 @@
 ``spark_rapids_tpu/expr/misc.py``; reference parity: GpuRandomExpressions,
 GpuParseUrl (JNI ParseURI), RaiseError, HashFunctions' hive hash, jni
 Hash): ``Rand``, ``XxHash64``, ``HiveHash`` and ``Crc32`` on the device;
-``ParseUrl`` and ``RaiseError`` as CPU row functions
-(``MISC_CPU_FUNCTIONS``). ``Sequence`` waits for the array operations
-(ROADMAP A9c).
+``Sequence``, ``ParseUrl`` and ``RaiseError`` as CPU row functions
+(``MISC_CPU_FUNCTIONS``).
 """
 from __future__ import annotations
 
@@ -99,8 +98,9 @@ class XxHash64(Expression):
     and a null field passes the running seed through. Floats hash their
     bits with -0.0 as 0.0 and one NaN. String and nested columns run on
     the CPU (the tag of ``plan/overrides.py``), where a string hashes its
-    UTF-8 bytes with XXH64 as Spark does (``xxhash64_bytes``; the JAX
-    package's CPU evaluation raises there, ROADMAP C5)."""
+    UTF-8 bytes with XXH64 and a nested value chains its elements or
+    fields, as Spark does (``xxhash64_bytes``, ``_xx_value``; the JAX
+    package's CPU evaluation raises on both, ROADMAP C5)."""
 
     def __init__(self, children):
         self.children = list(children)
@@ -112,7 +112,8 @@ class XxHash64(Expression):
         return XxHash64(children)
 
     def supported_on_tpu(self):
-        return not any(isinstance(c.data_type(), (T.StringType, T.ArrayType))
+        return not any(isinstance(c.data_type(), (T.StringType, T.ArrayType,
+                                                  T.MapType, T.StructType))
                        for c in self.children)
 
     @staticmethod
@@ -154,7 +155,11 @@ class XxHash64(Expression):
         n = len(ins[0].values) if ins else 0
         h = np.full(n, 42, np.int64)
         for c in ins:
-            if isinstance(c.dtype, T.StringType):
+            if isinstance(c.dtype, (T.ArrayType, T.StructType, T.MapType)):
+                h2 = np.array([_xx_value(v, c.dtype, int(s)) if ok else s
+                               for v, s, ok in zip(c.values, h, c.valid)],
+                              np.int64).reshape(n)
+            elif isinstance(c.dtype, T.StringType):
                 h2 = np.array([xxhash64_bytes(str(v).encode(), int(s))
                                if ok else s
                                for v, s, ok in zip(c.values, h, c.valid)],
@@ -172,6 +177,41 @@ class XxHash64(Expression):
                       else K.xxhash64_int64(v, seed))[:n].numpy()
             h = np.where(c.valid, h2, h)
         return CpuCol(T.INT64, h, np.ones(n, np.bool_))
+
+
+def _xx_value(v, dt: T.DataType, seed: int) -> int:
+    """Spark's xxhash64 of one value of the CPU representation, seeded:
+    a null keeps the seed, an array or map chains its elements (a map
+    each key then its value), a struct its fields, in order."""
+    import struct
+    if v is None:
+        return seed
+    if isinstance(dt, T.ArrayType):
+        for x in v:
+            seed = _xx_value(x, dt.element, seed)
+        return seed
+    if isinstance(dt, T.MapType):
+        for k, x in v:
+            seed = _xx_value(x, dt.value, _xx_value(k, dt.key, seed))
+        return seed
+    if isinstance(dt, T.StructType):
+        for f in dt.fields:
+            seed = _xx_value(v.get(f.name), f.dtype, seed)
+        return seed
+    if isinstance(dt, T.StringType):
+        return xxhash64_bytes(v.encode(), seed)
+    if isinstance(dt, T.Float32Type):
+        v = float("nan") if v != v else (0.0 if v == 0 else v)
+        return xxhash64_bytes(struct.pack("<f", v), seed)
+    if isinstance(dt, T.Float64Type):
+        v = float("nan") if v != v else (0.0 if v == 0 else v)
+        return xxhash64_bytes(struct.pack("<d", v), seed)
+    from spark_rapids_tpu_torch.expr.complex import _np_scalar
+    v = int(_np_scalar(v, dt))
+    if isinstance(dt, (T.BooleanType, T.Int8Type, T.Int16Type,
+                       T.Int32Type, T.DateType)):
+        return xxhash64_bytes((v & 0xFFFFFFFF).to_bytes(4, "little"), seed)
+    return xxhash64_bytes((v & _M64).to_bytes(8, "little"), seed)
 
 
 def xxhash64_bytes(data: bytes, seed: int) -> int:
@@ -217,6 +257,48 @@ def xxhash64_bytes(data: bytes, seed: int) -> int:
     h = (h ^ (h >> 33)) * p2 & m
     h = (h ^ (h >> 29)) * p3 & m
     return _signed64(h ^ (h >> 32))
+
+
+class Sequence(CpuRowFunction):
+    """sequence(start, stop[, step]) -> array<long>, on the host (the
+    output's length depends on the data)."""
+
+    name = "sequence"
+
+    def __init__(self, *children, params=()):
+        super().__init__(*children, params=params)
+        self.result = T.ArrayType(T.INT64, contains_null=False)
+
+    def row_fn(self, *vals):
+        if len(vals) == 3:
+            start, stop, step = int(vals[0]), int(vals[1]), int(vals[2])
+        else:
+            start, stop = int(vals[0]), int(vals[1])
+            step = 1 if stop >= start else -1
+        if step == 0:
+            raise SparkException("sequence step must not be zero")
+        if (stop - start) * step < 0:
+            return []
+        n = (stop - start) // step + 1
+        if n > 10_000_000:
+            raise SparkException("sequence too long")
+        return list(range(start, start + n * step, step))
+
+    def eval_cpu(self, cols, ansi=False):
+        ins = [c.eval_cpu(cols, ansi) for c in self.children]
+        n = len(ins[0].values)
+        out, ok = [], []
+        for i in range(n):
+            if all(c.valid[i] for c in ins):
+                out.append(self.row_fn(*(c.values[i] for c in ins)))
+                ok.append(True)
+            else:
+                out.append(None)
+                ok.append(False)
+        vals = np.empty(n, object)
+        for i, r in enumerate(out):  # rows of one length stay lists
+            vals[i] = r
+        return CpuCol(self.result, vals, np.asarray(ok, np.bool_))
 
 
 class ParseUrl(CpuRowFunction):
@@ -275,7 +357,7 @@ class RaiseError(CpuRowFunction):
         raise SparkException(str(msg))
 
 
-MISC_CPU_FUNCTIONS = [ParseUrl, RaiseError]
+MISC_CPU_FUNCTIONS = [Sequence, ParseUrl, RaiseError]
 
 
 def _to_int32(h: torch.Tensor) -> torch.Tensor:

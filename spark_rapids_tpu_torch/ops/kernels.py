@@ -421,6 +421,10 @@ def gather_column(col: ColumnVector, indices: torch.Tensor, src_rows,
     else:
         src_valid = col.validity_or_default(src_rows)
     valid = src_valid[safe] & ~oob
+    if isinstance(col.dtype, T.StructType):
+        kids = [gather_column(ch, indices, src_rows, src_live=src_live)
+                for ch in col.data["children"]]
+        return ColumnVector(col.dtype, {"children": kids}, valid)
     if col.is_nested:
         return _gather_list_like(col, safe, valid)
     if col.is_string and not col.is_dict:
@@ -436,29 +440,38 @@ def gather_column(col: ColumnVector, indices: torch.Tensor, src_rows,
     return ColumnVector(col.dtype, col.data[safe], valid, bounds=col.bounds)
 
 
+def element_planes(col: ColumnVector) -> List[str]:
+    """The element children of an array ("child") or a map ("keys",
+    "values") column."""
+    return ["child"] if "child" in col.data else ["keys", "values"]
+
+
 def _gather_list_like(col: ColumnVector, safe: torch.Tensor,
                       valid: torch.Tensor) -> ColumnVector:
-    """Gather an array column: offsets rebuilt from the gathered rows'
-    lengths (a null row gets an empty slice), then each output element
-    mapped back to its source element and the child gathered. The
-    child's capacity is kept: permuting gathers (sort, filter compaction,
-    limit) never grow the element count, as in the JAX package."""
+    """Gather an array or map column: offsets rebuilt from the gathered
+    rows' lengths (a null row gets an empty slice), then each output
+    element mapped back to its source element and the child planes
+    gathered. The child capacity is kept: permuting gathers (sort, filter
+    compaction, limit, an explode's pass-through) never grow the element
+    count, as in the JAX package; a row-duplicating gather of a list-like
+    column is tagged off the device instead."""
     off = col.data["offsets"].to(torch.int64)
     out_cap = safe.shape[0]
     lens = torch.where(valid, (off[1:] - off[:-1])[safe], 0)
     new_off = torch.cat([torch.zeros(1, dtype=torch.int64,
                                      device=off.device), lens.cumsum(0)])
-    child = col.data["child"]
-    child_cap = child.capacity
+    names = element_planes(col)
+    child_cap = col.data[names[0]].capacity
     e = torch.arange(child_cap, dtype=torch.int64, device=off.device)
     orow = (torch.searchsorted(new_off, e, right=True) - 1).clamp(
         0, out_cap - 1)
     src_e = off[safe[orow]] + (e - new_off[orow])
     child_idx = torch.where(e < new_off[-1], src_e.clamp(0, child_cap - 1),
                             -1)
-    return ColumnVector(col.dtype, {
-        "offsets": new_off.to(torch.int32),
-        "child": gather_column(child, child_idx, child_cap)}, valid)
+    data = {"offsets": new_off.to(torch.int32)}
+    for nm in names:
+        data[nm] = gather_column(col.data[nm], child_idx, child_cap)
+    return ColumnVector(col.dtype, data, valid)
 
 
 def flat_string_as_dict(col: ColumnVector) -> ColumnVector:
@@ -632,8 +645,8 @@ def _concat_flat_strings(cols, rows, cap, validity) -> ColumnVector:
 
 
 def _concat_arrays(cols, rows, cap, validity) -> ColumnVector:
-    """Row-prefix concat of array columns: one host read of each part's
-    element count sizes the child, whose planes concatenate
+    """Row-prefix concat of array or map columns: one host read of each
+    part's element count sizes the children, whose planes concatenate
     recursively."""
     device = cols[0].device
     elem = [int(c.data["offsets"][r].item()) for c, r in zip(cols, rows)]
@@ -644,10 +657,11 @@ def _concat_arrays(cols, rows, cap, validity) -> ColumnVector:
     offsets = torch.cat(parts)
     offsets = torch.cat([offsets, offsets[-1:].expand(cap + 1 -
                                                       offsets.shape[0])])
-    child = _concat_columns([c.data["child"] for c in cols], elem,
-                            round_capacity(max(base, 1)))
-    return ColumnVector(cols[0].dtype, {"offsets": offsets.to(torch.int32),
-                                        "child": child}, validity)
+    data = {"offsets": offsets.to(torch.int32)}
+    for nm in element_planes(cols[0]):
+        data[nm] = _concat_columns([c.data[nm] for c in cols], elem,
+                                   round_capacity(max(base, 1)))
+    return ColumnVector(cols[0].dtype, data, validity)
 
 
 def _concat_columns(cols: List[ColumnVector], rows: List[int],
@@ -668,6 +682,11 @@ def _concat_columns(cols: List[ColumnVector], rows: List[int],
     if any(c.validity is not None for c in cols):
         validity = cat([c.validity_or_default(r)[:r]
                         for c, r in zip(cols, rows)], torch.bool)
+    if isinstance(dtype, T.StructType):
+        kids = [_concat_columns([c.data["children"][k] for c in cols],
+                                rows, cap)
+                for k in range(len(dtype.fields))]
+        return ColumnVector(dtype, {"children": kids}, validity)
     if cols[0].is_nested:
         return _concat_arrays(cols, rows, cap, validity)
     bounds = _union_bounds(cols)

@@ -15,6 +15,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import (
     ColumnVector, ColumnarBatch, LazyRowCount, round_capacity,
 )
@@ -55,6 +56,15 @@ def _slice_column(c: ColumnVector, start: int, n: int,
         return part
 
     validity = None if c.validity is None else cut(c.validity, torch.bool)
+    if isinstance(c.dtype, T.StructType):
+        return ColumnVector(c.dtype, {"children": [
+            _slice_column(k, start, n, cap) for k in c.data["children"]]},
+            validity)
+    if c.is_nested:
+        # offsets + element planes: a row gather rebuilds the offsets
+        pos = torch.arange(cap, dtype=torch.int64, device=c.device)
+        return K.gather_column(c, torch.where(pos < n, pos + start, -1),
+                               start + n)
     if c.is_dict:
         data = {"codes": cut(c.data["codes"], torch.int32),
                 "dict_offsets": c.data["dict_offsets"],

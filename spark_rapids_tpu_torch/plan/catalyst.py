@@ -24,7 +24,7 @@ Format facts (TreeNode.scala jsonValue):
 An unsupported class raises SparkException naming it, in the JAX
 package's words. Where the port lacks what the JAX package maps, it raises
 as well: a decimal above 18 digits (DECIMAL64) and the untyped null
-(ROADMAP A9).
+(ROADMAP A9d).
 """
 from __future__ import annotations
 
@@ -116,7 +116,7 @@ def _dtype(s) -> T.DataType:
         if s == "null":
             raise SparkException(
                 "catalyst plan: dataType 'null' needs NullType, which this "
-                "engine does not have yet (ROADMAP A9)")
+                "engine does not have yet (ROADMAP A9d)")
     raise SparkException(f"catalyst plan: unsupported dataType {s!r}")
 
 

@@ -38,8 +38,8 @@ Aggregates: {"fn": "sum|count|min|max|avg|...", "child": <expr>?,
 string, date, timestamp, decimal(p,s) (p at most 18: DECIMAL64), array<T>.
 
 Where the JAX package reads more than this engine runs, ingestion raises
-at once, naming the ROADMAP item: a text scan (A7), a generate node and a
-function of ``functions.NOT_PORTED`` (A9).
+at once, naming the ROADMAP item: a text scan (A7) and a function of
+``functions.NOT_PORTED`` (A9d).
 """
 from __future__ import annotations
 
@@ -79,7 +79,7 @@ def function(name: str, where: str):
     fn = getattr(F, name, None)
     if fn is None and name in F.NOT_PORTED:
         raise SparkException(f"{where}: function {name!r} is not ported to "
-                             f"this engine yet (ROADMAP A9)")
+                             f"this engine yet (ROADMAP A9d)")
     return fn
 
 
@@ -176,10 +176,17 @@ def parse_node(d) -> P.PlanNode:
     if node == "union":
         return P.Union([parse_node(c) for c in d["children"]])
     if node == "generate":
-        raise SparkException(
-            f"plan ingestion: generate ({d.get('generator')}) needs the "
-            f"Generate operator of ROADMAP A9, which this engine does not "
-            f"have yet")
+        from spark_rapids_tpu_torch.expr import complex as CX
+        gens = {"explode": CX.Explode, "explode_outer": CX.ExplodeOuter,
+                "posexplode": CX.PosExplode,
+                "posexplode_outer": CX.PosExplodeOuter}
+        if d["generator"] not in gens:
+            raise SparkException(
+                f"plan ingestion: unknown generator {d['generator']!r}")
+        child = parse_node(d["child"])
+        gen = gens[d["generator"]](
+            P.bind_expr(parse_expr(d["input"]), child.schema))
+        return P.Generate(gen, [], child)
     raise SparkException(f"plan ingestion: unknown node {node!r}")
 
 

@@ -4,7 +4,7 @@ Counterpart of ``spark_rapids_tpu/plan/nodes.py`` for the nodes this
 engine runs: ``InMemorySource``, ``ParquetScan``, ``Range``, ``CachedRelation`` (the
 ``df.cache()`` marker), ``Project``, ``Filter``, ``Aggregate``,
 ``Repartition``, ``Sort`` (with ``SortOrder``), ``Limit``, ``Join``,
-``WindowNode``, ``Union`` and ``Expand``. ``describe()`` is a node's line
+``WindowNode``, ``Union``, ``Expand`` and ``Generate``. ``describe()`` is a node's line
 in the placement report (``plan/overrides.py`` ``explain``), in the JAX
 package's words.
 """
@@ -432,3 +432,42 @@ class Expand(PlanNode):
 
     def describe(self):
         return f"Expand[{len(self.projections)} projections]"
+
+
+class Generate(PlanNode):
+    """One output row per element of a generator over each input row
+    (explode and posexplode, plain and outer). The output schema is the
+    required child columns followed by the generated ones."""
+
+    def __init__(self, generator, gen_names: List[str], child: PlanNode,
+                 required: Optional[List[int]] = None):
+        from spark_rapids_tpu_torch.expr.complex import Explode
+        self.children = [child]
+        assert isinstance(generator, Explode), type(generator)
+        gen = type(generator)(bind_expr(generator.children[0], child.schema))
+        self.generator = gen
+        dt = gen.children[0].data_type()
+        if not isinstance(dt, (T.ArrayType, T.MapType)):
+            raise SparkException(
+                f"explode() requires an array or map input, got {dt!r}")
+        fields = gen.output_fields()
+        if gen_names:
+            assert len(gen_names) == len(fields), \
+                f"generator yields {len(fields)} columns, got names {gen_names}"
+            fields = [(n, t) for n, (_, t) in zip(gen_names, fields)]
+        self.gen_fields = fields
+        #: the child columns carried through (Spark's requiredChildOutput),
+        #: all by default; the operator duplicates each of them per element
+        n_child = len(child.schema.fields)
+        self.required = list(range(n_child)) if required is None \
+            else list(required)
+
+    @property
+    def schema(self):
+        base = [self.children[0].schema.fields[i] for i in self.required]
+        gen = [T.StructField(n, t) for n, t in self.gen_fields]
+        return T.Schema(tuple(base + gen))
+
+    def describe(self):
+        kind = type(self.generator).__name__
+        return f"Generate[{kind}({self.generator.children[0]!r})]"

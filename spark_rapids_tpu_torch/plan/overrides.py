@@ -19,8 +19,9 @@ error (``_assert_on_tpu``). The tags decide at plan time and nothing else
 does: no device operator falls back when it fails.
 
 The device operators: in-memory, Parquet and cached scans, ranges,
-unions, expands (stacked or one projection per batch, as the JAX
-package's stage fusion would run them: ``mark_expand_forms``), projections
+unions, generates (explode and posexplode, plain and outer), expands
+(stacked or one projection per batch, as the JAX package's stage fusion
+would run them: ``mark_expand_forms``), projections
 and filters (a filter that reads the partition context, such as
 ``sample``'s ``rand``, over its input collected into one partition), hash
 and round-robin repartition, the hash aggregate with its tiny-bucket,
@@ -47,6 +48,8 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.exec import adaptive as AQ
 from spark_rapids_tpu_torch.exec import nodes as X
 from spark_rapids_tpu_torch.expr import aggregates as A
+from spark_rapids_tpu_torch.expr import array_ops as AO
+from spark_rapids_tpu_torch.expr import complex as CX
 from spark_rapids_tpu_torch.expr import core as E
 from spark_rapids_tpu_torch.expr import cpu_functions as CF
 from spark_rapids_tpu_torch.expr import datetime as DT
@@ -332,6 +335,79 @@ expr_rule(CF.RegexpExtractAll, _NESTED_OK, _NESTED_OK, "regexp_extract_all",
           extra=_cpu_tier("regexp_extract_all runs on CPU"))
 
 
+# complex types (complexTypeExtractors / complexTypeCreator /
+# collectionOperations, and the generator markers)
+
+def _primitive_elements_only(what: str):
+    def check(e: E.Expression) -> Optional[str]:
+        dt = e.children[0].data_type()
+        inner = dt.element if isinstance(dt, T.ArrayType) else dt.key
+        if isinstance(inner, (T.ArrayType, T.StructType, T.MapType)):
+            return f"{what} over nested element types runs on CPU"
+        return None
+    return check
+
+
+def _create_array_check(e: E.Expression) -> Optional[str]:
+    if isinstance(e.data_type().element, (T.StringType, T.ArrayType,
+                                          T.StructType, T.MapType)):
+        return "array() of non-fixed-width elements runs on CPU"
+    return None
+
+
+expr_rule(CX.Size, _NESTED_OK, Sigs.COMMON, "size(array|map)")
+expr_rule(CX.GetArrayItem, _NESTED_OK, _NESTED_OK, "array[ordinal]")
+expr_rule(CX.ElementAt, _NESTED_OK, _NESTED_OK, "element_at(array|map, k)",
+          extra=lambda e: (_primitive_elements_only("map key lookup")(e)
+                           if isinstance(e.children[0].data_type(), T.MapType)
+                           else None))
+expr_rule(CX.GetMapValue, _NESTED_OK, _NESTED_OK, "map[key]",
+          extra=_primitive_elements_only("map key lookup"))
+expr_rule(CX.GetStructField, _NESTED_OK, _NESTED_OK, "struct field access")
+expr_rule(CX.ArrayContains, _NESTED_OK, Sigs.COMMON, "array_contains",
+          extra=_primitive_elements_only("array_contains"))
+expr_rule(CX.CreateArray, Sigs.COMMON, _NESTED_OK, "array(...)",
+          extra=_create_array_check)
+expr_rule(CX.MapKeys, _NESTED_OK, _NESTED_OK, "map_keys")
+expr_rule(CX.MapValues, _NESTED_OK, _NESTED_OK, "map_values")
+expr_rule(CX.Stack, Sigs.COMMON, Sigs.COMMON,
+          "stack(n, ...) (lowered to a union of projections)")
+
+
+def _device_only_if_supported(what: str):
+    return lambda e: None if e.supported_on_tpu() \
+        else f"{what} over string/nested elements runs on CPU"
+
+
+# array collection operations (array_ops.py)
+expr_rule(AO.ArrayMin, _NESTED_OK, Sigs.COMMON, "array_min",
+          extra=_device_only_if_supported("array_min"))
+expr_rule(AO.ArrayMax, _NESTED_OK, Sigs.COMMON, "array_max",
+          extra=_device_only_if_supported("array_max"))
+expr_rule(AO.ArrayPosition, _NESTED_OK, Sigs.COMMON, "array_position")
+expr_rule(AO.ArrayRemove, _NESTED_OK, _NESTED_OK, "array_remove")
+expr_rule(AO.Slice, _NESTED_OK, _NESTED_OK, "slice")
+expr_rule(AO.SortArray, _NESTED_OK, _NESTED_OK, "sort_array",
+          extra=_device_only_if_supported("sort_array"))
+expr_rule(AO.Flatten, _NESTED_OK, _NESTED_OK, "flatten")
+expr_rule(AO.ArrayDistinct, _NESTED_OK, _NESTED_OK,
+          "array_distinct (string elements dedup by 64-bit hash)")
+expr_rule(AO.ArrayUnion, _NESTED_OK, _NESTED_OK, "array_union")
+expr_rule(AO.ArrayIntersect, _NESTED_OK, _NESTED_OK, "array_intersect")
+expr_rule(AO.ArrayExcept, _NESTED_OK, _NESTED_OK, "array_except")
+expr_rule(AO.ArraysOverlap, _NESTED_OK, Sigs.COMMON, "arrays_overlap")
+expr_rule(AO.MapEntries, _NESTED_OK, _NESTED_OK, "map_entries")
+for _cls, _doc in ((AO.ArrayRepeat, "array_repeat"),
+                   (AO.ArraysZip, "arrays_zip"), (AO.MapConcat, "map_concat"),
+                   (AO.MapFromArrays, "map_from_arrays")):
+    expr_rule(_cls, _NESTED_OK, _NESTED_OK, _doc,
+              extra=_cpu_tier(f"{_doc} runs on CPU"))
+expr_rule(AO.ArrayJoin, _NESTED_OK, Sigs.COMMON, "array_join",
+          extra=_cpu_tier("array_join runs on CPU"))
+expr_rule(AO.StrToMap, Sigs.COMMON, _NESTED_OK, "str_to_map",
+          extra=_cpu_tier("str_to_map runs on CPU"))
+
+
 AGG_RULES: Dict[Type, ExprRule] = {}
 
 
@@ -348,7 +424,9 @@ def _no_string_input(fn) -> Optional[str]:
 
 def _primitive_input_only(what: str):
     def check(fn) -> Optional[str]:
-        if any(isinstance(c.data_type(), T.ArrayType) for c in fn.children):
+        if any(isinstance(c.data_type(), (T.ArrayType, T.StructType,
+                                          T.MapType))
+               for c in fn.children):
             return f"{what} over nested inputs runs on CPU"
         return None
     return check
@@ -546,8 +624,8 @@ def localize_plan(plan: P.PlanNode, conf) -> P.PlanNode:
                     [fix(e) for e in w.spec.partition_exprs],
                     fix_orders(w.spec.order_specs), w.spec.frame))
                 for w in n.window_exprs]
-        # the JAX package's walk also rewrites a Generate's generator;
-        # Generate is not ported (ROADMAP A9, complex.py)
+        elif isinstance(n, P.Generate):
+            q.generator = fix(n.generator)
         done[id(n)] = q
         return q
 
@@ -626,6 +704,17 @@ def tag_agg(fn: A.AggFunction, conf, reasons: List[str], where: str) -> None:
 # Plan metas
 # ---------------------------------------------------------------------------
 
+_NESTED_TYPES = (T.ArrayType, T.StructType, T.MapType)
+
+
+def _has_list_like(dt: T.DataType) -> bool:
+    if isinstance(dt, (T.ArrayType, T.MapType)):
+        return True
+    if isinstance(dt, T.StructType):
+        return any(_has_list_like(f.dtype) for f in dt.fields)
+    return False
+
+
 class SparkPlanMeta:
     """A plan node with its tagging and conversion (reference RapidsMeta /
     SparkPlanMeta)."""
@@ -649,11 +738,12 @@ class SparkPlanMeta:
         self._tag_schema()
         self._tag_node()
 
-    #: nodes whose output may hold array columns (the JAX package's list,
-    #: for the port's nodes)
-    NESTED_SCHEMA_NODES = (P.Project, P.Filter, P.InMemorySource,
-                           P.ParquetScan, P.Limit, P.Union, P.Sort,
-                           P.CachedRelation, P.Aggregate)
+    #: nodes whose device paths carry nested columns (masks, gathers and
+    #: concatenation, no key normalization; the JAX package's list, for
+    #: the port's nodes)
+    NESTED_SCHEMA_NODES = (P.Project, P.Filter, P.Generate,
+                           P.InMemorySource, P.ParquetScan, P.Limit,
+                           P.Union, P.Sort, P.CachedRelation, P.Aggregate)
 
     def _tag_schema(self) -> None:
         sig = Sigs.COMMON.nested() \
@@ -676,12 +766,21 @@ class SparkPlanMeta:
         elif isinstance(p, P.Aggregate):
             for e in p.group_exprs:
                 tag_expression(e, conf, reasons, name)
+                if isinstance(e.data_type(), _NESTED_TYPES):
+                    reasons.append(
+                        f"{name}: grouping by nested type "
+                        f"{e.data_type()!r} has no device key normalization")
             for a in p.aggs:
                 tag_agg(a.fn, conf, reasons, name)
         elif isinstance(p, P.Sort):
             # string ORDER BY runs on the device by exact chunk keys
             for o in p.orders:
                 tag_expression(o.expr, conf, reasons, name)
+                odt = o.expr.data_type()
+                if isinstance(odt, _NESTED_TYPES):
+                    reasons.append(
+                        f"{name}: ORDER BY on nested type {odt!r} has no "
+                        f"device key normalization (runs on CPU)")
         elif isinstance(p, P.Join):
             for e in p.left_keys + p.right_keys:
                 tag_expression(e, conf, reasons, name)
@@ -701,6 +800,19 @@ class SparkPlanMeta:
             for proj in p.projections:
                 for e in proj:
                     tag_expression(e, conf, reasons, name)
+        elif isinstance(p, P.Generate):
+            tag_expression(p.generator.children[0], conf, reasons, name)
+            # the operator duplicates the required child columns; a
+            # duplicating gather of a list-like column would overflow its
+            # element planes (kernels._gather_list_like keeps their
+            # capacity), so such a Generate runs on the CPU. Structs of
+            # primitives duplicate fine (row planes only).
+            for i in p.required:
+                f = p.children[0].schema.fields[i]
+                if _has_list_like(f.dtype):
+                    reasons.append(
+                        f"{name}: carrying array/map column {f.name} through "
+                        f"explode needs a sized nested gather (runs on CPU)")
         elif isinstance(p, P.WindowNode):
             self._tag_window(p, name)
 
@@ -863,6 +975,8 @@ def _convert_node(plan: P.PlanNode, children, conf, device) -> X.TorchExec:
         return X.UnionExec(plan, children, conf, device)
     if isinstance(plan, P.Expand):
         return X.ExpandExec(plan, children, conf, device)
+    if isinstance(plan, P.Generate):
+        return X.GenerateExec(plan, children, conf, device)
     if isinstance(plan, P.Repartition):
         if not plan.keys:
             return X.RoundRobinExchangeExec(plan, children, conf, device,

@@ -1,7 +1,8 @@
 """DataFrame API over the plan nodes (counterpart of
 ``spark_rapids_tpu/sql/dataframe.py``): ``select`` (which hoists window
-expressions into ``WindowNode``s), ``with_column``, ``with_column_renamed``,
-``drop``, ``filter``, ``group_by(...).agg(...)`` with
+expressions into ``WindowNode``s, lowers ``explode`` and its kin onto a
+``Generate`` and ``stack`` onto an ``Expand``), ``with_column``,
+``with_column_renamed``, ``drop``, ``filter``, ``group_by(...).agg(...)`` with
 ``count`` and ``pivot``, ``rollup``, ``cube`` and ``grouping_sets`` (the
 Expand lowering), ``agg``, ``order_by`` (``orderBy``, ``sort``), ``limit``,
 ``join``, ``union`` (``unionAll``), ``intersect``, ``subtract``,
@@ -25,6 +26,7 @@ import pyarrow as pa
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.expr import aggregates as A
+from spark_rapids_tpu_torch.expr import complex as CX
 from spark_rapids_tpu_torch.expr import core as E
 from spark_rapids_tpu_torch.expr import window as WE
 from spark_rapids_tpu_torch.expr.aggregates import (
@@ -46,6 +48,27 @@ def _default_agg_name(a: AggFunction, i: int) -> str:
     if a.children and isinstance(a.children[0], E.Col):
         return f"{base}({a.children[0].name})"
     return f"{base}_{i}"
+
+
+def _is_marker(e: E.Expression, cls) -> bool:
+    """A select item that is the generator ``cls``, bare or aliased."""
+    return isinstance(e, cls) or (isinstance(e, E.Alias)
+                                  and isinstance(e.children[0], cls))
+
+
+def _plain(e: E.Expression) -> bool:
+    """No window, explode or stack marker anywhere in e."""
+    if isinstance(e, (WE.WindowExpr, CX.Explode, CX.Stack)):
+        return False
+    return all(_plain(c) for c in e.children)
+
+
+def _col_refs(e: E.Expression) -> set:
+    """The column names an expression reads."""
+    out = {e.name} if isinstance(e, E.Col) else set()
+    for c in e.children:
+        out |= _col_refs(c)
+    return out
 
 
 _JOIN_ALIASES = {"leftsemi": "left_semi", "semi": "left_semi",
@@ -110,8 +133,78 @@ class DataFrame:
         return new_exprs, plan
 
     def select(self, *exprs) -> "DataFrame":
-        es, plan = self._extract_windows([_e(x) for x in exprs])
+        es = [_e(x) for x in exprs]
+        stacks = [(i, e) for i, e in enumerate(es) if _is_marker(e, CX.Stack)]
+        if stacks:
+            return self._select_stack(es, stacks)
+        gens = [(i, e) for i, e in enumerate(es) if _is_marker(e, CX.Explode)]
+        if gens:
+            return self._select_generate(es, gens)
+        es, plan = self._extract_windows(es)
         return DataFrame(P.Project(es, plan), self.session)
+
+    def _select_stack(self, es, stacks) -> "DataFrame":
+        """stack(n, ...) as one Expand of its n row projections when the
+        other items are plain, else a union of one select per row."""
+        if len(stacks) > 1:
+            raise E.SparkException(
+                "only one generator allowed per select clause")
+        i, se = stacks[0]
+        alias = se.name if isinstance(se, E.Alias) else None
+        raw = se.children[0] if isinstance(se, E.Alias) else se
+        st = CX.Stack(raw.n, *[P.bind_expr(c, self.plan.schema)
+                               for c in raw.children])
+        names = [n for n, _ in st.output_fields()]
+        if alias is not None:
+            if len(names) != 1:
+                raise E.SparkException(
+                    "stack() alias needs a single output column, "
+                    f"got {len(names)}")
+            names = [alias]
+        rest = es[:i] + es[i + 1:]
+        if all(_plain(e) for e in rest):
+            out_names = ([P.expr_name(e, j) for j, e in enumerate(es[:i])]
+                         + names
+                         + [P.expr_name(e, i + 1 + j)
+                            for j, e in enumerate(es[i + 1:])])
+            projections = [es[:i] + row + es[i + 1:]
+                           for row in st.row_exprs()]
+            return DataFrame(P.Expand(projections, out_names, self.plan),
+                             self.session)
+        # other items carry window or explode markers that need their own
+        # lowering: one select per stack row, of the stack's unbound
+        # values (each select binds them against the node it builds)
+        vals = raw.children
+        rows = [[vals[r * st.ncols + j] if r * st.ncols + j < len(vals)
+                 else pad for j, pad in enumerate(row)]
+                for r, row in enumerate(st.row_exprs())]
+        out = None
+        for row in rows:
+            part = self.select(*(es[:i] + [E.Alias(c, n)
+                                           for c, n in zip(row, names)]
+                                 + es[i + 1:]))
+            out = part if out is None else out.union(part)
+        return out
+
+    def _select_generate(self, es, gens) -> "DataFrame":
+        """An explode-family item as a Generate below the projection,
+        carrying only the child columns the projection reads."""
+        if len(gens) > 1:
+            raise E.SparkException(
+                "only one generator allowed per select clause")
+        i, ge = gens[0]
+        alias = ge.name if isinstance(ge, E.Alias) else None
+        gen = ge.children[0] if isinstance(ge, E.Alias) else ge
+        gen = type(gen)(P.bind_expr(gen.children[0], self.plan.schema))
+        names = [n for n, _ in gen.output_fields(alias)]
+        new_exprs = es[:i] + [E.col(n) for n in names] + es[i + 1:]
+        refs = set()
+        for e in new_exprs:
+            refs |= {r.lower() for r in _col_refs(e)}
+        required = [j for j, f in enumerate(self.plan.schema.fields)
+                    if f.name.lower() in refs]
+        gplan = P.Generate(gen, names, self.plan, required=required)
+        return DataFrame(P.Project(new_exprs, gplan), self.session)
 
     def with_column(self, name: str, expr) -> "DataFrame":
         keep = [E.col(n) for n in self.plan.schema.names

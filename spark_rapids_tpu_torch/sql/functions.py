@@ -39,10 +39,22 @@ and of ``expr/cpu_functions.py`` (``date_format``, ``to_date``,
 ``from_unixtime``, on the CPU); and the window functions
 ``row_number``, ``rank``, ``dense_rank``, ``ntile``, ``percent_rank``,
 ``cume_dist``, ``nth_value``, ``first_value``, ``last_value``, ``lead`` and
-``lag`` (``expr/window.py``; an aggregate's ``over`` makes the others)."""
+``lag`` (``expr/window.py``; an aggregate's ``over`` makes the others);
+the nested types: the generators ``explode``, ``explode_outer``,
+``posexplode``, ``posexplode_outer`` and ``stack`` (``select`` lowers
+them), ``size``, ``element_at``, ``array``, ``array_contains``,
+``map_keys``, ``map_values`` (``expr/complex.py``), the collection
+functions of ``expr/array_ops.py`` (``array_min``/``array_max``,
+``array_position``, ``array_remove``, ``slice``, ``sort_array``,
+``flatten``, ``array_distinct``, ``array_union``/``array_intersect``/
+``array_except``, ``arrays_overlap``, ``map_entries``, and on the CPU
+``array_repeat``, ``array_join``, ``arrays_zip``, ``map_concat``,
+``map_from_arrays``, ``str_to_map``) and ``sequence`` (on the CPU)."""
 from __future__ import annotations
 
 from spark_rapids_tpu_torch.expr import aggregates as A
+from spark_rapids_tpu_torch.expr import array_ops as AO
+from spark_rapids_tpu_torch.expr import complex as CX
 from spark_rapids_tpu_torch.expr import core as E
 from spark_rapids_tpu_torch.expr import cpu_functions as CF
 from spark_rapids_tpu_torch.expr import datetime as DT
@@ -53,21 +65,14 @@ from spark_rapids_tpu_torch.expr import window as W
 from spark_rapids_tpu_torch.expr.core import Expression, col, lit
 
 
-#: the JAX package's functions this module does not have yet: the nested
-#: types, generators, lambdas and JSON (ROADMAP A9c and A9d). The SQL
-#: front door and the plan ingestion raise naming A9 where a query calls
-#: one of them, rather than calling it an unknown function.
+#: the JAX package's functions this module does not have yet: the lambdas
+#: and JSON (ROADMAP A9d). The SQL front door and the plan ingestion raise
+#: naming A9d where a query calls one of them, rather than calling it an
+#: unknown function.
 NOT_PORTED = (
-    "aggregate", "array", "array_contains", "array_distinct", "array_except",
-    "array_intersect", "array_join", "array_max", "array_min",
-    "array_position", "array_remove", "array_repeat", "array_union",
-    "arrays_overlap", "arrays_zip", "element_at", "exists", "explode",
-    "explode_outer", "filter", "flatten", "forall", "from_json",
-    "get_json_object", "json_tuple", "map_concat", "map_entries",
-    "map_filter", "map_from_arrays", "map_keys", "map_values", "posexplode",
-    "posexplode_outer", "reduce", "sequence", "size", "slice", "sort_array",
-    "stack", "str_to_map", "to_json", "transform", "transform_keys",
-    "transform_values", "zip_with",
+    "aggregate", "exists", "filter", "forall", "from_json",
+    "get_json_object", "json_tuple", "map_filter", "reduce", "to_json",
+    "transform", "transform_keys", "transform_values", "zip_with",
 )
 
 
@@ -757,3 +762,136 @@ def lead(c, offset: int = 1, default=None):
 
 def lag(c, offset: int = 1, default=None):
     return W.Lag(_e(c), offset, default)
+
+
+# ---------------------------------------------------------------------------
+# Nested types: generators, complex-type accessors and collections
+# ---------------------------------------------------------------------------
+
+def _lit_or_e(v):
+    return v if isinstance(v, Expression) else lit(v)
+
+
+def explode(c):
+    return CX.Explode(_e(c))
+
+
+def explode_outer(c):
+    return CX.ExplodeOuter(_e(c))
+
+
+def posexplode(c):
+    return CX.PosExplode(_e(c))
+
+
+def posexplode_outer(c):
+    return CX.PosExplodeOuter(_e(c))
+
+
+def stack(n, *cols):
+    return CX.Stack(n, *[_e(c) for c in cols])
+
+
+def size(c):
+    return CX.Size(_e(c))
+
+
+def element_at(c, k):
+    return CX.ElementAt(_e(c), _lit_or_e(k))
+
+
+def array(*cs):
+    return CX.CreateArray([_e(c) for c in cs])
+
+
+def array_contains(c, v):
+    return CX.ArrayContains(_e(c), _lit_or_e(v))
+
+
+def map_keys(c):
+    return CX.MapKeys(_e(c))
+
+
+def map_values(c):
+    return CX.MapValues(_e(c))
+
+
+def array_min(c):
+    return AO.ArrayMin(_e(c))
+
+
+def array_max(c):
+    return AO.ArrayMax(_e(c))
+
+
+def array_position(c, v):
+    return AO.ArrayPosition(_e(c), _e(v))
+
+
+def array_remove(c, v):
+    return AO.ArrayRemove(_e(c), _e(v))
+
+
+def slice(c, start, length):  # noqa: A001 - Spark's F.slice
+    return AO.Slice(_e(c), _e(start), _e(length))
+
+
+def sort_array(c, asc=True):
+    return AO.SortArray(_e(c), asc)
+
+
+def flatten(c):
+    return AO.Flatten(_e(c))
+
+
+def array_distinct(c):
+    return AO.ArrayDistinct(_e(c))
+
+
+def array_union(a, b):
+    return AO.ArrayUnion(_e(a), _e(b))
+
+
+def array_intersect(a, b):
+    return AO.ArrayIntersect(_e(a), _e(b))
+
+
+def array_except(a, b):
+    return AO.ArrayExcept(_e(a), _e(b))
+
+
+def arrays_overlap(a, b):
+    return AO.ArraysOverlap(_e(a), _e(b))
+
+
+def array_repeat(v, n):
+    return AO.ArrayRepeat(_e(v), _e(n))
+
+
+def array_join(c, sep, null_replacement=None):
+    return AO.ArrayJoin(_e(c), sep, null_replacement)
+
+
+def arrays_zip(*cols):
+    return AO.ArraysZip([_e(c) for c in cols])
+
+
+def map_entries(c):
+    return AO.MapEntries(_e(c))
+
+
+def map_concat(*cols):
+    return AO.MapConcat([_e(c) for c in cols])
+
+
+def map_from_arrays(k, v):
+    return AO.MapFromArrays(_e(k), _e(v))
+
+
+def str_to_map(c, pair_delim=",", kv_delim=":"):
+    return AO.StrToMap(_e(c), pair_delim, kv_delim)
+
+
+def sequence(start, stop, step=None):
+    return MI.Sequence(_e(start), _e(stop),
+                       *([_e(step)] if step is not None else []))

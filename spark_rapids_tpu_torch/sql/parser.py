@@ -16,8 +16,8 @@ type), function calls routed through ``sql/functions.py``). A query
 outside the subset raises SparkException with the offending token, in the
 JAX package's words: parse or reject, never misread. A function the JAX
 package has and this engine does not yet (``functions.NOT_PORTED``)
-raises naming ROADMAP A9; so does the untyped NULL literal, which needs
-the NullType of A9.
+raises naming ROADMAP A9d; so does the untyped NULL literal, which needs
+the NullType of A9d.
 """
 from __future__ import annotations
 
@@ -328,7 +328,7 @@ class _Parser:
         if fn is None and name.lower() in F.NOT_PORTED:
             raise SparkException(
                 f"SQL: function {name!r} is not ported to this engine yet "
-                f"(ROADMAP A9)")
+                f"(ROADMAP A9d)")
         if fn is None or not callable(fn):
             raise SparkException(f"SQL: unknown function {name!r}")
         out = fn(*args)
@@ -425,7 +425,7 @@ class _Parser:
         if self.kw("null"):
             raise SparkException(
                 "SQL: the untyped NULL literal needs NullType, which this "
-                "engine does not have yet (ROADMAP A9)")
+                "engine does not have yet (ROADMAP A9d)")
         if self.kw("case"):
             return self._case()
         if self.kw("exists"):

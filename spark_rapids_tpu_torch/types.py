@@ -4,8 +4,10 @@ Counterpart of ``spark_rapids_tpu/types.py``, cut to the types this engine
 carries on the card: bool, int8/16/32/64, float32/64, date (int32 days
 since the epoch), timestamp (int64 microseconds since the epoch, UTC),
 DECIMAL64 (unscaled int64 values, precision at most 18), UTF-8 strings
-(offsets + bytes, or dictionary codes + vocabulary) and arrays of those
-(int32 offsets + a child column). Structs and maps wait for ROADMAP A9.
+(offsets + bytes, or dictionary codes + vocabulary), arrays (int32
+offsets + a child column), structs (one child column per field, at the
+row capacity) and maps (int32 offsets + key and value child columns).
+The NULL type waits for ROADMAP A9d.
 The class names, singletons and ``common_type`` widening rules are the
 same as the JAX package's, so plans and results line up, and so are the
 type signatures that plan tagging checks (``TypeSig``, ``Sigs``).
@@ -132,10 +134,6 @@ class ArrayType(DataType):
         return f"array<{self.element!r}>"
 
 
-#: the nested types that wait for ROADMAP A9 (``complex.py``)
-_A9_NESTED = "struct and map columns wait for ROADMAP A9c (complex.py)"
-
-
 BOOLEAN = BooleanType()
 INT8 = Int8Type()
 INT16 = Int16Type()
@@ -153,6 +151,32 @@ class StructField:
     name: str
     dtype: DataType
     nullable: bool = True
+
+
+@dataclasses.dataclass(frozen=True, eq=True)
+class StructType(DataType):
+    """A struct column: one child column per field at the row capacity,
+    and the struct's own row validity (a null row may have valid
+    children)."""
+    fields: tuple = ()
+
+    def __repr__(self) -> str:
+        inner = ",".join(f"{f.name}:{f.dtype!r}" for f in self.fields)
+        return f"struct<{inner}>"
+
+    def field_names(self):
+        return [f.name for f in self.fields]
+
+
+@dataclasses.dataclass(frozen=True, eq=True)
+class MapType(DataType):
+    """A map column: int32 offsets (capacity + 1) and key and value child
+    columns of the same element capacity."""
+    key: DataType = dataclasses.field(default_factory=StringType)
+    value: DataType = dataclasses.field(default_factory=StringType)
+
+    def __repr__(self) -> str:
+        return f"map<{self.key!r},{self.value!r}>"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -234,8 +258,11 @@ def from_arrow(at) -> DataType:
         return DecimalType(at.precision, at.scale)
     if pa.types.is_list(at) or pa.types.is_large_list(at):
         return ArrayType(from_arrow(at.value_type))
-    if pa.types.is_struct(at) or pa.types.is_map(at):
-        raise NotImplementedError(f"arrow type {at}: {_A9_NESTED}")
+    if pa.types.is_struct(at):
+        return StructType(tuple(StructField(f.name, from_arrow(f.type))
+                                for f in at))
+    if pa.types.is_map(at):
+        return MapType(from_arrow(at.key_type), from_arrow(at.item_type))
     raise NotImplementedError(f"arrow type {at} is not supported yet")
 
 
@@ -245,6 +272,11 @@ def to_arrow(dtype: DataType):
         return pa.decimal128(dtype.precision, dtype.scale)
     if isinstance(dtype, ArrayType):
         return pa.list_(to_arrow(dtype.element))
+    if isinstance(dtype, StructType):
+        return pa.struct([pa.field(f.name, to_arrow(f.dtype))
+                          for f in dtype.fields])
+    if isinstance(dtype, MapType):
+        return pa.map_(to_arrow(dtype.key), to_arrow(dtype.value))
     return {
         BOOLEAN: pa.bool_(), INT8: pa.int8(), INT16: pa.int16(),
         INT32: pa.int32(), INT64: pa.int64(), FLOAT32: pa.float32(),
@@ -255,9 +287,9 @@ def to_arrow(dtype: DataType):
 
 # ---------------------------------------------------------------------------
 # TypeSig: set algebra over supported types (the JAX package's
-# ``types.TypeSig``, after the reference's TypeChecks.scala). The tags of
-# the types the port does not carry yet ("NULL", "STRUCT", "MAP") stay in
-# the signatures, so those types can be added without rewriting them.
+# ``types.TypeSig``, after the reference's TypeChecks.scala). The tag of
+# the type the port does not carry yet ("NULL") stays in the signatures,
+# so it can be added without rewriting them.
 # ---------------------------------------------------------------------------
 
 _BASE_ORDER = [
@@ -270,7 +302,7 @@ _TAGS = {BooleanType: "BOOLEAN", Int8Type: "INT8", Int16Type: "INT16",
          Int32Type: "INT32", Int64Type: "INT64", Float32Type: "FLOAT32",
          Float64Type: "FLOAT64", DecimalType: "DECIMAL64",
          StringType: "STRING", DateType: "DATE", TimestampType: "TIMESTAMP",
-         ArrayType: "ARRAY"}
+         ArrayType: "ARRAY", StructType: "STRUCT", MapType: "MAP"}
 
 
 def _tag_of(dtype: DataType) -> str:
@@ -281,8 +313,9 @@ def _tag_of(dtype: DataType) -> str:
 
 
 class TypeSig:
-    """An immutable set of type tags, and the set allowed inside an array
-    (``nested_sig``; none unless ``nested()`` made the signature)."""
+    """An immutable set of type tags, and the set allowed inside an array,
+    a struct or a map (``nested_sig``; none unless ``nested()`` made the
+    signature)."""
 
     def __init__(self, tags=(), nested: Optional["TypeSig"] = None):
         self.tags = frozenset(tags)
@@ -301,8 +334,13 @@ class TypeSig:
     def supports(self, dtype: DataType) -> bool:
         if _tag_of(dtype) not in self.tags:
             return False
+        inner = self.nested_sig or TypeSig()
         if isinstance(dtype, ArrayType):
-            return (self.nested_sig or TypeSig()).supports(dtype.element)
+            return inner.supports(dtype.element)
+        if isinstance(dtype, StructType):
+            return all(inner.supports(f.dtype) for f in dtype.fields)
+        if isinstance(dtype, MapType):
+            return inner.supports(dtype.key) and inner.supports(dtype.value)
         return True
 
     def reason_not_supported(self, dtype: DataType) -> Optional[str]:

@@ -225,7 +225,7 @@ def test_not_ported_is_the_difference_of_the_functions_modules():
 @pytest.mark.parametrize("query", [
     # the ids are those of the cases' first names, initcap and crc32,
     # which the string slice ported (test_ported_string_functions_equal_jax)
-    pytest.param("SELECT sequence(k, 4) AS y FROM t",
+    pytest.param("SELECT json_tuple(name, 'a') AS y FROM t",
                  id="SELECT initcap(name) AS y FROM t"),
     pytest.param("SELECT k FROM t WHERE "
                  "get_json_object(name, '$.a') IS NULL",

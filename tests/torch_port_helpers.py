@@ -1237,3 +1237,247 @@ SQL_REGEX = ("WITH r AS (SELECT initcap(trim(regexp_extract(l_comment, "
              "rlike(l_comment, 'b(l|r)[a-z]+ly')) "
              "SELECT w, COUNT(*) AS n, SUM(l_quantity) AS q FROM r "
              "GROUP BY w")
+
+
+# ---------------------------------------------------------------------------
+# The nested types: orders_nested, one row per order with its lines inside
+# ---------------------------------------------------------------------------
+
+#: the flag pairs in key order (returnflag then linestatus)
+FLAG_PAIRS = ("AF", "AO", "NF", "NO", "RF", "RO")
+#: l_price is null for the orders whose key is a multiple of this
+NX_NULL_PRICE_MOD = 97
+#: nx_array_rows, nx_struct_map's rows and nx_sibling_fb: o_orderkey % 100
+#: == 7 (about 1% of the orders)
+NX_ROWS_MOD, NX_ROWS_REM = 100, 7
+#: nx_cpu_collections_fb: o_orderkey % 300 == 0, orders with lines
+NX_CPU_MOD = 300
+#: each query's plan node on the CPU (nx_cpu_collections_fb's projection
+#: of the host-tier functions and map_entries; nx_sibling_fb's and
+#: ingest_generate's Generate, which carries an array column)
+NX_FALLBACK_NODES = {"nx_cpu_collections_fb": "Project",
+                     "nx_sibling_fb": "Generate",
+                     "ingest_generate": "Generate"}
+#: the set operations' second operand in nx_array_rows
+NX_SET = (1.0, 2.0, 3.0)
+
+
+def make_orders_nested(lineitem: pa.Table, orders: pa.Table) -> pa.Table:
+    """orders_nested: one row per order (o_orderkey, o_custkey), o_info a
+    struct<orderdate: date, custkey: long>, its lines' quantities, prices
+    and ship dates as three aligned arrays in lineitem order (l_price null
+    where o_orderkey % NX_NULL_PRICE_MOD == 0; Arrow keeps those rows'
+    slices, as a writer may), and o_flag_qty a map from each flag pair
+    present in the order to its summed quantity, keys sorted. Built on the
+    host with numpy; orders without lines hold empty arrays and maps."""
+    import pyarrow.compute as pc
+    key = lineitem["l_orderkey"].to_numpy()
+    n = orders.num_rows
+    order = np.argsort(key, kind="stable")
+    off = np.zeros(n + 1, np.int32)
+    off[1:] = np.cumsum(np.bincount(key, minlength=n))
+    okey = orders["o_orderkey"].to_numpy()
+    offsets = pa.array(off)
+    qty = lineitem["l_quantity"].to_numpy()
+    price = lineitem["l_extendedprice"].to_numpy()[order]
+    ship = pa.array(lineitem["l_shipdate"].to_numpy()[order]).cast(
+        pa.date32())
+    code = (pc.equal(lineitem["l_returnflag"], "N").to_numpy().astype(
+        np.int64) * 2 + pc.equal(lineitem["l_returnflag"], "R").to_numpy()
+        .astype(np.int64) * 4 + pc.equal(lineitem["l_linestatus"], "O")
+        .to_numpy().astype(np.int64))
+    comb = key * 6 + code
+    sums = np.bincount(comb, weights=qty, minlength=6 * n)
+    present = np.bincount(comb, minlength=6 * n) > 0
+    idx = np.flatnonzero(present)
+    moff = np.zeros(n + 1, np.int32)
+    moff[1:] = np.cumsum(present.reshape(n, 6).sum(axis=1))
+    keys = pa.DictionaryArray.from_arrays(
+        pa.array((idx % 6).astype(np.int32)),
+        pa.array(list(FLAG_PAIRS))).cast(pa.string())
+    info = pa.StructArray.from_arrays(
+        [orders["o_orderdate"].combine_chunks().cast(pa.date32()),
+         orders["o_custkey"].combine_chunks()],
+        names=["orderdate", "custkey"])
+    return pa.table({
+        "o_orderkey": okey,
+        "o_custkey": orders["o_custkey"],
+        "o_info": info,
+        "l_qty": pa.ListArray.from_arrays(offsets, pa.array(qty[order])),
+        "l_price": pa.ListArray.from_arrays(
+            offsets, pa.array(price),
+            mask=pa.array(okey % NX_NULL_PRICE_MOD == 0)),
+        "l_ship": pa.ListArray.from_arrays(offsets, ship),
+        "o_flag_qty": pa.MapArray.from_arrays(pa.array(moff), keys,
+                                              pa.array(sums[idx])),
+    })
+
+
+def orders_nested_flat(nested: pa.Table) -> pa.Table:
+    """ingest_generate's Parquet input: the orders of nx_array_rows' filter
+    with the order date and the prices (a plan document has no struct
+    field access, and its Generate carries every child column)."""
+    import pyarrow.compute as pc
+    keep = pc.equal(pc.subtract(nested["o_orderkey"], pc.multiply(
+        pc.divide(nested["o_orderkey"], NX_ROWS_MOD), NX_ROWS_MOD)),
+        NX_ROWS_REM)
+    sub = nested.filter(keep)
+    return pa.table({"o_orderdate": pc.struct_field(sub["o_info"], [0]),
+                     "l_price": sub["l_price"]})
+
+
+def nx_explode_daily(api, df, n=8):
+    """Each order's prices exploded beside its order date, hash-
+    repartitioned by the date, summed and counted per day."""
+    col, F = api.col, api.F
+    return (df.select(col("o_info").getField("orderdate").alias("d"),
+                      F.explode(col("l_price")).alias("p"))
+            .repartition(n, col("d"))
+            .group_by(col("d"))
+            .agg(F.sum("p").alias("s"), F.count("p").alias("c")))
+
+
+def nx_posexplode_outer(api, df):
+    """posexplode_outer of the prices grouped by position: rows, non-null
+    prices and their sum (a null or empty array gives one null row)."""
+    col, F = api.col, api.F
+    return (df.select(F.posexplode_outer(col("l_price")))
+            .group_by(col("pos"))
+            .agg(F.count().alias("rows"), F.count("col").alias("n"),
+                 F.sum("col").alias("s")))
+
+
+#: nx_array_rows' output columns, after o_orderkey
+NX_ARRAY_COLS = ("n", "e1", "em1", "e40", "g0", "c25", "pmin", "pmax",
+                 "smax", "sa", "sd", "sl", "ad", "ap", "ar", "ov", "au",
+                 "ai", "ae")
+
+
+def nx_array_rows(api, df):
+    col, lit, F = api.col, api.lit, api.F
+    q, p = col("l_qty"), col("l_price")
+    small = F.array(*[lit(v) for v in NX_SET])
+    return (df.filter(col("o_orderkey") % lit(NX_ROWS_MOD)
+                      == lit(NX_ROWS_REM))
+            .select(col("o_orderkey"), F.size(q).alias("n"),
+                    F.element_at(q, 1).alias("e1"),
+                    F.element_at(q, -1).alias("em1"),
+                    F.element_at(q, 40).alias("e40"),
+                    q.getItem(0).alias("g0"),
+                    F.array_contains(q, 25.0).alias("c25"),
+                    F.array_min(p).alias("pmin"),
+                    F.array_max(p).alias("pmax"),
+                    F.array_max(col("l_ship")).alias("smax"),
+                    F.sort_array(q).alias("sa"),
+                    F.sort_array(q, False).alias("sd"),
+                    F.slice(q, 2, 3).alias("sl"),
+                    F.array_distinct(q).alias("ad"),
+                    F.array_position(q, lit(10.0)).alias("ap"),
+                    F.array_remove(q, lit(1.0)).alias("ar"),
+                    F.arrays_overlap(q, small).alias("ov"),
+                    F.array_union(q, small).alias("au"),
+                    F.array_intersect(q, small).alias("ai"),
+                    F.array_except(q, small).alias("ae")))
+
+
+def nx_struct_rows(api, df):
+    """nx_struct_map's rows: the struct's fields and the map's keys,
+    values, size and the value of 'NO', over nx_array_rows' filter."""
+    col, lit, F = api.col, api.lit, api.F
+    m = col("o_flag_qty")
+    return (df.filter(col("o_orderkey") % lit(NX_ROWS_MOD)
+                      == lit(NX_ROWS_REM))
+            .select(col("o_orderkey"),
+                    col("o_info").getField("orderdate").alias("od"),
+                    col("o_info").get_field("custkey").alias("ck"),
+                    F.map_keys(m).alias("mk"), F.map_values(m).alias("mv"),
+                    F.element_at(m, "NO").alias("no"),
+                    m.getItem("RF").alias("rf"),
+                    F.size(m).alias("ms")))
+
+
+def nx_map_groups(api, df):
+    """nx_struct_map's aggregate: every order's map exploded, the
+    quantities summed and the entries counted per flag pair."""
+    col, F = api.col, api.F
+    return (df.select(F.explode(col("o_flag_qty")))
+            .group_by(col("key"))
+            .agg(F.sum("value").alias("q"), F.count("value").alias("n")))
+
+
+def nx_stack(api, li):
+    """stack(2, ...) unpivots the quantity and the price of every line,
+    then one sum and count per label."""
+    col, lit, F = api.col, api.lit, api.F
+    return (li.select(F.stack(2, lit("qty"), col("l_quantity"),
+                              lit("price"), col("l_extendedprice")))
+            .group_by(col("col0"))
+            .agg(F.sum("col1").alias("s"), F.count("col1").alias("c")))
+
+
+#: nx_cpu_collections_fb's output columns, after o_orderkey
+NX_CPU_COLS = ("z", "j", "r", "sq", "mfa", "mc", "sm", "me")
+
+
+def nx_cpu_collections_fb(api, df):
+    """The host-tier collection functions and map_entries (an
+    array<struct> result, which the signatures keep off the device) over
+    about 10,000 orders: the filter on the device, one Project on the
+    CPU."""
+    col, lit, F = api.col, api.lit, api.F
+    q, m = col("l_qty"), col("o_flag_qty")
+    seq = F.sequence(lit(1), F.size(q))
+    return (df.filter((col("o_orderkey") % lit(NX_CPU_MOD) == lit(0))
+                      & (F.size(q) > lit(0)))
+            .select(col("o_orderkey"),
+                    F.arrays_zip(q, col("l_ship")).alias("z"),
+                    F.array_join(F.map_keys(m), ",").alias("j"),
+                    F.array_repeat(col("o_custkey"), lit(2)).alias("r"),
+                    seq.alias("sq"),
+                    F.map_from_arrays(seq, q).alias("mfa"),
+                    F.map_concat(m, F.map_from_arrays(
+                        F.array(lit("ZZ")), F.array(lit(0.5)))).alias("mc"),
+                    F.str_to_map(F.array_join(F.map_keys(m), ","), ",",
+                                 "=").alias("sm"),
+                    F.map_entries(m).alias("me")))
+
+
+def nx_sibling_fb(api, df):
+    """An explode carrying another array column (the CPU Generate), over
+    nx_array_rows' filter, grouped by the carried array's size."""
+    col, lit, F = api.col, api.lit, api.F
+    return (df.filter(col("o_orderkey") % lit(NX_ROWS_MOD)
+                      == lit(NX_ROWS_REM))
+            .select(col("l_qty"), F.explode(col("l_price")).alias("p"))
+            .select(F.size(col("l_qty")).alias("n"), col("p"))
+            .group_by(col("n"))
+            .agg(F.sum("p").alias("s"), F.count("p").alias("c")))
+
+
+def nx_view(api, df):
+    """sql_nested's temp view: the order date out of the struct (the SQL
+    grammar has no struct field access) and the prices."""
+    col = api.col
+    return df.select(col("o_orderkey"),
+                     col("o_info").getField("orderdate").alias("o_orderdate"),
+                     col("l_price"))
+
+
+SQL_NESTED = ("SELECT d, SUM(p) AS s, COUNT(p) AS c FROM (SELECT o_orderdate "
+              "AS d, explode(l_price) AS p FROM orders_nested) GROUP BY d")
+
+
+def nx_generate_doc(path: str) -> dict:
+    """ingest_generate's plan document: a Parquet scan of
+    orders_nested_flat, the explode of the prices, the daily sum and
+    count."""
+    def c(name):
+        return {"expr": "col", "name": name}
+    return {"version": 1, "plan": {
+        "node": "aggregate", "keys": [c("o_orderdate")],
+        "aggs": [{"fn": "sum", "child": c("col"), "alias": "s"},
+                 {"fn": "count", "child": c("col"), "alias": "c"}],
+        "child": {"node": "generate", "generator": "explode",
+                  "input": c("l_price"),
+                  "child": {"node": "parquet_scan", "paths": [path],
+                            "columns": ["o_orderdate", "l_price"]}}}}
