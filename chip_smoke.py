@@ -787,9 +787,8 @@ def _close(a, b, tol=1e-6):
     return abs(a - b) <= tol * max(1.0, abs(a), abs(b))
 
 
-def host_reference(t):
-    """bench.py's pyarrow baseline for the four queries."""
-    import pyarrow as pa
+def q6_reference(t) -> float:
+    """bench.py's pyarrow q6."""
     import pyarrow.compute as pc
     m = pc.and_(pc.and_(pc.and_(pc.greater_equal(t["l_shipdate"], LO),
                                 pc.less(t["l_shipdate"], HI)),
@@ -797,17 +796,31 @@ def host_reference(t):
                                 pc.less_equal(t["l_discount"], 0.07))),
                 pc.less(t["l_quantity"], 24.0))
     f = t.filter(m)
-    q6 = pc.sum(pc.multiply(f["l_extendedprice"], f["l_discount"])).as_py()
+    return pc.sum(pc.multiply(f["l_extendedprice"], f["l_discount"])).as_py()
+
+
+def q1_reference(t) -> dict:
+    """bench.py's pyarrow q1: (returnflag, linestatus) -> sums, means and
+    the count."""
+    import pyarrow.compute as pc
     f = t.filter(pc.less_equal(t["l_shipdate"], 10471))
     g = f.group_by(["l_returnflag", "l_linestatus"]).aggregate([
         ("l_quantity", "sum"), ("l_extendedprice", "sum"),
         ("l_quantity", "mean"), ("l_discount", "mean"),
         ("l_quantity", "count")])
-    q1 = {(rf, ls): (sq, sp, mq, md, c) for rf, ls, sq, sp, mq, md, c in zip(
-        *[g[n].to_pylist() for n in (
-            "l_returnflag", "l_linestatus", "l_quantity_sum",
-            "l_extendedprice_sum", "l_quantity_mean", "l_discount_mean",
-            "l_quantity_count")])}
+    return {(rf, ls): (sq, sp, mq, md, c)
+            for rf, ls, sq, sp, mq, md, c in zip(*[g[n].to_pylist() for n in (
+                "l_returnflag", "l_linestatus", "l_quantity_sum",
+                "l_extendedprice_sum", "l_quantity_mean", "l_discount_mean",
+                "l_quantity_count")])}
+
+
+def host_reference(t):
+    """bench.py's pyarrow baseline for the four queries."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    q6 = q6_reference(t)
+    q1 = q1_reference(t)
     key = pa.chunked_array([np.mod(c.to_numpy(), 100_000)
                             for c in t["l_orderkey"].chunks])
     g = t.select(["l_quantity"]).append_column("k", key).group_by(
@@ -4051,7 +4064,11 @@ def phase_datetime(table, spy, prof=None):
     H = helpers()
     zones = {z: tzdb.source(z) for z in (H.DT_SESSION_ZONE, H.DT_FROM_ZONE,
                                          H.DT_TO_ZONE)}
-    emit({"phase": "datetime.zones", "sources": zones,
+    # each zone's last transition in its TZif file, and the year through
+    # which the footer's rule extends the table (ROADMAP C15)
+    spans = {z: dict(zip(("last_tzif_year", "table_horizon_year",
+                          "entries"), tzdb.table_span(z))) for z in zones}
+    emit({"phase": "datetime.zones", "sources": zones, "spans": spans,
           "new_york_file": os.path.isfile(
               "/usr/share/zoneinfo/America/New_York")})
     t0 = time.perf_counter()
@@ -4762,7 +4779,8 @@ def phase_nested(table, orders, h1, tmp_dir, spy, prof=None):
     """The nested shapes over orders_nested (one row per order of the
     joins phase's orders, its lines inside), cached with 1 and 8
     partitions, and nx_stack over the joins phase's cached lineitem, in
-    sessions in test mode."""
+    sessions in test mode. Returns the launches and the 1-partition
+    cache, which the formats phase reads."""
     import pyarrow.parquet as pq
     import torch
     from types import SimpleNamespace
@@ -4861,6 +4879,336 @@ def phase_nested(table, orders, h1, tmp_dir, spy, prof=None):
         raise AssertionError("; ".join(problems))
     if counts["murmur3_int32"] <= 0 or counts["segsum"] <= 0:
         raise AssertionError(f"murmur3 and segsum must run on the nested "
+                             f"path: {counts}")
+    return counts, n1
+
+
+# ---------------------------------------------------------------------------
+# The formats phase: lambdas, JSON, NULL and the file readers
+# ---------------------------------------------------------------------------
+
+#: fm_json_lines' documents: the first tenth of the orders (the file's
+#: write and parse time); js_path_fb's and js_from_json's, the first
+#: 30,000 (three host parses a document, three runs)
+FM_JSON_ORDERS, JS_DOCS = 300_000, 30_000
+#: fm_csv_q1's rows (the CSV write and parse time) and fm_avro's orders
+#: (the pure-Python Avro codec)
+FM_CSV_ROWS, FM_AVRO_ROWS = 5_000_000, 300_000
+
+
+def _years(days):
+    return days.astype("datetime64[D]").astype("datetime64[Y]") \
+        .astype(np.int64) + 1970
+
+
+def formats_reference(table, orders, want):
+    """numpy and pyarrow answers to the formats queries, from the
+    lineitem and orders themselves."""
+    import datetime
+    import pyarrow.compute as pc
+    H = helpers()
+    out = {}
+    key = table["l_orderkey"].to_numpy()
+    n = orders.num_rows
+    odate = orders["o_orderdate"].to_numpy()
+    okey = np.arange(n)
+    yi = _years(odate)
+    y0 = int(yi.min())
+    yi = yi - y0
+    ny = int(yi.max()) + 1
+    ly = yi[key]
+    qty = table["l_quantity"].to_numpy()
+    price = table["l_extendedprice"].to_numpy()
+    ship = table["l_shipdate"].to_numpy()
+    priced = key % H.NX_NULL_PRICE_MOD != 0
+    order = np.argsort(key, kind="stable")
+    counts = np.bincount(key, minlength=n)
+    start = np.cumsum(counts) - counts
+    pos = np.empty(len(key), np.int64)
+    pos[order] = np.arange(len(key)) - start[key[order]]
+
+    def per_year(idx, w):
+        return np.bincount(idx, weights=w, minlength=ny)
+    n_o = np.bincount(yi, minlength=ny)
+    hi = per_year(ly[priced], (price[priced] > 50000).astype(np.float64))
+    big = np.zeros(n, np.bool_)
+    big[key[qty >= 50]] = True
+    notlate = np.zeros(n, np.bool_)
+    notlate[key[ship <= odate[key]]] = True
+    heavy = per_year(ly, (qty * pos > 100).astype(np.float64))
+    bigs, lates = per_year(yi, big.astype(np.float64)), \
+        per_year(yi, (~notlate).astype(np.float64))
+    out["lx_array_preds"] = {y0 + y: (int(n_o[y]), int(hi[y]), int(bigs[y]),
+                                      int(lates[y]), int(heavy[y]))
+                             for y in np.flatnonzero(n_o)}
+    prod = price[priced] * qty[priced]
+    s = per_year(ly[priced], prod)
+    c = np.bincount(ly[priced], minlength=ny)
+    out["lx_zip_explode"] = {y0 + y: (float(s[y]), int(c[y]))
+                             for y in np.flatnonzero(c)}
+    code = (pc.equal(table["l_returnflag"], "N").to_numpy().astype(np.int64)
+            * 2 + pc.equal(table["l_returnflag"], "R").to_numpy()
+            .astype(np.int64) * 4 + pc.equal(table["l_linestatus"], "O")
+            .to_numpy().astype(np.int64))
+    comb = key * 6 + code
+    v2 = np.bincount(comb, weights=qty, minlength=6 * n) * 2
+    keep = (np.bincount(comb, minlength=6 * n) > 0) & (v2 > 10)
+    codes = np.arange(6 * n) % 6
+    ms = np.bincount(codes[keep], weights=v2[keep], minlength=6)
+    mc = np.bincount(codes[keep], minlength=6)
+    out["lx_map_lambdas"] = {H.FLAG_PAIRS[k].lower(): (float(ms[k]),
+                                                       int(mc[k]))
+                             for k in range(6) if mc[k]}
+    osum = np.bincount(key, weights=qty, minlength=n)
+    fold = okey % H.LX_FOLD_MOD == 0
+    out["lx_fold_fb"] = {int(o): float(osum[o]) / 2
+                         for o in np.flatnonzero(fold)}
+    sel = key < FM_JSON_ORDERS
+    b = key[sel] % H.FM_JSON_MOD
+    s = np.bincount(b, weights=price[sel], minlength=H.FM_JSON_MOD)
+    c = np.bincount(b, minlength=H.FM_JSON_MOD)
+    out["fm_json_lines"] = {int(k): (float(s[k]), int(c[k]))
+                            for k in np.flatnonzero(c)}
+    cust = orders["o_custkey"].to_numpy()
+    first = price[order[np.minimum(start, len(key) - 1)]]
+    out["js_path_rows"] = {o: (repr(float(first[o])) if counts[o] else None,
+                               str(int(cust[o]))) for o in range(JS_DOCS)}
+    sel = key < JS_DOCS
+    g = key[sel] % H.JS_MOD
+    s = np.bincount(g, weights=price[sel], minlength=H.JS_MOD)
+    c = np.bincount(g, minlength=H.JS_MOD)
+    out["js_from_json"] = {int(k): (float(s[k]), int(c[k]))
+                           for k in np.flatnonzero(c)}
+    epoch = datetime.date(1970, 1, 1)
+    out["js_to_json_fb"] = {
+        int(o): '{"orderdate":"%s","custkey":%d}' % (
+            (epoch + datetime.timedelta(days=int(odate[o]))).isoformat(),
+            int(cust[o])) for o in np.flatnonzero(fold)}
+    n_a = int(pc.sum(pc.equal(table["l_returnflag"], "A")).as_py())
+    out["null_sql"] = [{"l_returnflag": "A", "z": None, "n": n_a}]
+    out["fm_hive_q1"] = want["q1"]
+    out["fm_hive_pruned"] = q6_reference(
+        table.filter(pc.equal(table["l_returnflag"], "R")))
+    head = table.slice(0, FM_CSV_ROWS)
+    out["fm_csv_q1"] = q1_reference(head)
+    flags = head["l_returnflag"].to_numpy(False)
+    hq = head["l_quantity"].to_numpy()
+    out["ingest_text_scan"] = {f: (float(hq[flags == f].sum()),
+                                   int((flags == f).sum())) for f in "ANR"}
+    for name, m in (("fm_orc", n), ("fm_avro", FM_AVRO_ROWS)):
+        c = np.bincount(yi[:m], minlength=ny)
+        s = np.bincount(yi[:m], weights=cust[:m].astype(np.float64),
+                        minlength=ny)
+        out[name] = {y0 + y: (int(c[y]), int(s[y]))
+                     for y in np.flatnonzero(c)}
+    return out
+
+
+def formats_files(table, orders, tmp_dir):
+    """The phase's files: lineitem in a hive layout, its head as CSV, the
+    first FM_JSON_ORDERS orders as JSON lines, the orders as ORC and
+    their head as Avro (the port's writer). Returns their paths and the
+    documents of js_path_fb."""
+    import pyarrow as pa
+    import pyarrow.csv as pcsv
+    import pyarrow.orc as porc
+    from spark_rapids_tpu_torch.io.avro import write_avro
+    H = helpers()
+    paths = {k: os.path.join(tmp_dir, v) for k, v in (
+        ("hive", "lineitem_hive"), ("csv", "lineitem.csv"),
+        ("json", "orders.json"), ("orc", "orders.orc"),
+        ("avro", "orders.avro"))}
+    times = {}
+    t0 = time.perf_counter()
+    H.write_hive_lineitem(table, paths["hive"], **PARQUET_WRITE)
+    times["hive_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pcsv.write_csv(table.slice(0, FM_CSV_ROWS), paths["csv"])
+    times["csv_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    docs = H.orders_json_lines(table, orders, FM_JSON_ORDERS)
+    with open(paths["json"], "w") as f:
+        f.write("\n".join(docs) + "\n")
+    times["json_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    od = orders.set_column(1, "o_orderdate",
+                           orders["o_orderdate"].cast(pa.date32()))
+    porc.write_table(od, paths["orc"])
+    times["orc_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    write_avro(paths["avro"], od.slice(0, FM_AVRO_ROWS), codec="deflate")
+    times["avro_s"] = time.perf_counter() - t0
+    return paths, docs[:JS_DOCS], times
+
+
+def formats_queries(n1, li, paths, docs):
+    """name -> (session, fn): each query over its source, in a session in
+    test mode that allows its CPU nodes (FORMATS_CPU_NODES)."""
+    from spark_rapids_tpu_torch.plan.ingest import ingest
+    from spark_rapids_tpu_torch.sql.dataframe import DataFrame
+    H = helpers()
+    api = port_api()
+
+    def session(name):
+        return device_session(
+            allowed=",".join(H.FORMATS_CPU_NODES.get(name, [])))
+
+    def keyed(df, key, cols):
+        d = df.to_pydict()
+        return {k: tuple(d[c][i] for c in cols)
+                for i, k in enumerate(d[key])}
+    out = {}
+
+    def over_nested(name, fn, key, cols):
+        s = session(name)
+        df = DataFrame(n1.od.plan, s)
+        out[name] = (s, lambda: keyed(fn(api, df), key, cols))
+    over_nested("lx_array_preds", H.lx_array_preds, "y",
+                ("n", "hi", "big", "late", "heavy"))
+    over_nested("lx_zip_explode", H.lx_zip_explode, "y", ("s", "n"))
+    over_nested("lx_map_lambdas", H.lx_map_lambdas, "key", ("q", "n"))
+    over_nested("lx_fold_fb", H.lx_fold_fb, "o_orderkey", ("half",))
+    over_nested("js_to_json_fb", H.js_to_json_fb, "o_orderkey", ("j",))
+    s = session("fm_json_lines")
+    out["fm_json_lines"] = (s, lambda: keyed(H.fm_json_lines(
+        api, s.read_json(paths["json"])), "b", ("s", "n")))
+    sj = session("js_path_rows")
+    jdocs = sj.create_dataframe({"doc": docs}).cache()
+
+    def js_path_rows():
+        d = H.js_path_rows(api, jdocs).to_pydict()
+        return {int(jt[0]): (p0, jt[1]) for p0, jt in zip(d["p0"], d["jt"])}
+    out["js_path_rows"] = (sj, js_path_rows)
+    sf = session("js_from_json")
+    fdocs = DataFrame(jdocs.plan, sf)
+    out["js_from_json"] = (sf, lambda: keyed(H.js_from_json(api, fdocs),
+                                             "g", ("s", "n")))
+    sn = session("null_sql")
+    sn.create_or_replace_temp_view("lineitem", DataFrame(li.plan, sn))
+    out["null_sql"] = (sn, lambda: sn.sql(H.NULL_SQL).collect().to_pylist())
+    q1 = port_queries
+    sh = session("fm_hive_q1")
+    out["fm_hive_q1"] = (sh, q1(sh.read_parquet(paths["hive"]))["q1"])
+    sp = session("fm_hive_pruned")
+
+    def hive_pruned():
+        d = H.fm_hive_pruned(api, sp.read_parquet(paths["hive"])).to_pydict()
+        return list(d.values())[0][0]
+    out["fm_hive_pruned"] = (sp, hive_pruned)
+    sc = session("fm_csv_q1")
+    out["fm_csv_q1"] = (sc, q1(sc.read_csv(paths["csv"]))["q1"])
+    for name, fmt in (("fm_orc", "orc"), ("fm_avro", "avro")):
+        so = session(name)
+        reader = getattr(so, f"read_{fmt}")
+        out[name] = (so, lambda r=reader, p=paths[fmt]: keyed(
+            H.orders_by_year(api, r(p)), "y", ("n", "c")))
+    si = session("ingest_text_scan")
+    out["ingest_text_scan"] = (si, lambda: keyed(ingest(
+        H.text_scan_doc(paths["csv"]), si), "l_returnflag", ("q", "n")))
+    return out
+
+
+def validate_formats(name, got, want):
+    """(correct, how): exact, but float sums within 1e-6 relative."""
+    if name == "fm_hive_pruned":
+        return _close(got, want), "q6 within 1e-6"
+    if name in ("fm_hive_q1", "fm_csv_q1"):
+        return validate("q1", got, want), "q1 as bench.py"
+    if name == "null_sql":
+        return got == want, "rows exact"
+    if set(got) != set(want):
+        return False, f"keys {sorted(set(got) ^ set(want))[:5]} differ"
+    floats = name in ("lx_zip_explode", "lx_map_lambdas", "fm_json_lines",
+                      "js_from_json", "ingest_text_scan")
+    for k in want:
+        g, w = got[k], want[k]
+        if floats:
+            if not (_close(g[0], w[0]) and g[1] == w[1]):
+                return False, f"{k}: {g} != {w}"
+        elif tuple(g) != (w if isinstance(w, tuple) else (w,)):
+            return False, f"{k}: {g} != {w}"
+    return True, ("sums within 1e-6, counts exact" if floats else "exact")
+
+
+def _scan_files(session):
+    """(files kept, files) of the query's Parquet scans."""
+    from spark_rapids_tpu_torch.exec import nodes as X
+    scans = [e for e in session.last_exec.walk()
+             if isinstance(e, (X.ParquetScanExec,
+                               X.EncodedParquetSourceExec))]
+    return [sum(len(e._kept_files) for e in scans),
+            sum(len(e.plan.paths) for e in scans)] if scans else None
+
+
+def phase_formats(table, orders, want, n1, h1, tmp_dir, spy, prof=None):
+    """Lambdas over the nested phase's orders_nested cache, the JSON
+    functions, the NULL type over the joins phase's cached lineitem, and
+    the readers over files written here (hive-partitioned Parquet of the
+    whole lineitem, decoded on the card; CSV, JSON lines, ORC and Avro),
+    each query cold then twice warm, in sessions in test mode."""
+    import torch
+    H = helpers()
+    t0 = time.perf_counter()
+    paths, docs, write_s = formats_files(table, orders, tmp_dir)
+    files_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = formats_reference(table, orders, want)
+    host_s = time.perf_counter() - t0
+    queries = formats_queries(n1, h1.li, paths, docs)
+    emit({"phase": "formats.setup", "files_s": files_s, "writes": write_s,
+          "host_reference_s": host_s,
+          "bytes": {k: sum(os.path.getsize(os.path.join(d, f))
+                           for d, _, fs in os.walk(p) for f in fs)
+                    if os.path.isdir(p) else os.path.getsize(p)
+                    for k, p in paths.items()}})
+    reset_launches()
+    spy.take()
+    problems = []
+    for name, (session, fn) in queries.items():
+        before = read_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = fn()
+        cold = time.perf_counter() - t0
+        warm = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            fn()
+            warm.append(time.perf_counter() - t0)
+        good, how = validate_formats(name, got, ref[name])
+        routes = {k: v // 3 for k, v in spy.take().items()}
+        launches = {k: (v - before[k]) // 3
+                    for k, v in read_launches().items()}
+        cpu_nodes = [type(m.plan).__name__ for m in session.last_meta.walk()
+                     if not m.can_run_on_tpu]
+        files = _scan_files(session)
+        if not good:
+            problems.append(f"{name} disagrees with the reference ({how})")
+        if cpu_nodes != H.FORMATS_CPU_NODES.get(name, []):
+            problems.append(f"{name} ran {cpu_nodes} on the CPU")
+        if name == "fm_hive_pruned" and files != [2, 6]:
+            problems.append(f"fm_hive_pruned kept {files} files")
+        if name in ("fm_hive_q1", "fm_hive_pruned") \
+                and launches["bitslice"] <= 0:
+            problems.append(f"{name} decoded without bitslice: {launches}")
+        if name == "fm_json_lines" and launches["murmur3_int32"] <= 0:
+            problems.append(f"fm_json_lines hashed without murmur3: "
+                            f"{launches}")
+        emit({"phase": "formats.query", "query": name, "correct": good,
+              "check": how, "cold_ms": cold * 1e3,
+              "warm_ms": min(warm) * 1e3, "launches": launches,
+              "routes": routes, "execs": _exec_names(session),
+              "cpu_nodes": cpu_nodes, "files_kept_total": files,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+    counts = read_launches()
+    emit({"phase": "formats", "launches": counts, "correct": not problems,
+          "problems": problems})
+    if prof:
+        prof.run("formats", {k: v[1] for k, v in queries.items()})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    if counts["segsum"] <= 0 or counts["bitslice"] <= 0:
+        raise AssertionError(f"segsum and bitslice must run on the formats "
                              f"path: {counts}")
     return counts
 
@@ -5117,8 +5465,13 @@ def main(argv) -> int:
         dtime = phase_datetime(table, spy, prof)
         phases["datetime_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        nested = phase_nested(table, orders, h1, tmp_dir, spy, prof)
+        nested, n1 = phase_nested(table, orders, h1, tmp_dir, spy, prof)
         phases["nested_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        formats = phase_formats(table, orders, want, n1, h1, tmp_dir, spy,
+                                prof)
+        phases["formats_s"] = time.perf_counter() - t0
+        del n1
         gc.collect()
         t0 = time.perf_counter()
         fb_want = fallback_reference(text, table)
@@ -5152,6 +5505,7 @@ def main(argv) -> int:
                    "sets": sets[r["name"]], "aggtypes": aggtypes[r["name"]],
                    "datetime": dtime[r["name"]],
                    "nested": nested[r["name"]],
+                   "formats": formats[r["name"]],
                    "regex": regex[r["name"]],
                    "fallback": fallback[r["name"]]}
         r["launches"] = sum(by_path.values())

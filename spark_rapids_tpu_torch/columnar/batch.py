@@ -247,6 +247,10 @@ def column_from_arrow(arr, dtype: T.DataType, capacity: int,
         validity = None if valid_np is None \
             else _upload(_pad_to(valid_np, capacity, fill=False), device)
         return ColumnVector(dtype, {"children": kids}, validity)
+    if isinstance(dtype, T.NullType):
+        return ColumnVector(
+            dtype, torch.zeros(capacity, dtype=torch.int8, device=device),
+            torch.zeros(capacity, dtype=torch.bool, device=device))
     if isinstance(dtype, T.DecimalType):
         data = _upload(_pad_to(decimal_unscaled(arr, dtype, valid_np),
                                capacity), device)
@@ -488,6 +492,8 @@ def _column_rows_arrow(col: ColumnVector, idx: torch.Tensor,
         return _struct_rows_arrow(col, idx, valid)
     if col.is_nested:
         return _list_rows_arrow(col, idx, valid)
+    if isinstance(col.dtype, T.NullType):
+        return pa.nulls(int(idx.shape[0]))
     vals = _host(col.data[idx])
     if isinstance(col.dtype, T.DecimalType):
         return decimal_arrow(vals, col.dtype, valid)

@@ -3,8 +3,8 @@
 Counterpart of ``spark_rapids_tpu/exec/cpu_backend.py``, adapted to this
 engine's types and plan nodes (decimals as unscaled int64 values; nested
 rows in the JAX package's Python form: an array row is a list, a struct
-row a dict, a map row a list of (key, value) pairs; no text or
-shuffle-file scans yet). It runs an operator that planning tags
+row a dict, a map row a list of (key, value) pairs; no shuffle-file
+scans yet). It runs an operator that planning tags
 off the device (``exec/nodes.CpuFallbackExec``, ``apply_node``) and a
 whole plan in ``spark.rapids.sql.mode=explainOnly`` or
 ``DataFrame.collect_cpu`` (``execute_cpu``). Its arithmetic is the JAX
@@ -58,6 +58,9 @@ def table_to_cols(table: pa.Table) -> List[CpuCol]:
         elif isinstance(dtype, T.DateType):
             vals = np.asarray(arr.fill_null(0)).astype("datetime64[D]") \
                 .astype(np.int32)
+        elif isinstance(dtype, T.NullType):
+            vals = np.zeros(len(arr), np.int8)
+            valid = np.zeros(len(arr), np.bool_)
         else:
             fill = False if pa.types.is_boolean(arr.type) else 0
             vals = np.asarray(arr.fill_null(fill)).astype(dtype.np_dtype)
@@ -76,6 +79,8 @@ def cols_to_table(cols: List[CpuCol], names: List[str]) -> pa.Table:
         elif isinstance(c.dtype, (T.ArrayType, T.StructType, T.MapType)):
             arr = pa.array([v if ok else None
                             for v, ok in zip(c.values, c.valid)], type=at)
+        elif isinstance(c.dtype, T.NullType):
+            arr = pa.nulls(len(c.values), type=at)
         elif isinstance(c.dtype, T.DecimalType):
             arr = decimal_arrow(c.values, c.dtype, c.valid)
         elif isinstance(c.dtype, T.TimestampType):
@@ -209,7 +214,13 @@ def apply_node(plan: P.PlanNode, children: List[List[CpuCol]],
         return table_to_cols(plan.table)
     if isinstance(plan, P.ParquetScan):
         import pyarrow.parquet as pq
-        tables = [pq.read_table(p, columns=plan.columns) for p in plan.paths]
+        names = plan.file_columns if plan.columns else None
+        tables = [plan.with_partition_cols(pq.read_table(p, columns=names), i)
+                  for i, p in enumerate(plan.paths)]
+        return table_to_cols(pa.concat_tables(tables,
+                                              promote_options="permissive"))
+    if isinstance(plan, P.TextScan):
+        tables = [plan.read_host(p) for p in plan.paths]
         return table_to_cols(pa.concat_tables(tables,
                                               promote_options="permissive"))
     if isinstance(plan, P.CachedRelation):

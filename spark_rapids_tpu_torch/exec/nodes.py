@@ -3,7 +3,9 @@
 Counterpart of ``spark_rapids_tpu/exec/tpu_nodes.py`` for this engine's
 operators: ``InMemoryScanExec``, the Parquet scans (``ParquetScanExec``,
 which decodes on the host, and the device-decode pair
-``EncodedParquetSourceExec`` + ``DeviceDecodeScanExec``),
+``EncodedParquetSourceExec`` + ``DeviceDecodeScanExec``; both prune hive
+partition files and append the partition columns), ``TextScanExec``
+(CSV, JSON lines, Avro and ORC, parsed on the host),
 ``CachedScanExec``, ``ProjectExec``,
 ``FilterExec``, ``CoalesceBatchesExec``, ``RangeExec``, ``UnionExec``,
 ``ExpandExec``, ``GenerateExec``, ``CollectExchangeExec``, the
@@ -70,7 +72,9 @@ from spark_rapids_tpu_torch.expr.core import (
     needs_row_base, raise_errors,
 )
 from spark_rapids_tpu_torch.io import encoded as ENC
-from spark_rapids_tpu_torch.io.parquet_pruning import prune_row_groups
+from spark_rapids_tpu_torch.io.parquet_pruning import (
+    prune_partition_file, prune_row_groups,
+)
 from spark_rapids_tpu_torch.ops import decode as D
 from spark_rapids_tpu_torch.ops import groupby as G
 from spark_rapids_tpu_torch.ops import join as J
@@ -202,23 +206,47 @@ def _host_coalesced(tables, target_rows: int):
 
 
 class _ParquetExec(TorchExec):
-    """One partition per file; row groups are pruned by the pushed
-    filters against the footer statistics. ``metrics`` holds plain
-    counters (the JAX package's metric names) for tests and the smoke."""
+    """One partition per kept file: a file whose hive partition values
+    refute a pushed filter is dropped when the operator is built, and row
+    groups are pruned by the pushed filters against the footer
+    statistics. ``metrics`` holds plain counters (the JAX package's
+    metric names, and ``numFiles``/``numFilesPruned``) for tests and the
+    smoke."""
 
     def __init__(self, plan, children, conf, device):
         super().__init__(plan, children, conf, device)
         # a snapshot: a later pushdown over a plan sharing this scan must
         # not change the filters under a converted exec
         self._pushed = list(plan.pushed_filters)
+        pv = plan.partition_values
+        n = len(plan.paths)
+        self._kept_files = [i for i in range(n) if prune_partition_file(
+            pv[i], plan.schema, self._pushed)] if pv and self._pushed \
+            else list(range(n))
         self._metrics_lock = threading.Lock()  # prefetch workers add too
         self.metrics: Dict[str, float] = {
             "numRowGroups": 0, "numRowGroupsPruned": 0, "readBytes": 0,
-            "decodeTime": 0.0, "numOutputRows": 0, "numOutputBatches": 0}
+            "decodeTime": 0.0, "numOutputRows": 0, "numOutputBatches": 0,
+            "numFiles": n, "numFilesPruned": n - len(self._kept_files)}
 
     @property
     def num_partitions(self):
-        return max(1, len(self.plan.paths))
+        return max(1, len(self._kept_files))
+
+    def _file(self, pidx):
+        """(file index, path) of partition pidx, or None when every file
+        was pruned."""
+        if not self._kept_files:
+            return None
+        fidx = self._kept_files[pidx]
+        return fidx, self.plan.paths[fidx]
+
+    def _file_fields(self):
+        """The schema's fields that live in the files (the partition
+        columns come last and are not read)."""
+        n_part = len(self.plan.partition_fields())
+        fields = list(self.plan.schema.fields)
+        return fields[: len(fields) - n_part] if n_part else fields
 
     def _groups(self, metadata):
         groups, total = prune_row_groups(metadata, self._pushed)
@@ -243,8 +271,11 @@ class ParquetScanExec(_ParquetExec):
 
     def execute_partition(self, pidx):
         import pyarrow.parquet as pq
-        path = self.plan.paths[pidx]
-        names = self.plan.schema.names
+        got = self._file(pidx)
+        if got is None:
+            return
+        fidx, path = got
+        names = [f.name for f in self._file_fields()]
         mode = str(self.conf.get(C.MULTIFILE_READER_TYPE)).upper()
         threads = 1 if mode == "PERFILE" \
             else int(self.conf.get(C.MULTIFILE_READER_THREADS))
@@ -270,6 +301,7 @@ class ParquetScanExec(_ParquetExec):
         if mode in ("COALESCING", "AUTO"):
             tables = _host_coalesced(tables, batch_rows)
         for tbl in tables:
+            tbl = self.plan.with_partition_cols(tbl, fidx)
             off = 0
             while off < tbl.num_rows or (tbl.num_rows == 0 and off == 0):
                 chunk = tbl.slice(off, batch_rows)
@@ -293,21 +325,37 @@ class EncodedParquetSourceExec(_ParquetExec):
                              "numDecodeFallbackColumns": 0,
                              "copyToDeviceTime": 0.0})
         self.fallback_columns: Dict[str, str] = ENC.probe_support(
-            plan.paths[0], plan.schema.fields)
+            plan.paths[self._kept_files[0]], self._file_fields()) \
+            if self._kept_files else {}
+
+    def _partition_columns(self, fidx, n, cap):
+        """The file's constant partition columns as decoded columns
+        beside the encoded ones (so the decode reads the file's own
+        columns only)."""
+        out = []
+        for f, arr in self.plan.partition_arrays(fidx, n):
+            cv = column_from_arrow(arr, f.dtype, cap, self.device)
+            out.append(ENC.EncodedColumn("decoded", f.dtype, {}, (), cv=cv,
+                                         bounds=cv.bounds))
+        return out
 
     def execute_partition(self, pidx):
         import pyarrow as pa
         import pyarrow.parquet as pq
-        path = self.plan.paths[pidx]
-        fields = list(self.plan.schema.fields)
+        got = self._file(pidx)
+        if got is None:
+            return
+        fidx, path = got
+        fields = self._file_fields()
         pf = pq.ParquetFile(path)
         groups, total = self._groups(pf.metadata)
         if not groups:
             if total:
                 return  # every row group refuted: nothing read or uploaded
             # a file without row groups: host read, every column decoded
-            b = from_arrow(pf.read(columns=[f.name for f in fields]),
-                           self.device)
+            b = from_arrow(self.plan.with_partition_cols(
+                pf.read(columns=[f.name for f in fields]), fidx),
+                self.device)
             self._emitted(int(b.num_rows))
             yield ENC.EncodedBatch(
                 [ENC.EncodedColumn("decoded", c.dtype, {}, cv=c,
@@ -346,11 +394,49 @@ class EncodedParquetSourceExec(_ParquetExec):
                 decoded[i] = column_from_arrow(arr, fields[i].dtype, hb.cap,
                                                self.device)
             eb = ENC.upload(hb, decoded, self.device)
+            eb.columns.extend(self._partition_columns(fidx, hb.num_rows,
+                                                      hb.cap))
             m["copyToDeviceTime"] += time.perf_counter() - t0
             m["encodedBytes"] += hb.encoded_bytes
             m["decodedBytes"] += eb.decoded_size()
             self._emitted(hb.num_rows)
             yield eb
+
+
+class TextScanExec(TorchExec):
+    """A CSV, JSON-lines, Avro or ORC scan, one partition per file: the
+    host parse (``TextScan.read_host``), then uploads of at most
+    spark.rapids.sql.reader.batchSizeRows rows (reference GpuCSVScan /
+    GpuJsonScan / GpuOrcScan). ``metrics``: decode (the parse) and copy
+    times, rows and batches."""
+
+    def __init__(self, plan, children, conf, device):
+        super().__init__(plan, children, conf, device)
+        self.metrics: Dict[str, float] = {
+            "decodeTime": 0.0, "copyToDeviceTime": 0.0, "numOutputRows": 0,
+            "numOutputBatches": 0}
+
+    @property
+    def num_partitions(self):
+        return max(1, len(self.plan.paths))
+
+    def execute_partition(self, pidx):
+        m = self.metrics
+        t0 = time.perf_counter()
+        table = self.plan.read_host(self.plan.paths[pidx])
+        m["decodeTime"] += time.perf_counter() - t0
+        batch_rows = self.conf.get(C.MAX_READER_BATCH_SIZE_ROWS)
+        n = table.num_rows
+        off = 0
+        while off < n or (n == 0 and off == 0):
+            take = min(batch_rows, n - off)
+            t0 = time.perf_counter()
+            b = from_arrow(table.slice(off, take), self.device)
+            m["copyToDeviceTime"] += time.perf_counter() - t0
+            m["numOutputRows"] += take
+            m["numOutputBatches"] += 1
+            yield b
+            off += max(take, 1)
 
 
 class DeviceDecodeScanExec(TorchExec):

@@ -424,6 +424,8 @@ class CreateArray(Expression):
         self.children = [_wrap(c) for c in children]
 
     def data_type(self):
+        if not self.children:
+            return T.ArrayType(T.NULL)
         dt = self.children[0].data_type()
         for c in self.children[1:]:
             dt = T.common_type(dt, c.data_type())
@@ -434,10 +436,16 @@ class CreateArray(Expression):
 
     def eval(self, ctx: EvalCtx) -> ColumnVector:
         elem_t = self.data_type().element
+        cap = ctx.capacity
+        if not self.children:  # array(): an empty array<null> per row
+            return ColumnVector(self.data_type(), {
+                "offsets": torch.zeros(cap + 1, dtype=torch.int32,
+                                       device=ctx.device),
+                "child": Literal(None, T.NULL).eval(
+                    EvalCtx([], 1, 1, ctx.device))}, None)
         cols = [(c if c.data_type() == elem_t else Cast(c, elem_t)).eval(ctx)
                 for c in self.children]
         k = len(cols)
-        cap = ctx.capacity
         data = torch.stack([c.data for c in cols], dim=1).reshape(-1)
         valid = torch.stack([_valid_of(c, ctx) for c in cols],
                             dim=1).reshape(-1)
@@ -450,7 +458,8 @@ class CreateArray(Expression):
     def eval_cpu(self, cols, ansi=False):
         elem_t = self.data_type().element
         parts = [c.eval_cpu(cols, ansi) for c in self.children]
-        n = len(parts[0].values)
+        n = len(parts[0].values) if parts else \
+            (len(cols[0].values) if cols else 0)
         out = []
         for i in range(n):
             row = []
@@ -606,10 +615,14 @@ class Stack(Expression):
                 i = r * self.ncols + j
                 if i < len(self.children):
                     other = self.children[i].data_type()
-                    if other != dt:
+                    if other != dt and not isinstance(dt, T.NullType):
+                        if isinstance(other, T.NullType):
+                            continue
                         raise SparkException(
                             f"stack(): column {j} mixes {dt!r} and "
                             f"{other!r}")
+                    if isinstance(dt, T.NullType):
+                        dt = other
             cols.append((f"col{j}", dt))
         return cols
 
@@ -621,8 +634,13 @@ class Stack(Expression):
             row = []
             for j, (_, dt) in enumerate(fields):
                 i = r * self.ncols + j
-                row.append(self.children[i] if i < len(self.children)
-                           else Literal(None, dt))
+                if i >= len(self.children) or isinstance(
+                        self.children[i].data_type(), T.NullType):
+                    # an explicit NULL takes the merged column type: the
+                    # Expand's schema is projection 0's
+                    row.append(Literal(None, dt))
+                else:
+                    row.append(self.children[i])
             rows.append(row)
         return rows
 

@@ -59,7 +59,8 @@ def _rows(cols: Sequence[CpuCol]) -> int:
 
 class EvalCtx:
     """Input columns of one batch, its live mask, the ANSI error planes
-    collected while evaluating, and the partition context a projection
+    collected while evaluating, the lambda bindings of a higher-order
+    function's element context, and the partition context a projection
     threads (``partition_id``, and ``row_base``: the live rows of the
     partition's earlier batches); other operators leave ``partition_id``
     None."""
@@ -77,6 +78,9 @@ class EvalCtx:
         self.partition_id = partition_id
         self.row_base = row_base
         self.errors: List[Tuple[str, torch.Tensor]] = []
+        #: lambda variable id -> the element column it is bound to
+        #: (``expr/hof.py``; inherited by a nested lambda's context)
+        self.lambda_bindings: dict = {}
 
     @property
     def row_mask(self) -> torch.Tensor:
@@ -158,8 +162,7 @@ class Expression:
     def cast(self, dtype): return Cast(self, dtype)
 
     def isin(self, *vals):
-        # the port has no NullType: a null in the list is a null of the
-        # tested column's type
+        # a null in the list is a null of the tested column's type
         return In(self, [NullOf(self) if v is None else _wrap(v)
                          for v in vals])
 
@@ -213,6 +216,24 @@ def _valid_of(c: ColumnVector, ctx: EvalCtx) -> torch.Tensor:
     return c.validity if c.validity is not None else ctx.row_mask
 
 
+def _typed(c: ColumnVector, dt: T.DataType, ctx: EvalCtx) -> ColumnVector:
+    """An untyped NULL column as the all-null column of ``dt``; any other
+    column unchanged."""
+    if isinstance(c.dtype, T.NullType) and not isinstance(dt, T.NullType):
+        return Literal(None, dt).eval(ctx)
+    return c
+
+
+def _typed_cpu(c: CpuCol, dt: T.DataType) -> CpuCol:
+    if isinstance(c.dtype, T.NullType) and not isinstance(dt, T.NullType):
+        n = len(c.values)
+        vals = np.zeros(n, object if isinstance(dt, (
+            T.StringType, T.ArrayType, T.StructType, T.MapType))
+            else dt.np_dtype)
+        return CpuCol(dt, vals, np.zeros(n, np.bool_))
+    return c
+
+
 # ---------------------------------------------------------------------------
 # Leaves
 # ---------------------------------------------------------------------------
@@ -259,6 +280,8 @@ class Literal(Expression):
 
     @staticmethod
     def infer(v) -> "Literal":
+        if v is None:
+            return Literal(None, T.NULL)
         if isinstance(v, bool):
             return Literal(v, T.BOOLEAN)
         if isinstance(v, int):
@@ -273,6 +296,9 @@ class Literal(Expression):
             scale = max(0, -exp)
             return Literal(v, T.DecimalType(max(len(digits), scale + 1),
                                             scale))
+        # before the date arm: a datetime is a date too
+        if isinstance(v, datetime.datetime):
+            return Literal(v, T.TIMESTAMP)
         if isinstance(v, datetime.date):
             return Literal(v, T.DATE)
         raise TypeError(f"cannot infer literal type for {v!r}")
@@ -289,6 +315,16 @@ class Literal(Expression):
         return f"{self.value!r}:{self.dtype!r}"
 
     def _scalar(self):
+        if isinstance(self.dtype, T.TimestampType) \
+                and isinstance(self.value, datetime.datetime):
+            # epoch microseconds, exact: naive means UTC, an aware value
+            # converts by its own offset
+            v = self.value
+            if v.tzinfo is None:
+                v = v.replace(tzinfo=datetime.timezone.utc)
+            epoch = datetime.datetime(1970, 1, 1,
+                                      tzinfo=datetime.timezone.utc)
+            return (v - epoch) // datetime.timedelta(microseconds=1)
         if isinstance(self.dtype, T.DateType) \
                 and isinstance(self.value, datetime.date):
             return (self.value - datetime.date(1970, 1, 1)).days
@@ -480,6 +516,9 @@ def _promote(l: ColumnVector, r: ColumnVector, out: T.DataType):
     """Both operands in the type ``out``: a decimal result rescales the
     unscaled int64 values; a decimal meeting a float becomes its value."""
     def conv(c):
+        if isinstance(c.dtype, T.NullType):
+            return torch.zeros(c.data.shape, dtype=out.torch_dtype,
+                               device=c.data.device)
         if isinstance(out, T.DecimalType):
             sh = _dec_shift(c.dtype, out)
             d = c.data.to(torch.int64)
@@ -493,6 +532,8 @@ def _promote(l: ColumnVector, r: ColumnVector, out: T.DataType):
 
 def _promote_cpu(l: CpuCol, r: CpuCol, out: T.DataType):
     def conv(c):
+        if isinstance(c.dtype, T.NullType):
+            return np.zeros(len(c.values), out.np_dtype)
         if isinstance(out, T.DecimalType):
             sh = _dec_shift(c.dtype, out)
             d = c.values.astype(np.int64)
@@ -868,7 +909,10 @@ class BinaryComparison(BinaryExpression):
         return T.BOOLEAN
 
     def eval(self, ctx):
-        if isinstance(self.left.data_type(), T.StringType):
+        lt, rt = self.left.data_type(), self.right.data_type()
+        if isinstance(lt, T.NullType) or isinstance(rt, T.NullType):
+            return Literal(None, T.BOOLEAN).eval(ctx)
+        if isinstance(lt, T.StringType):
             return self._string_compare(ctx)
         l = self.left.eval(ctx)
         r = self.right.eval(ctx)
@@ -891,6 +935,8 @@ class BinaryComparison(BinaryExpression):
     def eval_cpu(self, cols, ansi=False):
         l = self.left.eval_cpu(cols, ansi)
         r = self.right.eval_cpu(cols, ansi)
+        if isinstance(l.dtype, T.NullType) or isinstance(r.dtype, T.NullType):
+            return Literal(None, T.BOOLEAN).eval_cpu(cols, ansi)
         return CpuCol(T.BOOLEAN, self._compare_cpu(l, r), l.valid & r.valid)
 
     def _string_compare(self, ctx):
@@ -1126,7 +1172,8 @@ class In(Expression):
         c = self.children[0].eval(ctx)
         acc = None
         for v in self.children[1:]:
-            if isinstance(v, NullOf):
+            if isinstance(v, NullOf) or (isinstance(v, Literal)
+                                         and v.value is None):
                 # x = NULL is null on every row
                 eq = ColumnVector(T.BOOLEAN, torch.zeros(
                     ctx.capacity, dtype=torch.bool, device=ctx.device),
@@ -1162,10 +1209,10 @@ class If(Expression):
         return If(children[0], children[1], children[2])
 
     def eval(self, ctx):
-        p = self.children[0].eval(ctx)
-        t = self.children[1].eval(ctx)
-        f = self.children[2].eval(ctx)
         out = self.data_type()
+        p = self.children[0].eval(ctx)
+        t = _typed(self.children[1].eval(ctx), out, ctx)
+        f = _typed(self.children[2].eval(ctx), out, ctx)
         take_then = p.data.to(torch.bool) & _valid_of(p, ctx)
         valid = torch.where(take_then, _valid_of(t, ctx), _valid_of(f, ctx))
         if isinstance(out, T.StringType):
@@ -1175,10 +1222,10 @@ class If(Expression):
         return ColumnVector(out, torch.where(take_then, td, fd), valid)
 
     def eval_cpu(self, cols, ansi=False):
-        p = self.children[0].eval_cpu(cols, ansi)
-        t = self.children[1].eval_cpu(cols, ansi)
-        f = self.children[2].eval_cpu(cols, ansi)
         out = self.data_type()
+        p = self.children[0].eval_cpu(cols, ansi)
+        t = _typed_cpu(self.children[1].eval_cpu(cols, ansi), out)
+        f = _typed_cpu(self.children[2].eval_cpu(cols, ansi), out)
         take_then = p.values.astype(np.bool_) & p.valid
         if isinstance(out, T.StringType):
             vals = np.where(take_then, t.values, f.values)
@@ -1190,8 +1237,7 @@ class If(Expression):
 
 class CaseWhen(Expression):
     """``CASE WHEN p1 THEN v1 ... ELSE e END``, folded as nested ``If``s.
-    Without an ELSE the result is null of the first branch's type (the
-    port has no NullType)."""
+    Without an ELSE the result is null of the first branch's type."""
 
     def __init__(self, branches: List[Tuple[Expression, Expression]],
                  otherwise: Optional[Expression] = None):
@@ -1336,12 +1382,12 @@ class Coalesce(Expression):
 
     def eval(self, ctx):
         out = self.data_type()
-        acc = self.children[0].eval(ctx)
+        acc = _typed(self.children[0].eval(ctx), out, ctx)
         acc_valid = _valid_of(acc, ctx)
         if not isinstance(out, T.StringType) and acc.dtype != out:
             acc = ColumnVector(out, acc.data.to(out.torch_dtype), acc_valid)
         for c in self.children[1:]:
-            nxt = c.eval(ctx)
+            nxt = _typed(c.eval(ctx), out, ctx)
             nxt_valid = _valid_of(nxt, ctx)
             if isinstance(out, T.StringType):
                 from spark_rapids_tpu_torch.expr.strings import select_strings
@@ -1360,10 +1406,10 @@ class Coalesce(Expression):
         def values(c):
             return c.values if isinstance(out, T.StringType) \
                 else c.values.astype(out.np_dtype)
-        acc = self.children[0].eval_cpu(cols, ansi)
+        acc = _typed_cpu(self.children[0].eval_cpu(cols, ansi), out)
         vals, valid = values(acc), acc.valid.copy()
         for c in self.children[1:]:
-            nxt = c.eval_cpu(cols, ansi)
+            nxt = _typed_cpu(c.eval_cpu(cols, ansi), out)
             vals = np.where(valid, vals, values(nxt))
             valid = valid | nxt.valid
         return CpuCol(out, vals, valid)
@@ -1422,6 +1468,8 @@ class Cast(Expression):
         src, dst = c.dtype, self.to
         if src == dst:
             return c
+        if isinstance(src, T.NullType):
+            return Literal(None, dst).eval(ctx)
         if isinstance(src, T.StringType) or isinstance(dst, T.StringType):
             from spark_rapids_tpu_torch.expr.strings import cast_string_device
             return cast_string_device(c, dst, ctx)
@@ -1502,6 +1550,8 @@ class Cast(Expression):
         valid = c.valid
         if src == dst:
             return c
+        if isinstance(src, T.NullType):
+            return _typed_cpu(c, dst)
         if isinstance(dst, T.StringType) or isinstance(src, T.StringType):
             from spark_rapids_tpu_torch.expr.strings import cast_string_cpu
             return cast_string_cpu(c, dst, ansi)

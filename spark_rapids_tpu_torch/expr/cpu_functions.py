@@ -10,9 +10,8 @@ reverse, concat_ws, lpad/rpad, translate, substring_index, md5, sha2, the
 datetime formats (``date_format``, ``to_date``, ``from_unixtime``) and
 format_number; the second tier adds find_in_set, levenshtein,
 base64/unbase64, format_string, elt, soundex, sha1, hex/unhex, bin, conv,
-url_encode/url_decode, regexp_extract_all (an array of strings) and
-luhn_check. ``json_tuple`` and ``to_json`` wait for the nested types
-(ROADMAP A9d).
+url_encode/url_decode, regexp_extract_all (an array of strings),
+json_tuple (an array of strings), to_json and luhn_check.
 """
 from __future__ import annotations
 
@@ -76,9 +75,13 @@ class CpuRowFunction(Expression):
                 out.append(None)
                 continue
             args = tuple(c.values[i] for c in ins)
-            r = memo.get(args, memo)
-            if r is memo:
-                r = memo[args] = self.row_fn(*args)
+            try:
+                r = memo.get(args, memo)
+            except TypeError:  # a nested value (list, dict) is not hashable
+                r = self.row_fn(*args)
+            else:
+                if r is memo:
+                    r = memo[args] = self.row_fn(*args)
             if r is None:
                 out_valid[i] = False
             out.append(r)
@@ -461,6 +464,51 @@ class Soundex(CpuRowFunction):
 # GpuHex family semantics, NumberConverter for conv)
 # ---------------------------------------------------------------------------
 
+class JsonTuple(CpuRowFunction):
+    """json_tuple is a generator in Spark; this expression form returns
+    the ARRAY of extracted fields (the DataFrame layer explodes it into
+    columns). Reference GpuJsonTuple.scala."""
+
+    name = "json_tuple"
+
+    @property
+    def result(self):
+        return T.ArrayType(T.STRING)
+
+    def data_type(self):
+        return T.ArrayType(T.STRING)
+
+    def eval_cpu(self, cols, ansi=False):
+        import json
+        c = self.children[0].eval_cpu(cols, ansi)
+        out, ok = [], []
+        for s, v in zip(c.values, c.valid):
+            if not v or not isinstance(s, str):
+                out.append(None)
+                ok.append(False)
+                continue
+            try:
+                obj = json.loads(s)
+            except ValueError:
+                obj = None
+            row = []
+            for f in self.params:
+                x = obj.get(f) if isinstance(obj, dict) else None
+                if x is None:
+                    row.append(None)
+                elif isinstance(x, (dict, list)):
+                    row.append(json.dumps(x, separators=(",", ":")))
+                elif isinstance(x, bool):
+                    row.append("true" if x else "false")
+                else:
+                    row.append(str(x))
+            out.append(row)
+            ok.append(True)
+        vals = np.empty(len(out), object)
+        vals[:] = out
+        return CpuCol(self.result, vals, np.asarray(ok, np.bool_))
+
+
 class Sha1(CpuRowFunction):
     name = "sha1"
     result = T.STRING
@@ -633,6 +681,62 @@ class RegexpExtractAll(CpuRowFunction):
                 valid[i] = False
             vals[i] = r
         return CpuCol(self.result, vals, valid)
+
+
+class StructsToJson(CpuRowFunction):
+    """to_json(struct|map|array) (reference GpuStructsToJson). NULL
+    fields are omitted, Spark's default JacksonGenerator behavior. A map
+    row is a list of (key, value) pairs; the declared column type, not
+    the python shape, picks the object rendering, recursively."""
+
+    name = "to_json"
+    result = T.STRING
+
+    def row_fn(self, v):
+        if v is None:
+            return None
+        return self._enc_typed(v, self.children[0].data_type())
+
+    def _enc_typed(self, v, dt):
+        import json
+        if v is None:
+            return "null"
+        if isinstance(dt, T.MapType):
+            items = [(k, self._enc_typed(x, dt.value)) for k, x in v
+                     if x is not None]
+            return "{" + ",".join(f"{json.dumps(str(k))}:{x}"
+                                  for k, x in items) + "}"
+        if isinstance(dt, T.ArrayType):
+            return "[" + ",".join(self._enc_typed(x, dt.element)
+                                  for x in v) + "]"
+        if isinstance(dt, T.StructType) and isinstance(v, dict):
+            fields = {f.name: f.dtype for f in dt.fields}
+            items = [(k, self._enc_typed(x, fields.get(k)))
+                     for k, x in v.items() if x is not None]
+            return "{" + ",".join(f"{json.dumps(str(k))}:{x}"
+                                  for k, x in items) + "}"
+        return self._enc(v)
+
+    def _enc(self, v):
+        import decimal
+        import json
+        if isinstance(v, dict):
+            items = [(k, self._enc(x)) for k, x in v.items()
+                     if x is not None]
+            return "{" + ",".join(f"{json.dumps(str(k))}:{x}"
+                                  for k, x in items) + "}"
+        if isinstance(v, (list, tuple)):
+            return "[" + ",".join(
+                "null" if x is None else self._enc(x) for x in v) + "]"
+        if isinstance(v, bool):
+            return "true" if v else "false"
+        if isinstance(v, (_dt.datetime, _dt.date)):
+            return json.dumps(v.isoformat())
+        if isinstance(v, decimal.Decimal):
+            return str(v)  # a JSON number, as Spark writes it
+        if isinstance(v, np.generic):
+            v = v.item()
+        return json.dumps(v)
 
 
 class Luhncheck(CpuRowFunction):

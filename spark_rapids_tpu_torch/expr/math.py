@@ -261,7 +261,46 @@ class Murmur3Hash(Expression):
 # ---------------------------------------------------------------------------
 
 def _f64(c: ColumnVector) -> torch.Tensor:
-    return c.data.to(torch.float64)
+    """The values as doubles; a decimal reads unscaled / 10^scale."""
+    v = c.data.to(torch.float64)
+    if isinstance(c.dtype, T.DecimalType) and c.dtype.scale:
+        v = v / (10.0 ** c.dtype.scale)
+    return v
+
+
+def _f64_np(c: CpuCol) -> np.ndarray:
+    v = c.values.astype(np.float64)
+    if isinstance(c.dtype, T.DecimalType) and c.dtype.scale:
+        v = v / (10.0 ** c.dtype.scale)
+    return v
+
+
+def _dec_round_type(dt: T.DecimalType, d: int) -> T.DecimalType:
+    """Spark's type of round(x, d) / bround(x, d) for x of ``dt`` (capped
+    at DECIMAL64's 18 digits)."""
+    p, s = dt.precision, dt.scale
+    cap = T.DecimalType.MAX_INT64_PRECISION
+    if d >= 0:
+        return T.DecimalType(min(p - s + 1 + min(s, d), cap), min(s, d))
+    return T.DecimalType(min(max(p - s + 1, 1 - d), cap), 0)
+
+
+def _dec_round(v, dt: T.DecimalType, d: int, half_even: bool, floordiv):
+    """The unscaled values of a decimal rounded to d places (HALF_UP, or
+    HALF_EVEN), at the result type's scale: integer arithmetic on the
+    unscaled values, for torch and numpy planes alike."""
+    if d >= dt.scale:
+        return v
+    q = 10 ** (dt.scale - d)
+    if half_even:
+        base = floordiv(v, q)
+        rem = v - base * q
+        up = (rem > q // 2) | ((rem == q // 2) & (base % 2 != 0))
+        r = base + up * 1
+    else:
+        mag = floordiv(abs(v) + q // 2, q)
+        r = (mag * ((v > 0) * 1 - (v < 0) * 1))
+    return r * (10 ** (-d)) if d < 0 else r
 
 
 def _sqrt(v: torch.Tensor) -> torch.Tensor:
@@ -304,7 +343,7 @@ class _UnaryDouble(Expression):
 
     def eval_cpu(self, cols, ansi=False):
         c = self.children[0].eval_cpu(cols, ansi)
-        v = c.values.astype(np.float64)
+        v = _f64_np(c)
         valid = c.valid
         with np.errstate(all="ignore"):
             if type(self).domain is not None:
@@ -398,29 +437,49 @@ def _double_to_long_np(v):
 
 class _ToLong(Expression):
     """ceil/floor: a long, through Scala's Double.toLong (NaN to 0,
-    saturated at the long range: ``core._to_int``)."""
+    saturated at the long range: ``core._to_int``). Over ``decimal(p, s)``
+    Spark's answer: integer arithmetic on the unscaled values, typed
+    ``decimal(p - s + 1, 0)``."""
 
     fn = None
     fn_cpu = None
+    #: floor (False) or ceil (True) of a decimal
+    up = False
 
     def __init__(self, child):
         self.children = [child]
 
     def data_type(self):
+        dt = self.children[0].data_type()
+        if isinstance(dt, T.DecimalType):
+            return T.DecimalType(min(dt.precision - dt.scale + 1,
+                                     T.DecimalType.MAX_INT64_PRECISION), 0)
         return T.INT64
 
     def with_children(self, children):
         return type(self)(children[0])
 
+    def _dec(self, v, dt, floordiv):
+        q = 10 ** dt.scale
+        return -floordiv(-v, q) if self.up else floordiv(v, q)
+
     def eval(self, ctx):
         from spark_rapids_tpu_torch.expr.core import _to_int
         c = self.children[0].eval(ctx)
+        if isinstance(c.dtype, T.DecimalType):
+            return ColumnVector(self.data_type(),
+                                self._dec(c.data, c.dtype, _floor_div),
+                                _valid_of(c, ctx))
         return ColumnVector(T.INT64,
                             _to_int(type(self).fn(_f64(c)), torch.int64),
                             _valid_of(c, ctx))
 
     def eval_cpu(self, cols, ansi=False):
         c = self.children[0].eval_cpu(cols, ansi)
+        if isinstance(c.dtype, T.DecimalType):
+            return CpuCol(self.data_type(),
+                          self._dec(c.values.astype(np.int64), c.dtype,
+                                    np.floor_divide), c.valid)
         with np.errstate(all="ignore"):
             v = type(self).fn_cpu(c.values.astype(np.float64))
             return CpuCol(T.INT64, _double_to_long_np(v), c.valid)
@@ -429,6 +488,7 @@ class _ToLong(Expression):
 class Ceil(_ToLong):
     fn = staticmethod(torch.ceil)
     fn_cpu = staticmethod(np.ceil)
+    up = True
 
 
 class Floor(_ToLong):
@@ -445,7 +505,10 @@ class Round(Expression):
     BigDecimal rounding. A float rescales by multiplying with 10^-d (not
     dividing), as the JAX package does, so both engines agree bit for bit
     (within an ulp of Spark's BigDecimal rounding); like the JAX package's
-    result, it is a double for a float input too."""
+    result, it is a double for a float input too. A decimal rounds its
+    unscaled value (``_dec_round``) into Spark's result type."""
+
+    half_even = False
 
     def __init__(self, child, scale: int = 0):
         self.children = [child]
@@ -453,8 +516,9 @@ class Round(Expression):
 
     def data_type(self):
         dt = self.children[0].data_type()
-        return dt if dt.is_integral or isinstance(dt, T.DecimalType) \
-            else T.FLOAT64
+        if isinstance(dt, T.DecimalType):
+            return _dec_round_type(dt, self.scale)
+        return dt if dt.is_integral else T.FLOAT64
 
     def _params(self):
         return str(self.scale)
@@ -466,6 +530,10 @@ class Round(Expression):
         c = self.children[0].eval(ctx)
         valid = _valid_of(c, ctx)
         dt = self.data_type()
+        if isinstance(c.dtype, T.DecimalType):
+            return ColumnVector(dt, _dec_round(c.data, c.dtype, self.scale,
+                                               self.half_even, _floor_div),
+                                valid)
         if dt.is_integral:
             if self.scale >= 0:
                 return c
@@ -481,6 +549,10 @@ class Round(Expression):
     def eval_cpu(self, cols, ansi=False):
         c = self.children[0].eval_cpu(cols, ansi)
         dt = self.data_type()
+        if isinstance(c.dtype, T.DecimalType):
+            return CpuCol(dt, _dec_round(c.values.astype(np.int64), c.dtype,
+                                         self.scale, self.half_even,
+                                         np.floor_divide), c.valid)
         with np.errstate(all="ignore"):
             if dt.is_integral:
                 if self.scale >= 0:
@@ -497,7 +569,10 @@ class Round(Expression):
 
 
 class BRound(Expression):
-    """bround(x, d): HALF_EVEN rounding (Spark's Round is HALF_UP)."""
+    """bround(x, d): HALF_EVEN rounding (Spark's Round is HALF_UP); a
+    decimal as in ``Round``."""
+
+    half_even = True
 
     def __init__(self, child, scale: int = 0):
         self.children = [child]
@@ -511,12 +586,17 @@ class BRound(Expression):
 
     def data_type(self):
         dt = self.children[0].data_type()
+        if isinstance(dt, T.DecimalType):
+            return _dec_round_type(dt, self.scale)
         return dt if not isinstance(dt, T.Float32Type) else T.FLOAT32
 
     def eval(self, ctx):
         c = self.children[0].eval(ctx)
         dt = self.data_type()
         valid = _valid_of(c, ctx)
+        if isinstance(c.dtype, T.DecimalType):
+            return ColumnVector(dt, _dec_round(c.data, c.dtype, self.scale,
+                                               True, _floor_div), valid)
         if dt.is_integral:
             if self.scale >= 0:
                 return ColumnVector(dt, c.data, valid)
@@ -537,6 +617,10 @@ class BRound(Expression):
     def eval_cpu(self, cols, ansi=False):
         c = self.children[0].eval_cpu(cols, ansi)
         dt = self.data_type()
+        if isinstance(c.dtype, T.DecimalType):
+            return CpuCol(dt, _dec_round(c.values.astype(np.int64), c.dtype,
+                                         self.scale, True, np.floor_divide),
+                          c.valid)
         if dt.is_integral:
             if self.scale >= 0:
                 return CpuCol(dt, c.values, c.valid)
@@ -578,8 +662,7 @@ class _BinaryDouble(Expression):
     def eval_cpu(self, cols, ansi=False):
         l, r = (c.eval_cpu(cols, ansi) for c in self.children)
         with np.errstate(all="ignore"):
-            v = type(self).fn_cpu(l.values.astype(np.float64),
-                                  r.values.astype(np.float64))
+            v = type(self).fn_cpu(_f64_np(l), _f64_np(r))
         return CpuCol(T.FLOAT64, v, l.valid & r.valid)
 
 
@@ -622,8 +705,7 @@ class Logarithm(Expression):
 
     def eval_cpu(self, cols, ansi=False):
         b, c = (x.eval_cpu(cols, ansi) for x in self.children)
-        bv = b.values.astype(np.float64)
-        cv = c.values.astype(np.float64)
+        bv, cv = _f64_np(b), _f64_np(c)
         ok = (bv > 0) & (cv > 0)
         with np.errstate(divide="ignore", invalid="ignore"):
             v = np.log(np.where(ok, cv, 1.0)) / np.log(np.where(ok, bv, 2.0))
@@ -761,7 +843,7 @@ class WidthBucket(Expression):
 
     def eval_cpu(self, cols, ansi=False):
         cs = [c.eval_cpu(cols, ansi) for c in self.children]
-        v, lo, hi, nb = (c.values.astype(np.float64) for c in cs)
+        v, lo, hi, nb = (_f64_np(c) for c in cs)
         with np.errstate(all="ignore"):
             ok = (nb > 0) & (lo != hi) & np.isfinite(v) & np.isfinite(lo) \
                 & np.isfinite(hi)

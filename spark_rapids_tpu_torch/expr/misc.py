@@ -345,13 +345,10 @@ class ParseUrl(CpuRowFunction):
 
 
 class RaiseError(CpuRowFunction):
-    """raise_error(msg): fails the query when evaluated on any live row.
-    Its column is a STRING column here (the JAX package's is NullType,
-    which the port does not carry yet, ROADMAP A9d); it never holds a
-    value."""
+    """raise_error(msg): fails the query when evaluated on any live row."""
 
     name = "raise_error"
-    result = T.STRING
+    result = T.NULL
 
     def row_fn(self, msg):
         raise SparkException(str(msg))

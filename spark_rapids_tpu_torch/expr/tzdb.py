@@ -12,9 +12,12 @@ GPU):
 - DEVICE, per batch: ``torch.searchsorted`` of the timestamp plane against
   the transition instants + one gather for the offset. The tables are
   uploaded once per (zone, device) and kept (``device_table``,
-  ``device_boundaries``), so a query does not upload them again. Future
-  transitions beyond the TZif data use the last recorded offset, as in the
-  JAX package.
+  ``device_boundaries``), so a query does not upload them again.
+- Past the file's last transition, the TZif v2+ footer's POSIX TZ rule
+  (``EST5EDT,M3.2.0,M11.1.0``) extends the table through the year
+  ``HORIZON_YEAR`` (``_footer_transitions``), so an instant after 2037,
+  or after 2007 in a slim file, takes the offset ``zoneinfo`` and Spark
+  give. The JAX package's device keeps the last recorded offset there.
 
 Local->UTC (``to_utc_timestamp``) resolves through a LOCAL-wall-time
 boundary table (local_boundaries): DST gaps take the pre-gap offset and
@@ -36,6 +39,9 @@ import torch
 
 #: microseconds per second (Spark timestamps are int64 micros)
 _US = 1_000_000
+
+#: the rule of a TZif footer is unrolled through this year
+HORIZON_YEAR = 9999
 
 _TZPATHS = ("/usr/share/zoneinfo", "/usr/lib/zoneinfo",
             "/usr/share/lib/zoneinfo", "/etc/zoneinfo")
@@ -91,22 +97,196 @@ def _parse_block(data: bytes, pos: int, time_size: int):
         np.int64(base), pos
 
 
+# ---------------------------------------------------------------------------
+# The footer's POSIX TZ rule (RFC 8536 section 3.3, POSIX.1 TZ)
+# ---------------------------------------------------------------------------
+
+def _posix_hms(text: str, i: int):
+    """``[+-]hh[:mm[:ss]]`` at text[i]: (seconds, next index). Hours may
+    run to 167 (RFC 8536's extension)."""
+    sign = 1
+    if i < len(text) and text[i] in "+-":
+        sign = -1 if text[i] == "-" else 1
+        i += 1
+    parts = []
+    while True:
+        j = i
+        while j < len(text) and text[j].isdigit():
+            j += 1
+        if j == i:
+            raise ValueError(f"bad time in TZ string {text!r}")
+        parts.append(int(text[i:j]))
+        i = j
+        if len(parts) < 3 and i < len(text) and text[i] == ":":
+            i += 1
+            continue
+        break
+    h, m, sec = (parts + [0, 0])[:3]
+    return sign * (h * 3600 + m * 60 + sec), i
+
+
+def _posix_name(text: str, i: int) -> int:
+    if text[i] == "<":
+        return text.index(">", i) + 1
+    j = i
+    while j < len(text) and text[j].isalpha():
+        j += 1
+    if j - i < 3:
+        raise ValueError(f"bad zone name in TZ string {text!r}")
+    return j
+
+
+def _posix_date(text: str, i: int):
+    """A rule date (``Jn``, ``n`` or ``Mm.w.d``) and its optional
+    ``/time``: ((kind, a, b, c), seconds, next index)."""
+    if text[i] == "M":
+        j = i + 1
+        nums = []
+        for _ in range(3):
+            k = j
+            while k < len(text) and text[k].isdigit():
+                k += 1
+            nums.append(int(text[j:k]))
+            j = k + 1 if k < len(text) and text[k] == "." else k
+        rule, i = ("M", *nums), j
+    else:
+        kind = "J" if text[i] == "J" else "n"
+        if kind == "J":
+            i += 1
+        j = i
+        while j < len(text) and text[j].isdigit():
+            j += 1
+        rule, i = (kind, int(text[i:j]), 0, 0), j
+    at = 7200
+    if i < len(text) and text[i] == "/":
+        at, i = _posix_hms(text, i + 1)
+    return rule, at, i
+
+
+def parse_posix_tz(text: str):
+    """(std UTC offset s, dst UTC offset s, start, end) of a POSIX TZ
+    string, where start and end are (rule, seconds); the last three are
+    None for a zone without DST. UTC offsets are local minus UTC (POSIX
+    writes the opposite sign)."""
+    i = _posix_name(text, 0)
+    std, i = _posix_hms(text, i)
+    std = -std
+    if i >= len(text):
+        return std, None, None, None
+    i = _posix_name(text, i)
+    dst = std + 3600
+    if i < len(text) and text[i] not in ",;":
+        dst, i = _posix_hms(text, i)
+        dst = -dst
+    if i >= len(text):
+        # no rule: POSIX leaves it to the implementation, and the TZif
+        # files always give one
+        return std, None, None, None
+    start, start_at, i = _posix_date(text, i + 1)
+    end, end_at, i = _posix_date(text, i + 1)
+    return std, dst, (start, start_at), (end, end_at)
+
+
+def _rule_day(rule, year: int) -> int:
+    """Days since the epoch of a rule's date in ``year``."""
+    import datetime
+    kind, a, b, c = rule
+    jan1 = datetime.date(year, 1, 1)
+    leap = year % 4 == 0 and (year % 100 != 0 or year % 400 == 0)
+    if kind == "J":  # 1..365, February 29 never counted
+        d = jan1 + datetime.timedelta(days=a - 1 + (leap and a >= 60))
+    elif kind == "n":  # 0..365, February 29 counted
+        d = jan1 + datetime.timedelta(days=a)
+    else:  # Mm.w.d: day c (0 = Sunday) of week b (5 = the last) of month a
+        first = datetime.date(year, a, 1)
+        nxt = datetime.date(year + (a == 12), a % 12 + 1, 1)
+        mdays = (nxt - first).days
+        day = 1 + (c - (first.weekday() + 1) % 7) % 7 + (b - 1) * 7
+        while day > mdays:
+            day -= 7
+        d = first.replace(day=day)
+    return (d - datetime.date(1970, 1, 1)).days
+
+
+def _footer_transitions(tz: str, after_s: int, from_year: int):
+    """(transitions s, offsets s) of the footer rule ``tz`` from
+    ``from_year`` through HORIZON_YEAR, the instants after ``after_s``
+    only; the offset i applies from transition i on."""
+    std, dst, start, end = parse_posix_tz(tz)
+    if dst is None:
+        return [], []
+    out = []
+    for y in range(from_year, HORIZON_YEAR + 1):
+        # a DST start is read on the standard clock, an end on the DST one
+        on = _rule_day(start[0], y) * 86400 + start[1] - std
+        off = _rule_day(end[0], y) * 86400 + end[1] - dst
+        out.extend(sorted([(on, 1, dst), (off, 0, std)]))
+    out = [t for t in out if t[0] > after_s]
+    return [t[0] for t in out], [t[2] for t in out]
+
+
+def _footer(data: bytes, pos: int) -> str:
+    """The v2+ footer's TZ string (between two newlines after the
+    64-bit block), or ""."""
+    if data[pos: pos + 1] != b"\n":
+        return ""
+    end = data.find(b"\n", pos + 1)
+    return data[pos + 1: end].decode("ascii") if end > 0 else ""
+
+
+def _read_zone(zone: str):
+    """(transitions s, offsets s, base offset s, footer TZ string) of a
+    zone's TZif file."""
+    data = _read_tzif(zone)
+    trans, offs, base, pos = _parse_block(data, 0, 4)
+    tz = ""
+    if data[4:5] in (b"2", b"3", b"4"):
+        # v2+: a second block with 64-bit times supersedes the v1 data
+        trans, offs, base, pos = _parse_block(data, pos, 8)
+        tz = _footer(data, pos)
+    return trans, offs, base, tz
+
+
 @lru_cache(maxsize=256)
 def zone_table(zone: str) -> Tuple[np.ndarray, np.ndarray]:
     """(transitions_us int64[n], offsets_us int64[n+1]) for a zone.
     offsets_us[i] applies to instants < transitions_us[i] (offsets_us[0]
-    before all transitions); offsets_us[n] after the last. A zone without
-    transitions gives an empty table and its one fixed offset."""
-    data = _read_tzif(zone)
-    trans, offs, base, pos = _parse_block(data, 0, 4)
-    if data[4:5] in (b"2", b"3"):
-        # v2+: a second block with 64-bit times supersedes the v1 data
-        trans, offs, base, _ = _parse_block(data, pos, 8)
+    before all transitions); offsets_us[n] after the last. The footer's
+    rule extends the file's transitions through HORIZON_YEAR. A zone
+    without transitions gives an empty table and its one fixed offset."""
+    import datetime
+    trans, offs, base, tz = _read_zone(zone)
+    if tz:
+        if len(trans):
+            last = int(trans[-1])
+            year = (datetime.datetime(1970, 1, 1)
+                    + datetime.timedelta(seconds=last)).year
+        else:
+            last, year = -(2 ** 62), 1
+        more_t, more_o = _footer_transitions(tz, last, year)
+        if more_t:
+            trans = np.concatenate([trans, np.asarray(more_t, np.int64)])
+            offs = np.concatenate([offs, np.asarray(more_o, np.int64)])
     if len(trans) == 0:
         fixed = np.asarray([base * _US], np.int64)
         return np.zeros(0, np.int64), fixed
     offsets = np.concatenate([[base], offs]) * _US
     return trans * _US, offsets
+
+
+def table_span(zone: str) -> Tuple[int, int, int]:
+    """(the year of the TZif file's last transition, the year of the
+    extended table's last one, the table's entries): what the footer rule
+    added."""
+    import datetime
+
+    def year(s):
+        return (datetime.datetime(1970, 1, 1)
+                + datetime.timedelta(seconds=int(s))).year
+    trans = _read_zone(zone)[0]
+    table = zone_table(zone)[0]
+    return (year(trans[-1]) if len(trans) else 0,
+            year(table[-1] // _US) if len(table) else 0, len(table))
 
 
 def utc_offset_us(zone: str, ts_us: np.ndarray) -> np.ndarray:

@@ -1,10 +1,11 @@
-"""Footer-statistics row-group pruning.
+"""Footer-statistics row-group pruning and hive partition-file pruning.
 
-Counterpart of ``spark_rapids_tpu/io/parquet_pruning.py`` (row groups
-only; hive partition-file pruning is not ported, and neither is ``In``,
-which the port's expressions do not have). Row groups whose column
+Counterpart of ``spark_rapids_tpu/io/parquet_pruning.py`` (without
+``In``, which the pushdown does not hand over). Row groups whose column
 min/max statistics prove that no row can satisfy a pushed-down conjunct
-are never read (Spark RAPIDS ``GpuParquetScan`` filterBlocks).
+are never read (Spark RAPIDS ``GpuParquetScan`` filterBlocks), and
+neither is a file whose hive partition values refute one
+(``prune_partition_file``).
 
 The evaluator is a conservative tri-state interval check: a conjunct may
 only drop a row group when the statistics prove no row can satisfy it
@@ -175,3 +176,34 @@ def prune_row_groups(metadata, filters: Sequence[E.Expression]
         if all(_may_match(f, stats) for f in filters):
             kept.append(g)
     return kept, total
+
+
+def prune_partition_file(partition_values: Dict[str, Optional[str]],
+                         schema, filters: Sequence[E.Expression]) -> bool:
+    """False when a file's hive partition values refute a pushed conjunct.
+    Partition values arrive as strings (or None); they are cast to the
+    scan schema's column type before the interval check."""
+    from spark_rapids_tpu_torch import types as T
+    stats: Dict[str, _ColStats] = {}
+    for k, v in partition_values.items():
+        if v is None:
+            stats[k] = _ColStats(None, None, 1, 1)
+            continue
+        dt = None
+        for f in schema.fields:
+            if f.name == k:
+                dt = f.dtype
+        pv: object = v
+        try:
+            if isinstance(dt, T.IntegralType):
+                pv = int(v)
+            elif isinstance(dt, (T.Float32Type, T.Float64Type)):
+                pv = float(v)
+            elif isinstance(dt, T.DateType):
+                pv = datetime.date.fromisoformat(v)
+            elif isinstance(dt, T.BooleanType):
+                pv = v.lower() == "true"
+        except ValueError:
+            pass
+        stats[k] = _ColStats(pv, pv, 0, 1)
+    return all(_may_match(f, stats) for f in filters)

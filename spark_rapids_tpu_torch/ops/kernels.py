@@ -491,12 +491,18 @@ def flat_string_as_dict(col: ColumnVector) -> ColumnVector:
 class LazyGatheredCols:
     """A column list that gathers each source column by a shared index
     plane on its first access, and keeps the result: window functions
-    evaluate over sorted row order, where most columns are never read."""
+    evaluate over sorted row order, and a lambda body over the element
+    plane (``expr/hof.py``), where most columns are never read.
+    ``src_live`` marks the source's live rows where a mask selects
+    them."""
 
-    def __init__(self, cols, indices, num_rows):
+    def __init__(self, cols, indices, num_rows, src_live=None,
+                 gather=None):
         self._cols = cols
         self._idx = indices
         self._rows = num_rows
+        self._live = src_live
+        self._gather = gather or gather_column
         self._cache = {}
 
     def __len__(self):
@@ -505,7 +511,8 @@ class LazyGatheredCols:
     def __getitem__(self, i):
         out = self._cache.get(i)
         if out is None:
-            out = gather_column(self._cols[i], self._idx, self._rows)
+            out = self._gather(self._cols[i], self._idx, self._rows,
+                               src_live=self._live)
             self._cache[i] = out
         return out
 

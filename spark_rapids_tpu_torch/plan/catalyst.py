@@ -23,8 +23,7 @@ Format facts (TreeNode.scala jsonValue):
 
 An unsupported class raises SparkException naming it, in the JAX
 package's words. Where the port lacks what the JAX package maps, it raises
-as well: a decimal above 18 digits (DECIMAL64) and the untyped null
-(ROADMAP A9d).
+as well: a decimal above 18 digits (DECIMAL64).
 """
 from __future__ import annotations
 
@@ -99,7 +98,7 @@ _DTYPES = {
     "boolean": T.BOOLEAN, "byte": T.INT8, "short": T.INT16,
     "integer": T.INT32, "long": T.INT64, "float": T.FLOAT32,
     "double": T.FLOAT64, "string": T.STRING, "date": T.DATE,
-    "timestamp": T.TIMESTAMP,
+    "timestamp": T.TIMESTAMP, "null": T.NULL,
 }
 
 
@@ -113,10 +112,6 @@ def _dtype(s) -> T.DataType:
             from spark_rapids_tpu_torch.plan.ingest import decimal_type
             return decimal_type(int(m.group(1)), int(m.group(2)),
                                 "catalyst plan")
-        if s == "null":
-            raise SparkException(
-                "catalyst plan: dataType 'null' needs NullType, which this "
-                "engine does not have yet (ROADMAP A9d)")
     raise SparkException(f"catalyst plan: unsupported dataType {s!r}")
 
 

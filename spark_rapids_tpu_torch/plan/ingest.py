@@ -37,9 +37,9 @@ Aggregates: {"fn": "sum|count|min|max|avg|...", "child": <expr>?,
 "alias": str}. Types use the supported-ops spelling: int, long, double,
 string, date, timestamp, decimal(p,s) (p at most 18: DECIMAL64), array<T>.
 
-Where the JAX package reads more than this engine runs, ingestion raises
-at once, naming the ROADMAP item: a text scan (A7) and a function of
-``functions.NOT_PORTED`` (A9d).
+Scans: {"node": "parquet_scan", "paths": [...], "columns": [...]?} and
+{"node": "text_scan", "format": "csv|json|orc|avro", "paths": [...],
+"columns": [...]?}.
 """
 from __future__ import annotations
 
@@ -76,11 +76,7 @@ def decimal_type(precision: int, scale: int, where: str) -> T.DecimalType:
 def function(name: str, where: str):
     """The ``sql/functions.py`` function of that name."""
     from spark_rapids_tpu_torch.sql import functions as F
-    fn = getattr(F, name, None)
-    if fn is None and name in F.NOT_PORTED:
-        raise SparkException(f"{where}: function {name!r} is not ported to "
-                             f"this engine yet (ROADMAP A9d)")
-    return fn
+    return getattr(F, name, None)
 
 
 def parse_type(s: str) -> T.DataType:
@@ -142,9 +138,8 @@ def parse_node(d) -> P.PlanNode:
     if node == "parquet_scan":
         return P.ParquetScan(list(d["paths"]), columns=d.get("columns"))
     if node == "text_scan":
-        raise SparkException(
-            f"plan ingestion: text_scan ({d.get('format')}) needs the "
-            f"readers of ROADMAP A7, which this engine does not have yet")
+        return P.TextScan(d["format"], list(d["paths"]),
+                          columns=d.get("columns"))
     if node == "in_memory":
         import pyarrow as pa
         return P.InMemorySource(pa.table(d["rows"]),

@@ -1,8 +1,9 @@
 """Logical plan nodes with schema inference and name binding.
 
 Counterpart of ``spark_rapids_tpu/plan/nodes.py`` for the nodes this
-engine runs: ``InMemorySource``, ``ParquetScan``, ``Range``, ``CachedRelation`` (the
-``df.cache()`` marker), ``Project``, ``Filter``, ``Aggregate``,
+engine runs: ``InMemorySource``, ``ParquetScan`` (with hive partition
+columns), ``TextScan`` (CSV, JSON lines, Avro, ORC), ``Range``,
+``CachedRelation`` (the ``df.cache()`` marker), ``Project``, ``Filter``, ``Aggregate``,
 ``Repartition``, ``Sort`` (with ``SortOrder``), ``Limit``, ``Join``,
 ``WindowNode``, ``Union``, ``Expand`` and ``Generate``. ``describe()`` is a node's line
 in the placement report (``plan/overrides.py`` ``explain``), in the JAX
@@ -112,34 +113,186 @@ class InMemorySource(PlanNode):
                 f"{self.num_partitions} parts]")
 
 
+class TextScan(PlanNode):
+    """A CSV, JSON-lines, Avro or ORC file scan, one partition per file:
+    a host parse into a pyarrow table (pyarrow's readers, or
+    ``io/avro.read_avro``), then the standard upload (reference
+    GpuCSVScan / GpuJsonScan / GpuOrcScan / GpuAvroScan)."""
+
+    FORMATS = ("csv", "json", "orc", "avro")
+
+    def __init__(self, fmt: str, paths: Sequence[str],
+                 schema: Optional[T.Schema] = None,
+                 columns: Optional[List[str]] = None,
+                 options: Optional[dict] = None):
+        if fmt not in self.FORMATS:
+            raise ValueError(f"text scan format {fmt!r} is not one of "
+                             f"{self.FORMATS}")
+        self.fmt = fmt
+        self.paths = list(paths)
+        self._schema = schema
+        self.columns = columns
+        self.options = options or {}
+        self.children = []
+
+    def _csv_read_options(self, **kw):
+        import pyarrow.csv as pcsv
+        opts = self.options
+        return pcsv.ReadOptions(
+            column_names=opts.get("column_names"),
+            autogenerate_column_names=not opts.get("header", True)
+            and not opts.get("column_names"), **kw)
+
+    def read_host(self, path: str):
+        """One file as a pyarrow Table (the host parse)."""
+        if self.fmt == "csv":
+            import pyarrow.csv as pcsv
+            # the column types are pinned to the PLAN schema (inferred
+            # from the first block): a whole-file inference could disagree
+            # with what the plan was built for
+            column_types = None
+            if self._schema is not None:
+                column_types = {f.name: T.to_arrow(f.dtype)
+                                for f in self._schema.fields}
+            return pcsv.read_csv(
+                path, read_options=self._csv_read_options(),
+                parse_options=pcsv.ParseOptions(
+                    delimiter=self.options.get("sep", ",")),
+                convert_options=pcsv.ConvertOptions(
+                    include_columns=self.columns or None,
+                    column_types=column_types))
+        if self.fmt == "json":
+            import pyarrow.json as pjson
+            t = pjson.read_json(path)
+        elif self.fmt == "avro":
+            from spark_rapids_tpu_torch.io.avro import read_avro
+            t = read_avro(path)
+        else:
+            import pyarrow.orc as porc
+            return porc.ORCFile(path).read(columns=self.columns)
+        return t.select(self.columns) if self.columns else t
+
+    @property
+    def schema(self) -> T.Schema:
+        if self._schema is None:
+            if not self.paths:
+                raise FileNotFoundError("TextScan: no input files")
+            if self.fmt == "orc":
+                import pyarrow.orc as porc
+                pa_schema = porc.ORCFile(self.paths[0]).schema
+            elif self.fmt == "csv":
+                import pyarrow.csv as pcsv
+                # the schema of the first block only
+                with pcsv.open_csv(
+                        self.paths[0],
+                        read_options=self._csv_read_options(
+                            block_size=1 << 20),
+                        parse_options=pcsv.ParseOptions(
+                            delimiter=self.options.get("sep", ","))) as r:
+                    pa_schema = r.schema
+            else:  # json and avro: parse the first file
+                pa_schema = self.read_host(self.paths[0]).schema
+            fields = [T.StructField(f.name, T.from_arrow(f.type))
+                      for f in pa_schema]
+            if self.columns:
+                # the data comes back in the REQUESTED order: the schema
+                # follows it, or names would bind to the wrong columns
+                by_name = {f.name: f for f in fields}
+                fields = [by_name[c] for c in self.columns]
+            self._schema = T.Schema(tuple(fields))
+        return self._schema
+
+    def describe(self):
+        return f"TextScan[{self.fmt}, {len(self.paths)} files]"
+
+
 class ParquetScan(PlanNode):
     """Parquet files, one partition per file. The schema is read from the
-    first file's footer (cut to ``columns``, in their order). Filter
-    pushdown (plan/overrides.py) fills ``pushed_filters``, which prune
-    row groups by footer statistics; the filter itself stays in the
-    plan."""
+    first file's footer (cut to ``columns``, in their order), then the
+    hive partition columns, last. Filter pushdown (plan/overrides.py)
+    fills ``pushed_filters``, which prune partition files by their
+    partition values and row groups by footer statistics; the filter
+    itself stays in the plan."""
 
     def __init__(self, paths: Sequence[str],
-                 columns: Optional[List[str]] = None):
+                 columns: Optional[List[str]] = None,
+                 partition_values: Optional[List[dict]] = None):
         self.paths = list(paths)
         self.columns = list(columns) if columns else None
         self.pushed_filters: List[Expression] = []
+        #: hive-layout partition values per file (key -> str or None),
+        #: appended as constant columns
+        self.partition_values = partition_values
+        #: the columns to read from the FILES: partition columns are not
+        #: in them
+        self.file_columns = self.columns
+        if self.columns and partition_values:
+            pkeys = {k for v in partition_values for k in v}
+            self.file_columns = [c for c in self.columns if c not in pkeys]
         self._schema: Optional[T.Schema] = None
         self.children = []
+
+    def partition_fields(self) -> List[T.StructField]:
+        """The partition columns, in discovery order: INT64 when every
+        non-null value parses as an integer, else STRING."""
+        if not self.partition_values:
+            return []
+        keys: List[str] = []
+        for vals in self.partition_values:
+            for k in vals:
+                if k not in keys:
+                    keys.append(k)
+        if self.columns:
+            keys = [k for k in keys if k in self.columns]
+        fields = []
+        for k in keys:
+            non_null = [v.get(k) for v in self.partition_values
+                        if v.get(k) is not None]
+            dt = T.STRING
+            if non_null:
+                try:
+                    for v in non_null:
+                        int(v)
+                    dt = T.INT64
+                except ValueError:
+                    pass
+            fields.append(T.StructField(k, dt))
+        return fields
+
+    def partition_arrays(self, file_idx: int, n: int):
+        """(field, pyarrow array of n equal values) of each partition
+        column of one file."""
+        import pyarrow as pa
+        vals = self.partition_values[file_idx] if self.partition_values \
+            else {}
+        out = []
+        for f in self.partition_fields():
+            v = vals.get(f.name)
+            if v is not None and f.dtype == T.INT64:
+                v = int(v)
+            out.append((f, pa.array([v] * n, type=T.to_arrow(f.dtype))))
+        return out
+
+    def with_partition_cols(self, table, file_idx: int):
+        """A host table of one file with its constant partition columns
+        appended."""
+        for f, arr in self.partition_arrays(file_idx, table.num_rows):
+            table = table.append_column(f.name, arr)
+        return table
 
     @property
     def schema(self):
         if self._schema is None:
             import pyarrow.parquet as pq
             arrow = pq.read_schema(self.paths[0])
-            names = self.columns or arrow.names
+            names = self.file_columns if self.columns else arrow.names
             missing = [c for c in names if c not in arrow.names]
             if missing:
                 raise KeyError(f"columns {missing} not in {self.paths[0]!r}")
             # only the read columns need a type the engine carries
             self._schema = T.Schema(tuple(
                 T.StructField(n, T.from_arrow(arrow.field(n).type))
-                for n in names))
+                for n in names) + tuple(self.partition_fields()))
         return self._schema
 
     def describe(self):

@@ -53,6 +53,8 @@ from spark_rapids_tpu_torch.expr import complex as CX
 from spark_rapids_tpu_torch.expr import core as E
 from spark_rapids_tpu_torch.expr import cpu_functions as CF
 from spark_rapids_tpu_torch.expr import datetime as DT
+from spark_rapids_tpu_torch.expr import hof as H
+from spark_rapids_tpu_torch.expr import json_functions as JF
 from spark_rapids_tpu_torch.expr import math as MA
 from spark_rapids_tpu_torch.expr import misc as MX
 from spark_rapids_tpu_torch.expr import strings as S
@@ -174,6 +176,8 @@ def _cast_check(e) -> Optional[str]:
                                                T.DateType, T.TimestampType)):
             return None
         return f"cast string -> {dst!r} not supported on device"
+    if isinstance(src, T.NullType):
+        return None
     return f"cast {src!r} -> {dst!r} not supported on device"
 
 
@@ -333,6 +337,35 @@ for _cls, _doc in ((CF.FindInSet, "find_in_set"),
               extra=_cpu_tier(f"{_doc} runs on CPU"))
 expr_rule(CF.RegexpExtractAll, _NESTED_OK, _NESTED_OK, "regexp_extract_all",
           extra=_cpu_tier("regexp_extract_all runs on CPU"))
+expr_rule(CF.JsonTuple, _NESTED_OK, _NESTED_OK, "json_tuple",
+          extra=_cpu_tier("json_tuple runs on CPU"))
+expr_rule(CF.StructsToJson, _NESTED_OK, _NESTED_OK, "to_json",
+          extra=_cpu_tier("to_json runs on CPU"))
+
+# JSON functions (reference GpuGetJsonObject / GpuJsonToStructs): the host
+# parse tier, with a visible fallback
+for _jcls in JF.JSON_FUNCTIONS:
+    expr_rule(_jcls, Sigs.COMMON, _NESTED_OK,
+              f"{_jcls.name} (host JSON parse)",
+              extra=lambda e: f"{e.name} runs on CPU (host JSON parse)")
+
+# higher-order functions (lambdas over arrays and maps, expr/hof.py); a
+# lambda body's own expressions are tagged with the function's node
+expr_rule(H.LambdaVar, Sigs.COMMON, Sigs.COMMON, "lambda parameter")
+expr_rule(H.ArrayTransform, _NESTED_OK, _NESTED_OK,
+          "transform(array, lambda)")
+expr_rule(H.ArrayFilter, _NESTED_OK, _NESTED_OK, "filter(array, lambda)")
+expr_rule(H.ArrayExists, _NESTED_OK, Sigs.COMMON, "exists(array, lambda)")
+expr_rule(H.ArrayForAll, _NESTED_OK, Sigs.COMMON, "forall(array, lambda)")
+expr_rule(H.TransformKeys, _NESTED_OK, _NESTED_OK,
+          "transform_keys(map, lambda)")
+expr_rule(H.TransformValues, _NESTED_OK, _NESTED_OK,
+          "transform_values(map, lambda)")
+expr_rule(H.MapFilter, _NESTED_OK, _NESTED_OK, "map_filter(map, lambda)")
+expr_rule(H.ZipWith, _NESTED_OK, _NESTED_OK, "zip_with(a, b, lambda)")
+expr_rule(H.ArrayAggregate, _NESTED_OK, Sigs.COMMON,
+          "aggregate(array, zero, merge[, finish]) — CPU fold",
+          extra=lambda e: "aggregate() sequential lambda fold runs on CPU")
 
 
 # complex types (complexTypeExtractors / complexTypeCreator /
@@ -350,7 +383,8 @@ def _primitive_elements_only(what: str):
 
 def _create_array_check(e: E.Expression) -> Optional[str]:
     if isinstance(e.data_type().element, (T.StringType, T.ArrayType,
-                                          T.StructType, T.MapType)):
+                                          T.StructType, T.MapType,
+                                          T.NullType)):
         return "array() of non-fixed-width elements runs on CPU"
     return None
 
@@ -559,7 +593,7 @@ def localize_expr(e: E.Expression, tz: str) -> E.Expression:
     timestamp casts), so every datetime expression stays a plain UTC
     computation (reference: the GpuTimeZoneDB rewrite inside each datetime
     kernel; here one plan-level rule)."""
-    return e.transform(_localize_node_fn(tz))
+    return H.bind_lambda_types(e).transform(_localize_node_fn(tz))
 
 
 def localize_plan(plan: P.PlanNode, conf) -> P.PlanNode:
@@ -578,7 +612,7 @@ def localize_plan(plan: P.PlanNode, conf) -> P.PlanNode:
     node_f = _localize_node_fn(tz)
 
     def fix(e):
-        return e.transform(node_f)
+        return H.bind_lambda_types(e).transform(node_f)
 
     def fix_orders(orders):
         return [dataclasses.replace(o, expr=fix(o.expr)) for o in orders]
@@ -742,7 +776,8 @@ class SparkPlanMeta:
     #: concatenation, no key normalization; the JAX package's list, for
     #: the port's nodes)
     NESTED_SCHEMA_NODES = (P.Project, P.Filter, P.Generate,
-                           P.InMemorySource, P.ParquetScan, P.Limit,
+                           P.InMemorySource, P.ParquetScan, P.TextScan,
+                           P.Limit,
                            P.Union, P.Sort, P.CachedRelation, P.Aggregate)
 
     def _tag_schema(self) -> None:
@@ -956,6 +991,9 @@ def _convert_node(plan: P.PlanNode, children, conf, device) -> X.TorchExec:
                 conf, device)
         return X.CoalesceBatchesExec(
             plan, [X.ParquetScanExec(plan, [], conf, device)], conf, device)
+    if isinstance(plan, P.TextScan):
+        return X.CoalesceBatchesExec(
+            plan, [X.TextScanExec(plan, [], conf, device)], conf, device)
     if isinstance(plan, P.CachedRelation):
         return X.CachedScanExec(plan, children, conf, device)
     if isinstance(plan, P.Project):

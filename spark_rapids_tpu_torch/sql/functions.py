@@ -52,6 +52,7 @@ functions of ``expr/array_ops.py`` (``array_min``/``array_max``,
 ``map_from_arrays``, ``str_to_map``) and ``sequence`` (on the CPU)."""
 from __future__ import annotations
 
+from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.expr import aggregates as A
 from spark_rapids_tpu_torch.expr import array_ops as AO
 from spark_rapids_tpu_torch.expr import complex as CX
@@ -65,15 +66,10 @@ from spark_rapids_tpu_torch.expr import window as W
 from spark_rapids_tpu_torch.expr.core import Expression, col, lit
 
 
-#: the JAX package's functions this module does not have yet: the lambdas
-#: and JSON (ROADMAP A9d). The SQL front door and the plan ingestion raise
-#: naming A9d where a query calls one of them, rather than calling it an
-#: unknown function.
-NOT_PORTED = (
-    "aggregate", "exists", "filter", "forall", "from_json",
-    "get_json_object", "json_tuple", "map_filter", "reduce", "to_json",
-    "transform", "transform_keys", "transform_values", "zip_with",
-)
+#: the JAX package's public functions this module does not have: none
+#: since the lambdas and JSON of ROADMAP A9d (a test holds it to the
+#: difference of the two modules)
+NOT_PORTED = ()
 
 
 def _e(c) -> Expression:
@@ -814,6 +810,107 @@ def map_keys(c):
 
 def map_values(c):
     return CX.MapValues(_e(c))
+
+
+def get_json_object(c, path: str):
+    from spark_rapids_tpu_torch.expr import json_functions as JF
+    return JF.GetJsonObject(_e(c), params=(path,))
+
+
+def from_json(c, schema):
+    from spark_rapids_tpu_torch.expr import json_functions as JF
+    return JF.JsonToStructs(_e(c), params=(schema,))
+
+
+def json_tuple(c, *fields):
+    from spark_rapids_tpu_torch.expr.cpu_functions import JsonTuple
+    return JsonTuple(_e(c), params=tuple(fields))
+
+
+def to_json(c):
+    from spark_rapids_tpu_torch.expr.cpu_functions import StructsToJson
+    return StructsToJson(_e(c))
+
+
+# ---------------------------------------------------------------------------
+# Higher-order functions (lambdas over arrays and maps, expr/hof.py)
+# ---------------------------------------------------------------------------
+
+def _lambda(fn, n_args, names):
+    """(body, vars) of a Python callable: its arity (at least one, at most
+    ``n_args``) picks the parameters; their types bind later."""
+    import builtins
+    import inspect
+    from spark_rapids_tpu_torch.expr import hof as H
+    try:
+        arity = len(inspect.signature(fn).parameters)
+    except (TypeError, ValueError):
+        arity = n_args
+    arity = builtins.min(builtins.max(arity, 1), n_args)
+    return H.make_lambda(fn, [T.NULL] * arity, names[:arity])
+
+
+def transform(c, fn):
+    """transform(array, x -> expr) or transform(array, (x, i) -> expr)."""
+    from spark_rapids_tpu_torch.expr import hof as H
+    body, vs = _lambda(fn, 2, ["x", "i"])
+    return H.ArrayTransform(_e(c), body, vs)
+
+
+def filter(c, fn):  # noqa: A001 - Spark's F.filter
+    """filter(array, x -> bool) / filter(array, (x, i) -> bool)."""
+    from spark_rapids_tpu_torch.expr import hof as H
+    body, vs = _lambda(fn, 2, ["x", "i"])
+    return H.ArrayFilter(_e(c), body, vs)
+
+
+def exists(c, fn):
+    from spark_rapids_tpu_torch.expr import hof as H
+    body, vs = _lambda(fn, 1, ["x"])
+    return H.ArrayExists(_e(c), body, vs)
+
+
+def forall(c, fn):
+    from spark_rapids_tpu_torch.expr import hof as H
+    body, vs = _lambda(fn, 1, ["x"])
+    return H.ArrayForAll(_e(c), body, vs)
+
+
+def aggregate(c, zero, merge, finish=None):
+    """aggregate(array, zero, (acc, x) -> new_acc[, acc -> out])."""
+    from spark_rapids_tpu_torch.expr import hof as H
+    body, vs = _lambda(merge, 2, ["acc", "x"])
+    fb = fvs = None
+    if finish is not None:
+        fb, fvs = _lambda(finish, 1, ["acc"])
+    return H.ArrayAggregate(_e(c), _e(zero), body, vs, fb, fvs)
+
+
+reduce = aggregate  # Spark 3.4+ alias
+
+
+def zip_with(a, b, fn):
+    from spark_rapids_tpu_torch.expr import hof as H
+    body, vs = _lambda(fn, 2, ["x", "y"])
+    return H.ZipWith(_e(a), _e(b), body, vs)
+
+
+def transform_keys(c, fn):
+    from spark_rapids_tpu_torch.expr import hof as H
+    body, vs = _lambda(fn, 2, ["k", "v"])
+    return H.TransformKeys(_e(c), body, vs)
+
+
+def transform_values(c, fn):
+    from spark_rapids_tpu_torch.expr import hof as H
+    body, vs = _lambda(fn, 2, ["k", "v"])
+    return H.TransformValues(_e(c), body, vs)
+
+
+def map_filter(c, fn):
+    from spark_rapids_tpu_torch.expr import hof as H
+    body, vs = _lambda(fn, 2, ["k", "v"])
+    return H.MapFilter(_e(c), body, vs)
 
 
 def array_min(c):

@@ -14,10 +14,9 @@ device, while the query is parsed); and the scalar grammar (arithmetic,
 comparisons, AND/OR/NOT, BETWEEN, IN, LIKE, IS NULL, CASE WHEN, CAST(x AS
 type), function calls routed through ``sql/functions.py``). A query
 outside the subset raises SparkException with the offending token, in the
-JAX package's words: parse or reject, never misread. A function the JAX
-package has and this engine does not yet (``functions.NOT_PORTED``)
-raises naming ROADMAP A9d; so does the untyped NULL literal, which needs
-the NullType of A9d.
+JAX package's words: parse or reject, never misread. The untyped NULL
+literal is a NULL-typed literal, as in the JAX package. Lambdas have no
+SQL syntax here, as there: they come through the DataFrame API.
 """
 from __future__ import annotations
 
@@ -325,10 +324,6 @@ class _Parser:
             raise SparkException(
                 f"SQL: DISTINCT inside {name}() is not supported")
         fn = getattr(F, name.lower(), None)
-        if fn is None and name.lower() in F.NOT_PORTED:
-            raise SparkException(
-                f"SQL: function {name!r} is not ported to this engine yet "
-                f"(ROADMAP A9d)")
         if fn is None or not callable(fn):
             raise SparkException(f"SQL: unknown function {name!r}")
         out = fn(*args)
@@ -423,9 +418,7 @@ class _Parser:
         if self.kw("false"):
             return E.lit(False)
         if self.kw("null"):
-            raise SparkException(
-                "SQL: the untyped NULL literal needs NullType, which this "
-                "engine does not have yet (ROADMAP A9d)")
+            return E.Literal(None, T.NULL)
         if self.kw("case"):
             return self._case()
         if self.kw("exists"):

@@ -1,7 +1,9 @@
 """The session: entry point of the PyTorch engine.
 
 Counterpart of ``spark_rapids_tpu/sql/session.py`` ``TpuSession``
-(``create_dataframe``, ``range``, ``read_parquet``, the SQL front door:
+(``create_dataframe``, ``range``, the readers: ``read_parquet`` with hive
+partition discovery, ``read_csv``, ``read_json``, ``read_avro`` and
+``read_orc``; the SQL front door:
 ``create_or_replace_temp_view``, ``table`` and ``sql``, ``collect``,
 ``last_aqe`` and ``explain_aqe``, and the device-side compaction of sparse
 results before the download).
@@ -34,6 +36,45 @@ from spark_rapids_tpu_torch.plan.overrides import (
 from spark_rapids_tpu_torch.sql.dataframe import DataFrame
 
 _LOG = logging.getLogger("spark_rapids_tpu_torch")
+
+
+def _discover_hive(root: str):
+    """Walk a directory for hive-layout partitions (``k=v`` directories):
+    (files, each file's partition values) or (files, None) when the
+    layout is flat (reference: Spark's PartitioningAwareFileIndex). A
+    value ``__HIVE_DEFAULT_PARTITION__`` is null, the others are
+    URL-unescaped; Parquet files in a directory that is not a partition
+    raise."""
+    from urllib.parse import unquote
+    files, vals = [], []
+    found_parts = False
+    for dirpath, dirnames, filenames in os.walk(root):
+        dirnames.sort()
+        rel = os.path.relpath(dirpath, root)
+        parts = {}
+        if rel != ".":
+            for seg in rel.split(os.sep):
+                if "=" not in seg:
+                    if any(f.endswith(".parquet") for f in filenames):
+                        raise ValueError(
+                            f"mixed layout under {root!r}: parquet files in "
+                            f"non-partition directory {dirpath!r}")
+                    parts = None
+                    break
+                k, _, v = seg.partition("=")
+                parts[k] = (None if v == "__HIVE_DEFAULT_PARTITION__"
+                            else unquote(v))
+            if parts:
+                found_parts = True
+        if parts is None:
+            continue
+        for f in sorted(filenames):
+            if f.endswith(".parquet") and not f.startswith("_"):
+                files.append(os.path.join(dirpath, f))
+                vals.append(parts)
+    if not files:
+        raise FileNotFoundError(f"no parquet files under {root!r}")
+    return files, (vals if found_parts else None)
 
 #: per-thread collect nesting depth: only a top-level action (depth 0 at
 #: entry) opens and closes the adaptive decision list
@@ -98,19 +139,28 @@ class TorchSession:
         return DataFrame(P.Range(start, end, step, num_partitions), self)
 
     def read_parquet(self, *paths, columns=None) -> DataFrame:
-        """Parquet files, flat directories of them (``*.parquet``, names
+        """Parquet files, directories of them (``*.parquet``, names
         starting with ``_`` skipped) or glob patterns; one partition per
-        file. Decoded on the device unless
-        spark.rapids.sql.decode.device.enabled is false."""
+        file. One directory in a hive layout (``k=v`` subdirectories)
+        gives its partition columns, last in the schema. Decoded on the
+        device unless spark.rapids.sql.decode.device.enabled is false."""
+        if len(paths) == 1 and os.path.isdir(paths[0]):
+            files, part_vals = _discover_hive(paths[0])
+            if part_vals is not None:
+                return DataFrame(P.ParquetScan(
+                    files, columns, partition_values=part_vals), self)
+        return DataFrame(P.ParquetScan(
+            self._expand_paths(paths, suffix=".parquet"), columns), self)
+
+    @staticmethod
+    def _expand_paths(paths, suffix: str = "") -> List[str]:
+        """Files, a directory's files ending in ``suffix`` (names starting
+        with ``_`` skipped) and glob patterns, in sorted order."""
         files: List[str] = []
         for p in paths:
             if os.path.isdir(p):
-                if any("=" in d.name for d in os.scandir(p) if d.is_dir()):
-                    raise NotImplementedError(
-                        f"hive partition discovery (k=v directories under "
-                        f"{p!r}) is not ported yet")
                 files.extend(sorted(
-                    f for f in glob.glob(os.path.join(p, "*.parquet"))
+                    f for f in glob.glob(os.path.join(p, "*" + suffix))
                     if os.path.isfile(f)
                     and not os.path.basename(f).startswith("_")))
             elif any(ch in p for ch in "*?["):
@@ -119,7 +169,32 @@ class TorchSession:
                 files.append(p)
         if not files:
             raise FileNotFoundError(f"no input files matched {list(paths)!r}")
-        return DataFrame(P.ParquetScan(files, columns), self)
+        return files
+
+    def read_csv(self, *paths, header: bool = True, sep: str = ",",
+                 columns=None) -> DataFrame:
+        """CSV files, parsed on the host; the column types are inferred
+        from the first file's first block and pinned for every file."""
+        return DataFrame(P.TextScan("csv", self._expand_paths(paths),
+                                    columns=columns,
+                                    options={"header": header, "sep": sep}),
+                         self)
+
+    def read_json(self, *paths, columns=None) -> DataFrame:
+        """JSON-lines files, parsed on the host (nested objects become
+        structs, arrays arrays)."""
+        return DataFrame(P.TextScan("json", self._expand_paths(paths),
+                                    columns=columns), self)
+
+    def read_avro(self, *paths, columns=None) -> DataFrame:
+        """Avro object container files (``io/avro.py``)."""
+        return DataFrame(P.TextScan("avro", self._expand_paths(paths),
+                                    columns=columns), self)
+
+    def read_orc(self, *paths, columns=None) -> DataFrame:
+        """ORC files, read through pyarrow."""
+        return DataFrame(P.TextScan("orc", self._expand_paths(paths),
+                                    columns=columns), self)
 
     def collect(self, plan: P.PlanNode) -> pa.Table:
         depth = getattr(_COLLECT_DEPTH, "d", 0)

@@ -6,8 +6,8 @@ since the epoch), timestamp (int64 microseconds since the epoch, UTC),
 DECIMAL64 (unscaled int64 values, precision at most 18), UTF-8 strings
 (offsets + bytes, or dictionary codes + vocabulary), arrays (int32
 offsets + a child column), structs (one child column per field, at the
-row capacity) and maps (int32 offsets + key and value child columns).
-The NULL type waits for ROADMAP A9d.
+row capacity) and maps (int32 offsets + key and value child columns),
+and the NULL type (an int8 zero plane, every row invalid).
 The class names, singletons and ``common_type`` widening rules are the
 same as the JAX package's, so plans and results line up, and so are the
 type signatures that plan tagging checks (``TypeSig``, ``Sigs``).
@@ -45,6 +45,13 @@ class DataType:
     @property
     def is_integral(self) -> bool:
         return isinstance(self, IntegralType)
+
+
+class NullType(DataType):
+    """The type of an untyped NULL: an int8 carrier plane, every row
+    invalid."""
+    np_dtype = np.dtype(np.int8)
+    torch_dtype = torch.int8
 
 
 class BooleanType(DataType):
@@ -134,6 +141,7 @@ class ArrayType(DataType):
         return f"array<{self.element!r}>"
 
 
+NULL = NullType()
 BOOLEAN = BooleanType()
 INT8 = Int8Type()
 INT16 = Int16Type()
@@ -220,6 +228,10 @@ def common_type(a: DataType, b: DataType) -> DataType:
     if a in _NUMERIC_ORDER and b in _NUMERIC_ORDER:
         return _NUMERIC_ORDER[max(_NUMERIC_ORDER.index(a),
                                   _NUMERIC_ORDER.index(b))]
+    if isinstance(a, NullType):
+        return b
+    if isinstance(b, NullType):
+        return a
     raise TypeError(f"no common type for {a!r} and {b!r}")
 
 
@@ -256,6 +268,8 @@ def from_arrow(at) -> DataType:
                 f"{at}: decimals carry at most "
                 f"{DecimalType.MAX_INT64_PRECISION} digits (DECIMAL64)")
         return DecimalType(at.precision, at.scale)
+    if pa.types.is_null(at):
+        return NULL
     if pa.types.is_list(at) or pa.types.is_large_list(at):
         return ArrayType(from_arrow(at.value_type))
     if pa.types.is_struct(at):
@@ -281,15 +295,13 @@ def to_arrow(dtype: DataType):
         BOOLEAN: pa.bool_(), INT8: pa.int8(), INT16: pa.int16(),
         INT32: pa.int32(), INT64: pa.int64(), FLOAT32: pa.float32(),
         FLOAT64: pa.float64(), STRING: pa.string(), DATE: pa.date32(),
-        TIMESTAMP: pa.timestamp("us"),
+        TIMESTAMP: pa.timestamp("us"), NULL: pa.null(),
     }[dtype]
 
 
 # ---------------------------------------------------------------------------
 # TypeSig: set algebra over supported types (the JAX package's
-# ``types.TypeSig``, after the reference's TypeChecks.scala). The tag of
-# the type the port does not carry yet ("NULL") stays in the signatures,
-# so it can be added without rewriting them.
+# ``types.TypeSig``, after the reference's TypeChecks.scala).
 # ---------------------------------------------------------------------------
 
 _BASE_ORDER = [
@@ -298,9 +310,9 @@ _BASE_ORDER = [
     "STRUCT", "MAP",
 ]
 
-_TAGS = {BooleanType: "BOOLEAN", Int8Type: "INT8", Int16Type: "INT16",
-         Int32Type: "INT32", Int64Type: "INT64", Float32Type: "FLOAT32",
-         Float64Type: "FLOAT64", DecimalType: "DECIMAL64",
+_TAGS = {NullType: "NULL", BooleanType: "BOOLEAN", Int8Type: "INT8",
+         Int16Type: "INT16", Int32Type: "INT32", Int64Type: "INT64",
+         Float32Type: "FLOAT32", Float64Type: "FLOAT64", DecimalType: "DECIMAL64",
          StringType: "STRING", DateType: "DATE", TimestampType: "TIMESTAMP",
          ArrayType: "ARRAY", StructType: "STRUCT", MapType: "MAP"}
 

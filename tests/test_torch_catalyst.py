@@ -6,12 +6,10 @@ Catalyst plan JSON (``plan/catalyst.py``) and the versioned plan contract
   carry a ``class``) through both ``ingest_catalyst`` over the same
   Parquet files, one case per file: the same answer.
 - The contract cases of ``tests/test_plan_ingest.py`` through both
-  ``ingest``; the nodes the port cannot run yet raise at ingest, naming
-  the ROADMAP item: ``text_scan`` (A7) and a function of A9d, where the
-  JAX package answers; ``generate`` answers as the JAX package does.
-- What the port's types cannot carry raises too: a decimal above 18
-  digits, the untyped null; an unsupported class raises the JAX package's
-  message.
+  ``ingest``: ``generate``, ``text_scan`` (ROADMAP A7) and a function of
+  A9d (``to_json``) answer as the JAX package does.
+- What the port's types cannot carry raises: a decimal above 18 digits;
+  an unsupported class raises the JAX package's message.
 
 Tolerances: exact, but float sums and averages, relative 1e-12 (the JAX
 package aggregates over the tests' eight virtual devices, partial ->
@@ -27,6 +25,7 @@ import pyarrow.parquet as pq
 import pytest
 
 from asserts import assert_tables_equal
+import torch_port_helpers as H
 from torch_port_helpers import jax_api, torch_api
 
 from spark_rapids_tpu.plan.catalyst import ingest_catalyst as jax_catalyst
@@ -118,8 +117,12 @@ def test_port_types_raise_where_they_cannot_carry(env):
     assert got.num_rows == 4000 and got.column(0)[0] == want.column(0)[0]
     with pytest.raises(SparkException, match="DECIMAL64"):
         ingest_catalyst(_literal_plan(data, "decimal(20,2)", "1.00"), port)
-    with pytest.raises(SparkException, match="ROADMAP A9"):
-        ingest_catalyst(_literal_plan(data, "null", None), port)
+    # the untyped null is NullType since ROADMAP A9d, as in the JAX
+    # package: a column of nulls
+    got = ingest_catalyst(_literal_plan(data, "null", None), port).collect()
+    want = jax_catalyst(_literal_plan(data, "null", None), ref).collect()
+    assert got.schema.types == want.schema.types == [pa.null()]
+    assert got.num_rows == want.num_rows == 4000
 
 
 # ---------------------------------------------------------------------------
@@ -212,6 +215,14 @@ GENERATE_DOC = {"version": 1, "plan": {
 TEXT_DOC = {"version": 1, "plan": {"node": "text_scan", "format": "csv",
                                    "paths": ["lineitem.csv"]}}
 
+
+def _text_doc(tmp_path):
+    """TEXT_DOC over a CSV file of bench.py's lineitem columns."""
+    import pyarrow.csv as pcsv
+    path = str(tmp_path / "lineitem.csv")
+    pcsv.write_csv(H.make_lineitem(500), path)
+    return {"version": 1, "plan": dict(TEXT_DOC["plan"], paths=[path])}
+
 CALL_A9_DOC = {"version": 1, "plan": {
     "node": "project",
     "exprs": [{"expr": "call", "fn": "to_json",
@@ -234,8 +245,22 @@ CALL_YEAR_DOC = {"version": 1, "plan": {
     ("generate", GENERATE_DOC, None),
     ("text_scan", TEXT_DOC, "ROADMAP A7"),
     ("call_not_ported", CALL_A9_DOC, "ROADMAP A9")])
-def test_contract_raises_at_ingest_naming_the_roadmap(case, doc, item, env):
+def test_contract_raises_at_ingest_naming_the_roadmap(case, doc, item, env,
+                                                     tmp_path):
+    # the ROADMAP items these cases named are ported: A7's text_scan and
+    # A9d's to_json answer as the JAX package does
     _, port, ref = env
+    if case == "text_scan":
+        doc = _text_doc(tmp_path)
+    if case != "generate":
+        got = ingest(doc, port).collect()
+        assert_tables_equal(got, jax_ingest(doc, ref).collect())
+        if case == "call_not_ported":
+            assert [list(r.values())[0] for r in got.to_pylist()] == \
+                ['{"a":1}', '{"a":3}']
+        else:
+            assert got.num_rows == 500
+        return
     if case == "generate":
         # the nested slice ported Generate: the port answers as the JAX
         # package does (the sequence input runs on the CPU in both)
@@ -243,13 +268,6 @@ def test_contract_raises_at_ingest_naming_the_roadmap(case, doc, item, env):
         assert_tables_equal(got, jax_ingest(doc, ref).collect())
         assert sorted(r["col"] for r in got.to_pylist()) == [1, 1, 2, 2, 3]
         return
-    with pytest.raises(SparkException, match=item):
-        ingest(doc, port)
-    if case == "call_not_ported":
-        # to_json waits for the JSON functions (A9d); the JAX package
-        # has it
-        assert [list(r.values())[0] for r in jax_ingest(
-            doc, ref).collect().to_pylist()] == ['{"a":1}', '{"a":3}']
 
 
 def test_contract_datetime_call_equals_jax(env):

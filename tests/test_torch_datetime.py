@@ -229,10 +229,17 @@ def test_floor_semantics_of_the_civil_helpers():
 
 @pytest.mark.parametrize("zone", ZONES + ["UTC"])
 def test_zone_tables_equal_jax_and_upload_once(zone):
+    # the JAX package's table is the TZif file's; the port's goes on with
+    # the footer's rule (ROADMAP C15), so the JAX table is its prefix
     for got, want in ((TZ.zone_table(zone), JZ.zone_table(zone)),
                       (TZ.local_boundaries(zone),
                        JZ.local_boundaries(zone))):
-        assert all(np.array_equal(g, w) for g, w in zip(got, want))
+        n = len(want[0])
+        assert np.array_equal(got[0][:n], want[0])
+        assert np.array_equal(got[1][:n + 1], want[1])
+    last, horizon, _ = TZ.table_span(zone)
+    has_dst = TZ.parse_posix_tz(TZ._read_zone(zone)[3])[1] is not None
+    assert horizon == (TZ.HORIZON_YEAR if has_dst else last)
     first = TZ.device_table(zone, "cpu")
     assert TZ.device_table(zone, torch.device("cpu"))[0] is first[0]
     assert TZ.source(zone).endswith(zone)
@@ -547,3 +554,168 @@ def _walk(meta):
     yield meta
     for c in meta.children:
         yield from _walk(c)
+
+
+# ---------------------------------------------------------------------------
+# ROADMAP C13: timestamp literals
+# ---------------------------------------------------------------------------
+
+def _c13_table():
+    us = [949_320_000_000_000 + k * 86_400_000_000 * 37 for k in range(-5, 6)]
+    return pa.table({"t": pa.array(us + [None], pa.timestamp("us"))})
+
+
+@pytest.mark.parametrize("aware", [False, True])
+def test_timestamp_literal_in_projection_comparison_and_months_between(
+        aware):
+    """A datetime.datetime literal is a TIMESTAMP (C13): a projection, a
+    comparison and months_between, on the port's device and CPU, equal
+    the JAX package's answer (naive means UTC; an aware value converts by
+    its own offset)."""
+    tz = dtm.timezone(dtm.timedelta(hours=-5)) if aware else None
+    lit_v = dtm.datetime(2000, 1, 31, 12, 0, 0, 250_000, tzinfo=tz)
+    got = []
+    for api in (torch_api(), jax_api()):
+        F, c, lit = api.F, api.col, api.lit
+        assert lit(lit_v).data_type() == api.T.TIMESTAMP
+        df = api.session().create_dataframe(_c13_table()).select(
+            c("t"), lit(lit_v).alias("l"), (c("t") > lit(lit_v)).alias("gt"),
+            F.months_between(c("t"), lit(lit_v)).alias("mb"))
+        got.append(df.collect())
+        if api.T is not jax_api().T:
+            got.append(df.collect_cpu())
+    _same(got[0], got[2], ulp=("mb",))
+    _same(got[1], got[2], ulp=("mb",))
+    want = int((lit_v.replace(tzinfo=tz or dtm.timezone.utc)
+                - dtm.datetime(1970, 1, 1, tzinfo=dtm.timezone.utc))
+               // dtm.timedelta(microseconds=1))
+    assert got[0].column("l").cast(pa.int64()).to_pylist()[0] == want
+
+
+def test_timestamp_literal_roadmap_case():
+    """months_between of a timestamp column and a datetime literal: the
+    JAX package's 292.5338, which the port raised on before C13."""
+    t = pa.table({"t": pa.array([dtm.datetime(2024, 6, 17, 1, 8, 48)],
+                                pa.timestamp("us"))})
+    out = []
+    for api in (torch_api(), jax_api()):
+        out.append(api.session().create_dataframe(t).select(
+            api.F.months_between(api.col("t"), api.lit(
+                dtm.datetime(2000, 1, 31, 12))).alias("mb")).collect()
+            .column("mb").to_pylist()[0])
+    assert _ulp_equal(out[0], out[1]) and round(out[0], 4) == 292.5338
+
+
+# ---------------------------------------------------------------------------
+# ROADMAP C15: zone offsets past the TZif table
+# ---------------------------------------------------------------------------
+
+def _far_instants(n=300, seed=31):
+    rng = np.random.default_rng(seed)
+    span = 158 * 365 * 86_400
+    return rng.integers(-span, span, n) * 10 ** 6 \
+        + rng.integers(0, 10 ** 6, n)
+
+
+@pytest.mark.parametrize("zone", ["America/New_York", "Europe/London"])
+def test_far_instants_follow_the_footer_rule(zone):
+    """300 seeded instants within +-158 years: from_utc_timestamp and
+    to_utc_timestamp on the port's device and CPU equal zoneinfo's
+    (Spark's answer); the JAX package's device keeps the last recorded
+    offset past its table's end and differs on some (C15)."""
+    us = _far_instants()
+    t = pa.table({"ts": pa.array(us, pa.timestamp("us"))})
+    want_from = _zoneinfo_from_utc(zone, us)
+    want_to = _zoneinfo_to_utc(zone, us)
+
+    def build(api):
+        F, c = api.F, api.col
+        return api.session().create_dataframe(t).select(
+            F.from_utc_timestamp(c("ts"), zone).alias("f"),
+            F.to_utc_timestamp(c("ts"), zone).alias("u"))
+    df = build(torch_api())
+    for got in (df.collect(), df.collect_cpu()):
+        assert _ints(got, "f") == want_from
+        assert _ints(got, "u") == want_to
+    jax = build(jax_api()).collect()
+    assert _ints(jax, "f") != want_from
+    late = us > 2_200_000_000 * 10 ** 6
+    assert np.array_equal(np.asarray(_ints(jax, "f"))[~late],
+                          np.asarray(want_from)[~late])
+
+
+def _tzif_slim(transitions, types, footer: str) -> bytes:
+    """A version 2 TZif file (RFC 8536) with an empty version 1 block, the
+    64-bit transitions and their types, and the footer's TZ string: the
+    layout of a zone file built with ``zic -b slim``."""
+    import struct
+
+    def block(trans, idx, tys, chars, width):
+        out = struct.pack(">4sc15x6I", b"TZif", b"2", 0, 0, 0, len(trans),
+                          len(tys), len(chars))
+        out += struct.pack(">%d%s" % (len(trans), "q" if width == 8 else "l"),
+                           *trans)
+        out += bytes(idx)
+        for off, dst, ab in tys:
+            out += struct.pack(">lBB", off, dst, ab)
+        return out + chars
+    v1 = block([], [], [(types[0][0], 0, 0)], b"LMT\0", 4)
+    v2 = block([t for t, _ in transitions], [i for _, i in transitions],
+               types, b"EST\0EDT\0", 8)
+    return v1 + v2 + b"\n" + footer.encode() + b"\n"
+
+
+def test_slim_tzif_file_extends_by_its_footer(tmp_path, monkeypatch):
+    """A zone file that stops at 2007 (a slim build) still gives New
+    York's daylight time after 2007, from its footer's rule."""
+    def utc(y, m, d, h):
+        return int(dtm.datetime(y, m, d, h, tzinfo=dtm.timezone.utc)
+                   .timestamp())
+    trans = []
+    for y, on, off in ((2005, (4, 3), (10, 30)), (2006, (4, 2), (10, 29)),
+                       (2007, (3, 11), (11, 4))):
+        trans += [(utc(y, *on, 7), 1), (utc(y, *off, 6), 0)]
+    data = _tzif_slim(trans, [(-18000, 0, 0), (-14400, 1, 4)],
+                      "EST5EDT,M3.2.0,M11.1.0")
+    (tmp_path / "Test").mkdir()
+    (tmp_path / "Test" / "Slim").write_bytes(data)
+    monkeypatch.setattr(TZ, "_TZPATHS", (str(tmp_path),))
+    TZ.zone_table.cache_clear()
+    TZ.local_boundaries.cache_clear()
+    try:
+        assert TZ.table_span("Test/Slim")[:2] == (2007, TZ.HORIZON_YEAR)
+        us = _far_instants(300, 7)
+        us = us[us > utc(2008, 1, 1, 0) * 10 ** 6]
+        ny = np.asarray(_zoneinfo_from_utc("America/New_York", us)) - us
+        assert np.array_equal(TZ.utc_offset_us("Test/Slim", us), ny)
+        t = pa.table({"ts": pa.array(us, pa.timestamp("us"))})
+        api = torch_api()
+        df = api.session().create_dataframe(t).select(
+            api.F.from_utc_timestamp(api.col("ts"), "Test/Slim").alias("f"))
+        for got in (df.collect(), df.collect_cpu()):
+            assert np.array_equal(np.asarray(_ints(got, "f")) - us, ny)
+        summer = TZ.utc_offset_us("Test/Slim", np.asarray(
+            [utc(2020, 7, 1, 12) * 10 ** 6]))
+        assert summer[0] == -4 * 3600 * 10 ** 6
+    finally:
+        TZ.zone_table.cache_clear()
+        TZ.local_boundaries.cache_clear()
+        TZ._DEVICE_TABLES.clear()
+
+
+@pytest.mark.parametrize("tz,year,want", [
+    # Sydney: DST across the new year; an end at 03:00 local
+    ("AEST-10AEDT,M10.1.0,M4.1.0/3", 2050, [(2050, 4, 2, 16), (2050, 10, 1,
+                                                               16)]),
+    # Julian day forms and hours past 24 or below 0
+    ("XST3XDT,J60/25,300/-1", 2051, [(2051, 3, 2, 4), (2051, 10, 28, 1)]),
+    # every instant daylight: start at day 0, end after the last day
+    ("EST5EDT4,0/0,J365/25", 2052, [(2052, 1, 1, 5), (2053, 1, 1, 5)]),
+])
+def test_posix_rule_forms(tz, year, want):
+    std, dst, start, end = TZ.parse_posix_tz(tz)
+    got_t, got_o = TZ._footer_transitions(tz, -(2 ** 62), year)
+    first = [dtm.datetime(1970, 1, 1) + dtm.timedelta(seconds=s)
+             for s in got_t[:2]]
+    assert [(d.year, d.month, d.day, d.hour) for d in first] == want
+    assert set(got_o) <= {std, dst}

@@ -389,3 +389,105 @@ def test_tpch_shapes_over_lineitem_dec(lineitem_dec, query, parts):
             got["l_returnflag"].to_pylist(), got["l_linestatus"].to_pylist(),
             got["sq"].to_pylist(), got["sp"].to_pylist())}
         assert got_sums == want_sums
+
+
+# ---------------------------------------------------------------------------
+# ROADMAP C14: math over DECIMAL gives Spark's value and type
+# ---------------------------------------------------------------------------
+
+C14_VALUES = ["272.7688", "-272.7650", "272.7650", "0.0500", "-0.0500",
+              "99999999.9999", "-0.0001", None]
+
+
+def _c14_table():
+    return pa.table({"x": pa.array(
+        [None if v is None else decimal.Decimal(v) for v in C14_VALUES],
+        pa.decimal128(12, 4))})
+
+
+def _spark_round(v, d, mode):
+    """Spark's round/bround of a Decimal to d places, in BigDecimal's
+    terms (HALF_UP or HALF_EVEN)."""
+    if v is None:
+        return None
+    q = decimal.Decimal(1).scaleb(-max(d, 0)) if d >= 0 \
+        else decimal.Decimal(1).scaleb(-d)
+    r = v.quantize(q, rounding=mode) if d >= 0 else \
+        (v / q).quantize(decimal.Decimal(1), rounding=mode) * q
+    return r.quantize(decimal.Decimal(1).scaleb(-min(4, max(d, 0))))
+
+
+@pytest.mark.parametrize("d", [-2, -1, 0, 1, 3, 4, 6])
+def test_round_and_bround_of_decimals_are_spark_s(d):
+    """round is HALF_UP and bround HALF_EVEN on the unscaled value, typed
+    decimal(p - s + 1 + min(s, d), min(s, d)) (d >= 0) or
+    decimal(max(p - s + 1, 1 - d), 0), on the device and the CPU. The
+    JAX package answers with a double of the unscaled value for round,
+    and the input unchanged for bround (C14)."""
+    t = _c14_table()
+    vals = t.column("x").to_pylist()
+    scale = min(4, d) if d >= 0 else 0
+    prec = 12 - 4 + 1 + min(4, d) if d >= 0 else max(12 - 4 + 1, 1 - d)
+    api = torch_api()
+    df = api.session().create_dataframe(t).select(
+        api.F.round(api.col("x"), d).alias("r"),
+        api.F.bround(api.col("x"), d).alias("b"))
+    for got in (df.collect(), df.collect_cpu()):
+        assert got.schema.field("r").type == pa.decimal128(prec, scale)
+        assert got.schema.field("b").type == pa.decimal128(prec, scale)
+        assert got.column("r").to_pylist() == [
+            _spark_round(v, d, decimal.ROUND_HALF_UP) for v in vals]
+        assert got.column("b").to_pylist() == [
+            _spark_round(v, d, decimal.ROUND_HALF_EVEN) for v in vals]
+    if d == 1:
+        api = jax_api()
+        jax = api.session().create_dataframe(t).select(
+            api.F.round(api.col("x"), d).alias("r"),
+            api.F.bround(api.col("x"), d).alias("b")).collect()
+        assert jax.column("r").to_pylist()[0] == 2727688.0
+        assert jax.column("b").to_pylist()[0] == decimal.Decimal("272.7688")
+
+
+def test_round_roadmap_case():
+    api = torch_api()
+    got = api.session().create_dataframe(_c14_table()).select(
+        api.F.round(api.col("x"), 1).alias("r")).collect()
+    assert got.schema.field("r").type == pa.decimal128(10, 1)
+    assert got.column("r").to_pylist()[0] == decimal.Decimal("272.8")
+
+
+def test_floor_ceil_and_double_functions_of_decimals():
+    """floor and ceil are integer ops on the unscaled value, typed
+    decimal(p - s + 1, 0); sqrt, log, pow and the other double functions
+    read unscaled / 10^scale. The JAX package answers floor/ceil as the
+    unscaled int64 and sqrt of the unscaled value (C14)."""
+    t = _c14_table()
+    vals = t.column("x").to_pylist()
+    api = torch_api()
+    F, c = api.F, api.col
+    df = api.session().create_dataframe(t).select(
+        F.floor(c("x")).alias("fl"), F.ceil(c("x")).alias("ce"),
+        F.sqrt(c("x")).alias("sq"), F.log10(c("x")).alias("lg"),
+        F.pow(c("x"), 2.0).alias("pw"), F.exp(c("x") / c("x")).alias("e1"))
+    for got in (df.collect(), df.collect_cpu()):
+        assert got.schema.field("fl").type == pa.decimal128(9, 0)
+        assert got.column("fl").to_pylist() == [
+            None if v is None else v.to_integral_value(decimal.ROUND_FLOOR)
+            for v in vals]
+        assert got.column("ce").to_pylist() == [
+            None if v is None else v.to_integral_value(decimal.ROUND_CEILING)
+            for v in vals]
+        for name, fn in (("sq", math.sqrt), ("lg", math.log10)):
+            for v, g in zip(vals, got.column(name).to_pylist()):
+                if v is None or v <= 0:
+                    continue
+                assert abs(g - fn(float(v))) <= 1e-12 * abs(fn(float(v)))
+        for v, g in zip(vals, got.column("pw").to_pylist()):
+            if v is not None:
+                assert abs(g - float(v) ** 2) <= 1e-12 * float(v) ** 2
+    api = jax_api()
+    jax = api.session().create_dataframe(t).select(
+        api.F.floor(api.col("x")).alias("fl"),
+        api.F.sqrt(api.col("x")).alias("sq")).collect().to_pylist()[0]
+    assert jax["fl"] == 2727688
+    assert abs(jax["sq"] - math.sqrt(2727688)) < 1e-9

@@ -491,11 +491,15 @@ def test_read_parquet_directories_and_hive_layout(tmp_path):
     assert cols.columns == ["l_discount", "l_shipdate"]
     with pytest.raises(KeyError):
         P.session().read_parquet(str(d), columns=["nope"]).columns
+    # a k=v layout is a hive-partitioned scan: the partition column is
+    # last, an integer, as in the JAX package (tests/test_torch_readers.py
+    # holds the layouts against it)
     hive = tmp_path / "hive" / "k=1"
     hive.mkdir(parents=True)
     pq.write_table(t, str(hive / "a.parquet"))
-    with pytest.raises(NotImplementedError, match="hive partition"):
-        P.session().read_parquet(str(tmp_path / "hive"))
+    got = P.session().read_parquet(str(tmp_path / "hive"))
+    assert got.columns == t.column_names + ["k"]
+    assert set(got.collect().column("k").to_pylist()) == {1}
     with pytest.raises(FileNotFoundError):
         P.session().read_parquet(str(tmp_path / "none*.parquet"))
 

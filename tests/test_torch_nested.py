@@ -830,3 +830,33 @@ def _jax_walk(e):
     yield e
     for c in e.children:
         yield from _jax_walk(c)
+
+
+@pytest.mark.parametrize("form", ["dataframe", "sql"])
+def test_explode_of_a_built_array_c16(form):
+    """ROADMAP C16: the JAX package's CPU backend raises on an explode of
+    an array built in the query (``if not items:`` over a numpy array,
+    spark_rapids_tpu/exec/cpu_backend.py:296); both of the port's tiers
+    answer, as does the JAX package's device."""
+    t = pa.table({"k": pa.array([1, 2, None], pa.int64())})
+    want = [{"k": 1, "e": 1}, {"k": 1, "e": 2}, {"k": 2, "e": 2},
+            {"k": 2, "e": 3}, {"k": None, "e": None}, {"k": None, "e": None}]
+
+    def build(api):
+        s = api.session()
+        df = s.create_dataframe(t)
+        if form == "sql":
+            s.create_or_replace_temp_view("t", df)
+            return s.sql("SELECT k, explode(array(k, k + 1)) AS e FROM t")
+        return df.select(api.col("k"), api.F.explode(api.F.array(
+            api.col("k"), api.col("k") + api.lit(1))).alias("e"))
+
+    def rows(tbl):
+        return sorted(tbl.to_pylist(), key=repr)
+    df = build(torch_api())
+    assert rows(df.collect()) == rows(df.collect_cpu()) == sorted(want,
+                                                                  key=repr)
+    jdf = build(jax_api())
+    assert rows(jdf.collect()) == sorted(want, key=repr)
+    with pytest.raises(ValueError, match="truth value"):
+        jdf.collect_cpu()

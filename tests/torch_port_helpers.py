@@ -193,6 +193,19 @@ def chosen_execs(root) -> list:
     return out
 
 
+def placement(overrides, df, conf) -> list:
+    """(plan node, reasons) of every node a package's tagging keeps off
+    the device, top down, with the JAX package's TPU named GPU."""
+    def walk(meta):
+        yield meta
+        for c in meta.children:
+            yield from walk(c)
+    return [(type(m.plan).__name__,
+             [r.replace("TPU", "GPU") for r in m.reasons])
+            for m in walk(overrides.wrap_and_tag(df.plan, conf))
+            if m.reasons]
+
+
 def jax_api() -> SimpleNamespace:
     from spark_rapids_tpu import types as T
     from spark_rapids_tpu.expr import core as E
@@ -1481,3 +1494,216 @@ def nx_generate_doc(path: str) -> dict:
                   "input": c("l_price"),
                   "child": {"node": "parquet_scan", "paths": [path],
                             "columns": ["o_orderdate", "l_price"]}}}}
+
+
+# ---------------------------------------------------------------------------
+# Lambdas, JSON and the file readers (the formats phase)
+# ---------------------------------------------------------------------------
+
+#: lx_fold_fb's and js_to_json_fb's orders: o_orderkey % 300 == 0
+LX_FOLD_MOD = 300
+#: the plan nodes of each formats shape on the CPU, top down: the host
+#: tier (the JSON parse, the fold)
+FORMATS_CPU_NODES = {"lx_fold_fb": ["Project"],
+                     "js_path_rows": ["Project"],
+                     "js_from_json": ["Project"],
+                     "js_to_json_fb": ["Project"]}
+
+
+def lx_array_preds(api, df):
+    """Per order year: the orders, and the sums of four lambdas over the
+    line arrays (a filter's size, exists, forall against the order's own
+    date: an outer reference, and a filter of an indexed transform)."""
+    col, lit, F, T = api.col, api.lit, api.F, api.T
+    od = col("o_info").getField("orderdate")
+    return (df.select(
+        F.year(od).alias("y"),
+        F.size(F.filter(col("l_price"), lambda p: p > lit(50000.0)))
+        .alias("hi"),
+        F.exists(col("l_qty"), lambda q: q >= lit(50.0)).cast(T.INT64)
+        .alias("big"),
+        F.forall(col("l_ship"), lambda d: d > od).cast(T.INT64)
+        .alias("late"),
+        F.size(F.filter(F.transform(col("l_qty"), lambda q, i: q * i),
+                        lambda v: v > lit(100.0))).alias("heavy"))
+        .group_by(col("y"))
+        .agg(F.count(col("y")).alias("n"), F.sum("hi").alias("hi"),
+             F.sum("big").alias("big"), F.sum("late").alias("late"),
+             F.sum("heavy").alias("heavy")))
+
+
+def lx_zip_explode(api, df):
+    """zip_with of the prices and quantities, exploded, summed and counted
+    per order year (an order with null prices has a null product array,
+    which explodes to no row)."""
+    col, F = api.col, api.F
+    return (df.select(
+        F.year(col("o_info").getField("orderdate")).alias("y"),
+        F.explode(F.zip_with(col("l_price"), col("l_qty"),
+                             lambda p, q: p * q)).alias("pq"))
+        .group_by(col("y"))
+        .agg(F.sum("pq").alias("s"), F.count("pq").alias("n")))
+
+
+def lx_map_lambdas(api, df):
+    """transform_values, map_filter and transform_keys (lower(k)) over the
+    flag-pair map, exploded and summed per key."""
+    col, lit, F = api.col, api.lit, api.F
+    m = F.transform_keys(
+        F.map_filter(F.transform_values(col("o_flag_qty"),
+                                        lambda k, v: v * lit(2.0)),
+                     lambda k, v: v > lit(10.0)),
+        lambda k, v: F.lower(k))
+    return (df.select(F.explode(m))
+            .group_by(col("key"))
+            .agg(F.sum("value").alias("q"), F.count("value").alias("n")))
+
+
+def lx_fold_fb(api, df):
+    """aggregate() (a CPU fold) over about one order in 300: the filter on
+    the device, the Project on the CPU."""
+    col, lit, F = api.col, api.lit, api.F
+    return (df.filter(col("o_orderkey") % lit(LX_FOLD_MOD) == lit(0))
+            .select(col("o_orderkey"),
+                    F.aggregate(col("l_qty"), lit(0.0),
+                                lambda acc, x: acc + x,
+                                lambda acc: acc / lit(2.0)).alias("half")))
+
+
+def orders_json_lines(lineitem: pa.Table, orders: pa.Table, n: int) -> list:
+    """The first ``n`` orders as JSON documents, one a line, with their
+    lines nested as orders_nested carries them, three aligned arrays in
+    lineitem order: {"orderkey", "custkey", "orderdate" (ISO), "qty",
+    "price", "flag"} (the flag the returnflag and linestatus pair). Built
+    with numpy and string formatting."""
+    import datetime
+    key = lineitem["l_orderkey"].to_numpy()
+    keep = np.flatnonzero(key < n)
+    keep = keep[np.argsort(key[keep], kind="stable")]
+    k = key[keep]
+    qty = [repr(v) for v in lineitem["l_quantity"].to_numpy()[keep].tolist()]
+    price = [repr(v) for v in
+             lineitem["l_extendedprice"].to_numpy()[keep].tolist()]
+    flag = ['"' + a + b + '"' for a, b in zip(
+        lineitem["l_returnflag"].to_numpy(False)[keep].tolist(),
+        lineitem["l_linestatus"].to_numpy(False)[keep].tolist())]
+    bounds = np.searchsorted(k, np.arange(n + 1)).tolist()
+    odate = orders["o_orderdate"].to_numpy()[:n]
+    cust = orders["o_custkey"].to_numpy()[:n].tolist()
+    epoch = datetime.date(1970, 1, 1)
+    days = {int(d): (epoch + datetime.timedelta(days=int(d))).isoformat()
+            for d in np.unique(odate)}
+    out = []
+    for o in range(n):
+        a, b = bounds[o], bounds[o + 1]
+        out.append(f'{{"orderkey":{o},"custkey":{cust[o]},"orderdate":'
+                   f'"{days[int(odate[o])]}","qty":[{",".join(qty[a:b])}],'
+                   f'"price":[{",".join(price[a:b])}],'
+                   f'"flag":[{",".join(flag[a:b])}]}}')
+    return out
+
+
+#: fm_json_lines' and js_from_json's group keys: orderkey % these (12-bit
+#: keys: the segsum route takes keys of 11 to 24 bits)
+FM_JSON_MOD, JS_MOD = 4096, 4096
+
+
+def fm_json_lines(api, df, n=8):
+    """read_json's orders: the prices exploded beside an int32 key of the
+    order, hash-repartitioned by it, summed and counted per key."""
+    col, lit, F, T = api.col, api.lit, api.F, api.T
+    lines = df.select(
+        (col("orderkey") % lit(FM_JSON_MOD)).cast(T.INT32).alias("b"),
+        F.explode(col("price")).alias("p"))
+    return (lines.repartition(n, col("b"))
+            .group_by(col("b"))
+            .agg(F.sum("p").alias("s"), F.count("p").alias("n")))
+
+
+def js_path_rows(api, df):
+    """get_json_object and json_tuple over the documents (CPU Project)."""
+    col, F = api.col, api.F
+    return df.select(
+        F.get_json_object(col("doc"), "$.price[0]").alias("p0"),
+        F.json_tuple(col("doc"), "orderkey", "custkey").alias("jt"))
+
+
+def js_from_json(api, df):
+    """from_json of each document's prices into array<double> (CPU
+    Project: the host parse), exploded beside a key of the order and
+    summed per key on the device."""
+    col, lit, F, T = api.col, api.lit, api.F, api.T
+    parsed = df.select(
+        (F.get_json_object(col("doc"), "$.orderkey").cast(T.INT64)
+         % lit(JS_MOD)).alias("g"),
+        F.from_json(F.get_json_object(col("doc"), "$.price"),
+                    T.ArrayType(T.FLOAT64)).alias("pr"))
+    return (parsed.select(col("g"), F.explode(col("pr")).alias("p"))
+            .group_by(col("g"))
+            .agg(F.sum("p").alias("s"), F.count("p").alias("n")))
+
+
+def js_to_json_fb(api, df):
+    col, lit, F = api.col, api.lit, api.F
+    return (df.filter(col("o_orderkey") % lit(LX_FOLD_MOD) == lit(0))
+            .select(col("o_orderkey"), F.to_json(col("o_info")).alias("j")))
+
+
+NULL_SQL = ("SELECT l_returnflag, NULL AS z, count(*) AS n FROM lineitem "
+            "WHERE l_returnflag IN ('A', NULL) GROUP BY l_returnflag")
+
+
+def write_hive_lineitem(lineitem: pa.Table, root: str, **write_kw) -> int:
+    """lineitem in a l_returnflag=/l_linestatus= layout, one Parquet file
+    a pair (the partition columns out of the files, row groups of 2^20
+    rows unless ``write_kw`` says otherwise), the six files written on
+    six threads; returns the files."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+    rest = [c for c in lineitem.column_names
+            if c not in ("l_returnflag", "l_linestatus")]
+
+    def write(pair):
+        f, st = pair
+        sub = lineitem.filter(pc.and_(
+            pc.equal(lineitem["l_returnflag"], f),
+            pc.equal(lineitem["l_linestatus"], st))).select(rest)
+        d = os.path.join(root, f"l_returnflag={f}", f"l_linestatus={st}")
+        os.makedirs(d, exist_ok=True)
+        pq.write_table(sub, os.path.join(d, "part-0.parquet"),
+                       **{"row_group_size": 1 << 20, **write_kw})
+    pairs = [(f, st) for f in "ANR" for st in "FO"]
+    with ThreadPoolExecutor(len(pairs)) as pool:
+        list(pool.map(write, pairs))
+    return len(pairs)
+
+
+def fm_hive_pruned(api, df):
+    """q6 with l_returnflag = 'R': the partition filter prunes files."""
+    col, lit = api.col, api.lit
+    return q6(api, df.filter(col("l_returnflag") == lit("R")))
+
+
+def orders_by_year(api, df):
+    """The orders read back from ORC or Avro, counted and their customer
+    keys summed per order year."""
+    col, F = api.col, api.F
+    return (df.select(F.year(col("o_orderdate")).alias("y"),
+                      col("o_custkey"))
+            .group_by(col("y"))
+            .agg(F.count(col("o_custkey")).alias("n"),
+                 F.sum("o_custkey").alias("c")))
+
+
+def text_scan_doc(path: str) -> dict:
+    """ingest_text_scan's plan document: a CSV scan, the lines counted and
+    the quantity summed per return flag."""
+    def c(name):
+        return {"expr": "col", "name": name}
+    return {"version": 1, "plan": {
+        "node": "aggregate", "keys": [c("l_returnflag")],
+        "aggs": [{"fn": "sum", "child": c("l_quantity"), "alias": "q"},
+                 {"fn": "count", "child": c("l_quantity"), "alias": "n"}],
+        "child": {"node": "text_scan", "format": "csv", "paths": [path]}}}
