@@ -251,13 +251,45 @@ Phases, one JSON line each:
    generate: the CPU Generate, B3 and B2), each cold then twice warm and
    checked against numpy on the lineitem itself and Python rows, with
    routes, CPU nodes, Expand forms and launches asserted exactly.
+18. runtime (last, after the fallback phase, so that its small budgets,
+   injected faults and open breaker touch no earlier phase; on the joins
+   phase's lineitem caches h1 (1 partition) and h8 (8), the Parquet file
+   and the first 5M lines; every other phase runs at the JAX package's
+   defaults, a 12 GiB device budget and two device tasks at once, and
+   prints its spill counters on a "spill" line): rt_paged_q1 (q1 over h8
+   under a budget of half its bytes: partitions page device -> host ->
+   device in every run), rt_disk_cascade (q6 over h8 with a host store
+   below one partition: partitions go to the disk and come back),
+   rt_split_q1 / rt_retry_q1 (q1 over h1 with one injected split, then
+   three injected retry OOMs) and rt_split_q72shfl (B2 split against
+   unsplit), rt_real_oom (a real torch.OutOfMemoryError in q1's update:
+   the process's share of the card capped just above what it holds, a
+   4 GiB spillable ballast that the retry's drain moves to the host),
+   rt_wave_repart (repart_agg over h8: its exchange reads the 8 cache
+   partitions one after another, each a task, at most 2 on the card, B1
+   and B2), rt_wave_pctl (pctl_shuffled over h8: its aggregate runs once
+   per exchange partition, so the collect's 8 partitions are one task
+   wave with exactly 2 on the card; B1), rt_admission (four threads,
+   spark.rapids.query.maxConcurrent=1: no two execution windows
+   overlap), rt_quota (a query quota that the first 5M lines, cached in
+   4 partitions, overflow: only that query's handles spill, while q6 over
+   h1 runs beside it with its partition on the card throughout),
+   rt_cancel_scan (pq_q1_mixed cancelled 0.5 s in, then under a 0.3 s
+   deadline, then rerun to its answer with B3) and rt_degrade (with CPU
+   fallback on: an injected scan fault degrades q6 three times, the
+   breaker opens and the next query skips the card, the half-open probe
+   runs q72shfl on the card with B2, an ANSI divide by zero fails). Each
+   query is checked against the answers above and prints its warm ms,
+   peak memory, launches, status, summed task accumulators and spill
+   counters; after each, every semaphore permit is back, no cancel token
+   is left and no spillable handle outlives the live caches.
 Every query path runs in test mode (spark.rapids.sql.test.enabled): an
 operator that planning tags off the card fails the query, except the one
 node each fallback query names in spark.rapids.sql.test.allowedNonTpu.
 It then prints the kernel table ({"kernels": [...]}, with each kernel's
 launches per path in "launches_by_path": cached, parquet, strings, joins,
 adaptive, window, sql, exprs, sets, aggtypes, datetime, nested, regex,
-fallback),
+fallback, runtime),
 the card's name and power limit, and as its last line {"ok": true,
 "device": {...}}. Any failure exits non-zero without that line; so does a
 machine without CUDA, and so does a run that imported the JAX package.
@@ -284,6 +316,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 
@@ -301,6 +334,15 @@ PARQUET_WRITE = dict(row_group_size=1 << 20,
 Q6_COLS = ["l_shipdate", "l_discount", "l_quantity", "l_extendedprice"]
 Q1_COLS = ["l_shipdate", "l_returnflag", "l_linestatus", "l_quantity",
            "l_extendedprice", "l_discount"]
+
+
+#: guards the spies' counters: a query's partitions run as a task wave,
+#: on several threads
+SPY_LOCK = threading.Lock()
+#: readings an earlier phase leaves for a later one (the runtime phase
+#: prints the cached phase's unpaged q1 beside its paged one, and checks
+#: pctl_shuffled against the exprs phase's answers)
+RUN_NOTES = {}
 
 
 def emit(obj) -> None:
@@ -932,12 +974,14 @@ class RouteSpy:
         orig = self.orig[m]
 
         def spy(kern, *a, **k):
-            self.counts[m] += 1
+            with SPY_LOCK:
+                self.counts[m] += 1
             return orig(kern, *a, **k)
         return spy
 
     def take(self):
-        out, self.counts = self.counts, {m: 0 for m in self.methods}
+        with SPY_LOCK:
+            out, self.counts = self.counts, {m: 0 for m in self.methods}
         return {k: v for k, v in out.items() if v}
 
     def restore(self):
@@ -1019,6 +1063,7 @@ def phase_path(table, want, spy, prof=None):
                            "routes": {k: v // 3 for k, v in
                                       spy.take().items()}}
         emit({"phase": "path.query", "query": name, **per_query[name]})
+    RUN_NOTES["path_q1_warm_ms"] = per_query["q1"]["warm_s"] * 1e3
     counts = read_launches()
     emit({"phase": "path", "cache_s": cache_s, "launches": counts,
           "correct": ok})
@@ -1400,7 +1445,7 @@ def phase_strings(text, spy, prof=None):
     n = cached.count()
     torch.cuda.synchronize()
     cache_s = time.perf_counter() - t0
-    comment = cached.plan.materialized[0][0].columns[-1]
+    comment = cached.plan.materialized[0][0].get_batch().columns[-1]
     if n != text.num_rows or "offsets" not in comment.data:
         raise AssertionError(f"lineitem_text cached {n} rows; l_comment "
                              f"planes {sorted(comment.data)}")
@@ -1616,12 +1661,14 @@ class JoinSpy:
 
     def _wrap(self, key, orig):
         def spy(*a, **k):
-            self.counts[key] += 1
+            with SPY_LOCK:
+                self.counts[key] += 1
             return orig(*a, **k)
         return spy
 
     def take(self):
-        out, self.counts = self.counts, {k: 0 for k in self.targets}
+        with SPY_LOCK:
+            out, self.counts = self.counts, {k: 0 for k in self.targets}
         return {k: v for k, v in out.items() if v}
 
 
@@ -1919,12 +1966,14 @@ class SeedSpy:
         def spy(values, seed):
             import torch
             form = "per_row" if isinstance(seed, torch.Tensor) else "scalar"
-            self.counts[form] += 1
+            with SPY_LOCK:
+                self.counts[form] += 1
             return self.orig(values, seed)
         MK.murmur3_int32 = spy
 
     def take(self):
-        out, self.counts = self.counts, {"per_row": 0, "scalar": 0}
+        with SPY_LOCK:
+            out, self.counts = self.counts, {"per_row": 0, "scalar": 0}
         return out
 
     def restore(self):
@@ -3050,6 +3099,8 @@ def phase_exprs(table, h1, h8, spy, prof=None):
     reset_launches()
     spy.take()
     problems = []
+    # the runtime phase's task wave checks pctl_shuffled against it
+    RUN_NOTES["pctl_shuffled_want"] = want["pctl_shuffled"]
     queries = exprs_queries(h1, h8)
     for name, (session, fn) in queries.items():
         before = read_launches()
@@ -5215,6 +5266,678 @@ def phase_formats(table, orders, want, n1, h1, tmp_dir, spy, prof=None):
 
 #: launch-counter name -> (wrapper module, wrapper function, a substring
 #: of the CUDA kernel's name as the profiler reports it)
+# ---------------------------------------------------------------------------
+# phase 18: the query runtime
+# ---------------------------------------------------------------------------
+
+RT_SMALL_ROWS = 5_000_000
+#: the degradation queries' lines: the CPU backend's q6 over 5M lines took
+#: 10.8-12.8 s a run on the H100 machine's host (4 runs a phase)
+RT_DEGRADE_ROWS = 1_000_000
+
+
+def small_reference(small):
+    """q1 over the first RT_SMALL_ROWS lines; q6 and q72shfl over the
+    first RT_DEGRADE_ROWS."""
+    tiny = small.slice(0, RT_DEGRADE_ROWS)
+    k = np.mod(tiny["l_orderkey"].to_numpy(), 100_000)
+    q = tiny["l_quantity"].to_numpy()
+    sums = np.bincount(k, weights=q, minlength=100_000)
+    counts = np.bincount(k, minlength=100_000)
+    return {"q1": q1_reference(small), "q6": q6_reference(tiny),
+            "q72shfl": (int((counts > 0).sum()), round(float(sums.sum()), 2),
+                        int(counts.sum()))}
+
+
+def spill_metrics():
+    from spark_rapids_tpu_torch.runtime.memory import peek_spill_framework
+    fw = peek_spill_framework()
+    return fw.metrics_snapshot() if fw is not None else {}
+
+
+def spill_report(after: str) -> None:
+    """The spill framework's counters and tiers after a phase (every
+    phase runs at the JAX package's default budget, 12 GiB)."""
+    from spark_rapids_tpu_torch.runtime.memory import peek_spill_framework
+    fw = peek_spill_framework()
+    if fw is None:
+        emit({"phase": "spill", "after": after, "framework": None})
+        return
+    with fw._lock:
+        handles = list(fw._handles.values())
+    tiers = {}
+    for h in handles:
+        tiers[h.tier] = tiers.get(h.tier, 0) + 1
+    emit({"phase": "spill", "after": after, **fw.metrics_snapshot(),
+          "device_budget": fw.device_budget, "handles": len(handles),
+          "tiers": tiers, "device_bytes_held": fw.device_bytes_held()})
+
+
+class RuntimeChecks:
+    """What every runtime query must leave behind: every semaphore permit
+    back, no cancel token, and no spillable handle beyond the live
+    caches' partitions."""
+
+    def __init__(self, caches):
+        self.caches = caches
+
+    def expected_live(self) -> int:
+        return sum(len(df.plan.materialized) for df in self.caches
+                   if df.plan.materialized is not None)
+
+    def __call__(self, name):
+        from spark_rapids_tpu_torch.runtime import lifecycle as LC
+        from spark_rapids_tpu_torch.runtime.memory import (
+            peek_spill_framework,
+        )
+        from spark_rapids_tpu_torch.runtime.semaphore import peek_semaphore
+        gc.collect()
+        out = []
+        sem = peek_semaphore()
+        if sem is not None and (sem.available != sem.permits
+                                or sem.waiting):
+            out.append(f"{name}: semaphore {sem.available}/{sem.permits} "
+                       f"available, {sem.waiting} waiting")
+        if LC.token_ids():
+            out.append(f"{name}: cancel tokens left {LC.token_ids()}")
+        fw = peek_spill_framework()
+        leaks = fw.leak_report(self.expected_live()) if fw else []
+        if leaks:
+            out.append(f"{name}: {len(leaks)} spillable handles beyond the "
+                       f"{self.expected_live()} cached partitions")
+        return out
+
+
+def rt_conf(spill_dir, **extra):
+    """A runtime query's conf: disk spills go under the run's temporary
+    directory."""
+    return {"spark.rapids.memory.spillDir": spill_dir, **extra}
+
+
+def phase_runtime(want, small, swant, h1, h8, pq_path, tmp_dir, caches,
+                  spy):
+    """The runtime queries (see the module docstring, phase 18), each
+    checked against the answers the earlier phases hold, with the
+    semaphore, the cancel tokens and the spill handles checked after
+    each."""
+    import torch
+    from spark_rapids_tpu_torch.runtime import watchdog as WD
+    from spark_rapids_tpu_torch.runtime.memory import SpillableHandle
+    from spark_rapids_tpu_torch.runtime.semaphore import get_semaphore
+    from spark_rapids_tpu_torch.sql.dataframe import DataFrame
+    t_phase = time.perf_counter()
+    spill_dir = os.path.join(tmp_dir, "spill")
+    check = RuntimeChecks(caches)
+    gc.collect()
+    problems = check("runtime start")
+    reset_launches()
+    spy.take()
+
+    def li8(session):
+        return DataFrame(h8.li.plan, session)
+
+    def li1(session):
+        return DataFrame(h1.li.plan, session)
+
+    def run(name, fn, runs=3, note=None, session=None):
+        """Cold then warm runs of fn; one runtime.query line. Returns
+        (answers, warm ms, launches a run, the spill counters' change)."""
+        before_l, before_s = read_launches(), spill_metrics()
+        torch.cuda.reset_peak_memory_stats()
+        answers, secs = [], []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            answers.append(fn())
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        after_s = spill_metrics()
+        launches = {k: (v - before_l[k]) // runs
+                    for k, v in read_launches().items()}
+        spilled = {k: after_s.get(k, 0) - before_s.get(k, 0)
+                   for k in after_s}
+        line = {"phase": "runtime.query", "query": name,
+                "cold_ms": secs[0] * 1e3,
+                "warm_ms": min(secs[1:]) * 1e3 if runs > 1 else None,
+                "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "launches_per_run": launches,
+                "routes": {k: v // runs for k, v in spy.take().items()},
+                "spill": spilled}
+        if session is not None:
+            line["status"] = session.last_action_status
+            line["task_metrics"] = session.last_task_metrics()
+        line.update(note or {})
+        emit(line)
+        problems.extend(check(name))
+        return answers, line
+
+    # rt_paged_q1: q1 over the 8-partition cache under half its bytes
+    li8_bytes = sum(sb.size for part in h8.li.plan.materialized
+                    for sb in part)
+    s = device_session(rt_conf(spill_dir, **{
+        "spark.rapids.memory.tpu.budgetBytes": li8_bytes // 2}))
+    q1 = port_queries(li8(s))["q1"]
+    answers, line = run("rt_paged_q1", q1, session=s, note={
+        "budget_bytes": li8_bytes // 2, "registered_bytes": li8_bytes,
+        "unpaged_q1_warm_ms": RUN_NOTES.get("path_q1_warm_ms")})
+    if not all(validate("q1", a, want["q1"]) for a in answers):
+        problems.append("rt_paged_q1 answer")
+    if line["spill"].get("spill_count", 0) < 3:
+        problems.append(f"rt_paged_q1 paged {line['spill']}")
+
+    # rt_disk_cascade: q6 over the 8-partition cache, the host store
+    # below one partition, so partitions go to the disk and come back
+    part_bytes = max(sb.size for part in h8.li.plan.materialized
+                     for sb in part)
+    disk_reads = [0]
+    orig_get = SpillableHandle.get
+
+    def counted_get(self):
+        if self.tier == "disk":
+            with SPY_LOCK:
+                disk_reads[0] += 1
+        return orig_get(self)
+
+    SpillableHandle.get = counted_get
+    try:
+        s = device_session(rt_conf(spill_dir, **{
+            "spark.rapids.memory.tpu.budgetBytes": li8_bytes // 2,
+            "spark.rapids.memory.host.spillStorageSize": part_bytes // 2}))
+        q6 = port_queries(li8(s))["q6"]
+        t0 = time.perf_counter()
+        answers, line = run("rt_disk_cascade", q6, runs=2, session=s,
+                            note={"host_budget_bytes": part_bytes // 2})
+        emit({"phase": "runtime.disk", "seconds": time.perf_counter() - t0,
+              "disk_reads": disk_reads[0]})
+    finally:
+        SpillableHandle.get = orig_get
+    if not all(_close(a, want["q6"]) for a in answers):
+        problems.append("rt_disk_cascade answer")
+    if line["spill"].get("spill_to_disk_bytes", 0) <= 0 or not disk_reads[0]:
+        problems.append(f"rt_disk_cascade: disk {line['spill']}, "
+                        f"{disk_reads[0]} reads from the disk")
+
+    # rt_split_q1: q1 over the 1-partition cache, split once, then three
+    # injected retries; q72shfl beside it, split and unsplit (B2)
+    base = device_session(rt_conf(spill_dir))
+    run("rt_unsplit_q1", port_queries(li1(base))["q1"], runs=2,
+        session=base)
+    for name, extra, key, n in (
+            ("rt_split_q1", {"spark.rapids.sql.test.injectRetryOOM":
+                             "1,0,split"}, "splitAndRetryCount", 1),
+            ("rt_retry_q1", {"spark.rapids.debug.faults": "retry.oom:oom:3"},
+             "retryCount", 3)):
+        s = device_session(rt_conf(spill_dir, **extra))
+        answers, line = run(name, port_queries(li1(s))["q1"], runs=1,
+                            session=s)
+        if not validate("q1", answers[0], want["q1"]):
+            problems.append(f"{name} answer")
+        if line["task_metrics"].get(key) != n:
+            problems.append(f"{name}: {key} {line['task_metrics']}")
+    _, unsplit = run("rt_unsplit_q72shfl", port_queries(li1(base))["q72shfl"],
+                     runs=2, session=base)
+    s = device_session(rt_conf(spill_dir, **{
+        "spark.rapids.sql.test.injectRetryOOM": "1,0,split"}))
+    answers, line = run("rt_split_q72shfl", port_queries(li1(s))["q72shfl"],
+                        runs=1, session=s, note={
+                            "unsplit_segsum": unsplit["launches_per_run"][
+                                "segsum"]})
+    if not validate("q72shfl", answers[0], want["q72shfl"]) \
+            or line["task_metrics"].get("splitAndRetryCount") != 1 \
+            or not line["launches_per_run"]["segsum"]:
+        problems.append(f"rt_split_q72shfl {line}")
+
+    # rt_real_oom: a real torch.OutOfMemoryError inside the aggregate's
+    # attempt; the retry drains the spill framework (a registered ballast
+    # goes to the host) and answers
+    problems.extend(rt_real_oom(want, spill_dir, li1, check))
+
+    # rt_wave_repart: repart_agg over the 8-partition cache under
+    # concurrentTpuTasks = 2; its exchange runs the cache partitions one
+    # after another
+    sem = get_semaphore()
+    s = device_session(rt_conf(spill_dir))
+    sem.reset_peak()
+    answers, line = run("rt_wave_repart", port_queries(li8(s))["repart_agg"],
+                        session=s, note={"permits": sem.permits})
+    emit({"phase": "runtime.wave", "query": "rt_wave_repart",
+          "most_tasks_on_device": sem.peak_held, "permits": sem.permits,
+          "semaphoreWaitTime_ms": line["task_metrics"].get(
+              "semaphoreWaitTime", 0) / 1e6})
+    if not all(validate("repart_agg", a, want["repart_agg"])
+               for a in answers):
+        problems.append("rt_wave_repart answer")
+    if sem.permits != 2 or not 1 <= sem.peak_held <= 2:
+        problems.append(f"rt_wave_repart: {sem.peak_held} tasks held the "
+                        f"device at once under {sem.permits} permits")
+    if not (line["launches_per_run"]["murmur3_int32"]
+            and line["launches_per_run"]["segsum"]):
+        problems.append(f"rt_wave_repart launches {line}")
+
+    # rt_wave_pctl: pctl_shuffled over the 8-partition cache; its
+    # aggregate runs once per exchange partition, so the collect's 8
+    # partitions are one task wave, 2 at a time on the card
+    s = device_session(rt_conf(spill_dir))
+    sem.reset_peak()
+    answers, line = run("rt_wave_pctl", lambda: helpers().pctl_shuffled(
+        port_api(), li8(s)).collect(), session=s,
+        note={"permits": sem.permits})
+    emit({"phase": "runtime.wave", "query": "rt_wave_pctl",
+          "most_tasks_on_device": sem.peak_held, "permits": sem.permits,
+          "semaphoreWaitTime_ms": line["task_metrics"].get(
+              "semaphoreWaitTime", 0) / 1e6})
+    pwant = RUN_NOTES.get("pctl_shuffled_want")
+    if pwant is None or not all(validate_exprs("pctl_shuffled", a, pwant)
+                                for a in answers):
+        problems.append("rt_wave_pctl answer")
+    if sem.peak_held != 2:
+        problems.append(f"rt_wave_pctl: {sem.peak_held} tasks held the "
+                        f"device at once under {sem.permits} permits")
+    if not line["launches_per_run"]["murmur3_int32"]:
+        problems.append(f"rt_wave_pctl launches {line}")
+
+    problems.extend(rt_admission(want, li1, spill_dir, run))
+    problems.extend(rt_quota(want, small, swant, h1, li1, spill_dir, run,
+                             check))
+    problems.extend(rt_cancel_scan(want, pq_path, spill_dir, run, check))
+    problems.extend(rt_degrade(small, swant, spill_dir, run, check))
+    counts = read_launches()
+    emit({"phase": "runtime", "seconds": time.perf_counter() - t_phase,
+          "launches": counts, "spill": spill_metrics(),
+          "breaker": WD.peek_breaker().state_doc()
+          if WD.peek_breaker() else None,
+          "correct": not problems, "problems": problems})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    if min(counts[k] for k in ("murmur3_int32", "segsum", "bitslice")) <= 0:
+        raise AssertionError(f"a kernel did not run in the runtime phase: "
+                             f"{counts}")
+    return counts
+
+
+def plug_free_blocks(floor: int = 1 << 20) -> list:
+    """Tensors that take the free space inside the caching allocator's
+    reserved segments (largest first, halving on a failed allocation
+    down to ``floor``), so that under a cap at the reserved bytes only
+    the cap's margin is left to allocate from."""
+    import torch
+    plugs, size = [], 1 << 30
+    while size >= floor:
+        try:
+            plugs.append(torch.empty(size, dtype=torch.uint8,
+                                     device="cuda"))
+        except torch.OutOfMemoryError:
+            size //= 2
+    return plugs
+
+
+def rt_real_oom(want, spill_dir, li1, check):
+    """Caps this process's share of the card just above what it holds,
+    with a 4 GiB spillable ballast registered, so q1's update over the
+    1-partition cache cannot allocate until the retry's drain moves the
+    ballast to the host. The free space left inside the allocator's
+    segments by earlier phases is plugged first (under a cap at the
+    reserved bytes), then the cap is raised by a margin. The first
+    margin at which the failing allocation lands inside the aggregate's
+    attempt is the run's setting; the cap is lifted, the plugs freed and
+    the ballast closed after each try."""
+    import torch
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.batch import (
+        ColumnVector, ColumnarBatch,
+    )
+    from spark_rapids_tpu_torch.runtime import retry as RR
+    from spark_rapids_tpu_torch.runtime.memory import SpillableColumnarBatch
+    total = torch.cuda.get_device_properties(0).total_memory
+    seen = []
+    orig = RR.is_device_oom
+
+    def recorded(e):
+        hit = orig(e)
+        if hit:
+            seen.append(type(e).__name__)
+        return hit
+
+    tried = []
+    s = device_session(rt_conf(spill_dir, **{
+        "spark.rapids.memory.host.spillStorageSize": 64 << 30}))
+    q1 = port_queries(li1(s))["q1"]
+    q6 = port_queries(li1(s))["q6"]
+    RR.is_device_oom = recorded
+    try:
+        for margin_mb in (64, 128, 256, 512, 1024, 2048):
+            n = (4 << 30) // 8
+            ballast = SpillableColumnarBatch(ColumnarBatch(
+                [ColumnVector(T.INT64, torch.ones(n, dtype=torch.int64,
+                                                  device="cuda"))], n))
+            q6()  # the cache back on the card before the cap
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved()
+            torch.cuda.set_per_process_memory_fraction(reserved / total)
+            plugs = plug_free_blocks()
+            limit = torch.cuda.memory_reserved() + (margin_mb << 20)
+            del seen[:]
+            before_l, before_s = read_launches(), spill_metrics()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.set_per_process_memory_fraction(limit / total)
+            err, got = None, None
+            t0 = time.perf_counter()
+            try:
+                got = q1()
+            except torch.OutOfMemoryError as e:  # outside the attempt
+                err = str(e).splitlines()[0][:160]
+            finally:
+                ms = (time.perf_counter() - t0) * 1e3
+                torch.cuda.set_per_process_memory_fraction(1.0)
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                plugged = sum(p.numel() for p in plugs)
+                del plugs
+                ballast_tier = ballast.tier
+                ballast.close()
+                del ballast
+                torch.cuda.empty_cache()
+            tm = s.last_task_metrics()
+            drained = spill_metrics().get("oom_drains", 0) \
+                - before_s.get("oom_drains", 0)
+            tried.append({"margin_mb": margin_mb, "raised": err,
+                          "retryCount": tm.get("retryCount", 0),
+                          "errors": list(seen),
+                          "plugged_gb": plugged / 2 ** 30})
+            if err is None and tm.get("retryCount", 0) >= 1:
+                line = {"phase": "runtime.query", "query": "rt_real_oom",
+                        "cold_ms": ms, "peak_gb": peak,
+                        "launches_per_run": {
+                            k: v - before_l[k]
+                            for k, v in read_launches().items()},
+                        "status": s.last_action_status, "task_metrics": tm,
+                        "errors": list(seen), "oom_drains": drained,
+                        "margin_mb": margin_mb, "cap_gb": limit / 2 ** 30,
+                        "ballast_tier_after": ballast_tier,
+                        "tried": tried}
+                emit(line)
+                out = check("rt_real_oom")
+                if not validate("q1", got, want["q1"]):
+                    out.append("rt_real_oom answer")
+                if "OutOfMemoryError" not in seen or drained < 1 \
+                        or ballast_tier != "host":
+                    out.append(f"rt_real_oom: {line}")
+                return out
+    finally:
+        RR.is_device_oom = orig
+    emit({"phase": "runtime.query", "query": "rt_real_oom", "tried": tried})
+    return [f"rt_real_oom: no margin put the failing allocation inside "
+            f"the attempt: {tried}"]
+
+
+def rt_admission(want, li1, spill_dir, run):
+    """Four threads run q6 over the 1-partition cache with
+    spark.rapids.query.maxConcurrent=1: each query's window, from its
+    admission to its release, is recorded, and no two overlap."""
+    from spark_rapids_tpu_torch.runtime import lifecycle as LC
+    s = device_session(rt_conf(spill_dir, **{
+        "spark.rapids.query.maxConcurrent": 1}))
+    q6 = port_queries(li1(s))["q6"]
+    windows, answers = {}, []
+    orig_admit, orig_finish = LC.admit, LC.finish_action
+
+    def admit(tok, conf):
+        orig_admit(tok, conf)
+        windows[tok.query_id] = [time.monotonic(), None]
+
+    def finish(tok, status):
+        if tok is not None and tok.query_id in windows:
+            windows[tok.query_id][1] = time.monotonic()
+        orig_finish(tok, status)
+
+    def worker():
+        answers.append(q6())
+
+    LC.admit, LC.finish_action = admit, finish
+    try:
+        def four():
+            ths = [threading.Thread(target=worker) for _ in range(4)]
+            for th in ths:
+                th.start()
+            for th in ths:
+                th.join(120)
+            return len(answers)
+        run("rt_admission", four, runs=1)
+    finally:
+        LC.admit, LC.finish_action = orig_admit, orig_finish
+    spans = sorted(windows.values())
+    overlaps = sum(1 for a, b in zip(spans, spans[1:]) if b[0] < a[1])
+    emit({"phase": "runtime.admission", "queries": len(spans),
+          "windows_ms": [[(a - spans[0][0]) * 1e3, (b - spans[0][0]) * 1e3]
+                         for a, b in spans], "overlaps": overlaps})
+    out = []
+    if len(answers) != 4 or not all(_close(a, want["q6"]) for a in answers):
+        out.append(f"rt_admission answers {answers}")
+    if len(spans) != 4 or overlaps:
+        out.append(f"rt_admission windows {spans}")
+    return out
+
+
+def rt_quota(want, small, swant, h1, li1, spill_dir, run, check):
+    """Session A caches the first 5M lines in 4 partitions under a query
+    quota of 1.6 partitions and runs q1 over them (its own handles
+    spill); at the same time session B runs q6 over the 1-partition
+    cache, whose partition stays on the card throughout."""
+    from spark_rapids_tpu_torch.columnar.batch import from_arrow
+    from spark_rapids_tpu_torch.runtime.memory import SpillableHandle
+    per_part = from_arrow(small.slice(0, small.num_rows // 4),
+                          h1.s.device).device_memory_size()
+    quota = int(per_part * 1.6)
+    sb = device_session(rt_conf(spill_dir))
+    q6 = port_queries(li1(sb))["q6"]
+    q6()  # the 1-partition cache back on the card
+    handle = h1.li.plan.materialized[0][0].handle
+    sa = device_session(rt_conf(spill_dir, **{
+        "spark.rapids.query.deviceBudgetBytes": quota}))
+    a_df = sa.create_dataframe(small, num_partitions=4).cache()
+    q1 = port_queries(a_df)["q1"]
+    victims, tiers, box = [], set(), {}
+    orig = SpillableHandle.spill_to_host
+
+    def tracked(self):
+        freed = orig(self)
+        if freed:
+            with SPY_LOCK:
+                victims.append(self.query_id)
+        return freed
+
+    stop = threading.Event()
+
+    def watch():
+        while not stop.is_set():
+            tiers.add(handle.tier)
+            time.sleep(0.0005)
+
+    def side(name, fn):
+        try:
+            box[name] = fn()
+        except BaseException as e:  # noqa: BLE001 - reported below
+            box[name] = e
+
+    def both():
+        ths = [threading.Thread(target=side, args=("a", q1)),
+               threading.Thread(target=side, args=("b", q6))]
+        w = threading.Thread(target=watch)
+        w.start()
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join(300)
+        stop.set()
+        w.join()
+        return box
+
+    SpillableHandle.spill_to_host = tracked
+    check.caches.append(a_df)
+    try:
+        run("rt_quota", both, runs=1, note={
+            "quota_bytes": quota, "partition_bytes": per_part})
+    finally:
+        SpillableHandle.spill_to_host = orig
+        check.caches.remove(a_df)
+    a_tiers = [p[0].tier for p in a_df.plan.materialized]
+    emit({"phase": "runtime.quota", "spill_victims": len(victims),
+          "victim_queries": sorted(set(map(str, victims))),
+          "a_partition_tiers": a_tiers, "b_partition_tiers": sorted(tiers)})
+    out = []
+    if not isinstance(box.get("a"), dict) \
+            or not validate("q1", box["a"], swant["q1"]):
+        out.append(f"rt_quota A answer {box.get('a')!r:.200}")
+    if not isinstance(box.get("b"), float) \
+            or not _close(box["b"], want["q6"]):
+        out.append(f"rt_quota B answer {box.get('b')!r:.200}")
+    if not victims or len(set(victims)) != 1 or tiers != {"device"}:
+        out.append(f"rt_quota: victims {victims}, B's tiers {tiers}")
+    del a_df, sa, q1
+    gc.collect()
+    out.extend(check("rt_quota after A's cache is dropped"))
+    return out
+
+
+def rt_cancel_scan(want, pq_path, spill_dir, run, check):
+    """pq_q1_mixed (the device-decode scan) cancelled 0.5 s in from
+    another thread, then under a 0.3 s deadline, then to its answer."""
+    from spark_rapids_tpu_torch.runtime import lifecycle as LC
+    out = []
+    s = device_session(rt_conf(spill_dir))
+    q1 = port_queries(s.read_parquet(pq_path, columns=Q1_COLS))["q1"]
+    box = {}
+
+    def victim():
+        box["t0"] = time.monotonic()
+        try:
+            box["got"] = q1()
+        except LC.QueryCancelledError as e:
+            box["raised_at"] = time.monotonic()
+            box["error"] = e
+        box["ended"] = time.monotonic()
+
+    th = threading.Thread(target=victim)
+    th.start()
+    deadline = time.monotonic() + 60
+    while not LC.token_ids() and time.monotonic() < deadline:
+        time.sleep(0.001)
+    qid = LC.token_ids()[0]
+    time.sleep(max(0.0, box["t0"] + 0.5 - time.monotonic()))
+    t_cancel = time.monotonic()
+    fired = s.cancel(qid)
+    th.join(120)
+    latency = box.get("raised_at", float("nan")) - t_cancel
+    line = {"phase": "runtime.query", "query": "rt_cancel_scan",
+            "cancelled": fired, "error": type(box.get("error")).__name__,
+            "status": s.last_action_status,
+            "cancel_to_raise_ms": latency * 1e3,
+            "cancel_after_ms": (t_cancel - box["t0"]) * 1e3,
+            "query_ms": (box.get("ended", float("nan")) - box["t0"]) * 1e3}
+    emit(line)
+    if not fired or "error" not in box \
+            or s.last_action_status != ("cancelled", "user"):
+        out.append(f"rt_cancel_scan: {line}")
+    out.extend(check("rt_cancel_scan"))
+    sd = device_session(rt_conf(spill_dir, **{
+        "spark.rapids.query.timeoutSeconds": 0.3}))
+    qd = port_queries(sd.read_parquet(pq_path, columns=Q1_COLS))["q1"]
+    t0 = time.monotonic()
+    try:
+        qd()
+        raised = None
+    except LC.QueryCancelledError as e:
+        raised = e.reason
+    emit({"phase": "runtime.query", "query": "rt_deadline_scan",
+          "raised": raised, "status": sd.last_action_status,
+          "ended_ms": (time.monotonic() - t0) * 1e3})
+    if raised != "deadline" or sd.last_action_status != ("cancelled",
+                                                          "deadline"):
+        out.append(f"rt_deadline_scan: {raised} {sd.last_action_status}")
+    out.extend(check("rt_deadline_scan"))
+    answers, line = run("rt_rerun_scan", q1, runs=2, session=s)
+    if not all(validate("q1", a, want["q1"]) for a in answers) \
+            or not line["launches_per_run"]["bitslice"] \
+            or s.last_action_status != ("ok", None):
+        out.append(f"rt_rerun_scan: {line}")
+    return out
+
+
+def rt_degrade(small, swant, spill_dir, run, check):
+    """With spark.rapids.fallback.cpu.enabled: an injected scan fault
+    degrades q6 over the first RT_DEGRADE_ROWS lines in memory to the
+    CPU backend;
+    three such failures open the breaker and the next query skips the
+    card; after the backoff a probe query runs on the card; an ANSI
+    divide by zero still fails. The breaker's backoff is set from the
+    first CPU re-execution's time (2.5x it, plus 2 s), so the skipped
+    query, itself a CPU run, lands inside it on any host."""
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.expr.core import SparkException, col
+    from spark_rapids_tpu_torch.runtime import faults
+    from spark_rapids_tpu_torch.runtime import watchdog as WD
+    out = []
+    WD.uninstall_for_tests()  # a fresh breaker: closed, no failures
+    conf = rt_conf(spill_dir, **{
+        "spark.rapids.fallback.cpu.enabled": "true",
+        "spark.rapids.watchdog.breakerFailureThreshold": 3,
+        "spark.rapids.watchdog.breakerBaseBackoffSeconds": 60.0,
+        "spark.rapids.debug.faults": "scan.decode:ioerror:99"})
+    s = device_session(conf)
+    df = s.create_dataframe(small.slice(0, RT_DEGRADE_ROWS))
+    q6 = port_queries(df)["q6"]
+    backoff = None
+    for i in range(3):
+        answers, line = run(f"rt_degrade_{i + 1}", q6, runs=1, session=s,
+                            note={"breaker": WD.breaker().state})
+        if not _close(answers[0], swant["q6"]) \
+                or s.last_action_status != ("degraded",
+                                            "InjectedFaultError"):
+            out.append(f"rt_degrade_{i + 1}: {line}")
+        if i == 0:
+            # taken by the breaker at the next query's preamble, while it
+            # is still closed
+            backoff = 2.5 * line["cold_ms"] / 1e3 + 2.0
+            s.conf.set("spark.rapids.watchdog.breakerBaseBackoffSeconds",
+                       backoff)
+    fired = faults.total_fired()
+    answers, line = run("rt_circuit_open", q6, runs=1, session=s,
+                        note={"breaker": WD.breaker().state,
+                              "backoff_s": backoff})
+    if not _close(answers[0], swant["q6"]) \
+            or s.last_action_status != ("degraded", "circuit_open") \
+            or faults.total_fired() != fired \
+            or any(line["launches_per_run"].values()):
+        out.append(f"rt_circuit_open: {line}")
+    open_for = WD.breaker().state_doc().get("open_for_s", 0.0)
+    time.sleep(max(0.0, backoff - open_for) + 0.05)  # the backoff
+    s.conf.set("spark.rapids.debug.faults", "")
+    answers, line = run("rt_probe", port_queries(df)["q72shfl"], runs=1,
+                        session=s)
+    state = WD.breaker().state
+    emit({"phase": "runtime.breaker", "after_probe": state,
+          "doc": WD.breaker().state_doc()})
+    if not validate("q72shfl", answers[0], swant["q72shfl"]) \
+            or s.last_action_status != ("ok", None) or state != "closed" \
+            or not line["launches_per_run"]["segsum"]:
+        out.append(f"rt_probe: {line} breaker {state}")
+    sa = device_session(rt_conf(spill_dir, **{
+        "spark.rapids.fallback.cpu.enabled": "true",
+        "spark.sql.ansi.enabled": "true"}))
+    bad = sa.create_dataframe(pa.table({"a": [1, 2, 3], "b": [1, 0, 2]})) \
+        .select((col("a") / col("b")).alias("q"))
+    try:
+        bad.collect()
+        raised = None
+    except SparkException as e:
+        raised = str(e)[:120]
+    emit({"phase": "runtime.query", "query": "rt_ansi_fails",
+          "raised": raised, "status": sa.last_action_status})
+    if raised is None or sa.last_action_status != ("failed", None):
+        out.append(f"rt_ansi_fails: {raised} {sa.last_action_status}")
+    out.extend(check("rt_ansi_fails"))
+    return out
+
+
 KERNEL_WRAPPERS = {
     "murmur3_int32": ("murmur3_kernel", "murmur3_int32", "murmur3"),
     "segsum": ("segsum", "segsum", "segsum"),
@@ -5279,9 +6002,13 @@ class KernelProfile:
             orig = getattr(mod, fn_name)
 
             def spy(*a, _mod=mod, _orig=orig, _name=name):
-                before = _mod.launches
-                out = _orig(*a)
-                if _mod.launches != before:
+                # the launch count moves under this lock only: a launch
+                # of another task's thread is not this call's
+                with SPY_LOCK:
+                    before = _mod.launches
+                    out = _orig(*a)
+                    launched = _mod.launches != before
+                if launched:
                     sizes[_name].append(launch_bytes(_name, *a))
                 return out
             setattr(mod, fn_name, spy)
@@ -5401,6 +6128,8 @@ class KernelProfile:
 
 
 def main(argv) -> int:
+    from types import SimpleNamespace
+
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5433,20 +6162,25 @@ def main(argv) -> int:
         t0 = time.perf_counter()
         cached = phase_path(table, want, spy, prof)
         phases["path_s"] = time.perf_counter() - t0
+        spill_report("path")
         t0 = time.perf_counter()
         joins, h1, h8, jwant = phase_joins(table, orders, spy, prof)
         phases["joins_s"] = time.perf_counter() - t0
+        spill_report("joins")
         t0 = time.perf_counter()
         adaptive = phase_adaptive(table, orders, want, jwant, h1, h8, spy,
                                   prof)
         phases["adaptive_s"] = time.perf_counter() - t0
+        spill_report("adaptive")
         t0 = time.perf_counter()
         window, w1, wwant = phase_window(table, spy, prof)
         phases["window_s"] = time.perf_counter() - t0
+        spill_report("window")
         t0 = time.perf_counter()
         sql = phase_sql(table, orders, want, jwant, wwant, h1, h8, w1,
                         tmp_dir, spy, prof)
         phases["sql_s"] = time.perf_counter() - t0
+        spill_report("sql")
         # a temp view and its session refer to each other: collect the
         # cycles, so the window slice's cache does not count in the next
         # phases' peak memory
@@ -5455,45 +6189,67 @@ def main(argv) -> int:
         t0 = time.perf_counter()
         exprs = phase_exprs(table, h1, h8, spy, prof)
         phases["exprs_s"] = time.perf_counter() - t0
+        spill_report("exprs")
         t0 = time.perf_counter()
         sets = phase_sets(table, orders, h1, h8, spy, prof)
         phases["sets_s"] = time.perf_counter() - t0
+        spill_report("sets")
         t0 = time.perf_counter()
         aggtypes = phase_aggtypes(table, want, h1, h8, spy, prof)
         phases["aggtypes_s"] = time.perf_counter() - t0
+        spill_report("aggtypes")
         t0 = time.perf_counter()
         dtime = phase_datetime(table, spy, prof)
         phases["datetime_s"] = time.perf_counter() - t0
+        spill_report("datetime")
         t0 = time.perf_counter()
         nested, n1 = phase_nested(table, orders, h1, tmp_dir, spy, prof)
         phases["nested_s"] = time.perf_counter() - t0
+        spill_report("nested")
         t0 = time.perf_counter()
         formats = phase_formats(table, orders, want, n1, h1, tmp_dir, spy,
                                 prof)
         phases["formats_s"] = time.perf_counter() - t0
+        spill_report("formats")
         del n1
         gc.collect()
         t0 = time.perf_counter()
         fb_want = fallback_reference(text, table)
         phases["fallback_reference_s"] = time.perf_counter() - t0
         li_plan = h1.li.plan  # the cached lineitem, for the fallback phase
-        del table, orders, h1, h8
+        # the runtime phase's 5M-line slice and its answers; h1 and h8
+        # stay cached for it
+        small = table.slice(0, RT_SMALL_ROWS)
+        swant = small_reference(small)
+        del table, orders
         gc.collect()
         t0 = time.perf_counter()
         parquet = phase_parquet(path, want, spy, prof)
         phases["parquet_s"] = time.perf_counter() - t0
+        spill_report("parquet")
         t0 = time.perf_counter()
         phase_decode(path, tmp_dir, torch.device("cuda"))
         phases["decode_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         strings, text_plan = phase_strings(text, spy, prof)
         phases["strings_s"] = time.perf_counter() - t0
+        spill_report("strings")
         t0 = time.perf_counter()
         regex = phase_regex(text, text_plan, spy, prof)
         phases["regex_s"] = time.perf_counter() - t0
+        spill_report("regex")
         t0 = time.perf_counter()
         fallback = phase_fallback(li_plan, text_plan, fb_want, spy, prof)
         phases["fallback_s"] = time.perf_counter() - t0
+        spill_report("fallback")
+        del text, fb_want
+        gc.collect()
+        t0 = time.perf_counter()
+        caches = [h1.li, h1.od, h1.cust, h8.li, h8.od,
+                  SimpleNamespace(plan=text_plan)]
+        runtime = phase_runtime(want, small, swant, h1, h8, path, tmp_dir,
+                                caches, spy)
+        phases["runtime_s"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp_dir, ignore_errors=True)
     for r in rows:
@@ -5507,7 +6263,8 @@ def main(argv) -> int:
                    "nested": nested[r["name"]],
                    "formats": formats[r["name"]],
                    "regex": regex[r["name"]],
-                   "fallback": fallback[r["name"]]}
+                   "fallback": fallback[r["name"]],
+                   "runtime": runtime[r["name"]]}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
     if prof:

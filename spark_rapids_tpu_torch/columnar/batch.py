@@ -191,6 +191,45 @@ class ColumnarBatch:
         return sum(c.device_memory_size() for c in self.columns)
 
 
+def map_planes(batch: ColumnarBatch, fn) -> ColumnarBatch:
+    """The batch with fn applied to every plane: each column's data,
+    validity, string offsets, bytes, codes and vocabulary, the child
+    columns of arrays, maps and structs, the row mask and a row count
+    still on the device. Host objects (column bounds, a host-int row
+    count, the flags) are kept. A leaf is anything that is not a column,
+    a dict, a list or None, so fn may turn tensors into other leaves and
+    a second map turns them back (the spill framework's tiers; the JAX
+    package flattens the batch's pytree instead)."""
+
+    def leaf(x):
+        if x is None:
+            return None
+        if isinstance(x, ColumnVector):
+            return col(x)
+        if isinstance(x, dict):
+            return {k: leaf(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(leaf(v) for v in x)
+        return fn(x)
+
+    def col(c: ColumnVector) -> ColumnVector:
+        return dataclasses.replace(c, data=leaf(c.data),
+                                   validity=leaf(c.validity))
+
+    n = batch.num_rows
+    if isinstance(n, LazyRowCount):
+        n = n._val if n._val is not None else LazyRowCount(fn(n._dev))
+    return dataclasses.replace(batch, columns=[col(c) for c in batch.columns],
+                               num_rows=n, row_mask=leaf(batch.row_mask))
+
+
+def batch_to(batch: ColumnarBatch, device) -> ColumnarBatch:
+    """The batch with every plane copied to ``device`` (a blocking copy:
+    the source planes may be dropped as soon as this returns)."""
+    device = torch.device(device)
+    return map_planes(batch, lambda t: t.to(device))
+
+
 # ---------------------------------------------------------------------------
 # Arrow in and out
 # ---------------------------------------------------------------------------

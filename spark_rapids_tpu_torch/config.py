@@ -7,6 +7,7 @@ drives both sessions.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Any, Callable, Dict, Optional
 
 _REGISTRY: "Dict[str, ConfEntry]" = {}
@@ -233,6 +234,159 @@ AGG_FORCE_SINGLE_PASS = _register(
     "complete aggregate as one update pass instead of an update per batch "
     "and a merge.", _bool_conv)
 
+# ---------------------------------------------------------------------------
+# the query runtime: device budget and spill, retry, semaphore, faults,
+# watchdog and breaker, degradation, deadlines and admission
+# ---------------------------------------------------------------------------
+
+def _float(s) -> float:
+    return float(s)
+
+
+CONCURRENT_TPU_TASKS = _register(
+    "spark.rapids.sql.concurrentTpuTasks", 2,
+    "Number of tasks admitted to the device concurrently by the semaphore "
+    "(reference GpuSemaphore / RapidsConf.scala:545).", int)
+
+DEVICE_MEMORY_FRACTION = _register(
+    "spark.rapids.memory.tpu.allocFraction", 0.85,
+    "Fraction of the card's memory the spill framework's budget may use "
+    "(reference rmm.pool allocFraction).", _float)
+
+DEVICE_MEMORY_BUDGET = _register(
+    "spark.rapids.memory.tpu.budgetBytes", 12 << 30,
+    "Cooperative device budget in bytes for registered (spillable) "
+    "batches; reservations beyond it drain the spill stores (reference "
+    "rmm pool size). The budget in force is the smaller of this and "
+    "allocFraction x the card's memory.", int)
+
+HOST_SPILL_LIMIT = _register(
+    "spark.rapids.memory.host.spillStorageSize", 4 << 30,
+    "Bytes of host memory for spilled device data before overflowing to "
+    "disk (reference SpillFramework host store limit).", int)
+
+SPILL_DIR = _register(
+    "spark.rapids.memory.spillDir", "/tmp/rapids_tpu_spill",
+    "Directory for disk spill files (reference RapidsDiskBlockManager); "
+    "created at the first disk spill.", str)
+
+RETRY_OOM_INJECT = _register(
+    "spark.rapids.sql.test.injectRetryOOM", "",
+    "Fault-injection grammar 'count[,skip[,split]]' forcing retry-OOMs "
+    "for tests (reference RapidsConf.scala:1627,2753).", str)
+
+RETRY_BACKOFF_BASE_MS = _register(
+    "spark.rapids.retry.backoffBaseMs", 10.0,
+    "Base of the bounded exponential backoff between OOM retry attempts "
+    "(after the spill-store drain): attempt n sleeps base*2^(n-1) ms, "
+    "jittered to 50-100%, capped at backoffMaxMs, so concurrent tasks "
+    "that OOMed together do not re-dispatch together. Folded into the "
+    "retryBlockTime accumulator. 0 disables the backoff.", _float)
+
+RETRY_BACKOFF_MAX_MS = _register(
+    "spark.rapids.retry.backoffMaxMs", 500.0,
+    "Cap on the per-attempt OOM retry backoff.", _float)
+
+FAULTS_SPEC = _register(
+    "spark.rapids.debug.faults", "",
+    "General fault-injection schedule (runtime/faults.py): "
+    "'site:kind[:count[,skip]]' entries joined by ';', where site is a "
+    "registered fault site (scan.decode, shuffle.read, shuffle.write, "
+    "spill.disk, device.dispatch, pipeline.producer, exchange.fetch, "
+    "retry.oom, query.cancel, semaphore.wait) and kind is ioerror, "
+    "corrupt (data sites only), delay, wedge, oom, or cancel (fire the "
+    "current query's cancel token at the site). Empty disables "
+    "injection (one global read per site pass). Generalizes "
+    "injectRetryOOM, which remains the retry.oom facade.", str)
+
+FAULTS_DELAY_MS = _register(
+    "spark.rapids.debug.faults.delayMs", 50.0,
+    "Sleep injected by a 'delay'-kind fault, in milliseconds.", _float)
+
+FAULTS_WEDGE_S = _register(
+    "spark.rapids.debug.faults.wedgeSeconds", 0.25,
+    "Sleep injected by a 'wedge'-kind fault, in seconds. To exercise the "
+    "watchdog's detection end to end, set this above "
+    "spark.rapids.watchdog.dispatchTimeoutSeconds.", _float)
+
+WATCHDOG_ENABLED = _register(
+    "spark.rapids.watchdog.enabled", False,
+    "Run the device dispatch watchdog (runtime/watchdog.py): a heartbeat "
+    "service thread detects guarded device work exceeding "
+    "dispatchTimeoutSeconds, reports each wedge once (a log warning) and "
+    "records a circuit-breaker failure so later queries degrade to the "
+    "CPU instead of joining the wedge. Disabled, the guard is a shared "
+    "null context.", _bool_conv)
+
+WATCHDOG_DISPATCH_TIMEOUT_S = _register(
+    "spark.rapids.watchdog.dispatchTimeoutSeconds", 60.0,
+    "Deadline for one guarded device dispatch before the watchdog reports "
+    "it wedged and records a breaker failure.", _float)
+
+WATCHDOG_BREAKER_THRESHOLD = _register(
+    "spark.rapids.watchdog.breakerFailureThreshold", 3,
+    "Consecutive device failures (failed or degraded queries, dispatch "
+    "timeouts) that open the device circuit breaker. While open, and CPU "
+    "fallback is enabled, queries skip the device entirely and run "
+    "degraded on the CPU backend.", int)
+
+WATCHDOG_BREAKER_BACKOFF_S = _register(
+    "spark.rapids.watchdog.breakerBaseBackoffSeconds", 1.0,
+    "Initial open-state backoff before the breaker half-opens and lets "
+    "one probe query try the device again; doubles on each failed probe "
+    "up to breakerMaxBackoffSeconds, resets on success.", _float)
+
+WATCHDOG_BREAKER_MAX_BACKOFF_S = _register(
+    "spark.rapids.watchdog.breakerMaxBackoffSeconds", 60.0,
+    "Cap on the breaker's exponential open-state backoff.", _float)
+
+FALLBACK_CPU_ENABLED = _register(
+    "spark.rapids.fallback.cpu.enabled", False,
+    "Graceful degradation: when a top-level query fails with an engine or "
+    "device error (exhausted OOM retries, a device error, an injected "
+    "fault; not user-semantic errors like an ANSI overflow, which "
+    "surface unchanged), re-execute it on the CPU backend and report "
+    "status 'degraded' with the triggering error class instead of "
+    "'failed'. Also consults the device circuit breaker: while it is "
+    "open, queries skip the device entirely. Off by default.", _bool_conv)
+
+QUERY_TIMEOUT_S = _register(
+    "spark.rapids.query.timeoutSeconds", 0.0,
+    "Per-query deadline in seconds (0 disables). A sweeper thread over "
+    "the live cancel tokens (runtime/lifecycle.py) fires the query's "
+    "token with reason 'deadline' when the budget lapses; the query ends "
+    "at its next cooperative checkpoint with status 'cancelled'. "
+    "collect(timeout_seconds=...) overrides it per action.", _float)
+
+QUERY_MAX_CONCURRENT = _register(
+    "spark.rapids.query.maxConcurrent", 0,
+    "Admission control over top-level actions (0 = unlimited): at most "
+    "this many queries execute concurrently; excess queries park in a "
+    "bounded FIFO queue. The complement of "
+    "spark.rapids.sql.concurrentTpuTasks, which bounds tasks inside "
+    "admitted queries on the device semaphore.", int)
+
+QUERY_MAX_QUEUED = _register(
+    "spark.rapids.query.maxQueued", 16,
+    "Bound on the admission queue behind spark.rapids.query."
+    "maxConcurrent: a query arriving past it is refused immediately with "
+    "a typed QueryRejectedError.", int)
+
+QUERY_QUEUE_TIMEOUT_S = _register(
+    "spark.rapids.query.queueTimeoutSeconds", 30.0,
+    "Longest a query may wait in the admission queue before it is refused "
+    "with QueryRejectedError (0 = wait forever). Queued queries remain "
+    "cancellable while they wait.", _float)
+
+QUERY_DEVICE_BUDGET = _register(
+    "spark.rapids.query.deviceBudgetBytes", 0,
+    "Per-query cooperative device-bytes quota (0 disables): the spill "
+    "framework keeps a per-query ledger of registered device batches, and "
+    "a query exceeding its own quota spills its own batches (largest "
+    "first), or raises a retryable quota OOM that drains only its own "
+    "handles, instead of evicting its neighbors'.", int)
+
+
 def keys():
     return list(_REGISTRY)
 
@@ -266,3 +420,18 @@ class RapidsConf:
         if v is None:
             return True
         return _bool_conv(v) if isinstance(v, str) else bool(v)
+
+
+_local = threading.local()
+
+
+def session_conf() -> RapidsConf:
+    """The conf of the session whose action this thread runs (set by the
+    session before it executes, carried onto task-wave threads); the
+    defaults where none is bound."""
+    c = getattr(_local, "conf", None)
+    return c if c is not None else RapidsConf()
+
+
+def set_session_conf(c: Optional[RapidsConf]) -> None:
+    _local.conf = c

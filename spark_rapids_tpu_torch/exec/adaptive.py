@@ -249,7 +249,7 @@ class AdaptiveShuffledHashJoinExec(X.TorchExec):
         return nbytes, nrows, nbatches
 
     def _choose(self) -> X.TorchExec:
-        with self._lock:
+        with X._materializing(self._lock):
             if self._chosen is not None:
                 return self._chosen
             left, right = self.children

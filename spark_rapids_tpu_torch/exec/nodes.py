@@ -24,6 +24,17 @@ the device on the CPU backend (``exec/cpu_backend.py``).
 PyTorch runs eagerly, so each operator is plain tensor code per batch; the
 JAX package's stage fusion and compile caches have no counterpart here.
 
+The query runtime (``runtime/``) is wired where the JAX package wires it.
+``execute_partition(pidx)`` keeps its signature: an operator reads its
+task from the thread (``TaskContext.peek()``) instead of a passed ctx.
+``_acquire`` admits the task to the device semaphore where an operator
+first touches the card; a cache, an exchange or a build side runs each
+child partition as a task of its own, one after another (the JAX
+package runs an exchange's as a task wave; here they would share one
+CUDA stream), a cache keeps each partition as a
+``SpillableColumnarBatch``, and the aggregate's update runs under
+``with_retry``.
+
 The hash aggregate picks a route per batch, in the JAX package's order:
 
 1. tiny-bucket: dict-string keys whose vocabulary holds each string
@@ -49,9 +60,11 @@ group-sorted rows.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, List, Optional
 
@@ -84,6 +97,13 @@ from spark_rapids_tpu_torch.ops import repartition as RP
 from spark_rapids_tpu_torch.ops import segsum as S
 from spark_rapids_tpu_torch.ops import window as W
 from spark_rapids_tpu_torch.plan import nodes as P
+from spark_rapids_tpu_torch.runtime import faults as FLT
+from spark_rapids_tpu_torch.runtime import lifecycle as LC
+from spark_rapids_tpu_torch.runtime import watchdog as WD
+from spark_rapids_tpu_torch.runtime.semaphore import (
+    get_semaphore, peek_semaphore,
+)
+from spark_rapids_tpu_torch.runtime.task import TaskContext
 
 
 class TorchExec:
@@ -138,6 +158,67 @@ class TorchExec:
                        live=batch.live_mask() if live is None else live,
                        **part)
 
+    def _acquire(self) -> None:
+        """Admit the thread's task to the device (the semaphore) where it
+        first touches the card; an operator driven outside any task
+        admits nothing."""
+        ctx = TaskContext.peek()
+        if ctx is None:
+            return
+        get_semaphore(self.conf).acquire_if_necessary(ctx)
+        ctx.holds_device_data = True
+
+    @staticmethod
+    @contextlib.contextmanager
+    def _dispatch():
+        """Around one batch's device work. The JAX package places these
+        three in its fused dispatch (exec/fuse.py:75-84), which this
+        engine does not have: the cancel checkpoint, then the watchdog's
+        guard, and inside it the device.dispatch fault site (so a wedge
+        there is what the watchdog exists to detect)."""
+        LC.check_current()
+        with WD.guard("device.dispatch"):
+            FLT.site("device.dispatch")
+            yield
+
+
+@contextlib.contextmanager
+def _materializing(lock):
+    """Hold a materialization lock (a cache, an exchange, a build side).
+    A task that would block on it, because another thread materializes,
+    gives its device permit back first, so that thread can be admitted
+    while it waits."""
+    if not lock.acquire(blocking=False):
+        ctx = TaskContext.peek()
+        sem = peek_semaphore()
+        if ctx is not None and sem is not None:
+            sem.release_for_wait(ctx)
+        lock.acquire()
+    try:
+        yield
+    finally:
+        lock.release()
+
+
+def _partitions(child: "TorchExec"):
+    """Each partition of a child, run to its end as a task of its own
+    (nested in the calling task): [batches of partition p, ...]."""
+    out = []
+    for p in range(child.num_partitions):
+        with TaskContext(partition_id=p):
+            out.append(list(child.execute_partition(p)))
+    return out
+
+
+def _task_batches(child: "TorchExec"):
+    """The batches of every partition of a child, streamed in partition
+    order, each partition run as a task of its own (nested in the calling
+    task). Close the generator when done with it, so the last task
+    completes however the consumer ends."""
+    for p in range(child.num_partitions):
+        with TaskContext(partition_id=p):
+            yield from child.execute_partition(p)
+
 
 def _split_rows(total: int, parts: int):
     base, rem = divmod(total, parts)
@@ -163,6 +244,8 @@ class InMemoryScanExec(TorchExec):
         off = 0
         while off < n or (n == 0 and off == 0):
             take = min(max_rows, n - off)
+            self._acquire()
+            FLT.site("scan.decode")
             yield from_arrow(table.slice(start + off, take), self.device)
             off += max(take, 1)
 
@@ -250,15 +333,18 @@ class _ParquetExec(TorchExec):
 
     def _groups(self, metadata):
         groups, total = prune_row_groups(metadata, self._pushed)
-        self.metrics["numRowGroups"] += total
-        self.metrics["numRowGroupsPruned"] += total - len(groups)
-        for g in groups:
-            self.metrics["readBytes"] += metadata.row_group(g).total_byte_size
+        with self._metrics_lock:
+            self.metrics["numRowGroups"] += total
+            self.metrics["numRowGroupsPruned"] += total - len(groups)
+            for g in groups:
+                self.metrics["readBytes"] += \
+                    metadata.row_group(g).total_byte_size
         return groups, total
 
     def _emitted(self, rows: int) -> None:
-        self.metrics["numOutputRows"] += rows
-        self.metrics["numOutputBatches"] += 1
+        with self._metrics_lock:
+            self.metrics["numOutputRows"] += rows
+            self.metrics["numOutputBatches"] += 1
 
 
 class ParquetScanExec(_ParquetExec):
@@ -288,6 +374,7 @@ class ParquetScanExec(_ParquetExec):
         def load(g):
             # one ParquetFile per load: parquet-cpp readers are not
             # thread-safe, and loads run on the prefetch workers
+            FLT.site("scan.decode")
             t0 = time.perf_counter()
             f = pq.ParquetFile(path)
             tbl = f.read(columns=names) if g < 0 \
@@ -306,6 +393,7 @@ class ParquetScanExec(_ParquetExec):
             while off < tbl.num_rows or (tbl.num_rows == 0 and off == 0):
                 chunk = tbl.slice(off, batch_rows)
                 self._emitted(chunk.num_rows)
+                self._acquire()
                 yield from_arrow(chunk, self.device)
                 off += max(chunk.num_rows, 1)
 
@@ -353,9 +441,11 @@ class EncodedParquetSourceExec(_ParquetExec):
             if total:
                 return  # every row group refuted: nothing read or uploaded
             # a file without row groups: host read, every column decoded
-            b = from_arrow(self.plan.with_partition_cols(
-                pf.read(columns=[f.name for f in fields]), fidx),
-                self.device)
+            FLT.site("scan.decode")
+            tbl = self.plan.with_partition_cols(
+                pf.read(columns=[f.name for f in fields]), fidx)
+            self._acquire()
+            b = from_arrow(tbl, self.device)
             self._emitted(int(b.num_rows))
             yield ENC.EncodedBatch(
                 [ENC.EncodedColumn("decoded", c.dtype, {}, cv=c,
@@ -369,6 +459,7 @@ class EncodedParquetSourceExec(_ParquetExec):
             min(32, int(self.conf.get(C.DEVICE_DECODE_MAX_BITS))),
             bool(self.conf.get(C.DEVICE_DECODE_DELTA)))
         while True:
+            FLT.site("scan.decode")
             t0 = time.perf_counter()
             hb = next(hbs, None)
             m["decodeTime"] += time.perf_counter() - t0
@@ -386,6 +477,7 @@ class EncodedParquetSourceExec(_ParquetExec):
                 tbl = (pa.concat_tables(parts) if len(parts) > 1
                        else parts[0]).combine_chunks()
                 m["decodeTime"] += time.perf_counter() - t0
+            self._acquire()
             t0 = time.perf_counter()
             decoded = {}
             for j, i in enumerate(fb_idx):
@@ -422,6 +514,7 @@ class TextScanExec(TorchExec):
 
     def execute_partition(self, pidx):
         m = self.metrics
+        FLT.site("scan.decode")
         t0 = time.perf_counter()
         table = self.plan.read_host(self.plan.paths[pidx])
         m["decodeTime"] += time.perf_counter() - t0
@@ -430,6 +523,7 @@ class TextScanExec(TorchExec):
         off = 0
         while off < n or (n == 0 and off == 0):
             take = min(batch_rows, n - off)
+            self._acquire()
             t0 = time.perf_counter()
             b = from_arrow(table.slice(off, take), self.device)
             m["copyToDeviceTime"] += time.perf_counter() - t0
@@ -449,23 +543,32 @@ class DeviceDecodeScanExec(TorchExec):
         super().__init__(plan, children, conf, device)
         self.metrics: Dict[str, float] = {"opTime": 0.0,
                                           "numOutputBatches": 0}
+        self._metrics_lock = threading.Lock()
 
     def execute_partition(self, pidx):
         for eb in self.children[0].execute_partition(pidx):
+            self._acquire()
             t0 = time.perf_counter()
-            out = D.decode_batch(eb)
-            self.metrics["opTime"] += time.perf_counter() - t0
-            self.metrics["numOutputBatches"] += 1
+            # the JAX package's decode is a fused dispatch too
+            with self._dispatch():
+                out = D.decode_batch(eb)
+            with self._metrics_lock:
+                self.metrics["opTime"] += time.perf_counter() - t0
+                self.metrics["numOutputBatches"] += 1
             yield out
 
 
 class CachedScanExec(TorchExec):
-    """Materializes the child once into device-resident batches (one per
-    partition) stored on the CachedRelation node; later scans stream
-    straight from device memory. The lock is reentrant: a cached
+    """Materializes the child once into one batch per partition, each
+    registered with the spill framework (``SpillableColumnarBatch``) and
+    stored on the CachedRelation node; later scans stream from it, and
+    under memory pressure a partition pages out to the host or the disk
+    and back instead of failing. The handles close when the relation
+    node is collected. Each relation has its own reentrant lock: a cached
     relation over another one materializes the inner one under it."""
 
-    _lock = threading.RLock()
+    #: guards the creation of each relation's own lock
+    _lock = threading.Lock()
 
     @property
     def num_partitions(self):
@@ -473,23 +576,51 @@ class CachedScanExec(TorchExec):
             return len(self.plan.materialized)
         return self.children[0].num_partitions
 
-    def _materialize(self):
+    def _relation_lock(self):
+        """The relation's own lock, shared by every scan of it: a cache
+        under an exchange under another cache materializes on a task-wave
+        thread while the outer one holds its lock."""
         with CachedScanExec._lock:
+            lk = getattr(self.plan, "_materialize_lock", None)
+            if lk is None:
+                lk = self.plan._materialize_lock = threading.RLock()
+        return lk
+
+    def _materialize(self):
+        from spark_rapids_tpu_torch.runtime.memory import (
+            SpillableColumnarBatch,
+        )
+        if self.plan.materialized is not None:
+            return self.plan.materialized
+        with _materializing(self._relation_lock()):
             if self.plan.materialized is None:
                 child = self.children[0]
                 out = []
                 for p in range(child.num_partitions):
-                    batches = list(child.execute_partition(p))
+                    with TaskContext(partition_id=p):
+                        batches = list(child.execute_partition(p))
                     if batches:
                         merged = K.compact_batch(K.concat_batches(batches))
                         _attach_column_stats(merged)
-                        batches = [merged]
+                        del batches
+                        batches = [SpillableColumnarBatch(merged)]
+                        del merged
                     out.append(batches)
                 self.plan.materialized = out
+                weakref.finalize(self.plan, _close_cached, out)
         return self.plan.materialized
 
     def execute_partition(self, pidx):
-        yield from self._materialize()[pidx]
+        for sb in self._materialize()[pidx]:
+            yield sb.get_batch()
+
+
+def _close_cached(parts) -> None:
+    """Release a collected relation's handles (their device or host
+    planes, and any spill files)."""
+    for batches in parts:
+        for sb in batches:
+            sb.close()
 
 
 _STAT_TYPES = (T.Int8Type, T.Int16Type, T.Int32Type, T.Int64Type, T.DateType,
@@ -555,9 +686,11 @@ class ProjectExec(TorchExec):
                 yield ColumnarBatch([batch.columns[i] for i in trivial],
                                     batch.num_rows, batch.row_mask)
                 continue
-            ctx = self._ctx(batch, partition_id=pidx, row_base=row_base)
-            cols = [e.eval(ctx) for e in self.plan.exprs]
-            raise_errors(ctx.errors)
+            self._acquire()
+            with self._dispatch():
+                ctx = self._ctx(batch, partition_id=pidx, row_base=row_base)
+                cols = [e.eval(ctx) for e in self.plan.exprs]
+                raise_errors(ctx.errors)
             if count_rows:
                 row_base = row_base + ctx.row_mask.sum(dtype=torch.int64)
             for e, o in zip(self.plan.exprs, cols):
@@ -580,10 +713,13 @@ class FilterExec(TorchExec):
         count_rows = needs_row_base(cond)
         row_base = 0
         for batch in self.children[0].execute_partition(pidx):
-            ctx = self._ctx(batch, partition_id=pidx, row_base=row_base) \
-                if part else self._ctx(batch)
-            pred = cond.eval(ctx)
-            raise_errors(ctx.errors)
+            self._acquire()
+            with self._dispatch():
+                ctx = self._ctx(batch, partition_id=pidx,
+                                row_base=row_base) \
+                    if part else self._ctx(batch)
+                pred = cond.eval(ctx)
+                raise_errors(ctx.errors)
             if count_rows:
                 row_base = row_base + ctx.row_mask.sum(dtype=torch.int64)
             valid = pred.validity if pred.validity is not None \
@@ -599,6 +735,7 @@ class CoalesceBatchesExec(TorchExec):
         pending: List[ColumnarBatch] = []
         pending_bytes = 0
         for batch in self.children[0].execute_partition(pidx):
+            self._acquire()
             pending.append(batch)
             pending_bytes += batch.device_memory_size()
             if pending_bytes >= target:
@@ -630,6 +767,7 @@ class RangeExec(TorchExec):
     def execute_partition(self, pidx):
         p = self.plan
         start_i, n = _split_rows(p.num_rows(), self.num_partitions)[pidx]
+        self._acquire()
         max_rows = self.conf.get(C.MAX_READER_BATCH_SIZE_ROWS)
         off = 0
         while True:
@@ -674,6 +812,7 @@ class UnionExec(TorchExec):
                 exprs = self._cast_exprs(cplan.schema)
                 needs_cast = any(isinstance(e, Cast) for e in exprs)
                 for batch in child.execute_partition(pidx):
+                    self._acquire()
                     yield _run_projection(exprs, batch, self.device) \
                         if needs_cast else batch
                 return
@@ -703,6 +842,7 @@ class ExpandExec(TorchExec):
     def execute_partition(self, pidx):
         projs = self._proj_exprs()
         for batch in self.children[0].execute_partition(pidx):
+            self._acquire()
             outs = [_run_projection(exprs, batch, self.device)
                     for exprs in projs]
             if not self.stacked:
@@ -735,6 +875,7 @@ class GenerateExec(TorchExec):
 
     def execute_partition(self, pidx):
         for batch in self.children[0].execute_partition(pidx):
+            self._acquire()
             yield self._generate(batch)
 
     def _generate(self, batch: ColumnarBatch) -> ColumnarBatch:
@@ -838,6 +979,8 @@ class _ExchangeExec(TorchExec):
         super().__init__(plan, children, conf, device)
         self.n_out = n_out
         self._lock = threading.Lock()
+        #: the counters below move on the child tasks' threads
+        self._count_lock = threading.Lock()
         self._out: Optional[List[List[ColumnarBatch]]] = None
         self._masked = False
         self._skew_decision = None
@@ -862,9 +1005,15 @@ class _ExchangeExec(TorchExec):
     def _emit_compact(self, batch: ColumnarBatch, pid: torch.Tensor,
                       out) -> None:
         sorted_b, off = RP.counting_sort_by_pid(batch, pid, self.n_out)
-        self.partition_dispatches += 1
+        with self._count_lock:
+            self.partition_dispatches += 1
+        # per-batch exchange checkpoint: the offsets sync is where a
+        # shuffle blocks
+        LC.check_current()
+        FLT.site("exchange.fetch")
         offsets = off.cpu().numpy()  # the one sync per input batch
-        self.partition_fetches += 1
+        with self._count_lock:
+            self.partition_fetches += 1
         for p, sub in enumerate(RP.compact_slices(sorted_b, offsets,
                                                   self.n_out)):
             if sub is None:
@@ -877,26 +1026,35 @@ class _ExchangeExec(TorchExec):
                      out) -> None:
         """n_out sub-batches sharing the planes; each costs a partition
         mask and a count that syncs when read."""
-        self.partition_dispatches += self.n_out
-        self.partition_fetches += self.n_out
+        with self._count_lock:
+            self.partition_dispatches += self.n_out
+            self.partition_fetches += self.n_out
         for p, sub in enumerate(RP.masked_slices(batch, pid, self.n_out)):
             out[p].append(sub)
 
     def _repartition(self, batches: Iterator[ColumnarBatch]):
         out: List[List[ColumnarBatch]] = [[] for _ in range(self.n_out)]
         for batch in batches:
+            self._acquire()
             self._emit(batch, self._pids(batch), out)
         return out
 
     def _materialize(self):
-        with self._lock:
+        """The child partitions run once, one after another, each a task
+        of its own, and their batches stream into the partitioning. The
+        JAX package runs them as a task wave (tpu_nodes.py:3066-3088);
+        here every task queues on the one CUDA stream, so a wave overlaps
+        no device work and each offsets sync waits for the other tasks'
+        kernels (measured in PERF.md §6)."""
+        with _materializing(self._lock):
             if self._out is None:
                 self._masked = partitioning_mode(self.conf) == "masked"
-                child = self.children[0]
-                batches = (b for p in range(child.num_partitions)
-                           for b in child.execute_partition(p))
-                self._out = [list(batches)] if self.n_out == 1 \
-                    else self._repartition(batches)
+                batches = _task_batches(self.children[0])
+                try:
+                    self._out = [list(batches)] if self.n_out == 1 \
+                        else self._repartition(batches)
+                finally:
+                    batches.close()
         return self._out
 
     def execute_partition(self, pidx):
@@ -1005,7 +1163,8 @@ class _ExchangeExec(TorchExec):
 
     def _flush_run(self, run):
         if len(run) > 1:
-            self.coalesced_batches += len(run)
+            with self._count_lock:
+                self.coalesced_batches += len(run)
             yield _coalesced(run)
         elif run:
             yield run[0]
@@ -1067,6 +1226,7 @@ class RangeExchangeExec(_ExchangeExec):
         budget = int(self.conf.get(C.RANGE_PARTITION_SAMPLE)) * self.n_out
         per_batch, samples = [], []
         for batch in batches:
+            self._acquire()
             planes, live = self._planes(batch)
             per_batch.append((batch, planes))
             idx = torch.nonzero(live).flatten()
@@ -1818,6 +1978,7 @@ class HashAggregateExec(TorchExec):
         return fields
 
     def execute_partition(self, pidx):
+        from spark_rapids_tpu_torch.runtime.retry import with_retry
         nkeys = len(self.plan.group_exprs)
         batches = self.children[0].execute_partition(pidx)
         skip_merge = False
@@ -1834,20 +1995,32 @@ class HashAggregateExec(TorchExec):
                     batches = [K.concat_batches(batches)]
             ratio = float(self.conf.get(C.SKIP_AGG_PASS_RATIO))
             partials = []
+
+            def attempt(b):
+                # the update (with an absorbed pre-filter) is idempotent
+                # over its input batch: retried after a spill drain, or
+                # split in half, on OOM (JAX tpu_nodes.py:2727-2815)
+                with self._dispatch():
+                    out, errs = self.kern.update(b, self._ctx)
+                    raise_errors(errs)
+                return out
+
             for bi, batch in enumerate(batches):
-                out, errs = self.kern.update(batch, self._ctx)
-                raise_errors(errs)
-                partials.append(ColumnarBatch(out.columns, 1) if nkeys == 0
-                                else out)
-                if bi == 0 and ratio < 1.0 and nkeys \
-                        and self.mode == "partial":
-                    # sampled on the first batch only: each count is a sync
-                    skip_merge = int(out.num_rows) > ratio * max(
-                        int(batch.num_rows), 1)
+                self._acquire()
+                for si, out in enumerate(with_retry(attempt, batch)):
+                    partials.append(ColumnarBatch(out.columns, 1)
+                                    if nkeys == 0 else out)
+                    if bi == 0 and si == 0 and ratio < 1.0 and nkeys \
+                            and self.mode == "partial":
+                        # sampled on the first batch only: each count is
+                        # a sync
+                        skip_merge = int(out.num_rows) > ratio * max(
+                            int(batch.num_rows), 1)
         if not partials:
             if nkeys:
                 return
             partials = [self._empty_state_batch()]
+        self._acquire()
         if skip_merge and len(partials) > 1:
             for p in partials:
                 yield K.compact_batch(p)
@@ -1912,6 +2085,7 @@ class LimitExec(TorchExec):
         for batch in self.children[0].execute_partition(pidx):
             if remaining <= 0:
                 break
+            self._acquire()
             if batch.row_mask is not None:
                 batch = K.compact_batch(batch)
             n = int(batch.num_rows)
@@ -1997,6 +2171,7 @@ class TopNExec(TorchExec):
         batches = list(self.children[0].execute_partition(pidx))
         if not batches:
             return
+        self._acquire()
         batch = K.concat_batches(batches) if len(batches) > 1 else batches[0]
         n = self.n
         bound = max(4 * n, 4096)
@@ -2036,6 +2211,7 @@ class SortExec(TorchExec):
         batches = list(self.children[0].execute_partition(pidx))
         if not batches:
             return
+        self._acquire()
         total = sum(b.device_memory_size() for b in batches)
         if total > self.conf.get(C.SORT_OOC_BYTES):
             yield from self._out_of_core(batches)
@@ -2144,6 +2320,7 @@ class WindowExec(TorchExec):
         batches = list(self.children[0].execute_partition(pidx))
         if not batches:
             return
+        self._acquire()
         batch = K.concat_batches(batches) if len(batches) > 1 else batches[0]
         if batch.row_mask is not None:
             batch = K.compact_batch(batch)
@@ -2479,6 +2656,7 @@ class _HashJoinBase(TorchExec):
             table = self._dense_table_for(build, build_keys)
             if table is not None and table.max_dup <= 1:
                 for probe in probe_iter:
+                    self._acquire()
                     yield self._probe_masked(probe, build, table)
                 return
         # right and full joins track a build-wide matched mask, which
@@ -2487,6 +2665,7 @@ class _HashJoinBase(TorchExec):
             if how in ("inner", "left", "left_semi", "left_anti") else 1
         build_parts = self._split_build(build, k) if k > 1 else None
         for probe in probe_iter:
+            self._acquire()
             if build_parts is not None:
                 probe_parts = self._bucket_split(probe, self._hash_keys(0), k)
                 for pp, (bpc, bkeys) in zip(probe_parts, build_parts):
@@ -2659,7 +2838,7 @@ class BroadcastHashJoinExec(_HashJoinBase):
 
     def _build_side(self) -> ColumnarBatch:
         from spark_rapids_tpu_torch.exec import adaptive as AQ
-        with self._build_lock:
+        with _materializing(self._build_lock):
             if self._build is not None:
                 return self._build
             anchor, skey = self._reuse_anchor()
@@ -2697,9 +2876,8 @@ class BroadcastHashJoinExec(_HashJoinBase):
                                   dispatches_saved=int(
                                       entry.get("build_batches", 0)) or 1)
                     return self._reuse_build(entry)
-            right = self.children[1]
-            batches = [b for p in range(right.num_partitions)
-                       for b in right.execute_partition(p)]
+            batches = [b for part in _partitions(self.children[1])
+                       for b in part]
             build = K.compact_batch(K.concat_batches(batches)) \
                 if batches else _empty_batch(self.plan.children[1].schema,
                                              self.device)
@@ -2757,19 +2935,20 @@ class AdaptiveJoinExec(TorchExec):
 
     def _choose(self) -> TorchExec:
         from spark_rapids_tpu_torch.exec import adaptive as AQ
-        with self._lock:
+        with _materializing(self._lock):
             if self._chosen is not None:
                 return self._chosen
             left, right = self.children
             threshold = self.conf.get(C.BROADCAST_JOIN_ROW_THRESHOLD)
             batches, rows, overflow = [], 0, False
             for p in range(right.num_partitions):
-                for b in right.execute_partition(p):
-                    batches.append(b)
-                    rows += int(b.num_rows)
-                    if rows > threshold:
-                        overflow = True
-                        break
+                with TaskContext(partition_id=p):
+                    for b in right.execute_partition(p):
+                        batches.append(b)
+                        rows += int(b.num_rows)
+                        if rows > threshold:
+                            overflow = True
+                            break
                 if overflow:
                     break
             if not overflow:
@@ -2829,11 +3008,10 @@ class _WholeBuildJoin(TorchExec):
         self._build: Optional[ColumnarBatch] = None
 
     def _build_side(self) -> ColumnarBatch:
-        with self._build_lock:
+        with _materializing(self._build_lock):
             if self._build is None:
-                right = self.children[1]
-                batches = [b for p in range(right.num_partitions)
-                           for b in right.execute_partition(p)]
+                batches = [b for part in _partitions(self.children[1])
+                           for b in part]
                 self._build = K.compact_batch(K.concat_batches(batches)) \
                     if batches else _empty_batch(self.plan.children[1].schema,
                                                  self.device)
@@ -2865,6 +3043,7 @@ class BroadcastNestedLoopJoinExec(_WholeBuildJoin):
         bcap = max(build.capacity, 1)
         bmatched = torch.zeros(bcap, dtype=torch.bool, device=self.device)
         for left in self.children[0].execute_partition(pidx):
+            self._acquire()
             lcap = max(left.capacity, 1)
             tile = max(1, min(bcap, self.MAX_PAIRS // lcap))
             llive = left.live_mask()
@@ -2936,6 +3115,7 @@ class CartesianProductExec(_WholeBuildJoin):
         build = self._build_side()
         nb = int(build.num_rows)
         for probe in self.children[0].execute_partition(pidx):
+            self._acquire()
             if probe.row_mask is not None:
                 probe = K.compact_batch(probe)
             n = int(probe.num_rows) * nb
@@ -3006,12 +3186,13 @@ class CpuFallbackExec(TorchExec):
         names = child.plan.schema.names
         tables = []
         for p in range(child.num_partitions):
-            for batch in child.execute_partition(p):
-                self._sync()  # the child's device work is not a download
-                t0 = time.perf_counter()
-                tables.append(host_table(batch, names))
-                self.metrics["download_ms"] += \
-                    (time.perf_counter() - t0) * 1e3
+            with TaskContext(partition_id=p):
+                for batch in child.execute_partition(p):
+                    self._sync()  # the child's device work is no download
+                    t0 = time.perf_counter()
+                    tables.append(host_table(batch, names))
+                    self.metrics["download_ms"] += \
+                        (time.perf_counter() - t0) * 1e3
         table = pa.concat_tables(tables) if tables \
             else empty_table(child.plan.schema)
         self.metrics["rows_in"] += table.num_rows
@@ -3038,6 +3219,7 @@ class CpuFallbackExec(TorchExec):
         t0 = time.perf_counter()
         table = CPU.cols_to_table(cols, self.plan.schema.names)
         self.metrics["cpu_ms"] += (time.perf_counter() - t0) * 1e3
+        self._acquire()
         t0 = time.perf_counter()
         batch = from_arrow(table, self.device)
         self._sync()

@@ -29,14 +29,20 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
+class KernelError(RuntimeError):
+    """A hand kernel failed to build, load or launch. Graceful
+    degradation never re-runs such a query on the CPU backend
+    (``sql/session._degradable``): a broken kernel must surface."""
+
+
 def nvcc_path() -> str:
     for cand in (shutil.which("nvcc"),
                  os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                               "bin", "nvcc")):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels build only where "
-                       "the CUDA toolkit is installed")
+    raise KernelError("nvcc not found: the CUDA kernels build only where "
+                      "the CUDA toolkit is installed")
 
 
 def _paths(name: str):
@@ -70,7 +76,7 @@ def _finish(name: str, proc, out_dir: str, lib: str) -> None:
         f.write(log)
     tmp = f"{lib}.{os.getpid()}.tmp"
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        raise KernelError(f"nvcc failed for {name}.cu:\n{log}")
     os.replace(tmp, lib)
 
 
@@ -96,12 +102,30 @@ def load(name: str) -> ctypes.CDLL:
         with _lock:
             lib = _libs.get(name)
             if lib is None:
-                lib = ctypes.CDLL(_paths(name)[2])
+                try:
+                    lib = ctypes.CDLL(_paths(name)[2])
+                except OSError as e:
+                    raise KernelError(f"cannot load {name}: {e}") from e
                 _libs[name] = lib
     return lib
 
 
+#: guards the wrappers' launch counts: partitions run on task threads
+count_lock = threading.Lock()
+
+#: cudaError_t of a failed device allocation
+CUDA_ERROR_MEMORY_ALLOCATION = 2
+
+
 def check(rc: int, what: str) -> None:
-    """Raise on the cudaError_t a launch function returned."""
+    """Raise on the cudaError_t a launch function returned: an allocation
+    failure as ``torch.OutOfMemoryError``, which the retry framework
+    drains and retries (``runtime/retry.is_device_oom``), any other code
+    as a KernelError."""
+    if rc == CUDA_ERROR_MEMORY_ALLOCATION:
+        import torch
+        raise torch.OutOfMemoryError(
+            f"{what}: CUDA launch failed with error {rc} "
+            f"(cudaErrorMemoryAllocation)")
     if rc != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")
+        raise KernelError(f"{what}: CUDA launch failed with error {rc}")

@@ -104,5 +104,6 @@ def bitslice(words: torch.Tensor, bitoff: torch.Tensor,
                                 m.data_ptr(), out.data_ptr(), b.numel(),
                                 stream)
     _build.check(rc, "bitslice")
-    launches += 1
+    with _build.count_lock:
+        launches += 1
     return out

@@ -66,5 +66,6 @@ def case_map(raw: torch.Tensor, upper: bool) -> torch.Tensor:
     rc = _lib().case_map_launch(src.data_ptr(), out.data_ptr(), src.numel(),
                                 int(bool(upper)), stream)
     _build.check(rc, "case_map")
-    launches += 1
+    with _build.count_lock:
+        launches += 1
     return out

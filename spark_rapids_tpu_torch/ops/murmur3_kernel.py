@@ -121,5 +121,6 @@ def murmur3_int32(values: torch.Tensor,
         0 if per_row else int(seed) & _M32, out.data_ptr(), x.numel(),
         stream)
     _build.check(rc, "murmur3_int32")
-    launches += 1
+    with _build.count_lock:
+        launches += 1
     return out

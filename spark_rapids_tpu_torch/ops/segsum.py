@@ -97,7 +97,8 @@ def segsum(gid: torch.Tensor, payload: torch.Tensor,
     rc = _lib().segsum_launch(g.data_ptr(), p.data_ptr(), out.data_ptr(),
                               g.shape[0], p.shape[0], outcap, stream)
     _build.check(rc, "segsum")
-    launches += 1
+    with _build.count_lock:
+        launches += 1
     return out
 
 

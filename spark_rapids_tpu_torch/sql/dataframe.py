@@ -347,9 +347,13 @@ class DataFrame:
         return DataFrame(P.CachedRelation(self.plan), self.session)
 
 
-    def collect(self):
-        """Run the query; returns a pyarrow Table."""
-        return self.session.collect(self.plan)
+    def collect(self, timeout_seconds: Optional[float] = None):
+        """Run the query; returns a pyarrow Table. ``timeout_seconds``
+        overrides spark.rapids.query.timeoutSeconds for this action: the
+        query is cancelled (QueryCancelledError, reason ``deadline``)
+        when it lapses."""
+        return self.session.collect(self.plan,
+                                    timeout_seconds=timeout_seconds)
 
     def collect_cpu(self):
         """Run the whole query on the CPU backend (localized to the

@@ -12,6 +12,15 @@ is tagged off the device runs one operator at a time on the CPU backend.
 spark.rapids.sql.explain=NOT_ON_TPU|ALL logs the placement report, and
 spark.rapids.sql.mode=explainOnly tags, logs and answers with the CPU
 backend alone.
+
+The action flow is the JAX package's (its session.py:229-273, :290-540):
+``prepare_execution`` arms the runtime (fault injection, retry backoff,
+the dispatch watchdog and breaker, the spill budgets), a top-level
+``collect`` registers a cancel token and passes admission
+(``runtime/lifecycle.py``), the partitions run as a task wave
+(``run_partitions``), and with spark.rapids.fallback.cpu.enabled a device
+failure degrades to the CPU backend. Tracing, the live query registry,
+history and the query epilogue are ROADMAP A11.
 """
 from __future__ import annotations
 
@@ -99,6 +108,9 @@ class TorchSession:
         self.last_meta = None
         self._views: Dict[str, DataFrame] = {}
         self._last_aqe: Optional[dict] = None
+        #: (status, reason) of the last top-level action
+        self.last_action_status = None
+        self._last_task_metrics: Dict[str, int] = {}
 
     # -- the SQL front door ------------------------------------------------
     def create_or_replace_temp_view(self, name: str, df: DataFrame) -> None:
@@ -196,17 +208,203 @@ class TorchSession:
         return DataFrame(P.TextScan("orc", self._expand_paths(paths),
                                     columns=columns), self)
 
-    def collect(self, plan: P.PlanNode) -> pa.Table:
+    # -- execution ---------------------------------------------------------
+    def prepare_execution(self, plan: P.PlanNode):
+        """The preamble of every action: this session's conf becomes the
+        thread's, fault injection is armed (the general sites and the
+        legacy OOM injector), the retry backoff, the dispatch watchdog and
+        breaker and the spill budgets are synced, then the plan is
+        converted. Returns (exec root, tagged plan)."""
+        from spark_rapids_tpu_torch.runtime import faults, watchdog
+        from spark_rapids_tpu_torch.runtime.memory import get_spill_framework
+        from spark_rapids_tpu_torch.runtime.retry import (
+            OomInjector, backoff_from_conf,
+        )
+        C.set_session_conf(self.conf)
+        OomInjector.from_conf(self.conf)
+        faults.from_conf(self.conf)
+        backoff_from_conf(self.conf)
+        watchdog.maybe_install(self.conf)
+        get_spill_framework(self.conf, self.device)
+        root, meta = convert_plan(plan, self.conf, self.device)
+        self.last_exec, self.last_meta = root, meta
+        return root, meta
+
+    def collect(self, plan: P.PlanNode,
+                timeout_seconds: Optional[float] = None) -> pa.Table:
+        """Run the plan and return its rows. A top-level action registers
+        a cancel token (armed with spark.rapids.query.timeoutSeconds or
+        ``timeout_seconds``) and passes the admission gate first; with
+        spark.rapids.fallback.cpu.enabled a device failure that is not
+        the user's re-executes on the CPU backend (status ``degraded``),
+        and an open circuit breaker skips the device. The outcome is
+        ``last_action_status``: (``ok``|``failed``|``degraded``|
+        ``cancelled``, the reason or None). A nested collect propagates
+        its failure to the outer query, which degrades whole."""
+        from spark_rapids_tpu_torch.runtime import lifecycle as LC
+        from spark_rapids_tpu_torch.runtime import task as TK
+        status = "ok"
+        degraded_reason: Optional[str] = None
+        cancel_reason: Optional[str] = None
+        tok = None  # this action's cancel token (top level only)
         depth = getattr(_COLLECT_DEPTH, "d", 0)
         _COLLECT_DEPTH.d = depth + 1
         if depth == 0:
             AQ.on_query_start(self.conf)
+        cpu_gate_failed = False
         try:
-            return self._collect(plan)
+            if depth == 0:
+                # the token registers first, so a query is cancellable
+                # while it waits for admission
+                tok = LC.begin_action(None, self.conf,
+                                      timeout_seconds=timeout_seconds)
+                LC.admit(tok, self.conf)
+            if depth == 0 and self._fallback_enabled():
+                from spark_rapids_tpu_torch.runtime import watchdog as WD
+                brk = WD.peek_breaker()
+                if brk is not None and not brk.allow():
+                    # breaker open: skip the device; allow() lets one
+                    # probe query through per backoff window
+                    status, degraded_reason = "degraded", "circuit_open"
+                    try:
+                        return self._execute_cpu_fallback(plan)
+                    except BaseException:
+                        # the device never ran: no breaker failure, and
+                        # no second CPU run
+                        cpu_gate_failed = True
+                        status, degraded_reason = "failed", None
+                        raise
+            result = self._collect(plan)
+            if depth == 0:
+                self._record_device_success()
+            return result
+        except BaseException as e:
+            if depth == 0 and isinstance(e, LC.QueryCancelledError):
+                # a cooperative cancel is its own terminal status, never
+                # re-executed on the CPU
+                status, cancel_reason = "cancelled", e.reason
+                raise
+            fallback = self._maybe_degrade_cpu(plan, e) \
+                if depth == 0 and not cpu_gate_failed else None
+            if fallback is None:
+                status = "failed"
+                raise
+            status, degraded_reason = "degraded", type(e).__name__
+            return fallback
         finally:
             _COLLECT_DEPTH.d = depth
             if depth == 0:
+                #: (status, reason) of the most recent top-level action
+                self.last_action_status = (status,
+                                           degraded_reason or cancel_reason)
+                # the token leaves the registry and its admission slot
+                # releases (A11: the obs epilogue follows in the JAX
+                # package)
+                LC.finish_action(tok, status)
+                self._last_task_metrics = TK.take_query_totals(
+                    tok.query_id) if tok is not None else {}
                 self._last_aqe = AQ.finish_query()
+
+    def cancel(self, query_id, reason: str = "user") -> bool:
+        """Cooperatively cancel an in-flight top-level query by id (the
+        ids ``runtime.lifecycle.token_ids()`` lists). Threads parked on
+        the semaphore, the admission queue or a retry backoff wake at
+        once, and the next checkpoint raises QueryCancelledError, which
+        unwinds through normal task completion. False when no such query
+        is in flight."""
+        from spark_rapids_tpu_torch.runtime import lifecycle as LC
+        return LC.cancel(query_id, reason=reason)
+
+    def last_task_metrics(self) -> Dict[str, int]:
+        """The task accumulators (the names in ``runtime/metrics.py``)
+        summed over the last top-level action's tasks (the high-water
+        mark for maxDeviceBytesHeld)."""
+        return dict(self._last_task_metrics)
+
+    def _fallback_enabled(self) -> bool:
+        return bool(self.conf.get(C.FALLBACK_CPU_ENABLED))
+
+    def _record_device_success(self) -> None:
+        """Close the circuit on a successful device query (a half-open
+        probe, or a plain success resetting the failure count). Only when
+        fallback is on: the breaker must not gather state from workloads
+        that fail queries on purpose with fallback off."""
+        if not self._fallback_enabled():
+            return
+        from spark_rapids_tpu_torch.runtime import watchdog as WD
+        brk = WD.peek_breaker()
+        if brk is not None:
+            brk.record_success()
+
+    @staticmethod
+    def _degradable(error: BaseException) -> bool:
+        """Engine and device failures degrade (exhausted OOM retries,
+        injected faults, a failing device call); user-semantic errors do
+        not: an ANSI overflow or an unsupported operation would raise
+        identically on the CPU backend. A cancelled query must end, and a
+        rejected one re-executing would bypass admission. A hand kernel
+        that fails to build, load or launch is never hidden behind the
+        CPU backend."""
+        from spark_rapids_tpu_torch.ops._build import KernelError
+        from spark_rapids_tpu_torch.runtime.lifecycle import (
+            QueryCancelledError, QueryRejectedError,
+        )
+        if isinstance(error, (KeyboardInterrupt, SystemExit,
+                              GeneratorExit, QueryCancelledError,
+                              QueryRejectedError, KernelError)):
+            return False
+        return not isinstance(error, SparkException)
+
+    def _execute_cpu_fallback(self, plan: P.PlanNode) -> pa.Table:
+        return execute_cpu(localize_plan(plan, self.conf),
+                           self.conf.get(C.ANSI_ENABLED))
+
+    def _maybe_degrade_cpu(self, plan: P.PlanNode,
+                           error: BaseException) -> Optional[pa.Table]:
+        """Graceful degradation (spark.rapids.fallback.cpu.enabled): the
+        device path failed a top-level query; re-execute it on the CPU
+        backend. None when degradation is off, the error is the user's,
+        or the CPU run fails too (the device error then propagates)."""
+        if not self._fallback_enabled() or not self._degradable(error):
+            return None
+        from spark_rapids_tpu_torch.runtime import watchdog as WD
+        WD.breaker().record_failure(type(error).__name__)
+        _LOG.warning(
+            "query failed on the device path (%s: %s); degrading to CPU "
+            "re-execution", type(error).__name__, str(error)[:200])
+        try:
+            return self._execute_cpu_fallback(plan)
+        except Exception:  # noqa: BLE001 - surface the original error
+            _LOG.warning("CPU fallback re-execution also failed",
+                         exc_info=True)
+            return None
+
+    def run_partitions(self, exec_root, per_batch) -> list:
+        """Every partition of an exec tree as a task (up to 16 at once,
+        the Spark task-scheduler role), per_batch applied to each output
+        batch; the results flat, in partition order. Wave threads carry
+        the session conf, the query id and the collect depth."""
+        from spark_rapids_tpu_torch.runtime.host_pool import run_task_wave
+        from spark_rapids_tpu_torch.runtime.task import TaskContext
+        depth = getattr(_COLLECT_DEPTH, "d", 0)
+
+        def run(p: int) -> list:
+            prev = getattr(_COLLECT_DEPTH, "d", 0)
+            _COLLECT_DEPTH.d = depth
+            try:
+                with TaskContext(partition_id=p):
+                    return [per_batch(b)
+                            for b in exec_root.execute_partition(p)]
+            finally:
+                _COLLECT_DEPTH.d = prev
+
+        nparts = exec_root.num_partitions
+        if nparts == 1:
+            return run(0)
+        out = []
+        for res in run_task_wave(run, range(nparts)):
+            out.extend(res)
+        return out
 
     def last_aqe(self) -> Optional[dict]:
         """The adaptive decisions of the last top-level action: the
@@ -226,15 +424,13 @@ class TorchSession:
             _LOG.info("\n%s", self.last_meta.explain(all_ops=True))
             return execute_cpu(localize_plan(plan, self.conf),
                                self.conf.get(C.ANSI_ENABLED))
-        root, meta = convert_plan(plan, self.conf, self.device)
-        self.last_exec, self.last_meta = root, meta
+        root, meta = self.prepare_execution(plan)
         explain_mode = self.conf.get(C.SQL_EXPLAIN).upper()
         if explain_mode == "ALL" or (explain_mode == "NOT_ON_TPU"
                                      and not all(m.can_run_on_tpu
                                                  for m in meta.walk())):
             _LOG.info("\n%s", meta.explain(all_ops=explain_mode == "ALL"))
         names = plan.schema.names
-        tables = [host_table(b, names) for p in range(root.num_partitions)
-                  for b in root.execute_partition(p)]
+        tables = self.run_partitions(root, lambda b: host_table(b, names))
         return pa.concat_tables(tables) if tables \
             else empty_table(plan.schema)

@@ -1707,3 +1707,28 @@ def text_scan_doc(path: str) -> dict:
         "aggs": [{"fn": "sum", "child": c("l_quantity"), "alias": "q"},
                  {"fn": "count", "child": c("l_quantity"), "alias": "n"}],
         "child": {"node": "text_scan", "format": "csv", "paths": [path]}}}
+
+
+def reset_torch_runtime() -> None:
+    """Reset the port's process-global runtime state, as tests/conftest.py's
+    autouse fixture does for the JAX package: the semaphore, the spill
+    framework, the OOM injector and the retry backoff, the fault schedule,
+    the watchdog and breaker, the cancel tokens, the admission gate and
+    the deadline sweeper, the per-query task totals and the thread's
+    query binding."""
+    from spark_rapids_tpu_torch import config as TC
+    from spark_rapids_tpu_torch.runtime import faults, lifecycle, task
+    from spark_rapids_tpu_torch.runtime import watchdog
+    from spark_rapids_tpu_torch.runtime.memory import reset_spill_framework
+    from spark_rapids_tpu_torch.runtime.retry import OomInjector, set_backoff
+    from spark_rapids_tpu_torch.runtime.semaphore import reset_semaphore
+    reset_semaphore()
+    reset_spill_framework()
+    OomInjector.configure(0)
+    faults.configure("")
+    set_backoff(10.0, 500.0)
+    watchdog.uninstall_for_tests()
+    lifecycle.reset_for_tests()
+    lifecycle.bind(None)
+    task.reset_for_tests()
+    TC.set_session_conf(None)
