@@ -6,9 +6,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 Phases, one JSON line each:
 
-1. build: nvcc builds every kernel of csrc/ for sm_90a, in parallel, into
+1. build: nvcc builds every kernel of csrc/ for sm_90a, and g++ the
+   shuffle's frame packer (csrc/kudo.cpp), in parallel, into
    build/torch_kernels/ (listed in .gitignore); prints the build seconds
-   and each kernel's register use.
+   and each kernel's register use, and loads the packer.
 2. setup: bench.py's lineitem (30M rows, seed 42, ~TPC-H SF5), its
    pyarrow answers, and the same table written as a Parquet file in a
    temporary directory with bench.py's writer settings (row groups of
@@ -251,6 +252,26 @@ Phases, one JSON line each:
    generate: the CPU Generate, B3 and B2), each cold then twice warm and
    checked against numpy on the lineitem itself and Python rows, with
    routes, CPU nodes, Expand forms and launches asserted exactly.
+17b. shuffle (right after the formats phase, on the joins phase's
+   8-partition caches h8, bench.py's lineitem and orders, every query in
+   test mode): sh_q72shfl (q72shfl's grouping behind a hash exchange of
+   its int key: B1, then B2), sh_repart_agg and sh_q3join_shuffled, each
+   cold then twice warm under spark.rapids.shuffle.mode=MULTITHREADED and
+   then SERIALIZED at the JAX package's defaults (codec auto, a 256 MiB
+   host budget, 8 writer and 8 reader threads): the same answer, the
+   same B1 and B2 launches a run, bytes written and spilled, both warm
+   times; sh_disk (sh_repart_agg under a 64 MiB host budget: blobs on
+   disk, the answer exact), sh_corrupt (one corrupt shuffle.read: one
+   re-fetch, shuffleCorruptionRetries 1, the answer exact), sh_xproc (a
+   subprocess of the port, which must import no JAX, writes the exchange
+   files of the first 5M lines keyed on l_orderkey, n_out 8; this
+   process mounts them, aggregates them exactly and checks every key's
+   reduce partition against numpy's Spark murmur3), wr_parquet_q1 (the
+   first 5M lines written by DataFrame.write partitioned by the flags,
+   read back through the device-decode source, B3, and q1 checked) and
+   tb_delta_merge (the orders as a Delta table, 300,000 upserts merged
+   in, checked against numpy's upsert; an Iceberg table in two appends
+   with a snapshot read; a Hive text round trip of 1M lines).
 18. runtime (last, after the fallback phase, so that its small budgets,
    injected faults and open breaker touch no earlier phase; on the joins
    phase's lineitem caches h1 (1 partition) and h8 (8), the Parquet file
@@ -288,14 +309,16 @@ operator that planning tags off the card fails the query, except the one
 node each fallback query names in spark.rapids.sql.test.allowedNonTpu.
 It then prints the kernel table ({"kernels": [...]}, with each kernel's
 launches per path in "launches_by_path": cached, parquet, strings, joins,
-adaptive, window, sql, exprs, sets, aggtypes, datetime, nested, regex,
-fallback, runtime),
+adaptive, window, sql, exprs, sets, aggtypes, datetime, nested, formats,
+shuffle, regex, fallback, runtime),
 the card's name and power limit, and as its last line {"ok": true,
 "device": {...}}. Any failure exits non-zero without that line; so does a
 machine without CUDA, and so does a run that imported the JAX package.
 The lineitem generators and the string, join, window, expression, set,
 aggregate-type, datetime, regex and nested query shapes are the ones of
 tests/torch_port_helpers.py, which the CPU tests run too.
+`python3 chip_smoke.py --phase shuffle` runs the build, the setup, the
+8-partition caches and the shuffle phase alone.
 `python3 chip_smoke.py --segsum-against OTHER.cu [...]` runs only the
 segsum shapes, through the checkout's kernel and a build of each other
 segsum source (the same C interface), each held exactly against the plain
@@ -326,6 +349,8 @@ ROWS = 30_000_000
 LO, HI = 8766, 9131
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 KERNEL_NAMES = ("murmur3", "segsum", "bitslice", "case_map")
+#: host C++ of csrc/ built beside the kernels: the shuffle's frame packer
+HOST_LIBS = ("kudo",)
 #: bench.py decode_pass's writer settings (bench.py:516-519)
 PARQUET_WRITE = dict(row_group_size=1 << 20,
                      use_dictionary=["l_shipdate", "l_quantity",
@@ -448,14 +473,18 @@ def kernel_device_ms(fn, match: str, reps: int = 20) -> float:
 
 def phase_build():
     from spark_rapids_tpu_torch.ops import _build
+    from spark_rapids_tpu_torch.shuffle import serde
     t0 = time.perf_counter()
-    logs = _build.build_all(list(KERNEL_NAMES))
+    logs = _build.build_all(list(KERNEL_NAMES) + list(HOST_LIBS))
     secs = time.perf_counter() - t0
+    # the shuffle's frame packer is host C++: it must load, not fall back
+    packer = serde.kudo_lib()._name
     regs = {n: [ln.strip() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln]
             for n, log in logs.items()}
     emit({"phase": "build", "seconds": round(secs, 3), "built": sorted(logs),
-          "ptxas": regs})
+          "ptxas": {n: r for n, r in regs.items() if n not in HOST_LIBS},
+          "packer": packer})
 
 
 # ---------------------------------------------------------------------------
@@ -5264,6 +5293,363 @@ def phase_formats(table, orders, want, n1, h1, tmp_dir, spy, prof=None):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 17b: the serialized shuffle, the writers and the table formats
+# ---------------------------------------------------------------------------
+
+SERIALIZED = {"spark.rapids.shuffle.mode": "SERIALIZED"}
+#: the joins phase's 8-partition session: q3join_shuffled stays shuffled
+SHUFFLED_JOIN = {"spark.rapids.sql.join.broadcastRowThreshold": 0,
+                 "spark.rapids.sql.adaptive.broadcastThresholdBytes": 0}
+SH_DISK_BUDGET = 64 << 20
+SH_XPROC_ROWS = 5_000_000
+SH_WRITE_ROWS = 5_000_000
+SH_UPSERTS = 300_000
+SH_HIVE_ROWS = 1_000_000
+
+#: sh_xproc's writer: a process of the port alone, which must import
+#: neither jax nor the JAX package
+XPROC_WRITER = r"""
+import json, sys, time
+t0 = time.perf_counter()
+from spark_rapids_tpu_torch import TorchSession
+from spark_rapids_tpu_torch.shuffle.exchange_files import write_exchange
+src, root = sys.argv[1:3]
+s = TorchSession({"spark.rapids.sql.test.enabled": "true"})
+df = s.read_parquet(src, columns=["l_orderkey", "l_returnflag",
+                                  "l_linestatus", "l_quantity"])
+write_exchange(df, root, ["l_orderkey"], 8)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "spark_rapids_tpu"))
+print(json.dumps({"imported": bad, "seconds": time.perf_counter() - t0}))
+sys.exit(1 if bad else 0)
+"""
+
+
+def shuffle_totals(session):
+    """The last query's serialized exchanges: their count, bytes written
+    and spilled, and blobs."""
+    from spark_rapids_tpu_torch.exec import nodes as X
+    exs = [e for e in session.last_exec.walk()
+           if isinstance(e, X.ShuffleExchangeExec)]
+    stores = [e._store for e in exs if e._store is not None]
+    return {"exchanges": len(exs), "serialized": len(stores),
+            "bytes_written": sum(e.metrics["shuffleBytesWritten"]
+                                 for e in exs),
+            "bytes_spilled": sum(e.metrics["shuffleBytesSpilled"]
+                                 for e in exs),
+            "blobs": sum(st.num_blobs(p) for st in stores
+                         for p in range(st.n_partitions))}
+
+
+def shuffle_queries(h8):
+    """name -> (extra conf, fn(li, od)): the three sh_* shapes over the
+    joins phase's 8-partition caches."""
+    H, api = helpers(), port_api()
+
+    def q72(li, od):
+        d = H.q72shfl_repart(api, li).to_pydict()
+        return {k: (s, c) for k, s, c in zip(d["k"], d["s"], d["c"])}
+
+    def rep(li, od):
+        d = H.repart_agg(api, li).to_pydict()
+        return {k: (s, c) for k, s, c in zip(d["l_shipdate"], d["s"],
+                                              d["c"])}
+
+    def q3(li, od):
+        d = H.q3join(api, li, od).to_pydict()
+        return dict(zip(d["l_orderkey"], d["rev"]))
+
+    return {"sh_q72shfl": ({}, q72), "sh_repart_agg": ({}, rep),
+            "sh_q3join_shuffled": (SHUFFLED_JOIN, q3)}
+
+
+def same_answer(got, want) -> bool:
+    """Group by group: sums within 1e-9 relative, counts exact."""
+    if set(got) != set(want):
+        return False
+    for k, w in want.items():
+        g = got[k]
+        if isinstance(w, tuple):
+            if not (_close(g[0], w[0], 1e-9) and g[1] == w[1]):
+                return False
+        elif not _close(g, w, 1e-9):
+            return False
+    return True
+
+
+def phase_shuffle(table, orders, want, h8, tmp_dir, spy):
+    """The serialized shuffle (sh_*: each query under MULTITHREADED, then
+    SERIALIZED at the JAX package's defaults; a 64 MiB host budget; a
+    corrupt read; a cross-process exchange), the writers (wr_parquet_q1)
+    and the table formats (tb_delta_merge: Delta with MERGE, Iceberg,
+    Hive text), each checked against numpy, pyarrow or the same query's
+    MULTITHREADED answer."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+    import torch
+    from spark_rapids_tpu_torch import config as TC
+    from spark_rapids_tpu_torch.shuffle import exchange_files as XF
+    from spark_rapids_tpu_torch.shuffle import serde
+    from spark_rapids_tpu_torch.sql.dataframe import DataFrame
+    H, api = helpers(), port_api()
+    t_phase = time.perf_counter()
+    codec = serde.resolve_codec(TC.RapidsConf().get(TC.SHUFFLE_COMPRESSION))
+    emit({"phase": "shuffle.setup", "codec": codec,
+          "native_packer": serde.kudo_lib()._name,
+          "host_spill_budget": TC.RapidsConf().get(TC.SHUFFLE_HOST_BUDGET)})
+    reset_launches()
+    spy.take()
+    problems = []
+
+    def run(session, fn, runs=3):
+        before = read_launches()
+        torch.cuda.reset_peak_memory_stats()
+        answers, secs = [], []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            answers.append(fn())
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        launches = {k: (v - before[k]) // runs
+                    for k, v in read_launches().items()}
+        return answers, {
+            "cold_ms": secs[0] * 1e3,
+            "warm_ms": min(secs[1:]) * 1e3 if runs > 1 else None,
+            "launches": launches,
+            "routes": {k: v // runs for k, v in spy.take().items()},
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "shuffle": shuffle_totals(session),
+            "task_metrics": session.last_task_metrics(),
+            "status": session.last_action_status}
+
+    refs = {"sh_q72shfl": want["q72shfl_groups"],
+            "sh_repart_agg": want["repart_agg"]}
+    mt_answers = {}
+    for name, (conf, fn) in shuffle_queries(h8).items():
+        lines = {}
+        for mode in ("MULTITHREADED", "SERIALIZED"):
+            s = device_session({**conf, "spark.rapids.shuffle.mode": mode})
+            li, od = DataFrame(h8.li.plan, s), DataFrame(h8.od.plan, s)
+            answers, lines[mode] = run(s, lambda: fn(li, od))
+            if not all(same_answer(a, answers[0]) for a in answers[1:]):
+                problems.append(f"{name} {mode}: runs differ")
+            if mode == "MULTITHREADED":
+                mt = mt_answers[name] = answers[0]
+            got = answers[0]
+        mt_l, ser_l = lines["MULTITHREADED"], lines["SERIALIZED"]
+        good = same_answer(got, mt) and (name not in refs
+                                         or validate(name, got, refs[name]))
+        b12 = ("murmur3_int32", "segsum")
+        if not good:
+            problems.append(f"{name}: SERIALIZED disagrees with "
+                            f"MULTITHREADED or the reference")
+        if any(ser_l["launches"][k] != mt_l["launches"][k] for k in b12):
+            problems.append(f"{name}: launches {ser_l['launches']} under "
+                            f"SERIALIZED, {mt_l['launches']} under "
+                            f"MULTITHREADED")
+        if not (ser_l["shuffle"]["serialized"] > 0
+                and ser_l["shuffle"]["bytes_written"] > 0
+                and mt_l["shuffle"]["serialized"] == 0):
+            problems.append(f"{name}: shuffle {ser_l['shuffle']} "
+                            f"(MULTITHREADED {mt_l['shuffle']})")
+        emit({"phase": "shuffle.query", "query": name, "correct": good,
+              "bitwise_equal": got == mt, "codec": codec,
+              "serialized": ser_l, "multithreaded": mt_l,
+              "warm_ratio": ser_l["warm_ms"] / mt_l["warm_ms"]})
+
+    # sh_disk: repart_agg under a 64 MiB host budget, its blobs paged out
+    s = device_session({**SERIALIZED, "spark.rapids.shuffle.hostSpillBudget":
+                        SH_DISK_BUDGET})
+    rep = shuffle_queries(h8)["sh_repart_agg"][1]
+    li8 = DataFrame(h8.li.plan, s)
+    answers, line = run(s, lambda: rep(li8, None), runs=2)
+    good = same_answer(answers[0], mt_answers["sh_repart_agg"])
+    if not good or line["shuffle"]["bytes_spilled"] <= 0:
+        problems.append(f"sh_disk: correct {good}, {line['shuffle']}")
+    emit({"phase": "shuffle.query", "query": "sh_disk", "correct": good,
+          "host_spill_budget": SH_DISK_BUDGET, **line})
+
+    # sh_corrupt: one corrupted blob read, re-fetched from the store
+    s = device_session({**SERIALIZED, "spark.rapids.debug.faults":
+                        "shuffle.read:corrupt:1"})
+    li8 = DataFrame(h8.li.plan, s)
+    answers, line = run(s, lambda: rep(li8, None), runs=1)
+    retries = line["task_metrics"].get("shuffleCorruptionRetries")
+    good = same_answer(answers[0], mt_answers["sh_repart_agg"])
+    if not good or retries != 1 or line["status"] != ("ok", None):
+        problems.append(f"sh_corrupt: correct {good}, retries {retries}, "
+                        f"status {line['status']}")
+    emit({"phase": "shuffle.query", "query": "sh_corrupt", "correct": good,
+          "corruption_retries": retries, **line})
+
+    # sh_xproc: a process of the port writes the exchange files of the
+    # first 5M lines; this one mounts them
+    head = table.slice(0, SH_XPROC_ROWS)
+    src = os.path.join(tmp_dir, "sh_xproc_src.parquet")
+    root = os.path.join(tmp_dir, "sh_xproc")
+    pq.write_table(head, src, **PARQUET_WRITE)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", XPROC_WRITER, src, root],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=600)
+    writer_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"sh_xproc's writer failed:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    writer = json.loads(proc.stdout.strip().splitlines()[-1])
+    s = device_session()
+
+    def xproc():
+        d = XF.read_exchange(s, root).group_by(
+            "l_returnflag", "l_linestatus").agg(
+            api.F.sum("l_quantity").alias("q"),
+            api.F.count().alias("n")).to_pydict()
+        return {(f, st): (q, n) for f, st, q, n in zip(
+            d["l_returnflag"], d["l_linestatus"], d["q"], d["n"])}
+    answers, line = run(s, xproc, runs=2)
+    g = head.group_by(["l_returnflag", "l_linestatus"]).aggregate(
+        [("l_quantity", "sum"), ("l_quantity", "count")])
+    ref = {(f, st): (q, n) for f, st, q, n in zip(*[
+        g[c].to_pylist() for c in ("l_returnflag", "l_linestatus",
+                                   "l_quantity_sum", "l_quantity_count")])}
+    t0 = time.perf_counter()
+    misplaced = rows = 0
+    for r in range(8):
+        for b in XF.read_partition_batches(root, r):
+            k = b.columns[0].data[: b.num_rows].numpy()
+            pid = np.mod(np_murmur3_long(k, _U32(42)).view(np.int32), 8)
+            misplaced += int((pid != r).sum())
+            rows += b.num_rows
+    copart_s = time.perf_counter() - t0
+    good = answers[0] == ref and misplaced == 0 and rows == SH_XPROC_ROWS
+    if not good:
+        problems.append(f"sh_xproc: correct {answers[0] == ref}, "
+                        f"{misplaced} misplaced of {rows} rows")
+    emit({"phase": "shuffle.query", "query": "sh_xproc", "correct": good,
+          "writer": writer, "writer_wall_s": writer_s,
+          "files_bytes": sum(os.path.getsize(os.path.join(root, f))
+                             for f in os.listdir(root)),
+          "copartition_check_s": copart_s, "misplaced": misplaced, **line})
+
+    # wr_parquet_q1: the first 5M lines written partitioned by the flags,
+    # then q1 over the files through the device-decode source (B3)
+    head = table.slice(0, SH_WRITE_ROWS)
+    s = device_session()
+    out = os.path.join(tmp_dir, "wr_lineitem")
+    w = s.create_dataframe(head, num_partitions=4).write.partition_by(
+        "l_returnflag", "l_linestatus")
+    before = read_launches()
+    t0 = time.perf_counter()
+    w.parquet(out)
+    write_s = time.perf_counter() - t0
+    write_launches = {k: v - before[k] for k, v in read_launches().items()}
+    q1 = port_queries(s.read_parquet(out))["q1"]
+    answers, line = run(s, q1, runs=2)
+    good = validate("q1", answers[0], q1_reference(head))
+    st = w.last_write_stats
+    if not good or (st["numFiles"], st["numOutputRows"], st["numParts"]) \
+            != (24, SH_WRITE_ROWS, 6) or line["launches"]["bitslice"] <= 0:
+        problems.append(f"wr_parquet_q1: correct {good}, stats {st}, "
+                        f"launches {line['launches']}")
+    emit({"phase": "shuffle.query", "query": "wr_parquet_q1",
+          "correct": good, "write_s": write_s, "write_stats": st,
+          "write_launches": write_launches, **line})
+
+    # tb_delta_merge: orders as a Delta table, 300,000 upserts merged in
+    from spark_rapids_tpu_torch.sql.delta import DeltaTable
+    from spark_rapids_tpu_torch.sql.hive import HiveTable
+    from spark_rapids_tpu_torch.sql.iceberg import IcebergTable
+    s = device_session()
+    col = api.col
+    ups = H.orders_upserts(orders, SH_UPSERTS)
+    times = {}
+    before = read_launches()
+    t0 = time.perf_counter()
+    dpath = os.path.join(tmp_dir, "delta_orders")
+    dt = DeltaTable.create(s, dpath, s.create_dataframe(orders))
+    times["create_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (dt.merge(s.create_dataframe(ups), on=["o_orderkey"])
+       .when_matched_update({"o_orderdate": col("__src_o_orderdate"),
+                             "o_custkey": col("__src_o_custkey")})
+       .when_not_matched_insert().execute())
+    times["merge_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = DeltaTable.for_path(s, dpath).to_df().collect().sort_by(
+        "o_orderkey")
+    times["read_s"] = time.perf_counter() - t0
+    keys, date, cust = H.upsert_reference(orders, ups)
+    delta_ok = (np.array_equal(back["o_orderkey"].to_numpy(), keys)
+                and np.array_equal(back["o_orderdate"].to_numpy(), date)
+                and np.array_equal(back["o_custkey"].to_numpy(), cust)
+                and [h["operation"] for h in dt.history()]
+                == ["MERGE", "CREATE TABLE AS SELECT"])
+    # Iceberg: two appends of halves of the orders, a snapshot read
+    t0 = time.perf_counter()
+    half = orders.num_rows // 2
+    it = IcebergTable.create(s, os.path.join(tmp_dir, "ice_orders"),
+                             s.create_dataframe(orders.slice(0, half)))
+    s0 = it.snapshots()[0]["snapshot_id"]
+    it.append(s.create_dataframe(orders.slice(half)))
+    ice = (it.to_df(snapshot_id=s0).count(), it.to_df().count(),
+           it.to_df().agg(api.F.sum("o_custkey").alias("c"))
+           .to_pydict()["c"][0])
+    times["iceberg_s"] = time.perf_counter() - t0
+    ice_ok = ice == (half, orders.num_rows,
+                     int(orders["o_custkey"].to_numpy().sum()))
+    # Hive text: 1M lines, partitioned by the return flag
+    t0 = time.perf_counter()
+    lines = table.slice(0, SH_HIVE_ROWS).select(
+        ["l_orderkey", "l_quantity", "l_returnflag"])
+    schema = pa.schema([("l_orderkey", pa.int64()),
+                        ("l_quantity", pa.float64()),
+                        ("l_returnflag", pa.string())])
+    hpath = os.path.join(tmp_dir, "hive_lineitem")
+    HiveTable(s, hpath, schema, partition_cols=["l_returnflag"]).insert(
+        s.create_dataframe(lines))
+    times["hive_write_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    d = HiveTable(s, hpath, schema, partition_cols=["l_returnflag"]) \
+        .to_df().group_by("l_returnflag").agg(
+            api.F.sum("l_quantity").alias("q"),
+            api.F.sum("l_orderkey").alias("k"),
+            api.F.count().alias("n")).to_pydict()
+    times["hive_read_s"] = time.perf_counter() - t0
+    hive = {f: (q, k, n) for f, q, k, n in zip(d["l_returnflag"], d["q"],
+                                                d["k"], d["n"])}
+    flags = lines["l_returnflag"].to_numpy(False)
+    qty, okey = lines["l_quantity"].to_numpy(), lines["l_orderkey"].to_numpy()
+    hive_ref = {f: (float(qty[flags == f].sum()),
+                    int(okey[flags == f].sum()), int((flags == f).sum()))
+                for f in np.unique(flags)}
+    hive_ok = hive == hive_ref
+    tb_launches = {k: v - before[k] for k, v in read_launches().items()}
+    spy.take()
+    good = delta_ok and ice_ok and hive_ok
+    if not good:
+        problems.append(f"tb_delta_merge: delta {delta_ok}, iceberg "
+                        f"{ice_ok} {ice}, hive {hive_ok}")
+    emit({"phase": "shuffle.query", "query": "tb_delta_merge",
+          "correct": good, "delta_rows": back.num_rows,
+          "delta_files": len(DeltaTable.for_path(s, dpath).log.snapshot()
+                             .files), "upserts": SH_UPSERTS,
+          "iceberg": ice, "hive": hive, "times": times,
+          "launches": tb_launches})
+    counts = read_launches()
+    emit({"phase": "shuffle", "launches": counts, "correct": not problems,
+          "problems": problems, "seconds": time.perf_counter() - t_phase})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    if min(counts["murmur3_int32"], counts["segsum"],
+           counts["bitslice"]) <= 0:
+        raise AssertionError(f"murmur3, segsum and bitslice must run on "
+                             f"the shuffle path: {counts}")
+    return counts
+
+
 #: launch-counter name -> (wrapper module, wrapper function, a substring
 #: of the CUDA kernel's name as the profiler reports it)
 # ---------------------------------------------------------------------------
@@ -6127,6 +6513,32 @@ class KernelProfile:
         emit({"phase": "profile.rank", "kernels": out})
 
 
+def shuffle_alone() -> int:
+    """--phase shuffle: the build, the setup, the joins phase's
+    8-partition caches and the shuffle phase alone (no kernels line)."""
+    from types import SimpleNamespace
+
+    import torch
+    print(nvidia_smi(), flush=True)
+    tmp_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        phase_build()
+        table, orders, want, _ = phase_setup(ROWS, tmp_dir)
+        t0 = time.perf_counter()
+        s8 = device_session(SHUFFLED_JOIN)
+        h8 = SimpleNamespace(s=s8, li=s8.create_dataframe(
+            table, num_partitions=8).cache(), od=s8.create_dataframe(
+            orders, num_partitions=8).cache())
+        counts = [h8.li.count(), h8.od.count()]
+        torch.cuda.synchronize()
+        emit({"phase": "shuffle.caches", "counts": counts,
+              "cache_s": time.perf_counter() - t0})
+        phase_shuffle(table, orders, want, h8, tmp_dir, RouteSpy())
+    finally:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
+    return 0
+
+
 def main(argv) -> int:
     from types import SimpleNamespace
 
@@ -6135,9 +6547,11 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     if argv:
+        if argv == ["--phase", "shuffle"]:
+            return shuffle_alone()
         if argv[0] != "--segsum-against" or len(argv) < 2:
-            print("usage: chip_smoke.py [--segsum-against SOURCE.cu ...]",
-                  file=sys.stderr)
+            print("usage: chip_smoke.py [--segsum-against SOURCE.cu ... | "
+                  "--phase shuffle]", file=sys.stderr)
             return 2
         return compare_segsum(argv[1:])
     card = nvidia_smi()
@@ -6214,6 +6628,10 @@ def main(argv) -> int:
         del n1
         gc.collect()
         t0 = time.perf_counter()
+        shuffle = phase_shuffle(table, orders, want, h8, tmp_dir, spy)
+        phases["shuffle_s"] = time.perf_counter() - t0
+        spill_report("shuffle")
+        t0 = time.perf_counter()
         fb_want = fallback_reference(text, table)
         phases["fallback_reference_s"] = time.perf_counter() - t0
         li_plan = h1.li.plan  # the cached lineitem, for the fallback phase
@@ -6262,6 +6680,7 @@ def main(argv) -> int:
                    "datetime": dtime[r["name"]],
                    "nested": nested[r["name"]],
                    "formats": formats[r["name"]],
+                   "shuffle": shuffle[r["name"]],
                    "regex": regex[r["name"]],
                    "fallback": fallback[r["name"]],
                    "runtime": runtime[r["name"]]}

@@ -386,6 +386,100 @@ QUERY_DEVICE_BUDGET = _register(
     "first), or raises a retryable quota OOM that drains only its own "
     "handles, instead of evicting its neighbors'.", int)
 
+# ---------------------------------------------------------------------------
+# the serialized shuffle and the writers
+# ---------------------------------------------------------------------------
+
+SHUFFLE_MODE = _register(
+    "spark.rapids.shuffle.mode", "MULTITHREADED",
+    "MULTITHREADED: in-process exchange on the device (compact or masked "
+    "sub-batches, no files or serialization involved); SERIALIZED: the "
+    "device partitioning's sub-batches serialize through the kudo wire "
+    "format (shuffle/serde.py) into a spillable host store (parallel "
+    "writers, compression, disk overflow) and deserialize lazily at read "
+    "time; ICI: the interconnect exchange, which on one card falls "
+    "through to the device exchange (ROADMAP A12) "
+    "(reference RapidsConf.scala:1767 UCX|CACHE_ONLY|MULTITHREADED).",
+    str)
+
+SHUFFLE_VERIFY_CHECKSUMS = _register(
+    "spark.rapids.shuffle.verifyChecksums", True,
+    "Verify the CRC32 wire checksum (and the frame's xxhash64) of every "
+    "serialized shuffle blob at read time. A corrupt blob is re-fetched "
+    "from the shuffle store once (counted in shuffleCorruptionRetries) "
+    "before the error surfaces: a transient disk bit-flip recovers, a "
+    "persistent corruption fails the query (and degrades to the CPU when "
+    "spark.rapids.fallback.cpu.enabled).", _bool_conv)
+
+SHUFFLE_WRITER_THREADS = _register(
+    "spark.rapids.shuffle.multiThreaded.writer.threads", 8,
+    "Threads of the shuffle writer pool that packs and compresses the "
+    "serialized exchange's sub-batches (reference "
+    "RapidsShuffleInternalManagerBase.scala:119-218).", int)
+
+SHUFFLE_READER_THREADS = _register(
+    "spark.rapids.shuffle.multiThreaded.reader.threads", 8,
+    "Threads of the shuffle reader pool that verify, decompress and "
+    "unpack serialized blobs ahead of the consuming task, which uploads "
+    "them.", int)
+
+SHUFFLE_COMPRESSION = _register(
+    "spark.rapids.shuffle.compression.codec", "auto",
+    "Codec for serialized shuffle tables: auto, none, zstd, zlib "
+    "(reference TableCompressionCodec). 'auto' resolves to zstd when the "
+    "zstandard package is importable and to zlib (stdlib) otherwise; "
+    "naming zstd explicitly without the package fails fast.", str)
+
+SHUFFLE_HOST_BUDGET = _register(
+    "spark.rapids.shuffle.hostSpillBudget", 256 << 20,
+    "Host bytes the SERIALIZED shuffle store may hold resident before "
+    "its largest partitions flush to disk spill files (reference "
+    "ShuffleBufferCatalog spillable shuffle data).", int)
+
+PIPELINE_ENABLED = _register(
+    "spark.rapids.sql.pipeline.enabled", True,
+    "Gates the serialized exchange's streaming write: each sub-batch is "
+    "submitted for packing the moment the device partitioning produces "
+    "it, so packing overlaps the next batch's partitioning. The scan "
+    "pipelining this key also gates in the JAX package is not ported "
+    "yet (ROADMAP A11).", _bool_conv)
+
+PIPELINE_DEPTH = _register(
+    "spark.rapids.sql.pipeline.depth", 2,
+    "Bounded lookahead of a pipeline boundary; 0 disables pipelining, "
+    "the serialized exchange's streaming write included (identical to "
+    "pipeline.enabled=false). The scan pipelines are ROADMAP A11.", int)
+
+WRITER_THREADS = _register(
+    "spark.rapids.sql.asyncWrite.numThreads", 4,
+    "Background threads encoding and writing output files (reference "
+    "io/async ThrottlingExecutor).", int)
+
+ASYNC_WRITE_MAX_INFLIGHT = _register(
+    "spark.rapids.sql.asyncWrite.maxInFlightHostMemoryBytes", 2 << 30,
+    "Throttle for async output writes and the serialized exchange's "
+    "packing: host bytes in flight before a producer blocks (reference "
+    "io/async/TrafficController.scala).", int)
+
+ASYNC_WRITE_STALL_WARN_S = _register(
+    "spark.rapids.sql.asyncWrite.stallWarnSeconds", 60,
+    "Seconds a producer may block in TrafficController.acquire before a "
+    "stall warning is logged once. Admission is unchanged: the producer "
+    "keeps waiting. 0 disables the warning.", int)
+
+MAX_RECORDS_PER_FILE = _register(
+    "spark.sql.files.maxRecordsPerFile", 0,
+    "Maximum rows per output file (0 = unlimited). Writers split output "
+    "into numbered part files past the limit (reference "
+    "GpuFileFormatDataWriter maxRecordsPerFile).", int)
+
+
+def pipeline_depth(conf) -> int:
+    """The effective lookahead from the pipeline pair (0 = disabled)."""
+    if not conf.get(PIPELINE_ENABLED):
+        return 0
+    return max(0, int(conf.get(PIPELINE_DEPTH)))
+
 
 def keys():
     return list(_REGISTRY)

@@ -234,8 +234,9 @@ class AdaptiveShuffledHashJoinExec(X.TorchExec):
     @staticmethod
     def _measure(parts) -> Optional[Tuple[int, int, int]]:
         """(device bytes, rows, batches) of a materialized exchange's
-        output, or None when any count would sync (masked sub-batches):
-        the decision stays free."""
+        output, or None when any count would sync (masked sub-batches,
+        or a serialized exchange's lazily decoded blobs): the decision
+        stays free."""
         nbytes = nrows = nbatches = 0
         for part in parts:
             for b in part:

@@ -225,6 +225,18 @@ def apply_node(plan: P.PlanNode, children: List[List[CpuCol]],
                                               promote_options="permissive"))
     if isinstance(plan, P.CachedRelation):
         return children[0]
+    if isinstance(plan, P.ShuffleFileScan):
+        from spark_rapids_tpu_torch.columnar.batch import to_arrow
+        from spark_rapids_tpu_torch.shuffle.exchange_files import (
+            read_partition_batches,
+        )
+        tables = [to_arrow(b, plan.schema.names)
+                  for r in range(plan.n_reduce)
+                  for b in read_partition_batches(plan.root, r)]
+        table = pa.concat_tables(tables) if tables else pa.table(
+            {n: pa.array([], T.to_arrow(t))
+             for n, t in zip(plan.schema.names, plan.schema.types)})
+        return table_to_cols(table)
     if isinstance(plan, P.Range):
         vals = np.arange(plan.start, plan.end, plan.step, np.int64)
         return [CpuCol(T.INT64, vals, np.ones(len(vals), np.bool_))]

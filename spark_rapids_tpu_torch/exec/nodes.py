@@ -6,12 +6,15 @@ which decodes on the host, and the device-decode pair
 ``EncodedParquetSourceExec`` + ``DeviceDecodeScanExec``; both prune hive
 partition files and append the partition columns), ``TextScanExec``
 (CSV, JSON lines, Avro and ORC, parsed on the host),
+``ShuffleFileScanExec`` (a cross-process shuffle directory),
 ``CachedScanExec``, ``ProjectExec``,
 ``FilterExec``, ``CoalesceBatchesExec``, ``RangeExec``, ``UnionExec``,
 ``ExpandExec``, ``GenerateExec``, ``CollectExchangeExec``, the
 in-process exchanges (``ShuffleExchangeExec``, ``RoundRobinExchangeExec``,
 ``RangeExchangeExec``: compact or masked, with tiny coalescing and the
-skew split on read), ``HashAggregateExec``
+skew split on read; the hash exchange also has the SERIALIZED mode, a
+kudo-framed spillable host store read back through
+``_LazyShuffleBlobs``), ``HashAggregateExec``
 (partial, final or complete) with ``_AggKernels``, ``LimitExec``, ``TopNExec``, ``SortExec``,
 ``WindowExec``, the hash joins (``BroadcastHashJoinExec``,
 ``ShuffledHashJoinExec``, and ``AdaptiveJoinExec`` with
@@ -62,6 +65,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import logging
 import threading
 import time
 import weakref
@@ -99,11 +103,14 @@ from spark_rapids_tpu_torch.ops import window as W
 from spark_rapids_tpu_torch.plan import nodes as P
 from spark_rapids_tpu_torch.runtime import faults as FLT
 from spark_rapids_tpu_torch.runtime import lifecycle as LC
+from spark_rapids_tpu_torch.runtime import metrics as M
 from spark_rapids_tpu_torch.runtime import watchdog as WD
 from spark_rapids_tpu_torch.runtime.semaphore import (
     get_semaphore, peek_semaphore,
 )
 from spark_rapids_tpu_torch.runtime.task import TaskContext
+
+_LOG = logging.getLogger("spark_rapids_tpu_torch")
 
 
 class TorchExec:
@@ -558,6 +565,46 @@ class DeviceDecodeScanExec(TorchExec):
             yield out
 
 
+class ShuffleFileScanExec(TorchExec):
+    """Reads a cross-process shuffle directory
+    (``shuffle/exchange_files.py``): each reduce partition streams its map
+    outputs' kudo frames, parsed on the host into pinned staging planes,
+    onto the device under the task's permit (reference: the shuffle
+    reader fetching map outputs). ``metrics``: decode and copy times,
+    rows and batches."""
+
+    def __init__(self, plan, children, conf, device):
+        super().__init__(plan, children, conf, device)
+        self.metrics: Dict[str, float] = {
+            "decodeTime": 0.0, "copyToDeviceTime": 0.0, "numOutputRows": 0,
+            "numOutputBatches": 0}
+        self._metrics_lock = threading.Lock()
+
+    @property
+    def num_partitions(self):
+        return max(1, self.plan.n_reduce)
+
+    def execute_partition(self, pidx):
+        from spark_rapids_tpu_torch.shuffle import serde
+        from spark_rapids_tpu_torch.shuffle.store import (
+            read_reduce_partition,
+        )
+        pinned = self.device.type == "cuda"
+        for blob in read_reduce_partition(self.plan.root, pidx):
+            t0 = time.perf_counter()
+            host = serde.deserialize_host(blob, pinned=pinned)
+            t1 = time.perf_counter()
+            self._acquire()
+            b = serde.upload(host, self.device)
+            with self._metrics_lock:
+                m = self.metrics
+                m["decodeTime"] += t1 - t0
+                m["copyToDeviceTime"] += time.perf_counter() - t1
+                m["numOutputRows"] += b.num_rows
+                m["numOutputBatches"] += 1
+            yield b
+
+
 class CachedScanExec(TorchExec):
     """Materializes the child once into one batch per partition, each
     registered with the spill framework (``SpillableColumnarBatch``) and
@@ -984,6 +1031,9 @@ class _ExchangeExec(TorchExec):
         self._out: Optional[List[List[ColumnarBatch]]] = None
         self._masked = False
         self._skew_decision = None
+        #: where sub-batches go instead of the output lists (the
+        #: serialized exchange's writer), set while it partitions
+        self._emit_sink = None
         self.partition_dispatches = 0
         self.partition_fetches = 0
         #: sub-batches merged by tiny coalescing
@@ -1020,7 +1070,7 @@ class _ExchangeExec(TorchExec):
                 continue
             for ic, oc in zip(batch.columns, sub.columns):
                 oc.bounds = ic.bounds
-            out[p].append(sub)
+            self._put(out, p, sub)
 
     def _emit_masked(self, batch: ColumnarBatch, pid: torch.Tensor,
                      out) -> None:
@@ -1030,7 +1080,24 @@ class _ExchangeExec(TorchExec):
             self.partition_dispatches += self.n_out
             self.partition_fetches += self.n_out
         for p, sub in enumerate(RP.masked_slices(batch, pid, self.n_out)):
+            self._put(out, p, sub)
+
+    def _put(self, out, p: int, sub: ColumnarBatch) -> None:
+        if self._emit_sink is None:
             out[p].append(sub)
+        else:
+            self._emit_sink(p, sub)
+
+    def _partition_device(self, batches: Iterator[ColumnarBatch]):
+        """The device partitioning of the child's batches: the output
+        lists, or, while a sink is set, every sub-batch handed to it."""
+        if self.n_out == 1:
+            if self._emit_sink is None:
+                return [list(batches)]
+            for b in batches:
+                self._emit_sink(0, b)
+            return [[]]
+        return self._repartition(batches)
 
     def _repartition(self, batches: Iterator[ColumnarBatch]):
         out: List[List[ColumnarBatch]] = [[] for _ in range(self.n_out)]
@@ -1051,17 +1118,29 @@ class _ExchangeExec(TorchExec):
                 self._masked = partitioning_mode(self.conf) == "masked"
                 batches = _task_batches(self.children[0])
                 try:
-                    self._out = [list(batches)] if self.n_out == 1 \
-                        else self._repartition(batches)
+                    self._out = self._partitioned(batches)
                 finally:
                     batches.close()
         return self._out
 
+    def _partitioned(self, batches: Iterator[ColumnarBatch]):
+        return self._partition_device(batches)
+
     def execute_partition(self, pidx):
         out = self._materialize()
+
+        def decoded():
+            for item in out[pidx]:
+                if isinstance(item, _LazyShuffleBlobs):
+                    yield from item.batches()
+                else:
+                    yield item
+
         # coalesce first, then split: a split slice must never merge back
-        # into the partition it came from
-        yield from self._split_skewed(self._coalesce_tiny(out[pidx]), pidx)
+        # into the partition it came from. Deserialized blobs coalesce
+        # like device sub-batches; a lazy partition is sized for the skew
+        # split by its writer-side row tally, never by decoding.
+        yield from self._split_skewed(self._coalesce_tiny(decoded()), pidx)
 
     @staticmethod
     def _item_rows(b: ColumnarBatch) -> Optional[int]:
@@ -1083,7 +1162,8 @@ class _ExchangeExec(TorchExec):
                 for part in self._out or []:
                     n: Optional[int] = 0
                     for b in part:
-                        r = self._item_rows(b)
+                        r = b.rows if isinstance(b, _LazyShuffleBlobs) \
+                            else self._item_rows(b)
                         if r is None:
                             n = None
                             break
@@ -1170,14 +1250,37 @@ class _ExchangeExec(TorchExec):
             yield run[0]
 
 
+def shuffle_mode(conf) -> str:
+    """spark.rapids.shuffle.mode, upper case: MULTITHREADED (the device
+    exchange), SERIALIZED, or ICI, which on one card takes the device
+    exchange, as the JAX package's does there (ROADMAP A12)."""
+    return str(conf.get(C.SHUFFLE_MODE)).strip().upper()
+
+
 class ShuffleExchangeExec(_ExchangeExec):
     """Hash exchange: murmur3 of the keys (the murmur3 kernel for int32
-    planes), pmod n_out."""
+    planes), pmod n_out.
+
+    Under spark.rapids.shuffle.mode=SERIALIZED the device partitioning's
+    sub-batches go through the kudo wire format into a spillable host
+    store (``shuffle/store.py``) instead of staying on the card
+    (reference RapidsShuffleThreadedWriterBase:291-513 +
+    ShuffleBufferCatalog): each sub-batch is downloaded on the thread
+    that partitions, packed and compressed on the shuffle writer pool,
+    and its blob added to the store in submission order, so each
+    partition's blob order is the synchronous path's. Blobs page to disk
+    past spark.rapids.shuffle.hostSpillBudget. Each output partition is
+    then one ``_LazyShuffleBlobs``, decoded at read time. ``metrics``:
+    shuffleBytesWritten and shuffleBytesSpilled."""
 
     def __init__(self, plan, children, conf, device,
                  keys: List[Expression], n_out: int):
         super().__init__(plan, children, conf, device, n_out)
         self.keys = keys
+        self.metrics: Dict[str, int] = {M.SHUFFLE_BYTES_WRITTEN: 0,
+                                        M.SHUFFLE_BYTES_SPILLED: 0}
+        #: the serialized mode's store, once materialized
+        self._store = None
 
     def _pids(self, batch):
         live = batch.live_mask()
@@ -1185,6 +1288,182 @@ class ShuffleExchangeExec(_ExchangeExec):
         key_cols = [e.eval(ctx) for e in self.keys]
         h = K.partition_hash_batch(key_cols, batch.num_rows, live=live)
         return torch.remainder(h, self.n_out)
+
+    def _partitioned(self, batches):
+        if shuffle_mode(self.conf) == "SERIALIZED":
+            return self._repartition_serialized(batches)
+        return self._partition_device(batches)
+
+    def _repartition_serialized(self, batches):
+        """The device partitioning, then each sub-batch serialized into
+        the store: streamed, as the partitioning produces it, when the
+        pipeline is on and the writer pool has more than one thread (the
+        JAX package's default), else after the whole partitioning."""
+        from spark_rapids_tpu_torch.runtime.host_pool import (
+            map_ordered, shuffle_pool,
+        )
+        from spark_rapids_tpu_torch.shuffle import serde
+        from spark_rapids_tpu_torch.shuffle.store import ShuffleStore
+        codec = serde.resolve_codec(self.conf.get(C.SHUFFLE_COMPRESSION))
+        serde.codec_id(codec)  # validate up front
+        store = ShuffleStore(self.n_out,
+                             int(self.conf.get(C.SHUFFLE_HOST_BUDGET)))
+        nthreads = max(1, int(self.conf.get(C.SHUFFLE_WRITER_THREADS)))
+
+        def describe(p, b):
+            # on the partitioning thread: the download (one sync); empty
+            # sub-batches never ship. The row count rides into the
+            # store's per-partition tally for the skew split.
+            n = int(b.num_rows)
+            if n == 0:
+                return None
+            meta, planes = serde.describe_batch(b)
+            return p, meta, planes, n
+
+        def pack(item):
+            p, meta, planes, n = item
+            blob = serde.pack(meta, planes, codec)
+            return p, FLT.site_bytes("shuffle.write", blob), n
+
+        if C.pipeline_depth(self.conf) > 0 and nthreads > 1:
+            self._serialize_streaming(batches, store, describe, pack,
+                                      nthreads)
+        else:
+            parted = self._partition_device(batches)
+            items = (it for it in (describe(p, b)
+                                   for p, part in enumerate(parted)
+                                   for b in part) if it is not None)
+            for p, blob, n in map_ordered(shuffle_pool("writer", nthreads),
+                                          pack, items, nthreads):
+                store.add(p, blob, rows=n)
+        self._store = store
+        tot = store.totals()
+        self.metrics[M.SHUFFLE_BYTES_WRITTEN] += tot["bytes_written"]
+        self.metrics[M.SHUFFLE_BYTES_SPILLED] += tot["bytes_spilled"]
+        rthreads = int(self.conf.get(C.SHUFFLE_READER_THREADS))
+        return [[_LazyShuffleBlobs(store, p, self, rthreads)]
+                if store.num_blobs(p) else [] for p in range(self.n_out)]
+
+    def _serialize_streaming(self, batches, store, describe, pack,
+                             nthreads: int) -> None:
+        """The sink submits each sub-batch for packing the moment the
+        device partitioning produces it, so packing overlaps the next
+        batch's partitioning. A TrafficController caps the host bytes in
+        flight; finished blobs drain into the store in submission order
+        (the queue's head gates on done()), so each partition's blob
+        order, and every result, is the synchronous path's."""
+        from collections import deque
+
+        from spark_rapids_tpu_torch.io.async_io import (
+            ThrottlingExecutor, TrafficController,
+        )
+        from spark_rapids_tpu_torch.runtime.host_pool import shuffle_pool
+        ctrl = TrafficController(
+            int(self.conf.get(C.ASYNC_WRITE_MAX_INFLIGHT)),
+            stall_warn_s=self.conf.get(C.ASYNC_WRITE_STALL_WARN_S) or None)
+        ex = ThrottlingExecutor(nthreads, ctrl,
+                                pool=shuffle_pool("writer", nthreads))
+        futures = deque()
+
+        def drain(block: bool) -> None:
+            while futures and (block or futures[0].done()):
+                p, blob, n = futures.popleft().result()
+                store.add(p, blob, rows=n)
+
+        def sink(p, b):
+            item = describe(p, b)
+            if item is None:
+                return
+            nbytes = sum(a.nbytes for a in item[2])
+            futures.append(ex.submit(nbytes, pack, item))
+            drain(False)
+
+        self._emit_sink = sink
+        ok = False
+        try:
+            self._partition_device(batches)
+            ok = True
+        finally:
+            self._emit_sink = None
+            if ok:
+                drain(True)
+            else:
+                # the partitioning raised: settle the packing in flight
+                # without letting its errors mask the propagating one
+                try:
+                    drain(True)
+                except Exception:  # noqa: BLE001
+                    pass
+            ex.shutdown()
+
+
+class _LazyShuffleBlobs:
+    """A reduce partition's serialized blobs, decoded at read time: the
+    wire check, decompression, frame parsing and padding run on the
+    shuffle reader pool (spark.rapids.shuffle.multiThreaded.reader.
+    threads) into pinned host planes, and the upload runs in order on the
+    consuming task's thread, under its permit.
+
+    Integrity recovery: a ShuffleCorruptionError (spark.rapids.shuffle.
+    verifyChecksums) triggers ONE re-fetch of the same blob from the
+    store (a disk-resident blob re-reads its spill-file segment, so a
+    transient read corruption heals), counted in the consuming task's
+    shuffleCorruptionRetries accumulator before a second failure
+    surfaces."""
+
+    def __init__(self, store, partition: int, exchange: "_ExchangeExec",
+                 reader_threads: int = 1):
+        self.store = store
+        self.partition = partition
+        self.exchange = exchange
+        self.reader_threads = max(1, reader_threads)
+        self.verify = bool(exchange.conf.get(C.SHUFFLE_VERIFY_CHECKSUMS))
+        self.pinned = exchange.device.type == "cuda"
+        self._task_ctx = None
+
+    @property
+    def rows(self) -> Optional[int]:
+        """The writer-side row tally, or None when it is 0."""
+        n = self.store.partition_rows(self.partition)
+        return n if n > 0 else None
+
+    def _read(self, index: int) -> bytes:
+        return FLT.site_bytes(
+            "shuffle.read", self.store.read_blob(self.partition, index))
+
+    def _decode(self, index: int) -> ColumnarBatch:
+        from spark_rapids_tpu_torch.shuffle import serde
+        try:
+            return serde.deserialize_host(self._read(index), self.verify,
+                                          self.pinned)
+        except serde.ShuffleCorruptionError as e:
+            # decode runs on a reader-pool thread with no task bound: the
+            # retry counts to the consuming task captured in batches()
+            ctx = TaskContext.peek() or self._task_ctx
+            if ctx is not None:
+                ctx.metric(M.SHUFFLE_CORRUPTION_RETRIES).add(1)
+            _LOG.warning(
+                "shuffle blob %d of partition %d failed verification "
+                "(%s); re-fetching from the store once", index,
+                self.partition, e)
+            return serde.deserialize_host(self._read(index), self.verify,
+                                          self.pinned)
+
+    def batches(self):
+        from spark_rapids_tpu_torch.runtime.host_pool import (
+            map_ordered, shuffle_pool,
+        )
+        from spark_rapids_tpu_torch.shuffle import serde
+        self._task_ctx = TaskContext.peek()
+        n = self.store.num_blobs(self.partition)
+        if self.reader_threads > 1 and n > 1:
+            hosts = map_ordered(shuffle_pool("reader", self.reader_threads),
+                                self._decode, range(n), self.reader_threads)
+        else:
+            hosts = (self._decode(i) for i in range(n))
+        for host in hosts:
+            self.exchange._acquire()
+            yield serde.upload(host, self.exchange.device)
 
 
 class RoundRobinExchangeExec(_ExchangeExec):

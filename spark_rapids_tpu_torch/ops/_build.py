@@ -2,6 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles on its own with ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface, loaded with ``ctypes``.
+A ``csrc/<name>.cpp`` is host code (the shuffle's frame packer,
+``kudo.cpp``) and compiles with the host C++ compiler the same way.
 The build runs at first use (or all at once, in parallel, through
 ``build_all``) and writes into ``build/torch_kernels/<name>-<hash>/`` at
 the root of the checkout, keyed by a hash of the source and the flags, so
@@ -24,6 +26,7 @@ BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+HOST_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -45,26 +48,57 @@ def nvcc_path() -> str:
                       "the CUDA toolkit is installed")
 
 
+def host_compiler_path() -> str:
+    for cand in ("g++", "c++"):
+        path = shutil.which(cand)
+        if path:
+            return path
+    raise KernelError("no host C++ compiler (g++) found: the host "
+                      "libraries of csrc/ build only where one is "
+                      "installed")
+
+
+def _source(name: str) -> str:
+    """csrc/<name>.cu, or the host source csrc/<name>.cpp."""
+    cu = os.path.join(CSRC, f"{name}.cu")
+    return cu if os.path.exists(cu) else os.path.join(CSRC, f"{name}.cpp")
+
+
+def _is_host(src: str) -> bool:
+    return src.endswith(".cpp")
+
+
+def _log_name(src: str) -> str:
+    return "g++.log" if _is_host(src) else "nvcc.log"
+
+
 def _paths(name: str):
-    src = os.path.join(CSRC, f"{name}.cu")
+    src = _source(name)
+    flags = HOST_FLAGS if _is_host(src) else NVCC_FLAGS
     with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
+        digest = hashlib.sha256(f.read() + " ".join(flags).encode()
                                 ).hexdigest()[:16]
     out_dir = os.path.join(BUILD_ROOT, f"{name}-{digest}")
     return src, out_dir, os.path.join(out_dir, f"lib{name}.so")
 
 
 def _start(name: str):
-    """Start nvcc for one source unless its library exists; returns the
-    running process (or None) and the paths."""
+    """Start the compiler for one source unless its library exists;
+    returns the running process (or None) and the paths."""
     src, out_dir, lib = _paths(name)
     if os.path.exists(lib):
         return None, out_dir, lib
     os.makedirs(out_dir, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
-    proc = subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
+    cmd = [host_compiler_path(), *HOST_FLAGS] if _is_host(src) \
+        else [nvcc_path(), *NVCC_FLAGS]
+    try:
+        proc = subprocess.Popen([*cmd, "-o", tmp, src],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+    except OSError as e:
+        raise KernelError(f"cannot start the compiler for "
+                          f"{os.path.basename(src)}: {e}") from e
     return proc, out_dir, lib
 
 
@@ -72,11 +106,13 @@ def _finish(name: str, proc, out_dir: str, lib: str) -> None:
     if proc is None:
         return
     log, _ = proc.communicate()
-    with open(os.path.join(out_dir, "nvcc.log"), "w") as f:
+    src = _source(name)
+    with open(os.path.join(out_dir, _log_name(src)), "w") as f:
         f.write(log)
     tmp = f"{lib}.{os.getpid()}.tmp"
     if proc.returncode != 0:
-        raise KernelError(f"nvcc failed for {name}.cu:\n{log}")
+        raise KernelError(f"the build of {os.path.basename(src)} "
+                          f"failed:\n{log}")
     os.replace(tmp, lib)
 
 
@@ -89,13 +125,15 @@ def build_all(names: List[str]) -> Dict[str, str]:
         for name, proc, out_dir, lib in started:
             _finish(name, proc, out_dir, lib)
             if proc is not None:
-                with open(os.path.join(out_dir, "nvcc.log")) as f:
+                with open(os.path.join(out_dir,
+                                       _log_name(_source(name)))) as f:
                     logs[name] = f.read()
         return logs
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu`` (or ``.cpp``), built
+    first if needed."""
     lib = _libs.get(name)
     if lib is None:
         build_all([name])

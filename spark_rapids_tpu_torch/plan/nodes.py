@@ -5,7 +5,8 @@ engine runs: ``InMemorySource``, ``ParquetScan`` (with hive partition
 columns), ``TextScan`` (CSV, JSON lines, Avro, ORC), ``Range``,
 ``CachedRelation`` (the ``df.cache()`` marker), ``Project``, ``Filter``, ``Aggregate``,
 ``Repartition``, ``Sort`` (with ``SortOrder``), ``Limit``, ``Join``,
-``WindowNode``, ``Union``, ``Expand`` and ``Generate``. ``describe()`` is a node's line
+``WindowNode``, ``Union``, ``Expand``, ``Generate`` and ``ShuffleFileScan``
+(a cross-process shuffle directory). ``describe()`` is a node's line
 in the placement report (``plan/overrides.py`` ``explain``), in the JAX
 package's words.
 """
@@ -111,6 +112,33 @@ class InMemorySource(PlanNode):
     def describe(self):
         return (f"InMemorySource[{self.table.num_rows} rows, "
                 f"{self.num_partitions} parts]")
+
+
+class ShuffleFileScan(PlanNode):
+    """Scan of a cross-process shuffle directory written by
+    ``shuffle/exchange_files.write_exchange`` (of either package): one
+    partition per reduce partition, self-describing kudo frames and a
+    manifest."""
+
+    def __init__(self, root: str):
+        from spark_rapids_tpu_torch.shuffle.exchange_files import (
+            read_manifest,
+        )
+        from spark_rapids_tpu_torch.shuffle.serde import dtype_from_json
+        self.children = []
+        self.root = root
+        m = read_manifest(root)
+        self.n_reduce = int(m["n_reduce"])
+        self._schema = T.Schema(tuple(
+            T.StructField(n, dtype_from_json(t))
+            for n, t in zip(m["names"], m["types"])))
+
+    @property
+    def schema(self):
+        return self._schema
+
+    def describe(self):
+        return f"ShuffleFileScan[{self.root}, n={self.n_reduce}]"
 
 
 class TextScan(PlanNode):

@@ -777,7 +777,7 @@ class SparkPlanMeta:
     #: the port's nodes)
     NESTED_SCHEMA_NODES = (P.Project, P.Filter, P.Generate,
                            P.InMemorySource, P.ParquetScan, P.TextScan,
-                           P.Limit,
+                           P.ShuffleFileScan, P.Limit,
                            P.Union, P.Sort, P.CachedRelation, P.Aggregate)
 
     def _tag_schema(self) -> None:
@@ -996,6 +996,8 @@ def _convert_node(plan: P.PlanNode, children, conf, device) -> X.TorchExec:
             plan, [X.TextScanExec(plan, [], conf, device)], conf, device)
     if isinstance(plan, P.CachedRelation):
         return X.CachedScanExec(plan, children, conf, device)
+    if isinstance(plan, P.ShuffleFileScan):
+        return X.ShuffleFileScanExec(plan, [], conf, device)
     if isinstance(plan, P.Project):
         return X.ProjectExec(plan, children, conf, device)
     if isinstance(plan, P.Range):

@@ -136,7 +136,7 @@ def _absorbable_project(pr: P.Project) -> bool:
     deterministic and context-free: the partition context
     (spark_partition_id, monotonically_increasing_id) and rand evaluate
     with state an aggregate's update does not carry. The JAX package also
-    names its two UDF tiers here; the port has none yet (ROADMAP A10)."""
+    names its two UDF tiers here; the port has none yet (ROADMAP A10b)."""
     from spark_rapids_tpu_torch.plan.overrides import PROJECT_ONLY_EXPRS
 
     def bad(e) -> bool:

@@ -14,8 +14,8 @@ Conf grammar (``spark.rapids.debug.faults``)::
     site:kind[:count[,skip]][;site:kind[:count[,skip]]...]
 
 with kinds ``ioerror`` (raise InjectedFaultError, an OSError), ``corrupt``
-(flip bytes; data sites only, and those have no call site before the
-serialized shuffle, ROADMAP A10), ``delay`` (sleep debug.faults.delayMs),
+(flip bytes; data sites only: the serialized shuffle's write and read),
+``delay`` (sleep debug.faults.delayMs),
 ``wedge`` (sleep debug.faults.wedgeSeconds, long enough for the dispatch
 watchdog to notice), ``oom`` (raise TpuRetryOOM, feeding the retry
 framework), and ``cancel`` (fire the current query's cancel token, so the
@@ -36,9 +36,8 @@ log = logging.getLogger("spark_rapids_tpu_torch")
 
 #: The fault-site roster, the JAX package's: every `faults.site("...")`
 #: literal in the engine names one of these, and every site in a
-#: `spark.rapids.debug.faults` spec must exist here. shuffle.read and
-#: shuffle.write (the serialized shuffle, ROADMAP A10) and
-#: pipeline.producer (ROADMAP A11) have no call site yet.
+#: `spark.rapids.debug.faults` spec must exist here. pipeline.producer
+#: (ROADMAP A11) has no call site yet.
 SITES: Dict[str, str] = {
     "scan.decode": "host-side scan decode/upload of one source batch "
                    "(parquet/text/in-memory scans)",

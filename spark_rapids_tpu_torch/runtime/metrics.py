@@ -27,6 +27,11 @@ SPILL_TO_DISK_TIME = "spillToDiskTime"
 MAX_DEVICE_BYTES_HELD = "maxDeviceBytesHeld"
 SEMAPHORE_WAIT_TIME = "semaphoreWaitTime"
 SEMAPHORE_HOLD_TIME = "semaphoreHoldTime"
+#: serialized blobs re-fetched from the shuffle store after a failed check
+SHUFFLE_CORRUPTION_RETRIES = "shuffleCorruptionRetries"
+#: the serialized exchange's store totals (ShuffleExchangeExec.metrics)
+SHUFFLE_BYTES_WRITTEN = "shuffleBytesWritten"
+SHUFFLE_BYTES_SPILLED = "shuffleBytesSpilled"
 
 
 class GpuMetric:

@@ -10,11 +10,12 @@ Expand lowering), ``agg``, ``order_by`` (``orderBy``, ``sort``), ``limit``,
 (``dropDuplicates``), ``dropna``, ``fillna``, ``sample``,
 ``random_split``, the actions ``count``, ``collect``, ``collect_cpu``,
 ``to_pydict``, ``to_pandas``, ``show``, ``head``, ``take`` and
-``first``, the schema accessors, ``explain`` (the placement report), and
-the statistics ``describe``, ``corr``, ``cov``, ``crosstab`` and
-``approx_quantile``. Not here yet: ``explain``'s ``stages`` and
-``analyze`` modes (they wait for the fusion and metrics modules, ROADMAP
-item 11), ``write`` (A10) and ``to_device_batches``."""
+``first``, ``write`` (``io/writer.DataFrameWriter``), the schema
+accessors, ``explain`` (the placement report), and the statistics
+``describe``, ``corr``, ``cov``, ``crosstab`` and ``approx_quantile``.
+Not here yet: ``explain``'s ``stages`` and ``analyze`` modes (they wait
+for the fusion and metrics modules, ROADMAP item 11) and
+``to_device_batches``."""
 from __future__ import annotations
 
 import copy
@@ -345,6 +346,12 @@ class DataFrame:
         """Keep this DataFrame's result resident on the device; later
         queries over it skip the scan and the upload."""
         return DataFrame(P.CachedRelation(self.plan), self.session)
+
+    @property
+    def write(self):
+        """df.write.mode(...).partition_by(...).parquet(path)."""
+        from spark_rapids_tpu_torch.io.writer import DataFrameWriter
+        return DataFrameWriter(self)
 
 
     def collect(self, timeout_seconds: Optional[float] = None):

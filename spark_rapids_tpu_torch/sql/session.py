@@ -111,6 +111,8 @@ class TorchSession:
         #: (status, reason) of the last top-level action
         self.last_action_status = None
         self._last_task_metrics: Dict[str, int] = {}
+        #: the stats of the last ``df.write`` (io/writer.WriteStats)
+        self.last_write_stats: Optional[dict] = None
 
     # -- the SQL front door ------------------------------------------------
     def create_or_replace_temp_view(self, name: str, df: DataFrame) -> None:

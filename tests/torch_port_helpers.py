@@ -270,6 +270,49 @@ def repart_agg(api, df, value="l_quantity", n=8):
             .agg(F.sum(value).alias("s"), F.count(value).alias("c")))
 
 
+def q72shfl_repart(api, df, value="l_quantity", n=8):
+    """q72shfl's grouping behind an explicit hash exchange of its key
+    (bench.py's q72shfl runs one on several devices; on one device both
+    packages would collect instead). The key is cast to int, so the
+    exchange hashes an int32 plane (the murmur3 kernel)."""
+    col, lit, F, T = api.col, api.lit, api.F, api.T
+    k = (col("l_orderkey") % lit(100_000)).cast(T.INT32).alias("k")
+    return (df.select(k, col(value))
+            .repartition(n, col("k"))
+            .group_by(col("k"))
+            .agg(F.sum(value).alias("s"), F.count(value).alias("c")))
+
+
+def orders_upserts(orders: pa.Table, rows: int, seed: int = 53) -> pa.Table:
+    """``rows`` order upserts: half update existing orders (a new date and
+    customer), half insert orders past the last key."""
+    rng = np.random.default_rng(seed)
+    n = orders.num_rows
+    old = rng.choice(n, rows // 2, replace=False).astype(np.int64)
+    new = np.arange(n, n + rows - rows // 2, dtype=np.int64)
+    keys = np.concatenate([old, new])
+    return pa.table({
+        "o_orderkey": keys,
+        "o_orderdate": rng.integers(8400, 10600, rows).astype(np.int32),
+        "o_custkey": rng.integers(0, max(n // 10, 10), rows)
+        .astype(np.int64)})
+
+
+def upsert_reference(orders: pa.Table, ups: pa.Table):
+    """numpy's upsert of orders_upserts into the orders (keys 0..n-1):
+    (keys, dates, customers) in key order."""
+    n = orders.num_rows
+    k = ups["o_orderkey"].to_numpy()
+    total = max(n, int(k.max()) + 1)
+    date = np.zeros(total, np.int32)
+    cust = np.zeros(total, np.int64)
+    date[:n] = orders["o_orderdate"].to_numpy()
+    cust[:n] = orders["o_custkey"].to_numpy()
+    date[k] = ups["o_orderdate"].to_numpy()
+    cust[k] = ups["o_custkey"].to_numpy()
+    return np.arange(total, dtype=np.int64), date, cust
+
+
 #: the fallback phase's queries, and the plan node each leaves on the CPU
 FALLBACK_NODES = {"fb_strmax": "Aggregate", "fb_moving_min": "WindowNode"}
 
