@@ -272,6 +272,28 @@ Phases, one JSON line each:
    tb_delta_merge (the orders as a Delta table, 300,000 upserts merged
    in, checked against numpy's upsert; an Iceberg table in two appends
    with a snapshot read; a Hive text round trip of 1M lines).
+17c. udf (right after the shuffle phase, on the joins phase's caches):
+   udf_q72_compiled (q72shfl's grouping of udf(charge) = price x (1 -
+   discount) x (1 + a tax from the order key), compiled with
+   spark.rapids.sql.udfCompiler.enabled: no CPU node, the chunked segsum
+   route, B2), udf_repart_torch (a torch_udf with its own validity over
+   the 8-partition cache, then a hash exchange of an int key and the
+   grouping: B1 and B2, exact against numpy), udf_row_pool (an opaque row
+   UDF, a string method call, in a CPU Project over the first 1M lines,
+   with the Python worker pool off and on: the workers used and the CPU
+   step's ms, both equal to a Python loop) and udf_compiled_vs_row (one
+   lambda compiled and on the row tier: equal answers), each cold then
+   warm; the pool is shut down at the end.
+17d. trace (after the fallback phase): q1 on the 1-partition cache,
+   q3join_shuffled on the 8-partition caches, pq_q6 (B3) and the paged
+   q1 of rt_paged_q1, each run with tracing off and then on
+   (spark.rapids.sql.trace.enabled, into the temporary directory): the
+   same answers and launches, the warm ms of both beside the earlier
+   phases' for the same query, the artifacts parsed as Chrome trace JSON
+   by tools/profiler_report.py, each exec's span total within 1% of its
+   last_metrics() timer, and the semaphore and spill instants in the
+   paged query; then one traced q3join_shuffled under torch.profiler,
+   whose ranges must hold every exec span's name.
 18. runtime (last, after the fallback phase, so that its small budgets,
    injected faults and open breaker touch no earlier phase; on the joins
    phase's lineitem caches h1 (1 partition) and h8 (8), the Parquet file
@@ -310,7 +332,7 @@ node each fallback query names in spark.rapids.sql.test.allowedNonTpu.
 It then prints the kernel table ({"kernels": [...]}, with each kernel's
 launches per path in "launches_by_path": cached, parquet, strings, joins,
 adaptive, window, sql, exprs, sets, aggtypes, datetime, nested, formats,
-shuffle, regex, fallback, runtime),
+shuffle, udf, regex, fallback, trace, runtime),
 the card's name and power limit, and as its last line {"ok": true,
 "device": {...}}. Any failure exits non-zero without that line; so does a
 machine without CUDA, and so does a run that imported the JAX package.
@@ -412,8 +434,9 @@ def port_api():
     from spark_rapids_tpu_torch.expr import core as E
     from spark_rapids_tpu_torch.expr.window import Window
     from spark_rapids_tpu_torch.sql import functions as F
+    from spark_rapids_tpu_torch.sql import udf as U
     return SimpleNamespace(col=E.col, lit=E.lit, F=F, E=E, T=T,
-                           Window=Window)
+                           Window=Window, udf=U.udf, col_udf=U.torch_udf)
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -1129,12 +1152,23 @@ def parquet_queries(dev_session, host_session, path):
     }
 
 
+#: the operators whose counters the parquet phase prints
+SCAN_EXECS = ("ParquetScanExec", "EncodedParquetSourceExec",
+              "DeviceDecodeScanExec")
+
+
 def scan_report(session):
-    """The scan operators' counters of the session's last query."""
+    """The scan operators' counters of the session's last query, read
+    through ``last_metrics()``: timers in seconds, and the decode timer
+    (gpuDecodeTime) under its earlier key decodeTime."""
     out = {}
+    for key, snap in session.last_metrics().items():
+        name = key.split("#")[0]
+        if name in SCAN_EXECS:
+            out[name] = {("decodeTime" if k == "gpuDecodeTime" else k):
+                         (v / 1e9 if k.endswith("Time") else v)
+                         for k, v in snap.items()}
     for e in session.last_exec.walk():
-        if hasattr(e, "metrics"):
-            out[type(e).__name__] = dict(e.metrics)
         if hasattr(e, "fallback_columns"):
             out["fallback_columns"] = sorted(e.fallback_columns)
     return out
@@ -1159,6 +1193,8 @@ def phase_parquet(path, want, spy, prof=None):
                          {k: v - before[k]
                           for k, v in read_launches().items()}))
         scan = scan_report(session)
+        if name == "pq_q6":  # the trace phase runs it again
+            RUN_NOTES["pq_q6_warm_ms"] = runs[1][0] * 1e3
         routes = {k: v // 2 for k, v in spy.take().items()}
         good = all(r[1] for r in runs)
         if not good:
@@ -1782,6 +1818,8 @@ def phase_joins(table, orders, spy, prof=None):
             fn()
             warm.append(time.perf_counter() - t0)
         good = validate_joins(name, got, want.get(name))
+        if name == "q3join_shuffled":  # the trace phase runs it again
+            RUN_NOTES["q3join_shuffled_warm_ms"] = min(warm) * 1e3
         routes = {k: v // 3 for k, v in spy.take().items()}
         paths = {k: v // 3 for k, v in jspy.take().items()}
         execs = _exec_names(session)
@@ -1801,6 +1839,7 @@ def phase_joins(table, orders, spy, prof=None):
                               else len(got)),
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
     counts = read_launches()
+    RUN_NOTES["q3join_shuffled_want"] = want["q3join_shuffled"]
     emit({"phase": "joins", "launches": counts, "correct": not problems,
           "problems": problems})
     if prof:
@@ -3797,8 +3836,8 @@ def phase_fallback(li_plan, text_plan, want, spy, prof=None):
                      if ln.lstrip().startswith("!")]
         [fb] = [e for e in session.last_exec.walk()
                 if isinstance(e, CpuFallbackExec)]
-        host_ms = sum(fb.metrics[k] for k in ("download_ms", "cpu_ms",
-                                              "upload_ms"))
+        host_ms = sum(fb.transfers[k] for k in ("download_ms", "cpu_ms",
+                                                "upload_ms"))
         if not good:
             problems.append(f"{name} disagrees with the host answer")
         if len(cpu_lines) != 1 or type(fb.plan).__name__ \
@@ -3806,9 +3845,9 @@ def phase_fallback(li_plan, text_plan, want, spy, prof=None):
                 or FALLBACK_REASONS[name] not in report:
             problems.append(f"{name} placed {cpu_lines} on the CPU: "
                             f"{report}")
-        if not fb.metrics["output_device"].startswith("cuda"):
+        if not fb.transfers["output_device"].startswith("cuda"):
             problems.append(f"{name} uploaded to "
-                            f"{fb.metrics['output_device']}")
+                            f"{fb.transfers['output_device']}")
         if launches != e_launch:
             problems.append(f"{name} launched {launches}, expected "
                             f"{e_launch}")
@@ -3816,7 +3855,7 @@ def phase_fallback(li_plan, text_plan, want, spy, prof=None):
             problems.append(f"fb_moving_min took routes {routes}")
         emit({"phase": "fallback.query", "query": name, "correct": good,
               "cold_s": cold, "warm_s": min(warm), "cpu_nodes": cpu_lines,
-              "fallback": dict(fb.metrics),
+              "fallback": dict(fb.transfers),
               # the metrics are the last run's: its share of that run
               "host_share": host_ms / 1e3 / warm[-1],
               "launches": launches, "routes": routes,
@@ -4202,7 +4241,7 @@ def phase_datetime(table, spy, prof=None):
                     for k, v in read_launches().items()}
         cpu_nodes = [type(m.plan).__name__ for m in session.last_meta.walk()
                      if not m.can_run_on_tpu]
-        fallback = [dict(e.metrics) for e in session.last_exec.walk()
+        fallback = [dict(e.transfers) for e in session.last_exec.walk()
                     if isinstance(e, CpuFallbackExec)]
         e_ops, e_routes, e_cpu = DATETIME_EXPECT[name]
         e_launch = {k: DATETIME_LAUNCHES.get(name, {}).get(k, 0)
@@ -4588,7 +4627,7 @@ def phase_regex(text, text_plan, spy, prof=None):
                     for k, v in read_launches().items()}
         cpu_nodes = [type(m.plan).__name__ for m in session.last_meta.walk()
                      if not m.can_run_on_tpu]
-        fallback = [dict(e.metrics) for e in session.last_exec.walk()
+        fallback = [dict(e.transfers) for e in session.last_exec.walk()
                     if isinstance(e, CpuFallbackExec)]
         e_routes, e_cpu = REGEX_EXPECT[name]
         e_launch = {k: REGEX_LAUNCHES.get(name, {}).get(k, 0)
@@ -4928,7 +4967,7 @@ def phase_nested(table, orders, h1, tmp_dir, spy, prof=None):
                      if not m.can_run_on_tpu]
         forms = [e.stacked for e in session.last_exec.walk()
                  if type(e).__name__ == "ExpandExec"]
-        fallback = [dict(e.metrics) for e in session.last_exec.walk()
+        fallback = [dict(e.transfers) for e in session.last_exec.walk()
                     if isinstance(e, CpuFallbackExec)]
         if not good:
             problems.append(f"{name} disagrees with numpy ({how})")
@@ -5647,6 +5686,344 @@ def phase_shuffle(table, orders, want, h8, tmp_dir, spy):
            counts["bitslice"]) <= 0:
         raise AssertionError(f"murmur3, segsum and bitslice must run on "
                              f"the shuffle path: {counts}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 17c: the UDF tier
+# ---------------------------------------------------------------------------
+
+COMPILER_ON = {"spark.rapids.sql.udfCompiler.enabled": "true"}
+POOL_OFF = {"spark.rapids.sql.python.workerPool.enabled": "false"}
+
+
+def udf_reference(table):
+    """numpy's answers of udf_q72_compiled and udf_repart_torch: {key:
+    (sum, count)}."""
+    ok = table["l_orderkey"].to_numpy()
+    price = table["l_extendedprice"].to_numpy()
+    disc = table["l_discount"].to_numpy()
+    qty = table["l_quantity"].to_numpy()
+    k = np.mod(ok, 100_000)
+    charge = price * (1.0 - disc) * (1.0 + np.mod(ok, 9) / 100.0)
+    s = np.bincount(k, weights=charge, minlength=100_000)
+    c = np.bincount(k, minlength=100_000)
+    compiled = {int(i): (float(s[i]), int(c[i])) for i in np.nonzero(c)[0]}
+    cheap = disc < 0.095
+    vs = np.bincount(k[cheap], weights=2.0 * qty[cheap] - 1.0,
+                     minlength=100_000)
+    vc = np.bincount(k[cheap], minlength=100_000)
+    repart = {int(i): (float(vs[i]) if vc[i] else None, int(vc[i]))
+              for i in np.nonzero(c)[0]}
+    return {"udf_q72_compiled": compiled, "udf_repart_torch": repart}
+
+
+def _groups(t, key, names):
+    d = t.to_pydict()
+    return {k: tuple(d[n][i] for n in names) for i, k in enumerate(d[key])}
+
+
+def _cpu_nodes(session):
+    return [type(m.plan).__name__ for m in session.last_meta.walk()
+            if not m.can_run_on_tpu]
+
+
+def phase_udf(table, h1, h8, spy):
+    """The UDF tier (module docstring, phase 17c): a compiled row UDF, a
+    columnar torch UDF with its own validity behind a hash exchange, an
+    opaque row UDF on the CPU with the worker pool on and off, and one
+    lambda compiled and on the row tier."""
+    import torch
+    from spark_rapids_tpu_torch import config as TC
+    from spark_rapids_tpu_torch.exec.nodes import CpuFallbackExec
+    from spark_rapids_tpu_torch.runtime import pyworker
+    from spark_rapids_tpu_torch.sql.dataframe import DataFrame
+    H, api = helpers(), port_api()
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    want = udf_reference(table)
+    small = table.slice(0, H.UDF_ROW_LINES)
+    row_want = H.udf_row_flags_answer(small)
+    emit({"phase": "udf.setup", "numpy_s": time.perf_counter() - t0})
+    reset_launches()
+    spy.take()
+    problems = []
+
+    def run(name, session, build, runs=3, note=None):
+        """build() makes the query (after the session's conf became the
+        thread's, which a udf's compile decision reads); cold then warm
+        runs; one udf.query line."""
+        TC.set_session_conf(session.conf)
+        df = build()
+        before = read_launches()
+        answers, secs = [], []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            answers.append(df.collect())
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        line = {"phase": "udf.query", "query": name,
+                "cold_ms": secs[0] * 1e3,
+                "warm_ms": min(secs[1:]) * 1e3 if runs > 1 else None,
+                "launches_per_run": {k: (v - before[k]) // runs
+                                     for k, v in read_launches().items()},
+                "routes": {k: v // runs for k, v in spy.take().items()},
+                "cpu_nodes": _cpu_nodes(session),
+                "execs": _exec_names(session)}
+        line.update(note or {})
+        return answers, line
+
+    # udf_q72_compiled: the compiled charge, grouped like q72shfl
+    s = device_session(COMPILER_ON)
+    answers, line = run("udf_q72_compiled", s, lambda: H.udf_q72_compiled(
+        api, DataFrame(h1.li.plan, s)))
+    got = [_groups(a, "k", ("s", "c")) for a in answers]
+    good = all(validate("udf_q72_compiled", g, want["udf_q72_compiled"])
+               for g in got)
+    if not good:
+        problems.append("udf_q72_compiled disagrees with numpy")
+    if line["cpu_nodes"] or line["launches_per_run"]["segsum"] <= 0:
+        problems.append(f"udf_q72_compiled: CPU nodes {line['cpu_nodes']}, "
+                        f"launches {line['launches_per_run']}")
+    emit({**line, "correct": good, "groups": len(got[0])})
+
+    # udf_repart_torch: the columnar UDF over the 8-partition cache
+    s = device_session()
+    answers, line = run("udf_repart_torch", s, lambda: H.udf_repart_columnar(
+        api, DataFrame(h8.li.plan, s)))
+    got = [_groups(a, "k", ("s", "c")) for a in answers]
+    good = all(g == want["udf_repart_torch"] for g in got)
+    lr = line["launches_per_run"]
+    if not good:
+        problems.append("udf_repart_torch disagrees with numpy")
+    if line["cpu_nodes"] or lr["murmur3_int32"] <= 0 or lr["segsum"] <= 0:
+        problems.append(f"udf_repart_torch: CPU nodes {line['cpu_nodes']}, "
+                        f"launches {lr}")
+    emit({**line, "correct": good, "exact": good})
+
+    # udf_row_pool: the opaque row UDF in a CPU Project, pool on and off
+    pyworker.shutdown_pool()
+    s_on = device_session(allowed=H.UDF_FALLBACK_NODE)
+    cached = s_on.create_dataframe(small).cache()
+    cached.count()
+    s_off = device_session(POOL_OFF, allowed=H.UDF_FALLBACK_NODE)
+    pool = {}
+    try:
+        for mode, sess in (("off", s_off), ("on", s_on)):
+            answers, line = run(f"udf_row_pool_{mode}", sess,
+                                lambda: H.udf_row_flags(
+                                    api, DataFrame(cached.plan, sess)))
+            [fb] = [e for e in sess.last_exec.walk()
+                    if isinstance(e, CpuFallbackExec)]
+            workers = pyworker._POOL_SIZE if pyworker._POOL is not None \
+                else 0
+            got = [_groups(a, "t", ("q", "n")) for a in answers]
+            good = all(g == row_want for g in got)
+            # each collect converts a new operator tree: the fallback's
+            # transfers are the last run's
+            pool[mode] = {"workers": workers,
+                          "cpu_step_ms": fb.transfers["cpu_ms"],
+                          "cold_ms": line["cold_ms"],
+                          "warm_ms": line["warm_ms"]}
+            if not good:
+                problems.append(f"udf_row_pool_{mode} disagrees with the "
+                                f"Python loop")
+            if line["cpu_nodes"] != [H.UDF_FALLBACK_NODE]:
+                problems.append(f"udf_row_pool_{mode} placed "
+                                f"{line['cpu_nodes']} on the CPU")
+            emit({**line, "correct": good, "workers": workers,
+                  # the last run's download, CPU and upload ms
+                  "transfers_last_run": {k: v for k, v in
+                                         fb.transfers.items()
+                                         if k.endswith("_ms")},
+                  "lines": small.num_rows})
+    finally:
+        pyworker.shutdown_pool()
+    if pool["on"]["workers"] <= 1 or pool["off"]["workers"] != 0:
+        problems.append(f"udf_row_pool: workers {pool}")
+
+    # udf_compiled_vs_row: one lambda compiled, and on the row tier
+    answers = {}
+    for mode, sess in (("compiled", device_session(COMPILER_ON)),
+                       ("row", device_session(
+                           POOL_OFF, allowed=H.UDF_FALLBACK_NODE))):
+        got, line = run(f"udf_compiled_vs_row_{mode}", sess,
+                        lambda: H.udf_late_qty(
+                            api, DataFrame(cached.plan, sess)), runs=2)
+        answers[mode] = _groups(got[0], "l_returnflag", ("s", "n"))
+        want_cpu = [] if mode == "compiled" else [H.UDF_FALLBACK_NODE]
+        if line["cpu_nodes"] != want_cpu:
+            problems.append(f"udf_compiled_vs_row_{mode} placed "
+                            f"{line['cpu_nodes']} on the CPU")
+        emit(line)
+    good = answers["compiled"] == answers["row"]
+    if not good:
+        problems.append(f"udf_compiled_vs_row: {answers}")
+    emit({"phase": "udf.compiled_vs_row", "equal": good,
+          "answer": {str(k): v for k, v in answers["compiled"].items()}})
+    del cached
+    counts = read_launches()
+    emit({"phase": "udf", "launches": counts, "correct": not problems,
+          "problems": problems, "pool": pool,
+          "seconds": time.perf_counter() - t_phase})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    if min(counts["murmur3_int32"], counts["segsum"]) <= 0:
+        raise AssertionError(f"murmur3 and segsum must run on the udf "
+                             f"path: {counts}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 17d: the query trace and the per-operator metrics
+# ---------------------------------------------------------------------------
+
+def profiler_report():
+    """tools/profiler_report.py (the standard library only)."""
+    tools = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tools")
+    if tools not in sys.path:
+        sys.path.append(tools)
+    import profiler_report as PR
+    return PR
+
+
+def trace_check(PR, session, name, want_instants=()):
+    """The action's artifacts: Chrome trace JSON, every span total within
+    1% of its last_metrics() timer, every timer with its spans, and the
+    instants asked for. Returns (summary, problems)."""
+    problems = []
+    art = PR.load_artifacts(session.last_trace_paths["trace"])
+    rows = PR.analyze(art)["reconciliation"]
+    timers = {f"{k.split('#')[0]}.{m}" for k, snap in
+              session.last_metrics().items() for m, v in snap.items()
+              if m.endswith("Time") and v}
+    worst = max((r["delta_pct"] for r in rows), default=None)
+    if not rows or worst >= 1.0:
+        problems.append(f"{name}: reconciliation {rows}")
+    if timers != {r["name"] for r in rows}:
+        problems.append(f"{name}: timers {sorted(timers)} but spans of "
+                        f"{sorted(r['name'] for r in rows)}")
+    names = {e["name"] for e in art["events"]}
+    missing = [i for i in want_instants if i not in names]
+    if missing:
+        problems.append(f"{name}: no {missing} instants")
+    spans = [e for e in art["events"] if e["ph"] == "X"]
+    return {"events": len(art["events"]), "spans": len(spans),
+            "span_ms_by_name": {r["name"]: r["span_us"] / 1e3
+                                for r in rows},
+            "tasks": len(art["tasks"]), "worst_delta_pct": worst,
+            "reconciled": len(rows),
+            "instants": sorted({e["name"] for e in art["events"]
+                                if e["ph"] == "i"}),
+            "status": art["query"]["status"]}, problems
+
+
+def phase_trace(want, h1, h8, pq_path, tmp_dir, spy):
+    """Tracing (module docstring, phase 17d): q1, q3join_shuffled, pq_q6
+    and the paged q1, each untraced then traced."""
+    from types import SimpleNamespace
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from spark_rapids_tpu_torch.sql.dataframe import DataFrame
+    PR = profiler_report()
+    t_phase = time.perf_counter()
+    trace_dir = os.path.join(tmp_dir, "trace")
+    traced = {"spark.rapids.sql.trace.enabled": "true",
+              "spark.rapids.sql.trace.path": trace_dir}
+    li8_bytes = sum(sb.size for part in h8.li.plan.materialized
+                    for sb in part)
+    paged = {"spark.rapids.memory.spillDir": os.path.join(tmp_dir, "spill"),
+             "spark.rapids.memory.tpu.budgetBytes": li8_bytes // 2}
+    jwant = RUN_NOTES["q3join_shuffled_want"]
+
+    def q1(s):
+        return port_queries(DataFrame(h1.li.plan, s))["q1"]
+
+    def q3(s):
+        h8s = SimpleNamespace(s=s, li=DataFrame(h8.li.plan, s),
+                              od=DataFrame(h8.od.plan, s))
+        return joins_queries(h1, h8s)["q3join_shuffled"][1]
+
+    def pq6(s):
+        return port_queries(s.read_parquet(pq_path, columns=Q6_COLS))["q6"]
+
+    def paged_q1(s):
+        return port_queries(DataFrame(h8.li.plan, s))["q1"]
+
+    queries = {
+        "tr_q1": ({}, q1, lambda g: validate("q1", g, want["q1"]),
+                  "path_q1_warm_ms", ()),
+        "tr_q3join_shuffled": (SHUFFLED_JOIN, q3, lambda g: validate_joins(
+            "q3join_shuffled", g, jwant), "q3join_shuffled_warm_ms", ()),
+        "tr_pq_q6": ({}, pq6, lambda g: _close(g, want["q6"]),
+                     "pq_q6_warm_ms", ()),
+        "tr_paged_q1": (paged, paged_q1, lambda g: validate(
+            "q1", g, want["q1"]), None,
+            ("semaphoreAcquire", "semaphoreRelease", "spillToHost")),
+    }
+    reset_launches()
+    spy.take()
+    problems = []
+    for name, (conf, make, check, note, instants) in queries.items():
+        line = {"phase": "trace.query", "query": name,
+                "earlier_warm_ms": RUN_NOTES.get(note) if note else None}
+        for mode, extra in (("off", {}), ("on", traced)):
+            s = device_session({**conf, **extra})
+            fn = make(s)
+            before = read_launches()
+            secs, good = [], True
+            for _ in range(3):
+                t0 = time.perf_counter()
+                good &= bool(check(fn()))
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            line[f"warm_ms_trace_{mode}"] = min(secs[1:]) * 1e3
+            line[f"cold_ms_trace_{mode}"] = secs[0] * 1e3
+            line[f"launches_per_run_{mode}"] = {
+                k: (v - before[k]) // 3 for k, v in read_launches().items()}
+            if not good:
+                problems.append(f"{name} (tracing {mode}) disagrees")
+            if mode == "off" and s.last_trace_paths is not None:
+                problems.append(f"{name}: untraced run wrote a trace")
+        summary, bad = trace_check(PR, s, name, instants)
+        problems.extend(bad)
+        line["trace"] = summary
+        line["routes"] = {k: v // 6 for k, v in spy.take().items()}
+        line["metrics"] = s.last_metrics()
+        line["trace_overhead"] = line["warm_ms_trace_on"] \
+            / line["warm_ms_trace_off"]
+        if line["launches_per_run_on"] != line["launches_per_run_off"]:
+            problems.append(f"{name}: launches differ with tracing on")
+        emit(line)
+    if read_launches()["bitslice"] <= 0:
+        problems.append("tr_pq_q6 launched no bitslice")
+
+    # one traced query under torch.profiler: the exec spans are ranges
+    s = device_session({**SHUFFLED_JOIN, **traced})
+    fn = q3(s)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ranges = {e.key: e.count for e in prof.key_averages()
+              if e.key.endswith("Time") and "Exec." in e.key}
+    span_names = {f"{k.split('#')[0]}.{m}" for k, snap in
+                  s.last_metrics().items() for m, v in snap.items()
+                  if m.endswith("Time") and v}
+    if not span_names or not span_names <= set(ranges):
+        problems.append(f"profiler ranges {ranges}, exec spans "
+                        f"{sorted(span_names)}")
+    emit({"phase": "trace.profiler", "ranges": ranges,
+          "exec_spans": sorted(span_names)})
+    counts = read_launches()
+    emit({"phase": "trace", "launches": counts, "correct": not problems,
+          "problems": problems, "seconds": time.perf_counter() - t_phase})
+    if problems:
+        raise AssertionError("; ".join(problems))
     return counts
 
 
@@ -6632,6 +7009,10 @@ def main(argv) -> int:
         phases["shuffle_s"] = time.perf_counter() - t0
         spill_report("shuffle")
         t0 = time.perf_counter()
+        udf = phase_udf(table, h1, h8, spy)
+        phases["udf_s"] = time.perf_counter() - t0
+        spill_report("udf")
+        t0 = time.perf_counter()
         fb_want = fallback_reference(text, table)
         phases["fallback_reference_s"] = time.perf_counter() - t0
         li_plan = h1.li.plan  # the cached lineitem, for the fallback phase
@@ -6663,6 +7044,10 @@ def main(argv) -> int:
         del text, fb_want
         gc.collect()
         t0 = time.perf_counter()
+        traced = phase_trace(want, h1, h8, path, tmp_dir, spy)
+        phases["trace_s"] = time.perf_counter() - t0
+        spill_report("trace")
+        t0 = time.perf_counter()
         caches = [h1.li, h1.od, h1.cust, h8.li, h8.od,
                   SimpleNamespace(plan=text_plan)]
         runtime = phase_runtime(want, small, swant, h1, h8, path, tmp_dir,
@@ -6681,8 +7066,10 @@ def main(argv) -> int:
                    "nested": nested[r["name"]],
                    "formats": formats[r["name"]],
                    "shuffle": shuffle[r["name"]],
+                   "udf": udf[r["name"]],
                    "regex": regex[r["name"]],
                    "fallback": fallback[r["name"]],
+                   "trace": traced[r["name"]],
                    "runtime": runtime[r["name"]]}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path

@@ -474,6 +474,68 @@ MAX_RECORDS_PER_FILE = _register(
     "GpuFileFormatDataWriter maxRecordsPerFile).", int)
 
 
+# ---------------------------------------------------------------------------
+# UDFs, per-operator metrics and the query trace
+# ---------------------------------------------------------------------------
+
+PY_WORKER_POOL_ENABLED = _register(
+    "spark.rapids.sql.python.workerPool.enabled", True,
+    "Evaluate large row-UDF batches on a persistent multiprocessing "
+    "worker pool (reference PySpark daemon analog). Unpicklable UDFs "
+    "and small batches stay in-process.", _bool_conv)
+
+PY_WORKER_POOL_PARALLELISM = _register(
+    "spark.rapids.sql.python.workerPool.parallelism", 0,
+    "Worker processes for the python UDF pool (0 = cpu count, cap 8).", int)
+
+UDF_COMPILER_ENABLED = _register(
+    "spark.rapids.sql.udfCompiler.enabled", False,
+    "Translate simple Python UDF bytecode (arithmetic, comparisons, "
+    "conditionals, math builtins) into fused device expressions "
+    "(reference udf-compiler). Untranslatable UDFs stay on the row tier. "
+    "Semantics note (same tradeoff as the reference compiler): compiled "
+    "UDFs null-propagate instead of calling fn(None), and arithmetic "
+    "errors yield null instead of raising (non-ANSI Spark semantics) — "
+    "a row-tier UDF that RAISES on bad input behaves differently. "
+    "Off by default for that reason (matching the reference).", _bool_conv)
+
+METRICS_LEVEL = _register(
+    "spark.rapids.sql.metrics.level", "MODERATE",
+    "ESSENTIAL, MODERATE, or DEBUG metric collection "
+    "(reference spark.rapids.sql.metrics.level).", str)
+
+TRACE_ENABLED = _register(
+    "spark.rapids.sql.trace.enabled", False,
+    "Record a structured trace per query: spans for every exec's device "
+    "work (tied to the same GpuMetric timers the SQL metrics use — one "
+    "instrumentation point), instant events for semaphore/spill/retry/"
+    "fault/watchdog activity, and a per-task accumulator event log, "
+    "written as Chrome-trace-event JSON plus JSONL under "
+    "spark.rapids.sql.trace.path and aggregated offline by "
+    "tools/profiler_report.py (reference NvtxWithMetrics + "
+    "ProfilerOnExecutor). Off by default; the disabled path costs one "
+    "branch per span.", _bool_conv)
+
+TRACE_PATH = _register(
+    "spark.rapids.sql.trace.path", "/tmp/rapids_tpu_trace",
+    "Directory receiving per-query trace artifacts "
+    "(query_<n>_trace.json / _events.jsonl / _metrics.json) when "
+    "spark.rapids.sql.trace.enabled is set (reference "
+    "spark.rapids.profile pathPrefix).", str)
+
+TRACE_LEVEL = _register(
+    "spark.rapids.sql.trace.level", "MODERATE",
+    "Trace verbosity, reusing the metric levels: ESSENTIAL (exec spans + "
+    "task rollups), MODERATE (+ semaphore/spill/retry/dispatch instants), "
+    "DEBUG (+ async writes and per-stage internals).", str)
+
+TRACE_TASK_METRICS = _register(
+    "spark.rapids.sql.trace.taskMetrics", True,
+    "Roll per-task accumulators (retry count/time, spill bytes/time, "
+    "semaphore wait, max device bytes held — the GpuTaskMetrics analog) "
+    "into the per-query event log at task completion.", _bool_conv)
+
+
 def pipeline_depth(conf) -> int:
     """The effective lookahead from the pipeline pair (0 = disabled)."""
     if not conf.get(PIPELINE_ENABLED):

@@ -104,6 +104,7 @@ from spark_rapids_tpu_torch.plan import nodes as P
 from spark_rapids_tpu_torch.runtime import faults as FLT
 from spark_rapids_tpu_torch.runtime import lifecycle as LC
 from spark_rapids_tpu_torch.runtime import metrics as M
+from spark_rapids_tpu_torch.runtime import trace as TR
 from spark_rapids_tpu_torch.runtime import watchdog as WD
 from spark_rapids_tpu_torch.runtime.semaphore import (
     get_semaphore, peek_semaphore,
@@ -114,11 +115,30 @@ _LOG = logging.getLogger("spark_rapids_tpu_torch")
 
 
 class TorchExec:
+    """One physical operator. ``metrics`` is its ``MetricsRegistry``
+    (``runtime/metrics.py``) under the JAX package's names; the session's
+    ``last_metrics()`` snapshots every operator of the last action.
+
+    The timers (``span``) run on the host clock around the operator's own
+    work on a batch, the child's iteration left out. On the card that is
+    the time the host spent issuing the batch's kernels (and waiting in
+    any device-to-host read the work itself makes), not the kernels'
+    device time: CUDA work is asynchronous, and no timer synchronizes."""
+
     def __init__(self, plan, children: List["TorchExec"], conf, device):
         self.plan = plan
         self.children = children
         self.conf = conf
         self.device = torch.device(device)
+        self.metrics = M.MetricsRegistry(M.metrics_level_from_conf(conf))
+
+    def span(self, metric):
+        """Trace span + the paired GpuMetric timer as ONE instrumentation
+        point (the NvtxWithMetrics contract): tracing off returns the
+        metric's own timer; tracing on also emits an
+        ``ExecName.metricName`` complete event on this task's track and
+        opens a torch.profiler range of that name."""
+        return TR.exec_span(self, metric)
 
     @property
     def num_partitions(self) -> int:
@@ -248,12 +268,19 @@ class InMemoryScanExec(TorchExec):
         table = self.plan.table
         start, n = _split_rows(table.num_rows, self.num_partitions)[pidx]
         max_rows = self.conf.get(C.MAX_READER_BATCH_SIZE_ROWS)
+        out_rows = self.metrics.metric(M.NUM_OUTPUT_ROWS)
+        out_batches = self.metrics.metric(M.NUM_OUTPUT_BATCHES)
+        copy_t = self.metrics.metric(M.COPY_TO_DEVICE_TIME)
         off = 0
         while off < n or (n == 0 and off == 0):
             take = min(max_rows, n - off)
             self._acquire()
             FLT.site("scan.decode")
-            yield from_arrow(table.slice(start + off, take), self.device)
+            with self.span(copy_t):
+                b = from_arrow(table.slice(start + off, take), self.device)
+            out_rows.add(take)
+            out_batches.add(1)
+            yield b
             off += max(take, 1)
 
 
@@ -299,9 +326,9 @@ class _ParquetExec(TorchExec):
     """One partition per kept file: a file whose hive partition values
     refute a pushed filter is dropped when the operator is built, and row
     groups are pruned by the pushed filters against the footer
-    statistics. ``metrics`` holds plain counters (the JAX package's
-    metric names, and ``numFiles``/``numFilesPruned``) for tests and the
-    smoke."""
+    statistics. ``metrics`` holds the JAX package's scan metrics
+    (gpuDecodeTime for its tpuDecodeTime), and ``numFiles`` and
+    ``numFilesPruned``."""
 
     def __init__(self, plan, children, conf, device):
         super().__init__(plan, children, conf, device)
@@ -313,11 +340,9 @@ class _ParquetExec(TorchExec):
         self._kept_files = [i for i in range(n) if prune_partition_file(
             pv[i], plan.schema, self._pushed)] if pv and self._pushed \
             else list(range(n))
-        self._metrics_lock = threading.Lock()  # prefetch workers add too
-        self.metrics: Dict[str, float] = {
-            "numRowGroups": 0, "numRowGroupsPruned": 0, "readBytes": 0,
-            "decodeTime": 0.0, "numOutputRows": 0, "numOutputBatches": 0,
-            "numFiles": n, "numFilesPruned": n - len(self._kept_files)}
+        self.metrics.metric(M.NUM_FILES).set(n)
+        self.metrics.metric(M.NUM_FILES_PRUNED).set(
+            n - len(self._kept_files))
 
     @property
     def num_partitions(self):
@@ -340,18 +365,15 @@ class _ParquetExec(TorchExec):
 
     def _groups(self, metadata):
         groups, total = prune_row_groups(metadata, self._pushed)
-        with self._metrics_lock:
-            self.metrics["numRowGroups"] += total
-            self.metrics["numRowGroupsPruned"] += total - len(groups)
-            for g in groups:
-                self.metrics["readBytes"] += \
-                    metadata.row_group(g).total_byte_size
+        self.metrics.metric(M.NUM_ROW_GROUPS).add(total)
+        self.metrics.metric(M.NUM_ROW_GROUPS_PRUNED).add(total - len(groups))
+        self.metrics.metric(M.READ_BYTES).add(sum(
+            metadata.row_group(g).total_byte_size for g in groups))
         return groups, total
 
     def _emitted(self, rows: int) -> None:
-        with self._metrics_lock:
-            self.metrics["numOutputRows"] += rows
-            self.metrics["numOutputBatches"] += 1
+        self.metrics.metric(M.NUM_OUTPUT_ROWS).add(rows)
+        self.metrics.metric(M.NUM_OUTPUT_BATCHES).add(1)
 
 
 class ParquetScanExec(_ParquetExec):
@@ -372,6 +394,8 @@ class ParquetScanExec(_ParquetExec):
         mode = str(self.conf.get(C.MULTIFILE_READER_TYPE)).upper()
         threads = 1 if mode == "PERFILE" \
             else int(self.conf.get(C.MULTIFILE_READER_THREADS))
+        decode_t = self.metrics.metric(M.DECODE_TIME)
+        copy_t = self.metrics.metric(M.COPY_TO_DEVICE_TIME)
         groups, total = self._groups(pq.ParquetFile(path).metadata)
         if not groups:
             if total:
@@ -382,13 +406,10 @@ class ParquetScanExec(_ParquetExec):
             # one ParquetFile per load: parquet-cpp readers are not
             # thread-safe, and loads run on the prefetch workers
             FLT.site("scan.decode")
-            t0 = time.perf_counter()
-            f = pq.ParquetFile(path)
-            tbl = f.read(columns=names) if g < 0 \
-                else f.read_row_group(g, columns=names)
-            with self._metrics_lock:
-                self.metrics["decodeTime"] += time.perf_counter() - t0
-            return tbl
+            with self.span(decode_t):
+                f = pq.ParquetFile(path)
+                return f.read(columns=names) if g < 0 \
+                    else f.read_row_group(g, columns=names)
 
         batch_rows = self.conf.get(C.MAX_READER_BATCH_SIZE_ROWS)
         tables = _prefetched(groups, load, threads)
@@ -401,7 +422,9 @@ class ParquetScanExec(_ParquetExec):
                 chunk = tbl.slice(off, batch_rows)
                 self._emitted(chunk.num_rows)
                 self._acquire()
-                yield from_arrow(chunk, self.device)
+                with self.span(copy_t):
+                    b = from_arrow(chunk, self.device)
+                yield b
                 off += max(chunk.num_rows, 1)
 
 
@@ -416,9 +439,6 @@ class EncodedParquetSourceExec(_ParquetExec):
 
     def __init__(self, plan, children, conf, device):
         super().__init__(plan, children, conf, device)
-        self.metrics.update({"encodedBytes": 0, "decodedBytes": 0,
-                             "numDecodeFallbackColumns": 0,
-                             "copyToDeviceTime": 0.0})
         self.fallback_columns: Dict[str, str] = ENC.probe_support(
             plan.paths[self._kept_files[0]], self._file_fields()) \
             if self._kept_files else {}
@@ -442,6 +462,11 @@ class EncodedParquetSourceExec(_ParquetExec):
             return
         fidx, path = got
         fields = self._file_fields()
+        decode_t = self.metrics.metric(M.DECODE_TIME)
+        copy_t = self.metrics.metric(M.COPY_TO_DEVICE_TIME)
+        enc_bytes = self.metrics.metric(M.ENCODED_BYTES)
+        dec_bytes = self.metrics.metric(M.DECODED_BYTES)
+        fb_cols = self.metrics.metric(M.NUM_DECODE_FALLBACK_COLUMNS)
         pf = pq.ParquetFile(path)
         groups, total = self._groups(pf.metadata)
         if not groups:
@@ -449,17 +474,18 @@ class EncodedParquetSourceExec(_ParquetExec):
                 return  # every row group refuted: nothing read or uploaded
             # a file without row groups: host read, every column decoded
             FLT.site("scan.decode")
-            tbl = self.plan.with_partition_cols(
-                pf.read(columns=[f.name for f in fields]), fidx)
+            with self.span(decode_t):
+                tbl = self.plan.with_partition_cols(
+                    pf.read(columns=[f.name for f in fields]), fidx)
             self._acquire()
-            b = from_arrow(tbl, self.device)
+            with self.span(copy_t):
+                b = from_arrow(tbl, self.device)
             self._emitted(int(b.num_rows))
             yield ENC.EncodedBatch(
                 [ENC.EncodedColumn("decoded", c.dtype, {}, cv=c,
                                    bounds=c.bounds) for c in b.columns],
                 int(b.num_rows), b.capacity)
             return
-        m = self.metrics
         hbs = ENC.read_encoded_batches(
             path, pf.metadata, groups, fields,
             self.conf.get(C.MAX_READER_BATCH_SIZE_ROWS),
@@ -467,37 +493,34 @@ class EncodedParquetSourceExec(_ParquetExec):
             bool(self.conf.get(C.DEVICE_DECODE_DELTA)))
         while True:
             FLT.site("scan.decode")
-            t0 = time.perf_counter()
-            hb = next(hbs, None)
-            m["decodeTime"] += time.perf_counter() - t0
+            with self.span(decode_t):
+                hb = next(hbs, None)
             if hb is None:
                 return
             self.fallback_columns.update(hb.fallback)
             fb_idx = [i for i, c in enumerate(hb.columns) if c is None]
             tbl = None
             if fb_idx:
-                m["numDecodeFallbackColumns"] += len(fb_idx)
-                t0 = time.perf_counter()
-                parts = [pf.read_row_group(g, columns=[fields[i].name
-                                                       for i in fb_idx])
-                         for g in hb.groups]
-                tbl = (pa.concat_tables(parts) if len(parts) > 1
-                       else parts[0]).combine_chunks()
-                m["decodeTime"] += time.perf_counter() - t0
+                fb_cols.add(len(fb_idx))
+                with self.span(decode_t):
+                    parts = [pf.read_row_group(g, columns=[
+                        fields[i].name for i in fb_idx]) for g in hb.groups]
+                    tbl = (pa.concat_tables(parts) if len(parts) > 1
+                           else parts[0]).combine_chunks()
             self._acquire()
-            t0 = time.perf_counter()
-            decoded = {}
-            for j, i in enumerate(fb_idx):
-                arr = tbl.column(j)
-                arr = arr.chunk(0) if arr.num_chunks else arr.combine_chunks()
-                decoded[i] = column_from_arrow(arr, fields[i].dtype, hb.cap,
-                                               self.device)
-            eb = ENC.upload(hb, decoded, self.device)
-            eb.columns.extend(self._partition_columns(fidx, hb.num_rows,
-                                                      hb.cap))
-            m["copyToDeviceTime"] += time.perf_counter() - t0
-            m["encodedBytes"] += hb.encoded_bytes
-            m["decodedBytes"] += eb.decoded_size()
+            with self.span(copy_t):
+                decoded = {}
+                for j, i in enumerate(fb_idx):
+                    arr = tbl.column(j)
+                    arr = arr.chunk(0) if arr.num_chunks \
+                        else arr.combine_chunks()
+                    decoded[i] = column_from_arrow(arr, fields[i].dtype,
+                                                   hb.cap, self.device)
+                eb = ENC.upload(hb, decoded, self.device)
+                eb.columns.extend(self._partition_columns(
+                    fidx, hb.num_rows, hb.cap))
+            enc_bytes.add(hb.encoded_bytes)
+            dec_bytes.add(eb.decoded_size())
             self._emitted(hb.num_rows)
             yield eb
 
@@ -509,33 +532,28 @@ class TextScanExec(TorchExec):
     GpuJsonScan / GpuOrcScan). ``metrics``: decode (the parse) and copy
     times, rows and batches."""
 
-    def __init__(self, plan, children, conf, device):
-        super().__init__(plan, children, conf, device)
-        self.metrics: Dict[str, float] = {
-            "decodeTime": 0.0, "copyToDeviceTime": 0.0, "numOutputRows": 0,
-            "numOutputBatches": 0}
-
     @property
     def num_partitions(self):
         return max(1, len(self.plan.paths))
 
     def execute_partition(self, pidx):
-        m = self.metrics
+        decode_t = self.metrics.metric(M.DECODE_TIME)
+        copy_t = self.metrics.metric(M.COPY_TO_DEVICE_TIME)
+        out_rows = self.metrics.metric(M.NUM_OUTPUT_ROWS)
+        out_batches = self.metrics.metric(M.NUM_OUTPUT_BATCHES)
         FLT.site("scan.decode")
-        t0 = time.perf_counter()
-        table = self.plan.read_host(self.plan.paths[pidx])
-        m["decodeTime"] += time.perf_counter() - t0
+        with self.span(decode_t):
+            table = self.plan.read_host(self.plan.paths[pidx])
         batch_rows = self.conf.get(C.MAX_READER_BATCH_SIZE_ROWS)
         n = table.num_rows
         off = 0
         while off < n or (n == 0 and off == 0):
             take = min(batch_rows, n - off)
             self._acquire()
-            t0 = time.perf_counter()
-            b = from_arrow(table.slice(off, take), self.device)
-            m["copyToDeviceTime"] += time.perf_counter() - t0
-            m["numOutputRows"] += take
-            m["numOutputBatches"] += 1
+            with self.span(copy_t):
+                b = from_arrow(table.slice(off, take), self.device)
+            out_rows.add(take)
+            out_batches.add(1)
             yield b
             off += max(take, 1)
 
@@ -546,22 +564,17 @@ class DeviceDecodeScanExec(TorchExec):
     time. The row count stays the host int the source knew, so no
     device read is needed for it."""
 
-    def __init__(self, plan, children, conf, device):
-        super().__init__(plan, children, conf, device)
-        self.metrics: Dict[str, float] = {"opTime": 0.0,
-                                          "numOutputBatches": 0}
-        self._metrics_lock = threading.Lock()
-
     def execute_partition(self, pidx):
+        op_t = self.metrics.metric(M.OP_TIME)
+        out_rows = self.metrics.metric(M.NUM_OUTPUT_ROWS)
+        out_batches = self.metrics.metric(M.NUM_OUTPUT_BATCHES)
         for eb in self.children[0].execute_partition(pidx):
             self._acquire()
-            t0 = time.perf_counter()
             # the JAX package's decode is a fused dispatch too
-            with self._dispatch():
+            with self.span(op_t), self._dispatch():
                 out = D.decode_batch(eb)
-            with self._metrics_lock:
-                self.metrics["opTime"] += time.perf_counter() - t0
-                self.metrics["numOutputBatches"] += 1
+            out_rows.add(eb.num_rows)
+            out_batches.add(1)
             yield out
 
 
@@ -573,13 +586,6 @@ class ShuffleFileScanExec(TorchExec):
     reader fetching map outputs). ``metrics``: decode and copy times,
     rows and batches."""
 
-    def __init__(self, plan, children, conf, device):
-        super().__init__(plan, children, conf, device)
-        self.metrics: Dict[str, float] = {
-            "decodeTime": 0.0, "copyToDeviceTime": 0.0, "numOutputRows": 0,
-            "numOutputBatches": 0}
-        self._metrics_lock = threading.Lock()
-
     @property
     def num_partitions(self):
         return max(1, self.plan.n_reduce)
@@ -589,19 +595,19 @@ class ShuffleFileScanExec(TorchExec):
         from spark_rapids_tpu_torch.shuffle.store import (
             read_reduce_partition,
         )
+        decode_t = self.metrics.metric(M.DECODE_TIME)
+        copy_t = self.metrics.metric(M.COPY_TO_DEVICE_TIME)
+        out_rows = self.metrics.metric(M.NUM_OUTPUT_ROWS)
+        out_batches = self.metrics.metric(M.NUM_OUTPUT_BATCHES)
         pinned = self.device.type == "cuda"
         for blob in read_reduce_partition(self.plan.root, pidx):
-            t0 = time.perf_counter()
-            host = serde.deserialize_host(blob, pinned=pinned)
-            t1 = time.perf_counter()
+            with self.span(decode_t):
+                host = serde.deserialize_host(blob, pinned=pinned)
             self._acquire()
-            b = serde.upload(host, self.device)
-            with self._metrics_lock:
-                m = self.metrics
-                m["decodeTime"] += t1 - t0
-                m["copyToDeviceTime"] += time.perf_counter() - t1
-                m["numOutputRows"] += b.num_rows
-                m["numOutputBatches"] += 1
+            with self.span(copy_t):
+                b = serde.upload(host, self.device)
+            out_rows.add(b.num_rows)
+            out_batches.add(1)
             yield b
 
 
@@ -725,6 +731,7 @@ class ProjectExec(TorchExec):
         """Evaluates the expressions per batch with the partition context:
         the partition's index, and the live rows of its earlier batches
         (counted only when an expression reads them)."""
+        op_t = self.metrics.metric(M.OP_TIME)
         trivial = self._trivial_indices()
         count_rows = any(needs_row_base(e) for e in self.plan.exprs)
         row_base = 0
@@ -734,7 +741,7 @@ class ProjectExec(TorchExec):
                                     batch.num_rows, batch.row_mask)
                 continue
             self._acquire()
-            with self._dispatch():
+            with self.span(op_t), self._dispatch():
                 ctx = self._ctx(batch, partition_id=pidx, row_base=row_base)
                 cols = [e.eval(ctx) for e in self.plan.exprs]
                 raise_errors(ctx.errors)
@@ -755,41 +762,58 @@ class FilterExec(TorchExec):
     does."""
 
     def execute_partition(self, pidx):
+        op_t = self.metrics.metric(M.FILTER_TIME)
+        out_rows = self.metrics.metric(M.NUM_OUTPUT_ROWS)
         cond = self.plan.condition
         part = needs_partition_context(cond)
         count_rows = needs_row_base(cond)
         row_base = 0
         for batch in self.children[0].execute_partition(pidx):
             self._acquire()
-            with self._dispatch():
-                ctx = self._ctx(batch, partition_id=pidx,
-                                row_base=row_base) \
-                    if part else self._ctx(batch)
-                pred = cond.eval(ctx)
-                raise_errors(ctx.errors)
-            if count_rows:
-                row_base = row_base + ctx.row_mask.sum(dtype=torch.int64)
-            valid = pred.validity if pred.validity is not None \
-                else ctx.row_mask
-            yield K.mask_filter_batch(batch, pred.data.to(torch.bool) & valid)
+            with self.span(op_t):
+                with self._dispatch():
+                    ctx = self._ctx(batch, partition_id=pidx,
+                                    row_base=row_base) \
+                        if part else self._ctx(batch)
+                    pred = cond.eval(ctx)
+                    raise_errors(ctx.errors)
+                if count_rows:
+                    row_base = row_base + ctx.row_mask.sum(
+                        dtype=torch.int64)
+                valid = pred.validity if pred.validity is not None \
+                    else ctx.row_mask
+                out = K.mask_filter_batch(batch,
+                                          pred.data.to(torch.bool) & valid)
+            out_rows.add(out.num_rows)
+            yield out
 
 
 class CoalesceBatchesExec(TorchExec):
     """Concatenates batches up to spark.rapids.sql.batchSizeBytes."""
 
     def execute_partition(self, pidx):
+        concat_t = self.metrics.metric(M.CONCAT_TIME)
+        n_in = self.metrics.metric(M.NUM_INPUT_BATCHES)
+        n_out = self.metrics.metric(M.NUM_OUTPUT_BATCHES)
         target = self.conf.get(C.TARGET_BATCH_SIZE)
         pending: List[ColumnarBatch] = []
         pending_bytes = 0
+
+        def flush():
+            n_out.add(1)
+            with self.span(concat_t):
+                return _coalesced(pending)
+
         for batch in self.children[0].execute_partition(pidx):
             self._acquire()
             pending.append(batch)
+            n_in.add(1)
             pending_bytes += batch.device_memory_size()
             if pending_bytes >= target:
-                yield _coalesced(pending)
+                yield flush()
                 pending, pending_bytes = [], 0
         if pending:
-            yield _coalesced(pending)
+            yield flush()
 
 
 def _coalesced(batches: List[ColumnarBatch]) -> ColumnarBatch:
@@ -921,9 +945,14 @@ class GenerateExec(TorchExec):
     (the slot past them is the overflow slot of the rest)."""
 
     def execute_partition(self, pidx):
+        op_t = self.metrics.metric(M.OP_TIME)
+        out_rows = self.metrics.metric(M.NUM_OUTPUT_ROWS)
         for batch in self.children[0].execute_partition(pidx):
             self._acquire()
-            yield self._generate(batch)
+            with self.span(op_t):
+                out = self._generate(batch)
+            out_rows.add(out.num_rows)
+            yield out
 
     def _generate(self, batch: ColumnarBatch) -> ColumnarBatch:
         gen = self.plan.generator
@@ -1014,8 +1043,10 @@ class _ExchangeExec(TorchExec):
     with its own live mask and its row count left on the device. The
     whole child is partitioned once, on the first read of any output
     partition, which counts its partitioning dispatches and host fetches
-    (``partition_dispatches``, ``partition_fetches``; the adaptive join
-    reads them as the work a conversion saves).
+    (the partitionDispatches and partitionHostFetches metrics, read as
+    ``partition_dispatches`` and ``partition_fetches``: the adaptive join
+    reads them as the work a conversion saves) and times each input
+    batch's partitioning as partitionTime.
 
     Reading a partition coalesces adjacent tiny sub-batches
     (spark.rapids.shuffle.coalesceTinyRows), then splits a partition
@@ -1026,22 +1057,29 @@ class _ExchangeExec(TorchExec):
         super().__init__(plan, children, conf, device)
         self.n_out = n_out
         self._lock = threading.Lock()
-        #: the counters below move on the child tasks' threads
-        self._count_lock = threading.Lock()
         self._out: Optional[List[List[ColumnarBatch]]] = None
         self._masked = False
         self._skew_decision = None
         #: where sub-batches go instead of the output lists (the
         #: serialized exchange's writer), set while it partitions
         self._emit_sink = None
-        self.partition_dispatches = 0
-        self.partition_fetches = 0
-        #: sub-batches merged by tiny coalescing
-        self.coalesced_batches = 0
 
     @property
     def num_partitions(self):
         return self.n_out
+
+    @property
+    def partition_dispatches(self) -> int:
+        return self.metrics.metric(M.PARTITION_DISPATCHES).value
+
+    @property
+    def partition_fetches(self) -> int:
+        return self.metrics.metric(M.PARTITION_HOST_FETCHES).value
+
+    @property
+    def coalesced_batches(self) -> int:
+        """Sub-batches merged by tiny coalescing."""
+        return self.metrics.metric(M.SHUFFLE_COALESCED_BATCHES).value
 
     def _pids(self, batch: ColumnarBatch) -> torch.Tensor:
         raise NotImplementedError
@@ -1055,31 +1093,32 @@ class _ExchangeExec(TorchExec):
     def _emit_compact(self, batch: ColumnarBatch, pid: torch.Tensor,
                       out) -> None:
         sorted_b, off = RP.counting_sort_by_pid(batch, pid, self.n_out)
-        with self._count_lock:
-            self.partition_dispatches += 1
+        self.metrics.metric(M.PARTITION_DISPATCHES).add(1)
         # per-batch exchange checkpoint: the offsets sync is where a
         # shuffle blocks
         LC.check_current()
         FLT.site("exchange.fetch")
         offsets = off.cpu().numpy()  # the one sync per input batch
-        with self._count_lock:
-            self.partition_fetches += 1
+        self.metrics.metric(M.PARTITION_HOST_FETCHES).add(1)
+        rows_m = self.metrics.metric(M.NUM_OUTPUT_ROWS)
         for p, sub in enumerate(RP.compact_slices(sorted_b, offsets,
                                                   self.n_out)):
             if sub is None:
                 continue
             for ic, oc in zip(batch.columns, sub.columns):
                 oc.bounds = ic.bounds
+            rows_m.add(sub.num_rows)
             self._put(out, p, sub)
 
     def _emit_masked(self, batch: ColumnarBatch, pid: torch.Tensor,
                      out) -> None:
         """n_out sub-batches sharing the planes; each costs a partition
         mask and a count that syncs when read."""
-        with self._count_lock:
-            self.partition_dispatches += self.n_out
-            self.partition_fetches += self.n_out
+        self.metrics.metric(M.PARTITION_DISPATCHES).add(self.n_out)
+        self.metrics.metric(M.PARTITION_HOST_FETCHES).add(self.n_out)
+        rows_m = self.metrics.metric(M.NUM_OUTPUT_ROWS)
         for p, sub in enumerate(RP.masked_slices(batch, pid, self.n_out)):
+            rows_m.add(sub.num_rows)
             self._put(out, p, sub)
 
     def _put(self, out, p: int, sub: ColumnarBatch) -> None:
@@ -1092,18 +1131,26 @@ class _ExchangeExec(TorchExec):
         """The device partitioning of the child's batches: the output
         lists, or, while a sink is set, every sub-batch handed to it."""
         if self.n_out == 1:
-            if self._emit_sink is None:
-                return [list(batches)]
+            # every row lands in the one output partition: the batches
+            # pass unchanged, no partitioning kernel, no sizing fetch
+            rows_m = self.metrics.metric(M.NUM_OUTPUT_ROWS)
+            flat = []
             for b in batches:
-                self._emit_sink(0, b)
-            return [[]]
+                rows_m.add(b.num_rows)
+                if self._emit_sink is None:
+                    flat.append(b)
+                else:
+                    self._emit_sink(0, b)
+            return [flat]
         return self._repartition(batches)
 
     def _repartition(self, batches: Iterator[ColumnarBatch]):
+        part_t = self.metrics.metric(M.PARTITION_TIME)
         out: List[List[ColumnarBatch]] = [[] for _ in range(self.n_out)]
         for batch in batches:
             self._acquire()
-            self._emit(batch, self._pids(batch), out)
+            with self.span(part_t):
+                self._emit(batch, self._pids(batch), out)
         return out
 
     def _materialize(self):
@@ -1243,8 +1290,7 @@ class _ExchangeExec(TorchExec):
 
     def _flush_run(self, run):
         if len(run) > 1:
-            with self._count_lock:
-                self.coalesced_batches += len(run)
+            self.metrics.metric(M.SHUFFLE_COALESCED_BATCHES).add(len(run))
             yield _coalesced(run)
         elif run:
             yield run[0]
@@ -1277,8 +1323,8 @@ class ShuffleExchangeExec(_ExchangeExec):
                  keys: List[Expression], n_out: int):
         super().__init__(plan, children, conf, device, n_out)
         self.keys = keys
-        self.metrics: Dict[str, int] = {M.SHUFFLE_BYTES_WRITTEN: 0,
-                                        M.SHUFFLE_BYTES_SPILLED: 0}
+        self.metrics.metric(M.SHUFFLE_BYTES_WRITTEN)
+        self.metrics.metric(M.SHUFFLE_BYTES_SPILLED)
         #: the serialized mode's store, once materialized
         self._store = None
 
@@ -1338,8 +1384,10 @@ class ShuffleExchangeExec(_ExchangeExec):
                 store.add(p, blob, rows=n)
         self._store = store
         tot = store.totals()
-        self.metrics[M.SHUFFLE_BYTES_WRITTEN] += tot["bytes_written"]
-        self.metrics[M.SHUFFLE_BYTES_SPILLED] += tot["bytes_spilled"]
+        self.metrics.metric(M.SHUFFLE_BYTES_WRITTEN).add(
+            tot["bytes_written"])
+        self.metrics.metric(M.SHUFFLE_BYTES_SPILLED).add(
+            tot["bytes_spilled"])
         rthreads = int(self.conf.get(C.SHUFFLE_READER_THREADS))
         return [[_LazyShuffleBlobs(store, p, self, rthreads)]
                 if store.num_blobs(p) else [] for p in range(self.n_out)]
@@ -1502,19 +1550,22 @@ class RangeExchangeExec(_ExchangeExec):
         return planes, live
 
     def _repartition(self, batches):
+        part_t = self.metrics.metric(M.PARTITION_TIME)
         budget = int(self.conf.get(C.RANGE_PARTITION_SAMPLE)) * self.n_out
         per_batch, samples = [], []
         for batch in batches:
             self._acquire()
-            planes, live = self._planes(batch)
-            per_batch.append((batch, planes))
-            idx = torch.nonzero(live).flatten()
-            if idx.numel() > budget:
-                # a ceil stride spans the whole batch: a prefix would bias
-                # the bounds on input that is already ordered
-                idx = idx[::-(-idx.numel() // budget)][:budget]
-            host = torch.stack([p[idx] for p in planes], 1).cpu().tolist()
-            samples.extend(map(tuple, host))
+            with self.span(part_t):
+                planes, live = self._planes(batch)
+                per_batch.append((batch, planes))
+                idx = torch.nonzero(live).flatten()
+                if idx.numel() > budget:
+                    # a ceil stride spans the whole batch: a prefix would
+                    # bias the bounds on input that is already ordered
+                    idx = idx[::-(-idx.numel() // budget)][:budget]
+                host = torch.stack([p[idx] for p in planes],
+                                   1).cpu().tolist()
+                samples.extend(map(tuple, host))
         out: List[List[ColumnarBatch]] = [[] for _ in range(self.n_out)]
         if not samples:
             return out
@@ -1522,17 +1573,18 @@ class RangeExchangeExec(_ExchangeExec):
         bounds = [samples[len(samples) * (i + 1) // self.n_out]
                   for i in range(self.n_out - 1)]
         for batch, planes in per_batch:
-            pid = torch.zeros(batch.capacity, dtype=torch.int64,
-                              device=self.device)
-            for b in bounds:
-                after = torch.zeros(batch.capacity, dtype=torch.bool,
-                                    device=self.device)
-                eq = torch.ones_like(after)
-                for v, plane in zip(b, planes):
-                    after = after | (eq & (plane > v))
-                    eq = eq & (plane == v)
-                pid += after
-            self._emit(batch, pid, out)
+            with self.span(part_t):
+                pid = torch.zeros(batch.capacity, dtype=torch.int64,
+                                  device=self.device)
+                for b in bounds:
+                    after = torch.zeros(batch.capacity, dtype=torch.bool,
+                                        device=self.device)
+                    eq = torch.ones_like(after)
+                    for v, plane in zip(b, planes):
+                        after = after | (eq & (plane > v))
+                        eq = eq & (plane == v)
+                    pid += after
+                self._emit(batch, pid, out)
         return out
 
 
@@ -2258,11 +2310,14 @@ class HashAggregateExec(TorchExec):
 
     def execute_partition(self, pidx):
         from spark_rapids_tpu_torch.runtime.retry import with_retry
+        agg_t = self.metrics.metric(M.AGG_TIME)
+        in_batches = self.metrics.metric(M.NUM_INPUT_BATCHES)
         nkeys = len(self.plan.group_exprs)
         batches = self.children[0].execute_partition(pidx)
         skip_merge = False
         if self.mode == "final":
             partials = list(batches)
+            in_batches.add(len(partials))
         else:
             if self.kern.has_custom or (
                     nkeys and self.conf.get(C.AGG_FORCE_SINGLE_PASS)):
@@ -2279,13 +2334,14 @@ class HashAggregateExec(TorchExec):
                 # the update (with an absorbed pre-filter) is idempotent
                 # over its input batch: retried after a spill drain, or
                 # split in half, on OOM (JAX tpu_nodes.py:2727-2815)
-                with self._dispatch():
+                with self.span(agg_t), self._dispatch():
                     out, errs = self.kern.update(b, self._ctx)
                     raise_errors(errs)
                 return out
 
             for bi, batch in enumerate(batches):
                 self._acquire()
+                in_batches.add(1)
                 for si, out in enumerate(with_retry(attempt, batch)):
                     partials.append(ColumnarBatch(out.columns, 1)
                                     if nkeys == 0 else out)
@@ -2300,12 +2356,22 @@ class HashAggregateExec(TorchExec):
                 return
             partials = [self._empty_state_batch()]
         self._acquire()
+        out_rows = self.metrics.metric(M.NUM_OUTPUT_ROWS)
+        out_batches = self.metrics.metric(M.NUM_OUTPUT_BATCHES)
         if skip_merge and len(partials) > 1:
             for p in partials:
-                yield K.compact_batch(p)
+                p = K.compact_batch(p)
+                out_rows.add(p.num_rows)
+                out_batches.add(1)
+                yield p
             return
-        merged = self._merge(partials)
-        yield merged if self.mode == "partial" else self._evaluate(merged)
+        with self.span(agg_t):
+            merged = self._merge(partials)
+            if self.mode != "partial":
+                merged = self._evaluate(merged)
+        out_rows.add(merged.num_rows)
+        out_batches.add(1)
+        yield merged
 
     def _merge(self, partials: List[ColumnarBatch]) -> ColumnarBatch:
         """Fold the partition's state batches into one. A single batch
@@ -2447,11 +2513,17 @@ class TopNExec(TorchExec):
                                              T.StringType) for o in orders)
 
     def execute_partition(self, pidx):
+        sort_t = self.metrics.metric(M.SORT_TIME)
         batches = list(self.children[0].execute_partition(pidx))
         if not batches:
             return
         self._acquire()
         batch = K.concat_batches(batches) if len(batches) > 1 else batches[0]
+        with self.span(sort_t):
+            out = self._top(batch)
+        yield out
+
+    def _top(self, batch: ColumnarBatch) -> ColumnarBatch:
         n = self.n
         bound = max(4 * n, 4096)
         if self._imageable and batch.capacity > bound:
@@ -2469,16 +2541,15 @@ class TopNExec(TorchExec):
                 m = min(cnt, n)
                 idx = torch.arange(round_capacity(n), device=self.device)
                 sel = torch.where(idx < m, perm[:idx.shape[0]], -1)
-                yield ColumnarBatch(K.gather_batch(small, sel, cnt).columns,
-                                    m)
-                return
+                return ColumnarBatch(
+                    K.gather_batch(small, sel, cnt).columns, m)
         # the exact full sort: string keys, small inputs, or a wide tie set
         if batch.row_mask is not None:
             batch = K.compact_batch(batch)
         total = int(batch.num_rows)
         perm = _sort_perm_for(self.orders, batch, self._ctx(batch))
         out = K.gather_batch(batch, perm, batch.num_rows)
-        yield K.slice_batch(out, 0, min(n, total))
+        return K.slice_batch(out, 0, min(n, total))
 
 
 class SortExec(TorchExec):
@@ -2487,19 +2558,27 @@ class SortExec(TorchExec):
     core (``_out_of_core``)."""
 
     def execute_partition(self, pidx):
+        sort_t = self.metrics.metric(M.SORT_TIME)
         batches = list(self.children[0].execute_partition(pidx))
         if not batches:
             return
         self._acquire()
         total = sum(b.device_memory_size() for b in batches)
         if total > self.conf.get(C.SORT_OOC_BYTES):
-            yield from self._out_of_core(batches)
-            return
+            it = self._out_of_core(batches)
+            while True:
+                with self.span(sort_t):
+                    b = next(it, None)
+                if b is None:
+                    return
+                yield b
         batch = K.concat_batches(batches) if len(batches) > 1 else batches[0]
         if batch.row_mask is not None:
             batch = K.compact_batch(batch)
-        perm = _sort_perm_for(self.plan.orders, batch, self._ctx(batch))
-        yield K.gather_batch(batch, perm, batch.num_rows)
+        with self.span(sort_t):
+            perm = _sort_perm_for(self.plan.orders, batch, self._ctx(batch))
+            out = K.gather_batch(batch, perm, batch.num_rows)
+        yield out
 
     def _out_of_core(self, batches):
         """Only the key planes stay on the device: each batch's keys are
@@ -2596,11 +2675,17 @@ class WindowExec(TorchExec):
     """
 
     def execute_partition(self, pidx):
+        win_t = self.metrics.metric(M.OP_TIME)
         batches = list(self.children[0].execute_partition(pidx))
         if not batches:
             return
         self._acquire()
         batch = K.concat_batches(batches) if len(batches) > 1 else batches[0]
+        with self.span(win_t):
+            out = self._window(batch)
+        yield out
+
+    def _window(self, batch: ColumnarBatch) -> ColumnarBatch:
         if batch.row_mask is not None:
             batch = K.compact_batch(batch)
         spec = self.plan.window_exprs[0].spec  # one spec per node
@@ -2617,9 +2702,8 @@ class WindowExec(TorchExec):
             # partition keys
             if pk is not None and all(k in (R.KIND_INT, R.KIND_BOOL)
                                       for k in pk.kinds[nparts:]):
-                yield self._packed(batch, kcols, pk, ranges)
-                return
-        yield self._general(batch)
+                return self._packed(batch, kcols, pk, ranges)
+        return self._general(batch)
 
     def _packed(self, batch, kcols, pk, ranges) -> ColumnarBatch:
         spec = self.plan.window_exprs[0].spec
@@ -2927,42 +3011,57 @@ class _HashJoinBase(TorchExec):
                       track_build_matches: bool):
         """The joined batches of a probe stream; for right and full joins,
         then the build rows no probe row matched."""
+        join_t = self.metrics.metric(M.JOIN_TIME)
         how = self.plan.how
         matched_build = torch.zeros(build.capacity, dtype=torch.bool,
                                     device=self.device) \
             if track_build_matches else None
         if how in ("inner", "left", "left_semi", "left_anti"):
-            table = self._dense_table_for(build, build_keys)
+            with self.span(join_t):
+                table = self._dense_table_for(build, build_keys)
             if table is not None and table.max_dup <= 1:
                 for probe in probe_iter:
                     self._acquire()
-                    yield self._probe_masked(probe, build, table)
+                    with self.span(join_t):
+                        out = self._probe_masked(probe, build, table)
+                    yield out
                 return
         # right and full joins track a build-wide matched mask, which
         # bucket-local indices would break: they stay single-pass
         k = self._sub_parts(int(build.num_rows)) \
             if how in ("inner", "left", "left_semi", "left_anti") else 1
-        build_parts = self._split_build(build, k) if k > 1 else None
+        with self.span(join_t):
+            build_parts = self._split_build(build, k) if k > 1 else None
         for probe in probe_iter:
             self._acquire()
             if build_parts is not None:
-                probe_parts = self._bucket_split(probe, self._hash_keys(0), k)
+                with self.span(join_t):
+                    probe_parts = self._bucket_split(
+                        probe, self._hash_keys(0), k)
                 for pp, (bpc, bkeys) in zip(probe_parts, build_parts):
-                    _, out = self._probe_one(K.compact_batch(pp), bpc, bkeys,
-                                             None)
+                    with self.span(join_t):
+                        _, out = self._probe_one(K.compact_batch(pp), bpc,
+                                                 bkeys, None)
                     yield out
                 continue
-            matched_build, out = self._probe_one(probe, build, build_keys,
-                                                 matched_build)
+            with self.span(join_t):
+                matched_build, out = self._probe_one(probe, build,
+                                                     build_keys,
+                                                     matched_build)
             yield out
         if track_build_matches:
-            un_idx, n_un = J.unmatched_indices(matched_build,
-                                               build.live_mask())
-            if n_un:
-                dummy = _empty_batch(self.plan.children[0].schema,
-                                     self.device, 8)
-                yield _pair_batch(dummy, build, torch.full_like(un_idx, -1),
-                                  un_idx, n_un)
+            with self.span(join_t):
+                un_idx, n_un = J.unmatched_indices(matched_build,
+                                                   build.live_mask())
+                out = None
+                if n_un:
+                    dummy = _empty_batch(self.plan.children[0].schema,
+                                         self.device, 8)
+                    out = _pair_batch(dummy, build,
+                                      torch.full_like(un_idx, -1), un_idx,
+                                      n_un)
+            if out is not None:
+                yield out
 
     def _probe_masked(self, probe, build, table) -> ColumnarBatch:
         """The unique-key join without pairs: a batch sharing the probe's
@@ -3176,7 +3275,8 @@ class BroadcastHashJoinExec(_HashJoinBase):
             return self._reuse_build(entry)
 
     def execute_partition(self, pidx):
-        build = self._build_side()
+        with self.span(self.metrics.metric(M.BUILD_TIME)):
+            build = self._build_side()
         yield from self._probe_stream(
             self.children[0].execute_partition(pidx), build,
             self._build_keys, self.plan.how in ("right", "full"))
@@ -3188,10 +3288,11 @@ class ShuffledHashJoinExec(_HashJoinBase):
     left. Right and full joins work per partition: equal keys co-locate."""
 
     def execute_partition(self, pidx):
-        batches = list(self.children[1].execute_partition(pidx))
-        build = K.compact_batch(K.concat_batches(batches)) if batches \
-            else _empty_batch(self.plan.children[1].schema, self.device)
-        build_keys = self._eval(self.plan.right_keys, build)
+        with self.span(self.metrics.metric(M.BUILD_TIME)):
+            batches = list(self.children[1].execute_partition(pidx))
+            build = K.compact_batch(K.concat_batches(batches)) if batches \
+                else _empty_batch(self.plan.children[1].schema, self.device)
+            build_keys = self._eval(self.plan.right_keys, build)
         yield from self._probe_stream(
             self.children[0].execute_partition(pidx), build, build_keys,
             self.plan.how in ("right", "full"))
@@ -3316,8 +3417,10 @@ class BroadcastNestedLoopJoinExec(_WholeBuildJoin):
     MAX_PAIRS = 1 << 20
 
     def execute_partition(self, pidx):
+        join_t = self.metrics.metric(M.JOIN_TIME)
         how = self.plan.how
-        build = self._build_side()
+        with self.span(self.metrics.metric(M.BUILD_TIME)):
+            build = self._build_side()
         n_build = int(build.num_rows)
         bcap = max(build.capacity, 1)
         bmatched = torch.zeros(bcap, dtype=torch.bool, device=self.device)
@@ -3328,13 +3431,15 @@ class BroadcastNestedLoopJoinExec(_WholeBuildJoin):
             llive = left.live_mask()
             lmatched = torch.zeros(lcap, dtype=torch.bool, device=self.device)
             for t0 in range(0, n_build, tile):
-                cols, match = self._tile(left, llive, build, n_build, t0,
-                                         tile)
-                # pair p is (left row p // tile, build row t0 + p % tile)
-                grid = match.view(lcap, tile)
-                lmatched |= grid.any(1)
-                end = min(t0 + tile, bcap)
-                bmatched[t0:end] |= grid.any(0)[:end - t0]
+                with self.span(join_t):
+                    cols, match = self._tile(left, llive, build, n_build,
+                                             t0, tile)
+                    # pair p is (left row p // tile, build row
+                    # t0 + p % tile)
+                    grid = match.view(lcap, tile)
+                    lmatched |= grid.any(1)
+                    end = min(t0 + tile, bcap)
+                    bmatched[t0:end] |= grid.any(0)[:end - t0]
                 if how in ("inner", "left", "right", "full"):
                     yield _masked(cols, match)
             if how in ("left", "full"):
@@ -3391,27 +3496,35 @@ class CartesianProductExec(_WholeBuildJoin):
     optional condition as a filter on the selection mask."""
 
     def execute_partition(self, pidx):
-        build = self._build_side()
+        join_t = self.metrics.metric(M.JOIN_TIME)
+        with self.span(self.metrics.metric(M.BUILD_TIME)):
+            build = self._build_side()
         nb = int(build.num_rows)
         for probe in self.children[0].execute_partition(pidx):
             self._acquire()
-            if probe.row_mask is not None:
-                probe = K.compact_batch(probe)
-            n = int(probe.num_rows) * nb
-            if n == 0:
-                continue
-            r = torch.arange(round_capacity(n), dtype=torch.int64,
-                             device=self.device)
-            out = _pair_batch(probe, build, torch.where(r < n, r // nb, -1),
-                              torch.where(r < n, r % nb, -1), n)
-            if self.plan.condition is not None:
-                ctx = self._ctx(out)
-                pred = self.plan.condition.eval(ctx)
-                raise_errors(ctx.errors)
-                out = K.mask_filter_batch(
-                    out, pred.data.to(torch.bool)
-                    & pred.validity_or_default(n))
-            yield out
+            with self.span(join_t):
+                out = self._cross(probe, build, nb)
+            if out is not None:
+                yield out
+
+    def _cross(self, probe, build, nb: int):
+        if probe.row_mask is not None:
+            probe = K.compact_batch(probe)
+        n = int(probe.num_rows) * nb
+        if n == 0:
+            return None
+        r = torch.arange(round_capacity(n), dtype=torch.int64,
+                         device=self.device)
+        out = _pair_batch(probe, build, torch.where(r < n, r // nb, -1),
+                          torch.where(r < n, r % nb, -1), n)
+        if self.plan.condition is not None:
+            ctx = self._ctx(out)
+            pred = self.plan.condition.eval(ctx)
+            raise_errors(ctx.errors)
+            out = K.mask_filter_batch(
+                out, pred.data.to(torch.bool)
+                & pred.validity_or_default(n))
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -3443,13 +3556,15 @@ class CpuFallbackExec(TorchExec):
     ``cpu_backend.apply_node`` and converts the result back, and
     ``upload_ms`` puts the result as one partition on the session's
     device. The device operators below and above stay on the device; a
-    filter below stays a device filter. ``metrics`` also counts the rows
-    in and out and names the device the output landed on."""
+    filter below stays a device filter. ``transfers`` holds the three
+    times, counts the rows in and out and names the device the output
+    landed on. Its ``metrics`` stay empty, as the JAX package's do."""
 
     def __init__(self, plan, children, conf, device):
         super().__init__(plan, children, conf, device)
-        self.metrics = {"download_ms": 0.0, "cpu_ms": 0.0, "upload_ms": 0.0,
-                        "rows_in": 0, "rows_out": 0, "output_device": None}
+        self.transfers = {"download_ms": 0.0, "cpu_ms": 0.0,
+                          "upload_ms": 0.0, "rows_in": 0, "rows_out": 0,
+                          "output_device": None}
 
     @property
     def num_partitions(self):
@@ -3470,11 +3585,11 @@ class CpuFallbackExec(TorchExec):
                     self._sync()  # the child's device work is no download
                     t0 = time.perf_counter()
                     tables.append(host_table(batch, names))
-                    self.metrics["download_ms"] += \
+                    self.transfers["download_ms"] += \
                         (time.perf_counter() - t0) * 1e3
         table = pa.concat_tables(tables) if tables \
             else empty_table(child.plan.schema)
-        self.metrics["rows_in"] += table.num_rows
+        self.transfers["rows_in"] += table.num_rows
         return table
 
     def cpu_result(self):
@@ -3486,24 +3601,24 @@ class CpuFallbackExec(TorchExec):
             table = self._download(c)
             t0 = time.perf_counter()
             child_cols.append(CPU.table_to_cols(table))
-            self.metrics["cpu_ms"] += (time.perf_counter() - t0) * 1e3
+            self.transfers["cpu_ms"] += (time.perf_counter() - t0) * 1e3
         t0 = time.perf_counter()
         out = CPU.apply_node(self.plan, child_cols,
                              self.conf.get(C.ANSI_ENABLED))
-        self.metrics["cpu_ms"] += (time.perf_counter() - t0) * 1e3
+        self.transfers["cpu_ms"] += (time.perf_counter() - t0) * 1e3
         return out
 
     def execute_partition(self, pidx):
         cols = self.cpu_result()
         t0 = time.perf_counter()
         table = CPU.cols_to_table(cols, self.plan.schema.names)
-        self.metrics["cpu_ms"] += (time.perf_counter() - t0) * 1e3
+        self.transfers["cpu_ms"] += (time.perf_counter() - t0) * 1e3
         self._acquire()
         t0 = time.perf_counter()
         batch = from_arrow(table, self.device)
         self._sync()
-        self.metrics["upload_ms"] += (time.perf_counter() - t0) * 1e3
-        self.metrics["rows_out"] += table.num_rows
-        self.metrics["output_device"] = str(
+        self.transfers["upload_ms"] += (time.perf_counter() - t0) * 1e3
+        self.transfers["rows_out"] += table.num_rows
+        self.transfers["output_device"] = str(
             batch.columns[0].device if batch.columns else self.device)
         yield batch

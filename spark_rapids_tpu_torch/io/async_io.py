@@ -16,6 +16,8 @@ import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Callable, Optional
 
+from spark_rapids_tpu_torch.runtime import trace
+
 #: bounded wait slice while blocked on admission: each wakeup re-checks
 #: the caller's query cancel token (runtime/lifecycle.py), so a
 #: cancelled query's writer unwinds instead of waiting out other
@@ -31,8 +33,9 @@ class TrafficController:
 
     ``stall_warn_s`` (None disables) arms a diagnostic: a producer that
     has waited that long without admission logs ONE warning, then keeps
-    waiting. Admission semantics are unchanged. (The JAX package also
-    emits a trace instant and an obs counter there: ROADMAP A11.)"""
+    waiting. Admission semantics are unchanged. The wait emits an
+    asyncWriteStalled trace instant too (A11: and an obs counter in the
+    JAX package)."""
 
     def __init__(self, max_in_flight_bytes: int,
                  stall_warn_s: Optional[float] = None):
@@ -50,15 +53,20 @@ class TrafficController:
             "async write throttle stalled: waited %.1fs for %d bytes "
             "(%d in flight, limit %d) - a writer may be wedged",
             waited_s, nbytes, inflight, self.limit)
-        # A11: the asyncWriteStalled trace instant and the
-        # rapids_async_write_stalls_total obs counter
+        trace.instant("asyncWriteStalled", cat="io", args={
+            "waited_s": round(waited_s, 3), "bytes": nbytes,
+            "in_flight": inflight, "limit": self.limit},
+            level=trace.ESSENTIAL)
+        # A11: the rapids_async_write_stalls_total obs counter
 
     def acquire(self, nbytes: int) -> None:
         from spark_rapids_tpu_torch.runtime import lifecycle as _lc
         t0 = time.perf_counter()
+        blocked = False
         warned = False
         with self._cv:
             while self._inflight > 0 and self._inflight + nbytes > self.limit:
+                blocked = True
                 if self.stall_warn_s is not None and not warned:
                     waited = time.perf_counter() - t0
                     if waited >= self.stall_warn_s:
@@ -80,7 +88,10 @@ class TrafficController:
                     self._cv.wait(timeout=_CANCEL_SLICE_S)
                 _lc.check_current()
             self._inflight += nbytes
-        # A11: the asyncWriteThrottled trace instant when it blocked
+        if blocked:
+            trace.instant("asyncWriteThrottled", cat="io", args={
+                "blocked_ns": int((time.perf_counter() - t0) * 1e9),
+                "bytes": nbytes})
 
     def release(self, nbytes: int) -> None:
         with self._cv:
@@ -118,9 +129,10 @@ class ThrottlingExecutor:
             self._slots.acquire()
 
         def run():
-            # A11: the asyncWrite trace span around the task
             try:
-                return fn(*args)
+                with trace.span("asyncWrite", cat="io", level=trace.DEBUG,
+                                args={"bytes": nbytes}):
+                    return fn(*args)
             finally:
                 if self._slots is not None:
                     self._slots.release()

@@ -319,6 +319,16 @@ for _cls in CF.ALL_CPU_FUNCTIONS:
               f"{_cls.name} (CPU; no device kernel yet)",
               extra=lambda e: f"{e.name} runs on CPU (no device kernel yet)")
 
+# UDFs (reference RapidsUDF SPI / row-based UDF bridge / udf-compiler)
+from spark_rapids_tpu_torch.sql import udf as UDF  # noqa: E402
+
+expr_rule(UDF.PythonRowUDF, Sigs.COMMON, Sigs.COMMON,
+          "opaque python row UDF (CPU)",
+          extra=lambda e: f"python UDF {e.name!r} runs on CPU "
+                          f"(use torch_udf for device execution)")
+expr_rule(UDF.TorchColumnarUDF, Sigs.COMMON, Sigs.COMMON,
+          "columnar torch UDF (runs on the batch's device)")
+
 
 def _cpu_tier(doc):
     return lambda e: doc

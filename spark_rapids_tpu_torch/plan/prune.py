@@ -135,11 +135,15 @@ def _absorbable_project(pr: P.Project) -> bool:
     """A Project folds into its consumer only when its expressions are
     deterministic and context-free: the partition context
     (spark_partition_id, monotonically_increasing_id) and rand evaluate
-    with state an aggregate's update does not carry. The JAX package also
-    names its two UDF tiers here; the port has none yet (ROADMAP A10b)."""
+    with state an aggregate's update does not carry, and the UDF tiers
+    (a row UDF runs in a CPU Project of its own, a torch UDF once per
+    batch of the Project that names it), so a Project holding a UDF
+    stays above the aggregate."""
     from spark_rapids_tpu_torch.plan.overrides import PROJECT_ONLY_EXPRS
 
     def bad(e) -> bool:
+        if type(e).__name__ in ("PythonRowUDF", "TorchColumnarUDF"):
+            return True
         return isinstance(e, PROJECT_ONLY_EXPRS) \
             or any(bad(c) for c in e.children)
 

@@ -204,9 +204,15 @@ def _next_kind(site_name: str):
 
 
 def _emit(site_name: str, kind: str) -> None:
-    """One fired fault's log line. A11: the JAX package also emits a
-    faultInjected trace instant and counts rapids_faults_injected_total
-    here."""
+    """Observability for one fired fault: trace instant + debug log.
+    Never raises; never called under the faults lock. (A11: the JAX
+    package also counts rapids_faults_injected_total here.)"""
+    try:
+        from spark_rapids_tpu_torch.runtime import trace
+        trace.instant("faultInjected", cat="faults",
+                      args={"site": site_name, "kind": kind})
+    except Exception:  # noqa: BLE001 - injection must not need a tracer
+        pass
     log.debug("fault injected: site=%s kind=%s", site_name, kind)
 
 

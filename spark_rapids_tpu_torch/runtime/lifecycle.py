@@ -130,7 +130,13 @@ class CancelToken:
         self._event.set()
         for ev in waiters:
             ev.set()
-        # A11: the JAX package emits a cancelRequested trace instant here
+        try:
+            from spark_rapids_tpu_torch.runtime import trace
+            trace.instant("cancelRequested", cat="query", args={
+                "query_id": self.query_id, "reason": reason},
+                level=trace.ESSENTIAL)
+        except Exception:  # noqa: BLE001 - cancellation must not need a
+            pass  # tracer
         return True
 
     def check(self) -> None:

@@ -41,15 +41,18 @@ from spark_rapids_tpu_torch.columnar.batch import (
 DEVICE, HOST, DISK = "device", "host", "disk"
 
 
-def _record_spill(kind: str, nbytes: int, dur_ns: int) -> None:
+def _record_spill(kind: str, nbytes: int, dur_ns: int,
+                  handle_id: str) -> None:
     """The spilling task's accumulators (the spill runs on the thread
-    whose reservation forced it). A11: the JAX package also emits a
-    spill trace instant."""
+    whose reservation forced it) plus a trace instant event."""
+    from spark_rapids_tpu_torch.runtime import trace
     from spark_rapids_tpu_torch.runtime.task import TaskContext
     ctx = TaskContext.peek()
     if ctx is not None:
         ctx.metric(kind + "Bytes").add(nbytes)
         ctx.metric(kind + "Time").add(dur_ns)
+    trace.instant(kind, cat="memory", args={
+        "bytes": nbytes, "dur_ns": dur_ns, "handle": handle_id[:8]})
 
 
 class SpillableHandle:
@@ -94,7 +97,8 @@ class SpillableHandle:
             self._host = batch_to(self._device, "cpu")
             self._device = None
             self._tier = HOST
-        _record_spill("spillToHost", self.size, time.perf_counter_ns() - t0)
+        _record_spill("spillToHost", self.size, time.perf_counter_ns() - t0,
+                      self.handle_id)
         return self.size
 
     def spill_to_disk(self) -> int:
@@ -119,7 +123,8 @@ class SpillableHandle:
             self._disk = map_planes(self._host, save)
             self._host = None
             self._tier = DISK
-        _record_spill("spillToDisk", self.size, time.perf_counter_ns() - t0)
+        _record_spill("spillToDisk", self.size, time.perf_counter_ns() - t0,
+                      self.handle_id)
         return self.size
 
     def _disk_paths(self):

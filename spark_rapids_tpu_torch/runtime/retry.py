@@ -173,10 +173,10 @@ def _attempt_with_drain(attempt: Callable[[], object], max_retries: int,
                         splittable: bool) -> object:
     """Shared retry loop: injection check, OOM translation, spill drain.
     Raises _Split when the caller should split the input instead. Each
-    failed attempt's time goes to the task's retryWastedTime; the drain
-    and the backoff before the next one to retryBlockTime. A11: the JAX
-    package also emits retryAttempt spans and retryOOM instants."""
-    from spark_rapids_tpu_torch.runtime import faults
+    failed attempt's time goes to the task's retryWastedTime and to a
+    retryAttempt span; the drain and the backoff before the next one to
+    retryBlockTime."""
+    from spark_rapids_tpu_torch.runtime import faults, trace
     from spark_rapids_tpu_torch.runtime import lifecycle as _lc
     from spark_rapids_tpu_torch.runtime.memory import get_spill_framework
     from spark_rapids_tpu_torch.runtime.task import TaskContext
@@ -187,25 +187,41 @@ def _attempt_with_drain(attempt: Callable[[], object], max_retries: int,
         try:
             OomInjector.maybe_throw()
             faults.site("retry.oom")
-            return attempt()
-        except TpuSplitAndRetryOOM:
+            result = attempt()
+            if retries and trace.active() is not None:
+                # the attempt that finally landed, tagged with how many
+                # tries the work took in total
+                trace.instant("retrySucceeded", cat="retry", args={
+                    "attempts": retries + 1})
+            return result
+        except TpuSplitAndRetryOOM as e:
             if splittable:
                 # the halves re-run work this attempt already did
+                wasted_ns = time.perf_counter_ns() - t0a
                 ctx = TaskContext.peek()
                 if ctx is not None:
-                    ctx.metric("retryWastedTime").add(
-                        time.perf_counter_ns() - t0a)
+                    ctx.metric("retryWastedTime").add(wasted_ns)
+                trace.emit_span("retryAttempt", t0a, wasted_ns,
+                                cat="retry",
+                                args={"attempt": retries + 1,
+                                      "retried": True, "split": True,
+                                      "error": type(e).__name__})
                 raise _Split()
             raise
         except Exception as e:  # noqa: BLE001 - translate device OOM too
             if not isinstance(e, TpuRetryOOM) and not is_device_oom(e):
                 raise
+            wasted_ns = time.perf_counter_ns() - t0a
             retries += 1
             ctx = TaskContext.peek()
             if ctx is not None:
                 ctx.metric("retryCount").add(1)
-                ctx.metric("retryWastedTime").add(
-                    time.perf_counter_ns() - t0a)
+                ctx.metric("retryWastedTime").add(wasted_ns)
+            trace.emit_span("retryAttempt", t0a, wasted_ns, cat="retry",
+                            args={"attempt": retries, "retried": True,
+                                  "error": type(e).__name__})
+            trace.instant("retryOOM", cat="retry", args={
+                "attempt": retries, "error": type(e).__name__})
             if retries > max_retries:
                 raise
             t0 = time.perf_counter_ns()
@@ -222,6 +238,9 @@ def _attempt_with_drain(attempt: Callable[[], object], max_retries: int,
             # immediately (QueryCancelledError)
             delay_s = _backoff_seconds(retries)
             if delay_s > 0:
+                trace.instant("retryBackoff", cat="retry", args={
+                    "attempt": retries,
+                    "ms": round(delay_s * 1000.0, 3)})
                 _lc.sleep(delay_s)
             if ctx is not None:
                 ctx.metric("retryBlockTime").add(
@@ -236,6 +255,7 @@ def with_retry(attempt: Callable[[ColumnarBatch], object],
     """Run `attempt(batch)`, retrying on OOM. Yields one result per
     (sub-)batch: a split produces several results, which the caller
     treats exactly like extra input batches."""
+    from spark_rapids_tpu_torch.runtime import trace
     from spark_rapids_tpu_torch.runtime.task import TaskContext
 
     stack = [batch]
@@ -248,6 +268,10 @@ def with_retry(attempt: Callable[[ColumnarBatch], object],
             ctx = TaskContext.peek()
             if ctx is not None:
                 ctx.metric("splitAndRetryCount").add(1)
+            if trace.active() is not None:
+                # args gated: int(num_rows) can sync a lazy device count
+                trace.instant("splitAndRetryOOM", cat="retry",
+                              args={"rows": int(b.num_rows)})
             stack = split_policy(b) + stack
 
 

@@ -30,6 +30,7 @@ import time
 from typing import Dict, Optional
 
 from spark_rapids_tpu_torch.runtime import faults as _faults
+from spark_rapids_tpu_torch.runtime import trace
 
 
 class PrioritySemaphore:
@@ -159,6 +160,8 @@ class TpuSemaphore:
             if self._holder(task_ctx) is not None:
                 return
         prio = 1 if task_ctx.holds_device_data else 0
+        traced = trace.active() is not None
+        t0 = time.perf_counter_ns() if traced else 0
         # the acquiring query's cancel token (if any) rides into the
         # waiter so a cancelled query parked on the semaphore wakes and
         # unwinds instead of holding its queue position forever
@@ -166,7 +169,10 @@ class TpuSemaphore:
         self._sem.acquire(1, priority=prio,
                           wait_metric=task_ctx.metric("semaphoreWaitTime"),
                           cancel_token=_lc.current_token())
-        # A11: the JAX package emits a semaphoreAcquire trace instant here
+        if traced:  # args gated: no dict/clock work when tracing is off
+            trace.instant("semaphoreAcquire", cat="semaphore", args={
+                "task_id": task_ctx.task_id, "priority": prio,
+                "wait_ns": time.perf_counter_ns() - t0})
         with self._lock:
             self._held[task_ctx.task_id] = time.perf_counter_ns()
             self.peak_held = max(self.peak_held, len(self._held))
@@ -183,6 +189,9 @@ class TpuSemaphore:
         task_ctx.metric("semaphoreHoldTime").add(
             time.perf_counter_ns() - t_acq)
         self._sem.release(1)
+        if trace.active() is not None:
+            trace.instant("semaphoreRelease", cat="semaphore",
+                          args={"task_id": tid})
 
     def release_for_wait(self, task_ctx) -> None:
         """Give back the permit covering task_ctx before it blocks on

@@ -14,15 +14,17 @@ build materialized inside a task) records it as ``parent`` and restores
 it on exit; the semaphore treats a nested task as covered by a permit
 its parent holds (``runtime/semaphore.py``).
 
-At completion the accumulators are summed into the owning query's
-totals, which the session reads back as ``last_task_metrics()``; the
-trace event log and the live registry they also feed in the JAX package
-are ROADMAP A11.
+At completion the accumulators roll into the query trace's event log
+(``runtime/trace.on_task_complete``, when a trace is on) and are summed
+into the owning query's totals, which the session reads back as
+``last_task_metrics()``; the live registry they also feed in the JAX
+package is a later part of ROADMAP A11.
 """
 from __future__ import annotations
 
 import logging
 import threading
+import time
 from typing import Callable, Dict, List, Optional
 
 from spark_rapids_tpu_torch.runtime.metrics import GpuMetric
@@ -39,12 +41,15 @@ class TaskContext:
     _counter_lock = threading.Lock()
     _local = threading.local()
 
-    def __init__(self, partition_id: int = 0):
+    def __init__(self, partition_id: int = 0, stage_id: int = 0):
         from spark_rapids_tpu_torch.runtime import lifecycle
         with TaskContext._counter_lock:
             TaskContext._counter += 1
             self.task_id = TaskContext._counter
         self.partition_id = partition_id
+        self.stage_id = stage_id
+        self.start_ns = time.perf_counter_ns()
+        self._failed = False
         #: the query this task works for: the constructing thread's bound
         #: query id (task waves bind it before constructing contexts)
         self.query_id = lifecycle.current_query_id()
@@ -82,8 +87,12 @@ class TaskContext:
                 _LOG.warning("task %d completion callback failed",
                              self.task_id, exc_info=True)
         self._completion.clear()
-        # A11: the JAX package also rolls the accumulators into the
-        # query's trace event log and the live registry here
+        self._failed = failed
+        # the trace's event log after the callbacks, so the semaphore
+        # release's final hold time is in it (A11: the JAX package also
+        # folds the accumulators into its live registry here)
+        from spark_rapids_tpu_torch.runtime import trace
+        trace.on_task_complete(self)
         if self.query_id is not None and self._metrics:
             snap = self.metrics_snapshot()
             with _TOTALS_LOCK:

@@ -147,9 +147,15 @@ class CircuitBreaker:
         return doc
 
     def _emit_transition(self, to_state: str, error_class: str) -> None:
-        # A11: the JAX package also emits a breakerTransition trace
-        # instant, counts rapids_breaker_transitions_total and dumps the
-        # flight rings when the breaker opens
+        try:
+            from spark_rapids_tpu_torch.runtime import trace
+            trace.instant("breakerTransition", cat="watchdog", args={
+                "backend": self.backend, "to": to_state,
+                "error": error_class}, level=trace.ESSENTIAL)
+        except Exception:  # noqa: BLE001 - breaker must not need a tracer
+            pass
+        # A11: the JAX package also counts rapids_breaker_transitions_total
+        # and dumps the flight rings when the breaker opens
         if to_state == OPEN:
             log.warning("circuit breaker OPEN for backend %s (after %s); "
                         "queries degrade to CPU while open",
@@ -247,9 +253,16 @@ class DispatchWatchdog:
             "%.3fs (in flight %.3fs) — recording breaker failure; the "
             "call itself cannot be interrupted", site, thread_name,
             self.timeout_s, held_s)
-        # A11: the JAX package also emits a watchdogDispatchTimeout trace
-        # instant, counts rapids_watchdog_dispatch_timeouts_total and
-        # dumps the flight rings here
+        try:
+            from spark_rapids_tpu_torch.runtime import trace
+            trace.instant("watchdogDispatchTimeout", cat="watchdog", args={
+                "site": site, "held_s": round(held_s, 3),
+                "thread": thread_name}, level=trace.ESSENTIAL)
+        except Exception:  # noqa: BLE001 - watchdog must not need a tracer
+            pass
+        # A11: the JAX package also counts
+        # rapids_watchdog_dispatch_timeouts_total and dumps the flight
+        # rings here
         breaker().record_failure("DispatchTimeout")
 
 

@@ -32,7 +32,8 @@ the C packer release the interpreter lock). The read is split the same
 way: ``deserialize_host`` verifies, decompresses, parses and pads the
 planes into writable (pinned, when the target is the card) host tensors
 on the reader pool, and ``upload`` moves them on the consuming thread.
-The JAX package's trace spans around both are ROADMAP A11.
+``pack`` and ``deserialize_host`` run inside DEBUG-level trace spans
+(shuffle.serialize, shuffle.deserialize), as in the JAX package.
 """
 from __future__ import annotations
 
@@ -50,6 +51,7 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import (
     ColumnVector, ColumnarBatch, map_planes, round_capacity,
 )
+from spark_rapids_tpu_torch.runtime import trace
 
 _MAGIC = 0x54505544554B4F31
 _VERSION = 1
@@ -498,19 +500,20 @@ def pack(meta: bytes, planes: List[np.ndarray], codec: str = "auto",
     """Wire bytes of a described batch: the frame (the C packer, or its
     plain version with ``native=False``), compressed, behind the codec
     byte and the CRC32."""
-    frame = _pack_frame(meta, planes) if native \
-        else _py_pack_frame(meta, planes)
-    cid = codec_id(codec)
-    if cid == CODEC_ZSTD:
-        import zstandard
-        payload = zstandard.ZstdCompressor(level=1).compress(frame)
-    elif cid == CODEC_ZLIB:
-        payload = zlib.compress(frame, 1)
-    else:
-        payload = frame
-    head = bytes([cid])
-    crc = zlib.crc32(payload, zlib.crc32(head)) & 0xFFFFFFFF
-    return b"".join((head, struct.pack("<I", crc), payload))
+    with trace.span("shuffle.serialize", cat="shuffle", level=trace.DEBUG):
+        frame = _pack_frame(meta, planes) if native \
+            else _py_pack_frame(meta, planes)
+        cid = codec_id(codec)
+        if cid == CODEC_ZSTD:
+            import zstandard
+            payload = zstandard.ZstdCompressor(level=1).compress(frame)
+        elif cid == CODEC_ZLIB:
+            payload = zlib.compress(frame, 1)
+        else:
+            payload = frame
+        head = bytes([cid])
+        crc = zlib.crc32(payload, zlib.crc32(head)) & 0xFFFFFFFF
+        return b"".join((head, struct.pack("<I", crc), payload))
 
 
 def serialize_batch(batch: ColumnarBatch, codec: str = "auto",
@@ -524,34 +527,37 @@ def deserialize_host(data, verify: bool = True, pinned: bool = False,
                      native: bool = True) -> ColumnarBatch:
     """Wire bytes -> a batch of writable host tensors at this engine's
     capacity buckets (pinned when ``pinned``)."""
-    mv = memoryview(data).cast("B")
-    if len(mv) < _WIRE_HEADER:
-        raise ShuffleCorruptionError(f"short shuffle blob ({len(mv)} bytes)")
-    cid = mv[0]
-    (want,) = struct.unpack_from("<I", mv, 1)
-    payload = mv[_WIRE_HEADER:]
-    if verify:
-        got = zlib.crc32(payload, zlib.crc32(mv[:1])) & 0xFFFFFFFF
-        if got != want:
+    with trace.span("shuffle.deserialize", cat="shuffle",
+                    level=trace.DEBUG, args={"wire_bytes": len(data)}):
+        mv = memoryview(data).cast("B")
+        if len(mv) < _WIRE_HEADER:
             raise ShuffleCorruptionError(
-                f"shuffle blob CRC mismatch (stored {want:#010x}, "
-                f"computed {got:#010x}, {len(mv)} wire bytes)")
-    if cid == CODEC_ZSTD:
-        import zstandard
-        frame = zstandard.ZstdDecompressor().decompress(payload)
-    elif cid == CODEC_ZLIB:
-        frame = zlib.decompress(payload)
-    elif cid == CODEC_NONE:
-        frame = payload
-    else:
-        raise ShuffleCorruptionError(f"unknown codec id {cid}")
-    meta, bufs = (_unpack_frame if native else _py_unpack_frame)(
-        frame, verify=verify)
-    desc = json.loads(meta.decode())
-    n = desc["n"]
-    cap = round_capacity(max(n, 1))
-    return ColumnarBatch([_rebuild_column(d, bufs, n, cap, pinned)
-                          for d in desc["cols"]], n)
+                f"short shuffle blob ({len(mv)} bytes)")
+        cid = mv[0]
+        (want,) = struct.unpack_from("<I", mv, 1)
+        payload = mv[_WIRE_HEADER:]
+        if verify:
+            got = zlib.crc32(payload, zlib.crc32(mv[:1])) & 0xFFFFFFFF
+            if got != want:
+                raise ShuffleCorruptionError(
+                    f"shuffle blob CRC mismatch (stored {want:#010x}, "
+                    f"computed {got:#010x}, {len(mv)} wire bytes)")
+        if cid == CODEC_ZSTD:
+            import zstandard
+            frame = zstandard.ZstdDecompressor().decompress(payload)
+        elif cid == CODEC_ZLIB:
+            frame = zlib.decompress(payload)
+        elif cid == CODEC_NONE:
+            frame = payload
+        else:
+            raise ShuffleCorruptionError(f"unknown codec id {cid}")
+        meta, bufs = (_unpack_frame if native else _py_unpack_frame)(
+            frame, verify=verify)
+        desc = json.loads(meta.decode())
+        n = desc["n"]
+        cap = round_capacity(max(n, 1))
+        return ColumnarBatch([_rebuild_column(d, bufs, n, cap, pinned)
+                              for d in desc["cols"]], n)
 
 
 def upload(host: ColumnarBatch, device) -> ColumnarBatch:

@@ -14,8 +14,8 @@ analog reads and writes Hive's default delimited text layout:
   become NULL, like LazySimpleSerDe).
 
 Hive UDF bridges (GenericUDF over the JVM) are out of scope without a
-JVM; in the JAX package the row-UDF tier plays that role (sql/udf.py,
-ROADMAP A10b for this engine).
+JVM; the row-UDF tier plays that role (``sql/udf.py``: ``udf`` for an
+opaque Python function, ``torch_udf`` for a columnar one).
 """
 from __future__ import annotations
 

@@ -19,8 +19,11 @@ the dispatch watchdog and breaker, the spill budgets), a top-level
 ``collect`` registers a cancel token and passes admission
 (``runtime/lifecycle.py``), the partitions run as a task wave
 (``run_partitions``), and with spark.rapids.fallback.cpu.enabled a device
-failure degrades to the CPU backend. Tracing, the live query registry,
-history and the query epilogue are ROADMAP A11.
+failure degrades to the CPU backend. ``last_metrics()`` is every
+operator's metrics of the last action; with spark.rapids.sql.trace.enabled
+each action writes its trace (``runtime/trace.py``), whose paths are
+``last_trace_paths``. The live query registry, history, attribution and
+the rest of the query epilogue are later parts of ROADMAP A11.
 """
 from __future__ import annotations
 
@@ -42,6 +45,8 @@ from spark_rapids_tpu_torch.plan import nodes as P
 from spark_rapids_tpu_torch.plan.overrides import (
     convert_plan, localize_plan, wrap_and_tag,
 )
+from spark_rapids_tpu_torch.runtime import trace as TR
+from spark_rapids_tpu_torch.runtime.metrics import walk_exec_tree
 from spark_rapids_tpu_torch.sql.dataframe import DataFrame
 
 _LOG = logging.getLogger("spark_rapids_tpu_torch")
@@ -113,6 +118,15 @@ class TorchSession:
         self._last_task_metrics: Dict[str, int] = {}
         #: the stats of the last ``df.write`` (io/writer.WriteStats)
         self.last_write_stats: Optional[dict] = None
+        #: the artifacts of the last traced action ({"trace", "events",
+        #: "metrics"} paths), None when it wrote none
+        self.last_trace_paths: Optional[Dict[str, str]] = None
+
+    def _activate(self) -> None:
+        """Make this session's conf the thread's, as the JAX package's
+        sources do: what is built next (a ``udf``'s compile decision,
+        name binding) reads it."""
+        C.set_session_conf(self.conf)
 
     # -- the SQL front door ------------------------------------------------
     def create_or_replace_temp_view(self, name: str, df: DataFrame) -> None:
@@ -134,9 +148,11 @@ class TorchSession:
         ``sql/parser.py``). An uncorrelated scalar subquery runs here, on
         this session's device."""
         from spark_rapids_tpu_torch.sql.parser import parse_sql
+        self._activate()
         return parse_sql(query, self)
 
     def create_dataframe(self, data, num_partitions: int = 1) -> DataFrame:
+        self._activate()
         if isinstance(data, dict):
             data = pa.table(data)
         if not isinstance(data, pa.Table):
@@ -148,6 +164,7 @@ class TorchSession:
         """spark.range: one int64 column ``id`` from start (inclusive) to
         end (exclusive) by step; range(n) counts from 0. The values are
         made on the device."""
+        self._activate()
         if end is None:
             start, end = 0, start
         return DataFrame(P.Range(start, end, step, num_partitions), self)
@@ -158,6 +175,7 @@ class TorchSession:
         file. One directory in a hive layout (``k=v`` subdirectories)
         gives its partition columns, last in the schema. Decoded on the
         device unless spark.rapids.sql.decode.device.enabled is false."""
+        self._activate()
         if len(paths) == 1 and os.path.isdir(paths[0]):
             files, part_vals = _discover_hive(paths[0])
             if part_vals is not None:
@@ -166,10 +184,11 @@ class TorchSession:
         return DataFrame(P.ParquetScan(
             self._expand_paths(paths, suffix=".parquet"), columns), self)
 
-    @staticmethod
-    def _expand_paths(paths, suffix: str = "") -> List[str]:
+    def _expand_paths(self, paths, suffix: str = "") -> List[str]:
         """Files, a directory's files ending in ``suffix`` (names starting
-        with ``_`` skipped) and glob patterns, in sorted order."""
+        with ``_`` skipped) and glob patterns, in sorted order. The text
+        readers start here, so it also activates the session's conf."""
+        self._activate()
         files: List[str] = []
         for p in paths:
             if os.path.isdir(p):
@@ -232,6 +251,21 @@ class TorchSession:
         self.last_exec, self.last_meta = root, meta
         return root, meta
 
+    def last_metrics(self) -> Dict[str, Dict[str, int]]:
+        """Per-exec metrics of the most recent action (the SQL-UI metrics
+        surface; reference GpuMetric / GpuTaskMetrics). Returns
+        {ExecClass#i: {metric: value}} in ``walk_exec_tree`` order, each
+        operator that recorded a metric. Reading resolves the lazy device
+        row counts in one transfer an operator."""
+        out = {}
+        if self.last_exec is not None:
+            for key, node, _d, _role, _sid in walk_exec_tree(
+                    self.last_exec):
+                snap = node.metrics.snapshot()
+                if snap:
+                    out[key] = snap
+        return out
+
     def collect(self, plan: P.PlanNode,
                 timeout_seconds: Optional[float] = None) -> pa.Table:
         """Run the plan and return its rows. A top-level action registers
@@ -245,7 +279,20 @@ class TorchSession:
         its failure to the outer query, which degrades whole."""
         from spark_rapids_tpu_torch.runtime import lifecycle as LC
         from spark_rapids_tpu_torch.runtime import task as TK
+        # one structured trace per action (spark.rapids.sql.trace.*); a
+        # nested collect (a scalar subquery, a broadcast materialization)
+        # gets None and joins the enclosing query's trace
+        qt = TR.start_query(self.conf)
+        if qt is None and self.conf.get(C.TRACE_ENABLED):
+            # another query owns the tracer: this action writes no
+            # artifacts of its own, and must not show a previous one's
+            self.last_trace_paths = None
+        if qt is not None:
+            # a failure before the plan converts must snapshot nothing
+            # of the previous action's operators into this trace
+            self.last_exec = None
         status = "ok"
+        error: Optional[BaseException] = None
         degraded_reason: Optional[str] = None
         cancel_reason: Optional[str] = None
         tok = None  # this action's cancel token (top level only)
@@ -253,6 +300,8 @@ class TorchSession:
         _COLLECT_DEPTH.d = depth + 1
         if depth == 0:
             AQ.on_query_start(self.conf)
+            # the trace's t0 marker of every top-level action
+            TR.instant("queryStart", cat="query", level=TR.ESSENTIAL)
         cpu_gate_failed = False
         try:
             if depth == 0:
@@ -281,6 +330,7 @@ class TorchSession:
                 self._record_device_success()
             return result
         except BaseException as e:
+            error = e
             if depth == 0 and isinstance(e, LC.QueryCancelledError):
                 # a cooperative cancel is its own terminal status, never
                 # re-executed on the CPU
@@ -306,6 +356,52 @@ class TorchSession:
                 self._last_task_metrics = TK.take_query_totals(
                     tok.query_id) if tok is not None else {}
                 self._last_aqe = AQ.finish_query()
+                self._outcome_instant(status, error, degraded_reason,
+                                      cancel_reason)
+            if qt is not None:
+                self._end_trace(qt, status, error)
+
+    def _outcome_instant(self, status, error, degraded_reason,
+                         cancel_reason) -> None:
+        """The trace's terminal marker of a top-level action that did not
+        end ``ok``: why the timeline ends where it does. Never raises."""
+        try:
+            if status == "cancelled":
+                TR.instant("queryCancelled", cat="query",
+                           args={"reason": cancel_reason},
+                           level=TR.ESSENTIAL)
+            elif status == "degraded":
+                TR.instant("queryDegraded", cat="query", args={
+                    "reason": degraded_reason,
+                    "error": (type(error).__name__
+                              if error is not None else None)},
+                    level=TR.ESSENTIAL)
+            elif status == "failed" and error is not None:
+                TR.instant("queryError", cat="query", args={
+                    "error": type(error).__name__,
+                    "message": str(error)[:200]}, level=TR.ESSENTIAL)
+        except Exception:  # noqa: BLE001 - a marker must not mask the
+            _LOG.warning("failed to emit query outcome instant",
+                         exc_info=True)  # query's own error
+
+    def _end_trace(self, qt, status: str, error) -> None:
+        """Finalize the action's trace with its metrics snapshot, on
+        success and failure alike. Observability never fails (or masks
+        the real error of) a query: a snapshot or finalize failure is
+        logged."""
+        lm = None
+        try:
+            lm = self.last_metrics()
+        except Exception:  # noqa: BLE001
+            _LOG.warning("failed to snapshot last_metrics", exc_info=True)
+        # cleared first so a finalize failure can never leave a previous
+        # query's artifacts looking like this one's
+        self.last_trace_paths = None
+        try:
+            self.last_trace_paths = TR.end_query(
+                qt, last_metrics=lm, status=status, error=error)
+        except Exception:  # noqa: BLE001
+            _LOG.warning("failed to finalize query trace", exc_info=True)
 
     def cancel(self, query_id, reason: str = "user") -> bool:
         """Cooperatively cancel an in-flight top-level query by id (the

@@ -373,8 +373,8 @@ def test_fallback_uploads_to_the_session_device(table):
             if isinstance(e, X.CpuFallbackExec)]
     [batch] = list(fb.execute_partition(0))
     assert all(c.device == s.device for c in batch.columns)
-    assert fb.metrics["output_device"] == str(s.device)
-    assert fb.metrics["rows_in"] == 2 * table.num_rows  # two runs
+    assert fb.transfers["output_device"] == str(s.device)
+    assert fb.transfers["rows_in"] == 2 * table.num_rows  # two runs
     with pytest.raises(TypeError):
         B.from_arrow(table)  # no device: the upload would guess
 
@@ -386,7 +386,7 @@ def test_adjacent_fallbacks_stay_on_the_host(table):
     df.collect()
     ops = list(s.last_exec.walk())
     assert all(isinstance(e, X.CpuFallbackExec) for e in ops)
-    assert all(e.metrics["download_ms"] == 0.0 for e in ops)
+    assert all(e.transfers["download_ms"] == 0.0 for e in ops)
 
 
 # ---------------------------------------------------------------------------

@@ -211,9 +211,10 @@ def jax_api() -> SimpleNamespace:
     from spark_rapids_tpu.expr import core as E
     from spark_rapids_tpu.expr.window import Window
     from spark_rapids_tpu.sql import functions as F
+    from spark_rapids_tpu.sql import udf as U
     from spark_rapids_tpu.sql.session import TpuSession
     return SimpleNamespace(col=E.col, lit=E.lit, F=F, E=E, T=T,
-                           Window=Window,
+                           Window=Window, udf=U.udf, col_udf=U.jax_udf,
                            session=lambda conf=None: TpuSession(conf))
 
 
@@ -223,8 +224,9 @@ def torch_api() -> SimpleNamespace:
     from spark_rapids_tpu_torch.expr import core as E
     from spark_rapids_tpu_torch.expr.window import Window
     from spark_rapids_tpu_torch.sql import functions as F
+    from spark_rapids_tpu_torch.sql import udf as U
     return SimpleNamespace(col=E.col, lit=E.lit, F=F, E=E, T=T,
-                           Window=Window,
+                           Window=Window, udf=U.udf, col_udf=U.torch_udf,
                            session=lambda conf=None: TorchSession(
                                conf, device="cpu"))
 
@@ -1775,3 +1777,118 @@ def reset_torch_runtime() -> None:
     lifecycle.bind(None)
     task.reset_for_tests()
     TC.set_session_conf(None)
+
+
+# ---------------------------------------------------------------------------
+# the UDF tier: the functions and query shapes of tests/test_torch_udf.py
+# and chip_smoke.py's udf phase (the functions live here, at module level,
+# so the worker pool can unpickle them by reference)
+# ---------------------------------------------------------------------------
+
+#: the plan node a row-UDF query runs on the CPU
+UDF_FALLBACK_NODE = "Project"
+#: udf_row_pool's lines: the first 1M
+UDF_ROW_LINES = 1_000_000
+
+
+def charge(p, d, t):
+    """TPC-H's charge, a body the bytecode compiler translates."""
+    return p * (1.0 - d) * (1.0 + t)
+
+
+def qty_if_cheap(q, d):
+    """A columnar UDF written with operators only, so it runs on jnp
+    arrays and on torch tensors alike: (values, validity) pairs in,
+    2q - 1 out, valid where both inputs are and the discount is below
+    0.095 (its own validity). The values are integers, so their sums are
+    exact in any order."""
+    (qv, qok), (dv, dok) = q, d
+    return qv * 2.0 - 1.0, qok & dok & (dv < 0.095)
+
+
+def flag_tag(flag, status):
+    """An opaque row UDF: a string method call is outside the compiler's
+    subset, so it runs on the CPU row tier."""
+    if flag is None or status is None:
+        return None
+    return None if flag == "N" else (flag + status).lower()
+
+
+def worker_environment(_row):
+    """What a pool worker process has loaded: (any JAX or JAX-package
+    module, CUDA initialised)."""
+    import sys
+    jax_loaded = any(m.split(".")[0] in ("jax", "jaxlib", "spark_rapids_tpu")
+                     for m in sys.modules)
+    torch = sys.modules.get("torch")
+    cuda = bool(torch is not None and torch.cuda.is_initialized())
+    return jax_loaded, cuda
+
+
+def _tax(api):
+    """A TPC-H-like tax rate per line, 0.00-0.08, from the order key
+    (bench.py's lineitem has no l_tax)."""
+    col, lit, T = api.col, api.lit, api.T
+    return (col("l_orderkey") % lit(9)).cast(T.FLOAT64) / lit(100.0)
+
+
+def udf_q72_compiled(api, df):
+    """q72shfl's grouping of the compiled charge per line."""
+    col, lit, F, T = api.col, api.lit, api.F, api.T
+    f = api.udf(charge, return_type=T.FLOAT64)
+    return (df.select((col("l_orderkey") % lit(100_000)).alias("k"),
+                      f(col("l_extendedprice"), col("l_discount"),
+                        _tax(api)).alias("v"))
+            .group_by(col("k"))
+            .agg(F.sum("v").alias("s"), F.count("v").alias("c")))
+
+
+def udf_repart_columnar(api, df, n=8):
+    """A columnar UDF with its own validity, then a hash exchange of an
+    int key (the murmur3 kernel) and a grouping of ~100,000 keys."""
+    col, lit, F, T = api.col, api.lit, api.F, api.T
+    f = api.col_udf(qty_if_cheap, return_type=T.FLOAT64)
+    k = (col("l_orderkey") % lit(100_000)).cast(T.INT32).alias("k")
+    return (df.select(k, f(col("l_quantity"), col("l_discount")).alias("v"))
+            .repartition(n, col("k"))
+            .group_by(col("k"))
+            .agg(F.sum("v").alias("s"), F.count("v").alias("c")))
+
+
+def udf_row_flags(api, df):
+    """The opaque row UDF in a Project (on the CPU), then a grouping of
+    its output on the device."""
+    col, F, T = api.col, api.F, api.T
+    f = api.udf(flag_tag, return_type=T.STRING)
+    return (df.select(f(col("l_returnflag"), col("l_linestatus")).alias("t"),
+                      col("l_quantity"))
+            .group_by(col("t"))
+            .agg(F.sum("l_quantity").alias("q"), F.count("l_quantity")
+                 .alias("n")))
+
+
+def late_qty(q, s):
+    """One body for both tiers: the compiler translates it, and it runs
+    as it is on the row tier (integer-valued results: sums are exact)."""
+    return q * 2.0 if s > 9000 else q
+
+
+def udf_late_qty(api, df):
+    col, F, T = api.col, api.F, api.T
+    f = api.udf(late_qty, return_type=T.FLOAT64)
+    return (df.select(col("l_returnflag"),
+                      f(col("l_quantity"), col("l_shipdate")).alias("v"))
+            .group_by(col("l_returnflag"))
+            .agg(F.sum("v").alias("s"), F.count("v").alias("n")))
+
+
+def udf_row_flags_answer(t: pa.Table) -> dict:
+    """udf_row_flags by a plain Python loop: {tag: (sum, count)}."""
+    out: dict = {}
+    for f, st, q in zip(t.column("l_returnflag").to_pylist(),
+                        t.column("l_linestatus").to_pylist(),
+                        t.column("l_quantity").to_pylist()):
+        key = flag_tag(f, st)
+        s, c = out.get(key, (0.0, 0))
+        out[key] = (s + q, c + 1)
+    return out
