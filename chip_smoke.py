@@ -225,7 +225,7 @@ Phases, one JSON line each:
    (Q13's NOT LIKE '%quick%sleep%' over the l_quantity = 1 lines: a CPU
    Filter, as in the JAX package) and sql_regex (the LIKE and RLIKE
    filters and the extraction as SQL, with initcap and trim), each cold
-   then twice warm and checked against pyarrow's RE2 and ASCII kernels,
+   then once warm and checked against pyarrow's RE2 and ASCII kernels,
    zlib, a numpy Hive hash, hashlib, base64 and Python's re, with routes,
    CPU nodes and launches asserted exactly.
 17. nested (after the datetime phase, on the joins phase's lineitem and
@@ -249,7 +249,7 @@ Phases, one JSON line each:
    orders: one CPU Project), nx_sibling_fb (an explode carrying another
    array: the CPU Generate), sql_nested (the daily explode as SQL over a
    temp view) and ingest_generate (a plan document's Parquet scan and
-   generate: the CPU Generate, B3 and B2), each cold then twice warm and
+   generate: the CPU Generate, B3 and B2), each cold then once warm and
    checked against numpy on the lineitem itself and Python rows, with
    routes, CPU nodes, Expand forms and launches asserted exactly.
 17b. shuffle (right after the formats phase, on the joins phase's
@@ -326,13 +326,37 @@ Phases, one JSON line each:
    peak memory, launches, status, summed task accumulators and spill
    counters; after each, every semaphore permit is back, no cancel token
    is left and no spillable handle outlives the live caches.
+17e. pipeline (right after the decode phase, on the files earlier phases
+   wrote): spark.rapids.sql.pipeline.enabled is on by default, so every
+   other phase's file and in-memory scans already run behind a
+   PipelineExec (the producer's uploads on a side CUDA stream). Here
+   pq_q6 (B3), pq_q6_host, pq_repart_agg (B1, B3, B2), fm_hive_q1 and
+   fm_csv_q1 (the formats phase's hive layout and CSV) and sh_file_scan
+   (sh_xproc's exchange files through ShuffleFileScan) each run warm with
+   pipelining off, then on, both under torch.profiler's CUDA activity
+   (kernels and copies with their streams; the host is not traced, so
+   the warm ms carry no host tracing cost). Checked: on and off answers bitwise equal, each
+   matching pyarrow at bench.py's tolerances (sh_file_scan exactly), the
+   same launches, a PipelineExec at depth 2 over every scan of the
+   pipelined plan and none in the synchronous one, and over the phase at
+   least one host-to-device copy on a stream other than the consumer's
+   kernels overlapping one of those kernels. Printed per query: warm ms
+   on and off, pipelineStallTime and pipelineProducerTime, device busy ms
+   and idle share and the copies on each stream of both runs, peak GB on
+   and off, launches. Then a LIMIT 1000 over the pipelined
+   device-decode scan (it stops early; no pool worker runs engine code
+   after it) and a spark.rapids.debug.faults spec at pipeline.producer
+   (the query fails with the injected error).
+Depth cuts (to keep the script within its time with the pipeline
+phase): the regex, nested and formats phases take one warm run after
+the cold one instead of two.
 Every query path runs in test mode (spark.rapids.sql.test.enabled): an
 operator that planning tags off the card fails the query, except the one
 node each fallback query names in spark.rapids.sql.test.allowedNonTpu.
 It then prints the kernel table ({"kernels": [...]}, with each kernel's
-launches per path in "launches_by_path": cached, parquet, strings, joins,
-adaptive, window, sql, exprs, sets, aggtypes, datetime, nested, formats,
-shuffle, udf, regex, fallback, trace, runtime),
+launches per path in "launches_by_path": cached, parquet, pipeline,
+strings, joins, adaptive, window, sql, exprs, sets, aggtypes, datetime,
+nested, formats, shuffle, udf, regex, fallback, trace, runtime),
 the card's name and power limit, and as its last line {"ok": true,
 "device": {...}}. Any failure exits non-zero without that line; so does a
 machine without CUDA, and so does a run that imported the JAX package.
@@ -4614,16 +4638,15 @@ def phase_regex(text, text_plan, spy, prof=None):
         t0 = time.perf_counter()
         got = fn()
         cold = time.perf_counter() - t0
-        warm = []
-        for _ in range(2):
-            t0 = time.perf_counter()
-            fn()
-            warm.append(time.perf_counter() - t0)
+        # one warm run: the second was cut to pay for the pipeline phase
+        t0 = time.perf_counter()
+        fn()
+        warm = [time.perf_counter() - t0]
         good, how = validate_regex(name, got, ref[name])
         counts = spy.take()
-        routes = {k: v // 3 for k, v in counts.items()}
+        routes = {k: v // 2 for k, v in counts.items()}
         execs = _exec_names(session)
-        launches = {k: (v - before[k]) // 3
+        launches = {k: (v - before[k]) // 2
                     for k, v in read_launches().items()}
         cpu_nodes = [type(m.plan).__name__ for m in session.last_meta.walk()
                      if not m.can_run_on_tpu]
@@ -4634,7 +4657,7 @@ def phase_regex(text, text_plan, spy, prof=None):
                     for k in launches}
         if not good:
             problems.append(f"{name} disagrees with the host answer ({how})")
-        if routes != e_routes or any(v % 3 for v in counts.values()) \
+        if routes != e_routes or any(v % 2 for v in counts.values()) \
                 or cpu_nodes != e_cpu:
             problems.append(f"{name} ran {execs} with routes {routes} and "
                             f"CPU nodes {cpu_nodes}; expected "
@@ -4952,16 +4975,15 @@ def phase_nested(table, orders, h1, tmp_dir, spy, prof=None):
         t0 = time.perf_counter()
         got = fn()
         cold = time.perf_counter() - t0
-        warm = []
-        for _ in range(2):
-            t0 = time.perf_counter()
-            fn()
-            warm.append(time.perf_counter() - t0)
+        # one warm run: the second was cut to pay for the pipeline phase
+        t0 = time.perf_counter()
+        fn()
+        warm = [time.perf_counter() - t0]
         good, how = validate_nested(name, got, ref[name])
         counts = spy.take()
-        routes = {k: v // 3 for k, v in counts.items()}
+        routes = {k: v // 2 for k, v in counts.items()}
         execs = _exec_names(session)
-        launches = {k: (v - before[k]) // 3
+        launches = {k: (v - before[k]) // 2
                     for k, v in read_launches().items()}
         cpu_nodes = [type(m.plan).__name__ for m in session.last_meta.walk()
                      if not m.can_run_on_tpu]
@@ -4975,7 +4997,7 @@ def phase_nested(table, orders, h1, tmp_dir, spy, prof=None):
         e_launch = {k: NESTED_LAUNCHES.get(name, {}).get(k, 0)
                     for k in launches}
         if not e_ops <= set(execs) or routes != e_routes \
-                or any(v % 3 for v in counts.values()) \
+                or any(v % 2 for v in counts.values()) \
                 or cpu_nodes != e_cpu or forms != e_forms:
             problems.append(f"{name} ran {execs} with routes {routes}, "
                             f"CPU nodes {cpu_nodes} and Expand forms "
@@ -5264,7 +5286,7 @@ def phase_formats(table, orders, want, n1, h1, tmp_dir, spy, prof=None):
     functions, the NULL type over the joins phase's cached lineitem, and
     the readers over files written here (hive-partitioned Parquet of the
     whole lineitem, decoded on the card; CSV, JSON lines, ORC and Avro),
-    each query cold then twice warm, in sessions in test mode."""
+    each query cold then once warm, in sessions in test mode."""
     import torch
     H = helpers()
     t0 = time.perf_counter()
@@ -5274,6 +5296,10 @@ def phase_formats(table, orders, want, n1, h1, tmp_dir, spy, prof=None):
     ref = formats_reference(table, orders, want)
     host_s = time.perf_counter() - t0
     queries = formats_queries(n1, h1.li, paths, docs)
+    # the pipeline phase reads the hive layout and the CSV again
+    RUN_NOTES["formats_files"] = {"paths": paths,
+                                  "fm_hive_q1": ref["fm_hive_q1"],
+                                  "fm_csv_q1": ref["fm_csv_q1"]}
     emit({"phase": "formats.setup", "files_s": files_s, "writes": write_s,
           "host_reference_s": host_s,
           "bytes": {k: sum(os.path.getsize(os.path.join(d, f))
@@ -5289,14 +5315,13 @@ def phase_formats(table, orders, want, n1, h1, tmp_dir, spy, prof=None):
         t0 = time.perf_counter()
         got = fn()
         cold = time.perf_counter() - t0
-        warm = []
-        for _ in range(2):
-            t0 = time.perf_counter()
-            fn()
-            warm.append(time.perf_counter() - t0)
+        # one warm run: the second was cut to pay for the pipeline phase
+        t0 = time.perf_counter()
+        fn()
+        warm = [time.perf_counter() - t0]
         good, how = validate_formats(name, got, ref[name])
-        routes = {k: v // 3 for k, v in spy.take().items()}
-        launches = {k: (v - before[k]) // 3
+        routes = {k: v // 2 for k, v in spy.take().items()}
+        launches = {k: (v - before[k]) // 2
                     for k, v in read_launches().items()}
         cpu_nodes = [type(m.plan).__name__ for m in session.last_meta.walk()
                      if not m.can_run_on_tpu]
@@ -5329,6 +5354,260 @@ def phase_formats(table, orders, want, n1, h1, tmp_dir, spy, prof=None):
     if counts["segsum"] <= 0 or counts["bitslice"] <= 0:
         raise AssertionError(f"segsum and bitslice must run on the formats "
                              f"path: {counts}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 17e: the scan pipelines
+# ---------------------------------------------------------------------------
+
+PIPE_OFF = {"spark.rapids.sql.pipeline.enabled": "false"}
+#: the scans insert_pipelines wraps in a PipelineExec
+PIPELINED_SCANS = ("ParquetScanExec", "EncodedParquetSourceExec",
+                   "TextScanExec", "InMemoryScanExec", "ShuffleFileScanExec")
+PIPE_FAULT = {"spark.rapids.debug.faults": "pipeline.producer:ioerror:1,1"}
+
+
+def pipeline_queries(path):
+    """name -> (extra conf, fn(session) -> answer, reference) over the
+    files earlier phases wrote: the lineitem Parquet, the formats phase's
+    hive layout and CSV, and sh_xproc's exchange files."""
+    from spark_rapids_tpu_torch.shuffle import exchange_files as XF
+    api = port_api()
+    fm = RUN_NOTES["formats_files"]
+    xroot, xref = RUN_NOTES["sh_xproc"]
+
+    def parquet(cols, ref):
+        return lambda s: port_queries(s.read_parquet(path,
+                                                     columns=cols))[ref]()
+
+    def shuffle_scan(s):
+        d = XF.read_exchange(s, xroot).group_by(
+            "l_returnflag", "l_linestatus").agg(
+            api.F.sum("l_quantity").alias("q"),
+            api.F.count().alias("n")).to_pydict()
+        return {(f, st): (q, n) for f, st, q, n in zip(
+            d["l_returnflag"], d["l_linestatus"], d["q"], d["n"])}
+
+    return {
+        "pq_q6": ({}, parquet(Q6_COLS, "q6"), "q6"),
+        "pq_q6_host": (DECODE_OFF, parquet(Q6_COLS, "q6"), "q6"),
+        "pq_repart_agg": ({}, parquet(["l_shipdate", "l_quantity"],
+                                      "repart_agg"), "repart_agg"),
+        "fm_hive_q1": ({}, lambda s: port_queries(s.read_parquet(
+            fm["paths"]["hive"]))["q1"](), "fm_hive_q1"),
+        "fm_csv_q1": ({}, lambda s: port_queries(s.read_csv(
+            fm["paths"]["csv"]))["q1"](), "fm_csv_q1"),
+        "sh_file_scan": ({}, shuffle_scan, "sh_xproc"),
+    }
+
+
+def _pipelines(session):
+    """(scan classes under a PipelineExec, scan classes not under one,
+    summed pipelineStallTime and pipelineProducerTime ms, depths) of the
+    last query's tree."""
+    nodes = list(session.last_exec.walk())
+    pipes = [e for e in nodes if type(e).__name__ == "PipelineExec"]
+    under = {id(p.children[0]) for p in pipes}
+    snaps = [p.metrics.snapshot() for p in pipes]
+    bare = [type(e).__name__ for e in nodes
+            if type(e).__name__ in PIPELINED_SCANS and id(e) not in under]
+    return (sorted(type(p.children[0]).__name__ for p in pipes),
+            sorted(bare),
+            sum(s.get("pipelineStallTime", 0) for s in snaps) / 1e6,
+            sum(s.get("pipelineProducerTime", 0) for s in snaps) / 1e6,
+            [s.get("pipelineDepth") for s in snaps])
+
+
+def _busy_pool_threads():
+    """Host-pool workers running engine code right now (an idle worker
+    waits in the executor's queue)."""
+    import threading
+    frames = sys._current_frames()
+    busy = []
+    for t in threading.enumerate():
+        if not t.name.startswith("rapids-host-pool"):
+            continue
+        f = frames.get(t.ident)
+        while f is not None:
+            if "spark_rapids_tpu_torch" in f.f_code.co_filename:
+                busy.append(t.name)
+                break
+            f = f.f_back
+    return busy
+
+
+def _stream_overlap(trace_path, wall_ms):
+    """From a Chrome trace of one run: device busy ms (the union of
+    kernel, copy and memset intervals), the consumer's stream (the one
+    with the most kernel time), host-to-device copies on it and on other
+    streams, and the copies on other streams that overlap one of the
+    consumer's kernels in time, with the overlapped ms."""
+    import bisect
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in
+           ("kernel", "gpu_memcpy", "gpu_memset")]
+    by_stream = {}
+    for e in dev:
+        if e["cat"] == "kernel":
+            s = e.get("args", {}).get("stream")
+            by_stream[s] = by_stream.get(s, 0.0) + e["dur"]
+    consumer = max(by_stream, key=by_stream.get) if by_stream else None
+    kernels = sorted((e["ts"], e["ts"] + e["dur"]) for e in dev
+                     if e["cat"] == "kernel"
+                     and e.get("args", {}).get("stream") == consumer)
+    starts = [k[0] for k in kernels]
+    h2d = [e for e in dev if e["cat"] == "gpu_memcpy"
+           and "HtoD" in e.get("name", "")]
+    side = [e for e in h2d if e.get("args", {}).get("stream") != consumer]
+    overlapping, overlap_us = 0, 0.0
+    for e in side:
+        a, b = e["ts"], e["ts"] + e["dur"]
+        i = max(0, bisect.bisect_right(starts, a) - 1)
+        hit = 0.0
+        while i < len(kernels) and kernels[i][0] < b:
+            hit += max(0.0, min(b, kernels[i][1]) - max(a, kernels[i][0]))
+            i += 1
+        if hit > 0:
+            overlapping += 1
+            overlap_us += hit
+    busy, end = 0.0, None
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in dev):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return {"device_ms": busy / 1e3,
+            "device_idle_share": max(0.0, 1 - busy / 1e3 / wall_ms),
+            "consumer_stream": consumer,
+            "streams": sorted({e.get("args", {}).get("stream")
+                               for e in dev}, key=str),
+            "h2d_on_consumer_stream": len(h2d) - len(side),
+            "h2d_on_side_streams": len(side),
+            "h2d_overlapping_a_kernel": overlapping,
+            "h2d_overlap_ms": overlap_us / 1e3}
+
+
+def phase_pipeline(path, want, tmp_dir):
+    """The scan pipelines (module docstring, phase 17e): each query warm
+    with pipelining off, then on, each under torch.profiler's CUDA
+    activity;
+    bitwise equal answers that match pyarrow, the PipelineExec placement,
+    a pipelined upload on a side stream overlapping a consumer kernel, a
+    LIMIT that leaves no pool worker busy, and an injected producer
+    death."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from spark_rapids_tpu_torch.runtime import faults
+    from spark_rapids_tpu_torch.runtime.faults import InjectedFaultError
+    t_phase = time.perf_counter()
+    refs = {**want, **{k: v for k, v in RUN_NOTES["formats_files"].items()
+                       if k != "paths"},
+            "sh_xproc": RUN_NOTES["sh_xproc"][1]}
+    reset_launches()
+    problems = []
+    total_overlaps = 0
+
+    def run(s, fn, name):
+        """One warm run under torch.profiler's CUDA activity (kernels and
+        copies by stream; the host side is not traced): (answer, ms,
+        launches, peak GB, the trace's stream reading)."""
+        before = read_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            got = fn(s)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: v - before[k] for k, v in read_launches().items()}
+        gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        trace_path = os.path.join(tmp_dir, f"pipeline_{name}.json")
+        prof.export_chrome_trace(trace_path)
+        streams = _stream_overlap(trace_path, ms)
+        os.remove(trace_path)
+        return got, ms, launches, gb, streams
+
+    for name, (conf, fn, ref) in pipeline_queries(path).items():
+        s_off = device_session({**conf, **PIPE_OFF})
+        s_on = device_session(conf)
+        off, off_ms, off_l, off_gb, off_st = run(s_off, fn, name)
+        off_tree = _pipelines(s_off)
+        on, on_ms, on_l, on_gb, on_st = run(s_on, fn, name)
+        wrapped, bare, stall_ms, prod_ms, depths = _pipelines(s_on)
+        total_overlaps += on_st["h2d_overlapping_a_kernel"]
+        # sh_xproc's answer is exact; the others at bench.py's tolerances
+        good = on == refs[ref] if ref == "sh_xproc" else validate(
+            {"fm_hive_q1": "q1", "fm_csv_q1": "q1"}.get(ref, ref), on,
+            refs[ref])
+        if not good:
+            problems.append(f"{name}: the pipelined answer disagrees with "
+                            f"pyarrow")
+        if on != off:
+            problems.append(f"{name}: pipelined and synchronous answers "
+                            f"differ")
+        if on_l != off_l:
+            problems.append(f"{name}: launches {on_l} pipelined, {off_l} "
+                            f"synchronous")
+        if not wrapped or bare or off_tree[0] \
+                or set(depths) != {2}:
+            problems.append(f"{name}: PipelineExec over {wrapped}, bare "
+                            f"scans {bare}, depths {depths}, synchronous "
+                            f"plan wraps {off_tree[0]}")
+        emit({"phase": "pipeline.query", "query": name, "correct": good,
+              "bitwise_equal": on == off, "warm_ms_on": on_ms,
+              "warm_ms_off": off_ms, "on_over_off": on_ms / off_ms,
+              "pipelineStallTime_ms": stall_ms,
+              "pipelineProducerTime_ms": prod_ms,
+              "pipelined_scans": wrapped, "on": on_st, "off": off_st,
+              "peak_gb_on": on_gb, "peak_gb_off": off_gb,
+              "launches": on_l})
+    if total_overlaps <= 0:
+        problems.append("no pipelined host-to-device copy on a side stream "
+                        "overlapped a consumer kernel")
+
+    # a LIMIT over the pipelined device-decode scan: it stops early and
+    # leaves no pool worker running engine code
+    s = device_session()
+    api = port_api()
+    t0 = time.perf_counter()
+    rows = s.read_parquet(path, columns=Q6_COLS).filter(
+        api.col("l_quantity") < api.lit(24.0)).limit(1000).collect().num_rows
+    limit_ms = (time.perf_counter() - t0) * 1e3
+    busy = _busy_pool_threads()
+    pipes = [e.metrics.snapshot() for e in s.last_exec.walk()
+             if type(e).__name__ == "PipelineExec"]
+    batches = sum(p.get("numOutputBatches", 0) for p in pipes)
+    if rows != 1000 or busy or not pipes or batches >= 29:
+        problems.append(f"pipe_limit: {rows} rows, busy pool threads "
+                        f"{busy}, {batches} batches over {len(pipes)} "
+                        f"boundaries")
+    emit({"phase": "pipeline.limit", "rows": rows, "ms": limit_ms,
+          "busy_pool_threads": busy, "batches_through_boundary": batches})
+
+    # an injected producer death fails the query with the injected error
+    s = device_session(PIPE_FAULT)
+    err = None
+    try:
+        port_queries(s.read_parquet(path, columns=Q6_COLS))["q6"]()
+    except InjectedFaultError as e:
+        err = e
+    faults.configure("")
+    busy = _busy_pool_threads()
+    if err is None or s.last_action_status != ("failed", None) or busy:
+        problems.append(f"pipe_fault: raised {err!r}, status "
+                        f"{s.last_action_status}, busy {busy}")
+    emit({"phase": "pipeline.fault", "spec": PIPE_FAULT,
+          "raised": repr(err), "status": s.last_action_status,
+          "busy_pool_threads": busy})
+    counts = read_launches()
+    emit({"phase": "pipeline", "launches": counts, "correct": not problems,
+          "problems": problems, "h2d_overlapping_total": total_overlaps,
+          "phase_s": time.perf_counter() - t_phase})
+    if problems:
+        raise AssertionError("; ".join(problems))
     return counts
 
 
@@ -5564,6 +5843,7 @@ def phase_shuffle(table, orders, want, h8, tmp_dir, spy):
             rows += b.num_rows
     copart_s = time.perf_counter() - t0
     good = answers[0] == ref and misplaced == 0 and rows == SH_XPROC_ROWS
+    RUN_NOTES["sh_xproc"] = (root, ref)  # the pipeline phase mounts it
     if not good:
         problems.append(f"sh_xproc: correct {answers[0] == ref}, "
                         f"{misplaced} misplaced of {rows} rows")
@@ -5890,14 +6170,17 @@ def profiler_report():
 
 def trace_check(PR, session, name, want_instants=()):
     """The action's artifacts: Chrome trace JSON, every span total within
-    1% of its last_metrics() timer, every timer with its spans, and the
-    instants asked for. Returns (summary, problems)."""
+    1% of its last_metrics() timer, every timer with its spans (but the
+    waiting and overlapped ones, the pipeline boundaries' stall and
+    producer times, which no span feeds), and the instants asked for.
+    Returns (summary, problems)."""
+    from spark_rapids_tpu_torch.runtime.metrics import WAIT_TIME_METRICS
     problems = []
     art = PR.load_artifacts(session.last_trace_paths["trace"])
     rows = PR.analyze(art)["reconciliation"]
     timers = {f"{k.split('#')[0]}.{m}" for k, snap in
               session.last_metrics().items() for m, v in snap.items()
-              if m.endswith("Time") and v}
+              if m.endswith("Time") and v and m not in WAIT_TIME_METRICS}
     worst = max((r["delta_pct"] for r in rows), default=None)
     if not rows or worst >= 1.0:
         problems.append(f"{name}: reconciliation {rows}")
@@ -7030,6 +7313,10 @@ def main(argv) -> int:
         phase_decode(path, tmp_dir, torch.device("cuda"))
         phases["decode_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
+        pipeline = phase_pipeline(path, want, tmp_dir)
+        phases["pipeline_s"] = time.perf_counter() - t0
+        spill_report("pipeline")
+        t0 = time.perf_counter()
         strings, text_plan = phase_strings(text, spy, prof)
         phases["strings_s"] = time.perf_counter() - t0
         spill_report("strings")
@@ -7057,6 +7344,7 @@ def main(argv) -> int:
         shutil.rmtree(tmp_dir, ignore_errors=True)
     for r in rows:
         by_path = {"cached": cached[r["name"]], "parquet": parquet[r["name"]],
+                   "pipeline": pipeline[r["name"]],
                    "strings": strings[r["name"]], "joins": joins[r["name"]],
                    "adaptive": adaptive[r["name"]],
                    "window": window[r["name"]], "sql": sql[r["name"]],

@@ -242,8 +242,20 @@ def _pad_to(arr: np.ndarray, capacity: int, fill=0) -> np.ndarray:
     return out
 
 
+def to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on ``device``. On the card, a non-blocking copy from
+    pinned host memory on the current stream (so a pipeline producer's
+    uploads run on its side stream, runtime/pipeline.py): the host
+    tensor may be dropped as soon as this returns. On the CPU, the
+    tensor itself."""
+    device = torch.device(device)
+    if device.type != "cuda" or t.numel() == 0:
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def _upload(arr: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    return to_device(torch.from_numpy(np.ascontiguousarray(arr)), device)
 
 
 def _fixed_width_view(arr, np_dtype) -> np.ndarray:

@@ -109,7 +109,9 @@ MULTIFILE_READER_TYPE = _register(
 
 MULTIFILE_READER_THREADS = _register(
     "spark.rapids.sql.multiThreadedRead.numThreads", 8,
-    "Host threads (and lookahead) of the host-decode Parquet scan.", int)
+    "Row-group loads of one host-decode Parquet scan in flight at once "
+    "(its lookahead) on the shared host pool, whose tier size is at "
+    "least this.", int)
 
 DEVICE_DECODE_ENABLED = _register(
     "spark.rapids.sql.decode.device.enabled", True,
@@ -413,15 +415,15 @@ SHUFFLE_VERIFY_CHECKSUMS = _register(
 
 SHUFFLE_WRITER_THREADS = _register(
     "spark.rapids.shuffle.multiThreaded.writer.threads", 8,
-    "Threads of the shuffle writer pool that packs and compresses the "
-    "serialized exchange's sub-batches (reference "
-    "RapidsShuffleInternalManagerBase.scala:119-218).", int)
+    "Packing and compression tasks of one serialized exchange in flight "
+    "at once on the shared host pool, whose tier size is at least this "
+    "(reference RapidsShuffleInternalManagerBase.scala:119-218).", int)
 
 SHUFFLE_READER_THREADS = _register(
     "spark.rapids.shuffle.multiThreaded.reader.threads", 8,
-    "Threads of the shuffle reader pool that verify, decompress and "
-    "unpack serialized blobs ahead of the consuming task, which uploads "
-    "them.", int)
+    "Blob decode tasks (verify, decompress, unpack) of one reduce "
+    "partition in flight at once on the shared host pool, ahead of the "
+    "consuming task, which uploads them.", int)
 
 SHUFFLE_COMPRESSION = _register(
     "spark.rapids.shuffle.compression.codec", "auto",
@@ -438,17 +440,22 @@ SHUFFLE_HOST_BUDGET = _register(
 
 PIPELINE_ENABLED = _register(
     "spark.rapids.sql.pipeline.enabled", True,
-    "Gates the serialized exchange's streaming write: each sub-batch is "
-    "submitted for packing the moment the device partitioning produces "
-    "it, so packing overlaps the next batch's partitioning. The scan "
-    "pipelining this key also gates in the JAX package is not ported "
-    "yet (ROADMAP A11).", _bool_conv)
+    "Overlap host-side batch production (pyarrow decode, upload, shuffle "
+    "deserialization) with device compute: a planner pass "
+    "(runtime/pipeline.insert_pipelines) wraps every non-root scan in a "
+    "PipelineExec, which runs the scan's generator on the shared host "
+    "pool with its uploads on a side CUDA stream, so batch i+1 is "
+    "decoded and uploaded while the device computes batch i (reference "
+    "MultiFileReaderThreadPool / ThrottlingExecutor overlap). Also gates "
+    "the compact exchange's deferred offsets fetch and the serialized "
+    "exchange's streaming write. A stage whose pipeline setup fails runs "
+    "synchronously.", _bool_conv)
 
 PIPELINE_DEPTH = _register(
     "spark.rapids.sql.pipeline.depth", 2,
-    "Bounded lookahead of a pipeline boundary; 0 disables pipelining, "
-    "the serialized exchange's streaming write included (identical to "
-    "pipeline.enabled=false). The scan pipelines are ROADMAP A11.", int)
+    "Bounded lookahead of each pipeline boundary: how many produced "
+    "batches may sit decoded and uploaded ahead of the consumer. 0 "
+    "disables pipelining (identical to pipeline.enabled=false).", int)
 
 WRITER_THREADS = _register(
     "spark.rapids.sql.asyncWrite.numThreads", 4,
@@ -535,12 +542,43 @@ TRACE_TASK_METRICS = _register(
     "semaphore wait, max device bytes held — the GpuTaskMetrics analog) "
     "into the per-query event log at task completion.", _bool_conv)
 
+SANITIZER_ENABLED = _register(
+    "spark.rapids.debug.sanitizer.enabled", False,
+    "Enable the runtime concurrency sanitizer (analysis/sanitizer.py): "
+    "the engine's named lock sites record a process-wide lock-"
+    "acquisition-order graph, report cycles (potential ABBA deadlocks) "
+    "the first time both orders are merely observed, flag locks held "
+    "past the holdWarnMs threshold (blocking work inside a critical "
+    "section), and flag Condition waits made while other locks are "
+    "held. Findings rank in sanitizer.report() and emit sanitizerFinding "
+    "trace instants via sanitizer.dump(). Debug-only: enabled runs "
+    "capture a stack per acquire; disabled, every lock operation costs "
+    "one global read.", _bool_conv)
 
-def pipeline_depth(conf) -> int:
-    """The effective lookahead from the pipeline pair (0 = disabled)."""
-    if not conf.get(PIPELINE_ENABLED):
-        return 0
-    return max(0, int(conf.get(PIPELINE_DEPTH)))
+SANITIZER_HOLD_WARN_MS = _register(
+    "spark.rapids.debug.sanitizer.holdWarnMs", 50.0,
+    "Hold-duration threshold (milliseconds) above which the sanitizer "
+    "reports a held-lock-blocking finding with the acquire-site stack.",
+    _float)
+
+SANITIZER_STACK_DEPTH = _register(
+    "spark.rapids.debug.sanitizer.stackDepth", 8,
+    "Innermost stack frames captured per lock acquisition while the "
+    "sanitizer is enabled (deeper = better reports, slower acquires).",
+    int)
+
+PLAN_VERIFY_ENABLED = _register(
+    "spark.rapids.debug.planVerify.enabled", False,
+    "Run the plan-invariant verifier (analysis/plan_verify.py) on every "
+    "converted exec tree: schema consistency across exec boundaries and "
+    "pipeline-boundary sanity. Violations raise PlanVerifyError before "
+    "execution starts.", _bool_conv)
+
+LORE_DUMP_DIR = _register(
+    "spark.rapids.sql.lore.dumpPath", "",
+    "When set, every exec's input batches dump as parquet under "
+    "<dir>/loreId=<id>/ for local operator replay (runtime/lore.py; "
+    "reference LORE, lore/GpuLore.scala).", str)
 
 
 def keys():

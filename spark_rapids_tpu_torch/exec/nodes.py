@@ -69,7 +69,6 @@ import logging
 import threading
 import time
 import weakref
-from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
@@ -139,6 +138,11 @@ class TorchExec:
         ``ExecName.metricName`` complete event on this task's track and
         opens a torch.profiler range of that name."""
         return TR.exec_span(self, metric)
+
+    @property
+    def schema(self) -> T.Schema:
+        """The schema of the batches this operator yields."""
+        return self.plan.schema
 
     @property
     def num_partitions(self) -> int:
@@ -288,23 +292,18 @@ class InMemoryScanExec(TorchExec):
 # Parquet scans
 # ---------------------------------------------------------------------------
 
-def _prefetched(items, load_fn, n_threads: int):
-    """load_fn(item) for each item, in order, with at most n_threads
-    loads running ahead of the consumer, so host decode overlaps the
+def _prefetched(items, load_fn, n_threads: int, conf=None):
+    """load_fn(item) for each item, in order, with at most n_threads loads
+    running ahead of the consumer on the process-wide host pool
+    (reference MultiFileReaderThreadPool), so host decode overlaps the
     upload and the device work without buffering a whole file."""
     if n_threads <= 1 or len(items) <= 1:
         for it in items:
             yield load_fn(it)
         return
-    with ThreadPoolExecutor(max_workers=n_threads) as pool:
-        pending = [pool.submit(load_fn, it) for it in items[:n_threads]]
-        nxt = len(pending)
-        while pending:
-            fut = pending.pop(0)
-            if nxt < len(items):
-                pending.append(pool.submit(load_fn, items[nxt]))
-                nxt += 1
-            yield fut.result()
+    from spark_rapids_tpu_torch.runtime.host_pool import get_host_pool
+    yield from get_host_pool(conf).map_ordered(load_fn, items,
+                                               max_concurrency=n_threads)
 
 
 def _host_coalesced(tables, target_rows: int):
@@ -412,7 +411,7 @@ class ParquetScanExec(_ParquetExec):
                     else f.read_row_group(g, columns=names)
 
         batch_rows = self.conf.get(C.MAX_READER_BATCH_SIZE_ROWS)
-        tables = _prefetched(groups, load, threads)
+        tables = _prefetched(groups, load, threads, self.conf)
         if mode in ("COALESCING", "AUTO"):
             tables = _host_coalesced(tables, batch_rows)
         for tbl in tables:
@@ -624,6 +623,10 @@ class CachedScanExec(TorchExec):
     _lock = threading.Lock()
 
     @property
+    def schema(self):
+        return self.children[0].schema
+
+    @property
     def num_partitions(self):
         if self.plan.materialized is not None:
             return len(self.plan.materialized)
@@ -790,6 +793,10 @@ class FilterExec(TorchExec):
 
 class CoalesceBatchesExec(TorchExec):
     """Concatenates batches up to spark.rapids.sql.batchSizeBytes."""
+
+    @property
+    def schema(self):
+        return self.children[0].schema
 
     def execute_partition(self, pidx):
         concat_t = self.metrics.metric(M.CONCAT_TIME)
@@ -1014,6 +1021,10 @@ class CollectExchangeExec(TorchExec):
     """N -> 1 exchange: every child partition's batches, in order."""
 
     @property
+    def schema(self):
+        return self.children[0].schema
+
+    @property
     def num_partitions(self):
         return 1
 
@@ -1065,6 +1076,10 @@ class _ExchangeExec(TorchExec):
         self._emit_sink = None
 
     @property
+    def schema(self):
+        return self.children[0].schema
+
+    @property
     def num_partitions(self):
         return self.n_out
 
@@ -1088,17 +1103,24 @@ class _ExchangeExec(TorchExec):
         if self._masked:
             self._emit_masked(batch, pid, out)
         else:
-            self._emit_compact(batch, pid, out)
+            self._emit_compact(batch, self._dispatch_compact(batch, pid),
+                               out)
 
-    def _emit_compact(self, batch: ColumnarBatch, pid: torch.Tensor,
-                      out) -> None:
+    def _dispatch_compact(self, batch: ColumnarBatch, pid: torch.Tensor):
+        """One batch's counting sort, and the start of its offsets' copy
+        to the host: (sorted batch, pending offsets)."""
+        from spark_rapids_tpu_torch.runtime.pipeline import start_d2h
         sorted_b, off = RP.counting_sort_by_pid(batch, pid, self.n_out)
         self.metrics.metric(M.PARTITION_DISPATCHES).add(1)
+        return sorted_b, start_d2h(off)
+
+    def _emit_compact(self, batch: ColumnarBatch, dispatched, out) -> None:
+        sorted_b, off = dispatched
         # per-batch exchange checkpoint: the offsets sync is where a
         # shuffle blocks
         LC.check_current()
         FLT.site("exchange.fetch")
-        offsets = off.cpu().numpy()  # the one sync per input batch
+        offsets = off.numpy()  # the one sync per input batch
         self.metrics.metric(M.PARTITION_HOST_FETCHES).add(1)
         rows_m = self.metrics.metric(M.NUM_OUTPUT_ROWS)
         for p, sub in enumerate(RP.compact_slices(sorted_b, offsets,
@@ -1145,12 +1167,34 @@ class _ExchangeExec(TorchExec):
         return self._repartition(batches)
 
     def _repartition(self, batches: Iterator[ColumnarBatch]):
+        """Partition each batch. The compact mode, with pipelining on,
+        defers each batch's offsets fetch by one batch (the JAX package's
+        _compact_stream): batch i+1's counting sort is dispatched and its
+        offsets' copy started before batch i's offsets are read, so the
+        transfer rides under device work. Emission order, and so every
+        result, is the eager loop's."""
+        from spark_rapids_tpu_torch.runtime.pipeline import pipeline_conf
         part_t = self.metrics.metric(M.PARTITION_TIME)
         out: List[List[ColumnarBatch]] = [[] for _ in range(self.n_out)]
+        if self._masked or pipeline_conf(self.conf) <= 0:
+            for batch in batches:
+                self._acquire()
+                with self.span(part_t):
+                    self._emit(batch, self._pids(batch), out)
+            return out
+        pending = None
         for batch in batches:
             self._acquire()
             with self.span(part_t):
-                self._emit(batch, self._pids(batch), out)
+                dispatched = self._dispatch_compact(batch,
+                                                    self._pids(batch))
+            if pending is not None:
+                with self.span(part_t):
+                    self._emit_compact(*pending, out)
+            pending = (batch, dispatched)
+        if pending is not None:
+            with self.span(part_t):
+                self._emit_compact(*pending, out)
         return out
 
     def _materialize(self):
@@ -1312,8 +1356,9 @@ class ShuffleExchangeExec(_ExchangeExec):
     store (``shuffle/store.py``) instead of staying on the card
     (reference RapidsShuffleThreadedWriterBase:291-513 +
     ShuffleBufferCatalog): each sub-batch is downloaded on the thread
-    that partitions, packed and compressed on the shuffle writer pool,
-    and its blob added to the store in submission order, so each
+    that partitions, packed and compressed on the shared host pool (at
+    most spark.rapids.shuffle.multiThreaded.writer.threads at once), and
+    its blob added to the store in submission order, so each
     partition's blob order is the synchronous path's. Blobs page to disk
     past spark.rapids.shuffle.hostSpillBudget. Each output partition is
     then one ``_LazyShuffleBlobs``, decoded at read time. ``metrics``:
@@ -1343,11 +1388,10 @@ class ShuffleExchangeExec(_ExchangeExec):
     def _repartition_serialized(self, batches):
         """The device partitioning, then each sub-batch serialized into
         the store: streamed, as the partitioning produces it, when the
-        pipeline is on and the writer pool has more than one thread (the
+        pipeline is on and more than one writer thread is allowed (the
         JAX package's default), else after the whole partitioning."""
-        from spark_rapids_tpu_torch.runtime.host_pool import (
-            map_ordered, shuffle_pool,
-        )
+        from spark_rapids_tpu_torch.runtime.host_pool import get_host_pool
+        from spark_rapids_tpu_torch.runtime.pipeline import pipeline_conf
         from spark_rapids_tpu_torch.shuffle import serde
         from spark_rapids_tpu_torch.shuffle.store import ShuffleStore
         codec = serde.resolve_codec(self.conf.get(C.SHUFFLE_COMPRESSION))
@@ -1371,7 +1415,7 @@ class ShuffleExchangeExec(_ExchangeExec):
             blob = serde.pack(meta, planes, codec)
             return p, FLT.site_bytes("shuffle.write", blob), n
 
-        if C.pipeline_depth(self.conf) > 0 and nthreads > 1:
+        if pipeline_conf(self.conf) > 0 and nthreads > 1:
             self._serialize_streaming(batches, store, describe, pack,
                                       nthreads)
         else:
@@ -1379,8 +1423,8 @@ class ShuffleExchangeExec(_ExchangeExec):
             items = (it for it in (describe(p, b)
                                    for p, part in enumerate(parted)
                                    for b in part) if it is not None)
-            for p, blob, n in map_ordered(shuffle_pool("writer", nthreads),
-                                          pack, items, nthreads):
+            for p, blob, n in get_host_pool(self.conf).map_ordered(
+                    pack, items, max_concurrency=nthreads):
                 store.add(p, blob, rows=n)
         self._store = store
         tot = store.totals()
@@ -1405,12 +1449,14 @@ class ShuffleExchangeExec(_ExchangeExec):
         from spark_rapids_tpu_torch.io.async_io import (
             ThrottlingExecutor, TrafficController,
         )
-        from spark_rapids_tpu_torch.runtime.host_pool import shuffle_pool
+        from spark_rapids_tpu_torch.runtime.host_pool import get_host_pool
         ctrl = TrafficController(
             int(self.conf.get(C.ASYNC_WRITE_MAX_INFLIGHT)),
             stall_warn_s=self.conf.get(C.ASYNC_WRITE_STALL_WARN_S) or None)
+        # packing runs on the shared host pool; the controller's byte
+        # budget is the per-exchange admission bound
         ex = ThrottlingExecutor(nthreads, ctrl,
-                                pool=shuffle_pool("writer", nthreads))
+                                pool=get_host_pool(self.conf))
         futures = deque()
 
         def drain(block: bool) -> None:
@@ -1448,8 +1494,8 @@ class ShuffleExchangeExec(_ExchangeExec):
 class _LazyShuffleBlobs:
     """A reduce partition's serialized blobs, decoded at read time: the
     wire check, decompression, frame parsing and padding run on the
-    shuffle reader pool (spark.rapids.shuffle.multiThreaded.reader.
-    threads) into pinned host planes, and the upload runs in order on the
+    shared host pool (at most spark.rapids.shuffle.multiThreaded.reader.
+    threads at once) into pinned host planes, and the upload runs in order on the
     consuming task's thread, under its permit.
 
     Integrity recovery: a ShuffleCorruptionError (spark.rapids.shuffle.
@@ -1498,15 +1544,13 @@ class _LazyShuffleBlobs:
                                           self.pinned)
 
     def batches(self):
-        from spark_rapids_tpu_torch.runtime.host_pool import (
-            map_ordered, shuffle_pool,
-        )
+        from spark_rapids_tpu_torch.runtime.host_pool import get_host_pool
         from spark_rapids_tpu_torch.shuffle import serde
         self._task_ctx = TaskContext.peek()
         n = self.store.num_blobs(self.partition)
         if self.reader_threads > 1 and n > 1:
-            hosts = map_ordered(shuffle_pool("reader", self.reader_threads),
-                                self._decode, range(n), self.reader_threads)
+            hosts = get_host_pool(self.exchange.conf).map_ordered(
+                self._decode, range(n), max_concurrency=self.reader_threads)
         else:
             hosts = (self._decode(i) for i in range(n))
         for host in hosts:
@@ -2297,6 +2341,12 @@ class HashAggregateExec(TorchExec):
         self.mode = mode
         self.kern = _AggKernels(plan.group_exprs, plan.aggs, pre_filter,
                                 bool(conf.get(C.PALLAS_ENABLED)))
+
+    @property
+    def schema(self):
+        if self.mode == "partial":
+            return T.Schema(tuple(self.state_fields()))
+        return self.plan.schema
 
     def state_fields(self):
         """The schema of the state batches a partial yields: the keys,

@@ -16,6 +16,7 @@ import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Callable, Optional
 
+from spark_rapids_tpu_torch.analysis import sanitizer as _san
 from spark_rapids_tpu_torch.runtime import trace
 
 #: bounded wait slice while blocked on admission: each wakeup re-checks
@@ -42,8 +43,7 @@ class TrafficController:
         self.limit = max_in_flight_bytes
         self.stall_warn_s = stall_warn_s
         self._inflight = 0
-        # A11: the JAX package's lock-order sanitizer wraps this condition
-        self._cv = threading.Condition()
+        self._cv = _san.condition("asyncWrite.controller")
 
     def _warn_stalled(self, waited_s: float, nbytes: int,
                       inflight: int) -> None:
@@ -109,7 +109,7 @@ class ThrottlingExecutor:
     the controller admits the bytes; completion releases them.
 
     Pass ``pool`` (anything with submit(fn) -> Future, such as the
-    process-wide shuffle pools of ``runtime/host_pool.py``) to run tasks
+    shared pool of ``runtime/host_pool.py``) to run tasks
     on a shared executor instead of owning one; shutdown() then leaves it
     alive, and ``max_threads`` bounds this executor's concurrency on it
     through a slot semaphore."""

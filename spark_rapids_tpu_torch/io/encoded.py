@@ -39,7 +39,7 @@ import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import (
-    bucket_pool_bytes, bucket_rows, round_capacity,
+    bucket_pool_bytes, bucket_rows, round_capacity, to_device,
 )
 
 # -- parquet wire enums -----------------------------------------------------
@@ -918,8 +918,10 @@ def upload(hb: HostEncodedBatch, decoded_cols: Dict[int, object],
            device) -> EncodedBatch:
     """Numpy planes -> tensors on ``device`` (the host-to-device
     boundary). ``decoded_cols`` maps column index -> host-decoded
-    ColumnVector for the fallback columns. On the CPU the tensors share
-    the numpy planes' memory, so the decode never writes a plane."""
+    ColumnVector for the fallback columns. On the card each plane is a
+    non-blocking copy from pinned memory (``columnar/batch.to_device``);
+    on the CPU the tensors share the numpy planes' memory, so the decode
+    never writes a plane."""
     device = torch.device(device)
     out: List[EncodedColumn] = []
     for i, c in enumerate(hb.columns):
@@ -928,7 +930,7 @@ def upload(hb: HostEncodedBatch, decoded_cols: Dict[int, object],
             out.append(EncodedColumn("decoded", cv.dtype, {}, (), cv=cv,
                                      bounds=cv.bounds))
             continue
-        planes = {k: torch.from_numpy(v).to(device)
+        planes = {k: to_device(torch.from_numpy(v), device)
                   for k, v in c.planes.items()}
         out.append(EncodedColumn(c.kind, c.dtype, planes, c.meta,
                                  bounds=c.bounds, nnz=c.nnz))

@@ -956,7 +956,12 @@ def convert_plan(plan: P.PlanNode, conf, device):
     session timezone's localization (``localize_plan``), then column
     pruning (``plan/prune.py``) before tagging, the static cost pass
     (``plan/cost.py``) after it. In test mode a fallback that
-    spark.rapids.sql.test.allowedNonTpu does not name raises."""
+    spark.rapids.sql.test.allowedNonTpu does not name raises. The
+    converted tree then gets its pipeline boundaries
+    (``runtime/pipeline.insert_pipelines``), the plan verifier under
+    spark.rapids.debug.planVerify.enabled and the LORE dumper under
+    spark.rapids.sql.lore.dumpPath, in the JAX package's order; its stage
+    fusion is XLA's (ROADMAP A11) and its sharding ROADMAP A12."""
     # prune imports this module's PROJECT_ONLY_EXPRS
     from spark_rapids_tpu_torch.plan.prune import prune_plan
     plan = localize_plan(plan, conf)
@@ -969,6 +974,17 @@ def convert_plan(plan: P.PlanNode, conf, device):
         _assert_on_tpu(meta, allowed)
     root = meta.convert(device)
     mark_expand_forms(root)
+    # pipelined execution: bounded producer/consumer boundaries at
+    # scan->compute edges (spark.rapids.sql.pipeline.enabled)
+    from spark_rapids_tpu_torch.runtime.pipeline import insert_pipelines
+    root = insert_pipelines(root, conf)
+    if conf.get(C.PLAN_VERIFY_ENABLED):
+        from spark_rapids_tpu_torch.analysis.plan_verify import verify_plan
+        verify_plan(root)
+    lore_dir = conf.get(C.LORE_DUMP_DIR)
+    if lore_dir:
+        from spark_rapids_tpu_torch.runtime.lore import LoreDumper
+        LoreDumper(lore_dir).install(root)
     return root, meta
 
 

@@ -36,8 +36,7 @@ log = logging.getLogger("spark_rapids_tpu_torch")
 
 #: The fault-site roster, the JAX package's: every `faults.site("...")`
 #: literal in the engine names one of these, and every site in a
-#: `spark.rapids.debug.faults` spec must exist here. pipeline.producer
-#: (ROADMAP A11) has no call site yet.
+#: `spark.rapids.debug.faults` spec must exist here.
 SITES: Dict[str, str] = {
     "scan.decode": "host-side scan decode/upload of one source batch "
                    "(parquet/text/in-memory scans)",

@@ -95,8 +95,8 @@ SHUFFLE_BYTES_WRITTEN = "shuffleBytesWritten"
 #: serialized-shuffle bytes the host store overflowed to disk files
 SHUFFLE_BYTES_SPILLED = "shuffleBytesSpilled"
 #: a pipeline boundary's lookahead, the ns its consumer blocked waiting
-#: for the producer, and the producer's own decode/upload time (the JAX
-#: package's runtime/pipeline.py; ROADMAP A11b)
+#: for the producer, and the producer's own decode/upload time
+#: (runtime/pipeline.PipelineExec)
 PIPELINE_DEPTH = "pipelineDepth"
 PIPELINE_STALL_TIME = "pipelineStallTime"
 PIPELINE_PRODUCER_TIME = "pipelineProducerTime"

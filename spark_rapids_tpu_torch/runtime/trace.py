@@ -32,9 +32,11 @@ MODERATE < DEBUG): a span/instant above the configured level costs the
 same as tracing off.
 
 Config surface (spark.rapids.sql.trace.*): enabled, path, level,
-taskMetrics — see config.py. The JAX package's lock-order sanitizer, its
-flight recorder, per-request tail sampling and the live registry hook in
-here too; they are later parts of ROADMAP A11.
+taskMetrics — see config.py. The tracer's two locks are the sanitizer's
+(``analysis/sanitizer.py``), and an exec span carries the operator's LORE
+id (``runtime/lore.py``) when it has one. The JAX package's flight
+recorder, per-request tail sampling and the live registry hook in here
+too; they are later parts of ROADMAP A11.
 """
 from __future__ import annotations
 
@@ -44,6 +46,7 @@ import threading
 import time
 from typing import Dict, List, Optional
 
+from spark_rapids_tpu_torch.analysis import sanitizer as _san
 from spark_rapids_tpu_torch.runtime.metrics import DEBUG, ESSENTIAL, MODERATE
 
 __all__ = ["DEBUG", "ESSENTIAL", "MODERATE", "Tracer", "active",
@@ -64,10 +67,9 @@ TASK_METRIC_NAMES = (
 )
 
 # A11 (later parts): the JAX package's flight recorder, per-request tail
-# sampling and live registry also consume these instrumentation points,
-# and its sanitizer wraps the two locks below
+# sampling and live registry also consume these instrumentation points
 _TRACER: "Optional[Tracer]" = None
-_STATE_LOCK = threading.Lock()
+_STATE_LOCK = _san.lock("trace.state")
 _QUERY_SEQ = 0
 
 
@@ -104,7 +106,7 @@ class Tracer:
         self.pid = os.getpid()
         self._t0 = time.perf_counter_ns()
         self._wall0 = time.time()
-        self._lock = threading.Lock()
+        self._lock = _san.lock("trace.buffer")
         self._events: List[dict] = []
         self._task_records: List[dict] = []
         self._named_tids: set = set()
@@ -306,9 +308,9 @@ def exec_span(node, metric, name: Optional[str] = None):
     tr = _TRACER
     if tr is None or metric.level > tr.level:
         return metric.ns()
-    # A11b: the JAX package also carries the node's LORE id here
+    lid = getattr(node, "lore_id", None)
     return _Span(tr, name or f"{type(node).__name__}.{metric.name}",
-                 metric, "exec", None)
+                 metric, "exec", None if lid is None else {"lore_id": lid})
 
 
 def span(name: str, cat: str = "runtime", args: Optional[dict] = None,

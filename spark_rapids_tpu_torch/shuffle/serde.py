@@ -27,11 +27,11 @@ shuffle store once before surfacing the error.
 The write is split for the serialized exchange: ``describe_batch``
 downloads a sub-batch's trimmed planes on the thread that partitions (one
 synchronization a sub-batch, into pinned staging buffers), ``pack``
-builds, compresses and checksums the frame on the writer pool (zlib and
+builds, compresses and checksums the frame on the host pool (zlib and
 the C packer release the interpreter lock). The read is split the same
 way: ``deserialize_host`` verifies, decompresses, parses and pads the
 planes into writable (pinned, when the target is the card) host tensors
-on the reader pool, and ``upload`` moves them on the consuming thread.
+on the host pool, and ``upload`` moves them on the consuming thread.
 ``pack`` and ``deserialize_host`` run inside DEBUG-level trace spans
 (shuffle.serialize, shuffle.deserialize), as in the JAX package.
 """

@@ -10,16 +10,16 @@ back in insertion order from memory or disk transparently.
 
 This is what stops the exchange being a full in-memory barrier: device
 batches are serialized (device planes freed) and the serialized bytes
-themselves page out to disk under pressure. The JAX package's
-lock-order sanitizer around the store's lock is ROADMAP A11.
+themselves page out to disk under pressure.
 """
 from __future__ import annotations
 
 import os
 import shutil
 import tempfile
-import threading
 from typing import Iterator, List, Optional
+
+from spark_rapids_tpu_torch.analysis import sanitizer as _san
 
 
 class _DiskSeg:
@@ -43,7 +43,7 @@ class ShuffleStore:
                  spill_dir: Optional[str] = None):
         self.n_partitions = n_partitions
         self.host_budget = host_budget_bytes
-        self._lock = threading.Lock()
+        self._lock = _san.lock("shuffle.store")
         #: partition -> ordered blob list; bytes = resident, _DiskSeg = spilled
         self._parts: List[List[object]] = [[] for _ in range(n_partitions)]
         #: per-partition row tally (writer-supplied host ints): the skew

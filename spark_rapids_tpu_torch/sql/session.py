@@ -232,16 +232,19 @@ class TorchSession:
     # -- execution ---------------------------------------------------------
     def prepare_execution(self, plan: P.PlanNode):
         """The preamble of every action: this session's conf becomes the
-        thread's, fault injection is armed (the general sites and the
+        thread's, the lock sanitizer installs when the conf asks for it,
+        fault injection is armed (the general sites and the
         legacy OOM injector), the retry backoff, the dispatch watchdog and
         breaker and the spill budgets are synced, then the plan is
         converted. Returns (exec root, tagged plan)."""
+        from spark_rapids_tpu_torch.analysis import sanitizer
         from spark_rapids_tpu_torch.runtime import faults, watchdog
         from spark_rapids_tpu_torch.runtime.memory import get_spill_framework
         from spark_rapids_tpu_torch.runtime.retry import (
             OomInjector, backoff_from_conf,
         )
         C.set_session_conf(self.conf)
+        sanitizer.maybe_install(self.conf)
         OomInjector.from_conf(self.conf)
         faults.from_conf(self.conf)
         backoff_from_conf(self.conf)

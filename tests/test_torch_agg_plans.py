@@ -119,8 +119,11 @@ def _jax_shape(session):
 
 
 def _port_shape(session):
+    """The port's operators above its scan, its pipeline boundaries left
+    out as the JAX package's are."""
     return [type(e).__name__ for e in session.last_exec.walk()
-            if "Scan" not in type(e).__name__]
+            if "Scan" not in type(e).__name__
+            and type(e).__name__ != "PipelineExec"]
 
 
 # ---------------------------------------------------------------------------

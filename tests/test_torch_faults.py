@@ -427,7 +427,10 @@ def test_spill_disk_fault_degrades(tmp_path):
 # ---------------------------------------------------------------------------
 
 def _non_service_threads():
-    allowed = ("rapids-watchdog", "rapids-query-deadline")
+    # the shared host pool's workers live for the process, as the JAX
+    # package's test allows
+    allowed = ("rapids-host-pool", "rapids-watchdog",
+               "rapids-query-deadline")
     return {t.name for t in threading.enumerate()
             if not t.name.startswith(allowed)}
 

@@ -226,10 +226,12 @@ def test_profiler_report_reconciles_the_port(tmp_path, tables):
             "HashAggregateExec"} <= names, names
     for r in rows:
         assert r["delta_pct"] < 1.0, r
-    # every timer in the snapshot has its spans
+    # every timer in the snapshot has its spans, but the waiting and
+    # overlapped ones (a pipeline boundary's stall and producer times),
+    # which no span feeds
     timers = {f"{k.split('#')[0]}.{m}" for k, snap in
               s.last_metrics().items() for m, v in snap.items()
-              if m.endswith("Time") and v}
+              if m.endswith("Time") and v and m not in M.WAIT_TIME_METRICS}
     assert timers == {r["name"] for r in rows}
     report = PR.generate_report(art)
     for section in ("Top operators by exclusive time",
@@ -413,13 +415,21 @@ def test_failing_query_fails_the_same_and_flushes(tmp_path):
 
 
 def test_spans_forward_to_torch_profiler(tmp_path):
+    """Exec spans open torch.profiler ranges of their names. The
+    profiler's CPU activity records the thread that started it: behind a
+    pipeline boundary the scan's spans run on a host-pool worker, so the
+    scan's range is read with pipelining off, the consumer's with it
+    on."""
     from torch.profiler import ProfilerActivity, profile
-    s = _traced_session(tmp_path)
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        _grouped(s).collect()
-    keys = {e.key for e in prof.key_averages()}
-    assert "HashAggregateExec.aggTime" in keys
-    assert "InMemoryScanExec.copyToDeviceTime" in keys
+    for conf, want in (({}, "HashAggregateExec.aggTime"),
+                       ({"spark.rapids.sql.pipeline.enabled": "false"},
+                        "InMemoryScanExec.copyToDeviceTime")):
+        s = _traced_session(tmp_path, **conf)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            _grouped(s).collect()
+        keys = {e.key for e in prof.key_averages()}
+        assert "HashAggregateExec.aggTime" in keys
+        assert want in keys
     # untraced: no range
     plain = TorchSession(device="cpu")
     with profile(activities=[ProfilerActivity.CPU]) as prof:
