@@ -294,6 +294,39 @@ Phases, one JSON line each:
    last_metrics() timer, and the semaphore and spill instants in the
    paged query; then one traced q3join_shuffled under torch.profiler,
    whose ranges must hold every exec span's name.
+17f. obs (after the trace phase): the live layer (spark.rapids.obs.*) is
+   on by default, so every other phase runs through it. Here q1 (the
+   1-partition cache), q3join_shuffled (the 8-partition caches),
+   pq_repart_agg (the Parquet file: B1, B3, B2) and q1_rollup (~2 s on
+   the card) each run warm with the layer off (obs, flight recorder and
+   sampler; the process-wide layer is torn down first), at its defaults
+   (q1 and q3join_shuffled only: "quiet") and at its defaults with the
+   endpoint on a free port scraped at /queries and /metrics every 50 ms
+   by a thread of this process ("on"): q1 and q3join_shuffled three runs
+   a mode in two rounds, pq_repart_agg and q1_rollup one in one round,
+   then the off and on modes' last run under torch.profiler's
+   CUDA activity. Checked: every answer right and bitwise equal across
+   the modes (q1_rollup's float sums, whose atomics add in another order
+   in every run, off against off too, to 1e-12 relative), the same
+   launches, the same cudaMemcpy* calls (every direction),
+   cuda*Synchronize calls and device-to-host copies on the card off and
+   on (torch.profiler can drop the card's copy records of a run while it
+   keeps the host's calls: a profiled run whose trace lacks the record of
+   some copy call is run again, up to three runs in all, the counts are
+   the run's that dropped the fewest, and the device-to-host copies off
+   and on must agree within the calls whose record was dropped, exactly
+   where none was), rapids_queries_total{status="ok"} one a run
+   and the same tasks a run, scan progress never going down (above 0 in
+   pq_repart_agg; a cache scan counts no rows, in both packages), the
+   sampler's device_bytes_held above 0 during q1. q1_rollup's timed on
+   run also scrapes /healthz: it must show the query executing and the
+   probe alive (its side stream does not queue behind the query) under
+   probeTimeoutMs. Printed per query: warm ms per mode (best and
+   median) and their ratios to off, device ms and idle share, copies
+   and syncs, the probe's ms, sampler ticks. Then a device.dispatch
+   fault's flight dump (a Chrome trace with the query's queryStart
+   marker and id) and an SLO breach's (a tiny slo.latencySeconds after
+   slo.minRuns runs).
 18. runtime (last, after the fallback phase, so that its small budgets,
    injected faults and open breaker touch no earlier phase; on the joins
    phase's lineitem caches h1 (1 partition) and h8 (8), the Parquet file
@@ -349,14 +382,16 @@ Phases, one JSON line each:
    (the query fails with the injected error).
 Depth cuts (to keep the script within its time with the pipeline
 phase): the regex, nested and formats phases take one warm run after
-the cold one instead of two.
+the cold one instead of two; with the obs phase the joins, sql, sets,
+aggtypes, datetime, fallback and shuffle phases do too (WARM_RUNS),
+where the text above says twice warm.
 Every query path runs in test mode (spark.rapids.sql.test.enabled): an
 operator that planning tags off the card fails the query, except the one
 node each fallback query names in spark.rapids.sql.test.allowedNonTpu.
 It then prints the kernel table ({"kernels": [...]}, with each kernel's
 launches per path in "launches_by_path": cached, parquet, pipeline,
 strings, joins, adaptive, window, sql, exprs, sets, aggtypes, datetime,
-nested, formats, shuffle, udf, regex, fallback, trace, runtime),
+nested, formats, shuffle, udf, regex, fallback, trace, obs, runtime),
 the card's name and power limit, and as its last line {"ok": true,
 "device": {...}}. Any failure exits non-zero without that line; so does a
 machine without CUDA, and so does a run that imported the JAX package.
@@ -398,6 +433,11 @@ KERNEL_NAMES = ("murmur3", "segsum", "bitslice", "case_map")
 #: host C++ of csrc/ built beside the kernels: the shuffle's frame packer
 HOST_LIBS = ("kudo",)
 #: bench.py decode_pass's writer settings (bench.py:516-519)
+#: warm runs after the cold one in the joins, sql, sets, aggtypes,
+#: datetime, fallback and shuffle phases (depth cut: one where there were
+#: two, to keep the whole script within its time with the obs phase)
+WARM_RUNS = 1
+RUNS = 1 + WARM_RUNS
 PARQUET_WRITE = dict(row_group_size=1 << 20,
                      use_dictionary=["l_shipdate", "l_quantity",
                                      "l_returnflag", "l_linestatus"],
@@ -1837,15 +1877,15 @@ def phase_joins(table, orders, spy, prof=None):
         got = fn()
         cold = time.perf_counter() - t0
         warm = []
-        for _ in range(2):
+        for _ in range(WARM_RUNS):
             t0 = time.perf_counter()
             fn()
             warm.append(time.perf_counter() - t0)
         good = validate_joins(name, got, want.get(name))
         if name == "q3join_shuffled":  # the trace phase runs it again
             RUN_NOTES["q3join_shuffled_warm_ms"] = min(warm) * 1e3
-        routes = {k: v // 3 for k, v in spy.take().items()}
-        paths = {k: v // 3 for k, v in jspy.take().items()}
+        routes = {k: v // RUNS for k, v in spy.take().items()}
+        paths = {k: v // RUNS for k, v in jspy.take().items()}
         execs = _exec_names(session)
         e_ops, e_routes, e_paths = JOIN_EXPECT[name]
         if not good:
@@ -1856,7 +1896,7 @@ def phase_joins(table, orders, spy, prof=None):
                             f"paths {paths}; expected {JOIN_EXPECT[name]}")
         emit({"phase": "joins.query", "query": name, "correct": good,
               "cold_s": cold, "warm_s": min(warm),
-              "launches": {k: (v - before[k]) // 3
+              "launches": {k: (v - before[k]) // RUNS
                            for k, v in read_launches().items()},
               "routes": routes, "join_paths": paths, "execs": execs,
               "result_rows": (got.num_rows if hasattr(got, "num_rows")
@@ -2925,7 +2965,7 @@ def phase_sql(table, orders, want, jwant, wwant, h1, h8, w1, tmp_dir, spy,
         cold_ms = (time.perf_counter() - t0) * 1e3
         plan = _plan_reading(session, spy, before)
         warm = []
-        for _ in range(2):
+        for _ in range(WARM_RUNS):
             t0 = time.perf_counter()
             _collect_all(dfs)
             warm.append((time.perf_counter() - t0) * 1e3)
@@ -3465,6 +3505,7 @@ def phase_sets(table, orders, h1, h8, spy, prof=None):
     import torch
     t0 = time.perf_counter()
     want = sets_reference(table, orders)
+    RUN_NOTES["q1_rollup_want"] = want["q1_rollup"]  # the obs phase's
     host_s = time.perf_counter() - t0
     emit({"phase": "sets.setup", "rows": table.num_rows,
           "orders_rows": orders.num_rows, "host_reference_s": host_s})
@@ -3480,15 +3521,15 @@ def phase_sets(table, orders, h1, h8, spy, prof=None):
         cold = time.perf_counter() - t0
         forms = _expand_forms(session)
         warm = []
-        for _ in range(2):
+        for _ in range(WARM_RUNS):
             t0 = time.perf_counter()
             fn()
             warm.append(time.perf_counter() - t0)
         good = validate_sets(name, got, want[name])
         counts = spy.take()
-        routes = {k: v // 3 for k, v in counts.items()}
+        routes = {k: v // RUNS for k, v in counts.items()}
         execs = _exec_names(session)
-        launches = {k: (v - before[k]) // 3
+        launches = {k: (v - before[k]) // RUNS
                     for k, v in read_launches().items()}
         e_ops, e_routes, e_stacked = SETS_EXPECT[name]
         e_launch = {k: SETS_LAUNCHES.get(name, {}).get(k, 0)
@@ -3496,7 +3537,7 @@ def phase_sets(table, orders, h1, h8, spy, prof=None):
         if not good:
             problems.append(f"{name} disagrees with numpy")
         if not e_ops <= set(execs) or routes != e_routes \
-                or any(v % 3 for v in counts.values()) \
+                or any(v % RUNS for v in counts.values()) \
                 or forms != ([] if e_stacked is None else [e_stacked]):
             problems.append(f"{name} ran {execs}, routes {routes}, stacked "
                             f"expands {forms}; expected {SETS_EXPECT[name]}")
@@ -3733,15 +3774,15 @@ def phase_aggtypes(table, want, h1, h8, spy, prof=None):
         cold = time.perf_counter() - t0
         modes = _agg_modes(session)
         warm = []
-        for _ in range(2):
+        for _ in range(WARM_RUNS):
             t0 = time.perf_counter()
             fn()
             warm.append(time.perf_counter() - t0)
         good, how = validate_aggtypes(name, got, ref[name])
         counts = spy.take()
-        routes = {k: v // 3 for k, v in counts.items()}
+        routes = {k: v // RUNS for k, v in counts.items()}
         execs = _exec_names(session)
-        launches = {k: (v - before[k]) // 3
+        launches = {k: (v - before[k]) // RUNS
                     for k, v in read_launches().items()}
         e_ops, e_modes, e_routes = AGGTYPES_EXPECT[name]
         e_launch = {k: AGGTYPES_LAUNCHES.get(name, {}).get(k, 0)
@@ -3749,7 +3790,7 @@ def phase_aggtypes(table, want, h1, h8, spy, prof=None):
         if not good:
             problems.append(f"{name} disagrees with numpy ({how})")
         if not e_ops <= set(execs) or modes != e_modes \
-                or routes != e_routes or any(v % 3 for v in counts.values()):
+                or routes != e_routes or any(v % RUNS for v in counts.values()):
             problems.append(f"{name} ran {execs} with aggregate modes "
                             f"{modes}, routes {routes}; expected "
                             f"{AGGTYPES_EXPECT[name]}")
@@ -3846,13 +3887,13 @@ def phase_fallback(li_plan, text_plan, want, spy, prof=None):
         got = fn()
         cold = time.perf_counter() - t0
         warm = []
-        for _ in range(2):
+        for _ in range(WARM_RUNS):
             t0 = time.perf_counter()
             fn()
             warm.append(time.perf_counter() - t0)
         good = validate_fallback(name, got, want[name])
-        routes = {k: v // 3 for k, v in spy.take().items()}
-        launches = {k: (v - before[k]) // 3
+        routes = {k: v // RUNS for k, v in spy.take().items()}
+        launches = {k: (v - before[k]) // RUNS
                     for k, v in read_launches().items()}
         e_launch = {k: FALLBACK_LAUNCHES[name].get(k, 0) for k in launches}
         report = session.last_meta.explain()
@@ -4253,15 +4294,15 @@ def phase_datetime(table, spy, prof=None):
         got = fn()
         cold = time.perf_counter() - t0
         warm = []
-        for _ in range(2):
+        for _ in range(WARM_RUNS):
             t0 = time.perf_counter()
             fn()
             warm.append(time.perf_counter() - t0)
         good, how = validate_datetime(name, got, ref[name])
         counts = spy.take()
-        routes = {k: v // 3 for k, v in counts.items()}
+        routes = {k: v // RUNS for k, v in counts.items()}
         execs = _exec_names(session)
-        launches = {k: (v - before[k]) // 3
+        launches = {k: (v - before[k]) // RUNS
                     for k, v in read_launches().items()}
         cpu_nodes = [type(m.plan).__name__ for m in session.last_meta.walk()
                      if not m.can_run_on_tpu]
@@ -4273,7 +4314,7 @@ def phase_datetime(table, spy, prof=None):
         if not good:
             problems.append(f"{name} disagrees with numpy ({how})")
         if not e_ops <= set(execs) or routes != e_routes \
-                or any(v % 3 for v in counts.values()) or cpu_nodes != e_cpu:
+                or any(v % RUNS for v in counts.values()) or cpu_nodes != e_cpu:
             problems.append(f"{name} ran {execs} with routes {routes} and "
                             f"CPU nodes {cpu_nodes}; expected "
                             f"{DATETIME_EXPECT[name]}")
@@ -5750,7 +5791,7 @@ def phase_shuffle(table, orders, want, h8, tmp_dir, spy):
         for mode in ("MULTITHREADED", "SERIALIZED"):
             s = device_session({**conf, "spark.rapids.shuffle.mode": mode})
             li, od = DataFrame(h8.li.plan, s), DataFrame(h8.od.plan, s)
-            answers, lines[mode] = run(s, lambda: fn(li, od))
+            answers, lines[mode] = run(s, lambda: fn(li, od), runs=RUNS)
             if not all(same_answer(a, answers[0]) for a in answers[1:]):
                 problems.append(f"{name} {mode}: runs differ")
             if mode == "MULTITHREADED":
@@ -6310,8 +6351,476 @@ def phase_trace(want, h1, h8, pq_path, tmp_dir, spy):
     return counts
 
 
-#: launch-counter name -> (wrapper module, wrapper function, a substring
-#: of the CUDA kernel's name as the profiler reports it)
+# ---------------------------------------------------------------------------
+# phase 17f: the live observability layer, on against off
+# ---------------------------------------------------------------------------
+
+#: the live layer switched off: this phase's plain version
+OBS_OFF = {"spark.rapids.obs.enabled": "false",
+           "spark.rapids.obs.flight.enabled": "false",
+           "spark.rapids.obs.sampler.enabled": "false"}
+#: the host syncs a run makes, from the CUDA runtime calls torch.profiler
+#: records on every thread
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize")
+
+
+def _obs_teardown():
+    """The live layer is process-wide: drop it (registry, endpoint,
+    sampler thread, live registry, flight recorder), so the next session
+    installs it from its own conf."""
+    from spark_rapids_tpu_torch.runtime import obs
+    from spark_rapids_tpu_torch.runtime.obs import flight
+    obs.shutdown_for_tests()
+    flight.uninstall_for_tests()
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def _http_json(url):
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=10) as r:
+            body = r.read().decode()
+            return r.status, body
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+class _Scraper:
+    """A thread that GETs the endpoint's routes every 50 ms while a run
+    goes, keeping each answer's parsed body (the /metrics text is held to
+    the exposition format)."""
+
+    def __init__(self, port, routes):
+        self.base = f"http://127.0.0.1:{port}"
+        self.routes = routes
+        self.seen = {r: [] for r in routes}
+        self.errors = []
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._loop, name="smoke-scraper",
+                                   daemon=True)
+
+    def _loop(self):
+        import re
+        line = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? "
+                          r"[-+]?(\d+\.?\d*([eE][-+]?\d+)?|NaN|nan|"
+                          r"[Ii]nf)$")
+        while not self._stop.is_set():
+            for r in self.routes:
+                try:
+                    code, body = _http_json(self.base + r)
+                    if r == "/metrics":
+                        bad = [x for x in body.splitlines()
+                               if x and not x.startswith("#")
+                               and not line.match(x)]
+                        if code != 200 or bad:
+                            self.errors.append(f"/metrics {code} {bad[:2]}")
+                        self.seen[r].append(len(body))
+                    else:
+                        self.seen[r].append((time.perf_counter(), code,
+                                             json.loads(body)))
+                except Exception as e:  # noqa: BLE001 - recorded, checked
+                    self.errors.append(f"{r}: {e!r}")
+            self._stop.wait(0.05)
+
+    def __enter__(self):
+        self._t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join(10)
+        return False
+
+
+def _copies_and_syncs(trace_path):
+    """(device-to-host copies the card recorded, copy calls the host
+    made in any direction, host syncs, copy calls with no record on the
+    card) of a profiled run's trace. The profiler can drop the card's
+    copy records of a run while it keeps the host's calls: the last count
+    says how many (by the correlation id a call shares with its copy)."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"]
+    d2h = sum(1 for e in copies if "DtoH" in e.get("name", ""))
+    # the runtime's and the lower API's calls ("cuda_runtime" and the
+    # other "cuda_" categories of the trace)
+    host = [e for e in events if str(e.get("cat", "")).startswith("cuda_")]
+    names = [e.get("name", "") for e in host]
+    recorded = {e.get("args", {}).get("correlation") for e in copies}
+    dropped = sum(1 for e in host if "emcpy" in e.get("name", "")
+                  and e.get("args", {}).get("correlation") not in recorded)
+    return (d2h, sum(1 for n in names if "emcpy" in n),
+            sum(1 for n in names if n in SYNC_CALLS), dropped)
+
+
+def _rollup_close(a, b) -> bool:
+    """q1_rollup's groups equal: keys, the quantity sums (whole numbers)
+    and the counts bitwise, the price sums and average discounts to
+    1e-12 relative."""
+    return set(a) == set(b) and all(
+        a[k][0] == b[k][0] and a[k][3] == b[k][3]
+        and _close(a[k][1], b[k][1], 1e-12)
+        and _close(a[k][2], b[k][2], 1e-12) for k in a)
+
+
+def phase_obs(want, h1, h8, pq_path, tmp_dir):
+    """The live layer (module docstring, phase 17f): q1, q3join_shuffled,
+    pq_repart_agg and q1_rollup, each warm with the layer off, then at
+    its defaults with the endpoint on a free port scraped every 50 ms, in
+    rounds: equal answers, the same device-to-host copies and syncs
+    under torch.profiler, the registry's counters, monotone progress;
+    q1_rollup's progress and /healthz while it runs; a fault's and an
+    SLO breach's flight dumps."""
+    from types import SimpleNamespace
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from spark_rapids_tpu_torch.runtime import faults, obs
+    from spark_rapids_tpu_torch.runtime.obs import sampler
+    from spark_rapids_tpu_torch.sql.dataframe import DataFrame
+    H, api = helpers(), port_api()
+    PR = profiler_report()
+    t_phase = time.perf_counter()
+    flight_dir = os.path.join(tmp_dir, "flight")
+    jwant = RUN_NOTES["q3join_shuffled_want"]
+
+    def q1(s):
+        return port_queries(DataFrame(h1.li.plan, s))["q1"]
+
+    def q3(s):
+        h8s = SimpleNamespace(s=s, li=DataFrame(h8.li.plan, s),
+                              od=DataFrame(h8.od.plan, s))
+        return joins_queries(h1, h8s)["q3join_shuffled"][1]
+
+    def pq_repart(s):
+        return port_queries(s.read_parquet(
+            pq_path, columns=["l_shipdate", "l_quantity"]))["repart_agg"]
+
+    def q1_rollup(s):
+        li = DataFrame(h1.li.plan, s)
+
+        def run():
+            d = H.q1_rollup(api, li).collect().to_pydict()
+            keys = ("l_returnflag", "l_linestatus", "gid")
+            cols = ("sum_qty", "sum_price", "avg_disc", "n")
+            return {tuple(d[k][i] for k in keys):
+                    tuple(d[c][i] for c in cols)
+                    for i in range(len(d[keys[0]]))}
+        return run
+
+    #: name -> (conf, the run's maker, its check, timed runs a mode,
+    #: rounds, whether a round also runs the defaults unscraped)
+    queries = {
+        "q1": ({}, q1, lambda g: validate("q1", g, want["q1"]), 3, 2,
+               True),
+        "q3join_shuffled": (SHUFFLED_JOIN, q3, lambda g: validate_joins(
+            "q3join_shuffled", g, jwant), 3, 2, True),
+        "pq_repart_agg": ({}, pq_repart, lambda g: validate(
+            "repart_agg", g, want["repart_agg"]), 1, 1, False),
+        "q1_rollup": ({}, q1_rollup, lambda g: validate_sets(
+            "q1_rollup", g, RUN_NOTES["q1_rollup_want"]), 1, 1, False),
+    }
+    reset_launches()
+    problems = []
+
+    def profiled(fn, name, mode):
+        """One run under torch.profiler, repeated (up to three runs in
+        all) while the profiler dropped some of its copy records; the
+        counts are the run's that dropped the fewest."""
+        lost, best = [], None
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                got = fn()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            path = os.path.join(tmp_dir, f"obs_{name}_{mode}.json")
+            prof.export_chrome_trace(path)
+            d2h, calls, syncs, dropped = _copies_and_syncs(path)
+            busy = _stream_overlap(path, ms)
+            os.remove(path)
+            lost.append(dropped)
+            if best is None or dropped < best[1]["dropped"]:
+                best = (got, {"d2h": d2h, "copy_calls": calls,
+                              "syncs": syncs, "dropped": dropped,
+                              "device_ms": busy["device_ms"],
+                              "device_idle_share":
+                              busy["device_idle_share"]})
+            if not dropped:
+                break
+        best[1].update({"dropped_records": lost, "runs": len(lost)})
+        return best
+
+    def live_check(sc, got, s):
+        """q1_rollup's timed run at the defaults: /queries shows it
+        executing with progress that never goes down, and /healthz
+        answers alive from the probe's side stream while the query's
+        kernels are queued."""
+        timeout_ms = float(s.conf.get("spark.rapids.obs.probeTimeoutMs"))
+        running = [d for _, _, doc in sc.seen["/queries"]
+                   for d in doc["running"] if d["state"] == "executing"]
+        progress = [d.get("percent_complete") or 0.0 for d in running]
+        scan_rows = [d["scan_rows"] for d in running]
+        probes = [doc["device"] for _, _, doc in sc.seen["/healthz"]
+                  if doc.get("queries", {}).get("active")]
+        alive = [p["probe_ms"] for p in probes if p.get("alive")]
+        live_doc = {"executing_scrapes": len(progress),
+                    "progress_first_last": progress[:1] + progress[-1:],
+                    "scan_rows_max": max(scan_rows, default=0),
+                    "healthz_during_query": len(probes),
+                    "probe_ms_max": max(alive, default=None),
+                    "probe_ms_median": statistics.median(alive)
+                    if alive else None, "errors": sc.errors[:3]}
+        if not progress or progress != sorted(progress) \
+                or scan_rows != sorted(scan_rows):
+            problems.append(f"q1_rollup progress {live_doc}")
+        if not alive or max(alive) >= timeout_ms \
+                or any(not p.get("alive") for p in probes) or sc.errors:
+            problems.append(f"q1_rollup healthz {live_doc}")
+        emit({"phase": "obs.live", **live_doc})
+
+    for name, (conf, make, check, reps, rounds, quiet) in queries.items():
+        line = {"phase": "obs.query", "query": name}
+        # off: the plain version; quiet: the defaults (no endpoint);
+        # on: the defaults with the endpoint scraped, profiled with off
+        per_round = ["off", "quiet", "on"] if quiet else ["off", "on"]
+        warm = {m: [] for m in per_round}
+        answers, progress = {}, []
+        modes = per_round * rounds
+        for i, mode in enumerate(modes):
+            last = i >= len(modes) - len(per_round)  # the profiled round
+            _obs_teardown()
+            extra = OBS_OFF if mode == "off" else {
+                "spark.rapids.obs.flight.path": flight_dir}
+            if mode == "on":
+                extra["spark.rapids.obs.port"] = str(_free_port())
+            s = device_session({**conf, **extra})
+            fn = make(s)
+            st = obs.state()
+            if (st is None) != (mode == "off"):
+                problems.append(f"{name}: the live layer is "
+                                f"{'on' if st else 'off'} in the {mode} run")
+            # q1_rollup's timed run also scrapes /healthz: the live check
+            routes = ("/queries", "/metrics") + (
+                ("/healthz",) if name == "q1_rollup" else ())
+            scraper = _Scraper(st.server.port, routes) \
+                if mode == "on" else None
+            smp = sampler.sampler()
+            before = read_launches()
+            n = 0
+            if scraper is not None:
+                scraper.__enter__()
+            try:
+                while n < reps or (name == "q1" and mode == "on" and last
+                                   and smp.ticks < 2 and n < 20):
+                    t0 = time.perf_counter()
+                    got = fn()
+                    torch.cuda.synchronize()
+                    warm[mode].append((time.perf_counter() - t0) * 1e3)
+                    n += 1
+            finally:
+                if scraper is not None:
+                    scraper.__exit__()
+            if name == "q1_rollup" and mode == "on":
+                live_check(scraper, got, s)
+            if last and mode != "quiet":
+                # the profiled run scrapes /queries and /metrics only: a
+                # /healthz probe makes a copy and a sync of its own
+                prof_scraper = _Scraper(st.server.port, ("/queries",
+                                                         "/metrics")) \
+                    if mode == "on" else None
+                if prof_scraper is not None:
+                    prof_scraper.__enter__()
+                try:
+                    prof_got, counts = profiled(fn, name, mode)
+                finally:
+                    if prof_scraper is not None:
+                        prof_scraper.__exit__()
+                        scraper.seen["/queries"] += \
+                            prof_scraper.seen["/queries"]
+                        scraper.errors += prof_scraper.errors
+                n += counts["runs"]
+            if not check(got):
+                problems.append(f"{name} ({mode}) disagrees")
+            if mode != "off":
+                snap = st.registry.snapshot()
+                ok_n = snap['rapids_queries_total{status="ok"}']
+                done = snap["rapids_tasks_completed_total"]
+                if ok_n != n or done <= 0 or done % n \
+                        or snap["rapids_tasks_failed_total"]:
+                    problems.append(f"{name}: {ok_n} ok queries and {done} "
+                                    f"tasks after {n} runs")
+            if mode == "on":
+                if scraper.errors or not scraper.seen["/queries"]:
+                    problems.append(f"{name}: scrapes {scraper.errors[:3]}")
+                by_q = {}
+                for _, _, doc in scraper.seen["/queries"]:
+                    for d in doc["running"]:
+                        if d["state"] == "executing":
+                            by_q.setdefault(d["query_id"], []).append(
+                                d["scan_rows"])
+                for rows in by_q.values():
+                    progress.extend(rows)
+                    if rows != sorted(rows):
+                        problems.append(f"{name}: progress went down {rows}")
+            if last and mode == "quiet":
+                answers["quiet"] = (got, got)
+            if not last or mode == "quiet":
+                continue
+            launches = {k: (v - before[k]) // n
+                        for k, v in read_launches().items()}
+            answers[mode] = (got, prof_got)
+            line.update({f"device_ms_{mode}": counts["device_ms"],
+                         f"device_idle_share_{mode}":
+                         counts["device_idle_share"],
+                         f"d2h_copies_{mode}": counts["d2h"],
+                         f"copy_calls_{mode}": counts["copy_calls"],
+                         f"syncs_{mode}": counts["syncs"],
+                         f"dropped_copy_records_{mode}":
+                         counts["dropped_records"],
+                         f"launches_per_run_{mode}": launches})
+            if mode == "on":
+                ring = smp.rings["device_bytes_held"].snapshot()
+                code, hz = _http_json(
+                    f"http://127.0.0.1:{st.server.port}/healthz")
+                hz = json.loads(hz)
+                line.update({
+                    "queries_ok": ok_n, "tasks_per_run": done // n,
+                    "scrapes": len(scraper.seen["/queries"]),
+                    "scan_rows_max": max(progress, default=0),
+                    "sampler_ticks": smp.ticks,
+                    "sampler_device_bytes_held_max":
+                        max((v for _, v, _ in ring), default=0.0),
+                    "probe_ms": hz["device"].get("probe_ms"),
+                    "healthz": hz["status"]})
+                if name == "q1" and not any(v > 0 for _, v, _ in ring):
+                    problems.append("the sampler saw no device bytes held "
+                                    "during the cached q1")
+                if name == "pq_repart_agg" and max(progress, default=0) <= 0:
+                    problems.append("pq_repart_agg: no scan progress "
+                                    "scraped")
+        line.update({f"warm_ms_{m}": min(v) for m, v in warm.items()})
+        line.update({f"warm_ms_median_{m}": statistics.median(v)
+                     for m, v in warm.items()})
+        line["on_over_off"] = line["warm_ms_on"] / line["warm_ms_off"]
+        if quiet:
+            line["quiet_over_off"] = line["warm_ms_quiet"] \
+                / line["warm_ms_off"]
+        (on, on2), (off, off2) = answers["on"], answers["off"]
+        quiet_got = answers.get("quiet", (on,))[0]
+        line["bitwise_equal"] = on == off == on2 == off2 == quiet_got
+        if name == "q1_rollup":
+            # its float sums add through the sort route's atomics, whose
+            # order differs from run to run with the layer off as well:
+            # held to the sets phase's tolerance, counts and the whole
+            # quantities bitwise
+            line["off_vs_off_bitwise"] = off == off2
+            same = _rollup_close(on, off) and _rollup_close(off, off2) \
+                and _rollup_close(on2, off)
+        else:
+            same = line["bitwise_equal"]
+        if not same:
+            problems.append(f"{name}: on and off answers differ")
+        # the host's copy calls (every direction) and syncs must be the
+        # same: a copy the layer made would be one more call. The card's
+        # device-to-host copies of a run lie between its records and its
+        # records plus the calls whose record the profiler dropped; those
+        # ranges must meet (the same count where neither trace dropped)
+        on_c = (line["copy_calls_on"], line["syncs_on"])
+        off_c = (line["copy_calls_off"], line["syncs_off"])
+        d2h = {m: (line[f"d2h_copies_{m}"], line[f"d2h_copies_{m}"]
+                   + min(line[f"dropped_copy_records_{m}"]))
+               for m in ("on", "off")}
+        if on_c != off_c or line["syncs_off"] <= 0 \
+                or d2h["on"][0] > d2h["off"][1] \
+                or d2h["off"][0] > d2h["on"][1]:
+            problems.append(
+                f"{name}: copy calls/syncs on {on_c}, off {off_c}; "
+                f"device-to-host copies on {d2h['on']}, off {d2h['off']} "
+                f"(copy records dropped on "
+                f"{line['dropped_copy_records_on']}, off "
+                f"{line['dropped_copy_records_off']})")
+        if line["launches_per_run_on"] != line["launches_per_run_off"]:
+            problems.append(f"{name}: launches differ on and off")
+        emit(line)
+
+    # a query failed by an injected fault leaves one flight dump, a
+    # Chrome trace holding the query's queryStart marker and its id
+    _obs_teardown()
+    conf = {"spark.rapids.obs.flight.path": flight_dir,
+            "spark.rapids.obs.flight.minIntervalSeconds": "0"}
+    s = device_session({**conf, "spark.rapids.debug.faults":
+                        "device.dispatch:ioerror"})
+    before = set(os.listdir(flight_dir)) if os.path.isdir(flight_dir) \
+        else set()
+    err = None
+    try:
+        q1(s)()
+    except Exception as e:  # noqa: BLE001 - the injected fault, checked
+        err = e
+    faults.configure("")
+    dumps = sorted(set(os.listdir(flight_dir)) - before)
+    fault_doc = {"raised": repr(err), "status": s.last_action_status,
+                 "dumps": dumps}
+    if len(dumps) != 1 or "query_failed" not in dumps[0]:
+        problems.append(f"fault dump {fault_doc}")
+    else:
+        path = os.path.join(flight_dir, dumps[0])
+        events = PR.validate_chrome_trace(path)
+        qid = json.load(open(path))["otherData"]["query_id"]
+        starts = [e for e in events if e["name"] == "queryStart"
+                  and (e.get("args") or {}).get("query_id") == qid]
+        fault_doc.update({"query_id": qid, "events": len(events),
+                          "query_start_markers": len(starts)})
+        if not isinstance(qid, int) or qid <= 0 or not starts:
+            problems.append(f"fault dump {fault_doc}")
+    emit({"phase": "obs.fault_dump", **fault_doc})
+
+    # an SLO breach once the baseline has its minRuns: a tiny absolute
+    # bound on the next run leaves a dump too
+    s = device_session(conf)
+    fn = q1(s)
+    for _ in range(int(s.conf.get("spark.rapids.obs.slo.minRuns"))):
+        fn()
+    st = obs.state()
+    breaches0 = st.slo.breaches
+    before = set(os.listdir(flight_dir))
+    s = device_session({**conf,
+                        "spark.rapids.obs.slo.latencySeconds": "1e-6"})
+    q1(s)()
+    dumps = sorted(set(os.listdir(flight_dir)) - before)
+    slo_doc = {"breaches": st.slo.breaches - breaches0, "dumps": dumps,
+               "last_slow": (st.last_slow or {}).get("breach")}
+    if st.slo.breaches - breaches0 != 1 or len(dumps) != 1 \
+            or "slo_breach" not in dumps[0]:
+        problems.append(f"slo dump {slo_doc}")
+    else:
+        events = PR.validate_chrome_trace(os.path.join(flight_dir,
+                                                       dumps[0]))
+        slo_doc["slow_query_instants"] = sum(
+            1 for e in events if e["name"] == "slowQuery")
+        if not slo_doc["slow_query_instants"]:
+            problems.append(f"slo dump {slo_doc}")
+    emit({"phase": "obs.slo_dump", **slo_doc})
+    # the runtime phase runs at the defaults again
+    _obs_teardown()
+    counts = read_launches()
+    emit({"phase": "obs", "launches": counts, "correct": not problems,
+          "problems": problems, "seconds": time.perf_counter() - t_phase})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return counts
+
+
 # ---------------------------------------------------------------------------
 # phase 18: the query runtime
 # ---------------------------------------------------------------------------
@@ -6984,6 +7493,8 @@ def rt_degrade(small, swant, spill_dir, run, check):
     return out
 
 
+#: launch-counter name -> (wrapper module, wrapper function, a substring
+#: of the CUDA kernel's name as the profiler reports it)
 KERNEL_WRAPPERS = {
     "murmur3_int32": ("murmur3_kernel", "murmur3_int32", "murmur3"),
     "segsum": ("segsum", "segsum", "segsum"),
@@ -7335,6 +7846,10 @@ def main(argv) -> int:
         phases["trace_s"] = time.perf_counter() - t0
         spill_report("trace")
         t0 = time.perf_counter()
+        observed = phase_obs(want, h1, h8, path, tmp_dir)
+        phases["obs_s"] = time.perf_counter() - t0
+        spill_report("obs")
+        t0 = time.perf_counter()
         caches = [h1.li, h1.od, h1.cust, h8.li, h8.od,
                   SimpleNamespace(plan=text_plan)]
         runtime = phase_runtime(want, small, swant, h1, h8, path, tmp_dir,
@@ -7358,6 +7873,7 @@ def main(argv) -> int:
                    "regex": regex[r["name"]],
                    "fallback": fallback[r["name"]],
                    "trace": traced[r["name"]],
+                   "obs": observed[r["name"]],
                    "runtime": runtime[r["name"]]}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path

@@ -19,7 +19,7 @@ tree itself:
 The JAX package's fusion rules (PV-FUSE, PV-ABSORB) and its dispatch
 budgets (``dispatch_budget``, ``compare_budget``) check fused stages,
 which this engine does not build; they wait for the decision on stage
-fusion (ROADMAP A11).
+fusion (ROADMAP A11e).
 
 ``spark.rapids.debug.planVerify.enabled`` makes ``convert_plan`` verify
 every tree it returns. Duck-typed by class NAME, like

@@ -7,6 +7,8 @@ drives both sessions.
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 import threading
 from typing import Any, Callable, Dict, Optional
 
@@ -158,6 +160,10 @@ ANSI_ENABLED = _register(
     "spark.sql.ansi.enabled", False,
     "ANSI mode: division by zero and overflowing casts raise instead of "
     "returning null.", _bool_conv)
+
+CASE_SENSITIVE = _register(
+    "spark.sql.caseSensitive", False,
+    "Column resolution case sensitivity (Spark conf).", _bool_conv)
 
 SESSION_TIMEZONE = _register(
     "spark.sql.session.timeZone", "UTC",
@@ -579,6 +585,153 @@ LORE_DUMP_DIR = _register(
     "When set, every exec's input batches dump as parquet under "
     "<dir>/loreId=<id>/ for local operator replay (runtime/lore.py; "
     "reference LORE, lore/GpuLore.scala).", str)
+
+
+# ---------------------------------------------------------------------------
+# live observability (runtime/obs): the registry, the live query registry,
+# the flight recorder, the SLO detector, the sampler and the endpoint
+# ---------------------------------------------------------------------------
+
+OBS_ENABLED = _register(
+    "spark.rapids.obs.enabled", True,
+    "Publish live metrics into the process-wide observability registry "
+    "(runtime/obs): task accumulators fold in once per task completion, "
+    "per-exec rollups once per query, never per batch. Disabled, every "
+    "hook costs one global read (the budget of trace.py). The registry "
+    "feeds the /metrics endpoint.", _bool_conv)
+
+OBS_PORT = _register(
+    "spark.rapids.obs.port", 0,
+    "When > 0, serve a background HTTP endpoint on this port: /metrics "
+    "(Prometheus text format from the live registry), /healthz (JSON: "
+    "device liveness via a trivial probe on a side stream, semaphore "
+    "saturation, spill pressure, last-query status; HTTP 200 ok / 503 "
+    "degraded), /queries and /console. 0 disables the endpoint.", int)
+
+OBS_PROBE_TIMEOUT_MS = _register(
+    "spark.rapids.obs.probeTimeoutMs", 2000,
+    "Timeout for the /healthz device probe; a probe that exceeds it "
+    "reports the device as blocked and flips the endpoint to degraded "
+    "(503).", int)
+
+OBS_FLIGHT_ENABLED = _register(
+    "spark.rapids.obs.flight.enabled", True,
+    "Run the always-on flight recorder (runtime/obs/flight.py): a "
+    "bounded per-thread ring of the most recent span/instant events, "
+    "fed from the SAME instrumentation points structured tracing uses, "
+    "auto-dumped as a Chrome-trace file when a query fails, degrades or "
+    "is cancelled, the dispatch watchdog reports a wedge, the circuit "
+    "breaker opens, or a query breaches its SLO, so failures get a "
+    "timeline retroactively even with spark.rapids.sql.trace.enabled "
+    "off. The hot path takes no locks (one tuple store per recorded "
+    "event; DEBUG-level events are filtered).", _bool_conv)
+
+OBS_FLIGHT_PATH = _register(
+    "spark.rapids.obs.flight.path",
+    os.path.join(tempfile.gettempdir(), "rapids_tpu_flight"),
+    "Directory receiving flight-recorder dumps "
+    "(flight_<seq>_<reason>.json, Chrome-trace/Perfetto loadable); "
+    "rapids_tpu_flight under the system temporary directory by "
+    "default.", str)
+
+OBS_FLIGHT_EVENTS = _register(
+    "spark.rapids.obs.flight.events", 2048,
+    "Per-thread ring capacity of the flight recorder: how many recent "
+    "span/instant events each thread retains for a retroactive dump. "
+    "Older events are overwritten; the dump reports how many were "
+    "dropped.", int)
+
+OBS_FLIGHT_MIN_INTERVAL_S = _register(
+    "spark.rapids.obs.flight.minIntervalSeconds", 5.0,
+    "Rate limit between flight-recorder dumps: a failure storm dumps at "
+    "most one timeline per interval instead of one per failing query. "
+    "0 disables the limit (tests).", _float)
+
+OBS_FLIGHT_MAX_DUMPS = _register(
+    "spark.rapids.obs.flight.maxDumps", 50,
+    "Bounded retention: only the newest N flight dump files are kept in "
+    "spark.rapids.obs.flight.path; older ones are pruned after each "
+    "dump.", int)
+
+OBS_REPLICA_ID = _register(
+    "spark.rapids.obs.replicaId", "",
+    "Stable identity of THIS serving replica in a fleet. Empty (the "
+    "default) derives pid-<os pid>, which is unique per process but not "
+    "stable across restarts.", str)
+
+OBS_SLO_ENABLED = _register(
+    "spark.rapids.obs.slo.enabled", True,
+    "Check every successful top-level query against its SLO "
+    "(runtime/obs/slo.py): a per-plan-digest latency baseline (mean of "
+    "the last slo.baselineWindow ok runs, armed after slo.minRuns "
+    "samples) times slo.baselineFactor, plus the absolute bound "
+    "slo.latencySeconds. A breach emits a slowQuery instant, bumps "
+    "rapids_slo_breaches_total, surfaces on /healthz, and triggers a "
+    "flight-recorder dump.", _bool_conv)
+
+OBS_SLO_FACTOR = _register(
+    "spark.rapids.obs.slo.baselineFactor", 3.0,
+    "A query breaches its SLO when its wall time exceeds the per-digest "
+    "baseline mean times this factor.", _float)
+
+OBS_SLO_MIN_RUNS = _register(
+    "spark.rapids.obs.slo.minRuns", 5,
+    "Successful runs of a plan digest required before its baseline arms "
+    "(fewer samples would flag ordinary warm-up variance).", int)
+
+OBS_SLO_ABS_SECONDS = _register(
+    "spark.rapids.obs.slo.latencySeconds", 0.0,
+    "Absolute per-query latency SLO in seconds, checked regardless of "
+    "baseline state. 0 disables the absolute bound (the baseline check "
+    "still applies).", _float)
+
+OBS_SLO_WINDOW = _register(
+    "spark.rapids.obs.slo.baselineWindow", 32,
+    "Successful runs per plan digest retained for the baseline mean "
+    "(a bounded sliding window, newest runs win).", int)
+
+OBS_CORS_ORIGIN = _register(
+    "spark.rapids.obs.corsOrigin", "",
+    "Value for the Access-Control-Allow-Origin header on obs endpoint "
+    "responses. Empty (the default) sends no CORS header, so browser "
+    "pages from other origins cannot read /queries (which carries "
+    "in-flight SQL text) or /healthz.", str)
+
+OBS_PROGRESS_ENABLED = _register(
+    "spark.rapids.obs.progress.enabled", True,
+    "Register every top-level action in the live query registry "
+    "(runtime/obs/live.py): query id, plan digest, state machine "
+    "(queued -> planning -> executing -> finishing -> ok/failed/"
+    "degraded/cancelled), and per-exec batches/rows progress with "
+    "%-complete and ETA derived from the plan's scan-size estimates. "
+    "Surfaced by session.running_queries(), the /queries JSON endpoint "
+    "and the /console live page. Progress reads never resolve lazy "
+    "device counts, so a scrape adds no device syncs to a running "
+    "query.", _bool_conv)
+
+OBS_SAMPLER_ENABLED = _register(
+    "spark.rapids.obs.sampler.enabled", True,
+    "Run the always-on resource time-series sampler "
+    "(runtime/obs/sampler.py): a service thread samples the SERIES "
+    "roster (device/host bytes held, semaphore permits and waiters, "
+    "host-pool queue depths, pipeline stall state, breaker state, "
+    "process RSS, running queries) into bounded per-series rings "
+    "every sampler.intervalMs. Exported as rapids_sampler_* gauges on "
+    "/metrics, rendered as sparklines on /console, and embedded as "
+    "Chrome counter tracks in every flight-recorder dump.", _bool_conv)
+
+OBS_SAMPLER_INTERVAL_MS = _register(
+    "spark.rapids.obs.sampler.intervalMs", 200,
+    "Resource-sampler period in milliseconds. Each tick reads ~10 "
+    "in-process gauges (no locks shared with query hot paths, no "
+    "device syncs); the ring covers ringSize*intervalMs of history.",
+    int)
+
+OBS_SAMPLER_RING = _register(
+    "spark.rapids.obs.sampler.ringSize", 512,
+    "Samples retained per sampler series (a bounded ring, newest "
+    "kept). At the default 200ms interval, 512 samples cover the last "
+    "~102 seconds.", int)
 
 
 def keys():

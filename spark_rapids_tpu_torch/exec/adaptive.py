@@ -21,7 +21,7 @@ decisions:
   which the session returns as ``last_aqe()``.
 
 The decision trace instant, the decision counters, the EXPLAIN ANALYZE
-section and the measured cost pass are not ported yet (ROADMAP A11).
+section and the measured cost pass are not ported yet (ROADMAP A11d).
 """
 from __future__ import annotations
 

@@ -1439,6 +1439,19 @@ def _to_int(data: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return out
 
 
+def _float_to_int_np(v: np.ndarray, np_dtype) -> np.ndarray:
+    """The CPU backend's float to integer conversion, as ``_to_int``:
+    truncated, NaN to 0, saturated at the type's bounds. The bounds are
+    compared in float64 before the conversion: the long maximum rounds
+    up to 2.0**63 as a double, which no int64 holds (ROADMAP C22)."""
+    info = np.iinfo(np_dtype)
+    v = np.where(np.isnan(v), 0.0, v)
+    hi, lo = v >= float(info.max), v <= float(info.min)
+    out = np.trunc(np.where(hi | lo, 0.0, v)).astype(np_dtype)
+    return np.where(hi, info.max, np.where(lo, info.min, out)).astype(
+        np_dtype)
+
+
 class Cast(Expression):
     """Numeric, bool, decimal, date and timestamp casts (Spark non-ANSI
     semantics: float to int truncates and saturates, NaN becomes 0;
@@ -1596,9 +1609,7 @@ class Cast(Expression):
                 if ansi and bool(((np.isnan(v) | (v < info.min)
                                    | (v > info.max)) & valid).any()):
                     raise SparkException("[CAST_OVERFLOW]")
-                clamped = np.clip(np.where(np.isnan(v), 0.0, v), info.min,
-                                  info.max)
-                return CpuCol(dst, np.trunc(clamped).astype(dst.np_dtype),
+                return CpuCol(dst, _float_to_int_np(v, dst.np_dtype),
                               valid)
             data = c.values.astype(np.int64)
             if isinstance(src, T.TimestampType) \

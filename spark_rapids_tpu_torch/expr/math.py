@@ -18,7 +18,9 @@ import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnVector
-from spark_rapids_tpu_torch.expr.core import CpuCol, Expression, _valid_of
+from spark_rapids_tpu_torch.expr.core import (
+    CpuCol, Expression, _float_to_int_np, _valid_of,
+)
 
 
 class Greatest(Expression):
@@ -424,15 +426,10 @@ Rint = _unary("Rint", torch.round, np.rint,
 # Rounding to integers
 # ---------------------------------------------------------------------------
 
-_LONG_MIN = -(2 ** 63)
-_LONG_MAX = 2 ** 63 - 1
-
-
 def _double_to_long_np(v):
-    """The JAX package's CPU conversion: NaN to 0, clipped to the long
-    range."""
-    v = np.where(np.isnan(v), 0.0, v)
-    return np.clip(v, float(_LONG_MIN), float(_LONG_MAX)).astype(np.int64)
+    """Scala's Double.toLong on the CPU: NaN to 0, saturated at the long
+    range (``core._float_to_int_np``)."""
+    return _float_to_int_np(v, np.int64)
 
 
 class _ToLong(Expression):

@@ -35,8 +35,8 @@ class TrafficController:
     ``stall_warn_s`` (None disables) arms a diagnostic: a producer that
     has waited that long without admission logs ONE warning, then keeps
     waiting. Admission semantics are unchanged. The wait emits an
-    asyncWriteStalled trace instant too (A11: and an obs counter in the
-    JAX package)."""
+    asyncWriteStalled trace instant and bumps the
+    rapids_async_write_stalls_total obs counter too."""
 
     def __init__(self, max_in_flight_bytes: int,
                  stall_warn_s: Optional[float] = None):
@@ -57,7 +57,16 @@ class TrafficController:
             "waited_s": round(waited_s, 3), "bytes": nbytes,
             "in_flight": inflight, "limit": self.limit},
             level=trace.ESSENTIAL)
-        # A11: the rapids_async_write_stalls_total obs counter
+        from spark_rapids_tpu_torch.runtime import obs
+        st = obs.state()
+        if st is not None:
+            try:
+                st.registry.counter(
+                    "rapids_async_write_stalls_total",
+                    "Async-write throttle waits that exceeded the stall "
+                    "warning threshold").inc()
+            except Exception:  # noqa: BLE001 - diagnostics never fail IO
+                pass
 
     def acquire(self, nbytes: int) -> None:
         from spark_rapids_tpu_torch.runtime import lifecycle as _lc

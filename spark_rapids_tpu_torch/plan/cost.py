@@ -12,7 +12,7 @@ the same subtrees with the same words.
 
 The JAX package's second half, the measured cost pass
 (``MeasuredHints``, spark.rapids.sql.adaptive.measuredCost.enabled), reads
-the query history store and waits for ROADMAP A11.
+the query history store and waits for ROADMAP A11d.
 """
 from __future__ import annotations
 

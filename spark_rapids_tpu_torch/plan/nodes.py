@@ -65,27 +65,62 @@ class PlanNode:
         return None
 
 
-def make_binder(schema: T.Schema):
-    """The node function of ``bind_expr``: a Col becomes a BoundRef, an
-    exact name match first, then a case-insensitive one (Spark's
-    default)."""
+def _case_sensitive_now() -> bool:
+    from spark_rapids_tpu_torch import config as C
+    return bool(C.session_conf().get(C.CASE_SENSITIVE))
+
+
+def _coerce_bool_compare(node: Expression) -> Expression:
+    """Spark's coercion of a comparison between a STRING and a BOOLEAN:
+    the string side is cast to a boolean (``'true'``, ``'t'``, ``'yes'``,
+    ``'y'``, ``'1'`` and their negations, trimmed, any case; else
+    null)."""
+    from spark_rapids_tpu_torch.expr.core import BinaryComparison, Cast
+    if not isinstance(node, BinaryComparison):
+        return node
+    lt, rt = node.left.data_type(), node.right.data_type()
+    if isinstance(lt, T.StringType) and isinstance(rt, T.BooleanType):
+        return node.with_children([Cast(node.left, T.BOOLEAN), node.right])
+    if isinstance(lt, T.BooleanType) and isinstance(rt, T.StringType):
+        return node.with_children([node.left, Cast(node.right, T.BOOLEAN)])
+    return node
+
+
+def make_binder(schema: T.Schema, case_sensitive: Optional[bool] = None):
+    """The node function of ``bind_expr``: a Col becomes a BoundRef under
+    spark.sql.caseSensitive (the thread's session conf unless forced):
+    sensitive, the exact name; insensitive (Spark's default), the name in
+    any case, and two fields whose names differ only in case are an
+    ambiguous reference, as Spark's AMBIGUOUS_REFERENCE (ROADMAP C23).
+    Fields with one exact name (a join's two sides) resolve to the
+    first. A comparison of a string with a boolean casts the string."""
     def binder(node):
         if isinstance(node, Col):
-            for i, f in enumerate(schema.fields):
-                if f.name == node.name:
-                    return BoundRef(i, f.dtype, f.name)
-            for i, f in enumerate(schema.fields):
-                if f.name.lower() == node.name.lower():
-                    return BoundRef(i, f.dtype, f.name)
-            raise KeyError(f"column {node.name!r} not found in "
-                           f"{schema.names}")
-        return node
+            cs = _case_sensitive_now() if case_sensitive is None \
+                else case_sensitive
+            name = node.name
+            hits = [i for i, f in enumerate(schema.fields)
+                    if f.name == name
+                    or (not cs and f.name.lower() == name.lower())]
+            if not hits:
+                raise KeyError(f"column {name!r} not found in "
+                               f"{schema.names}")
+            names = {schema.fields[i].name for i in hits}
+            if len(names) > 1:
+                raise SparkException(
+                    f"[AMBIGUOUS_REFERENCE] Reference {name!r} is "
+                    f"ambiguous, could be: {sorted(names)}")
+            f = schema.fields[hits[0]]
+            return BoundRef(hits[0], f.dtype, f.name)
+        return _coerce_bool_compare(node)
     return binder
 
 
-def bind_expr(e: Expression, schema: T.Schema) -> Expression:
-    """Resolve Col names to BoundRefs against a child schema."""
-    return e.transform(make_binder(schema))
+def bind_expr(e: Expression, schema: T.Schema,
+              case_sensitive: Optional[bool] = None) -> Expression:
+    """Resolve Col names to BoundRefs against a child schema (case
+    sensitivity from spark.sql.caseSensitive unless forced)."""
+    return e.transform(make_binder(schema, case_sensitive))
 
 
 def expr_name(e: Expression, idx: int) -> str:
@@ -387,6 +422,14 @@ class Filter(PlanNode):
     def __init__(self, condition: Expression, child: PlanNode):
         self.children = [child]
         self.condition = bind_expr(condition, child.schema)
+        dt = self.condition.data_type()
+        if not isinstance(dt, (T.BooleanType, T.NullType)):
+            # Spark's DATATYPE_MISMATCH.FILTER_NOT_BOOLEAN, at plan time
+            # (ROADMAP C24)
+            raise SparkException(
+                f"[DATATYPE_MISMATCH.FILTER_NOT_BOOLEAN] Cannot resolve "
+                f"filter {self.condition!r}: the condition has type "
+                f"{dt!r}, not BOOLEAN")
 
     @property
     def schema(self):

@@ -961,7 +961,7 @@ def convert_plan(plan: P.PlanNode, conf, device):
     (``runtime/pipeline.insert_pipelines``), the plan verifier under
     spark.rapids.debug.planVerify.enabled and the LORE dumper under
     spark.rapids.sql.lore.dumpPath, in the JAX package's order; its stage
-    fusion is XLA's (ROADMAP A11) and its sharding ROADMAP A12."""
+    fusion is XLA's (ROADMAP A11e) and its sharding ROADMAP A12."""
     # prune imports this module's PROJECT_ONLY_EXPRS
     from spark_rapids_tpu_torch.plan.prune import prune_plan
     plan = localize_plan(plan, conf)
@@ -1182,7 +1182,7 @@ def _convert_aggregate(plan, child, conf, device):
     """The JAX package's single-device aggregate plan. The port holds one
     device per session, so the JAX package's multi-device branch
     (partial -> hash exchange -> final, ROADMAP A12) and its measured
-    collapse from the observation history (``_measured_collapse``, A11)
+    collapse from the observation history (``_measured_collapse``, A11d)
     have no counterpart here."""
     pre_filter = None
     if isinstance(child, X.FilterExec) \

@@ -203,14 +203,23 @@ def _next_kind(site_name: str):
 
 
 def _emit(site_name: str, kind: str) -> None:
-    """Observability for one fired fault: trace instant + debug log.
-    Never raises; never called under the faults lock. (A11: the JAX
-    package also counts rapids_faults_injected_total here.)"""
+    """Observability for one fired fault: trace instant + obs counter +
+    debug log. Never raises; never called under the faults lock."""
     try:
         from spark_rapids_tpu_torch.runtime import trace
         trace.instant("faultInjected", cat="faults",
                       args={"site": site_name, "kind": kind})
     except Exception:  # noqa: BLE001 - injection must not need a tracer
+        pass
+    try:
+        from spark_rapids_tpu_torch.runtime import obs
+        st = obs.state()
+        if st is not None:
+            st.registry.counter(
+                "rapids_faults_injected_total",
+                "Injected faults fired (spark.rapids.debug.faults)",
+                labels={"site": site_name}).inc()
+    except Exception:  # noqa: BLE001 - injection must not need obs
         pass
     log.debug("fault injected: site=%s kind=%s", site_name, kind)
 

@@ -17,7 +17,7 @@ wait on tier-1 work, so no cycle can starve.
 
 The serving QoS tier of the JAX module (``qos_nice``/``run_at_nice``:
 background requests run their host work at raised niceness) waits for
-the serving layer (A11).
+the serving layer (A11f).
 """
 from __future__ import annotations
 
@@ -48,19 +48,30 @@ def run_task_wave(fn, items, max_concurrency: int = 16) -> list:
         return [fn(i) for i in items]
     from spark_rapids_tpu_torch import config as _cfg
     from spark_rapids_tpu_torch.runtime import lifecycle as _lc
+    from spark_rapids_tpu_torch.runtime.obs import live as _live
     conf = getattr(_cfg._local, "conf", None)
-    qid = _lc.current_query_id()
+    # the submitter's bound query id rides to the wave threads: a task
+    # constructed on a wave thread attributes to the query that fanned
+    # it out
+    qid = _live.current_query_id()
+    # ... and so does the serving request context (A11f: request
+    # tracing; None while no request is bound)
+    rctx = _live.current_request()
 
     def bound(item):
         _cfg.set_session_conf(conf)
-        prev = _lc.bind(qid)
+        prev = _live.bind(qid)
+        if rctx is not None:
+            _live.bind_request(rctx)
         try:
             # wave-start cooperative checkpoint: partitions of an
             # already-cancelled query unwind before doing any work
             _lc.check_current()
             return fn(item)
         finally:
-            _lc.bind(prev)
+            if rctx is not None:
+                _live.bind_request(None)
+            _live.bind(prev)
             _cfg.set_session_conf(None)
 
     with ThreadPoolExecutor(max_workers=min(len(items), max_concurrency),
@@ -120,18 +131,22 @@ class HostTaskPool:
         # the submitter's query id, the OUTERMOST wrapper (so the dequeue
         # instant above runs bound too): pool workers are shared across
         # queries; unbound submitters skip the wrapper
-        from spark_rapids_tpu_torch.runtime import lifecycle as _lc
-        qid = _lc.current_query_id()
+        from spark_rapids_tpu_torch.runtime.obs import live as _live
+        qid = _live.current_query_id()
         if qid is not None:
-            bound_fn = fn
+            inner_fn = fn
 
             def fn(*a):  # noqa: F811 - bound wrapper replaces fn
-                prev = _lc.bind(qid)
-                try:
-                    return bound_fn(*a)
-                finally:
-                    _lc.bind(prev)
-        # A11: the JAX package also carries the submitter's serving QoS
+                return _live.run_bound(qid, inner_fn, *a)
+        # the submitter's serving request context rides the same seam
+        # (A11f: request tracing; None while no request is bound)
+        rctx = _live.current_request()
+        if rctx is not None:
+            req_fn = fn
+
+            def fn(*a):  # noqa: F811 - request-bound wrapper replaces fn
+                return _live.run_request_bound(rctx, req_fn, *a)
+        # A11f: the JAX package also carries the submitter's serving QoS
         # tier (qos_nice/run_at_nice) onto the worker here
         if depth == 0:
             return self._tier0.submit(fn, *args)

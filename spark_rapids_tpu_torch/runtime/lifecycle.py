@@ -5,8 +5,8 @@ There is no thread to interrupt safely, so every query is cooperatively
 killable:
 
 1. **CancelToken.** Every top-level action registers a token keyed by
-   its query id, bound to the thread (``bind``/``current_query_id``;
-   task waves carry the binding to their threads). The engine's choke
+   its live query id (``runtime/obs/live.py``: ``bind`` and
+   ``current_query_id``; task waves carry the binding to their threads). The engine's choke
    points (the start of a batch's device work in ``ProjectExec``,
    ``FilterExec`` and the aggregate's update, task-wave starts, retry
    backoff sleeps, the exchange's offsets fetch and the semaphore's
@@ -32,7 +32,6 @@ killable:
 
 With no query in flight :func:`check_current` is one module-global dict
 read (two within ~60 s of a cancel, while the tombstones drain).
-The live query registry, its states and the obs counters are ROADMAP A11.
 """
 from __future__ import annotations
 
@@ -41,27 +40,12 @@ import time
 from typing import Dict, List, Optional
 
 from spark_rapids_tpu_torch.runtime import faults as _faults
+from spark_rapids_tpu_torch.runtime.obs import live as _live
 
-# ---------------------------------------------------------------------------
-# the thread-bound query id (the JAX package keeps it in
-# runtime/obs/live.py, which is ROADMAP A11: the binding alone lives here)
-# ---------------------------------------------------------------------------
-
-_TLS = threading.local()
-
-
-def current_query_id() -> Optional[int]:
-    """The query id bound to THIS thread (None outside any query's
-    work). One thread-local read."""
-    return getattr(_TLS, "qid", None)
-
-
-def bind(qid: Optional[int]) -> Optional[int]:
-    """Bind qid to this thread; returns the previous binding so workers
-    that outlive one query can restore it."""
-    prev = getattr(_TLS, "qid", None)
-    _TLS.qid = qid
-    return prev
+#: the thread-bound query id lives in the live query registry; these are
+#: its names, for the call sites that reach it through this module
+current_query_id = _live.current_query_id
+bind = _live.bind
 
 
 class QueryCancelledError(RuntimeError):
@@ -255,7 +239,8 @@ def _check_tombstone() -> None:
 
 
 def cancel(query_id, reason: str = "user") -> bool:
-    """Cancel a live query by id (the session.cancel entry point). Returns False when no such query
+    """Cancel a live query by id (the session.cancel / POST
+    /queries/<id>/cancel entry point). Returns False when no such query
     is in flight (already finished, or never existed) — cancel-after-
     finish is a no-op by construction."""
     tok = _TOKENS.get(query_id)
@@ -300,10 +285,10 @@ def _count_cancelled() -> None:
 def begin_action(query_id: Optional[int], conf,
                  timeout_seconds: Optional[float] = None) -> CancelToken:
     """Register a cancel token for one top-level action. `query_id` is
-    an id the caller minted; None mints a local negative id and binds it
-    to this thread (the session always passes None: the live registry
-    that mints positive ids is ROADMAP A11). Arms the deadline sweeper when a
-    timeout applies."""
+    the live registry's positive id when obs minted one; None (obs off)
+    mints a local negative id and binds it to this thread, so the
+    checkpoints work the same. Arms the deadline sweeper when a timeout
+    applies."""
     global _LOCAL_SEQ
     from spark_rapids_tpu_torch import config as C
     deadline = timeout_seconds if timeout_seconds is not None \
@@ -345,7 +330,7 @@ def admit(token: CancelToken, conf) -> None:
     _GATE.configure(limit,
                     int(conf.get(C.QUERY_MAX_QUEUED) or 0),
                     float(conf.get(C.QUERY_QUEUE_TIMEOUT_S) or 0.0))
-    # A11: the JAX package times the wait as a serving request's
+    # A11f: the JAX package times the wait as a serving request's
     # "admission_wait" span here
     _GATE.acquire(token)
 
@@ -383,7 +368,16 @@ def count_rejected() -> None:
     global _REJECTED
     with _LOCK:
         _REJECTED += 1
-    # A11: the JAX package also counts rapids_queries_rejected_total
+    try:
+        from spark_rapids_tpu_torch.runtime import obs
+        st = obs.state()
+        if st is not None:
+            st.registry.counter(
+                "rapids_queries_rejected_total",
+                "Queries refused by admission control "
+                "(spark.rapids.query.maxConcurrent)").inc()
+    except Exception:  # noqa: BLE001 - rejection must not need obs
+        pass
 
 
 def cancel_latencies() -> List[tuple]:

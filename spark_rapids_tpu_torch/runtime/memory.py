@@ -61,7 +61,7 @@ class SpillableHandle:
     batches spill first (reference SpillFramework)."""
 
     def __init__(self, framework: "SpillFramework", batch: ColumnarBatch):
-        from spark_rapids_tpu_torch.runtime import lifecycle
+        from spark_rapids_tpu_torch.runtime.obs import live
         self.fw = framework
         self.handle_id = uuid.uuid4().hex
         self.size = batch.device_memory_size()
@@ -69,7 +69,7 @@ class SpillableHandle:
         # per-query ledger key (spark.rapids.query.deviceBudgetBytes):
         # the registering thread's bound query id, so quota enforcement
         # can pick victims from, and charge, the owning query only
-        self.query_id = lifecycle.current_query_id()
+        self.query_id = live.current_query_id()
         self._lock = threading.Lock()
         self._tier = DEVICE
         self._device: Optional[ColumnarBatch] = batch

@@ -246,8 +246,8 @@ class PipelinedIterator:
                  conf=None, label: str = "pipeline",
                  stall_metric=None, producer_metric=None,
                  device: Optional[torch.device] = None):
-        from spark_rapids_tpu_torch.runtime import lifecycle as _lc
         from spark_rapids_tpu_torch.runtime.host_pool import get_host_pool
+        from spark_rapids_tpu_torch.runtime.obs import live as _live
         self._source = source
         self._q: "queue.Queue" = queue.Queue(maxsize=max(1, int(depth)))
         self._ctx = ctx
@@ -260,7 +260,7 @@ class PipelinedIterator:
         # the consumer's bound query id: refills re-bind it (with the
         # TaskContext), so a cancel reaches the producer and its spans
         # attribute to the owning query
-        self._query_id = _lc.current_query_id()
+        self._query_id = _live.current_query_id()
         self._lock = _san.lock("pipeline.iterator")
         self._cancel = False
         self._refill_running = False
@@ -288,10 +288,10 @@ class PipelinedIterator:
         Invariant: _refill_running flips False under the SAME lock hold
         that decides to exit: a consumer that takes the lock afterwards
         either sees an armed refill or may safely arm one."""
-        from spark_rapids_tpu_torch.runtime import lifecycle as _lc
+        from spark_rapids_tpu_torch.runtime.obs import live as _live
         from spark_rapids_tpu_torch.runtime.task import TaskContext
         prev = TaskContext.peek()
-        prev_qid = _lc.bind(self._query_id)
+        prev_qid = _live.bind(self._query_id)
         if self._ctx is not None:
             TaskContext.set_current(self._ctx)
         try:
@@ -309,7 +309,7 @@ class PipelinedIterator:
                         except queue.Full:
                             self._hand = _ProducerError(e)
         finally:
-            _lc.bind(prev_qid)
+            _live.bind(prev_qid)
             if self._ctx is not None:
                 if prev is not None:
                     TaskContext.set_current(prev)

@@ -178,6 +178,7 @@ def _attempt_with_drain(attempt: Callable[[], object], max_retries: int,
     retryBlockTime."""
     from spark_rapids_tpu_torch.runtime import faults, trace
     from spark_rapids_tpu_torch.runtime import lifecycle as _lc
+    from spark_rapids_tpu_torch.runtime.obs import live as _live
     from spark_rapids_tpu_torch.runtime.memory import get_spill_framework
     from spark_rapids_tpu_torch.runtime.task import TaskContext
 
@@ -230,7 +231,7 @@ def _attempt_with_drain(attempt: Callable[[], object], max_retries: int,
                 # per-query quota breach: free only the offending query's
                 # handles, never a neighbor query's batches
                 fw.drain_query(e.query_id if e.query_id is not None
-                               else _lc.current_query_id())
+                               else _live.current_query_id())
             else:
                 fw.drain_all()
             # bounded exponential backoff + jitter before the re-attempt,

@@ -159,6 +159,11 @@ class TpuSemaphore:
         with self._lock:
             if self._holder(task_ctx) is not None:
                 return
+        if task_ctx.completed:
+            # its consumer has unwound (a pipeline producer finishing a
+            # cancelled query's batch): no permit, since nothing would
+            # give it back; the producer stops at its next checkpoint
+            return
         prio = 1 if task_ctx.holds_device_data else 0
         traced = trace.active() is not None
         t0 = time.perf_counter_ns() if traced else 0

@@ -15,10 +15,11 @@ it on exit; the semaphore treats a nested task as covered by a permit
 its parent holds (``runtime/semaphore.py``).
 
 At completion the accumulators roll into the query trace's event log
-(``runtime/trace.on_task_complete``, when a trace is on) and are summed
+(``runtime/trace.on_task_complete``, when a trace is on), fold into the
+live registry (``runtime/obs.on_task_complete``: completed, failed and
+cancelled tasks, and the counters of ``_TASK_COUNTERS``) and are summed
 into the owning query's totals, which the session reads back as
-``last_task_metrics()``; the live registry they also feed in the JAX
-package is a later part of ROADMAP A11.
+``last_task_metrics()``.
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ class TaskContext:
     _local = threading.local()
 
     def __init__(self, partition_id: int = 0, stage_id: int = 0):
-        from spark_rapids_tpu_torch.runtime import lifecycle
+        from spark_rapids_tpu_torch.runtime.obs import live
         with TaskContext._counter_lock:
             TaskContext._counter += 1
             self.task_id = TaskContext._counter
@@ -50,9 +51,13 @@ class TaskContext:
         self.stage_id = stage_id
         self.start_ns = time.perf_counter_ns()
         self._failed = False
+        self._cancelled = False
+        #: set (under _completion_lock) when complete() starts
+        self._done = False
+        self._completion_lock = threading.Lock()
         #: the query this task works for: the constructing thread's bound
         #: query id (task waves bind it before constructing contexts)
-        self.query_id = lifecycle.current_query_id()
+        self.query_id = live.current_query_id()
         self.holds_device_data = False
         #: the context that was current on this thread when this one was
         #: entered (None for a top-level task)
@@ -68,31 +73,47 @@ class TaskContext:
     def metrics_snapshot(self) -> Dict[str, int]:
         return {k: m.value for k, m in self._metrics.items()}
 
+    @property
+    def completed(self) -> bool:
+        return self._done
+
     def on_completion(self, fn: Callable[[], None]) -> None:
-        self._completion.append(fn)
+        """Run fn when the task completes; at once on a task that has
+        already completed (a pipeline producer still inside its source
+        when the consumer's task unwound), as Spark runs a listener
+        added to a completed task."""
+        with self._completion_lock:
+            if not self._done:
+                self._completion.append(fn)
+                return
+        fn()
 
     def complete(self, failed: bool = False,
                  cancelled: bool = False) -> None:
         """Run the completion callbacks (in reverse order of
         registration), then sum the accumulators into the query's
         totals. ``cancelled`` marks a task unwound by its query's cancel
-        token: it did not fail, but it did not complete cleanly
-        either. The port records neither (A11: the JAX package counts
-        cancelled tasks in its obs registry)."""
-        for fn in reversed(self._completion):
+        token: it did not fail, but it must not count as a clean
+        completion either: obs folds it into
+        rapids_tasks_cancelled_total."""
+        with self._completion_lock:
+            self._done = True
+            callbacks, self._completion = self._completion, []
+        for fn in reversed(callbacks):
             try:
                 fn()
             except Exception:  # noqa: BLE001 - the remaining callbacks
                 # (the semaphore release) must still run
                 _LOG.warning("task %d completion callback failed",
                              self.task_id, exc_info=True)
-        self._completion.clear()
         self._failed = failed
-        # the trace's event log after the callbacks, so the semaphore
-        # release's final hold time is in it (A11: the JAX package also
-        # folds the accumulators into its live registry here)
-        from spark_rapids_tpu_torch.runtime import trace
+        self._cancelled = cancelled
+        # the trace's event log and the live registry after the
+        # callbacks, so the semaphore release's final hold time is in
+        # both: ONE write batch per task
+        from spark_rapids_tpu_torch.runtime import obs, trace
         trace.on_task_complete(self)
+        obs.on_task_complete(self)
         if self.query_id is not None and self._metrics:
             snap = self.metrics_snapshot()
             with _TOTALS_LOCK:

@@ -34,9 +34,15 @@ same as tracing off.
 Config surface (spark.rapids.sql.trace.*): enabled, path, level,
 taskMetrics — see config.py. The tracer's two locks are the sanitizer's
 (``analysis/sanitizer.py``), and an exec span carries the operator's LORE
-id (``runtime/lore.py``) when it has one. The JAX package's flight
-recorder, per-request tail sampling and the live registry hook in here
-too; they are later parts of ROADMAP A11.
+id (``runtime/lore.py``) when it has one.
+
+The always-on flight recorder (``runtime/obs/flight.py``) shares these
+instrumentation points: a span or instant the tracer is not consuming
+(tracing off, or above the configured level) still lands in the bounded
+per-thread ring unless it is DEBUG, so a failure can dump a retroactive
+timeline; with the recorder off each hook costs one more module-global
+read. Traced events carry the emitting thread's bound query id
+(``runtime/obs/live.py``).
 """
 from __future__ import annotations
 
@@ -48,6 +54,9 @@ from typing import Dict, List, Optional
 
 from spark_rapids_tpu_torch.analysis import sanitizer as _san
 from spark_rapids_tpu_torch.runtime.metrics import DEBUG, ESSENTIAL, MODERATE
+# the flight recorder: _flight._REC is None when it is off
+from spark_rapids_tpu_torch.runtime.obs import flight as _flight
+from spark_rapids_tpu_torch.runtime.obs import live as _live
 
 __all__ = ["DEBUG", "ESSENTIAL", "MODERATE", "Tracer", "active",
            "metric_span", "exec_span", "span", "instant", "emit_span",
@@ -66,8 +75,8 @@ TASK_METRIC_NAMES = (
     "shuffleCorruptionRetries",
 )
 
-# A11 (later parts): the JAX package's flight recorder, per-request tail
-# sampling and live registry also consume these instrumentation points
+# A11f: per-request tail sampling also consumes these instrumentation
+# points in the JAX package
 _TRACER: "Optional[Tracer]" = None
 _STATE_LOCK = _san.lock("trace.state")
 _QUERY_SEQ = 0
@@ -95,9 +104,6 @@ class Tracer:
 
     def __init__(self, out_dir: str, level: int = MODERATE,
                  task_metrics: bool = True, query_id: int = 0):
-        from spark_rapids_tpu_torch.runtime.lifecycle import (
-            current_query_id,
-        )
         from spark_rapids_tpu_torch.runtime.task import TaskContext
         self.out_dir = out_dir
         self.level = level
@@ -110,7 +116,7 @@ class Tracer:
         self._events: List[dict] = []
         self._task_records: List[dict] = []
         self._named_tids: set = set()
-        self._current_query_id = current_query_id
+        self._current_query_id = _live.current_query_id
         self._task_peek = TaskContext.peek
         # record_function forwarding (torch.profiler interplay)
         try:
@@ -242,16 +248,18 @@ class _Span:
     NvtxWithMetrics contract) and emits a complete event; opens a
     torch.profiler range of the same name."""
 
-    __slots__ = ("tracer", "name", "metric", "cat", "args", "t0", "_ann")
+    __slots__ = ("tracer", "name", "metric", "cat", "args", "t0", "_ann",
+                 "level")
 
     def __init__(self, tracer: Tracer, name: str, metric, cat: str,
-                 args: Optional[dict]):
+                 args: Optional[dict], level: int = MODERATE):
         self.tracer = tracer
         self.name = name
         self.metric = metric
         self.cat = cat
         self.args = dict(args) if args else {}
         self._ann = None
+        self.level = level
 
     def __enter__(self):
         ann_cls = self.tracer._annotation
@@ -275,6 +283,12 @@ class _Span:
             self.metric.add(dur)
         self.tracer.complete(self.name, self.t0, dur, self.cat,
                              self.args or None)
+        # traced spans also feed the flight ring, so a dump taken while
+        # tracing is on still covers the current query (DEBUG filtered,
+        # as at every flight entry point)
+        fr = _flight._REC
+        if fr is not None and self.level < DEBUG:
+            fr.record(self.name, self.cat, self.t0, dur, self.args or None)
         return False
 
 
@@ -296,8 +310,11 @@ def metric_span(name: str, metric, cat: str = "exec",
     lvl = level if level is not None else getattr(metric, "level",
                                                   MODERATE)
     if tr is None or lvl > tr.level:
+        fr = _flight._REC
+        if fr is not None and lvl < DEBUG:
+            return fr.span(name, metric, cat)
         return metric.ns() if metric is not None else _NULL
-    return _Span(tr, name, metric, cat, args)
+    return _Span(tr, name, metric, cat, args, level=lvl)
 
 
 def exec_span(node, metric, name: Optional[str] = None):
@@ -307,10 +324,15 @@ def exec_span(node, metric, name: Optional[str] = None):
     reconcile the two)."""
     tr = _TRACER
     if tr is None or metric.level > tr.level:
+        fr = _flight._REC
+        if fr is not None and metric.level < DEBUG:
+            return fr.span(name or f"{type(node).__name__}.{metric.name}",
+                           metric, "exec")
         return metric.ns()
     lid = getattr(node, "lore_id", None)
     return _Span(tr, name or f"{type(node).__name__}.{metric.name}",
-                 metric, "exec", None if lid is None else {"lore_id": lid})
+                 metric, "exec", None if lid is None else {"lore_id": lid},
+                 level=metric.level)
 
 
 def span(name: str, cat: str = "runtime", args: Optional[dict] = None,
@@ -318,8 +340,11 @@ def span(name: str, cat: str = "runtime", args: Optional[dict] = None,
     """Metric-less span (async writes, report-only ranges)."""
     tr = _TRACER
     if tr is None or level > tr.level:
+        fr = _flight._REC
+        if fr is not None and level < DEBUG:
+            return fr.span(name, None, cat)
         return _NULL
-    return _Span(tr, name, None, cat, args)
+    return _Span(tr, name, None, cat, args, level=level)
 
 
 def instant(name: str, cat: str = "runtime", args: Optional[dict] = None,
@@ -327,6 +352,9 @@ def instant(name: str, cat: str = "runtime", args: Optional[dict] = None,
     tr = _TRACER
     if tr is not None and level <= tr.level:
         tr.instant(name, cat, args)
+    fr = _flight._REC
+    if fr is not None and level < DEBUG:
+        fr.instant(name, cat, args)
 
 
 def emit_span(name: str, t0_ns: int, dur_ns: int, cat: str = "exec",
@@ -336,6 +364,9 @@ def emit_span(name: str, t0_ns: int, dur_ns: int, cat: str = "exec",
     tr = _TRACER
     if tr is not None and level <= tr.level:
         tr.complete(name, t0_ns, dur_ns, cat, args)
+    fr = _flight._REC
+    if fr is not None and level < DEBUG:
+        fr.record(name, cat, t0_ns, dur_ns, args)
 
 
 def on_task_complete(ctx) -> None:

@@ -154,9 +154,21 @@ class CircuitBreaker:
                 "error": error_class}, level=trace.ESSENTIAL)
         except Exception:  # noqa: BLE001 - breaker must not need a tracer
             pass
-        # A11: the JAX package also counts rapids_breaker_transitions_total
-        # and dumps the flight rings when the breaker opens
+        try:
+            from spark_rapids_tpu_torch.runtime import obs
+            st = obs.state()
+            if st is not None:
+                st.registry.counter(
+                    "rapids_breaker_transitions_total",
+                    "Circuit-breaker state transitions",
+                    labels={"to": to_state}).inc()
+        except Exception:  # noqa: BLE001 - breaker must not need obs
+            pass
         if to_state == OPEN:
+            # an opening breaker is a failure-domain event: capture the
+            # timeline that led here (flight.dump never raises)
+            from spark_rapids_tpu_torch.runtime.obs import flight
+            flight.dump("breaker_open", error=error_class or None)
             log.warning("circuit breaker OPEN for backend %s (after %s); "
                         "queries degrade to CPU while open",
                         self.backend, error_class or "failures")
@@ -260,9 +272,21 @@ class DispatchWatchdog:
                 "thread": thread_name}, level=trace.ESSENTIAL)
         except Exception:  # noqa: BLE001 - watchdog must not need a tracer
             pass
-        # A11: the JAX package also counts
-        # rapids_watchdog_dispatch_timeouts_total and dumps the flight
-        # rings here
+        try:
+            from spark_rapids_tpu_torch.runtime import obs
+            st = obs.state()
+            if st is not None:
+                st.registry.counter(
+                    "rapids_watchdog_dispatch_timeouts_total",
+                    "Device dispatches that exceeded the watchdog "
+                    "deadline").inc()
+        except Exception:  # noqa: BLE001 - watchdog must not need obs
+            pass
+        # the wedge's retroactive timeline: dump the flight rings now,
+        # while the events leading into the stuck dispatch are still in
+        # the buffers (flight.dump never raises)
+        from spark_rapids_tpu_torch.runtime.obs import flight
+        flight.dump("watchdog_timeout", error="DispatchTimeout")
         breaker().record_failure("DispatchTimeout")
 
 

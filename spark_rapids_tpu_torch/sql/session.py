@@ -22,8 +22,16 @@ the dispatch watchdog and breaker, the spill budgets), a top-level
 failure degrades to the CPU backend. ``last_metrics()`` is every
 operator's metrics of the last action; with spark.rapids.sql.trace.enabled
 each action writes its trace (``runtime/trace.py``), whose paths are
-``last_trace_paths``. The live query registry, history, attribution and
-the rest of the query epilogue are later parts of ROADMAP A11.
+``last_trace_paths``.
+
+The live layer (``runtime/obs``, on by default) installs with the first
+session: a top-level action takes a positive query id from
+``obs.on_query_start`` and walks the live states (queued, planning,
+executing, finishing, then its status), its exec tree attaches to the
+live context in ``prepare_execution`` (``running_queries()``), and the
+epilogue publishes it with ``obs.on_query_end``, after a flight dump when
+the action failed, degraded or was cancelled. The query history,
+attribution and the rest of the JAX package's epilogue are ROADMAP A11d.
 """
 from __future__ import annotations
 
@@ -121,6 +129,11 @@ class TorchSession:
         #: the artifacts of the last traced action ({"trace", "events",
         #: "metrics"} paths), None when it wrote none
         self.last_trace_paths: Optional[Dict[str, str]] = None
+        # live observability (spark.rapids.obs.*): the process-wide
+        # registry, flight recorder and sampler, the endpoint when
+        # spark.rapids.obs.port is set (its probe on this device)
+        from spark_rapids_tpu_torch.runtime import obs
+        obs.install(self.conf, self.device)
 
     def _activate(self) -> None:
         """Make this session's conf the thread's, as the JAX package's
@@ -252,6 +265,14 @@ class TorchSession:
         get_spill_framework(self.conf, self.device)
         root, meta = convert_plan(plan, self.conf, self.device)
         self.last_exec, self.last_meta = root, meta
+        # attach the converted tree to THIS query's live context (the
+        # thread's bound query id), so /queries progress walks the
+        # query's own operators; the first attach wins, so a nested
+        # collect does not clobber the outer tree
+        from spark_rapids_tpu_torch.runtime.obs import live
+        qc = live.current_context()
+        if qc is not None:
+            qc.attach_exec(root)
         return root, meta
 
     def last_metrics(self) -> Dict[str, Dict[str, int]]:
@@ -280,7 +301,10 @@ class TorchSession:
         ``last_action_status``: (``ok``|``failed``|``degraded``|
         ``cancelled``, the reason or None). A nested collect propagates
         its failure to the outer query, which degrades whole."""
+        import time
+
         from spark_rapids_tpu_torch.runtime import lifecycle as LC
+        from spark_rapids_tpu_torch.runtime import obs as OBS
         from spark_rapids_tpu_torch.runtime import task as TK
         # one structured trace per action (spark.rapids.sql.trace.*); a
         # nested collect (a scalar subquery, a broadcast materialization)
@@ -290,29 +314,49 @@ class TorchSession:
             # another query owns the tracer: this action writes no
             # artifacts of its own, and must not show a previous one's
             self.last_trace_paths = None
-        if qt is not None:
-            # a failure before the plan converts must snapshot nothing
-            # of the previous action's operators into this trace
+        depth = getattr(_COLLECT_DEPTH, "d", 0)
+        # the live token: None with obs off, NESTED for a nested collect,
+        # else a fresh positive query id. The digest is taken up front so
+        # the live registry and the queryStart marker carry it while the
+        # query runs
+        start_digest = None
+        if depth == 0:
+            try:
+                start_digest = OBS.plan_digest(plan)
+            except Exception:  # noqa: BLE001 - an undigestable plan
+                pass  # still runs and registers
+        ot = OBS.on_query_start(plan_digest=start_digest,
+                                sql=getattr(plan, "_sql_text", None))
+        if qt is not None or (ot is not None and ot is not OBS.NESTED):
+            # a failure before the plan converts must snapshot or publish
+            # nothing of the previous action's operators
             self.last_exec = None
+        t0 = time.perf_counter_ns()
+        wall0 = time.time()
         status = "ok"
         error: Optional[BaseException] = None
         degraded_reason: Optional[str] = None
         cancel_reason: Optional[str] = None
         tok = None  # this action's cancel token (top level only)
-        depth = getattr(_COLLECT_DEPTH, "d", 0)
         _COLLECT_DEPTH.d = depth + 1
         if depth == 0:
             AQ.on_query_start(self.conf)
-            # the trace's t0 marker of every top-level action
-            TR.instant("queryStart", cat="query", level=TR.ESSENTIAL)
+            # the t0 marker of every top-level action, traced or not (the
+            # flight ring records it too)
+            TR.instant("queryStart", cat="query", args={
+                "query_id": ot if isinstance(ot, int) else None,
+                "plan_digest": start_digest}, level=TR.ESSENTIAL)
         cpu_gate_failed = False
         try:
             if depth == 0:
                 # the token registers first, so a query is cancellable
-                # while it waits for admission
-                tok = LC.begin_action(None, self.conf,
+                # while it waits for admission; its id is the live one
+                # (positive) when obs minted it
+                tok = LC.begin_action(ot if isinstance(ot, int) else None,
+                                      self.conf,
                                       timeout_seconds=timeout_seconds)
                 LC.admit(tok, self.conf)
+                self._live_transition(ot, "planning")
             if depth == 0 and self._fallback_enabled():
                 from spark_rapids_tpu_torch.runtime import watchdog as WD
                 brk = WD.peek_breaker()
@@ -348,31 +392,72 @@ class TorchSession:
             return fallback
         finally:
             _COLLECT_DEPTH.d = depth
+            flight_dump = None
             if depth == 0:
                 #: (status, reason) of the most recent top-level action
                 self.last_action_status = (status,
                                            degraded_reason or cancel_reason)
                 # the token leaves the registry and its admission slot
-                # releases (A11: the obs epilogue follows in the JAX
-                # package)
+                # releases before the epilogue, which runs with the query
+                # visible as `finishing`
                 LC.finish_action(tok, status)
+                self._live_transition(ot, "finishing")
                 self._last_task_metrics = TK.take_query_totals(
                     tok.query_id) if tok is not None else {}
                 self._last_aqe = AQ.finish_query()
-                self._outcome_instant(status, error, degraded_reason,
-                                      cancel_reason)
+                if status != "ok":
+                    self._outcome_instant(ot, status, error,
+                                          degraded_reason, cancel_reason)
+                    # the failing query's timeline, retroactively, even
+                    # with tracing off (flight.dump never raises)
+                    from spark_rapids_tpu_torch.runtime.obs import flight
+                    flight_dump = flight.dump(
+                        "query_" + status,
+                        query_id=ot if isinstance(ot, int) else None,
+                        error=(type(error).__name__ if error is not None
+                               else degraded_reason))
             if qt is not None:
                 self._end_trace(qt, status, error)
+            if ot is not None:
+                try:
+                    OBS.on_query_end(
+                        ot, session=self, plan=plan, status=status,
+                        error=error,
+                        duration_ns=time.perf_counter_ns() - t0,
+                        wall_start_unix=wall0,
+                        trace_paths=(self.last_trace_paths
+                                     if qt is not None else None),
+                        degraded_reason=degraded_reason,
+                        flight_dump=flight_dump)
+                except Exception:  # noqa: BLE001
+                    _LOG.warning("failed to publish query to obs",
+                                 exc_info=True)
 
-    def _outcome_instant(self, status, error, degraded_reason,
+    @staticmethod
+    def _live_transition(ot, state: str) -> None:
+        """Move a top-level query's live context to ``state`` (no-op with
+        obs or progress off; the registry is advisory and never fails a
+        query)."""
+        if not isinstance(ot, int):
+            return
+        from spark_rapids_tpu_torch.runtime.obs import live
+        try:
+            qc = live.get(ot)
+            if qc is not None:
+                qc.transition(state)
+        except Exception:  # noqa: BLE001
+            pass
+
+    def _outcome_instant(self, ot, status, error, degraded_reason,
                          cancel_reason) -> None:
-        """The trace's terminal marker of a top-level action that did not
-        end ``ok``: why the timeline ends where it does. Never raises."""
+        """The terminal marker of a top-level action that did not end
+        ``ok`` (trace and flight ring): why the timeline ends where it
+        does. Never raises."""
         try:
             if status == "cancelled":
-                TR.instant("queryCancelled", cat="query",
-                           args={"reason": cancel_reason},
-                           level=TR.ESSENTIAL)
+                TR.instant("queryCancelled", cat="query", args={
+                    "query_id": ot if isinstance(ot, int) else None,
+                    "reason": cancel_reason}, level=TR.ESSENTIAL)
             elif status == "degraded":
                 TR.instant("queryDegraded", cat="query", args={
                     "reason": degraded_reason,
@@ -408,13 +493,24 @@ class TorchSession:
 
     def cancel(self, query_id, reason: str = "user") -> bool:
         """Cooperatively cancel an in-flight top-level query by id (the
-        ids ``runtime.lifecycle.token_ids()`` lists). Threads parked on
+        ids ``running_queries()`` and the /queries endpoint report; also
+        POST /queries/<id>/cancel). Threads parked on
         the semaphore, the admission queue or a retry backoff wake at
         once, and the next checkpoint raises QueryCancelledError, which
         unwinds through normal task completion. False when no such query
         is in flight."""
         from spark_rapids_tpu_torch.runtime import lifecycle as LC
         return LC.cancel(query_id, reason=reason)
+
+    def running_queries(self) -> List[dict]:
+        """Live progress snapshots of every in-flight top-level query in
+        this PROCESS (``runtime/obs/live.py``; the registry is process-
+        wide, like the endpoint it feeds): query id, state, elapsed,
+        per-exec batches and rows, %-complete and ETA. Sync-free: a
+        snapshot never reads a row count off the card. Empty when obs or
+        progress tracking is off."""
+        from spark_rapids_tpu_torch.runtime.obs import live
+        return live.running_docs(with_execs=True)
 
     def last_task_metrics(self) -> Dict[str, int]:
         """The task accumulators (the names in ``runtime/metrics.py``)

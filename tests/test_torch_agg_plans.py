@@ -347,7 +347,26 @@ def test_merge_of_partial_sums_with_an_outlier_is_exact(monkeypatch):
     of 2^6, up to ~53 off (its update, on the tiny-bucket route, adds
     plain floats, as a complete pass does). The port's merge takes the
     update's route order, so its partial -> collect -> final is held to
-    pyarrow's sums; the wrong JAX answers are asserted, not copied."""
+    pyarrow's sums; the wrong JAX answers are asserted, not copied.
+
+    The JAX package merges partial states between the batches of ONE
+    partition too, and there it can lose a whole sum: two batches of 2
+    rows, group b holding 1.5 and 2.25, then 3.0 beside a = 1e20. The
+    port answers 6.75, the JAX package 0.0."""
+    small = pa.table({"k": ["b", "b", "b", "a"],
+                      "v": [1.5, 2.25, 3.0, 1e20]})
+    two_rows = {"spark.rapids.sql.reader.batchSizeRows": 2}
+    got = {}
+    for name, api in (("port", torch_api()), ("jax", jax_api())):
+        s = api.session(two_rows)
+        r = s.create_dataframe(small).group_by("k").agg(
+            api.F.sum(api.col("v")).alias("x")).collect()
+        got[name] = dict(zip(r["k"].to_pylist(), r["x"].to_pylist()))
+        if name == "port":
+            assert dict(s.last_metrics())["InMemoryScanExec#2"][
+                "numOutputBatches"] == 2
+    assert got == {"port": {"b": 6.75, "a": 1e20},
+                   "jax": {"b": 0.0, "a": 1e20}}
     monkeypatch.setattr(O, "COLLECT_COMPLETE_MAX_ROWS", 0)
     rng = np.random.default_rng(5)
     v = rng.uniform(-1000, 1000, 5000)

@@ -388,6 +388,39 @@ def test_semaphore_nested_task_runs_under_parent_permit():
     assert sem.available == 1 and sem.held() == 0
 
 
+def test_late_pipeline_producer_takes_no_permit_for_a_completed_task():
+    """A pipeline producer still inside its source when the consumer's
+    task unwound (a deadline fired mid-scan) reaches the scan's acquire
+    for a task that has completed: it takes no permit, since nothing
+    would give it back. A callback registered on a completed task runs
+    at once (ROADMAP C25)."""
+    from spark_rapids_tpu_torch.runtime.pipeline import PipelinedIterator
+    from spark_rapids_tpu_torch.runtime.semaphore import TpuSemaphore
+    from spark_rapids_tpu_torch.runtime.task import TaskContext
+    sem = TpuSemaphore(1)
+    gate, reached = threading.Event(), threading.Event()
+
+    def source():
+        yield 1
+        gate.wait(10)
+        sem.acquire_if_necessary(TaskContext.peek())  # the scan's _acquire
+        reached.set()
+        yield 2
+
+    with TaskContext() as ctx:
+        sem.acquire_if_necessary(ctx)
+        pit = PipelinedIterator(source(), depth=1, ctx=ctx)
+        assert next(iter(pit)) == 1
+    assert sem.available == 1
+    gate.set()
+    assert reached.wait(10)
+    pit.close()
+    assert sem.available == 1 and sem.held() == 0
+    ran = []
+    ctx.on_completion(lambda: ran.append("late"))
+    assert ran == ["late"]
+
+
 # ---------------------------------------------------------------------------
 # deadlines
 # ---------------------------------------------------------------------------
@@ -587,14 +620,18 @@ def test_cancel_while_queued_for_admission_end_to_end():
     thb, boxb = _run_async(df)
     _wait_for(lambda: LC.gate().doc()["queued"] == 1,
               what="second query queued")
-    # local ids count down: the younger (queued) token is the smaller
-    qb = min(LC.token_ids())
+    # the live registry's ids count up: the younger token is the queued
+    # one, shown in the `queued` state while it waits
+    qb = max(LC.token_ids())
+    from spark_rapids_tpu_torch.runtime.obs import live
+    qcb = live.get(qb)
+    assert qcb is not None and qcb.state == "queued"
     assert sess.cancel(qb)
     thb.join(10)
     assert boxb["outcome"] == "raised"
     assert isinstance(boxb["error"], QueryCancelledError)
     # the running query is untouched by its neighbor's cancellation
-    sess.cancel(max(LC.token_ids() or [0]))  # now cancel A too (speed)
+    sess.cancel(min(LC.token_ids() or [0]))  # now cancel A too (speed)
     tha.join(15)
     assert boxa["outcome"] in ("ok", "raised")
 

@@ -212,3 +212,73 @@ def test_ansi_invalid_input_raises_in_both(case, tables):
     ok = pa.table({"s": ["1", " 2 ", None, "2020"] * 20})
     got, want = _run(ok, lambda a: [PARSES[case](a).alias("v")], ANSI)
     _same(got, want)
+
+
+# ---------------------------------------------------------------------------
+# ROADMAP C22: a float cast to a long saturates on the CPU backend too
+# ---------------------------------------------------------------------------
+
+_SATURATING = [np.inf, -np.inf, 1e300, 2.0 ** 63, 9.3e18, np.nan]
+_LONG_MAX, _LONG_MIN = 2 ** 63 - 1, -(2 ** 63)
+#: Spark's answers: truncated, saturated at the long range, NaN to 0
+_SPARK_LONGS = [_LONG_MAX, _LONG_MIN, _LONG_MAX, _LONG_MAX, _LONG_MAX, 0]
+#: the JAX package's CPU backend clips to 2.0**63, which converts to the
+#: long minimum (ROADMAP C22, a fault of the reference)
+_JAX_CPU_LONGS = [_LONG_MIN, _LONG_MIN, _LONG_MIN, _LONG_MIN, _LONG_MIN, 0]
+
+TO_LONG = {
+    "cast_d": lambda a: a.col("d").cast(a.T.INT64),
+    "ceil_d": lambda a: a.F.ceil(a.col("d")),
+    "floor_d": lambda a: a.F.floor(a.col("d")),
+    "cast_f": lambda a: a.col("f").cast(a.T.INT64),
+}
+
+
+def _saturating_table():
+    return pa.table({"d": pa.array(_SATURATING, pa.float64()),
+                     "f": pa.array(_SATURATING, pa.float32())})
+
+
+@pytest.mark.parametrize("case", list(TO_LONG))
+def test_float_to_long_saturates_on_both_backends_c22(case):
+    from spark_rapids_tpu.exec.cpu_backend import execute_cpu as jax_cpu
+
+    from spark_rapids_tpu_torch.exec.cpu_backend import execute_cpu
+    t = _saturating_table()
+    tapi, japi = torch_api(), jax_api()
+    df = tapi.session().create_dataframe(t).select(
+        TO_LONG[case](tapi).alias("v"))
+    assert df.collect()["v"].to_pylist() == _SPARK_LONGS
+    assert execute_cpu(df.plan, False)["v"].to_pylist() == _SPARK_LONGS
+    jdf = japi.session().create_dataframe(t).select(
+        TO_LONG[case](japi).alias("v"))
+    assert jdf.collect()["v"].to_pylist() == _SPARK_LONGS
+    assert jax_cpu(jdf.plan, False)["v"].to_pylist() == _JAX_CPU_LONGS
+
+
+def test_float_to_long_beside_a_row_udf_c22():
+    """A Project holding a row UDF runs on the CPU backend, so the cast
+    beside it takes the CPU conversion; under ANSI exactly 2**63 raises
+    on neither backend and answers the long maximum, as Spark does."""
+    from spark_rapids_tpu.exec.cpu_backend import execute_cpu as jax_cpu
+
+    from spark_rapids_tpu_torch.exec.cpu_backend import execute_cpu
+    t = _saturating_table()
+    got = {}
+    for name, api in (("port", torch_api()), ("jax", jax_api())):
+        u = api.udf(lambda x: 1.0, api.T.FLOAT64)
+        s = api.session()
+        df = s.create_dataframe(t).select(
+            api.col("d").cast(api.T.INT64).alias("c"),
+            u(api.col("d")).alias("u"))
+        got[name] = df.collect()["c"].to_pylist()
+        if name == "port":
+            assert "CpuFallbackExec" in s.last_exec.tree_string()
+    assert got == {"port": _SPARK_LONGS, "jax": _JAX_CPU_LONGS}
+    edge = pa.table({"d": pa.array([2.0 ** 63], pa.float64())})
+    for api, cpu, want_cpu in ((torch_api(), execute_cpu, _LONG_MAX),
+                               (jax_api(), jax_cpu, _LONG_MIN)):
+        df = api.session(ANSI).create_dataframe(edge).select(
+            api.col("d").cast(api.T.INT64).alias("c"))
+        assert df.collect()["c"].to_pylist() == [_LONG_MAX]
+        assert cpu(df.plan, True)["c"].to_pylist() == [want_cpu]

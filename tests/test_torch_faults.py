@@ -427,9 +427,10 @@ def test_spill_disk_fault_degrades(tmp_path):
 # ---------------------------------------------------------------------------
 
 def _non_service_threads():
-    # the shared host pool's workers live for the process, as the JAX
-    # package's test allows
-    allowed = ("rapids-host-pool", "rapids-watchdog",
+    # the shared host pool's workers live for the process and the live
+    # layer's threads are the obs layer's concern, as the JAX package's
+    # test allows
+    allowed = ("rapids-host-pool", "rapids-obs", "rapids-watchdog",
                "rapids-query-deadline")
     return {t.name for t in threading.enumerate()
             if not t.name.startswith(allowed)}

@@ -158,9 +158,25 @@ def _bits(col):
     return np.asarray(col.to_numpy(zero_copy_only=False))
 
 
+#: the float-to-long columns of ``_exact``: at +inf and at or above
+#: 2^63 the JAX package's CPU backend answers the long minimum (ROADMAP
+#: C22, a fault of the reference); the port's saturates, as both device
+#: paths and Spark do
+C22_COLUMNS = ["floor_x", "ceil_x", "ceil_f"]
+
+
 @pytest.mark.parametrize("backend", ["device", "cpu_backend"])
 def test_exact_math_equals_jax(backend, table):
     got, want = _run(_select(_exact), table, backend == "cpu_backend")
+    if backend == "cpu_backend":
+        device, _ = _run(_select(_exact), table)
+        for name in C22_COLUMNS:
+            g, w = got[name].to_pylist(), want[name].to_pylist()
+            assert g == device[name].to_pylist(), name
+            diff = [i for i in range(len(g)) if g[i] != w[i]]
+            assert diff and all(g[i] == 2 ** 63 - 1 and w[i] == -2 ** 63
+                                for i in diff), name
+        got, want = got.drop(C22_COLUMNS), want.drop(C22_COLUMNS)
     assert_tables_equal(got, want)
     for name in got.schema.names:
         g, w = got[name], want[name]

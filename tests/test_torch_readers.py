@@ -297,3 +297,46 @@ def test_smoke_reader_shapes(formats_files, shape, device_decode):
     if shape == "fm_hive_pruned":
         scan, = _scan(s)
         assert (len(scan._kept_files), len(scan.plan.paths)) == (2, 6)
+
+
+# -- ROADMAP C24: a string partition column used as a boolean --------------
+
+def _bool_partitions(tmp_path):
+    root = tmp_path / "flags"
+    for b in ("true", "false"):
+        d = root / f"b={b}"
+        d.mkdir(parents=True)
+        pq.write_table(_t(6, seed=len(b)).drop(["k"]),
+                       str(d / "part-0.parquet"))
+    return str(root)
+
+
+def test_string_partition_column_as_a_boolean_c24(tmp_path):
+    """Both packages type a hive column of true/false values STRING, as
+    Spark does. A filter on it alone is Spark's analysis error
+    DATATYPE_MISMATCH.FILTER_NOT_BOOLEAN, raised by the port when the
+    plan is built; ``b == true`` casts the string to a boolean, by Spark's
+    coercion, and answers the true partition's rows. The JAX package
+    fails both at run time on its device (a fault of the reference)."""
+    from spark_rapids_tpu_torch.expr.core import SparkException
+    root = _bool_partitions(tmp_path)
+    api = torch_api()
+    df = api.session().read_parquet(root)
+    assert df.plan.schema.types[-1] == api.T.STRING
+    with pytest.raises(SparkException, match="FILTER_NOT_BOOLEAN"):
+        df.filter(api.col("b"))
+    for dev in (True, False):
+        s = api.session({DECODE: dev})
+        df = s.read_parquet(root).filter(
+            api.col("b") == api.lit(True)).select(api.col("i"), api.col("b"))
+        got = df.collect()
+        assert_tables_equal(got, df.collect_cpu(), ignore_order=True)
+        want = _t(6, seed=len("true"))["i"].to_pylist()
+        assert sorted(got["i"].to_pylist()) == sorted(want)
+        assert set(got["b"].to_pylist()) == {"true"}
+    japi = jax_api()
+    jdf = japi.session().read_parquet(root)
+    with pytest.raises(AttributeError, match="astype"):
+        jdf.filter(japi.col("b")).collect()
+    with pytest.raises(Exception, match="string indexing"):
+        jdf.filter(japi.col("b") == japi.lit(True)).collect()

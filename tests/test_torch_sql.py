@@ -265,3 +265,58 @@ def test_datetime_names_reach_the_port_like_jax(query, sessions):
     through sql/functions.py, as in the JAX package."""
     port, ref = sessions["main"]
     assert_tables_equal(port.sql(query).collect(), ref.sql(query).collect())
+
+
+# ---------------------------------------------------------------------------
+# ROADMAP C23: column resolution under spark.sql.caseSensitive
+# ---------------------------------------------------------------------------
+
+def _case_frames(api, conf, table):
+    s = api.session(conf)
+    df = s.create_dataframe(table)
+    s.create_or_replace_temp_view("ct", df)
+    return s, df
+
+
+@pytest.mark.parametrize("form", ["dataframe", "sql"])
+def test_case_sensitive_resolution_c23(form):
+    """With spark.sql.caseSensitive=true only the exact name resolves, in
+    both packages; at the default (false) any case resolves."""
+    t = pa.table({"Abc": [1, 2, 3]})
+    for api in (torch_api(), jax_api()):
+        for conf, ok in (({"spark.sql.caseSensitive": "true"}, False),
+                         (None, True)):
+            s, df = _case_frames(api, conf, t)
+
+            def run(name):
+                if form == "sql":
+                    return s.sql(f"select {name} from ct").collect()
+                return df.select(api.col(name)).collect()
+            assert run("Abc")["Abc"].to_pylist() == [1, 2, 3]
+            if ok:
+                assert run("ABC").column(0).to_pylist() == [1, 2, 3]
+            else:
+                with pytest.raises(KeyError, match="not found"):
+                    run("ABC")
+
+
+@pytest.mark.parametrize("form", ["dataframe", "sql"])
+def test_names_that_differ_in_case_are_ambiguous_c23(form):
+    """Over columns ``Abc`` and ``abc`` at the default, Spark raises
+    AMBIGUOUS_REFERENCE; so does the port. The JAX package answers the
+    first match, ``Abc``'s values (a fault of the reference). Case-sensitive, each
+    name resolves to its own column in both."""
+    t = pa.table({"Abc": [1, 2], "abc": [10, 20]})
+
+    def run(api, conf):
+        s, df = _case_frames(api, conf, t)
+        if form == "sql":
+            return s.sql("select abc from ct").collect()
+        return df.select(api.col("abc")).collect()
+    with pytest.raises(SparkException, match="AMBIGUOUS_REFERENCE"):
+        run(torch_api(), None)
+    jax = run(jax_api(), None)
+    assert jax.column(0).to_pylist() == [1, 2]
+    cs = {"spark.sql.caseSensitive": "true"}
+    for api in (torch_api(), jax_api()):
+        assert run(api, cs)["abc"].to_pylist() == [10, 20]

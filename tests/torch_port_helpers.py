@@ -1759,8 +1759,9 @@ def reset_torch_runtime() -> None:
     autouse fixture does for the JAX package: the semaphore, the spill
     framework, the OOM injector and the retry backoff, the fault schedule,
     the watchdog and breaker, the cancel tokens, the admission gate and
-    the deadline sweeper, the per-query task totals and the thread's
-    query binding."""
+    the deadline sweeper, the per-query task totals, the thread's
+    query binding, and the live layer (the obs registry, endpoint and
+    sampler thread, the live query registry, the flight recorder)."""
     from spark_rapids_tpu_torch import config as TC
     from spark_rapids_tpu_torch.runtime import faults, lifecycle, task
     from spark_rapids_tpu_torch.runtime import watchdog
@@ -1777,6 +1778,10 @@ def reset_torch_runtime() -> None:
     lifecycle.bind(None)
     task.reset_for_tests()
     TC.set_session_conf(None)
+    from spark_rapids_tpu_torch.runtime import obs
+    from spark_rapids_tpu_torch.runtime.obs import flight
+    obs.shutdown_for_tests()
+    flight.uninstall_for_tests()
 
 
 # ---------------------------------------------------------------------------
