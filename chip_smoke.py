@@ -327,6 +327,32 @@ Phases, one JSON line each:
    fault's flight dump (a Chrome trace with the query's queryStart
    marker and id) and an SLO breach's (a tiny slo.latencySeconds after
    slo.minRuns runs).
+17g. history (after the obs phase, on its caches and Parquet file, at
+   the defaults and in test mode): q1, q3join_shuffled, pq_repart_agg and
+   pctl_shuffled (8 partitions: its exchange launches B1) each run with
+   the live layer off and the attribution fold patched out ("plain",
+   warm only: the caches are warm), at the defaults ("default") and with
+   spark.rapids.obs.historyDir set ("history"), these two once cold and
+   once warm, every warm run under torch.profiler's CUDA activity. Checked: every answer right and
+   equal across the modes, the same launches; every top-level action's
+   wall-time attribution whose buckets sum to its wall within 1%, and
+   rapids_query_seconds_bucket summing to the default runs' walls; the
+   default runs' copy calls, cuda*Synchronize calls and device-to-host
+   copies equal to the plain runs' (the attribution reads no device
+   value); every history record ok, with its query's plan digest, an
+   annotated plan, buckets summing to its wall, and row counts equal to
+   last_metrics() after the run. Then a copy of pctl_shuffled's record
+   with a dispatch-bound shuffle verdict is appended and the query runs
+   again: its ShuffleExchangeExec must become a CollectExchangeExec,
+   last_aqe() must hold the measured_cost decision and the answer must
+   equal the uncollapsed one sorted by key (and numpy's). Last, q1's
+   explain("analyze") (rows, batches, time, the attribution section)
+   and to_device_batches() (CUDA tensors, the collect's rows, and at
+   least one device-to-host copy per result column fewer than the
+   collect: no column plane comes down). Printed per query: warm ms,
+   device ms and idle share, copies and syncs per mode, what history on
+   adds, the buckets in ms; the collapse's warm ms and B1 launches before
+   and after.
 18. runtime (last, after the fallback phase, so that its small budgets,
    injected faults and open breaker touch no earlier phase; on the joins
    phase's lineitem caches h1 (1 partition) and h8 (8), the Parquet file
@@ -384,14 +410,19 @@ Depth cuts (to keep the script within its time with the pipeline
 phase): the regex, nested and formats phases take one warm run after
 the cold one instead of two; with the obs phase the joins, sql, sets,
 aggtypes, datetime, fallback and shuffle phases do too (WARM_RUNS),
-where the text above says twice warm.
+where the text above says twice warm; with the history phase the
+adaptive, window and exprs phases do too, the trace phase runs each
+query cold and once warm a mode (not twice warm), the obs phase runs q1
+and q3join_shuffled in one round (not two), and rt_degrade runs over the
+first 500,000 lines (not 1M).
 Every query path runs in test mode (spark.rapids.sql.test.enabled): an
 operator that planning tags off the card fails the query, except the one
 node each fallback query names in spark.rapids.sql.test.allowedNonTpu.
 It then prints the kernel table ({"kernels": [...]}, with each kernel's
 launches per path in "launches_by_path": cached, parquet, pipeline,
 strings, joins, adaptive, window, sql, exprs, sets, aggtypes, datetime,
-nested, formats, shuffle, udf, regex, fallback, trace, obs, runtime),
+nested, formats, shuffle, udf, regex, fallback, trace, obs, history,
+runtime),
 the card's name and power limit, and as its last line {"ok": true,
 "device": {...}}. Any failure exits non-zero without that line; so does a
 machine without CUDA, and so does a run that imported the JAX package.
@@ -2229,16 +2260,16 @@ def phase_adaptive(table, orders, want, jwant, h1, h8, spy, prof=None):
             got, aqe = fn()
             cold = time.perf_counter() - t0
             warm, warm_aqe = [], None
-            for _ in range(2):
+            for _ in range(WARM_RUNS):
                 t0 = time.perf_counter()
                 _, warm_aqe = fn()
                 warm.append(time.perf_counter() - t0)
             if name == "compact_repart":
                 want["compact_repart"] = got
-            launches = {k: (v - before[k]) // 3
+            launches = {k: (v - before[k]) // RUNS
                         for k, v in read_launches().items()}
             launches_by_query[name] = launches
-            seed_forms = {k: v // 3 for k, v in seeds.take().items()}
+            seed_forms = {k: v // RUNS for k, v in seeds.take().items()}
             execs = _exec_names(session)
             bad = validate_adaptive(name, got, want, aqe, warm_aqe,
                                     session.conf)
@@ -2260,7 +2291,7 @@ def phase_adaptive(table, orders, want, jwant, h1, h8, spy, prof=None):
                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
                   "decisions": aqe, "warm_decisions": warm_aqe,
                   "exchanges": exchanges, "execs": execs,
-                  "routes": {k: v // 3 for k, v in spy.take().items()},
+                  "routes": {k: v // RUNS for k, v in spy.take().items()},
                   "launches": launches, "murmur3_seeds": seed_forms})
     finally:
         seeds.restore()
@@ -2543,12 +2574,12 @@ def phase_window(table, spy, prof=None):
         got = fn()
         cold = time.perf_counter() - t0
         warm = []
-        for _ in range(2):
+        for _ in range(WARM_RUNS):
             t0 = time.perf_counter()
             fn()
             warm.append(time.perf_counter() - t0)
         good = validate_window(name, got, want[name])
-        routes = {k[1:]: v // 3 for k, v in wspy.take().items()}
+        routes = {k[1:]: v // RUNS for k, v in wspy.take().items()}
         execs = _exec_names(session)
         e_ops, e_route = WINDOW_EXPECT[name]
         if not good:
@@ -2559,7 +2590,7 @@ def phase_window(table, spy, prof=None):
         below = _window_child(session)
         if name == "win_shuffled" and below != "ShuffleExchangeExec":
             problems.append(f"win_shuffled ran {below} below WindowExec")
-        launches = {k: (v - before[k]) // 3
+        launches = {k: (v - before[k]) // RUNS
                     for k, v in read_launches().items()}
         if name == "win_shuffled" and min(launches["murmur3_int32"],
                                           launches["segsum"]) <= 0:
@@ -2567,7 +2598,7 @@ def phase_window(table, spy, prof=None):
         emit({"phase": "window.query", "query": name, "correct": good,
               "cold_s": cold, "warm_s": min(warm), "launches": launches,
               "window_route": routes, "agg_routes": {
-                  k: v // 3 for k, v in spy.take().items()},
+                  k: v // RUNS for k, v in spy.take().items()},
               "execs": execs, "below_window": below,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
     counts = read_launches()
@@ -3241,15 +3272,15 @@ def phase_exprs(table, h1, h8, spy, prof=None):
         got = fn()
         cold = time.perf_counter() - t0
         warm = []
-        for _ in range(2):
+        for _ in range(WARM_RUNS):
             t0 = time.perf_counter()
             fn()
             warm.append(time.perf_counter() - t0)
         good = validate_exprs(name, got, want[name])
         counts = spy.take()
-        routes = {k: v // 3 for k, v in counts.items()}
+        routes = {k: v // RUNS for k, v in counts.items()}
         execs = _exec_names(session)
-        launches = {k: (v - before[k]) // 3
+        launches = {k: (v - before[k]) // RUNS
                     for k, v in read_launches().items()}
         e_ops, e_routes = EXPRS_EXPECT[name]
         e_launch = {k: EXPRS_LAUNCHES.get(name, {}).get(k, 0)
@@ -3257,7 +3288,7 @@ def phase_exprs(table, h1, h8, spy, prof=None):
         if not good:
             problems.append(f"{name} disagrees with numpy")
         if not e_ops <= set(execs) or routes != e_routes \
-                or any(v % 3 for v in counts.values()):
+                or any(v % RUNS for v in counts.values()):
             problems.append(f"{name} ran {execs}, routes {routes}; "
                             f"expected {EXPRS_EXPECT[name]}")
         if launches != e_launch:
@@ -5478,15 +5509,18 @@ def _busy_pool_threads():
     return busy
 
 
-def _stream_overlap(trace_path, wall_ms):
-    """From a Chrome trace of one run: device busy ms (the union of
-    kernel, copy and memset intervals), the consumer's stream (the one
+def _trace_events(trace_path) -> list:
+    with open(trace_path) as f:
+        return json.load(f)["traceEvents"]
+
+
+def _stream_overlap(events, wall_ms):
+    """From a Chrome trace's events of one run: device busy ms (the union
+    of kernel, copy and memset intervals), the consumer's stream (the one
     with the most kernel time), host-to-device copies on it and on other
     streams, and the copies on other streams that overlap one of the
     consumer's kernels in time, with the overlapped ms."""
     import bisect
-    with open(trace_path) as f:
-        events = json.load(f)["traceEvents"]
     dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in
            ("kernel", "gpu_memcpy", "gpu_memset")]
     by_stream = {}
@@ -5567,7 +5601,7 @@ def phase_pipeline(path, want, tmp_dir):
         gb = torch.cuda.max_memory_allocated() / 2 ** 30
         trace_path = os.path.join(tmp_dir, f"pipeline_{name}.json")
         prof.export_chrome_trace(trace_path)
-        streams = _stream_overlap(trace_path, ms)
+        streams = _stream_overlap(_trace_events(trace_path), ms)
         os.remove(trace_path)
         return got, ms, launches, gb, streams
 
@@ -6298,7 +6332,7 @@ def phase_trace(want, h1, h8, pq_path, tmp_dir, spy):
             fn = make(s)
             before = read_launches()
             secs, good = [], True
-            for _ in range(3):
+            for _ in range(RUNS):
                 t0 = time.perf_counter()
                 good &= bool(check(fn()))
                 torch.cuda.synchronize()
@@ -6306,7 +6340,8 @@ def phase_trace(want, h1, h8, pq_path, tmp_dir, spy):
             line[f"warm_ms_trace_{mode}"] = min(secs[1:]) * 1e3
             line[f"cold_ms_trace_{mode}"] = secs[0] * 1e3
             line[f"launches_per_run_{mode}"] = {
-                k: (v - before[k]) // 3 for k, v in read_launches().items()}
+                k: (v - before[k]) // RUNS
+                for k, v in read_launches().items()}
             if not good:
                 problems.append(f"{name} (tracing {mode}) disagrees")
             if mode == "off" and s.last_trace_paths is not None:
@@ -6314,7 +6349,8 @@ def phase_trace(want, h1, h8, pq_path, tmp_dir, spy):
         summary, bad = trace_check(PR, s, name, instants)
         problems.extend(bad)
         line["trace"] = summary
-        line["routes"] = {k: v // 6 for k, v in spy.take().items()}
+        line["routes"] = {k: v // (2 * RUNS)
+                          for k, v in spy.take().items()}
         line["metrics"] = s.last_metrics()
         line["trace_overhead"] = line["warm_ms_trace_on"] \
             / line["warm_ms_trace_off"]
@@ -6440,16 +6476,16 @@ class _Scraper:
         return False
 
 
-def _copies_and_syncs(trace_path):
-    """(device-to-host copies the card recorded, copy calls the host
-    made in any direction, host syncs, copy calls with no record on the
-    card) of a profiled run's trace. The profiler can drop the card's
-    copy records of a run while it keeps the host's calls: the last count
-    says how many (by the correlation id a call shares with its copy)."""
-    with open(trace_path) as f:
-        events = json.load(f)["traceEvents"]
+def _copies_and_syncs(events):
+    """(device-to-host copies the card recorded, the largest one's bytes,
+    copy calls the host made in any direction, host syncs, copy calls
+    with no record on the card) of a profiled run's trace events. The
+    profiler can drop the card's copy records of a run while it keeps the
+    host's calls: the last count says how many (by the correlation id a
+    call shares with its copy)."""
     copies = [e for e in events if e.get("cat") == "gpu_memcpy"]
-    d2h = sum(1 for e in copies if "DtoH" in e.get("name", ""))
+    d2h_bytes = [int(e.get("args", {}).get("bytes", 0)) for e in copies
+                 if "DtoH" in e.get("name", "")]
     # the runtime's and the lower API's calls ("cuda_runtime" and the
     # other "cuda_" categories of the trace)
     host = [e for e in events if str(e.get("cat", "")).startswith("cuda_")]
@@ -6457,8 +6493,56 @@ def _copies_and_syncs(trace_path):
     recorded = {e.get("args", {}).get("correlation") for e in copies}
     dropped = sum(1 for e in host if "emcpy" in e.get("name", "")
                   and e.get("args", {}).get("correlation") not in recorded)
-    return (d2h, sum(1 for n in names if "emcpy" in n),
+    return (len(d2h_bytes), max(d2h_bytes, default=0),
+            sum(1 for n in names if "emcpy" in n),
             sum(1 for n in names if n in SYNC_CALLS), dropped)
+
+
+def profiled_run(fn, trace_path, tries: int = 3):
+    """One run of fn under torch.profiler's CUDA activity, repeated (up to
+    ``tries`` runs in all) while the profiler dropped some of its copy
+    records; returns fn's result and the counts of the run that dropped
+    the fewest: device-to-host copy records (``d2h``) and the largest's
+    bytes, copy calls in any direction, cuda*Synchronize calls, copy
+    calls with no record (``dropped``), device busy ms and idle share,
+    wall ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    lost, best = [], None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            got = fn()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        prof.export_chrome_trace(trace_path)
+        events = _trace_events(trace_path)
+        os.remove(trace_path)
+        d2h, biggest, calls, syncs, dropped = _copies_and_syncs(events)
+        busy = _stream_overlap(events, ms)
+        lost.append(dropped)
+        if best is None or dropped < best[1]["dropped"]:
+            best = (got, {"d2h": d2h, "d2h_max_bytes": biggest,
+                          "copy_calls": calls, "syncs": syncs,
+                          "dropped": dropped, "wall_ms": ms,
+                          "device_ms": busy["device_ms"],
+                          "device_idle_share": busy["device_idle_share"]})
+        if not dropped:
+            break
+    best[1].update({"dropped_records": lost, "runs": len(lost)})
+    return best
+
+
+def same_copies(a, b) -> bool:
+    """Two profiled runs made the same copies and syncs: equal copy calls
+    (every direction) and cuda*Synchronize calls on the host, and
+    device-to-host copies on the card that meet, each run's lying between
+    its records and its records plus its calls whose record was dropped
+    (the same count where neither dropped one)."""
+    ra = (a["d2h"], a["d2h"] + a["dropped"])
+    rb = (b["d2h"], b["d2h"] + b["dropped"])
+    return (a["copy_calls"], a["syncs"]) == (b["copy_calls"], b["syncs"]) \
+        and ra[0] <= rb[1] and rb[0] <= ra[1]
 
 
 def _rollup_close(a, b) -> bool:
@@ -6482,7 +6566,6 @@ def phase_obs(want, h1, h8, pq_path, tmp_dir):
     from types import SimpleNamespace
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from spark_rapids_tpu_torch.runtime import faults, obs
     from spark_rapids_tpu_torch.runtime.obs import sampler
@@ -6520,10 +6603,10 @@ def phase_obs(want, h1, h8, pq_path, tmp_dir):
     #: name -> (conf, the run's maker, its check, timed runs a mode,
     #: rounds, whether a round also runs the defaults unscraped)
     queries = {
-        "q1": ({}, q1, lambda g: validate("q1", g, want["q1"]), 3, 2,
+        "q1": ({}, q1, lambda g: validate("q1", g, want["q1"]), 3, 1,
                True),
         "q3join_shuffled": (SHUFFLED_JOIN, q3, lambda g: validate_joins(
-            "q3join_shuffled", g, jwant), 3, 2, True),
+            "q3join_shuffled", g, jwant), 3, 1, True),
         "pq_repart_agg": ({}, pq_repart, lambda g: validate(
             "repart_agg", g, want["repart_agg"]), 1, 1, False),
         "q1_rollup": ({}, q1_rollup, lambda g: validate_sets(
@@ -6531,34 +6614,6 @@ def phase_obs(want, h1, h8, pq_path, tmp_dir):
     }
     reset_launches()
     problems = []
-
-    def profiled(fn, name, mode):
-        """One run under torch.profiler, repeated (up to three runs in
-        all) while the profiler dropped some of its copy records; the
-        counts are the run's that dropped the fewest."""
-        lost, best = [], None
-        for _ in range(3):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                got = fn()
-                torch.cuda.synchronize()
-                ms = (time.perf_counter() - t0) * 1e3
-            path = os.path.join(tmp_dir, f"obs_{name}_{mode}.json")
-            prof.export_chrome_trace(path)
-            d2h, calls, syncs, dropped = _copies_and_syncs(path)
-            busy = _stream_overlap(path, ms)
-            os.remove(path)
-            lost.append(dropped)
-            if best is None or dropped < best[1]["dropped"]:
-                best = (got, {"d2h": d2h, "copy_calls": calls,
-                              "syncs": syncs, "dropped": dropped,
-                              "device_ms": busy["device_ms"],
-                              "device_idle_share":
-                              busy["device_idle_share"]})
-            if not dropped:
-                break
-        best[1].update({"dropped_records": lost, "runs": len(lost)})
-        return best
 
     def live_check(sc, got, s):
         """q1_rollup's timed run at the defaults: /queries shows it
@@ -6594,7 +6649,7 @@ def phase_obs(want, h1, h8, pq_path, tmp_dir):
         # on: the defaults with the endpoint scraped, profiled with off
         per_round = ["off", "quiet", "on"] if quiet else ["off", "on"]
         warm = {m: [] for m in per_round}
-        answers, progress = {}, []
+        answers, progress, profiled_counts = {}, [], {}
         modes = per_round * rounds
         for i, mode in enumerate(modes):
             last = i >= len(modes) - len(per_round)  # the profiled round
@@ -6641,7 +6696,8 @@ def phase_obs(want, h1, h8, pq_path, tmp_dir):
                 if prof_scraper is not None:
                     prof_scraper.__enter__()
                 try:
-                    prof_got, counts = profiled(fn, name, mode)
+                    prof_got, counts = profiled_run(fn, os.path.join(
+                        tmp_dir, f"obs_{name}_{mode}.json"))
                 finally:
                     if prof_scraper is not None:
                         prof_scraper.__exit__()
@@ -6679,6 +6735,7 @@ def phase_obs(want, h1, h8, pq_path, tmp_dir):
             launches = {k: (v - before[k]) // n
                         for k, v in read_launches().items()}
             answers[mode] = (got, prof_got)
+            profiled_counts[mode] = counts
             line.update({f"device_ms_{mode}": counts["device_ms"],
                          f"device_idle_share_{mode}":
                          counts["device_idle_share"],
@@ -6730,25 +6787,11 @@ def phase_obs(want, h1, h8, pq_path, tmp_dir):
             same = line["bitwise_equal"]
         if not same:
             problems.append(f"{name}: on and off answers differ")
-        # the host's copy calls (every direction) and syncs must be the
-        # same: a copy the layer made would be one more call. The card's
-        # device-to-host copies of a run lie between its records and its
-        # records plus the calls whose record the profiler dropped; those
-        # ranges must meet (the same count where neither trace dropped)
-        on_c = (line["copy_calls_on"], line["syncs_on"])
-        off_c = (line["copy_calls_off"], line["syncs_off"])
-        d2h = {m: (line[f"d2h_copies_{m}"], line[f"d2h_copies_{m}"]
-                   + min(line[f"dropped_copy_records_{m}"]))
-               for m in ("on", "off")}
-        if on_c != off_c or line["syncs_off"] <= 0 \
-                or d2h["on"][0] > d2h["off"][1] \
-                or d2h["off"][0] > d2h["on"][1]:
-            problems.append(
-                f"{name}: copy calls/syncs on {on_c}, off {off_c}; "
-                f"device-to-host copies on {d2h['on']}, off {d2h['off']} "
-                f"(copy records dropped on "
-                f"{line['dropped_copy_records_on']}, off "
-                f"{line['dropped_copy_records_off']})")
+        # a copy or sync the layer made would be one more call
+        on_c, off_c = profiled_counts["on"], profiled_counts["off"]
+        if not same_copies(on_c, off_c) or off_c["syncs"] <= 0:
+            problems.append(f"{name}: copies and syncs on {on_c}, off "
+                            f"{off_c}")
         if line["launches_per_run_on"] != line["launches_per_run_off"]:
             problems.append(f"{name}: launches differ on and off")
         emit(line)
@@ -6822,13 +6865,287 @@ def phase_obs(want, h1, h8, pq_path, tmp_dir):
 
 
 # ---------------------------------------------------------------------------
+# phase 17g: the query history, attribution and the measured cost pass
+# ---------------------------------------------------------------------------
+
+def history_queries(want, h1, h8, pq_path):
+    """name -> (build(session) -> DataFrame, check(answer table) -> bool):
+    q1 on the 1-partition cache, q3join_shuffled and pctl_shuffled on the
+    8-partition caches, pq_repart_agg on the Parquet file."""
+    from spark_rapids_tpu_torch.sql.dataframe import DataFrame
+    H, api = helpers(), port_api()
+    jwant = RUN_NOTES["q3join_shuffled_want"]
+    pwant = RUN_NOTES["pctl_shuffled_want"]
+
+    def q1_check(t):
+        d = t.to_pydict()
+        got = {(d["l_returnflag"][i], d["l_linestatus"][i]):
+               tuple(d[c][i] for c in ("sq", "sp", "mq", "md", "cnt"))
+               for i in range(t.num_rows)}
+        return validate("q1", got, want["q1"])
+
+    def q3_check(t):
+        d = t.to_pydict()
+        return validate_joins("q3join_shuffled",
+                              dict(zip(d["l_orderkey"], d["rev"])), jwant)
+
+    def repart_check(t):
+        d = t.to_pydict()
+        return validate("repart_agg", {k: (s, c) for k, s, c in zip(
+            d["l_shipdate"], d["s"], d["c"])}, want["repart_agg"])
+
+    return {
+        "q1": (lambda s: H.q1(api, DataFrame(h1.li.plan, s)), q1_check),
+        "q3join_shuffled": (lambda s: H.q3join(
+            api, DataFrame(h8.li.plan, s), DataFrame(h8.od.plan, s)),
+            q3_check),
+        "pq_repart_agg": (lambda s: H.repart_agg(api, s.read_parquet(
+            pq_path, columns=["l_shipdate", "l_quantity"])), repart_check),
+        "pctl_shuffled": (lambda s: H.pctl_shuffled(
+            api, DataFrame(h8.li.plan, s)),
+            lambda t: validate_exprs("pctl_shuffled", t, pwant)),
+    }
+
+
+def _attribution_ok(doc) -> bool:
+    return bool(doc) and abs(sum(doc["buckets"].values())
+                             - doc["wall_seconds"]) \
+        <= 0.01 * doc["wall_seconds"]
+
+
+def phase_history(want, h1, h8, pq_path, tmp_dir):
+    """The query history, attribution and the measured cost pass (module
+    docstring, phase 17g): four queries with the live layer off
+    ("plain"), at the defaults and with spark.rapids.obs.historyDir set,
+    their records, copies and syncs; pctl_shuffled's measured collapse;
+    EXPLAIN ANALYZE and the device handoff of q1."""
+    import contextlib
+    import io
+
+    import pyarrow as pa
+    import torch
+
+    from spark_rapids_tpu_torch.runtime import obs
+    from spark_rapids_tpu_torch.runtime.obs.history import plan_digest
+    t_phase = time.perf_counter()
+    hist_dir = os.path.join(tmp_dir, "history")
+    queries = history_queries(want, h1, h8, pq_path)
+    modes = {"plain": OBS_OFF, "default": {},
+             "history": {"spark.rapids.obs.historyDir": hist_dir}}
+    reset_launches()
+    problems = []
+    lines = {n: {"phase": "history.query", "query": n} for n in queries}
+    answers, counts = {}, {}
+    digests = {n: None for n in queries}
+    #: each query's last collected DataFrame: its plan is the pruned one
+    #: the records digest (convert_plan prunes in place, ROADMAP C26)
+    last_df = {}
+    s = None
+    from spark_rapids_tpu_torch.sql.session import TorchSession
+    attribute = TorchSession._attribute
+    mode_s = {}
+    for mode, extra in modes.items():
+        t_mode = time.perf_counter()
+        _obs_teardown()
+        s = device_session({**SHUFFLED_JOIN, **extra})
+        # the plain version: the live layer off and no attribution fold
+        plain = mode == "plain"
+        TorchSession._attribute = (lambda self, lm, ns: None) if plain \
+            else attribute
+        walls = []
+
+        def run(name, build):
+            df = last_df[name] = build(s)
+            t = df.collect()
+            if not plain:
+                walls.append(s.last_attribution()["wall_seconds"])
+            return t
+
+        try:
+            for name, (build, check) in queries.items():
+                line = lines[name]
+                if not plain:  # the caches are warm: plain runs warm only
+                    t0 = time.perf_counter()
+                    got = run(name, build)
+                    torch.cuda.synchronize()
+                    line[f"cold_ms_{mode}"] = \
+                        (time.perf_counter() - t0) * 1e3
+                    if not check(got):
+                        problems.append(f"{name} ({mode}, cold) disagrees")
+                before = read_launches()
+                # one profiled run: late in the script the profiler drops
+                # pq_repart_agg's copy records in every run, and
+                # same_copies counts the dropped calls
+                got, c = profiled_run(
+                    lambda: run(name, build),
+                    os.path.join(tmp_dir, f"history_{name}_{mode}.json"),
+                    tries=1)
+                line[f"launches_per_run_{mode}"] = {
+                    k: (v - before[k]) // c["runs"]
+                    for k, v in read_launches().items()}
+                counts[(name, mode)] = c
+                answers[(name, mode)] = got
+                if not check(got):
+                    problems.append(f"{name} ({mode}) disagrees")
+                line.update({f"{k}_{mode}": c[k] for k in (
+                    "wall_ms", "device_ms", "device_idle_share", "d2h",
+                    "d2h_max_bytes", "copy_calls", "syncs",
+                    "dropped_records")})
+                if plain:
+                    continue
+                attr = s.last_attribution()
+                if not _attribution_ok(attr):
+                    problems.append(f"{name} ({mode}) attribution {attr}")
+                line[f"buckets_ms_{mode}"] = {
+                    b: v * 1e3 for b, v in attr["buckets"].items() if v > 0}
+                if mode == "history":
+                    digests[name] = plan_digest(last_df[name].plan)
+                    rec = obs.state().history.read_all()[-1]
+                    rows = {k: v.get("numOutputRows")
+                            for k, v in s.last_metrics().items()}
+                    if {k: v.get("numOutputRows") for k, v in
+                            rec.get("execs", {}).items()} != rows:
+                        problems.append(f"{name}: record rows differ from "
+                                        f"last_metrics()")
+        finally:
+            TorchSession._attribute = attribute
+        mode_s[mode] = time.perf_counter() - t_mode
+        st = obs.state()
+        if mode == "default":
+            # the counter of every top-level action's buckets
+            snap = st.registry.snapshot()
+            exported = sum(v for k, v in snap.items()
+                           if k.startswith("rapids_query_seconds_bucket"))
+            if not _close(exported, sum(walls), 1e-6):
+                problems.append(f"rapids_query_seconds_bucket {exported} "
+                                f"against {sum(walls)} s of wall")
+            if st.history is not None:
+                problems.append("a history store without historyDir")
+    for name, line in lines.items():
+        bare, dflt, hist = (counts[(name, m)] for m in modes)
+        # the default epilogue (the live layer and the attribution fold)
+        # against neither, and what the record adds
+        if not same_copies(dflt, bare):
+            problems.append(f"{name}: the default epilogue's copies/syncs "
+                            f"{dflt} differ from the plain run's {bare}")
+        line["history_added"] = {
+            "d2h": hist["d2h"] - dflt["d2h"],
+            "copy_calls": hist["copy_calls"] - dflt["copy_calls"],
+            "syncs": hist["syncs"] - dflt["syncs"]}
+        outs = [answers[(name, m)] for m in modes]
+        line["answers_equal"] = all(o.equals(outs[0]) for o in outs)
+        if not line["answers_equal"]:
+            problems.append(f"{name}: answers differ between modes")
+        if len({tuple(line[f"launches_per_run_{m}"].items())
+                for m in modes}) != 1:
+            problems.append(f"{name}: launches differ between modes")
+    # every record of the history runs
+    recs = obs.state().history.read_all()
+    bad = [r.get("plan_digest") for r in recs
+           if r.get("status") != "ok" or not r.get("annotated_plan")
+           or not r.get("execs") or not _attribution_ok(r.get("attribution"))
+           or r.get("plan_digest") not in digests.values()]
+    per_digest = {n: sum(1 for r in recs if r.get("plan_digest") == d)
+                  for n, d in digests.items()}
+    if bad or len(set(digests.values())) != len(digests) \
+            or any(v < 2 for v in per_digest.values()):
+        problems.append(f"history records: bad {bad}, per query "
+                        f"{per_digest}")
+    for line in lines.values():
+        emit(line)
+
+    # the measured collapse: a dispatch-bound shuffle verdict appended to
+    # pctl_shuffled's history turns its hash exchange into a collect
+    build, check = queries["pctl_shuffled"]
+    store = obs.state().history
+
+    def timed():
+        before = read_launches()
+        t0 = time.perf_counter()
+        got = build(s).collect()
+        torch.cuda.synchronize()
+        return got, (time.perf_counter() - t0) * 1e3, {
+            k: v - before[k] for k, v in read_launches().items()}
+
+    uncollapsed, warm_before, launch_before = timed()
+    digest = digests["pctl_shuffled"]
+    rec = dict([r for r in store.by_digest(digest)
+                if r.get("status") == "ok"][-1])
+    rec["roofline"] = {"groups": {"shuffle": {"bound": "dispatch_overhead"}}}
+    store.append(rec)
+    cold_after, cold_ms, _ = timed()
+    collapsed, warm_after, launch_after = timed()
+    execs = _exec_names(s)
+    decisions = [d for d in (s.last_aqe() or {}).get("decisions", [])
+                 if d["kind"] == "measured_cost"]
+    same = collapsed.sort_by("l_shipdate").equals(
+        uncollapsed.sort_by("l_shipdate"))
+    collapse = {"phase": "history.collapse", "digest": digest,
+                "warm_ms_before": warm_before, "cold_ms_after": cold_ms,
+                "warm_ms_after": warm_after,
+                "murmur3_before": launch_before["murmur3_int32"],
+                "murmur3_after": launch_after["murmur3_int32"],
+                "execs": execs, "decision": decisions[:1],
+                "equal_sorted_by_key": same}
+    emit(collapse)
+    if "ShuffleExchangeExec" in execs \
+            or "CollectExchangeExec" not in execs or len(decisions) != 1 \
+            or not same or not check(collapsed) or not check(cold_after):
+        problems.append(f"measured collapse {collapse}")
+
+    # EXPLAIN ANALYZE and the device handoff of q1
+    build, check = queries["q1"]
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        text = build(s).explain("analyze")
+    lines_ = text.splitlines()
+    report = {"phase": "history.reports", "analyze_lines": len(lines_),
+              "analyze_printed": out.getvalue().strip() == text.strip(),
+              "analyze_head": lines_[:2]}
+    if not report["analyze_printed"] or not all(
+            f in text for f in ("rows=", "batches=", "time=",
+                                "-- time attribution (wall ")):
+        problems.append(f"explain analyze: {text[:400]}")
+    batches, c = profiled_run(
+        lambda: build(s).to_device_batches(),
+        os.path.join(tmp_dir, "history_q1_handoff.json"))
+    from spark_rapids_tpu_torch.columnar.batch import to_arrow
+    names = answers[("q1", "default")].schema.names
+    handoff = pa.concat_tables([to_arrow(b, names) for b in batches])
+    collect = counts[("q1", "default")]
+    # the collect downloads each result column's live rows (one copy a
+    # plane at least); the handoff reads row counts only
+    report.update({
+        "handoff_batches": len(batches),
+        "handoff_on_cuda": all(col.device.type == "cuda" for b in batches
+                               for col in b.columns),
+        "handoff_d2h": c["d2h"], "handoff_d2h_max_bytes": c["d2h_max_bytes"],
+        "handoff_dropped": c["dropped_records"],
+        "collect_d2h": collect["d2h"],
+        "collect_d2h_max_bytes": collect["d2h_max_bytes"],
+        "handoff_equals_collect": handoff.equals(answers[("q1", "default")])})
+    emit(report)
+    if not report["handoff_on_cuda"] or not report["handoff_equals_collect"] \
+            or c["d2h"] + c["dropped"] + len(names) > collect["d2h"]:
+        problems.append(f"to_device_batches {report}")
+    # the runtime phase runs at the defaults again
+    _obs_teardown()
+    launches = read_launches()
+    emit({"phase": "history", "launches": launches, "mode_s": mode_s,
+          "records": len(store.read_all()), "correct": not problems,
+          "problems": problems, "seconds": time.perf_counter() - t_phase})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 18: the query runtime
 # ---------------------------------------------------------------------------
 
 RT_SMALL_ROWS = 5_000_000
 #: the degradation queries' lines: the CPU backend's q6 over 5M lines took
 #: 10.8-12.8 s a run on the H100 machine's host (4 runs a phase)
-RT_DEGRADE_ROWS = 1_000_000
+RT_DEGRADE_ROWS = 500_000
 
 
 def small_reference(small):
@@ -7850,6 +8167,10 @@ def main(argv) -> int:
         phases["obs_s"] = time.perf_counter() - t0
         spill_report("obs")
         t0 = time.perf_counter()
+        history = phase_history(want, h1, h8, path, tmp_dir)
+        phases["history_s"] = time.perf_counter() - t0
+        spill_report("history")
+        t0 = time.perf_counter()
         caches = [h1.li, h1.od, h1.cust, h8.li, h8.od,
                   SimpleNamespace(plan=text_plan)]
         runtime = phase_runtime(want, small, swant, h1, h8, path, tmp_dir,
@@ -7874,6 +8195,7 @@ def main(argv) -> int:
                    "fallback": fallback[r["name"]],
                    "trace": traced[r["name"]],
                    "obs": observed[r["name"]],
+                   "history": history[r["name"]],
                    "runtime": runtime[r["name"]]}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path

@@ -21,16 +21,18 @@ class ConfEntry:
     default: Any
     doc: str
     conv: Callable[[str], Any]
+    #: a testing knob, left out of a history record's ``conf_delta``
+    internal: bool = False
 
 
 def _bool_conv(s: str) -> bool:
     return str(s).strip().lower() in ("1", "true", "yes", "on")
 
 
-def _register(key, default, doc, conv) -> ConfEntry:
+def _register(key, default, doc, conv, internal: bool = False) -> ConfEntry:
     if key in _REGISTRY:
         raise ValueError(f"duplicate conf key {key}")
-    e = ConfEntry(key, default, doc, conv)
+    e = ConfEntry(key, default, doc, conv, internal)
     _REGISTRY[key] = e
     return e
 
@@ -71,6 +73,15 @@ ADAPTIVE_ENABLED = _register(
     "split skewed post-shuffle partitions, and reuse materialized "
     "broadcast builds across queries. Master switch for every "
     "spark.rapids.sql.adaptive.* feature below.", _bool_conv)
+
+ADAPTIVE_MEASURED_COST = _register(
+    "spark.rapids.sql.adaptive.measuredCost.enabled", True,
+    "Measured cost pass: before converting a plan, read the query history "
+    "store's roofline verdicts for the same plan digest and pick the "
+    "aggregate exchange's partition count and the coalesceTinyRows "
+    "threshold from what was measured instead of the static defaults "
+    "(needs spark.rapids.obs.historyDir; a digest with no audited record "
+    "keeps the static plan).", _bool_conv)
 
 ADAPTIVE_BROADCAST_BYTES = _register(
     "spark.rapids.sql.adaptive.broadcastThresholdBytes", 64 << 20,
@@ -205,12 +216,13 @@ TEST_MODE = _register(
     "spark.rapids.sql.test.enabled", False,
     "Assert that everything that should be on the device is on it: a "
     "fallback to the CPU raises at plan time (reference "
-    "GpuTransitionOverrides assertIsOnTheGpu).", _bool_conv)
+    "GpuTransitionOverrides assertIsOnTheGpu).", _bool_conv,
+    internal=True)
 
 ALLOW_NON_TPU = _register(
     "spark.rapids.sql.test.allowedNonTpu", "",
     "Comma-separated plan node names allowed to fall back in test mode.",
-    str)
+    str, internal=True)
 
 INCOMPAT_ENABLED = _register(
     "spark.rapids.sql.incompatibleOps.enabled", True,
@@ -240,7 +252,7 @@ AGG_FORCE_SINGLE_PASS = _register(
     "Internal testing knob (reference forceSinglePassPartialSortAgg): "
     "concatenate a partition's input batches and run a keyed partial or "
     "complete aggregate as one update pass instead of an update per batch "
-    "and a merge.", _bool_conv)
+    "and a merge.", _bool_conv, internal=True)
 
 # ---------------------------------------------------------------------------
 # the query runtime: device budget and spill, retry, semaphore, faults,
@@ -281,7 +293,8 @@ SPILL_DIR = _register(
 RETRY_OOM_INJECT = _register(
     "spark.rapids.sql.test.injectRetryOOM", "",
     "Fault-injection grammar 'count[,skip[,split]]' forcing retry-OOMs "
-    "for tests (reference RapidsConf.scala:1627,2753).", str)
+    "for tests (reference RapidsConf.scala:1627,2753).", str,
+    internal=True)
 
 RETRY_BACKOFF_BASE_MS = _register(
     "spark.rapids.retry.backoffBaseMs", 10.0,
@@ -608,6 +621,17 @@ OBS_PORT = _register(
     "saturation, spill pressure, last-query status; HTTP 200 ok / 503 "
     "degraded), /queries and /console. 0 disables the endpoint.", int)
 
+OBS_HISTORY_DIR = _register(
+    "spark.rapids.obs.historyDir", "",
+    "When set, append one JSON record per top-level action to "
+    "<dir>/query_history.jsonl (runtime/obs/history.py): plan digest, "
+    "physical plan, per-exec metric rollups, the annotated plan, fallback "
+    "reasons, config delta, wall time and its attribution, adaptive "
+    "decisions, status (ok/failed + exception class), trace artifact "
+    "paths. Rendered by tools/history_server.py (query list -> annotated "
+    "plan -> run-over-run diff by plan digest); the SLO baselines seed "
+    "from it and the measured cost pass reads it.", str)
+
 OBS_PROBE_TIMEOUT_MS = _register(
     "spark.rapids.obs.probeTimeoutMs", 2000,
     "Timeout for the /healthz device probe; a probe that exceeds it "
@@ -736,6 +760,10 @@ OBS_SAMPLER_RING = _register(
 
 def keys():
     return list(_REGISTRY)
+
+
+def registry() -> Dict[str, ConfEntry]:
+    return dict(_REGISTRY)
 
 
 class RapidsConf:

@@ -17,11 +17,15 @@ decisions:
   table epoch: every temp-view registration empties it, and an entry is
   honoured only while its cached relation and that relation's
   materialization are the live ones.
-- the decision recorder: each decision lands in the open query's list,
-  which the session returns as ``last_aqe()``.
+- the decision recorder: every decision emits an ``aqeDecision`` trace
+  instant and a ``rapids_aqe_decisions_total{kind}`` counter, lands in
+  the open query's list (the session's ``last_aqe()``, EXPLAIN ANALYZE's
+  "adaptive" section and the history record's ``aqe``), and its saved
+  dispatches count into ``rapids_aqe_dispatches_saved_total``.
 
-The decision trace instant, the decision counters, the EXPLAIN ANALYZE
-section and the measured cost pass are not ported yet (ROADMAP A11d).
+The measured cost pass (``plan/cost.py``: partition counts and coalesce
+thresholds from per-digest history) records its decision through this
+module too, so every adaptive piece shares one observable surface.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ from typing import Any, Dict, List, Optional, Tuple
 from spark_rapids_tpu_torch import config as C
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.exec import nodes as X
+from spark_rapids_tpu_torch.runtime import trace as TR
 
 # ---------------------------------------------------------------------------
 # decision recorder
@@ -39,10 +44,11 @@ from spark_rapids_tpu_torch.exec import nodes as X
 
 _LOCK = threading.Lock()
 #: the open query's decision list (a top-level collect opens it; None
-#: between queries, when decisions are dropped)
+#: between queries: a decision then still traces and counts, it just has
+#: no query doc to land in)
 _CUR: Optional[List[dict]] = None
 
-#: decision kinds
+#: decision kinds (the rapids_aqe_decisions_total label values)
 BROADCAST_CONVERSION = "broadcast_conversion"
 SKEW_SPLIT = "skew_split"
 BUILD_REUSE = "build_reuse"
@@ -61,7 +67,8 @@ def on_query_start(conf=None) -> None:
 
 
 def record(kind: str, *, dispatches_saved: int = 0, **detail: Any) -> None:
-    """One adaptive decision, appended to the open query's list."""
+    """One adaptive decision: appended to the open query's list, traced
+    as an ``aqeDecision`` instant and counted in the process registry."""
     d: Dict[str, Any] = {"kind": kind}
     d.update(detail)
     if dispatches_saved:
@@ -69,6 +76,29 @@ def record(kind: str, *, dispatches_saved: int = 0, **detail: Any) -> None:
     with _LOCK:
         if _CUR is not None:
             _CUR.append(d)
+    try:
+        TR.instant("aqeDecision", cat="adaptive", args=d,
+                   level=TR.ESSENTIAL)
+    except Exception:  # noqa: BLE001 - a marker failure must not fail
+        pass  # the query the decision just sped up
+    try:
+        from spark_rapids_tpu_torch.runtime import obs as OBS
+        st = OBS.state()
+        if st is not None:
+            st.registry.counter(
+                "rapids_aqe_decisions_total",
+                "Adaptive execution decisions by kind (aqeDecision "
+                "instants; spark.rapids.sql.adaptive.*).",
+                labels={"kind": kind}).inc()
+            if dispatches_saved:
+                st.registry.counter(
+                    "rapids_aqe_dispatches_saved_total",
+                    "Device dispatches adaptive execution avoided "
+                    "(broadcast conversions skipping probe-side "
+                    "exchanges, reused broadcast builds).").inc(
+                        int(dispatches_saved))
+    except Exception:  # noqa: BLE001 - observability never fails a query
+        pass
 
 
 def finish_query() -> Optional[dict]:
@@ -89,7 +119,7 @@ def finish_query() -> Optional[dict]:
 
 
 def render_text(doc: Optional[dict]) -> List[str]:
-    """The "adaptive" section of a query's report, one line a decision."""
+    """EXPLAIN ANALYZE's "adaptive" section, one line a decision."""
     if not doc:
         return []
     n = sum(doc.get("counts", {}).values())

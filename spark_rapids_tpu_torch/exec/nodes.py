@@ -1067,6 +1067,12 @@ class _ExchangeExec(TorchExec):
     def __init__(self, plan, children, conf, device, n_out: int):
         super().__init__(plan, children, conf, device)
         self.n_out = n_out
+        #: the measured cost pass's coalesceTinyRows for this plan, taken
+        #: at conversion (the thread's hints are gone by execution)
+        from spark_rapids_tpu_torch.plan import cost as COST
+        h = COST.current_hints()
+        self._tiny_override: Optional[int] = (
+            h.coalesce_tiny_rows if h is not None else None)
         self._lock = threading.Lock()
         self._out: Optional[List[List[ColumnarBatch]]] = None
         self._masked = False
@@ -1309,8 +1315,10 @@ class _ExchangeExec(TorchExec):
         """Adjacent sub-batches of fewer than coalesceTinyRows rows merge,
         up to 4x that many rows a merged batch, flagged ``coalesced`` so a
         final aggregate merges it. Only host-int counts decide: masked
-        batches pass untouched."""
-        tiny = int(self.conf.get(C.SHUFFLE_COALESCE_TINY_ROWS))
+        batches pass untouched. The measured cost pass's threshold,
+        when it set one at conversion, replaces the conf's."""
+        tiny = int(self._tiny_override) if self._tiny_override is not None \
+            else int(self.conf.get(C.SHUFFLE_COALESCE_TINY_ROWS))
         if tiny <= 0 or self.n_out <= 1:
             yield from batches
             return

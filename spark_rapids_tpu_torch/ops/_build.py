@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from typing import Dict, List
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -133,9 +134,12 @@ def build_all(names: List[str]) -> Dict[str, str]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu`` (or ``.cpp``), built
-    first if needed."""
+    first if needed. The first load's time (the build, when the library
+    is not on disk yet, and the dlopen) goes to the running query's
+    ``compile`` attribution bucket."""
     lib = _libs.get(name)
     if lib is None:
+        t0 = time.perf_counter_ns()
         build_all([name])
         with _lock:
             lib = _libs.get(name)
@@ -145,6 +149,8 @@ def load(name: str) -> ctypes.CDLL:
                 except OSError as e:
                     raise KernelError(f"cannot load {name}: {e}") from e
                 _libs[name] = lib
+        from spark_rapids_tpu_torch.runtime.obs import attribution
+        attribution.record("compile", time.perf_counter_ns() - t0)
     return lib
 
 

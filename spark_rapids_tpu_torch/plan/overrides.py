@@ -1178,12 +1178,22 @@ def _convert_join(plan, children, conf, device):
 COLLECT_COMPLETE_MAX_ROWS = 64_000_000
 
 
+def _measured_collapse() -> bool:
+    """True when the measured cost pass (``plan/cost.measured_hints``)
+    prescribed collapsing group-key aggregate exchanges to one partition
+    for the plan converting on this thread: the history said its shuffle
+    group was dispatch_overhead-bound."""
+    from spark_rapids_tpu_torch.plan import cost as COST
+    h = COST.current_hints()
+    return h is not None and h.exchange_parts == 1
+
+
 def _convert_aggregate(plan, child, conf, device):
-    """The JAX package's single-device aggregate plan. The port holds one
-    device per session, so the JAX package's multi-device branch
-    (partial -> hash exchange -> final, ROADMAP A12) and its measured
-    collapse from the observation history (``_measured_collapse``, A11d)
-    have no counterpart here."""
+    """The JAX package's single-device aggregate plan, with its measured
+    collapse of a segmented aggregate's hash exchange into a collect
+    (``_measured_collapse``). The port holds one device per session, so
+    the JAX package's multi-device branch (partial -> hash exchange ->
+    final) waits for ROADMAP A12."""
     pre_filter = None
     if isinstance(child, X.FilterExec) \
             and not E.needs_partition_context(child.plan.condition):
@@ -1195,9 +1205,10 @@ def _convert_aggregate(plan, child, conf, device):
                                    pre_filter=pre_filter)
     if any(getattr(a.fn, "no_partial", False) for a in plan.aggs):
         # segmented aggregates have no mergeable state: raw rows meet by
-        # group key (a hash exchange, or a collect without keys), then
-        # each partition aggregates completely
-        if plan.group_exprs:
+        # group key (a hash exchange, or a collect without keys or when
+        # the measured pass collapsed the exchange), then each partition
+        # aggregates completely
+        if plan.group_exprs and not _measured_collapse():
             child = X.ShuffleExchangeExec(plan, [child], conf, device,
                                           plan.group_exprs,
                                           child.num_partitions)

@@ -7,28 +7,31 @@ half (structured traces and event logs) is runtime/trace.py. Data flow:
 
     GpuMetric / TaskContext accumulators   (per batch, unchanged hot path)
         -> on_task_complete(ctx)           (ONE registry fold per task)
-    per-exec rollups, SLO check            (once per query, at the end)
+    attribution, rollups, SLO, history     (once per query, at the end)
         -> on_query_end(...)
-    registry  ->  /metrics (Prometheus text)
+    registry  ->  /metrics (Prometheus text), tools/history_server.py
     healthz() ->  /healthz (device probe, semaphore, spill, last query)
 
 Overhead discipline (the budget of trace.py): with
 ``spark.rapids.obs.enabled=false`` every hook is one module-global read
 + branch; enabled, the hooks run per task or query completion, never per
-batch, and none reads the card: the per-exec rollups at query end take
-each metric's resolved part (``GpuMetric.peek``), so the epilogue adds no
-device synchronization. The HTTP endpoint starts only when
-``spark.rapids.obs.port`` is set.
+batch, and none reads the card by default: the attribution buckets read
+host-clock timers, and the endpoint's per-exec rollups take each metric's
+resolved part (``GpuMetric.peek``), so the epilogue adds no device
+synchronization. The HTTP endpoint starts only when
+``spark.rapids.obs.port`` is set; the history store only when
+``spark.rapids.obs.historyDir`` is set, and its record resolves the lazy
+device row counts (``session.last_metrics()``, one snapshot a query).
 
 Process-wide singleton (like the tracer and the semaphore): the first
-session that installs wins the endpoint port and the probe's device;
-later sessions publish into the same registry. Nested collects (a
-broadcast materialization, a scalar subquery) join the enclosing query.
+session that installs wins the endpoint port, the probe's device and the
+history dir; later sessions publish into the same registry. Nested
+collects (a broadcast materialization, a scalar subquery) join the
+enclosing query: only top-level actions produce history records.
 
-Later parts of ROADMAP A11 hook in here too: the query history store,
-the attribution buckets and their seconds-by-phase counter (A11d), the
-roofline gauges and the compile counters (A11e), the serving routes'
-callbacks and the serving and result-cache counters (A11f).
+Later parts of ROADMAP A11 hook in here too: the roofline gauges and the
+compile counters (A11e), the serving routes' callbacks and the serving
+and result-cache counters (A11f).
 """
 from __future__ import annotations
 
@@ -37,9 +40,11 @@ import time
 from typing import Callable, Dict, Optional
 
 from spark_rapids_tpu_torch.analysis import sanitizer as _san
-from spark_rapids_tpu_torch.runtime.obs import flight, live, sampler
-from spark_rapids_tpu_torch.runtime.obs.history import (  # noqa: F401
-    plan_digest,
+from spark_rapids_tpu_torch.runtime.obs import (
+    attribution, flight, live, sampler,
+)
+from spark_rapids_tpu_torch.runtime.obs.history import (
+    QueryHistoryStore, build_query_record, plan_digest,
 )
 from spark_rapids_tpu_torch.runtime.obs.registry import MetricsRegistry
 from spark_rapids_tpu_torch.runtime.obs.slo import SloDetector
@@ -85,6 +90,7 @@ class ObsState:
 
     def __init__(self, registry: MetricsRegistry):
         self.registry = registry
+        self.history: Optional[QueryHistoryStore] = None
         self.server = None  # ObsHttpServer
         self.probe = None   # DeviceProbe
         #: the device the liveness probe dispatches to: the first
@@ -97,14 +103,13 @@ class ObsState:
         self._query_seq = 0
         self._active = 0  # top-level queries currently running
         self.last_query: Optional[dict] = None
-        #: the most recent SLO breach: digest, breach doc, flight-dump
-        #: path (the /healthz slow-query surface)
+        #: the most recent SLO breach: digest, breach doc, attribution
+        #: summary, flight-dump path (the /healthz slow-query surface)
         self.last_slow: Optional[dict] = None
         #: this process's fleet identity (spark.rapids.obs.replicaId, or
-        #: pid-derived)
+        #: pid-derived), stamped on every history record
         self.replica_id: str = ""
-        # A11d: the query history store; A11e: the last audited query's
-        # roofline doc
+        # A11e: the last audited query's roofline doc
 
 
 #: per-thread collect depth: a re-entrant collect on the SAME thread is
@@ -121,10 +126,9 @@ NESTED = "nested"
 def _preregister(reg: MetricsRegistry) -> None:
     """Create the roster instruments up front so a scrape before the
     first task or query still renders them (at zero). The JAX package's
-    roster less the instruments of later items: its seconds-by-phase
-    counter (A11d), its roofline gauges and compile counters (A11e) and
-    its serving and result-cache instruments (A11f), which ROADMAP.md
-    lists by name."""
+    roster less the instruments of later items: its roofline gauges and
+    compile counters (A11e) and its serving and result-cache instruments
+    (A11f), which ROADMAP.md lists by name."""
     for _, (name, help_) in _TASK_COUNTERS.items():
         reg.counter(name, help_)
     reg.counter("rapids_tasks_completed_total", "Tasks completed")
@@ -165,6 +169,12 @@ def _preregister(reg: MetricsRegistry) -> None:
     reg.counter("rapids_flight_dumps_total",
                 "Flight-recorder dumps written, by trigger",
                 labels={"reason": "query_failed"})
+    for phase in attribution.BUCKETS:
+        reg.float_counter(
+            "rapids_query_seconds_bucket",
+            "Per-query wall time attributed to each phase bucket "
+            "(seconds; runtime/obs/attribution.py)",
+            labels={"phase": phase})
     reg.histogram("rapids_query_wall_time_ms",
                   "Per-query wall time (ms)")
     reg.histogram("rapids_task_duration_ms", "Per-task duration (ms)")
@@ -266,7 +276,9 @@ def install(conf, device=None) -> "Optional[ObsState]":
             import os as _os
             st.replica_id = (conf.get(Cf.OBS_REPLICA_ID)
                              or f"pid-{_os.getpid()}")
-        # A11d: the history store opens under spark.rapids.obs.historyDir
+        hist_dir = conf.get(Cf.OBS_HISTORY_DIR)
+        if hist_dir and st.history is None:
+            st.history = QueryHistoryStore(hist_dir)
         if st.slo is None:
             st.slo = SloDetector()
         st.slo.configure(conf.get(Cf.OBS_SLO_ENABLED),
@@ -302,6 +314,10 @@ def install(conf, device=None) -> "Optional[ObsState]":
                 logging.getLogger("spark_rapids_tpu_torch").warning(
                     "failed to start obs endpoint on port %d", port,
                     exc_info=True)
+    if st.history is not None:
+        # baselines survive restarts: seed once from the store (outside
+        # the state lock: seeding reads the history file)
+        st.slo.seed_from_history(st.history)
     return st
 
 
@@ -418,10 +434,11 @@ def on_query_start(plan_digest: Optional[str] = None,
 
 
 def wants_rollups() -> bool:
-    """Does a consumer exist for per-exec rollups? The endpoint (A11d:
-    or the history store)."""
+    """Does a consumer (the endpoint or the history store) exist for
+    per-exec rollups?"""
     st = _STATE
-    return st is not None and st.server is not None
+    return st is not None and (st.server is not None
+                               or st.history is not None)
 
 
 def on_query_end(token, *, session, plan, status: str,
@@ -430,10 +447,16 @@ def on_query_end(token, *, session, plan, status: str,
                  trace_paths: Optional[dict] = None,
                  last_metrics: Optional[Dict[str, dict]] = None,
                  degraded_reason: Optional[str] = None,
-                 flight_dump: Optional[str] = None) -> None:
-    """Publish one finished top-level action: the registry rollups and
-    the SLO check. MUST be called for every non-None token (including
-    NESTED): it unwinds the thread's collect depth."""
+                 attribution_doc: Optional[dict] = None,
+                 aqe_doc: Optional[dict] = None,
+                 flight_dump: Optional[str] = None) -> Optional[dict]:
+    """Publish one finished top-level action: the registry rollups, the
+    SLO check, the attribution export and the history record. Returns the
+    record (None when history is off). MUST be called for every non-None
+    token (including NESTED): it unwinds the thread's collect depth.
+    ``last_metrics`` is the caller's resolved snapshot when it took one;
+    the endpoint's rollups otherwise peek, and the history record takes
+    one."""
     _TLS.depth = max(0, getattr(_TLS, "depth", 1) - 1)
     st = _STATE
     if st is None or token is NESTED:
@@ -452,7 +475,11 @@ def on_query_end(token, *, session, plan, status: str,
                     labels={"status": status}).inc()
         reg.histogram("rapids_query_wall_time_ms").observe(
             duration_ns / 1e6)
-        # A11d: the attribution doc's seconds-by-phase counter;
+        if attribution_doc:
+            for phase, secs in attribution_doc.get("buckets", {}).items():
+                if secs:
+                    reg.float_counter("rapids_query_seconds_bucket",
+                                      labels={"phase": phase}).inc(secs)
         # A11e: the roofline gauges of an audited query
         digest = None
         try:
@@ -463,6 +490,11 @@ def on_query_end(token, *, session, plan, status: str,
         if st.slo is not None and status == "ok" and digest:
             breach = st.slo.record(digest, duration_ns / 1e9)
         if breach is not None:
+            if attribution_doc is None:
+                try:
+                    attribution_doc = session.last_attribution()
+                except Exception:  # noqa: BLE001 - advisory
+                    pass
             reg.counter("rapids_slo_breaches_total").inc()
             try:
                 from spark_rapids_tpu_torch.runtime import trace as _tr
@@ -474,23 +506,42 @@ def on_query_end(token, *, session, plan, status: str,
                 flight_dump = flight.dump(
                     "slo_breach",
                     query_id=token if isinstance(token, int) else None)
-            # A11d: the JAX package adds the attribution summary here
             st.last_slow = {
                 "query_id": token,
                 "plan_digest": digest,
                 "wall_ms": round(duration_ns / 1e6, 3),
                 "breach": breach,
+                "attribution": attribution.summary(attribution_doc),
                 "flight_dump": flight_dump,
                 "finished_unix": time.time(),
             }
-        if st.server is not None:
-            # per-exec rollups for the scrape surface, from each
+        snaps = last_metrics
+        if st.history is not None and snaps is None:
+            # the record's rollups resolve the lazy device row counts:
+            # one snapshot serves the record and the registry
+            snaps = {}
+            try:
+                snaps = session.last_metrics()
+            except Exception:  # noqa: BLE001 - a poisoned lazy count
+                pass  # must not drop the whole publish
+        if st.server is not None or st.history is not None:
+            # per-exec rollups; with the endpoint alone, from each
             # metric's resolved part: a row count still on the card is
             # not read (no device sync in the epilogue)
-            snaps = last_metrics
             if snaps is None:
-                snaps = _peek_metrics(session)
+                snaps = peek_metrics(session)
             _publish_exec_rollups(reg, snaps)
+        rec = None
+        if st.history is not None:
+            rec = build_query_record(
+                query_id=token, wall_start_unix=wall_start_unix,
+                duration_ns=duration_ns, status=status, error=error,
+                plan=plan, session=session, trace_paths=trace_paths,
+                snaps=snaps, degraded_reason=degraded_reason,
+                attribution=attribution_doc, aqe=aqe_doc,
+                slo_breach=breach, flight_dump=flight_dump,
+                digest=digest, replica_id=st.replica_id or None)
+            st.history.append(rec)
         st.last_query = {
             "query_id": token, "status": status,
             "wall_ms": round(duration_ns / 1e6, 3),
@@ -501,7 +552,7 @@ def on_query_end(token, *, session, plan, status: str,
             st.last_query["degraded_reason"] = degraded_reason
         if breach is not None:
             st.last_query["slo_breach"] = True
-        return None
+        return rec
     except Exception:  # noqa: BLE001 - observability never fails a query
         return None
     finally:
@@ -509,9 +560,11 @@ def on_query_end(token, *, session, plan, status: str,
             st._active -= 1
 
 
-def _peek_metrics(session) -> Dict[str, dict]:
+def peek_metrics(session) -> Dict[str, dict]:
     """``session.last_metrics()`` without resolving lazy device counts
-    (``MetricsRegistry.peek_snapshot``)."""
+    (``MetricsRegistry.peek_snapshot``): no device sync. Every ``*Time``
+    timer is a host integer, so the attribution fold reads the same
+    timers from it."""
     from spark_rapids_tpu_torch.runtime.metrics import walk_exec_tree
     out: Dict[str, dict] = {}
     root = getattr(session, "last_exec", None)

@@ -8,13 +8,14 @@ new run exceeding its baseline mean by
 exist), or exceeding the absolute bound
 ``spark.rapids.obs.slo.latencySeconds`` regardless of history, is a
 breach: the query epilogue then emits a ``slowQuery`` instant, bumps
-``rapids_slo_breaches_total``, records the breach on ``/healthz``, and
-triggers a flight-recorder dump, so the timeline of the slow query exists
-retroactively even with tracing off.
+``rapids_slo_breaches_total``, records the breach (with its attribution
+summary) on ``/healthz``, and triggers a flight-recorder dump, so the
+timeline of the slow query exists retroactively even with tracing off.
 
 Breaching runs do NOT fold into the baseline (a regression must keep
-reading as a regression). Seeding the baselines from the query history
-store waits for that store (ROADMAP A11d).
+reading as a regression); with ``spark.rapids.obs.historyDir`` set the
+baselines seed from the query history store at install time, so they
+survive process restarts.
 
 Plain in-memory state behind one lock; touched once per query end,
 never on an execution path.
@@ -46,6 +47,7 @@ class SloDetector:
         self._hist: "OrderedDict[str, List[float]]" = OrderedDict()
         self.breaches = 0
         self.last_breach: Optional[dict] = None
+        self._seeded = False
 
     def configure(self, enabled: bool, factor: float, min_runs: int,
                   abs_seconds: float, window: int) -> None:
@@ -73,7 +75,33 @@ class SloDetector:
         with self._lock:
             self._observe_locked(digest, seconds)
 
-    # A11d: seed_from_history(store) folds the history store's ok runs
+    def seed_from_history(self, store, limit: int = 2000) -> int:
+        """Load baselines from a query history store's ok records (once
+        per detector; later calls are no-ops). Returns records folded."""
+        with self._lock:
+            if self._seeded:
+                return 0
+            self._seeded = True
+        n = 0
+        try:
+            records = store.read_all()[-limit:]
+        except Exception:  # noqa: BLE001 - an unreadable store seeds
+            return 0  # nothing; live baselines still accumulate
+        for rec in records:
+            if rec.get("type") != "query" or rec.get("status") != "ok":
+                continue
+            if rec.get("slo_breach"):
+                # the live check refused to fold this run: seeding must
+                # refuse it too, or a sustained regression normalizes
+                # itself away across restarts
+                continue
+            digest = rec.get("plan_digest")
+            dur = rec.get("duration_ns")
+            if not digest or not dur:
+                continue
+            self.observe(digest, int(dur) / 1e9)
+            n += 1
+        return n
 
     def baseline(self, digest: str) -> Optional[dict]:
         with self._lock:
@@ -120,6 +148,7 @@ class SloDetector:
             self._hist.clear()
             self.breaches = 0
             self.last_breach = None
+            self._seeded = False
 
     def doc(self) -> dict:
         """The /healthz slo sub-document."""

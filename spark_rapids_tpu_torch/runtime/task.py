@@ -108,12 +108,15 @@ class TaskContext:
                              self.task_id, exc_info=True)
         self._failed = failed
         self._cancelled = cancelled
-        # the trace's event log and the live registry after the
-        # callbacks, so the semaphore release's final hold time is in
-        # both: ONE write batch per task
+        # the trace's event log, the live registry and the query's
+        # attribution aggregate after the callbacks, so the semaphore
+        # release's final wait and hold times are in all three: ONE
+        # write batch per task
         from spark_rapids_tpu_torch.runtime import obs, trace
+        from spark_rapids_tpu_torch.runtime.obs import attribution
         trace.on_task_complete(self)
         obs.on_task_complete(self)
+        attribution.fold_task(self._metrics)
         if self.query_id is not None and self._metrics:
             snap = self.metrics_snapshot()
             with _TOTALS_LOCK:

@@ -10,12 +10,12 @@ Expand lowering), ``agg``, ``order_by`` (``orderBy``, ``sort``), ``limit``,
 (``dropDuplicates``), ``dropna``, ``fillna``, ``sample``,
 ``random_split``, the actions ``count``, ``collect``, ``collect_cpu``,
 ``to_pydict``, ``to_pandas``, ``show``, ``head``, ``take`` and
-``first``, ``write`` (``io/writer.DataFrameWriter``), the schema
-accessors, ``explain`` (the placement report), and the statistics
-``describe``, ``corr``, ``cov``, ``crosstab`` and ``approx_quantile``.
-Not here yet: ``explain``'s ``stages`` and ``analyze`` modes (they wait
-for the fusion and metrics modules, ROADMAP item 11) and
-``to_device_batches``."""
+``first``, ``to_device_batches`` (the batches on the session's device),
+``write`` (``io/writer.DataFrameWriter``), the schema accessors,
+``explain`` (the placement report, and EXPLAIN ANALYZE), and the
+statistics ``describe``, ``corr``, ``cov``, ``crosstab`` and
+``approx_quantile``. Not here yet: ``explain("stages")``, which waits
+for stage fusion (ROADMAP item 11, A11e)."""
 from __future__ import annotations
 
 import copy
@@ -373,18 +373,37 @@ class DataFrame:
                            conf.get(C.ANSI_ENABLED))
 
     def explain(self, mode: str = "placement") -> str:
-        """Print and return the placement report: every operator, ``*``
-        where it runs on the device and ``!`` where it falls back to the
-        CPU, with an ``@ cannot run on GPU because:`` line per reason."""
-        if mode != "placement":
+        """Print and return a report. 'placement' (default): every
+        operator, ``*`` where it runs on the device and ``!`` where it
+        falls back to the CPU, with an ``@ cannot run on GPU because:``
+        line per reason. 'analyze': run the query, then the operator
+        tree annotated with the rows, batches and time each operator
+        recorded, the wall-time attribution and the adaptive decisions
+        (``session.explain_analyze()``)."""
+        if mode == "analyze":
+            self.collect()
+            s = self.session.explain_analyze()
+        elif mode == "placement":
+            from spark_rapids_tpu_torch.plan.overrides import explain_plan
+            s = explain_plan(self.plan, self.session.conf, all_ops=True)
+        else:
             raise NotImplementedError(
-                f"explain mode {mode!r}: only 'placement' is ported (the "
-                f"'stages' and 'analyze' modes wait for the fusion and "
-                f"metrics modules, ROADMAP item 11)")
-        from spark_rapids_tpu_torch.plan.overrides import explain_plan
-        s = explain_plan(self.plan, self.session.conf, all_ops=True)
+                f"explain mode {mode!r}: 'stages' waits for stage fusion "
+                f"(ROADMAP item 11, A11e); 'placement' and 'analyze' are "
+                f"ported")
         print(s)
         return s
+
+    def to_device_batches(self) -> list:
+        """Run the plan and return its compacted ``ColumnarBatch``es (flat,
+        in partition order) with their tensors on the session's device:
+        the hand-off of device tables to torch code without a host round
+        trip (reference ColumnarRdd / InternalColumnarRddConverter). Each
+        batch's live rows are gathered to the front, which reads its row
+        count off the device; no column plane is downloaded."""
+        from spark_rapids_tpu_torch.ops.kernels import compact_batch
+        root, _ = self.session.prepare_execution(self.plan)
+        return self.session.run_partitions(root, compact_batch)
 
     def to_pydict(self):
         return self.collect().to_pydict()

@@ -5,8 +5,9 @@ Counterpart of ``spark_rapids_tpu/sql/session.py`` ``TpuSession``
 partition discovery, ``read_csv``, ``read_json``, ``read_avro`` and
 ``read_orc``; the SQL front door:
 ``create_or_replace_temp_view``, ``table`` and ``sql``, ``collect``,
-``last_aqe`` and ``explain_aqe``, and the device-side compaction of sparse
-results before the download).
+``last_aqe`` and ``explain_aqe``, the reports ``last_plan_explain``,
+``last_attribution`` and ``explain_analyze``, and the device-side
+compaction of sparse results before the download).
 ``collect`` tags the plan and converts it (``plan/overrides.py``): what
 is tagged off the device runs one operator at a time on the CPU backend.
 spark.rapids.sql.explain=NOT_ON_TPU|ALL logs the placement report, and
@@ -30,8 +31,17 @@ session: a top-level action takes a positive query id from
 executing, finishing, then its status), its exec tree attaches to the
 live context in ``prepare_execution`` (``running_queries()``), and the
 epilogue publishes it with ``obs.on_query_end``, after a flight dump when
-the action failed, degraded or was cancelled. The query history,
-attribution and the rest of the JAX package's epilogue are ROADMAP A11d.
+the action failed, degraded or was cancelled.
+
+Every top-level action also folds its wall time into the attribution
+buckets (``runtime/obs/attribution.py``: ``last_attribution()``, the
+``rapids_query_seconds_bucket`` counter) from host-clock timers only, so
+the default epilogue reads nothing off the card. With
+spark.rapids.obs.historyDir set it appends the JAX package's history
+record (``runtime/obs/history.py``), and the measured cost pass
+(``plan/cost.measured_hints``) reads those records back into planning
+in ``prepare_execution``. ``last_audit()`` and ``last_roofline()`` stay
+None until the kernel cost auditor (ROADMAP A11e).
 """
 from __future__ import annotations
 
@@ -121,6 +131,11 @@ class TorchSession:
         self.last_meta = None
         self._views: Dict[str, DataFrame] = {}
         self._last_aqe: Optional[dict] = None
+        #: the last top-level action's attribution doc, its direct-record
+        #: aggregate (bucket -> ns) and its wall time
+        self._last_attribution: Optional[dict] = None
+        self._last_attr_extra: Optional[Dict[str, int]] = None
+        self._last_duration_ns = 0
         #: (status, reason) of the last top-level action
         self.last_action_status = None
         self._last_task_metrics: Dict[str, int] = {}
@@ -162,7 +177,13 @@ class TorchSession:
         this session's device."""
         from spark_rapids_tpu_torch.sql.parser import parse_sql
         self._activate()
-        return parse_sql(query, self)
+        df = parse_sql(query, self)
+        try:
+            # the live registry and the history record carry the SQL text
+            df.plan._sql_text = query
+        except Exception:  # noqa: BLE001 - a slotted plan node just
+            pass  # carries no text
+        return df
 
     def create_dataframe(self, data, num_partitions: int = 1) -> DataFrame:
         self._activate()
@@ -249,7 +270,9 @@ class TorchSession:
         fault injection is armed (the general sites and the
         legacy OOM injector), the retry backoff, the dispatch watchdog and
         breaker and the spill budgets are synced, then the plan is
-        converted. Returns (exec root, tagged plan)."""
+        converted under the measured cost pass's hints for its digest
+        (``plan/cost.measured_hints``; a decision in ``last_aqe()`` when
+        there are any). Returns (exec root, tagged plan)."""
         from spark_rapids_tpu_torch.analysis import sanitizer
         from spark_rapids_tpu_torch.runtime import faults, watchdog
         from spark_rapids_tpu_torch.runtime.memory import get_spill_framework
@@ -263,7 +286,19 @@ class TorchSession:
         backoff_from_conf(self.conf)
         watchdog.maybe_install(self.conf)
         get_spill_framework(self.conf, self.device)
-        root, meta = convert_plan(plan, self.conf, self.device)
+        # the measured cost pass: audited history of this plan's digest
+        # may set the aggregate exchange's partitions and the coalescing
+        # threshold (thread-local: concurrent sessions convert under
+        # their own hints)
+        from spark_rapids_tpu_torch.plan import cost as COST
+        hints = COST.measured_hints(plan, self.conf)
+        COST.install_hints(hints)
+        try:
+            root, meta = convert_plan(plan, self.conf, self.device)
+        finally:
+            COST.clear_hints()
+        if hints is not None and AQ.enabled(self.conf):
+            AQ.record(AQ.MEASURED_COST, **hints.detail())
         self.last_exec, self.last_meta = root, meta
         # attach the converted tree to THIS query's live context (the
         # thread's bound query id), so /queries progress walks the
@@ -306,6 +341,7 @@ class TorchSession:
         from spark_rapids_tpu_torch.runtime import lifecycle as LC
         from spark_rapids_tpu_torch.runtime import obs as OBS
         from spark_rapids_tpu_torch.runtime import task as TK
+        from spark_rapids_tpu_torch.runtime.obs import attribution as ATTR
         # one structured trace per action (spark.rapids.sql.trace.*); a
         # nested collect (a scalar subquery, a broadcast materialization)
         # gets None and joins the enclosing query's trace
@@ -340,6 +376,10 @@ class TorchSession:
         tok = None  # this action's cancel token (top level only)
         _COLLECT_DEPTH.d = depth + 1
         if depth == 0:
+            # the attribution aggregate (kernel builds, task
+            # accumulators) opens whatever the obs state, so every
+            # top-level action has a breakdown
+            ATTR.on_query_start()
             AQ.on_query_start(self.conf)
             # the t0 marker of every top-level action, traced or not (the
             # flight ring records it too)
@@ -392,7 +432,17 @@ class TorchSession:
             return fallback
         finally:
             _COLLECT_DEPTH.d = depth
+            duration_ns = time.perf_counter_ns() - t0
             flight_dump = None
+            # one resolved snapshot serves the trace and the history
+            # record; neither is on by default
+            lm = None
+            if qt is not None:
+                try:
+                    lm = self.last_metrics()
+                except Exception:  # noqa: BLE001
+                    _LOG.warning("failed to snapshot last_metrics",
+                                 exc_info=True)
             if depth == 0:
                 #: (status, reason) of the most recent top-level action
                 self.last_action_status = (status,
@@ -405,6 +455,7 @@ class TorchSession:
                 self._last_task_metrics = TK.take_query_totals(
                     tok.query_id) if tok is not None else {}
                 self._last_aqe = AQ.finish_query()
+                self._attribute(lm, duration_ns)
                 if status != "ok":
                     self._outcome_instant(ot, status, error,
                                           degraded_reason, cancel_reason)
@@ -417,17 +468,21 @@ class TorchSession:
                         error=(type(error).__name__ if error is not None
                                else degraded_reason))
             if qt is not None:
-                self._end_trace(qt, status, error)
+                self._end_trace(qt, status, error, lm, plan)
             if ot is not None:
+                top = depth == 0
                 try:
                     OBS.on_query_end(
                         ot, session=self, plan=plan, status=status,
-                        error=error,
-                        duration_ns=time.perf_counter_ns() - t0,
+                        error=error, duration_ns=duration_ns,
                         wall_start_unix=wall0,
                         trace_paths=(self.last_trace_paths
                                      if qt is not None else None),
+                        last_metrics=lm,
                         degraded_reason=degraded_reason,
+                        attribution_doc=(self._last_attribution
+                                         if top else None),
+                        aqe_doc=self._last_aqe if top else None,
                         flight_dump=flight_dump)
                 except Exception:  # noqa: BLE001
                     _LOG.warning("failed to publish query to obs",
@@ -472,22 +527,41 @@ class TorchSession:
             _LOG.warning("failed to emit query outcome instant",
                          exc_info=True)  # query's own error
 
-    def _end_trace(self, qt, status: str, error) -> None:
-        """Finalize the action's trace with its metrics snapshot, on
-        success and failure alike. Observability never fails (or masks
-        the real error of) a query: a snapshot or finalize failure is
-        logged."""
-        lm = None
+    def _attribute(self, lm, duration_ns: int) -> None:
+        """Close the attribution aggregate and fold the action's wall time
+        into the buckets, from ``lm`` when the epilogue took a resolved
+        snapshot, else from a peek (the timers are host integers: no
+        device sync). Never raises."""
+        from spark_rapids_tpu_torch.runtime import obs as OBS
+        from spark_rapids_tpu_torch.runtime.obs import attribution as ATTR
+        self._last_attribution = None
+        self._last_duration_ns = duration_ns
         try:
-            lm = self.last_metrics()
+            self._last_attr_extra = ATTR.finish()
+            snaps = lm if lm is not None else OBS.peek_metrics(self)
+            self._last_attribution = ATTR.attribute(
+                snaps, duration_ns, extra=self._last_attr_extra)
+        except Exception:  # noqa: BLE001 - attribution is advisory
+            _LOG.warning("failed to attribute query time", exc_info=True)
+
+    def _end_trace(self, qt, status: str, error, lm, plan) -> None:
+        """Finalize the action's trace with its metrics snapshot and plan
+        digest, on success and failure alike. Observability never fails
+        (or masks the real error of) a query: a finalize failure is
+        logged."""
+        from spark_rapids_tpu_torch.runtime import obs as OBS
+        digest = None
+        try:
+            digest = OBS.plan_digest(plan)
         except Exception:  # noqa: BLE001
-            _LOG.warning("failed to snapshot last_metrics", exc_info=True)
+            pass
         # cleared first so a finalize failure can never leave a previous
         # query's artifacts looking like this one's
         self.last_trace_paths = None
         try:
             self.last_trace_paths = TR.end_query(
-                qt, last_metrics=lm, status=status, error=error)
+                qt, last_metrics=lm, status=status, error=error,
+                plan_digest=digest)
         except Exception:  # noqa: BLE001
             _LOG.warning("failed to finalize query trace", exc_info=True)
 
@@ -613,6 +687,80 @@ class TorchSession:
         """The last action's adaptive decisions as report lines
         (``render_text``): a header, then one line a decision."""
         return AQ.render_text(self._last_aqe)
+
+    def last_plan_explain(self) -> str:
+        """The placement report of the last action's tagged plan."""
+        return self.last_meta.explain(all_ops=True) if self.last_meta \
+            else ""
+
+    def last_attribution(self) -> Optional[dict]:
+        """Wall-time attribution of the most recent top-level action
+        (``runtime/obs/attribution.py``): named phase buckets summing to
+        the measured wall time. The epilogue's document, else one
+        recomputed from the operators' timers and the stored aggregate;
+        None before any action."""
+        if self._last_attribution is not None:
+            return self._last_attribution
+        if not self._last_duration_ns or self.last_exec is None:
+            return None
+        from spark_rapids_tpu_torch.runtime import obs as OBS
+        from spark_rapids_tpu_torch.runtime.obs import attribution as ATTR
+        try:
+            return ATTR.attribute(OBS.peek_metrics(self),
+                                  self._last_duration_ns,
+                                  extra=self._last_attr_extra)
+        except Exception:  # noqa: BLE001 - advisory
+            return None
+
+    def last_audit(self) -> Optional[dict]:
+        """The kernel cost audit of the last action: None until the
+        auditor is ported (ROADMAP A11e), as in the JAX package with
+        spark.rapids.obs.audit.enabled off, its default."""
+        return None
+
+    def last_roofline(self) -> Optional[dict]:
+        """The roofline attribution of the last action: None until the
+        auditor is ported (ROADMAP A11e)."""
+        return None
+
+    def explain_analyze(self, snaps: Optional[Dict[str, dict]] = None
+                        ) -> str:
+        """The physical operator tree of the most recent action annotated
+        with its runtime metrics (rows, batches, dispatches, operator
+        time per operator, from ``snaps`` or ``last_metrics()``), then
+        the attribution and adaptive sections (the EXPLAIN ANALYZE
+        surface; reference: the Spark SQL tab's metric annotations)."""
+        from spark_rapids_tpu_torch.runtime.metrics import exec_rollup
+        from spark_rapids_tpu_torch.runtime.obs import attribution as ATTR
+        root = self.last_exec
+        if root is None:
+            return "<no executed plan: run an action first>"
+        if snaps is None:
+            snaps = self.last_metrics()
+        lines: List[str] = []
+        for key, node, depth, role, sid in walk_exec_tree(root):
+            r = exec_rollup(snaps.get(key, {}))
+            parts = [f"rows={r['rows']}", f"batches={r['batches']}"]
+            if r["dispatches"]:
+                parts.append(f"dispatches={r['dispatches']}")
+            parts.append(f"time={r['time_ns'] / 1e6:.3f}ms")
+            annot = ", ".join(parts)
+            pad = "  " * depth
+            if role is None:
+                mark = f"*({sid}) " if sid is not None else ""
+                lines.append(f"{pad}{mark}{node.name()}  [{annot}]")
+            else:
+                tag = "fused" if role == "member" else role
+                lines.append(f"{pad}  *({sid}) {type(node).__name__} "
+                             f"[{tag}]  [{annot}]")
+        attr = self.last_attribution()
+        if attr is not None:
+            lines.append("")
+            lines.extend(ATTR.render_text(attr))
+        if self._last_aqe is not None:
+            lines.append("")
+            lines.extend(AQ.render_text(self._last_aqe))
+        return "\n".join(lines)
 
     def _collect(self, plan: P.PlanNode) -> pa.Table:
         if self.conf.get(C.SQL_MODE).lower() == "explainonly":

@@ -6,10 +6,11 @@ path, the endpoint), tests/test_live_obs.py (the state machine, progress,
 cross-thread correlation, the sampler, /queries and /healthz) and
 tests/test_flight.py (the rings, the dumps and their triggers, the SLO
 detector) that are not bound to the history store, attribution, EXPLAIN
-ANALYZE, fusion, compilation or serving, run against the port. Parity
-cases run one program through both packages with obs on: the same
+ANALYZE, fusion, compilation or serving, run against the port (those are
+tests/test_torch_history.py's and later items'). Parity cases run one
+program through both packages with obs on: the same
 ``rapids_queries_total`` by status and ``rapids_tasks_*`` counts, the
-same instrument roster less the names ROADMAP.md leaves to A11d-A11f,
+same instrument roster less the names ROADMAP.md leaves to A11e-A11f,
 the same live-state sequence and the same flight-dump triggers. Then the
 port's own: the liveness probe (on the CPU, its op runs on the CPU; the
 side-stream form is tests/test_torch_obs_card.py's), positive ids with
@@ -64,9 +65,8 @@ ROSTER = ("rapids_semaphore_wait_ns_total",
           "rapids_query_wall_time_ms", "rapids_tasks_completed_total")
 
 #: the JAX package's preregistered instruments that later items bring
-#: (ROADMAP.md A11d-A11f lists them)
+#: (ROADMAP.md A11e-A11f lists them)
 LATER = {
-    "rapids_query_seconds_bucket",                      # A11d
     "rapids_xla_compiles_total", "rapids_xla_compile_seconds_total",
     "rapids_persistent_cache_hits_total",
     "rapids_persistent_cache_misses_total",
@@ -272,8 +272,8 @@ def test_prometheus_render_parseable_and_typed():
 # ---------------------------------------------------------------------------
 
 def test_task_and_query_publish_with_and_without_a_consumer():
-    """The endpoint consumes per-exec rollups; with no endpoint (and the
-    history store, A11d, not ported) the per-exec publish is skipped."""
+    """The endpoint consumes per-exec rollups; with no endpoint and no
+    history store the per-exec publish is skipped."""
     s = _session()
     _query(s)
     snap = obs.state().registry.snapshot()
@@ -1224,14 +1224,14 @@ def test_config_keys_and_defaults_equal_jax():
     from spark_rapids_tpu import config as JC
 
     from spark_rapids_tpu_torch import config as PC
-    later = ("historyDir", "reqtrace.", "audit.")
+    later = ("reqtrace.", "audit.")
     want = {k: JC._REGISTRY[k].default for k in JC._REGISTRY
             if k.startswith("spark.rapids.obs.")
             and not any(k[len("spark.rapids.obs."):].startswith(x)
                         for x in later)}
     got = {k: PC._REGISTRY[k].default for k in PC.keys()
            if k.startswith("spark.rapids.obs.")}
-    assert len(got) == 19 and set(got) == set(want)
+    assert len(got) == 20 and set(got) == set(want)
     import tempfile
     want["spark.rapids.obs.flight.path"] = os.path.join(
         tempfile.gettempdir(), "rapids_tpu_flight")
