@@ -353,6 +353,30 @@ Phases, one JSON line each:
    device ms and idle share, copies and syncs per mode, what history on
    adds, the buckets in ms; the collapse's warm ms and B1 launches before
    and after.
+17h. fusion (after the history phase, on the joins phase's 1-partition
+   lineitem cache and the Parquet file): every phase runs with stage
+   fusion on, its default; here the queries of
+   torch_port_helpers.fusion_queries (q6, q1, pq_q6 with its device
+   decode absorbed into the aggregate, q72shfl, q72shfl_repart (B1),
+   rollup_shipdate (a fused stage with the Expand, B2) and limit_chain
+   (Filter, Project and LIMIT 100 over the device decode, one fused
+   stage with B3)) run with spark.rapids.sql.stageFusion.enabled off and
+   on: cold, then twice warm in turns, then once each under
+   torch.profiler's CUDA activity, then once on under its CPU and CUDA
+   activity. Checked: answers equal off and on (bitwise; rollup_shipdate
+   to 1e-6, its Expand changes form) and right against numpy/pyarrow;
+   the fusion groups equal the JAX package's (FUSION_EXPECT) on and none
+   off; stageDispatches equal the stages' input batches; B1-B3 launches
+   equal off and on, but rollup_shipdate's B2: its Expand yields a batch
+   a projection off and one stacked batch on, so on it must launch the
+   sets phase's 12 (off 4, only the full grouping set's batch on the
+   chunked segsum route); a stage range in the profiled run of every fused
+   query; limit_chain stops before the end of its input, pulling no more
+   batches on than off. Printed per query: fused and absorbed stages,
+   fusion groups, narrow dispatches a batch, stageDispatches and input
+   batches, warm ms, device ms and idle share, peak GB and launches off
+   and on, and per stage range its batches, kernel launches a batch and
+   host ms a batch.
 18. runtime (last, after the fallback phase, so that its small budgets,
    injected faults and open breaker touch no earlier phase; on the joins
    phase's lineitem caches h1 (1 partition) and h8 (8), the Parquet file
@@ -407,7 +431,8 @@ Phases, one JSON line each:
    after it) and a spark.rapids.debug.faults spec at pipeline.producer
    (the query fails with the injected error).
 Depth cuts (to keep the script within its time with the pipeline
-phase): the regex, nested and formats phases take one warm run after
+phase; with the fusion phase the cached path and the udf phase run
+each query cold and once warm, not twice): the regex, nested and formats phases take one warm run after
 the cold one instead of two; with the obs phase the joins, sql, sets,
 aggtypes, datetime, fallback and shuffle phases do too (WARM_RUNS),
 where the text above says twice warm; with the history phase the
@@ -469,6 +494,9 @@ HOST_LIBS = ("kudo",)
 #: two, to keep the whole script within its time with the obs phase)
 WARM_RUNS = 1
 RUNS = 1 + WARM_RUNS
+#: warm runs of the cached path phase (cut from two to pay for the
+#: fusion phase)
+PATH_WARM_RUNS = 1
 PARQUET_WRITE = dict(row_group_size=1 << 20,
                      use_dictionary=["l_shipdate", "l_quantity",
                                      "l_returnflag", "l_linestatus"],
@@ -1197,17 +1225,19 @@ def phase_path(table, want, spy, prof=None):
         got = fn()
         cold = time.perf_counter() - t0
         warm = []
-        for _ in range(2):
+        # one warm run (two until the fusion phase came)
+        for _ in range(PATH_WARM_RUNS):
             t0 = time.perf_counter()
             fn()
             warm.append(time.perf_counter() - t0)
         good = validate(name, got, want[name])
         ok &= good
-        launches = {k: (v - before[k]) // 3
+        runs = 1 + PATH_WARM_RUNS
+        launches = {k: (v - before[k]) // runs
                     for k, v in read_launches().items()}
         per_query[name] = {"correct": good, "cold_s": cold,
                            "warm_s": min(warm), "launches": launches,
-                           "routes": {k: v // 3 for k, v in
+                           "routes": {k: v // runs for k, v in
                                       spy.take().items()}}
         emit({"phase": "path.query", "query": name, **per_query[name]})
     RUN_NOTES["path_q1_warm_ms"] = per_query["q1"]["warm_s"] * 1e3
@@ -6104,7 +6134,7 @@ def phase_udf(table, h1, h8, spy):
     spy.take()
     problems = []
 
-    def run(name, session, build, runs=3, note=None):
+    def run(name, session, build, runs=2, note=None):
         """build() makes the query (after the session's conf became the
         thread's, which a udf's compile decision reads); cold then warm
         runs; one udf.query line."""
@@ -7139,6 +7169,289 @@ def phase_history(want, h1, h8, pq_path, tmp_dir):
 
 
 # ---------------------------------------------------------------------------
+# phase 17h: stage fusion
+# ---------------------------------------------------------------------------
+
+FUSION_OFF = {"spark.rapids.sql.stageFusion.enabled": "false"}
+#: queries whose Expand changes form with fusion (a batch a projection
+#: off, one stacked batch on), so their aggregate's B2 launches differ
+FUSION_FORM_CHANGES = ("rollup_shipdate",)
+#: the range names FusedStageExec and an absorbing aggregate open around
+#: each batch's call while a profiler records (exec/fuse.stage_range)
+STAGE_RANGES = ("FusedStage#", "AbsorbedStage#")
+
+
+def fusion_reference(t) -> dict:
+    """numpy answers of the fusion phase's queries that the other
+    references do not give: rollup_shipdate's groups (year, week; with the
+    rollup's subtotals) -> (revenue, lines), and limit_chain's rows."""
+    H = helpers()
+    sd = t.column("l_shipdate").to_numpy()
+    rev = t.column("l_extendedprice").to_numpy() * (
+        1.0 - t.column("l_discount").to_numpy())
+    year, week = sd // 365, sd // 7
+    wmax = int(week.max()) + 1
+    idx = year * wmax + week
+    size = (int(year.max()) + 1) * wmax
+    n = np.bincount(idx, minlength=size)
+    r = np.bincount(idx, weights=rev, minlength=size)
+    roll = {}
+    for i in np.flatnonzero(n):
+        roll[(int(i // wmax), int(i % wmax))] = (float(r[i]), int(n[i]))
+    ny = np.bincount(year)
+    ry = np.bincount(year, weights=rev)
+    for y in np.flatnonzero(ny):
+        roll[(int(y), None)] = (float(ry[y]), int(ny[y]))
+    roll[(None, None)] = (float(rev.sum()), int(len(sd)))
+    return {"rollup_shipdate": roll,
+            "limit_chain": H.limit_chain_answer(t)}
+
+
+def _fusion_answer(name, table):
+    """A fusion-phase result (pyarrow table) in the shape its reference
+    check takes."""
+    d = table.to_pydict()
+    if name in ("q6", "pq_q6"):
+        return list(d.values())[0][0]
+    if name == "q1":
+        return {(rf, ls): (sq, sp, mq, md, c) for rf, ls, sq, sp, mq, md, c
+                in zip(d["l_returnflag"], d["l_linestatus"], d["sq"],
+                       d["sp"], d["mq"], d["md"], d["cnt"])}
+    if name in ("q72shfl", "q72shfl_repart"):
+        return {int(k): (s, c) for k, s, c in zip(d["k"], d["s"], d["c"])}
+    if name == "rollup_shipdate":
+        return {(y, w): (v, n) for y, w, v, n in
+                zip(d["ship_year"], d["ship_week"], d["rev"], d["n"])}
+    return d
+
+
+def _fusion_check(name, got, want, fwant) -> bool:
+    """The result against numpy or pyarrow."""
+    if name in ("q6", "pq_q6"):
+        return validate("q6", got, want["q6"])
+    if name == "q1":
+        return validate("q1", got, want["q1"])
+    if name in ("q72shfl", "q72shfl_repart"):
+        return validate("q72shfl_groups", got, want["q72shfl_groups"])
+    if name == "rollup_shipdate":
+        ref = fwant[name]
+        return set(got) == set(ref) and all(
+            _close(got[k][0], ref[k][0], 1e-9) and got[k][1] == ref[k][1]
+            for k in ref)
+    return got == fwant[name]
+
+
+def _same_answer(name, a, b) -> tuple:
+    """(bitwise equal, the largest relative difference of a float sum) of
+    the fusion-off and -on answers, or (False, None) when keys or counts
+    differ. Only rollup_shipdate's Expand changes form: one batch a
+    projection off, one stacked batch on, so its float sums may take
+    other chunks on the packed route; the sets phase holds them to 1e-6."""
+    if a == b:
+        return True, 0.0
+    if name == "rollup_shipdate" and set(a) == set(b) \
+            and all(a[k][1] == b[k][1] for k in a):
+        return False, max(abs(a[k][0] - b[k][0])
+                          / max(1.0, abs(a[k][0]), abs(b[k][0])) for k in a)
+    return False, None
+
+
+def _stage_profile(fn):
+    """One run of fn under torch.profiler (host and card): per fused or
+    absorbed stage range, the batches (ranges), the CUDA kernel launches
+    issued inside them a batch, and the host ms a batch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_stage_"),
+                        "trace.json")
+    prof.export_chrome_trace(path)
+    events = _trace_events(path)
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    ranges = [e for e in events if e.get("ph") == "X" and any(
+        str(e.get("name", "")).startswith(p) for p in STAGE_RANGES)
+        and str(e.get("cat", "")) != "gpu_user_annotation"]
+    launches = [e for e in events
+                if str(e.get("cat", "")).startswith("cuda_")
+                and "LaunchKernel" in str(e.get("name", ""))]
+    out = {}
+    for r in ranges:
+        t0, t1 = float(r["ts"]), float(r["ts"]) + float(r.get("dur", 0))
+        n = sum(1 for k in launches if k.get("tid") == r.get("tid")
+                and t0 <= float(k["ts"]) <= t1)
+        s = out.setdefault(r["name"], {"batches": 0, "launches": 0,
+                                       "host_us": 0.0})
+        s["batches"] += 1
+        s["launches"] += n
+        s["host_us"] += float(r.get("dur", 0))
+    return {name: {"batches": s["batches"],
+                   "launches_per_batch": s["launches"] / s["batches"],
+                   "host_ms_per_batch": s["host_us"] / s["batches"] / 1e3}
+            for name, s in out.items()}
+
+
+def _stage_dispatch_counts(session) -> dict:
+    """stageDispatches and the input batches of the last query's fused
+    stages and absorbing aggregates."""
+    disp = batches = 0
+    for e in session.last_exec.walk():
+        if getattr(e, "members", None) or getattr(e, "pre_chain_members",
+                                                  None):
+            disp += e.metrics.metric("stageDispatches").value
+            batches += e.metrics.metric("numInputBatches").value
+    return {"stageDispatches": disp, "input_batches": batches}
+
+
+def _decoded_batches(session) -> dict:
+    """The batches the last query pulled through its device decode (the
+    fused stage's input batches with fusion on, the decode's output
+    batches off) and the batches its Parquet source read."""
+    pulled = read = 0
+    for e in session.last_exec.walk():
+        name = type(e).__name__
+        if name == "FusedStageExec" and any(
+                type(m).__name__ == "DeviceDecodeScanExec"
+                for m in e.members):
+            pulled += e.metrics.metric("numInputBatches").value
+        elif name == "DeviceDecodeScanExec":
+            # a fused member's own loop never runs: 0 with fusion on
+            pulled += e.metrics.metric("numOutputBatches").value
+        elif name == "EncodedParquetSourceExec":
+            read += e.metrics.metric("numOutputBatches").value
+    return {"batches_pulled": pulled, "source_batches_read": read}
+
+
+def phase_fusion(want, fwant, h1, pq_path, tmp_dir, prof=None):
+    """Stage fusion (module docstring, phase 17h): the queries of
+    torch_port_helpers.fusion_queries over the 1-partition lineitem cache
+    and the Parquet file, with spark.rapids.sql.stageFusion.enabled off
+    and on: plan (fusion groups against the JAX package's, held in
+    FUSION_EXPECT), stageDispatches against input batches, warm ms,
+    device ms and idle share, peak GB, B1-B3 launches a run, and inside
+    each fused or absorbed stage the kernel launches and host ms a
+    batch; answers equal off and on and against numpy/pyarrow."""
+    import pyarrow.parquet as pq
+    import torch
+
+    from spark_rapids_tpu_torch.analysis.plan_verify import dispatch_budget
+    from spark_rapids_tpu_torch.sql.dataframe import DataFrame
+    H = helpers()
+    t_phase = time.perf_counter()
+    sessions = {"off": device_session(FUSION_OFF), "on": device_session()}
+    cached = {m: DataFrame(h1.li.plan, s) for m, s in sessions.items()}
+    row_groups = pq.ParquetFile(pq_path).metadata.num_row_groups
+    reset_launches()
+    problems = []
+    for name, build in H.fusion_queries(port_api()).items():
+        line = {"phase": "fusion.query", "query": name}
+        answers = {}
+        launches = {}
+        runs = {m: [] for m in sessions}
+
+        def run(mode):
+            s = sessions[mode]
+            return build(s, cached[mode], pq_path).collect()
+
+        for mode in ("off", "on"):  # cold
+            answers[mode] = _fusion_answer(name, run(mode))
+        for _ in range(WARM_RUNS + 1):  # warm, off and on in turns
+            for mode in ("off", "on"):
+                before = read_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(mode)
+                torch.cuda.synchronize()
+                runs[mode].append((time.perf_counter() - t0) * 1e3)
+                launches[mode] = {k: v - before[k]
+                                  for k, v in read_launches().items()}
+        for mode, s in sessions.items():
+            budget = dispatch_budget(s.last_exec)
+            line[f"warm_ms_{mode}"] = min(runs[mode])
+            line[f"launches_per_run_{mode}"] = launches[mode]
+            if mode == "on":
+                line.update({k: budget[k] for k in (
+                    "fused_stages", "absorbed_stages", "fusion_groups",
+                    "narrow_dispatches_per_batch")})
+                line.update(_stage_dispatch_counts(s))
+            elif budget["fusion_groups"]:
+                problems.append(f"{name} planned fusion groups with fusion "
+                                f"off: {budget['fusion_groups']}")
+            if name == "limit_chain":
+                line.update({f"{k}_{mode}": v for k, v in
+                             _decoded_batches(s).items()})
+            torch.cuda.reset_peak_memory_stats()
+            got, c = profiled_run(
+                lambda m=mode: run(m),
+                os.path.join(tmp_dir, f"fusion_{name}_{mode}.json"),
+                tries=1)
+            line[f"peak_gb_{mode}"] = torch.cuda.max_memory_allocated() / 1e9
+            line.update({f"{k}_{mode}": c[k] for k in (
+                "wall_ms", "device_ms", "device_idle_share")})
+        line["warm_on_off_ratio"] = line["warm_ms_on"] / line["warm_ms_off"]
+        line["device_ms_on_off_ratio"] = (
+            line["device_ms_on"] / line["device_ms_off"]
+            if line["device_ms_off"] else None)
+        line["stages"] = _stage_profile(lambda: run("on"))
+        exact, rel = _same_answer(name, answers["off"], answers["on"])
+        close = rel is not None and rel <= 1e-6
+        line["equal_off_on"] = exact
+        line["max_rel_diff_off_on"] = rel
+        line["correct_off"] = _fusion_check(name, answers["off"], want,
+                                            fwant)
+        line["correct_on"] = _fusion_check(name, answers["on"], want, fwant)
+        emit(line)
+        if not (close and line["correct_off"] and line["correct_on"]):
+            problems.append(f"{name}: answers off/on equal {exact} "
+                            f"(largest relative difference {rel}), correct off "
+                            f"{line['correct_off']}, on {line['correct_on']}")
+        if line["fusion_groups"] != H.FUSION_EXPECT[name]:
+            problems.append(f"{name} planned {line['fusion_groups']}, the "
+                            f"JAX package {H.FUSION_EXPECT[name]}")
+        if line["stageDispatches"] != line["input_batches"]:
+            problems.append(f"{name}: {line['stageDispatches']} stage "
+                            f"dispatches for {line['input_batches']} batches")
+        bl = ("murmur3_int32", "segsum", "bitslice")
+        if name in FUSION_FORM_CHANGES:
+            # the Expand's form decides the aggregate's batches: one a
+            # projection off (only the full grouping set's takes the
+            # chunked segsum route), one stacked batch on, whose B2 count
+            # is the sets phase's (which runs fused)
+            bl = ("murmur3_int32", "bitslice")
+            if launches["on"]["segsum"] != \
+                    SETS_LAUNCHES[name]["segsum"]:
+                problems.append(f"{name}: B2 launched "
+                                f"{launches['on']['segsum']} times on, "
+                                f"the stacked form's "
+                                f"{SETS_LAUNCHES[name]['segsum']} expected")
+        if any(launches["off"][k] != launches["on"][k] for k in bl):
+            problems.append(f"{name}: B1-B3 launches off {launches['off']}"
+                            f" on {launches['on']}")
+        if line["fusion_groups"] and not line["stages"]:
+            problems.append(f"{name}: no stage range in the profiled run")
+        if name == "pq_q6" and not launches["on"]["bitslice"]:
+            problems.append("pq_q6 launched no bitslice from its stage")
+        if name == "limit_chain":
+            on, off = line["batches_pulled_on"], line["batches_pulled_off"]
+            if not 0 < on < row_groups or on > off:
+                problems.append(f"limit_chain pulled {on} batches on, "
+                                f"{off} off, of {row_groups}")
+    if prof:
+        prof.run("fusion", {
+            name: (lambda b=b: b(sessions["on"], cached["on"],
+                                 pq_path).collect())
+            for name, b in H.fusion_queries(port_api()).items()})
+    counts = read_launches()
+    emit({"phase": "fusion", "launches": counts, "problems": problems,
+          "phase_s": time.perf_counter() - t_phase})
+    if problems:
+        raise AssertionError("fusion phase: " + "; ".join(problems))
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phase 18: the query runtime
 # ---------------------------------------------------------------------------
 
@@ -7857,7 +8170,8 @@ class KernelProfile:
     def __init__(self):
         self.totals = {k: {"launches": 0, "profiled_calls": 0,
                            "device_ms": 0.0, "bound_ms": 0.0,
-                           "launches_without_time": 0, "incomplete": False}
+                           "launches_without_time": 0, "incomplete": False,
+                           "launches_by_path": {}}
                        for k in KERNEL_WRAPPERS}
         self.out_dir = os.environ.get("CHIP_SMOKE_TRACE_DIR")
         if self.out_dir:
@@ -7929,9 +8243,9 @@ class KernelProfile:
         rows = []
         for e in events:
             if "CUDA" not in str(getattr(e, "device_type", "")) \
-                    or e.key.startswith("ProfilerStep"):
-                # host-side ops, and the step's own annotation on the
-                # card, would count their kernels twice
+                    or e.key.startswith(("ProfilerStep",) + STAGE_RANGES):
+                # host-side ops, and the step's and the fused stages' own
+                # annotations on the card, would count their kernels twice
                 continue
             dev = getattr(e, "self_device_time_total",
                           getattr(e, "self_cuda_time_total", 0)) / 1e3
@@ -7973,6 +8287,8 @@ class KernelProfile:
             for k, got in kernels.items():
                 tot = self.totals[k]
                 tot["launches"] += got["launches"]
+                by_path = tot["launches_by_path"]
+                by_path[path] = by_path.get(path, 0) + got["launches"]
                 if got["profiled_calls"] < got["launches"]:
                     got["incomplete"] = True
                     tot["incomplete"] = True
@@ -8131,6 +8447,9 @@ def main(argv) -> int:
         # stay cached for it
         small = table.slice(0, RT_SMALL_ROWS)
         swant = small_reference(small)
+        t0 = time.perf_counter()
+        fwant = fusion_reference(table)
+        phases["fusion_reference_s"] = time.perf_counter() - t0
         del table, orders
         gc.collect()
         t0 = time.perf_counter()
@@ -8171,6 +8490,10 @@ def main(argv) -> int:
         phases["history_s"] = time.perf_counter() - t0
         spill_report("history")
         t0 = time.perf_counter()
+        fusion = phase_fusion(want, fwant, h1, path, tmp_dir, prof)
+        phases["fusion_s"] = time.perf_counter() - t0
+        spill_report("fusion")
+        t0 = time.perf_counter()
         caches = [h1.li, h1.od, h1.cust, h8.li, h8.od,
                   SimpleNamespace(plan=text_plan)]
         runtime = phase_runtime(want, small, swant, h1, h8, path, tmp_dir,
@@ -8196,6 +8519,7 @@ def main(argv) -> int:
                    "trace": traced[r["name"]],
                    "obs": observed[r["name"]],
                    "history": history[r["name"]],
+                   "fusion": fusion[r["name"]],
                    "runtime": runtime[r["name"]]}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path

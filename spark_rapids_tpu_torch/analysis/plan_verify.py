@@ -10,26 +10,32 @@ tree itself:
   Pipeline and the exchanges) must preserve their child's column names
   and types exactly: a wrapper that changes the schema is corrupting
   data, not routing it.
+- **fusion-group legality** (PV-FUSE / PV-ABSORB): every
+  ``FusedStageExec`` member is statically fusable, >= 2 members actually
+  dispatch (the pass's own bar), the member chain is linked child-most
+  first, and stage ids are unique; an absorbed pre-chain hangs off a
+  partial or complete ``HashAggregateExec`` with carry-free bodies.
 - **pipeline legality** (PV-PIPE): a ``PipelineExec`` wraps exactly one
   scan, never the root, with depth >= 1: the placement rule of
   ``insert_pipelines``.
 - **tree shape** (PV-TREE): children are a list, and no node is its own
   ancestor.
-
-The JAX package's fusion rules (PV-FUSE, PV-ABSORB) and its dispatch
-budgets (``dispatch_budget``, ``compare_budget``) check fused stages,
-which this engine does not build; they wait for the decision on stage
-fusion (ROADMAP A11e).
+- **dispatch budget** (:func:`dispatch_budget`): the static count of
+  narrow dispatches per input batch the plan shape implies, with the
+  fusion groups, pipeline boundaries and the operator census, as data;
+  :func:`compare_budget` names each dimension that differs.
 
 ``spark.rapids.debug.planVerify.enabled`` makes ``convert_plan`` verify
 every tree it returns. Duck-typed by class NAME, like
-``metrics.walk_exec_tree``: no exec imports.
+``metrics.walk_exec_tree``: the fusion rules import the fusion pass's own
+gates (``exec/stage_fusion``) when a tree has fused stages.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Dict, List, Optional
 
-__all__ = ["PlanVerifyError", "check_plan", "verify_plan"]
+__all__ = ["PlanVerifyError", "check_plan", "verify_plan",
+           "dispatch_budget", "compare_budget"]
 
 
 class PlanVerifyError(AssertionError):
@@ -89,6 +95,86 @@ def _check_schema(node, path: str, out: List[str]) -> None:
                 f"child's schema but maps {child_sig} -> {sig}")
 
 
+def _check_fused(node, path: str, seen_stage_ids: Dict[int, str],
+                 out: List[str]) -> None:
+    from spark_rapids_tpu_torch.exec import stage_fusion as SF
+    members = node.members
+    if not members:
+        out.append(f"PV-FUSE {path}: FusedStageExec with no members")
+        return
+    if len(node.children) != 1:
+        out.append(f"PV-FUSE {path}: fused stage must have exactly one "
+                   f"child, has {len(node.children)}")
+    for m in members:
+        if not SF._fusable(m):
+            out.append(f"PV-FUSE {path}: member {_cls(m)} is not a "
+                       f"fusable narrow operator")
+    n_disp = sum(1 for m in members if SF._dispatching(m))
+    if n_disp < 2:
+        out.append(f"PV-FUSE {path}: only {n_disp} dispatching member(s) "
+                   f"— fusion is only legal when >=2 dispatches collapse "
+                   f"(lone narrow ops must stay unfused)")
+    for i in range(len(members) - 1):
+        nxt = members[i + 1]
+        if not nxt.children or nxt.children[0] is not members[i]:
+            out.append(f"PV-FUSE {path}: members are not a linked chain "
+                       f"child-most-first at position {i + 1} "
+                       f"({_cls(nxt)})")
+    if node.plan is not members[-1].plan:
+        out.append(f"PV-FUSE {path}: fused stage must carry the chain "
+                   f"head's plan node ({_cls(members[-1])})")
+    _check_stage_id(getattr(node, "stage_id", 0), path, "PV-FUSE",
+                    seen_stage_ids, out)
+
+
+def _check_absorbed(node, path: str, seen_stage_ids: Dict[int, str],
+                    out: List[str]) -> None:
+    from spark_rapids_tpu_torch.exec import stage_fusion as SF
+    if _cls(node) != "HashAggregateExec":
+        out.append(f"PV-ABSORB {path}: pre-chain absorbed into "
+                   f"{_cls(node)} — only HashAggregateExec may absorb")
+        return
+    if node.mode not in ("partial", "complete"):
+        out.append(f"PV-ABSORB {path}: absorbing aggregate has mode "
+                   f"{node.mode!r}; only partial/complete updates may run "
+                   f"a pre-chain")
+    members = node.pre_chain_members
+    for m in members:
+        if not SF._fusable(m):
+            out.append(f"PV-ABSORB {path}: pre-chain member {_cls(m)} is "
+                       f"not a fusable narrow operator")
+    if not any(SF._dispatching(m) for m in members):
+        out.append(f"PV-ABSORB {path}: no pre-chain member dispatches — "
+                   f"absorbing saves nothing")
+    for body in node.pre_chain or []:
+        if body.has_carry:
+            out.append(f"PV-ABSORB {path}: pre-chain body {body.key!r} "
+                       f"carries state — carries cannot thread through "
+                       f"the aggregate's update")
+    for i in range(len(members) - 1):
+        nxt = members[i + 1]
+        if not nxt.children or nxt.children[0] is not members[i]:
+            out.append(f"PV-ABSORB {path}: pre-chain members are not a "
+                       f"linked chain child-most-first at position "
+                       f"{i + 1} ({_cls(nxt)})")
+    _check_stage_id(getattr(node, "fused_stage_id", 0), path, "PV-ABSORB",
+                    seen_stage_ids, out)
+
+
+def _check_stage_id(sid, path: str, rule: str,
+                    seen_stage_ids: Dict[int, str], out: List[str]) -> None:
+    if not isinstance(sid, int) or sid <= 0:
+        out.append(f"{rule} {path}: stage id must be a positive int, "
+                   f"got {sid!r}")
+        return
+    prev = seen_stage_ids.get(sid)
+    if prev is not None:
+        out.append(f"{rule} {path}: stage id {sid} already used by "
+                   f"{prev}")
+    else:
+        seen_stage_ids[sid] = path
+
+
 def _check_pipeline(node, path: str, is_root: bool, out: List[str]) -> None:
     if is_root:
         out.append(f"PV-PIPE {path}: PipelineExec at the root — the "
@@ -113,6 +199,7 @@ def check_plan(exec_root) -> List[str]:
     """All violations in a converted exec tree (empty list = clean).
     Linear in tree size; no device work."""
     out: List[str] = []
+    seen_stage_ids: Dict[int, str] = {}
     on_stack: set = set()
 
     def walk(node, path: str, is_root: bool) -> None:
@@ -123,6 +210,10 @@ def check_plan(exec_root) -> List[str]:
         on_stack.add(id(node))
         try:
             _check_schema(node, path, out)
+            if getattr(node, "members", None):
+                _check_fused(node, path, seen_stage_ids, out)
+            if getattr(node, "pre_chain_members", None):
+                _check_absorbed(node, path, seen_stage_ids, out)
             if _cls(node) == "PipelineExec":
                 _check_pipeline(node, path, is_root, out)
             if not isinstance(node.children, list):
@@ -144,3 +235,59 @@ def verify_plan(exec_root) -> None:
     violations = check_plan(exec_root)
     if violations:
         raise PlanVerifyError(violations)
+
+
+# ---------------------------------------------------------------------------
+# Dispatch budgets
+# ---------------------------------------------------------------------------
+
+def dispatch_budget(exec_root) -> dict:
+    """Static per-batch dispatch budget of a converted tree: one per fused
+    stage, one per aggregate update (its absorbed pre-chain rides along),
+    one per standalone Filter, Expand or non-trivial Project. Wide
+    operators dispatch by the data and are out of scope. With the fusion
+    groups, the pipeline boundaries and the operator census."""
+    from spark_rapids_tpu_torch.exec import stage_fusion as SF
+    from spark_rapids_tpu_torch.runtime.metrics import walk_exec_tree
+
+    narrow = 0
+    pipeline_boundaries = 0
+    exec_count = 0
+    census: Dict[str, int] = {}
+    for _key, node, _depth, role, _sid in walk_exec_tree(exec_root):
+        name = _cls(node)
+        if role is not None:
+            # fused members and absorbed pre-chains never dispatch alone
+            continue
+        exec_count += 1
+        census[name] = census.get(name, 0) + 1
+        if name == "PipelineExec":
+            pipeline_boundaries += 1
+        elif name in ("FusedStageExec", "HashAggregateExec"):
+            narrow += 1
+        elif name in ("FilterExec", "ExpandExec", "ProjectExec"):
+            if SF._dispatching(node):
+                narrow += 1
+    groups = SF.fusion_groups(exec_root)
+    return {
+        "narrow_dispatches_per_batch": narrow,
+        "fused_stages": sum(1 for g in groups if g["kind"] == "fused"),
+        "absorbed_stages": sum(1 for g in groups
+                               if g["kind"] == "absorbed"),
+        "fusion_groups": [
+            {"kind": g["kind"], "members": g["members"]} for g in groups],
+        "pipeline_boundaries": pipeline_boundaries,
+        "exec_count": exec_count,
+        "exec_census": dict(sorted(census.items())),
+    }
+
+
+def compare_budget(actual: dict, golden: dict) -> List[str]:
+    """Human-readable diffs between two budgets (empty = match), key by
+    key, so a failure names the dimension that differs."""
+    diffs = []
+    for key in sorted(set(golden) | set(actual)):
+        if actual.get(key) != golden.get(key):
+            diffs.append(f"{key}: golden {golden.get(key)!r} != actual "
+                         f"{actual.get(key)!r}")
+    return diffs

@@ -30,37 +30,22 @@ import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.runtime.shapes import (  # noqa: F401
+    bucket_pool_bytes, bucket_rows,
+)
 
-#: capacity floor (the JAX package's session default of
-#: spark.rapids.tpu.batchCapacityMinRows)
+#: capacity floor: spark.rapids.tpu.batchCapacityMinRows, published by
+#: ``config.set_session_conf``
 MIN_CAPACITY = 1024
 
 
 def round_capacity(n: int, minimum: Optional[int] = None) -> int:
-    """Round a row count up to its capacity bucket: the next power of two
-    at or above max(n, 1, minimum) (the JAX package's default ladder)."""
+    """Round a row count up to its capacity bucket on the ladder of
+    ``runtime/shapes.py`` (the next power of two at or above
+    max(n, 1, minimum) at the default growth factor)."""
     if minimum is None:
         minimum = MIN_CAPACITY
     return bucket_rows(n, minimum)
-
-
-def bucket_rows(n: int, minimum: int) -> int:
-    """The power-of-two ladder: the next power of two at or above
-    max(n, 1, minimum). (The JAX package also aligns buckets to TPU
-    tiles; a power of two past one tile is aligned already, so the
-    default ladders agree.)"""
-    n = max(int(n), 1, int(minimum))
-    return 1 << (n - 1).bit_length()
-
-
-def bucket_pool_bytes(nbytes: int, slack: int = 8) -> int:
-    """Capacity of a raw byte pool (the encoded Parquet bit pools of
-    io/encoded.py): the ladder with a floor of 32 over nbytes plus
-    ``slack`` guard bytes, so a 32-bit word pair read at the last bit
-    offset stays in bounds, in whole u32 words, so the pool views as an
-    int32 word plane without a copy."""
-    cap = bucket_rows(int(nbytes) + int(slack), 32)
-    return ((cap + 3) // 4) * 4
 
 
 class LazyRowCount:

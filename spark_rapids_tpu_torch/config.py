@@ -757,6 +757,37 @@ OBS_SAMPLER_RING = _register(
     "kept). At the default 200ms interval, 512 samples cover the last "
     "~102 seconds.", int)
 
+STAGE_FUSION_ENABLED = _register(
+    "spark.rapids.sql.stageFusion.enabled", True,
+    "Collapse maximal linear chains of narrow operators (project, filter, "
+    "expand, limit, the device decode) into one FusedStageExec, and absorb "
+    "a chain feeding a partial or complete hash aggregate into its update "
+    "(exec/stage_fusion.py): one host call a batch through the dispatch "
+    "choke point per stage. The members' bodies run eagerly, one after "
+    "another, on the current stream. A stage whose composed function "
+    "fails to build falls back to the unfused chain; an error raised "
+    "while a batch runs propagates.", _bool_conv)
+
+BATCH_CAPACITY_MIN = _register(
+    "spark.rapids.tpu.batchCapacityMinRows", 1024,
+    "Minimum padded row capacity of a device batch; capacities are rounded "
+    "to the buckets of runtime/shapes.py.", int)
+
+COMPILE_SHAPES_GROWTH = _register(
+    "spark.rapids.compile.shapes.growthFactor", 2.0,
+    "Geometric growth factor of the capacity padding buckets "
+    "(runtime/shapes.py): every batch capacity snaps to the smallest "
+    "bucket >= its row count. 2.0 (default) is next-power-of-two; smaller "
+    "factors pad tighter with more distinct capacities. Clamped to "
+    "[1.0625, 4.0].", float)
+
+COMPILE_SHAPES_DTYPE_ALIGN = _register(
+    "spark.rapids.compile.shapes.dtypeAlign", True,
+    "Round capacity buckets requested with an itemsize up to whole tiles "
+    "of the JAX package's layout (8x128 elements for 4-byte lanes, 16x128 "
+    "for 2-byte, 32x128 for 1-byte), so both engines pad alike. Power-of-"
+    "two buckets are aligned already.", _bool_conv)
+
 
 def keys():
     return list(_REGISTRY)
@@ -809,4 +840,18 @@ def session_conf() -> RapidsConf:
 
 
 def set_session_conf(c: Optional[RapidsConf]) -> None:
+    """Bind a session's conf to this thread and publish what is read where
+    no conf rides along, as the JAX package does: the capacity floor and
+    the bucket ladder (``runtime/shapes.py``), and the keyed stage
+    cache's conf fingerprint (``runtime/compile_cache.py``). Unbinding
+    (None) publishes nothing."""
     _local.conf = c
+    if c is None:
+        return
+    from spark_rapids_tpu_torch.columnar import batch as _b
+    from spark_rapids_tpu_torch.runtime import compile_cache as _cc
+    from spark_rapids_tpu_torch.runtime import shapes as _sh
+    _b.MIN_CAPACITY = max(8, int(c.get(BATCH_CAPACITY_MIN)))
+    _sh.configure(c.get(COMPILE_SHAPES_GROWTH),
+                  c.get(COMPILE_SHAPES_DTYPE_ALIGN))
+    _cc.publish_conf(c)

@@ -24,8 +24,14 @@ adaptive join is ``exec/adaptive.py``'s), the nested-loop and cartesian joins
 ``CpuFallbackExec``, which runs one plan node that planning tagged off
 the device on the CPU backend (``exec/cpu_backend.py``).
 
-PyTorch runs eagerly, so each operator is plain tensor code per batch; the
-JAX package's stage fusion and compile caches have no counterpart here.
+PyTorch runs eagerly, so each operator is plain tensor code per batch.
+Each operator's per-batch device work passes the dispatch choke point
+``exec/fuse.fused`` under the JAX package's key families, and the narrow
+operators (projection, filter, Expand, limit, the device decode) expose
+their per-batch bodies as ``stage_body()`` (module-level builders that
+capture expressions, static settings and the device, never the operator),
+which ``exec/stage_fusion.py`` composes into fused stages and aggregates'
+absorbed pre-chains.
 
 The query runtime (``runtime/``) is wired where the JAX package wires it.
 ``execute_partition(pidx)`` keeps its signature: an operator reads its
@@ -80,7 +86,9 @@ from spark_rapids_tpu_torch.columnar.batch import (
     ColumnVector, ColumnarBatch, LazyRowCount, column_from_arrow, from_arrow,
     round_capacity, to_arrow,
 )
+from spark_rapids_tpu_torch.exec import compiled
 from spark_rapids_tpu_torch.exec import cpu_backend as CPU
+from spark_rapids_tpu_torch.exec import fuse
 from spark_rapids_tpu_torch.expr import aggregates as A
 from spark_rapids_tpu_torch.expr import window as WE
 from spark_rapids_tpu_torch.expr.core import (
@@ -104,7 +112,6 @@ from spark_rapids_tpu_torch.runtime import faults as FLT
 from spark_rapids_tpu_torch.runtime import lifecycle as LC
 from spark_rapids_tpu_torch.runtime import metrics as M
 from spark_rapids_tpu_torch.runtime import trace as TR
-from spark_rapids_tpu_torch.runtime import watchdog as WD
 from spark_rapids_tpu_torch.runtime.semaphore import (
     get_semaphore, peek_semaphore,
 )
@@ -152,9 +159,11 @@ class TorchExec:
         raise NotImplementedError
 
     def walk(self) -> Iterator["TorchExec"]:
-        """This operator and every operator below it, depth first; an
-        adaptive node is followed into the operator it chose at run time
-        and then into its own children, each operator visited once."""
+        """This operator and every operator below it, depth first; a fused
+        stage's members and an aggregate's absorbed pre-chain are visited
+        after their node, an adaptive node is followed into the operator
+        it chose at run time and then into its own children, each
+        operator visited once."""
         seen = set()
 
         def visit(n):
@@ -162,6 +171,9 @@ class TorchExec:
                 return
             seen.add(id(n))
             yield n
+            for m in (getattr(n, "members", None) or []) + (
+                    getattr(n, "pre_chain_members", None) or []):
+                yield from visit(m)
             chosen = getattr(n, "_chosen", None)
             for c in ([chosen] if chosen is not None else []) + n.children:
                 yield from visit(c)
@@ -198,19 +210,6 @@ class TorchExec:
             return
         get_semaphore(self.conf).acquire_if_necessary(ctx)
         ctx.holds_device_data = True
-
-    @staticmethod
-    @contextlib.contextmanager
-    def _dispatch():
-        """Around one batch's device work. The JAX package places these
-        three in its fused dispatch (exec/fuse.py:75-84), which this
-        engine does not have: the cancel checkpoint, then the watchdog's
-        guard, and inside it the device.dispatch fault site (so a wedge
-        there is what the watchdog exists to detect)."""
-        LC.check_current()
-        with WD.guard("device.dispatch"):
-            FLT.site("device.dispatch")
-            yield
 
 
 @contextlib.contextmanager
@@ -557,21 +556,45 @@ class TextScanExec(TorchExec):
             off += max(take, 1)
 
 
+def device_decode_stage_body() -> fuse.StageBody:
+    """The device decode as a fusable stage body: its input is the
+    EncodedBatch and it runs the decode (ops/decode.py, with the
+    bitslice kernel) first, so a Filter or an aggregate's update composes
+    after it into one call a batch over encoded bytes. An already decoded
+    batch (the unfused fallback's replay) passes through."""
+    def build():
+        def fn(batch, pid, carry):
+            if isinstance(batch, ColumnarBatch):
+                return batch, [], carry
+            return D.decode_batch(batch), [], carry
+        return fn
+
+    return fuse.StageBody(("device_decode",), build,
+                          bounds_map=lambda bs: list(bs),
+                          name="DeviceDecode")
+
+
 class DeviceDecodeScanExec(TorchExec):
     """Expands the child's EncodedBatches into ColumnarBatches on the
-    device (ops/decode.py, with the bitslice kernel), one batch at a
-    time. The row count stays the host int the source knew, so no
-    device read is needed for it."""
+    device, one batch at a time, through its stage body. The row count
+    stays the host int the source knew, so no device read is needed for
+    it."""
+
+    def stage_body(self) -> fuse.StageBody:
+        return device_decode_stage_body()
 
     def execute_partition(self, pidx):
         op_t = self.metrics.metric(M.OP_TIME)
         out_rows = self.metrics.metric(M.NUM_OUTPUT_ROWS)
         out_batches = self.metrics.metric(M.NUM_OUTPUT_BATCHES)
+        body = self.stage_body()
+        fn = fuse.fused(body.key, body.builder)
+        carry = body.init_carry()
         for eb in self.children[0].execute_partition(pidx):
             self._acquire()
-            # the JAX package's decode is a fused dispatch too
-            with self.span(op_t), self._dispatch():
-                out = D.decode_batch(eb)
+            with self.span(op_t):
+                out, errs, carry = fn(eb, pidx, carry)
+            compiled.raise_errors(errs)
             out_rows.add(eb.num_rows)
             out_batches.add(1)
             yield out
@@ -704,18 +727,174 @@ def _attach_column_stats(batch: ColumnarBatch) -> None:
             batch.columns[i].bounds = (lo, hi)
 
 
-def _without_bounds(c: ColumnVector) -> ColumnVector:
-    return dataclasses.replace(c, bounds=None) if c.bounds is not None else c
+def live_rows(batch: ColumnarBatch):
+    """The live rows of a batch as a host int or a LazyRowCount, never a
+    sync: the row count where it counts the live rows, else the sum of
+    the selection mask left on the device."""
+    if batch.row_mask is None or isinstance(batch.num_rows, LazyRowCount):
+        return batch.num_rows
+    return LazyRowCount(batch.row_mask.sum(dtype=torch.int64))
 
 
-def _run_projection(exprs, batch: ColumnarBatch, device) -> ColumnarBatch:
-    """The expressions over a batch, without ANSI checks or partition
-    context, and with no column bounds carried (the JAX package's
-    ``compiled.run_projection``)."""
-    ctx = EvalCtx(batch.columns, batch.num_rows, batch.capacity, device,
-                  live=batch.live_mask())
-    return ColumnarBatch([_without_bounds(e.eval(ctx)) for e in exprs],
-                         batch.num_rows, batch.row_mask)
+# ---------------------------------------------------------------------------
+# Stage bodies: the narrow operators' per-batch work as fuse.StageBody
+# records (JAX tpu_nodes.py:625-773), composed by exec/stage_fusion.py.
+# Builders are module-level and capture expressions, static settings and
+# the device, never the operator.
+# ---------------------------------------------------------------------------
+
+def _project_bounds_map(exprs):
+    """Column bounds across a projection: passthrough references carry
+    their input column's bounds."""
+    def bmap(in_bounds):
+        out = []
+        for e in exprs:
+            inner = e.children[0] if isinstance(e, Alias) else e
+            if isinstance(inner, BoundRef) and inner.index < len(in_bounds):
+                out.append(in_bounds[inner.index])
+            else:
+                out.append(None)
+        return out
+    return bmap
+
+
+def project_stage_body(exprs, ansi: bool, device,
+                       trivial=None) -> fuse.StageBody:
+    """A projection's body. The partition context (the partition index,
+    and the live rows of the partition's earlier batches when an
+    expression reads them) rides as the row-base carry."""
+    dev = str(device)
+    if trivial is not None:
+        idx = tuple(trivial)
+
+        def build_trivial():
+            def fn(batch, pid, carry):
+                return (ColumnarBatch([batch.columns[i] for i in idx],
+                                      batch.num_rows, batch.row_mask),
+                        [], carry)
+            return fn
+
+        return fuse.StageBody(
+            ("project_trivial", idx), build_trivial,
+            bounds_map=lambda bs: [bs[i] if i < len(bs) else None
+                                   for i in idx],
+            name="Project")
+
+    needs_part_ctx = any(needs_partition_context(e) for e in exprs)
+    count_rows = any(needs_row_base(e) for e in exprs)
+
+    def build():
+        def fn(batch, pid, row_base):
+            ctx = EvalCtx(batch.columns, batch.num_rows, batch.capacity,
+                          device, ansi, live=batch.live_mask(),
+                          partition_id=pid, row_base=row_base)
+            cols = [e.eval(ctx) for e in exprs]
+            if count_rows:  # only pay the count when ids need it
+                row_base = row_base + ctx.row_mask.sum(dtype=torch.int64)
+            return (ColumnarBatch(cols, batch.num_rows, batch.row_mask),
+                    list(ctx.errors), row_base)
+        return fn
+
+    key = ("project", tuple(e.fingerprint() for e in exprs), ansi,
+           needs_part_ctx, dev)
+    return fuse.StageBody(key, build, bounds_map=_project_bounds_map(exprs),
+                          has_carry=needs_part_ctx, name="Project")
+
+
+def filter_stage_body(cond, ansi: bool, device) -> fuse.StageBody:
+    """A filter's body: failing rows marked dead in the selection mask,
+    the survivors' count left on the device. A condition that reads the
+    partition context (``rand``) gets a projection's, with the row-base
+    carry (the port runs such a filter on the device; the planner keeps
+    it out of fused stages, as the JAX package runs it on the CPU)."""
+    part = needs_partition_context(cond)
+    count_rows = needs_row_base(cond)
+
+    def build():
+        def fn(batch, pid, carry):
+            live = batch.live_mask()
+            ctx = EvalCtx(batch.columns, batch.num_rows, batch.capacity,
+                          device, ansi, live=live,
+                          partition_id=pid if part else None,
+                          row_base=carry if part else 0)
+            pred = cond.eval(ctx)
+            if count_rows:
+                carry = carry + ctx.row_mask.sum(dtype=torch.int64)
+            # validity=None means valid on every live row (a masked
+            # input keeps live rows past the live count)
+            valid = pred.validity if pred.validity is not None \
+                else ctx.row_mask
+            return (K.mask_filter_batch(batch,
+                                        pred.data.to(torch.bool) & valid),
+                    list(ctx.errors), carry)
+        return fn
+
+    # a filter's output columns are row subsets of its input: bounds pass
+    return fuse.StageBody(("filter", cond.fingerprint(), ansi, part,
+                           str(device)), build,
+                          bounds_map=lambda bs: list(bs),
+                          has_carry=part, name="Filter")
+
+
+def expand_stage_body(proj_exprs, n_cols: int, device) -> fuse.StageBody:
+    """Every projection of an Expand evaluated and stacked into one batch
+    of n_proj x capacity with the live mask tiled (the unfused operator
+    yields one batch per projection). Built only for fixed-width outputs
+    (``stage_fusion._fusable``). No column bounds pass."""
+    nproj = len(proj_exprs)
+
+    def build():
+        def fn(batch, pid, carry):
+            live = batch.live_mask()
+            errs = []
+            per_proj = []
+            for exprs in proj_exprs:
+                ctx = EvalCtx(batch.columns, batch.num_rows, batch.capacity,
+                              device, False, live=live)
+                per_proj.append([e.eval(ctx) for e in exprs])
+                errs.extend(ctx.errors)
+            out_cols = []
+            for ci in range(n_cols):
+                parts = [p[ci] for p in per_proj]
+                out_cols.append(ColumnVector(
+                    parts[0].dtype, torch.cat([c.data for c in parts]),
+                    torch.cat([c.validity if c.validity is not None
+                               else live for c in parts])))
+            mask = live.repeat(nproj)
+            return (ColumnarBatch(out_cols, LazyRowCount(mask.sum(
+                dtype=torch.int32)), mask), errs, carry)
+        return fn
+
+    key = ("expand_stage",
+           tuple(tuple(e.fingerprint() for e in p) for p in proj_exprs),
+           str(device))
+    return fuse.StageBody(key, build,
+                          bounds_map=lambda bs: [None] * n_cols,
+                          name="Expand")
+
+
+def limit_stage_body(n: int, device) -> fuse.StageBody:
+    """A device LIMIT: rows past the remaining budget are masked dead and
+    the budget rides as a device carry. The fused driver reads the carry
+    each batch to stop consuming input once it reaches zero
+    (``exhausts``)."""
+    def build():
+        def fn(batch, pid, remaining):
+            live = batch.live_mask()
+            pos = torch.cumsum(live.to(torch.int64), 0)
+            keep = live & (pos <= remaining)
+            taken = keep.sum(dtype=torch.int64)
+            count = keep.sum(dtype=torch.int32)
+            return (ColumnarBatch(batch.columns, LazyRowCount(count), keep),
+                    [], torch.clamp(remaining - taken, min=0))
+        return fn
+
+    # n reaches the body only as the carry: one entry serves every LIMIT
+    return fuse.StageBody(("limit_stage", str(device)), build,
+                          carry_init=lambda: torch.tensor(
+                              n, dtype=torch.int64, device=device),
+                          bounds_map=lambda bs: list(bs),
+                          has_carry=True, exhausts=True, name="Limit")
 
 
 class ProjectExec(TorchExec):
@@ -730,31 +909,33 @@ class ProjectExec(TorchExec):
             idx.append(inner.index)
         return idx
 
+    def stage_body(self) -> fuse.StageBody:
+        return project_stage_body(self.plan.exprs,
+                                  self.conf.get(C.ANSI_ENABLED), self.device,
+                                  trivial=self._trivial_indices())
+
     def execute_partition(self, pidx):
         """Evaluates the expressions per batch with the partition context:
         the partition's index, and the live rows of its earlier batches
         (counted only when an expression reads them)."""
         op_t = self.metrics.metric(M.OP_TIME)
         trivial = self._trivial_indices()
-        count_rows = any(needs_row_base(e) for e in self.plan.exprs)
-        row_base = 0
-        for batch in self.children[0].execute_partition(pidx):
-            if trivial is not None:
+        if trivial is not None:
+            for batch in self.children[0].execute_partition(pidx):
                 yield ColumnarBatch([batch.columns[i] for i in trivial],
                                     batch.num_rows, batch.row_mask)
-                continue
+            return
+        body = self.stage_body()
+        fn = fuse.fused(body.key, body.builder)
+        row_base = body.init_carry()
+        for batch in self.children[0].execute_partition(pidx):
             self._acquire()
-            with self.span(op_t), self._dispatch():
-                ctx = self._ctx(batch, partition_id=pidx, row_base=row_base)
-                cols = [e.eval(ctx) for e in self.plan.exprs]
-                raise_errors(ctx.errors)
-            if count_rows:
-                row_base = row_base + ctx.row_mask.sum(dtype=torch.int64)
-            for e, o in zip(self.plan.exprs, cols):
-                inner = e.children[0] if isinstance(e, Alias) else e
-                if isinstance(inner, BoundRef):
-                    o.bounds = batch.columns[inner.index].bounds
-            yield ColumnarBatch(cols, batch.num_rows, batch.row_mask)
+            with self.span(op_t):
+                out, errs, row_base = fn(batch, pidx, row_base)
+                compiled.raise_errors(errs)
+            compiled.carry_bounds(self.plan.exprs, batch.columns,
+                                  out.columns)
+            yield out
 
 
 class FilterExec(TorchExec):
@@ -764,29 +945,21 @@ class FilterExec(TorchExec):
     into one partition first, as the JAX package's CPU placement of it
     does."""
 
+    def stage_body(self) -> fuse.StageBody:
+        return filter_stage_body(self.plan.condition,
+                                 self.conf.get(C.ANSI_ENABLED), self.device)
+
     def execute_partition(self, pidx):
         op_t = self.metrics.metric(M.FILTER_TIME)
         out_rows = self.metrics.metric(M.NUM_OUTPUT_ROWS)
-        cond = self.plan.condition
-        part = needs_partition_context(cond)
-        count_rows = needs_row_base(cond)
-        row_base = 0
+        body = self.stage_body()
+        fn = fuse.fused(body.key, body.builder)
+        carry = body.init_carry()
         for batch in self.children[0].execute_partition(pidx):
             self._acquire()
             with self.span(op_t):
-                with self._dispatch():
-                    ctx = self._ctx(batch, partition_id=pidx,
-                                    row_base=row_base) \
-                        if part else self._ctx(batch)
-                    pred = cond.eval(ctx)
-                    raise_errors(ctx.errors)
-                if count_rows:
-                    row_base = row_base + ctx.row_mask.sum(
-                        dtype=torch.int64)
-                valid = pred.validity if pred.validity is not None \
-                    else ctx.row_mask
-                out = K.mask_filter_batch(batch,
-                                          pred.data.to(torch.bool) & valid)
+                out, errs, carry = fn(batch, pidx, carry)
+                compiled.raise_errors(errs)
             out_rows.add(out.num_rows)
             yield out
 
@@ -891,7 +1064,8 @@ class UnionExec(TorchExec):
                 needs_cast = any(isinstance(e, Cast) for e in exprs)
                 for batch in child.execute_partition(pidx):
                     self._acquire()
-                    yield _run_projection(exprs, batch, self.device) \
+                    yield compiled.run_projection(exprs, batch,
+                                                  self.device) \
                         if needs_cast else batch
                 return
             pidx -= child.num_partitions
@@ -900,16 +1074,17 @@ class UnionExec(TorchExec):
 
 class ExpandExec(TorchExec):
     """Every projection of each input batch, in one of the JAX package's
-    two forms: ``stacked`` (its fused stage, chosen by the planner's
-    mirror of the fusion gate) evaluates all projections into one batch
-    of n_proj x capacity with the live mask tiled; otherwise one batch
-    per projection. The form decides what the aggregate above sees: its
-    route (batch capacity against the chunk gates) and the per-batch
-    scaling of float sums. No column bounds pass through."""
+    two forms. Unfused, one batch per projection. As a member of a fused
+    stage or of an aggregate's absorbed pre-chain (``stacked``, set by
+    ``exec/stage_fusion.py``), its stage body evaluates all projections
+    into one batch of n_proj x capacity with the live mask tiled. The
+    form decides what the aggregate above sees: its route (batch capacity
+    against the chunk gates) and the per-batch scaling of float sums."""
 
-    def __init__(self, plan, children, conf, device, stacked: bool = False):
+    def __init__(self, plan, children, conf, device):
         super().__init__(plan, children, conf, device)
-        self.stacked = stacked
+        #: runs as a stage body (fused or absorbed)
+        self.stacked = False
 
     def _proj_exprs(self):
         out_types = self.plan.schema.types
@@ -917,26 +1092,16 @@ class ExpandExec(TorchExec):
                  for e, dt in zip(proj, out_types)]
                 for proj in self.plan.projections]
 
+    def stage_body(self) -> fuse.StageBody:
+        return expand_stage_body(self._proj_exprs(),
+                                 len(self.plan.schema.types), self.device)
+
     def execute_partition(self, pidx):
         projs = self._proj_exprs()
         for batch in self.children[0].execute_partition(pidx):
             self._acquire()
-            outs = [_run_projection(exprs, batch, self.device)
-                    for exprs in projs]
-            if not self.stacked:
-                yield from outs
-                continue
-            live = batch.live_mask()
-            cols = []
-            for ci in range(len(self.plan.schema)):
-                parts = [o.columns[ci] for o in outs]
-                cols.append(ColumnVector(
-                    parts[0].dtype, torch.cat([c.data for c in parts]),
-                    torch.cat([c.validity if c.validity is not None
-                               else live for c in parts])))
-            mask = live.repeat(len(projs))
-            yield ColumnarBatch(cols, LazyRowCount(mask.sum(
-                dtype=torch.int32)), mask)
+            for exprs in projs:
+                yield compiled.run_projection(exprs, batch, self.device)
 
 
 class GenerateExec(TorchExec):
@@ -954,67 +1119,74 @@ class GenerateExec(TorchExec):
     def execute_partition(self, pidx):
         op_t = self.metrics.metric(M.OP_TIME)
         out_rows = self.metrics.metric(M.NUM_OUTPUT_ROWS)
+        gen, required, device = (self.plan.generator,
+                                 tuple(self.plan.required), self.device)
+        key = ("generate", gen.fingerprint(), gen.outer, gen.position,
+               required, str(device))
+        fn = fuse.fused(key, lambda: lambda b: _generate(gen, required,
+                                                         device, b))
         for batch in self.children[0].execute_partition(pidx):
             self._acquire()
             with self.span(op_t):
-                out = self._generate(batch)
+                out = fn(batch)
             out_rows.add(out.num_rows)
             yield out
 
-    def _generate(self, batch: ColumnarBatch) -> ColumnarBatch:
-        gen = self.plan.generator
-        live = batch.live_mask()
-        ctx = EvalCtx(batch.columns, batch.num_rows, batch.capacity,
-                      self.device, live=live)
-        arr = gen.children[0].eval(ctx)
-        cap = batch.capacity
-        off = arr.data["offsets"][: cap + 1].to(torch.int64)
-        kids = [arr.data[nm] for nm in K.element_planes(arr)]
-        child_cap = kids[0].capacity
-        dev = off.device
-        e = torch.arange(child_cap, dtype=torch.int64, device=dev)
-        seg = (torch.searchsorted(off, e, right=True) - 1).clamp(0, cap - 1)
-        arr_valid = arr.validity if arr.validity is not None \
-            else torch.ones(cap, dtype=torch.bool, device=dev)
-        elem_live = (e < off[cap]) & live[seg] & arr_valid[seg]
-        req = [batch.columns[i] for i in self.plan.required]
-        if not gen.outer:
-            parent = [K.gather_column(c, seg, batch.num_rows, src_live=live)
-                      for c in req]
-            gen_cols = []
-            if gen.position:
-                gen_cols.append(ColumnVector(
-                    T.INT32, (e - off[seg]).to(torch.int32), None))
-            gen_cols.extend(kids)
-            return ColumnarBatch(parent + gen_cols, LazyRowCount(
-                elem_live.sum(dtype=torch.int32)), elem_live)
-        out_cap = round_capacity(child_cap + cap)
-        lens = off[1:] - off[:-1]
-        empty = live & (~arr_valid | (lens == 0))
-        ei = empty.to(torch.int64)
-        cume = torch.cumsum(ei, 0) - ei
-        dest_e = torch.where(elem_live, e + cume[seg], out_cap)
-        src_row = torch.full((out_cap + 1,), -1, dtype=torch.int64,
-                             device=dev)
-        src_elem = src_row.clone()
-        src_row.scatter_(0, dest_e, seg)
-        src_elem.scatter_(0, dest_e, e)
-        rows = torch.arange(cap, dtype=torch.int64, device=dev)
-        src_row.scatter_(0, torch.where(empty, off[:cap] + cume, out_cap),
-                         rows)
-        src_row, src_elem = src_row[:out_cap], src_elem[:out_cap]
-        live_out = src_row >= 0
-        parent = [K.gather_column(c, src_row, batch.num_rows, src_live=live)
+
+def _generate(gen, required, device, batch: ColumnarBatch) -> ColumnarBatch:
+    """One batch of a GenerateExec (its class docstring)."""
+    live = batch.live_mask()
+    ctx = EvalCtx(batch.columns, batch.num_rows, batch.capacity,
+                  device, live=live)
+    arr = gen.children[0].eval(ctx)
+    cap = batch.capacity
+    off = arr.data["offsets"][: cap + 1].to(torch.int64)
+    kids = [arr.data[nm] for nm in K.element_planes(arr)]
+    child_cap = kids[0].capacity
+    dev = off.device
+    e = torch.arange(child_cap, dtype=torch.int64, device=dev)
+    seg = (torch.searchsorted(off, e, right=True) - 1).clamp(0, cap - 1)
+    arr_valid = arr.validity if arr.validity is not None \
+        else torch.ones(cap, dtype=torch.bool, device=dev)
+    elem_live = (e < off[cap]) & live[seg] & arr_valid[seg]
+    req = [batch.columns[i] for i in required]
+    if not gen.outer:
+        parent = [K.gather_column(c, seg, batch.num_rows, src_live=live)
                   for c in req]
         gen_cols = []
         if gen.position:
-            pos = src_elem - off[src_row.clamp(0, cap - 1)]
-            gen_cols.append(ColumnVector(T.INT32, pos.to(torch.int32),
-                                         src_elem >= 0))
-        gen_cols.extend(K.gather_column(k, src_elem, child_cap)
-                        for k in kids)
+            gen_cols.append(ColumnVector(
+                T.INT32, (e - off[seg]).to(torch.int32), None))
+        gen_cols.extend(kids)
         return ColumnarBatch(parent + gen_cols, LazyRowCount(
-            live_out.sum(dtype=torch.int32)), live_out)
+            elem_live.sum(dtype=torch.int32)), elem_live)
+    out_cap = round_capacity(child_cap + cap)
+    lens = off[1:] - off[:-1]
+    empty = live & (~arr_valid | (lens == 0))
+    ei = empty.to(torch.int64)
+    cume = torch.cumsum(ei, 0) - ei
+    dest_e = torch.where(elem_live, e + cume[seg], out_cap)
+    src_row = torch.full((out_cap + 1,), -1, dtype=torch.int64,
+                         device=dev)
+    src_elem = src_row.clone()
+    src_row.scatter_(0, dest_e, seg)
+    src_elem.scatter_(0, dest_e, e)
+    rows = torch.arange(cap, dtype=torch.int64, device=dev)
+    src_row.scatter_(0, torch.where(empty, off[:cap] + cume, out_cap),
+                     rows)
+    src_row, src_elem = src_row[:out_cap], src_elem[:out_cap]
+    live_out = src_row >= 0
+    parent = [K.gather_column(c, src_row, batch.num_rows, src_live=live)
+              for c in req]
+    gen_cols = []
+    if gen.position:
+        pos = src_elem - off[src_row.clamp(0, cap - 1)]
+        gen_cols.append(ColumnVector(T.INT32, pos.to(torch.int32),
+                                     src_elem >= 0))
+    gen_cols.extend(K.gather_column(k, src_elem, child_cap)
+                    for k in kids)
+    return ColumnarBatch(parent + gen_cols, LazyRowCount(
+        live_out.sum(dtype=torch.int32)), live_out)
 
 
 class CollectExchangeExec(TorchExec):
@@ -1046,8 +1218,10 @@ def partitioning_mode(conf) -> str:
 
 
 class _ExchangeExec(TorchExec):
-    """An in-process exchange. Per input batch a target partition per row
-    (``_pids``), then, in the compact mode (the default), one stable
+    """An in-process exchange. Per input batch, in one dispatch
+    (``fuse.fused`` under the JAX package's key, ``_fused_key``), a target
+    partition per row (``_pid_fn``), then, in the compact mode (the
+    default), one stable
     counting sort, one fetch of the offsets vector and contiguous
     right-sized sub-batches per target partition; in the masked mode,
     n_out full-capacity sub-batches that share the batch's planes, each
@@ -1102,21 +1276,45 @@ class _ExchangeExec(TorchExec):
         """Sub-batches merged by tiny coalescing."""
         return self.metrics.metric(M.SHUFFLE_COALESCED_BATCHES).value
 
-    def _pids(self, batch: ColumnarBatch) -> torch.Tensor:
+    def _pid_fn(self):
+        """A function batch -> int64 target partition per row, capturing
+        only expressions, static settings and the device."""
         raise NotImplementedError
 
-    def _emit(self, batch: ColumnarBatch, pid: torch.Tensor, out) -> None:
+    def _fused_key(self, compact: bool) -> tuple:
+        raise NotImplementedError
+
+    def _step(self):
+        """The per-batch partitioning through the dispatch choke point:
+        the compact mode's fn(batch) -> (sorted batch, offsets), the
+        masked mode's fn(batch) -> n_out sub-batches."""
+        compact = not self._masked
+        pid_of, n_out = self._pid_fn(), self.n_out
+
+        def build():
+            if compact:
+                def fn(batch):
+                    return RP.counting_sort_by_pid(batch, pid_of(batch),
+                                                   n_out)
+            else:
+                def fn(batch):
+                    return RP.masked_slices(batch, pid_of(batch), n_out)
+            return fn
+        return fuse.fused(self._fused_key(compact), build)
+
+    def _emit(self, batch: ColumnarBatch, step, out) -> None:
+        """Partition one batch through ``step`` and emit the result."""
         if self._masked:
-            self._emit_masked(batch, pid, out)
+            self._emit_masked(batch, step(batch), out)
         else:
-            self._emit_compact(batch, self._dispatch_compact(batch, pid),
+            self._emit_compact(batch, self._dispatch_compact(batch, step),
                                out)
 
-    def _dispatch_compact(self, batch: ColumnarBatch, pid: torch.Tensor):
-        """One batch's counting sort, and the start of its offsets' copy
-        to the host: (sorted batch, pending offsets)."""
+    def _dispatch_compact(self, batch: ColumnarBatch, step):
+        """One batch's counting sort (``step``), and the start of its
+        offsets' copy to the host: (sorted batch, pending offsets)."""
         from spark_rapids_tpu_torch.runtime.pipeline import start_d2h
-        sorted_b, off = RP.counting_sort_by_pid(batch, pid, self.n_out)
+        sorted_b, off = step(batch)
         self.metrics.metric(M.PARTITION_DISPATCHES).add(1)
         return sorted_b, start_d2h(off)
 
@@ -1138,14 +1336,13 @@ class _ExchangeExec(TorchExec):
             rows_m.add(sub.num_rows)
             self._put(out, p, sub)
 
-    def _emit_masked(self, batch: ColumnarBatch, pid: torch.Tensor,
-                     out) -> None:
+    def _emit_masked(self, batch: ColumnarBatch, subs, out) -> None:
         """n_out sub-batches sharing the planes; each costs a partition
         mask and a count that syncs when read."""
         self.metrics.metric(M.PARTITION_DISPATCHES).add(self.n_out)
         self.metrics.metric(M.PARTITION_HOST_FETCHES).add(self.n_out)
         rows_m = self.metrics.metric(M.NUM_OUTPUT_ROWS)
-        for p, sub in enumerate(RP.masked_slices(batch, pid, self.n_out)):
+        for p, sub in enumerate(subs):
             rows_m.add(sub.num_rows)
             self._put(out, p, sub)
 
@@ -1182,18 +1379,18 @@ class _ExchangeExec(TorchExec):
         from spark_rapids_tpu_torch.runtime.pipeline import pipeline_conf
         part_t = self.metrics.metric(M.PARTITION_TIME)
         out: List[List[ColumnarBatch]] = [[] for _ in range(self.n_out)]
+        step = self._step()
         if self._masked or pipeline_conf(self.conf) <= 0:
             for batch in batches:
                 self._acquire()
                 with self.span(part_t):
-                    self._emit(batch, self._pids(batch), out)
+                    self._emit(batch, step, out)
             return out
         pending = None
         for batch in batches:
             self._acquire()
             with self.span(part_t):
-                dispatched = self._dispatch_compact(batch,
-                                                    self._pids(batch))
+                dispatched = self._dispatch_compact(batch, step)
             if pending is not None:
                 with self.span(part_t):
                     self._emit_compact(*pending, out)
@@ -1381,12 +1578,22 @@ class ShuffleExchangeExec(_ExchangeExec):
         #: the serialized mode's store, once materialized
         self._store = None
 
-    def _pids(self, batch):
-        live = batch.live_mask()
-        ctx = self._ctx(batch, live)
-        key_cols = [e.eval(ctx) for e in self.keys]
-        h = K.partition_hash_batch(key_cols, batch.num_rows, live=live)
-        return torch.remainder(h, self.n_out)
+    def _pid_fn(self):
+        keys, n_out, device = self.keys, self.n_out, self.device
+
+        def pids(batch):
+            live = batch.live_mask()
+            ctx = EvalCtx(batch.columns, batch.num_rows, batch.capacity,
+                          device, live=live)
+            key_cols = [e.eval(ctx) for e in keys]
+            h = K.partition_hash_batch(key_cols, batch.num_rows, live=live)
+            return torch.remainder(h, n_out)
+        return pids
+
+    def _fused_key(self, compact: bool) -> tuple:
+        return ("hash_exchange_compact" if compact else "hash_exchange",
+                tuple(e.fingerprint() for e in self.keys), self.n_out,
+                str(self.device))
 
     def _partitioned(self, batches):
         if shuffle_mode(self.conf) == "SERIALIZED":
@@ -1570,10 +1777,18 @@ class RoundRobinExchangeExec(_ExchangeExec):
     """``repartition(n)`` without keys: the k-th live row of a batch goes
     to partition k mod n (counting from 1, as the JAX package does)."""
 
-    def _pids(self, batch):
-        live = batch.live_mask()
-        return torch.remainder(torch.cumsum(live.to(torch.int32), 0),
-                               self.n_out)
+    def _pid_fn(self):
+        n_out = self.n_out
+
+        def pids(batch):
+            live = batch.live_mask()
+            return torch.remainder(torch.cumsum(live.to(torch.int32), 0),
+                                   n_out)
+        return pids
+
+    def _fused_key(self, compact: bool) -> tuple:
+        return ("rr_exchange_compact" if compact else "rr_exchange",
+                self.n_out)
 
 
 class RangeExchangeExec(_ExchangeExec):
@@ -1588,27 +1803,69 @@ class RangeExchangeExec(_ExchangeExec):
         super().__init__(plan, children, conf, device, n_out)
         self.orders = orders
 
-    def _planes(self, batch):
-        live = batch.live_mask()
-        ctx = self._ctx(batch, live)
-        planes = []
-        for o in self.orders:
-            k, nulls = K.normalize_key(o.expr.eval(ctx), batch.num_rows,
-                                       live=live)
-            first = o.resolved_nulls_first()
-            planes.append(torch.where(nulls, 0 if first else 1,
-                                      1 if first else 0).to(torch.int64))
-            planes.append(k if o.ascending else ~k)
-        return planes, live
+    def _planes_fn(self):
+        """The per-batch key planes through the dispatch choke point
+        (the JAX package's ``range_keys``)."""
+        orders, device = self.orders, self.device
+
+        def build():
+            def fn(batch):
+                live = batch.live_mask()
+                ctx = EvalCtx(batch.columns, batch.num_rows, batch.capacity,
+                              device, live=live)
+                planes = []
+                for o in orders:
+                    k, nulls = K.normalize_key(o.expr.eval(ctx),
+                                               batch.num_rows, live=live)
+                    first = o.resolved_nulls_first()
+                    planes.append(torch.where(
+                        nulls, 0 if first else 1,
+                        1 if first else 0).to(torch.int64))
+                    planes.append(k if o.ascending else ~k)
+                return planes, live
+            return fn
+        return fuse.fused(
+            ("range_keys", tuple((o.expr.fingerprint(), o.ascending,
+                                  o.resolved_nulls_first())
+                                 for o in self.orders), str(self.device)),
+            build)
+
+    def _range_step(self, bounds):
+        """Rows to partitions by the sampled bounds, then the compact or
+        masked split, as one dispatch a batch."""
+        compact, n_out = not self._masked, self.n_out
+
+        def build():
+            def fn(batch, planes, bounds):
+                dev = planes[0].device
+                pid = torch.zeros(batch.capacity, dtype=torch.int64,
+                                  device=dev)
+                for b in bounds:
+                    after = torch.zeros(batch.capacity, dtype=torch.bool,
+                                        device=dev)
+                    eq = torch.ones_like(after)
+                    for v, plane in zip(b, planes):
+                        after = after | (eq & (plane > v))
+                        eq = eq & (plane == v)
+                    pid += after
+                if compact:
+                    return RP.counting_sort_by_pid(batch, pid, n_out)
+                return RP.masked_slices(batch, pid, n_out)
+            return fn
+        return fuse.fused(("range_exchange_compact" if compact
+                           else "range_exchange", n_out,
+                           tuple((o.expr.fingerprint(), o.ascending)
+                                 for o in self.orders)), build)
 
     def _repartition(self, batches):
         part_t = self.metrics.metric(M.PARTITION_TIME)
         budget = int(self.conf.get(C.RANGE_PARTITION_SAMPLE)) * self.n_out
         per_batch, samples = [], []
+        planes_of = self._planes_fn()
         for batch in batches:
             self._acquire()
             with self.span(part_t):
-                planes, live = self._planes(batch)
+                planes, live = planes_of(batch)
                 per_batch.append((batch, planes))
                 idx = torch.nonzero(live).flatten()
                 if idx.numel() > budget:
@@ -1624,19 +1881,11 @@ class RangeExchangeExec(_ExchangeExec):
         samples.sort()
         bounds = [samples[len(samples) * (i + 1) // self.n_out]
                   for i in range(self.n_out - 1)]
+        step = self._range_step(bounds)
         for batch, planes in per_batch:
             with self.span(part_t):
-                pid = torch.zeros(batch.capacity, dtype=torch.int64,
-                                  device=self.device)
-                for b in bounds:
-                    after = torch.zeros(batch.capacity, dtype=torch.bool,
-                                        device=self.device)
-                    eq = torch.ones_like(after)
-                    for v, plane in zip(b, planes):
-                        after = after | (eq & (plane > v))
-                        eq = eq & (plane == v)
-                    pid += after
-                self._emit(batch, pid, out)
+                self._emit(batch, lambda b, p=planes: step(b, p, bounds),
+                           out)
         return out
 
 
@@ -1672,8 +1921,9 @@ def _probe_pack_spec(key_cols, live, key_exprs=None):
     if any(k == R.KIND_INT for k in kinds):
         ranges_host = _static_expr_ranges(key_cols, kinds, key_exprs)
         if ranges_host is None:
-            ranges = R.probe_ranges(key_cols, live)
-            ranges_host = ranges.cpu().numpy()
+            probe = fuse.fused(("radix_probe", tuple(kinds)),
+                               lambda: R.probe_ranges)
+            ranges_host = probe(key_cols, live).cpu().numpy()
     if ranges_host is None:
         ranges_host = np.zeros(2 * len(key_cols), np.int64)
     ranges = torch.from_numpy(ranges_host).to(live.device)
@@ -1771,6 +2021,15 @@ class _AggKernels:
     def has_custom(self) -> bool:
         return any(isinstance(a.fn, A.SegmentedAgg) for a in self.aggs)
 
+    def _fp(self):
+        """The semantic key of this aggregation's stage functions (the
+        JAX package's, with the segsum switch: it picks the route)."""
+        return (tuple(e.fingerprint() for e in self.group_exprs),
+                tuple(a.fn.fingerprint() for a in self.aggs),
+                self.pre_filter.fingerprint()
+                if self.pre_filter is not None else None,
+                self.segsum_enabled)
+
     # -- entry points ------------------------------------------------------
 
     def _filtered(self, batch: ColumnarBatch, ctx_of):
@@ -1799,11 +2058,17 @@ class _AggKernels:
         input_cols = [[e.eval(ctx) for e in a.fn.children] for a in self.aggs]
         return key_cols, input_cols, key_errs + ctx.errors
 
-    def update(self, batch: ColumnarBatch, ctx_of):
-        """The update phase: tiny-bucket, packed radix, or global.
-        Returns (state batch, ANSI error planes)."""
+    def update(self, batch: ColumnarBatch, ctx_of, ansi: bool = False):
+        """The update phase: tiny-bucket, packed radix, or the sort and
+        global routes, each through its dispatch (the JAX package's key
+        families: the keys' run_stage, the range probe, then
+        ``hashagg_packed_update`` or ``hashagg_update``). Returns (state
+        batch, ANSI error planes)."""
         keys = None
         if self._packed_ok:
+            fuse.notify_dispatch(
+                ("run_stage", tuple(e.fingerprint()
+                                    for e in self.group_exprs)))
             kctx = ctx_of(batch, batch.live_mask())
             key_cols = [e.eval(kctx) for e in self.group_exprs]
             # without an absorbed filter these are the keys of the update
@@ -1814,14 +2079,27 @@ class _AggKernels:
                 spec, ranges, rh = _probe_pack_spec(
                     key_cols, batch.live_mask(), self.group_exprs)
                 if spec is not None:
-                    batch, live, errs = self._filtered(batch, ctx_of)
-                    key_cols, input_cols, ierrs = self._inputs(batch, live,
-                                                               ctx_of, keys)
-                    out = self._packed_agg(live, key_cols,
-                                           self._update_specs(input_cols),
-                                           spec, ranges)
+                    fn = fuse.fused(("hashagg_packed_update", self._fp(),
+                                     (spec.kinds, spec.bits), ansi),
+                                    lambda: self._packed_update)
+                    out, errs = fn(batch, ctx_of, keys, spec, ranges)
                     _attach_key_bounds(out, spec, rh)
-                    return out, errs + ierrs
+                    return out, errs
+        fn = fuse.fused(("hashagg_update", self._fp(), ansi),
+                        lambda: self.general_update)
+        return fn(batch, ctx_of, keys)
+
+    def _packed_update(self, batch, ctx_of, keys, spec, ranges):
+        batch, live, errs = self._filtered(batch, ctx_of)
+        key_cols, input_cols, ierrs = self._inputs(batch, live, ctx_of, keys)
+        out = self._packed_agg(live, key_cols,
+                               self._update_specs(input_cols), spec, ranges)
+        return out, errs + ierrs
+
+    def general_update(self, batch, ctx_of, keys=None):
+        """The tiny-bucket, sort and global routes of the update (what an
+        absorbed pre-chain composes with: the packed route needs host
+        probes of the evaluated keys)."""
         batch, live, errs = self._filtered(batch, ctx_of)
         key_cols, input_cols, ierrs = self._inputs(batch, live, ctx_of, keys)
         if not key_cols:
@@ -1852,15 +2130,46 @@ class _AggKernels:
         return specs
 
     def merge(self, batch: ColumnarBatch) -> ColumnarBatch:
-        """Fold partial states that share keys."""
+        """Fold partial states that share keys, through the packed
+        route's dispatch (``hashagg_packed_merge``) when the keys pack and
+        do not take the tiny-bucket route, else ``hashagg_merge``."""
         nkeys = len(self.group_exprs)
-        live = batch.live_mask()
+        if self._packed_ok and nkeys:
+            key_cols = list(batch.columns[:nkeys])
+            if self._bucket_sizes(key_cols) is None:
+                spec, ranges, rh = _probe_pack_spec(key_cols,
+                                                    batch.live_mask())
+                if spec is not None:
+                    fn = fuse.fused(("hashagg_packed_merge", self._fp(),
+                                     (spec.kinds, spec.bits)),
+                                    lambda: self._packed_merge)
+                    out = fn(batch, spec, ranges)
+                    _attach_key_bounds(out, spec, rh)
+                    return out
+        fn = fuse.fused(("hashagg_merge", self._fp()),
+                        lambda: self._merge_states)
+        return fn(batch)
+
+    def _merge_states_of(self, batch):
+        nkeys = len(self.group_exprs)
         states = []
         ci = nkeys
         for a in self.aggs:
             for (_, sdt), op in zip(a.fn.state_schema(), a.fn.merge_ops()):
                 states.append((op, batch.columns[ci], sdt))
                 ci += 1
+        return states
+
+    def _packed_merge(self, batch, spec, ranges):
+        key_cols = list(batch.columns[:len(self.group_exprs)])
+        return self._packed_agg(batch.live_mask(), key_cols,
+                                self._merge_states_of(batch), spec, ranges)
+
+    def _merge_states(self, batch: ColumnarBatch) -> ColumnarBatch:
+        """The global, tiny-bucket and sort routes of the merge."""
+        nkeys = len(self.group_exprs)
+        live = batch.live_mask()
+        states = self._merge_states_of(batch)
         if nkeys == 0:
             cols = []
             for op, src, sdt in states:
@@ -1869,7 +2178,6 @@ class _AggKernels:
                 cols.append(_resize_plane(ov, oval, sdt, round_capacity(1)))
             return ColumnarBatch(cols, 1)
         key_cols = list(batch.columns[:nkeys])
-        spec = None
         if self._packed_ok:
             sizes = self._bucket_sizes(key_cols)
             if sizes is not None:
@@ -1879,12 +2187,25 @@ class _AggKernels:
                 # |value|, so one outlier partial would quantize every
                 # other group's sum (ROADMAP C, "known")
                 return self._bucket_update(live, key_cols, states, sizes)
-            spec, ranges, rh = _probe_pack_spec(key_cols, live)
-        if spec is None:
-            return self._sort_agg(live, key_cols, states, batch.num_rows)
-        out = self._packed_agg(live, key_cols, states, spec, ranges)
-        _attach_key_bounds(out, spec, rh)
-        return out
+        return self._sort_agg(live, key_cols, states, batch.num_rows)
+
+    def evaluate_states(self, state: ColumnarBatch) -> ColumnarBatch:
+        """The final projection of merged states into result columns."""
+        nkeys = len(self.group_exprs)
+        out_cols = list(state.columns[:nkeys])
+        ci = nkeys
+        for a in self.aggs:
+            n_state = len(a.fn.state_schema())
+            res = a.fn.evaluate(state.columns[ci: ci + n_state])
+            ci += n_state
+            rt = a.fn.result_type()
+            if not (res.is_string or res.is_nested) \
+                    and res.data.dtype != rt.torch_dtype:
+                res = ColumnVector(rt, res.data.to(rt.torch_dtype),
+                                   res.validity)
+            out_cols.append(res)
+        return ColumnarBatch(out_cols, state.num_rows if nkeys else 1,
+                             state.row_mask)
 
     # -- global (no keys) --------------------------------------------------
 
@@ -2337,7 +2658,11 @@ class HashAggregateExec(TorchExec):
     - ``complete``: update, merge and evaluate in one operator.
 
     An upstream filter may be absorbed as ``pre_filter`` (partial and
-    complete modes: it narrows the live mask of the update). With
+    complete modes: it narrows the live mask of the update), and stage
+    fusion (``exec/stage_fusion.py``) may absorb the narrow chain below
+    as ``pre_chain``: its members' stage bodies run in front of the
+    update inside one dispatch a batch and inside the retry attempt, so a
+    split retry re-runs the chain on each half. With
     spark.rapids.sql.agg.skipAggPassReductionRatio below 1, a keyed
     partial whose first batch kept more than that share of its rows as
     groups yields each batch's states unmerged, for the final to merge.
@@ -2349,6 +2674,12 @@ class HashAggregateExec(TorchExec):
         self.mode = mode
         self.kern = _AggKernels(plan.group_exprs, plan.aggs, pre_filter,
                                 bool(conf.get(C.PALLAS_ENABLED)))
+        #: the absorbed chain's stage bodies, child-most first (set by
+        #: stage fusion; carry-free by its gate), and their operators
+        self.pre_chain: Optional[List[fuse.StageBody]] = None
+        self.pre_chain_members: List[TorchExec] = []
+        self.fused_stage_id = 0
+        self._chain_failed = False
 
     @property
     def schema(self):
@@ -2366,6 +2697,56 @@ class HashAggregateExec(TorchExec):
                 fields.append(T.StructField(f"{a.name}__{sname}", sdt))
         return fields
 
+    # -- stage fusion: the absorbed narrow-operator chain -----------------
+
+    def _sig(self, phase: str, ansi: bool = False):
+        return ("hashagg", phase) + self.kern._fp() + (ansi,)
+
+    def _chain_key(self, ansi: bool):
+        return ("hashagg_chain_update",
+                tuple(b.key for b in self.pre_chain),
+                self._sig("update", ansi))
+
+    def _build_chain_update(self, ansi: bool):
+        """The chain's bodies, then the update's tiny-bucket, sort or
+        global route, composed into one function a batch:
+        ``fn(batch, pid, ctx_of) -> (states, [errors...], [rows...])``
+        with each member's live output rows."""
+        bodies = list(self.pre_chain)
+        kern = self.kern
+
+        def build():
+            fns = [b.builder() for b in bodies]
+
+            def fn(batch, pid, ctx_of):
+                errs_all, rows = [], []
+                for f in fns:
+                    batch, errs, _ = f(batch, pid, 0)
+                    errs_all.append(errs)
+                    rows.append(live_rows(batch))
+                out, uerrs = kern.general_update(batch, ctx_of)
+                errs_all.append(uerrs)
+                return out, errs_all, rows
+            return fn
+        return build
+
+    def _unfused_pre_chain(self, source):
+        from spark_rapids_tpu_torch.exec.stage_fusion import rebuild_chain
+        return rebuild_chain(self.pre_chain_members, source)
+
+    def tree_string(self, indent: int = 0) -> str:
+        if not self.pre_chain_members:
+            return super().tree_string(indent)
+        pad = "  " * indent
+        sid = self.fused_stage_id
+        lines = [f"{pad}*({sid}) {self.name()} <- {self.plan.describe()}"]
+        for m in reversed(self.pre_chain_members):
+            lines.append(f"{pad}  *({sid}) {type(m).__name__} "
+                         f"<- {m.plan.describe()} [fused]")
+        for c in self.children:
+            lines.append(c.tree_string(indent + 1))
+        return "\n".join(lines)
+
     def execute_partition(self, pidx):
         from spark_rapids_tpu_torch.runtime.retry import with_retry
         agg_t = self.metrics.metric(M.AGG_TIME)
@@ -2377,6 +2758,80 @@ class HashAggregateExec(TorchExec):
             partials = list(batches)
             in_batches.add(len(partials))
         else:
+            ansi = bool(self.conf.get(C.ANSI_ENABLED))
+
+            def plain_attempt(b):
+                # the update (with an absorbed pre-filter) is idempotent
+                # over its input batch: retried after a spill drain, or
+                # split in half, on OOM (JAX tpu_nodes.py:2727-2815)
+                with self.span(agg_t):
+                    out, errs = self.kern.update(b, self._ctx, ansi)
+                    raise_errors(errs)
+                return out
+
+            attempt = plain_attempt
+            chain_live = False
+            chain_in_rows = [None]  # the rows the update phase saw
+            if self.pre_chain and self._chain_failed:
+                # an earlier partition's build failed: the unfused member
+                # chain runs in front of the plain update
+                batches = self._unfused_pre_chain(
+                    self.children[0]).execute_partition(pidx)
+            elif self.pre_chain:
+                chain_fn = None
+                try:
+                    chain_fn = fuse.fused(self._chain_key(ansi),
+                                          self._build_chain_update(ansi))
+                except Exception as ex:  # noqa: BLE001 - see below
+                    from spark_rapids_tpu_torch.expr.core import (
+                        SparkException,
+                    )
+                    from spark_rapids_tpu_torch.runtime.lifecycle import (
+                        QueryCancelledError,
+                    )
+                    if isinstance(ex, (SparkException, QueryCancelledError)):
+                        raise
+                    # the per-stage fallback: only BUILDING the composed
+                    # function may fall back; an error raised while a
+                    # batch runs propagates (no trace to fail here)
+                    _LOG.warning("absorbed-chain build failed for %s; "
+                                 "falling back to the unfused chain",
+                                 self.name(), exc_info=True)
+                    self._chain_failed = True
+                    batches = self._unfused_pre_chain(
+                        self.children[0]).execute_partition(pidx)
+                if chain_fn is not None:
+                    disp = self.metrics.metric(M.STAGE_DISPATCHES)
+                    member_rows = [m.metrics.metric(M.NUM_OUTPUT_ROWS)
+                                   for m in self.pre_chain_members]
+                    rng = fuse.stage_range(
+                        f"AbsorbedStage#{self.fused_stage_id}")
+
+                    def chain_attempt(b):
+                        # chain + update: one dispatch, idempotent over its
+                        # input (carry-free bodies), so retry and split
+                        # retry treat it as a plain update
+                        disp.add(1)
+                        if TR.active() is not None:
+                            TR.instant("stageDispatch", cat="dispatch",
+                                       args={"stage_id": self.fused_stage_id,
+                                             "absorbed": True,
+                                             "members": len(
+                                                 self.pre_chain_members)
+                                             + 1})
+                        with self.span(agg_t), rng():
+                            out, errs_list, rows = chain_fn(b, pidx,
+                                                            self._ctx)
+                            for e in errs_list:
+                                raise_errors(e)
+                        for mr, r in zip(member_rows, rows):
+                            mr.add(r)
+                        if rows:
+                            chain_in_rows[0] = rows[-1]
+                        return out
+
+                    attempt = chain_attempt
+                    chain_live = True
             if self.kern.has_custom or (
                     nkeys and self.conf.get(C.AGG_FORCE_SINGLE_PASS)):
                 # one update pass over the partition's rows, concatenated:
@@ -2388,15 +2843,6 @@ class HashAggregateExec(TorchExec):
             ratio = float(self.conf.get(C.SKIP_AGG_PASS_RATIO))
             partials = []
 
-            def attempt(b):
-                # the update (with an absorbed pre-filter) is idempotent
-                # over its input batch: retried after a spill drain, or
-                # split in half, on OOM (JAX tpu_nodes.py:2727-2815)
-                with self.span(agg_t), self._dispatch():
-                    out, errs = self.kern.update(b, self._ctx)
-                    raise_errors(errs)
-                return out
-
             for bi, batch in enumerate(batches):
                 self._acquire()
                 in_batches.add(1)
@@ -2406,9 +2852,13 @@ class HashAggregateExec(TorchExec):
                     if bi == 0 and si == 0 and ratio < 1.0 and nkeys \
                             and self.mode == "partial":
                         # sampled on the first batch only: each count is
-                        # a sync
+                        # a sync. With an absorbed chain, against the
+                        # chain's output rows.
+                        src = chain_in_rows[0] if chain_live \
+                            and chain_in_rows[0] is not None \
+                            else batch.num_rows
                         skip_merge = int(out.num_rows) > ratio * max(
-                            int(batch.num_rows), 1)
+                            int(src), 1)
         if not partials:
             if nkeys:
                 return
@@ -2445,21 +2895,9 @@ class HashAggregateExec(TorchExec):
         return ColumnarBatch(out.columns, 1) if nkeys == 0 else out
 
     def _evaluate(self, state: ColumnarBatch) -> ColumnarBatch:
-        nkeys = len(self.plan.group_exprs)
-        out_cols = list(state.columns[:nkeys])
-        ci = nkeys
-        for a in self.plan.aggs:
-            n_state = len(a.fn.state_schema())
-            res = a.fn.evaluate(state.columns[ci: ci + n_state])
-            ci += n_state
-            rt = a.fn.result_type()
-            if not (res.is_string or res.is_nested) \
-                    and res.data.dtype != rt.torch_dtype:
-                res = ColumnVector(rt, res.data.to(rt.torch_dtype),
-                                   res.validity)
-            out_cols.append(res)
-        return ColumnarBatch(out_cols, state.num_rows if nkeys else 1,
-                             state.row_mask)
+        fn = fuse.fused(self._sig("evaluate"),
+                        lambda: self.kern.evaluate_states)
+        return fn(state)
 
     def _empty_state_batch(self) -> ColumnarBatch:
         """A zero-row update: count states are 0 and valid, others null."""
@@ -2481,13 +2919,18 @@ class HashAggregateExec(TorchExec):
 
 class LimitExec(TorchExec):
     """The first n rows of each partition, in order (masked batches are
-    compacted first)."""
+    compacted first); no batch is pulled once n rows are out. In a fused
+    stage its body masks the rows past a budget carried on the device
+    instead."""
+
+    def stage_body(self) -> fuse.StageBody:
+        return limit_stage_body(self.plan.n, self.device)
 
     def execute_partition(self, pidx):
         remaining = self.plan.n
+        if remaining <= 0:
+            return
         for batch in self.children[0].execute_partition(pidx):
-            if remaining <= 0:
-                break
             self._acquire()
             if batch.row_mask is not None:
                 batch = K.compact_batch(batch)
@@ -2498,6 +2941,10 @@ class LimitExec(TorchExec):
             else:
                 yield K.slice_batch(batch, 0, remaining)
                 remaining = 0
+            if remaining <= 0:
+                # stop before pulling another batch, as the fused limit
+                # does (the JAX package's LimitExec pulls one more)
+                return
 
 
 def _order_keys(kc: ColumnVector, o, num_rows, live=None, n_chunks=None):
@@ -2581,26 +3028,52 @@ class TopNExec(TorchExec):
             out = self._top(batch)
         yield out
 
+    def _fp(self):
+        return (tuple((o.expr.fingerprint(), o.ascending,
+                       o.resolved_nulls_first()) for o in self.orders),
+                self.n, str(self.device))
+
     def _top(self, batch: ColumnarBatch) -> ColumnarBatch:
+        from spark_rapids_tpu_torch.runtime.pipeline import start_d2h
         n = self.n
         bound = max(4 * n, 4096)
         if self._imageable and batch.capacity > bound:
-            live = batch.live_mask()
-            kc = self.orders[0].expr.eval(self._ctx(batch, live))
-            img = _topn_image(kc, self.orders[0], live)
-            thr = torch.topk(img, min(n, batch.capacity)).values[-1]
-            cand = live & (img >= thr)
-            cnt = int(cand.sum(dtype=torch.int64).item())
+            orders, device = self.orders, self.device
+
+            def build_select():
+                def fn(b):
+                    live = b.live_mask()
+                    kc = orders[0].expr.eval(EvalCtx(
+                        b.columns, b.num_rows, b.capacity, device,
+                        live=live))
+                    img = _topn_image(kc, orders[0], live)
+                    thr = torch.topk(img, min(n, b.capacity)).values[-1]
+                    cand = live & (img >= thr)
+                    return cand, cand.sum(dtype=torch.int64)
+                return fn
+
+            sel_fn = fuse.fused(("topn_select", self._fp()), build_select)
+            cand, cnt_d = sel_fn(batch)
+            cnt = int(start_d2h(cnt_d).numpy())
             if cnt <= bound:
-                small = K.gather_batch(
-                    batch, K._compact_indices(cand, round_capacity(bound)),
-                    cnt)
-                perm = _sort_perm_for(self.orders, small, self._ctx(small))
-                m = min(cnt, n)
-                idx = torch.arange(round_capacity(n), device=self.device)
-                sel = torch.where(idx < m, perm[:idx.shape[0]], -1)
-                return ColumnarBatch(
-                    K.gather_batch(small, sel, cnt).columns, m)
+                def build_sort():
+                    def fn(b, cand, cnt):
+                        small = K.gather_batch(
+                            b, K._compact_indices(cand,
+                                                  round_capacity(bound)),
+                            cnt)
+                        perm = _sort_perm_for(orders, small, EvalCtx(
+                            small.columns, small.num_rows, small.capacity,
+                            device, live=small.live_mask()))
+                        m = min(cnt, n)
+                        idx = torch.arange(round_capacity(n), device=device)
+                        sel = torch.where(idx < m, perm[:idx.shape[0]], -1)
+                        return ColumnarBatch(
+                            K.gather_batch(small, sel, cnt).columns, m)
+                    return fn
+
+                srt = fuse.fused(("topn_sort", self._fp()), build_sort)
+                return srt(batch, cand, cnt)
         # the exact full sort: string keys, small inputs, or a wide tie set
         if batch.row_mask is not None:
             batch = K.compact_batch(batch)

@@ -440,7 +440,11 @@ class Like(Expression):
         return T.BOOLEAN
 
     def _params(self):
-        return repr(self.pattern)
+        # a non-default escape keys the stage cache apart
+        # (runtime/compile_cache.py); the default keeps the JAX
+        # package's fingerprint
+        esc = "" if self.escape == "\\" else f",{self.escape!r}"
+        return repr(self.pattern) + esc
 
     def with_children(self, children):
         return Like(children[0], self.pattern, self.escape)

@@ -15,11 +15,10 @@ spark.rapids.sql.adaptive.measuredCost.enabled): before a plan converts,
 the latest successful history record of the same plan digest that carries
 a roofline verdict decides the hints that conversion reads on this thread
 (``install_hints``/``current_hints``): the aggregate exchange's partition
-count and the exchanges' coalesceTinyRows threshold. Its third hint,
-``fusion_min_members``, is derived and shows in the decision's detail, but
-nothing reads it while the port has no stage fusion (ROADMAP A11e); the
-JAX package with spark.rapids.sql.stageFusion.enabled=false behaves the
-same way. Only the kernel cost auditor (A11e) writes roofline verdicts,
+count, the exchanges' coalesceTinyRows threshold, and
+``fusion_min_members``, the fewest dispatching members a fused stage of
+this plan may have (read by ``exec/stage_fusion._rewrite``). Only the
+kernel cost auditor (A11e, second part) writes roofline verdicts,
 so until then a record carries one only where someone appended it.
 """
 from __future__ import annotations
@@ -119,8 +118,8 @@ class MeasuredHints:
         self.exchange_parts = exchange_parts
         #: spark.rapids.shuffle.coalesceTinyRows for this plan's exchanges
         self.coalesce_tiny_rows = coalesce_tiny_rows
-        #: the fewest dispatching members of a fused stage (no reader in
-        #: the port until stage fusion, ROADMAP A11e)
+        #: the fewest dispatching members of a fused stage (read by
+        #: exec/stage_fusion._rewrite)
         self.fusion_min_members = fusion_min_members
 
     def any(self) -> bool:

@@ -20,8 +20,8 @@ does: no device operator falls back when it fails.
 
 The device operators: in-memory, Parquet and cached scans, ranges,
 unions, generates (explode and posexplode, plain and outer), expands
-(stacked or one projection per batch, as the JAX package's stage fusion
-would run them: ``mark_expand_forms``), projections
+(one projection per batch, or stacked where stage fusion takes them into
+a fused stage or an aggregate's absorbed chain), projections
 and filters (a filter that reads the partition context, such as
 ``sample``'s ``rand``, over its input collected into one partition), hash
 and round-robin repartition, the hash aggregate with its tiny-bucket,
@@ -960,8 +960,9 @@ def convert_plan(plan: P.PlanNode, conf, device):
     converted tree then gets its pipeline boundaries
     (``runtime/pipeline.insert_pipelines``), the plan verifier under
     spark.rapids.debug.planVerify.enabled and the LORE dumper under
-    spark.rapids.sql.lore.dumpPath, in the JAX package's order; its stage
-    fusion is XLA's (ROADMAP A11e) and its sharding ROADMAP A12."""
+    spark.rapids.sql.lore.dumpPath, in the JAX package's order: stage
+    fusion (``exec/stage_fusion.fuse_stages``) runs first. Its sharding
+    waits for ROADMAP A12."""
     # prune imports this module's PROJECT_ONLY_EXPRS
     from spark_rapids_tpu_torch.plan.prune import prune_plan
     plan = localize_plan(plan, conf)
@@ -973,7 +974,10 @@ def convert_plan(plan: P.PlanNode, conf, device):
                                           or "").split(",") if s.strip()}
         _assert_on_tpu(meta, allowed)
     root = meta.convert(device)
-    mark_expand_forms(root)
+    # whole-stage fusion: linear chains of narrow operators collapse into
+    # one call a batch (spark.rapids.sql.stageFusion.enabled)
+    from spark_rapids_tpu_torch.exec.stage_fusion import fuse_stages
+    root = fuse_stages(root, conf)
     # pipelined execution: bounded producer/consumer boundaries at
     # scan->compute edges (spark.rapids.sql.pipeline.enabled)
     from spark_rapids_tpu_torch.runtime.pipeline import insert_pipelines
@@ -1323,84 +1327,3 @@ def push_down_scan_filters(plan: P.PlanNode) -> None:
             scan.pushed_filters = [reduce(E.Or, [reduce(E.And, p)
                                                  for p in paths])]
 
-
-# ---------------------------------------------------------------------------
-# The form of an Expand: the JAX package's stage-fusion gate
-# ---------------------------------------------------------------------------
-
-#: an Expand stacks at most this many projections into one batch
-_EXPAND_STACK_MAX = 8
-
-
-def _fusable(node) -> bool:
-    """A member of a fusable chain in the JAX package
-    (``exec/stage_fusion._fusable``): project, filter, limit, device
-    decode, and an Expand of at most eight projections with a fixed-width
-    output."""
-    if isinstance(node, (X.ProjectExec, X.FilterExec, X.LimitExec,
-                         X.DeviceDecodeScanExec)):
-        return len(node.children) == 1
-    if isinstance(node, X.ExpandExec):
-        return (len(node.plan.projections) <= _EXPAND_STACK_MAX
-                and not any(isinstance(dt, T.StringType)
-                            for dt in node.plan.schema.types))
-    return False
-
-
-def _dispatching(node) -> bool:
-    """Would the member cost the JAX package a dispatch unfused?"""
-    if isinstance(node, X.ProjectExec):
-        return node._trivial_indices() is None
-    return isinstance(node, (X.FilterExec, X.ExpandExec,
-                             X.DeviceDecodeScanExec))
-
-
-def _has_carry(node) -> bool:
-    """A projection threading the partition context keeps a carry, which
-    bars its chain from an aggregate's update."""
-    return isinstance(node, X.ProjectExec) and any(
-        E.needs_partition_context(e) for e in node.plan.exprs)
-
-
-def _chain(node):
-    """The maximal fusable chain from node down, and the operator below
-    it."""
-    chain = []
-    while _fusable(node):
-        chain.append(node)
-        node = node.children[0]
-    return chain, node
-
-
-def mark_expand_forms(node) -> None:
-    """Stack each Expand that the JAX package's stage fusion (on, its
-    default) would run fused (``exec/stage_fusion._rewrite``): a chain
-    under an aggregate without segmented aggregates whose keys do not
-    take the packed route is absorbed into its update; elsewhere a chain
-    with two or more dispatching members becomes one fused stage. Every
-    other Expand runs one projection per batch. This engine fuses
-    nothing, so it has no fusion switch: with
-    spark.rapids.sql.stageFusion.enabled=false the JAX package runs every
-    Expand per projection and the two can take different routes."""
-    if isinstance(node, X.HashAggregateExec) and not node.kern.has_custom \
-            and not node.kern._packed_ok:
-        chain, below = _chain(node.children[0])
-        if chain and not any(_has_carry(m) for m in chain) \
-                and any(_dispatching(m) for m in chain):
-            _stack(chain)
-            mark_expand_forms(below)
-            return
-    if _fusable(node):
-        chain, below = _chain(node)
-        if sum(1 for m in chain if _dispatching(m)) >= 2:
-            _stack(chain)
-            mark_expand_forms(below)
-            return
-    for c in node.children:
-        mark_expand_forms(c)
-
-
-def _stack(chain) -> None:
-    for m in chain:
-        if isinstance(m, X.ExpandExec):
-            m.stacked = True

@@ -77,9 +77,10 @@ MAX_DEVICE_BYTES_HELD = "maxDeviceBytesHeld"
 SHUFFLE_CORRUPTION_RETRIES = "shuffleCorruptionRetries"
 PARTITION_TIME = "partitionTime"
 #: partitioning-kernel dispatches and host round trips per input batch of
-#: an exchange, fused-stage entries, SPMD waves and the in-program ICI
-#: exchange: the JAX package's names for work the port does not have
-#: (no fused stages, no mesh); kept so both packages read one roster
+#: an exchange, fused-stage entries (a fused stage's or an absorbing
+#: aggregate's calls), SPMD waves and the in-program ICI exchange (no
+#: mesh in the port yet); the JAX package's names, so both packages read
+#: one roster
 PARTITION_DISPATCHES = "partitionDispatches"
 PARTITION_HOST_FETCHES = "partitionHostFetches"
 STAGE_DISPATCHES = "stageDispatches"
@@ -230,8 +231,8 @@ def walk_exec_tree(root):
     vertically fused members, then its absorbed pre-chain members, then
     its children — yielding ``(key, node, depth, role, stage_id)`` with
     keys ``ClsName#i`` in visit order. ``TorchSession.last_metrics()``
-    derives from this one generator. The port fuses no stages, so members
-    and pre-chains are empty there; an adaptive node is followed into the
+    derives from this one generator, and so do the dispatch budgets and
+    ``stage_fusion.fusion_groups``. An adaptive node is followed into the
     operator it chose at run time (``_chosen``), as ``TorchExec.walk``
     does, and a node reached twice is yielded once. Duck-typed: no exec
     imports."""

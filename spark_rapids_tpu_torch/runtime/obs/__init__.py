@@ -196,6 +196,21 @@ def _preregister(reg: MetricsRegistry) -> None:
     reg.gauge_fn("rapids_semaphore_waiting", _sem("waiting"),
                  "Tasks parked on the device semaphore")
 
+    def _cc_stat(name):
+        def read():
+            from spark_rapids_tpu_torch.runtime import compile_cache as CC
+            return CC.stats()[name]
+        return read
+
+    # the keyed stage cache (runtime/compile_cache.py), read live
+    reg.gauge_fn("rapids_compile_cache_hits", _cc_stat("hits"),
+                 "Keyed stage-cache hits (entries resolved without "
+                 "building)")
+    reg.gauge_fn("rapids_compile_cache_misses", _cc_stat("misses"),
+                 "Keyed stage-cache misses (fresh entries built)")
+    reg.gauge_fn("rapids_compile_cache_entries", _cc_stat("entries"),
+                 "Live keyed stage-cache entries")
+
     def _pool_depth(tier):
         def read():
             pool = HP.current_pool()

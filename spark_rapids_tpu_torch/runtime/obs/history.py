@@ -16,8 +16,9 @@ roofline verdicts.
 
 The record has the JAX package's keys on its default path. It carries no
 ``mesh`` (one card per session), no ``trace_id`` (no serving layer) and
-no ``roofline`` (no kernel cost auditor writes one); ``fusion_groups`` is
-always empty, since the port fuses no stages.
+no ``roofline`` (no kernel cost auditor writes one); ``fusion_groups``
+lists the plan's fused stages and absorbed chains
+(``exec/stage_fusion.fusion_groups``).
 
 The digest is a canonical hash of the LOGICAL plan tree (node type +
 describe + children), so two runs of the same query land on the same
@@ -184,8 +185,12 @@ def build_query_record(*, query_id: int, wall_start_unix: float,
         rec["annotated_plan"] = session.explain_analyze(snaps=snaps)
     except Exception:  # noqa: BLE001
         pass
-    # no stage fusion in the port: no fused groups to list
-    rec["fusion_groups"] = []
+    try:
+        from spark_rapids_tpu_torch.exec.stage_fusion import fusion_groups
+        rec["fusion_groups"] = (fusion_groups(exec_root)
+                                if exec_root is not None else [])
+    except Exception:  # noqa: BLE001
+        rec["fusion_groups"] = []
     try:
         rec["fallback_reasons"] = _meta_reasons(
             getattr(session, "last_meta", None))

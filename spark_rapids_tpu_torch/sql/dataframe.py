@@ -12,10 +12,9 @@ Expand lowering), ``agg``, ``order_by`` (``orderBy``, ``sort``), ``limit``,
 ``to_pydict``, ``to_pandas``, ``show``, ``head``, ``take`` and
 ``first``, ``to_device_batches`` (the batches on the session's device),
 ``write`` (``io/writer.DataFrameWriter``), the schema accessors,
-``explain`` (the placement report, and EXPLAIN ANALYZE), and the
-statistics ``describe``, ``corr``, ``cov``, ``crosstab`` and
-``approx_quantile``. Not here yet: ``explain("stages")``, which waits
-for stage fusion (ROADMAP item 11, A11e)."""
+``explain`` (the placement report, the fused stages, and EXPLAIN
+ANALYZE), and the statistics ``describe``, ``corr``, ``cov``,
+``crosstab`` and ``approx_quantile``."""
 from __future__ import annotations
 
 import copy
@@ -376,21 +375,33 @@ class DataFrame:
         """Print and return a report. 'placement' (default): every
         operator, ``*`` where it runs on the device and ``!`` where it
         falls back to the CPU, with an ``@ cannot run on GPU because:``
-        line per reason. 'analyze': run the query, then the operator
+        line per reason. 'stages': the operator tree after stage fusion,
+        each fused stage and absorbed chain marked ``*(N)`` and its
+        members ``[fused]``. 'analyze': run the query, then the operator
         tree annotated with the rows, batches and time each operator
         recorded, the wall-time attribution and the adaptive decisions
         (``session.explain_analyze()``)."""
         if mode == "analyze":
             self.collect()
             s = self.session.explain_analyze()
+        elif mode == "stages":
+            # the tree without convert_plan's action-time side effects
+            # (the LORE dumper, test mode's fallback assertions)
+            from spark_rapids_tpu_torch.exec.stage_fusion import fuse_stages
+            from spark_rapids_tpu_torch.plan.overrides import (
+                apply_cost_optimizer, wrap_and_tag,
+            )
+            from spark_rapids_tpu_torch.plan.prune import prune_plan
+            conf = self.session.conf
+            meta = wrap_and_tag(prune_plan(self.plan), conf)
+            apply_cost_optimizer(meta, conf)
+            s = fuse_stages(meta.convert(self.session.device),
+                            conf).tree_string()
         elif mode == "placement":
             from spark_rapids_tpu_torch.plan.overrides import explain_plan
             s = explain_plan(self.plan, self.session.conf, all_ops=True)
         else:
-            raise NotImplementedError(
-                f"explain mode {mode!r}: 'stages' waits for stage fusion "
-                f"(ROADMAP item 11, A11e); 'placement' and 'analyze' are "
-                f"ported")
+            raise NotImplementedError(f"explain mode {mode!r}")
         print(s)
         return s
 

@@ -267,9 +267,9 @@ def test_force_single_pass_updates_once_a_partition(table, monkeypatch):
     calls = []
     orig = X._AggKernels.update
 
-    def spy(kern, batch, ctx_of):
+    def spy(kern, batch, ctx_of, *rest):
         calls.append(int(batch.num_rows))
-        return orig(kern, batch, ctx_of)
+        return orig(kern, batch, ctx_of, *rest)
     monkeypatch.setattr(X._AggKernels, "update", spy)
     conf = {"spark.rapids.sql.reader.batchSizeRows": 250,
             "spark.rapids.sql.agg.forceSinglePassPartialSort": "true"}

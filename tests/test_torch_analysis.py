@@ -8,11 +8,14 @@
   dump without a trace, installation through the session's conf, and a
   clean engine that stays silent (here a pipelined, serialized-shuffle
   query instead of the NDS probes).
-- Its plan-verify cases without the fusion ones (PV-FUSE, PV-ABSORB and
-  the dispatch budgets wait for stage fusion): a schema-changing wrapper,
-  a malformed schema, a pipeline at the root or over a non-scan or at
-  depth 0, a cycle, the raised error, and the conf that runs the verifier
-  inside convert_plan; plus the port's real trees, which verify clean.
+- Its plan-verify cases: a schema-changing wrapper, a malformed schema,
+  a pipeline at the root or over a non-scan or at depth 0, a cycle, the
+  raised error, the budget diff naming its dimension, and the conf that
+  runs the verifier inside convert_plan; the fusion rules (PV-FUSE,
+  PV-ABSORB) on real fused stages and absorbing aggregates broken by
+  hand; plus the port's real trees, which verify clean. The dispatch
+  budgets of the NDS probe plans are held against the JAX package's in
+  tests/test_torch_stage_fusion.py.
 - tests/test_aux_subsystems.py's LORE dump and replay, whose replay
   equals the JAX package's answer, and the LORE id on exec spans.
 """
@@ -31,9 +34,9 @@ from torch_port_helpers import jax_api, reset_torch_runtime, torch_api
 from spark_rapids_tpu_torch import TorchSession
 from spark_rapids_tpu_torch.analysis import sanitizer
 from spark_rapids_tpu_torch.analysis.plan_verify import (
-    PlanVerifyError, check_plan, verify_plan,
+    PlanVerifyError, check_plan, compare_budget, verify_plan,
 )
-from spark_rapids_tpu_torch.expr.core import col
+from spark_rapids_tpu_torch.expr.core import col, lit
 from spark_rapids_tpu_torch.sql import functions as F
 
 
@@ -306,6 +309,75 @@ def test_verify_plan_raises_with_violation_list():
         verify_plan(filt)
     assert len(ei.value.violations) == 1
     assert "PV-SCHEMA" in str(ei.value)
+
+
+def test_compare_budget_names_the_dimension():
+    from spark_rapids_tpu.analysis.plan_verify import (
+        compare_budget as jcompare,
+    )
+    got = {"narrow_dispatches_per_batch": 3, "fused_stages": 1}
+    want = {"narrow_dispatches_per_batch": 2, "fused_stages": 1,
+            "pipeline_boundaries": 2}
+    diffs = compare_budget(got, want)
+    assert diffs == jcompare(got, want) and len(diffs) == 2
+    assert any(d.startswith("narrow_dispatches_per_batch:") for d in diffs)
+    assert any(d.startswith("pipeline_boundaries:") for d in diffs)
+
+
+def _fused_stage():
+    from spark_rapids_tpu_torch.plan.overrides import convert_plan
+    s = TorchSession(device="cpu")
+    df = (s.create_dataframe(pa.table({"v": [1, 2, 3], "d": [1.0, 2.0,
+                                                             3.0]}))
+          .filter(col("v") > lit(1))
+          .select((col("v") + lit(1)).alias("w"), col("d")))
+    return convert_plan(df.plan, s.conf, s.device)[0]
+
+
+def test_verify_fused_stage_rules():
+    from spark_rapids_tpu_torch.exec import stage_fusion as SF
+    root = _fused_stage()
+    assert isinstance(root, SF.FusedStageExec) and check_plan(root) == []
+    filt, proj = root.members
+    root.members = [proj]  # one dispatching member left
+    viols = check_plan(root)
+    assert any(v.startswith("PV-FUSE") and "only 1 dispatching member"
+               in v for v in viols)
+    root.members = [proj, filt]  # not linked child-most first
+    viols = check_plan(root)
+    assert any("not a linked chain" in v for v in viols)
+    assert any("chain head's plan node" in v for v in viols)
+    root.members = [filt, proj]
+    root.stage_id = 0
+    assert any("stage id must be a positive int" in v
+               for v in check_plan(root))
+
+
+def test_verify_absorbed_chain_rules():
+    from spark_rapids_tpu_torch.exec import nodes as X
+    from spark_rapids_tpu_torch.exec import stage_fusion as SF
+    from spark_rapids_tpu_torch.plan import nodes as P
+    from spark_rapids_tpu_torch.plan.overrides import convert_plan
+    s = TorchSession(device="cpu")
+    df = (s.create_dataframe(pa.table({"g": [0.5, 1.5, 0.5],
+                                       "v": [1, 2, 3]}))
+          .filter(col("v") > lit(0))
+          .select(col("g"), (col("v") * lit(3)).alias("v3"))
+          .group_by(col("g")).agg(F.sum(col("v3")).alias("s")))
+    node = df.plan
+    while not isinstance(node, P.Aggregate):
+        node = node.children[0]
+    child = convert_plan(node.children[0], s.conf, s.device)[0]
+    agg = SF.fuse_stages(X.HashAggregateExec(node, [child], s.conf,
+                                             s.device, mode="partial"),
+                         s.conf)
+    assert agg.pre_chain_members and check_plan(agg) == []
+    agg.mode = "final"
+    assert any(v.startswith("PV-ABSORB") and "mode 'final'" in v
+               for v in check_plan(agg))
+    agg.mode = "partial"
+    agg.pre_chain[0].has_carry = True
+    assert any("carries state" in v for v in check_plan(agg))
 
 
 def test_plan_verify_conf_runs_in_convert(monkeypatch):

@@ -756,21 +756,21 @@ def test_quota_isolation_end_to_end(monkeypatch):
     completion while a concurrent under-budget query's answer and device
     dispatch count match its solo run, and every spill victim belongs to
     the over-quota query."""
-    from spark_rapids_tpu_torch.exec import nodes as X
+    from spark_rapids_tpu_torch.exec import fuse as PF
     from spark_rapids_tpu_torch.runtime.memory import SpillableHandle
     reset_spill_framework()
     t_small = _table(6000, seed=1)
     t_big = _table(30000, seed=2)
 
-    dispatches = {}  # query_id -> batches of device work
+    dispatches = {}  # query_id -> dispatches of device work
     dlock = threading.Lock()
-    orig_dispatch = X.TorchExec._dispatch
 
-    def counted():
+    def counted(key):
+        # the dispatch-budget hook of the per-batch choke point
+        # (exec/fuse.fused, compiled.run_stage)
         qid = LC.current_query_id()
         with dlock:
             dispatches[qid] = dispatches.get(qid, 0) + 1
-        return orig_dispatch()
 
     spilled_qids = []
     orig_spill = SpillableHandle.spill_to_host
@@ -788,7 +788,7 @@ def test_quota_isolation_end_to_end(monkeypatch):
     rb = _canon(df_b.collect())
     fw = peek_spill_framework()
     b_handle_ids = set(fw._handles)
-    monkeypatch.setattr(X.TorchExec, "_dispatch", staticmethod(counted))
+    monkeypatch.setattr(PF, "_DISPATCH_HOOK", counted)
     monkeypatch.setattr(SpillableHandle, "spill_to_host", tracked_spill)
     df_b.collect()
     _wait_for(lambda: not LC.token_ids(), what="B solo drained")

@@ -17,8 +17,8 @@ drives the JAX package's session only.
 
 Parity cases run one program through both packages with history on: the
 same record keys and the same type, status, plan digest, SQL, fallback
-reasons, decision kinds and conf delta on the shared keys (only
-``fusion_groups``' contents may differ: the port fuses no stages); the
+reasons, decision kinds, conf delta on the shared keys and
+``fusion_groups``; the
 same bucket roster with buckets summing to the wall time; the same
 measured collapse of pctl_shuffled's exchange. The JAX package plans for
 one device here, as the port does. Then the port's own: the metric names
@@ -289,8 +289,11 @@ def test_explain_analyze_without_action():
 def test_explain_modes_and_reports(lineitem):
     s = _session()
     df = H.q1(TORCH, s.create_dataframe(lineitem))
-    with pytest.raises(NotImplementedError, match="A11e"):
-        df.explain("stages")
+    # 'stages' (stage fusion, ROADMAP A11e): the JAX package's tree; the
+    # port's aggregate line names its mode
+    jdf = H.q1(JAX, JAX.session().create_dataframe(lineitem))
+    assert df.explain("stages").replace("(complete)", "") == \
+        jdf.explain("stages")
     df.collect()
     assert s.last_plan_explain().splitlines()[0].startswith("* Aggregate")
     assert s.last_audit() is None and s.last_roofline() is None
@@ -699,7 +702,7 @@ def test_records_match_jax(tmp_path, lineitem, name):
         == {k: v for k, v in jrec["conf_delta"].items() if k in shared}
     assert set(prec["attribution"]["buckets"]) == \
         set(jrec["attribution"]["buckets"])
-    assert prec["fusion_groups"] == []
+    assert prec["fusion_groups"] == jrec["fusion_groups"]
 
 
 @pytest.mark.parametrize("name", ["q1", "pctl_shuffled"])
@@ -779,7 +782,13 @@ def test_config_keys_registered_at_jax_defaults():
     for key in ("spark.rapids.obs.historyDir",
                 "spark.rapids.sql.adaptive.measuredCost.enabled"):
         assert PC.registry()[key].default == JC.registry()[key].default
-    assert len(PC.keys()) == 99
+    # 99 keys, and the stage fusion and shape-ladder keys
+    assert len(PC.keys()) == 103
+    for key in ("spark.rapids.sql.stageFusion.enabled",
+                "spark.rapids.compile.shapes.growthFactor",
+                "spark.rapids.compile.shapes.dtypeAlign",
+                "spark.rapids.tpu.batchCapacityMinRows"):
+        assert PC.registry()[key].default == JC.registry()[key].default
     assert set(PC.keys()) <= set(JC.registry())
     assert {k for k, e in PC.registry().items() if e.internal} == \
         {k for k, e in JC.registry().items()

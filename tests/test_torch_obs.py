@@ -65,13 +65,13 @@ ROSTER = ("rapids_semaphore_wait_ns_total",
           "rapids_query_wall_time_ms", "rapids_tasks_completed_total")
 
 #: the JAX package's preregistered instruments that later items bring
-#: (ROADMAP.md A11e-A11f lists them)
+#: (ROADMAP.md A11e-A11f lists them; the keyed stage cache's
+#: rapids_compile_cache_* gauges came with A11e's first part)
 LATER = {
     "rapids_xla_compiles_total", "rapids_xla_compile_seconds_total",
     "rapids_persistent_cache_hits_total",
     "rapids_persistent_cache_misses_total",
-    "rapids_compile_cache_hits", "rapids_compile_cache_misses",
-    "rapids_compile_cache_entries", "rapids_roofline_achieved_gbps",
+    "rapids_roofline_achieved_gbps",
     "rapids_roofline_pct", "rapids_roofline_achieved_gflops",
     "rapids_roofline_padding_waste_ratio",              # A11e
     "rapids_serving_requests_total", "rapids_serving_rejected_total",

@@ -37,6 +37,7 @@ from spark_rapids_tpu.exec import fuse as JF
 from spark_rapids_tpu.exec import tpu_nodes as JX
 from spark_rapids_tpu.ops import pallas_segsum as JPS
 
+from spark_rapids_tpu_torch.exec import fuse as PF
 from spark_rapids_tpu_torch.exec import nodes as X
 from spark_rapids_tpu_torch.ops import kernels as K
 from spark_rapids_tpu_torch.ops import murmur3_kernel as MK
@@ -230,35 +231,24 @@ def _expand_form_jax(session) -> str:
 
 class _UpdateRoutes:
     """Per aggregate update, 'packed' or 'general', in both packages: the
-    port's ``_packed_agg`` against the JAX package's fused update keys."""
+    update's dispatch keys through each package's ``fuse.fused`` (the
+    port's take the JAX package's key families since stage fusion)."""
 
     def __init__(self, monkeypatch):
-        self.port, self.jax, self.in_update = [], [], []
-        orig_update = X._AggKernels.update
-        orig_packed = X._AggKernels._packed_agg
+        self.port, self.jax = [], []
+        for mod, out in ((PF, self.port), (JF, self.jax)):
+            monkeypatch.setattr(mod, "fused", self._spy(mod.fused, out))
 
-        def update(kern, *a, **k):
-            self.in_update.append("general")
-            out = orig_update(kern, *a, **k)
-            self.port.append(self.in_update.pop())
-            return out
-
-        def packed(kern, *a, **k):
-            if self.in_update:
-                self.in_update[-1] = "packed"
-            return orig_packed(kern, *a, **k)
-        monkeypatch.setattr(X._AggKernels, "update", update)
-        monkeypatch.setattr(X._AggKernels, "_packed_agg", packed)
-        orig_fused = JF.fused
-
+    @staticmethod
+    def _spy(orig_fused, out):
         def fused(key, builder):
             name = key[0] if isinstance(key, tuple) else ""
             if name == "hashagg_packed_update":
-                self.jax.append("packed")
+                out.append("packed")
             elif name in ("hashagg_update", "hashagg_chain_update"):
-                self.jax.append("general")
+                out.append("general")
             return orig_fused(key, builder)
-        monkeypatch.setattr(JF, "fused", fused)
+        return fused
 
 
 def _run_with_sessions(build, tbl):

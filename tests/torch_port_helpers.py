@@ -1897,3 +1897,79 @@ def udf_row_flags_answer(t: pa.Table) -> dict:
         s, c = out.get(key, (0.0, 0))
         out[key] = (s + q, c + 1)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Stage fusion: the smoke's fusion phase
+# ---------------------------------------------------------------------------
+
+#: the columns the fusion phase's Parquet queries read
+FUSION_Q6_COLS = ("l_shipdate", "l_discount", "l_quantity", "l_extendedprice")
+FUSION_LIMIT_COLS = ("l_orderkey", "l_quantity", "l_extendedprice",
+                     "l_discount")
+FUSION_LIMIT_N = 100
+FUSION_LIMIT_QTY = 10.0
+
+
+#: the fusion groups the JAX package plans for each fusion-phase query
+#: (``plan_verify.dispatch_budget``'s ``fusion_groups``, child-most
+#: first; held against the JAX package by tests/test_torch_stage_fusion.py)
+FUSION_EXPECT = {
+    "q6": [],
+    "q1": [],
+    "pq_q6": [{"kind": "absorbed",
+               "members": ["DeviceDecodeScanExec", "HashAggregateExec"]}],
+    "q72shfl": [],
+    "q72shfl_repart": [],
+    "rollup_shipdate": [{"kind": "fused",
+                         "members": ["ProjectExec", "ProjectExec",
+                                     "ExpandExec"]}],
+    "limit_chain": [{"kind": "fused",
+                     "members": ["DeviceDecodeScanExec", "FilterExec",
+                                 "ProjectExec", "LimitExec"]}],
+}
+
+
+def limit_chain(api, df, n=FUSION_LIMIT_N, qty=FUSION_LIMIT_QTY):
+    """Filter -> Project -> LIMIT n: the first n lines (in input order)
+    with l_quantity above ``qty``, with their net price."""
+    col, lit = api.col, api.lit
+    return (df.filter(col("l_quantity") > lit(qty))
+            .select(col("l_orderkey"),
+                    (col("l_extendedprice") * (lit(1.0) - col("l_discount")))
+                    .alias("net"))
+            .limit(n))
+
+
+def fusion_queries(api) -> dict:
+    """name -> build(session, cached lineitem, Parquet path) -> DataFrame:
+    the fusion phase's queries, each run with
+    spark.rapids.sql.stageFusion.enabled off and on. The Parquet queries
+    read through the session's default decode route (on the device)."""
+    def pq(cols, fn):
+        return lambda s, cached, path: fn(
+            api, s.read_parquet(path, columns=list(cols)))
+
+    return {
+        "q6": lambda s, cached, path: q6(api, cached),
+        "q1": lambda s, cached, path: q1(api, cached),
+        "pq_q6": pq(FUSION_Q6_COLS, q6),
+        "q72shfl": lambda s, cached, path: q72shfl(api, cached),
+        "q72shfl_repart": lambda s, cached, path: q72shfl_repart(api,
+                                                                 cached),
+        "rollup_shipdate": lambda s, cached, path: rollup_shipdate(api,
+                                                                   cached),
+        "limit_chain": pq(FUSION_LIMIT_COLS, limit_chain),
+    }
+
+
+def limit_chain_answer(lineitem: pa.Table, n=FUSION_LIMIT_N,
+                       qty=FUSION_LIMIT_QTY) -> dict:
+    """limit_chain's rows with numpy: the first n qualifying lines in file
+    order."""
+    q = lineitem.column("l_quantity").to_numpy()
+    idx = np.flatnonzero(q > qty)[:n]
+    price = lineitem.column("l_extendedprice").to_numpy()[idx]
+    disc = lineitem.column("l_discount").to_numpy()[idx]
+    return {"l_orderkey": lineitem.column("l_orderkey").to_numpy()[idx]
+            .tolist(), "net": (price * (1.0 - disc)).tolist()}
