@@ -271,7 +271,7 @@ Phases, one JSON line each:
    read back through the device-decode source, B3, and q1 checked) and
    tb_delta_merge (the orders as a Delta table, 300,000 upserts merged
    in, checked against numpy's upsert; an Iceberg table in two appends
-   with a snapshot read; a Hive text round trip of 1M lines).
+   with a snapshot read; a Hive text round trip of 250,000 lines).
 17c. udf (right after the shuffle phase, on the joins phase's caches):
    udf_q72_compiled (q72shfl's grouping of udf(charge) = price x (1 -
    discount) x (1 + a tax from the order key), compiled with
@@ -279,7 +279,8 @@ Phases, one JSON line each:
    route, B2), udf_repart_torch (a torch_udf with its own validity over
    the 8-partition cache, then a hash exchange of an int key and the
    grouping: B1 and B2, exact against numpy), udf_row_pool (an opaque row
-   UDF, a string method call, in a CPU Project over the first 1M lines,
+   UDF, a string method call, in a CPU Project over the first 500,000
+   lines,
    with the Python worker pool off and on: the workers used and the CPU
    step's ms, both equal to a Python loop) and udf_compiled_vs_row (one
    lambda compiled and on the row tier: equal answers), each cold then
@@ -377,6 +378,24 @@ Phases, one JSON line each:
    batches, warm ms, device ms and idle share, peak GB and launches off
    and on, and per stage range its batches, kernel launches a batch and
    host ms a batch.
+17i. audit (after the fusion phase, on the joins phase's caches, with
+   spark.rapids.obs.audit.enabled): two cold audited runs of the NDS
+   probe's first two queries (tools/torch_gen_cost_signatures.py's
+   recipe), q1_rollup and q3join_shuffled give equal cost signatures;
+   the prefix's signature against the CPU golden
+   (tests/torch_cost_signatures.json) and a CPU run of it (the aten ops
+   whose charged bytes differ printed); repart_agg (B1, B2), pq_q6 over a
+   small file (B3) and str_case_agg (B4) over 200,000 / 50,000 lines on
+   the card and on the CPU: the hand kernels' charges must be equal; per
+   query the roofline groups and achieved GB/s over the attribution's
+   device_compute seconds and over torch.profiler's device ms; warm ms
+   with the audit on over off; pctl_shuffled's real audited record
+   driving the measured pass; warmup's replays from a history store and
+   the first user query with and without them, both after
+   compile_cache.clear(); a spark.rapids.profile.dir capture that parses
+   and names a hand kernel; the compile counters against the build
+   phase's builds and the libraries' loads; and the window and masked
+   probe dispatches through exec/fuse.fused.
 18. runtime (last, after the fallback phase, so that its small budgets,
    injected faults and open breaker touch no earlier phase; on the joins
    phase's lineitem caches h1 (1 partition) and h8 (8), the Parquet file
@@ -439,7 +458,10 @@ where the text above says twice warm; with the history phase the
 adaptive, window and exprs phases do too, the trace phase runs each
 query cold and once warm a mode (not twice warm), the obs phase runs q1
 and q3join_shuffled in one round (not two), and rt_degrade runs over the
-first 500,000 lines (not 1M).
+first 500,000 lines (not 1M); with the audit phase the formats phase
+runs its six host-bound file queries cold only (FORMATS_COLD_ONLY), the
+Hive text round trip takes 250,000 lines (not 1M) and the udf phase's
+row tier 500,000 (not 1M).
 Every query path runs in test mode (spark.rapids.sql.test.enabled): an
 operator that planning tags off the card fails the query, except the one
 node each fallback query names in spark.rapids.sql.test.allowedNonTpu.
@@ -447,7 +469,7 @@ It then prints the kernel table ({"kernels": [...]}, with each kernel's
 launches per path in "launches_by_path": cached, parquet, pipeline,
 strings, joins, adaptive, window, sql, exprs, sets, aggtypes, datetime,
 nested, formats, shuffle, udf, regex, fallback, trace, obs, history,
-runtime),
+fusion, audit, runtime),
 the card's name and power limit, and as its last line {"ok": true,
 "device": {...}}. Any failure exits non-zero without that line; so does a
 machine without CUDA, and so does a run that imported the JAX package.
@@ -631,6 +653,7 @@ def phase_build():
     emit({"phase": "build", "seconds": round(secs, 3), "built": sorted(logs),
           "ptxas": {n: r for n, r in regs.items() if n not in HOST_LIBS},
           "packer": packer})
+    return sorted(logs)
 
 
 # ---------------------------------------------------------------------------
@@ -5417,13 +5440,17 @@ def phase_formats(table, orders, want, n1, h1, tmp_dir, spy, prof=None):
         t0 = time.perf_counter()
         got = fn()
         cold = time.perf_counter() - t0
-        # one warm run: the second was cut to pay for the pipeline phase
-        t0 = time.perf_counter()
-        fn()
-        warm = [time.perf_counter() - t0]
+        # one warm run (the second was cut to pay for the pipeline phase),
+        # none for the host-bound file queries (cut for the audit phase)
+        warm = []
+        if name not in FORMATS_COLD_ONLY:
+            t0 = time.perf_counter()
+            fn()
+            warm = [time.perf_counter() - t0]
+        runs = 1 + len(warm)
         good, how = validate_formats(name, got, ref[name])
-        routes = {k: v // 2 for k, v in spy.take().items()}
-        launches = {k: (v - before[k]) // 2
+        routes = {k: v // runs for k, v in spy.take().items()}
+        launches = {k: (v - before[k]) // runs
                     for k, v in read_launches().items()}
         cpu_nodes = [type(m.plan).__name__ for m in session.last_meta.walk()
                      if not m.can_run_on_tpu]
@@ -5442,7 +5469,8 @@ def phase_formats(table, orders, want, n1, h1, tmp_dir, spy, prof=None):
                             f"{launches}")
         emit({"phase": "formats.query", "query": name, "correct": good,
               "check": how, "cold_ms": cold * 1e3,
-              "warm_ms": min(warm) * 1e3, "launches": launches,
+              "warm_ms": min(warm) * 1e3 if warm else None,
+              "launches": launches,
               "routes": routes, "execs": _exec_names(session),
               "cpu_nodes": cpu_nodes, "files_kept_total": files,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
@@ -5457,6 +5485,13 @@ def phase_formats(table, orders, want, n1, h1, tmp_dir, spy, prof=None):
         raise AssertionError(f"segsum and bitslice must run on the formats "
                              f"path: {counts}")
     return counts
+
+
+#: formats queries run cold only: each run is 0.8-7.7 s of host work
+#: (Python codecs, the decode source's host side), and the pipeline phase
+#: times fm_hive_q1 warm again (cut to pay for the audit phase)
+FORMATS_COLD_ONLY = ("fm_hive_q1", "fm_hive_pruned", "fm_avro",
+                     "js_from_json", "js_path_rows", "js_to_json_fb")
 
 
 # ---------------------------------------------------------------------------
@@ -5728,7 +5763,9 @@ SH_DISK_BUDGET = 64 << 20
 SH_XPROC_ROWS = 5_000_000
 SH_WRITE_ROWS = 5_000_000
 SH_UPSERTS = 300_000
-SH_HIVE_ROWS = 1_000_000
+#: the Hive text table's lines (1M until the audit phase; cut to pay for
+#: it)
+SH_HIVE_ROWS = 250_000
 
 #: sh_xproc's writer: a process of the port alone, which must import
 #: neither jax nor the JAX package
@@ -6024,7 +6061,7 @@ def phase_shuffle(table, orders, want, h8, tmp_dir, spy):
     times["iceberg_s"] = time.perf_counter() - t0
     ice_ok = ice == (half, orders.num_rows,
                      int(orders["o_custkey"].to_numpy().sum()))
-    # Hive text: 1M lines, partitioned by the return flag
+    # Hive text: SH_HIVE_ROWS lines, partitioned by the return flag
     t0 = time.perf_counter()
     lines = table.slice(0, SH_HIVE_ROWS).select(
         ["l_orderkey", "l_quantity", "l_returnflag"])
@@ -6113,6 +6150,11 @@ def _cpu_nodes(session):
             if not m.can_run_on_tpu]
 
 
+#: udf_row_pool's and udf_compiled_vs_row's lines (1M, the helpers'
+#: UDF_ROW_LINES, until the audit phase; cut to pay for it)
+UDF_SMOKE_ROW_LINES = 500_000
+
+
 def phase_udf(table, h1, h8, spy):
     """The UDF tier (module docstring, phase 17c): a compiled row UDF, a
     columnar torch UDF with its own validity behind a hash exchange, an
@@ -6127,7 +6169,7 @@ def phase_udf(table, h1, h8, spy):
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
     want = udf_reference(table)
-    small = table.slice(0, H.UDF_ROW_LINES)
+    small = table.slice(0, UDF_SMOKE_ROW_LINES)
     row_want = H.udf_row_flags_answer(small)
     emit({"phase": "udf.setup", "numpy_s": time.perf_counter() - t0})
     reset_launches()
@@ -7452,6 +7494,400 @@ def phase_fusion(want, fwant, h1, pq_path, tmp_dir, prof=None):
 
 
 # ---------------------------------------------------------------------------
+# phase 17i: the kernel cost audit, the roofline, the compile counters,
+# warmup and the profile dir
+# ---------------------------------------------------------------------------
+
+AUDIT_ON = {"spark.rapids.obs.audit.enabled": "true"}
+#: the NDS probe's cold prefix the CPU golden pins
+#: (tests/torch_cost_signatures.json)
+AUDIT_PREFIX = 2
+#: the small tables the card and the CPU both run, so each hand kernel's
+#: charge is compared on the same inputs
+AUDIT_SMALL_ROWS = 200_000
+AUDIT_TEXT_ROWS = 50_000
+#: the warmup phase's recurring SQL statement (over the 1-partition cache)
+AUDIT_WARMUP_SQL = ("SELECT l_returnflag, l_linestatus, SUM(l_quantity) AS "
+                    "sq, COUNT(*) AS n FROM lineitem WHERE l_shipdate > "
+                    "9000 GROUP BY l_returnflag, l_linestatus")
+#: the window and join families whose dispatches pass exec/fuse.fused
+WINDOW_JOIN_FAMILIES = ("window_sortlay", "window_fns", "window_packed",
+                        "window", "dense_probe_masked")
+
+
+def _audit_tool():
+    """tools/torch_gen_cost_signatures.py: the golden recipe (the NDS
+    probe's builders on the port, fresh audited sessions)."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "torch_gen_cost_signatures.py")
+    spec = importlib.util.spec_from_file_location("torch_gen_cost_sigs",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _op_diff(card_ops, cpu_ops, top=12):
+    """The aten ops whose charged bytes differ between the card and the
+    CPU, largest difference first."""
+    names = set(card_ops) | set(cpu_ops)
+    diffs = sorted(((n, card_ops.get(n, 0) - cpu_ops.get(n, 0))
+                    for n in names), key=lambda kv: -abs(kv[1]))
+    return {n: d for n, d in diffs[:top] if d}
+
+
+def _running_by_flags(api, df):
+    col, F = api.col, api.F
+    w = api.Window.partition_by(col("l_returnflag"), col("l_linestatus")) \
+        .order_by(col("l_shipdate"))
+    return (df.select(col("l_returnflag"), col("l_linestatus"),
+                      F.sum(col("l_quantity")).over(w).alias("rs"))
+            .group_by(col("l_returnflag"), col("l_linestatus"))
+            .agg(F.max("rs").alias("mx")))
+
+
+def phase_audit(h1, h8, built, tmp_dir):
+    """The kernel cost audit (analysis/kernel_audit.py) and the second
+    part of the compile layer, with the run's numbers beside the card:
+    - determinism: two cold audited runs of the NDS probe's cold prefix,
+      q1_rollup (the 1-partition cache) and q3join_shuffled (the
+      8-partition caches) give equal signatures;
+    - card against CPU: the prefix's signature against the CPU golden
+      (the aten ops whose bytes differ printed), and repart_agg (B1, B2),
+      pq_q6 over a small file (B3) and str_case_agg (B4) on small tables
+      on both: the hand kernels' charges must be equal;
+    - per query, the roofline groups and the achieved GB/s two ways: over
+      the attribution's device_compute seconds and over the profiler's
+      device ms, each as a share of 3350 GB/s;
+    - the audit's cost: warm ms with the audit on over off;
+    - a real audited record driving the measured pass (pctl_shuffled);
+    - warmup: plans replayed and failed, and the first user query's wall
+      with warmup against without, both after compile_cache.clear();
+    - spark.rapids.profile.dir: the trace exists, parses and names a hand
+      kernel;
+    - the compile counters against phase_build's builds and the loads;
+    - the window and join families' dispatches through fuse.fused."""
+    import pyarrow.parquet as pq
+    import torch
+
+    from spark_rapids_tpu_torch.analysis import kernel_audit as KA
+    from spark_rapids_tpu_torch.exec import fuse
+    from spark_rapids_tpu_torch.ops import _build
+    from spark_rapids_tpu_torch.runtime import compile_cache as CC
+    from spark_rapids_tpu_torch.runtime import obs, warmup
+    from spark_rapids_tpu_torch.sql.dataframe import DataFrame
+    H, api = helpers(), port_api()
+    t_phase = time.perf_counter()
+    gen = _audit_tool()
+    reset_launches()
+    problems = []
+    card = nvidia_smi()
+    _obs_teardown()
+
+    def big_queries(s):
+        return {"q1_rollup": lambda: H.q1_rollup(
+                    api, DataFrame(h1.li.plan, s)),
+                "q3join_shuffled": lambda: H.q3join(
+                    api, DataFrame(h8.li.plan, s),
+                    DataFrame(h8.od.plan, s))}
+
+    # -- determinism: two cold audited runs --------------------------------
+    runs, summaries = [], {}
+    for rep in range(2):
+        t0 = time.perf_counter()
+        nsess, tables, nds = gen.cold_session("cuda")
+        sigs = {}
+        for qn in sorted(nds.QUERIES)[:AUDIT_PREFIX]:
+            nds.QUERIES[qn](nsess, tables).collect()
+            sigs[f"nds_q{qn}"] = KA.query_signature(nsess.last_audit())
+            summaries[f"nds_q{qn}"] = nsess.last_audit()
+        s = device_session({**SHUFFLED_JOIN, **AUDIT_ON})
+        for name, build in big_queries(s).items():
+            build().collect()
+            sigs[name] = KA.query_signature(s.last_audit())
+            summaries[name] = s.last_audit()
+        runs.append({"sigs": sigs, "seconds": time.perf_counter() - t0,
+                     "findings": KA.findings()})
+        del nsess, tables
+    same = json.dumps(runs[0]["sigs"], sort_keys=True) == \
+        json.dumps(runs[1]["sigs"], sort_keys=True)
+    det = {"phase": "audit.determinism", "equal": same,
+           "cold_run_s": [r["seconds"] for r in runs],
+           "findings": runs[1]["findings"][:5],
+           "families": {n: sorted(v) for n, v in runs[0]["sigs"].items()},
+           "total_bytes": {n: int(summaries[n]["total"]["bytes_accessed"])
+                           for n in summaries},
+           "kernels": {n: summaries[n]["kernels"] for n in summaries},
+           "card": card}
+    emit(det)
+    if not same or runs[1]["findings"] \
+            or any(not v for v in runs[0]["sigs"].values()):
+        problems.append(f"audit signatures differ or are incomplete: "
+                        f"{[r['sigs'] for r in runs]}")
+
+    # -- card against the CPU ------------------------------------------------
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "torch_cost_signatures.json")) as f:
+        golden = json.load(f)["cost_signatures"]
+    csess, ctables, cnds = gen.cold_session("cpu")
+    golden_diffs, op_diffs = [], {}
+    for qn in sorted(cnds.QUERIES)[:AUDIT_PREFIX]:
+        cnds.QUERIES[qn](csess, ctables).collect()
+        cpu = csess.last_audit()
+        golden_diffs += KA.compare_signature(
+            f"q{qn} cpu", golden[str(qn)], KA.query_signature(cpu))
+        golden_diffs += KA.compare_signature(
+            f"q{qn} card", golden[str(qn)], runs[1]["sigs"][f"nds_q{qn}"])
+        op_diffs[f"nds_q{qn}"] = _op_diff(summaries[f"nds_q{qn}"]["ops"],
+                                          cpu["ops"])
+    del csess, ctables
+    li, od_small = H.make_tables(AUDIT_SMALL_ROWS)
+    text = H.make_lineitem_text(AUDIT_TEXT_ROWS)
+    small_pq = os.path.join(tmp_dir, "audit_small.parquet")
+    pq.write_table(li, small_pq, **{**PARQUET_WRITE,
+                                    "row_group_size": 1 << 16})
+    kernel_cmp = {}
+    for dev in ("cuda", "cpu"):
+        from spark_rapids_tpu_torch import TorchSession
+        s = TorchSession({**SHUFFLED_JOIN, **AUDIT_ON}, device=dev)
+        KA.clear_for_cold_audit()
+        small = {
+            "repart_agg": lambda: H.repart_agg(
+                api, s.create_dataframe(li, num_partitions=8)),
+            "pq_q6": lambda: H.q6(api, s.read_parquet(small_pq)),
+            "str_case_agg": lambda: H.str_case_agg(
+                api, s.create_dataframe(text))}
+        for name, build in small.items():
+            build().collect()
+            a = s.last_audit()
+            kernel_cmp.setdefault(name, {})[dev] = {
+                "kernels": a["kernels"], "ops": a["ops"],
+                "sig": KA.query_signature(a)}
+    kernel_lines = {}
+    for name, by in kernel_cmp.items():
+        kc, kp = by["cuda"]["kernels"], by["cpu"]["kernels"]
+        kernel_lines[name] = {
+            "kernels_card": kc, "kernels_cpu": kp, "equal": kc == kp,
+            "signature_equal": by["cuda"]["sig"] == by["cpu"]["sig"],
+            "op_bytes_card_minus_cpu": _op_diff(by["cuda"]["ops"],
+                                                by["cpu"]["ops"])}
+        if kc != kp or not kc:
+            problems.append(f"{name}: hand kernel charges differ card "
+                            f"{kc} / CPU {kp}")
+    charged = set().union(*[set(v["kernels_card"])
+                            for v in kernel_lines.values()])
+    if charged != {"murmur3_int32", "segsum", "bitslice", "case_map"}:
+        problems.append(f"the small queries charged {charged}")
+    emit({"phase": "audit.card_vs_cpu", "golden_diffs": golden_diffs,
+          "nds_op_bytes_card_minus_cpu": op_diffs,
+          "small": kernel_lines, "card": card})
+
+    # -- per query roofline: attribution seconds and profiler device ms ----
+    s = device_session({**SHUFFLED_JOIN, **AUDIT_ON})
+    nsess, tables, nds = gen.cold_session("cuda")
+    per_query = {f"nds_q{qn}": (nsess, lambda qn=qn: nds.QUERIES[qn](
+        nsess, tables)) for qn in sorted(nds.QUERIES)[:AUDIT_PREFIX]}
+    per_query.update({n: (s, b) for n, b in big_queries(s).items()})
+    roof_lines = {}
+    for name, (sess, build) in per_query.items():
+        build().collect()  # cold: the audited run
+        got, c = profiled_run(lambda: build().collect(),
+                              os.path.join(tmp_dir, f"audit_{name}.json"),
+                              tries=1)
+        roof = sess.last_roofline()
+        tot = roof["total"]
+        gbytes = tot["bytes_accessed"]
+        dev_s = c["device_ms"] / 1e3
+        by_dev = gbytes / dev_s / 1e9 if dev_s > 0 else 0.0
+        roof_lines[name] = {
+            "groups": {g: {k: v[k] for k in (
+                "seconds", "dispatches", "bytes_accessed", "flops",
+                "achieved_gbps", "roofline_pct_bw", "achieved_gflops",
+                "bound", "padding_waste_ratio")}
+                for g, v in roof["groups"].items()},
+            "bytes": gbytes, "pcie_bytes": int(
+                sess.last_audit()["total"]["pcie_bytes"]),
+            "top_ops_bytes": dict(sorted(
+                sess.last_audit()["ops"].items(),
+                key=lambda kv: -kv[1])[:6]),
+            "attribution_s": tot["seconds"],
+            "gbps_over_attribution": tot["achieved_gbps"],
+            "pct_over_attribution": tot["roofline_pct_bw"],
+            "profiler_device_ms": c["device_ms"],
+            "gbps_over_device_ms": by_dev,
+            "pct_over_device_ms": 100.0 * by_dev / 3350.0,
+            "attribution_over_device": (tot["seconds"] / dev_s
+                                        if dev_s > 0 else None),
+            "wall_ms": c["wall_ms"], "idle": c["device_idle_share"]}
+    emit({"phase": "audit.roofline", "queries": roof_lines, "card": card})
+    del nsess, tables
+
+    # -- the audit's cost: warm ms on over off -------------------------------
+    overhead = {}
+    for name in ("q1_rollup", "q3join_shuffled"):
+        ms = {}
+        for mode, extra in (("on", AUDIT_ON), ("off", {})):
+            sess = device_session({**SHUFFLED_JOIN, **extra})
+            build = big_queries(sess)[name]
+            build().collect()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            build().collect()
+            torch.cuda.synchronize()
+            ms[mode] = (time.perf_counter() - t0) * 1e3
+        overhead[name] = {"warm_ms_on": ms["on"], "warm_ms_off": ms["off"],
+                          "ratio": ms["on"] / ms["off"]}
+    emit({"phase": "audit.overhead", "queries": overhead, "card": card})
+
+    # -- a real audited record drives the measured pass ----------------------
+    hist = os.path.join(tmp_dir, "audit_history")
+    _obs_teardown()
+    s = device_session({**SHUFFLED_JOIN, **AUDIT_ON,
+                        "spark.rapids.obs.historyDir": hist})
+    pctl = lambda: H.pctl_shuffled(api, DataFrame(h8.li.plan, s))  # noqa
+    first = pctl().collect()
+    verdict = s.last_roofline()["groups"].get("shuffle", {}).get("bound")
+    first_execs = _exec_names(s)
+    second = pctl().collect()
+    decisions = [d for d in (s.last_aqe() or {}).get("decisions", [])
+                 if d["kind"] == "measured_cost"]
+    collapse = {"phase": "audit.measured_pass", "shuffle_verdict": verdict,
+                "execs_before": first_execs, "execs_after": _exec_names(s),
+                "decisions": decisions[:1],
+                "equal": first.sort_by("l_shipdate").equals(
+                    second.sort_by("l_shipdate")),
+                "record_has_roofline": bool(
+                    obs.state().history.read_all()[0].get("roofline"))}
+    emit(collapse)
+    if not collapse["record_has_roofline"] or not collapse["equal"] or (
+            verdict == "dispatch_overhead"
+            and (len(decisions) != 1
+                 or "ShuffleExchangeExec" in collapse["execs_after"])):
+        problems.append(f"measured pass from an audited record {collapse}")
+    _obs_teardown()
+
+    # -- warmup: replays from history, then the first user query -------------
+    hist = os.path.join(tmp_dir, "warmup_history")
+    s = device_session({"spark.rapids.obs.historyDir": hist})
+    s.create_or_replace_temp_view("lineitem", DataFrame(h1.li.plan, s))
+    want_sql = [s.sql(AUDIT_WARMUP_SQL).collect() for _ in range(2)][-1]
+    _obs_teardown()
+    first_ms, wdoc = {}, None
+    for mode in ("warmup", "cold"):
+        CC.clear()
+        warmup.reset_for_tests()
+        conf = {"spark.rapids.obs.historyDir": hist}
+        if mode == "warmup":
+            conf["spark.rapids.compile.warmup.enabled"] = "true"
+        s = device_session(conf)
+        s.create_or_replace_temp_view("lineitem", DataFrame(h1.li.plan, s))
+        if mode == "warmup":
+            mgr = warmup.manager()
+            if mgr is None or not mgr.wait(300):
+                problems.append("warmup did not arm or drain")
+            wdoc = warmup.doc()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = s.sql(AUDIT_WARMUP_SQL).collect()
+        torch.cuda.synchronize()
+        first_ms[mode] = (time.perf_counter() - t0) * 1e3
+        if not got.sort_by("l_returnflag").equals(
+                want_sql.sort_by("l_returnflag")):
+            problems.append(f"warmup ({mode}): the answer differs")
+        _obs_teardown()
+    warmup.reset_for_tests()
+    emit({"phase": "audit.warmup", "doc": wdoc,
+          "first_query_ms_warmup": first_ms["warmup"],
+          "first_query_ms_cold": first_ms["cold"], "card": card})
+    if not wdoc or wdoc["replayed"] < 1 or wdoc["failed"]:
+        problems.append(f"warmup {wdoc}")
+
+    # -- spark.rapids.profile.dir ---------------------------------------------
+    prof_dir = os.path.join(tmp_dir, "audit_profile")
+    s = device_session({**SHUFFLED_JOIN, "spark.rapids.profile.dir":
+                        prof_dir})
+    H.repart_agg(api, DataFrame(h8.li.plan, s)).collect()
+    path = s.last_profile_path
+    names = set()
+    try:
+        with open(path) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    except (OSError, TypeError, ValueError, KeyError) as e:
+        problems.append(f"profile dir trace {path}: {e}")
+    kernels_named = sorted(k for k in ("murmur3", "segsum", "bitslice",
+                                       "case_map")
+                           if any(k in n for n in names))
+    emit({"phase": "audit.profile_dir", "path": path,
+          "bytes": os.path.getsize(path) if path else None,
+          "events": len(names), "kernels_named": kernels_named})
+    if not kernels_named:
+        problems.append("the profile dir's trace names no hand kernel")
+
+    # -- the compile counters against phase_build -----------------------------
+    st = CC.stats()
+    s = device_session()
+    reg = obs.state().registry
+    counters = {
+        "stats": {k: st[k] for k in ("xla_compiles", "xla_compile_ns",
+                                     "persistent_hits",
+                                     "persistent_misses")},
+        "built_in_phase_build": sorted(built),
+        "libraries_loaded": sorted(_build._libs),
+        "registry": {n: reg.counter(n).value for n in (
+            "rapids_xla_compiles_total",
+            "rapids_persistent_cache_hits_total",
+            "rapids_persistent_cache_misses_total")},
+        "healthz_compile": obs.healthz()["compile"]}
+    emit({"phase": "audit.compile_counters", **counters})
+    if st["xla_compiles"] != len(built) \
+            or st["persistent_misses"] != len(built) \
+            or st["persistent_hits"] != len(_build._libs) \
+            or counters["registry"]["rapids_xla_compiles_total"] \
+            != len(built):
+        problems.append(f"compile counters {counters}")
+    _obs_teardown()
+
+    # -- windows and joins through the dispatch choke point -------------------
+    seen = []
+    s = device_session()
+    small_li = s.create_dataframe(li)
+    small_od = s.create_dataframe(od_small)
+    fuse.set_dispatch_hook(seen.append)
+    try:
+        dispatch_lines = {}
+        for name, build in (
+                ("q67win", lambda: H.q67win(api, small_li)),
+                ("running_by_flags", lambda: _running_by_flags(api,
+                                                               small_li)),
+                ("win_running", lambda: H.win_running(api, small_li)),
+                ("q3join", lambda: H.q3join(api, small_li, small_od))):
+            del seen[:]
+            build().collect()
+            fams = {}
+            for k in seen:
+                if k and k[0] in WINDOW_JOIN_FAMILIES:
+                    fams[k[0]] = fams.get(k[0], 0) + 1
+            dispatch_lines[name] = fams
+    finally:
+        fuse.set_dispatch_hook(None)
+    emit({"phase": "audit.window_join_dispatches",
+          "stage_dispatches": dispatch_lines})
+    got_fams = set().union(*[set(v) for v in dispatch_lines.values()])
+    if not {"window_sortlay", "window_fns", "window_packed", "window",
+            "dense_probe_masked"} <= got_fams:
+        problems.append(f"window/join dispatches {dispatch_lines}")
+    KA.reset_for_tests(drop_records=True)
+    launches = read_launches()
+    emit({"phase": "audit", "launches": launches, "correct": not problems,
+          "problems": problems, "seconds": time.perf_counter() - t_phase,
+          "card": card})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 18: the query runtime
 # ---------------------------------------------------------------------------
 
@@ -8365,7 +8801,7 @@ def main(argv) -> int:
     tmp_dir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         t0 = time.perf_counter()
-        phase_build()
+        built = phase_build()
         phases["build_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         table, orders, want, path = phase_setup(ROWS, tmp_dir)
@@ -8494,6 +8930,10 @@ def main(argv) -> int:
         phases["fusion_s"] = time.perf_counter() - t0
         spill_report("fusion")
         t0 = time.perf_counter()
+        audit = phase_audit(h1, h8, built, tmp_dir)
+        phases["audit_s"] = time.perf_counter() - t0
+        spill_report("audit")
+        t0 = time.perf_counter()
         caches = [h1.li, h1.od, h1.cust, h8.li, h8.od,
                   SimpleNamespace(plan=text_plan)]
         runtime = phase_runtime(want, small, swant, h1, h8, path, tmp_dir,
@@ -8520,6 +8960,7 @@ def main(argv) -> int:
                    "obs": observed[r["name"]],
                    "history": history[r["name"]],
                    "fusion": fusion[r["name"]],
+                   "audit": audit[r["name"]],
                    "runtime": runtime[r["name"]]}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path

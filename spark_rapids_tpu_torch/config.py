@@ -788,6 +788,80 @@ COMPILE_SHAPES_DTYPE_ALIGN = _register(
     "for 2-byte, 32x128 for 1-byte), so both engines pad alike. Power-of-"
     "two buckets are aligned already.", _bool_conv)
 
+OBS_AUDIT_ENABLED = _register(
+    "spark.rapids.obs.audit.enabled", False,
+    "Arm the kernel cost auditor (analysis/kernel_audit.py): the first "
+    "dispatch of every (stage key, input signature) resolved through the "
+    "keyed stage cache runs under a counting dispatch mode that charges "
+    "each aten op the bytes of its tensor inputs and outputs and its "
+    "operations, and each hand kernel its formula; later dispatches of "
+    "the same signature add one dict increment. Joined with the "
+    "attribution's device seconds into a per-query roofline: achieved "
+    "GB/s and GFLOP/s, share of the peaks, a memory/compute/dispatch-"
+    "overhead verdict and the bucket ladder's padding exposure "
+    "(last_roofline(), explain('analyze'), history records, "
+    "rapids_roofline_* gauges, the console).", _bool_conv)
+
+OBS_AUDIT_PEAK_GBPS = _register(
+    "spark.rapids.obs.audit.peakGbps", 3350.0,
+    "Memory-bandwidth roofline in GB/s for roofline attribution (3350 = "
+    "the NVIDIA H100 80GB HBM3 SXM's HBM3 bandwidth, data sheet, 700 W). "
+    "Achieved GB/s is audited bytes over measured device seconds; "
+    "roofline_pct_bw is its share of this peak.", _float)
+
+OBS_AUDIT_PEAK_GFLOPS = _register(
+    "spark.rapids.obs.audit.peakGflops", 66900.0,
+    "Compute roofline in GFLOP/s for roofline attribution (66900 = the "
+    "H100 SXM's FP32 rate on CUDA cores, data sheet, 700 W; none of the "
+    "engine's arithmetic uses tensor cores). Drives roofline_pct_flops "
+    "and the memory-vs-compute verdict.", _float)
+
+OBS_AUDIT_OVERHEAD_FACTOR = _register(
+    "spark.rapids.obs.audit.overheadBoundFactor", 10.0,
+    "A kernel group whose measured device seconds exceed this multiple "
+    "of its best-case roofline time (max of bytes/peakGbps and "
+    "flops/peakGflops) classifies as dispatch_overhead-bound: the "
+    "device is waiting on per-dispatch latency, not moving data or "
+    "computing.", _float)
+
+COMPILE_CACHE_DIR = _register(
+    "spark.rapids.compile.cacheDir", "",
+    "The directory the hand kernels' libraries build into (ops/_build.py; "
+    "one sub-directory per source and flags hash, so a library built by "
+    "an earlier process is only loaded). Empty (the default) keeps "
+    "build/torch_kernels at the root of the checkout. Process-global: "
+    "the first session naming a directory wins.", str)
+
+COMPILE_WARMUP_ENABLED = _register(
+    "spark.rapids.compile.warmup.enabled", False,
+    "Warmup (runtime/warmup.py): at session start, replay the most "
+    "recurrent successful queries recorded in spark.rapids.obs.historyDir "
+    "(their SQL text rides in the history records) on a background "
+    "service thread as each referenced table is registered, priming the "
+    "keyed stage cache, the kernel libraries' loads and the caching "
+    "allocator's pools before the first user query needs them. Replays "
+    "run on a shadow session: they touch no user-visible session state, "
+    "produce no history records, and a failure is logged, never "
+    "raised.", _bool_conv)
+
+COMPILE_WARMUP_MAX_PLANS = _register(
+    "spark.rapids.compile.warmup.maxPlans", 8,
+    "Upper bound on distinct recurring plans the warmup replays (ranked "
+    "by recurrence count, most-recurrent first).", int)
+
+COMPILE_WARMUP_MIN_RUNS = _register(
+    "spark.rapids.compile.warmup.minRuns", 2,
+    "Successful history runs of a plan digest required before warmup "
+    "considers it recurring (1 replays everything ever run once).", int)
+
+PROFILE_DIR = _register(
+    "spark.rapids.profile.dir", "",
+    "When set, each top-level action runs under torch.profiler and "
+    "writes a Chrome trace into this directory (the structured trace's "
+    "spans appear in it as record_function ranges). torch.profiler "
+    "cannot nest: an action started while another capture is active "
+    "raises.", str)
+
 
 def keys():
     return list(_REGISTRY)

@@ -3217,6 +3217,11 @@ class WindowExec(TorchExec):
         yield out
 
     def _window(self, batch: ColumnarBatch) -> ColumnarBatch:
+        """One batch through the route's dispatches, under the JAX
+        package's key families: the keys' ``run_stage``, then
+        ``window_sortlay`` and ``window_fns`` (packed, with a frame
+        aggregate: two dispatches, as the JAX package splits them),
+        ``window_packed`` or ``window``."""
         if batch.row_mask is not None:
             batch = K.compact_batch(batch)
         spec = self.plan.window_exprs[0].spec  # one spec per node
@@ -3224,9 +3229,8 @@ class WindowExec(TorchExec):
         key_exprs = list(spec.partition_exprs) + [o.expr
                                                   for o in spec.order_specs]
         if key_exprs:
-            ctx = self._ctx(batch)
-            kcols = [e.eval(ctx) for e in key_exprs]
-            raise_errors(ctx.errors)
+            kcols = compiled.run_stage(key_exprs, batch, self.device,
+                                       bool(self.conf.get(C.ANSI_ENABLED)))
             pk, ranges, _ = _probe_pack_spec(kcols, batch.live_mask(),
                                              key_exprs)
             # dictionary codes are not value-ordered: they pack only as
@@ -3237,34 +3241,99 @@ class WindowExec(TorchExec):
         return self._general(batch)
 
     def _packed(self, batch, kcols, pk, ranges) -> ColumnarBatch:
-        spec = self.plan.window_exprs[0].spec
+        exprs = list(self.plan.window_exprs)
+        spec = exprs[0].spec
         nparts = len(spec.partition_exprs)
+        key_exprs = list(spec.partition_exprs) + [o.expr
+                                                  for o in spec.order_specs]
         flags = [(True, True)] * nparts + [
             (o.ascending, o.resolved_nulls_first()) for o in spec.order_specs]
+        efp = tuple(w.fingerprint() for w in exprs)
+        pkey = (pk.kinds, pk.bits)
+        dev = self.device
+        if any(isinstance(w.fn, WE.WindowAgg) for w in exprs):
+            fn_lay = fuse.fused(
+                ("window_sortlay", tuple(e.fingerprint() for e in key_exprs),
+                 tuple(flags[nparts:]), pkey),
+                lambda: _window_sort_layout(pk, nparts, flags))
+            fn_apply = fuse.fused(("window_fns", efp, pkey),
+                                  lambda: _window_apply_fns(exprs, dev))
+            perm, lay = fn_lay(batch, kcols, ranges)
+            return fn_apply(batch, perm, lay)
+        fn = fuse.fused(("window_packed", efp, pkey),
+                        lambda: _window_packed(pk, nparts, flags, exprs, dev))
+        return fn(batch, kcols, ranges)
+
+    def _general(self, batch) -> ColumnarBatch:
+        exprs = list(self.plan.window_exprs)
+        dev = self.device
+        ansi = bool(self.conf.get(C.ANSI_ENABLED))
+        fn = fuse.fused(("window", tuple(w.fingerprint() for w in exprs)),
+                        lambda: _window_general(exprs[0].spec, exprs, dev,
+                                                ansi))
+        return fn(batch)
+
+
+# The window routes' stage functions: module-level, capturing expressions,
+# static settings and the device only, never the operator (its child tree
+# can pin cached batches in the process-wide keyed cache).
+
+def _window_sort_layout(pk, nparts, flags):
+    """Packed route, first half: one stable sort of the packed key plane
+    and the sorted-space layout -> (perm, layout)."""
+    obits = sum(pk.bits[nparts:])
+
+    def fn(batch, kcols, ranges):
+        nr = int(batch.num_rows)
+        packed = R.pack_keys_sort(pk, kcols, ranges, batch.live_mask(),
+                                  flags)
+        sp, perm = torch.sort(packed, stable=True)
+        return perm, _WindowLayout(_boundaries(sp >> obits),
+                                   _boundaries(sp), nr)
+    return fn
+
+
+def _window_apply_fns(exprs, device):
+    """Packed route, second half: every window function in sorted space,
+    taken back to the input's row order by one inverse permutation."""
+
+    def fn(batch, perm, lay):
         nr = int(batch.num_rows)
         live = batch.live_mask()
-        packed = R.pack_keys_sort(pk, kcols, ranges, live, flags)
-        sp, perm = torch.sort(packed, stable=True)
-        lay = _WindowLayout(_boundaries(sp >> sum(pk.bits[nparts:])),
-                            _boundaries(sp), nr)
-        sctx = EvalCtx([], nr, batch.capacity, self.device)
+        sctx = EvalCtx([], nr, batch.capacity, device)
         sctx.columns = K.LazyGatheredCols(batch.columns, perm, nr)
-        # one inverse permutation takes every result back to the input's
-        # row order
         inv = torch.empty_like(perm)
         inv[perm] = lay.idx
         out_cols = list(batch.columns)
-        for w in self.plan.window_exprs:
+        for w in exprs:
             out = K.gather_column(_eval_window_fn(w, sctx, lay), inv, nr)
             out_cols.append(ColumnVector(out.dtype, out.data,
                                          out.validity & live,
                                          dict_unique=out.dict_unique))
         return ColumnarBatch(out_cols, nr)
+    return fn
 
-    def _general(self, batch) -> ColumnarBatch:
-        spec = self.plan.window_exprs[0].spec
+
+def _window_packed(pk, nparts, flags, exprs, device):
+    """The packed route in one dispatch (no frame aggregate)."""
+    layout = _window_sort_layout(pk, nparts, flags)
+    apply = _window_apply_fns(exprs, device)
+
+    def fn(batch, kcols, ranges):
+        perm, lay = layout(batch, kcols, ranges)
+        return apply(batch, perm, lay)
+    return fn
+
+
+def _window_general(spec, exprs, device, ansi):
+    """The general route: ``lexsort_indices`` over the normalized keys,
+    the whole batch gathered into sorted order (the output stays in
+    it)."""
+
+    def fn(batch):
         nr = int(batch.num_rows)
-        ctx = self._ctx(batch)
+        ctx = EvalCtx(batch.columns, batch.num_rows, batch.capacity, device,
+                      ansi, live=batch.live_mask())
         pnorm = [K.normalize_key(e.eval(ctx), nr)
                  for e in spec.partition_exprs]
         onorm = [K.normalize_key(o.expr.eval(ctx), nr)
@@ -3278,8 +3347,7 @@ class WindowExec(TorchExec):
             sorted_cols = K.gather_batch(batch, perm, nr).columns
         else:
             sorted_cols = list(batch.columns)
-        segb = torch.zeros(batch.capacity, dtype=torch.bool,
-                           device=self.device)
+        segb = torch.zeros(batch.capacity, dtype=torch.bool, device=device)
         segb[0] = True
         for k, nl in pnorm:
             segb = segb | _boundaries(k[perm]) | _boundaries(nl[perm])
@@ -3287,11 +3355,66 @@ class WindowExec(TorchExec):
         for k, nl in onorm:
             peerb = peerb | _boundaries(k[perm]) | _boundaries(nl[perm])
         lay = _WindowLayout(segb, peerb, nr)
-        sctx = EvalCtx(sorted_cols, nr, batch.capacity, self.device)
+        sctx = EvalCtx(sorted_cols, nr, batch.capacity, device)
         out_cols = list(sorted_cols)
-        for w in self.plan.window_exprs:
+        for w in exprs:
             out_cols.append(_eval_window_fn(w, sctx, lay))
         return ColumnarBatch(out_cols, nr)
+    return fn
+
+
+def _dense_probe_masked(how, left_keys, condition, key_map, device, ansi):
+    """The masked dense probe's stage function: captures expressions,
+    static settings and the device, never the join operator."""
+
+    def fn(probe, build, slot_idx, bmin):
+        plive = probe.live_mask()
+        ctx = EvalCtx(probe.columns, probe.num_rows, probe.capacity, device,
+                      ansi, live=plive)
+        probe_keys = [e.eval(ctx) for e in left_keys]
+        raise_errors(ctx.errors)
+        pk0 = probe_keys[0]
+        p_in = plive if pk0.validity is None else (plive & pk0.validity)
+        bidx = J.dense_lookup_planes(slot_idx, bmin,
+                                     pk0.data.to(torch.int64), p_in)
+        matched = bidx >= 0
+        blive = build.live_mask() if build.row_mask is not None else None
+        bcols = []
+        for ci, c in enumerate(build.columns):
+            ki = key_map.get(ci)
+            if ki is not None:
+                pk = probe_keys[ki]
+                v = (pk.validity & matched) if pk.validity is not None \
+                    else matched
+                bcols.append(ColumnVector(c.dtype, pk.data, v))
+            else:
+                bcols.append(K.gather_column(c, bidx, build.num_rows,
+                                             src_live=blive))
+        if condition is not None:
+            cctx = EvalCtx(list(probe.columns) + bcols, probe.num_rows,
+                           probe.capacity, device, ansi, live=plive)
+            pred = condition.eval(cctx)
+            raise_errors(cctx.errors)
+            ok = pred.data.to(torch.bool)
+            if pred.validity is not None:
+                ok = ok & pred.validity
+            matched = matched & ok
+        if how == "left_semi":
+            return K.mask_filter_batch(probe, matched)
+        if how == "left_anti":
+            return K.mask_filter_batch(probe, ~matched)
+        if how == "inner":
+            live = plive & matched
+            return ColumnarBatch(list(probe.columns) + bcols,
+                                 LazyRowCount(live.sum(dtype=torch.int32)),
+                                 live)
+        ob = [ColumnVector(c.dtype, c.data,
+                           (c.validity & matched) if c.validity is not None
+                           else matched, dict_unique=c.dict_unique)
+              for c in bcols]
+        return ColumnarBatch(list(probe.columns) + ob, probe.num_rows,
+                             probe.row_mask)
+    return fn
 
 
 def _frame_end(frame, lay: _WindowLayout) -> torch.Tensor:
@@ -3595,12 +3718,12 @@ class _HashJoinBase(TorchExec):
                 yield out
 
     def _probe_masked(self, probe, build, table) -> ColumnarBatch:
-        """The unique-key join without pairs: a batch sharing the probe's
-        planes, the build columns gathered at the probe rows, and a live
-        mask (inner, semi, anti) or null-extended build columns (left). A
-        join condition narrows the match, which is exact since each probe
-        row has at most one candidate."""
-        how = self.plan.how
+        """The unique-key join without pairs, one dispatch a probe batch
+        (the JAX package's ``dense_probe_masked`` family): a batch sharing
+        the probe's planes, the build columns gathered at the probe rows,
+        and a live mask (inner, semi, anti) or null-extended build columns
+        (left). A join condition narrows the match, which is exact since
+        each probe row has at most one candidate."""
         plan = self.plan
         # build key columns equal to the probe's keys are not gathered
         key_map = {}
@@ -3610,52 +3733,16 @@ class _HashJoinBase(TorchExec):
                 if plan.left_keys[ki].data_type() == c.dtype \
                         and not c.is_string:
                     key_map[rk.index] = ki
-        plive = probe.live_mask()
-        ctx = self._ctx(probe, plive)
-        probe_keys = [e.eval(ctx) for e in plan.left_keys]
-        raise_errors(ctx.errors)
-        pk0 = probe_keys[0]
-        p_in = plive if pk0.validity is None else (plive & pk0.validity)
-        bidx = J.dense_lookup_planes(table.slot_idx, table.bmin,
-                                     pk0.data.to(torch.int64), p_in)
-        matched = bidx >= 0
-        blive = build.live_mask() if build.row_mask is not None else None
-        bcols = []
-        for ci, c in enumerate(build.columns):
-            ki = key_map.get(ci)
-            if ki is not None:
-                pk = probe_keys[ki]
-                v = (pk.validity & matched) if pk.validity is not None \
-                    else matched
-                bcols.append(ColumnVector(c.dtype, pk.data, v))
-            else:
-                bcols.append(K.gather_column(c, bidx, build.num_rows,
-                                             src_live=blive))
-        if plan.condition is not None:
-            cctx = EvalCtx(list(probe.columns) + bcols, probe.num_rows,
-                           probe.capacity, self.device,
-                           self.conf.get(C.ANSI_ENABLED), live=plive)
-            pred = plan.condition.eval(cctx)
-            raise_errors(cctx.errors)
-            ok = pred.data.to(torch.bool)
-            if pred.validity is not None:
-                ok = ok & pred.validity
-            matched = matched & ok
-        if how == "left_semi":
-            return K.mask_filter_batch(probe, matched)
-        if how == "left_anti":
-            return K.mask_filter_batch(probe, ~matched)
-        if how == "inner":
-            live = plive & matched
-            return ColumnarBatch(list(probe.columns) + bcols,
-                                 LazyRowCount(live.sum(dtype=torch.int32)),
-                                 live)
-        ob = [ColumnVector(c.dtype, c.data,
-                           (c.validity & matched) if c.validity is not None
-                           else matched, dict_unique=c.dict_unique)
-              for c in bcols]
-        return ColumnarBatch(list(probe.columns) + ob, probe.num_rows,
-                             probe.row_mask)
+        cond = plan.condition
+        key = ("dense_probe_masked", plan.how,
+               tuple(e.fingerprint() for e in plan.left_keys),
+               tuple(e.fingerprint() for e in plan.right_keys),
+               cond.fingerprint() if cond is not None else None,
+               tuple(sorted(key_map.items())))
+        fn = fuse.fused(key, lambda: _dense_probe_masked(
+            plan.how, list(plan.left_keys), cond, key_map, self.device,
+            bool(self.conf.get(C.ANSI_ENABLED))))
+        return fn(probe, build, table.slot_idx, table.bmin)
 
     def _probe_one(self, probe, build, build_keys, matched_build):
         how = self.plan.how

@@ -6,9 +6,13 @@ A ``csrc/<name>.cpp`` is host code (the shuffle's frame packer,
 ``kudo.cpp``) and compiles with the host C++ compiler the same way.
 The build runs at first use (or all at once, in parallel, through
 ``build_all``) and writes into ``build/torch_kernels/<name>-<hash>/`` at
-the root of the checkout, keyed by a hash of the source and the flags, so
-an unchanged source is never rebuilt. The directory is listed in
-``.gitignore``.
+the root of the checkout (or under spark.rapids.compile.cacheDir,
+``runtime/compile_cache.configure``), keyed by a hash of the source and
+the flags, so an unchanged source is never rebuilt. The default directory
+is listed in ``.gitignore``. Every build counts as a compile and a
+persistent-cache miss, and every first load of a library found built on
+disk as a hit (``runtime/compile_cache.record_build`` and
+``record_load_hit``).
 """
 from __future__ import annotations
 
@@ -73,13 +77,20 @@ def _log_name(src: str) -> str:
     return "g++.log" if _is_host(src) else "nvcc.log"
 
 
+def build_root() -> str:
+    """Where the libraries build: spark.rapids.compile.cacheDir when a
+    session named one, else ``BUILD_ROOT``."""
+    from spark_rapids_tpu_torch.runtime import compile_cache
+    return compile_cache.build_root() or BUILD_ROOT
+
+
 def _paths(name: str):
     src = _source(name)
     flags = HOST_FLAGS if _is_host(src) else NVCC_FLAGS
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(flags).encode()
                                 ).hexdigest()[:16]
-    out_dir = os.path.join(BUILD_ROOT, f"{name}-{digest}")
+    out_dir = os.path.join(build_root(), f"{name}-{digest}")
     return src, out_dir, os.path.join(out_dir, f"lib{name}.so")
 
 
@@ -119,13 +130,17 @@ def _finish(name: str, proc, out_dir: str, lib: str) -> None:
 
 def build_all(names: List[str]) -> Dict[str, str]:
     """Build every named source, one nvcc process each, all started
-    together. Returns {name: nvcc log} for the sources built now."""
+    together. Returns {name: nvcc log} for the sources built now; each
+    counts as a compile of the seconds from the start to its end."""
+    from spark_rapids_tpu_torch.runtime import compile_cache
     with _lock:
+        t0 = time.perf_counter()
         started = [(n, *_start(n)) for n in names]
         logs = {}
         for name, proc, out_dir, lib in started:
             _finish(name, proc, out_dir, lib)
             if proc is not None:
+                compile_cache.record_build(time.perf_counter() - t0)
                 with open(os.path.join(out_dir,
                                        _log_name(_source(name)))) as f:
                     logs[name] = f.read()
@@ -140,7 +155,7 @@ def load(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is None:
         t0 = time.perf_counter_ns()
-        build_all([name])
+        built = build_all([name])
         with _lock:
             lib = _libs.get(name)
             if lib is None:
@@ -149,6 +164,9 @@ def load(name: str) -> ctypes.CDLL:
                 except OSError as e:
                     raise KernelError(f"cannot load {name}: {e}") from e
                 _libs[name] = lib
+                if name not in built:
+                    from spark_rapids_tpu_torch.runtime import compile_cache
+                    compile_cache.record_load_hit()
         from spark_rapids_tpu_torch.runtime.obs import attribution
         attribution.record("compile", time.perf_counter_ns() - t0)
     return lib

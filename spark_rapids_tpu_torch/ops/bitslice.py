@@ -17,6 +17,7 @@ import ctypes
 
 import torch
 
+from spark_rapids_tpu_torch.analysis import kernel_audit
 from spark_rapids_tpu_torch.ops import _build
 
 #: kernel launches since the count was last set to 0
@@ -90,6 +91,11 @@ def bitslice(words: torch.Tensor, bitoff: torch.Tensor,
         raise TypeError("the mask must be int32 of the offsets' shape")
     if not (words.device == bitoff.device == mask.device):
         raise TypeError("words, offsets and mask must share a device")
+    return kernel_audit.charged("bitslice", _bitslice, words, bitoff, mask)
+
+
+def _bitslice(words: torch.Tensor, bitoff: torch.Tensor,
+              mask: torch.Tensor) -> torch.Tensor:
     if words.device.type == "cpu":
         return bitslice_plain(words, bitoff, mask)
     if words.device.type != "cuda":

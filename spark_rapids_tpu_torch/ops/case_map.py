@@ -18,6 +18,7 @@ import ctypes
 
 import torch
 
+from spark_rapids_tpu_torch.analysis import kernel_audit
 from spark_rapids_tpu_torch.ops import _build
 
 #: kernel launches since the count was last set to 0
@@ -52,6 +53,10 @@ def case_map(raw: torch.Tensor, upper: bool) -> torch.Tensor:
     if raw.dtype != torch.uint8 or raw.dim() != 1:
         raise TypeError(f"case_map takes a uint8[n] byte plane, got "
                         f"{raw.dtype}{list(raw.shape)}")
+    return kernel_audit.charged("case_map", _case_map, raw, upper)
+
+
+def _case_map(raw: torch.Tensor, upper: bool) -> torch.Tensor:
     if raw.device.type == "cpu":
         return case_map_plain(raw, upper)
     if raw.device.type != "cuda":

@@ -16,6 +16,7 @@ from typing import Union
 
 import torch
 
+from spark_rapids_tpu_torch.analysis import kernel_audit
 from spark_rapids_tpu_torch.ops import _build
 
 #: kernel launches since the count was last set to 0
@@ -107,6 +108,13 @@ def murmur3_int32(values: torch.Tensor,
                     or seed.device != values.device):
         raise TypeError("a per-row seed must be int32 of the values' shape "
                         "on the values' device")
+    return kernel_audit.charged("murmur3_int32", _murmur3_int32, values,
+                                seed)
+
+
+def _murmur3_int32(values: torch.Tensor,
+                   seed: Union[int, torch.Tensor]) -> torch.Tensor:
+    per_row = isinstance(seed, torch.Tensor)
     if values.device.type == "cpu":
         return murmur3_int32_plain(values, seed)
     if values.device.type != "cuda":

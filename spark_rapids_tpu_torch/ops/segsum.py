@@ -19,6 +19,7 @@ from typing import List, Tuple
 
 import torch
 
+from spark_rapids_tpu_torch.analysis import kernel_audit
 from spark_rapids_tpu_torch.ops import _build
 
 TILE = 1024
@@ -82,6 +83,11 @@ def segsum(gid: torch.Tensor, payload: torch.Tensor,
         raise ValueError("segsum: gid and payload on one device, outcap > 0")
     if gid.shape[0] % 8:
         raise ValueError(f"segsum takes N a multiple of 8, got {gid.shape[0]}")
+    return kernel_audit.charged("segsum", _segsum, gid, payload, outcap)
+
+
+def _segsum(gid: torch.Tensor, payload: torch.Tensor,
+            outcap: int) -> torch.Tensor:
     if gid.device.type == "cpu":
         return segsum_plain(gid, payload, outcap)
     if gid.device.type != "cuda":

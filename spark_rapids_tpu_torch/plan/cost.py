@@ -17,9 +17,9 @@ a roofline verdict decides the hints that conversion reads on this thread
 (``install_hints``/``current_hints``): the aggregate exchange's partition
 count, the exchanges' coalesceTinyRows threshold, and
 ``fusion_min_members``, the fewest dispatching members a fused stage of
-this plan may have (read by ``exec/stage_fusion._rewrite``). Only the
-kernel cost auditor (A11e, second part) writes roofline verdicts,
-so until then a record carries one only where someone appended it.
+this plan may have (read by ``exec/stage_fusion._rewrite``). The kernel
+cost auditor (``analysis/kernel_audit.py``, spark.rapids.obs.audit.enabled)
+writes the records' roofline verdicts.
 """
 from __future__ import annotations
 

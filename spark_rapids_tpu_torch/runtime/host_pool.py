@@ -48,8 +48,12 @@ def run_task_wave(fn, items, max_concurrency: int = 16) -> list:
         return [fn(i) for i in items]
     from spark_rapids_tpu_torch import config as _cfg
     from spark_rapids_tpu_torch.runtime import lifecycle as _lc
+    from spark_rapids_tpu_torch.runtime.obs import attribution as _attr
     from spark_rapids_tpu_torch.runtime.obs import live as _live
     conf = getattr(_cfg._local, "conf", None)
+    # a warmup replay's suppression rides too: its task records and
+    # audited dispatches must not land in a concurrent user query's
+    suppress = _attr.thread_suppressed()
     # the submitter's bound query id rides to the wave threads: a task
     # constructed on a wave thread attributes to the query that fanned
     # it out
@@ -60,6 +64,8 @@ def run_task_wave(fn, items, max_concurrency: int = 16) -> list:
 
     def bound(item):
         _cfg.set_session_conf(conf)
+        if suppress:
+            _attr.set_thread_suppressed(True)
         prev = _live.bind(qid)
         if rctx is not None:
             _live.bind_request(rctx)
@@ -72,6 +78,8 @@ def run_task_wave(fn, items, max_concurrency: int = 16) -> list:
             if rctx is not None:
                 _live.bind_request(None)
             _live.bind(prev)
+            if suppress:
+                _attr.set_thread_suppressed(False)
             _cfg.set_session_conf(None)
 
     with ThreadPoolExecutor(max_workers=min(len(items), max_concurrency),

@@ -29,9 +29,11 @@ history dir; later sessions publish into the same registry. Nested
 collects (a broadcast materialization, a scalar subquery) join the
 enclosing query: only top-level actions produce history records.
 
-Later parts of ROADMAP A11 hook in here too: the roofline gauges and the
-compile counters (A11e), the serving routes' callbacks and the serving
-and result-cache counters (A11f).
+The kernel cost audit's roofline gauges and ``last_roofline``, the
+kernel-build counters (``runtime/compile_cache.py``) and ``/healthz``'s
+``compile`` and ``warmup`` documents are wired here. The serving routes'
+callbacks and the serving and result-cache counters wait for ROADMAP
+A11f.
 """
 from __future__ import annotations
 
@@ -109,7 +111,9 @@ class ObsState:
         #: this process's fleet identity (spark.rapids.obs.replicaId, or
         #: pid-derived), stamped on every history record
         self.replica_id: str = ""
-        # A11e: the last audited query's roofline doc
+        #: the most recent audited query's roofline doc (analysis/
+        #: kernel_audit.py): the /console roofline table reads this
+        self.last_roofline: Optional[dict] = None
 
 
 #: per-thread collect depth: a re-entrant collect on the SAME thread is
@@ -126,9 +130,8 @@ NESTED = "nested"
 def _preregister(reg: MetricsRegistry) -> None:
     """Create the roster instruments up front so a scrape before the
     first task or query still renders them (at zero). The JAX package's
-    roster less the instruments of later items: its roofline gauges and
-    compile counters (A11e) and its serving and result-cache instruments
-    (A11f), which ROADMAP.md lists by name."""
+    roster less its serving and result-cache instruments (A11f), which
+    ROADMAP.md lists by name."""
     for _, (name, help_) in _TASK_COUNTERS.items():
         reg.counter(name, help_)
     reg.counter("rapids_tasks_completed_total", "Tasks completed")
@@ -175,6 +178,27 @@ def _preregister(reg: MetricsRegistry) -> None:
             "Per-query wall time attributed to each phase bucket "
             "(seconds; runtime/obs/attribution.py)",
             labels={"phase": phase})
+    # the roofline of the most recent AUDITED query (analysis/
+    # kernel_audit.py; spark.rapids.obs.audit.enabled): set once per
+    # query end, zero until an audited query completes
+    for group in ("device_compute", "shuffle", "total"):
+        reg.gauge("rapids_roofline_achieved_gbps",
+                  "Achieved device bandwidth of the most recent audited "
+                  "query (audited bytes / attributed seconds)",
+                  labels={"group": group})
+        reg.gauge("rapids_roofline_pct",
+                  "Share of the configured bandwidth roofline "
+                  "(spark.rapids.obs.audit.peakGbps) the most recent "
+                  "audited query achieved", labels={"group": group})
+    for group in ("device_compute", "shuffle"):
+        reg.gauge("rapids_roofline_achieved_gflops",
+                  "Achieved operation rate of the most recent audited "
+                  "query", labels={"group": group})
+        reg.gauge("rapids_roofline_padding_waste_ratio",
+                  "Worst-case shape-bucket padding share of the most "
+                  "recent audited query's input plane bytes "
+                  "(runtime/shapes.py ladder exposure)",
+                  labels={"group": group})
     reg.histogram("rapids_query_wall_time_ms",
                   "Per-query wall time (ms)")
     reg.histogram("rapids_task_duration_ms", "Per-task duration (ms)")
@@ -202,6 +226,30 @@ def _preregister(reg: MetricsRegistry) -> None:
             return CC.stats()[name]
         return read
 
+    # the kernel builds (runtime/compile_cache.py, fed by ops/_build):
+    # the JAX package's series names, counting the card's compiles
+    reg.counter("rapids_xla_compiles_total",
+                "Kernel libraries compiled (nvcc, or the host compiler for "
+                "host libraries) by ops/_build; the JAX package counts XLA "
+                "backend compiles under this name")
+    reg.float_counter("rapids_xla_compile_seconds_total",
+                      "Seconds spent building kernel libraries")
+    reg.counter("rapids_persistent_cache_hits_total",
+                "Kernel libraries found built on disk (spark.rapids.compile."
+                "cacheDir or build/torch_kernels) and only loaded")
+    reg.counter("rapids_persistent_cache_misses_total",
+                "Kernel libraries that had to be built")
+    # process totals: builds made before the registry existed (a first
+    # session's kernel builds, chip_smoke.py's build phase) count too
+    from spark_rapids_tpu_torch.runtime import compile_cache as _CC
+    built = _CC.stats()
+    reg.counter("rapids_xla_compiles_total").inc(built["xla_compiles"])
+    reg.float_counter("rapids_xla_compile_seconds_total").inc(
+        built["xla_compile_ns"] / 1e9)
+    reg.counter("rapids_persistent_cache_hits_total").inc(
+        built["persistent_hits"])
+    reg.counter("rapids_persistent_cache_misses_total").inc(
+        built["persistent_misses"])
     # the keyed stage cache (runtime/compile_cache.py), read live
     reg.gauge_fn("rapids_compile_cache_hits", _cc_stat("hits"),
                  "Keyed stage-cache hits (entries resolved without "
@@ -463,6 +511,7 @@ def on_query_end(token, *, session, plan, status: str,
                  last_metrics: Optional[Dict[str, dict]] = None,
                  degraded_reason: Optional[str] = None,
                  attribution_doc: Optional[dict] = None,
+                 roofline_doc: Optional[dict] = None,
                  aqe_doc: Optional[dict] = None,
                  flight_dump: Optional[str] = None) -> Optional[dict]:
     """Publish one finished top-level action: the registry rollups, the
@@ -495,7 +544,38 @@ def on_query_end(token, *, session, plan, status: str,
                 if secs:
                     reg.float_counter("rapids_query_seconds_bucket",
                                       labels={"phase": phase}).inc(secs)
-        # A11e: the roofline gauges of an audited query
+        if roofline_doc:
+            st.last_roofline = roofline_doc
+            # the last audited query's gauges; the whole group roster is
+            # zeroed first, so a group this doc lacks (no exchange ran)
+            # does not keep a previous query's number
+            for group in ("device_compute", "shuffle", "total"):
+                lbl = {"group": group}
+                reg.gauge("rapids_roofline_achieved_gbps",
+                          labels=lbl).set(0.0)
+                reg.gauge("rapids_roofline_pct", labels=lbl).set(0.0)
+                if group != "total":
+                    reg.gauge("rapids_roofline_achieved_gflops",
+                              labels=lbl).set(0.0)
+                    reg.gauge("rapids_roofline_padding_waste_ratio",
+                              labels=lbl).set(0.0)
+            for group, g in roofline_doc.get("groups", {}).items():
+                lbl = {"group": group}
+                reg.gauge("rapids_roofline_achieved_gbps", labels=lbl
+                          ).set(g.get("achieved_gbps") or 0.0)
+                reg.gauge("rapids_roofline_pct", labels=lbl
+                          ).set(g.get("roofline_pct_bw") or 0.0)
+                reg.gauge("rapids_roofline_achieved_gflops", labels=lbl
+                          ).set(g.get("achieved_gflops") or 0.0)
+                reg.gauge("rapids_roofline_padding_waste_ratio",
+                          labels=lbl
+                          ).set(g.get("padding_waste_ratio") or 0.0)
+            tot = roofline_doc.get("total") or {}
+            reg.gauge("rapids_roofline_achieved_gbps",
+                      labels={"group": "total"}
+                      ).set(tot.get("achieved_gbps") or 0.0)
+            reg.gauge("rapids_roofline_pct", labels={"group": "total"}
+                      ).set(tot.get("roofline_pct_bw") or 0.0)
         digest = None
         try:
             digest = plan_digest(plan)
@@ -553,7 +633,8 @@ def on_query_end(token, *, session, plan, status: str,
                 duration_ns=duration_ns, status=status, error=error,
                 plan=plan, session=session, trace_paths=trace_paths,
                 snaps=snaps, degraded_reason=degraded_reason,
-                attribution=attribution_doc, aqe=aqe_doc,
+                attribution=attribution_doc, roofline=roofline_doc,
+                aqe=aqe_doc,
                 slo_breach=breach, flight_dump=flight_dump,
                 digest=digest, replica_id=st.replica_id or None)
             st.history.append(rec)
@@ -638,6 +719,22 @@ def _publish_exec_rollups(reg: MetricsRegistry, snaps: Dict[str, dict]
 # ---------------------------------------------------------------------------
 # health
 # ---------------------------------------------------------------------------
+
+def _compile_doc():
+    try:
+        from spark_rapids_tpu_torch.runtime import compile_cache as CC
+        return CC.doc()
+    except Exception:  # noqa: BLE001 - health must always render
+        return None
+
+
+def _warmup_doc():
+    try:
+        from spark_rapids_tpu_torch.runtime import warmup as WU
+        return WU.doc()
+    except Exception:  # noqa: BLE001 - health must always render
+        return None
+
 
 def _lifecycle_doc():
     try:
@@ -747,7 +844,10 @@ def healthz() -> dict:
         "semaphore": sem_doc,
         "spill": spill_doc,
         "flight": flight.doc(),
-        # A11e: the compile and warmup documents
+        # the kernel builds and the keyed cache, and warmup's progress
+        # (runtime/compile_cache.py, runtime/warmup.py)
+        "compile": _compile_doc(),
+        "warmup": _warmup_doc(),
         "slo": dict(st.slo.doc(), last_slow=st.last_slow)
         if st.slo is not None else None,
         "sampler": sampler.doc(),

@@ -8,9 +8,10 @@ needs no assets.
 
 Content: the running-query table (id, state, elapsed, %-complete bar,
 ETA, digest), per-exec progress of each running query, the
-last-completed query, and one sparkline per sampler series
-(runtime/obs/sampler.py rings). The JAX package's roofline section
-(ROADMAP A11e) and serving section (A11f) wait for those layers.
+last-completed query, the last audited query's roofline table
+(analysis/kernel_audit.py), and one sparkline per sampler series
+(runtime/obs/sampler.py rings). The JAX package's serving section waits
+for the serving layer (ROADMAP A11f).
 """
 from __future__ import annotations
 
@@ -95,11 +96,12 @@ def _query_rows(docs: List[dict]) -> List[str]:
 def render_console(queries_doc: dict,
                    sampler_snapshot: Optional[dict] = None,
                    refresh_seconds: int = 2,
-                   title: str = "spark-rapids-tpu-torch live console"
-                   ) -> str:
+                   title: str = "spark-rapids-tpu-torch live console",
+                   roofline: Optional[dict] = None) -> str:
     """The /console page. `queries_doc` is live.queries_doc();
     `sampler_snapshot` is ResourceSampler.snapshot() (or None when the
-    sampler is off)."""
+    sampler is off); `roofline` is the last audited query's roofline
+    doc (None when the audit is off)."""
     running = queries_doc.get("running") or []
     last = queries_doc.get("last_completed")
     body = [f"<p class='muted'>auto-refresh {refresh_seconds}s · rendered "
@@ -134,8 +136,33 @@ def render_console(queries_doc: dict,
                     "<th>thread</th></tr>")
         body.extend(_query_rows([last]))
         body.append("</table>")
-    # A11e: the roofline table of the last audited query; A11f: the
-    # serving layer's intake and result-cache table
+    if roofline and roofline.get("groups"):
+        body.append(
+            "<h2>Roofline — last audited query</h2>"
+            f"<p class='muted'>peaks {roofline.get('peak_gbps', 0):g} "
+            f"GB/s · {roofline.get('peak_gflops', 0):g} GFLOP/s "
+            f"(spark.rapids.obs.audit.*)</p>"
+            "<table><tr><th>group</th><th class='num'>device s</th>"
+            "<th class='num'>GB/s</th><th class='num'>% roofline</th>"
+            "<th class='num'>GFLOP/s</th><th>bound</th>"
+            "<th class='num'>padding waste &le;</th></tr>")
+        for gname in sorted(roofline["groups"]):
+            g = roofline["groups"][gname]
+            pct = g.get("roofline_pct_bw") or 0.0
+            body.append(
+                f"<tr><td>{_esc(gname)}</td>"
+                f"<td class='num'>{g.get('seconds', 0):.3f}</td>"
+                f"<td class='num'>{g.get('achieved_gbps', 0):.2f}</td>"
+                f"<td class='num'><span class='pbar'><span "
+                f"style='width:{min(pct, 100):.1f}%'></span></span> "
+                f"{pct:.3f}%</td>"
+                f"<td class='num'>{g.get('achieved_gflops', 0):.2f}</td>"
+                f"<td>{_esc(g.get('bound', ''))}</td>"
+                f"<td class='num'>"
+                f"{(g.get('padding_waste_ratio') or 0) * 100:.0f}%</td>"
+                f"</tr>")
+        body.append("</table>")
+    # A11f: the serving layer's intake and result-cache table
     if sampler_snapshot:
         body.append("<h2>Resource time-series</h2><div>")
         for name in sorted(sampler_snapshot):
@@ -153,8 +180,12 @@ def render_console(queries_doc: dict,
 
 def render_live() -> str:
     """Convenience entry the endpoint calls: current registry +
-    installed sampler."""
+    installed sampler + the last audited query's roofline."""
+    from spark_rapids_tpu_torch.runtime import obs as _obs
     from spark_rapids_tpu_torch.runtime.obs import live, sampler as SMP
     s = SMP.sampler()
+    st = _obs.state()
     return render_console(live.queries_doc(),
-                          s.snapshot() if s is not None else None)
+                          s.snapshot() if s is not None else None,
+                          roofline=getattr(st, "last_roofline", None)
+                          if st is not None else None)

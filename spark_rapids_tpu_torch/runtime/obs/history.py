@@ -14,9 +14,10 @@ to its record through the shared digest, the SLO detector seeds its
 baselines from it and the measured cost pass (``plan/cost.py``) reads its
 roofline verdicts.
 
-The record has the JAX package's keys on its default path. It carries no
-``mesh`` (one card per session), no ``trace_id`` (no serving layer) and
-no ``roofline`` (no kernel cost auditor writes one); ``fusion_groups``
+The record has the JAX package's keys on its default path, and its
+``roofline`` when the kernel cost audit was on
+(``analysis/kernel_audit.py``). It carries no ``mesh`` (one card per
+session) and no ``trace_id`` (no serving layer); ``fusion_groups``
 lists the plan's fused stages and absorbed chains
 (``exec/stage_fusion.fusion_groups``).
 
@@ -123,6 +124,7 @@ def build_query_record(*, query_id: int, wall_start_unix: float,
                        snaps: Optional[dict] = None,
                        degraded_reason: Optional[str] = None,
                        attribution: Optional[dict] = None,
+                       roofline: Optional[dict] = None,
                        aqe: Optional[dict] = None,
                        slo_breach: Optional[dict] = None,
                        flight_dump: Optional[str] = None,
@@ -148,6 +150,11 @@ def build_query_record(*, query_id: int, wall_start_unix: float,
         rec["degraded_reason"] = degraded_reason
     if attribution is not None:
         rec["attribution"] = attribution
+    if roofline is not None:
+        # the kernel cost audit's roofline (analysis/kernel_audit.py):
+        # the measured cost pass reads its verdicts, and
+        # tools/torch_roofline_report.py aggregates them over the store
+        rec["roofline"] = roofline
     if aqe is not None:
         rec["aqe"] = aqe
     if slo_breach is not None:

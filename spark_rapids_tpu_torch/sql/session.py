@@ -40,8 +40,14 @@ the default epilogue reads nothing off the card. With
 spark.rapids.obs.historyDir set it appends the JAX package's history
 record (``runtime/obs/history.py``), and the measured cost pass
 (``plan/cost.measured_hints``) reads those records back into planning
-in ``prepare_execution``. ``last_audit()`` and ``last_roofline()`` stay
-None until the kernel cost auditor (ROADMAP A11e).
+in ``prepare_execution``. With spark.rapids.obs.audit.enabled the kernel
+cost auditor (``analysis/kernel_audit.py``) tallies the action's
+dispatches and the epilogue joins them with the attribution into
+``last_audit()`` and ``last_roofline()``. spark.rapids.compile.cacheDir
+moves the kernel libraries' build directory, spark.rapids.compile.warmup.*
+arms the history replays (``runtime/warmup.py``), and
+spark.rapids.profile.dir runs each top-level action under
+``torch.profiler`` (``last_profile_path``).
 """
 from __future__ import annotations
 
@@ -112,6 +118,27 @@ def _discover_hive(root: str):
 #: entry) opens and closes the adaptive decision list
 _COLLECT_DEPTH = threading.local()
 
+#: per-action profile captures written by this process (file names)
+_PROFILE_SEQ = [0]
+
+
+def nested_action_scope():
+    """Make every collect on the current thread a nested action: no
+    cancel token or admission, no attribution open/close, no breaker
+    probe, no degradation. The warmup replays run under this."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def _cm():
+        depth = getattr(_COLLECT_DEPTH, "d", 0)
+        _COLLECT_DEPTH.d = depth + 1
+        try:
+            yield
+        finally:
+            _COLLECT_DEPTH.d = depth
+
+    return _cm()
+
 
 class TorchSession:
     """Runs DataFrame queries on one device: the CUDA card by default, the
@@ -144,11 +171,25 @@ class TorchSession:
         #: the artifacts of the last traced action ({"trace", "events",
         #: "metrics"} paths), None when it wrote none
         self.last_trace_paths: Optional[Dict[str, str]] = None
+        #: the kernel cost audit and the roofline of the last top-level
+        #: action (spark.rapids.obs.audit.enabled), else None
+        self._last_audit: Optional[dict] = None
+        self._last_roofline: Optional[dict] = None
+        #: the Chrome trace of the last action profiled under
+        #: spark.rapids.profile.dir
+        self.last_profile_path: Optional[str] = None
         # live observability (spark.rapids.obs.*): the process-wide
         # registry, flight recorder and sampler, the endpoint when
         # spark.rapids.obs.port is set (its probe on this device)
         from spark_rapids_tpu_torch.runtime import obs
         obs.install(self.conf, self.device)
+        # the kernel build directory and warmup (spark.rapids.compile.*);
+        # the auditor arms now, so a session's first query is audited
+        from spark_rapids_tpu_torch.analysis import kernel_audit
+        from spark_rapids_tpu_torch.runtime import compile_cache, warmup
+        compile_cache.configure(self.conf)
+        kernel_audit.configure(self.conf)
+        warmup.maybe_arm(self)
 
     def _activate(self) -> None:
         """Make this session's conf the thread's, as the JAX package's
@@ -163,6 +204,10 @@ class TorchSession:
         empties the cross-query broadcast build cache."""
         self._views[name.lower()] = df
         AQ.bump_table_version()
+        # a new table may unblock pending warmup replays (one
+        # module-global read when warmup is unarmed)
+        from spark_rapids_tpu_torch.runtime import warmup
+        warmup.notify_view_registered(self)
 
     createOrReplaceTempView = create_or_replace_temp_view
 
@@ -273,14 +318,18 @@ class TorchSession:
         converted under the measured cost pass's hints for its digest
         (``plan/cost.measured_hints``; a decision in ``last_aqe()`` when
         there are any). Returns (exec root, tagged plan)."""
-        from spark_rapids_tpu_torch.analysis import sanitizer
-        from spark_rapids_tpu_torch.runtime import faults, watchdog
+        from spark_rapids_tpu_torch.analysis import kernel_audit, sanitizer
+        from spark_rapids_tpu_torch.runtime import (
+            compile_cache, faults, watchdog,
+        )
         from spark_rapids_tpu_torch.runtime.memory import get_spill_framework
         from spark_rapids_tpu_torch.runtime.retry import (
             OomInjector, backoff_from_conf,
         )
         C.set_session_conf(self.conf)
         sanitizer.maybe_install(self.conf)
+        kernel_audit.configure(self.conf)
+        compile_cache.configure(self.conf)
         OomInjector.from_conf(self.conf)
         faults.from_conf(self.conf)
         backoff_from_conf(self.conf)
@@ -380,6 +429,11 @@ class TorchSession:
             # accumulators) opens whatever the obs state, so every
             # top-level action has a breakdown
             ATTR.on_query_start()
+            # the kernel cost auditor's dispatch tally (one global read
+            # with the audit off; the conf rides along so a mid-session
+            # enable covers this query)
+            from spark_rapids_tpu_torch.analysis import kernel_audit as KA
+            KA.on_query_start(self.conf)
             AQ.on_query_start(self.conf)
             # the t0 marker of every top-level action, traced or not (the
             # flight ring records it too)
@@ -412,7 +466,11 @@ class TorchSession:
                         cpu_gate_failed = True
                         status, degraded_reason = "failed", None
                         raise
-            result = self._collect(plan)
+            prof_dir = self.conf.get(C.PROFILE_DIR) if depth == 0 else ""
+            if prof_dir:
+                result = self._profiled_collect(plan, prof_dir)
+            else:
+                result = self._collect(plan)
             if depth == 0:
                 self._record_device_success()
             return result
@@ -455,7 +513,8 @@ class TorchSession:
                 self._last_task_metrics = TK.take_query_totals(
                     tok.query_id) if tok is not None else {}
                 self._last_aqe = AQ.finish_query()
-                self._attribute(lm, duration_ns)
+                snaps = self._attribute(lm, duration_ns)
+                self._audit(snaps, duration_ns)
                 if status != "ok":
                     self._outcome_instant(ot, status, error,
                                           degraded_reason, cancel_reason)
@@ -482,6 +541,7 @@ class TorchSession:
                         degraded_reason=degraded_reason,
                         attribution_doc=(self._last_attribution
                                          if top else None),
+                        roofline_doc=self._last_roofline if top else None,
                         aqe_doc=self._last_aqe if top else None,
                         flight_dump=flight_dump)
                 except Exception:  # noqa: BLE001
@@ -527,15 +587,17 @@ class TorchSession:
             _LOG.warning("failed to emit query outcome instant",
                          exc_info=True)  # query's own error
 
-    def _attribute(self, lm, duration_ns: int) -> None:
+    def _attribute(self, lm, duration_ns: int):
         """Close the attribution aggregate and fold the action's wall time
         into the buckets, from ``lm`` when the epilogue took a resolved
         snapshot, else from a peek (the timers are host integers: no
-        device sync). Never raises."""
+        device sync). Returns the snapshot used (None if it failed).
+        Never raises."""
         from spark_rapids_tpu_torch.runtime import obs as OBS
         from spark_rapids_tpu_torch.runtime.obs import attribution as ATTR
         self._last_attribution = None
         self._last_duration_ns = duration_ns
+        snaps = None
         try:
             self._last_attr_extra = ATTR.finish()
             snaps = lm if lm is not None else OBS.peek_metrics(self)
@@ -543,6 +605,57 @@ class TorchSession:
                 snaps, duration_ns, extra=self._last_attr_extra)
         except Exception:  # noqa: BLE001 - attribution is advisory
             _LOG.warning("failed to attribute query time", exc_info=True)
+        return snaps
+
+    def _audit(self, snaps, duration_ns: int) -> None:
+        """Close the kernel cost audit's dispatch tally and join it with
+        the attribution's seconds into the roofline (one global read with
+        the audit off). Never raises."""
+        from spark_rapids_tpu_torch.analysis import kernel_audit as KA
+        self._last_audit = None
+        self._last_roofline = None
+        try:
+            self._last_audit = KA.finish_query()
+            if self._last_audit is not None and snaps is not None:
+                self._last_roofline = KA.roofline(
+                    self._last_audit, snaps, duration_ns,
+                    extra=self._last_attr_extra)
+        except Exception:  # noqa: BLE001 - the audit must never fail (or
+            _LOG.warning("failed to compute the kernel cost audit",
+                         exc_info=True)  # mask the error of) a query
+
+    def _profiled_collect(self, plan: P.PlanNode, prof_dir: str
+                          ) -> pa.Table:
+        """One top-level action under ``torch.profiler`` (host and, on the
+        card, CUDA activity), written as a Chrome trace into ``prof_dir``
+        (``last_profile_path``). The structured trace's spans appear in
+        it as ``record_function`` ranges when spark.rapids.sql.trace is
+        on. torch.profiler cannot nest, so an action started while a
+        capture is active raises rather than running without one."""
+        import time
+
+        from torch.profiler import ProfilerActivity, profile
+        if getattr(torch.autograd.profiler, "_is_profiler_enabled", False):
+            raise RuntimeError(
+                "spark.rapids.profile.dir: a torch.profiler capture is "
+                "already active on this process; torch.profiler cannot "
+                "nest, so this action cannot be profiled (unset the key or "
+                "end the other capture)")
+        os.makedirs(prof_dir, exist_ok=True)
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        self.last_profile_path = None
+        with profile(activities=acts) as prof:
+            result = self._collect(plan)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        _PROFILE_SEQ[0] += 1
+        path = os.path.join(prof_dir, f"action_{os.getpid()}_"
+                            f"{int(time.time())}_{_PROFILE_SEQ[0]}.json")
+        prof.export_chrome_trace(path)
+        self.last_profile_path = path
+        return result
 
     def _end_trace(self, qt, status: str, error, lm, plan) -> None:
         """Finalize the action's trace with its metrics snapshot and plan
@@ -713,22 +826,39 @@ class TorchSession:
             return None
 
     def last_audit(self) -> Optional[dict]:
-        """The kernel cost audit of the last action: None until the
-        auditor is ported (ROADMAP A11e), as in the JAX package with
-        spark.rapids.obs.audit.enabled off, its default."""
-        return None
+        """The kernel cost audit summary of the last top-level action
+        (``analysis/kernel_audit.py``): per family dispatches, entries,
+        signatures, bytes, operations, plane bytes, padding exposure and
+        PCIe bytes, with the hand kernels' charges. None when
+        spark.rapids.obs.audit.enabled was off for the action."""
+        return self._last_audit
 
     def last_roofline(self) -> Optional[dict]:
-        """The roofline attribution of the last action: None until the
-        auditor is ported (ROADMAP A11e)."""
-        return None
+        """The roofline of the last top-level action: audited bytes and
+        operations joined with the attribution's seconds into achieved
+        GB/s and GFLOP/s, their share of the peaks, a verdict and the
+        padding waste. The epilogue's document, else one recomputed from
+        the stored audit and a fresh snapshot; None with the audit off."""
+        if self._last_roofline is not None:
+            return self._last_roofline
+        if not self._last_audit or not self._last_duration_ns \
+                or self.last_exec is None:
+            return None
+        from spark_rapids_tpu_torch.analysis import kernel_audit as KA
+        from spark_rapids_tpu_torch.runtime import obs as OBS
+        try:
+            return KA.roofline(self._last_audit, OBS.peek_metrics(self),
+                               self._last_duration_ns,
+                               extra=self._last_attr_extra)
+        except Exception:  # noqa: BLE001 - advisory
+            return None
 
     def explain_analyze(self, snaps: Optional[Dict[str, dict]] = None
                         ) -> str:
         """The physical operator tree of the most recent action annotated
         with its runtime metrics (rows, batches, dispatches, operator
         time per operator, from ``snaps`` or ``last_metrics()``), then
-        the attribution and adaptive sections (the EXPLAIN ANALYZE
+        the attribution, roofline and adaptive sections (the EXPLAIN ANALYZE
         surface; reference: the Spark SQL tab's metric annotations)."""
         from spark_rapids_tpu_torch.runtime.metrics import exec_rollup
         from spark_rapids_tpu_torch.runtime.obs import attribution as ATTR
@@ -757,6 +887,11 @@ class TorchSession:
         if attr is not None:
             lines.append("")
             lines.extend(ATTR.render_text(attr))
+        roof = self.last_roofline()
+        if roof is not None:
+            from spark_rapids_tpu_torch.analysis import kernel_audit as KA
+            lines.append("")
+            lines.extend(KA.render_text(roof))
         if self._last_aqe is not None:
             lines.append("")
             lines.extend(AQ.render_text(self._last_aqe))

@@ -782,13 +782,26 @@ def test_config_keys_registered_at_jax_defaults():
     for key in ("spark.rapids.obs.historyDir",
                 "spark.rapids.sql.adaptive.measuredCost.enabled"):
         assert PC.registry()[key].default == JC.registry()[key].default
-    # 99 keys, and the stage fusion and shape-ladder keys
-    assert len(PC.keys()) == 103
+    # 99 keys, the stage fusion and shape-ladder keys, then the audit,
+    # compile and profile keys
+    assert len(PC.keys()) == 112
     for key in ("spark.rapids.sql.stageFusion.enabled",
                 "spark.rapids.compile.shapes.growthFactor",
                 "spark.rapids.compile.shapes.dtypeAlign",
-                "spark.rapids.tpu.batchCapacityMinRows"):
+                "spark.rapids.tpu.batchCapacityMinRows",
+                "spark.rapids.obs.audit.enabled",
+                "spark.rapids.obs.audit.overheadBoundFactor",
+                "spark.rapids.compile.cacheDir",
+                "spark.rapids.compile.warmup.enabled",
+                "spark.rapids.compile.warmup.maxPlans",
+                "spark.rapids.compile.warmup.minRuns",
+                "spark.rapids.profile.dir"):
         assert PC.registry()[key].default == JC.registry()[key].default
+    # the stated exceptions: the roofline peaks are the H100 SXM's
+    # (3350 GB/s HBM3, 66900 GFLOP/s FP32; data sheet, 700 W)
+    assert (PC.registry()["spark.rapids.obs.audit.peakGbps"].default,
+            PC.registry()["spark.rapids.obs.audit.peakGflops"].default) \
+        == (3350.0, 66900.0)
     assert set(PC.keys()) <= set(JC.registry())
     assert {k for k, e in PC.registry().items() if e.internal} == \
         {k for k, e in JC.registry().items()

@@ -68,12 +68,6 @@ ROSTER = ("rapids_semaphore_wait_ns_total",
 #: (ROADMAP.md A11e-A11f lists them; the keyed stage cache's
 #: rapids_compile_cache_* gauges came with A11e's first part)
 LATER = {
-    "rapids_xla_compiles_total", "rapids_xla_compile_seconds_total",
-    "rapids_persistent_cache_hits_total",
-    "rapids_persistent_cache_misses_total",
-    "rapids_roofline_achieved_gbps",
-    "rapids_roofline_pct", "rapids_roofline_achieved_gflops",
-    "rapids_roofline_padding_waste_ratio",              # A11e
     "rapids_serving_requests_total", "rapids_serving_rejected_total",
     "rapids_result_cache_hits_total", "rapids_result_cache_misses_total",
     "rapids_result_cache_evictions_total",
@@ -1224,17 +1218,25 @@ def test_config_keys_and_defaults_equal_jax():
     from spark_rapids_tpu import config as JC
 
     from spark_rapids_tpu_torch import config as PC
-    later = ("reqtrace.", "audit.")
+    later = ("reqtrace.",)
     want = {k: JC._REGISTRY[k].default for k in JC._REGISTRY
             if k.startswith("spark.rapids.obs.")
             and not any(k[len("spark.rapids.obs."):].startswith(x)
                         for x in later)}
     got = {k: PC._REGISTRY[k].default for k in PC.keys()
            if k.startswith("spark.rapids.obs.")}
-    assert len(got) == 20 and set(got) == set(want)
+    assert len(got) == 24 and set(got) == set(want)
     import tempfile
     want["spark.rapids.obs.flight.path"] = os.path.join(
         tempfile.gettempdir(), "rapids_tpu_flight")
+    # the stated exceptions: the roofline peaks are the H100 SXM's (data
+    # sheet, 700 W), not the TPU's 819 GB/s and 197 TFLOP/s
+    assert (want.pop("spark.rapids.obs.audit.peakGbps"),
+            want.pop("spark.rapids.obs.audit.peakGflops")) == \
+        (819.0, 197000.0)
+    assert (got.pop("spark.rapids.obs.audit.peakGbps"),
+            got.pop("spark.rapids.obs.audit.peakGflops")) == \
+        (3350.0, 66900.0)
     assert got == want
     assert PC._REGISTRY["spark.sql.caseSensitive"].default is False
 

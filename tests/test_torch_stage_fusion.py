@@ -923,3 +923,83 @@ def test_smoke_fusion_groups_match_jax(tmp_path):
             out[name] = mod.dispatch_budget(root)["fusion_groups"]
     assert got == want
     assert {n: [g for g in v] for n, v in want.items()} == H.FUSION_EXPECT
+
+
+# ---------------------------------------------------------------------------
+# Windows and the masked dense probe through the dispatch choke point
+# ---------------------------------------------------------------------------
+
+#: the JAX package's key families of the window operator's and the masked
+#: dense join probe's per-batch dispatches (exec/tpu_nodes.py)
+_WINDOW_JOIN_FAMILIES = ("window_sortlay", "window_fns", "window_packed",
+                         "window", "dense_probe_masked")
+
+
+def _families(keys):
+    from collections import Counter
+    return Counter(k[0] for k in keys
+                   if isinstance(k, tuple) and k
+                   and k[0] in _WINDOW_JOIN_FAMILIES)
+
+
+def _running_by_flags(api, df):
+    """A frame aggregate over integer order keys: the packed route's two
+    dispatches (window_sortlay, then window_fns)."""
+    col, F = api.col, api.F
+    w = api.Window.partition_by(col("l_returnflag"), col("l_linestatus")) \
+        .order_by(col("l_shipdate"))
+    return (df.select(col("l_returnflag"), col("l_linestatus"),
+                      F.sum(col("l_quantity")).over(w).alias("rs"))
+            .group_by(col("l_returnflag"), col("l_linestatus"))
+            .agg(F.max("rs").alias("mx")))
+
+
+def _shape_dfs(api, s, li, od, parts):
+    lic = s.create_dataframe(li, num_partitions=parts)
+    odc = s.create_dataframe(od)
+    return {"q67win": H.q67win(api, lic),
+            "running_by_flags": _running_by_flags(api, lic),
+            "win_running": H.win_running(api, lic),
+            "q3join": H.q3join(api, lic, odc)}
+
+
+@pytest.mark.parametrize("parts", [1, 3])
+def test_window_and_join_dispatches_match_jax(parts):
+    """Each window route's and the masked probe's dispatches pass fuse.fused
+    under the JAX package's key families, as many as the JAX package's."""
+    li, od = H.make_tables(2000)
+    got = {}
+    for api, mod in ((TA, PF), (JA, JF)):
+        s = _sess(api)
+        out = got.setdefault(api is TA, {})
+        for name, df in _shape_dfs(api, s, li, od, parts).items():
+            with _Dispatches(mod) as dc:
+                df.collect()
+            out[name] = _families(dc.keys)
+    assert got[True] == got[False]
+    seen = set().union(*[set(c) for c in got[True].values()])
+    assert {"window_sortlay", "window_fns", "window_packed",
+            "dense_probe_masked"} <= seen, got[True]
+
+
+@pytest.mark.parametrize("qn", [12])
+def test_nds_window_join_dispatches_match_jax(qn):
+    """NDS probe plans with a window and joins: the same window and
+    masked-probe dispatches, and the same static budget, in both
+    packages."""
+    pn, jn = _nds_module(True), _nds_module(False)
+    tables = jn.gen_tables(0.002, seed=7)
+    got = {}
+    for api, mod, nds in ((TA, PF, pn), (JA, JF, jn)):
+        s = _sess(api)
+        d = {n: s.create_dataframe(t).cache() for n, t in tables.items()}
+        df = nds.QUERIES[qn](s, d)
+        with _Dispatches(mod) as dc:
+            df.collect()
+        got[api is TA] = (_families(dc.keys),
+                          s.prepare_execution(df.plan)[0])
+    (pc, proot), (jc, jroot) = got[True], got[False]
+    assert pc == jc and pc["dense_probe_masked"] > 0 and \
+        set(pc) & {"window", "window_packed", "window_sortlay"}, pc
+    a, b, _, _ = _budgets(proot, jroot)
+    assert a == b, PV.compare_budget(a, b)

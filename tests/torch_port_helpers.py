@@ -1760,8 +1760,10 @@ def reset_torch_runtime() -> None:
     framework, the OOM injector and the retry backoff, the fault schedule,
     the watchdog and breaker, the cancel tokens, the admission gate and
     the deadline sweeper, the per-query task totals, the thread's
-    query binding, and the live layer (the obs registry, endpoint and
-    sampler thread, the live query registry, the flight recorder)."""
+    query binding, the live layer (the obs registry, endpoint and
+    sampler thread, the live query registry, the flight recorder), the
+    kernel cost auditor (disarmed, its records kept), the warmup manager
+    and the kernel build directory."""
     from spark_rapids_tpu_torch import config as TC
     from spark_rapids_tpu_torch.runtime import faults, lifecycle, task
     from spark_rapids_tpu_torch.runtime import watchdog
@@ -1782,6 +1784,11 @@ def reset_torch_runtime() -> None:
     from spark_rapids_tpu_torch.runtime.obs import flight
     obs.shutdown_for_tests()
     flight.uninstall_for_tests()
+    from spark_rapids_tpu_torch.analysis import kernel_audit
+    from spark_rapids_tpu_torch.runtime import compile_cache, warmup
+    kernel_audit.reset_for_tests()
+    warmup.reset_for_tests()
+    compile_cache.reset_build_dir_for_tests()
 
 
 # ---------------------------------------------------------------------------
