@@ -396,6 +396,36 @@ Phases, one JSON line each:
    and names a hand kernel; the compile counters against the build
    phase's builds and the libraries' loads; and the window and masked
    probe dispatches through exec/fuse.fused.
+17j. serving (after the audit phase, on the joins phase's caches, the
+   Parquet file and a 365-row int32 day table, in test mode): a root
+   session with spark.rapids.serving.enabled, the endpoint on a free
+   port, spark.rapids.serving.maxInflight=2, a history store and the
+   request tracer on (sampleRatio 1.0, no rate limit, its path in the
+   temporary directory), and the caches, the day table and the Parquet
+   file as temp views. urllib clients POST /sql: sql_q1 twice (a miss
+   sent with a W3C traceparent, then a hit: bytes equal, and under
+   torch.profiler's CUDA activity the miss shows kernels while the hit
+   shows no kernel and no copy and no launch), sql_q72shfl (B2), q6 over
+   the Parquet view (B3), q3join on the named session "shuffled" (its
+   overlay the joins phase's SHUFFLED_JOIN: a ShuffleExchangeExec, held
+   to the joins phase's answer) and a join of the 8-partition lineitem to
+   the day table on the same session (its int32 key: B1; q3join's int64
+   order keys do not take B1), four identical requests at once (one
+   execution, three single-flight waits), a burst of six past
+   maxInflight=2 (at least one 429), q3join under a 0.02 s deadline
+   (499, the "deadline" verdict exported, every device permit back), a
+   bad SQL text (400), and a background session (requestNice 10) beside
+   a latency-tier q6. Every 200 is checked against the pyarrow/numpy
+   answers with the other phases' validators and must have built no
+   kernel (xla_compiles 0). Then the tracing: the traceparent comes back
+   with the sent trace id, the miss's timeline holds intake, execute and
+   serialize with its query's engine spans inside execute, its history
+   record carries the trace id, no record is degraded or failed, and
+   /metrics shows the serving counters and an exemplar. Printed: a
+   serving.request line per request (code, cache outcome, wall ms, the
+   kernel-build delta, launches), the hit, single-flight, burst,
+   deadline and QoS lines, and a summary with warm q1 requests with
+   reqtrace armed against off (a ratio, no gate).
 18. runtime (last, after the fallback phase, so that its small budgets,
    injected faults and open breaker touch no earlier phase; on the joins
    phase's lineitem caches h1 (1 partition) and h8 (8), the Parquet file
@@ -469,7 +499,7 @@ It then prints the kernel table ({"kernels": [...]}, with each kernel's
 launches per path in "launches_by_path": cached, parquet, pipeline,
 strings, joins, adaptive, window, sql, exprs, sets, aggtypes, datetime,
 nested, formats, shuffle, udf, regex, fallback, trace, obs, history,
-fusion, audit, runtime),
+fusion, audit, serving, runtime),
 the card's name and power limit, and as its last line {"ok": true,
 "device": {...}}. Any failure exits non-zero without that line; so does a
 machine without CUDA, and so does a run that imported the JAX package.
@@ -7888,6 +7918,430 @@ def phase_audit(h1, h8, built, tmp_dir):
 
 
 # ---------------------------------------------------------------------------
+# phase 17j: the serving front door and request tracing
+# ---------------------------------------------------------------------------
+
+#: the serving phase's B1 query: the 8-partition lineitem joined to a
+#: unique int32 day dimension on the shuffled named session (the int32
+#: join key makes both sides' hash exchanges launch the murmur3 kernel;
+#: q3join's int64 order keys do not)
+SQL_DAYS_JOIN = ("SELECT COUNT(*) AS n, SUM(l_quantity) AS q FROM lineitem8 "
+                 "JOIN days8 ON l_shipdate = d_date")
+#: warm q1 requests a mode in the reqtrace armed/off comparison
+SERVING_OVERHEAD_RUNS = 5
+#: the W3C traceparent the serving phase sends with its first request
+SERVING_TRACE_ID = "4bf92f3577b34da6a3ce929d0e0e4736"
+SERVING_TRACEPARENT = f"00-{SERVING_TRACE_ID}-00f067aa0ba902b7-01"
+
+
+def serving_reference(t) -> dict:
+    """The days join's answer: the lines shipped in [LO, HI) and their
+    quantity."""
+    ship = t["l_shipdate"].to_numpy()
+    sel = (ship >= LO) & (ship < HI)
+    return {"days_join": (int(sel.sum()),
+                          float(t["l_quantity"].to_numpy()[sel].sum()))}
+
+
+def _post_sql(port, payload, traceparent=None):
+    """One POST /sql from a urllib client: (HTTP code, response doc, the
+    response's traceparent header, client wall ms)."""
+    import urllib.error
+    import urllib.request
+    headers = {"Content-Type": "application/json"}
+    if traceparent:
+        headers["traceparent"] = traceparent
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/sql",
+                                 data=json.dumps(payload).encode(),
+                                 headers=headers, method="POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            code, body = r.status, r.read()
+            hdr = r.headers.get("traceparent")
+    except urllib.error.HTTPError as e:
+        code, body, hdr = e.code, e.read(), e.headers.get("traceparent")
+    return code, json.loads(body), hdr, (time.perf_counter() - t0) * 1e3
+
+
+def _served_table(doc):
+    import base64
+
+    from spark_rapids_tpu_torch.runtime.serving.server import \
+        deserialize_table
+    return deserialize_table(base64.b64decode(doc["result"]))
+
+
+def _concurrently(fn, args):
+    """fn(*a) for each a in args on threads released together; results
+    in order."""
+    out = [None] * len(args)
+    gate = threading.Barrier(len(args))
+
+    def run(i, a):
+        gate.wait()
+        out[i] = fn(*a)
+    threads = [threading.Thread(target=run, args=(i, a), daemon=True)
+               for i, a in enumerate(args)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(300)
+    return out
+
+
+def _semaphore_idle(wait_s: float = 10.0) -> bool:
+    """Every device permit back and no waiter, within wait_s (a cancelled
+    query's pipeline producers may still be unwinding)."""
+    from spark_rapids_tpu_torch.runtime import semaphore as SEM
+    end = time.monotonic() + wait_s
+    while True:
+        sem = SEM.peek_semaphore()
+        if sem is None or (sem.available == sem.permits
+                           and sem.waiting == 0):
+            return True
+        if time.monotonic() > end:
+            return False
+        time.sleep(0.02)
+
+
+def phase_serving(want, swant, h1, h8, pq_path, tmp_dir):
+    """The serving layer (module docstring, phase 17j): POST /sql from
+    urllib clients to a root session with serving, the endpoint and
+    reqtrace on; misses, a hit, the shuffled named session, single
+    flight, bounded intake, a deadline, a bad request and the QoS tier,
+    each 200 checked against pyarrow/numpy, then the tracing."""
+    import pyarrow as pa
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from spark_rapids_tpu_torch.runtime import host_pool, obs, serving
+    from spark_rapids_tpu_torch.runtime.obs import reqtrace
+    from spark_rapids_tpu_torch.runtime.obs.history import QueryHistoryStore
+    from spark_rapids_tpu_torch.sql.dataframe import DataFrame
+    t_phase = time.perf_counter()
+    jwant = RUN_NOTES["q3join_shuffled_want"]
+    rt_dir = os.path.join(tmp_dir, "reqtrace")
+    hist_dir = os.path.join(tmp_dir, "serving_history")
+    _obs_teardown()
+    serving.reset_for_tests()
+    reqtrace.uninstall_for_tests()
+    root = device_session({
+        "spark.rapids.serving.enabled": "true",
+        "spark.rapids.serving.maxInflight": "2",
+        "spark.rapids.obs.port": str(_free_port()),
+        "spark.rapids.obs.historyDir": hist_dir,
+        "spark.rapids.obs.reqtrace.enabled": "true",
+        "spark.rapids.obs.reqtrace.sampleRatio": "1.0",
+        "spark.rapids.obs.reqtrace.minIntervalSeconds": "0",
+        "spark.rapids.obs.reqtrace.path": rt_dir})
+    port = obs.state().server.port
+    srv = serving.server()
+    for name, df in (("lineitem", DataFrame(h1.li.plan, root)),
+                     ("orders", DataFrame(h1.od.plan, root)),
+                     ("lineitem8", DataFrame(h8.li.plan, root)),
+                     ("orders8", DataFrame(h8.od.plan, root)),
+                     ("days8", root.create_dataframe(pa.table(
+                         {"d_date": np.arange(LO, HI, dtype=np.int32)}),
+                         num_partitions=8)),
+                     ("lineitem_pq", root.read_parquet(
+                         pq_path, columns=Q6_COLS))):
+        root.create_or_replace_temp_view(name, df)
+    shuffled = {k: str(v) for k, v in SHUFFLED_JOIN.items()}
+    sql_q6 = SQL_Q6.format(lo=LO, hi=HI)
+    sql_q3 = SQL_Q3JOIN.replace("FROM lineitem JOIN orders",
+                                "FROM lineitem8 JOIN orders8")
+
+    def q1_check(t):
+        d = t.to_pydict()
+        return validate("q1", {(a, b): (sq, sp, mq, md, c) for a, b, sq, sp,
+                               mq, md, c in zip(
+                                   d["l_returnflag"], d["l_linestatus"],
+                                   d["sq"], d["sp"], d["mq"], d["md"],
+                                   d["cnt"])}, want["q1"])
+
+    def q72_check(t):
+        d = t.to_pydict()
+        return validate("q72shfl", (int(d["n"][0]), round(float(
+            d["ts"][0]), 2), int(d["tc"][0])), want["q72shfl"])
+
+    def q6_check(t):
+        return validate("q6", float(t.column(0)[0].as_py()), want["q6"])
+
+    def q3_check(t):
+        d = t.to_pydict()
+        return validate_joins("q3join_shuffled",
+                              dict(zip(d["l_orderkey"], d["rev"])), jwant)
+
+    def days_check(t):
+        d = t.to_pydict()
+        n, q = swant["days_join"]
+        return int(d["n"][0]) == n and _close(float(d["q"][0]), q, 1e-9)
+
+    reset_launches()
+    problems = []
+    served = []  # every 200's doc
+
+    def request(name, payload, check, traceparent=None, expect=200,
+                quiet=False):
+        before = read_launches()
+        code, doc, hdr, ms = _post_sql(port, payload, traceparent)
+        # concurrent requests' launches mix: only a sequential request's
+        # are its own
+        launched = {k: v - before[k] for k, v in read_launches().items()}
+        line = {"phase": "serving.request", "request": name, "code": code,
+                "cache": doc.get("cache"), "wall_ms": ms,
+                "served_wall_ms": doc.get("wall_ms"),
+                "xla_compiles": doc.get("xla_compiles"),
+                "launches": launched,
+                "verdict": (doc.get("reqtrace") or {}).get("verdict")}
+        if expect is not None and code != expect:
+            problems.append(f"{name}: HTTP {code} (want {expect}): "
+                            f"{doc.get('message', '')[:200]}")
+        if code == 200:
+            served.append(doc)
+            line["correct"] = bool(check(_served_table(doc)))
+            if not line["correct"]:
+                problems.append(f"{name} disagrees with its answer")
+            if doc.get("xla_compiles"):
+                problems.append(f"{name} built kernels: "
+                                f"{doc['xla_compiles']}")
+        if not quiet:
+            emit(line)
+        return code, doc, hdr, launched, line
+
+    def device_records(fn):
+        """fn() under torch.profiler's CUDA activity: (its result, kernel
+        records, copy records). The CUDA activity sees every thread's
+        work, the endpoint's handler threads' included."""
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        path = os.path.join(tmp_dir, "serving_profile.json")
+        prof.export_chrome_trace(path)
+        events = _trace_events(path)
+        os.remove(path)
+        return (out, sum(1 for e in events if e.get("cat") == "kernel"),
+                sum(1 for e in events if e.get("cat") == "gpu_memcpy"))
+
+    # sql_q1: a miss (with the caller's traceparent), then a hit
+    (_, miss, hdr, _, _), miss_kernels, miss_copies = device_records(
+        lambda: request("sql_q1_miss", {"sql": SQL_Q1}, q1_check,
+                        traceparent=SERVING_TRACEPARENT))
+    (code, hit, _, hit_launches, _), hit_kernels, hit_copies = \
+        device_records(lambda: request("sql_q1_hit", {"sql": SQL_Q1},
+                                       q1_check))
+    hit_doc = {"phase": "serving.hit", "miss_kernels": miss_kernels,
+               "miss_copies": miss_copies, "hit_kernels": hit_kernels,
+               "hit_copies": hit_copies, "hit_launches": hit_launches,
+               "bytes_equal": hit.get("result") == miss.get("result"),
+               "payload_bytes": len(miss.get("result", "")) * 3 // 4}
+    emit(hit_doc)
+    if (miss.get("cache"), hit.get("cache")) != ("miss", "hit") \
+            or not hit_doc["bytes_equal"] or not miss_kernels \
+            or hit_kernels or hit_copies or any(hit_launches.values()):
+        problems.append(f"the hit {hit_doc}")
+    trace = {"sent": SERVING_TRACEPARENT, "returned": hdr,
+             "doc_trace_id": miss.get("trace_id")}
+    if miss.get("trace_id") != SERVING_TRACE_ID or not hdr \
+            or not hdr.startswith(f"00-{SERVING_TRACE_ID}-") \
+            or hdr != miss.get("traceparent"):
+        problems.append(f"traceparent round trip {trace}")
+    # the miss's exported timeline: the serving phases, and the engine's
+    # spans of its query inside execute
+    path = (miss.get("reqtrace") or {}).get("path")
+    timeline = json.load(open(path)) if path and os.path.exists(path) \
+        else {"traceEvents": [], "otherData": {}}
+    ev = timeline["traceEvents"]
+    phases = {e["name"]: e for e in ev if e.get("cat") == "serving"
+              and e.get("ph") == "X"}
+    qid = timeline["otherData"].get("query_id")
+    engine = [e for e in ev if e.get("cat") not in ("serving", None)
+              and e.get("ph") == "X"
+              and (e.get("args") or {}).get("query_id") == qid]
+    ex = phases.get("execute")
+    inside = ex is not None and engine and all(
+        ex["ts"] <= e["ts"] and e["ts"] + e["dur"] <= ex["ts"] + ex["dur"]
+        + 1e-3 for e in engine)
+    trace.update({"timeline_spans": sorted(phases), "engine_spans":
+                  len(engine), "engine_inside_execute": bool(inside),
+                  "query_id": qid})
+    if not {"intake", "execute", "serialize"} <= set(phases) \
+            or not inside:
+        problems.append(f"timeline {trace}")
+
+    # B2 and B3 under served requests, then the shuffled named session
+    _, _, _, l72, _ = request("sql_q72shfl", {"sql": SQL_Q72SHFL},
+                              q72_check)
+    _, _, _, lpq, _ = request("pq_q6", {"sql": sql_q6.replace(
+        "FROM lineitem", "FROM lineitem_pq")}, q6_check)
+    _, q3doc, _, _, _ = request(
+        "q3join_shuffled", {"sql": sql_q3, "session": "shuffled",
+                            "conf": shuffled},
+        q3_check)
+    named = srv._sessions.get("shuffled")
+    q3_execs = _exec_names(named) if named is not None else []
+    _, _, _, ldays, _ = request("days_join_shuffled",
+                                {"sql": SQL_DAYS_JOIN,
+                                 "session": "shuffled"}, days_check)
+    days_execs = _exec_names(named) if named is not None else []
+    if l72["segsum"] <= 0 or lpq["bitslice"] <= 0 \
+            or ldays["murmur3_int32"] <= 0:
+        problems.append(f"kernels under served requests: q72shfl {l72}, "
+                        f"pq_q6 {lpq}, days_join {ldays}")
+    if named is None or named.device != root.device \
+            or "ShuffleExchangeExec" not in q3_execs \
+            or "ShuffleExchangeExec" not in days_execs:
+        problems.append(f"the shuffled session: {q3_execs} {days_execs}")
+
+    # four concurrent identical requests: one execution, three waiters
+    srv.max_inflight = 8
+    stats0 = srv.cache.stats()
+    sf_sql = SQL_Q1.replace("FROM lineitem", "FROM lineitem8")
+    sf = _concurrently(_post_sql, [(port, {"sql": sf_sql})] * 4)
+    stats1 = srv.cache.stats()
+    waits = 0
+    for code, doc, _, _ in sf:
+        if code == 200:
+            served.append(doc)
+            if not q1_check(_served_table(doc)):
+                problems.append("single flight: a wrong answer")
+            p = (doc.get("reqtrace") or {}).get("path")
+            if p and os.path.exists(p):
+                waits += any(e["name"] == "single_flight_wait" for e in
+                             json.load(open(p))["traceEvents"])
+    sf_doc = {"phase": "serving.single_flight",
+              "codes": [c for c, _, _, _ in sf],
+              "outcomes": sorted(d.get("cache") or "" for _, d, _, _ in sf),
+              "wall_ms": [round(m, 3) for _, _, _, m in sf],
+              "executions": stats1["misses"] - stats0["misses"],
+              "waiters": waits}
+    emit(sf_doc)
+    if sf_doc["codes"] != [200] * 4 or sf_doc["executions"] != 1 \
+            or sf_doc["outcomes"] != ["hit"] * 3 + ["miss"] \
+            or waits != 3:
+        problems.append(f"single flight {sf_doc}")
+
+    # a burst past maxInflight=2: 429s, every 200 right
+    srv.max_inflight = 2
+    burst = _concurrently(lambda: request(
+        "burst_q1", {"sql": SQL_Q1, "cache": False}, q1_check,
+        expect=None, quiet=True), [()] * 6)
+    codes = [b[0] for b in burst]
+    burst_doc = {"phase": "serving.burst", "codes": codes,
+                 "rejected": codes.count(429),
+                 "correct": all(b[4].get("correct", True) for b in burst)}
+    emit(burst_doc)
+    if not burst_doc["rejected"] or set(codes) - {200, 429} \
+            or not burst_doc["correct"]:
+        problems.append(f"burst {burst_doc}")
+
+    # a deadline below the shuffled q3join's wall: 499, kept as
+    # "deadline", every device permit back
+    _, dl, _, _, _ = request(
+        "q3join_deadline", {"sql": sql_q3, "session": "shuffled",
+                            "cache": False, "timeout_seconds": 0.02},
+        q3_check, expect=499)
+    dl_doc = {"phase": "serving.deadline", "status": dl.get("status"),
+              "error_type": dl.get("error_type"),
+              "verdict": (dl.get("reqtrace") or {}).get("verdict"),
+              "timeline": bool((dl.get("reqtrace") or {}).get("path")),
+              "served_ms_before": q3doc.get("wall_ms"),
+              "semaphore_idle": _semaphore_idle()}
+    emit(dl_doc)
+    if dl_doc["verdict"] != "deadline" or not dl_doc["timeline"] \
+            or not dl_doc["semaphore_idle"]:
+        problems.append(f"deadline {dl_doc}")
+    request("bad_sql", {"sql": "SELEC nope FROM lineitem"}, None,
+            expect=400)
+
+    # the QoS tier: a background session (requestNice 10) beside a
+    # latency-tier q6
+    qos = _concurrently(lambda name, payload, check: request(
+        name, payload, check), [
+        ("background_q1", {"sql": sf_sql, "session": "batch",
+                           "conf": {"spark.rapids.serving.requestNice":
+                                    "10"}, "cache": False}, q1_check),
+        ("latency_q6", {"sql": sql_q6, "cache": False}, q6_check)])
+    qos_doc = {"phase": "serving.qos",
+               "nice_restorable": host_pool._nice_restorable(),
+               "background_ms": qos[0][4]["wall_ms"],
+               "latency_ms": qos[1][4]["wall_ms"]}
+    emit(qos_doc)
+
+    # /metrics: the serving counters and an exemplar
+    code, text = _http_json(f"http://127.0.0.1:{port}/metrics")
+    vals = {}
+    for ln in text.splitlines():
+        if ln.startswith(("rapids_serving_requests_total ",
+                          "rapids_serving_rejected_total ",
+                          "rapids_result_cache_hits_total ",
+                          "rapids_result_cache_misses_total ")):
+            k, v = ln.split(" ")[:2]
+            vals[k] = float(v)
+    exemplars = [ln for ln in text.splitlines()
+                 if ln.startswith("rapids_serving_request_ms_bucket")
+                 and 'trace_id="' in ln]
+    metrics_doc = {"counters": vals, "exemplar_lines": len(exemplars)}
+    if code != 200 or vals.get("rapids_serving_requests_total", 0) <= 0 \
+            or vals.get("rapids_serving_rejected_total", 0) <= 0 \
+            or vals.get("rapids_result_cache_hits_total", 0) < 4 \
+            or not exemplars:
+        problems.append(f"/metrics {metrics_doc}")
+
+    # the history: the sent trace id on the miss's record, no query
+    # answered from the CPU
+    recs = QueryHistoryStore(hist_dir).read_all()
+    queries = [r for r in recs if r.get("type") == "query"]
+    statuses = sorted({r.get("status") for r in queries})
+    traced = [r for r in queries if r.get("trace_id") == SERVING_TRACE_ID]
+    executed = {d["trace_id"] for d in served if d.get("cache") != "hit"}
+    ok_ids = {r.get("trace_id") for r in queries
+              if r.get("status") == "ok"}
+    hist_doc = {"records": len(recs), "query_statuses": statuses,
+                "hit_records": sum(r.get("type") == "result_cache_hit"
+                                   for r in recs),
+                "sent_trace_id_records": len(traced)}
+    if len(traced) != 1 or traced[0].get("status") != "ok" \
+            or set(statuses) - {"ok", "cancelled"} \
+            or not executed <= ok_ids:
+        problems.append(f"history {hist_doc}")
+
+    # reqtrace armed against off over warm q1 requests (no gate)
+    over = {"armed": [], "off": []}
+    for i in range(SERVING_OVERHEAD_RUNS):
+        for mode in ("armed", "off"):
+            if mode == "off":
+                reqtrace.uninstall_for_tests()
+            else:
+                reqtrace.install(out_dir=rt_dir, sample_ratio=1.0,
+                                 min_interval_s=0.0)
+            _, _, _, _, ln = request(f"q1_{mode}", {"sql": SQL_Q1,
+                                                    "cache": False},
+                                     q1_check, quiet=True)
+            over[mode].append(ln["wall_ms"])
+    reqtrace.uninstall_for_tests()
+    launches = read_launches()
+    summary = {"phase": "serving", "launches": launches,
+               "requests": srv.doc()["requests"],
+               "served_200": len(served),
+               "result_cache": srv.cache.stats(),
+               "trace": trace, "metrics": metrics_doc, "history": hist_doc,
+               "reqtrace_armed_ms": over["armed"],
+               "reqtrace_off_ms": over["off"],
+               "reqtrace_armed_over_off": statistics.median(over["armed"])
+               / statistics.median(over["off"]),
+               "correct": not problems, "problems": problems,
+               "seconds": time.perf_counter() - t_phase}
+    emit(summary)
+    _obs_teardown()
+    serving.reset_for_tests()
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 18: the query runtime
 # ---------------------------------------------------------------------------
 
@@ -8886,6 +9340,7 @@ def main(argv) -> int:
         t0 = time.perf_counter()
         fwant = fusion_reference(table)
         phases["fusion_reference_s"] = time.perf_counter() - t0
+        serving_want = serving_reference(table)
         del table, orders
         gc.collect()
         t0 = time.perf_counter()
@@ -8934,6 +9389,10 @@ def main(argv) -> int:
         phases["audit_s"] = time.perf_counter() - t0
         spill_report("audit")
         t0 = time.perf_counter()
+        served = phase_serving(want, serving_want, h1, h8, path, tmp_dir)
+        phases["serving_s"] = time.perf_counter() - t0
+        spill_report("serving")
+        t0 = time.perf_counter()
         caches = [h1.li, h1.od, h1.cust, h8.li, h8.od,
                   SimpleNamespace(plan=text_plan)]
         runtime = phase_runtime(want, small, swant, h1, h8, path, tmp_dir,
@@ -8961,6 +9420,7 @@ def main(argv) -> int:
                    "history": history[r["name"]],
                    "fusion": fusion[r["name"]],
                    "audit": audit[r["name"]],
+                   "serving": served[r["name"]],
                    "runtime": runtime[r["name"]]}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path

@@ -677,6 +677,53 @@ OBS_FLIGHT_MAX_DUMPS = _register(
     "spark.rapids.obs.flight.path; older ones are pruned after each "
     "dump.", int)
 
+OBS_REQTRACE_ENABLED = _register(
+    "spark.rapids.obs.reqtrace.enabled", False,
+    "Run the per-request tail-sampled tracer (runtime/obs/reqtrace.py): "
+    "every serving request buffers its span tree (the serving spans and "
+    "the engine spans of its query, joined by query id) in a bounded "
+    "per-request ring fed from the same instrumentation points the "
+    "flight recorder uses. At request end a sampling verdict either "
+    "drops the buffer or exports a self-contained per-request timeline "
+    "(a Chrome trace and an OTLP-JSON-shaped file) under reqtrace.path. "
+    "Errors, cancellations, deadlines, SLO breaches and runs slower than "
+    "the digest baseline are always kept; ordinary requests and hot "
+    "cache hits sample at reqtrace.sampleRatio. Off, each hook costs "
+    "one module-global read.", _bool_conv)
+
+OBS_REQTRACE_PATH = _register(
+    "spark.rapids.obs.reqtrace.path",
+    os.path.join(tempfile.gettempdir(), "rapids_tpu_reqtrace"),
+    "Directory receiving per-request timeline exports "
+    "(req_<seq>_<verdict>_<trace_id>.json Chrome-trace files and the "
+    "matching .otlp.json OTLP-JSON-shaped files); rapids_tpu_reqtrace "
+    "under the system temporary directory by default.", str)
+
+OBS_REQTRACE_EVENTS = _register(
+    "spark.rapids.obs.reqtrace.events", 4096,
+    "Per-request ring capacity: how many span/instant events one "
+    "request retains for its timeline. Older events are overwritten; "
+    "the export reports how many were dropped.", int)
+
+OBS_REQTRACE_SAMPLE_RATIO = _register(
+    "spark.rapids.obs.reqtrace.sampleRatio", 0.01,
+    "Probability that an ordinary successful request (a hot result-cache "
+    "hit included) exports its timeline. Error, cancelled, deadline, "
+    "SLO-breach and slower-than-baseline requests always export. 0 "
+    "keeps only the always-keep classes.", _float)
+
+OBS_REQTRACE_MIN_INTERVAL_S = _register(
+    "spark.rapids.obs.reqtrace.minIntervalSeconds", 1.0,
+    "Rate limit between sampled per-request timeline exports (the "
+    "always-keep verdicts bypass it). 0 disables the limit (tests).",
+    _float)
+
+OBS_REQTRACE_MAX_DUMPS = _register(
+    "spark.rapids.obs.reqtrace.maxDumps", 100,
+    "Bounded retention: only the newest N per-request exports (Chrome + "
+    "OTLP pairs) are kept in spark.rapids.obs.reqtrace.path; older ones "
+    "are pruned after each export.", int)
+
 OBS_REPLICA_ID = _register(
     "spark.rapids.obs.replicaId", "",
     "Stable identity of THIS serving replica in a fleet. Empty (the "
@@ -756,6 +803,78 @@ OBS_SAMPLER_RING = _register(
     "Samples retained per sampler series (a bounded ring, newest "
     "kept). At the default 200ms interval, 512 samples cover the last "
     "~102 seconds.", int)
+
+
+# ---------------------------------------------------------------------------
+# the serving layer (runtime/serving): POST /sql on the obs endpoint
+# ---------------------------------------------------------------------------
+
+SERVING_ENABLED = _register(
+    "spark.rapids.serving.enabled", False,
+    "Attach the query-serving layer to the obs HTTP endpoint: POST /sql "
+    "accepts {sql, session?, conf?, timeout_seconds?, cache?} documents, "
+    "runs each request as a top-level action through the admission gate, "
+    "the per-query device quotas, deadlines and cancellation, and "
+    "returns the result as Arrow IPC bytes with the wall-time "
+    "attribution. Needs spark.rapids.obs.enabled with a bindable "
+    "spark.rapids.obs.port. The first session that sets it installs the "
+    "process-wide server.", _bool_conv)
+
+SERVING_MAX_SESSIONS = _register(
+    "spark.rapids.serving.maxSessions", 16,
+    "Bound on named client sessions the server builds (each a conf-"
+    "overlay session on the root session's device, sharing its temp "
+    "views). A request naming a session past the bound is refused with "
+    "HTTP 429 and a typed error doc.", int)
+
+SERVING_MAX_INFLIGHT = _register(
+    "spark.rapids.serving.maxInflight", 32,
+    "Bound on POST /sql requests inside the server at once (admitted or "
+    "parked in the admission queue). A request past it is refused at "
+    "once with HTTP 429.", int)
+
+SERVING_RESULT_CACHE_ENABLED = _register(
+    "spark.rapids.serving.resultCache.enabled", True,
+    "Plan-digest-keyed result cache: a hit returns the byte-identical "
+    "Arrow IPC stream of an earlier execution with the same (plan "
+    "digest, table epoch, conf fingerprint) key, from host memory "
+    "without touching the card. Any create_or_replace_temp_view bumps "
+    "the epoch and orphans every entry; plans with rand bypass it; ANSI-"
+    "divergent plans never share entries.", _bool_conv)
+
+SERVING_RESULT_CACHE_MAX_BYTES = _register(
+    "spark.rapids.serving.resultCache.maxBytes", 256 << 20,
+    "Byte bound on cached result payloads (Arrow IPC stream bytes, exact "
+    "len() accounting). Least-recently-used entries evict; every "
+    "eviction is counted.", int)
+
+SERVING_RESULT_CACHE_MAX_ENTRIES = _register(
+    "spark.rapids.serving.resultCache.maxEntries", 64,
+    "Entry bound on the result cache (LRU eviction, counted), "
+    "independent of the byte bound.", int)
+
+SERVING_WARM_BOOT_ENABLED = _register(
+    "spark.rapids.serving.warmBoot.enabled", True,
+    "Hold the first request on the warmup replay when warmup is armed "
+    "(spark.rapids.compile.warmup.enabled + obs.historyDir), so the "
+    "replay's kernel-library builds never land in a request's "
+    "xla_compiles delta.", _bool_conv)
+
+SERVING_WARM_BOOT_TIMEOUT_S = _register(
+    "spark.rapids.serving.warmBoot.timeoutSeconds", 60.0,
+    "Longest the first request waits for the warmup replay before "
+    "serving anyway (0 = don't wait). A timeout degrades to cold "
+    "serving, it never fails.", _float)
+
+SERVING_REQUEST_NICE = _register(
+    "spark.rapids.serving.requestNice", 0,
+    "OS niceness (0-19) of the handler thread, and of the wave and pool "
+    "threads working for it, for the duration of each request on this "
+    "session: the serving QoS tier. It slows only the host's issue of "
+    "that request's work; the card's kernels are not prioritized (no "
+    "CUDA stream priorities). Best-effort: applied per thread with "
+    "setpriority, skipped where the niceness could not be restored.",
+    int)
 
 STAGE_FUSION_ENABLED = _register(
     "spark.rapids.sql.stageFusion.enabled", True,

@@ -1910,6 +1910,16 @@ def _static_expr_ranges(key_cols, kinds, key_exprs):
     return np.asarray(rs, np.int64)
 
 
+def _key_stage(exprs):
+    """The stage function of an aggregate's group keys: (key columns, ANSI
+    error planes) over the batch's live rows, in the context ``ctx_of``
+    gives (the keyed stage cache's ``run_stage`` family)."""
+    def stage(batch, ctx_of):
+        kctx = ctx_of(batch, batch.live_mask())
+        return [e.eval(kctx) for e in exprs], list(kctx.errors)
+    return stage
+
+
 def _probe_pack_spec(key_cols, live, key_exprs=None):
     """Can these keys pack into one int64 plane? Returns (spec, ranges on
     the device, ranges on the host) or (None, None, None). Costs one small
@@ -2066,15 +2076,19 @@ class _AggKernels:
         batch, ANSI error planes)."""
         keys = None
         if self._packed_ok:
-            fuse.notify_dispatch(
-                ("run_stage", tuple(e.fingerprint()
-                                    for e in self.group_exprs)))
-            kctx = ctx_of(batch, batch.live_mask())
-            key_cols = [e.eval(kctx) for e in self.group_exprs]
+            # the keys' own dispatch through the keyed stage cache: the
+            # cancel checkpoint, the dispatch hook and the auditor see it
+            # (its ANSI error planes ride out unraised: rows an absorbed
+            # filter drops must not raise)
+            fn = fuse.fused(("run_stage", tuple(e.fingerprint()
+                                                for e in self.group_exprs)),
+                            lambda exprs=list(self.group_exprs):
+                            _key_stage(exprs))
+            key_cols, kerrs = fn(batch, ctx_of)
             # without an absorbed filter these are the keys of the update
             # too: a key computed in the aggregate is evaluated once
             if self.pre_filter is None:
-                keys = (key_cols, kctx.errors)
+                keys = (key_cols, kerrs)
             if self._bucket_sizes(key_cols) is None:
                 spec, ranges, rh = _probe_pack_spec(
                     key_cols, batch.live_mask(), self.group_exprs)

@@ -15,9 +15,11 @@ submissions run on tier 0, submissions from a tier-0 worker run on tier
 1, and submissions from a tier-1 worker run inline. Tier-1 workers never
 wait on tier-1 work, so no cycle can starve.
 
-The serving QoS tier of the JAX module (``qos_nice``/``run_at_nice``:
-background requests run their host work at raised niceness) waits for
-the serving layer (A11f).
+The serving QoS tier (``spark.rapids.serving.requestNice``): a
+background request runs its host work at raised OS niceness, on the
+handler thread and on every wave and pool thread working for it. On the
+card this slows only that request's issue of work: its kernels are not
+prioritized (the engine uses no CUDA stream priorities).
 """
 from __future__ import annotations
 
@@ -33,6 +35,86 @@ _PREFIX_TASK = "rapids-task"
 _END = object()
 
 
+# ---------------------------------------------------------------------------
+# serving QoS tier (spark.rapids.serving.requestNice)
+# ---------------------------------------------------------------------------
+#
+# The tier is thread-local and propagates to wave threads and pool
+# workers the way the session conf and the query-id binding do: captured
+# at submit time, applied (and restored) around the task on the worker.
+
+_QOS = threading.local()
+_NICE_RESTORABLE: Optional[bool] = None
+
+
+def qos_nice() -> int:
+    """This thread's background-tier niceness (0 = latency tier)."""
+    return getattr(_QOS, "nice", 0)
+
+
+def run_at_nice(nice: int, fn: Callable, *args):
+    """Run fn on the current thread at the given niceness (thread-local
+    tier set for nested submissions), restoring both afterwards."""
+    if nice <= 0:
+        return fn(*args)
+    prev = getattr(_QOS, "nice", 0)
+    _QOS.nice = nice
+    restore = _raise_nice(nice)
+    try:
+        return fn(*args)
+    finally:
+        _QOS.nice = prev
+        if restore is not None:
+            restore()
+
+
+def _nice_restorable() -> bool:
+    """One-time probe: can this process LOWER a thread's niceness back
+    down (CAP_SYS_NICE / RLIMIT_NICE)? If not, never raise it on any
+    thread: a shared pool worker stuck at 19 would slow every query that
+    lands on it afterwards. The tier then changes nothing."""
+    global _NICE_RESTORABLE
+    if _NICE_RESTORABLE is None:
+        import os
+        ok = False
+        if hasattr(os, "setpriority"):
+            try:
+                tid = threading.get_native_id()
+                before = os.getpriority(os.PRIO_PROCESS, tid)
+                if before < 19:
+                    os.setpriority(os.PRIO_PROCESS, tid, before + 1)
+                    os.setpriority(os.PRIO_PROCESS, tid, before)
+                    ok = True
+            except OSError:
+                ok = False
+        _NICE_RESTORABLE = ok
+    return _NICE_RESTORABLE
+
+
+def _raise_nice(nice: int):
+    """Raise the current thread's niceness; returns a restore callable,
+    or None when nothing changed (already that nice, or the probe says
+    restoring would fail)."""
+    import os
+    if not _nice_restorable():
+        return None
+    try:
+        tid = threading.get_native_id()
+        before = os.getpriority(os.PRIO_PROCESS, tid)
+        if before >= nice:
+            return None
+        os.setpriority(os.PRIO_PROCESS, tid, min(int(nice), 19))
+    except OSError:
+        return None
+
+    def restore():
+        try:
+            os.setpriority(os.PRIO_PROCESS, tid, before)
+        except OSError:
+            pass
+    return restore
+
+
 def run_task_wave(fn, items, max_concurrency: int = 16) -> list:
     """Run one action's top-level partition tasks (the Spark task-set
     role) and return [fn(item)] in input order.
@@ -42,7 +124,8 @@ def run_task_wave(fn, items, max_concurrency: int = 16) -> list:
     waits), so waves must not share one bounded executor. A wave thread
     carries the submitter's session conf and bound query id, so
     ``lifecycle.check_current`` and the per-query device quota see the
-    query, and checks for a cancel before it starts its task."""
+    query, its serving request context and its QoS tier, and checks for
+    a cancel before it starts its task."""
     items = list(items)
     if len(items) <= 1:
         return [fn(i) for i in items]
@@ -58,9 +141,10 @@ def run_task_wave(fn, items, max_concurrency: int = 16) -> list:
     # constructed on a wave thread attributes to the query that fanned
     # it out
     qid = _live.current_query_id()
-    # ... and so does the serving request context (A11f: request
-    # tracing; None while no request is bound)
+    # ... and so do the serving request context (request tracing: a
+    # wave thread's spans land in the request's ring) and its QoS tier
     rctx = _live.current_request()
+    nice = qos_nice()
 
     def bound(item):
         _cfg.set_session_conf(conf)
@@ -73,6 +157,8 @@ def run_task_wave(fn, items, max_concurrency: int = 16) -> list:
             # wave-start cooperative checkpoint: partitions of an
             # already-cancelled query unwind before doing any work
             _lc.check_current()
+            if nice:
+                return run_at_nice(nice, fn, item)
             return fn(item)
         finally:
             if rctx is not None:
@@ -119,7 +205,8 @@ class HostTaskPool:
     def submit(self, fn: Callable, *args) -> Future:
         """Run fn(*args) on the tier below the caller's (inline from a
         tier-1 worker). The work runs bound to the submitter's query id,
-        restored afterwards, so a cancel or a deadline reaches it."""
+        serving request and QoS tier, restored afterwards, so a cancel or
+        a deadline reaches it."""
         depth = self._depth()
         from spark_rapids_tpu_torch.runtime import trace
         tr = trace.active()
@@ -147,15 +234,23 @@ class HostTaskPool:
             def fn(*a):  # noqa: F811 - bound wrapper replaces fn
                 return _live.run_bound(qid, inner_fn, *a)
         # the submitter's serving request context rides the same seam
-        # (A11f: request tracing; None while no request is bound)
+        # (request tracing: prefetch and decode spans on a shared worker
+        # land in the request's ring)
         rctx = _live.current_request()
         if rctx is not None:
             req_fn = fn
 
             def fn(*a):  # noqa: F811 - request-bound wrapper replaces fn
                 return _live.run_request_bound(rctx, req_fn, *a)
-        # A11f: the JAX package also carries the submitter's serving QoS
-        # tier (qos_nice/run_at_nice) onto the worker here
+        # the submitter's QoS tier rides along too: a background request
+        # keeps its raised niceness on whichever worker runs the task
+        # (restored after, so shared workers are not left at it)
+        nice = qos_nice()
+        if nice:
+            tier_fn = fn
+
+            def fn(*a):  # noqa: F811 - QoS wrapper replaces fn
+                return run_at_nice(nice, tier_fn, *a)
         if depth == 0:
             return self._tier0.submit(fn, *args)
         if depth == 1:

@@ -330,9 +330,12 @@ def admit(token: CancelToken, conf) -> None:
     _GATE.configure(limit,
                     int(conf.get(C.QUERY_MAX_QUEUED) or 0),
                     float(conf.get(C.QUERY_QUEUE_TIMEOUT_S) or 0.0))
-    # A11f: the JAX package times the wait as a serving request's
-    # "admission_wait" span here
-    _GATE.acquire(token)
+    # the serving span tree: a /sql request's time parked in the gate is
+    # the "admission_wait" phase of its per-request timeline (no-op
+    # unless a request context is bound: runtime/obs/reqtrace.py)
+    from spark_rapids_tpu_torch.runtime.obs import reqtrace as _rt
+    with _rt.request_span("admission_wait"):
+        _GATE.acquire(token)
 
 
 def finish_action(token: Optional[CancelToken], status: str) -> None:

@@ -31,9 +31,11 @@ enclosing query: only top-level actions produce history records.
 
 The kernel cost audit's roofline gauges and ``last_roofline``, the
 kernel-build counters (``runtime/compile_cache.py``) and ``/healthz``'s
-``compile`` and ``warmup`` documents are wired here. The serving routes'
-callbacks and the serving and result-cache counters wait for ROADMAP
-A11f.
+``compile`` and ``warmup`` documents are wired here, and so are the
+serving layer's routes (``runtime/serving``: ``POST /sql``, ``/serving``,
+``/healthz``'s ``serving``), its counters and the request-latency
+histogram whose buckets carry per-request trace exemplars
+(``runtime/obs/reqtrace.py``).
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ from typing import Callable, Dict, Optional
 
 from spark_rapids_tpu_torch.analysis import sanitizer as _san
 from spark_rapids_tpu_torch.runtime.obs import (
-    attribution, flight, live, sampler,
+    attribution, flight, live, reqtrace, sampler,
 )
 from spark_rapids_tpu_torch.runtime.obs.history import (
     QueryHistoryStore, build_query_record, plan_digest,
@@ -129,9 +131,8 @@ NESTED = "nested"
 
 def _preregister(reg: MetricsRegistry) -> None:
     """Create the roster instruments up front so a scrape before the
-    first task or query still renders them (at zero). The JAX package's
-    roster less its serving and result-cache instruments (A11f), which
-    ROADMAP.md lists by name."""
+    first task or query still renders them (at zero): the JAX package's
+    roster."""
     for _, (name, help_) in _TASK_COUNTERS.items():
         reg.counter(name, help_)
     reg.counter("rapids_tasks_completed_total", "Tasks completed")
@@ -172,6 +173,28 @@ def _preregister(reg: MetricsRegistry) -> None:
     reg.counter("rapids_flight_dumps_total",
                 "Flight-recorder dumps written, by trigger",
                 labels={"reason": "query_failed"})
+    # the serving layer (runtime/serving/): request intake and the
+    # plan-digest-keyed result cache
+    reg.counter("rapids_serving_requests_total",
+                "POST /sql requests accepted into the serving "
+                "layer (past the maxInflight bound).")
+    reg.counter("rapids_serving_rejected_total",
+                "POST /sql requests refused with HTTP 429 "
+                "(maxInflight, maxSessions, or admission-gate "
+                "rejection).")
+    reg.counter("rapids_result_cache_hits_total",
+                "Serving result-cache hits (byte-identical replay of "
+                "a prior execution with the same plan digest, table "
+                "epoch, and compile fingerprint).")
+    reg.counter("rapids_result_cache_misses_total",
+                "Serving result-cache misses (the request executed and "
+                "its serialized result was inserted).")
+    reg.counter("rapids_result_cache_evictions_total",
+                "Serving result-cache LRU evictions (byte or entry "
+                "bound exceeded).")
+    reg.counter("rapids_result_cache_bypasses_total",
+                "Serving requests that bypassed the result cache "
+                "(non-deterministic plan or cache=false).")
     for phase in attribution.BUCKETS:
         reg.float_counter(
             "rapids_query_seconds_bucket",
@@ -201,6 +224,9 @@ def _preregister(reg: MetricsRegistry) -> None:
                   labels={"group": group})
     reg.histogram("rapids_query_wall_time_ms",
                   "Per-query wall time (ms)")
+    reg.histogram("rapids_serving_request_ms",
+                  "Per-request serving wall time (ms), intake to "
+                  "response doc; buckets carry reqtrace exemplars")
     reg.histogram("rapids_task_duration_ms", "Per-task duration (ms)")
     reg.gauge("rapids_max_device_bytes_held",
               "High-water mark of registered device bytes (any task)")
@@ -315,7 +341,9 @@ def install(conf, device=None) -> "Optional[ObsState]":
     # always-on unless switched off, even with the live layer off
     flight.maybe_install(conf)
     sampler.maybe_install(conf)
-    # A11f: per-request tail-sampled tracing installs here
+    # per-request tail-sampled tracing (opt-in:
+    # spark.rapids.obs.reqtrace.enabled): its own conf's concern too
+    reqtrace.maybe_install(conf)
     if not conf.get(Cf.OBS_ENABLED):
         return _STATE
     with _STATE_LOCK:
@@ -533,12 +561,21 @@ def on_query_end(token, *, session, plan, status: str,
     except Exception:  # noqa: BLE001 - the registry must never fail a
         pass  # query epilogue
     live.bind(None)
+    # request tracing: the epilogue runs on the request's handler thread,
+    # so the bound serving request (if any) learns its query's live id
+    # here, the join key between its serving span tree and the engine
+    # spans sharing its ring
+    rctx = live.current_request()
+    if rctx is not None and isinstance(token, int):
+        rctx.query_id = token
     reg = st.registry
     try:
         reg.counter("rapids_queries_total",
                     labels={"status": status}).inc()
         reg.histogram("rapids_query_wall_time_ms").observe(
-            duration_ns / 1e6)
+            duration_ns / 1e6,
+            exemplar=({"trace_id": rctx.trace_id}
+                      if rctx is not None else None))
         if attribution_doc:
             for phase, secs in attribution_doc.get("buckets", {}).items():
                 if secs:
@@ -584,6 +621,9 @@ def on_query_end(token, *, session, plan, status: str,
         breach = None
         if st.slo is not None and status == "ok" and digest:
             breach = st.slo.record(digest, duration_ns / 1e9)
+        if rctx is not None and breach is not None:
+            # the request's tail-sampling verdict must see the breach
+            rctx.slo_breach = True
         if breach is not None:
             if attribution_doc is None:
                 try:
@@ -636,7 +676,8 @@ def on_query_end(token, *, session, plan, status: str,
                 attribution=attribution_doc, roofline=roofline_doc,
                 aqe=aqe_doc,
                 slo_breach=breach, flight_dump=flight_dump,
-                digest=digest, replica_id=st.replica_id or None)
+                digest=digest, replica_id=st.replica_id or None,
+                trace_id=rctx.trace_id if rctx is not None else None)
             st.history.append(rec)
         st.last_query = {
             "query_id": token, "status": status,
@@ -751,17 +792,20 @@ def _cancel_query(query_id) -> bool:
 
 
 def _serving_sql(payload: dict):
-    """The POST /sql handler target: the JAX package's answer while the
-    serving layer is not installed (A11f: the serving layer)."""
-    return 404, {"status": "failed", "error_type": "RuntimeError",
-                 "message": "serving layer not installed "
-                            "(spark.rapids.serving.enabled)"}
+    """The POST /sql handler target (lazy: the serving layer may install
+    after the endpoint starts, or never)."""
+    from spark_rapids_tpu_torch.runtime import serving as SRV
+    return SRV.handle_sql(payload)
 
 
 def _serving_doc():
-    """The GET /serving + healthz['serving'] document: None while the
-    serving layer is not installed (A11f)."""
-    return None
+    """The GET /serving + healthz['serving'] document (None when the
+    serving layer is not installed)."""
+    try:
+        from spark_rapids_tpu_torch.runtime import serving as SRV
+        return SRV.server_doc()
+    except Exception:  # noqa: BLE001 - health must always render
+        return None
 
 
 def suppressed_actions():

@@ -10,8 +10,8 @@ Content: the running-query table (id, state, elapsed, %-complete bar,
 ETA, digest), per-exec progress of each running query, the
 last-completed query, the last audited query's roofline table
 (analysis/kernel_audit.py), and one sparkline per sampler series
-(runtime/obs/sampler.py rings). The JAX package's serving section waits
-for the serving layer (ROADMAP A11f).
+(runtime/obs/sampler.py rings), and the serving layer's intake and
+result-cache table (runtime/serving) when it is installed.
 """
 from __future__ import annotations
 
@@ -97,11 +97,13 @@ def render_console(queries_doc: dict,
                    sampler_snapshot: Optional[dict] = None,
                    refresh_seconds: int = 2,
                    title: str = "spark-rapids-tpu-torch live console",
-                   roofline: Optional[dict] = None) -> str:
+                   roofline: Optional[dict] = None,
+                   serving: Optional[dict] = None) -> str:
     """The /console page. `queries_doc` is live.queries_doc();
     `sampler_snapshot` is ResourceSampler.snapshot() (or None when the
     sampler is off); `roofline` is the last audited query's roofline
-    doc (None when the audit is off)."""
+    doc (None when the audit is off); `serving` is the serving layer's
+    doc (None when serving is off)."""
     running = queries_doc.get("running") or []
     last = queries_doc.get("last_completed")
     body = [f"<p class='muted'>auto-refresh {refresh_seconds}s · rendered "
@@ -162,7 +164,28 @@ def render_console(queries_doc: dict,
                 f"{(g.get('padding_waste_ratio') or 0) * 100:.0f}%</td>"
                 f"</tr>")
         body.append("</table>")
-    # A11f: the serving layer's intake and result-cache table
+    if serving:
+        rc = serving.get("result_cache") or {}
+        body.append(
+            "<h2>Serving</h2>"
+            "<table><tr><th class='num'>active</th>"
+            "<th class='num'>queue depth</th>"
+            "<th class='num'>sessions</th>"
+            "<th class='num'>requests</th>"
+            "<th class='num'>rejected</th>"
+            "<th class='num'>cache hit ratio</th>"
+            "<th class='num'>cache entries</th>"
+            "<th class='num'>cache bytes</th></tr>"
+            f"<tr><td class='num'>{serving.get('active_requests', 0)}"
+            f"/{serving.get('max_inflight', 0)}</td>"
+            f"<td class='num'>{serving.get('queue_depth', 0)}</td>"
+            f"<td class='num'>{serving.get('sessions', 0)}"
+            f"/{serving.get('max_sessions', 0)}</td>"
+            f"<td class='num'>{serving.get('requests', 0)}</td>"
+            f"<td class='num'>{serving.get('rejected', 0)}</td>"
+            f"<td class='num'>{rc.get('hit_ratio', 0.0):.2f}</td>"
+            f"<td class='num'>{rc.get('entries', 0)}</td>"
+            f"<td class='num'>{rc.get('bytes', 0)}</td></tr></table>")
     if sampler_snapshot:
         body.append("<h2>Resource time-series</h2><div>")
         for name in sorted(sampler_snapshot):
@@ -180,12 +203,15 @@ def render_console(queries_doc: dict,
 
 def render_live() -> str:
     """Convenience entry the endpoint calls: current registry +
-    installed sampler + the last audited query's roofline."""
+    installed sampler + the last audited query's roofline + the serving
+    layer's doc."""
     from spark_rapids_tpu_torch.runtime import obs as _obs
+    from spark_rapids_tpu_torch.runtime import serving as SRV
     from spark_rapids_tpu_torch.runtime.obs import live, sampler as SMP
     s = SMP.sampler()
     st = _obs.state()
     return render_console(live.queries_doc(),
                           s.snapshot() if s is not None else None,
                           roofline=getattr(st, "last_roofline", None)
-                          if st is not None else None)
+                          if st is not None else None,
+                          serving=SRV.server_doc())

@@ -21,8 +21,10 @@ are explicit live reads).
 
 HTTP codes follow load-balancer conventions: 200 when ok, 503 when
 degraded, so the endpoint doubles as a liveness probe without a JSON
-parser in the prober. ``/serving`` and ``POST /sql`` answer as the
-serving layer does when it is not installed (ROADMAP A11f).
+parser in the prober. ``POST /sql`` and ``/serving`` reach the serving
+layer (``runtime/serving``) through callbacks; while it is not installed
+they answer 404. A request's ``traceparent`` header rides into the
+serving layer and the response carries the outgoing one.
 """
 from __future__ import annotations
 

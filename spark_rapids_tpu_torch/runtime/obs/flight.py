@@ -45,6 +45,10 @@ from spark_rapids_tpu_torch.analysis import sanitizer as _san
 # cross-thread query correlation: every ring entry captures the
 # submitting thread's bound query id (one thread-local read)
 from spark_rapids_tpu_torch.runtime.obs import live as _live
+# per-request tail sampling rides the same entry point: an event landing
+# in the flight ring also lands in the bound request's ring
+# (reqtrace._REC is None when reqtrace is off: one module-global read)
+from spark_rapids_tpu_torch.runtime.obs import reqtrace as _reqtrace
 
 log = logging.getLogger("spark_rapids_tpu_torch")
 
@@ -145,8 +149,9 @@ class FlightRecorder:
         qid = _live.current_query_id()
         r.buf[r.idx % r.cap] = (name, cat, t0_ns, dur_ns, args, qid)
         r.idx += 1
-        # A11f: the JAX package also feeds the bound serving request's
-        # ring here (request tracing)
+        rr = _reqtrace._REC
+        if rr is not None:
+            rr.feed(name, cat, t0_ns, dur_ns, args, qid)
 
     def instant(self, name: str, cat: str,
                 args: Optional[dict] = None) -> None:

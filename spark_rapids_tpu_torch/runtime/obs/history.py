@@ -16,10 +16,13 @@ roofline verdicts.
 
 The record has the JAX package's keys on its default path, and its
 ``roofline`` when the kernel cost audit was on
-(``analysis/kernel_audit.py``). It carries no ``mesh`` (one card per
-session) and no ``trace_id`` (no serving layer); ``fusion_groups``
-lists the plan's fused stages and absorbed chains
-(``exec/stage_fusion.fusion_groups``).
+(``analysis/kernel_audit.py``), and its ``trace_id`` when a serving
+request carried the query (``runtime/obs/reqtrace.py``). It carries no
+``mesh`` (one card per session); ``fusion_groups`` lists the plan's
+fused stages and absorbed chains (``exec/stage_fusion.fusion_groups``).
+The serving layer appends a second record type, ``result_cache_hit``
+(digest, wall ms, replica, trace id), for a request its result cache
+answered: the warmup and SLO readers take ``type == "query"`` only.
 
 The digest is a canonical hash of the LOGICAL plan tree (node type +
 describe + children), so two runs of the same query land on the same
@@ -129,7 +132,8 @@ def build_query_record(*, query_id: int, wall_start_unix: float,
                        slo_breach: Optional[dict] = None,
                        flight_dump: Optional[str] = None,
                        digest: Optional[str] = None,
-                       replica_id: Optional[str] = None) -> dict:
+                       replica_id: Optional[str] = None,
+                       trace_id: Optional[str] = None) -> dict:
     """Assemble one history record from a finished action's state. Every
     sub-extraction is best-effort: history never fails a query. ``snaps``
     is the caller's ``last_metrics()`` snapshot; the rollups and the
@@ -146,6 +150,10 @@ def build_query_record(*, query_id: int, wall_start_unix: float,
     }
     if replica_id is not None:
         rec["replica_id"] = replica_id
+    if trace_id is not None:
+        # the W3C trace id of the serving request that carried this
+        # query: the history <-> reqtrace-timeline join key
+        rec["trace_id"] = trace_id
     if degraded_reason is not None:
         rec["degraded_reason"] = degraded_reason
     if attribution is not None:

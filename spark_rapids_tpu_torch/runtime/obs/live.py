@@ -115,17 +115,18 @@ def run_bound(qid: Optional[int], fn, *args):
         bind(prev)
 
 
-# A11f: request tracing binds a serving RequestContext through these
-# seams; with no request bound they are one thread-local read each
 def current_request():
-    """The serving RequestContext bound to THIS thread (None outside any
-    serving request's work). One thread-local read."""
+    """The RequestContext (runtime/obs/reqtrace.py) bound to THIS
+    thread: None outside any serving request's work. One thread-local
+    read, the same budget as current_query_id()."""
     return getattr(_TLS, "req", None)
 
 
 def bind_request(rctx):
-    """Bind a serving RequestContext to this thread; returns the previous
-    binding so pool workers can restore it."""
+    """Bind a serving RequestContext to this thread; returns the
+    previous binding so pool workers (which outlive any one request)
+    can restore it. Rides the conf/query-id seams: task waves,
+    HostTaskPool submits, pipeline refills."""
     prev = getattr(_TLS, "req", None)
     _TLS.req = rctx
     return prev
@@ -133,7 +134,7 @@ def bind_request(rctx):
 
 def run_request_bound(rctx, fn, *args):
     """Run fn(*args) with rctx bound to this thread, restoring the
-    previous binding after."""
+    previous binding after (the host-pool submit wrapper)."""
     prev = bind_request(rctx)
     try:
         return fn(*args)

@@ -23,8 +23,8 @@ Consumers:
 A tick reads ~10 in-process values and never the card: the device-bytes
 series is the spill framework's registered-bytes ledger
 (``runtime/memory.py``), not a CUDA runtime query, so the sampler adds
-no device synchronization. The three serving series read 0 until the
-serving layer exists (ROADMAP A11f).
+no device synchronization. The three serving series read 0 while the
+serving layer (``runtime/serving``) is not installed.
 """
 from __future__ import annotations
 
@@ -155,10 +155,26 @@ def _collect_running_queries() -> float:
     return float(live.running_count())
 
 
-def _collect_serving() -> float:
-    """A11f: the serving layer's active requests, admission-queue depth
-    and result-cache hit ratio; 0 until that layer exists."""
-    return 0.0
+def _collect_serving_active() -> float:
+    from spark_rapids_tpu_torch.runtime import serving as SRV
+    srv = SRV.server()
+    return float(srv._active) if srv is not None else 0.0
+
+
+def _collect_serving_queue() -> float:
+    from spark_rapids_tpu_torch.runtime import serving as SRV
+    if SRV.server() is None:
+        return 0.0
+    from spark_rapids_tpu_torch.runtime import lifecycle as LC
+    return float(LC.doc().get("queued", 0))
+
+
+def _collect_serving_hit_ratio() -> float:
+    from spark_rapids_tpu_torch.runtime import serving as SRV
+    srv = SRV.server()
+    if srv is None or srv.cache is None:
+        return 0.0
+    return float(srv.cache.stats()["hit_ratio"])
 
 
 _COLLECTORS: Dict[str, Callable[[], float]] = {
@@ -172,9 +188,9 @@ _COLLECTORS: Dict[str, Callable[[], float]] = {
     "breaker_state": _collect_breaker_state,
     "process_rss_bytes": _collect_rss,
     "running_queries": _collect_running_queries,
-    "serving_active_requests": _collect_serving,
-    "serving_queue_depth": _collect_serving,
-    "serving_cache_hit_ratio": _collect_serving,
+    "serving_active_requests": _collect_serving_active,
+    "serving_queue_depth": _collect_serving_queue,
+    "serving_cache_hit_ratio": _collect_serving_hit_ratio,
 }
 
 # every roster series has exactly one collector (and nothing samples

@@ -261,6 +261,10 @@ class PipelinedIterator:
         # TaskContext), so a cancel reaches the producer and its spans
         # attribute to the owning query
         self._query_id = _live.current_query_id()
+        # the consumer's serving request context rides the same seam:
+        # producer-side spans land in the request's reqtrace ring even
+        # when a consumer-armed refill runs on a fresh pool worker
+        self._req = _live.current_request()
         self._lock = _san.lock("pipeline.iterator")
         self._cancel = False
         self._refill_running = False
@@ -283,7 +287,7 @@ class PipelinedIterator:
     def _refill(self) -> None:
         """Produce until the bounded queue is full (stashing at most one
         bounced item), then return the pool worker, under the consumer
-        task's TaskContext and query id.
+        task's TaskContext, query id and serving request.
 
         Invariant: _refill_running flips False under the SAME lock hold
         that decides to exit: a consumer that takes the lock afterwards
@@ -292,6 +296,7 @@ class PipelinedIterator:
         from spark_rapids_tpu_torch.runtime.task import TaskContext
         prev = TaskContext.peek()
         prev_qid = _live.bind(self._query_id)
+        prev_req = _live.bind_request(self._req)
         if self._ctx is not None:
             TaskContext.set_current(self._ctx)
         try:
@@ -309,6 +314,7 @@ class PipelinedIterator:
                         except queue.Full:
                             self._hand = _ProducerError(e)
         finally:
+            _live.bind_request(prev_req)
             _live.bind(prev_qid)
             if self._ctx is not None:
                 if prev is not None:

@@ -41,8 +41,10 @@ instrumentation points: a span or instant the tracer is not consuming
 (tracing off, or above the configured level) still lands in the bounded
 per-thread ring unless it is DEBUG, so a failure can dump a retroactive
 timeline; with the recorder off each hook costs one more module-global
-read. Traced events carry the emitting thread's bound query id
-(``runtime/obs/live.py``).
+read. The per-request tracer (``runtime/obs/reqtrace.py``) takes the
+same events into a serving request's ring: through the flight recorder
+when it is on, through these hooks when it is off. Traced events carry
+the emitting thread's bound query id (``runtime/obs/live.py``).
 """
 from __future__ import annotations
 
@@ -57,6 +59,11 @@ from spark_rapids_tpu_torch.runtime.metrics import DEBUG, ESSENTIAL, MODERATE
 # the flight recorder: _flight._REC is None when it is off
 from spark_rapids_tpu_torch.runtime.obs import flight as _flight
 from spark_rapids_tpu_torch.runtime.obs import live as _live
+# per-request tail sampling (runtime/obs/reqtrace.py): with the flight
+# recorder on, its record() feeds the bound request's ring, so the
+# branches below cover only flight off + reqtrace on; off, one more
+# module-global read per hook
+from spark_rapids_tpu_torch.runtime.obs import reqtrace as _reqtrace
 
 __all__ = ["DEBUG", "ESSENTIAL", "MODERATE", "Tracer", "active",
            "metric_span", "exec_span", "span", "instant", "emit_span",
@@ -75,8 +82,6 @@ TASK_METRIC_NAMES = (
     "shuffleCorruptionRetries",
 )
 
-# A11f: per-request tail sampling also consumes these instrumentation
-# points in the JAX package
 _TRACER: "Optional[Tracer]" = None
 _STATE_LOCK = _san.lock("trace.state")
 _QUERY_SEQ = 0
@@ -289,6 +294,11 @@ class _Span:
         fr = _flight._REC
         if fr is not None and self.level < DEBUG:
             fr.record(self.name, self.cat, self.t0, dur, self.args or None)
+        elif self.level < DEBUG:
+            rr = _reqtrace._REC
+            if rr is not None:
+                rr.feed(self.name, self.cat, self.t0, dur,
+                        self.args or None, _live.current_query_id())
         return False
 
 
@@ -313,6 +323,10 @@ def metric_span(name: str, metric, cat: str = "exec",
         fr = _flight._REC
         if fr is not None and lvl < DEBUG:
             return fr.span(name, metric, cat)
+        rr = _reqtrace._REC
+        if fr is None and rr is not None and lvl < DEBUG \
+                and _live.current_request() is not None:
+            return rr.span(name, metric, cat)
         return metric.ns() if metric is not None else _NULL
     return _Span(tr, name, metric, cat, args, level=lvl)
 
@@ -327,6 +341,11 @@ def exec_span(node, metric, name: Optional[str] = None):
         fr = _flight._REC
         if fr is not None and metric.level < DEBUG:
             return fr.span(name or f"{type(node).__name__}.{metric.name}",
+                           metric, "exec")
+        rr = _reqtrace._REC
+        if fr is None and rr is not None and metric.level < DEBUG \
+                and _live.current_request() is not None:
+            return rr.span(name or f"{type(node).__name__}.{metric.name}",
                            metric, "exec")
         return metric.ns()
     lid = getattr(node, "lore_id", None)
@@ -343,6 +362,10 @@ def span(name: str, cat: str = "runtime", args: Optional[dict] = None,
         fr = _flight._REC
         if fr is not None and level < DEBUG:
             return fr.span(name, None, cat)
+        rr = _reqtrace._REC
+        if fr is None and rr is not None and level < DEBUG \
+                and _live.current_request() is not None:
+            return rr.span(name, None, cat)
         return _NULL
     return _Span(tr, name, None, cat, args, level=level)
 
@@ -355,6 +378,11 @@ def instant(name: str, cat: str = "runtime", args: Optional[dict] = None,
     fr = _flight._REC
     if fr is not None and level < DEBUG:
         fr.instant(name, cat, args)
+    elif level < DEBUG:
+        rr = _reqtrace._REC
+        if rr is not None:
+            rr.feed(name, cat, time.perf_counter_ns(), -1, args,
+                    _live.current_query_id())
 
 
 def emit_span(name: str, t0_ns: int, dur_ns: int, cat: str = "exec",
@@ -367,6 +395,11 @@ def emit_span(name: str, t0_ns: int, dur_ns: int, cat: str = "exec",
     fr = _flight._REC
     if fr is not None and level < DEBUG:
         fr.record(name, cat, t0_ns, dur_ns, args)
+    elif level < DEBUG:
+        rr = _reqtrace._REC
+        if rr is not None:
+            rr.feed(name, cat, t0_ns, dur_ns, args,
+                    _live.current_query_id())
 
 
 def on_task_complete(ctx) -> None:

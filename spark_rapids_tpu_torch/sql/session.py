@@ -190,6 +190,11 @@ class TorchSession:
         compile_cache.configure(self.conf)
         kernel_audit.configure(self.conf)
         warmup.maybe_arm(self)
+        # the serving layer (spark.rapids.serving.*): POST /sql on the obs
+        # endpoint, the result cache, the warm-boot wait. Installs after
+        # warmup arms, so a warm-boot server can wait on the replay
+        from spark_rapids_tpu_torch.runtime import serving
+        serving.maybe_install(self)
 
     def _activate(self) -> None:
         """Make this session's conf the thread's, as the JAX package's

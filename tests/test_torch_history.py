@@ -782,9 +782,10 @@ def test_config_keys_registered_at_jax_defaults():
     for key in ("spark.rapids.obs.historyDir",
                 "spark.rapids.sql.adaptive.measuredCost.enabled"):
         assert PC.registry()[key].default == JC.registry()[key].default
-    # 99 keys, the stage fusion and shape-ladder keys, then the audit,
-    # compile and profile keys
-    assert len(PC.keys()) == 112
+    # 99 keys, the stage fusion and shape-ladder keys, the audit,
+    # compile and profile keys, then the reqtrace and serving keys: all
+    # of the JAX package's 129 but spark.rapids.sql.multichip.*
+    assert len(PC.keys()) == 127
     for key in ("spark.rapids.sql.stageFusion.enabled",
                 "spark.rapids.compile.shapes.growthFactor",
                 "spark.rapids.compile.shapes.dtypeAlign",

@@ -38,6 +38,9 @@ EDGES = np.array([-2 ** 31, -1, 0, 1, 2 ** 31 - 1], np.int32)
 
 def _port_sources():
     out = [os.path.join(ROOT, "chip_smoke.py")]
+    tools = os.path.join(ROOT, "tools")
+    out.extend(os.path.join(tools, f) for f in os.listdir(tools)
+               if f.startswith("torch_") and f.endswith(".py"))
     for d, _, files in os.walk(PKG):
         out.extend(os.path.join(d, f) for f in files if f.endswith(".py"))
     return sorted(out)

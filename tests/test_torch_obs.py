@@ -7,11 +7,11 @@ cross-thread correlation, the sampler, /queries and /healthz) and
 tests/test_flight.py (the rings, the dumps and their triggers, the SLO
 detector) that are not bound to the history store, attribution, EXPLAIN
 ANALYZE, fusion, compilation or serving, run against the port (those are
-tests/test_torch_history.py's and later items'). Parity cases run one
-program through both packages with obs on: the same
-``rapids_queries_total`` by status and ``rapids_tasks_*`` counts, the
-same instrument roster less the names ROADMAP.md leaves to A11e-A11f,
-the same live-state sequence and the same flight-dump triggers. Then the
+tests/test_torch_history.py's, tests/test_torch_kernel_audit.py's and
+tests/test_torch_serving.py's). Parity cases run one program through
+both packages with obs on: the same ``rapids_queries_total`` by status
+and ``rapids_tasks_*`` counts, the same instrument roster, the same
+live-state sequence and the same flight-dump triggers. Then the
 port's own: the liveness probe (on the CPU, its op runs on the CPU; the
 side-stream form is tests/test_torch_obs_card.py's), positive ids with
 obs on and negative ones with it off, and the same rows with the live
@@ -64,15 +64,14 @@ ROSTER = ("rapids_semaphore_wait_ns_total",
           "rapids_spill_to_host_bytes_total", "rapids_retries_total",
           "rapids_query_wall_time_ms", "rapids_tasks_completed_total")
 
-#: the JAX package's preregistered instruments that later items bring
-#: (ROADMAP.md A11e-A11f lists them; the keyed stage cache's
-#: rapids_compile_cache_* gauges came with A11e's first part)
-LATER = {
+#: the serving layer's instruments (ROADMAP.md A11f, the last item to
+#: bring preregistered instruments)
+SERVING_INSTRUMENTS = {
     "rapids_serving_requests_total", "rapids_serving_rejected_total",
     "rapids_result_cache_hits_total", "rapids_result_cache_misses_total",
     "rapids_result_cache_evictions_total",
     "rapids_result_cache_bypasses_total",
-    "rapids_serving_request_ms",                        # A11f
+    "rapids_serving_request_ms",
 }
 
 #: the live layer switched off: the plain version of this slice
@@ -373,8 +372,8 @@ def test_endpoint_scrape_and_healthz_flip(wedged_probe):
 
 def test_serving_routes_answer_as_when_serving_is_off():
     """``/serving`` and ``POST /sql`` give the JAX package's answers
-    while its serving layer is not installed (A11f); a cancel of an id
-    not in flight is a 404."""
+    while the serving layer is not installed; a cancel of an id not in
+    flight is a 404."""
     port = _free_port()
     _session({"spark.rapids.obs.port": str(port)})
     assert _get(f"http://127.0.0.1:{port}/serving")[0] == 404
@@ -1208,27 +1207,25 @@ def test_roster_equals_jax_less_later_items():
     jreg, preg = JaxRegistry(), MetricsRegistry()
     jax_pre(jreg)
     obs._preregister(preg)
-    assert LATER <= names(jreg)
-    assert names(preg) == names(jreg) - LATER
-    jlabels = {k for k in jreg._metrics if k[0] not in LATER}
-    assert set(preg._metrics) == jlabels
+    assert SERVING_INSTRUMENTS <= names(preg)
+    assert names(preg) == names(jreg)
+    assert set(preg._metrics) == set(jreg._metrics)
 
 
 def test_config_keys_and_defaults_equal_jax():
     from spark_rapids_tpu import config as JC
 
     from spark_rapids_tpu_torch import config as PC
-    later = ("reqtrace.",)
     want = {k: JC._REGISTRY[k].default for k in JC._REGISTRY
-            if k.startswith("spark.rapids.obs.")
-            and not any(k[len("spark.rapids.obs."):].startswith(x)
-                        for x in later)}
+            if k.startswith("spark.rapids.obs.")}
     got = {k: PC._REGISTRY[k].default for k in PC.keys()
            if k.startswith("spark.rapids.obs.")}
-    assert len(got) == 24 and set(got) == set(want)
+    assert len(got) == 30 and set(got) == set(want)
     import tempfile
     want["spark.rapids.obs.flight.path"] = os.path.join(
         tempfile.gettempdir(), "rapids_tpu_flight")
+    want["spark.rapids.obs.reqtrace.path"] = os.path.join(
+        tempfile.gettempdir(), "rapids_tpu_reqtrace")
     # the stated exceptions: the roofline peaks are the H100 SXM's (data
     # sheet, 700 W), not the TPU's 819 GB/s and 197 TFLOP/s
     assert (want.pop("spark.rapids.obs.audit.peakGbps"),

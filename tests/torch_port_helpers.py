@@ -1762,8 +1762,9 @@ def reset_torch_runtime() -> None:
     the deadline sweeper, the per-query task totals, the thread's
     query binding, the live layer (the obs registry, endpoint and
     sampler thread, the live query registry, the flight recorder), the
-    kernel cost auditor (disarmed, its records kept), the warmup manager
-    and the kernel build directory."""
+    per-request recorder and this thread's request binding, the serving
+    layer's query server, the kernel cost auditor (disarmed, its records
+    kept), the warmup manager and the kernel build directory."""
     from spark_rapids_tpu_torch import config as TC
     from spark_rapids_tpu_torch.runtime import faults, lifecycle, task
     from spark_rapids_tpu_torch.runtime import watchdog
@@ -1784,6 +1785,11 @@ def reset_torch_runtime() -> None:
     from spark_rapids_tpu_torch.runtime.obs import flight
     obs.shutdown_for_tests()
     flight.uninstall_for_tests()
+    from spark_rapids_tpu_torch.runtime import serving
+    from spark_rapids_tpu_torch.runtime.obs import live, reqtrace
+    reqtrace.uninstall_for_tests()
+    live.bind_request(None)
+    serving.reset_for_tests()
     from spark_rapids_tpu_torch.analysis import kernel_audit
     from spark_rapids_tpu_torch.runtime import compile_cache, warmup
     kernel_audit.reset_for_tests()
