@@ -458,6 +458,20 @@ Phases, one JSON line each:
    peak memory, launches, status, summed task accumulators and spill
    counters; after each, every semaphore permit is back, no cancel token
    is left and no spillable handle outlives the live caches.
+19. multichip (after the runtime phase): the mesh on one card.
+   Under parallel.mesh.virtual_devices(4) (cuda:0 four times) and
+   spark.rapids.sql.multichip.enabled, lineitem's fixed-width columns
+   cached in 4 partitions: q72shfl (its key cast to int32) and repart_agg
+   plan as partial -> ShuffleExchangeExec by the group keys -> final,
+   and every exchange runs the mesh's lane exchange (ICI: B1 hashes the
+   int32 keys in its count pass, iciExchangeTime > 0; B2 sums), and
+   bench_multichip's q6_scan chain is one ShardedStageExec (one call a
+   wave for the 4 shards), its batches reduced on the card. Each answer
+   equals the one-device session's and pyarrow's; cold and one warm run,
+   then a profiled run (device ms, idle share) and an audited run of
+   q6_scan (the shard skew); prints warm ms, peak GB, stageDispatches a
+   wave, iciExchangeTime, B1/B2 launches a run. Fails if B1 does not
+   launch under the sharded plan.
 17e. pipeline (right after the decode phase, on the files earlier phases
    wrote): spark.rapids.sql.pipeline.enabled is on by default, so every
    other phase's file and in-memory scans already run behind a
@@ -491,7 +505,9 @@ and q3join_shuffled in one round (not two), and rt_degrade runs over the
 first 500,000 lines (not 1M); with the audit phase the formats phase
 runs its six host-bound file queries cold only (FORMATS_COLD_ONLY), the
 Hive text round trip takes 250,000 lines (not 1M) and the udf phase's
-row tier 500,000 (not 1M).
+row tier 500,000 (not 1M); with the multichip phase the nested phase
+runs its five host-bound queries cold only (NESTED_COLD_ONLY) and the
+fusion phase times off and on in one turn each (not two).
 Every query path runs in test mode (spark.rapids.sql.test.enabled): an
 operator that planning tags off the card fails the query, except the one
 node each fallback query names in spark.rapids.sql.test.allowedNonTpu.
@@ -5130,15 +5146,19 @@ def phase_nested(table, orders, h1, tmp_dir, spy, prof=None):
         t0 = time.perf_counter()
         got = fn()
         cold = time.perf_counter() - t0
-        # one warm run: the second was cut to pay for the pipeline phase
-        t0 = time.perf_counter()
-        fn()
-        warm = [time.perf_counter() - t0]
+        # one warm run (the second was cut to pay for the pipeline phase),
+        # none for the host-bound queries (cut for the multichip phase)
+        warm = []
+        if name not in NESTED_COLD_ONLY:
+            t0 = time.perf_counter()
+            fn()
+            warm = [time.perf_counter() - t0]
+        runs = 1 + len(warm)
         good, how = validate_nested(name, got, ref[name])
         counts = spy.take()
-        routes = {k: v // 2 for k, v in counts.items()}
+        routes = {k: v // runs for k, v in counts.items()}
         execs = _exec_names(session)
-        launches = {k: (v - before[k]) // 2
+        launches = {k: (v - before[k]) // runs
                     for k, v in read_launches().items()}
         cpu_nodes = [type(m.plan).__name__ for m in session.last_meta.walk()
                      if not m.can_run_on_tpu]
@@ -5152,7 +5172,7 @@ def phase_nested(table, orders, h1, tmp_dir, spy, prof=None):
         e_launch = {k: NESTED_LAUNCHES.get(name, {}).get(k, 0)
                     for k in launches}
         if not e_ops <= set(execs) or routes != e_routes \
-                or any(v % 2 for v in counts.values()) \
+                or any(v % runs for v in counts.values()) \
                 or cpu_nodes != e_cpu or forms != e_forms:
             problems.append(f"{name} ran {execs} with routes {routes}, "
                             f"CPU nodes {cpu_nodes} and Expand forms "
@@ -5161,8 +5181,10 @@ def phase_nested(table, orders, h1, tmp_dir, spy, prof=None):
             problems.append(f"{name} launched {launches}, expected "
                             f"{e_launch}")
         emit({"phase": "nested.query", "query": name, "correct": good,
-              "check": how, "cold_s": cold, "warm_s": min(warm),
-              "warm_ms": min(warm) * 1e3, "launches": launches,
+              "check": how, "cold_s": cold,
+              "warm_s": min(warm) if warm else None,
+              "warm_ms": min(warm) * 1e3 if warm else None,
+              "launches": launches,
               "routes": routes, "execs": execs, "cpu_nodes": cpu_nodes,
               "expand_stacked": forms, "fallback": fallback,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
@@ -5177,6 +5199,13 @@ def phase_nested(table, orders, h1, tmp_dir, spy, prof=None):
         raise AssertionError(f"murmur3 and segsum must run on the nested "
                              f"path: {counts}")
     return counts, n1
+
+
+#: nested queries run cold only: each run is 0.5-3.1 s of host work (the
+#: CPU steps' Python objects, the row queries' host lists; cut to pay for
+#: the multichip phase)
+NESTED_COLD_ONLY = ("nx_array_rows", "nx_struct_map", "nx_cpu_collections_fb",
+                    "nx_sibling_fb", "ingest_generate")
 
 
 # ---------------------------------------------------------------------------
@@ -7429,7 +7458,9 @@ def phase_fusion(want, fwant, h1, pq_path, tmp_dir, prof=None):
 
         for mode in ("off", "on"):  # cold
             answers[mode] = _fusion_answer(name, run(mode))
-        for _ in range(WARM_RUNS + 1):  # warm, off and on in turns
+        # warm, off and on in turns: one turn each (two until the
+        # multichip phase came)
+        for _ in range(WARM_RUNS):
             for mode in ("off", "on"):
                 before = read_launches()
                 torch.cuda.synchronize()
@@ -9045,6 +9076,214 @@ def launch_bytes(name, *a):
     return 2 * raw.numel()
 
 
+# ---------------------------------------------------------------------------
+# the multichip phase: the mesh on one card (virtual_devices)
+# ---------------------------------------------------------------------------
+
+#: shards on the mesh: cuda:0 repeated under virtual_devices, so the lane
+#: exchange and the multi-device aggregate plan run on a one-card machine
+MULTICHIP_SHARDS = 4
+MULTICHIP_CONF = {"spark.rapids.sql.multichip.enabled": "true"}
+#: id(cached frame) -> q6_scan's last root (it runs outside collect)
+MULTICHIP_ROOTS = {}
+
+
+def multichip_queries(df):
+    """bench.py's q72shfl (its grouping keyed on an int32 column, so the
+    exchange hashes with B1) and repart_agg over the 4-partition cache,
+    and bench_multichip's q6_scan chain over lineitem's columns."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.expr.core import col, lit
+    from spark_rapids_tpu_torch.sql import functions as F
+
+    def q72shfl():
+        k = (col("l_orderkey") % lit(100_000)).cast(T.INT32).alias("k")
+        d = (df.select(k, col("l_quantity")).group_by(col("k"))
+             .agg(F.sum("l_quantity").alias("s"),
+                  F.count("l_quantity").alias("c"))).to_pydict()
+        return {k: (s, c) for k, s, c in zip(d["k"], d["s"], d["c"])}
+
+    def repart_agg():
+        d = (df.select(col("l_shipdate"), col("l_quantity"))
+             .repartition(MULTICHIP_SHARDS, col("l_shipdate"))
+             .group_by(col("l_shipdate"))
+             .agg(F.sum("l_quantity").alias("s"),
+                  F.count("l_quantity").alias("c"))).to_pydict()
+        return {k: (s, c) for k, s, c in zip(d["l_shipdate"], d["s"], d["c"])}
+
+    def q6_scan():
+        # a two-filter, two-projection chain and no exchange: one sharded
+        # stage, whose batches are reduced on the card where they land
+        # (no download); the root stays in MULTICHIP_ROOTS for its metrics
+        import torch
+        out = (df.filter(col("l_shipdate") % lit(3) != lit(1))
+               .select(col("l_orderkey"),
+                       (col("l_quantity") * lit(2.0) + lit(1.0)).alias("q2"),
+                       (col("l_discount") * lit(0.5) + lit(1.0)).alias("dh"))
+               .filter(col("l_orderkey") % lit(7) != lit(0))
+               .select((col("l_orderkey") + lit(1)).alias("k1"), col("q2"),
+                       (col("dh") * col("dh")).alias("dsq")))
+        root, _ = df.session.prepare_execution(out.plan)
+        MULTICHIP_ROOTS[id(df)] = root
+
+        def reduce(b):
+            live = b.live_mask()
+            return torch.stack(
+                [live.sum(dtype=torch.float64)]
+                + [torch.where(live, c.data.to(torch.float64), 0.0).sum()
+                   for c in b.columns])
+        parts = df.session.run_partitions(root, reduce)
+        tot = torch.stack(parts).sum(0).tolist()
+        return (int(tot[0]),) + tuple(float(x) for x in tot[1:])
+
+    return {"q72shfl": q72shfl, "repart_agg": repart_agg,
+            "q6_scan": q6_scan}
+
+
+def q6_scan_reference(t):
+    ship = t["l_shipdate"].to_numpy()
+    ok = t["l_orderkey"].to_numpy()
+    keep = (ship % 3 != 1) & (ok % 7 != 0)
+    q2 = t["l_quantity"].to_numpy()[keep] * 2.0 + 1.0
+    dh = t["l_discount"].to_numpy()[keep] * 0.5 + 1.0
+    return (int(keep.sum()), float((ok[keep] + 1).sum(dtype=np.float64)),
+            float(q2.sum()), float((dh * dh).sum()))
+
+
+def validate_multichip(name, got, want) -> bool:
+    if name == "q6_scan":
+        return got[0] == want[0] and all(
+            _close(a, b, 1e-9) for a, b in zip(got[1:], want[1:]))
+    return validate("repart_agg", got, want)
+
+
+def _multichip_metrics(root):
+    """stageDispatches per wave, shard waves and iciExchangeTime (ms) of
+    a run's operator tree, and its sharded and exchange operators."""
+    waves = disp = ici = 0
+    for n in root.walk():
+        if type(n).__name__ == "ShardedStageExec":
+            waves += n.metrics.metric("shardWaves").value
+            disp += n.metrics.metric("stageDispatches").value
+        if type(n).__name__ == "ShuffleExchangeExec":
+            ici += n.metrics.metric("iciExchangeTime").value
+    names = [type(n).__name__ for n in root.walk()]
+    return {"shard_waves": waves,
+            "stage_dispatches_per_wave": disp / waves if waves else None,
+            "ici_exchange_ms": ici / 1e6,
+            "sharded_stages": names.count("ShardedStageExec"),
+            "shuffle_exchanges": names.count("ShuffleExchangeExec"),
+            "agg_modes": [n.mode for n in root.walk()
+                          if type(n).__name__ == "HashAggregateExec"]}
+
+
+def phase_multichip(table, want, tmp_dir):
+    """The mesh on one card: under virtual_devices(4) on cuda:0 and
+    spark.rapids.sql.multichip.enabled, q72shfl and repart_agg plan as
+    partial -> lane exchange -> final (B1 hashes the int32 keys in the
+    exchange's count pass, B2 sums) and q6_scan as one ShardedStageExec.
+    Each answer is held to pyarrow's and to a one-device session's,
+    planned outside virtual_devices (one card: no lane exchange), whose
+    runs come first. The path's launches are the sharded cold and warm
+    runs' alone; then one profiled run (device ms, idle share) and one
+    audited run of q6_scan (the shard skew)."""
+    import torch
+    from spark_rapids_tpu_torch.parallel.mesh import virtual_devices
+    t0 = time.perf_counter()
+    ref = {"q72shfl": want["q72shfl_groups"],
+           "repart_agg": want["repart_agg"],
+           "q6_scan": q6_scan_reference(table)}
+    host_s = time.perf_counter() - t0
+    problems, per_query = [], {}
+    # the one-device answers first, outside the mesh
+    t0 = time.perf_counter()
+    d1 = device_session().create_dataframe(
+        table, num_partitions=MULTICHIP_SHARDS).cache()
+    if d1.count() != table.num_rows:
+        raise AssertionError("multichip one-device cache count")
+    single = {name: fn() for name, fn in multichip_queries(d1).items()}
+    torch.cuda.synchronize()
+    one_device_s = time.perf_counter() - t0
+    MULTICHIP_ROOTS.clear()
+    d1 = None
+    with virtual_devices(MULTICHIP_SHARDS):
+        s4 = device_session(MULTICHIP_CONF)
+        t0 = time.perf_counter()
+        d4 = s4.create_dataframe(table, num_partitions=MULTICHIP_SHARDS
+                                 ).cache()
+        if d4.count() != table.num_rows:
+            raise AssertionError("multichip cache count")
+        torch.cuda.synchronize()
+        cache_s = time.perf_counter() - t0
+        counts = dict.fromkeys(read_launches(), 0)
+        for name, fn in multichip_queries(d4).items():
+            reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            got = fn()
+            torch.cuda.synchronize()
+            cold = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            warm = time.perf_counter() - t0
+            # the path's count: the sharded cold and warm runs only
+            ran = read_launches()
+            for k, v in ran.items():
+                counts[k] += v
+            launches = {k: v // 2 for k, v in ran.items()}
+            metrics = _multichip_metrics(MULTICHIP_ROOTS.get(id(d4))
+                                         if name == "q6_scan"
+                                         else s4.last_exec)
+            _, prof = profiled_run(fn, os.path.join(tmp_dir, "mc.json"))
+            good = validate_multichip(name, got, ref[name]) \
+                and validate_multichip(name, got, single[name])
+            if not good:
+                problems.append(f"{name} disagrees with the one-device "
+                                f"session or pyarrow")
+            if name != "q6_scan" and (launches["murmur3_int32"] <= 0
+                                      or metrics["ici_exchange_ms"] <= 0):
+                problems.append(f"{name}: no B1 launch or no lane exchange "
+                                f"under the sharded plan: {launches}, "
+                                f"{metrics}")
+            if name == "q6_scan" and metrics["sharded_stages"] != 1:
+                problems.append(f"q6_scan planned {metrics}")
+            per_query[name] = {
+                "correct": good, "cold_ms": cold * 1e3, "warm_ms": warm * 1e3,
+                "profiled_wall_ms": prof["wall_ms"],
+                "device_ms": prof["device_ms"],
+                "device_idle_share": prof["device_idle_share"],
+                "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "launches": launches, **metrics}
+            emit({"phase": "multichip.query", "query": name,
+                  **per_query[name]})
+        # one audited run of q6_scan: the auditor's per-wave shard rows
+        from spark_rapids_tpu_torch.analysis import kernel_audit as KA
+        sa = device_session({**MULTICHIP_CONF,
+                             "spark.rapids.obs.audit.enabled": "true"})
+        da = sa.create_dataframe(table, num_partitions=MULTICHIP_SHARDS)
+        KA.on_query_start(sa.conf)
+        try:
+            multichip_queries(da)["q6_scan"]()
+        finally:
+            summary = KA.finish_query()
+            KA.set_enabled(False)
+        shards = (summary or {}).get("shards")
+        MULTICHIP_ROOTS.clear()
+        da = d4 = None
+    reset_launches()
+    if not shards or shards["n_shards"] != MULTICHIP_SHARDS:
+        problems.append(f"no shard skew from the audited run: {shards}")
+    emit({"phase": "multichip", "shards": MULTICHIP_SHARDS,
+          "host_reference_s": host_s, "one_device_s": one_device_s,
+          "cache_s": cache_s,
+          "launches": counts, "shard_skew": shards,
+          "correct": not problems, "problems": problems})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return counts
+
+
 class KernelProfile:
     """CHIP_SMOKE_PROFILE=1: one warm run of each query of every path under
     torch.profiler, after the path's checks. Per query: the device time
@@ -9341,6 +9580,10 @@ def main(argv) -> int:
         fwant = fusion_reference(table)
         phases["fusion_reference_s"] = time.perf_counter() - t0
         serving_want = serving_reference(table)
+        # the multichip phase takes the fixed-width columns only: a string
+        # column in the stage's input keeps it one-device (ragged planes
+        # cannot pack), as in the JAX package
+        mc_table = table.drop(["l_returnflag", "l_linestatus"])
         del table, orders
         gc.collect()
         t0 = time.perf_counter()
@@ -9398,6 +9641,9 @@ def main(argv) -> int:
         runtime = phase_runtime(want, small, swant, h1, h8, path, tmp_dir,
                                 caches, spy)
         phases["runtime_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        multichip = phase_multichip(mc_table, want, tmp_dir)
+        phases["multichip_s"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp_dir, ignore_errors=True)
     for r in rows:
@@ -9421,7 +9667,8 @@ def main(argv) -> int:
                    "fusion": fusion[r["name"]],
                    "audit": audit[r["name"]],
                    "serving": served[r["name"]],
-                   "runtime": runtime[r["name"]]}
+                   "runtime": runtime[r["name"]],
+                   "multichip": multichip[r["name"]]}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
     if prof:

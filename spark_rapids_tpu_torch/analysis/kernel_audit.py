@@ -171,6 +171,12 @@ _BUILT_ARMED: set = set()
 #: pattern, with its concurrent-queries limit)
 _AGG: Optional[Dict[Tuple, int]] = None
 
+#: the ACTIVE query's per-wave shard row tallies: (n_shards, rows), rows
+#: the unresolved [n_shards] tensor of live output rows a shard
+#: (exec/sharded.py notes one a wave, with no sync on the dispatch path;
+#: finish_query reads them all at once)
+_SHARD_NOTES: List[Tuple[int, object]] = []
+
 _FINDINGS: List[str] = []
 
 _STATS = {"audited_shapes": 0, "resolved": 0, "resolve_failures": 0}
@@ -221,6 +227,7 @@ def reset_for_tests(drop_records: bool = False) -> None:
     with _LOCK:
         _AGG = None
         del _FINDINGS[:]
+        del _SHARD_NOTES[:]
         if drop_records:
             _RECORDS.clear()
             _BUILT_ARMED.clear()
@@ -690,11 +697,52 @@ def on_query_start(conf=None) -> None:
         return
     with _LOCK:
         _AGG = {}
+        del _SHARD_NOTES[:]  # a query that never finished must not leak
 
 
-# A12: note_shards and _resolve_shards (the per-shard row skew of a
-# sharded stage's waves, the summary's conditional "shards" key) come with
-# multi-GPU execution.
+def collecting() -> bool:
+    """Whether a query is being tallied (``note_shards`` keeps a note):
+    the sharded stage builds its per-shard rows only then."""
+    return _AGG is not None
+
+
+def note_shards(n_shards: int, rows) -> None:
+    """One wave of a sharded stage (``exec/sharded.py``): tally the
+    per-shard live output rows into the active query. ``rows`` is the
+    [n_shards] tensor, stored unresolved so the dispatch path never
+    syncs. No active query, or a warmup replay's thread: dropped."""
+    if _AGG is None:
+        return
+    from spark_rapids_tpu_torch.runtime.obs import attribution as _attr
+    if _attr.thread_suppressed():
+        return
+    with _LOCK:
+        if _AGG is not None:
+            _SHARD_NOTES.append((int(n_shards), rows))
+
+
+def _resolve_shards(notes: List[Tuple[int, object]]) -> Optional[dict]:
+    """Fold the per-wave shard row vectors into the skew document the
+    roofline table and EXPLAIN ANALYZE print (read off the dispatch
+    path)."""
+    if not notes:
+        return None
+    n_shards = max(n for n, _r in notes)
+    totals = [0] * n_shards
+    try:
+        for _n, r in notes:
+            vals = r.tolist() if hasattr(r, "tolist") else list(r)
+            for i, v in enumerate(vals[:n_shards]):
+                totals[i] += int(v)
+    except Exception:  # noqa: BLE001 - an unreadable vector drops the
+        return None  # skew column, never the query
+    mean = sum(totals) / n_shards if n_shards else 0.0
+    return {
+        "n_shards": int(n_shards),
+        "waves": len(notes),
+        "rows_per_shard": totals,
+        "skew": round(max(totals) / mean, 4) if mean > 0 else 0.0,
+    }
 
 
 def finish_query() -> Optional[dict]:
@@ -704,10 +752,17 @@ def finish_query() -> Optional[dict]:
     global _AGG
     with _LOCK:
         agg, _AGG = _AGG, None
+        shard_notes, _SHARD_NOTES[:] = list(_SHARD_NOTES), []
     resolve_pending()
     if not agg:
         return None
-    return _summarize(agg)
+    summary = _summarize(agg)
+    shards = _resolve_shards(shard_notes)
+    if shards is not None:
+        # a conditional key: one-device summaries never carry it, so the
+        # golden cost signatures stay as they are
+        summary["shards"] = shards
+    return summary
 
 
 _CLASS_KEYS = ("dispatches", "entries", "shapes", "flops", "bytes_accessed",
@@ -901,7 +956,7 @@ def roofline(summary: Optional[dict], snaps: Optional[Dict[str, dict]],
     tot_bytes = sum(g["bytes_accessed"] for g in groups.values())
     tot_flops = sum(g["flops"] for g in groups.values())
     tot_secs = sum(g["seconds"] for g in groups.values())
-    return {
+    doc = {
         "wall_seconds": round(int(duration_ns) / 1e9, 9),
         "peak_gbps": _PEAK_GBPS,
         "peak_gflops": _PEAK_GFLOPS,
@@ -929,6 +984,11 @@ def roofline(summary: Optional[dict], snaps: Optional[Dict[str, dict]],
             if _PEAK_GFLOPS else None,
         } for family, c in sorted(summary["classes"].items())},
     }
+    shards = summary.get("shards")
+    if shards is not None:
+        # the per-shard skew column (sharded runs only)
+        doc["shards"] = shards
+    return doc
 
 
 def render_text(doc: Optional[dict], width: int = 24) -> List[str]:
@@ -956,6 +1016,13 @@ def render_text(doc: Optional[dict], width: int = 24) -> List[str]:
             f"({t['roofline_pct_bw']:>6.3f}% roofline) "
             f"over {sum(g['dispatches'] for g in doc['groups'].values())}"
             f" audited dispatches")
+    sh = doc.get("shards")
+    if sh:
+        rows = sh.get("rows_per_shard") or []
+        lines.append(
+            f"  {'shards':<15} n={sh['n_shards']} "
+            f"waves={sh['waves']} skew={sh['skew']:.2f}x "
+            f"rows/shard=[{', '.join(str(r) for r in rows)}]")
     return lines
 
 

@@ -215,6 +215,48 @@ def batch_to(batch: ColumnarBatch, device) -> ColumnarBatch:
     return map_planes(batch, lambda t: t.to(device))
 
 
+def _pad_plane(p: torch.Tensor, cap: int, device) -> torch.Tensor:
+    p = p.to(device, non_blocking=True)
+    if p.shape[0] >= cap:
+        return p
+    return torch.cat([p, torch.zeros(cap - p.shape[0], dtype=p.dtype,
+                                     device=device)])
+
+
+def pad_batch_to(batch: Optional[ColumnarBatch], cap: int, device,
+                 like: Optional[ColumnarBatch] = None) -> ColumnarBatch:
+    """A fixed-width (or dict-string) batch as ``cap`` rows on ``device``:
+    every plane padded with zeros, dead rows. Each column gets a validity
+    plane (all set where it had none: dead rows are dead by the live
+    mask). ``batch`` None is an all-dead batch with ``like``'s columns,
+    plane dtypes and dict vocabularies. The mesh's shards are built so:
+    the sharded stage's packed slots and the lane exchange's sources."""
+    src = batch if batch is not None else like
+    cols = []
+    for c in src.columns:
+        raw = c.data["codes"] if c.is_dict else c.data
+        if batch is None:
+            data = torch.zeros(cap, dtype=raw.dtype, device=device)
+            valid = torch.zeros(cap, dtype=torch.bool, device=device)
+        else:
+            data = _pad_plane(raw, cap, device)
+            valid = _pad_plane(
+                c.validity if c.validity is not None
+                else torch.ones(raw.shape[0], dtype=torch.bool,
+                                device=raw.device), cap, device)
+        if c.is_dict:
+            data = {"codes": data,
+                    "dict_offsets": c.data["dict_offsets"].to(device),
+                    "dict_bytes": c.data["dict_bytes"].to(device)}
+        cols.append(ColumnVector(c.dtype, data, valid,
+                                 dict_unique=c.dict_unique))
+    if batch is None:
+        return ColumnarBatch(cols, 0, torch.zeros(cap, dtype=torch.bool,
+                                                  device=device))
+    return ColumnarBatch(cols, batch.num_rows,
+                         _pad_plane(batch.live_mask(), cap, device))
+
+
 # ---------------------------------------------------------------------------
 # Arrow in and out
 # ---------------------------------------------------------------------------

@@ -418,8 +418,10 @@ SHUFFLE_MODE = _register(
     "device partitioning's sub-batches serialize through the kudo wire "
     "format (shuffle/serde.py) into a spillable host store (parallel "
     "writers, compression, disk overflow) and deserialize lazily at read "
-    "time; ICI: the interconnect exchange, which on one card falls "
-    "through to the device exchange (ROADMAP A12) "
+    "time; ICI: the mesh exchange (parallel/exchange.py: one lane a "
+    "(source, destination) pair, sized by one count pass), taken when "
+    "the mesh holds at least as many devices as output partitions, "
+    "else the device exchange "
     "(reference RapidsConf.scala:1767 UCX|CACHE_ONLY|MULTITHREADED).",
     str)
 
@@ -887,6 +889,24 @@ STAGE_FUSION_ENABLED = _register(
     "fails to build falls back to the unfused chain; an error raised "
     "while a batch runs propagates.", _bool_conv)
 
+MULTICHIP_ENABLED = _register(
+    "spark.rapids.sql.multichip.enabled", False,
+    "Shard whole fused stages across the `part` axis of the device mesh "
+    "(parallel/mesh.py) and run them as one call a device a wave of "
+    "partition batches (exec/sharded.py), with the hash exchange running "
+    "as the mesh's lane exchange (parallel/exchange.py) instead of the "
+    "device exchange. Stages the planner cannot shard (carries, LIMIT "
+    "early exit, flat string planes) stay on the one-device fused path. "
+    "Stage-cache keys gain a mesh fingerprint while this is on, so "
+    "sharded and one-device functions never collide.", _bool_conv)
+
+MULTICHIP_DEVICES = _register(
+    "spark.rapids.sql.multichip.devices", 0,
+    "Devices to place on the `part` axis of the execution mesh when "
+    "multichip is enabled: 0 means every visible device, any other value "
+    "is clamped to what the process has. 1 is a valid degenerate mesh: "
+    "the whole shard and wave machinery runs over a single device.", int)
+
 BATCH_CAPACITY_MIN = _register(
     "spark.rapids.tpu.batchCapacityMinRows", 1024,
     "Minimum padded row capacity of a device batch; capacities are rounded "
@@ -1010,6 +1030,8 @@ class RapidsConf:
         if key in _REGISTRY and isinstance(value, str):
             value = _REGISTRY[key].conv(value)
         self._values[key] = value
+        # the stage cache's conf fingerprint is memoized on the conf
+        self.__dict__.pop("_compile_fp", None)
         return self
 
     def is_op_enabled(self, op_key: str) -> bool:

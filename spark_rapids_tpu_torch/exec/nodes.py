@@ -84,7 +84,7 @@ from spark_rapids_tpu_torch import config as C
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import (
     ColumnVector, ColumnarBatch, LazyRowCount, column_from_arrow, from_arrow,
-    round_capacity, to_arrow,
+    pad_batch_to, round_capacity, to_arrow,
 )
 from spark_rapids_tpu_torch.exec import compiled
 from spark_rapids_tpu_torch.exec import cpu_backend as CPU
@@ -580,7 +580,7 @@ class DeviceDecodeScanExec(TorchExec):
     stays the host int the source knew, so no device read is needed for
     it."""
 
-    def stage_body(self) -> fuse.StageBody:
+    def stage_body(self, device=None) -> fuse.StageBody:
         return device_decode_stage_body()
 
     def execute_partition(self, pidx):
@@ -909,9 +909,10 @@ class ProjectExec(TorchExec):
             idx.append(inner.index)
         return idx
 
-    def stage_body(self) -> fuse.StageBody:
+    def stage_body(self, device=None) -> fuse.StageBody:
         return project_stage_body(self.plan.exprs,
-                                  self.conf.get(C.ANSI_ENABLED), self.device,
+                                  self.conf.get(C.ANSI_ENABLED),
+                                  device or self.device,
                                   trivial=self._trivial_indices())
 
     def execute_partition(self, pidx):
@@ -945,9 +946,10 @@ class FilterExec(TorchExec):
     into one partition first, as the JAX package's CPU placement of it
     does."""
 
-    def stage_body(self) -> fuse.StageBody:
+    def stage_body(self, device=None) -> fuse.StageBody:
         return filter_stage_body(self.plan.condition,
-                                 self.conf.get(C.ANSI_ENABLED), self.device)
+                                 self.conf.get(C.ANSI_ENABLED),
+                                 device or self.device)
 
     def execute_partition(self, pidx):
         op_t = self.metrics.metric(M.FILTER_TIME)
@@ -1092,9 +1094,10 @@ class ExpandExec(TorchExec):
                  for e, dt in zip(proj, out_types)]
                 for proj in self.plan.projections]
 
-    def stage_body(self) -> fuse.StageBody:
+    def stage_body(self, device=None) -> fuse.StageBody:
         return expand_stage_body(self._proj_exprs(),
-                                 len(self.plan.schema.types), self.device)
+                                 len(self.plan.schema.types),
+                                 device or self.device)
 
     def execute_partition(self, pidx):
         projs = self._proj_exprs()
@@ -1547,8 +1550,8 @@ class _ExchangeExec(TorchExec):
 
 def shuffle_mode(conf) -> str:
     """spark.rapids.shuffle.mode, upper case: MULTITHREADED (the device
-    exchange), SERIALIZED, or ICI, which on one card takes the device
-    exchange, as the JAX package's does there (ROADMAP A12)."""
+    exchange), SERIALIZED, or ICI (``ShuffleExchangeExec``'s lane
+    exchange over the mesh, when the mesh holds enough devices)."""
     return str(conf.get(C.SHUFFLE_MODE)).strip().upper()
 
 
@@ -1567,7 +1570,15 @@ class ShuffleExchangeExec(_ExchangeExec):
     partition's blob order is the synchronous path's. Blobs page to disk
     past spark.rapids.shuffle.hostSpillBudget. Each output partition is
     then one ``_LazyShuffleBlobs``, decoded at read time. ``metrics``:
-    shuffleBytesWritten and shuffleBytesSpilled."""
+    shuffleBytesWritten and shuffleBytesSpilled.
+
+    ICI (spark.rapids.shuffle.mode=ICI, or any exchange under
+    spark.rapids.sql.multichip.enabled) needs at least n_out mesh devices
+    (``parallel/mesh.py``) and as many source partitions: one shard a
+    device, rows moved by the mesh's lane exchange
+    (``parallel/exchange.all_to_all_exchange``), each lane sized by one
+    count pass. Otherwise, and for flat string or nested columns, the
+    exchange is the device exchange above."""
 
     def __init__(self, plan, children, conf, device,
                  keys: List[Expression], n_out: int):
@@ -1578,8 +1589,9 @@ class ShuffleExchangeExec(_ExchangeExec):
         #: the serialized mode's store, once materialized
         self._store = None
 
-    def _pid_fn(self):
-        keys, n_out, device = self.keys, self.n_out, self.device
+    def _pid_fn(self, device=None):
+        keys, n_out = self.keys, self.n_out
+        device = device or self.device
 
         def pids(batch):
             live = batch.live_mask()
@@ -1599,6 +1611,191 @@ class ShuffleExchangeExec(_ExchangeExec):
         if shuffle_mode(self.conf) == "SERIALIZED":
             return self._repartition_serialized(batches)
         return self._partition_device(batches)
+
+    # -- the mesh's lane exchange (ICI) -------------------------------------
+
+    @property
+    def _ici_first(self) -> bool:
+        """The lane exchange is the shuffle whenever the session runs
+        sharded or asks for it outright."""
+        return shuffle_mode(self.conf) == "ICI" \
+            or bool(self.conf.get(C.MULTICHIP_ENABLED))
+
+    def _materialize(self):
+        if not self._ici_first:
+            return super()._materialize()
+        # the eligibility probe and the vocab alignment read the child's
+        # partitions whole: pull them first, as the JAX package does
+        with _materializing(self._lock):
+            if self._out is None:
+                self._masked = partitioning_mode(self.conf) == "masked"
+                results = _partitions(self.children[0])
+                out = None
+                if self._ici_eligible(results):
+                    with self.span(self.metrics.metric(M.PARTITION_TIME)):
+                        out = self._repartition_ici(results)
+                if out is None:
+                    out = self._partitioned(
+                        b for part in results for b in part)
+                self._out = out
+        return self._out
+
+    def _ici_eligible(self, child_results) -> bool:
+        from spark_rapids_tpu_torch.parallel.mesh import mesh_devices
+        # one cap-sized shard a device: as many sources as outputs
+        if len(child_results) != self.n_out or self.n_out < 2:
+            return False
+        if len(mesh_devices(like=self.device)) < self.n_out:
+            return False
+        for part in child_results:
+            for b in part:
+                for c in b.columns:
+                    if (c.is_string and not c.is_dict) or c.is_nested:
+                        return False  # variable-length payloads
+        # differing dict vocabularies are aligned, not rejected
+        return True
+
+    @staticmethod
+    def _align_vocabs(batches):
+        """Remap dict-string codes across shards onto one union
+        vocabulary so string keys ride the fixed-width lanes. Builds new
+        batches: the inputs may be cached batches."""
+        live = [b for b in batches if b is not None]
+        if not live:
+            return batches
+        new_cols = {i: list(b.columns) for i, b in enumerate(batches)
+                    if b is not None}
+        changed = False
+        for ci in range(len(live[0].columns)):
+            cols = [b.columns[ci] for b in live]
+            if not cols[0].is_dict:
+                continue
+            aligned = K.align_dict_columns(cols)
+            if aligned[0] is cols[0]:
+                continue
+            changed = True
+            li = 0
+            for i, b in enumerate(batches):
+                if b is None:
+                    continue
+                new_cols[i][ci] = aligned[li]
+                li += 1
+        if not changed:
+            return batches
+        return [None if b is None
+                else ColumnarBatch(new_cols[i], b.num_rows, b.row_mask)
+                for i, b in enumerate(batches)]
+
+    def _repartition_ici(self, child_results):
+        """One shard a mesh device: one count pass a source sizes the
+        lanes, then the lane exchange moves the rows. Output partition p
+        holds one batch per sending source (a lane's rows are its
+        prefix)."""
+        from spark_rapids_tpu_torch.parallel import exchange as PX
+        from spark_rapids_tpu_torch.parallel.mesh import mesh_devices
+        n = self.n_out
+        devices = list(mesh_devices(n, like=self.device))
+        batches = [K.compact_batch(K.concat_batches(part)) if part else None
+                   for part in child_results]
+        if not any(b is not None for b in batches):
+            return [[] for _ in range(n)]
+        batches = self._align_vocabs(batches)
+        live_parts = [b for b in batches if b is not None]
+        cap = max(round_capacity(max(int(b.num_rows), 1))
+                  for b in live_parts)
+        meta = []
+        for c in live_parts[0].columns:
+            if c.is_dict:
+                meta.append(("dict", c.dtype, c.data["dict_offsets"],
+                             c.data["dict_bytes"], c.dict_unique,
+                             c.data["codes"].dtype))
+            else:
+                meta.append(("fixed", c.dtype, None, None, True,
+                             c.data.dtype))
+        # the count pass: each source's target partitions (the partition
+        # hash, B1 for int32 keys) and its per-destination row counts,
+        # one call a source through the dispatch choke point, evaluated
+        # on the source's own device
+        def build_hash(dev):
+            pid_of = self._pid_fn(dev)
+
+            def build():
+                def f(batch):
+                    pid = pid_of(batch).to(torch.int64)
+                    live = batch.live_mask()
+                    counts = torch.zeros(n, dtype=torch.int64,
+                                         device=pid.device).index_add_(
+                        0, torch.where(live, pid, 0), live.to(torch.int64))
+                    return pid, counts
+                return f
+            return build
+
+        shards, targets, counts = [], [], []
+        for s, b in enumerate(batches):
+            sb = pad_batch_to(b, cap, devices[s], like=live_parts[0])
+            hfn = fuse.fused(
+                ("ici_hash", n, cap,
+                 tuple(e.fingerprint() for e in self.keys),
+                 tuple(str(m[5]) for m in meta), str(devices[s])),
+                build_hash(devices[s]))
+            pid, cnt = hfn(sb)
+            shards.append(sb)
+            targets.append(pid)
+            counts.append(cnt.to(self.device, non_blocking=True))
+        # one host read sizes the lanes: C = the most rows any source
+        # sends any destination, rounded to a capacity bucket
+        counts_host = torch.stack(counts).cpu().numpy()
+        send_cap = min(cap, round_capacity(max(int(counts_host.max()), 1)))
+        planes = []
+        for sb in shards:
+            p = {}
+            for ci, c in enumerate(sb.columns):
+                p[f"c{ci}"] = c.data["codes"] if isinstance(c.data, dict) \
+                    else c.data
+                p[f"c{ci}_v"] = c.validity
+            planes.append(p)
+        lives = [sb.live_mask() for sb in shards]
+        key = ("ici_exchange", n, cap, send_cap,
+               tuple((k, str(v.dtype)) for k, v in sorted(planes[0].items())),
+               tuple(str(d) for d in devices))
+
+        def build_exchange():
+            def f(pl, lv, tg):
+                return PX.all_to_all_exchange(pl, lv, tg, devices,
+                                              send_cap=send_cap)
+            return f
+
+        fn = fuse.fused(key, build_exchange)
+        # the exchange itself, nested in the caller's partitionTime span
+        # (the attribution leaves it out: metrics.NESTED_TIME_METRICS)
+        with self.span(self.metrics.metric(M.ICI_EXCHANGE_TIME)):
+            out_planes, _out_live = fn(planes, lives, targets)
+        rows_m = self.metrics.metric(M.NUM_OUTPUT_ROWS)
+        out: List[List[ColumnarBatch]] = []
+        for p in range(n):
+            subs = []
+            for src in range(n):
+                rows = int(counts_host[src, p])
+                if rows == 0:
+                    continue
+                sl = slice(src * send_cap, (src + 1) * send_cap)
+                cols = []
+                for ci, (kind, dtype, doff, dby, uniq, _pdt) in \
+                        enumerate(meta):
+                    data = out_planes[p][f"c{ci}"][sl].to(
+                        self.device, non_blocking=True)
+                    valid = out_planes[p][f"c{ci}_v"][sl].to(
+                        self.device, non_blocking=True)
+                    if kind == "dict":
+                        data = {"codes": data,
+                                "dict_offsets": doff.to(self.device),
+                                "dict_bytes": dby.to(self.device)}
+                    cols.append(ColumnVector(dtype, data, valid,
+                                             dict_unique=uniq))
+                rows_m.add(rows)
+                subs.append(ColumnarBatch(cols, rows))
+            out.append(subs)
+        return out
 
     def _repartition_serialized(self, batches):
         """The device partitioning, then each sub-batch serialized into
@@ -1872,8 +2069,8 @@ class RangeExchangeExec(_ExchangeExec):
                     # a ceil stride spans the whole batch: a prefix would
                     # bias the bounds on input that is already ordered
                     idx = idx[::-(-idx.numel() // budget)][:budget]
-                host = torch.stack([p[idx] for p in planes],
-                                   1).cpu().tolist()
+                # tpulint: disable=TPU-L004 range bounds need the sample values on the host before the slicing kernels can be built: there is no later point to consume a deferred fetch
+                host = torch.stack([p[idx] for p in planes], 1).cpu().tolist()
                 samples.extend(map(tuple, host))
         out: List[List[ColumnarBatch]] = [[] for _ in range(self.n_out)]
         if not samples:
@@ -2937,8 +3134,8 @@ class LimitExec(TorchExec):
     stage its body masks the rows past a budget carried on the device
     instead."""
 
-    def stage_body(self) -> fuse.StageBody:
-        return limit_stage_body(self.plan.n, self.device)
+    def stage_body(self, device=None) -> fuse.StageBody:
+        return limit_stage_body(self.plan.n, device or self.device)
 
     def execute_partition(self, pidx):
         remaining = self.plan.n

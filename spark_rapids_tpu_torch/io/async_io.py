@@ -126,6 +126,7 @@ class ThrottlingExecutor:
     def __init__(self, max_threads: int, controller: TrafficController,
                  pool=None):
         self._owned = pool is None
+        # tpulint: disable=TPU-L002 standalone-writer fallback only: the engine always passes pool= (the shared host pool); an owned executor here serves direct ThrottlingExecutor users (tests, tools) with shutdown() semantics the shared pool must not have
         self.pool = ThreadPoolExecutor(max_workers=max_threads) \
             if pool is None else pool
         self.controller = controller

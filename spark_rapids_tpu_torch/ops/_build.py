@@ -136,15 +136,19 @@ def build_all(names: List[str]) -> Dict[str, str]:
     with _lock:
         t0 = time.perf_counter()
         started = [(n, *_start(n)) for n in names]
-        logs = {}
+        built = []
         for name, proc, out_dir, lib in started:
             _finish(name, proc, out_dir, lib)
             if proc is not None:
                 compile_cache.record_build(time.perf_counter() - t0)
-                with open(os.path.join(out_dir,
-                                       _log_name(_source(name)))) as f:
-                    logs[name] = f.read()
-        return logs
+                built.append((name, os.path.join(out_dir,
+                                                 _log_name(_source(name)))))
+    # the logs are read after the lock: no file I/O in its region
+    logs = {}
+    for name, path in built:
+        with open(path) as f:
+            logs[name] = f.read()
+    return logs
 
 
 def load(name: str) -> ctypes.CDLL:

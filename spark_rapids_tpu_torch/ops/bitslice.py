@@ -105,10 +105,12 @@ def _bitslice(words: torch.Tensor, bitoff: torch.Tensor,
     b = bitoff.contiguous()
     m = mask.contiguous()
     out = torch.empty_like(m)
-    stream = torch.cuda.current_stream(w.device).cuda_stream
-    rc = _lib().bitslice_launch(w.data_ptr(), w.numel(), b.data_ptr(),
-                                m.data_ptr(), out.data_ptr(), b.numel(),
-                                stream)
+    # the launch goes to the current device: make it the tensor's card
+    with torch.cuda.device(w.device):
+        stream = torch.cuda.current_stream(w.device).cuda_stream
+        rc = _lib().bitslice_launch(w.data_ptr(), w.numel(), b.data_ptr(),
+                                    m.data_ptr(), out.data_ptr(), b.numel(),
+                                    stream)
     _build.check(rc, "bitslice")
     with _build.count_lock:
         launches += 1

@@ -67,9 +67,11 @@ def _case_map(raw: torch.Tensor, upper: bool) -> torch.Tensor:
     global launches
     src = raw.contiguous()
     out = torch.empty_like(src)
-    stream = torch.cuda.current_stream(src.device).cuda_stream
-    rc = _lib().case_map_launch(src.data_ptr(), out.data_ptr(), src.numel(),
-                                int(bool(upper)), stream)
+    # the launch goes to the current device: make it the tensor's card
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream(src.device).cuda_stream
+        rc = _lib().case_map_launch(src.data_ptr(), out.data_ptr(),
+                                    src.numel(), int(bool(upper)), stream)
     _build.check(rc, "case_map")
     with _build.count_lock:
         launches += 1

@@ -608,6 +608,30 @@ def unify_vocabs(cols: List[ColumnVector]):
     return uoff, ubytes, remaps
 
 
+def align_dict_columns(cols: List[ColumnVector]) -> List[ColumnVector]:
+    """New dict columns whose codes index one shared union vocabulary
+    (the inputs untouched); the same objects when every vocabulary plane
+    is already shared."""
+    if all(c.data["dict_offsets"] is cols[0].data["dict_offsets"]
+           and c.data["dict_bytes"] is cols[0].data["dict_bytes"]
+           for c in cols[1:]):
+        return list(cols)
+    uoff, ubytes, remaps = unify_vocabs(cols)
+    dev = cols[0].device
+    doff = torch.from_numpy(uoff).to(dev)
+    dby = torch.from_numpy(ubytes).to(dev)
+    out = []
+    for c, remap in zip(cols, remaps):
+        r = torch.from_numpy(remap).to(c.device)
+        codes = r[c.data["codes"].to(torch.int64).clamp(
+            0, max(len(remap) - 1, 0))] if len(remap) else c.data["codes"]
+        out.append(ColumnVector(c.dtype, {"codes": codes,
+                                          "dict_offsets": doff,
+                                          "dict_bytes": dby},
+                                c.validity, dict_unique=True))
+    return out
+
+
 def flatten_dict_column(col: ColumnVector, n: int) -> ColumnVector:
     """The first n rows of a dict-string column as flat offsets + bytes
     (null rows become empty strings); costs one sync for the byte count."""

@@ -123,11 +123,13 @@ def _murmur3_int32(values: torch.Tensor,
     x = values.contiguous()
     seeds = seed.contiguous() if per_row else None
     out = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _lib().murmur3_int32_launch(
-        x.data_ptr(), seeds.data_ptr() if per_row else None,
-        0 if per_row else int(seed) & _M32, out.data_ptr(), x.numel(),
-        stream)
+    # the launch goes to the current device: make it the tensor's card
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _lib().murmur3_int32_launch(
+            x.data_ptr(), seeds.data_ptr() if per_row else None,
+            0 if per_row else int(seed) & _M32, out.data_ptr(), x.numel(),
+            stream)
     _build.check(rc, "murmur3_int32")
     with _build.count_lock:
         launches += 1

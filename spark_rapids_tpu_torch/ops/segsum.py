@@ -99,9 +99,11 @@ def _segsum(gid: torch.Tensor, payload: torch.Tensor,
         raise ValueError("segsum kernel needs gid and payload on 16-byte "
                          "boundaries")
     out = torch.zeros(outcap, p.shape[0], dtype=torch.float32, device=g.device)
-    stream = torch.cuda.current_stream(g.device).cuda_stream
-    rc = _lib().segsum_launch(g.data_ptr(), p.data_ptr(), out.data_ptr(),
-                              g.shape[0], p.shape[0], outcap, stream)
+    # the launch goes to the current device: make it the tensor's card
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        rc = _lib().segsum_launch(g.data_ptr(), p.data_ptr(), out.data_ptr(),
+                                  g.shape[0], p.shape[0], outcap, stream)
     _build.check(rc, "segsum")
     with _build.count_lock:
         launches += 1

@@ -961,8 +961,9 @@ def convert_plan(plan: P.PlanNode, conf, device):
     (``runtime/pipeline.insert_pipelines``), the plan verifier under
     spark.rapids.debug.planVerify.enabled and the LORE dumper under
     spark.rapids.sql.lore.dumpPath, in the JAX package's order: stage
-    fusion (``exec/stage_fusion.fuse_stages``) runs first. Its sharding
-    waits for ROADMAP A12."""
+    fusion (``exec/stage_fusion.fuse_stages``) runs first, then, under
+    spark.rapids.sql.multichip.enabled, its sharding
+    (``exec/sharded.shard_stages``)."""
     # prune imports this module's PROJECT_ONLY_EXPRS
     from spark_rapids_tpu_torch.plan.prune import prune_plan
     plan = localize_plan(plan, conf)
@@ -978,6 +979,11 @@ def convert_plan(plan: P.PlanNode, conf, device):
     # one call a batch (spark.rapids.sql.stageFusion.enabled)
     from spark_rapids_tpu_torch.exec.stage_fusion import fuse_stages
     root = fuse_stages(root, conf)
+    # multichip sharding: eligible fused stages run one call a device a
+    # wave of partition batches (ineligible ones record their reason)
+    if conf.get(C.MULTICHIP_ENABLED):
+        from spark_rapids_tpu_torch.exec.sharded import shard_stages
+        root = shard_stages(root, conf, device)
     # pipelined execution: bounded producer/consumer boundaries at
     # scan->compute edges (spark.rapids.sql.pipeline.enabled)
     from spark_rapids_tpu_torch.runtime.pipeline import insert_pipelines
@@ -1193,11 +1199,13 @@ def _measured_collapse() -> bool:
 
 
 def _convert_aggregate(plan, child, conf, device):
-    """The JAX package's single-device aggregate plan, with its measured
-    collapse of a segmented aggregate's hash exchange into a collect
-    (``_measured_collapse``). The port holds one device per session, so
-    the JAX package's multi-device branch (partial -> hash exchange ->
-    final) waits for ROADMAP A12."""
+    """The JAX package's aggregate plan, with its measured collapse of an
+    exchange into a collect (``_measured_collapse``). On one mesh device
+    (``parallel/mesh.mesh_devices``) with a shuffle mode other than ICI,
+    a multi-partition input estimated at most COLLECT_COMPLETE_MAX_ROWS
+    rows is collected and aggregated once; otherwise the plan is partial
+    -> hash exchange by the group keys -> final (a collect without
+    keys)."""
     pre_filter = None
     if isinstance(child, X.FilterExec) \
             and not E.needs_partition_context(child.plan.condition):
@@ -1220,20 +1228,33 @@ def _convert_aggregate(plan, child, conf, device):
             child = X.CollectExchangeExec(plan, [child], conf, device)
         return X.HashAggregateExec(plan, [child], conf, device,
                                    pre_filter=pre_filter)
-    est = plan.children[0].estimated_rows()
-    if est is not None and est <= COLLECT_COMPLETE_MAX_ROWS:
-        # every partition lives on the one device and the raw input fits:
-        # collect it and aggregate once, completely
-        child = X.CoalesceBatchesExec(
-            plan, [X.CollectExchangeExec(plan, [child], conf, device)],
-            conf, device)
-        return X.HashAggregateExec(plan, [child], conf, device,
-                                   pre_filter=pre_filter)
+    from spark_rapids_tpu_torch.parallel.mesh import mesh_devices
+    single_device = len(mesh_devices(like=device)) == 1 \
+        and X.shuffle_mode(conf) != "ICI"
+    if single_device:
+        est = plan.children[0].estimated_rows()
+        if est is not None and est <= COLLECT_COMPLETE_MAX_ROWS:
+            # every partition lives on the one device and the raw input
+            # fits: collect it and aggregate once, completely
+            child = X.CoalesceBatchesExec(
+                plan, [X.CollectExchangeExec(plan, [child], conf, device)],
+                conf, device)
+            return X.HashAggregateExec(plan, [child], conf, device,
+                                       pre_filter=pre_filter)
     partial = X.HashAggregateExec(plan, [child], conf, device,
                                   mode="partial", pre_filter=pre_filter)
-    return X.HashAggregateExec(
-        plan, [X.CollectExchangeExec(plan, [partial], conf, device)], conf,
-        device, mode="final")
+    if plan.group_exprs and not single_device and not _measured_collapse():
+        # several devices: the partial states meet by group key in a real
+        # exchange (the lane exchange under ICI or multichip)
+        keys = [E.BoundRef(i, e.data_type(), n) for i, (e, n) in
+                enumerate(zip(plan.group_exprs, plan.group_names))]
+        exch = X.ShuffleExchangeExec(plan, [partial], conf, device, keys,
+                                     child.num_partitions)
+    else:
+        # one device: a hash exchange between partial and final states
+        # would only re-slice planes that already live together
+        exch = X.CollectExchangeExec(plan, [partial], conf, device)
+    return X.HashAggregateExec(plan, [exch], conf, device, mode="final")
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,9 @@ layers, as in the JAX package:
    ``compile_cache.jit`` sites have no counterpart: eager PyTorch
    compiles nothing per signature. The port's only compiled code is its
    hand kernels, rostered in ``analysis/kernel_audit.KERNEL_PRIMITIVES``
-   (every module that loads a ``csrc/*.cu`` library).
+   (every module that loads a ``csrc/*.cu`` library); the modules that
+   may load a ``csrc/`` library at all are ``SANCTIONED_KERNEL_MODULES``
+   (the linter's TPU-L010).
 
 3. **The kernel-build counters and the build directory.** The JAX
    package counts XLA backend compiles and its persistent compilation
@@ -51,6 +53,19 @@ import time
 from typing import Callable, Dict, Optional, Tuple
 
 from spark_rapids_tpu_torch.analysis import sanitizer as _san
+
+#: Modules allowed to load a ``csrc/`` library (``ops/_build.load``): the
+#: hand kernels' wrappers and the shuffle's host frame packer. The
+#: linter's TPU-L010 fails a load site anywhere else, so every build
+#: stays counted here and every kernel stays in the cost auditor's
+#: roster (TPU-L013).
+SANCTIONED_KERNEL_MODULES = (
+    "ops/bitslice.py",
+    "ops/case_map.py",
+    "ops/murmur3_kernel.py",
+    "ops/segsum.py",
+    "shuffle/serde.py",
+)
 
 _CACHE: Dict[Tuple, Callable] = {}
 _LOCK = _san.lock("runtime.compile_cache")
@@ -102,6 +117,13 @@ def _fp_of(c) -> Tuple:
     if fp is None:
         fp = (bool(c.get(C.ANSI_ENABLED)),
               bool(c.get(C.IMPROVED_FLOAT_OPS)))
+        if c.get(C.MULTICHIP_ENABLED):
+            # a sharded stage function is built for one mesh size: a
+            # 1-device and an 8-device session never share an entry. The
+            # component is there only while multichip is on, so one-device
+            # keys stay as they were.
+            from spark_rapids_tpu_torch.parallel.mesh import mesh_fingerprint
+            fp = fp + ("mesh",) + mesh_fingerprint(c)
         try:
             c._compile_fp = fp
         except Exception:  # noqa: BLE001 - a frozen conf recomputes

@@ -139,6 +139,7 @@ class SpillableHandle:
         possibly themselves rematerializing, as victims: holding the
         lock across that is an ABBA deadlock). The handle is pinned for
         the duration so concurrent spills skip it."""
+        # tpulint: disable=TPU-L001 np.load/unlink must be atomic with the DISK->HOST tier transition (a concurrent spill observing DISK mid-load would double-free the paths); per-handle lock, rematerialization path only
         with self._lock:
             if self._closed:
                 raise ValueError("handle closed")

@@ -677,7 +677,8 @@ def on_query_end(token, *, session, plan, status: str,
                 aqe=aqe_doc,
                 slo_breach=breach, flight_dump=flight_dump,
                 digest=digest, replica_id=st.replica_id or None,
-                trace_id=rctx.trace_id if rctx is not None else None)
+                trace_id=rctx.trace_id if rctx is not None else None,
+                mesh=_mesh_doc(session))
             st.history.append(rec)
         st.last_query = {
             "query_id": token, "status": status,
@@ -715,6 +716,21 @@ def peek_metrics(session) -> Dict[str, dict]:
     except Exception:  # noqa: BLE001 - a partial rollup still publishes
         pass
     return out
+
+
+def _mesh_doc(session) -> Optional[dict]:
+    """The history record's ``mesh`` under spark.rapids.sql.multichip.
+    enabled, else None (best effort: history never fails a query)."""
+    try:
+        conf = getattr(session, "conf", None)
+        from spark_rapids_tpu_torch import config as C
+        if conf is None or not conf.get(C.MULTICHIP_ENABLED):
+            return None
+        from spark_rapids_tpu_torch.parallel import mesh as _mesh
+        return {"n_devices": _mesh.multichip_devices(conf),
+                "axes": [_mesh.PART_AXIS]}
+    except Exception:  # noqa: BLE001 - history never fails a query
+        return None
 
 
 def _publish_exec_rollups(reg: MetricsRegistry, snaps: Dict[str, dict]

@@ -17,8 +17,9 @@ roofline verdicts.
 The record has the JAX package's keys on its default path, and its
 ``roofline`` when the kernel cost audit was on
 (``analysis/kernel_audit.py``), and its ``trace_id`` when a serving
-request carried the query (``runtime/obs/reqtrace.py``). It carries no
-``mesh`` (one card per session); ``fusion_groups`` lists the plan's
+request carried the query (``runtime/obs/reqtrace.py``), and its
+``mesh`` ({"n_devices", "axes"}) when the session ran under
+spark.rapids.sql.multichip.enabled (``parallel/mesh.py``); ``fusion_groups`` lists the plan's
 fused stages and absorbed chains (``exec/stage_fusion.fusion_groups``).
 The serving layer appends a second record type, ``result_cache_hit``
 (digest, wall ms, replica, trace id), for a request its result cache
@@ -133,7 +134,8 @@ def build_query_record(*, query_id: int, wall_start_unix: float,
                        flight_dump: Optional[str] = None,
                        digest: Optional[str] = None,
                        replica_id: Optional[str] = None,
-                       trace_id: Optional[str] = None) -> dict:
+                       trace_id: Optional[str] = None,
+                       mesh: Optional[dict] = None) -> dict:
     """Assemble one history record from a finished action's state. Every
     sub-extraction is best-effort: history never fails a query. ``snaps``
     is the caller's ``last_metrics()`` snapshot; the rollups and the
@@ -154,6 +156,11 @@ def build_query_record(*, query_id: int, wall_start_unix: float,
         # the W3C trace id of the serving request that carried this
         # query: the history <-> reqtrace-timeline join key
         rec["trace_id"] = trace_id
+    if mesh is not None:
+        # the mesh of a sharded run: per-digest latencies compare only
+        # across runs of the same mesh size. Absent on one-device
+        # records, which keep the default path's keys.
+        rec["mesh"] = mesh
     if degraded_reason is not None:
         rec["degraded_reason"] = degraded_reason
     if attribution is not None:

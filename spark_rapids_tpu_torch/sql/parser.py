@@ -326,7 +326,7 @@ class _Parser:
         fn = getattr(F, name.lower(), None)
         if fn is None or not callable(fn):
             raise SparkException(f"SQL: unknown function {name!r}")
-        out = fn(*args)
+        out = fn(*_python_ints(fn, args))
         if self.kw("over"):
             out = self._over(out)
         return out
@@ -383,6 +383,15 @@ class _Parser:
         if isinstance(fn, AggFunction):
             return WE.over(fn, spec)
         return fn.over(spec)
+
+    def _reject_trailing(self):
+        """A clause's expression must end at a keyword, a parenthesis or
+        the end: anything else (an infix RLIKE, a stray name) is trailing
+        input, raised before the clause builds a plan node whose own
+        checks would name another cause."""
+        k, v = self.peek()
+        if k in ("id", "num", "str"):
+            raise SparkException(f"SQL: trailing input at {v!r}")
 
     def _scalar_or_expr(self):
         """Trailing function args: plain (optionally negative) numeric
@@ -789,7 +798,9 @@ class _Parser:
                     "SQL: EXISTS/IN subqueries are only supported in "
                     "WHERE")
         if self.kw("where"):
-            df = self._apply_where(df, self.expr(), outer_scope)
+            cond = self.expr()
+            self._reject_trailing()
+            df = self._apply_where(df, cond, outer_scope)
         group_keys, group_mode = None, None
         if self.kw("group", "by"):
             if self.kw("rollup") or self.kw("cube"):
@@ -848,13 +859,27 @@ class _Parser:
             return None, None
 
         if group_keys is not None:
+            # an expression key is grouped under the name of the SELECT
+            # item that repeats it, and that item reads the key column
+            # (Spark's semantics; evaluating it again above the aggregate
+            # would read input columns the aggregate no longer has)
+            key_cols = {}
+            if group_mode is None:
+                group_keys = _name_expression_keys(group_keys, items,
+                                                   key_cols)
             aggs, out_names = [], []
             for j, it in enumerate(items):
                 fn, nm = agg_of(it)
+                inner = it.children[0] if isinstance(it, E.Alias) else it
                 if fn is not None:
                     nm = nm or expr_name(it, j)
                     aggs.append(NamedAgg(fn, nm))
                     out_names.append(E.col(nm))
+                elif inner.fingerprint() in key_cols:
+                    kn = key_cols[inner.fingerprint()]
+                    nm = expr_name(it, j)
+                    out_names.append(E.col(kn) if nm == kn
+                                     else E.col(kn).alias(nm))
                 else:
                     out_names.append(it)
 
@@ -870,6 +895,8 @@ class _Parser:
                     nm = f"__having{len(aggs)}"
                     aggs.append(NamedAgg(e, nm))
                     return E.col(nm)
+                if e.fingerprint() in key_cols:
+                    return E.col(key_cols[e.fingerprint()])
                 return e.with_children(
                     [fold_agg(c) for c in e.children])
 
@@ -1066,6 +1093,48 @@ class _Parser:
             raise SparkException(
                 f"SQL: trailing input at {self.peek()[1]!r}")
         return df
+
+
+def _name_expression_keys(group_keys, items, key_cols):
+    """``group_keys`` with each expression key (not a bare column)
+    that a SELECT item repeats aliased to that item's output name; fills
+    ``key_cols`` with key fingerprint -> key column name."""
+    from spark_rapids_tpu_torch.plan.nodes import expr_name
+    out = []
+    for key in group_keys:
+        if isinstance(key, (E.Col, E.Alias, E.BoundRef)):
+            out.append(key)
+            continue
+        fp = key.fingerprint()
+        for j, it in enumerate(items):
+            inner = it.children[0] if isinstance(it, E.Alias) else it
+            if inner.fingerprint() == fp:
+                name = expr_name(it, j)
+                key_cols[fp] = name
+                key = key.alias(name)
+                break
+        out.append(key)
+    return out
+
+
+def _python_ints(fn, args):
+    """``args`` with each integer literal at a parameter that
+    ``sql.functions`` annotates ``int`` (``ntile(n)``) passed as its
+    value, as Spark takes a literal there."""
+    import inspect
+    try:
+        params = list(inspect.signature(fn).parameters.values())
+    except (TypeError, ValueError):
+        return args
+    out = list(args)
+    for i, (a, prm) in enumerate(zip(args, params)):
+        if prm.kind in (prm.VAR_POSITIONAL, prm.VAR_KEYWORD):
+            break
+        if prm.annotation in (int, "int") and isinstance(a, E.Literal) \
+                and isinstance(a.value, int) \
+                and not isinstance(a.value, bool):
+            out[i] = a.value
+    return out
 
 
 def parse_sql(text: str, session):

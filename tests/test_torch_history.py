@@ -783,10 +783,13 @@ def test_config_keys_registered_at_jax_defaults():
                 "spark.rapids.sql.adaptive.measuredCost.enabled"):
         assert PC.registry()[key].default == JC.registry()[key].default
     # 99 keys, the stage fusion and shape-ladder keys, the audit,
-    # compile and profile keys, then the reqtrace and serving keys: all
-    # of the JAX package's 129 but spark.rapids.sql.multichip.*
-    assert len(PC.keys()) == 127
+    # compile and profile keys, the reqtrace and serving keys, then
+    # spark.rapids.sql.multichip.*: all of the JAX package's 129
+    assert len(PC.keys()) == 129
+    assert set(PC.keys()) == set(JC.registry())
     for key in ("spark.rapids.sql.stageFusion.enabled",
+                "spark.rapids.sql.multichip.enabled",
+                "spark.rapids.sql.multichip.devices",
                 "spark.rapids.compile.shapes.growthFactor",
                 "spark.rapids.compile.shapes.dtypeAlign",
                 "spark.rapids.tpu.batchCapacityMinRows",

@@ -8,7 +8,10 @@ exception with the same message in both. Then: replacing a temp view,
 the list of the JAX package's functions the port lacks (``functions.
 NOT_PORTED``, held equal to the difference of the two modules' public
 functions), a call of one of them raising naming ROADMAP A9, and the
-datetime functions reaching the port.
+datetime functions reaching the port. C29-C31 (ROADMAP queue C):
+``ntile(n)`` and ``GROUP BY <expr>`` through SQL answer as Spark does
+where the JAX package raises (both answers asserted), and an infix RLIKE
+raises the JAX package's trailing-input message.
 
 Tolerances: keys, counts and strings exact; float results relative 1e-12
 (the JAX package plans a multi-partition aggregate over the tests' eight
@@ -168,7 +171,17 @@ ERRORS = [
     ("main", "SELECT EXISTS(SELECT * FROM t) AS e FROM t", False),
     ("main", "SELECT k, COUNT(*) FROM t GROUP BY k "
              "HAVING EXISTS(SELECT * FROM t)", False),
+    # C31: an infix RLIKE is trailing input, raised before the filter's
+    # own type check could name another cause
+    ("main", "SELECT COUNT(*) AS n FROM t WHERE name RLIKE '^n1'", True),
 ]
+
+#: ERRORS' messages that are pinned, not only held equal to the JAX
+#: package's
+ERROR_MESSAGES = {
+    "SELECT COUNT(*) AS n FROM t WHERE name RLIKE '^n1'":
+        "SQL: trailing input at 'RLIKE'",
+}
 
 
 @pytest.mark.parametrize("case", list(QUERIES),
@@ -199,6 +212,59 @@ def test_sql_errors_like_jax(case, sessions):
     port, ref = sessions[world]
     got, want = _raised(port, query, collect), _raised(ref, query, collect)
     assert got is not None and got == want
+    if query in ERROR_MESSAGES:
+        assert got == ("SparkException", ERROR_MESSAGES[query])
+
+
+def test_ntile_through_sql_c29(sessions):
+    """C29: ``ntile(n)`` through SQL takes the integer literal's value, as
+    Spark does; the JAX package passes the parsed literal to
+    ``functions.ntile(n: int)`` and raises a TypeError."""
+    port, ref = sessions["main"]
+    for n, want in ((3, [1, 1, 2, 2, 3]), (1, [1, 1, 1, 1, 1])):
+        q = (f"SELECT k, ntile({n}) OVER (ORDER BY k) AS nt FROM d "
+             "ORDER BY k")
+        assert port.sql(q).collect()["nt"].to_pylist() == want
+        with pytest.raises(TypeError, match="Literal"):
+            ref.sql(q).collect()
+
+
+@pytest.mark.parametrize("query,want", [
+    ("SELECT k + 1, COUNT(*) AS n FROM t GROUP BY k + 1",
+     {"col0": [1, 2, 3, 4, 5]}),
+    ("SELECT k % 2 AS m, COUNT(*) AS n FROM t GROUP BY k % 2 "
+     "HAVING k % 2 >= 0", {"m": [0, 1]}),
+    ("SELECT year(dt) AS y, COUNT(*) AS n FROM t GROUP BY year(dt)",
+     {"y": [2020, 2021]}),
+], ids=["k_plus_1", "g_mod_2_having", "year_of_dt"])
+def test_group_by_an_expression_c30(query, want):
+    """C30: ``GROUP BY <expr>`` groups by the expression and a SELECT item
+    equal to it, with or without an alias, reads the aggregate's key
+    column (Spark's answer); the JAX package evaluates the item again
+    above the aggregate and raises a KeyError."""
+    import datetime
+    rng = np.random.default_rng(30)
+    k = rng.integers(0, 5, 200)
+    t = pa.table({"k": k.tolist(),
+                  "dt": [datetime.date(2020 + int(i) % 2, 3, 1)
+                         for i in range(200)]})
+    (name, keys), = want.items()
+    port = torch_api().session()
+    port.create_or_replace_temp_view("t", port.create_dataframe(t))
+    got = port.sql(query).collect()
+    assert sorted(got[name].to_pylist()) == keys
+    counts = dict(zip(got[name].to_pylist(), got["n"].to_pylist()))
+    if "year" in query:
+        expect = {2020: 100, 2021: 100}
+    elif "%" in query:
+        expect = {m: int(((k % 2) == m).sum()) for m in (0, 1)}
+    else:
+        expect = {v + 1: int((k == v).sum()) for v in range(5)}
+    assert counts == expect
+    ref = jax_api().session()
+    ref.create_or_replace_temp_view("t", ref.create_dataframe(t))
+    with pytest.raises(KeyError, match="not found"):
+        ref.sql(query).collect()
 
 
 def test_temp_view_replacement():
